@@ -1,0 +1,73 @@
+"""The weight bridge: the reference's parameter tree → the port's.
+
+``apex_tpu``'s ``GPTModel.init`` returns a pytree whose ``layers`` leaves
+are stacked ``[num_layers, ...]``; handed over as numpy arrays (no JAX
+import here), :func:`params_from_jax` unstacks them into the port's list
+of per-layer dicts. Weights keep their ``(out, in)`` layout, which is
+already PyTorch's. The tests feed both packages the same weights this way.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from apex_tpu_torch.models.gpt import GPTConfig
+from apex_tpu_torch.ops import _backend
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16: same bits as torch's
+        t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr, copy=True))
+    return t.to(device)
+
+
+def _expect(name: str, t: torch.Tensor, shape) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)} for this "
+                         f"GPTConfig, got {tuple(t.shape)}")
+
+
+def params_from_jax(tree: Dict, config: GPTConfig, *,
+                    device: Optional[Union[str, torch.device]] = None
+                    ) -> Dict[str, object]:
+    """``GPTModel.init``'s tree (numpy leaves: ``embedding.weight``,
+    ``pos_embedding``, stacked ``layers``, ``lnf_w``/``lnf_b``) → the
+    port's parameter dict on ``device`` (default: the card). Every shape
+    is checked against ``config``."""
+    dev = _backend.resolve_device(device)
+    c = config
+    H, L = c.hidden_size, c.num_layers
+    out = {
+        "embedding": {"weight": _tensor(tree["embedding"]["weight"], dev)},
+        "pos_embedding": _tensor(tree["pos_embedding"], dev),
+        "lnf_w": _tensor(tree["lnf_w"], dev),
+        "lnf_b": _tensor(tree["lnf_b"], dev),
+    }
+    _expect("embedding.weight", out["embedding"]["weight"],
+            (c.vocab_size, H))
+    _expect("pos_embedding", out["pos_embedding"], (c.max_seq_len, H))
+    stacked = {
+        name: ({k: _tensor(v, dev) for k, v in leaf.items()}
+               if isinstance(leaf, dict) else _tensor(leaf, dev))
+        for name, leaf in tree["layers"].items()}
+    shapes = {"ln1_w": (H,), "ln1_b": (H,), "ln2_w": (H,), "ln2_b": (H,),
+              "qkv.weight": (c.qkv_features, H), "qkv.bias": (c.qkv_features,),
+              "attn_out.weight": (H, H), "attn_out.bias": (H,),
+              "mlp_up.weight": (c.ffn, H), "mlp_up.bias": (c.ffn,),
+              "mlp_down.weight": (H, c.ffn), "mlp_down.bias": (H,)}
+    for key, shape in shapes.items():
+        mod, _, leaf = key.partition(".")
+        t = stacked[mod][leaf] if leaf else stacked[mod]
+        _expect(f"layers.{key}", t, (L, *shape))
+    out["layers"] = [
+        {name: ({k: v[i] for k, v in leaf.items()}
+                if isinstance(leaf, dict) else leaf[i])
+         for name, leaf in stacked.items()}
+        for i in range(L)]
+    return out

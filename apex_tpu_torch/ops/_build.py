@@ -1,0 +1,145 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``*.cu`` under ``apex_tpu_torch/csrc/`` is compiled by ``nvcc`` for
+``sm_90a`` — one ``nvcc`` process per source, all started together — and
+linked into ONE shared library with a plain C interface, loaded with
+``ctypes``. No PyTorch header is compiled (that build takes minutes; this
+one seconds). ``--use_fast_math`` is deliberately absent: the sampling
+kernel's ``logf``/``expf`` must be the accurate ones its plain version
+matches.
+
+The build runs at first use, never at import (the CPU tests import every
+module), into ``apex_tpu_torch/_build/`` (listed in ``.gitignore``). The
+library's file name carries a digest of the sources and flags, so an edit
+to any source rebuilds and a stale library is never loaded.
+
+Each C entry point returns the ``cudaGetLastError()`` of its launch;
+:func:`check` raises on anything but 0 — a launch the card refuses (too
+much shared memory, a bad configuration) never runs, and a later
+``synchronize()`` would not report it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+from typing import List
+
+from apex_tpu_torch import nvcc_path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# name -> argtypes of every C entry point the library exports
+ENTRY_POINTS = {
+    # q, k_pool, v_pool, tables, lengths, out, dtype, b, h_kv, group, d,
+    # bs, nb, scale, stream
+    "apex_paged_decode_attn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _F, _P],
+    # logits, u, out, dtype, b, V, inv_temp, top_k, use_top_p, top_p,
+    # stream
+    "apex_fused_sample": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _F, _P],
+}
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(ARCH_FLAGS + COMPILE_FLAGS).encode())
+    for path in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libapex_tpu_torch_{_digest()}.so"
+
+
+def build() -> Path:
+    """Compile (if the digest-named library is missing) and return its
+    path. Raises with the compiler's output when a source fails."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    nvcc = nvcc_path()
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found ($CUDA_HOME/bin/nvcc, /usr/local/cuda/bin/nvcc "
+            "or PATH): the port's CUDA kernels are built from source at "
+            "first use")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{os.getpid()}"
+    procs = []
+    for src in sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *ARCH_FLAGS, *COMPILE_FLAGS, "-I", str(CSRC_DIR),
+               "-c", str(src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for src, _, proc in procs:
+        out, _ = proc.communicate()
+        log.append(f"== {src.name} (rc {proc.returncode})\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if not failed:
+        tmp = BUILD_DIR / f"{lib.name}.{tag}.tmp"
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+             *[str(obj) for _, obj, _ in procs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log.append(f"== link (rc {link.returncode})\n{link.stdout}")
+        if link.returncode != 0:
+            failed.append("link")
+        else:
+            os.replace(tmp, lib)
+    for _, obj, _ in procs:
+        obj.unlink(missing_ok=True)
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError(f"kernel build failed ({', '.join(failed)}):\n"
+                           + "\n".join(log))
+    return lib
+
+
+def build_log() -> str:
+    """The last build's compiler output (``-Xptxas -v``: registers,
+    shared memory and spills per kernel), or '' before any build."""
+    path = BUILD_DIR / "build.log"
+    return path.read_text() if path.exists() else ""
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.apex_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.apex_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if rc != 0:
+        msg = library().apex_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")

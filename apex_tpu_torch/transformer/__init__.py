@@ -1,0 +1,1 @@
+"""Port of :mod:`apex_tpu.transformer` (the tensor-parallel layers at tp=1)."""

@@ -1,0 +1,4 @@
+"""Port of :mod:`apex_tpu.transformer.tensor_parallel` at tp=1."""
+
+from apex_tpu_torch.transformer.tensor_parallel.layers import (  # noqa: F401
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
