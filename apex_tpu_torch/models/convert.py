@@ -1,10 +1,13 @@
-"""The weight bridge: the reference's parameter tree → the port's.
+"""The weight bridge between the reference's parameter tree and the port's.
 
 ``apex_tpu``'s ``GPTModel.init`` returns a pytree whose ``layers`` leaves
 are stacked ``[num_layers, ...]``; handed over as numpy arrays (no JAX
 import here), :func:`params_from_jax` unstacks them into the port's list
-of per-layer dicts. Weights keep their ``(out, in)`` layout, which is
-already PyTorch's. The tests feed both packages the same weights this way.
+of per-layer dicts, and :func:`params_to_jax` stacks the port's params (or
+gradients, which share their layout) back into the reference's tree.
+Weights keep their ``(out, in)`` layout, which is already PyTorch's. The
+tests feed both packages the same weights this way, and compare gradients
+and optimizer state leaf by leaf.
 """
 
 from __future__ import annotations
@@ -70,4 +73,46 @@ def params_from_jax(tree: Dict, config: GPTConfig, *,
                 if isinstance(leaf, dict) else leaf[i])
          for name, leaf in stacked.items()}
         for i in range(L)]
+    return out
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bf16 widens to float32, which holds it exactly
+    (numpy has no bfloat16 of its own)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def params_to_jax(params: Dict[str, object],
+                  config: GPTConfig) -> Dict[str, object]:
+    """The port's parameter (or gradient) dict → the reference's tree:
+    numpy leaves, ``layers`` stacked ``[num_layers, ...]``. bf16 leaves
+    come back as float32 (exact). Shapes are checked against ``config``."""
+    c = config
+    layers = params["layers"]
+    if len(layers) != c.num_layers:
+        raise ValueError(f"expected {c.num_layers} layers for this "
+                         f"GPTConfig, got {len(layers)}")
+
+    def stack(name, leaf=None):
+        return np.stack([_array(lay[name] if leaf is None else
+                                lay[name][leaf]) for lay in layers])
+
+    stacked = {}
+    for name, first in layers[0].items():
+        stacked[name] = ({k: stack(name, k) for k in first}
+                         if isinstance(first, dict) else stack(name))
+    out = {"embedding": {"weight": _array(params["embedding"]["weight"])},
+           "pos_embedding": _array(params["pos_embedding"]),
+           "layers": stacked,
+           "lnf_w": _array(params["lnf_w"]),
+           "lnf_b": _array(params["lnf_b"])}
+    H = c.hidden_size
+    _expect("embedding.weight", out["embedding"]["weight"],
+            (c.vocab_size, H))
+    _expect("pos_embedding", out["pos_embedding"], (c.max_seq_len, H))
+    _expect("layers.qkv.weight", stacked["qkv"]["weight"],
+            (c.num_layers, c.qkv_features, H))
     return out

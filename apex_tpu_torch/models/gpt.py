@@ -1,17 +1,25 @@
-"""GPT's decode branch: what the serving engine runs, per layer and per token.
+"""GPT: the training forward and the decode branch, at tp=1 with a dense MLP.
 
-Port of ``apex_tpu/models/gpt.py`` at tp=1 with a dense MLP: the config
-fields the serving path reads, the parameter initialisation
-(``GPTModel.init``, ``:295-328``, same distributions), and the KV-cached
-inference branch — :meth:`GPTModel.decode_qkv`, :meth:`GPTModel.
-decode_block` (``:684-763``), the tanh-GELU MLP (``:576-582``) and the
-tied LM head (``:855``). Parameters are a plain dict of tensors in the
+Port of ``apex_tpu/models/gpt.py``: the config, the parameter
+initialisation (``GPTModel.init``, ``:295-328``, same distributions), the
+training forward — :meth:`GPTModel._attention` (the fused packed-QKV
+flash route of ``:372-407``), :meth:`GPTModel._block` (``:621-645``),
+:meth:`GPTModel.wrapped_block` (``:647-670``), :meth:`GPTModel.
+hidden_states` (``:767-837``), :meth:`GPTModel.logits` and
+:meth:`GPTModel.loss_fn` (``:857-880``) — and the KV-cached inference
+branch, :meth:`GPTModel.decode_qkv` and :meth:`GPTModel.decode_block`
+(``:684-763``), with the tanh-GELU MLP (``:576-582``) and the tied LM
+head (``:855``). Parameters are a plain dict of tensors in the
 reference's tree layout, except that ``layers`` is a list of per-layer
-dicts instead of stacked leaves (:func:`apex_tpu_torch.models.convert.
-params_from_jax` converts).
+dicts instead of stacked leaves (:mod:`apex_tpu_torch.models.convert`
+converts both ways).
 
-The training forward, its flash-attention kernels and the parallel forms
-are later slices of the port.
+A train step is ``loss_fn`` then ``backward()`` then one
+:class:`apex_tpu_torch.optimizers.FusedAdam` step over
+:func:`param_leaves`. Still later slices, raising
+``NotImplementedError`` where asked for: dropout, remat policies other
+than ``"full"``, the softmax and naive attention routes, MoE, and every
+tensor/sequence/context-parallel knob.
 """
 
 from __future__ import annotations
@@ -21,19 +29,25 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from apex_tpu_torch.ops import _backend
 from apex_tpu_torch.ops.attention import (bshd_output_projection,
-                                          bshd_qkv_projection)
+                                          bshd_qkv_projection,
+                                          fused_qkv_attention)
 from apex_tpu_torch.ops.decode_attention import (KERNEL_GROUPS,
                                                  KERNEL_HEAD_DIMS,
                                                  KERNEL_MAX_BLOCK,
                                                  decode_attention)
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm
 from apex_tpu_torch.transformer.tensor_parallel import (
-    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
+    masked_mean, vocab_parallel_cross_entropy)
 
 Params = Dict[str, object]
+
+ATTENTION_IMPLS = ("softmax", "flash", "naive")
+REMAT_POLICIES = ("full", "save_attn", "save_attn_mlp", "mlp_only")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,8 +61,38 @@ class GPTConfig:
     # grouped-query attention: None = num_heads (MHA), 1 = MQA
     num_kv_heads: Optional[int] = None
     dtype: torch.dtype = torch.float32  # parameter dtype
+    # the reference's training knobs, with its defaults; the training
+    # forward supports dropout 0, remat_policy "full" and attention "flash"
+    dropout: float = 0.0
+    remat: bool = True
+    remat_policy: str = "full"
+    attention_impl: str = "softmax"
+    # scan vs unrolled layer loop: the port always runs an unrolled Python
+    # loop over the layer list; the flag is accepted for config parity and
+    # changes nothing numerically
+    scan_layers: bool = True
+    # parallel and MoE knobs: accepted at their single-device values only
+    tp_size: int = 1
+    sequence_parallel: bool = False
+    tp_overlap: bool = False
+    cp_axis: Optional[str] = None
+    moe_num_experts: Optional[int] = None
 
     def __post_init__(self):
+        if self.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"attention_impl must be softmax|flash|naive, "
+                             f"got {self.attention_impl!r}")
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be full|save_attn|"
+                             f"save_attn_mlp|mlp_only, got "
+                             f"{self.remat_policy!r}")
+        if (self.tp_size != 1 or self.sequence_parallel or self.tp_overlap
+                or self.cp_axis is not None
+                or self.moe_num_experts is not None):
+            raise NotImplementedError(
+                "tensor/sequence/context parallelism and MoE are later "
+                "slices of the port; use tp_size=1, no sequence_parallel, "
+                "tp_overlap or cp_axis, and a dense MLP")
         if self.hidden_size % self.num_heads:
             raise ValueError(
                 f"hidden_size ({self.hidden_size}) must be divisible by "
@@ -195,3 +239,102 @@ class GPTModel:
     def unembed(self, params, x) -> torch.Tensor:
         """Tied LM head: hidden states → logits (…, V)."""
         return F.linear(x, params["embedding"]["weight"])
+
+    # --- training forward -----------------------------------------------------
+
+    def check_train_supported(self) -> None:
+        """Raise for the training knobs that are later slices of the port."""
+        c = self.config
+        if c.dropout > 0:
+            raise NotImplementedError(
+                "dropout > 0 (the reference's counter-hash masks, "
+                "dropout_keep) is a later slice of the port; use dropout=0")
+        if c.attention_impl != "flash":
+            raise NotImplementedError(
+                f"attention_impl={c.attention_impl!r} (materialised scores) "
+                f"is a later slice of the port; the training forward runs "
+                f"attention_impl='flash'")
+        if c.remat and c.remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy={c.remat_policy!r} is a later slice of the "
+                f"port; use remat_policy='full' or remat=False")
+
+    def _attention(self, p, x, impl: str = "auto") -> torch.Tensor:
+        """The fused route of the reference's flash attention: packed QKV
+        GEMM → flash kernels on windows of the packed buffer → output GEMM
+        (:func:`fused_qkv_attention`), then the output bias. On a CUDA
+        tensor a shape the kernels refuse (``packed_kernel_ok``)
+        raises: there is no route through materialised scores."""
+        c = self.config
+        h, hkv, d = c.num_heads, c.kv_heads, c.head_dim
+        y = fused_qkv_attention(x, p["qkv"]["weight"], p["qkv"].get("bias"),
+                                p["attn_out"]["weight"], h, hkv, d,
+                                1.0 / float(d) ** 0.5, True, impl=impl)
+        if "bias" in p["attn_out"]:
+            y = y + p["attn_out"]["bias"]
+        return y
+
+    def _block(self, p, x, impl: str = "auto") -> torch.Tensor:
+        """Residual block: x + attn(LN(x)), then + mlp(LN(x))."""
+        x = x + self._attention(p, fused_layer_norm(x, p["ln1_w"],
+                                                    p["ln1_b"]), impl)
+        return x + self._mlp(p, fused_layer_norm(x, p["ln2_w"], p["ln2_b"]))
+
+    def wrapped_block(self):
+        """The block with the config's remat policy applied: ``remat`` with
+        policy ``"full"`` recomputes the whole block in the backward
+        (``torch.utils.checkpoint``, non-reentrant — the reference's
+        ``jax.checkpoint`` default)."""
+        if not self.config.remat:
+            return self._block
+
+        def block(p, x, impl="auto"):
+            return checkpoint(self._block, p, x, impl, use_reentrant=False)
+
+        return block
+
+    def hidden_states(self, params: Params, tokens: torch.Tensor, *,
+                      impl: str = "auto") -> torch.Tensor:
+        """(b, s) token ids → final-LN hidden states (b, s, H): embedding
+        plus ``pos_embedding[:s]``, the blocks in an unrolled loop, the
+        final LN."""
+        self.check_train_supported()
+        c = self.config
+        s = tokens.shape[1]
+        if s > c.max_seq_len:
+            raise ValueError(f"sequence {s} exceeds max_seq_len "
+                             f"{c.max_seq_len}")
+        x = self.embedding(params["embedding"], tokens)
+        x = x + params["pos_embedding"][:s]
+        block = self.wrapped_block()
+        for layer in params["layers"]:
+            x = block(layer, x, impl)
+        return fused_layer_norm(x, params["lnf_w"], params["lnf_b"])
+
+    def logits(self, params: Params, tokens: torch.Tensor, *,
+               impl: str = "auto") -> torch.Tensor:
+        """Tied unembedding of the hidden states: (b, s, V)."""
+        return self.unembed(params, self.hidden_states(params, tokens,
+                                                       impl=impl))
+
+    def loss_fn(self, params: Params, tokens: torch.Tensor,
+                targets: torch.Tensor,
+                loss_mask: Optional[torch.Tensor] = None, *,
+                impl: str = "auto") -> torch.Tensor:
+        """Mean LM loss through the vocab-parallel cross-entropy (tp=1);
+        ``loss_mask`` (tokens-shaped, 1 = count) weights the mean.
+        ``impl="torch"`` runs every kernel's plain version (for holding
+        the kernel path against it on the card)."""
+        logits = self.logits(params, tokens, impl=impl)
+        losses = vocab_parallel_cross_entropy(logits, targets, impl=impl)
+        return masked_mean(losses, loss_mask)
+
+
+def param_leaves(params: Params) -> List[torch.Tensor]:
+    """Every tensor of a parameter (or gradient) dict, in a fixed
+    depth-first order — what an optimizer steps over."""
+    if isinstance(params, torch.Tensor):
+        return [params]
+    if isinstance(params, dict):
+        return [t for k in sorted(params) for t in param_leaves(params[k])]
+    return [t for item in params for t in param_leaves(item)]

@@ -51,6 +51,16 @@ ENTRY_POINTS = {
     # logits, u, out, dtype, b, V, inv_temp, top_k, use_top_p, top_p,
     # stream
     "apex_fused_sample": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _F, _P],
+    # qkv, out, lse, b, s, h, h_kv, d, causal, scale, stream
+    "apex_flash_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # qkv, o, do, lse, dk, dv, b, s, h, h_kv, d, causal, scale, stream
+    "apex_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _F, _P],
+    # qkv, o, do, lse, dq, b, s, h, h_kv, d, causal, scale, stream
+    "apex_flash_bwd_dq": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                          _P],
+    # logits, labels, m, l, t, row_sum, dtype, labels_int64, n, V, stream
+    "apex_xent_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""chip_smoke.py — drive apex_tpu_torch's serving path on one CUDA card.
+"""chip_smoke.py — drive apex_tpu_torch's serving path and its GPT-medium
+train step on one CUDA card.
 
 Run from the repository root on a machine with an NVIDIA H100 (no
 arguments, one card, no network):
@@ -11,14 +12,18 @@ without the final line):
 
 1. the toolchain report (``apex_tpu_torch.env_report()``);
 2. the CUDA kernels' build from ``apex_tpu_torch/csrc`` with ``nvcc`` for
-   ``sm_90a``, timed, with ptxas's register/shared-memory report;
-3. each kernel against its plain PyTorch version at the slice's shapes in
+   ``sm_90a`` (one ``nvcc`` per source, all started together), timed,
+   with ptxas's register/shared-memory report;
+3. each kernel against its plain PyTorch version at the slices' shapes in
    bf16 — ``paged_decode_attn`` (8 slots, MHA and GQA, block 128, d 128,
-   41 blocks, permuted tables, ragged lengths with 0) and
-   ``fused_sample`` ((8, 32768) at T=0.8 with top-k/top-p on and off) —
-   with the kernel's time (CUDA events, median), the plain version's,
-   a library call's where one computes the same function, and the bound;
-4. the main path: GPT-medium at full width (bf16, vocab 32768, hidden
+   41 blocks, permuted tables, ragged lengths with 0), ``fused_sample``
+   ((8, 32768) at T=0.8 with top-k/top-p on and off), the flash forward
+   and the dK/dV and dQ backward kernels (the train step's b 20, s 1024,
+   8 heads of 128, and a GQA case: b 8, s 1000, 2 kv heads) and
+   ``xent_stats`` ((20480, 32768) with out-of-range labels) — with the
+   kernel's time (CUDA events, median), the plain version's, a library
+   call's where one computes the same function, and the bound;
+4. the serving path: GPT-medium at full width (bf16, vocab 32768, hidden
    1024, 12 layers, 8 heads of 128; random weights from a seed) served by
    ``ServingEngine`` (8 slots, block 128, chunk 256, 41 blocks — ~60% of
    worst case, so preemption happens) over 16 seeded requests sharing two
@@ -31,8 +36,20 @@ without the final line):
    share of requests with identical tokens is printed; bf16 near-ties may
    flip a token), and a profiled greedy serve (device time by kernel and
    the device-busy share of the serve's wall time);
-6. one ``{"kernels": [...]}`` line, the card's name and power limit as
-   nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.
+6. the train path: the same GPT-medium in bf16 (flash attention, no
+   remat), batch 20 x 1024 seeded tokens, ``loss_fn`` + ``backward`` + one
+   ``FusedAdam(lr=1e-4)`` step: a warm-up step, then 10 timed steps with
+   the train kernels' counters zeroed just before and read just after
+   (12 flash forward, 12 dK/dV, 12 dQ and 1 ``xent_stats`` launch per
+   step); every loss finite and the last below the first; tokens/s, step
+   ms, model TFLOP/s and MFU against the card's dense bf16 peak;
+7. outside the counted window: one step's loss and gradients on the
+   kernel path against the plain path (``impl="torch"``, same weights and
+   batch) within stated bounds, and 2 profiled train steps (device time
+   by kernel, launches per step, device-busy share);
+8. one ``{"kernels": [...]}`` line (all six kernels), the card's name and
+   power limit as nvidia-smi prints them, and last ``{"ok": true,
+   "device": {...}}``.
 """
 
 import json
@@ -58,6 +75,18 @@ ENGINE = dict(num_slots=8, block_size=128, prefill_chunk=256, num_blocks=41)
 SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.9)
 DECODE_TOL = 2e-2   # bf16 output: a few bf16 ulps at unit scale
 NEAR_TIE = 1e-5     # relative gap of the two best perturbed scores
+
+# the train slice's configuration (bench.py:2517-2524): GPT-medium, flash
+# attention, no remat, unrolled layers; batch 20 x 1024 tokens
+TRAIN = dict(MODEL, attention_impl="flash", remat=False, scan_layers=False)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 20, 1024, 10
+# the flash kernels' bf16 rule: the truth is the plain version in fp32 on
+# the same bf16 inputs; the kernel's max abs error must be at most twice
+# the bf16 plain version's own, plus FLASH_SLACK
+FLASH_SLACK = 1e-3
+# kernel path vs plain path over one whole bf16 train step
+TRAIN_LOSS_TOL = 1e-2   # relative difference of the two losses
+TRAIN_GRAD_TOL = 5e-2   # each gradient leaf's relative norm error
 
 
 def check(cond, msg):
@@ -251,6 +280,371 @@ def phase_sample_kernel(torch, dev):
                             **SAMPLED}}
 
 
+def bound(nbytes, ops, ops_per_s):
+    """(bound ms, what bounds it): the larger of the bytes over the HBM
+    rate and the operations over the peak rate for their type."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def flash_case(torch, dev, b, s, h, h_kv, d, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((b, s, (h + 2 * h_kv) * d), generator=g,
+                      device=dev).bfloat16()
+    do = torch.randn((b, s, h * d), generator=g, device=dev).bfloat16()
+    return qkv, do
+
+
+def rule_check(name, got, plain, truth, shape):
+    """The flash kernels' bf16 rule (see FLASH_SLACK); returns the
+    kernel's max abs error against the fp32 truth."""
+    err = (got.float() - truth.float()).abs().max().item()
+    err_plain = (plain.float() - truth.float()).abs().max().item()
+    tol = 2 * err_plain + FLASH_SLACK
+    emit("flash_check", {"output": name, "shape": shape, "max_abs_err": err,
+                         "plain_bf16_err": err_plain, "tol": tol})
+    check(err <= tol, f"{name} kernel vs plain: max abs err {err} > {tol} "
+          f"at {shape}")
+    return err
+
+
+def phase_flash_kernels(torch, dev):
+    """The flash forward and the dK/dV and dQ kernels against the plain
+    version at the train step's shape and at a ragged GQA shape; times at
+    the train step's shape."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import attention as A
+
+    d = 128
+    kw = dict(scale=d ** -0.5, causal=True)
+    errs = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
+    for b, s, h, h_kv in ((TRAIN_BATCH, TRAIN_SEQ, 8, 8), (8, 1000, 8, 2)):
+        shape = {"b": b, "s": s, "h": h, "h_kv": h_kv, "d": d}
+        qkv, do = flash_case(torch, dev, b, s, h, h_kv, d, seed=s + h_kv)
+        o, lse = A.flash_fwd_packed(qkv, h, h_kv, d, **kw)
+        o_p, lse_p = A.flash_fwd_packed(qkv, h, h_kv, d, impl="torch", **kw)
+        o_t, lse_t = A.flash_fwd_packed(qkv.float(), h, h_kv, d,
+                                        impl="torch", **kw)
+        torch.cuda.synchronize()
+        errs["fwd"] = max(errs["fwd"], rule_check("o", o, o_p, o_t, shape),
+                          rule_check("lse", lse, lse_p, lse_t, shape))
+        del o, lse, o_t, lse_t
+        got = A.flash_bwd_packed(qkv, o_p, lse_p, do, h, h_kv, d, **kw)
+        plain = A.flash_bwd_packed(qkv, o_p, lse_p, do, h, h_kv, d,
+                                   impl="torch", **kw)
+        truth = A.flash_bwd_packed(qkv.float(), o_p.float(), lse_p,
+                                   do.float(), h, h_kv, d, impl="torch",
+                                   **kw)
+        torch.cuda.synchronize()
+        for name, g, p_, t_ in zip(("dq", "dk", "dv"), got, plain, truth):
+            check(torch.isfinite(g.float()).all().item(),
+                  f"{name} kernel output not finite")
+            e = rule_check(name, g, p_, t_, shape)
+            key = "dq" if name == "dq" else "dkv"
+            errs[key] = max(errs[key], e)
+        del got, plain, truth, o_p, lse_p
+        torch.cuda.empty_cache()
+
+    # timing at the train step's shape (126 MB of qkv: cold in the L2)
+    b, s, h, h_kv = TRAIN_BATCH, TRAIN_SEQ, 8, 8
+    qkv, do = flash_case(torch, dev, b, s, h, h_kv, d, seed=5)
+    o, lse = A.flash_fwd_cuda(qkv, h, h_kv, d, **kw)
+    ms_fwd = time_ms(lambda: A.flash_fwd_cuda(qkv, h, h_kv, d, **kw), [()])
+    ms_dkv = time_ms(lambda: A.flash_bwd_dkv_cuda(qkv, o, lse, do, h, h_kv,
+                                                  d, **kw), [()])
+    ms_dq = time_ms(lambda: A.flash_bwd_dq_cuda(qkv, o, lse, do, h, h_kv, d,
+                                                **kw), [()])
+    plain_fwd = time_ms(lambda: A.flash_fwd_packed(qkv, h, h_kv, d,
+                                                   impl="torch", **kw),
+                        [()], reps=2, trials=3)
+    plain_bwd = time_ms(lambda: A.flash_bwd_packed(qkv, o, lse, do, h, h_kv,
+                                                   d, impl="torch", **kw),
+                        [()], reps=2, trials=3)
+    # the library yardstick: SDPA (and its autograd backward) on the
+    # sliced q/k/v views of the same buffer — timed here, used nowhere
+    leaf = qkv.detach().requires_grad_()
+    heads = lambda lo, n: leaf[..., lo * d:(lo + n) * d].view(  # noqa: E731
+        b, s, n, d).transpose(1, 2)
+    q4, k4, v4 = heads(0, h), heads(h, h_kv), heads(h + h_kv, h_kv)
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), [()])
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    do4 = do.view(b, s, h, d).transpose(1, 2)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        out4, (q4, k4, v4), do4, retain_graph=True), [()], reps=5)
+    del leaf, out4
+
+    # bounds from this run's data: causal pairs per head s(s+1)/2; each
+    # function's products per pair (QK^T 2d, PV 2d; backward: recomputed
+    # QK^T, dP, dV, dK for dK/dV; QK^T, dP, dQ for dQ); bytes: each input
+    # read once, each output written once
+    pairs = b * h * s * (s + 1) / 2
+    feat = (h + 2 * h_kv) * d
+    io = b * s * d * 2  # one (b, s, d) bf16 window per head
+    fwd = bound(b * s * feat * 2 + h * io + b * h * s * 4, 4 * d * pairs,
+                BF16_OPS_PER_S)
+    bwd_in = b * s * feat * 2 + 2 * h * io + b * h * s * 4
+    dkv = bound(bwd_in + 2 * h_kv * io, 8 * d * pairs, BF16_OPS_PER_S)
+    dq = bound(bwd_in + h * io, 6 * d * pairs, BF16_OPS_PER_S)
+    timed = {"b": b, "s": s, "heads": h, "kv_heads": h_kv, "head_dim": d,
+             "causal": True, "dtype": "bf16"}
+    plain_note = ("one plain backward computes dq, dk and dv together; "
+                  "its time is given for both backward kernels")
+    lib_note = ("F.scaled_dot_product_attention's autograd backward "
+                "computes dq, dk and dv in one call; its time is given for "
+                "both backward kernels")
+    src = "apex_tpu_torch/csrc/"
+    return [
+        {"name": "flash_fwd", "route": "cuda",
+         "source": src + "flash_attn_fwd.cu",
+         "replaces": "apex_tpu/ops/pallas/attention.py:506",
+         "max_abs_err": errs["fwd"], "ms": ms_fwd, "plain_ms": plain_fwd,
+         "bound_ms": fwd[0], "bound_by": fwd[1], "library_ms": lib_fwd,
+         "timed_shape": timed},
+        {"name": "flash_bwd_dkv", "route": "cuda",
+         "source": src + "flash_attn_bwd.cu",
+         "replaces": "apex_tpu/ops/pallas/attention.py:710",
+         "max_abs_err": errs["dkv"], "ms": ms_dkv, "plain_ms": plain_bwd,
+         "bound_ms": dkv[0], "bound_by": dkv[1], "library_ms": lib_bwd,
+         "plain_note": plain_note, "library_note": lib_note,
+         "timed_shape": timed},
+        {"name": "flash_bwd_dq", "route": "cuda",
+         "source": src + "flash_attn_bwd.cu",
+         "replaces": "apex_tpu/ops/pallas/attention.py:676",
+         "max_abs_err": errs["dq"], "ms": ms_dq, "plain_ms": plain_bwd,
+         "bound_ms": dq[0], "bound_by": dq[1], "library_ms": lib_bwd,
+         "plain_note": plain_note, "library_note": lib_note,
+         "timed_shape": timed},
+    ]
+
+
+def phase_xent_kernel(torch, dev):
+    from apex_tpu_torch.ops import xentropy as X
+
+    n, V = TRAIN_BATCH * TRAIN_SEQ, MODEL["vocab_size"]
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = (torch.randn((n, V), generator=g, device=dev) * 2.0).bfloat16()
+    labels = torch.randint(0, V, (n,), generator=g, device=dev)
+    labels[::97] = -1
+    labels[5::89] = V  # outside [0, V): target logit 0
+    got = X.xent_stats(x, labels)
+    want = X.xent_stats(x, labels, impl="torch")
+    torch.cuda.synchronize()
+    errs = {k: (a - w).abs().max().item() for k, a, w in
+            zip(("max", "sumexp", "target", "rowsum"), got, want)}
+    rel_sumexp = ((got[1] - want[1]).abs() / want[1]).max().item()
+    rowsum_tol = 1e-5 * x.float().abs().sum(-1).max().item()
+    emit("xent_check", {"rows": n, "vocab": V, "abs_err": errs,
+                        "sumexp_rel_err": rel_sumexp,
+                        "rowsum_tol": rowsum_tol})
+    check(errs["max"] == 0 and errs["target"] == 0,
+          "xent_stats kernel: max or target logit not exact")
+    check(rel_sumexp <= 1e-5, f"xent_stats kernel: sum-exp rel err "
+          f"{rel_sumexp} > 1e-5")
+    check(errs["rowsum"] <= rowsum_tol, f"xent_stats kernel: row-sum err "
+          f"{errs['rowsum']} > {rowsum_tol}")
+    ms = time_ms(lambda: X.xent_stats_cuda(x, labels), [()])
+    plain_ms = time_ms(lambda: X.xent_stats(x, labels, impl="torch"), [()],
+                       reps=3, trials=5)
+    # bytes: logits and labels read once, four fp32 stats written; ops:
+    # per logit a max, a subtract, an exp and two adds (fp32)
+    bms, by = bound(n * V * 2 + n * 8 + 4 * n * 4, 5 * n * V,
+                    FP32_OPS_PER_S)
+    return {"name": "xent_stats", "route": "cuda",
+            "source": "apex_tpu_torch/csrc/xent_stats.cu",
+            "replaces": "apex_tpu/ops/pallas/xentropy.py:86",
+            "max_abs_err": max(errs.values()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes the row max, "
+                            "sum-exp, target logit and row sum",
+            "timed_shape": {"rows": n, "vocab": V, "dtype": "bf16",
+                            "labels": "int64"}}
+
+
+def model_flops_per_token(cfg, seq):
+    """bench.py:108-117: 6 * (matmul params) + 12 * L * S * H per token."""
+    H, L, V = cfg["hidden_size"], cfg["num_layers"], cfg["vocab_size"]
+    return 6 * (12 * L * H * H + V * H) + 12 * L * seq * H
+
+
+def named_leaves(tree, prefix=""):
+    """(name, tensor) pairs in param_leaves' order."""
+    if isinstance(tree, dict):
+        return [nt for k in sorted(tree)
+                for nt in named_leaves(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, list):
+        return [nt for i, item in enumerate(tree)
+                for nt in named_leaves(item, f"{prefix}{i}.")]
+    return [(prefix[:-1], tree)]
+
+
+def train_step(model, params, opt, tokens, targets):
+    loss = model.loss_fn(params, tokens, targets)
+    loss.backward()
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    return loss.detach()
+
+
+def train_counters():
+    from apex_tpu_torch.ops import attention as A
+    from apex_tpu_torch.ops import xentropy as X
+
+    return {"flash_fwd": A.flash_fwd_cuda,
+            "flash_bwd_dkv": A.flash_bwd_dkv_cuda,
+            "flash_bwd_dq": A.flash_bwd_dq_cuda,
+            "xent_stats": X.xent_stats_cuda}
+
+
+def phase_train(torch, dev):
+    """The main train path: warm-up, then TRAIN_STEPS timed steps with the
+    train kernels' counters zeroed just before and read just after."""
+    from apex_tpu_torch.models.gpt import GPTConfig, GPTModel, param_leaves
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    model = GPTModel(GPTConfig(**TRAIN, dtype=torch.bfloat16))
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    for t in param_leaves(params):
+        t.requires_grad_()
+    opt = FusedAdam(param_leaves(params), lr=1e-4)
+    g = torch.Generator(device=dev).manual_seed(1)
+    V = TRAIN["vocab_size"]
+    tokens = torch.randint(0, V, (TRAIN_BATCH, TRAIN_SEQ), generator=g,
+                           device=dev)
+    targets = torch.randint(0, V, (TRAIN_BATCH, TRAIN_SEQ), generator=g,
+                            device=dev)
+    train_step(model, params, opt, tokens, targets)  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    counters = train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    losses = [train_step(model, params, opt, tokens, targets)
+              for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"train losses not finite: {losses}")
+    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    L = TRAIN["num_layers"]
+    want = {"flash_fwd": L, "flash_bwd_dkv": L, "flash_bwd_dq": L,
+            "xent_stats": 1}
+    for k, per_step in want.items():
+        check(launches[k] == per_step * TRAIN_STEPS,
+              f"train path: {launches[k]} {k} launches in {TRAIN_STEPS} "
+              f"steps, want {per_step} per step")
+    tok = TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS
+    flops = model_flops_per_token(TRAIN, TRAIN_SEQ) * tok / wall
+    info = {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+            "losses": losses, "wall_s": wall,
+            "step_ms": 1e3 * wall / TRAIN_STEPS, "tokens_per_s": tok / wall,
+            "model_tflops_per_s": flops / 1e12,
+            "mfu": flops / BF16_OPS_PER_S,
+            "mfu_peak": "989 TFLOP/s dense bf16 (H100 SXM data sheet)",
+            "card": torch.cuda.get_device_name(0),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches_per_step": {k: v / TRAIN_STEPS
+                                  for k, v in launches.items()}}
+    return (model, params, opt, tokens, targets), info, launches
+
+
+def phase_train_plain(torch, model, params, tokens, targets):
+    """One step's loss and gradients, kernel path vs plain path, on the
+    same weights and batch (no optimizer step). The k window of each
+    qkv bias is left out of its leaf's norm: its exact gradient is 0 (one
+    constant added to every score of a row), so both paths hold only bf16
+    rounding noise there."""
+    c = model.config
+    h, d = c.num_heads, c.head_dim
+
+    def loss_and_grads(impl):
+        loss = model.loss_fn(params, tokens, targets, impl=impl)
+        loss.backward()
+        out = {}
+        for name, t in named_leaves(params):
+            g = t.grad.float()
+            if name.endswith("qkv.bias"):
+                g = torch.cat([g[:h * d], g[(h + c.kv_heads) * d:]])
+            out[name] = g
+            t.grad = None
+        return loss.item(), out
+
+    loss_k, g_k = loss_and_grads("auto")
+    loss_p, g_p = loss_and_grads("torch")
+    rel = {n: ((g_k[n] - g_p[n]).norm() / g_p[n].norm().clamp_min(1e-30))
+           .item() for n in g_p}
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])
+    info = {"loss_kernel": loss_k, "loss_plain": loss_p,
+            "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+            "loss_tol": TRAIN_LOSS_TOL,
+            "grad_rel_norm_err_max": worst[0][1],
+            "grad_worst_leaf": worst[0][0], "grad_tol": TRAIN_GRAD_TOL,
+            "median_leaf_err": statistics.median(rel.values()),
+            "leaf_rel_norm_err": rel}
+    emit("train_plain_path", info)
+    check(info["loss_rel_diff"] <= TRAIN_LOSS_TOL,
+          f"train loss kernel vs plain: rel diff {info['loss_rel_diff']}")
+    check(worst[0][1] <= TRAIN_GRAD_TOL,
+          f"train gradient {worst[0][0]} kernel vs plain: rel norm err "
+          f"{worst[0][1]} > {TRAIN_GRAD_TOL}")
+
+
+def kernel_category(name):
+    """The train step's layers, by kernel name."""
+    if "flash_" in name:
+        return "flash attention kernels"
+    if "xent_stats" in name:
+        return "xent_stats kernel"
+    if "nvjet" in name or "gemm" in name.lower() or "cutlass" in name:
+        return "GEMMs (cuBLAS)"
+    if "multi_tensor_apply" in name:
+        return "Adam (_foreach multi-tensor kernels)"
+    return "other elementwise, reduction and copy kernels"
+
+
+def phase_train_profile(torch, state, step_s):
+    """Where the train step's time goes: 2 profiled steps, device time by
+    kernel and by layer, launches per step, and the busy share of an
+    unprofiled step (one stream, so kernels never overlap). Annotation
+    ranges (the optimizer's ``record_function``) are not kernels and are
+    left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            train_step(*state)
+        torch.cuda.synchronize()
+    kernels = sorted(((e.self_device_time_total, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)),
+                     reverse=True)
+    busy_s = sum(k[0] for k in kernels) / 1e6 / 2
+    layers = {}
+    for t, n, name in kernels:
+        cat = layers.setdefault(kernel_category(name),
+                                {"device_ms_per_step": 0.0,
+                                 "launches_per_step": 0.0})
+        cat["device_ms_per_step"] += t / 2e3
+        cat["launches_per_step"] += n / 2
+    return {"device_busy_s_per_step": busy_s, "step_s": step_s,
+            "device_busy_share": busy_s / step_s,
+            "device_launches_per_step": sum(k[1] for k in kernels) / 2,
+            "by_layer": dict(sorted(layers.items(), key=lambda kv:
+                                    -kv[1]["device_ms_per_step"])),
+            "top": [{"kernel": name[:90], "device_ms_per_step": t / 2e3,
+                     "launches_per_step": n / 2}
+                    for t, n, name in kernels[:12]]}
+
+
 def build_trace(seed=2, n_req=16, vocab=32768, sys_len=256):
     """16 requests, all arriving at t=0: half open with one of two shared
     256-token system prompts, the rest with a fresh 256-token prefix; a
@@ -362,9 +756,12 @@ def main():
 
     # --- each kernel against its plain version --------------------------------
     kernels = [phase_decode_kernel(torch, dev),
-               phase_sample_kernel(torch, dev)]
+               phase_sample_kernel(torch, dev),
+               *phase_flash_kernels(torch, dev),
+               phase_xent_kernel(torch, dev)]
     for k in kernels:
         emit("kernel", k)
+    torch.cuda.empty_cache()
 
     # --- the main path --------------------------------------------------------
     model = GPTModel(GPTConfig(**MODEL, dtype=torch.bfloat16))
@@ -419,6 +816,16 @@ def main():
 
     emit("profile", phase_profile(torch, model, params, dev,
                                   g_info["wall_s"]))
+    del model, params, warm
+    torch.cuda.empty_cache()
+
+    # --- the train path -------------------------------------------------------
+    state, t_info, t_launches = phase_train(torch, dev)
+    launches.update(t_launches)
+    emit("train", t_info)
+    phase_train_plain(torch, *state[:2], *state[3:])
+    emit("train_profile", phase_train_profile(torch, state,
+                                              t_info["step_ms"] / 1e3))
 
     for k in kernels:
         k["launches"] = launches[k["name"]]
