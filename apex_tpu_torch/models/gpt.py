@@ -16,10 +16,12 @@ converts both ways).
 
 A train step is ``loss_fn`` then ``backward()`` then one
 :class:`apex_tpu_torch.optimizers.FusedAdam` step over
-:func:`param_leaves`. Still later slices, raising
-``NotImplementedError`` where asked for: dropout, remat policies other
-than ``"full"``, the softmax and naive attention routes, MoE, and every
-tensor/sequence/context-parallel knob.
+:func:`param_leaves`. The config carries only the knobs the port runs:
+attention is always the fused flash route, ``remat`` is the reference's
+``"full"`` policy, and ``dropout > 0`` raises ``NotImplementedError``.
+Later slices add the reference's other knobs (remat policies, the
+softmax and naive attention routes, MoE, tensor/sequence/context
+parallelism) together with the code that runs them.
 """
 
 from __future__ import annotations
@@ -46,9 +48,6 @@ from apex_tpu_torch.transformer.tensor_parallel import (
 
 Params = Dict[str, object]
 
-ATTENTION_IMPLS = ("softmax", "flash", "naive")
-REMAT_POLICIES = ("full", "save_attn", "save_attn_mlp", "mlp_only")
-
 
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
@@ -61,38 +60,12 @@ class GPTConfig:
     # grouped-query attention: None = num_heads (MHA), 1 = MQA
     num_kv_heads: Optional[int] = None
     dtype: torch.dtype = torch.float32  # parameter dtype
-    # the reference's training knobs, with its defaults; the training
-    # forward supports dropout 0, remat_policy "full" and attention "flash"
+    # training knobs with the reference's defaults; attention is always the
+    # fused packed-QKV flash route, and dropout > 0 is a later slice
     dropout: float = 0.0
     remat: bool = True
-    remat_policy: str = "full"
-    attention_impl: str = "softmax"
-    # scan vs unrolled layer loop: the port always runs an unrolled Python
-    # loop over the layer list; the flag is accepted for config parity and
-    # changes nothing numerically
-    scan_layers: bool = True
-    # parallel and MoE knobs: accepted at their single-device values only
-    tp_size: int = 1
-    sequence_parallel: bool = False
-    tp_overlap: bool = False
-    cp_axis: Optional[str] = None
-    moe_num_experts: Optional[int] = None
 
     def __post_init__(self):
-        if self.attention_impl not in ATTENTION_IMPLS:
-            raise ValueError(f"attention_impl must be softmax|flash|naive, "
-                             f"got {self.attention_impl!r}")
-        if self.remat_policy not in REMAT_POLICIES:
-            raise ValueError(f"remat_policy must be full|save_attn|"
-                             f"save_attn_mlp|mlp_only, got "
-                             f"{self.remat_policy!r}")
-        if (self.tp_size != 1 or self.sequence_parallel or self.tp_overlap
-                or self.cp_axis is not None
-                or self.moe_num_experts is not None):
-            raise NotImplementedError(
-                "tensor/sequence/context parallelism and MoE are later "
-                "slices of the port; use tp_size=1, no sequence_parallel, "
-                "tp_overlap or cp_axis, and a dense MLP")
         if self.hidden_size % self.num_heads:
             raise ValueError(
                 f"hidden_size ({self.hidden_size}) must be divisible by "
@@ -244,20 +217,10 @@ class GPTModel:
 
     def check_train_supported(self) -> None:
         """Raise for the training knobs that are later slices of the port."""
-        c = self.config
-        if c.dropout > 0:
+        if self.config.dropout > 0:
             raise NotImplementedError(
                 "dropout > 0 (the reference's counter-hash masks, "
                 "dropout_keep) is a later slice of the port; use dropout=0")
-        if c.attention_impl != "flash":
-            raise NotImplementedError(
-                f"attention_impl={c.attention_impl!r} (materialised scores) "
-                f"is a later slice of the port; the training forward runs "
-                f"attention_impl='flash'")
-        if c.remat and c.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy={c.remat_policy!r} is a later slice of the "
-                f"port; use remat_policy='full' or remat=False")
 
     def _attention(self, p, x, impl: str = "auto") -> torch.Tensor:
         """The fused route of the reference's flash attention: packed QKV
@@ -281,10 +244,10 @@ class GPTModel:
         return x + self._mlp(p, fused_layer_norm(x, p["ln2_w"], p["ln2_b"]))
 
     def wrapped_block(self):
-        """The block with the config's remat policy applied: ``remat`` with
-        policy ``"full"`` recomputes the whole block in the backward
-        (``torch.utils.checkpoint``, non-reentrant — the reference's
-        ``jax.checkpoint`` default)."""
+        """The block under the config's ``remat``: it recomputes the whole
+        block in the backward (``torch.utils.checkpoint``, non-reentrant —
+        the reference's ``jax.checkpoint`` with its default ``"full"``
+        policy)."""
         if not self.config.remat:
             return self._block
 

@@ -18,7 +18,7 @@ The update is plain PyTorch (``torch._foreach_*`` over all tensors of a
 group, updated in place), as the reference's is XLA, not Pallas; scalars
 (bias corrections, a scheduled lr) are computed in fp32 like the
 reference's. A multi-tensor CUDA Adam is a later performance candidate;
-the reference's ``layout="chunked"`` mega-buffer is a later slice.
+the reference's ``layout`` knob (its chunked mega-buffer) comes with it.
 """
 
 from __future__ import annotations
@@ -43,15 +43,7 @@ class FusedAdam(torch.optim.Optimizer):
     def __init__(self, params: Iterable[torch.Tensor], lr: LR = 1e-3,
                  betas: Tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,
                  weight_decay: float = 0.0, adam_w_mode: bool = True,
-                 bias_correction: bool = True, layout: str = "per_tensor"):
-        if layout == "chunked":
-            raise NotImplementedError(
-                "the chunked mega-buffer layout (the reference's "
-                "multi_tensor engine) is a later slice of the port; use "
-                "layout='per_tensor'")
-        if layout not in ("auto", "per_tensor"):
-            raise ValueError(f"layout must be auto|per_tensor|chunked, got "
-                             f"{layout!r}")
+                 bias_correction: bool = True):
         defaults = dict(lr=lr, betas=betas, eps=eps,
                         weight_decay=weight_decay, adam_w_mode=adam_w_mode,
                         bias_correction=bias_correction)

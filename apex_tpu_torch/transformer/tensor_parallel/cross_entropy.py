@@ -67,17 +67,12 @@ class _VocabParallelCE(torch.autograd.Function):
 
 def vocab_parallel_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
                                  label_smoothing: float = 0.0,
-                                 axis_name: Optional[str] = None,
                                  impl: str = "auto") -> torch.Tensor:
     """Per-token loss over (..., V) logits and (...) integer targets;
     targets outside [0, V) contribute a zero target logit, as in the
-    reference. ``axis_name`` must be None: the port runs tp=1 (the
-    reference's tp axis is a later slice). ``impl``: ``auto`` (the
-    tensor's device decides) or ``torch`` (the plain statistics)."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "vocab-parallel cross-entropy over a tp axis is a later slice of "
-            "the port; pass axis_name=None (tp=1)")
+    reference. The port runs tp=1: the reference's ``axis_name`` comes
+    with the tp > 1 slice. ``impl``: ``auto`` (the tensor's device
+    decides) or ``torch`` (the plain statistics)."""
     if logits.shape[:-1] != target.shape:
         raise ValueError(f"targets {tuple(target.shape)} must match the "
                          f"logits' leading dims {tuple(logits.shape[:-1])}")

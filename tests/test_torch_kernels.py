@@ -195,15 +195,15 @@ def test_flash_kernels_short_and_non_causal(cuda, s, causal):
 @pytest.mark.gpu
 def test_train_step_kernel_path_matches_plain_path(cuda):
     """A small bf16 GPT's loss and gradients through the kernels against
-    the plain versions on the same weights: loss within 1e-2 relative,
+    the plain versions on the same weights: loss within 1e-4 relative,
     each gradient leaf within 5e-2 relative norm (chip_smoke.py's bounds
     at full width). The k window of the qkv bias is left out: its exact
     gradient is 0, so both paths hold only rounding noise there."""
     from apex_tpu_torch.models.gpt import GPTConfig, GPTModel, param_leaves
 
     cfg = GPTConfig(vocab_size=512, max_seq_len=256, hidden_size=256,
-                    num_layers=2, num_heads=2, attention_impl="flash",
-                    remat=False, dtype=torch.bfloat16)
+                    num_layers=2, num_heads=2, remat=False,
+                    dtype=torch.bfloat16)
     model = GPTModel(cfg)
     params = model.init(torch.Generator(device=cuda).manual_seed(0))
     leaves = param_leaves(params)
@@ -227,7 +227,7 @@ def test_train_step_kernel_path_matches_plain_path(cuda):
             t.grad = None
         out.append((loss.item(), grads))
     (lk, gk), (lp, gp) = out
-    assert abs(lk - lp) <= 1e-2 * abs(lp)
+    assert abs(lk - lp) <= 1e-4 * abs(lp)
     for a, b in zip(gk, gp):
         assert (a - b).norm() <= 5e-2 * b.norm()
 
