@@ -1,32 +1,38 @@
-// Paged decode attention: one query token per slot against the serving
-// engine's paged KV pool, for Hopper (sm_90a).
+// Decode attention: one query token per (batch, kv head) row against a KV
+// cache, for Hopper (sm_90a), in two addressings of one kernel body:
 //
-// Replaces apex_tpu/ops/pallas/decode_attention.py::decode_attn_paged_fwd
-// (:211; kernel body _decode_kernel :56-146). Same contract: q
-// (b*h_kv, group, d) holds each kv head's group of query heads; the pool
-// (num_blocks, h_kv, bs, d) is shared by every slot; block_tables (b, nb)
-// names slot i's j-th logical block; lengths (b,) counts live rows per
-// slot. Output (b*h_kv, group, d) in q's dtype.
+// * paged (apex_paged_decode_attn): replaces
+//   apex_tpu/ops/pallas/decode_attention.py::decode_attn_paged_fwd (:211).
+//   q (b*h_kv, group, d) holds each kv head's group of query heads; the
+//   pool (num_blocks, h_kv, bs, d) is shared by every slot; block_tables
+//   (b, nb) names slot i's j-th logical block; lengths (b,) counts live
+//   rows per slot.
+// * contiguous (apex_decode_attn): replaces ::decode_attn_fwd (:156-200),
+//   the decode engine's cache. k and v are (rows, max_s, d) with rows =
+//   b*h_kv, a free view of the (b, h_kv, max_s, d) cache; lengths (rows,)
+//   is the per-batch length repeated over kv heads (as at
+//   apex_tpu/ops/decode_attention.py:193). Block j of row r is rows
+//   [j*128, j*128 + 128) of that row: the table lookup becomes r*nb + j.
+// Both share the kernel body _decode_kernel (:56-146). Output
+// (rows, group, d) in q's dtype.
 //
 // Bound on this card: HBM bytes. Every live K/V row is read once and each
 // row costs 4*group*d operations against 2*2*d bytes (bf16), far below the
 // ~295 operations per byte where an H100's tensor cores become the limit.
 // At the serving slice's shapes (8 slots x 512 live rows x 8 kv heads x d
 // 128, bf16) one layer reads 2*8*512*8*128*2 B = 16.8 MB: ~5 us at
-// 3.35 TB/s.
+// 3.35 TB/s; at the decode engine's (16 x 8 rows, ~640 live) 42 MB, ~12 us.
 //
 // Design, simple and right first:
-// * one CTA (128 threads) per (slot, kv head). The CTA reads its own table
-//   row and loops over ceil(len / bs) blocks only: the Pallas grid's
-//   `j*bk < kvlen` skip (:99) becomes the loop bound, and within the last
-//   block only the live rows are loaded, scored and summed — columns
-//   >= len take no part, which is exactly the reference's -1e30 mask
-//   (:124): exp(-1e30 - m) is 0 in fp32.
-// * a block's pool row is table[slot, j] * h_kv + kv_head; its live K and
-//   V rows are staged in shared memory (128 x 128 bf16 = 32 KB each) by
-//   cp.async 16-byte copies, all in flight at once: V's copy overlaps the
-//   scores, and the next block's K copy overlaps this block's softmax and
-//   PV product.
+// * one CTA (128 threads) per row. The CTA loops over ceil(len / bs)
+//   blocks only: the Pallas grid's `j*bk < kvlen` skip (:99) becomes the
+//   loop bound, and within the last block only the live rows are loaded,
+//   scored and summed — columns >= len take no part, which is exactly the
+//   reference's -1e30 mask (:124): exp(-1e30 - m) is 0 in fp32.
+// * a block's live K and V rows are staged in shared memory (128 x 128
+//   bf16 = 32 KB each) by cp.async 16-byte copies, all in flight at once:
+//   V's copy overlaps the scores, and the next block's K copy overlaps this
+//   block's softmax and PV product.
 // * thread r scores row r of the block (bs <= 128) for the G query heads
 //   of the kv group, reading K and q from shared memory in a rotated order
 //   that keeps a warp's 32 reads in 32 banks. G is a template parameter
@@ -36,9 +42,10 @@
 //   accumulator; the block's max and sum are block-wide reductions, and
 //   every thread keeps the running m and l. p is rounded to V's dtype
 //   before the PV product (:137), l sums the unrounded p, and the output
-//   divides by max(l, 1e-30), so a length-0 slot comes out as zeros (:145).
-// Known weakness, left for a later change: b*h_kv CTAs (64 at the slice's
-// shapes) on 132 SMs, each walking its blocks in turn. Split-K over the
+//   divides by max(l, 1e-30), so a length-0 row comes out as zeros (:145).
+// Known weakness, left for a later change: one CTA per row (64 paged rows
+// at the serving slice's shapes, 128 contiguous rows at the decode
+// engine's) on 132 SMs, each walking its blocks in turn. Split-K over the
 // blocks (flash-decoding) is the fix.
 #include <cstdint>
 
@@ -122,9 +129,12 @@ size_t smem_bytes(size_t elem, int d, int bs, int group) {
                 + static_cast<size_t>(split - 1) * group * d);  // PV parts
 }
 
-template <typename T, int D, int G>
+// kPaged: block j of row `row` is pool row table[slot, j] * h_kv + kv head;
+// otherwise (h_kv == 1, tables unused) it is block j of the row's own
+// contiguous max_s strip, row * nb + j
+template <typename T, int D, int G, bool kPaged>
 __global__ void __launch_bounds__(kThreads)
-    paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
+    decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                         const T* __restrict__ v_pool,
                         const int* __restrict__ tables,
                         const int* __restrict__ lengths, T* __restrict__ out,
@@ -148,7 +158,8 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = tid >> 5;
   const int col = tid % D;
   const int part = tid / D;
-  const int len = lengths[slot];
+  // a length past the row's nb blocks means every row of them is live
+  const int len = min(lengths[slot], nb * bs);
 
   for (int i = tid; i < G * D; i += kThreads)
     q_s[i] = apex::to_float(q[static_cast<size_t>(row) * G * D + i]);
@@ -162,9 +173,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   const int nblk = (len + bs - 1) / bs;
-  const int* trow = tables + static_cast<size_t>(slot) * nb;
+  const int* trow = kPaged ? tables + static_cast<size_t>(slot) * nb : tables;
   auto pool_row = [&](int j) {
-    return static_cast<size_t>(trow[j]) * h_kv + kvh;
+    return kPaged ? static_cast<size_t>(trow[j]) * h_kv + kvh
+                  : static_cast<size_t>(row) * nb + j;
   };
   if (nblk > 0) stage_rows<T, D>(k_s, k_pool, pool_row(0), bs, min(bs, len));
   for (int j = 0; j < nblk; ++j) {
@@ -256,33 +268,33 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D, int G>
-cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
-                   const void* tables, const void* lengths, void* out, int b,
-                   int h_kv, int bs, int nb, float scale,
+template <typename T, int D, int G, bool kPaged>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* tables, const void* lengths, void* out,
+                   int rows, int h_kv, int bs, int nb, float scale,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes(sizeof(T), D, bs, G);
   cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_kernel<T, D, G>,
+      decode_kernel<T, D, G, kPaged>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  paged_decode_kernel<T, D, G><<<b * h_kv, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int*>(tables),
+  decode_kernel<T, D, G, kPaged><<<rows, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(tables),
       static_cast<const int*>(lengths), static_cast<T*>(out), h_kv, bs, nb,
       scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_group(int group, const void* q, const void* k_pool,
-                         const void* v_pool, const void* tables,
-                         const void* lengths, void* out, int b, int h_kv,
+template <typename T, int D, bool kPaged>
+cudaError_t launch_group(int group, const void* q, const void* k,
+                         const void* v, const void* tables,
+                         const void* lengths, void* out, int rows, int h_kv,
                          int bs, int nb, float scale, cudaStream_t stream) {
-#define APEX_GROUP_CASE(G)                                                \
-  case G:                                                                 \
-    return launch<T, D, G>(q, k_pool, v_pool, tables, lengths, out, b,    \
-                           h_kv, bs, nb, scale, stream);
+#define APEX_GROUP_CASE(G)                                                  \
+  case G:                                                                   \
+    return launch<T, D, G, kPaged>(q, k, v, tables, lengths, out, rows,     \
+                                   h_kv, bs, nb, scale, stream);
   switch (group) {
     APEX_GROUP_CASE(1)
     APEX_GROUP_CASE(2)
@@ -295,6 +307,36 @@ cudaError_t launch_group(int group, const void* q, const void* k_pool,
 #undef APEX_GROUP_CASE
 }
 
+template <bool kPaged>
+int dispatch(int dtype, int d, int group, const void* q, const void* k,
+             const void* v, const void* tables, const void* lengths,
+             void* out, int rows, int h_kv, int bs, int nb, float scale,
+             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == apex::kBFloat16) {
+    err = d == 128 ? launch_group<__nv_bfloat16, 128, kPaged>(
+                         group, q, k, v, tables, lengths, out, rows, h_kv,
+                         bs, nb, scale, s)
+                   : launch_group<__nv_bfloat16, 64, kPaged>(
+                         group, q, k, v, tables, lengths, out, rows, h_kv,
+                         bs, nb, scale, s);
+  } else {
+    err = d == 128 ? launch_group<float, 128, kPaged>(
+                         group, q, k, v, tables, lengths, out, rows, h_kv,
+                         bs, nb, scale, s)
+                   : launch_group<float, 64, kPaged>(
+                         group, q, k, v, tables, lengths, out, rows, h_kv,
+                         bs, nb, scale, s);
+  }
+  return static_cast<int>(err);
+}
+
+bool bad_common(int dtype, int d) {
+  return (d != 64 && d != 128) ||
+         (dtype != apex::kFloat32 && dtype != apex::kBFloat16);
+}
+
 }  // namespace
 
 extern "C" int apex_paged_decode_attn(const void* q, const void* k_pool,
@@ -304,25 +346,20 @@ extern "C" int apex_paged_decode_attn(const void* q, const void* k_pool,
                                       int d, int bs, int nb, float scale,
                                       void* stream) {
   if (b < 1 || h_kv < 1 || bs < 1 || bs > kThreads || nb < 1 ||
-      (d != 64 && d != 128) ||
-      (dtype != apex::kFloat32 && dtype != apex::kBFloat16))
+      bad_common(dtype, d))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == apex::kBFloat16) {
-    err = d == 128 ? launch_group<__nv_bfloat16, 128>(
-                         group, q, k_pool, v_pool, tables, lengths, out, b,
-                         h_kv, bs, nb, scale, s)
-                   : launch_group<__nv_bfloat16, 64>(
-                         group, q, k_pool, v_pool, tables, lengths, out, b,
-                         h_kv, bs, nb, scale, s);
-  } else {
-    err = d == 128 ? launch_group<float, 128>(group, q, k_pool, v_pool,
-                                              tables, lengths, out, b, h_kv,
-                                              bs, nb, scale, s)
-                   : launch_group<float, 64>(group, q, k_pool, v_pool,
-                                             tables, lengths, out, b, h_kv,
-                                             bs, nb, scale, s);
-  }
-  return static_cast<int>(err);
+  return dispatch<true>(dtype, d, group, q, k_pool, v_pool, tables, lengths,
+                        out, b * h_kv, h_kv, bs, nb, scale, stream);
+}
+
+// k, v (rows, max_s, d) with max_s a multiple of 128; lengths (rows,)
+extern "C" int apex_decode_attn(const void* q, const void* k, const void* v,
+                                const void* lengths, void* out, int dtype,
+                                int rows, int group, int d, int max_s,
+                                float scale, void* stream) {
+  if (rows < 1 || max_s < kThreads || max_s % kThreads ||
+      bad_common(dtype, d))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<false>(dtype, d, group, q, k, v, nullptr, lengths, out,
+                         rows, 1, kThreads, max_s / kThreads, scale, stream);
 }

@@ -9,7 +9,9 @@ hidden_states` (``:767-837``), :meth:`GPTModel.logits` and
 :meth:`GPTModel.loss_fn` (``:857-880``) — and the KV-cached inference
 branch, :meth:`GPTModel.decode_qkv` and :meth:`GPTModel.decode_block`
 (``:684-763``), with the tanh-GELU MLP (``:576-582``) and the tied LM
-head (``:855``). Parameters are a plain dict of tensors in the
+head (``:855``), and :meth:`GPTModel.prefill_block` (``:713-725``), the
+decode engine's prompt forward through the bshd flash kernel. Parameters
+are a plain dict of tensors in the
 reference's tree layout, except that ``layers`` is a list of per-layer
 dicts instead of stacked leaves (:mod:`apex_tpu_torch.models.convert`
 converts both ways).
@@ -36,8 +38,10 @@ from torch.utils.checkpoint import checkpoint
 from apex_tpu_torch.ops import _backend
 from apex_tpu_torch.ops.attention import (bshd_output_projection,
                                           bshd_qkv_projection,
+                                          flash_attention,
                                           fused_qkv_attention)
-from apex_tpu_torch.ops.decode_attention import (KERNEL_GROUPS,
+from apex_tpu_torch.ops.decode_attention import (KERNEL_CACHE_TILE,
+                                                 KERNEL_GROUPS,
                                                  KERNEL_HEAD_DIMS,
                                                  KERNEL_MAX_BLOCK,
                                                  decode_attention)
@@ -150,21 +154,41 @@ class GPTModel:
     # --- KV-cached inference branch -------------------------------------------
 
     def check_decode_supported(self, device: torch.device,
-                               block_size: int) -> None:
-        """Eager check that the paged decode kernel takes this model's
-        attention shape and the pool's block size on ``device`` (the
-        CPU's plain version takes any)."""
+                               block_size: Optional[int] = None, *,
+                               max_s: Optional[int] = None) -> None:
+        """Eager check that the decode kernels take this model's attention
+        shape on ``device`` (the CPU's plain versions take any): the
+        paged kernel with the pool's ``block_size``, or — without one —
+        the decode engine's pair, the contiguous decode kernel over a
+        ``max_s`` cache and the prefill's bshd flash kernel (bfloat16
+        parameters)."""
+        if device.type != "cuda":
+            return
         c = self.config
         group = c.num_heads // c.kv_heads
-        if device.type == "cuda" and (c.head_dim not in KERNEL_HEAD_DIMS
-                                      or group not in KERNEL_GROUPS
-                                      or block_size > KERNEL_MAX_BLOCK):
+        if block_size is not None:
+            if (c.head_dim not in KERNEL_HEAD_DIMS
+                    or group not in KERNEL_GROUPS
+                    or block_size > KERNEL_MAX_BLOCK):
+                raise ValueError(
+                    f"the paged decode kernel takes head_dim in "
+                    f"{KERNEL_HEAD_DIMS}, {KERNEL_GROUPS} query heads per "
+                    f"kv head and blocks of at most {KERNEL_MAX_BLOCK} "
+                    f"rows; this model has head_dim {c.head_dim} and "
+                    f"{group} query heads per kv head, the pool block_size "
+                    f"{block_size}")
+            return
+        if (c.head_dim not in KERNEL_HEAD_DIMS or group not in KERNEL_GROUPS
+                or c.dtype != torch.bfloat16
+                or (max_s is not None and max_s % KERNEL_CACHE_TILE)):
             raise ValueError(
-                f"the paged decode kernel takes head_dim in "
-                f"{KERNEL_HEAD_DIMS}, {KERNEL_GROUPS} query heads per kv "
-                f"head and blocks of at most {KERNEL_MAX_BLOCK} rows; this "
-                f"model has head_dim {c.head_dim} and {group} query heads "
-                f"per kv head, the pool block_size {block_size}")
+                f"the decode engine's kernels take head_dim in "
+                f"{KERNEL_HEAD_DIMS} (prefill flash and decode), "
+                f"{KERNEL_GROUPS} query heads per kv head and a cache "
+                f"length that is a multiple of {KERNEL_CACHE_TILE} (decode), "
+                f"bfloat16 (the prefill's flash kernel); this model has "
+                f"head_dim {c.head_dim}, {group} query heads per kv head, "
+                f"{c.dtype}, cache length {max_s}")
 
     def _proj_qkv_bshd(self, p, x):
         """(b, s, H) → q (b, s, h, d), k/v (b, s, h_kv, d) via the packed
@@ -196,14 +220,32 @@ class GPTModel:
         q, k, v = self._proj_qkv_bshd(p, h_in)
         return q[:, 0], k.transpose(1, 2), v.transpose(1, 2)
 
-    def decode_block(self, p, x, q, k_pool, v_pool, lengths, *,
-                     block_tables, impl: str = "auto") -> torch.Tensor:
-        """One token through one block against this layer's pool
-        (``(num_blocks, h_kv, block_size, d)``, ALREADY holding the
-        token's own row): x (b, 1, H) the residual stream, q (b, h, d),
-        ``lengths`` (b,) live rows including this token, ``block_tables``
-        (b, nb). Returns the block output (b, 1, H)."""
-        ctx = decode_attention(q, k_pool, v_pool, lengths,
+    def prefill_block(self, p, x, impl: str = "auto"
+                      ) -> Tuple[torch.Tensor,
+                                 Tuple[torch.Tensor, torch.Tensor]]:
+        """One block of the PREFILL forward: pre-LN → causal bshd flash
+        attention → residual → pre-LN → MLP → residual, returning also
+        this layer's (k, v) as (b, h_kv, s, d) views — what the engine
+        writes into cache rows [0, s). q, k and v go to the kernel as
+        views of the packed projection: no copy."""
+        h_in = fused_layer_norm(x, p["ln1_w"], p["ln1_b"])
+        q, k, v = self._proj_qkv_bshd(p, h_in)
+        ctx = flash_attention(q, k, v, causal=True, layout="bshd",
+                              impl=impl)
+        x = x + self._proj_attn_out(p, ctx)
+        m = self._mlp(p, fused_layer_norm(x, p["ln2_w"], p["ln2_b"]))
+        return x + m, (k.transpose(1, 2), v.transpose(1, 2))
+
+    def decode_block(self, p, x, q, k_lay, v_lay, lengths, *,
+                     block_tables: Optional[torch.Tensor] = None,
+                     impl: str = "auto") -> torch.Tensor:
+        """One token through one block against this layer's cache,
+        ALREADY holding the token's own row: x (b, 1, H) the residual
+        stream, q (b, h, d), ``lengths`` (b,) live rows including this
+        token. ``k_lay``/``v_lay`` are the contiguous (b, h_kv, max_s, d)
+        cache, or with ``block_tables`` (b, nb) the shared
+        (num_blocks, h_kv, block_size, d) pool. Returns (b, 1, H)."""
+        ctx = decode_attention(q, k_lay, v_lay, lengths,
                                block_tables=block_tables, impl=impl)
         x = x + self._proj_attn_out(p, ctx[:, None])
         m = self._mlp(p, fused_layer_norm(x, p["ln2_w"], p["ln2_b"]))

@@ -42,6 +42,7 @@ COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # name -> argtypes of every C entry point the library exports
 ENTRY_POINTS = {
     # q, k_pool, v_pool, tables, lengths, out, dtype, b, h_kv, group, d,
@@ -61,6 +62,20 @@ ENTRY_POINTS = {
                           _P],
     # logits, labels, m, l, t, row_sum, dtype, labels_int64, n, V, stream
     "apex_xent_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # q, k, v, out, lse, q_bstride, kv_bstride, q_stride, kv_stride, b, sq,
+    # sk, h, h_kv, d, causal, scale, stream
+    "apex_flash_fwd_bshd": [_P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _F, _P],
+    # q, k, v, lengths, out, dtype, rows, group, d, max_s, scale, stream
+    "apex_decode_attn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # logits, drafted, u_acc, u_gum, a, next, dtype, b, k1, V, sampled,
+    # inv_temp, top_k, use_top_p, top_p, stream
+    "apex_fused_verify": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                          _I, _I, _F, _P],
+    # logits, tokens, parents, anc, u_acc, u_gum, a, j_star, next, dtype,
+    # b, n1, V, sampled, inv_temp, top_k, use_top_p, top_p, stream
+    "apex_fused_verify_tree": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _F, _I, _I, _F, _P],
 }
 
 

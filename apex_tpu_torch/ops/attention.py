@@ -18,9 +18,18 @@ Port of the packed path of ``apex_tpu/ops/attention.py``:
 * :func:`fused_qkv_attention` (``:544-644``): packed GEMM → flash forward
   → output GEMM as one ``torch.autograd.Function`` with the reference's
   hand-written VJP; a packed dqkv is never materialised.
+* :func:`flash_attention` with ``layout="bshd"`` (``:647-778``), forward
+  only: separate seq-major q (b, sq, h, d) and k/v (b, sk, h_kv, d) with
+  bottom-right causal alignment — the decode engine's prefill. A CUDA
+  tensor launches :func:`flash_fwd_bshd_cuda` (the ``apex_flash_fwd_bshd``
+  entry of ``csrc/flash_attn_fwd.cu``, replacing the Pallas
+  ``flash_fwd_bshd``); a CPU tensor runs :func:`_torch_flash_fwd_bshd`.
+  The reference's ``flash_auto_crossover`` is a TPU finding and is not
+  ported: on CUDA the kernel always runs.
 
 The ``kv_lens``, additive ``bias`` and dropout options of the reference's
-packed kernels are later slices of the port.
+flash kernels, the bh-flat layout and the bshd backward
+(``flash_bwd_bshd``) are later slices of the port.
 """
 
 from __future__ import annotations
@@ -124,6 +133,20 @@ def _torch_flash_fwd(qkv, h, h_kv, d, scale, causal):
     q, k, v = _split_packed(qkv, h, h_kv, d)
     o, lse = _xla_attention(q, k[:, :, None], v[:, :, None], scale, causal)
     return _merge_heads(o), lse.reshape(b, h, s)
+
+
+def _torch_flash_fwd_bshd(q, k, v, scale, causal):
+    """q (b, sq, h, d), k/v (b, sk, h_kv, d) → (o (b, sq, h, d), lse
+    (b, h, sq)): the packed plain version's masked scores, bottom-right
+    causal alignment ``off = sk − sq``."""
+    b, sq, h, d = q.shape
+    h_kv = k.shape[2]
+    qg = q.reshape(b, sq, h_kv, h // h_kv, d).permute(0, 2, 3, 1, 4)
+    kg = k.transpose(1, 2)[:, :, None]
+    vg = v.transpose(1, 2)[:, :, None]
+    o, lse = _xla_attention(qg, kg, vg, scale, causal)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d), lse.reshape(b, h,
+                                                                      sq)
 
 
 def _torch_flash_bwd(qkv, o, lse, do, h, h_kv, d, scale, causal):
@@ -257,6 +280,63 @@ def flash_bwd_dq_cuda(qkv: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
 flash_bwd_dq_cuda.launches = 0
 
 
+def _check_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool) -> None:
+    name = "flash_fwd_bshd_cuda"
+    if any(t.device != q.device or t.device.type != "cuda"
+           for t in (q, k, v)):
+        raise ValueError(f"{name} takes CUDA tensors on one device")
+    b, sq, h, d = q.shape
+    if k.ndim != 4 or k.shape != v.shape or k.shape[0] != b \
+            or k.shape[3] != d or h % k.shape[2]:
+        raise ValueError(
+            f"{name}: q (b, sq, h, d) and k/v (b, sk, h_kv, d) with h_kv | h;"
+            f" got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if not packed_kernel_ok(sq, h, d, q.dtype) or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(
+            f"{name}: the flash kernels take bfloat16, head_dim in "
+            f"{KERNEL_HEAD_DIMS} and 1 <= sq <= {KERNEL_MAX_SEQ}; got "
+            f"{q.dtype}/{k.dtype}/{v.dtype}, d={d}, sq={sq}")
+    if causal and sq > k.shape[1]:
+        raise ValueError(f"{name}: causal attention requires sq <= sk; got "
+                         f"sq={sq} > sk={k.shape[1]}")
+    if k.stride() != v.stride():
+        raise ValueError(f"{name}: k and v must share their strides")
+    for t in (q, k):
+        if t.stride(3) != 1 or t.stride(2) != d or t.stride(1) % 8 \
+                or t.data_ptr() % 16 or v.data_ptr() % 16:
+            raise ValueError(
+                f"{name}: each (head, feature) row must be dense with "
+                f"16-byte aligned rows (the kernel copies 16-byte chunks); "
+                f"got strides {t.stride()}")
+
+
+def flash_fwd_bshd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, scale: float, causal: bool
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the bshd flash forward: q (b, sq, h, d), k/v (b, sk, h_kv,
+    d), bf16 — separate tensors or views into one buffer (the batch and
+    row strides are passed through). Returns o (b, sq, h, d) bf16 and lse
+    (b, h, sq) fp32. Counts its launches in ``.launches``."""
+    _check_bshd(q, k, v, causal)
+    b, sq, h, d = q.shape
+    sk, h_kv = k.shape[1], k.shape[2]
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    rc = _build.library().apex_flash_fwd_bshd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), q.stride(0), k.stride(0), q.stride(1), k.stride(1),
+        b, sq, sk, h, h_kv, d, int(causal), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "flash_fwd_bshd")
+    flash_fwd_bshd_cuda.launches += 1
+    return out, lse
+
+
+flash_fwd_bshd_cuda.launches = 0
+
+
 # --- dispatch -----------------------------------------------------------------
 
 def flash_fwd_packed(qkv: torch.Tensor, h: int, h_kv: int, d: int, *,
@@ -283,6 +363,72 @@ def flash_bwd_packed(qkv: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
                                causal=causal)
         return dq, dk, dv
     return _torch_flash_bwd(qkv, o, lse, do, h, h_kv, d, scale, causal)
+
+
+def flash_fwd_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   scale: float, causal: bool, impl: str = "auto"
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Seq-major flash forward: (o (b, sq, h, d), lse (b, h, sq))."""
+    if _backend.use_kernel(q, impl):
+        return flash_fwd_bshd_cuda(q, k, v, scale=scale, causal=causal)
+    return _torch_flash_fwd_bshd(q, k, v, scale, causal)
+
+
+class _FlashBshd(torch.autograd.Function):
+    """The bshd forward; its backward (``flash_bwd_bshd``) is queued."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, impl):
+        return flash_fwd_bshd(q, k, v, scale=scale, causal=causal,
+                              impl=impl)[0]
+
+    @staticmethod
+    def backward(ctx, do):
+        raise NotImplementedError(
+            "the backward of flash_attention(layout='bshd') (the Pallas "
+            "flash_bwd_bshd) is a later slice of the port; the bshd path "
+            "is forward-only (the decode engine's prefill)")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = False, scale: Optional[float] = None,
+                    kv_lens: Optional[torch.Tensor] = None, bias=None,
+                    impl: str = "auto", layout: str = "bhsd",
+                    dropout_rate: float = 0.0,
+                    dropout_seed: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Blockwise attention, forward only, in the seq-major layout:
+    ``layout="bshd"`` takes q (b, sq, h, d) and k/v (b, sk, h_kv, d)
+    (h_kv | h: grouped-query heads read kv head ``t // (h // h_kv)``) and
+    returns o (b, sq, h, d). ``causal`` aligns bottom-right (row r sees
+    keys ``<= r + sk − sq``) and requires sq <= sk. ``scale`` defaults to
+    1/sqrt(d). On a CUDA tensor the kernel runs (a shape it refuses —
+    not bf16, d not in 64/128 — raises); on a CPU tensor, or with
+    ``impl="torch"``, the plain version. Differentiating through it
+    raises ``NotImplementedError``."""
+    if layout != "bshd":
+        if layout != "bhsd":
+            raise ValueError(f"layout must be bhsd|bshd, got {layout!r}")
+        raise NotImplementedError(
+            "flash_attention's bh-flat layout (the Pallas flash_fwd / "
+            "flash_bwd) is a later slice of the port; pass layout='bshd'")
+    if kv_lens is not None or bias is not None or dropout_rate != 0.0 \
+            or dropout_seed is not None:
+        raise NotImplementedError(
+            "flash_attention's kv_lens, bias (and the bucketed rel_bias) "
+            "and dropout options are later slices of the port")
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError(f"layout='bshd' takes (b, s, h, d) operands; got "
+                         f"{tuple(q.shape)} / {tuple(k.shape)}")
+    if causal and q.shape[1] > k.shape[1]:
+        raise ValueError(f"causal attention requires sq <= sk; got "
+                         f"sq={q.shape[1]} > sk={k.shape[1]}")
+    if q.shape[2] % k.shape[2] or k.shape[:2] != v.shape[:2]:
+        raise ValueError(f"kv heads ({k.shape[2]}) must divide q heads "
+                         f"({q.shape[2]}) with matching batch/seq dims")
+    d = q.shape[-1]
+    s_scale = float(scale if scale is not None else 1.0 / d ** 0.5)
+    return _FlashBshd.apply(q, k, v, s_scale, bool(causal), impl)
 
 
 # --- the fused projection + attention block -----------------------------------

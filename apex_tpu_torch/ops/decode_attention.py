@@ -1,18 +1,23 @@
-"""Paged decode attention: one query token per slot over a paged KV pool.
+"""Decode attention: one query token per sequence over a KV cache.
 
-Port of the paged path of ``apex_tpu/ops/decode_attention.py``
-(``_paged_decode_attention``, ``:226-295``): the same validation, and the
-dispatch of :mod:`apex_tpu_torch.ops._backend` —
+Port of ``apex_tpu/ops/decode_attention.py``: both cache layouts with the
+reference's validation, and the dispatch of
+:mod:`apex_tpu_torch.ops._backend` —
 
-* a CUDA tensor launches :func:`paged_decode_attn_cuda`, the hand-written
-  kernel ``apex_tpu_torch/csrc/paged_decode_attn.cu`` that replaces the
-  Pallas ``decode_attn_paged_fwd``;
-* a CPU tensor (or ``impl="torch"``) runs the plain version beside it,
-  :func:`_gather_blocks` + :func:`_torch_decode`, ported from the
-  reference's XLA fallback (``:53-95``).
+* the contiguous cache ``(b, h_kv, max_s, d)`` of the decode engine
+  (``:98-200``): a CUDA tensor launches :func:`decode_attn_cuda`, the
+  ``apex_decode_attn`` entry of ``csrc/paged_decode_attn.cu`` that
+  replaces the Pallas ``decode_attn_fwd``; per-batch lengths are repeated
+  over kv heads (``:193``);
+* the paged pool of the serving engine (``_paged_decode_attention``,
+  ``:226-295``): a CUDA tensor launches :func:`paged_decode_attn_cuda`,
+  replacing the Pallas ``decode_attn_paged_fwd``;
+* a CPU tensor (or ``impl="torch"``) runs the plain version,
+  :func:`_torch_decode` (after :func:`_gather_blocks` for the pool),
+  ported from the reference's XLA fallback (``:53-95``).
 
-The contiguous-cache path (``DecodeEngine``), quantized pools and the
-bucketed relative bias are later slices of the port and raise here.
+Quantized pools and the bucketed relative bias are later slices of the
+port and raise here.
 """
 
 from __future__ import annotations
@@ -31,6 +36,9 @@ NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_GROUPS = (1, 2, 4, 8, 16)
 KERNEL_MAX_BLOCK = 128
+#: the contiguous cache's length must be a multiple of the kernel's
+#: 128-row block (``decode_kernel_ok``, ``:36-42``)
+KERNEL_CACHE_TILE = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -116,25 +124,74 @@ def paged_decode_attn_cuda(q: torch.Tensor, k_pool: torch.Tensor,
 paged_decode_attn_cuda.launches = 0
 
 
+def decode_kernel_ok(max_s: int, d: int, group: int,
+                     dtype: torch.dtype) -> bool:
+    """What the contiguous decode kernel takes: a cache length that is a
+    multiple of 128, a head dim of 64 or 128, a group count it is compiled
+    for, float32 or bfloat16."""
+    return (max_s >= KERNEL_CACHE_TILE and max_s % KERNEL_CACHE_TILE == 0
+            and d in KERNEL_HEAD_DIMS and group in KERNEL_GROUPS
+            and dtype in _DTYPE_CODES)
+
+
+def decode_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor, *, scale: float) -> torch.Tensor:
+    """Launch the contiguous decode kernel. q ``(rows, group, d)``; k/v
+    ``(rows, max_s, d)`` with rows = b·h_kv; ``lengths`` ``(rows,)`` int32.
+    Returns ``(rows, group, d)``. Counts its launches in ``.launches``."""
+    rows, group, d = q.shape
+    max_s = k.shape[1]
+    tensors = (q, k, v, lengths)
+    if any(t.device != q.device or t.device.type != "cuda" for t in tensors):
+        raise ValueError("decode_attn_cuda takes CUDA tensors on one device")
+    if k.dtype != q.dtype or v.dtype != q.dtype \
+            or not decode_kernel_ok(max_s, d, group, q.dtype):
+        raise ValueError(
+            f"the decode kernel takes float32 or bfloat16 q and cache of one "
+            f"dtype, head_dim in {KERNEL_HEAD_DIMS}, {KERNEL_GROUPS} query "
+            f"heads per kv head and a cache length that is a multiple of "
+            f"{KERNEL_CACHE_TILE}; got q {q.dtype}, k {k.dtype}, v "
+            f"{v.dtype}, d={d}, group={group}, max_s={max_s}")
+    if k.shape != (rows, max_s, d) or v.shape != k.shape \
+            or lengths.shape != (rows,) or lengths.dtype != torch.int32:
+        raise ValueError(
+            f"shapes disagree: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)}, lengths {tuple(lengths.shape)} "
+            f"{lengths.dtype} (int32)")
+    if not all(t.is_contiguous() for t in tensors) \
+            or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("decode_attn_cuda takes contiguous tensors, the "
+                         "cache 16-byte aligned")
+    out = torch.empty_like(q)
+    rc = _build.library().apex_decode_attn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), _DTYPE_CODES[q.dtype], rows, group, d, max_s,
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "decode_attn")
+    decode_attn_cuda.launches += 1
+    return out
+
+
+decode_attn_cuda.launches = 0
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor, *,
                      block_tables: Optional[torch.Tensor] = None,
                      scale: Optional[float] = None, impl: str = "auto",
                      bias=None, k_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Attention of ONE query token per slot over the paged pool.
+    """Attention of ONE query token per sequence over a KV cache.
 
-    ``q`` (b, h, d); ``k``/``v`` the shared pool ``(num_blocks, h_kv,
-    block_size, d)``; ``block_tables`` (b, nb) integer — slot i's j-th
-    logical block lives at pool index ``block_tables[i, j]`` (unused
-    entries hold the dead block 0); ``lengths`` (b,) live rows per slot,
-    the new token's row already written. Positions >= the length are
-    masked; a length-0 slot returns zeros. Returns (b, h, d)."""
-    if block_tables is None:
-        raise NotImplementedError(
-            "the contiguous-cache decode path (DecodeEngine, Pallas "
-            "decode_attn_fwd) is a later slice of the port; pass "
-            "block_tables for the paged pool")
+    ``q`` (b, h, d); ``lengths`` (b,) live positions per sequence, the new
+    token's row already written. Positions >= the length are masked; a
+    length-0 sequence returns zeros. Returns (b, h, d).
+
+    Without ``block_tables``, ``k``/``v`` are the contiguous cache
+    ``(b, h_kv, max_s, d)`` (h_kv | h). With ``block_tables`` (b, nb)
+    integer, they are the shared pool ``(num_blocks, h_kv, block_size,
+    d)`` and slot i's j-th logical block lives at pool index
+    ``block_tables[i, j]`` (unused entries hold the dead block 0)."""
     if bias is not None:
         raise NotImplementedError(
             "the bucketed relative bias (BucketedBias) at decode is a later "
@@ -146,11 +203,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "port; serve with a float pool")
     if q.ndim != 3 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(
-            f"decode_attention takes q (b, h, d) and (num_blocks, h_kv, "
-            f"block_size, d) pools; got q {tuple(q.shape)}, k "
-            f"{tuple(k.shape)}, v {tuple(v.shape)}")
+            f"decode_attention takes q (b, h, d) and k/v (b, h_kv, max_s, "
+            f"d) — or (num_blocks, h_kv, block_size, d) pools with "
+            f"block_tables; got q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)}")
     b, h, d = q.shape
     h_kv = k.shape[1]
+    if block_tables is None:
+        return _contiguous(q, k, v, lengths, scale, impl)
     if k.shape[3] != d or h % h_kv:
         raise ValueError(
             f"paged cache pool (num_blocks, h_kv, block_size, d) must match "
@@ -178,3 +238,27 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _torch_decode(qg, _gather_blocks(k, block_tables),
                          _gather_blocks(v, block_tables),
                          lengths.to(torch.int32), scale).reshape(b, h, d)
+
+
+def _contiguous(q, k, v, lengths, scale, impl):
+    """The contiguous-cache path (``:176-200``)."""
+    b, h, d = q.shape
+    h_kv, max_s = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or h % h_kv:
+        raise ValueError(
+            f"cache (b, h_kv, max_s, d) must match q's batch/head_dim with "
+            f"h_kv | h; got q {tuple(q.shape)} vs cache {tuple(k.shape)}")
+    if lengths.shape != (b,):
+        raise ValueError(f"lengths must be ({b},); got "
+                         f"{tuple(lengths.shape)}")
+    lengths = lengths.to(torch.int32)
+    group = h // h_kv
+    scale = float(scale if scale is not None else 1.0 / d ** 0.5)
+    qg = q.reshape(b, h_kv, group, d)
+    if _backend.use_kernel(q, impl):
+        o = decode_attn_cuda(
+            qg.reshape(b * h_kv, group, d).contiguous(),
+            k.reshape(b * h_kv, max_s, d), v.reshape(b * h_kv, max_s, d),
+            lengths.repeat_interleave(h_kv).contiguous(), scale=scale)
+        return o.reshape(b, h, d)
+    return _torch_decode(qg, k, v, lengths, scale).reshape(b, h, d)

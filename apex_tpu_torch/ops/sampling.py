@@ -32,6 +32,16 @@ KERNEL_MAX_VOCAB = 49152
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def uniform_noise(shape, generator: Optional[torch.Generator],
+                  device: torch.device) -> torch.Tensor:
+    """fp32 uniforms in [tiny, 1) from ``generator``: 0 is clamped away, so
+    ``log(u)`` stays finite (``jax.random.uniform(minval=tiny)``'s range
+    up to the excluded 1)."""
+    return torch.rand(shape, generator=generator, dtype=torch.float32,
+                      device=device).clamp_min(
+                          torch.finfo(torch.float32).tiny)
+
+
 def _bisect(s: torch.Tensor, keep_mass: torch.Tensor, target,
             lo: Optional[torch.Tensor] = None,
             iters: int = BISECT_ITERS) -> torch.Tensor:
@@ -156,9 +166,7 @@ def fused_sample(logits: torch.Tensor, *, temperature: float = 0.0,
     b, V = logits.shape
     top_k = min(int(top_k), V)
     if u is None:
-        u = torch.rand((b, V), generator=generator, dtype=torch.float32,
-                       device=logits.device).clamp_min(
-                           torch.finfo(torch.float32).tiny)
+        u = uniform_noise((b, V), generator, logits.device)
     elif u.shape != (b, V) or u.dtype != torch.float32:
         raise ValueError(f"u must be float32 ({b}, {V}); got "
                          f"{u.dtype} {tuple(u.shape)}")

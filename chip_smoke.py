@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""chip_smoke.py — drive apex_tpu_torch's serving path and its GPT-medium
-train step on one CUDA card.
+"""chip_smoke.py — drive apex_tpu_torch's serving path, its decode engine
+(with speculative decoding) and its GPT-medium train step on one CUDA card.
 
 Run from the repository root on a machine with an NVIDIA H100 (no
 arguments, one card, no network):
@@ -38,18 +38,42 @@ without the final line):
    share of requests with identical tokens is printed; bf16 near-ties may
    flip a token), and a profiled greedy serve (device time by kernel and
    the device-busy share of the serve's wall time);
-6. the train path: the same GPT-medium in bf16 (flash attention, no
+6. the decode-engine slice, on the serve's model and weights:
+   * the bshd flash forward (the prefill's views of the packed projection
+     at b 16, s 512, 8 heads of 128, causal, and a ragged GQA case: b 4,
+     s 300, 8 heads over 2 kv heads; bit-identical to the packed kernel on
+     the same views), the contiguous decode kernel (16 x 8 rows, max_s
+     1024, ragged lengths with 0 and 1024, MHA and GQA) and both verify
+     kernels (greedy and sampled, (1, 5, V), (1, 9, V) and batch 4, with
+     forced ties) against their plain versions, with times, bounds and
+     library times as above;
+   * the decode leg of bench.py (batch 16, prompt 512, 128 new tokens):
+     with the counters zeroed just before and read just after, 3 timed
+     prefills and 3 timed loops of 127 greedy decode steps into one
+     cache; 12 flash_fwd_bshd launches per prefill and 12 decode_attn
+     launches per step; the cache's storage must not move and the passes'
+     tokens must agree. Outside the window: a sampled generate (must
+     differ), a plain-path generate (share of identical tokens printed)
+     and a profiled decode loop (device-busy share);
+   * the spec leg at batch 1 (a 64-token block repeated 4 times, 64 new
+     tokens): the chain with ModelDrafter (the target as its own
+     drafter) and NGramDrafter(4), the tree with NGramTreeDrafter(4, 2),
+     greedy, then the n-gram chain sampled; each run's verify counter
+     zeroed just before and read just after must equal its rounds;
+     acceptance, tokens per round and the share of tokens identical to
+     plain greedy are printed;
+7. the train path: the same GPT-medium in bf16 (flash attention, no
    remat), batch 20 x 1024 seeded tokens, ``loss_fn`` + ``backward`` + one
    ``FusedAdam(lr=1e-4)`` step: a warm-up step, then 10 timed steps with
    the train kernels' counters zeroed just before and read just after
    (12 flash forward, 12 dK/dV, 12 dQ and 1 ``xent_stats`` launch per
    step); every loss finite and the last below the first; tokens/s, step
    ms, model TFLOP/s and MFU against the card's dense bf16 peak;
-7. outside the counted window: one step's loss and gradients on the
+8. outside the counted window: one step's loss and gradients on the
    kernel path against the plain path (``impl="torch"``, same weights and
    batch) within stated bounds, and 2 profiled train steps (device time
    by kernel, launches per step, device-busy share);
-8. one ``{"kernels": [...]}`` line (all six kernels), the card's name and
+9. one ``{"kernels": [...]}`` line (all ten kernels), the card's name and
    power limit as nvidia-smi prints them, and last ``{"ok": true,
    "device": {...}}``.
 """
@@ -736,6 +760,525 @@ def phase_profile(torch, model, params, dev, wall_s):
             "top": [{"kernel": name[:90], "device_s": t / 1e6,
                      "launches": n} for t, n, name in kernels[:6]]}
 
+# --- the decode-engine slice ---------------------------------------------------
+
+# the decode leg (bench.py:215-220): GPT-medium bf16 as MODEL, batch 16,
+# prompt 512, 128 new tokens (the prefill samples the first, then 127
+# decode steps), 3 passes each of the prefill and of the decode loop
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW, DECODE_PASSES = 16, 512, 128, 3
+DECODE_SAMPLED = dict(temperature=0.8, top_k=50)  # DecodeEngine: no top_p
+# the spec leg: batch 1, a 64-token block repeated 4 times, 64 new tokens
+SPEC_BLOCK, SPEC_REPS, SPEC_NEW, SPEC_K = 64, 4, 64, 4
+
+
+def phase_bshd_kernel(torch, dev):
+    """The bshd flash forward against its plain version at the prefill's
+    shape (views of one packed projection buffer, as the prefill passes
+    them) and at a ragged GQA shape; bit-identity with the packed kernel
+    on the same views; times at the prefill's shape."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import attention as A
+
+    d = 128
+    kw = dict(scale=d ** -0.5, causal=True)
+
+    def views(qkv, h, h_kv):
+        b, s, _ = qkv.shape
+        return (qkv[..., :h * d].reshape(b, s, h, d),
+                qkv[..., h * d:(h + h_kv) * d].reshape(b, s, h_kv, d),
+                qkv[..., (h + h_kv) * d:].reshape(b, s, h_kv, d))
+
+    err = 0.0
+    for b, s, h, h_kv in ((DECODE_BATCH, DECODE_PROMPT, 8, 8),
+                          (4, 300, 8, 2)):
+        shape = {"b": b, "sq": s, "sk": s, "h": h, "h_kv": h_kv, "d": d}
+        qkv, _ = flash_case(torch, dev, b, s, h, h_kv, d, seed=s + 7)
+        q, k, v = views(qkv, h, h_kv)
+        o, lse = A.flash_fwd_bshd(q, k, v, **kw)
+        o_p, lse_p = A.flash_fwd_bshd(q, k, v, impl="torch", **kw)
+        o_t, lse_t = A.flash_fwd_bshd(q.float(), k.float(), v.float(),
+                                      impl="torch", **kw)
+        o_pk, lse_pk = A.flash_fwd_cuda(qkv, h, h_kv, d, **kw)
+        torch.cuda.synchronize()
+        err = max(err, rule_check("bshd o", o, o_p, o_t, shape),
+                  rule_check("bshd lse", lse, lse_p, lse_t, shape))
+        check(torch.equal(o.reshape(o_pk.shape), o_pk)
+              and torch.equal(lse, lse_pk),
+              f"bshd kernel on packed views differs from the packed kernel "
+              f"at {shape}")
+        del qkv, o, lse, o_p, lse_p, o_t, lse_t, o_pk, lse_pk
+
+    b, s, h = DECODE_BATCH, DECODE_PROMPT, 8
+    sets = [views(flash_case(torch, dev, b, s, h, h, d, seed=20 + i)[0],
+                  h, h) for i in range(2)]  # 2 x 50 MB: cold in the L2
+    ms = time_ms(lambda q, k, v: A.flash_fwd_bshd_cuda(q, k, v, **kw), sets)
+    plain_ms = time_ms(lambda q, k, v: A.flash_fwd_bshd(q, k, v,
+                                                        impl="torch", **kw),
+                       sets, reps=3, trials=5)
+    library_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True), sets)
+    pairs = b * h * s * (s + 1) / 2
+    io = b * s * h * d * 2  # one (b, s, h, d) bf16 tensor
+    bms, by = bound(3 * io + io + b * h * s * 4, 4 * d * pairs,
+                    BF16_OPS_PER_S)
+    return {"name": "flash_fwd_bshd", "route": "cuda",
+            "source": "apex_tpu_torch/csrc/flash_attn_fwd.cu",
+            "replaces": "apex_tpu/ops/pallas/attention.py:831",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+            "library_note": "F.scaled_dot_product_attention forward, causal",
+            "timed_shape": {"b": b, "sq": s, "sk": s, "heads": h,
+                            "kv_heads": h, "head_dim": d, "causal": True,
+                            "dtype": "bf16", "layout": "views of the "
+                            "packed projection"}}
+
+
+def phase_contig_decode_kernel(torch, dev):
+    """The contiguous decode kernel against its plain version on the
+    decode engine's cache (16 x 8 rows, max_s 1024, d 128) with ragged
+    lengths including 0 and 1024, and on a GQA cache; times with every row
+    at 640 live positions (the decode leg's last step)."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import decode_attention as D
+
+    b, h, d, max_s = DECODE_BATCH, 8, 128, 1024
+    ragged = [0, 1, 127, 128, 129, 300, 512, 513, 600, 640, 700, 900,
+              1000, 1023, 1024, 2]
+
+    def case(h_kv, lengths, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        q = torch.randn((b, h, d), generator=g, device=dev).bfloat16()
+        k = torch.randn((b, h_kv, max_s, d), generator=g,
+                        device=dev).bfloat16()
+        v = torch.randn((b, h_kv, max_s, d), generator=g,
+                        device=dev).bfloat16()
+        return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+    err = 0.0
+    for h_kv in (8, 2):
+        q, k, v, lens = case(h_kv, ragged, seed=h_kv + 40)
+        got = D.decode_attention(q, k, v, lens)
+        want = D.decode_attention(q, k, v, lens, impl="torch")
+        torch.cuda.synchronize()
+        e = (got.float() - want.float()).abs().max().item()
+        check(torch.isfinite(got.float()).all().item(),
+              "contiguous decode kernel output not finite")
+        check(not got[lens == 0].any().item(),
+              "contiguous decode kernel: length-0 row not zeros")
+        emit("contig_decode_check", {"h_kv": h_kv, "lengths": ragged,
+                                     "max_abs_err": e, "tol": DECODE_TOL})
+        check(e <= DECODE_TOL, f"contiguous decode kernel vs plain: max abs "
+              f"err {e} > {DECODE_TOL} (h_kv={h_kv})")
+        err = max(err, e)
+
+    L = DECODE_PROMPT + DECODE_NEW
+    sets = [case(8, [L] * b, seed=50 + i) for i in range(2)]
+    kern = lambda q, k, v, n: D.decode_attention(q, k, v, n)  # noqa: E731
+    plain = lambda q, k, v, n: D.decode_attention(  # noqa: E731
+        q, k, v, n, impl="torch")
+
+    def library(q, k, v, n):
+        mask = (torch.arange(max_s, device=dev)[None, :]
+                < n[:, None])[:, None, None, :]
+        return F.scaled_dot_product_attention(q[:, :, None, :], k, v,
+                                              attn_mask=mask)
+
+    ms = time_ms(kern, sets)
+    plain_ms = time_ms(plain, sets, reps=5)
+    library_ms = time_ms(library, sets, reps=5)
+    rows = b * h
+    bms, by = bound(2 * rows * L * d * 2 + 2 * b * h * d * 2 + rows * 4,
+                    4 * rows * L * d, BF16_OPS_PER_S)
+    return {"name": "decode_attn", "route": "cuda",
+            "source": "apex_tpu_torch/csrc/paged_decode_attn.cu",
+            "replaces": "apex_tpu/ops/pallas/decode_attention.py:183",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+            "library_note": "F.scaled_dot_product_attention over the whole "
+                            "cache with a length mask",
+            "timed_shape": {"batch": b, "heads": h, "kv_heads": 8,
+                            "head_dim": d, "max_s": max_s,
+                            "live_rows": L, "dtype": "bf16"}}
+
+
+def verify_case(torch, dev, b, n1, V, seed, tree):
+    """bf16 logits with a forced argmax tie in row 1 (indices 3 and 7),
+    drafts that follow their parent row's argmax except for a wrong
+    sibling and a random last token, and (tiny, 1] noise."""
+    from apex_tpu_torch.ops import fused_verify as vf
+    from apex_tpu_torch.spec.tree import draft_tree
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logits = torch.randn((b, n1, V), generator=g, device=dev) * 4.0
+    logits[:, 1, 7] = logits[:, 1].amax(-1) + 1.0
+    logits[:, 1, 3] = logits[:, 1, 7]
+    logits = logits.bfloat16()
+    cand = vf.row_argmax(logits.float())
+    if tree:
+        topo = draft_tree(2, (n1 - 1) // 2)
+        parents, anc = (torch.as_tensor(a, device=dev)
+                        for a in topo.operands(b))
+        tokens = cand.gather(-1, parents.long())
+        tokens[:, 2] = (tokens[:, 2] + 1) % V
+        tokens[:, -1] = torch.randint(0, V, (b,), generator=g, device=dev)
+        extra = (tokens, parents, anc)
+    else:
+        drafted = cand[:, :-1].clone()
+        drafted[:, -1] = torch.randint(0, V, (b,), generator=g, device=dev)
+        extra = (drafted,)
+    tiny = torch.finfo(torch.float32).tiny
+    u_acc = torch.rand((b, n1), generator=g, device=dev).clamp_min(tiny)
+    u_gum = torch.rand((b, n1, V), generator=g, device=dev).clamp_min(tiny)
+    return logits, extra, u_acc, u_gum
+
+
+def verify_near_ties(torch, logits, extra, u_acc, u_gum, tree):
+    """Batch rows where a near-tie could flip a sampled verdict: an
+    acceptance draw within NEAR_TIE of its probability, or a row's two
+    best perturbed scores within NEAR_TIE (the sampler's rule)."""
+    from apex_tpu_torch.ops import fused_verify as vf
+    from apex_tpu_torch.ops import sampling as sm
+
+    s = sm.filtered_scaled(logits, temperature=DECODE_SAMPLED["temperature"],
+                           top_k=DECODE_SAMPLED["top_k"], top_p=1.0)
+    n1 = s.shape[-2]
+    if tree:
+        tokens, parents, _ = extra
+        tokens = tokens.clone()
+        tokens[:, 0] = vf.NO_DRAFT
+        ua = u_acc
+    else:
+        tokens = torch.cat([torch.full_like(extra[0][:, :1], vf.NO_DRAFT),
+                            extra[0]], dim=1)
+        parents = (torch.arange(n1, device=s.device) - 1).clamp_min(0)
+        parents = parents.expand_as(tokens)
+        ua = torch.cat([u_acc[:, -1:], u_acc[:, :-1]], dim=1)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = vf._token_mass(e, tokens) / e.sum(-1)[..., None]
+    ratio = p.gather(1, parents.long()[:, None, :])[:, 0]
+    tie = ((ua - ratio).abs() <= NEAR_TIE * ratio) & (tokens >= 0)
+    drop = torch.zeros_like(s, dtype=torch.bool)
+    for c in range(1, n1):
+        t = tokens[:, c]
+        ok = t >= 0
+        drop[ok, parents[ok, c].long(), t[ok].long()] = True
+    x = (torch.where(drop, sm.FILTERED, s)
+         - torch.log(-torch.log(u_gum))).double()
+    top2 = x.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]).abs() <= NEAR_TIE * top2[..., 0].abs()
+    return tie.any(-1) | gap.any(-1)
+
+
+def phase_verify_kernels(torch, dev):
+    """Both verify kernels against their plain versions, greedy and
+    sampled (T 0.8, top_k 50), at the spec leg's shapes (1, 5, V) and
+    (1, 9, V) and at batch 4, over 4 seeds; times at the spec leg's
+    shapes."""
+    from apex_tpu_torch.ops import fused_verify as vf
+
+    V = MODEL["vocab_size"]
+    rows = mismatches = ties_total = 0
+    for seed in range(4):
+        for tree, n1 in ((False, SPEC_K + 1), (True, 2 * SPEC_K + 1)):
+            for b in (1, 4):
+                logits, extra, u_acc, u_gum = verify_case(
+                    torch, dev, b, n1, V, 100 * seed + b + n1, tree)
+                fn = vf.fused_verify_tree if tree else vf.fused_verify
+                for sampled in (False, True):
+                    kw = dict(DECODE_SAMPLED) if sampled else {}
+                    if sampled:
+                        kw.update(u_acc=u_acc, u_gum=u_gum)
+                    got = fn(logits, *extra, **kw)
+                    want = fn(logits, *extra, impl="torch", **kw)
+                    bad = torch.zeros((b,), dtype=torch.bool, device=dev)
+                    for x, y in zip(got, want):
+                        bad |= x != y
+                    if sampled:
+                        ties = verify_near_ties(torch, logits, extra, u_acc,
+                                                u_gum, tree)
+                        ties_total += int(ties.sum())
+                        bad &= ~ties
+                    mismatches += int(bad.sum())
+                    rows += b
+    emit("verify_check", {"rows": rows, "near_ties_excluded": ties_total,
+                          "mismatches": mismatches})
+    check(mismatches == 0, f"verify kernels vs plain: {mismatches} verdict "
+          f"mismatches outside near-ties")
+    check(ties_total <= max(1, 0.01 * rows), f"{ties_total} near-tie rows "
+          f"excluded of {rows}")
+
+    out = []
+    for tree, n1, name, site in (
+            (False, SPEC_K + 1, "fused_verify", "verify.py:290"),
+            (True, 2 * SPEC_K + 1, "fused_verify_tree", "verify.py:356")):
+        logits, extra, u_acc, u_gum = verify_case(torch, dev, 1, n1, V, 7,
+                                                  tree)
+        if tree:
+            tokens = extra[0].clone()
+            tokens[:, 0] = vf.NO_DRAFT
+            args = (tokens, *extra[1:])
+            kern = lambda *a, **k: vf.fused_verify_tree_cuda(  # noqa: E731
+                logits, *args, *a, top_p=1.0, **k)
+        else:
+            pad = torch.cat([extra[0], torch.full_like(extra[0][:, :1],
+                                                       vf.NO_DRAFT)], 1)
+            kern = lambda *a, **k: vf.fused_verify_cuda(  # noqa: E731
+                logits, pad, *a, top_p=1.0, **k)
+        fn = vf.fused_verify_tree if tree else vf.fused_verify
+        modes = {}
+        for sampled in (False, True):
+            knobs = (dict(DECODE_SAMPLED) if sampled
+                     else dict(temperature=0.0, top_k=0))
+            noise = (u_acc, u_gum) if sampled else (None, None)
+            plain_kw = dict(knobs, u_acc=u_acc, u_gum=u_gum) \
+                if sampled else {}
+            ms = time_ms(lambda: kern(*noise, **knobs), [()])
+            plain_ms = time_ms(lambda: fn(logits, *extra, impl="torch",
+                                          **plain_kw), [()], reps=3,
+                               trials=5)
+            elems = n1 * V
+            nbytes = elems * 2 + 4 * n1 * (3 if tree else 1) + 12
+            # greedy: one compare per logit; sampled: scale 1, top-k
+            # bisection 96, filter 1, max 1, exp + sum 2, Gumbel 4
+            ops = elems * (105 if sampled else 1)
+            if sampled:
+                nbytes += elems * 4 + n1 * 4 + (4 * n1 * n1 if tree else 0)
+            bms, by = bound(nbytes, ops, FP32_OPS_PER_S)
+            modes["sampled" if sampled else "greedy"] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                "bound_by": by}
+        g_ = modes["greedy"]
+        out.append({"name": name, "route": "cuda",
+                    "source": "apex_tpu_torch/csrc/fused_verify.cu",
+                    "replaces": "apex_tpu/ops/pallas/" + site,
+                    "max_abs_err": 0, "ms": g_["ms"],
+                    "plain_ms": g_["plain_ms"], "bound_ms": g_["bound_ms"],
+                    "bound_by": g_["bound_by"], "library_ms": None,
+                    "library_note": "no PyTorch call verifies drafts",
+                    "sampled": modes["sampled"],
+                    "timed_shape": {"batch": 1, "rows": n1, "vocab": V,
+                                    "dtype": "bf16", "ms_is": "greedy",
+                                    **DECODE_SAMPLED}})
+    return out
+
+
+def decode_counters():
+    from apex_tpu_torch.ops import attention as A
+    from apex_tpu_torch.ops import decode_attention as D
+    from apex_tpu_torch.ops import fused_verify as vf
+
+    return {"flash_fwd_bshd": A.flash_fwd_bshd_cuda,
+            "decode_attn": D.decode_attn_cuda,
+            "fused_verify": vf.fused_verify_cuda,
+            "fused_verify_tree": vf.fused_verify_tree_cuda}
+
+
+def decode_prompt(torch, dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    return torch.randint(0, MODEL["vocab_size"],
+                         (DECODE_BATCH, DECODE_PROMPT), generator=g,
+                         device=dev, dtype=torch.int32)
+
+
+def decode_loop(eng, params, cache, tok):
+    """DECODE_NEW - 1 greedy steps from the prefill's token; returns the
+    (b, DECODE_NEW) tokens."""
+    out = [tok]
+    for t in range(DECODE_NEW - 1):
+        cache, tok, _ = eng.decode_step(params, cache, tok,
+                                        DECODE_PROMPT + t)
+        out.append(tok)
+    return out
+
+
+def phase_decode(torch, model, params, dev):
+    """The bench.py --decode leg on DecodeEngine: a warm-up, then with the
+    decode kernels' counters zeroed just before and read just after, 3
+    timed prefills and 3 timed loops of 127 greedy decode steps (each
+    after an untimed prefill), all into one cache whose storage must not
+    move."""
+    from apex_tpu_torch.inference import DecodeEngine
+
+    eng = DecodeEngine(model, device=dev)
+    prompt = decode_prompt(torch, dev)
+    cache = eng.init_cache(DECODE_BATCH)
+    ptrs = {k: v.data_ptr() for k, v in cache.items()}
+    _, tok, _ = eng.prefill(params, prompt, cache=cache)  # warm-up
+    eng.decode_step(params, cache, tok, DECODE_PROMPT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    counters = decode_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    pre_times, dec_times, runs = [], [], []
+    for _ in range(DECODE_PASSES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, tok, _ = eng.prefill(params, prompt, cache=cache)
+        torch.cuda.synchronize()
+        pre_times.append(time.perf_counter() - t0)
+    for _ in range(DECODE_PASSES):
+        _, tok, _ = eng.prefill(params, prompt, cache=cache)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = decode_loop(eng, params, cache, tok)
+        torch.cuda.synchronize()
+        dec_times.append(time.perf_counter() - t0)
+        runs.append(torch.stack(out, dim=1))
+    launches = {k: counters[k].launches
+                for k in ("flash_fwd_bshd", "decode_attn")}
+    L = MODEL["num_layers"]
+    prefills = 2 * DECODE_PASSES
+    steps = DECODE_PASSES * (DECODE_NEW - 1)
+    check(launches["flash_fwd_bshd"] == L * prefills,
+          f"decode leg: {launches['flash_fwd_bshd']} flash_fwd_bshd "
+          f"launches for {prefills} prefills x {L} layers")
+    check(launches["decode_attn"] == L * steps,
+          f"decode leg: {launches['decode_attn']} decode_attn launches for "
+          f"{steps} decode steps x {L} layers")
+    check({k: v.data_ptr() for k, v in cache.items()} == ptrs,
+          "the cache's storage moved: the writes were not in place")
+    greedy = runs[0]
+    check(all(torch.equal(r, greedy) for r in runs[1:]),
+          "greedy decode not reproducible across passes")
+    check(((greedy >= 0) & (greedy < MODEL["vocab_size"])).all().item(),
+          "decode produced a token outside the vocabulary")
+    tokens_per_s = DECODE_BATCH * (DECODE_NEW - 1) / min(dec_times)
+    info = {"batch": DECODE_BATCH, "prompt": DECODE_PROMPT,
+            "new_tokens": DECODE_NEW, "decode_steps_per_pass": DECODE_NEW - 1,
+            "passes": DECODE_PASSES,
+            "prefill_ms": 1e3 * min(pre_times),
+            "prefill_ms_passes": [1e3 * t for t in pre_times],
+            "decode_tokens_per_s": tokens_per_s,
+            "decode_step_ms": 1e3 * min(dec_times) / (DECODE_NEW - 1),
+            "decode_pass_ms": [1e3 * t for t in dec_times],
+            "decode_spread_pct": 100 * (max(dec_times) - min(dec_times))
+            / min(dec_times),
+            "cache_gb": eng.cache_bytes(DECODE_BATCH) / 1e9,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches,
+            "launches_per_prefill": launches["flash_fwd_bshd"] / prefills,
+            "launches_per_step": launches["decode_attn"] / steps}
+    return eng, cache, greedy, info, launches
+
+
+def phase_decode_outside(torch, model, params, dev, eng, cache, greedy,
+                         loop_s):
+    """Outside the counted window: a sampled generate (must differ from
+    the greedy tokens), a plain-path generate (the share of identical
+    tokens is printed: bf16 near-ties may flip one), and a profiled
+    decode loop (device time by kernel, device-busy share)."""
+    from apex_tpu_torch.inference import DecodeEngine
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prompt = decode_prompt(torch, dev)
+    sampled = DecodeEngine(model, device=dev, **DECODE_SAMPLED).generate(
+        params, prompt, DECODE_NEW,
+        generator=torch.Generator(device=dev).manual_seed(4))
+    check(not torch.equal(sampled, greedy),
+          "the sampled generate reproduced the greedy tokens")
+    plain = DecodeEngine(model, device=dev, impl="torch").generate(
+        params, prompt, DECODE_NEW)
+    same = (plain == greedy).float().mean().item()
+    rows_same = (plain == greedy).all(dim=1).float().mean().item()
+    emit("decode_plain_path", {"share_of_tokens_identical": same,
+                               "share_of_rows_identical": rows_same})
+
+    _, tok, _ = eng.prefill(params, prompt, cache=cache)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        decode_loop(eng, params, cache, tok)
+        torch.cuda.synchronize()
+    kernels = sorted(((e.self_device_time_total, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)),
+                     reverse=True)
+    steps = DECODE_NEW - 1
+    busy_s = sum(k[0] for k in kernels) / 1e6
+    return {"decode_steps": steps, "device_busy_s": busy_s,
+            "decode_loop_wall_s": loop_s,
+            "device_busy_share": busy_s / loop_s,
+            "device_launches_per_step": sum(k[1] for k in kernels) / steps,
+            "top": [{"kernel": name[:90], "device_ms_per_step":
+                     t / 1e3 / steps, "launches_per_step": n / steps}
+                    for t, n, name in kernels[:8]]}
+
+
+def spec_prompt(torch, dev):
+    rng = np.random.default_rng(6)
+    block = rng.integers(0, MODEL["vocab_size"], SPEC_BLOCK)
+    return torch.tensor(np.tile(block, SPEC_REPS)[None].astype(np.int32),
+                        device=dev)
+
+
+def phase_spec(torch, model, params, dev):
+    """Speculative decoding at batch 1 on DecodeEngine: the chain with
+    ModelDrafter (the target as its own drafter) and NGramDrafter, the
+    tree with NGramTreeDrafter(4, 2), each greedy, then the n-gram chain
+    once sampled. The verify counters are zeroed just before each run and
+    read just after: one launch per round."""
+    from apex_tpu_torch.inference import DecodeEngine
+    from apex_tpu_torch.spec import (ModelDrafter, NGramDrafter,
+                                     NGramTreeDrafter)
+
+    prompt = spec_prompt(torch, dev)
+    greedy = DecodeEngine(model, device=dev)
+    baseline = greedy.generate(params, prompt, SPEC_NEW)  # also a warm-up
+    counters = decode_counters()
+    runs = [("chain_model", greedy, lambda: ModelDrafter(
+                model, params, k=SPEC_K, device=dev), "fused_verify"),
+            ("chain_ngram", greedy, lambda: NGramDrafter(SPEC_K),
+             "fused_verify"),
+            ("tree_ngram", greedy, lambda: NGramTreeDrafter(SPEC_K, 2),
+             "fused_verify_tree"),
+            ("chain_ngram_sampled",
+             DecodeEngine(model, device=dev, **DECODE_SAMPLED),
+             lambda: NGramDrafter(SPEC_K), "fused_verify")]
+    launches = {"fused_verify": 0, "fused_verify_tree": 0}
+    info = {}
+    for name, eng, make, kernel in runs:
+        draft = make()
+        gen = (torch.Generator(device=dev).manual_seed(8)
+               if eng.temperature > 0 else None)
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.generate(params, prompt, SPEC_NEW, generator=gen,
+                           draft=draft)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = counters[kernel].launches
+        other = [k for k in launches if k != kernel][0]
+        st = eng.last_spec_stats
+        check(n == st.rounds and counters[other].launches == 0,
+              f"spec {name}: {n} {kernel} launches for {st.rounds} rounds")
+        check(out.shape == (1, SPEC_NEW) and ((out >= 0) & (
+            out < MODEL["vocab_size"])).all().item(),
+              f"spec {name}: bad output")
+        launches[kernel] += n
+        info[name] = {
+            "rounds": st.rounds, "drafted": st.drafted,
+            "accepted": st.accepted, "nodes": st.nodes,
+            "acceptance_rate": st.acceptance_rate,
+            "tokens_per_round": SPEC_NEW / max(st.rounds, 1),
+            "verify_launches": n, "wall_s": wall,
+            "tokens_per_s": SPEC_NEW / wall,
+            "share_identical_to_plain_greedy":
+                (out == baseline).float().mean().item()}
+    t0 = time.perf_counter()
+    greedy.generate(params, prompt, SPEC_NEW)
+    torch.cuda.synchronize()
+    info["plain_greedy"] = {"tokens_per_s": SPEC_NEW
+                            / (time.perf_counter() - t0)}
+    return info, launches
+
+
 
 def main():
     import torch
@@ -828,7 +1371,30 @@ def main():
 
     emit("profile", phase_profile(torch, model, params, dev,
                                   g_info["wall_s"]))
-    del model, params, warm
+    del warm
+    torch.cuda.empty_cache()
+
+    # --- the decode-engine slice ----------------------------------------------
+    d_kernels = [phase_bshd_kernel(torch, dev),
+                 phase_contig_decode_kernel(torch, dev),
+                 *phase_verify_kernels(torch, dev)]
+    for k in d_kernels:
+        emit("kernel", k)
+    kernels += d_kernels
+    torch.cuda.empty_cache()
+    eng, cache, greedy_dec, d_info, d_launches = phase_decode(
+        torch, model, params, dev)
+    launches.update(d_launches)
+    emit("decode", d_info)
+    emit("decode_profile", phase_decode_outside(
+        torch, model, params, dev, eng, cache, greedy_dec,
+        min(d_info["decode_pass_ms"]) / 1e3))
+    del eng, cache
+    torch.cuda.empty_cache()
+    s_info, s_launches = phase_spec(torch, model, params, dev)
+    launches.update(s_launches)
+    emit("spec", s_info)
+    del model, params
     torch.cuda.empty_cache()
 
     # --- the train path -------------------------------------------------------

@@ -87,7 +87,9 @@ def test_explicit_scale_and_int64_tables():
 def test_later_slices_and_bad_inputs_raise():
     q, pk, pv, tables, lens = [torch.from_numpy(a) for a in
                                _case(8, 2, [5, 6], d=16, bs=16)]
-    with pytest.raises(NotImplementedError, match="DecodeEngine"):
+    # without tables the pool is read as a contiguous (b, h_kv, max_s, d)
+    # cache, whose batch it does not match
+    with pytest.raises(ValueError, match="cache \\(b, h_kv, max_s, d\\)"):
         decode_attention(q, pk, pv, lens)
     with pytest.raises(NotImplementedError, match="BucketedBias"):
         decode_attention(q, pk, pv, lens, block_tables=tables, bias=object())

@@ -48,7 +48,10 @@ def test_every_module_imports_with_jax_blocked():
         "apex_tpu_torch.__path__, 'apex_tpu_torch.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "assert 'apex_tpu_torch.serving.engine' in mods\n"
+        "for want in ('serving.engine', 'inference.engine', "
+        "'inference.sampling', 'ops.fused_verify', 'spec.drafter', "
+        "'spec.tree'):\n"
+        "    assert 'apex_tpu_torch.' + want in mods, want\n"
         "assert not any(k.split('.')[0] in ('jax', 'apex_tpu') and "
         "sys.modules[k] is not None for k in list(sys.modules))\n"
         "print(len(mods))\n")
@@ -56,7 +59,7 @@ def test_every_module_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=str(ROOT), timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 12
+    assert int(out.stdout.strip()) >= 18
 
 
 def test_env_report_fields():
@@ -68,9 +71,11 @@ def test_env_report_fields():
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
+    from apex_tpu_torch.inference import DecodeEngine
     from apex_tpu_torch.models.convert import params_from_jax
     from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
     from apex_tpu_torch.serving.engine import ServingEngine
+    from apex_tpu_torch.spec import ModelDrafter
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = GPTModel(GPTConfig(vocab_size=64, max_seq_len=32,
@@ -81,5 +86,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
         model.init(torch.Generator())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         params_from_jax({}, model.config)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DecodeEngine(model, max_seq_len=128)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ModelDrafter(model, {}, k=2)
     eng = ServingEngine(model, num_slots=1, block_size=16, device="cpu")
     assert eng.init_pool()["k"].device.type == "cpu"

@@ -19,6 +19,14 @@ abs error against it must be at most twice the bf16 plain version's own
 error plus 1e-3 (the kernel rounds p against a running max and sums in
 another order). ``xent_stats``: fp32 statistics within 1e-5 relative of
 the plain version's (sums in another order), target logits exact.
+
+The decode engine's kernels: the bshd flash forward under the same bf16
+rule, and bit-identical to the packed kernel on views of one packed
+buffer; the contiguous decode kernel at the paged kernel's tolerances;
+the verify kernels' verdicts equal to the plain version's exactly in
+greedy mode, and in sampled mode except on a batch row with a near-tie
+(two best perturbed scores of a row, or an acceptance draw and its
+probability, within 1e-5 relative), at most 1% of rows.
 """
 
 import numpy as np
@@ -27,6 +35,7 @@ import torch
 
 from apex_tpu_torch.ops import attention as amod
 from apex_tpu_torch.ops import decode_attention as dmod
+from apex_tpu_torch.ops import fused_verify as vmod
 from apex_tpu_torch.ops import sampling as smod
 from apex_tpu_torch.ops import xentropy as xmod
 
@@ -276,3 +285,184 @@ def test_train_kernels_refuse_what_they_do_not_take(cuda):
         xmod.xent_stats(x, lab)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         xmod.xent_stats(x[:, :96].half(), lab)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,h_kv,d,causal", [
+    (2, 512, 512, 8, 8, 128, True),
+    (4, 300, 300, 8, 2, 128, True),
+    (2, 77, 200, 4, 1, 64, True),
+    (2, 200, 77, 4, 2, 128, False),
+])
+def test_flash_bshd_kernel_matches_plain(cuda, b, sq, sk, h, h_kv, d,
+                                         causal):
+    g = torch.Generator(device=cuda).manual_seed(sq + sk + h_kv)
+    q = torch.randn((b, sq, h, d), generator=g, device=cuda).bfloat16()
+    k = torch.randn((b, sk, h_kv, d), generator=g, device=cuda).bfloat16()
+    v = torch.randn((b, sk, h_kv, d), generator=g, device=cuda).bfloat16()
+    kw = dict(scale=d ** -0.5, causal=causal)
+    before = amod.flash_fwd_bshd_cuda.launches
+    o, lse = amod.flash_fwd_bshd(q, k, v, **kw)
+    assert amod.flash_fwd_bshd_cuda.launches == before + 1
+    o_p, lse_p = amod.flash_fwd_bshd(q, k, v, impl="torch", **kw)
+    o_t, lse_t = amod.flash_fwd_bshd(q.float(), k.float(), v.float(),
+                                     impl="torch", **kw)
+    torch.cuda.synchronize()
+    ok, errs = _within_rule(o, o_p, o_t)
+    assert ok, f"bshd o: kernel/plain errors {errs}"
+    ok, errs = _within_rule(lse, lse_p, lse_t)
+    assert ok, f"bshd lse: kernel/plain errors {errs}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,h,h_kv,d", [(512, 8, 8, 128), (300, 8, 2, 64)])
+def test_flash_bshd_on_packed_views_equals_packed_kernel(cuda, s, h, h_kv,
+                                                         d):
+    """The prefill hands the kernel views of the packed projection: the
+    bshd entry must give the packed entry's results bit for bit."""
+    qkv, _ = _flash_inputs(2, s, h, h_kv, d, cuda, seed=s)
+    b = qkv.shape[0]
+    q = qkv[..., :h * d].reshape(b, s, h, d)
+    k = qkv[..., h * d:(h + h_kv) * d].reshape(b, s, h_kv, d)
+    v = qkv[..., (h + h_kv) * d:].reshape(b, s, h_kv, d)
+    kw = dict(scale=d ** -0.5, causal=True)
+    o_p, lse_p = amod.flash_fwd_cuda(qkv, h, h_kv, d, **kw)
+    o_b, lse_b = amod.flash_fwd_bshd_cuda(q, k, v, **kw)
+    o_c, lse_c = amod.flash_fwd_bshd_cuda(q.contiguous(), k.contiguous(),
+                                          v.contiguous(), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o_b.reshape(o_p.shape), o_p)
+    assert torch.equal(lse_b, lse_p)
+    assert torch.equal(o_c, o_b) and torch.equal(lse_c, lse_b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("h,h_kv,lengths,d,max_s", [
+    (8, 8, [0, 1, 127, 128, 129, 640, 1000, 1024], 128, 1024),
+    (8, 2, [5, 300, 0, 512], 128, 512),
+    (16, 1, [300, 0, 5, 256], 64, 256),
+])
+def test_contiguous_decode_kernel_matches_plain(cuda, dtype, tol, h, h_kv,
+                                                lengths, d, max_s):
+    g = torch.Generator(device=cuda).manual_seed(h_kv + d)
+    b = len(lengths)
+    q = torch.randn((b, h, d), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, h_kv, max_s, d), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, h_kv, max_s, d), generator=g, device=cuda).to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = dmod.decode_attn_cuda.launches
+    got = dmod.decode_attention(q, k, v, lens)
+    assert dmod.decode_attn_cuda.launches == before + 1
+    want = dmod.decode_attention(q, k, v, lens, impl="torch")
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert not got[lens == 0].any()
+
+
+def _verify_case(dev, dtype, b, n1, V, seed, tree):
+    """Logits with a forced argmax tie in row 1, drafts that mostly follow
+    their parent row's argmax (so some rounds accept), one random draft
+    (usually outside top-k), and uniform noise."""
+    from apex_tpu_torch.spec.tree import draft_tree
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logits = torch.randn((b, n1, V), generator=g, device=dev) * 4.0
+    logits[:, 1, 7] = logits[:, 1].amax(-1) + 1.0
+    logits[:, 1, 3] = logits[:, 1, 7]  # a tie: the lower index wins
+    logits = logits.to(dtype)
+    cand = vmod.row_argmax(logits.float())
+    if tree:
+        topo = draft_tree(2, (n1 - 1) // 2)
+        parents, anc = (torch.as_tensor(a, device=dev)
+                        for a in topo.operands(b))
+        tokens = cand.gather(-1, parents.long())
+        tokens[:, -1] = torch.randint(0, V, (b,), generator=g, device=dev)
+        tokens[:, 2] = (tokens[:, 2] + 1) % V  # a wrong sibling
+        extra = (tokens, parents, anc)
+    else:
+        drafted = cand[:, :-1].clone()
+        drafted[:, -1] = torch.randint(0, V, (b,), generator=g, device=dev)
+        extra = (drafted,)
+    u_acc = torch.rand((b, n1), generator=g, device=dev)
+    u_gum = torch.rand((b, n1, V), generator=g, device=dev).clamp_min(
+        torch.finfo(torch.float32).tiny)
+    return logits, extra, u_acc.clamp_min(torch.finfo(torch.float32).tiny), \
+        u_gum
+
+
+def _verify_near_ties(logits, extra, u_acc, u_gum, kw, tree):
+    """Batch rows on which a near-tie could flip the sampled verdict."""
+    s = smod.filtered_scaled(logits, **kw)
+    n1, V = s.shape[-2], s.shape[-1]
+    if tree:
+        tokens, parents, _ = extra
+        tokens = tokens.clone()
+        tokens[:, 0] = vmod.NO_DRAFT
+    else:
+        tokens = torch.cat([torch.full_like(extra[0][:, :1], vmod.NO_DRAFT),
+                            extra[0]], dim=1)
+        parents = (torch.arange(n1, device=s.device) - 1).clamp_min(0)
+        parents = parents.expand_as(tokens)
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    p = vmod._token_mass(e, tokens) / e.sum(-1)[..., None]   # (b, r, c)
+    ratio = p.gather(1, parents.long()[:, None, :])[:, 0]     # (b, c)
+    ua = u_acc if tree else torch.cat([u_acc[:, -1:], u_acc[:, :-1]], 1)
+    tie = ((ua - ratio).abs() <= NEAR_TIE * ratio) & (tokens >= 0)
+    drop = torch.zeros_like(s, dtype=torch.bool)
+    for c in range(1, n1):
+        t = tokens[:, c]
+        ok = t >= 0
+        drop[ok, parents[ok, c].long(), t[ok].long()] = True
+    x = (torch.where(drop, smod.FILTERED, s)
+         - torch.log(-torch.log(u_gum))).double()
+    top2 = x.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]).abs() <= NEAR_TIE * top2[..., 0].abs()
+    return tie.any(-1) | gap.any(-1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n1,tree", [(1, 5, False), (4, 5, False),
+                                       (1, 9, True), (4, 9, True)])
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_verify_kernels_match_plain(cuda, dtype, b, n1, tree, temperature):
+    V = 32768
+    logits, extra, u_acc, u_gum = _verify_case(cuda, dtype, b, n1, V,
+                                               seed=b * n1, tree=tree)
+    kw = dict(temperature=temperature, top_k=50, top_p=1.0)
+    fn = vmod.fused_verify_tree if tree else vmod.fused_verify
+    counter = vmod.fused_verify_tree_cuda if tree else vmod.fused_verify_cuda
+    noise = dict(u_acc=u_acc, u_gum=u_gum) if temperature else {}
+    before = counter.launches
+    got = fn(logits, *extra, **kw, **noise)
+    assert counter.launches == before + 1
+    want = fn(logits, *extra, **kw, **noise, impl="torch")
+    torch.cuda.synchronize()
+    bad = torch.zeros((b,), dtype=torch.bool, device=cuda)
+    for x, y in zip(got, want):
+        bad |= x != y
+    if temperature:
+        ties = _verify_near_ties(logits, extra, u_acc, u_gum,
+                                 dict(temperature=temperature, top_k=50,
+                                      top_p=1.0), tree)
+        bad &= ~ties
+    assert not bad.any(), f"verdicts {got} vs plain {want}"
+
+
+@pytest.mark.gpu
+def test_decode_engine_kernels_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros((1, 128, 2, 96), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        amod.flash_fwd_bshd(q, q, q, scale=1.0, causal=True)
+    q = torch.zeros((1, 8, 64), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros((1, 8, 200, 64), dtype=torch.bfloat16, device=cuda)
+    lens = torch.ones((1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        dmod.decode_attention(q, k, k, lens)
+    logits = torch.zeros((1, 200, 64), device=cuda)
+    with pytest.raises(ValueError, match="verify rows"):
+        vmod.fused_verify(logits, torch.zeros((1, 199), dtype=torch.int32,
+                                              device=cuda))
