@@ -15,8 +15,9 @@
 //   ancestor-or-self closure anc from its operands.
 // * greedy: cand[r] = argmax of row r in fp32 (ties to the lowest index);
 //   node c is accepted iff cand[parent(c)] == token[c].
-// * sampled: row r is scaled and filtered (temperature, top-k, top-p) by
-//   the sampler's own device code (sample_filter.cuh); node c is accepted
+// * sampled: row r is scaled and filtered (temperature, top-k) by the
+//   sampler's own device code (sample_filter.cuh) with its top-p off, as
+//   DecodeEngine has no top-p. Node c is accepted
 //   iff u_acc < exp(s[token] - m) / sum(exp(s - m)) over its parent's row
 //   (a filtered token has p = 0 and is always rejected); row r's
 //   correction candidate is the Gumbel-argmax of its row with EVERY real
@@ -56,8 +57,7 @@ __global__ void __launch_bounds__(kThreads)
                   const float* __restrict__ u_acc,
                   const float* __restrict__ u_gum, int* __restrict__ a_out,
                   int* __restrict__ j_out, int* __restrict__ next_out, int n1,
-                  int V, int sampled, float inv_temp, int top_k,
-                  int use_top_p, float top_p) {
+                  int V, int sampled, float inv_temp, int top_k) {
   extern __shared__ float s[];  // one filtered row (sampled mode)
   __shared__ float red[kWarps];
   __shared__ int red_i[kWarps];
@@ -94,7 +94,7 @@ __global__ void __launch_bounds__(kThreads)
       continue;
     }
     apex::filter::load_filtered(s, logits + row, V, inv_temp, top_k,
-                                use_top_p, top_p, red);
+                                /*use_top_p=*/0, 1.f, red);
     float mx = -INFINITY;
     for (int i = threadIdx.x; i < V; i += kThreads) mx = fmaxf(mx, s[i]);
     const float m = apex::filter::block_max(mx, red);
@@ -164,7 +164,7 @@ cudaError_t launch(const void* logits, const void* toks, const void* parents,
                    const void* anc, const void* u_acc, const void* u_gum,
                    void* a_out, void* j_out, void* next_out, int b, int n1,
                    int V, int sampled, float inv_temp, int top_k,
-                   int use_top_p, float top_p, cudaStream_t stream) {
+                   cudaStream_t stream) {
   const size_t smem = sampled ? static_cast<size_t>(V) * sizeof(float) : 0;
   cudaError_t err = cudaFuncSetAttribute(
       verify_kernel<T, kTree>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -175,8 +175,7 @@ cudaError_t launch(const void* logits, const void* toks, const void* parents,
       static_cast<const int*>(parents), static_cast<const int*>(anc),
       static_cast<const float*>(u_acc), static_cast<const float*>(u_gum),
       static_cast<int*>(a_out), static_cast<int*>(j_out),
-      static_cast<int*>(next_out), n1, V, sampled, inv_temp, top_k,
-      use_top_p, top_p);
+      static_cast<int*>(next_out), n1, V, sampled, inv_temp, top_k);
   return cudaGetLastError();
 }
 
@@ -184,8 +183,7 @@ template <bool kTree>
 int run(const void* logits, const void* toks, const void* parents,
         const void* anc, const void* u_acc, const void* u_gum, void* a_out,
         void* j_out, void* next_out, int dtype, int b, int n1, int V,
-        int sampled, float inv_temp, int top_k, int use_top_p, float top_p,
-        void* stream) {
+        int sampled, float inv_temp, int top_k, void* stream) {
   if (b < 1 || n1 < 2 || n1 > kMaxNodes || V < 1 ||
       (sampled && V > 49152) ||
       (dtype != apex::kFloat32 && dtype != apex::kBFloat16))
@@ -195,11 +193,10 @@ int run(const void* logits, const void* toks, const void* parents,
       dtype == apex::kBFloat16
           ? launch<__nv_bfloat16, kTree>(logits, toks, parents, anc, u_acc,
                                          u_gum, a_out, j_out, next_out, b, n1,
-                                         V, sampled, inv_temp, top_k,
-                                         use_top_p, top_p, st)
+                                         V, sampled, inv_temp, top_k, st)
           : launch<float, kTree>(logits, toks, parents, anc, u_acc, u_gum,
                                  a_out, j_out, next_out, b, n1, V, sampled,
-                                 inv_temp, top_k, use_top_p, top_p, st);
+                                 inv_temp, top_k, st);
   return static_cast<int>(err);
 }
 
@@ -211,11 +208,10 @@ extern "C" int apex_fused_verify(const void* logits, const void* drafted,
                                  const void* u_acc, const void* u_gum,
                                  void* a_out, void* next_out, int dtype,
                                  int b, int k1, int V, int sampled,
-                                 float inv_temp, int top_k, int use_top_p,
-                                 float top_p, void* stream) {
+                                 float inv_temp, int top_k, void* stream) {
   return run<false>(logits, drafted, nullptr, nullptr, u_acc, u_gum, a_out,
                     nullptr, next_out, dtype, b, k1, V, sampled, inv_temp,
-                    top_k, use_top_p, top_p, stream);
+                    top_k, stream);
 }
 
 // logits (b, N1, V); tokens, parents (b, N1) and anc (b, N1, N1) int32;
@@ -227,9 +223,8 @@ extern "C" int apex_fused_verify_tree(const void* logits, const void* tokens,
                                       void* next_out, int dtype, int b,
                                       int n1, int V, int sampled,
                                       float inv_temp, int top_k,
-                                      int use_top_p, float top_p,
                                       void* stream) {
   return run<true>(logits, tokens, parents, anc, u_acc, u_gum, a_out, j_out,
                    next_out, dtype, b, n1, V, sampled, inv_temp, top_k,
-                   use_top_p, top_p, stream);
+                   stream);
 }

@@ -109,7 +109,7 @@ class DecodeEngine:
                 f"position table ({c.max_seq_len}) by more than the "
                 f"128-rounding slack")
         if impl == "auto":
-            model.check_decode_supported(self.device, max_s=self.max_s)
+            model.check_engine_supported(self.device, self.max_s)
         self.temperature = float(temperature)
         self.top_k = int(top_k)
         self.last_spec_stats: Optional[SpecStats] = None

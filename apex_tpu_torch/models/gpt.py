@@ -153,34 +153,35 @@ class GPTModel:
 
     # --- KV-cached inference branch -------------------------------------------
 
-    def check_decode_supported(self, device: torch.device,
-                               block_size: Optional[int] = None, *,
-                               max_s: Optional[int] = None) -> None:
-        """Eager check that the decode kernels take this model's attention
-        shape on ``device`` (the CPU's plain versions take any): the
-        paged kernel with the pool's ``block_size``, or — without one —
-        the decode engine's pair, the contiguous decode kernel over a
-        ``max_s`` cache and the prefill's bshd flash kernel (bfloat16
-        parameters)."""
+    def check_paged_decode_supported(self, device: torch.device,
+                                     block_size: int) -> None:
+        """Eager check that the paged decode kernel takes this model's
+        attention shape and the pool's ``block_size`` on ``device`` (the
+        CPU's plain version takes any)."""
         if device.type != "cuda":
             return
         c = self.config
         group = c.num_heads // c.kv_heads
-        if block_size is not None:
-            if (c.head_dim not in KERNEL_HEAD_DIMS
-                    or group not in KERNEL_GROUPS
-                    or block_size > KERNEL_MAX_BLOCK):
-                raise ValueError(
-                    f"the paged decode kernel takes head_dim in "
-                    f"{KERNEL_HEAD_DIMS}, {KERNEL_GROUPS} query heads per "
-                    f"kv head and blocks of at most {KERNEL_MAX_BLOCK} "
-                    f"rows; this model has head_dim {c.head_dim} and "
-                    f"{group} query heads per kv head, the pool block_size "
-                    f"{block_size}")
-            return
         if (c.head_dim not in KERNEL_HEAD_DIMS or group not in KERNEL_GROUPS
-                or c.dtype != torch.bfloat16
-                or (max_s is not None and max_s % KERNEL_CACHE_TILE)):
+                or block_size > KERNEL_MAX_BLOCK):
+            raise ValueError(
+                f"the paged decode kernel takes head_dim in "
+                f"{KERNEL_HEAD_DIMS}, {KERNEL_GROUPS} query heads per kv "
+                f"head and blocks of at most {KERNEL_MAX_BLOCK} rows; this "
+                f"model has head_dim {c.head_dim} and {group} query heads "
+                f"per kv head, the pool block_size {block_size}")
+
+    def check_engine_supported(self, device: torch.device,
+                               max_s: int) -> None:
+        """Eager check that the decode engine's kernels take this model on
+        ``device``: the contiguous decode kernel over a ``max_s`` cache and
+        the prefill's bshd flash kernel (bfloat16 parameters)."""
+        if device.type != "cuda":
+            return
+        c = self.config
+        group = c.num_heads // c.kv_heads
+        if (c.head_dim not in KERNEL_HEAD_DIMS or group not in KERNEL_GROUPS
+                or c.dtype != torch.bfloat16 or max_s % KERNEL_CACHE_TILE):
             raise ValueError(
                 f"the decode engine's kernels take head_dim in "
                 f"{KERNEL_HEAD_DIMS} (prefill flash and decode), "

@@ -69,13 +69,13 @@ ENTRY_POINTS = {
     # q, k, v, lengths, out, dtype, rows, group, d, max_s, scale, stream
     "apex_decode_attn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # logits, drafted, u_acc, u_gum, a, next, dtype, b, k1, V, sampled,
-    # inv_temp, top_k, use_top_p, top_p, stream
+    # inv_temp, top_k, stream
     "apex_fused_verify": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                          _I, _I, _F, _P],
+                          _I, _P],
     # logits, tokens, parents, anc, u_acc, u_gum, a, j_star, next, dtype,
-    # b, n1, V, sampled, inv_temp, top_k, use_top_p, top_p, stream
+    # b, n1, V, sampled, inv_temp, top_k, stream
     "apex_fused_verify_tree": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                               _I, _I, _I, _F, _I, _I, _F, _P],
+                               _I, _I, _I, _F, _I, _P],
 }
 
 

@@ -393,12 +393,13 @@ class _FlashBshd(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False, scale: Optional[float] = None,
                     kv_lens: Optional[torch.Tensor] = None, bias=None,
-                    impl: str = "auto", layout: str = "bhsd",
+                    impl: str = "auto", layout: str = "bshd",
                     dropout_rate: float = 0.0,
                     dropout_seed: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
-    """Blockwise attention, forward only, in the seq-major layout:
-    ``layout="bshd"`` takes q (b, sq, h, d) and k/v (b, sk, h_kv, d)
+    """Blockwise attention, forward only, in the seq-major layout (the
+    default ``layout="bshd"``; the bh-flat ``"bhsd"`` is a later slice and
+    raises ``NotImplementedError``): q (b, sq, h, d) and k/v (b, sk, h_kv, d)
     (h_kv | h: grouped-query heads read kv head ``t // (h // h_kv)``) and
     returns o (b, sq, h, d). ``causal`` aligns bottom-right (row r sees
     keys ``<= r + sk − sq``) and requires sq <= sk. ``scale`` defaults to

@@ -13,10 +13,11 @@ helpers.
 Acceptance is exact. Greedy (temperature 0): a draft is accepted iff it
 equals the argmax of its target row (ties to the lowest index), so the
 spec stream is token-identical to greedy decoding. Sampled: point-mass
-rejection sampling under the temperature → top-k → top-p distribution of
+rejection sampling under the temperature → top-k distribution of
 :mod:`apex_tpu_torch.ops.sampling` (the same filter code, on the card and
 here): a draft d is accepted iff ``u_acc < p(d)``, and the correction is a
 Gumbel-argmax draw on ``u_gum`` with the rejected drafts filtered out.
+Top-p stays off: ``DecodeEngine``, the only caller, has no top-p.
 
 The noise is drawn from the caller's ``torch.Generator``, or passed as
 ``u_acc``/``u_gum`` (the tests pass JAX's draws): both uniform in
@@ -87,14 +88,14 @@ def verify_greedy(logits: torch.Tensor, drafted_pad: torch.Tensor
 
 def verify_sampled(logits: torch.Tensor, drafted_pad: torch.Tensor,
                    u_acc: torch.Tensor, u_gum: torch.Tensor, *,
-                   temperature: float, top_k: int, top_p: float
+                   temperature: float, top_k: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rejection-sampling acceptance for point-mass drafts: row i accepts
     d_i iff ``u_acc_i < p(d_i)``; every row's correction candidate is a
     Gumbel-argmax draw on ``u_gum`` with its drafted token filtered, and
     the first rejected row's candidate is emitted."""
     s = filtered_scaled(logits, temperature=temperature, top_k=top_k,
-                        top_p=top_p)
+                        top_p=1.0)
     V = s.shape[-1]
     cols = torch.arange(V, device=s.device)
     onehot = cols == drafted_pad[..., None]
@@ -151,13 +152,13 @@ def verify_tree_greedy(logits: torch.Tensor, tokens: torch.Tensor,
 def verify_tree_sampled(logits: torch.Tensor, tokens: torch.Tensor,
                         parents: torch.Tensor, anc: torch.Tensor,
                         u_acc: torch.Tensor, u_gum: torch.Tensor, *,
-                        temperature: float, top_k: int, top_p: float
+                        temperature: float, top_k: int
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Rejection-sampling tree acceptance: node j accepts iff
     ``u_acc[j] < p_parent(tokens[j])``; each row's correction candidate
     filters ALL of that node's real drafted children."""
     s = filtered_scaled(logits, temperature=temperature, top_k=top_k,
-                        top_p=top_p)                      # (..., N1, V)
+                        top_p=1.0)                        # (..., N1, V)
     n1 = s.shape[-2]
     real = tokens != NO_DRAFT
     m = s.amax(dim=-1, keepdim=True)
@@ -205,17 +206,15 @@ def _check_kernel(logits: torch.Tensor, ints, floats, name: str) -> None:
         raise ValueError(f"{name} takes contiguous tensors")
 
 
-def _knobs(temperature: float, top_k: int, top_p: float):
+def _knobs(temperature: float, top_k: int):
     sampled = temperature > 0.0
-    return (int(sampled), 1.0 / temperature if sampled else 1.0,
-            int(top_k), int(top_p < 1.0), float(top_p))
+    return (int(sampled), 1.0 / temperature if sampled else 1.0, int(top_k))
 
 
 def fused_verify_cuda(logits: torch.Tensor, drafted_pad: torch.Tensor,
                       u_acc: Optional[torch.Tensor],
                       u_gum: Optional[torch.Tensor], *, temperature: float,
-                      top_k: int, top_p: float
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+                      top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the chain verify kernel: logits (b, k+1, V), drafted_pad
     (b, k+1) int32 (bonus NO_DRAFT), and for temperature > 0 u_acc
     (b, k+1) and u_gum (b, k+1, V) fp32. Returns (accept_len, next) (b,)
@@ -233,7 +232,7 @@ def fused_verify_cuda(logits: torch.Tensor, drafted_pad: torch.Tensor,
         floats[0].data_ptr() if floats else None,
         floats[1].data_ptr() if floats else None, a.data_ptr(),
         nxt.data_ptr(), _DTYPE_CODES[logits.dtype], b, k1, V,
-        *_knobs(temperature, top_k, top_p),
+        *_knobs(temperature, top_k),
         torch.cuda.current_stream(logits.device).cuda_stream)
     _build.check(rc, "fused_verify")
     fused_verify_cuda.launches += 1
@@ -247,7 +246,7 @@ def fused_verify_tree_cuda(logits: torch.Tensor, tokens: torch.Tensor,
                            parents: torch.Tensor, anc: torch.Tensor,
                            u_acc: Optional[torch.Tensor],
                            u_gum: Optional[torch.Tensor], *,
-                           temperature: float, top_k: int, top_p: float
+                           temperature: float, top_k: int
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
     """Launch the tree verify kernel: logits (b, N1, V), tokens/parents
@@ -269,7 +268,7 @@ def fused_verify_tree_cuda(logits: torch.Tensor, tokens: torch.Tensor,
         anc.data_ptr(), floats[0].data_ptr() if floats else None,
         floats[1].data_ptr() if floats else None, a.data_ptr(),
         j_star.data_ptr(), nxt.data_ptr(), _DTYPE_CODES[logits.dtype], b,
-        n1, V, *_knobs(temperature, top_k, top_p),
+        n1, V, *_knobs(temperature, top_k),
         torch.cuda.current_stream(logits.device).cuda_stream)
     _build.check(rc, "fused_verify_tree")
     fused_verify_tree_cuda.launches += 1
@@ -281,13 +280,11 @@ fused_verify_tree_cuda.launches = 0
 
 # --- the ops ------------------------------------------------------------------
 
-def _check_knobs(temperature: float, top_k: int, top_p: float) -> None:
+def _check_knobs(temperature: float, top_k: int) -> None:
     if temperature < 0:
         raise ValueError(f"temperature must be >= 0, got {temperature}")
     if top_k < 0:
         raise ValueError(f"top_k must be >= 0, got {top_k}")
-    if not 0.0 < top_p <= 1.0:
-        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
 
 
 def _noise(logits: torch.Tensor, generator: Optional[torch.Generator],
@@ -316,7 +313,7 @@ def _noise(logits: torch.Tensor, generator: Optional[torch.Generator],
 def fused_verify(logits: torch.Tensor, drafted: torch.Tensor,
                  generator: Optional[torch.Generator] = None, *,
                  temperature: float = 0.0, top_k: int = 0,
-                 top_p: float = 1.0, u_acc: Optional[torch.Tensor] = None,
+                 u_acc: Optional[torch.Tensor] = None,
                  u_gum: Optional[torch.Tensor] = None, impl: str = "auto"
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Verify ``k`` drafted tokens against ``k+1`` target logit rows.
@@ -339,7 +336,7 @@ def fused_verify(logits: torch.Tensor, drafted: torch.Tensor,
         raise ValueError(
             f"fused_verify needs k >= 1 drafted tokens (k+1 = {k1} logit "
             f"rows); a 1-row verify is just sampling — use fused_sample")
-    _check_knobs(temperature, top_k, top_p)
+    _check_knobs(temperature, top_k)
     sampled = temperature > 0.0
     drafted_pad = torch.cat(
         [drafted.to(torch.int32),
@@ -352,11 +349,10 @@ def fused_verify(logits: torch.Tensor, drafted: torch.Tensor,
     if _backend.use_kernel(logits, impl):
         return fused_verify_cuda(
             logits.contiguous(), drafted_pad, u_acc, u_gum,
-            temperature=float(temperature), top_k=top_k, top_p=float(top_p))
+            temperature=float(temperature), top_k=top_k)
     if sampled:
         return verify_sampled(logits, drafted_pad, u_acc, u_gum,
-                              temperature=float(temperature), top_k=top_k,
-                              top_p=float(top_p))
+                              temperature=float(temperature), top_k=top_k)
     return verify_greedy(logits, drafted_pad)
 
 
@@ -364,7 +360,6 @@ def fused_verify_tree(logits: torch.Tensor, tokens: torch.Tensor,
                       parents: torch.Tensor, anc: torch.Tensor,
                       generator: Optional[torch.Generator] = None, *,
                       temperature: float = 0.0, top_k: int = 0,
-                      top_p: float = 1.0,
                       u_acc: Optional[torch.Tensor] = None,
                       u_gum: Optional[torch.Tensor] = None,
                       impl: str = "auto"
@@ -397,7 +392,7 @@ def fused_verify_tree(logits: torch.Tensor, tokens: torch.Tensor,
             f"fused_verify_tree needs N >= 1 drafted nodes (N+1 = {n1} "
             f"logit rows); a 1-row verify is just sampling — use "
             f"fused_sample")
-    _check_knobs(temperature, top_k, top_p)
+    _check_knobs(temperature, top_k)
     sampled = temperature > 0.0
     tokens = tokens.to(torch.int32).clone()
     tokens[:, 0] = NO_DRAFT
@@ -410,9 +405,9 @@ def fused_verify_tree(logits: torch.Tensor, tokens: torch.Tensor,
     if _backend.use_kernel(logits, impl):
         return fused_verify_tree_cuda(
             logits.contiguous(), tokens, parents, anc, u_acc, u_gum,
-            temperature=float(temperature), top_k=top_k, top_p=float(top_p))
+            temperature=float(temperature), top_k=top_k)
     if sampled:
         return verify_tree_sampled(logits, tokens, parents, anc, u_acc,
                                    u_gum, temperature=float(temperature),
-                                   top_k=top_k, top_p=float(top_p))
+                                   top_k=top_k)
     return verify_tree_greedy(logits, tokens, parents, anc)

@@ -102,7 +102,7 @@ class ServingEngine:
         self.impl = impl
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
-        model.check_decode_supported(self.device, block_size)
+        model.check_paged_decode_supported(self.device, block_size)
         self.model = model
         c = self.config = model.config
         self.block_size = int(block_size)

@@ -1019,12 +1019,12 @@ def phase_verify_kernels(torch, dev):
             tokens[:, 0] = vf.NO_DRAFT
             args = (tokens, *extra[1:])
             kern = lambda *a, **k: vf.fused_verify_tree_cuda(  # noqa: E731
-                logits, *args, *a, top_p=1.0, **k)
+                logits, *args, *a, **k)
         else:
             pad = torch.cat([extra[0], torch.full_like(extra[0][:, :1],
                                                        vf.NO_DRAFT)], 1)
             kern = lambda *a, **k: vf.fused_verify_cuda(  # noqa: E731
-                logits, pad, *a, top_p=1.0, **k)
+                logits, pad, *a, **k)
         fn = vf.fused_verify_tree if tree else vf.fused_verify
         modes = {}
         for sampled in (False, True):

@@ -142,7 +142,7 @@ class TestKernelsPlainVersions:
     def test_flash_attention_later_options_raise(self):
         x = torch.zeros((1, 8, 2, 64))
         with pytest.raises(NotImplementedError, match="bh-flat"):
-            amod.flash_attention(x, x, x)
+            amod.flash_attention(x, x, x, layout="bhsd")
         for kw in (dict(kv_lens=torch.ones(1)), dict(bias=x),
                    dict(dropout_rate=0.1)):
             with pytest.raises(NotImplementedError, match="later slices"):

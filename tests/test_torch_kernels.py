@@ -394,7 +394,7 @@ def _verify_case(dev, dtype, b, n1, V, seed, tree):
 
 def _verify_near_ties(logits, extra, u_acc, u_gum, kw, tree):
     """Batch rows on which a near-tie could flip the sampled verdict."""
-    s = smod.filtered_scaled(logits, **kw)
+    s = smod.filtered_scaled(logits, **kw, top_p=1.0)
     n1, V = s.shape[-2], s.shape[-1]
     if tree:
         tokens, parents, _ = extra
@@ -432,7 +432,7 @@ def test_verify_kernels_match_plain(cuda, dtype, b, n1, tree, temperature):
     V = 32768
     logits, extra, u_acc, u_gum = _verify_case(cuda, dtype, b, n1, V,
                                                seed=b * n1, tree=tree)
-    kw = dict(temperature=temperature, top_k=50, top_p=1.0)
+    kw = dict(temperature=temperature, top_k=50)
     fn = vmod.fused_verify_tree if tree else vmod.fused_verify
     counter = vmod.fused_verify_tree_cuda if tree else vmod.fused_verify_cuda
     noise = dict(u_acc=u_acc, u_gum=u_gum) if temperature else {}
@@ -446,8 +446,8 @@ def test_verify_kernels_match_plain(cuda, dtype, b, n1, tree, temperature):
         bad |= x != y
     if temperature:
         ties = _verify_near_ties(logits, extra, u_acc, u_gum,
-                                 dict(temperature=temperature, top_k=50,
-                                      top_p=1.0), tree)
+                                 dict(temperature=temperature, top_k=50),
+                                 tree)
         bad &= ~ties
     assert not bad.any(), f"verdicts {got} vs plain {want}"
 

@@ -171,8 +171,7 @@ class TestVerify:
         with pytest.raises(ValueError, match="CUDA"):
             vmod.fused_verify_cuda(logits, torch.zeros((1, 5),
                                                        dtype=torch.int32),
-                                   None, None, temperature=0.0, top_k=0,
-                                   top_p=1.0)
+                                   None, None, temperature=0.0, top_k=0)
 
 
 def _repeat_prompt(seed, block=32, reps=4):
