@@ -1,10 +1,12 @@
-"""The weight bridge between the reference's parameter tree and the port's.
+"""The weight bridge between the reference's parameter trees and the port's.
 
 ``apex_tpu``'s ``GPTModel.init`` returns a pytree whose ``layers`` leaves
 are stacked ``[num_layers, ...]``; handed over as numpy arrays (no JAX
 import here), :func:`params_from_jax` unstacks them into the port's list
 of per-layer dicts, and :func:`params_to_jax` stacks the port's params (or
 gradients, which share their layout) back into the reference's tree.
+:func:`t5_params_from_jax` and :func:`t5_params_to_jax` do the same for
+``EncoderDecoderModel``'s stacked ``encoder`` and ``decoder``.
 Weights keep their ``(out, in)`` layout, which is already PyTorch's. The
 tests feed both packages the same weights this way, and compare gradients
 and optimizer state leaf by leaf.
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from apex_tpu_torch.models.gpt import GPTConfig
+from apex_tpu_torch.models.t5 import DEC_LAYER, ENC_LAYER, T5Config
 from apex_tpu_torch.ops import _backend
 
 
@@ -30,10 +33,10 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def _expect(name: str, t: torch.Tensor, shape) -> None:
+def _expect(name: str, t, shape, config: str = "GPTConfig") -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)} for this "
-                         f"GPTConfig, got {tuple(t.shape)}")
+                         f"{config}, got {tuple(t.shape)}")
 
 
 def params_from_jax(tree: Dict, config: GPTConfig, *,
@@ -115,4 +118,76 @@ def params_to_jax(params: Dict[str, object],
     _expect("pos_embedding", out["pos_embedding"], (c.max_seq_len, H))
     _expect("layers.qkv.weight", stacked["qkv"]["weight"],
             (c.num_layers, c.qkv_features, H))
+    return out
+
+
+def _t5_shapes(c: T5Config) -> Dict[str, tuple]:
+    """Every leaf's shape: top-level names, then ``encoder.*`` and
+    ``decoder.*`` per layer."""
+    H, Fh, nb = c.hidden_size, c.ffn, c.relative_num_buckets
+    layer = {"ln1_w": (H,), "ln1_b": (H,), "ln2_w": (H,), "ln2_b": (H,),
+             "ln_x_w": (H,), "ln_x_b": (H,), "qkv": (3 * H, H),
+             "attn_out": (H, H), "xq": (H, H), "xkv": (2 * H, H),
+             "x_out": (H, H), "mlp_up": (Fh, H), "mlp_down": (H, Fh)}
+    out = {"embedding": (c.vocab_size, H), "ln_enc_w": (H,),
+           "ln_enc_b": (H,), "ln_dec_w": (H,), "ln_dec_b": (H,)}
+    if c.position_encoding == "relative":
+        out["rel_bias_enc"] = out["rel_bias_dec"] = (nb, c.num_heads)
+    else:
+        out["pos_embedding"] = (c.max_seq_len, H)
+    out.update({f"encoder.{k}": layer[k] for k in ENC_LAYER})
+    out.update({f"decoder.{k}": layer[k] for k in DEC_LAYER})
+    return out
+
+
+def t5_params_from_jax(tree: Dict, config: T5Config, *,
+                       device: Optional[Union[str, torch.device]] = None
+                       ) -> Dict[str, object]:
+    """``EncoderDecoderModel.init``'s tree (numpy leaves, ``encoder`` and
+    ``decoder`` stacked ``[layers, ...]``) → the port's parameter dict on
+    ``device`` (default: the card), ``encoder``/``decoder`` as lists of
+    per-layer dicts. Every shape is checked against ``config``."""
+    dev = _backend.resolve_device(device)
+    c = config
+    shapes = _t5_shapes(c)
+    out: Dict[str, object] = {}
+    for name, shape in shapes.items():
+        if "." not in name:
+            out[name] = _tensor(tree[name], dev)
+            _expect(name, out[name], shape, "T5Config")
+    for stack, names, n in (("encoder", ENC_LAYER, c.num_encoder_layers),
+                            ("decoder", DEC_LAYER, c.num_decoder_layers)):
+        stacked = {k: _tensor(tree[stack][k], dev) for k in names}
+        for k, t in stacked.items():
+            _expect(f"{stack}.{k}", t, (n, *shapes[f"{stack}.{k}"]),
+                    "T5Config")
+        out[stack] = [{k: t[i] for k, t in stacked.items()}
+                      for i in range(n)]
+    return out
+
+
+def t5_params_to_jax(params: Dict[str, object],
+                     config: T5Config) -> Dict[str, object]:
+    """The port's T5 parameter (or gradient) dict → the reference's tree:
+    numpy leaves, ``encoder``/``decoder`` stacked ``[layers, ...]``. bf16
+    leaves come back as float32 (exact). Shapes are checked against
+    ``config``."""
+    c = config
+    shapes = _t5_shapes(c)
+    out: Dict[str, object] = {}
+    for name, shape in shapes.items():
+        if "." not in name:
+            out[name] = _array(params[name])
+            _expect(name, out[name], shape, "T5Config")
+    for stack, names, n in (("encoder", ENC_LAYER, c.num_encoder_layers),
+                            ("decoder", DEC_LAYER, c.num_decoder_layers)):
+        layers = params[stack]
+        if len(layers) != n:
+            raise ValueError(f"expected {n} {stack} layers for this "
+                             f"T5Config, got {len(layers)}")
+        out[stack] = {k: np.stack([_array(lay[k]) for lay in layers])
+                      for k in names}
+        for k, t in out[stack].items():
+            _expect(f"{stack}.{k}", t, (n, *shapes[f"{stack}.{k}"]),
+                    "T5Config")
     return out

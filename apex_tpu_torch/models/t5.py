@@ -1,0 +1,315 @@
+"""T5-class encoder-decoder: the training forward, at tp=1.
+
+Port of ``apex_tpu/models/t5.py``: the config, the parameter
+initialisation (``EncoderDecoderModel.init``, ``:188-251``, same
+distributions), the pre-LN encoder block (bidirectional self-attention +
+MLP, ``:324-333``), the pre-LN decoder block (causal self-attention →
+cross-attention over the encoder output → MLP, ``:335-353``),
+:meth:`EncoderDecoderModel.encode` / ``decode`` (``:396-424``), the tied
+unembedding (``:426-435``) and :meth:`EncoderDecoderModel.loss_fn`
+(``:437-446``).
+
+Attention is always the reference's ``attention_impl="flash"`` route:
+``flash_attention`` in its bh-flat layout on the (b, h, s, d) views of the
+projection output — on a CUDA tensor the hand-written kernels, with the
+encoder pad lengths as ``kv_lens`` (encoder self-attention and
+cross-attention) and, under ``position_encoding="relative"``, the
+per-stack bucket tables as a :class:`BucketedBias` (encoder bidirectional,
+decoder causal; cross-attention carries none). The bias enters the SCALED
+scores: this model keeps the 1/sqrt(d) scale that T5 itself omits
+(``:300-303``). ``remat=True`` recomputes each block in the backward
+(``torch.utils.checkpoint``, non-reentrant: the reference's per-block
+``jax.checkpoint``). The loss goes through the ported vocab-parallel
+cross-entropy (the ``xent_stats`` kernel) and ``masked_mean``.
+
+Parameters are a plain dict in the reference's tree layout, except that
+``encoder`` and ``decoder`` are lists of per-layer dicts instead of
+stacked leaves (:func:`apex_tpu_torch.models.convert.t5_params_from_jax`
+converts both ways). The reference's knobs with one working value here —
+``attention_impl`` (the softmax composition), ``relative_bias_impl``
+(``"materialized"`` needs the array-bias kernel ``_dbias_pallas``),
+``remat_policy`` (``"encode_only"``), ``tp_overlap``, ``plan`` — are not
+config fields yet, and the pipeline ``EncDecPipeline`` is a later slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Union
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from apex_tpu_torch.models.gpt import param_leaves  # noqa: F401
+from apex_tpu_torch.ops import _backend
+from apex_tpu_torch.ops.attention import BucketedBias, flash_attention
+from apex_tpu_torch.ops.layer_norm import fused_layer_norm
+from apex_tpu_torch.transformer.tensor_parallel import (
+    masked_mean, vocab_parallel_cross_entropy)
+
+Params = Dict[str, object]
+
+ENC_LAYER = ("ln1_w", "ln1_b", "qkv", "attn_out", "ln2_w", "ln2_b",
+             "mlp_up", "mlp_down")
+DEC_LAYER = ("ln1_w", "ln1_b", "qkv", "attn_out", "ln_x_w", "ln_x_b", "xq",
+             "xkv", "x_out", "ln2_w", "ln2_b", "mlp_up", "mlp_down")
+
+
+@dataclasses.dataclass(frozen=True)
+class T5Config:
+    vocab_size: int = 32128
+    max_seq_len: int = 512
+    hidden_size: int = 512
+    ffn_hidden_size: Optional[int] = None  # default 4*hidden
+    num_encoder_layers: int = 6
+    num_decoder_layers: int = 6
+    num_heads: int = 8
+    dtype: torch.dtype = torch.float32  # parameter dtype
+    remat: bool = True  # per-block recompute in the backward
+    # "learned": absolute learned positions; "relative": T5's per-stack
+    # (num_buckets, heads) bias tables on the self-attention scores
+    position_encoding: str = "learned"
+    relative_num_buckets: int = 32
+    relative_max_distance: int = 128
+
+    def __post_init__(self):
+        if self.hidden_size % self.num_heads:
+            raise ValueError(
+                f"hidden_size ({self.hidden_size}) must be divisible by "
+                f"num_heads ({self.num_heads})")
+        if self.position_encoding not in ("learned", "relative"):
+            raise ValueError(
+                f"position_encoding must be learned|relative, got "
+                f"{self.position_encoding!r}")
+
+    @property
+    def ffn(self) -> int:
+        return self.ffn_hidden_size or 4 * self.hidden_size
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+def relative_bias(table: torch.Tensor, sq: int, sk: int, *,
+                  bidirectional: bool, num_buckets: int,
+                  max_distance: int) -> torch.Tensor:
+    """(1, heads, sq, sk) additive bias materialised from a (num_buckets,
+    heads) table (``t5.py:165-180``): the plain form of what the kernels
+    compute per tile."""
+    if table.shape[0] != num_buckets:
+        raise ValueError(f"table has {table.shape[0]} buckets, expected "
+                         f"{num_buckets}")
+    return BucketedBias(table, bidirectional,
+                        max_distance).materialize(sq, sk)[None]
+
+
+class EncoderDecoderModel:
+    """Functional T5-class model: ``init(generator)`` → params;
+    ``loss_fn(params, enc_tokens, dec_tokens, targets)`` → mean CE of the
+    decoder output (teacher forcing: ``dec_tokens`` is the shifted-right
+    target stream)."""
+
+    def __init__(self, config: T5Config):
+        self.config = config
+
+    # --- params ---------------------------------------------------------------
+
+    def init(self, generator: torch.Generator,
+             device: Optional[Union[str, torch.device]] = None) -> Params:
+        """Random parameters with the reference's distributions: LN weights
+        1 and biases 0, linear weights N(0, 1/fan_in), the embedding
+        N(0, 1), bias tables N(0, 0.1²), positions N(0, 0.01²). Drawn in
+        fp32 from ``generator`` (which must live on ``device``), then cast
+        to the config's dtype."""
+        c = self.config
+        dev = _backend.resolve_device(device)
+        H, Fh = c.hidden_size, c.ffn
+
+        def normal(shape, std):
+            t = torch.empty(shape, dtype=torch.float32, device=dev)
+            return (t.normal_(0.0, 1.0, generator=generator) * std).to(
+                c.dtype)
+
+        def dense(out, inp):
+            return normal((out, inp), (1.0 / inp) ** 0.5)
+
+        def ones():
+            return torch.ones((H,), dtype=c.dtype, device=dev)
+
+        def zeros():
+            return torch.zeros((H,), dtype=c.dtype, device=dev)
+
+        def enc_layer():
+            return {"ln1_w": ones(), "ln1_b": zeros(),
+                    "qkv": dense(3 * H, H), "attn_out": dense(H, H),
+                    "ln2_w": ones(), "ln2_b": zeros(),
+                    "mlp_up": dense(Fh, H), "mlp_down": dense(H, Fh)}
+
+        def dec_layer():
+            return {"ln1_w": ones(), "ln1_b": zeros(),
+                    "qkv": dense(3 * H, H), "attn_out": dense(H, H),
+                    "ln_x_w": ones(), "ln_x_b": zeros(),
+                    "xq": dense(H, H), "xkv": dense(2 * H, H),
+                    "x_out": dense(H, H),
+                    "ln2_w": ones(), "ln2_b": zeros(),
+                    "mlp_up": dense(Fh, H), "mlp_down": dense(H, Fh)}
+
+        params = {
+            "embedding": normal((c.vocab_size, H), 1.0),
+            "encoder": [enc_layer() for _ in range(c.num_encoder_layers)],
+            "decoder": [dec_layer() for _ in range(c.num_decoder_layers)],
+            "ln_enc_w": ones(), "ln_enc_b": zeros(),
+            "ln_dec_w": ones(), "ln_dec_b": zeros(),
+        }
+        if c.position_encoding == "relative":
+            nb = c.relative_num_buckets
+            params["rel_bias_enc"] = normal((nb, c.num_heads), 0.1)
+            params["rel_bias_dec"] = normal((nb, c.num_heads), 0.1)
+        else:
+            params["pos_embedding"] = normal((c.max_seq_len, H), 0.01)
+        return params
+
+    # --- attention pieces -----------------------------------------------------
+
+    def _heads(self, x: torch.Tensor) -> torch.Tensor:
+        """(b, s, H) → the (b, h, s, d) view: no copy."""
+        b, s, _ = x.shape
+        c = self.config
+        return x.view(b, s, c.num_heads, c.head_dim).transpose(1, 2)
+
+    @staticmethod
+    def _merge(x: torch.Tensor) -> torch.Tensor:
+        """(b, h, s, d) → (b, s, h·d); a view of the attention's output,
+        whose storage is (b, s, h, d)."""
+        b, h, s, d = x.shape
+        return x.transpose(1, 2).reshape(b, s, h * d)
+
+    def _attn(self, q, k, v, causal, bias=None, kv_lens=None,
+              impl: str = "auto"):
+        """Flash attention on (b, h, s, d) views; ``kv_lens`` (b,) per-batch
+        valid KEY lengths, expanded over the heads (which share a row's
+        padding)."""
+        lens = None
+        if kv_lens is not None:
+            lens = kv_lens.to(torch.int32)[:, None].expand(q.shape[:2])
+        return flash_attention(q, k, v, causal=causal, kv_lens=lens,
+                               bias=bias, layout="bhsd", impl=impl)
+
+    # --- blocks ---------------------------------------------------------------
+
+    def _mlp(self, p, x):
+        h = fused_layer_norm(x, p["ln2_w"], p["ln2_b"])
+        return x + F.linear(F.gelu(F.linear(h, p["mlp_up"]),
+                                   approximate="tanh"), p["mlp_down"])
+
+    def _self_attention(self, p, x, causal, bias, kv_lens, impl):
+        H = self.config.hidden_size
+        h = fused_layer_norm(x, p["ln1_w"], p["ln1_b"])
+        q, k, v = F.linear(h, p["qkv"]).split(H, dim=-1)
+        a = self._merge(self._attn(self._heads(q), self._heads(k),
+                                   self._heads(v), causal, bias, kv_lens,
+                                   impl))
+        return x + F.linear(a, p["attn_out"])
+
+    def encoder_block(self, p, x, bias=None, pad_lens=None,
+                      impl: str = "auto"):
+        x = self._self_attention(p, x, False, bias, pad_lens, impl)
+        return self._mlp(p, x)
+
+    def decoder_block(self, p, x, enc_out, bias=None, enc_pad_lens=None,
+                      impl: str = "auto"):
+        H = self.config.hidden_size
+        x = self._self_attention(p, x, True, bias, None, impl)
+        h = fused_layer_norm(x, p["ln_x_w"], p["ln_x_b"])
+        q = F.linear(h, p["xq"])
+        ck, cv = F.linear(enc_out, p["xkv"]).split(H, dim=-1)
+        # cross-attention masks the encoder's padded positions as keys
+        a = self._merge(self._attn(self._heads(q), self._heads(ck),
+                                   self._heads(cv), False, None,
+                                   enc_pad_lens, impl))
+        x = x + F.linear(a, p["x_out"])
+        return self._mlp(p, x)
+
+    def _wrapped(self, fn):
+        """The block under the config's ``remat``: recomputed whole in the
+        backward (the reference's per-block ``jax.checkpoint``)."""
+        if not self.config.remat:
+            return fn
+
+        def block(*args):
+            return checkpoint(fn, *args, use_reentrant=False)
+
+        return block
+
+    def _stack_bias(self, params, name, bidirectional):
+        c = self.config
+        if c.position_encoding != "relative":
+            return None
+        return BucketedBias(params[name], bidirectional=bidirectional,
+                            max_distance=c.relative_max_distance)
+
+    def enc_bias(self, params) -> Optional[BucketedBias]:
+        """The encoder self-attention's bias (bidirectional buckets), or
+        None under learned positions."""
+        return self._stack_bias(params, "rel_bias_enc", True)
+
+    def dec_bias(self, params) -> Optional[BucketedBias]:
+        return self._stack_bias(params, "rel_bias_dec", False)
+
+    # --- forward --------------------------------------------------------------
+
+    def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        x = F.embedding(tokens, params["embedding"])
+        if self.config.position_encoding == "relative":
+            return x  # positions live in the attention bias
+        s = tokens.shape[1]
+        if s > self.config.max_seq_len:
+            raise ValueError(f"sequence {s} exceeds max_seq_len "
+                             f"{self.config.max_seq_len}")
+        return x + params["pos_embedding"][:s]
+
+    def encode(self, params, enc_tokens, enc_pad_lens=None, *,
+               impl: str = "auto"):
+        """``enc_pad_lens`` (b,) int: per-batch valid encoder lengths
+        (suffix padding); self-attention masks the padded KEYS through the
+        kernels' ``kv_lens`` (padded query rows still compute, and nothing
+        downstream reads them)."""
+        x = self.embed(params, enc_tokens)
+        bias = self.enc_bias(params)
+        block = self._wrapped(self.encoder_block)
+        for layer in params["encoder"]:
+            x = block(layer, x, bias, enc_pad_lens, impl)
+        return fused_layer_norm(x, params["ln_enc_w"], params["ln_enc_b"])
+
+    def decode(self, params, dec_tokens, enc_out, enc_pad_lens=None, *,
+               impl: str = "auto"):
+        x = self.embed(params, dec_tokens)
+        bias = self.dec_bias(params)
+        block = self._wrapped(self.decoder_block)
+        for layer in params["decoder"]:
+            x = block(layer, x, enc_out, bias, enc_pad_lens, impl)
+        return fused_layer_norm(x, params["ln_dec_w"], params["ln_dec_b"])
+
+    def logits(self, params, enc_tokens, dec_tokens, enc_pad_lens=None, *,
+               impl: str = "auto"):
+        enc_out = self.encode(params, enc_tokens, enc_pad_lens, impl=impl)
+        x = self.decode(params, dec_tokens, enc_out, enc_pad_lens, impl=impl)
+        return F.linear(x, params["embedding"])  # tied unembedding
+
+    def loss_fn(self, params: Params, enc_tokens: torch.Tensor,
+                dec_tokens: torch.Tensor, targets: torch.Tensor,
+                loss_mask: Optional[torch.Tensor] = None,
+                enc_pad_lens: Optional[torch.Tensor] = None, *,
+                impl: str = "auto") -> torch.Tensor:
+        """Mean CE of the decoder output; ``loss_mask`` (dec-token shaped,
+        1 = count) masks decoder padding out of the mean, ``enc_pad_lens``
+        the encoder padding through the stack. ``impl="torch"`` runs every
+        kernel's plain version (to hold the kernel path against it on the
+        card)."""
+        logits = self.logits(params, enc_tokens, dec_tokens, enc_pad_lens,
+                             impl=impl)
+        losses = vocab_parallel_cross_entropy(logits, targets, impl=impl)
+        return masked_mean(losses, loss_mask)
+

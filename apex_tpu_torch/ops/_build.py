@@ -43,6 +43,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+_S = ctypes.POINTER(ctypes.c_longlong)  # an array of strides
 # name -> argtypes of every C entry point the library exports
 ENTRY_POINTS = {
     # q, k_pool, v_pool, tables, lengths, out, dtype, b, h_kv, group, d,
@@ -66,6 +67,20 @@ ENTRY_POINTS = {
     # sk, h, h_kv, d, causal, scale, stream
     "apex_flash_fwd_bshd": [_P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I,
                             _I, _I, _I, _I, _F, _P],
+    # q, k, v, out, lse, kv_lens, lut, strides (q, kv, o), b, h, h_kv, sq,
+    # sk, d, causal, scale, maxd, rel_off, hb, stream
+    "apex_flash_fwd_flat": [_P, _P, _P, _P, _P, _P, _P, _S, _I, _I, _I, _I,
+                            _I, _I, _I, _F, _I, _I, _I, _P],
+    # q, k, v, o, do, lse, dk, dv, dtab, kv_lens, lut, bucket, strides (q,
+    # kv, o, do, dk/dv), b, h, h_kv, sq, sk, d, causal, scale, maxd,
+    # rel_off, hb, nb, stream
+    "apex_flash_bwd_flat_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _P, _S, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                _I, _I, _I, _P],
+    # q, k, v, o, do, lse, dq, kv_lens, lut, strides (q, kv, o, do, dq), b,
+    # h, h_kv, sq, sk, d, causal, scale, maxd, rel_off, hb, stream
+    "apex_flash_bwd_flat_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _S, _I,
+                               _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     # q, k, v, lengths, out, dtype, rows, group, d, max_s, scale, stream
     "apex_decode_attn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # logits, drafted, u_acc, u_gum, a, next, dtype, b, k1, V, sampled,

@@ -27,14 +27,31 @@ Port of the packed path of ``apex_tpu/ops/attention.py``:
   The reference's ``flash_auto_crossover`` is a TPU finding and is not
   ported: on CUDA the kernel always runs.
 
-The ``kv_lens``, additive ``bias`` and dropout options of the reference's
-flash kernels, the bh-flat layout and the bshd backward
+* :func:`flash_attention` with ``layout="bhsd"`` (``:779-844``), forward
+  and backward: the bh-flat family, q (..., sq, d) and k/v (..., sk, d)
+  flattened to rows, with per-row ``kv_lens`` and the bucketed T5
+  relative bias (:class:`BucketedBias`, ``:48-130``). A CUDA tensor
+  launches :func:`flash_fwd_flat_cuda`, :func:`flash_bwd_flat_dkv_cuda`
+  and :func:`flash_bwd_flat_dq_cuda` (``apex_flash_fwd_flat`` and
+  ``apex_flash_bwd_flat_*`` of ``csrc/flash_attn_fwd.cu`` and
+  ``flash_attn_bwd.cu``, replacing the Pallas ``flash_fwd``,
+  ``flash_bwd`` and ``_dtable_pallas``: the dK/dV kernel also sums the
+  bucket-table gradient); a CPU tensor runs :func:`_torch_flash_fwd_flat`
+  and :func:`_torch_flash_bwd_flat`. The operands may be the transposed
+  (b, h, s, d) views of a projection output: the kernels take batch, head
+  and row strides, so no copy is made.
+
+The additive array ``bias`` and dropout options of the reference's flash
+kernels (``_dbias_pallas``, ``dropout_keep``) and the bshd backward
 (``flash_bwd_bshd``) are later slices of the port.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+import dataclasses
+import functools
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -80,30 +97,215 @@ def packed_kernel_ok(s: int, h: int, d: int, dtype: torch.dtype) -> bool:
             and 1 <= s <= KERNEL_MAX_SEQ and h >= 1)
 
 
+# --- the bucketed relative position bias --------------------------------------
+
+#: the most buckets a table may have (``ops/attention.py:140-153``)
+MAX_BUCKETS = 128
+#: the longest max_distance the kernels take: each keeps one fp32 value per
+#: clamped offset, 2·max_distance + 1 of them, in shared memory
+KERNEL_MAX_DISTANCE = 4096
+
+
+@functools.lru_cache(maxsize=None)
+def _log_thresholds(num_buckets: int, max_exact: int,
+                    max_distance: int) -> Tuple[int, ...]:
+    """The smallest distance n of each log-spaced bucket past the first:
+    bucket ``max_exact + j`` (j = 1 .. R - 1, R = num_buckets − max_exact)
+    starts where ``floor(R · log(n / max_exact) / log(max_distance /
+    max_exact)) >= j``, i.e. ``n^R >= max_distance^j · max_exact^(R − j)``
+    — decided in Python's exact integers, so no log rounds a bucket
+    boundary either way."""
+    r = num_buckets - max_exact
+    out = []
+    for j in range(1, r):
+        rhs = max_distance ** j * max_exact ** (r - j)
+        n = max(max_exact, int(round(rhs ** (1.0 / r))) - 2)
+        while n ** r < rhs:
+            n += 1
+        while n > max_exact and (n - 1) ** r >= rhs:
+            n -= 1
+        out.append(n)
+    return tuple(out)
+
+
+def _check_bucketing(bidirectional: bool, num_buckets: int,
+                     max_distance: int) -> None:
+    nb = num_buckets // 2 if bidirectional else num_buckets
+    if nb < 2:
+        raise ValueError(
+            f"num_buckets={num_buckets} (bidirectional={bidirectional}) "
+            f"leaves fewer than 2 buckets per side: no exact range")
+    if max_distance <= nb // 2:
+        raise ValueError(
+            f"max_distance ({max_distance}) must exceed the exact range "
+            f"({nb // 2} buckets per side for num_buckets={num_buckets}, "
+            f"bidirectional={bidirectional}): the log-spaced buckets span "
+            f"log(max_distance / {nb // 2}), which must be positive")
+
+
+def relative_position_bucket(rel_pos: torch.Tensor, *, bidirectional: bool,
+                             num_buckets: int,
+                             max_distance: int) -> torch.Tensor:
+    """T5's relative-position bucketing (``ops/pallas/attention.py:119-145``)
+    on an integer tensor ``rel_pos = key_pos - query_pos``: half the
+    buckets hold exact small offsets, the other half log-spaced larger
+    ones up to ``max_distance``; bidirectional tables split the range by
+    sign, causal ones clamp the future to bucket 0. The log range is
+    decided by exact integer thresholds (:func:`_log_thresholds`); the
+    reference's float32 ``log`` gives the same buckets wherever
+    ``max_distance`` exceeds the exact range (the tests hold both at every
+    offset), which this function requires."""
+    _check_bucketing(bidirectional, num_buckets, max_distance)
+    n = -rel_pos.long()
+    ret = torch.zeros_like(n)
+    if bidirectional:
+        num_buckets //= 2
+        ret = ret + (n < 0).long() * num_buckets
+        n = n.abs()
+    else:
+        n = n.clamp(min=0)
+    max_exact = num_buckets // 2
+    thr = torch.tensor(_log_thresholds(num_buckets, max_exact, max_distance),
+                       dtype=torch.long, device=n.device)
+    large = max_exact + (n[..., None] >= thr).sum(-1)
+    return (ret + torch.where(n < max_exact, n, large)).to(rel_pos.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _offset_buckets(bidirectional: bool, num_buckets: int,
+                    max_distance: int, device: torch.device) -> torch.Tensor:
+    """(2·max_distance + 1,) int32: the bucket of each clamped offset
+    −max_distance .. max_distance; from max_distance on every offset falls
+    into its side's last bucket, so these cover all offsets."""
+    rel = torch.arange(-max_distance, max_distance + 1, dtype=torch.int32)
+    return relative_position_bucket(
+        rel, bidirectional=bidirectional, num_buckets=num_buckets,
+        max_distance=max_distance).to(device)
+
+
+@dataclasses.dataclass
+class BucketedBias:
+    """T5's bucketed relative position bias as an attention operand
+    (``apex_tpu/ops/attention.py:48-130``): the ``(num_buckets, heads)``
+    table and its bucketing, recomputed per score tile inside the flash
+    kernels, never as an (heads, sq, sk) array. ``q_offset``/``k_offset``
+    are the global positions of query row 0 and key row 0 (0 unless the
+    sequence is cut into pieces). ``bidirectional=True`` is the encoder's
+    sign-split bucketing, False the decoder's (the future clamps to bucket
+    0). Differentiable in ``table``: the flash backward returns its
+    (num_buckets, heads) cotangent."""
+
+    table: torch.Tensor          # (num_buckets, heads)
+    bidirectional: bool = False
+    max_distance: int = 128
+    q_offset: int = 0
+    k_offset: int = 0
+
+    @property
+    def num_buckets(self) -> int:
+        return self.table.shape[0]
+
+    @property
+    def heads(self) -> int:
+        return self.table.shape[1]
+
+    def buckets(self, sq: int, sk: int) -> torch.Tensor:
+        """(sq, sk) bucket of each score at these offsets."""
+        dev = self.table.device
+        rel = ((self.k_offset + torch.arange(sk, device=dev))[None, :]
+               - (self.q_offset + torch.arange(sq, device=dev))[:, None])
+        return relative_position_bucket(
+            rel, bidirectional=self.bidirectional,
+            num_buckets=self.num_buckets, max_distance=self.max_distance)
+
+    def materialize(self, sq: int, sk: int) -> torch.Tensor:
+        """The (heads, sq, sk) fp32 bias this operand stands for — the
+        plain versions' form; the kernels never build it."""
+        return self.table.float()[self.buckets(sq, sk)].permute(2, 0, 1)
+
+    def kernel_operands(self) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """The kernels' operands: the per-head lookup (heads, 2·max_distance
+        + 1) fp32 of the table's value at each clamped offset, the
+        offsets' buckets (2·max_distance + 1,) int32, and ``k_offset −
+        q_offset``."""
+        bucket = _offset_buckets(self.bidirectional, self.num_buckets,
+                                 self.max_distance, self.table.device)
+        lut = self.table.detach().float().t()[:, bucket.long()]
+        return lut.contiguous(), bucket, int(self.k_offset - self.q_offset)
+
+
+def _validate_bucketed(bias: BucketedBias) -> None:
+    if not isinstance(bias.table, torch.Tensor) or bias.table.ndim != 2:
+        raise ValueError(
+            f"BucketedBias.table must be (num_buckets, heads); got "
+            f"{getattr(bias.table, 'shape', type(bias.table))}")
+    nb = bias.num_buckets
+    if not 2 <= nb <= MAX_BUCKETS:
+        raise ValueError(f"num_buckets must be in [2, {MAX_BUCKETS}]; got "
+                         f"{nb}")
+    if bias.bidirectional and nb % 2:
+        raise ValueError(
+            f"bidirectional bucketing splits the range by sign and needs "
+            f"an even num_buckets; got {nb}")
+    _check_bucketing(bias.bidirectional, nb, bias.max_distance)
+
+
+def _table_grad(bias: BucketedBias, dbias: torch.Tensor) -> torch.Tensor:
+    """(num_buckets, heads) fp32 table cotangent from the (heads, sq, sk)
+    bias cotangent: the gather's VJP, a sum by bucket
+    (``_bucketed_table_grad``, ``:156-169``)."""
+    hb, sq, sk = dbias.shape
+    idx = bias.buckets(sq, sk).reshape(-1).long()
+    out = torch.zeros((bias.num_buckets, hb), dtype=torch.float32,
+                      device=dbias.device)
+    return out.index_add_(0, idx, dbias.float().reshape(hb, -1).t())
+
+
 # --- plain version ------------------------------------------------------------
 
 def masked_scores(q: torch.Tensor, k: torch.Tensor, scale: float,
-                  causal: bool) -> torch.Tensor:
+                  causal: bool, kv_lens: Optional[torch.Tensor] = None,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """fp32 scaled scores over (..., seq, d) with the bottom-right-aligned
-    causal mask (masked entries :data:`NEG_INF`)."""
+    causal mask (masked entries :data:`NEG_INF`). ``kv_lens`` (rows,)
+    masks each row's columns >= its length; ``bias`` (hb, sq, sk) is added
+    to the scaled scores BEFORE the masks, row ``r`` reading bias row
+    ``r % hb``. Both need the 3D (rows, sq, d) layout."""
     s = torch.einsum("...qd,...kd->...qk", q.float(), k.float()) * scale
+    sq, sk = s.shape[-2], s.shape[-1]
+    if (bias is not None or kv_lens is not None) and s.ndim != 3:
+        raise ValueError("kv_lens and bias need 3D (rows, sq, sk) scores; "
+                         "flatten the leading dims to rows first")
+    if bias is not None:
+        hb = bias.shape[0]
+        s = (s.reshape(-1, hb, sq, sk) + bias.float()).reshape(s.shape)
     if causal:
-        sq, sk = s.shape[-2], s.shape[-1]
         mask = (torch.arange(sk, device=s.device)[None, :]
                 <= torch.arange(sq, device=s.device)[:, None] + (sk - sq))
         s = torch.where(mask, s, NEG_INF)
+    if kv_lens is not None:
+        cols = torch.arange(sk, device=s.device)
+        s = torch.where(cols[None, None, :] < kv_lens[:, None, None], s,
+                        NEG_INF)
     return s
 
 
 def _xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   scale: float, causal: bool
+                   scale: float, causal: bool,
+                   kv_lens: Optional[torch.Tensor] = None,
+                   bias: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(…, s, d) q/k/v → (o in q's dtype, fp32 lse); p is rounded to q's
-    dtype before the PV product."""
-    s = masked_scores(q, k, scale, causal)
+    dtype before the PV product. A row of kv length 0 gets o = 0 and
+    lse = 0 (``:238-246``), so the backward's p = exp(NEG_INF - 0) is 0."""
+    s = masked_scores(q, k, scale, causal, kv_lens, bias)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     o = torch.einsum("...qk,...kd->...qd", p.to(q.dtype).float(), v.float())
+    if kv_lens is not None:
+        dead = (kv_lens == 0)[:, None]
+        o = torch.where(dead[..., None], 0.0, o)
+        lse = torch.where(dead, 0.0, lse)
     return o.to(q.dtype), lse
 
 
@@ -175,6 +377,53 @@ def _torch_flash_bwd(qkv, o, lse, do, h, h_kv, d, scale, causal):
     dk = torch.einsum("bngqk,bngqd->bnkd", ds, q.float())
     return (_merge_heads(dq.to(dt)), _merge_heads(dk.to(dt)),
             _merge_heads(dv.to(dt)))
+
+
+def _repeat_kv(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """(bh_kv, s, d) → (rows, s, d): q row r reads kv row r // group."""
+    group = rows // x.shape[0]
+    return x.repeat_interleave(group, 0) if group > 1 else x
+
+
+def _torch_flash_fwd_flat(q, k, v, scale, causal, kv_lens=None, bias=None):
+    """q (bh, sq, d), k/v (bh_kv, sk, d), kv_lens (bh,) or None, bias
+    (hb, sq, sk) fp32 or None → (o (bh, sq, d), lse (bh, sq))."""
+    return _xla_attention(q, _repeat_kv(k, q.shape[0]),
+                          _repeat_kv(v, q.shape[0]), scale, causal, kv_lens,
+                          bias)
+
+
+def _torch_flash_bwd_flat(q, k, v, o, lse, do, scale, causal, kv_lens=None,
+                          bias=None):
+    """The backward of :func:`_torch_flash_fwd_flat` with the Pallas
+    kernels' rounding points (``_bwd_dq_kernel``/``_bwd_dkv_kernel``,
+    ``:869-1018``): p = exp(s − lse); delta = rowsum(do·o) in fp32; dV from
+    p rounded to do's dtype; the unscaled dS = p·(dP − delta) in fp32,
+    summed over the rows sharing each bias row for dbias (hb, sq, sk);
+    dS·scale rounded to q's dtype before dQ and dK; kv-group sums in fp32
+    before the one cast. Returns (dq, dk, dv, dbias or None)."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    group = bh // k.shape[0]
+    dt = q.dtype
+    s = masked_scores(q, _repeat_kv(k, bh), scale, causal, kv_lens, bias)
+    p = torch.exp(s - lse[..., None])
+    del s
+    dof = do.float()
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    dv = torch.einsum("bqk,bqd->bkd", p.to(dt).float(), dof)
+    dp = torch.einsum("bqd,bkd->bqk", dof, _repeat_kv(v, bh).float())
+    ds = p * (dp - delta)
+    del p, dp
+    dbias = (None if bias is None
+             else ds.reshape(-1, bias.shape[0], sq, sk).sum(0))
+    ds = (ds * scale).to(dt).float()
+    dq = torch.einsum("bqk,bkd->bqd", ds, _repeat_kv(k, bh).float())
+    dk = torch.einsum("bqk,bqd->bkd", ds, q.float())
+    if group > 1:
+        dk = dk.reshape(-1, group, sk, d).sum(1)
+        dv = dv.reshape(-1, group, sk, d).sum(1)
+    return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype), dbias
 
 
 # --- the CUDA kernels ---------------------------------------------------------
@@ -337,6 +586,215 @@ def flash_fwd_bshd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_fwd_bshd_cuda.launches = 0
 
 
+def _rows4(x: torch.Tensor, group: int = 1) -> torch.Tensor:
+    """A bh-flat operand as the kernels' (b, heads, s, d) view: a 4D
+    tensor as it is, a 3D (rows, s, d) one split into (rows / group,
+    group, s, d) — no copy either way."""
+    return x if x.ndim == 4 else x.unflatten(0, (x.shape[0] // group, group))
+
+
+def _strides(x: torch.Tensor) -> Tuple[int, int, int]:
+    """(batch, head, row) element strides of a 4D view; a head dim of
+    extent 1 is given stride 0 (never stepped)."""
+    return (x.stride(0), x.stride(1) if x.shape[1] > 1 else 0, x.stride(2))
+
+
+def _kernel_ready(x: torch.Tensor) -> torch.Tensor:
+    """The operand itself when its rows are dense and 16-byte aligned
+    (the kernels copy 16-byte chunks), else a contiguous copy."""
+    ok = (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+          and all(st % 8 == 0 for st in _strides(x)))
+    return x if ok else x.contiguous()
+
+
+def _check_flat(q4, k4, v4, kv_lens, name) -> None:
+    if any(t.device != q4.device or t.device.type != "cuda"
+           for t in (q4, k4, v4)):
+        raise ValueError(f"{name} takes CUDA tensors on one device")
+    b, h, sq, d = q4.shape
+    if k4.shape != v4.shape or k4.shape[0] != b or k4.shape[3] != d \
+            or h % k4.shape[1]:
+        raise ValueError(
+            f"{name}: q (b, h, sq, d) and k/v (b, h_kv, sk, d) with h_kv | "
+            f"h; got {tuple(q4.shape)}, {tuple(k4.shape)}, "
+            f"{tuple(v4.shape)}")
+    if not packed_kernel_ok(sq, h, d, q4.dtype) or k4.dtype != q4.dtype \
+            or v4.dtype != q4.dtype or k4.shape[2] > KERNEL_MAX_SEQ:
+        raise ValueError(
+            f"{name}: the flash kernels take bfloat16, head_dim in "
+            f"{KERNEL_HEAD_DIMS} and 1 <= s <= {KERNEL_MAX_SEQ}; got "
+            f"{q4.dtype}/{k4.dtype}/{v4.dtype}, d={d}, sq={sq}, "
+            f"sk={k4.shape[2]}")
+    if kv_lens is not None and (kv_lens.shape != (b * h,)
+                                or kv_lens.dtype != torch.int32
+                                or kv_lens.device != q4.device):
+        raise ValueError(f"{name}: kv_lens must be ({b * h},) int32 on "
+                         f"{q4.device}; got {tuple(kv_lens.shape)} "
+                         f"{kv_lens.dtype} on {kv_lens.device}")
+
+
+def _rel_args(rel_bias: Optional[BucketedBias], rows: int):
+    """(lut, bucket, rel_off, maxd, hb, nb) for the kernels, or nulls."""
+    if rel_bias is None:
+        return None, None, 0, 0, 1, 1
+    if rel_bias.max_distance > KERNEL_MAX_DISTANCE:
+        raise ValueError(
+            f"the flash kernels take max_distance <= {KERNEL_MAX_DISTANCE} "
+            f"(one value per clamped offset in shared memory); got "
+            f"{rel_bias.max_distance}")
+    if rows % rel_bias.heads:
+        raise ValueError(f"bias rows ({rel_bias.heads}) must divide the "
+                         f"rows ({rows})")
+    lut, bucket, rel_off = rel_bias.kernel_operands()
+    return (lut, bucket, rel_off, rel_bias.max_distance, rel_bias.heads,
+            rel_bias.num_buckets)
+
+
+def _flat_views(q, k, v, *q_like):
+    """(rows, then q, k, v and each q-shaped operand as the kernels' 4D
+    views): k and v must share their strides, so they are made
+    contiguous together when they do not."""
+    rows = q.shape[0] if q.ndim == 3 else q.shape[0] * q.shape[1]
+    group = rows // (k.shape[0] if k.ndim == 3 else k.shape[0] * k.shape[1])
+    q4, *rest = (_kernel_ready(_rows4(t, group)) for t in (q, *q_like))
+    k4, v4 = (_kernel_ready(_rows4(t)) for t in (k, v))
+    if k4.stride() != v4.stride():
+        k4, v4 = k4.contiguous(), v4.contiguous()
+    return (rows, q4, k4, v4, *rest)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _stride_array(*views: torch.Tensor):
+    vals = [st for x in views for st in _strides(x)]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _out_like(x4: torch.Tensor, ndim: int) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """An output for an operand of shape x4 (b, heads, s, d): with a 4D
+    caller, (b, s, heads, d) storage seen as (b, heads, s, d) — so the
+    caller's merge of heads back to features is a view; with a 3D caller,
+    contiguous rows. Returns (the 4D view for the kernel, the tensor the
+    caller gets)."""
+    b, h, s, d = x4.shape
+    if ndim == 4:
+        out = torch.empty((b, s, h, d), dtype=x4.dtype,
+                          device=x4.device).transpose(1, 2)
+        return out, out
+    out = torch.empty((b * h, s, d), dtype=x4.dtype, device=x4.device)
+    return _rows4(out, h), out
+
+
+def flash_fwd_flat_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, scale: float, causal: bool,
+                        kv_lens: Optional[torch.Tensor] = None,
+                        rel_bias: Optional[BucketedBias] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the bh-flat flash forward: q (bh, sq, d) or (b, h, sq, d),
+    k/v (bh_kv, sk, d) or (b, h_kv, sk, d), bf16, any strides with dense
+    rows; kv_lens (bh,) int32 or None; the bucketed bias or None. Returns
+    o (q's shape; a 4D o is a (b, sq, h, d) buffer seen as (b, h, sq, d))
+    and lse (bh, sq) fp32. Counts its launches in ``.launches``."""
+    rows, q4, k4, v4 = _flat_views(q, k, v)
+    _check_flat(q4, k4, v4, kv_lens, "flash_fwd_flat_cuda")
+    b, h, sq, d = q4.shape
+    h_kv, sk = k4.shape[1], k4.shape[2]
+    lut, _, rel_off, maxd, hb, _ = _rel_args(rel_bias, rows)
+    o4, out = _out_like(q4, q.ndim)
+    lse = torch.empty((rows, sq), dtype=torch.float32, device=q.device)
+    rc = _build.library().apex_flash_fwd_flat(
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
+        lse.data_ptr(), _ptr(kv_lens), _ptr(lut),
+        _stride_array(q4, k4, o4), b, h, h_kv, sq, sk, d, int(causal),
+        float(scale), maxd, rel_off, hb,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "flash_fwd_flat")
+    flash_fwd_flat_cuda.launches += 1
+    return out, lse
+
+
+flash_fwd_flat_cuda.launches = 0
+
+
+def _check_flat_bwd(q4, k4, v4, o4, do4, lse, kv_lens, name):
+    _check_flat(q4, k4, v4, kv_lens, name)
+    b, h, sq, d = q4.shape
+    for nm, t in (("o", o4), ("do", do4)):
+        if t.shape != q4.shape or t.dtype != q4.dtype \
+                or t.device != q4.device:
+            raise ValueError(f"{name}: {nm} must be {tuple(q4.shape)} "
+                             f"{q4.dtype}; got {tuple(t.shape)} {t.dtype}")
+    _check_like("lse", lse, (b * h, sq), torch.float32, q4)
+
+
+def flash_bwd_flat_dkv_cuda(q, k, v, o, lse, do, *, scale: float,
+                            causal: bool,
+                            kv_lens: Optional[torch.Tensor] = None,
+                            rel_bias: Optional[BucketedBias] = None):
+    """Launch the bh-flat dK/dV kernel: dk, dv in k's shape (each kv
+    group's query heads summed in fp32) and, with ``rel_bias``, the
+    bucket-table gradient (num_buckets, heads) fp32 summed in the same
+    kernel (None without). Counts launches in ``.launches`` and the
+    launches that carry the table gradient in ``.table_launches``."""
+    rows, q4, k4, v4, o4, do4 = _flat_views(q, k, v, o, do)
+    _check_flat_bwd(q4, k4, v4, o4, do4, lse, kv_lens,
+                    "flash_bwd_flat_dkv_cuda")
+    b, h, sq, d = q4.shape
+    h_kv, sk = k4.shape[1], k4.shape[2]
+    lut, bucket, rel_off, maxd, hb, nb = _rel_args(rel_bias, rows)
+    dk4, dk = _out_like(k4, k.ndim)
+    dv4, dv = _out_like(k4, k.ndim)
+    dtab = (None if rel_bias is None else
+            torch.zeros((hb, nb), dtype=torch.float32, device=q.device))
+    rc = _build.library().apex_flash_bwd_flat_dkv(
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
+        do4.data_ptr(), lse.data_ptr(), dk4.data_ptr(), dv4.data_ptr(),
+        _ptr(dtab), _ptr(kv_lens), _ptr(lut), _ptr(bucket),
+        _stride_array(q4, k4, o4, do4, dk4), b, h, h_kv, sq, sk, d,
+        int(causal), float(scale), maxd, rel_off, hb, nb,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "flash_bwd_flat_dkv")
+    flash_bwd_flat_dkv_cuda.launches += 1
+    if dtab is not None:
+        flash_bwd_flat_dkv_cuda.table_launches += 1
+    return dk, dv, (None if dtab is None else dtab.t())
+
+
+flash_bwd_flat_dkv_cuda.launches = 0
+flash_bwd_flat_dkv_cuda.table_launches = 0
+
+
+def flash_bwd_flat_dq_cuda(q, k, v, o, lse, do, *, scale: float,
+                           causal: bool,
+                           kv_lens: Optional[torch.Tensor] = None,
+                           rel_bias: Optional[BucketedBias] = None
+                           ) -> torch.Tensor:
+    """Launch the bh-flat dQ kernel: dq in q's shape. Counts launches in
+    ``.launches``."""
+    rows, q4, k4, v4, o4, do4 = _flat_views(q, k, v, o, do)
+    _check_flat_bwd(q4, k4, v4, o4, do4, lse, kv_lens,
+                    "flash_bwd_flat_dq_cuda")
+    b, h, sq, d = q4.shape
+    h_kv, sk = k4.shape[1], k4.shape[2]
+    lut, _, rel_off, maxd, hb, _ = _rel_args(rel_bias, rows)
+    dq4, dq = _out_like(q4, q.ndim)
+    rc = _build.library().apex_flash_bwd_flat_dq(
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
+        do4.data_ptr(), lse.data_ptr(), dq4.data_ptr(), _ptr(kv_lens),
+        _ptr(lut), _stride_array(q4, k4, o4, do4, dq4), b, h, h_kv, sq, sk,
+        d, int(causal), float(scale), maxd, rel_off, hb,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "flash_bwd_flat_dq")
+    flash_bwd_flat_dq_cuda.launches += 1
+    return dq
+
+
+flash_bwd_flat_dq_cuda.launches = 0
+
+
 # --- dispatch -----------------------------------------------------------------
 
 def flash_fwd_packed(qkv: torch.Tensor, h: int, h_kv: int, d: int, *,
@@ -374,6 +832,87 @@ def flash_fwd_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _torch_flash_fwd_bshd(q, k, v, scale, causal)
 
 
+def _rows3(x: torch.Tensor) -> torch.Tensor:
+    return x if x.ndim == 3 else x.flatten(0, 1)
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              scale: float, causal: bool,
+              kv_lens: Optional[torch.Tensor] = None,
+              rel_bias: Optional[BucketedBias] = None, impl: str = "auto"
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bh-flat flash forward (the Pallas ``flash_fwd``, ``:375-461``):
+    q (bh, sq, d), k/v (bh_kv, sk, d) with bh_kv | bh — or the same as
+    (b, h, s, d) views, which the kernel reads without a copy. ``kv_lens``
+    (bh,) int32 masks each row's columns >= its length (a row of length 0
+    gives o = 0, lse = 0); ``rel_bias`` adds the bucketed bias, row r
+    reading table column r % heads. Returns (o in q's shape, lse (bh,
+    sq) fp32)."""
+    if _backend.use_kernel(q, impl):
+        return flash_fwd_flat_cuda(q, k, v, scale=scale, causal=causal,
+                                   kv_lens=kv_lens, rel_bias=rel_bias)
+    q3 = _rows3(q)
+    bias = (None if rel_bias is None
+            else rel_bias.materialize(q.shape[-2], k.shape[-2]))
+    o, lse = _torch_flash_fwd_flat(q3, _rows3(k), _rows3(v), scale, causal,
+                                   kv_lens, bias)
+    return o.reshape(q.shape), lse
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+              scale: float, causal: bool,
+              kv_lens: Optional[torch.Tensor] = None,
+              rel_bias: Optional[BucketedBias] = None, impl: str = "auto"):
+    """Backward of :func:`flash_fwd` (the Pallas ``flash_bwd``,
+    ``:1249-1411``): (dq, dk, dv) in their operands' shapes and, with
+    ``rel_bias``, the table's (num_buckets, heads) fp32 cotangent (else
+    None). On a CUDA tensor the dK/dV kernel (which also sums the table
+    gradient) and the dQ kernel run."""
+    if _backend.use_kernel(q, impl):
+        dk, dv, dtab = flash_bwd_flat_dkv_cuda(
+            q, k, v, o, lse, do, scale=scale, causal=causal,
+            kv_lens=kv_lens, rel_bias=rel_bias)
+        dq = flash_bwd_flat_dq_cuda(q, k, v, o, lse, do, scale=scale,
+                                    causal=causal, kv_lens=kv_lens,
+                                    rel_bias=rel_bias)
+        return dq, dk, dv, dtab
+    sq, sk = q.shape[-2], k.shape[-2]
+    bias = None if rel_bias is None else rel_bias.materialize(sq, sk)
+    dq, dk, dv, dbias = _torch_flash_bwd_flat(
+        _rows3(q), _rows3(k), _rows3(v), _rows3(o), lse, _rows3(do), scale,
+        causal, kv_lens, bias)
+    dtab = None if rel_bias is None else _table_grad(rel_bias, dbias)
+    return (dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(v.shape),
+            dtab)
+
+
+class _FlashFlat(torch.autograd.Function):
+    """The bh-flat core (``_flash_core``, ``:255-390``): the forward saves
+    q, k, v, o and lse; the backward returns dq, dk, dv and the bucket
+    table's cotangent in the table's dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, table, kv_lens, scale, causal, rel, impl):
+        bias = None if rel is None else BucketedBias(table, *rel)
+        o, lse = flash_fwd(q, k, v, scale=scale, causal=causal,
+                           kv_lens=kv_lens, rel_bias=bias, impl=impl)
+        ctx.save_for_backward(q, k, v, o, lse, kv_lens, table)
+        ctx.attn = (scale, causal, rel, impl)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, kv_lens, table = ctx.saved_tensors
+        scale, causal, rel, impl = ctx.attn
+        bias = None if rel is None else BucketedBias(table, *rel)
+        dq, dk, dv, dtab = flash_bwd(q, k, v, o, lse, do, scale=scale,
+                                     causal=causal, kv_lens=kv_lens,
+                                     rel_bias=bias, impl=impl)
+        dtable = None if dtab is None else dtab.to(table.dtype)
+        return dq, dk, dv, dtable, None, None, None, None, None
+
+
 class _FlashBshd(torch.autograd.Function):
     """The bshd forward; its backward (``flash_bwd_bshd``) is queued."""
 
@@ -392,44 +931,113 @@ class _FlashBshd(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False, scale: Optional[float] = None,
-                    kv_lens: Optional[torch.Tensor] = None, bias=None,
-                    impl: str = "auto", layout: str = "bshd",
+                    kv_lens: Optional[torch.Tensor] = None,
+                    bias: Optional[Union[BucketedBias, torch.Tensor]] = None,
+                    impl: str = "auto", layout: str = "bhsd",
                     dropout_rate: float = 0.0,
                     dropout_seed: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
-    """Blockwise attention, forward only, in the seq-major layout (the
-    default ``layout="bshd"``; the bh-flat ``"bhsd"`` is a later slice and
-    raises ``NotImplementedError``): q (b, sq, h, d) and k/v (b, sk, h_kv, d)
-    (h_kv | h: grouped-query heads read kv head ``t // (h // h_kv)``) and
-    returns o (b, sq, h, d). ``causal`` aligns bottom-right (row r sees
-    keys ``<= r + sk − sq``) and requires sq <= sk. ``scale`` defaults to
-    1/sqrt(d). On a CUDA tensor the kernel runs (a shape it refuses —
-    not bf16, d not in 64/128 — raises); on a CPU tensor, or with
-    ``impl="torch"``, the plain version. Differentiating through it
-    raises ``NotImplementedError``."""
-    if layout != "bshd":
-        if layout != "bhsd":
-            raise ValueError(f"layout must be bhsd|bshd, got {layout!r}")
+    """Blockwise attention (``apex_tpu/ops/attention.py:647-844``). ``scale``
+    defaults to 1/sqrt(d); ``causal`` aligns bottom-right (row r sees keys
+    ``<= r + sk − sq``) and requires sq <= sk. On a CUDA tensor the
+    kernels run (a shape they refuse — not bf16, d not in 64/128 —
+    raises); on a CPU tensor, or with ``impl="torch"``, the plain version.
+
+    ``layout="bhsd"`` (the default, as in the reference): q (..., sq, d)
+    and k/v (..., sk, d), any leading dims, k/v's head dim (the last
+    leading dim) dividing q's for grouped-query heads; forward and
+    backward. ``kv_lens`` over q's leading dims masks each row's keys >=
+    its length (a row of length 0 returns zeros). ``bias`` a
+    :class:`BucketedBias` whose heads divide the flattened rows (row r
+    reads table column r % heads), added to the scaled scores before the
+    masks; its table gets a gradient. (b, h, s, d) views of a projection
+    output go to the kernels without a copy, and a 4D output is a (b, s,
+    h, d) buffer seen as (b, h, s, d), so merging the heads back is a
+    view too.
+
+    ``layout="bshd"``: q (b, sq, h, d) and k/v (b, sk, h_kv, d), forward
+    only (the decode engine's prefill); differentiating through it raises
+    ``NotImplementedError``, and so do its ``kv_lens`` and ``bias``.
+
+    An additive array ``bias`` (``_dbias_pallas``) and ``dropout_rate >
+    0`` are later slices of the port and raise ``NotImplementedError``."""
+    if layout not in ("bhsd", "bshd"):
+        raise ValueError(f"layout must be bhsd|bshd, got {layout!r}")
+    if dropout_rate != 0.0 or dropout_seed is not None:
         raise NotImplementedError(
-            "flash_attention's bh-flat layout (the Pallas flash_fwd / "
-            "flash_bwd) is a later slice of the port; pass layout='bshd'")
-    if kv_lens is not None or bias is not None or dropout_rate != 0.0 \
-            or dropout_seed is not None:
+            "flash_attention's in-kernel dropout (dropout_keep) is a later "
+            "slice of the port (ROADMAP queue 1 item 1)")
+    if bias is not None and not isinstance(bias, BucketedBias):
         raise NotImplementedError(
-            "flash_attention's kv_lens, bias (and the bucketed rel_bias) "
-            "and dropout options are later slices of the port")
-    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
-        raise ValueError(f"layout='bshd' takes (b, s, h, d) operands; got "
-                         f"{tuple(q.shape)} / {tuple(k.shape)}")
-    if causal and q.shape[1] > k.shape[1]:
-        raise ValueError(f"causal attention requires sq <= sk; got "
-                         f"sq={q.shape[1]} > sk={k.shape[1]}")
-    if q.shape[2] % k.shape[2] or k.shape[:2] != v.shape[:2]:
-        raise ValueError(f"kv heads ({k.shape[2]}) must divide q heads "
-                         f"({q.shape[2]}) with matching batch/seq dims")
+            "flash_attention's additive array bias (the Pallas "
+            "_dbias_pallas) is a later slice of the port (ROADMAP queue 2); "
+            "pass a BucketedBias")
     d = q.shape[-1]
     s_scale = float(scale if scale is not None else 1.0 / d ** 0.5)
-    return _FlashBshd.apply(q, k, v, s_scale, bool(causal), impl)
+    if layout == "bshd":
+        if kv_lens is not None or bias is not None:
+            raise NotImplementedError(
+                "flash_attention(layout='bshd') takes neither kv_lens nor a "
+                "bias: they come with its backward (flash_bwd_bshd), a later "
+                "slice of the port; use layout='bhsd'")
+        if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+            raise ValueError(f"layout='bshd' takes (b, s, h, d) operands; "
+                             f"got {tuple(q.shape)} / {tuple(k.shape)}")
+        if causal and q.shape[1] > k.shape[1]:
+            raise ValueError(f"causal attention requires sq <= sk; got "
+                             f"sq={q.shape[1]} > sk={k.shape[1]}")
+        if q.shape[2] % k.shape[2] or k.shape[:2] != v.shape[:2]:
+            raise ValueError(f"kv heads ({k.shape[2]}) must divide q heads "
+                             f"({q.shape[2]}) with matching batch/seq dims")
+        return _FlashBshd.apply(q, k, v, s_scale, bool(causal), impl)
+    if isinstance(bias, BucketedBias):
+        _validate_bucketed(bias)
+    if q.ndim < 2 or k.ndim != q.ndim or v.ndim != q.ndim:
+        raise ValueError(f"layout='bhsd' takes (..., s, d) operands of one "
+                         f"rank; got {tuple(q.shape)} / {tuple(k.shape)} / "
+                         f"{tuple(v.shape)}")
+    if causal and q.shape[-2] > k.shape[-2]:
+        raise ValueError(
+            f"causal attention requires sq <= sk (bottom-right alignment); "
+            f"got sq={q.shape[-2]} > sk={k.shape[-2]} — rows before the "
+            f"context start would attend nothing")
+    if k.shape[:-2] != v.shape[:-2] or k.shape[-1] != d \
+            or v.shape[-1] != d or k.shape[-2] != v.shape[-2]:
+        raise ValueError(f"k/v shapes differ: {tuple(k.shape)} vs "
+                         f"{tuple(v.shape)}")
+    lead = q.shape[:-2]
+    if q.ndim >= 4:
+        # batch dims must match; only the head axis may be narrower on kv
+        if q.shape[:-3] != k.shape[:-3] or q.shape[-3] % k.shape[-3]:
+            raise ValueError(
+                f"kv heads ({k.shape[-3]}) must divide q heads "
+                f"({q.shape[-3]}) with equal batch dims ({q.shape[:-3]} vs "
+                f"{k.shape[:-3]}) for grouped-query attention")
+        # (..., h, s, d) → (b, h, s, d): a view for 4D operands
+        q_, k_, v_ = (t.reshape(-1, *t.shape[-3:]) for t in (q, k, v))
+    else:
+        q_, k_, v_ = (t.reshape(-1, *t.shape[-2:]) for t in (q, k, v))
+        if q_.shape[0] % k_.shape[0]:
+            raise ValueError(
+                f"kv heads ({k_.shape[0]} flattened) must divide q heads "
+                f"({q_.shape[0]} flattened) for grouped-query attention")
+    rows = lead.numel()
+    if kv_lens is not None:
+        if tuple(kv_lens.shape) != tuple(lead):
+            raise ValueError(f"kv_lens shape {tuple(kv_lens.shape)} must "
+                             f"equal q's leading dims {tuple(lead)}")
+        kv_lens = kv_lens.reshape(-1).to(torch.int32)
+    rel = table = None
+    if bias is not None:
+        if rows % bias.heads:
+            raise ValueError(f"bias rows ({bias.heads}) must divide q's "
+                             f"flattened leading dims ({rows})")
+        rel = (bias.bidirectional, int(bias.max_distance),
+               int(bias.q_offset), int(bias.k_offset))
+        table = bias.table
+    o = _FlashFlat.apply(q_, k_, v_, table, kv_lens, s_scale, bool(causal),
+                         rel, impl)
+    return o.reshape(*lead, q.shape[-2], d)
 
 
 # --- the fused projection + attention block -----------------------------------

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """chip_smoke.py — drive apex_tpu_torch's serving path, its decode engine
-(with speculative decoding) and its GPT-medium train step on one CUDA card.
+(with speculative decoding), its GPT-medium train step and its T5-base
+train step on one CUDA card.
 
 Run from the repository root on a machine with an NVIDIA H100 (no
 arguments, one card, no network):
@@ -73,9 +74,29 @@ without the final line):
    kernel path against the plain path (``impl="torch"``, same weights and
    batch) within stated bounds, and 2 profiled train steps (device time
    by kernel, launches per step, device-busy share);
-9. one ``{"kernels": [...]}`` line (all ten kernels), the card's name and
-   power limit as nvidia-smi prints them, and last ``{"ok": true,
-   "device": {...}}``.
+9. the T5 slice (T5-base widths, relative position bias, per-block
+   remat, batch 128 x (512 in, 114 out)):
+   * the bh-flat flash forward, dK/dV (with the fused bucket-table
+     gradient) and dQ kernels against their plain versions at the step's
+     three attention shapes — encoder self 512 x 512 (bidirectional
+     buckets), decoder self 114 x 114 (causal buckets), cross 114 x 512;
+     the encoder self and cross calls with kv_lens in [256, 512] and
+     without — each timed beside its plain version, SDPA with the
+     materialised bias as attn_mask, and its bound;
+   * one step at the initial params on a padded batch, kernel path
+     against plain path and both against an fp32 truth;
+   * a warm-up, then 10 timed steps with the counters zeroed just before
+     and read just after (per step 72 flat forward launches — 36
+     attention calls, each run again by the remat — 36 dK/dV, 24 of them
+     with the table gradient, 36 dQ, 1 xent_stats); losses finite and
+     falling; tokens/s, step ms, model TFLOP/s and MFU;
+   * the kernel path and the plain path against an fp32 truth again, at
+     the params the timed steps left, on their batch;
+   * a padded step (encoder lengths in [256, 512]) with the same counts,
+     and 2 profiled steps;
+10. one ``{"kernels": [...]}`` line (all fourteen kernels), the card's
+    name and power limit as nvidia-smi prints them, and last ``{"ok":
+    true, "device": {...}}``.
 """
 
 import json
@@ -116,6 +137,19 @@ FLASH_SLACK = 1e-3
 # kernel
 TRAIN_LOSS_TOL = 1e-4   # relative difference of the two losses
 TRAIN_GRAD_TOL = 5e-2   # each gradient leaf's relative norm error
+
+# the T5 slice: the widths of the repo's own T5 training script
+# (tools/t5_relative_bench.py:21-25: hidden 768, FFN 3072, 12 + 12 layers,
+# vocab 32128, bf16, relative bias, per-block remat), the heads and
+# buckets of the public t5-base (12 heads of 64, 32 buckets, max distance
+# 128), and T5's span-corruption lengths: batch 128 x (512 in, 114 out)
+T5 = dict(vocab_size=32128, max_seq_len=512, hidden_size=768,
+          ffn_hidden_size=3072, num_encoder_layers=12, num_decoder_layers=12,
+          num_heads=12, remat=True, position_encoding="relative",
+          relative_num_buckets=32, relative_max_distance=128)
+T5_BATCH, T5_ENC, T5_DEC, T5_STEPS = 128, 512, 114, 10
+T5_PAD_MIN = 256        # padded batches: encoder lengths in [256, 512]
+T5_DTABLE_TOL = 1e-3    # bucket-table gradient: relative norm error
 
 
 def check(cond, msg):
@@ -644,7 +678,7 @@ def kernel_category(name):
     return "other elementwise, reduction and copy kernels"
 
 
-def phase_train_profile(torch, state, step_s):
+def phase_train_profile(torch, step, step_s):
     """Where the train step's time goes: 2 profiled steps, device time by
     kernel and by layer, launches per step, and the busy share of an
     unprofiled step (one stream, so kernels never overlap). Annotation
@@ -656,7 +690,7 @@ def phase_train_profile(torch, state, step_s):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(2):
-            train_step(*state)
+            step()
         torch.cuda.synchronize()
     kernels = sorted(((e.self_device_time_total, e.count, e.key)
                       for e in prof.key_averages()
@@ -1280,6 +1314,477 @@ def phase_spec(torch, model, params, dev):
 
 
 
+# --- the T5 slice -------------------------------------------------------------
+
+def t5_attn_case(torch, dev, kind, b, seed, padded):
+    """One of the T5 step's three attention calls at batch ``b``, as the
+    blocks pass it: q, k, v and do as (b, 12, s, 64) views of projection
+    buffers, the stack's bucketed bias and, where ``padded`` (encoder self
+    and cross calls only), the per-row kv lengths (seeded encoder pad
+    lengths in [256, 512], expanded over the heads)."""
+    from apex_tpu_torch.ops import attention as A
+
+    h, d = T5["num_heads"], T5["hidden_size"] // T5["num_heads"]
+    sq, sk = {"enc": (T5_ENC, T5_ENC), "dec": (T5_DEC, T5_DEC),
+              "cross": (T5_DEC, T5_ENC)}[kind]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    H = h * d
+    rnd = lambda *sh: torch.randn(sh, generator=g,  # noqa: E731
+                                  device=dev).bfloat16()
+    heads = lambda t, s: t.view(b, s, h, d).transpose(1, 2)  # noqa: E731
+    q = heads(rnd(b, sq, H), sq)
+    k, v = (heads(t, sk) for t in rnd(b, sk, 2 * H).split(H, -1))
+    do = heads(rnd(b, sq, H), sq)
+    lens = None
+    if padded:
+        pad = torch.randint(T5_PAD_MIN, T5_ENC + 1, (b,), generator=g,
+                            device=dev, dtype=torch.int32)
+        lens = pad[:, None].expand(b, h).reshape(-1).contiguous()
+    bias = None
+    if kind != "cross":
+        table = (torch.randn((T5["relative_num_buckets"], h), generator=g,
+                             device=dev) * 0.1).bfloat16()
+        bias = A.BucketedBias(table, bidirectional=kind == "enc",
+                              max_distance=T5["relative_max_distance"])
+    kw = dict(scale=d ** -0.5, causal=kind == "dec", kv_lens=lens,
+              rel_bias=bias)
+    return (q, k, v, do), kw, (sq, sk, h, d)
+
+
+# the attention calls compared and timed: (name, call, padded). The timed
+# train steps make the unpadded encoder and cross calls, the padded step
+# the padded ones; the kernels line's times are the padded encoder call's.
+T5_CALLS = (("enc", "enc", True), ("enc_unpadded", "enc", False),
+            ("dec", "dec", False), ("cross", "cross", True),
+            ("cross_unpadded", "cross", False))
+
+
+def t5_kv_rows(kw, b, h, sk):
+    """The key/value rows this run's data needs: each row's live keys."""
+    if kw["kv_lens"] is None:
+        return b * h * sk
+    return float(kw["kv_lens"].clamp(max=sk).double().sum())
+
+
+def t5_pairs(kw, b, h, sq, sk):
+    """The score pairs this run's data needs: every row's live keys (its
+    kv length), causal rows only up to the diagonal."""
+    if kw["causal"]:
+        return b * h * sq * (sq + 1) / 2
+    if kw["kv_lens"] is not None:
+        return sq * float(kw["kv_lens"].double().sum())
+    return b * h * sq * sk
+
+
+def t5_library(torch, F, q, k, v, do, kw, sq, sk):
+    """One PyTorch call for the same function: SDPA with the
+    materialised bias (and the padding and causal masks) as a float
+    attn_mask, forward, and its autograd backward. Timed, used nowhere."""
+    b, h = q.shape[:2]
+    mask = torch.zeros((1, 1, sq, sk), dtype=torch.float32, device=q.device)
+    if kw["rel_bias"] is not None:
+        mask = mask + kw["rel_bias"].materialize(sq, sk)[None]
+    if kw["causal"]:
+        tri = torch.ones((sq, sk), dtype=torch.bool,
+                         device=q.device).tril(sk - sq)
+        mask = mask.masked_fill(~tri, float("-inf"))
+    if kw["kv_lens"] is not None:
+        lens = kw["kv_lens"].view(b, h)[:, 0]
+        pad = torch.arange(sk, device=q.device)[None, :] >= lens[:, None]
+        mask = mask.masked_fill(pad[:, None, None, :], float("-inf"))
+    mask = mask.to(q.dtype)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    call = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        *leaves, attn_mask=mask, scale=kw["scale"])
+    fwd = time_ms(call, [()])
+    out = call()
+    bwd = time_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                              retain_graph=True), [()],
+                  reps=5)
+    return fwd, bwd
+
+
+def phase_t5_kernels(torch, dev):
+    """The bh-flat flash forward, dK/dV (with the fused bucket-table
+    gradient) and dQ kernels against their plain versions at the T5
+    step's three attention shapes (all b·h = 128·12, d 64, bf16): encoder
+    self 512 x 512 with bidirectional buckets, decoder self 114 x 114 with
+    causal buckets, cross 114 x 512 with no bias; the encoder self and
+    cross calls both with kv_lens in [256, 512] (the padded step's) and
+    without (the timed steps'), see T5_CALLS. Each kernel timed at each
+    call beside its plain version, SDPA with the materialised bias, and
+    its bound (K and V read over the live rows only)."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import attention as A
+
+    per_shape, errs = {}, {"fwd": 0.0, "dkv": 0.0, "dq": 0.0, "dtable": 0.0}
+    for i, (name_, kind, padded) in enumerate(T5_CALLS):
+        (q, k, v, do), kw, (sq, sk, h, d) = t5_attn_case(
+            torch, dev, kind, T5_BATCH, seed=40 + i, padded=padded)
+        shape = {"call": name_, "bh": T5_BATCH * h, "sq": sq, "sk": sk,
+                 "d": d, "causal": kw["causal"],
+                 "kv_lens": kw["kv_lens"] is not None,
+                 "rel_bias": kw["rel_bias"] is not None}
+        up = lambda ts: [t.float() for t in ts]  # noqa: E731
+        o, lse = A.flash_fwd(q, k, v, **kw)
+        o_p, lse_p = A.flash_fwd(q, k, v, impl="torch", **kw)
+        o_t, lse_t = A.flash_fwd(*up((q, k, v)), impl="torch", **kw)
+        torch.cuda.synchronize()
+        errs["fwd"] = max(errs["fwd"],
+                          rule_check("flat o", o, o_p, o_t, shape),
+                          rule_check("flat lse", lse, lse_p, lse_t, shape))
+        del o, o_t, lse_t
+        got = A.flash_bwd(q, k, v, o_p, lse_p, do, **kw)
+        plain = A.flash_bwd(q, k, v, o_p, lse_p, do, impl="torch", **kw)
+        truth = A.flash_bwd(*up((q, k, v, o_p)), lse_p, do.float(),
+                            impl="torch", **kw)
+        torch.cuda.synchronize()
+        for name, g_, p_, t_ in zip(("dq", "dk", "dv"), got, plain, truth):
+            check(torch.isfinite(g_.float()).all().item(),
+                  f"flat {name} kernel output not finite at {shape}")
+            e = rule_check(f"flat {name}", g_, p_, t_, shape)
+            key = "dq" if name == "dq" else "dkv"
+            errs[key] = max(errs[key], e)
+        if kw["rel_bias"] is not None:
+            rel = ((got[3] - plain[3]).norm() / plain[3].norm()).item()
+            emit("flash_check", {"output": "flat dtable", "shape": shape,
+                                 "rel_norm_err": rel, "tol": T5_DTABLE_TOL})
+            check(rel <= T5_DTABLE_TOL, f"dtable kernel vs plain: rel norm "
+                  f"err {rel} > {T5_DTABLE_TOL} at {shape}")
+            errs["dtable"] = max(errs["dtable"],
+                                 (got[3] - plain[3]).abs().max().item())
+        else:
+            check(got[3] is None, "a table gradient without a bias")
+        del got, plain, truth
+        torch.cuda.empty_cache()
+
+        # times at this shape; the plain versions at a few repetitions
+        o, lse = A.flash_fwd(q, k, v, **kw)
+        ms_fwd = time_ms(lambda: A.flash_fwd_flat_cuda(q, k, v, **kw), [()])
+        ms_dkv = time_ms(lambda: A.flash_bwd_flat_dkv_cuda(
+            q, k, v, o, lse, do, **kw), [()])
+        ms_dq = time_ms(lambda: A.flash_bwd_flat_dq_cuda(
+            q, k, v, o, lse, do, **kw), [()])
+        ms_dkv_no_table = None
+        if kw["rel_bias"] is not None:  # the same call without the bias
+            nob = dict(kw, rel_bias=None)
+            ms_dkv_no_table = time_ms(lambda: A.flash_bwd_flat_dkv_cuda(
+                q, k, v, o, lse, do, **nob), [()])
+        plain_fwd = time_ms(lambda: A.flash_fwd(q, k, v, impl="torch", **kw),
+                            [()], reps=2, trials=3)
+        plain_bwd = time_ms(lambda: A.flash_bwd(q, k, v, o, lse, do,
+                                                impl="torch", **kw),
+                            [()], reps=2, trials=3)
+        torch.cuda.empty_cache()
+        lib_fwd, lib_bwd = t5_library(torch, F, q, k, v, do, kw, sq, sk)
+
+        b = T5_BATCH
+        pairs = t5_pairs(kw, b, h, sq, sk)
+        t_q = b * h * sq * d * 2  # one (b, h, sq, d) bf16 tensor
+        t_k = b * h * sk * d * 2  # one (b, h, sk, d) bf16 output, written whole
+        t_k_in = t5_kv_rows(kw, b, h, sk) * d * 2  # k or v: live rows read
+        small = b * h * sq * 4 + (0 if kw["kv_lens"] is None else b * h * 4)
+        fwd_b = bound(t_q + 2 * t_k_in + t_q + small, 4 * d * pairs,
+                      BF16_OPS_PER_S)
+        bwd_in = 3 * t_q + 2 * t_k_in + small  # q, o, do, k, v, lse (+lens)
+        dkv_b = bound(bwd_in + 2 * t_k, 8 * d * pairs, BF16_OPS_PER_S)
+        dq_b = bound(bwd_in + t_q, 6 * d * pairs, BF16_OPS_PER_S)
+        fn_b = bound(bwd_in + t_q + 2 * t_k, 10 * d * pairs, BF16_OPS_PER_S)
+        # the table gradient alone: dS needs QK^T and dP (4d per pair)
+        dt_b = bound(bwd_in, 4 * d * pairs, BF16_OPS_PER_S)
+        per_shape[name_] = {
+            "shape": shape, "score_pairs": pairs,
+            "fwd_ms": ms_fwd, "dkv_ms": ms_dkv, "dq_ms": ms_dq,
+            "dkv_no_table_ms": ms_dkv_no_table,
+            "plain_fwd_ms": plain_fwd, "plain_bwd_ms": plain_bwd,
+            "sdpa_fwd_ms": lib_fwd, "sdpa_bwd_ms": lib_bwd,
+            "fwd_bound": fwd_b, "dkv_bound": dkv_b, "dq_bound": dq_b,
+            "bwd_function_bound": fn_b, "dtable_bound": dt_b}
+        emit("t5_kernel_times", per_shape[name_])
+        del q, k, v, do, o, lse, o_p, lse_p
+        torch.cuda.empty_cache()
+
+    enc = per_shape["enc"]
+    timed = dict(enc["shape"], dtype="bf16",
+                 layout="(b, h, s, d) views of the projection output")
+    src = "apex_tpu_torch/csrc/"
+    plain_note = ("one plain backward computes dq, dk, dv and the table "
+                  "gradient together; its time is given for each")
+    lib_note = ("F.scaled_dot_product_attention with the materialised bias "
+                "and padding as a float attn_mask; its autograd backward "
+                "computes dq, dk and dv in one call")
+    per = {k_: {f: v_ for f, v_ in s_.items() if f != "shape"}
+           for k_, s_ in per_shape.items()}
+    return [
+        {"name": "flash_fwd_flat", "route": "cuda",
+         "source": src + "flash_attn_fwd.cu",
+         "replaces": "apex_tpu/ops/pallas/attention.py:436",
+         "max_abs_err": errs["fwd"], "ms": enc["fwd_ms"],
+         "plain_ms": enc["plain_fwd_ms"], "bound_ms": enc["fwd_bound"][0],
+         "bound_by": enc["fwd_bound"][1], "library_ms": enc["sdpa_fwd_ms"],
+         "library_note": "F.scaled_dot_product_attention forward with the "
+                         "materialised bias and padding as attn_mask",
+         "timed_shape": timed, "per_shape": per},
+        {"name": "flash_bwd_flat_dkv", "route": "cuda",
+         "source": src + "flash_attn_bwd.cu",
+         "replaces": "apex_tpu/ops/pallas/attention.py:1302",
+         "max_abs_err": errs["dkv"], "ms": enc["dkv_ms"],
+         "plain_ms": enc["plain_bwd_ms"], "bound_ms": enc["dkv_bound"][0],
+         "bound_by": enc["dkv_bound"][1], "library_ms": enc["sdpa_bwd_ms"],
+         "plain_note": plain_note, "library_note": lib_note,
+         "backward": {"function": "flash_bwd (dq, dk, dv, dtable)",
+                      "ms": enc["dkv_ms"] + enc["dq_ms"],
+                      "bound_ms": enc["bwd_function_bound"][0],
+                      "bound_by": enc["bwd_function_bound"][1]},
+         "timed_shape": timed},
+        {"name": "flash_bwd_flat_dq", "route": "cuda",
+         "source": src + "flash_attn_bwd.cu",
+         "replaces": "apex_tpu/ops/pallas/attention.py:1277",
+         "max_abs_err": errs["dq"], "ms": enc["dq_ms"],
+         "plain_ms": enc["plain_bwd_ms"], "bound_ms": enc["dq_bound"][0],
+         "bound_by": enc["dq_bound"][1], "library_ms": enc["sdpa_bwd_ms"],
+         "plain_note": plain_note, "library_note": lib_note,
+         "timed_shape": timed},
+        {"name": "flash_bwd_flat_dtable", "route": "cuda",
+         "source": src + "flash_attn_bwd.cu",
+         "replaces": "apex_tpu/ops/pallas/attention.py:1212",
+         "max_abs_err": errs["dtable"], "ms": enc["dkv_ms"],
+         "marginal_ms": enc["dkv_ms"] - enc["dkv_no_table_ms"],
+         "plain_ms": enc["plain_bwd_ms"],
+         "bound_ms": enc["dtable_bound"][0],
+         "bound_by": enc["dtable_bound"][1], "library_ms": None,
+         "note": "computed inside the dK/dV kernel (no launch of its own): "
+                 "ms is that launch's time, marginal_ms its time less the "
+                 "same call without the bias; launches count the dK/dV "
+                 "launches that carry the table gradient",
+         "plain_note": plain_note,
+         "library_note": "no single PyTorch call returns the bucket-table "
+                         "gradient",
+         "timed_shape": timed},
+    ]
+
+
+def t5_flops_per_step(b, s_enc, s_dec):
+    """Model FLOPs of one T5 train step (forward + backward, no remat
+    recompute), bench.py:108-117's convention carried to the
+    encoder-decoder: 6 x the matmul parameters each token passes through
+    (encoder: qkv, out, MLP = 4H^2 + 2HF per layer; decoder: self qkv,
+    out, cross q, out, MLP = 6H^2 + 2HF, plus the cross k/v projection
+    2H^2 applied to every encoder token in every decoder layer; the tied
+    head VH per decoder token) plus 12 x H x keys per query token per
+    layer for attention (encoder s_enc; decoder s_dec self + s_enc
+    cross), causal rows counted whole as bench.py does."""
+    H, Fh, V = T5["hidden_size"], T5["ffn_hidden_size"], T5["vocab_size"]
+    Le, Ld = T5["num_encoder_layers"], T5["num_decoder_layers"]
+    te, td = b * s_enc, b * s_dec
+    matmul = (te * Le * (4 * H * H + 2 * H * Fh)
+              + td * Ld * (6 * H * H + 2 * H * Fh)
+              + te * Ld * 2 * H * H + td * V * H)
+    attn = 12 * H * (te * Le * s_enc + td * Ld * (s_dec + s_enc))
+    return 6 * matmul + attn
+
+
+def t5_counters():
+    from apex_tpu_torch.ops import attention as A
+    from apex_tpu_torch.ops import xentropy as X
+
+    return {"flash_fwd_flat": (A.flash_fwd_flat_cuda, "launches"),
+            "flash_bwd_flat_dkv": (A.flash_bwd_flat_dkv_cuda, "launches"),
+            "flash_bwd_flat_dtable": (A.flash_bwd_flat_dkv_cuda,
+                                      "table_launches"),
+            "flash_bwd_flat_dq": (A.flash_bwd_flat_dq_cuda, "launches"),
+            "xent_stats": (X.xent_stats_cuda, "launches")}
+
+
+def t5_zero_counters():
+    for fn, attr in t5_counters().values():
+        setattr(fn, attr, 0)
+
+
+def t5_read_counters():
+    return {k: getattr(fn, attr) for k, (fn, attr) in t5_counters().items()}
+
+
+def t5_check_launches(launches, steps, what):
+    """Per step, with per-block remat: each of the 36 attention calls runs
+    its forward twice (the recompute), its dK/dV and dQ once; the 24
+    self-attention calls carry the bucket table; one xent_stats."""
+    L = T5["num_encoder_layers"] + 2 * T5["num_decoder_layers"]
+    table = T5["num_encoder_layers"] + T5["num_decoder_layers"]
+    want = {"flash_fwd_flat": 2 * L, "flash_bwd_flat_dkv": L,
+            "flash_bwd_flat_dq": L, "flash_bwd_flat_dtable": table,
+            "xent_stats": 1}
+    for k, per_step in want.items():
+        check(launches[k] == per_step * steps,
+              f"{what}: {launches[k]} {k} launches in {steps} steps, want "
+              f"{per_step} per step")
+
+
+def t5_batch(torch, dev, b, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    V = T5["vocab_size"]
+    enc = torch.randint(0, V, (b, T5_ENC), generator=g, device=dev)
+    dec = torch.randint(0, V, (b, T5_DEC), generator=g, device=dev)
+    tgt = torch.randint(0, V, (b, T5_DEC), generator=g, device=dev)
+    pad = torch.randint(T5_PAD_MIN, T5_ENC + 1, (b,), generator=g,
+                        device=dev, dtype=torch.int32)
+    return enc, dec, tgt, pad
+
+
+def t5_step(model, params, opt, enc, dec, tgt, pad=None):
+    loss = model.loss_fn(params, enc, dec, tgt, enc_pad_lens=pad)
+    loss.backward()
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    return loss.detach()
+
+
+def phase_t5_train(torch, dev):
+    """The T5 slice's main path: EncoderDecoderModel.loss_fn, backward and
+    one FusedAdam step at T5-base width, batch 128 x (512, 114): a
+    warm-up, then T5_STEPS timed steps with the counters zeroed just
+    before and read just after."""
+    from apex_tpu_torch.models.t5 import param_leaves
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    model, params = t5_model(torch, dev, torch.bfloat16)
+    opt = FusedAdam(param_leaves(params), lr=1e-4)
+    enc, dec, tgt, _ = t5_batch(torch, dev, T5_BATCH, seed=1)
+    t5_step(model, params, opt, enc, dec, tgt)  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    t5_zero_counters()
+    t0 = time.perf_counter()
+    losses = [t5_step(model, params, opt, enc, dec, tgt)
+              for _ in range(T5_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = t5_read_counters()
+
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"T5 losses not finite: {losses}")
+    check(losses[-1] < losses[0], f"T5 loss did not fall: {losses}")
+    t5_check_launches(launches, T5_STEPS, "T5 train path")
+    tok = T5_BATCH * (T5_ENC + T5_DEC) * T5_STEPS
+    flops = t5_flops_per_step(T5_BATCH, T5_ENC, T5_DEC) * T5_STEPS / wall
+    info = {"batch": T5_BATCH, "enc_len": T5_ENC, "dec_len": T5_DEC,
+            "steps": T5_STEPS, "losses": losses, "wall_s": wall,
+            "step_ms": 1e3 * wall / T5_STEPS,
+            "tokens_per_s": tok / wall, "tokens": "encoder + decoder",
+            "model_flops_per_step": t5_flops_per_step(T5_BATCH, T5_ENC,
+                                                      T5_DEC),
+            "model_tflops_per_s": flops / 1e12,
+            "mfu": flops / BF16_OPS_PER_S,
+            "mfu_peak": "989 TFLOP/s dense bf16 (H100 SXM data sheet)",
+            "card": torch.cuda.get_device_name(0),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches_per_step": {k: v / T5_STEPS
+                                  for k, v in launches.items()}}
+    return (model, params, opt), info, launches
+
+
+def phase_t5_padded(torch, state, dev):
+    """One step of a padded batch (seeded encoder lengths in [256, 512]):
+    finite loss, the same launches per step."""
+    model, params, opt = state
+    enc, dec, tgt, pad = t5_batch(torch, dev, T5_BATCH, seed=2)
+    t5_zero_counters()
+    loss = float(t5_step(model, params, opt, enc, dec, tgt, pad))
+    torch.cuda.synchronize()
+    launches = t5_read_counters()
+    check(np.isfinite(loss), f"T5 padded step: loss {loss}")
+    t5_check_launches(launches, 1, "T5 padded step")
+    return {"loss": loss, "enc_pad_lens_min": int(pad.min()),
+            "enc_pad_lens_max": int(pad.max()), "launches": launches}
+
+
+def t5_model(torch, dev, dtype):
+    from apex_tpu_torch.models.t5 import (EncoderDecoderModel, T5Config,
+                                          param_leaves)
+
+    model = EncoderDecoderModel(T5Config(**T5, dtype=dtype))
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    for t in param_leaves(params):
+        t.requires_grad_()
+    return model, params
+
+
+def phase_t5_plain(torch, model, params, enc, dec, tgt, pad, what,
+                   bound_kernel_vs_plain):
+    """One step's loss and gradients at ``params`` on the given batch: the
+    kernel path against the plain path, and both against an fp32
+    plain-path truth (the same params upcast): each leaf's kernel-path
+    error must be at most twice the bf16 plain path's plus 1e-3, the flash
+    kernels' rule lifted to the step; the losses within TRAIN_LOSS_TOL.
+    Where ``bound_kernel_vs_plain`` (the initial params), each leaf's
+    kernel-vs-plain error is also held to TRAIN_GRAD_TOL. Not at the
+    trained params: with the tied N(0, 1) embedding the logits are large
+    and the softmax near one-hot, and after a few Adam steps some leaves'
+    gradients (the cross-attention projections) shrink until bf16 rounding
+    moves them tens of percent in BOTH paths, which the fp32 truth shows
+    and a kernel-vs-plain bound cannot tell from a fault."""
+    from apex_tpu_torch.models.t5 import param_leaves
+
+    model32, params32 = t5_model(torch, enc.device, torch.float32)
+    with torch.no_grad():
+        for a, b in zip(param_leaves(params32), param_leaves(params)):
+            a.copy_(b.float())
+
+    def loss_and_grads(m, p, impl):
+        loss = m.loss_fn(p, enc, dec, tgt, enc_pad_lens=pad, impl=impl)
+        loss.backward()
+        out = {}
+        for name, t in named_leaves(p):
+            out[name] = t.grad.float()
+            t.grad = None
+        return loss.item(), out
+
+    def rel(a, b):
+        return {n: ((a[n] - b[n]).norm() / b[n].norm().clamp_min(1e-30))
+                .item() for n in b}
+
+    loss_k, g_k = loss_and_grads(model, params, "auto")
+    loss_p, g_p = loss_and_grads(model, params, "torch")
+    loss_t, g_t = loss_and_grads(model32, params32, "torch")
+    del model32, params32
+    kp, kt, pt = rel(g_k, g_p), rel(g_k, g_t), rel(g_p, g_t)
+    worst = sorted(kp.items(), key=lambda kv: -kv[1])
+    rule = {n: kt[n] - (2 * pt[n] + 1e-3) for n in kt}
+    worst_rule = max(rule, key=rule.get)
+    info = {"batch": enc.shape[0], "params": what,
+            "enc_pad_lens": pad is not None,
+            "loss_kernel": loss_k, "loss_plain": loss_p,
+            "loss_fp32_truth": loss_t,
+            "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+            "loss_tol": TRAIN_LOSS_TOL,
+            "grad_rel_norm_err_max": worst[0][1],
+            "grad_worst_leaf": worst[0][0],
+            "grad_tol": TRAIN_GRAD_TOL if bound_kernel_vs_plain else None,
+            "table_rel_norm_err": {n: kp[n] for n in kp if "rel_bias" in n},
+            "median_leaf_err": statistics.median(kp.values()),
+            "vs_fp32_truth": {
+                "median_kernel": statistics.median(kt.values()),
+                "median_plain": statistics.median(pt.values()),
+                "worst_leaf_by_rule": worst_rule,
+                "worst_kernel": kt[worst_rule], "worst_plain": pt[worst_rule],
+                "top_kernel_vs_plain": {n: [e, kt[n], pt[n]]
+                                        for n, e in worst[:5]}}}
+    check(info["loss_rel_diff"] <= TRAIN_LOSS_TOL,
+          f"T5 loss at {what}, kernel vs plain: rel diff "
+          f"{info['loss_rel_diff']}")
+    if bound_kernel_vs_plain:
+        check(worst[0][1] <= TRAIN_GRAD_TOL,
+              f"T5 gradient {worst[0][0]} at {what}, kernel vs plain: rel "
+              f"norm err {worst[0][1]} > {TRAIN_GRAD_TOL}")
+    check(rule[worst_rule] <= 0,
+          f"T5 gradient {worst_rule} at {what}: kernel path {kt[worst_rule]} "
+          f"from the fp32 truth, more than twice the plain path's "
+          f"{pt[worst_rule]} + 1e-3")
+    return info
+
+
 def main():
     import torch
 
@@ -1402,8 +1907,35 @@ def main():
     launches.update(t_launches)
     emit("train", t_info)
     phase_train_plain(torch, *state[:2], *state[3:])
-    emit("train_profile", phase_train_profile(torch, state,
-                                              t_info["step_ms"] / 1e3))
+    emit("train_profile", phase_train_profile(
+        torch, lambda: train_step(*state), t_info["step_ms"] / 1e3))
+    del state
+    torch.cuda.empty_cache()
+
+    # --- the T5 slice ---------------------------------------------------------
+    t5_kernels = phase_t5_kernels(torch, dev)
+    for k in t5_kernels:
+        emit("kernel", k)
+    kernels += t5_kernels
+    torch.cuda.empty_cache()
+    # at the initial params, on a padded batch of the full 128 x (512, 114)
+    emit("t5_plain_path", phase_t5_plain(
+        torch, *t5_model(torch, dev, torch.bfloat16),
+        *t5_batch(torch, dev, T5_BATCH, seed=3), "initial (seed 0)", True))
+    torch.cuda.empty_cache()
+    t5_state, t5_info, t5_launches = phase_t5_train(torch, dev)
+    launches.update(t5_launches)
+    emit("t5_train", t5_info)
+    # at the params the timed steps left, on the same unpadded batch
+    enc, dec, tgt, _ = t5_batch(torch, dev, T5_BATCH, seed=1)
+    emit("t5_plain_path_trained", phase_t5_plain(
+        torch, *t5_state[:2], enc, dec, tgt, None,
+        f"after {T5_STEPS + 1} Adam steps", False))
+    torch.cuda.empty_cache()
+    emit("t5_padded", phase_t5_padded(torch, t5_state, dev))
+    emit("t5_profile", phase_train_profile(
+        torch, lambda: t5_step(*t5_state, enc, dec, tgt),
+        t5_info["step_ms"] / 1e3))
 
     for k in kernels:
         k["launches"] = launches[k["name"]]

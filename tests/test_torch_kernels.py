@@ -466,3 +466,106 @@ def test_decode_engine_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="verify rows"):
         vmod.fused_verify(logits, torch.zeros((1, 199), dtype=torch.int32,
                                               device=cuda))
+
+
+# --- the bh-flat flash kernels (T5 train step) --------------------------------
+
+def _flat_inputs(b, h, h_kv, sq, sk, d, dev, seed, views):
+    """bf16 q (b, h, sq, d), k/v (b, h_kv, sk, d), do: with ``views`` the
+    transposed (b, h, s, d) views of (b, s, heads·d) projection buffers,
+    as the T5 blocks pass them; else contiguous (b·h, s, d) rows."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev).bfloat16()  # noqa: E731,E501
+    if views:
+        q = rnd(b, sq, h * d).view(b, sq, h, d).transpose(1, 2)
+        kv = rnd(b, sk, 2 * h_kv * d)
+        k, v = (t.view(b, sk, h_kv, d).transpose(1, 2)
+                for t in kv.split(h_kv * d, -1))
+        do = rnd(b, sq, h * d).view(b, sq, h, d).transpose(1, 2)
+        return q, k, v, do
+    return (rnd(b * h, sq, d), rnd(b * h_kv, sk, d), rnd(b * h_kv, sk, d),
+            rnd(b * h, sq, d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,h_kv,sq,sk,d,causal,lens,rel,views", [
+    # the T5 step's three calls at small batch: encoder self (bidirectional
+    # buckets, padded keys), decoder self (causal buckets, tail 114),
+    # cross (114 x 512, padded keys, no bias)
+    (2, 4, 4, 512, 512, 64, False, [300, 512], (True, 128, 0, 0), True),
+    (2, 4, 4, 114, 114, 64, True, None, (False, 128, 0, 0), True),
+    (2, 4, 4, 114, 512, 64, False, [256, 512], None, True),
+    # the encoder self and cross calls of an unpadded batch, as the timed
+    # train steps make them: no kv_lens (and no bias on the cross call)
+    (2, 4, 4, 512, 512, 64, False, None, (True, 128, 0, 0), True),
+    (2, 4, 4, 114, 512, 64, False, None, None, True),
+    # a kv tile wholly past every length, a row of length 0, GQA, d 128
+    (2, 8, 2, 128, 256, 128, False, [0, 60], (True, 32, 0, 0), False),
+    # nonzero offsets past max_distance, causal sq < sk
+    (1, 4, 4, 100, 300, 64, True, None, (True, 40, 500, 320), True),
+    (3, 2, 1, 77, 77, 128, False, [77, 1, 40], (False, 40, 0, 0), False),
+])
+def test_flash_flat_kernels_match_plain(cuda, b, h, h_kv, sq, sk, d, causal,
+                                        lens, rel, views):
+    q, k, v, do = _flat_inputs(b, h, h_kv, sq, sk, d, cuda, seed=sq + sk + d,
+                               views=views)
+    kv_lens = (None if lens is None else torch.tensor(
+        np.repeat(lens, h), dtype=torch.int32, device=cuda))
+    bias = None
+    if rel is not None:
+        g = torch.Generator(device=cuda).manual_seed(3)
+        table = torch.randn((32, h), generator=g, device=cuda) * 0.5
+        bias = amod.BucketedBias(table, *rel)
+    kw = dict(scale=d ** -0.5, causal=causal, kv_lens=kv_lens, rel_bias=bias)
+    up = lambda ts: [t.float() for t in ts]  # noqa: E731
+    before = (amod.flash_fwd_flat_cuda.launches,
+              amod.flash_bwd_flat_dkv_cuda.launches,
+              amod.flash_bwd_flat_dkv_cuda.table_launches,
+              amod.flash_bwd_flat_dq_cuda.launches)
+    o, lse = amod.flash_fwd(q, k, v, **kw)
+    o_p, lse_p = amod.flash_fwd(q, k, v, impl="torch", **kw)
+    o_t, lse_t = amod.flash_fwd(*up((q, k, v)), impl="torch", **kw)
+    assert o.shape == q.shape and lse.shape == lse_p.shape
+    for name, got, p, t in (("o", o, o_p, o_t), ("lse", lse, lse_p, lse_t)):
+        ok, errs = _within_rule(got, p, t)
+        assert ok, f"flat fwd {name}: kernel/plain errors {errs}"
+    if lens is not None and 0 in lens:
+        dead = (kv_lens == 0)
+        assert not o.reshape(b * h, sq, d)[dead].float().any()
+        assert not lse[dead].any()
+    grads = amod.flash_bwd(q, k, v, o_p, lse_p, do, **kw)
+    plain = amod.flash_bwd(q, k, v, o_p, lse_p, do, impl="torch", **kw)
+    truth = amod.flash_bwd(*up((q, k, v, o_p)), lse_p, do.float(),
+                           impl="torch", **kw)
+    torch.cuda.synchronize()
+    after = (amod.flash_fwd_flat_cuda.launches,
+             amod.flash_bwd_flat_dkv_cuda.launches,
+             amod.flash_bwd_flat_dkv_cuda.table_launches,
+             amod.flash_bwd_flat_dq_cuda.launches)
+    assert after == (before[0] + 1, before[1] + 1,
+                     before[2] + (bias is not None), before[3] + 1)
+    for name, got, p, t in zip(("dq", "dk", "dv"), grads, plain, truth):
+        assert got.shape == p.shape and torch.isfinite(got.float()).all()
+        ok, errs = _within_rule(got, p, t)
+        assert ok, f"flat bwd {name}: kernel/plain errors {errs}"
+    if bias is None:
+        assert grads[3] is None
+    else:
+        err = (grads[3] - plain[3]).norm() / plain[3].norm()
+        assert err <= 1e-3, f"dtable rel norm err {err}"
+
+
+@pytest.mark.gpu
+def test_flash_flat_kernels_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros((2, 64, 64), device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        amod.flash_fwd(q, q, q, scale=1.0, causal=False)
+    qb = q.bfloat16()
+    with pytest.raises(ValueError, match="max_distance"):
+        amod.flash_fwd(qb, qb, qb, scale=1.0, causal=False,
+                       rel_bias=amod.BucketedBias(
+                           torch.zeros((32, 2), device=cuda),
+                           max_distance=5000))
+    with pytest.raises(ValueError, match="kv_lens"):
+        amod.flash_fwd(qb, qb, qb, scale=1.0, causal=False,
+                       kv_lens=torch.ones(2, dtype=torch.int64, device=cuda))
