@@ -1,7 +1,8 @@
 // Flash-attention backward for Hopper (sm_90a): a dK/dV kernel and a dQ
-// kernel, over the packed q|k|v buffer of the GPT train step and over the
-// bh-flat (b, h, s, d) views of the T5 train step; the dK/dV kernel also
-// computes the bucket-table gradient of the relative bias.
+// kernel, over the packed q|k|v buffer of the GPT train step, the bh-flat
+// (b, h, s, d) views of the T5 train step and the seq-major (b, s, h, d)
+// q/k/v of the BERT train step; the dK/dV kernel also computes the
+// bucket-table gradient of the relative bias.
 //
 // Replaces apex_tpu/ops/pallas/attention.py::flash_bwd_packed (:592-775):
 // all three of its Pallas call sites -- the single-block body
@@ -16,19 +17,27 @@
 // _dtable_pallas (:1212; body _bwd_dtable_kernel, :1114-1203), a third
 // pass that recomputes dS with both products per tile to sum it by bucket.
 // Here dS already sits in the dK/dV kernel's registers: the table
-// gradient costs no third pass and no extra launch.
+// gradient costs no third pass and no extra launch. And replaces
+// ::flash_bwd_bshd (:1395-1530), its dQ (:1455) and dK/dV (:1486) calls,
+// with per-batch kv_lens and the array bias (whose gradient is
+// flash_attn_dbias.cu's); the reference's per-q-head fp32 dK/dV partials
+// summed outside (:1473-1511) are summed over the group in-kernel here.
 //
 // Entries: apex_flash_bwd_dkv / apex_flash_bwd_dq (packed): qkv (b, s,
 // (h + 2*h_kv)*d), o and do (b, s, h*d), lse (b, h, s) -> dq (b, s, h*d),
 // dk and dv (b, s, h_kv*d). apex_flash_bwd_flat_dkv / _dq: q, k, v, o,
 // do, dq, dk and dv as (batch, head, row)-strided views
 // (flash_params.cuh), sq != sk with bottom-right causal alignment, and the
-// forward's compile-time options kVarlen and kRel. All bf16 with fp32 lse.
-// The two families are separate kernels of one design: one templated body
-// with the packed layout as a compile-time case ran the packed pair slower
-// on an H100 than these kernels do (timed in turns in one call), where
-// sharing the forward's body cost nothing once its pointers and scalars
-// were locals.
+// forward's compile-time options kVarlen, kRel and kArr (the array bias,
+// read from device memory per score), and kv_lens read at bi * lens_b +
+// hi * lens_h; the seq-major (b, s, h, d) tensors go through the same
+// entries as the flat layout's head-stride-d case with per-batch kv_lens
+// (lens_b = 1, lens_h = 0). All bf16 with fp32 lse.
+// The packed and the strided families are separate kernels of one design:
+// one templated body with the packed layout as a compile-time case ran the
+// packed pair slower on an H100 than these kernels do (timed in turns in
+// one call), where sharing the forward's body cost nothing once its
+// pointers and scalars were locals.
 //
 // Bound on this card at the GPT train step's shape (b 20, s 1024, h 8,
 // d 128, causal): operations. The backward does 2.5x the forward's products
@@ -98,32 +107,7 @@ constexpr size_t dq_smem_bytes() {
          2 * kBq * sizeof(float);
 }
 
-// rowsum(do * o) in fp32 over D elements, THREADS_PER_ROW threads per row
-// (neighbouring lanes), each reading D / THREADS_PER_ROW elements in
-// 16-byte loads
-template <int D, int THREADS_PER_ROW>
-__device__ __forceinline__ float row_delta(const bf16* dorow, const bf16* orow,
-                                           int part) {
-  constexpr int kPer = D / THREADS_PER_ROW;
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < kPer; i += 8) {
-    const uint4 a = *reinterpret_cast<const uint4*>(dorow + part * kPer + i);
-    const uint4 b = *reinterpret_cast<const uint4*>(orow + part * kPer + i);
-    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
-    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 x = __bfloat1622float2(a2[k]);
-      const float2 y = __bfloat1622float2(b2[k]);
-      acc += x.x * y.x + x.y * y.y;
-    }
-  }
-#pragma unroll
-  for (int o = 1; o < THREADS_PER_ROW; o <<= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, o);
-  return acc;
-}
+using apex::row_delta;
 
 // --- the packed kernels -------------------------------------------------------
 
@@ -512,7 +496,7 @@ __device__ void flush_bins(const FlashParams& p, float* bins, float* bsum,
   }
 }
 
-template <int D, bool kVarlen, bool kRel>
+template <int D, bool kVarlen, bool kRel, bool kArr>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_flat_dkv_kernel(const FlashParams p) {
   const long long q_h = p.q_v.h, kv_b = p.kv_v.b, kv_h = p.kv_v.h;
@@ -527,6 +511,7 @@ __global__ void __launch_bounds__(kThreads)
   const bf16* __restrict__ pdo = p.dout;
   const float* __restrict__ plse = p.lse;
   const int* __restrict__ kv_lens = p.kv_lens;
+  const float* __restrict__ pbias = p.bias;
   const apex::View q_v = p.q_v, o_v = p.o_v, do_v = p.do_v;
   const float scale = p.scale;
   const int causal = p.causal, h = p.h, h_kv = p.h_kv;
@@ -554,11 +539,10 @@ __global__ void __launch_bounds__(kThreads)
   const int k0 = blockIdx.y * kBkv;
   const bf16* kg = pk + bi * kv_b + kvh * kv_h;
   const bf16* vg = pv + bi * kv_b + kvh * kv_h;
-  const int row_base = bi * h + kvh * group;  // q row of group member 0
-
   // the group's query heads whose kv length reaches this tile
   auto live = [&](int i) {
-    return !kVarlen || k0 < min(sk, kv_lens[row_base + i]);
+    return !kVarlen || k0 < apex::kv_len(kv_lens, bi, kvh * group + i,
+                                         p.lens_b, p.lens_h, sk);
   };
   int nlive = group;
   if (kVarlen) {
@@ -618,7 +602,9 @@ __global__ void __launch_bounds__(kThreads)
     const int head = kvh * group + nth_live(it / per);
     const int row = bi * h + head;
     const int q0 = tile_q0(it);
-    const int kv_lim = kVarlen ? min(sk, kv_lens[row]) : sk;
+    const int kv_lim =
+        kVarlen ? apex::kv_len(kv_lens, bi, head, p.lens_b, p.lens_h, sk)
+                : sk;
     if (kRel && head != cur_head) {
       // the previous iteration ended in __syncthreads(): its bin updates
       // are done and nothing reads the lookup any more
@@ -698,6 +684,7 @@ __global__ void __launch_bounds__(kThreads)
             qc < sq && kr < kv_lim && (!causal || kr <= qc + coff);
         float x = st[nt][c] * scale;
         if (kRel) x += lut_s[apex::rel_index(kr, qc, rel_off, maxd)];
+        if (kArr) x += apex::bias_at(pbias, row, p.hb, sq, sk, qc, kr);
         const float pr = ok ? expf(x - lse_s[ql]) : 0.f;
         st[nt][c] = pr;
         const float ds = pr * (dpt[nt][c] - delta_s[ql]);
@@ -783,7 +770,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D, bool kVarlen, bool kRel>
+template <int D, bool kVarlen, bool kRel, bool kArr>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_flat_dq_kernel(const FlashParams p) {
   const long long q_h = p.q_v.h, kv_b = p.kv_v.b, kv_h = p.kv_v.h;
@@ -796,6 +783,7 @@ __global__ void __launch_bounds__(kThreads)
   const bf16* __restrict__ pdo = p.dout;
   const float* __restrict__ plse = p.lse;
   bf16* __restrict__ pdq = p.out;
+  const float* __restrict__ pbias = p.bias;
   const float scale = p.scale;
   const int causal = p.causal, h = p.h, h_kv = p.h_kv;
   const int maxd = p.maxd, rel_off = p.rel_off;
@@ -822,7 +810,8 @@ __global__ void __launch_bounds__(kThreads)
   const bf16* dog = pdo + bi * p.do_v.b + head * p.do_v.h;
 
   int kv_lim = sk;
-  if (kVarlen) kv_lim = min(sk, max(p.kv_lens[row_id], 0));
+  if (kVarlen) kv_lim = apex::kv_len(p.kv_lens, bi, head, p.lens_b, p.lens_h,
+                                     sk);
   const int kv_end = causal ? min(kv_lim, q0 + kBq + coff) : kv_lim;
   const int nk = (kv_end + kBk - 1) / kBk;
 
@@ -914,6 +903,7 @@ __global__ void __launch_bounds__(kThreads)
             qr < sq && kc < kv_lim && (!causal || kc <= qr + coff);
         float x = sc[nt][c] * scale;
         if (kRel) x += lut_s[apex::rel_index(kc, qr, rel_off, maxd)];
+        if (kArr) x += apex::bias_at(pbias, row_id, p.hb, sq, sk, qr, kc);
         const float pr = ok ? expf(x - lse_s[rl]) : 0.f;
         dp[nt][c] = pr * (dp[nt][c] - delta_s[rl]) * scale;
       }
@@ -953,46 +943,52 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D, bool kVarlen, bool kRel>
+template <int D, bool kVarlen, bool kRel, bool kArr>
 cudaError_t launch_flat_dkv(const FlashParams& p, int b, cudaStream_t stream) {
   size_t smem = dkv_smem_bytes<D>();
   if (kRel)
     smem += align16((4 * 16 * kDsLd + 2 * (2 * p.maxd + 1) + kMaxBuckets) *
                     sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_flat_dkv_kernel<D, kVarlen, kRel>,
+      flash_bwd_flat_dkv_kernel<D, kVarlen, kRel, kArr>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(b * p.h_kv, (p.sk + kBkv - 1) / kBkv);
-  flash_bwd_flat_dkv_kernel<D, kVarlen, kRel>
+  flash_bwd_flat_dkv_kernel<D, kVarlen, kRel, kArr>
       <<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D, bool kVarlen, bool kRel>
+template <int D, bool kVarlen, bool kRel, bool kArr>
 cudaError_t launch_flat_dq(const FlashParams& p, int b, cudaStream_t stream) {
   size_t smem = dq_smem_bytes<D>();
   if (kRel) smem += align16((2 * p.maxd + 1) * sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_flat_dq_kernel<D, kVarlen, kRel>,
+      flash_bwd_flat_dq_kernel<D, kVarlen, kRel, kArr>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(b * p.h, (p.sq + kBq - 1) / kBq);
-  flash_bwd_flat_dq_kernel<D, kVarlen, kRel>
+  flash_bwd_flat_dq_kernel<D, kVarlen, kRel, kArr>
       <<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 // one launcher per kernel over the options the arguments ask for
+template <int D, bool kDkv, bool kVarlen>
+cudaError_t dispatch_bias(const FlashParams& p, int b, cudaStream_t st) {
+#define APEX_LAUNCH(R, A)                                 \
+  (kDkv ? launch_flat_dkv<D, kVarlen, R, A>(p, b, st) \
+        : launch_flat_dq<D, kVarlen, R, A>(p, b, st))
+  if (p.lut != nullptr) return APEX_LAUNCH(true, false);
+  if (p.bias != nullptr) return APEX_LAUNCH(false, true);
+  return APEX_LAUNCH(false, false);
+#undef APEX_LAUNCH
+}
+
 template <int D, bool kDkv>
 cudaError_t dispatch(const FlashParams& p, int b, cudaStream_t st) {
-  const bool varlen = p.kv_lens != nullptr;
-  const bool rel = p.lut != nullptr;
-#define APEX_LAUNCH(V, R) \
-  (kDkv ? launch_flat_dkv<D, V, R>(p, b, st) : launch_flat_dq<D, V, R>(p, b, st))
-  if (varlen) return rel ? APEX_LAUNCH(true, true) : APEX_LAUNCH(true, false);
-  return rel ? APEX_LAUNCH(false, true) : APEX_LAUNCH(false, false);
-#undef APEX_LAUNCH
+  return p.kv_lens != nullptr ? dispatch_bias<D, kDkv, true>(p, b, st)
+                              : dispatch_bias<D, kDkv, false>(p, b, st);
 }
 
 template <bool kDkv>
@@ -1002,6 +998,8 @@ int run(int d, const FlashParams& p, int b, void* stream) {
       (p.sq + kBqStep - 1) / kBqStep > 65535 ||
       (p.sk + kBkv - 1) / kBkv > 65535 || (p.causal && p.sq > p.sk) ||
       static_cast<long long>(b) * p.h > 0x7fffffffLL ||
+      (p.lut != nullptr && p.bias != nullptr) ||
+      (p.bias != nullptr && p.hb < 1) ||
       (p.lut != nullptr &&
        (p.maxd < 1 || p.maxd > 4096 || p.hb < 1 || p.nb < 1 ||
         p.nb > kMaxBuckets || (kDkv && (!p.bucket || !p.dtab)))))
@@ -1018,9 +1016,9 @@ int run(int d, const FlashParams& p, int b, void* stream) {
 bool flat_params(FlashParams& p, const void* q, const void* k, const void* v,
                  const void* o, const void* dout, const void* lse,
                  const void* kv_lens, const void* lut, const void* bucket,
-                 const long long* strides, int h, int h_kv, int sq, int sk,
-                 int causal, float scale, int maxd, int rel_off, int hb,
-                 int nb) {
+                 const void* bias, const long long* strides, int h, int h_kv,
+                 int sq, int sk, int causal, float scale, int maxd,
+                 int rel_off, int hb, int nb, int lens_b, int lens_h) {
   for (int i = 0; i < 15; ++i)
     if (strides[i] < 0 || strides[i] % 8) return false;
   p.q = static_cast<const bf16*>(q);
@@ -1032,6 +1030,7 @@ bool flat_params(FlashParams& p, const void* q, const void* k, const void* v,
   p.kv_lens = static_cast<const int*>(kv_lens);
   p.lut = static_cast<const float*>(lut);
   p.bucket = static_cast<const int*>(bucket);
+  p.bias = static_cast<const float*>(bias);
   p.q_v = {strides[0], strides[1], strides[2]};
   p.kv_v = {strides[3], strides[4], strides[5]};
   p.o_v = {strides[6], strides[7], strides[8]};
@@ -1047,6 +1046,8 @@ bool flat_params(FlashParams& p, const void* q, const void* k, const void* v,
   p.rel_off = rel_off;
   p.hb = hb;
   p.nb = nb;
+  p.lens_b = lens_b;
+  p.lens_h = lens_h;
   return true;
 }
 
@@ -1084,17 +1085,22 @@ extern "C" int apex_flash_bwd_dq(const void* qkv, const void* o,
 }
 
 // dk, dv (b, h_kv, sk, d) and, with a lut, the bucket-table gradient
-// added into dtab (hb, nb) fp32, which the caller zeroes on the stream
+// added into dtab (hb, nb) fp32, which the caller zeroes on the stream;
+// bias (hb, sq, sk) fp32 or null (at most one of lut and bias); kv_lens
+// int32 at bi * lens_b + hi * lens_h, or null. A seq-major (bshd) tensor
+// is the head-stride-d case of these views, with per-batch kv_lens
+// (lens_b = 1, lens_h = 0).
 extern "C" int apex_flash_bwd_flat_dkv(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dk, void* dv, void* dtab,
     const void* kv_lens, const void* lut, const void* bucket,
-    const long long* strides, int b, int h, int h_kv, int sq, int sk, int d,
-    int causal, float scale, int maxd, int rel_off, int hb, int nb,
-    void* stream) {
+    const void* bias, const long long* strides, int b, int h, int h_kv,
+    int sq, int sk, int d, int causal, float scale, int maxd, int rel_off,
+    int hb, int nb, int lens_b, int lens_h, void* stream) {
   FlashParams p{};
-  if (!flat_params(p, q, k, v, o, dout, lse, kv_lens, lut, bucket, strides,
-                   h, h_kv, sq, sk, causal, scale, maxd, rel_off, hb, nb))
+  if (!flat_params(p, q, k, v, o, dout, lse, kv_lens, lut, bucket, bias,
+                   strides, h, h_kv, sq, sk, causal, scale, maxd, rel_off, hb,
+                   nb, lens_b, lens_h))
     return static_cast<int>(cudaErrorInvalidValue);
   p.dk = static_cast<bf16*>(dk);
   p.dv = static_cast<bf16*>(dv);
@@ -1105,12 +1111,13 @@ extern "C" int apex_flash_bwd_flat_dkv(
 extern "C" int apex_flash_bwd_flat_dq(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, const void* kv_lens,
-    const void* lut, const long long* strides, int b, int h, int h_kv,
-    int sq, int sk, int d, int causal, float scale, int maxd, int rel_off,
-    int hb, void* stream) {
+    const void* lut, const void* bias, const long long* strides, int b,
+    int h, int h_kv, int sq, int sk, int d, int causal, float scale,
+    int maxd, int rel_off, int hb, int lens_b, int lens_h, void* stream) {
   FlashParams p{};
-  if (!flat_params(p, q, k, v, o, dout, lse, kv_lens, lut, nullptr, strides,
-                   h, h_kv, sq, sk, causal, scale, maxd, rel_off, hb, 1))
+  if (!flat_params(p, q, k, v, o, dout, lse, kv_lens, lut, nullptr, bias,
+                   strides, h, h_kv, sq, sk, causal, scale, maxd, rel_off, hb,
+                   1, lens_b, lens_h))
     return static_cast<int>(cudaErrorInvalidValue);
   p.out = static_cast<bf16*>(dq);
   return run<false>(d, p, b, stream);

@@ -12,15 +12,19 @@
 //   pointer, feature offset and row stride: no slice, no copy.
 // * apex_flash_fwd_bshd: q (b, sq, h, d), k and v (b, sk, h_kv, d), each
 //   with its own row stride, and bottom-right causal alignment: row r sees
-//   columns c <= r + (sk - sq).
+//   columns c <= r + (sk - sq); per-BATCH kv_lens (b,) and the array bias.
 // * apex_flash_fwd_flat: q (b, h, sq, d), k and v (b, h_kv, sk, d) and o,
 //   each with its own batch, head and row strides (flash_params.cuh), so
 //   the transposed (b, h, s, d) views of a projection output need no copy;
-//   with the two compile-time options of _fwd_kernel: kVarlen (columns
-//   >= kv_lens[row] masked, kv tiles wholly past the length skipped, a
-//   row of length 0 gives o = 0 and lse = 0 as :284-291) and kRel (the
-//   bucketed relative bias added to the SCALED scores before the masks,
-//   :256-267).
+//   per-row kv_lens (b*h,).
+// The strided entries take the compile-time options of _fwd_kernel:
+// kVarlen (columns >= the row's kv length masked, kv tiles wholly past
+// the length skipped, a row of length 0 gives o = 0 and lse = 0 as
+// :284-291), kRel (the bucketed relative bias, :256-267) and kArr (the
+// fp32 (hb, sq, sk) array bias, read straight from device memory: one
+// bias row serves every batch row of its head, so it sits in the L2 and
+// is not staged through shared memory). Either bias is added to the
+// SCALED scores before the masks.
 // All: query head t reads kv head t / (h / h_kv); outputs o bf16 and the
 // fp32 log-normaliser lse (b*h, sq) (the reference's 8-lane lse carrier
 // is a TPU layout rule; here the plain rows).
@@ -44,7 +48,8 @@
 //   fp32 accumulate); the score accumulators, rounded to bf16, are reused
 //   in registers as the A operand of P.V.
 // * kRel: the head's 2*maxd + 1 lookup values sit in shared memory; each
-//   score adds lut[clamp(col - row + k_off - q_off)].
+//   score adds lut[clamp(col - row + k_off - q_off)]. kArr: each score
+//   adds bias[r % hb][row][col] (fp32 loads through the read-only path).
 // * the rounding points of _fwd_kernel (:251-297): scores fp32 then *scale;
 //   masked entries -1e30; an online row max; p = exp(s - m) in fp32; l sums
 //   the UNROUNDED p; acc += p.to(bf16) . v in fp32; o = acc / max(l, 1e-30);
@@ -76,9 +81,9 @@ constexpr size_t tile_smem_bytes() {
 // packed instantiation takes k's and v's strides and lengths from q's, o's
 // layout from h, and a zero causal offset as compile-time facts, so its
 // code is the packed-only kernel's (with them at run time the packed
-// forward ran ~10% slower on an H100). kVarlen and kRel exist only with
-// kStrided.
-template <int D, bool kStrided, bool kVarlen, bool kRel>
+// forward ran ~10% slower on an H100). kVarlen, kRel and kArr exist only
+// with kStrided; kRel and kArr exclude each other.
+template <int D, bool kStrided, bool kVarlen, bool kRel, bool kArr>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const FlashParams p) {
   // locals, not the struct's fields, in the body: restrict-qualified
@@ -89,6 +94,7 @@ __global__ void __launch_bounds__(kThreads)
   const bf16* __restrict__ pv = p.v;
   bf16* __restrict__ pout = p.out;
   float* __restrict__ plse = p.lse_out;
+  const float* __restrict__ pbias = p.bias;
   const float scale = p.scale;
   const int causal = p.causal;
   const int maxd = p.maxd;
@@ -117,7 +123,8 @@ __global__ void __launch_bounds__(kThreads)
   const bf16* vg = pv + bi * kv_b + kvh * kv_h;
 
   int kv_lim = sk;  // columns >= kv_lim are masked
-  if (kVarlen) kv_lim = min(sk, max(p.kv_lens[row_id], 0));
+  if (kVarlen) kv_lim = apex::kv_len(p.kv_lens, bi, head, p.lens_b, p.lens_h,
+                                     sk);
   const int kv_end = causal ? min(kv_lim, q0 + kBq + off) : kv_lim;
   const int nk = (kv_end + kBk - 1) / kBk;
 
@@ -204,6 +211,9 @@ __global__ void __launch_bounds__(kThreads)
         if (kRel)
           x += lut_s[apex::rel_index(col, row0 + (c >> 1) * 8, rel_off,
                                      maxd)];
+        if (kArr)
+          x += apex::bias_at(pbias, row_id, p.hb, sq, sk,
+                             row0 + (c >> 1) * 8, col);
         const float v = ok ? x : kNegInf;
         sc[nt][c] = v;
         mx[c >> 1] = fmaxf(mx[c >> 1], v);
@@ -285,31 +295,35 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D, bool kStrided, bool kVarlen, bool kRel>
+template <int D, bool kStrided, bool kVarlen, bool kRel, bool kArr>
 cudaError_t launch(const FlashParams& p, int b, cudaStream_t stream) {
   size_t smem = tile_smem_bytes<D>();
   if (kRel) smem += (static_cast<size_t>(2 * p.maxd + 1) * 4 + 15) & ~15ull;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, kStrided, kVarlen, kRel>,
+      flash_fwd_kernel<D, kStrided, kVarlen, kRel, kArr>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(b * p.h, (p.sq + kBq - 1) / kBq);
-  flash_fwd_kernel<D, kStrided, kVarlen, kRel>
+  flash_fwd_kernel<D, kStrided, kVarlen, kRel, kArr>
       <<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int D, bool kVarlen>
+cudaError_t dispatch_bias(const FlashParams& p, int b, cudaStream_t st) {
+  if (p.lut != nullptr)
+    return launch<D, true, kVarlen, true, false>(p, b, st);
+  if (p.bias != nullptr)
+    return launch<D, true, kVarlen, false, true>(p, b, st);
+  return launch<D, true, kVarlen, false, false>(p, b, st);
 }
 
 template <int D>
 cudaError_t dispatch(const FlashParams& p, int b, bool strided,
                      cudaStream_t st) {
-  if (!strided) return launch<D, false, false, false>(p, b, st);
-  const bool varlen = p.kv_lens != nullptr;
-  const bool rel = p.lut != nullptr;
-  if (varlen)
-    return rel ? launch<D, true, true, true>(p, b, st)
-               : launch<D, true, true, false>(p, b, st);
-  return rel ? launch<D, true, false, true>(p, b, st)
-             : launch<D, true, false, false>(p, b, st);
+  if (!strided) return launch<D, false, false, false, false>(p, b, st);
+  return p.kv_lens != nullptr ? dispatch_bias<D, true>(p, b, st)
+                              : dispatch_bias<D, false>(p, b, st);
 }
 
 // the shared argument rules; d picks the compiled head dim
@@ -318,7 +332,9 @@ int run(int d, const FlashParams& p, int b, bool strided, void* stream) {
       p.h % p.h_kv || (d != 64 && d != 128) ||
       (p.sq + kBq - 1) / kBq > 65535 || (p.causal && p.sq > p.sk) ||
       static_cast<long long>(b) * p.h > 0x7fffffffLL ||
-      (p.lut != nullptr && (p.maxd < 1 || p.maxd > 4096 || p.hb < 1)))
+      (p.lut != nullptr && p.bias != nullptr) ||
+      ((p.lut != nullptr || p.bias != nullptr) && p.hb < 1) ||
+      (p.lut != nullptr && (p.maxd < 1 || p.maxd > 4096)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
@@ -351,15 +367,18 @@ extern "C" int apex_flash_fwd(const void* qkv, void* out, void* lse, int b,
 
 // q (b, sq, h, d) and k, v (b, sk, h_kv, d) with unit head and feature
 // strides; the batch and row strides are the caller's (k and v share
-// theirs), so views into a larger buffer need no copy
+// theirs), so views into a larger buffer need no copy. kv_lens (b,) int32
+// per batch or null; bias (hb, sq, sk) fp32 with hb | h, or null.
 extern "C" int apex_flash_fwd_bshd(const void* q, const void* k,
                                    const void* v, void* out, void* lse,
+                                   const void* kv_lens, const void* bias,
                                    long long q_bstride, long long kv_bstride,
                                    int q_stride, int kv_stride, int b, int sq,
                                    int sk, int h, int h_kv, int d, int causal,
-                                   float scale, void* stream) {
+                                   float scale, int hb, void* stream) {
   if (q_bstride < 0 || kv_bstride < 0 || q_stride < h * d ||
-      kv_stride < h_kv * d || q_stride % 8 || kv_stride % 8)
+      kv_stride < h_kv * d || q_stride % 8 || kv_stride % 8 ||
+      (bias != nullptr && (hb < 1 || h % hb)))
     return static_cast<int>(cudaErrorInvalidValue);
   FlashParams p{};
   p.q = static_cast<const bf16*>(q);
@@ -367,6 +386,8 @@ extern "C" int apex_flash_fwd_bshd(const void* q, const void* k,
   p.v = static_cast<const bf16*>(v);
   p.out = static_cast<bf16*>(out);
   p.lse_out = static_cast<float*>(lse);
+  p.kv_lens = static_cast<const int*>(kv_lens);
+  p.bias = static_cast<const float*>(bias);
   p.q_v = {q_bstride, d, q_stride};
   p.kv_v = {kv_bstride, d, kv_stride};
   p.out_v = {static_cast<long long>(sq) * h * d, d,
@@ -377,6 +398,9 @@ extern "C" int apex_flash_fwd_bshd(const void* q, const void* k,
   p.h_kv = h_kv;
   p.causal = causal;
   p.scale = scale;
+  p.hb = hb;
+  p.lens_b = 1;  // per batch: the heads share a row's padding
+  p.lens_h = 0;
   return run(d, p, b, true, stream);
 }
 
@@ -386,10 +410,12 @@ extern "C" int apex_flash_fwd_bshd(const void* q, const void* k,
 // every stride a multiple of 8 elements, so every row is 16-byte
 // aligned); lse (b*h, sq) fp32. kv_lens (b*h,) int32 or
 // null; lut (hb, 2*maxd + 1) fp32 or null, row r reading lut row r % hb,
-// with rel_off = k_offset - q_offset.
+// with rel_off = k_offset - q_offset; or bias (hb, sq, sk) fp32 or null,
+// row r reading bias row r % hb (at most one of lut and bias).
 extern "C" int apex_flash_fwd_flat(const void* q, const void* k,
                                    const void* v, void* out, void* lse,
                                    const void* kv_lens, const void* lut,
+                                   const void* bias,
                                    const long long* strides, int b, int h,
                                    int h_kv, int sq, int sk, int d,
                                    int causal, float scale, int maxd,
@@ -405,9 +431,12 @@ extern "C" int apex_flash_fwd_flat(const void* q, const void* k,
   p.lse_out = static_cast<float*>(lse);
   p.kv_lens = static_cast<const int*>(kv_lens);
   p.lut = static_cast<const float*>(lut);
+  p.bias = static_cast<const float*>(bias);
   p.q_v = {strides[0], strides[1], strides[2]};
   p.kv_v = {strides[3], strides[4], strides[5]};
   p.out_v = {strides[6], strides[7], strides[8]};
+  p.lens_b = h;  // per row
+  p.lens_h = 1;
   p.sq = sq;
   p.sk = sk;
   p.h = h;

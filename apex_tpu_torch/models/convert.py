@@ -6,7 +6,9 @@ import here), :func:`params_from_jax` unstacks them into the port's list
 of per-layer dicts, and :func:`params_to_jax` stacks the port's params (or
 gradients, which share their layout) back into the reference's tree.
 :func:`t5_params_from_jax` and :func:`t5_params_to_jax` do the same for
-``EncoderDecoderModel``'s stacked ``encoder`` and ``decoder``.
+``EncoderDecoderModel``'s stacked ``encoder`` and ``decoder``, and
+:func:`bert_params_from_jax` and :func:`bert_params_to_jax` for
+``BertModel``'s stacked ``layers``.
 Weights keep their ``(out, in)`` layout, which is already PyTorch's. The
 tests feed both packages the same weights this way, and compare gradients
 and optimizer state leaf by leaf.
@@ -19,6 +21,7 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
+from apex_tpu_torch.models.bert import BertConfig
 from apex_tpu_torch.models.gpt import GPTConfig
 from apex_tpu_torch.models.t5 import DEC_LAYER, ENC_LAYER, T5Config
 from apex_tpu_torch.ops import _backend
@@ -190,4 +193,94 @@ def t5_params_to_jax(params: Dict[str, object],
         for k, t in out[stack].items():
             _expect(f"{stack}.{k}", t, (n, *shapes[f"{stack}.{k}"]),
                     "T5Config")
+    return out
+
+
+def _bert_shapes(c: BertConfig) -> Dict[str, tuple]:
+    """Every leaf's shape: top-level names, then ``layers.*`` per layer."""
+    H, Fh = c.hidden_size, c.ffn
+    return {
+        "embedding.weight": (c.vocab_size, H),
+        "pos_embedding": (c.max_seq_len, H),
+        "type_embedding": (c.num_token_types, H),
+        "ln_emb_w": (H,), "ln_emb_b": (H,),
+        "pooler_w": (H, H), "pooler_b": (H,),
+        "layers.qkv.weight": (3 * H, H), "layers.qkv.bias": (3 * H,),
+        "layers.attn_out.weight": (H, H), "layers.attn_out.bias": (H,),
+        "layers.ln1_w": (H,), "layers.ln1_b": (H,),
+        "layers.mlp_up.weight": (Fh, H), "layers.mlp_up.bias": (Fh,),
+        "layers.mlp_down.weight": (H, Fh), "layers.mlp_down.bias": (H,),
+        "layers.ln2_w": (H,), "layers.ln2_b": (H,),
+    }
+
+
+def _leaf(tree, dotted: str):
+    for part in dotted.split("."):
+        tree = tree[part]
+    return tree
+
+
+def bert_params_from_jax(tree: Dict, config: BertConfig, *,
+                         device: Optional[Union[str, torch.device]] = None
+                         ) -> Dict[str, object]:
+    """``BertModel.init``'s tree (numpy leaves, ``layers`` stacked
+    ``[num_layers, ...]``) → the port's parameter dict on ``device``
+    (default: the card), ``layers`` as a list of per-layer dicts. Every
+    shape is checked against ``config``."""
+    dev = _backend.resolve_device(device)
+    c = config
+    out: Dict[str, object] = {"embedding": {}, "layers": []}
+    stacked: Dict[str, torch.Tensor] = {}
+    for name, shape in _bert_shapes(c).items():
+        t = _tensor(_leaf(tree, name), dev)
+        if name.startswith("layers."):
+            _expect(name, t, (c.num_layers, *shape), "BertConfig")
+            stacked[name[len("layers."):]] = t
+        else:
+            _expect(name, t, shape, "BertConfig")
+            if name == "embedding.weight":
+                out["embedding"]["weight"] = t
+            else:
+                out[name] = t
+    for i in range(c.num_layers):
+        layer: Dict[str, object] = {}
+        for name, t in stacked.items():
+            mod, _, leaf = name.partition(".")
+            if leaf:
+                layer.setdefault(mod, {})[leaf] = t[i]
+            else:
+                layer[mod] = t[i]
+        out["layers"].append(layer)
+    return out
+
+
+def bert_params_to_jax(params: Dict[str, object],
+                       config: BertConfig) -> Dict[str, object]:
+    """The port's BERT parameter (or gradient) dict → the reference's
+    tree: numpy leaves, ``layers`` stacked ``[num_layers, ...]``. bf16
+    leaves come back as float32 (exact). Shapes are checked against
+    ``config``."""
+    c = config
+    layers = params["layers"]
+    if len(layers) != c.num_layers:
+        raise ValueError(f"expected {c.num_layers} layers for this "
+                         f"BertConfig, got {len(layers)}")
+    out: Dict[str, object] = {"embedding": {}, "layers": {}}
+    for name, shape in _bert_shapes(c).items():
+        if name.startswith("layers."):
+            sub = name[len("layers."):]
+            a = np.stack([_array(_leaf(lay, sub)) for lay in layers])
+            _expect(name, a, (c.num_layers, *shape), "BertConfig")
+            mod, _, leaf = sub.partition(".")
+            if leaf:
+                out["layers"].setdefault(mod, {})[leaf] = a
+            else:
+                out["layers"][mod] = a
+        else:
+            a = _array(_leaf(params, name))
+            _expect(name, a, shape, "BertConfig")
+            if name == "embedding.weight":
+                out["embedding"]["weight"] = a
+            else:
+                out[name] = a
     return out

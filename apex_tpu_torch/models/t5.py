@@ -14,10 +14,15 @@ Attention is always the reference's ``attention_impl="flash"`` route:
 projection output — on a CUDA tensor the hand-written kernels, with the
 encoder pad lengths as ``kv_lens`` (encoder self-attention and
 cross-attention) and, under ``position_encoding="relative"``, the
-per-stack bucket tables as a :class:`BucketedBias` (encoder bidirectional,
-decoder causal; cross-attention carries none). The bias enters the SCALED
-scores: this model keeps the 1/sqrt(d) scale that T5 itself omits
-(``:300-303``). ``remat=True`` recomputes each block in the backward
+per-stack bucket tables as the self-attention's bias (encoder
+bidirectional, decoder causal; cross-attention carries none): with
+``relative_bias_impl="bucketed"`` (the default) a :class:`BucketedBias`
+that the kernels expand per tile, with ``"materialized"`` (the
+reference's oracle of the bucketed path, ``t5.py:75-79``) the (h, sq, sk)
+fp32 array built by :func:`relative_bias`, whose gradient comes from the
+dbias kernel and flows through the gather into the table. The bias enters
+the SCALED scores: this model keeps the 1/sqrt(d) scale that T5 itself
+omits (``:300-303``). ``remat=True`` recomputes each block in the backward
 (``torch.utils.checkpoint``, non-reentrant: the reference's per-block
 ``jax.checkpoint``). The loss goes through the ported vocab-parallel
 cross-entropy (the ``xent_stats`` kernel) and ``masked_mean``.
@@ -26,10 +31,9 @@ Parameters are a plain dict in the reference's tree layout, except that
 ``encoder`` and ``decoder`` are lists of per-layer dicts instead of
 stacked leaves (:func:`apex_tpu_torch.models.convert.t5_params_from_jax`
 converts both ways). The reference's knobs with one working value here —
-``attention_impl`` (the softmax composition), ``relative_bias_impl``
-(``"materialized"`` needs the array-bias kernel ``_dbias_pallas``),
-``remat_policy`` (``"encode_only"``), ``tp_overlap``, ``plan`` — are not
-config fields yet, and the pipeline ``EncDecPipeline`` is a later slice.
+``attention_impl`` (the softmax composition), ``remat_policy``
+(``"encode_only"``), ``tp_overlap``, ``plan`` — are not config fields
+yet, and the pipeline ``EncDecPipeline`` is a later slice.
 """
 
 from __future__ import annotations
@@ -72,6 +76,10 @@ class T5Config:
     position_encoding: str = "learned"
     relative_num_buckets: int = 32
     relative_max_distance: int = 128
+    # "bucketed": the kernels expand the table per score tile;
+    # "materialized": the (h, sq, sk) array through the array-bias option
+    # and the dbias kernel — the reference's oracle of the bucketed path
+    relative_bias_impl: str = "bucketed"
 
     def __post_init__(self):
         if self.hidden_size % self.num_heads:
@@ -82,6 +90,10 @@ class T5Config:
             raise ValueError(
                 f"position_encoding must be learned|relative, got "
                 f"{self.position_encoding!r}")
+        if self.relative_bias_impl not in ("bucketed", "materialized"):
+            raise ValueError(
+                f"relative_bias_impl must be bucketed|materialized, got "
+                f"{self.relative_bias_impl!r}")
 
     @property
     def ffn(self) -> int:
@@ -190,10 +202,14 @@ class EncoderDecoderModel:
               impl: str = "auto"):
         """Flash attention on (b, h, s, d) views; ``kv_lens`` (b,) per-batch
         valid KEY lengths, expanded over the heads (which share a row's
-        padding)."""
+        padding). A materialised bias (1, h, sq, sk) goes to the kernels
+        as its (h, sq, sk) per-head form: row r of the b·h flatten reads
+        bias row r % h, its head."""
         lens = None
         if kv_lens is not None:
             lens = kv_lens.to(torch.int32)[:, None].expand(q.shape[:2])
+        if torch.is_tensor(bias):
+            bias = bias[0]
         return flash_attention(q, k, v, causal=causal, kv_lens=lens,
                                bias=bias, layout="bhsd", impl=impl)
 
@@ -243,20 +259,28 @@ class EncoderDecoderModel:
 
         return block
 
-    def _stack_bias(self, params, name, bidirectional):
+    def _stack_bias(self, params, name, sq, sk, bidirectional):
         c = self.config
         if c.position_encoding != "relative":
             return None
-        return BucketedBias(params[name], bidirectional=bidirectional,
-                            max_distance=c.relative_max_distance)
+        if c.relative_bias_impl == "bucketed":
+            return BucketedBias(params[name], bidirectional=bidirectional,
+                                max_distance=c.relative_max_distance)
+        return relative_bias(params[name].float(), sq, sk,
+                             bidirectional=bidirectional,
+                             num_buckets=c.relative_num_buckets,
+                             max_distance=c.relative_max_distance)
 
-    def enc_bias(self, params) -> Optional[BucketedBias]:
-        """The encoder self-attention's bias (bidirectional buckets), or
-        None under learned positions."""
-        return self._stack_bias(params, "rel_bias_enc", True)
+    def enc_bias(self, params, sq: int, sk: int
+                 ) -> Optional[Union[BucketedBias, torch.Tensor]]:
+        """The encoder self-attention's bias (bidirectional buckets): a
+        :class:`BucketedBias`, the materialised (1, h, sq, sk) fp32 array,
+        or None under learned positions."""
+        return self._stack_bias(params, "rel_bias_enc", sq, sk, True)
 
-    def dec_bias(self, params) -> Optional[BucketedBias]:
-        return self._stack_bias(params, "rel_bias_dec", False)
+    def dec_bias(self, params, sq: int, sk: int
+                 ) -> Optional[Union[BucketedBias, torch.Tensor]]:
+        return self._stack_bias(params, "rel_bias_dec", sq, sk, False)
 
     # --- forward --------------------------------------------------------------
 
@@ -277,7 +301,8 @@ class EncoderDecoderModel:
         kernels' ``kv_lens`` (padded query rows still compute, and nothing
         downstream reads them)."""
         x = self.embed(params, enc_tokens)
-        bias = self.enc_bias(params)
+        s = enc_tokens.shape[1]
+        bias = self.enc_bias(params, s, s)
         block = self._wrapped(self.encoder_block)
         for layer in params["encoder"]:
             x = block(layer, x, bias, enc_pad_lens, impl)
@@ -286,7 +311,8 @@ class EncoderDecoderModel:
     def decode(self, params, dec_tokens, enc_out, enc_pad_lens=None, *,
                impl: str = "auto"):
         x = self.embed(params, dec_tokens)
-        bias = self.dec_bias(params)
+        s = dec_tokens.shape[1]
+        bias = self.dec_bias(params, s, s)
         block = self._wrapped(self.decoder_block)
         for layer in params["decoder"]:
             x = block(layer, x, enc_out, bias, enc_pad_lens, impl)

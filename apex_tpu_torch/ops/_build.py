@@ -63,24 +63,30 @@ ENTRY_POINTS = {
                           _P],
     # logits, labels, m, l, t, row_sum, dtype, labels_int64, n, V, stream
     "apex_xent_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # q, k, v, out, lse, q_bstride, kv_bstride, q_stride, kv_stride, b, sq,
-    # sk, h, h_kv, d, causal, scale, stream
-    "apex_flash_fwd_bshd": [_P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _F, _P],
-    # q, k, v, out, lse, kv_lens, lut, strides (q, kv, o), b, h, h_kv, sq,
-    # sk, d, causal, scale, maxd, rel_off, hb, stream
-    "apex_flash_fwd_flat": [_P, _P, _P, _P, _P, _P, _P, _S, _I, _I, _I, _I,
-                            _I, _I, _I, _F, _I, _I, _I, _P],
-    # q, k, v, o, do, lse, dk, dv, dtab, kv_lens, lut, bucket, strides (q,
-    # kv, o, do, dk/dv), b, h, h_kv, sq, sk, d, causal, scale, maxd,
-    # rel_off, hb, nb, stream
+    # q, k, v, out, lse, kv_lens, bias, q_bstride, kv_bstride, q_stride,
+    # kv_stride, b, sq, sk, h, h_kv, d, causal, scale, hb, stream
+    "apex_flash_fwd_bshd": [_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, out, lse, kv_lens, lut, bias, strides (q, kv, o), b, h,
+    # h_kv, sq, sk, d, causal, scale, maxd, rel_off, hb, stream
+    "apex_flash_fwd_flat": [_P, _P, _P, _P, _P, _P, _P, _P, _S, _I, _I, _I,
+                            _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    # q, k, v, o, do, lse, dk, dv, dtab, kv_lens, lut, bucket, bias, strides
+    # (q, kv, o, do, dk/dv), b, h, h_kv, sq, sk, d, causal, scale, maxd,
+    # rel_off, hb, nb, lens_b, lens_h, stream
     "apex_flash_bwd_flat_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _P, _S, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                                _I, _I, _I, _P],
-    # q, k, v, o, do, lse, dq, kv_lens, lut, strides (q, kv, o, do, dq), b,
-    # h, h_kv, sq, sk, d, causal, scale, maxd, rel_off, hb, stream
-    "apex_flash_bwd_flat_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _S, _I,
-                               _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+                                _P, _P, _S, _I, _I, _I, _I, _I, _I, _I, _F,
+                                _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, o, do, lse, dq, kv_lens, lut, bias, strides (q, kv, o, do,
+    # dq), b, h, h_kv, sq, sk, d, causal, scale, maxd, rel_off, hb, lens_b,
+    # lens_h, stream
+    "apex_flash_bwd_flat_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _S,
+                               _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+                               _I, _I, _P],
+    # q, k, v, o, do, lse, bias, dbias, kv_lens, strides (q, kv, o, do), b,
+    # h, h_kv, sq, sk, d, causal, scale, hb, lens_b, lens_h, stream
+    "apex_flash_bwd_dbias": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _S, _I, _I,
+                             _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     # q, k, v, lengths, out, dtype, rows, group, d, max_s, scale, stream
     "apex_decode_attn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # logits, drafted, u_acc, u_gum, a, next, dtype, b, k1, V, sampled,

@@ -19,11 +19,18 @@ Port of the packed path of ``apex_tpu/ops/attention.py``:
   → output GEMM as one ``torch.autograd.Function`` with the reference's
   hand-written VJP; a packed dqkv is never materialised.
 * :func:`flash_attention` with ``layout="bshd"`` (``:647-778``), forward
-  only: separate seq-major q (b, sq, h, d) and k/v (b, sk, h_kv, d) with
-  bottom-right causal alignment — the decode engine's prefill. A CUDA
-  tensor launches :func:`flash_fwd_bshd_cuda` (the ``apex_flash_fwd_bshd``
-  entry of ``csrc/flash_attn_fwd.cu``, replacing the Pallas
-  ``flash_fwd_bshd``); a CPU tensor runs :func:`_torch_flash_fwd_bshd`.
+  and backward: separate seq-major q (b, sq, h, d) and k/v (b, sk, h_kv, d)
+  with bottom-right causal alignment, per-BATCH ``kv_lens`` (b,) and the
+  array bias — the decode engine's prefill and BERT's padded train step. A
+  CUDA tensor launches :func:`flash_fwd_bshd_cuda`,
+  :func:`flash_bwd_bshd_dkv_cuda` and :func:`flash_bwd_bshd_dq_cuda` (the
+  ``apex_flash_fwd_bshd`` entry of ``csrc/flash_attn_fwd.cu``, and the
+  bh-flat ``apex_flash_bwd_flat_*`` entries of ``flash_attn_bwd.cu`` on
+  the operands' (b, h, s, d) views with per-batch lengths, replacing the
+  Pallas ``flash_fwd_bshd`` and ``flash_bwd_bshd``); a CPU tensor runs
+  :func:`_torch_flash_fwd_bshd` and :func:`_torch_flash_bwd_bshd`, the
+  flat plain versions on the (b·h, s, d) rows with the lengths expanded
+  over the heads (the reference's XLA path, ``:466-486``, ``:518-527``).
   The reference's ``flash_auto_crossover`` is a TPU finding and is not
   ported: on CUDA the kernel always runs.
 
@@ -41,9 +48,15 @@ Port of the packed path of ``apex_tpu/ops/attention.py``:
   (b, h, s, d) views of a projection output: the kernels take batch, head
   and row strides, so no copy is made.
 
-The additive array ``bias`` and dropout options of the reference's flash
-kernels (``_dbias_pallas``, ``dropout_keep``) and the bshd backward
-(``flash_bwd_bshd``) are later slices of the port.
+* The additive array ``bias`` (hb, sq, sk) of both layouts (``:709-724``):
+  cast to fp32 once, added in the kernels to the scaled scores before the
+  masks, row r reading bias row r % hb; its gradient, the unscaled dS
+  summed over the rows that share a bias row, comes from a third backward
+  kernel, :func:`flash_bwd_dbias_cuda` (``csrc/flash_attn_dbias.cu``,
+  replacing the Pallas ``_dbias_pallas``).
+
+Dropout (``dropout_keep``) and the bucketed bias on the bshd layout are
+later slices of the port.
 """
 
 from __future__ import annotations
@@ -337,20 +350,6 @@ def _torch_flash_fwd(qkv, h, h_kv, d, scale, causal):
     return _merge_heads(o), lse.reshape(b, h, s)
 
 
-def _torch_flash_fwd_bshd(q, k, v, scale, causal):
-    """q (b, sq, h, d), k/v (b, sk, h_kv, d) → (o (b, sq, h, d), lse
-    (b, h, sq)): the packed plain version's masked scores, bottom-right
-    causal alignment ``off = sk − sq``."""
-    b, sq, h, d = q.shape
-    h_kv = k.shape[2]
-    qg = q.reshape(b, sq, h_kv, h // h_kv, d).permute(0, 2, 3, 1, 4)
-    kg = k.transpose(1, 2)[:, :, None]
-    vg = v.transpose(1, 2)[:, :, None]
-    o, lse = _xla_attention(qg, kg, vg, scale, causal)
-    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d), lse.reshape(b, h,
-                                                                      sq)
-
-
 def _torch_flash_bwd(qkv, o, lse, do, h, h_kv, d, scale, causal):
     """The backward of :func:`_torch_flash_fwd` with the Pallas kernels'
     rounding points (``_bwd_single_block_kernel``, ``:568-589``):
@@ -424,6 +423,47 @@ def _torch_flash_bwd_flat(q, k, v, o, lse, do, scale, causal, kv_lens=None,
         dk = dk.reshape(-1, group, sk, d).sum(1)
         dv = dv.reshape(-1, group, sk, d).sum(1)
     return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype), dbias
+
+
+def _to_bh(x: torch.Tensor) -> torch.Tensor:
+    """(b, s, h, d) → (b·h, s, d) rows, b-major (``:431-438``)."""
+    b, s, h, d = x.shape
+    return x.transpose(1, 2).reshape(b * h, s, d)
+
+
+def _from_bh(x: torch.Tensor, b: int) -> torch.Tensor:
+    """(b·h, s, d) rows → a contiguous (b, s, h, d) tensor."""
+    return x.reshape(b, -1, *x.shape[1:]).transpose(1, 2).contiguous()
+
+
+def _expand_lens_bh(kv_lens: Optional[torch.Tensor],
+                    h: int) -> Optional[torch.Tensor]:
+    """(b,) per-batch lengths → (b·h,) per-row, in :func:`_to_bh`'s row
+    order (``_expand_lens_bh``, ``:452-455``)."""
+    return None if kv_lens is None else kv_lens.repeat_interleave(h)
+
+
+def _torch_flash_fwd_bshd(q, k, v, scale, causal, kv_lens=None, bias=None):
+    """q (b, sq, h, d), k/v (b, sk, h_kv, d), kv_lens (b,) or None, bias
+    (hb, sq, sk) fp32 with hb | h or None → (o (b, sq, h, d), lse (b, h,
+    sq)): the flat plain version on the (b·h, s, d) rows, bottom-right
+    causal alignment ``off = sk − sq``."""
+    b, sq, h, _ = q.shape
+    o, lse = _torch_flash_fwd_flat(_to_bh(q), _to_bh(k), _to_bh(v), scale,
+                                   causal, _expand_lens_bh(kv_lens, h), bias)
+    return _from_bh(o, b), lse.reshape(b, h, sq)
+
+
+def _torch_flash_bwd_bshd(q, k, v, o, lse, do, scale, causal, kv_lens=None,
+                          bias=None):
+    """The backward of :func:`_torch_flash_fwd_bshd` through the flat plain
+    version: (dq (b, sq, h, d), dk, dv (b, sk, h_kv, d), dbias (hb, sq, sk)
+    fp32 or None)."""
+    b, sq, h, _ = q.shape
+    dq, dk, dv, dbias = _torch_flash_bwd_flat(
+        _to_bh(q), _to_bh(k), _to_bh(v), _to_bh(o), lse.reshape(b * h, sq),
+        _to_bh(do), scale, causal, _expand_lens_bh(kv_lens, h), bias)
+    return _from_bh(dq, b), _from_bh(dk, b), _from_bh(dv, b), dbias
 
 
 # --- the CUDA kernels ---------------------------------------------------------
@@ -529,9 +569,25 @@ def flash_bwd_dq_cuda(qkv: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
 flash_bwd_dq_cuda.launches = 0
 
 
+def _seq_major_ok(t: torch.Tensor) -> bool:
+    """A (b, s, heads, d) operand as the bshd kernels read it: dense (head,
+    feature) rows, 16-byte aligned (the kernels copy 16-byte chunks)."""
+    return (t.stride(3) == 1 and t.stride(2) == t.shape[3]
+            and t.stride(1) % 8 == 0 and t.stride(0) % 8 == 0
+            and t.data_ptr() % 16 == 0)
+
+
+def _check_seq_major(t: torch.Tensor, name: str) -> None:
+    if not _seq_major_ok(t):
+        raise ValueError(
+            f"{name}: each (head, feature) row must be dense with 16-byte "
+            f"aligned rows (the kernel copies 16-byte chunks); got strides "
+            f"{t.stride()}")
+
+
 def _check_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                causal: bool) -> None:
-    name = "flash_fwd_bshd_cuda"
+                causal: bool, name: str = "flash_fwd_bshd_cuda",
+                kv_lens: Optional[torch.Tensor] = None) -> None:
     if any(t.device != q.device or t.device.type != "cuda"
            for t in (q, k, v)):
         raise ValueError(f"{name} takes CUDA tensors on one device")
@@ -542,7 +598,7 @@ def _check_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"{name}: q (b, sq, h, d) and k/v (b, sk, h_kv, d) with h_kv | h;"
             f" got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if not packed_kernel_ok(sq, h, d, q.dtype) or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
+            or v.dtype != q.dtype or k.shape[1] > KERNEL_MAX_SEQ:
         raise ValueError(
             f"{name}: the flash kernels take bfloat16, head_dim in "
             f"{KERNEL_HEAD_DIMS} and 1 <= sq <= {KERNEL_MAX_SEQ}; got "
@@ -552,38 +608,156 @@ def _check_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"sq={sq} > sk={k.shape[1]}")
     if k.stride() != v.stride():
         raise ValueError(f"{name}: k and v must share their strides")
-    for t in (q, k):
-        if t.stride(3) != 1 or t.stride(2) != d or t.stride(1) % 8 \
-                or t.data_ptr() % 16 or v.data_ptr() % 16:
-            raise ValueError(
-                f"{name}: each (head, feature) row must be dense with "
-                f"16-byte aligned rows (the kernel copies 16-byte chunks); "
-                f"got strides {t.stride()}")
+    for t in (q, k, v):
+        _check_seq_major(t, name)
+    if kv_lens is not None and (tuple(kv_lens.shape) != (b,)
+                                or kv_lens.dtype != torch.int32
+                                or kv_lens.device != q.device):
+        raise ValueError(f"{name}: kv_lens must be per batch, ({b},) int32 "
+                         f"on {q.device}; got {tuple(kv_lens.shape)} "
+                         f"{kv_lens.dtype} on {kv_lens.device}")
+
+
+def _check_bias(bias: Optional[torch.Tensor], rows: int, sq: int, sk: int,
+                ref: torch.Tensor, name: str) -> int:
+    """The array bias as the kernels take it: (hb, sq, sk) fp32,
+    contiguous, on ``ref``'s device, hb dividing ``rows`` (the q-head rows
+    on the flat layout, the heads on the bshd one). Returns hb (1 without
+    a bias)."""
+    if bias is None:
+        return 1
+    if bias.dtype != torch.float32 or bias.ndim != 3 \
+            or tuple(bias.shape[1:]) != (sq, sk) or bias.shape[0] < 1 \
+            or rows % bias.shape[0] or not bias.is_contiguous() \
+            or bias.device != ref.device:
+        raise ValueError(
+            f"{name}: bias must be a contiguous (hb, {sq}, {sk}) float32 "
+            f"tensor on {ref.device} with hb dividing {rows}; got "
+            f"{tuple(bias.shape)} {bias.dtype} on {bias.device}")
+    return bias.shape[0]
+
+
+def _count(fn, bias) -> None:
+    fn.launches += 1
+    if bias is not None:
+        fn.bias_launches += 1
 
 
 def flash_fwd_bshd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, scale: float, causal: bool
+                        *, scale: float, causal: bool,
+                        kv_lens: Optional[torch.Tensor] = None,
+                        bias: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the bshd flash forward: q (b, sq, h, d), k/v (b, sk, h_kv,
     d), bf16 — separate tensors or views into one buffer (the batch and
-    row strides are passed through). Returns o (b, sq, h, d) bf16 and lse
-    (b, h, sq) fp32. Counts its launches in ``.launches``."""
-    _check_bshd(q, k, v, causal)
+    row strides are passed through); kv_lens (b,) int32 per batch or None;
+    bias (hb, sq, sk) fp32 with hb | h or None. Returns o (b, sq, h, d)
+    bf16 and lse (b, h, sq) fp32. Counts its launches in ``.launches``
+    and those with a bias in ``.bias_launches``."""
+    name = "flash_fwd_bshd_cuda"
+    _check_bshd(q, k, v, causal, name, kv_lens)
     b, sq, h, d = q.shape
     sk, h_kv = k.shape[1], k.shape[2]
+    hb = _check_bias(bias, h, sq, sk, q, name)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     rc = _build.library().apex_flash_fwd_bshd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), q.stride(0), k.stride(0), q.stride(1), k.stride(1),
-        b, sq, sk, h, h_kv, d, int(causal), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        lse.data_ptr(), _ptr(kv_lens), _ptr(bias), q.stride(0), k.stride(0),
+        q.stride(1), k.stride(1), b, sq, sk, h, h_kv, d, int(causal),
+        float(scale), hb, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_fwd_bshd")
-    flash_fwd_bshd_cuda.launches += 1
+    _count(flash_fwd_bshd_cuda, bias)
     return out, lse
 
 
 flash_fwd_bshd_cuda.launches = 0
+flash_fwd_bshd_cuda.bias_launches = 0
+
+
+def _check_bshd_bwd(q, k, v, o, lse, do, causal, kv_lens, bias, name):
+    _check_bshd(q, k, v, causal, name, kv_lens)
+    b, sq, h, d = q.shape
+    for nm, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name}: {nm} must be {tuple(q.shape)} "
+                             f"{q.dtype}; got {tuple(t.shape)} {t.dtype}")
+        _check_seq_major(t, name)
+    _check_like("lse", lse, (b, h, sq), torch.float32, q)
+    return _check_bias(bias, h, sq, k.shape[1], q, name)
+
+
+def _bshd_views(*ts: torch.Tensor):
+    """Seq-major (b, s, heads, d) tensors as the bh-flat kernels' (b,
+    heads, s, d) views: their head-stride-d case, no copy."""
+    return [t.transpose(1, 2) for t in ts]
+
+
+# kv_lens strides (batch, head) of the seq-major layout: one length per
+# batch, shared by its heads (the flat layout's are (heads, 1), per row)
+_LENS_PER_BATCH = (1, 0)
+
+
+def flash_bwd_bshd_dkv_cuda(q, k, v, o, lse, do, *, scale: float,
+                            causal: bool,
+                            kv_lens: Optional[torch.Tensor] = None,
+                            bias: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the bh-flat dK/dV kernel on seq-major operands: q, o, do (b,
+    sq, h, d), k, v (b, sk, h_kv, d) bf16, lse (b, h, sq) fp32, kv_lens
+    (b,) int32 or None, bias (hb, sq, sk) fp32 or None → dk, dv (b, sk,
+    h_kv, d) bf16, each kv group's query heads summed in fp32 and cast
+    once. Counts launches in ``.launches`` and ``.bias_launches``."""
+    name = "flash_bwd_bshd_dkv_cuda"
+    hb = _check_bshd_bwd(q, k, v, o, lse, do, causal, kv_lens, bias, name)
+    b, sq, h, d = q.shape
+    sk, h_kv = k.shape[1], k.shape[2]
+    dk = torch.empty((b, sk, h_kv, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    q4, k4, o4, do4, dk4 = _bshd_views(q, k, o, do, dk)
+    rc = _build.library().apex_flash_bwd_flat_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), dk.data_ptr(), dv.data_ptr(), None,
+        _ptr(kv_lens), None, None, _ptr(bias),
+        _stride_array(q4, k4, o4, do4, dk4), b, h, h_kv, sq, sk, d,
+        int(causal), float(scale), 0, 0, hb, 1, *_LENS_PER_BATCH,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "flash_bwd_bshd_dkv")
+    _count(flash_bwd_bshd_dkv_cuda, bias)
+    return dk, dv
+
+
+flash_bwd_bshd_dkv_cuda.launches = 0
+flash_bwd_bshd_dkv_cuda.bias_launches = 0
+
+
+def flash_bwd_bshd_dq_cuda(q, k, v, o, lse, do, *, scale: float,
+                           causal: bool,
+                           kv_lens: Optional[torch.Tensor] = None,
+                           bias: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Launch the bh-flat dQ kernel on seq-major operands (as
+    :func:`flash_bwd_bshd_dkv_cuda`) → dq (b, sq, h, d) bf16. Counts
+    launches in ``.launches`` and ``.bias_launches``."""
+    name = "flash_bwd_bshd_dq_cuda"
+    hb = _check_bshd_bwd(q, k, v, o, lse, do, causal, kv_lens, bias, name)
+    b, sq, h, d = q.shape
+    sk, h_kv = k.shape[1], k.shape[2]
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    q4, k4, o4, do4, dq4 = _bshd_views(q, k, o, do, dq)
+    rc = _build.library().apex_flash_bwd_flat_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), dq.data_ptr(), _ptr(kv_lens), None,
+        _ptr(bias), _stride_array(q4, k4, o4, do4, dq4), b, h, h_kv, sq, sk,
+        d, int(causal), float(scale), 0, 0, hb, *_LENS_PER_BATCH,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "flash_bwd_bshd_dq")
+    _count(flash_bwd_bshd_dq_cuda, bias)
+    return dq
+
+
+flash_bwd_bshd_dq_cuda.launches = 0
+flash_bwd_bshd_dq_cuda.bias_launches = 0
 
 
 def _rows4(x: torch.Tensor, group: int = 1) -> torch.Tensor:
@@ -688,35 +862,54 @@ def _out_like(x4: torch.Tensor, ndim: int) -> Tuple[torch.Tensor,
     return _rows4(out, h), out
 
 
+def _flat_bias_args(rel_bias: Optional[BucketedBias],
+                    bias: Optional[torch.Tensor], rows: int, sq: int,
+                    sk: int, ref: torch.Tensor, name: str):
+    """(lut, bucket, rel_off, maxd, hb, nb) for the flat kernels: the
+    bucketed bias's operands, or an array bias's row count as hb."""
+    if rel_bias is not None and bias is not None:
+        raise ValueError(f"{name}: a BucketedBias or an array bias, not both")
+    if bias is not None:
+        return None, None, 0, 0, _check_bias(bias, rows, sq, sk, ref,
+                                             name), 1
+    return _rel_args(rel_bias, rows)
+
+
 def flash_fwd_flat_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, scale: float, causal: bool,
                         kv_lens: Optional[torch.Tensor] = None,
-                        rel_bias: Optional[BucketedBias] = None
+                        rel_bias: Optional[BucketedBias] = None,
+                        bias: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the bh-flat flash forward: q (bh, sq, d) or (b, h, sq, d),
     k/v (bh_kv, sk, d) or (b, h_kv, sk, d), bf16, any strides with dense
-    rows; kv_lens (bh,) int32 or None; the bucketed bias or None. Returns
-    o (q's shape; a 4D o is a (b, sq, h, d) buffer seen as (b, h, sq, d))
-    and lse (bh, sq) fp32. Counts its launches in ``.launches``."""
+    rows; kv_lens (bh,) int32 or None; the bucketed bias, or an array bias
+    (hb, sq, sk) fp32 with hb | bh, or neither. Returns o (q's shape; a 4D
+    o is a (b, sq, h, d) buffer seen as (b, h, sq, d)) and lse (bh, sq)
+    fp32. Counts its launches in ``.launches`` and those with an array
+    bias in ``.bias_launches``."""
+    name = "flash_fwd_flat_cuda"
     rows, q4, k4, v4 = _flat_views(q, k, v)
-    _check_flat(q4, k4, v4, kv_lens, "flash_fwd_flat_cuda")
+    _check_flat(q4, k4, v4, kv_lens, name)
     b, h, sq, d = q4.shape
     h_kv, sk = k4.shape[1], k4.shape[2]
-    lut, _, rel_off, maxd, hb, _ = _rel_args(rel_bias, rows)
+    lut, _, rel_off, maxd, hb, _ = _flat_bias_args(rel_bias, bias, rows, sq,
+                                                   sk, q, name)
     o4, out = _out_like(q4, q.ndim)
     lse = torch.empty((rows, sq), dtype=torch.float32, device=q.device)
     rc = _build.library().apex_flash_fwd_flat(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
-        lse.data_ptr(), _ptr(kv_lens), _ptr(lut),
+        lse.data_ptr(), _ptr(kv_lens), _ptr(lut), _ptr(bias),
         _stride_array(q4, k4, o4), b, h, h_kv, sq, sk, d, int(causal),
         float(scale), maxd, rel_off, hb,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_fwd_flat")
-    flash_fwd_flat_cuda.launches += 1
+    _count(flash_fwd_flat_cuda, bias)
     return out, lse
 
 
 flash_fwd_flat_cuda.launches = 0
+flash_fwd_flat_cuda.bias_launches = 0
 
 
 def _check_flat_bwd(q4, k4, v4, o4, do4, lse, kv_lens, name):
@@ -733,18 +926,22 @@ def _check_flat_bwd(q4, k4, v4, o4, do4, lse, kv_lens, name):
 def flash_bwd_flat_dkv_cuda(q, k, v, o, lse, do, *, scale: float,
                             causal: bool,
                             kv_lens: Optional[torch.Tensor] = None,
-                            rel_bias: Optional[BucketedBias] = None):
+                            rel_bias: Optional[BucketedBias] = None,
+                            bias: Optional[torch.Tensor] = None):
     """Launch the bh-flat dK/dV kernel: dk, dv in k's shape (each kv
     group's query heads summed in fp32) and, with ``rel_bias``, the
     bucket-table gradient (num_buckets, heads) fp32 summed in the same
-    kernel (None without). Counts launches in ``.launches`` and the
-    launches that carry the table gradient in ``.table_launches``."""
+    kernel (None without; an array ``bias`` gets its gradient from
+    :func:`flash_bwd_dbias_cuda`). Counts launches in ``.launches``, those
+    that carry the table gradient in ``.table_launches`` and those with an
+    array bias in ``.bias_launches``."""
+    name = "flash_bwd_flat_dkv_cuda"
     rows, q4, k4, v4, o4, do4 = _flat_views(q, k, v, o, do)
-    _check_flat_bwd(q4, k4, v4, o4, do4, lse, kv_lens,
-                    "flash_bwd_flat_dkv_cuda")
+    _check_flat_bwd(q4, k4, v4, o4, do4, lse, kv_lens, name)
     b, h, sq, d = q4.shape
     h_kv, sk = k4.shape[1], k4.shape[2]
-    lut, bucket, rel_off, maxd, hb, nb = _rel_args(rel_bias, rows)
+    lut, bucket, rel_off, maxd, hb, nb = _flat_bias_args(
+        rel_bias, bias, rows, sq, sk, q, name)
     dk4, dk = _out_like(k4, k.ndim)
     dv4, dv = _out_like(k4, k.ndim)
     dtab = (None if rel_bias is None else
@@ -752,12 +949,12 @@ def flash_bwd_flat_dkv_cuda(q, k, v, o, lse, do, *, scale: float,
     rc = _build.library().apex_flash_bwd_flat_dkv(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
         do4.data_ptr(), lse.data_ptr(), dk4.data_ptr(), dv4.data_ptr(),
-        _ptr(dtab), _ptr(kv_lens), _ptr(lut), _ptr(bucket),
+        _ptr(dtab), _ptr(kv_lens), _ptr(lut), _ptr(bucket), _ptr(bias),
         _stride_array(q4, k4, o4, do4, dk4), b, h, h_kv, sq, sk, d,
-        int(causal), float(scale), maxd, rel_off, hb, nb,
+        int(causal), float(scale), maxd, rel_off, hb, nb, h, 1,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_bwd_flat_dkv")
-    flash_bwd_flat_dkv_cuda.launches += 1
+    _count(flash_bwd_flat_dkv_cuda, bias)
     if dtab is not None:
         flash_bwd_flat_dkv_cuda.table_launches += 1
     return dk, dv, (None if dtab is None else dtab.t())
@@ -765,34 +962,78 @@ def flash_bwd_flat_dkv_cuda(q, k, v, o, lse, do, *, scale: float,
 
 flash_bwd_flat_dkv_cuda.launches = 0
 flash_bwd_flat_dkv_cuda.table_launches = 0
+flash_bwd_flat_dkv_cuda.bias_launches = 0
 
 
 def flash_bwd_flat_dq_cuda(q, k, v, o, lse, do, *, scale: float,
                            causal: bool,
                            kv_lens: Optional[torch.Tensor] = None,
-                           rel_bias: Optional[BucketedBias] = None
+                           rel_bias: Optional[BucketedBias] = None,
+                           bias: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """Launch the bh-flat dQ kernel: dq in q's shape. Counts launches in
-    ``.launches``."""
+    ``.launches`` and those with an array bias in ``.bias_launches``."""
+    name = "flash_bwd_flat_dq_cuda"
     rows, q4, k4, v4, o4, do4 = _flat_views(q, k, v, o, do)
-    _check_flat_bwd(q4, k4, v4, o4, do4, lse, kv_lens,
-                    "flash_bwd_flat_dq_cuda")
+    _check_flat_bwd(q4, k4, v4, o4, do4, lse, kv_lens, name)
     b, h, sq, d = q4.shape
     h_kv, sk = k4.shape[1], k4.shape[2]
-    lut, _, rel_off, maxd, hb, _ = _rel_args(rel_bias, rows)
+    lut, _, rel_off, maxd, hb, _ = _flat_bias_args(rel_bias, bias, rows, sq,
+                                                   sk, q, name)
     dq4, dq = _out_like(q4, q.ndim)
     rc = _build.library().apex_flash_bwd_flat_dq(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
         do4.data_ptr(), lse.data_ptr(), dq4.data_ptr(), _ptr(kv_lens),
-        _ptr(lut), _stride_array(q4, k4, o4, do4, dq4), b, h, h_kv, sq, sk,
-        d, int(causal), float(scale), maxd, rel_off, hb,
+        _ptr(lut), _ptr(bias), _stride_array(q4, k4, o4, do4, dq4), b, h,
+        h_kv, sq, sk, d, int(causal), float(scale), maxd, rel_off, hb, h, 1,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_bwd_flat_dq")
-    flash_bwd_flat_dq_cuda.launches += 1
+    _count(flash_bwd_flat_dq_cuda, bias)
     return dq
 
 
 flash_bwd_flat_dq_cuda.launches = 0
+flash_bwd_flat_dq_cuda.bias_launches = 0
+
+
+def flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias: torch.Tensor, *,
+                         scale: float, causal: bool,
+                         kv_lens: Optional[torch.Tensor] = None,
+                         layout: str = "bhsd") -> torch.Tensor:
+    """Launch the dbias kernel: the array bias's gradient (hb, sq, sk)
+    fp32, the unscaled dS summed over the rows that share each bias row.
+    ``layout="bhsd"``: the flat operands of :func:`flash_bwd_flat_dkv_cuda`
+    (per-row kv_lens); ``"bshd"``: those of
+    :func:`flash_bwd_bshd_dkv_cuda` (per-batch kv_lens, hb | h). Counts
+    launches in ``.launches``."""
+    name = "flash_bwd_dbias_cuda"
+    if layout == "bshd":
+        _check_bshd_bwd(q, k, v, o, lse, do, causal, kv_lens, bias, name)
+        q4, k4, v4, o4, do4 = _bshd_views(q, k, v, o, do)
+        rows = q4.shape[0] * q4.shape[1]
+        lens_strides = _LENS_PER_BATCH
+    elif layout == "bhsd":
+        rows, q4, k4, v4, o4, do4 = _flat_views(q, k, v, o, do)
+        _check_flat_bwd(q4, k4, v4, o4, do4, lse, kv_lens, name)
+        lens_strides = (q4.shape[1], 1)
+    else:
+        raise ValueError(f"layout must be bhsd|bshd, got {layout!r}")
+    b, h, sq, d = q4.shape
+    h_kv, sk = k4.shape[1], k4.shape[2]
+    hb = _check_bias(bias, rows, sq, sk, q, name)
+    dbias = torch.empty((hb, sq, sk), dtype=torch.float32, device=q.device)
+    rc = _build.library().apex_flash_bwd_dbias(
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
+        do4.data_ptr(), lse.data_ptr(), bias.data_ptr(), dbias.data_ptr(),
+        _ptr(kv_lens), _stride_array(q4, k4, o4, do4), b, h, h_kv, sq, sk, d,
+        int(causal), float(scale), hb, *lens_strides,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "flash_bwd_dbias")
+    flash_bwd_dbias_cuda.launches += 1
+    return dbias
+
+
+flash_bwd_dbias_cuda.launches = 0
 
 
 # --- dispatch -----------------------------------------------------------------
@@ -823,13 +1064,50 @@ def flash_bwd_packed(qkv: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
     return _torch_flash_bwd(qkv, o, lse, do, h, h_kv, d, scale, causal)
 
 
+def _bias32(bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """An array bias as the kernels read it: fp32 and contiguous (a no-op
+    when it already is)."""
+    return None if bias is None else bias.float().contiguous()
+
+
 def flash_fwd_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   scale: float, causal: bool, impl: str = "auto"
+                   scale: float, causal: bool,
+                   kv_lens: Optional[torch.Tensor] = None,
+                   bias: Optional[torch.Tensor] = None, impl: str = "auto"
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Seq-major flash forward: (o (b, sq, h, d), lse (b, h, sq))."""
+    """Seq-major flash forward (the Pallas ``flash_fwd_bshd``): q (b, sq,
+    h, d), k/v (b, sk, h_kv, d); ``kv_lens`` (b,) int32 per batch (the
+    heads share a row's padding); ``bias`` (hb, sq, sk) with hb | h, head
+    t reading bias row t % hb. Returns (o (b, sq, h, d), lse (b, h,
+    sq))."""
+    bias = _bias32(bias)
     if _backend.use_kernel(q, impl):
-        return flash_fwd_bshd_cuda(q, k, v, scale=scale, causal=causal)
-    return _torch_flash_fwd_bshd(q, k, v, scale, causal)
+        return flash_fwd_bshd_cuda(q, k, v, scale=scale, causal=causal,
+                                   kv_lens=kv_lens, bias=bias)
+    return _torch_flash_fwd_bshd(q, k, v, scale, causal, kv_lens, bias)
+
+
+def flash_bwd_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                   scale: float, causal: bool,
+                   kv_lens: Optional[torch.Tensor] = None,
+                   bias: Optional[torch.Tensor] = None, impl: str = "auto"):
+    """Backward of :func:`flash_fwd_bshd` (the Pallas ``flash_bwd_bshd``,
+    ``:1395-1530``): (dq (b, sq, h, d), dk, dv (b, sk, h_kv, d), dbias
+    (hb, sq, sk) fp32 or None). On a CUDA tensor the bshd dK/dV and dQ
+    kernels run, and with a bias the dbias kernel."""
+    bias = _bias32(bias)
+    if _backend.use_kernel(q, impl):
+        do = do if _seq_major_ok(do) else do.contiguous()
+        kw = dict(scale=scale, causal=causal, kv_lens=kv_lens, bias=bias)
+        dk, dv = flash_bwd_bshd_dkv_cuda(q, k, v, o, lse, do, **kw)
+        dq = flash_bwd_bshd_dq_cuda(q, k, v, o, lse, do, **kw)
+        dbias = (None if bias is None else flash_bwd_dbias_cuda(
+            q, k, v, o, lse, do, bias, scale=scale, causal=causal,
+            kv_lens=kv_lens, layout="bshd"))
+        return dq, dk, dv, dbias
+    return _torch_flash_bwd_bshd(q, k, v, o, lse, do, scale, causal, kv_lens,
+                                 bias)
 
 
 def _rows3(x: torch.Tensor) -> torch.Tensor:
@@ -839,23 +1117,26 @@ def _rows3(x: torch.Tensor) -> torch.Tensor:
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               scale: float, causal: bool,
               kv_lens: Optional[torch.Tensor] = None,
-              rel_bias: Optional[BucketedBias] = None, impl: str = "auto"
+              rel_bias: Optional[BucketedBias] = None,
+              bias: Optional[torch.Tensor] = None, impl: str = "auto"
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The bh-flat flash forward (the Pallas ``flash_fwd``, ``:375-461``):
     q (bh, sq, d), k/v (bh_kv, sk, d) with bh_kv | bh — or the same as
     (b, h, s, d) views, which the kernel reads without a copy. ``kv_lens``
     (bh,) int32 masks each row's columns >= its length (a row of length 0
     gives o = 0, lse = 0); ``rel_bias`` adds the bucketed bias, row r
-    reading table column r % heads. Returns (o in q's shape, lse (bh,
+    reading table column r % heads, or ``bias`` the array bias (hb, sq,
+    sk), row r reading bias row r % hb. Returns (o in q's shape, lse (bh,
     sq) fp32)."""
+    bias = _bias32(bias)
     if _backend.use_kernel(q, impl):
         return flash_fwd_flat_cuda(q, k, v, scale=scale, causal=causal,
-                                   kv_lens=kv_lens, rel_bias=rel_bias)
-    q3 = _rows3(q)
-    bias = (None if rel_bias is None
-            else rel_bias.materialize(q.shape[-2], k.shape[-2]))
-    o, lse = _torch_flash_fwd_flat(q3, _rows3(k), _rows3(v), scale, causal,
-                                   kv_lens, bias)
+                                   kv_lens=kv_lens, rel_bias=rel_bias,
+                                   bias=bias)
+    if rel_bias is not None:
+        bias = rel_bias.materialize(q.shape[-2], k.shape[-2])
+    o, lse = _torch_flash_fwd_flat(_rows3(q), _rows3(k), _rows3(v), scale,
+                                   causal, kv_lens, bias)
     return o.reshape(q.shape), lse
 
 
@@ -863,70 +1144,91 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
               scale: float, causal: bool,
               kv_lens: Optional[torch.Tensor] = None,
-              rel_bias: Optional[BucketedBias] = None, impl: str = "auto"):
+              rel_bias: Optional[BucketedBias] = None,
+              bias: Optional[torch.Tensor] = None, impl: str = "auto"):
     """Backward of :func:`flash_fwd` (the Pallas ``flash_bwd``,
-    ``:1249-1411``): (dq, dk, dv) in their operands' shapes and, with
-    ``rel_bias``, the table's (num_buckets, heads) fp32 cotangent (else
-    None). On a CUDA tensor the dK/dV kernel (which also sums the table
-    gradient) and the dQ kernel run."""
+    ``:1249-1411``): (dq, dk, dv) in their operands' shapes and the bias's
+    fp32 cotangent — the table's (num_buckets, heads) with ``rel_bias``,
+    dbias (hb, sq, sk) with ``bias``, else None. On a CUDA tensor the
+    dK/dV kernel (which also sums the table gradient) and the dQ kernel
+    run, and with an array bias the dbias kernel."""
+    bias = _bias32(bias)
     if _backend.use_kernel(q, impl):
-        dk, dv, dtab = flash_bwd_flat_dkv_cuda(
-            q, k, v, o, lse, do, scale=scale, causal=causal,
-            kv_lens=kv_lens, rel_bias=rel_bias)
-        dq = flash_bwd_flat_dq_cuda(q, k, v, o, lse, do, scale=scale,
-                                    causal=causal, kv_lens=kv_lens,
-                                    rel_bias=rel_bias)
+        kw = dict(scale=scale, causal=causal, kv_lens=kv_lens,
+                  rel_bias=rel_bias, bias=bias)
+        dk, dv, dtab = flash_bwd_flat_dkv_cuda(q, k, v, o, lse, do, **kw)
+        dq = flash_bwd_flat_dq_cuda(q, k, v, o, lse, do, **kw)
+        if bias is not None:
+            dtab = flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias,
+                                        scale=scale, causal=causal,
+                                        kv_lens=kv_lens)
         return dq, dk, dv, dtab
     sq, sk = q.shape[-2], k.shape[-2]
-    bias = None if rel_bias is None else rel_bias.materialize(sq, sk)
+    arr = bias if rel_bias is None else rel_bias.materialize(sq, sk)
     dq, dk, dv, dbias = _torch_flash_bwd_flat(
         _rows3(q), _rows3(k), _rows3(v), _rows3(o), lse, _rows3(do), scale,
-        causal, kv_lens, bias)
-    dtab = None if rel_bias is None else _table_grad(rel_bias, dbias)
+        causal, kv_lens, arr)
+    if rel_bias is not None:
+        dbias = _table_grad(rel_bias, dbias)
     return (dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(v.shape),
-            dtab)
+            dbias)
 
 
 class _FlashFlat(torch.autograd.Function):
     """The bh-flat core (``_flash_core``, ``:255-390``): the forward saves
-    q, k, v, o and lse; the backward returns dq, dk, dv and the bucket
-    table's cotangent in the table's dtype."""
+    q, k, v, o and lse; the backward returns dq, dk, dv and the bias's
+    cotangent. ``bias_t`` is the bucket table when ``rel`` (its bucketing)
+    is given, else the fp32 array bias or None."""
 
     @staticmethod
-    def forward(ctx, q, k, v, table, kv_lens, scale, causal, rel, impl):
-        bias = None if rel is None else BucketedBias(table, *rel)
+    def forward(ctx, q, k, v, bias_t, kv_lens, scale, causal, rel, impl):
+        rb, arr = ((None, bias_t) if rel is None
+                   else (BucketedBias(bias_t, *rel), None))
         o, lse = flash_fwd(q, k, v, scale=scale, causal=causal,
-                           kv_lens=kv_lens, rel_bias=bias, impl=impl)
-        ctx.save_for_backward(q, k, v, o, lse, kv_lens, table)
+                           kv_lens=kv_lens, rel_bias=rb, bias=arr, impl=impl)
+        ctx.save_for_backward(q, k, v, o, lse, kv_lens, bias_t)
         ctx.attn = (scale, causal, rel, impl)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse, kv_lens, table = ctx.saved_tensors
+        q, k, v, o, lse, kv_lens, bias_t = ctx.saved_tensors
         scale, causal, rel, impl = ctx.attn
-        bias = None if rel is None else BucketedBias(table, *rel)
-        dq, dk, dv, dtab = flash_bwd(q, k, v, o, lse, do, scale=scale,
-                                     causal=causal, kv_lens=kv_lens,
-                                     rel_bias=bias, impl=impl)
-        dtable = None if dtab is None else dtab.to(table.dtype)
-        return dq, dk, dv, dtable, None, None, None, None, None
+        rb, arr = ((None, bias_t) if rel is None
+                   else (BucketedBias(bias_t, *rel), None))
+        dq, dk, dv, dbias = flash_bwd(q, k, v, o, lse, do, scale=scale,
+                                      causal=causal, kv_lens=kv_lens,
+                                      rel_bias=rb, bias=arr, impl=impl)
+        dbias = None if dbias is None else dbias.to(bias_t.dtype)
+        return dq, dk, dv, dbias, None, None, None, None, None
 
 
 class _FlashBshd(torch.autograd.Function):
-    """The bshd forward; its backward (``flash_bwd_bshd``) is queued."""
+    """The seq-major core (``_flash_core_bshd``, ``_flash_fwd_res_bshd``,
+    ``_flash_bwd_bshd_impl``, ``:442-539``): the forward saves q, k, v, o
+    and lse; the backward returns dq, dk, dv and the fp32 array bias's
+    cotangent."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal, impl):
-        return flash_fwd_bshd(q, k, v, scale=scale, causal=causal,
-                              impl=impl)[0]
+    def forward(ctx, q, k, v, bias, kv_lens, scale, causal, impl):
+        o, lse = flash_fwd_bshd(q, k, v, scale=scale, causal=causal,
+                                kv_lens=kv_lens, bias=bias, impl=impl)
+        ctx.save_for_backward(q, k, v, o, lse, kv_lens, bias)
+        ctx.attn = (scale, causal, impl)
+        return o
 
     @staticmethod
     def backward(ctx, do):
-        raise NotImplementedError(
-            "the backward of flash_attention(layout='bshd') (the Pallas "
-            "flash_bwd_bshd) is a later slice of the port; the bshd path "
-            "is forward-only (the decode engine's prefill)")
+        q, k, v, o, lse, kv_lens, bias = ctx.saved_tensors
+        scale, causal, impl = ctx.attn
+        dq, dk, dv, dbias = flash_bwd_bshd(q, k, v, o, lse, do, scale=scale,
+                                           causal=causal, kv_lens=kv_lens,
+                                           bias=bias, impl=impl)
+        return dq, dk, dv, dbias, None, None, None, None
+
+
+def _bias_rows(bias: Union[BucketedBias, torch.Tensor]) -> int:
+    return bias.heads if isinstance(bias, BucketedBias) else bias.shape[0]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -945,41 +1247,49 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``layout="bhsd"`` (the default, as in the reference): q (..., sq, d)
     and k/v (..., sk, d), any leading dims, k/v's head dim (the last
-    leading dim) dividing q's for grouped-query heads; forward and
-    backward. ``kv_lens`` over q's leading dims masks each row's keys >=
-    its length (a row of length 0 returns zeros). ``bias`` a
-    :class:`BucketedBias` whose heads divide the flattened rows (row r
-    reads table column r % heads), added to the scaled scores before the
-    masks; its table gets a gradient. (b, h, s, d) views of a projection
-    output go to the kernels without a copy, and a 4D output is a (b, s,
-    h, d) buffer seen as (b, h, s, d), so merging the heads back is a
-    view too.
+    leading dim) dividing q's for grouped-query heads. ``kv_lens`` over
+    q's leading dims masks each row's keys >= its length (a row of length
+    0 returns zeros). (b, h, s, d) views of a projection output go to the
+    kernels without a copy, and a 4D output is a (b, s, h, d) buffer seen
+    as (b, h, s, d), so merging the heads back is a view too.
 
-    ``layout="bshd"``: q (b, sq, h, d) and k/v (b, sk, h_kv, d), forward
-    only (the decode engine's prefill); differentiating through it raises
-    ``NotImplementedError``, and so do its ``kv_lens`` and ``bias``.
+    ``layout="bshd"``: q (b, sq, h, d) and k/v (b, sk, h_kv, d);
+    ``kv_lens`` is PER BATCH, (b,) (the heads share a row's padding).
 
-    An additive array ``bias`` (``_dbias_pallas``) and ``dropout_rate >
-    0`` are later slices of the port and raise ``NotImplementedError``."""
+    ``bias``: a :class:`BucketedBias` (``layout="bhsd"`` only) whose heads
+    divide the flattened rows, its table getting a gradient; or an
+    additive array (hb, sq, sk) — on ``"bhsd"`` hb divides the flattened
+    rows, on ``"bshd"`` the heads — row r of the flattened (batch·heads)
+    leading dims reading bias row r % hb. Either is added to the scaled
+    scores before the causal and ``kv_lens`` masks; the array is cast to
+    fp32 once, and its gradient (the unscaled dS summed over the rows
+    sharing a bias row) comes back in its own dtype. Both layouts run
+    forward and backward.
+
+    ``dropout_rate > 0`` and a :class:`BucketedBias` on the bshd layout
+    are later slices of the port and raise ``NotImplementedError``."""
     if layout not in ("bhsd", "bshd"):
         raise ValueError(f"layout must be bhsd|bshd, got {layout!r}")
     if dropout_rate != 0.0 or dropout_seed is not None:
         raise NotImplementedError(
             "flash_attention's in-kernel dropout (dropout_keep) is a later "
             "slice of the port (ROADMAP queue 1 item 1)")
-    if bias is not None and not isinstance(bias, BucketedBias):
-        raise NotImplementedError(
-            "flash_attention's additive array bias (the Pallas "
-            "_dbias_pallas) is a later slice of the port (ROADMAP queue 2); "
-            "pass a BucketedBias")
+    if isinstance(bias, BucketedBias):
+        if layout == "bshd":
+            raise NotImplementedError(
+                "a BucketedBias on flash_attention(layout='bshd') is a later "
+                "slice of the port (with T5's decode path); use "
+                "layout='bhsd' or an array bias")
+        _validate_bucketed(bias)
+    elif bias is not None:
+        sq_, sk_ = ((q.shape[1], k.shape[1]) if layout == "bshd"
+                    else (q.shape[-2], k.shape[-2]))
+        if bias.ndim != 3 or tuple(bias.shape[1:]) != (sq_, sk_):
+            raise ValueError(f"bias must be (hb, sq, sk) = (hb, {sq_}, "
+                             f"{sk_}); got {tuple(bias.shape)}")
     d = q.shape[-1]
     s_scale = float(scale if scale is not None else 1.0 / d ** 0.5)
     if layout == "bshd":
-        if kv_lens is not None or bias is not None:
-            raise NotImplementedError(
-                "flash_attention(layout='bshd') takes neither kv_lens nor a "
-                "bias: they come with its backward (flash_bwd_bshd), a later "
-                "slice of the port; use layout='bhsd'")
         if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
             raise ValueError(f"layout='bshd' takes (b, s, h, d) operands; "
                              f"got {tuple(q.shape)} / {tuple(k.shape)}")
@@ -989,9 +1299,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if q.shape[2] % k.shape[2] or k.shape[:2] != v.shape[:2]:
             raise ValueError(f"kv heads ({k.shape[2]}) must divide q heads "
                              f"({q.shape[2]}) with matching batch/seq dims")
-        return _FlashBshd.apply(q, k, v, s_scale, bool(causal), impl)
-    if isinstance(bias, BucketedBias):
-        _validate_bucketed(bias)
+        if kv_lens is not None:
+            if tuple(kv_lens.shape) != (q.shape[0],):
+                raise ValueError(
+                    f"layout='bshd' takes per-batch kv_lens of shape "
+                    f"({q.shape[0]},); got {tuple(kv_lens.shape)}")
+            kv_lens = kv_lens.to(torch.int32)
+        if bias is not None and q.shape[2] % bias.shape[0]:
+            raise ValueError(
+                f"layout='bshd' needs bias rows ({bias.shape[0]}) dividing "
+                f"q heads ({q.shape[2]})")
+        return _FlashBshd.apply(q, k, v, _bias32(bias), kv_lens, s_scale,
+                                bool(causal), impl)
     if q.ndim < 2 or k.ndim != q.ndim or v.ndim != q.ndim:
         raise ValueError(f"layout='bhsd' takes (..., s, d) operands of one "
                          f"rank; got {tuple(q.shape)} / {tuple(k.shape)} / "
@@ -1027,15 +1346,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"kv_lens shape {tuple(kv_lens.shape)} must "
                              f"equal q's leading dims {tuple(lead)}")
         kv_lens = kv_lens.reshape(-1).to(torch.int32)
-    rel = table = None
+    rel, bias_t = None, _bias32(bias) if torch.is_tensor(bias) else None
     if bias is not None:
-        if rows % bias.heads:
-            raise ValueError(f"bias rows ({bias.heads}) must divide q's "
-                             f"flattened leading dims ({rows})")
-        rel = (bias.bidirectional, int(bias.max_distance),
-               int(bias.q_offset), int(bias.k_offset))
-        table = bias.table
-    o = _FlashFlat.apply(q_, k_, v_, table, kv_lens, s_scale, bool(causal),
+        if rows % _bias_rows(bias):
+            raise ValueError(f"bias rows ({_bias_rows(bias)}) must divide "
+                             f"q's flattened leading dims ({rows})")
+        if isinstance(bias, BucketedBias):
+            rel = (bias.bidirectional, int(bias.max_distance),
+                   int(bias.q_offset), int(bias.k_offset))
+            bias_t = bias.table
+    o = _FlashFlat.apply(q_, k_, v_, bias_t, kv_lens, s_scale, bool(causal),
                          rel, impl)
     return o.reshape(*lead, q.shape[-2], d)
 

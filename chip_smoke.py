@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """chip_smoke.py — drive apex_tpu_torch's serving path, its decode engine
-(with speculative decoding), its GPT-medium train step and its T5-base
-train step on one CUDA card.
+(with speculative decoding), its GPT-medium train step, its T5-base train
+step (with the bucketed and the materialised relative bias) and its
+BERT-large padded MLM train step on one CUDA card.
 
 Run from the repository root on a machine with an NVIDIA H100 (no
 arguments, one card, no network):
@@ -94,9 +95,33 @@ without the final line):
      the params the timed steps left, on their batch;
    * a padded step (encoder lengths in [256, 512]) with the same counts,
      and 2 profiled steps;
-10. one ``{"kernels": [...]}`` line (all fourteen kernels), the card's
-    name and power limit as nvidia-smi prints them, and last ``{"ok":
-    true, "device": {...}}``.
+10. the BERT slice (BERT-large: 24 layers, hidden 1024, 16 heads of 64,
+    FFN 4096, vocab 30592, sequence 512, bf16, per-block remat):
+    * the bshd forward with per-batch kv_lens, dQ and dK/dV kernels
+      against their plain versions at BERT's call (b 32, views of one
+      packed projection, lengths in [64, 512] with one full row and one of
+      length 0) and at a GQA shape, timed beside the plain versions, SDPA
+      with the key-padding mask, and the bounds;
+    * one step at the initial params, kernel path against plain path and
+      both against an fp32 truth;
+    * a warm-up, then 10 timed steps of ``mlm_loss`` + backward + one
+      ``FusedAdam(lr=1e-4)`` step on a padded batch 32 x 512 (lengths
+      uniform in [64, 512], token types, 15% of the valid positions in the
+      loss mask) with 48/24/24/1 bshd-forward/dQ/dK-dV/xent_stats launches
+      and no other flash launch per step asserted; tokens/s over all and
+      over the valid positions, step ms, TFLOP/s, MFU, peak memory, the
+      pad-mask host read's cost; 2 profiled steps;
+11. the array bias: the flat forward, dK/dV and dQ with an fp32 bias and
+    the dbias kernel against their plain versions (dbias within 1e-3
+    relative norm of the fp32 plain version) at T5's encoder call (hb 12,
+    padded) and decoder call (causal 114²), and the bshd kernels with one
+    bias row; then the T5 materialized leg (``relative_bias_impl=
+    "materialized"``): one step against the bucketed path at the same
+    params and batch, a warm-up and 3 timed steps with 72 (48 biased) flat
+    forwards, 36 (24) dK/dV, 36 (24) dQ and 24 dbias launches per step;
+12. one ``{"kernels": [...]}`` line (all seventeen kernels, each with its
+    launches by main path), the card's name and power limit as nvidia-smi
+    prints them, and last ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -1584,40 +1609,17 @@ def t5_flops_per_step(b, s_enc, s_dec):
     return 6 * matmul + attn
 
 
-def t5_counters():
-    from apex_tpu_torch.ops import attention as A
-    from apex_tpu_torch.ops import xentropy as X
-
-    return {"flash_fwd_flat": (A.flash_fwd_flat_cuda, "launches"),
-            "flash_bwd_flat_dkv": (A.flash_bwd_flat_dkv_cuda, "launches"),
-            "flash_bwd_flat_dtable": (A.flash_bwd_flat_dkv_cuda,
-                                      "table_launches"),
-            "flash_bwd_flat_dq": (A.flash_bwd_flat_dq_cuda, "launches"),
-            "xent_stats": (X.xent_stats_cuda, "launches")}
-
-
-def t5_zero_counters():
-    for fn, attr in t5_counters().values():
-        setattr(fn, attr, 0)
-
-
-def t5_read_counters():
-    return {k: getattr(fn, attr) for k, (fn, attr) in t5_counters().items()}
-
-
 def t5_check_launches(launches, steps, what):
     """Per step, with per-block remat: each of the 36 attention calls runs
     its forward twice (the recompute), its dK/dV and dQ once; the 24
-    self-attention calls carry the bucket table; one xent_stats."""
+    self-attention calls carry the bucket table; one xent_stats; no
+    other flash kernel."""
     L = T5["num_encoder_layers"] + 2 * T5["num_decoder_layers"]
     table = T5["num_encoder_layers"] + T5["num_decoder_layers"]
-    want = {"flash_fwd_flat": 2 * L, "flash_bwd_flat_dkv": L,
-            "flash_bwd_flat_dq": L, "flash_bwd_flat_dtable": table,
-            "xent_stats": 1}
-    for k, per_step in want.items():
-        check(launches[k] == per_step * steps,
-              f"{what}: {launches[k]} {k} launches in {steps} steps, want "
-              f"{per_step} per step")
+    check_launches(launches, {"flash_fwd_flat": 2 * L,
+                              "flash_bwd_flat_dkv": L, "flash_bwd_flat_dq": L,
+                              "flash_bwd_flat_dtable": table,
+                              "xent_stats": 1}, steps, what)
 
 
 def t5_batch(torch, dev, b, seed):
@@ -1654,13 +1656,13 @@ def phase_t5_train(torch, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    t5_zero_counters()
+    zero_counters()
     t0 = time.perf_counter()
     losses = [t5_step(model, params, opt, enc, dec, tgt)
               for _ in range(T5_STEPS)]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = t5_read_counters()
+    launches = read_counters()
 
     losses = [float(x) for x in losses]
     check(all(np.isfinite(losses)), f"T5 losses not finite: {losses}")
@@ -1680,7 +1682,7 @@ def phase_t5_train(torch, dev):
             "card": torch.cuda.get_device_name(0),
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
             "launches_per_step": {k: v / T5_STEPS
-                                  for k, v in launches.items()}}
+                                  for k, v in launches.items() if v}}
     return (model, params, opt), info, launches
 
 
@@ -1689,14 +1691,15 @@ def phase_t5_padded(torch, state, dev):
     finite loss, the same launches per step."""
     model, params, opt = state
     enc, dec, tgt, pad = t5_batch(torch, dev, T5_BATCH, seed=2)
-    t5_zero_counters()
+    zero_counters()
     loss = float(t5_step(model, params, opt, enc, dec, tgt, pad))
     torch.cuda.synchronize()
-    launches = t5_read_counters()
+    launches = read_counters()
     check(np.isfinite(loss), f"T5 padded step: loss {loss}")
     t5_check_launches(launches, 1, "T5 padded step")
     return {"loss": loss, "enc_pad_lens_min": int(pad.min()),
-            "enc_pad_lens_max": int(pad.max()), "launches": launches}
+            "enc_pad_lens_max": int(pad.max()),
+            "launches": {k: v for k, v in launches.items() if v}}
 
 
 def t5_model(torch, dev, dtype):
@@ -1713,18 +1716,15 @@ def t5_model(torch, dev, dtype):
 
 def phase_t5_plain(torch, model, params, enc, dec, tgt, pad, what,
                    bound_kernel_vs_plain):
-    """One step's loss and gradients at ``params`` on the given batch: the
-    kernel path against the plain path, and both against an fp32
-    plain-path truth (the same params upcast): each leaf's kernel-path
-    error must be at most twice the bf16 plain path's plus 1e-3, the flash
-    kernels' rule lifted to the step; the losses within TRAIN_LOSS_TOL.
-    Where ``bound_kernel_vs_plain`` (the initial params), each leaf's
-    kernel-vs-plain error is also held to TRAIN_GRAD_TOL. Not at the
-    trained params: with the tied N(0, 1) embedding the logits are large
-    and the softmax near one-hot, and after a few Adam steps some leaves'
-    gradients (the cross-attention projections) shrink until bf16 rounding
-    moves them tens of percent in BOTH paths, which the fp32 truth shows
-    and a kernel-vs-plain bound cannot tell from a fault."""
+    """One T5 step's loss and gradients at ``params`` on the given batch,
+    kernel path vs plain path vs an fp32 truth (compare_paths). The
+    kernel-vs-plain bound holds only where ``bound_kernel_vs_plain`` (the
+    initial params). Not at the trained params: with the tied N(0, 1)
+    embedding the logits are large and the softmax near one-hot, and
+    after a few Adam steps some leaves' gradients (the cross-attention
+    projections) shrink until bf16 rounding moves them tens of percent in
+    BOTH paths, which the fp32 truth shows and a kernel-vs-plain bound
+    cannot tell from a fault."""
     from apex_tpu_torch.models.t5 import param_leaves
 
     model32, params32 = t5_model(torch, enc.device, torch.float32)
@@ -1732,12 +1732,553 @@ def phase_t5_plain(torch, model, params, enc, dec, tgt, pad, what,
         for a, b in zip(param_leaves(params32), param_leaves(params)):
             a.copy_(b.float())
 
-    def loss_and_grads(m, p, impl):
-        loss = m.loss_fn(p, enc, dec, tgt, enc_pad_lens=pad, impl=impl)
+    def run(p, impl):
+        m = model32 if p is params32 else model
+        return m.loss_fn(p, enc, dec, tgt, enc_pad_lens=pad, impl=impl)
+
+    info = compare_paths(torch, run, params, params32, what,
+                         bound_kernel_vs_plain)
+    info.update(batch=enc.shape[0], enc_pad_lens=pad is not None)
+    return info
+
+
+# --- the BERT slice and the array bias ----------------------------------------
+
+# BERT-large (Devlin et al. 2019: 24 layers, hidden 1024, 16 heads of 64,
+# FFN 4096) at pretraining phase 2's sequence 512, with the repo's
+# BertConfig vocab of 30592 (BERT's 30522 padded to a multiple of 128);
+# bf16, per-block remat, FusedAdam(lr=1e-4); batch 32 x 512
+BERT = dict(vocab_size=30592, max_seq_len=512, hidden_size=1024,
+            ffn_hidden_size=4096, num_layers=24, num_heads=16, remat=True)
+BERT_BATCH, BERT_SEQ, BERT_STEPS = 32, 512, 10
+BERT_PAD_MIN = 64       # padded lengths uniform in [64, 512]: ~44% padding
+BERT_MASK_RATE = 0.15   # BERT's masking rate over the valid positions
+DBIAS_TOL = 1e-3        # dbias: relative norm error vs the fp32 plain version
+T5_MAT_STEPS = 3        # timed steps of the T5 materialized-bias leg
+T5_MAT_GRAD_TOL = 1e-2  # each leaf, materialized vs bucketed: rel norm
+
+
+def packed_views(torch, dev, b, s, h, h_kv, d, seed):
+    """q (b, s, h, d), k/v (b, s, h_kv, d) as views of one packed (b, s,
+    (h + 2·h_kv)·d) projection buffer, as BERT's blocks pass them, and a
+    (b, s, h, d) do."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.randn((b, s, (h + 2 * h_kv) * d), generator=g,
+                    device=dev).bfloat16()
+    do = torch.randn((b, s, h, d), generator=g, device=dev).bfloat16()
+    return (y[..., :h * d].view(b, s, h, d),
+            y[..., h * d:(h + h_kv) * d].view(b, s, h_kv, d),
+            y[..., (h + h_kv) * d:].view(b, s, h_kv, d), do)
+
+
+def seeded_lens(torch, dev, b, lo, hi, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(lo, hi + 1, (b,), generator=g, device=dev,
+                         dtype=torch.int32)
+
+
+def family_check(torch, layout, q, k, v, do, kw, shape, errs, tag):
+    """One flash family (``layout`` "bshd": the seq-major dispatchers,
+    "bhsd": the bh-flat ones) against its plain version and the fp32
+    truth: o and lse, then dq, dk and dv on the plain forward's o and lse
+    by the flash rule; dbias, with an array bias, within DBIAS_TOL
+    relative norm of the fp32 plain version. A row of kv length 0 must
+    give zeros."""
+    from apex_tpu_torch.ops import attention as A
+
+    fwd, bwd = ((A.flash_fwd_bshd, A.flash_bwd_bshd) if layout == "bshd"
+                else (A.flash_fwd, A.flash_bwd))
+    up = lambda ts: [t.float() for t in ts]  # noqa: E731
+    o, lse = fwd(q, k, v, **kw)
+    o_p, lse_p = fwd(q, k, v, impl="torch", **kw)
+    o_t, lse_t = fwd(*up((q, k, v)), impl="torch", **kw)
+    torch.cuda.synchronize()
+    errs["fwd"] = max(errs["fwd"], rule_check(f"{tag} o", o, o_p, o_t, shape),
+                      rule_check(f"{tag} lse", lse, lse_p, lse_t, shape))
+    lens = kw.get("kv_lens")
+    if lens is not None and bool((lens == 0).any()):
+        dead = lens == 0  # (b,) on bshd, (b·h,) rows on bhsd
+        od = o[dead] if layout == "bshd" else o.reshape(
+            -1, *o.shape[-2:])[dead]
+        check(not od.float().any() and not lse[dead].any(),
+              f"{tag}: a row of kv length 0 is not zeros at {shape}")
+    del o, lse, o_t, lse_t
+    got = bwd(q, k, v, o_p, lse_p, do, **kw)
+    plain = bwd(q, k, v, o_p, lse_p, do, impl="torch", **kw)
+    truth = bwd(*up((q, k, v, o_p)), lse_p, do.float(), impl="torch", **kw)
+    torch.cuda.synchronize()
+    for name, g_, p_, t_ in zip(("dq", "dk", "dv"), got, plain, truth):
+        check(torch.isfinite(g_.float()).all().item(),
+              f"{tag} {name} kernel output not finite at {shape}")
+        e = rule_check(f"{tag} {name}", g_, p_, t_, shape)
+        key = "dq" if name == "dq" else "dkv"
+        errs[key] = max(errs[key], e)
+    if kw.get("bias") is not None:
+        rel = ((got[3] - truth[3]).norm() / truth[3].norm()).item()
+        emit("flash_check", {"output": f"{tag} dbias", "shape": shape,
+                             "rel_norm_err": rel, "tol": DBIAS_TOL})
+        check(rel <= DBIAS_TOL, f"dbias kernel vs the fp32 plain version: "
+              f"rel norm err {rel} > {DBIAS_TOL} at {shape}")
+        errs["dbias"] = max(errs["dbias"],
+                            (got[3] - truth[3]).abs().max().item())
+    del got, plain, truth, o_p, lse_p
+    torch.cuda.empty_cache()
+
+
+def sdpa_times(torch, F, q4, k4, v4, do4, scale, causal, lens, bias):
+    """One PyTorch call for the same function on (b, h, s, d) views: SDPA
+    with the padding as a key mask (boolean without a bias, else folded
+    into a float mask with the bias and the causal mask), forward and its
+    autograd backward; with a bias, also the backward that returns the
+    float mask's gradient beside dq, dk and dv. Timed, used nowhere.
+    Returns (fwd ms, backward ms, backward-with-the-mask's-gradient ms or
+    None)."""
+    b, h, sq, d = q4.shape
+    sk = k4.shape[2]
+    dev = q4.device
+    mask = None
+    if lens is not None:
+        mask = (torch.arange(sk, device=dev)[None, :]
+                < lens[:, None].long())[:, None, None, :]
+    if bias is not None:
+        fmask = bias.repeat(h // bias.shape[0], 1, 1)[None]
+        if causal:
+            tri = torch.ones((sq, sk), dtype=torch.bool,
+                             device=dev).tril(sk - sq)
+            fmask = fmask.masked_fill(~tri, float("-inf"))
+        if mask is not None:
+            fmask = fmask.masked_fill(~mask, float("-inf"))
+        mask = fmask.to(q4.dtype)
+    leaves = [t.detach().requires_grad_() for t in (q4, k4, v4)]
+    is_causal = causal and bias is None
+
+    def call(m):
+        return F.scaled_dot_product_attention(
+            *leaves, attn_mask=m, scale=scale, is_causal=is_causal)
+
+    fwd = time_ms(lambda: call(mask), [()])
+    out = call(mask)
+    bwd = time_ms(lambda: torch.autograd.grad(out, leaves, do4,
+                                              retain_graph=True), [()],
+                  reps=5)
+    if bias is None:
+        return fwd, bwd, None
+    mask = mask.detach().requires_grad_()
+    out = call(mask)
+    dbias = time_ms(lambda: torch.autograd.grad(out, [*leaves, mask], do4,
+                                                retain_graph=True), [()],
+                    reps=5)
+    del out, mask
+    return fwd, bwd, dbias
+
+
+def flash_bounds(b, h, h_kv, sq, sk, d, pairs, live_kv_rows, bias=None):
+    """Bounds of the flash family at one call, from this run's data:
+    ``pairs`` the score pairs the masks keep, ``live_kv_rows`` the kv rows
+    they read (each kv head's rows up to its sequence's length). Bytes:
+    each input read once (k and v over the live rows only), each output
+    written once (dK and dV whole); operations per pair: 4d forward, 8d
+    dK/dV, 6d dQ, 10d the function the backward pair replaces, 4d dbias
+    (QK^T and dP). An array bias adds its read, and dbias its write."""
+    t_q = b * h * sq * d * 2
+    t_kv_in = live_kv_rows * d * 2
+    t_kv_out = b * h_kv * sk * d * 2
+    small = b * h * sq * 4 + b * 4
+    nb = 0 if bias is None else bias.numel() * 4
+    bwd_in = 3 * t_q + 2 * t_kv_in + small + nb
+    return {"fwd": bound(2 * t_q + 2 * t_kv_in + small + nb, 4 * d * pairs,
+                         BF16_OPS_PER_S),
+            "dkv": bound(bwd_in + 2 * t_kv_out, 8 * d * pairs,
+                         BF16_OPS_PER_S),
+            "dq": bound(bwd_in + t_q, 6 * d * pairs, BF16_OPS_PER_S),
+            "function": bound(bwd_in + t_q + 2 * t_kv_out + nb,
+                              10 * d * pairs, BF16_OPS_PER_S),
+            "dbias": bound(bwd_in + nb, 4 * d * pairs, BF16_OPS_PER_S)}
+
+
+def phase_bert_kernels(torch, dev):
+    """The bshd forward with kv_lens, dQ and dK/dV kernels against their
+    plain versions at BERT-large's shape (b 32, s 512, 16 heads of 64, on
+    views of one packed projection; seeded lengths in [64, 512] with one
+    full row and one of length 0) and at a GQA shape; times, SDPA with the
+    key-padding mask, and bounds at BERT's shape."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import attention as A
+
+    errs = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0, "dbias": 0.0}
+    H, h = BERT["hidden_size"], BERT["num_heads"]
+    d = H // h
+    b, s = BERT_BATCH, BERT_SEQ
+    lens = seeded_lens(torch, dev, b, BERT_PAD_MIN, s, seed=61)
+    lens[0], lens[1] = s, 0
+    cases = ((b, s, h, h, d, False, lens, 62),
+             (4, 300, 8, 2, 64, True, torch.tensor(
+                 [300, 0, 77, 200], dtype=torch.int32, device=dev), 63))
+    for (b_, s_, h_, hk, d_, causal, ln, seed) in cases:
+        q, k, v, do = packed_views(torch, dev, b_, s_, h_, hk, d_, seed)
+        shape = {"b": b_, "s": s_, "h": h_, "h_kv": hk, "d": d_,
+                 "causal": causal, "kv_lens": ln.tolist()[:8]}
+        kw = dict(scale=d_ ** -0.5, causal=causal, kv_lens=ln)
+        family_check(torch, "bshd", q, k, v, do, kw, shape, errs, "bshd")
+        del q, k, v, do
+
+    q, k, v, do = packed_views(torch, dev, b, s, h, h, d, 64)
+    kw = dict(scale=d ** -0.5, causal=False, kv_lens=lens)
+    o, lse = A.flash_fwd_bshd_cuda(q, k, v, **kw)
+    ms_fwd = time_ms(lambda: A.flash_fwd_bshd_cuda(q, k, v, **kw), [()])
+    ms_dkv = time_ms(lambda: A.flash_bwd_bshd_dkv_cuda(q, k, v, o, lse, do,
+                                                       **kw), [()])
+    ms_dq = time_ms(lambda: A.flash_bwd_bshd_dq_cuda(q, k, v, o, lse, do,
+                                                     **kw), [()])
+    plain_fwd = time_ms(lambda: A.flash_fwd_bshd(q, k, v, impl="torch", **kw),
+                        [()], reps=2, trials=3)
+    plain_bwd = time_ms(lambda: A.flash_bwd_bshd(q, k, v, o, lse, do,
+                                                 impl="torch", **kw),
+                        [()], reps=2, trials=3)
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    lib_fwd, lib_bwd, _ = sdpa_times(torch, F, t(q), t(k), t(v), t(do),
+                                     kw["scale"], False, lens, None)
+    live = float(lens.sum())
+    bd = flash_bounds(b, h, h, s, s, d, s * h * live, h * live)
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    timed = {"b": b, "s": s, "heads": h, "kv_heads": h, "head_dim": d,
+             "causal": False, "dtype": "bf16", "kv_lens": "per batch, "
+             "seeded in [64, 512], one full row, one of length 0",
+             "layout": "views of the packed projection"}
+    src = "apex_tpu_torch/csrc/"
+    plain_note = ("one plain backward computes dq, dk and dv together; its "
+                  "time is given for both backward kernels")
+    lib_note = ("F.scaled_dot_product_attention with the key-padding mask; "
+                "its autograd backward computes dq, dk and dv in one call")
+    backward = {"function": "flash_bwd_bshd (dq, dk and dv)",
+                "ms": ms_dkv + ms_dq, "bound_ms": bd["function"][0],
+                "bound_by": bd["function"][1]}
+    fwd_bert = {"shape": timed, "max_abs_err": errs["fwd"], "ms": ms_fwd,
+                "plain_ms": plain_fwd, "bound_ms": bd["fwd"][0],
+                "bound_by": bd["fwd"][1], "library_ms": lib_fwd,
+                "library_note": "F.scaled_dot_product_attention forward with "
+                                "the key-padding mask"}
+    return fwd_bert, [
+        {"name": "flash_bwd_bshd_dkv", "route": "cuda",
+         "source": src + "flash_attn_bwd.cu",
+         "replaces": "apex_tpu/ops/pallas/attention.py:1486",
+         "max_abs_err": errs["dkv"], "ms": ms_dkv, "plain_ms": plain_bwd,
+         "bound_ms": bd["dkv"][0], "bound_by": bd["dkv"][1],
+         "library_ms": lib_bwd, "plain_note": plain_note,
+         "library_note": lib_note, "backward": backward,
+         "timed_shape": timed},
+        {"name": "flash_bwd_bshd_dq", "route": "cuda",
+         "source": src + "flash_attn_bwd.cu",
+         "replaces": "apex_tpu/ops/pallas/attention.py:1455",
+         "max_abs_err": errs["dq"], "ms": ms_dq, "plain_ms": plain_bwd,
+         "bound_ms": bd["dq"][0], "bound_by": bd["dq"][1],
+         "library_ms": lib_bwd, "plain_note": plain_note,
+         "library_note": lib_note, "backward": backward,
+         "timed_shape": timed},
+    ]
+
+
+# the array-bias calls compared and timed: T5's encoder self-attention as
+# the materialized leg's unpadded steps run it (no kv_lens; the kernels
+# line's times) and padded, its decoder self-attention, and the bshd
+# layout with one bias row shared by every head
+BIAS_CALLS = (
+    ("t5_enc", "bhsd", dict(b=T5_BATCH, h=12, sq=T5_ENC, sk=T5_ENC,
+                            causal=False, lens=None, hb=12)),
+    ("t5_enc_padded", "bhsd", dict(b=T5_BATCH, h=12, sq=T5_ENC, sk=T5_ENC,
+                                   causal=False, lens=(T5_PAD_MIN, T5_ENC),
+                                   hb=12)),
+    ("t5_dec", "bhsd", dict(b=T5_BATCH, h=12, sq=T5_DEC, sk=T5_DEC,
+                            causal=True, lens=None, hb=12)),
+    ("bshd_hb1", "bshd", dict(b=BERT_BATCH, h=16, sq=BERT_SEQ, sk=BERT_SEQ,
+                              causal=False, lens=(BERT_PAD_MIN, BERT_SEQ),
+                              hb=1)),
+)
+
+
+def phase_bias_kernels(torch, dev):
+    """The array bias: the flat forward, dK/dV and dQ kernels with it and
+    the dbias kernel, against their plain versions and the fp32 truth at
+    T5's encoder call (b 128, 12 heads of 64, 512 x 512, fp32 bias hb 12;
+    without kv_lens, as the materialized leg runs it, and with lengths in
+    [256, 512]) and decoder call (114 x 114 causal), and the bshd kernels
+    with a bias of one row (b 32, 16 heads of 64, 512 x 512, lengths in
+    [64, 512]); each timed beside its plain version, SDPA with the bias as
+    a float mask (for dbias: its backward with the mask's gradient), and
+    its bound."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import attention as A
+
+    errs = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0, "dbias": 0.0}
+    per = {}
+    for i, (name, layout, c) in enumerate(BIAS_CALLS):
+        b, h, sq, sk, hb, d = c["b"], c["h"], c["sq"], c["sk"], c["hb"], 64
+        g = torch.Generator(device=dev).manual_seed(70 + i)
+        bias = torch.randn((hb, sq, sk), generator=g, device=dev) * 0.5
+        lens_b = (None if c["lens"] is None else
+                  seeded_lens(torch, dev, b, *c["lens"], seed=80 + i))
+        if layout == "bshd":
+            q, k, v, do = packed_views(torch, dev, b, sq, h, h, d, 90 + i)
+            fwd, bwd, lens = A.flash_fwd_bshd, A.flash_bwd_bshd, lens_b
+            q4, k4, v4, do4 = (x.transpose(1, 2) for x in (q, k, v, do))
+            kern = (A.flash_fwd_bshd_cuda, A.flash_bwd_bshd_dkv_cuda,
+                    A.flash_bwd_bshd_dq_cuda)
+        else:
+            (q, k, v, do), _, _ = t5_attn_case(
+                torch, dev, "dec" if c["causal"] else "enc", b, 90 + i,
+                padded=False)
+            fwd, bwd = A.flash_fwd, A.flash_bwd
+            lens = (None if lens_b is None else
+                    lens_b[:, None].expand(b, h).reshape(-1).contiguous())
+            q4, k4, v4, do4 = q, k, v, do
+            kern = (A.flash_fwd_flat_cuda, A.flash_bwd_flat_dkv_cuda,
+                    A.flash_bwd_flat_dq_cuda)
+        kw = dict(scale=d ** -0.5, causal=c["causal"], kv_lens=lens,
+                  bias=bias)
+        shape = {"call": name, "layout": layout, "b": b, "h": h, "sq": sq,
+                 "sk": sk, "d": d, "hb": hb, "causal": c["causal"],
+                 "kv_lens": lens is not None}
+        family_check(torch, layout, q, k, v, do, kw, shape, errs,
+                     "bias " + layout)
+
+        o, lse = kern[0](q, k, v, **kw)
+        ms_fwd = time_ms(lambda: kern[0](q, k, v, **kw), [()])
+        ms_dkv = time_ms(lambda: kern[1](q, k, v, o, lse, do, **kw), [()])
+        ms_dq = time_ms(lambda: kern[2](q, k, v, o, lse, do, **kw), [()])
+        ms_db = time_ms(lambda: A.flash_bwd_dbias_cuda(
+            q, k, v, o, lse, do, bias, scale=kw["scale"], causal=c["causal"],
+            kv_lens=lens, layout=layout), [()])
+        plain_fwd = time_ms(lambda: fwd(q, k, v, impl="torch", **kw), [()],
+                            reps=2, trials=3)
+        plain_bwd = time_ms(lambda: bwd(q, k, v, o, lse, do, impl="torch",
+                                        **kw), [()], reps=2, trials=3)
+        torch.cuda.empty_cache()
+        lib_fwd, lib_bwd, lib_db = sdpa_times(
+            torch, F, q4, k4, v4, do4, kw["scale"], c["causal"], lens_b,
+            bias)
+        if c["causal"]:
+            pairs, live = b * h * sq * (sq + 1) / 2, b * h * sk
+        elif lens_b is None:
+            pairs, live = b * h * sq * sk, b * h * sk
+        else:
+            live = h * float(lens_b.double().sum())
+            pairs = sq * live
+        bd = flash_bounds(b, h, h, sq, sk, d, pairs, live, bias)
+        per[name] = {"shape": shape, "score_pairs": pairs, "fwd_ms": ms_fwd,
+                     "dkv_ms": ms_dkv, "dq_ms": ms_dq, "dbias_ms": ms_db,
+                     "plain_fwd_ms": plain_fwd, "plain_bwd_ms": plain_bwd,
+                     "sdpa_fwd_ms": lib_fwd, "sdpa_bwd_ms": lib_bwd,
+                     "sdpa_bwd_with_mask_grad_ms": lib_db, "bounds": bd}
+        emit("bias_kernel_times", per[name])
+        del q, k, v, do, q4, k4, v4, do4, o, lse, bias
+        torch.cuda.empty_cache()
+
+    enc = per["t5_enc"]
+    timed = dict(enc["shape"], dtype="bf16 operands, fp32 bias",
+                 operands="(b, h, s, d) views of the projection output")
+    return per, {
+        "name": "flash_bwd_dbias", "route": "cuda",
+        "source": "apex_tpu_torch/csrc/flash_attn_dbias.cu",
+        "replaces": "apex_tpu/ops/pallas/attention.py:1095",
+        "max_abs_err": errs["dbias"], "ms": enc["dbias_ms"],
+        "plain_ms": enc["plain_bwd_ms"],
+        "bound_ms": enc["bounds"]["dbias"][0],
+        "bound_by": enc["bounds"]["dbias"][1],
+        "library_ms": enc["sdpa_bwd_with_mask_grad_ms"],
+        "plain_note": "one plain backward computes dq, dk, dv and dbias "
+                      "together; its time is given",
+        "library_note": "the autograd backward of F.scaled_dot_product_"
+                        "attention with the bias as a float attn_mask that "
+                        "requires grad: dq, dk, dv and the mask's gradient "
+                        "per (batch, head) row, not summed over the rows "
+                        "that share a bias row",
+        "timed_shape": timed,
+        "per_shape": {k_: {f: v_ for f, v_ in s_.items() if f != "shape"}
+                      for k_, s_ in per.items()},
+        "flash_max_abs_err": {k_: errs[k_] for k_ in ("fwd", "dkv", "dq")}}
+
+
+def bert_flops_per_step(lens):
+    """Model FLOPs of one BERT train step (forward + backward, no remat
+    recompute): 6 x the matmul parameters each token passes through (per
+    layer qkv and out 4H^2, the MLP 2HF; the tied MLM head VH) x b·s,
+    plus 12 x H x layers x the score pairs the lengths keep (every query
+    row against its sequence's live keys)."""
+    H, Fh, V = BERT["hidden_size"], BERT["ffn_hidden_size"], BERT["vocab_size"]
+    L = BERT["num_layers"]
+    tokens = BERT_BATCH * BERT_SEQ
+    pairs = BERT_SEQ * float(lens.double().sum())
+    return 6 * (L * (4 * H * H + 2 * H * Fh) + V * H) * tokens \
+        + 12 * H * L * pairs
+
+
+def bert_batch(torch, dev, seed):
+    """A padded MLM batch: seeded tokens and targets, lengths uniform in
+    [64, 512] (suffix padding), token types A then B split at a seeded
+    point inside each sequence (padding type 0), and 15% of the valid
+    positions in the loss mask. Returns (tokens, targets, loss_mask,
+    token_types, pad_mask) and the lengths."""
+    b, s, V = BERT_BATCH, BERT_SEQ, BERT["vocab_size"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, V, (b, s), generator=g, device=dev)
+    targets = torch.randint(0, V, (b, s), generator=g, device=dev)
+    lens = torch.randint(BERT_PAD_MIN, s + 1, (b,), generator=g, device=dev)
+    pos = torch.arange(s, device=dev)[None, :]
+    valid = pos < lens[:, None]
+    split = 1 + (torch.rand((b, 1), generator=g, device=dev)
+                 * (lens[:, None] - 1)).long()
+    types = ((pos >= split) & valid).long()
+    loss_mask = ((torch.rand((b, s), generator=g, device=dev)
+                  < BERT_MASK_RATE) & valid).float()
+    return (tokens, targets, loss_mask, types, ~valid), lens
+
+
+def bert_model(torch, dev, dtype):
+    from apex_tpu_torch.models.bert import BertConfig, BertModel, param_leaves
+
+    model = BertModel(BertConfig(**BERT, dtype=dtype))
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    for t in param_leaves(params):
+        t.requires_grad_()
+    return model, params
+
+
+def bert_step(model, params, opt, batch):
+    loss = model.mlm_loss(params, *batch)
+    loss.backward()
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    return loss.detach()
+
+
+def path_counters():
+    """Every flash and xent_stats counter, by name: the kernels a path
+    must launch and those it must not."""
+    from apex_tpu_torch.ops import attention as A
+    from apex_tpu_torch.ops import xentropy as X
+
+    return {"flash_fwd": (A.flash_fwd_cuda, "launches"),
+            "flash_bwd_dkv": (A.flash_bwd_dkv_cuda, "launches"),
+            "flash_bwd_dq": (A.flash_bwd_dq_cuda, "launches"),
+            "flash_fwd_bshd": (A.flash_fwd_bshd_cuda, "launches"),
+            "flash_fwd_bshd_bias": (A.flash_fwd_bshd_cuda, "bias_launches"),
+            "flash_bwd_bshd_dkv": (A.flash_bwd_bshd_dkv_cuda, "launches"),
+            "flash_bwd_bshd_dq": (A.flash_bwd_bshd_dq_cuda, "launches"),
+            "flash_fwd_flat": (A.flash_fwd_flat_cuda, "launches"),
+            "flash_fwd_flat_bias": (A.flash_fwd_flat_cuda, "bias_launches"),
+            "flash_bwd_flat_dkv": (A.flash_bwd_flat_dkv_cuda, "launches"),
+            "flash_bwd_flat_dkv_bias": (A.flash_bwd_flat_dkv_cuda,
+                                        "bias_launches"),
+            "flash_bwd_flat_dtable": (A.flash_bwd_flat_dkv_cuda,
+                                      "table_launches"),
+            "flash_bwd_flat_dq": (A.flash_bwd_flat_dq_cuda, "launches"),
+            "flash_bwd_flat_dq_bias": (A.flash_bwd_flat_dq_cuda,
+                                       "bias_launches"),
+            "flash_bwd_dbias": (A.flash_bwd_dbias_cuda, "launches"),
+            "xent_stats": (X.xent_stats_cuda, "launches")}
+
+
+def zero_counters():
+    for fn, attr in path_counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_counters():
+    return {k: getattr(fn, attr) for k, (fn, attr) in path_counters().items()}
+
+
+def check_launches(launches, want, steps, what):
+    """Every counter equals its per-step count in ``want`` (0 if absent)
+    times ``steps``."""
+    for k, n in launches.items():
+        check(n == want.get(k, 0) * steps,
+              f"{what}: {n} {k} launches in {steps} steps, want "
+              f"{want.get(k, 0)} per step")
+
+
+def phase_bert_train(torch, dev):
+    """The BERT slice's main path: BertModel.mlm_loss, backward and one
+    FusedAdam step at BERT-large, batch 32 x 512 padded: a warm-up, then
+    BERT_STEPS timed steps with the counters zeroed just before and read
+    just after. Per step: 48 bshd forwards (24 layers, run again by the
+    remat), 24 bshd dQ, 24 bshd dK/dV, one xent_stats, nothing else."""
+    from apex_tpu_torch.models.bert import param_leaves
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    model, params = bert_model(torch, dev, torch.bfloat16)
+    opt = FusedAdam(param_leaves(params), lr=1e-4)
+    batch, lens = bert_batch(torch, dev, seed=1)
+    bert_step(model, params, opt, batch)  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    zero_counters()
+    t0 = time.perf_counter()
+    losses = [bert_step(model, params, opt, batch)
+              for _ in range(BERT_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"BERT losses not finite: {losses}")
+    check(losses[-1] < losses[0], f"BERT loss did not fall: {losses}")
+    L = BERT["num_layers"]
+    check_launches(launches, {"flash_fwd_bshd": 2 * L,
+                              "flash_bwd_bshd_dq": L,
+                              "flash_bwd_bshd_dkv": L, "xent_stats": 1},
+                   BERT_STEPS, "BERT train path")
+    # the interior-mask check reads the pad mask on the host: one
+    # synchronising read per step, timed on its own here and seen in the
+    # profile's idle share
+    pad_mask = batch[4]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(20):
+        model.pad_lengths(pad_mask)
+    torch.cuda.synchronize()
+    check_ms = (time.perf_counter() - t1) / 20 * 1e3
+    tok = BERT_BATCH * BERT_SEQ * BERT_STEPS
+    valid = float(lens.double().sum()) * BERT_STEPS
+    flops = bert_flops_per_step(lens) * BERT_STEPS / wall
+    info = {"batch": BERT_BATCH, "seq": BERT_SEQ, "steps": BERT_STEPS,
+            "padding_share": 1 - valid / tok, "losses": losses,
+            "wall_s": wall, "step_ms": 1e3 * wall / BERT_STEPS,
+            "tokens_per_s": tok / wall, "valid_tokens_per_s": valid / wall,
+            "model_flops_per_step": bert_flops_per_step(lens),
+            "model_tflops_per_s": flops / 1e12,
+            "mfu": flops / BF16_OPS_PER_S,
+            "mfu_peak": "989 TFLOP/s dense bf16 (H100 SXM data sheet)",
+            "card": torch.cuda.get_device_name(0),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "pad_mask_check_ms": check_ms,
+            "launches_per_step": {k: v / BERT_STEPS
+                                  for k, v in launches.items() if v}}
+    return (model, params, opt, batch), info, launches
+
+
+def compare_paths(torch, run, params, params32, what, bound_kernel_vs_plain,
+                  view=None):
+    """One step's loss and gradients at ``params``: the kernel path against
+    the plain path, and both against an fp32 plain-path truth at
+    ``params32`` (the same params upcast). ``run(p, impl)`` returns the
+    loss. Each leaf's kernel-path error from the truth must be at most
+    twice the bf16 plain path's plus 1e-3 (the flash kernels' rule lifted
+    to the step), the losses within TRAIN_LOSS_TOL; where
+    ``bound_kernel_vs_plain``, each leaf's kernel-vs-plain error is also
+    held to TRAIN_GRAD_TOL. ``view(name, grad)`` may narrow a leaf's
+    gradient; leaves without a gradient are skipped."""
+
+    def loss_and_grads(p, impl):
+        loss = run(p, impl)
         loss.backward()
         out = {}
         for name, t in named_leaves(p):
-            out[name] = t.grad.float()
+            if t.grad is not None:
+                g = t.grad.float()
+                out[name] = g if view is None else view(name, g)
             t.grad = None
         return loss.item(), out
 
@@ -1745,16 +2286,14 @@ def phase_t5_plain(torch, model, params, enc, dec, tgt, pad, what,
         return {n: ((a[n] - b[n]).norm() / b[n].norm().clamp_min(1e-30))
                 .item() for n in b}
 
-    loss_k, g_k = loss_and_grads(model, params, "auto")
-    loss_p, g_p = loss_and_grads(model, params, "torch")
-    loss_t, g_t = loss_and_grads(model32, params32, "torch")
-    del model32, params32
+    loss_k, g_k = loss_and_grads(params, "auto")
+    loss_p, g_p = loss_and_grads(params, "torch")
+    loss_t, g_t = loss_and_grads(params32, "torch")
     kp, kt, pt = rel(g_k, g_p), rel(g_k, g_t), rel(g_p, g_t)
     worst = sorted(kp.items(), key=lambda kv: -kv[1])
     rule = {n: kt[n] - (2 * pt[n] + 1e-3) for n in kt}
     worst_rule = max(rule, key=rule.get)
-    info = {"batch": enc.shape[0], "params": what,
-            "enc_pad_lens": pad is not None,
+    info = {"params": what,
             "loss_kernel": loss_k, "loss_plain": loss_p,
             "loss_fp32_truth": loss_t,
             "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
@@ -1772,17 +2311,137 @@ def phase_t5_plain(torch, model, params, enc, dec, tgt, pad, what,
                 "top_kernel_vs_plain": {n: [e, kt[n], pt[n]]
                                         for n, e in worst[:5]}}}
     check(info["loss_rel_diff"] <= TRAIN_LOSS_TOL,
-          f"T5 loss at {what}, kernel vs plain: rel diff "
+          f"loss at {what}, kernel vs plain: rel diff "
           f"{info['loss_rel_diff']}")
     if bound_kernel_vs_plain:
         check(worst[0][1] <= TRAIN_GRAD_TOL,
-              f"T5 gradient {worst[0][0]} at {what}, kernel vs plain: rel "
+              f"gradient {worst[0][0]} at {what}, kernel vs plain: rel "
               f"norm err {worst[0][1]} > {TRAIN_GRAD_TOL}")
     check(rule[worst_rule] <= 0,
-          f"T5 gradient {worst_rule} at {what}: kernel path {kt[worst_rule]} "
+          f"gradient {worst_rule} at {what}: kernel path {kt[worst_rule]} "
           f"from the fp32 truth, more than twice the plain path's "
           f"{pt[worst_rule]} + 1e-3")
     return info
+
+
+def phase_bert_plain(torch, dev):
+    """One BERT step at the initial params on the timed steps' batch: the
+    kernel path against the plain path and both against an fp32 truth
+    (compare_paths). The k window of each qkv bias is left out of its
+    leaf's norm: its exact gradient is 0 (one constant added to every
+    score of a row), so both paths hold only bf16 rounding noise there."""
+    from apex_tpu_torch.models.bert import param_leaves
+
+    model, params = bert_model(torch, dev, torch.bfloat16)
+    model32, params32 = bert_model(torch, dev, torch.float32)
+    with torch.no_grad():
+        for a, b in zip(param_leaves(params32), param_leaves(params)):
+            a.copy_(b.float())
+    batch, _ = bert_batch(torch, dev, seed=1)
+    H = BERT["hidden_size"]
+
+    def run(p, impl):
+        m = model32 if p is params32 else model
+        return m.mlm_loss(p, *batch, impl=impl)
+
+    def view(name, g):
+        if name.endswith("qkv.bias"):
+            return torch.cat([g[:H], g[2 * H:]])
+        return g
+
+    info = compare_paths(torch, run, params, params32, "initial (seed 0)",
+                         True, view)
+    info["batch"] = BERT_BATCH
+    return info
+
+
+def t5_mat_model(torch, dev):
+    from apex_tpu_torch.models.t5 import EncoderDecoderModel, T5Config
+
+    return EncoderDecoderModel(T5Config(
+        **T5, dtype=torch.bfloat16, relative_bias_impl="materialized"))
+
+
+def phase_t5_materialized(torch, dev):
+    """The T5 materialized leg: the T5 slice's config and batch with
+    relative_bias_impl="materialized". First one step's loss and
+    gradients against the bucketed path at the same (initial) params and
+    batch; then a warm-up and T5_MAT_STEPS timed steps with the counters
+    zeroed just before and read just after. Per step: 72 flat forwards
+    (48 with the array bias: the 24 self-attention calls, each run again
+    by the remat), 36 dK/dV and 36 dQ (24 of each with the bias), 24
+    dbias launches, no table gradient, one xent_stats."""
+    from apex_tpu_torch.models.t5 import param_leaves
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    bucketed, params = t5_model(torch, dev, torch.bfloat16)
+    model = t5_mat_model(torch, dev)
+    enc, dec, tgt, _ = t5_batch(torch, dev, T5_BATCH, seed=1)
+
+    def loss_and_grads(m):
+        loss = m.loss_fn(params, enc, dec, tgt)
+        loss.backward()
+        out = {}
+        for name, t in named_leaves(params):
+            out[name] = t.grad.float()
+            t.grad = None
+        return loss.item(), out
+
+    loss_m, g_m = loss_and_grads(model)
+    loss_b, g_b = loss_and_grads(bucketed)
+    rel = {n: ((g_m[n] - g_b[n]).norm() / g_b[n].norm().clamp_min(1e-30))
+           .item() for n in g_b}
+    worst = max(rel, key=rel.get)
+    vs = {"loss_materialized": loss_m, "loss_bucketed": loss_b,
+          "loss_rel_diff": abs(loss_m - loss_b) / abs(loss_b),
+          "loss_tol": TRAIN_LOSS_TOL, "grad_worst_leaf": worst,
+          "grad_rel_norm_err_max": rel[worst], "grad_tol": T5_MAT_GRAD_TOL,
+          "median_leaf_err": statistics.median(rel.values()),
+          "table_grad_rel_distance": {n: rel[n] for n in rel
+                                      if "rel_bias" in n}}
+    emit("t5_materialized_vs_bucketed", vs)
+    check(vs["loss_rel_diff"] <= TRAIN_LOSS_TOL,
+          f"T5 materialized vs bucketed: loss rel diff {vs['loss_rel_diff']}")
+    check(rel[worst] <= T5_MAT_GRAD_TOL,
+          f"T5 materialized vs bucketed: gradient {worst} rel norm err "
+          f"{rel[worst]} > {T5_MAT_GRAD_TOL}")
+    del g_m, g_b, bucketed
+
+    opt = FusedAdam(param_leaves(params), lr=1e-4)
+    t5_step(model, params, opt, enc, dec, tgt)  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    t0 = time.perf_counter()
+    losses = [t5_step(model, params, opt, enc, dec, tgt)
+              for _ in range(T5_MAT_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"T5 materialized losses: {losses}")
+    check(losses[-1] < losses[0], f"T5 materialized loss did not fall: "
+          f"{losses}")
+    L = T5["num_encoder_layers"] + 2 * T5["num_decoder_layers"]
+    selfs = T5["num_encoder_layers"] + T5["num_decoder_layers"]
+    check_launches(launches, {
+        "flash_fwd_flat": 2 * L, "flash_fwd_flat_bias": 2 * selfs,
+        "flash_bwd_flat_dkv": L, "flash_bwd_flat_dkv_bias": selfs,
+        "flash_bwd_flat_dq": L, "flash_bwd_flat_dq_bias": selfs,
+        "flash_bwd_dbias": selfs, "xent_stats": 1},
+        T5_MAT_STEPS, "T5 materialized leg")
+    tok = T5_BATCH * (T5_ENC + T5_DEC) * T5_MAT_STEPS
+    flops = t5_flops_per_step(T5_BATCH, T5_ENC, T5_DEC) * T5_MAT_STEPS / wall
+    info = {"batch": T5_BATCH, "enc_len": T5_ENC, "dec_len": T5_DEC,
+            "steps": T5_MAT_STEPS, "losses": losses, "wall_s": wall,
+            "step_ms": 1e3 * wall / T5_MAT_STEPS, "tokens_per_s": tok / wall,
+            "model_tflops_per_s": flops / 1e12,
+            "mfu": flops / BF16_OPS_PER_S,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "vs_bucketed": vs,
+            "launches_per_step": {k: v / T5_MAT_STEPS
+                                  for k, v in launches.items() if v}}
+    return info, launches
 
 
 def main():
@@ -1844,6 +2503,8 @@ def main():
                             **SAMPLED)
     launches = {"paged_decode_attn": dmod.paged_decode_attn_cuda.launches,
                 "fused_sample": smod.fused_sample_cuda.launches}
+    # each main path's counts, read just after it ran with them zeroed
+    paths = {"serve": launches}
     emit("serve_greedy", g_info)
     emit("serve_sampled", s_info)
     L = MODEL["num_layers"]
@@ -1887,24 +2548,21 @@ def main():
         emit("kernel", k)
     kernels += d_kernels
     torch.cuda.empty_cache()
-    eng, cache, greedy_dec, d_info, d_launches = phase_decode(
+    eng, cache, greedy_dec, d_info, paths["decode"] = phase_decode(
         torch, model, params, dev)
-    launches.update(d_launches)
     emit("decode", d_info)
     emit("decode_profile", phase_decode_outside(
         torch, model, params, dev, eng, cache, greedy_dec,
         min(d_info["decode_pass_ms"]) / 1e3))
     del eng, cache
     torch.cuda.empty_cache()
-    s_info, s_launches = phase_spec(torch, model, params, dev)
-    launches.update(s_launches)
+    s_info, paths["spec"] = phase_spec(torch, model, params, dev)
     emit("spec", s_info)
     del model, params
     torch.cuda.empty_cache()
 
     # --- the train path -------------------------------------------------------
-    state, t_info, t_launches = phase_train(torch, dev)
-    launches.update(t_launches)
+    state, t_info, paths["gpt_train"] = phase_train(torch, dev)
     emit("train", t_info)
     phase_train_plain(torch, *state[:2], *state[3:])
     emit("train_profile", phase_train_profile(
@@ -1923,8 +2581,7 @@ def main():
         torch, *t5_model(torch, dev, torch.bfloat16),
         *t5_batch(torch, dev, T5_BATCH, seed=3), "initial (seed 0)", True))
     torch.cuda.empty_cache()
-    t5_state, t5_info, t5_launches = phase_t5_train(torch, dev)
-    launches.update(t5_launches)
+    t5_state, t5_info, paths["t5_train"] = phase_t5_train(torch, dev)
     emit("t5_train", t5_info)
     # at the params the timed steps left, on the same unpadded batch
     enc, dec, tgt, _ = t5_batch(torch, dev, T5_BATCH, seed=1)
@@ -1936,9 +2593,61 @@ def main():
     emit("t5_profile", phase_train_profile(
         torch, lambda: t5_step(*t5_state, enc, dec, tgt),
         t5_info["step_ms"] / 1e3))
+    del t5_state, enc, dec, tgt
+    torch.cuda.empty_cache()
+
+    # --- the BERT slice -------------------------------------------------------
+    fwd_bert, bert_kernels = phase_bert_kernels(torch, dev)
+    by_name = {k["name"]: k for k in kernels}
+    bshd = by_name["flash_fwd_bshd"]
+    bshd["per_shape"] = {"bert_padded": fwd_bert}
+    bshd["max_abs_err"] = max(bshd["max_abs_err"], fwd_bert["max_abs_err"])
+    for k in bert_kernels:
+        emit("kernel", k)
+    kernels += bert_kernels
+    torch.cuda.empty_cache()
+    emit("bert_plain_path", phase_bert_plain(torch, dev))
+    torch.cuda.empty_cache()
+    b_state, b_info, paths["bert_train"] = phase_bert_train(torch, dev)
+    emit("bert_train", b_info)
+    emit("bert_profile", phase_train_profile(
+        torch, lambda: bert_step(*b_state), b_info["step_ms"] / 1e3))
+    del b_state
+    torch.cuda.empty_cache()
+
+    # --- the array bias and the T5 materialized leg ---------------------------
+    per_bias, dbias_kernel = phase_bias_kernels(torch, dev)
+    flash_errs = dbias_kernel.pop("flash_max_abs_err")
+    by_name = {k["name"]: k for k in kernels}
+    # the array-bias option's checks and times go to the kernels that run it
+    for op, names in (("fwd", ("flash_fwd_flat", "flash_fwd_bshd")),
+                      ("dkv", ("flash_bwd_flat_dkv", "flash_bwd_bshd_dkv")),
+                      ("dq", ("flash_bwd_flat_dq", "flash_bwd_bshd_dq"))):
+        plain = "plain_fwd_ms" if op == "fwd" else "plain_bwd_ms"
+        for name in names:
+            k = by_name[name]
+            layout = "bshd" if "bshd" in name else "bhsd"
+            k["array_bias"] = {
+                call: {"ms": v[f"{op}_ms"], "plain_ms": v[plain],
+                       "bound_ms": v["bounds"][op][0],
+                       "bound_by": v["bounds"][op][1],
+                       "library_ms": v["sdpa_fwd_ms" if op == "fwd"
+                                       else "sdpa_bwd_ms"]}
+                for call, v in per_bias.items()
+                if v["shape"]["layout"] == layout}
+            k["max_abs_err"] = max(k["max_abs_err"], flash_errs[op])
+    emit("kernel", dbias_kernel)
+    kernels.append(dbias_kernel)
+    torch.cuda.empty_cache()
+    m_info, paths["t5_materialized"] = phase_t5_materialized(torch, dev)
+    emit("t5_materialized", m_info)
+    torch.cuda.empty_cache()
 
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        by = {p_: n[k["name"]] for p_, n in paths.items()
+              if n.get(k["name"])}
+        k["launches"] = sum(by.values())
+        k["launches_by_path"] = by
         check(k["launches"] > 0, f"{k['name']} never launched on the path")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -143,17 +143,23 @@ class TestKernelsPlainVersions:
         x = torch.zeros((1, 8, 2, 64))
         # the bh-flat layout is the default (as in the reference) and runs
         assert amod.flash_attention(x, x, x).shape == x.shape
-        for kw in (dict(kv_lens=torch.ones(1)), dict(bias=x),
+        # per-batch kv_lens and an array bias run on the bshd layout now;
+        # dropout and the bucketed bias there are later slices
+        assert amod.flash_attention(x, x, x, layout="bshd",
+                                    kv_lens=torch.ones(1)).shape == x.shape
+        for kw in (dict(bias=amod.BucketedBias(torch.zeros(32, 2))),
                    dict(dropout_rate=0.1)):
             with pytest.raises(NotImplementedError, match="later slice"):
                 amod.flash_attention(x, x, x, layout="bshd", **kw)
+        with pytest.raises(ValueError, match="bias must be"):
+            amod.flash_attention(x, x, x, layout="bshd", bias=x)
         with pytest.raises(ValueError, match="sq <= sk"):
             amod.flash_attention(x, x[:, :4], x[:, :4], causal=True,
                                  layout="bshd")
+        # the backward runs (flash_bwd_bshd's plain version here)
         q = torch.zeros((1, 8, 2, 64), requires_grad=True)
-        o = amod.flash_attention(q, x, x, layout="bshd")
-        with pytest.raises(NotImplementedError, match="flash_bwd_bshd"):
-            o.sum().backward()
+        amod.flash_attention(q, x, x, layout="bshd").sum().backward()
+        assert q.grad.shape == q.shape
 
 
 class TestEngine:

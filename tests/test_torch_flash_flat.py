@@ -197,8 +197,8 @@ def test_kernel_lookup_equals_the_materialized_bias(bidirectional):
 
 def test_flash_attention_refusals():
     x = torch.zeros((1, 2, 128, 64))
-    with pytest.raises(NotImplementedError, match="_dbias_pallas"):
-        amod.flash_attention(x, x, x, bias=torch.zeros(2, 128, 128))
+    with pytest.raises(ValueError, match="bias must be"):
+        amod.flash_attention(x, x, x, bias=torch.zeros(2, 128, 64))
     with pytest.raises(NotImplementedError, match="dropout"):
         amod.flash_attention(x, x, x, dropout_rate=0.1)
     with pytest.raises(ValueError, match="sq <= sk"):

@@ -50,7 +50,7 @@ def test_every_module_imports_with_jax_blocked():
         "    importlib.import_module(m)\n"
         "for want in ('serving.engine', 'inference.engine', "
         "'inference.sampling', 'ops.fused_verify', 'spec.drafter', "
-        "'spec.tree', 'models.t5', 'models.convert'):\n"
+        "'spec.tree', 'models.t5', 'models.bert', 'models.convert'):\n"
         "    assert 'apex_tpu_torch.' + want in mods, want\n"
         "assert not any(k.split('.')[0] in ('jax', 'apex_tpu') and "
         "sys.modules[k] is not None for k in list(sys.modules))\n"

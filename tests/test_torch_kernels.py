@@ -27,6 +27,10 @@ the verify kernels' verdicts equal to the plain version's exactly in
 greedy mode, and in sampled mode except on a batch row with a near-tie
 (two best perturbed scores of a row, or an acceptance draw and its
 probability, within 1e-5 relative), at most 1% of rows.
+
+The bshd backward (BERT's padded train step) and the array bias of both
+layouts: dq, dk, dv, o and lse under the same bf16 rule; dbias within
+1e-3 relative norm of the plain version run in fp32 (the truth).
 """
 
 import numpy as np
@@ -569,3 +573,186 @@ def test_flash_flat_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="kv_lens"):
         amod.flash_fwd(qb, qb, qb, scale=1.0, causal=False,
                        kv_lens=torch.ones(2, dtype=torch.int64, device=cuda))
+
+
+# --- the bshd backward and the array bias (BERT, T5 materialized) -------------
+
+DBIAS_TOL = 1e-3  # dbias: relative norm error against the fp32 truth
+
+
+def _bshd_inputs(b, sq, sk, h, h_kv, d, dev, seed, packed):
+    """bf16 q (b, sq, h, d), k/v (b, sk, h_kv, d), do: with ``packed``
+    views of one (b, s, (h + 2·h_kv)·d) projection buffer, as BERT passes
+    them (sq == sk), else separate contiguous tensors."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev).bfloat16()  # noqa: E731,E501
+    do = rnd(b, sq, h, d)
+    if packed:
+        y = rnd(b, sq, (h + 2 * h_kv) * d)
+        return (y[..., :h * d].view(b, sq, h, d),
+                y[..., h * d:(h + h_kv) * d].view(b, sq, h_kv, d),
+                y[..., (h + h_kv) * d:].view(b, sq, h_kv, d), do)
+    return rnd(b, sq, h, d), rnd(b, sk, h_kv, d), rnd(b, sk, h_kv, d), do
+
+
+def _bias_input(hb, sq, sk, dev, seed=5):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((hb, sq, sk), generator=g, device=dev)
+
+
+def _counts(*fns):
+    return tuple(getattr(f, a) for f in fns
+                 for a in ("launches", "bias_launches") if hasattr(f, a))
+
+
+def _check_dbias(got, truth):
+    assert got.dtype == torch.float32 and got.shape == truth.shape
+    err = ((got - truth).norm() / truth.norm()).item()
+    assert err <= DBIAS_TOL, f"dbias rel norm err {err}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,h_kv,d,causal,lens,hb,packed", [
+    # BERT-large's heads at a small batch: a row of length 0, a full row
+    (4, 512, 512, 16, 16, 64, False, [512, 0, 64, 300], None, True),
+    # GQA, causal, d 128, no padding
+    (2, 300, 300, 8, 2, 128, True, None, None, True),
+    # sq != sk, ragged tails, a bias shared by head pairs (hb 2 | h 4)
+    (3, 77, 200, 4, 4, 128, False, [1, 200, 130], 2, False),
+    # GQA with a broadcast bias (hb 1), causal and padded
+    (2, 114, 114, 8, 2, 64, True, [114, 50], 1, True),
+    # one bias row per head (hb = h), a kv tile past every length
+    (2, 128, 256, 4, 4, 64, False, [60, 0], 4, False),
+])
+def test_flash_bshd_backward_kernels_match_plain(cuda, b, sq, sk, h, h_kv, d,
+                                                 causal, lens, hb, packed):
+    q, k, v, do = _bshd_inputs(b, sq, sk, h, h_kv, d, cuda, sq + sk + h,
+                               packed)
+    kv_lens = (None if lens is None else
+               torch.tensor(lens, dtype=torch.int32, device=cuda))
+    bias = None if hb is None else _bias_input(hb, sq, sk, cuda)
+    kw = dict(scale=d ** -0.5, causal=causal, kv_lens=kv_lens, bias=bias)
+    up = lambda ts: [t.float() for t in ts]  # noqa: E731
+    fns = (amod.flash_fwd_bshd_cuda, amod.flash_bwd_bshd_dkv_cuda,
+           amod.flash_bwd_bshd_dq_cuda, amod.flash_bwd_dbias_cuda)
+    before = _counts(*fns)
+    o, lse = amod.flash_fwd_bshd(q, k, v, **kw)
+    o_p, lse_p = amod.flash_fwd_bshd(q, k, v, impl="torch", **kw)
+    o_t, lse_t = amod.flash_fwd_bshd(*up((q, k, v)), impl="torch", **kw)
+    for name, got, p, t in (("o", o, o_p, o_t), ("lse", lse, lse_p, lse_t)):
+        ok, errs = _within_rule(got, p, t)
+        assert ok, f"bshd fwd {name}: kernel/plain errors {errs}"
+    if lens is not None and 0 in lens:
+        dead = kv_lens == 0
+        assert not o[dead].float().any() and not lse[dead].any()
+    grads = amod.flash_bwd_bshd(q, k, v, o_p, lse_p, do, **kw)
+    plain = amod.flash_bwd_bshd(q, k, v, o_p, lse_p, do, impl="torch", **kw)
+    truth = amod.flash_bwd_bshd(*up((q, k, v, o_p)), lse_p, do.float(),
+                                impl="torch", **kw)
+    torch.cuda.synchronize()
+    b_ = bias is not None
+    assert _counts(*fns) == tuple(n + i for n, i in zip(
+        before, (1, b_, 1, b_, 1, b_, b_)))
+    for name, got, p, t in zip(("dq", "dk", "dv"), grads, plain, truth):
+        assert got.shape == p.shape and torch.isfinite(got.float()).all()
+        ok, errs = _within_rule(got, p, t)
+        assert ok, f"bshd bwd {name}: kernel/plain errors {errs}"
+    if bias is None:
+        assert grads[3] is None
+    else:
+        _check_dbias(grads[3], truth[3])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,h_kv,sq,sk,d,causal,lens,hb,views", [
+    # T5's encoder call at a small batch: one bias row per head, padded
+    (2, 4, 4, 512, 512, 64, False, [300, 512], 4, True),
+    # T5's decoder self-attention: causal, a tail of 114
+    (2, 4, 4, 114, 114, 64, True, None, 4, True),
+    # a broadcast bias (hb 1), GQA, d 128, a row of length 0
+    (2, 8, 2, 128, 256, 128, False, [0, 60], 1, False),
+    # one bias row per q-head row (hb = b·h), causal sq < sk
+    (3, 2, 1, 77, 100, 128, True, [100, 1, 40], 6, False),
+])
+def test_flash_flat_array_bias_kernels_match_plain(cuda, b, h, h_kv, sq, sk,
+                                                   d, causal, lens, hb,
+                                                   views):
+    q, k, v, do = _flat_inputs(b, h, h_kv, sq, sk, d, cuda, seed=sq + hb,
+                               views=views)
+    kv_lens = (None if lens is None else torch.tensor(
+        np.repeat(lens, h), dtype=torch.int32, device=cuda))
+    bias = _bias_input(hb, sq, sk, cuda)
+    kw = dict(scale=d ** -0.5, causal=causal, kv_lens=kv_lens, bias=bias)
+    up = lambda ts: [t.float() for t in ts]  # noqa: E731
+    fns = (amod.flash_fwd_flat_cuda, amod.flash_bwd_flat_dkv_cuda,
+           amod.flash_bwd_flat_dq_cuda, amod.flash_bwd_dbias_cuda)
+    before = _counts(*fns)
+    table_before = amod.flash_bwd_flat_dkv_cuda.table_launches
+    o, lse = amod.flash_fwd(q, k, v, **kw)
+    o_p, lse_p = amod.flash_fwd(q, k, v, impl="torch", **kw)
+    o_t, lse_t = amod.flash_fwd(*up((q, k, v)), impl="torch", **kw)
+    for name, got, p, t in (("o", o, o_p, o_t), ("lse", lse, lse_p, lse_t)):
+        ok, errs = _within_rule(got, p, t)
+        assert ok, f"flat bias fwd {name}: kernel/plain errors {errs}"
+    grads = amod.flash_bwd(q, k, v, o_p, lse_p, do, **kw)
+    plain = amod.flash_bwd(q, k, v, o_p, lse_p, do, impl="torch", **kw)
+    truth = amod.flash_bwd(*up((q, k, v, o_p)), lse_p, do.float(),
+                           impl="torch", **kw)
+    torch.cuda.synchronize()
+    assert _counts(*fns) == tuple(n + 1 for n in before)
+    assert amod.flash_bwd_flat_dkv_cuda.table_launches == table_before
+    for name, got, p, t in zip(("dq", "dk", "dv"), grads, plain, truth):
+        assert got.shape == p.shape and torch.isfinite(got.float()).all()
+        ok, errs = _within_rule(got, p, t)
+        assert ok, f"flat bias bwd {name}: kernel/plain errors {errs}"
+    _check_dbias(grads[3], truth[3])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_flash_attention_bias_cotangent_in_its_dtype(cuda, layout):
+    """flash_attention with a bf16 array bias: the kernel path's bias
+    gradient comes back in bf16 and agrees with the plain path's."""
+    b, h, s, d = 2, 4, 128, 64
+    g = torch.Generator(device=cuda).manual_seed(1)
+    shape = (b, s, h, d) if layout == "bshd" else (b, h, s, d)
+    q, k, v, do = (torch.randn(shape, generator=g, device=cuda).bfloat16()
+                   for _ in range(4))
+    lens = torch.tensor([100, 128], dtype=torch.int32, device=cuda)
+    if layout == "bhsd":
+        lens = lens[:, None].expand(b, h)
+    out = []
+    for impl in ("auto", "torch"):
+        bias = _bias_input(h, s, s, cuda).bfloat16().requires_grad_()
+        o = amod.flash_attention(q, k, v, kv_lens=lens, bias=bias,
+                                 layout=layout, impl=impl)
+        o.backward(do)
+        out.append(bias.grad)
+    assert out[0].dtype == torch.bfloat16
+    err = ((out[0].float() - out[1].float()).norm()
+           / out[1].float().norm()).item()
+    assert err <= 1e-2, f"bias cotangent kernel vs plain: {err}"
+
+
+@pytest.mark.gpu
+def test_bshd_backward_and_bias_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros((2, 64, 4, 64), dtype=torch.bfloat16, device=cuda)
+    lse = torch.zeros((2, 4, 64), device=cuda)
+    kw = dict(scale=1.0, causal=False)
+    with pytest.raises(ValueError, match="per batch"):
+        amod.flash_bwd_bshd_dq_cuda(q, q, q, q, lse, q, **kw,
+                                    kv_lens=torch.ones((8,), dtype=torch.int32,
+                                                       device=cuda))
+    with pytest.raises(ValueError, match="hb dividing"):
+        amod.flash_fwd_bshd_cuda(q, q, q, **kw,
+                                 bias=torch.zeros((3, 64, 64), device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        amod.flash_bwd_dbias_cuda(q, q, q, q, lse, q,
+                                  torch.zeros((4, 64, 64), device=cuda,
+                                              dtype=torch.bfloat16),
+                                  **kw, layout="bshd")
+    qf = q.transpose(1, 2)
+    with pytest.raises(ValueError, match="not both"):
+        amod.flash_fwd_flat_cuda(
+            qf, qf, qf, **kw, bias=torch.zeros((4, 64, 64), device=cuda),
+            rel_bias=amod.BucketedBias(torch.zeros((32, 4), device=cuda)))

@@ -252,18 +252,80 @@ def test_weight_bridge_round_trip_and_shape_checks():
 
 def test_knobs_of_later_slices_raise():
     """The reference's knobs with one working value in the port are not
-    config fields; an array bias and dropout raise at the op."""
+    config fields, and dropout raises at the op; ``relative_bias_impl``
+    is a field now (its second value, "materialized", runs through the
+    array bias) and validated as the reference validates it."""
     for kw in (dict(attention_impl="softmax"),
-               dict(relative_bias_impl="materialized"),
                dict(remat_policy="encode_only"), dict(tp_overlap=False),
                dict(plan=None)):
         with pytest.raises(TypeError, match=next(iter(kw))):
             T5Config(**SMALL, **kw)
     with pytest.raises(ValueError, match="position_encoding"):
         T5Config(**SMALL, position_encoding="rotary")
+    with pytest.raises(ValueError, match="relative_bias_impl"):
+        T5Config(**SMALL, relative_bias_impl="dense")
     x = torch.zeros((1, 2, 128, 64))
-    with pytest.raises(NotImplementedError, match="array bias"):
-        amod.flash_attention(x, x, x, bias=torch.zeros((2, 128, 128)))
+    assert amod.flash_attention(
+        x, x, x, bias=torch.zeros((2, 128, 128))).shape == x.shape
     with pytest.raises(NotImplementedError, match="dropout"):
         amod.flash_attention(x, x, x, dropout_rate=0.1,
                              dropout_seed=torch.tensor(1))
+
+
+@pytest.mark.parametrize("pallas", ["interpret", "0"])
+def test_materialized_bias_matches_reference(pallas, monkeypatch):
+    """``relative_bias_impl="materialized"``: the (h, sq, sk) fp32 array
+    through flash_attention's array bias (the reference's ``_dbias_pallas``
+    under interpret mode), the tables' gradients through the gather —
+    against the reference's materialized mode on the same weights."""
+    monkeypatch.setenv("APEX_TPU_PALLAS", pallas)
+    _, tree = _tree("relative")
+    jm = JModel(JConfig(**SMALL, attention_impl="flash", remat=False,
+                        position_encoding="relative",
+                        relative_bias_impl="materialized"))
+    enc, dec, tgt = _batch(128)
+    lens = np.asarray([100, 128], np.int32)
+    jp = jax.tree.map(jnp.asarray, tree)
+    with jax.default_matmul_precision("highest"):
+        loss_j, grads_j = jax.jit(jax.value_and_grad(lambda p: jm.loss_fn(
+            p, jnp.asarray(enc), jnp.asarray(dec), jnp.asarray(tgt),
+            enc_pad_lens=jnp.asarray(lens))))(jp)
+    cfg = T5Config(**SMALL, position_encoding="relative",
+                   relative_bias_impl="materialized", remat=True)
+    params = t5_params_from_jax(tree, cfg, device="cpu")
+    for t in param_leaves(params):
+        t.requires_grad_()
+    loss = EncoderDecoderModel(cfg).loss_fn(
+        params, *_torch(enc, dec, tgt), enc_pad_lens=torch.tensor(lens))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(loss_j), rtol=LOSS_RTOL)
+    _assert_trees_close(t5_params_to_jax(_grads(params), cfg), grads_j,
+                        GRAD_RTOL, "grad")
+
+
+def test_materialized_bias_matches_bucketed():
+    """The port's two bias modes on the same params and batch: the same
+    loss and gradients (the tables' included), the materialized mode's
+    table gradient arriving through the gather of
+    ``BucketedBias.materialize``."""
+    _, tree = _tree("relative")
+    enc, dec, tgt = _batch(114)
+    out = {}
+    for impl in ("bucketed", "materialized"):
+        cfg = T5Config(**SMALL, position_encoding="relative",
+                       relative_bias_impl=impl)
+        params = t5_params_from_jax(tree, cfg, device="cpu")
+        for t in param_leaves(params):
+            t.requires_grad_()
+        model = EncoderDecoderModel(cfg)
+        bias = model.enc_bias(params, S_ENC, S_ENC)
+        assert isinstance(bias, amod.BucketedBias) == (impl == "bucketed")
+        loss = model.loss_fn(params, *_torch(enc, dec, tgt),
+                             enc_pad_lens=torch.tensor([128, 77]))
+        loss.backward()
+        out[impl] = (loss.item(), t5_params_to_jax(_grads(params), cfg))
+    np.testing.assert_allclose(out["materialized"][0], out["bucketed"][0],
+                               rtol=LOSS_RTOL)
+    _assert_trees_close(out["materialized"][1], out["bucketed"][1],
+                        GRAD_RTOL, "grad")
+    assert np.abs(out["materialized"][1]["rel_bias_enc"]).max() > 0
