@@ -162,7 +162,8 @@ class DecodeEngine:
             x, (k, v) = model.prefill_block(layer, x, impl=self.impl)
             cache["k"][i, :, :, :s] = k
             cache["v"][i, :, :, :s] = v
-        x = fused_layer_norm(x, params["lnf_w"], params["lnf_b"])
+        x = fused_layer_norm(x, params["lnf_w"], params["lnf_b"],
+                             impl=self.impl)
         logits = model.unembed(params, x[:, -1:])[:, 0]
         return cache, self._sample(logits, generator, u), logits
 
@@ -186,12 +187,13 @@ class DecodeEngine:
                              device=tokens.device)
         ck, cv = cache["k"], cache["v"]
         for i, layer in enumerate(params["layers"]):
-            q, k_row, v_row = model.decode_qkv(layer, x)
+            q, k_row, v_row = model.decode_qkv(layer, x, self.impl)
             ck[i, :, :, pos:pos + 1] = k_row
             cv[i, :, :, pos:pos + 1] = v_row
             x = model.decode_block(layer, x, q, ck[i], cv[i], lengths,
                                    impl=self.impl)
-        x = fused_layer_norm(x, params["lnf_w"], params["lnf_b"])
+        x = fused_layer_norm(x, params["lnf_w"], params["lnf_b"],
+                             impl=self.impl)
         logits = model.unembed(params, x)[:, 0]
         return cache, self._sample(logits, generator, u), logits
 
@@ -209,8 +211,8 @@ class DecodeEngine:
         """Output projection, residual, MLP, residual."""
         model = self.model
         x = x + model._proj_attn_out(layer, ctx)
-        return x + model._mlp(layer, fused_layer_norm(x, layer["ln2_w"],
-                                                      layer["ln2_b"]))
+        return x + model._mlp(layer, fused_layer_norm(
+            x, layer["ln2_w"], layer["ln2_b"], impl=self.impl))
 
     def _scores(self, q: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
         """fp32 scaled scores: q (1, n, h, d) against keys (h_kv, m, d) →
@@ -248,7 +250,8 @@ class DecodeEngine:
         js = torch.arange(self.max_s, device=dev)
         mask = js[None, None, None, :] <= positions[None, None, :, None]
         for i, layer in enumerate(params["layers"]):
-            h_in = fused_layer_norm(x, layer["ln1_w"], layer["ln1_b"])
+            h_in = fused_layer_norm(x, layer["ln1_w"], layer["ln1_b"],
+                                    impl=self.impl)
             q, k, v = model._proj_qkv_bshd(layer, h_in)
             cache["k"][i, 0, :, pos:pos + K1] = k[0].transpose(0, 1)
             cache["v"][i, 0, :, pos:pos + K1] = v[0].transpose(0, 1)
@@ -257,7 +260,8 @@ class DecodeEngine:
             p = torch.softmax(s, dim=-1)
             ctx = torch.einsum("hgcs,hsd->hgcd", p.to(v_all.dtype), v_all)
             x = self._layer_tail(layer, x, self._merge(ctx))
-        x = fused_layer_norm(x, params["lnf_w"], params["lnf_b"])
+        x = fused_layer_norm(x, params["lnf_w"], params["lnf_b"],
+                             impl=self.impl)
         logits = model.unembed(params, x)  # (1, K1, V)
         return fused_verify(logits, drafted, generator,
                             temperature=self.temperature, top_k=self.top_k,
@@ -290,7 +294,8 @@ class DecodeEngine:
         tree_mask = anc[0] != 0  # (N1 queries, N1 nodes)
         tks, tvs = [], []
         for i, layer in enumerate(params["layers"]):
-            h_in = fused_layer_norm(x, layer["ln1_w"], layer["ln1_b"])
+            h_in = fused_layer_norm(x, layer["ln1_w"], layer["ln1_b"],
+                                    impl=self.impl)
             q, k, v = model._proj_qkv_bshd(layer, h_in)  # (1, N1, h, d)
             tks.append(k)
             tvs.append(v)
@@ -303,7 +308,8 @@ class DecodeEngine:
             ctx = (torch.einsum("hgcs,hsd->hgcd", p_c.to(v_all.dtype), v_all)
                    + torch.einsum("hgcn,hnd->hgcd", p_t.to(vt.dtype), vt))
             x = self._layer_tail(layer, x, self._merge(ctx))
-        x = fused_layer_norm(x, params["lnf_w"], params["lnf_b"])
+        x = fused_layer_norm(x, params["lnf_w"], params["lnf_b"],
+                             impl=self.impl)
         logits = model.unembed(params, x)  # (1, N1, V)
         a, j_star, nxt = fused_verify_tree(
             logits, tokens, parents, anc, generator,

@@ -2,20 +2,24 @@
 
 Port of ``apex_tpu/models/bert.py``: the config, the parameter
 initialisation (``BertModel.init``, ``:85-114``, same distributions), the
-attention (the seq-major flash route of ``:132-148``), the post-LN block
+attention in both ``attention_impl`` routes, the post-LN block
 (``:167-171``), :meth:`BertModel.hidden_states` (``:173-210``: token-type
-embeddings, the embedding LayerNorm, the suffix pad mask turned into
-per-batch kv lengths, per-block remat), :meth:`BertModel.pooled` and
-:meth:`BertModel.mlm_loss` (``:212-222``, tied logits through the
-vocab-parallel cross-entropy, so the ``xent_stats`` kernel runs).
+embeddings, the embedding LayerNorm, per-block remat),
+:meth:`BertModel.pooled` and :meth:`BertModel.mlm_loss` (``:212-222``,
+tied logits through the vocab-parallel cross-entropy, so the
+``xent_stats`` kernel runs).
 
-Attention is always the reference's ``attention_impl="flash"`` route
-through ``flash_attention(layout="bshd")``: q, k and v are views of the
-packed projection (:func:`~apex_tpu_torch.ops.attention.
-bshd_qkv_projection`), the pad mask becomes per-batch ``kv_lens``, and on
-a CUDA tensor the hand-written bshd forward, dQ and dK/dV kernels run at
-every head dim (the reference sends d 64 to its bh-flat fallback only
-because of the TPU's 128-lane rule, ``ops/attention.py:394-403``).
+``attention_impl="softmax"`` (the reference's default, ``:149-158``, the
+Megatron standalone_bert path): head-batched scores through the fused
+scaled-masked softmax with the (b, 1, 1, s) pad mask, True = masked; it
+takes ANY pad mask, interior holes included. ``"flash"`` (``:132-148``):
+``flash_attention(layout="bshd")`` on views of the packed projection
+(:func:`~apex_tpu_torch.ops.attention.bshd_qkv_projection`), the SUFFIX
+pad mask turned into per-batch ``kv_lens`` (:meth:`BertModel.
+pad_lengths`); on a CUDA tensor the hand-written bshd forward, dQ and
+dK/dV kernels run at every head dim (the reference sends d 64 to its
+bh-flat fallback only because of the TPU's 128-lane rule,
+``ops/attention.py:394-403``).
 
 Parameters are a plain dict in the reference's tree layout, except that
 ``layers`` is a list of per-layer dicts instead of stacked leaves
@@ -38,6 +42,7 @@ from apex_tpu_torch.ops.attention import (bshd_output_projection,
                                           bshd_qkv_projection,
                                           flash_attention)
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm
+from apex_tpu_torch.ops.softmax import scaled_masked_softmax
 from apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
     masked_mean, vocab_parallel_cross_entropy)
@@ -47,13 +52,10 @@ Params = Dict[str, object]
 @dataclasses.dataclass(frozen=True)
 class BertConfig:
     """The reference's ``BertConfig`` without ``tp_size``/``tp_axis`` (the
-    port runs tp=1) and without ``attention_impl``: the port's BERT is the
-    flash route (``"flash"``), while the reference defaults to
-    ``"softmax"`` (materialised scores through the fused scaled-masked
-    softmax). The softmax route comes with the softmax kernels' slice;
-    until then passing ``attention_impl`` raises ``TypeError``. The flash
-    route needs SUFFIX padding: each row's pad mask is True only after its
-    last valid token."""
+    port runs tp=1). ``attention_impl``: ``"softmax"`` (the default;
+    materialised scores through the fused scaled-masked softmax, any pad
+    mask) or ``"flash"`` (the bshd flash kernels; SUFFIX padding only:
+    each row's pad mask True only after its last valid token)."""
 
     vocab_size: int = 30592
     max_seq_len: int = 512
@@ -64,8 +66,13 @@ class BertConfig:
     num_token_types: int = 2
     remat: bool = True  # per-block recompute in the backward
     dtype: torch.dtype = torch.float32  # parameter dtype
+    attention_impl: str = "softmax"
 
     def __post_init__(self):
+        if self.attention_impl not in ("softmax", "flash"):
+            raise ValueError(
+                f"attention_impl must be softmax|flash, got "
+                f"{self.attention_impl!r}")
         if self.hidden_size % self.num_heads:
             raise ValueError(
                 f"hidden_size ({self.hidden_size}) must be divisible by "
@@ -141,13 +148,30 @@ class BertModel:
 
     # --- blocks ---------------------------------------------------------------
 
-    def _attention(self, p, x, lens, impl: str = "auto") -> torch.Tensor:
-        """The seq-major fast path (``bert.py:132-148``): q, k, v as views
+    def _attention(self, p, x, pad, impl: str = "auto") -> torch.Tensor:
+        """``pad``: the softmax route's (b, s) bool pad mask, or the flash
+        route's (b,) lengths; None without padding.
+
+        Softmax (``bert.py:149-158``): the head-batched projection, the
+        scores in x's dtype, the fused scaled-masked softmax with the
+        (b, 1, 1, s) mask, the context and the output projection
+        contracted over (heads, d). Flash (``:132-148``): q, k, v as views
         of the packed projection, flash attention over the per-batch
-        ``lens`` (None: no padding), the output projection contracted over
-        (heads, d), then its bias."""
+        lengths, the output projection, then its bias."""
         c = self.config
         h, d = c.num_heads, c.head_dim
+        if c.attention_impl == "softmax":
+            b, s = x.shape[0], x.shape[1]
+            qkv = self.qkv.headwise(p["qkv"], x, 3 * h).reshape(
+                b, 3, h, s, d)
+            q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+            scores = torch.einsum("bhqd,bhkd->bhqk", q, k)
+            mask = None if pad is None else pad[:, None, None, :]
+            probs = scaled_masked_softmax(scores, mask, 1.0 / float(d) ** 0.5,
+                                          impl=impl)
+            ctx = torch.einsum("bhqk,bhkd->bhqd", probs, v)
+            return self.attn_out.headwise(p["attn_out"], ctx)
+        lens = pad
         q, k, v = bshd_qkv_projection(x, p["qkv"]["weight"],
                                       p["qkv"].get("bias"), h, h, d)
         ctx = flash_attention(q, k, v, kv_lens=lens, layout="bshd",
@@ -157,13 +181,13 @@ class BertModel:
             y = y + p["attn_out"]["bias"]
         return y
 
-    def _block(self, p, x, lens, impl: str = "auto") -> torch.Tensor:
+    def _block(self, p, x, pad, impl: str = "auto") -> torch.Tensor:
         """Post-LN (BERT): LN(x + attn(x)), then LN(x + mlp(x))."""
-        x = fused_layer_norm(x + self._attention(p, x, lens, impl),
-                             p["ln1_w"], p["ln1_b"])
+        x = fused_layer_norm(x + self._attention(p, x, pad, impl),
+                             p["ln1_w"], p["ln1_b"], impl=impl)
         m = self.mlp_down(p["mlp_down"], F.gelu(
             self.mlp_up(p["mlp_up"], x), approximate="tanh"))
-        return fused_layer_norm(x + m, p["ln2_w"], p["ln2_b"])
+        return fused_layer_norm(x + m, p["ln2_w"], p["ln2_b"], impl=impl)
 
     def _wrapped(self):
         """The block under the config's ``remat``: recomputed whole in the
@@ -172,8 +196,8 @@ class BertModel:
         if not self.config.remat:
             return self._block
 
-        def block(p, x, lens, impl):
-            return checkpoint(self._block, p, x, lens, impl,
+        def block(p, x, pad, impl):
+            return checkpoint(self._block, p, x, pad, impl,
                               use_reentrant=False)
 
         return block
@@ -186,14 +210,15 @@ class BertModel:
         row is cut at its FIRST masked position (``bert.py:123-131``).
         Raises ``ValueError`` for an interior mask (a masked position
         followed by an unmasked one), which the flash route cannot express
-        (``:179-197``). That check reads the mask on the host: on a CUDA
-        mask it is one synchronising read per call."""
+        (``:179-197``; the softmax route takes it). That check reads the
+        mask on the host: on a CUDA mask it is one synchronising read per
+        call."""
         mb = pad_mask.bool()
         if bool((mb[..., :-1] & ~mb[..., 1:]).any()):
             raise ValueError(
-                "the port's BERT (the reference's attention_impl='flash') "
-                "supports suffix padding only (the pad mask must be "
-                "monotone per row)")
+                "attention_impl='flash' supports suffix padding only (the "
+                "pad mask must be monotone per row); use "
+                "attention_impl='softmax' for interior masks")
         s = mb.shape[-1]
         return torch.where(mb.any(-1), mb.int().argmax(-1),
                            torch.full_like(mb[..., 0], s, dtype=torch.int64)
@@ -204,9 +229,10 @@ class BertModel:
                       pad_mask: Optional[torch.Tensor] = None, *,
                       impl: str = "auto") -> torch.Tensor:
         """(b, s) token ids → (b, s, H): word + position (+ token-type)
-        embeddings, the embedding LN, then the blocks with the pad mask's
-        per-batch lengths as the attention's ``kv_lens`` (padded QUERY rows
-        still compute; the loss mask leaves them out)."""
+        embeddings, the embedding LN, then the blocks with the pad mask
+        (True or 1 = padding): as the softmax route's key mask, or as the
+        flash route's per-batch lengths (padded QUERY rows still compute;
+        the loss mask leaves them out)."""
         c = self.config
         s = tokens.shape[1]
         if s > c.max_seq_len:
@@ -219,11 +245,15 @@ class BertModel:
             # in fp32 (an index's bf16 sum over b·s rows loses the table's
             # gradient to rounding)
             x = x + F.embedding(token_types.long(), params["type_embedding"])
-        x = fused_layer_norm(x, params["ln_emb_w"], params["ln_emb_b"])
-        lens = None if pad_mask is None else self.pad_lengths(pad_mask)
+        x = fused_layer_norm(x, params["ln_emb_w"], params["ln_emb_b"],
+                             impl=impl)
+        pad = None
+        if pad_mask is not None:
+            pad = (pad_mask.bool() if c.attention_impl == "softmax"
+                   else self.pad_lengths(pad_mask))
         block = self._wrapped()
         for layer in params["layers"]:
-            x = block(layer, x, lens, impl)
+            x = block(layer, x, pad, impl)
         return x
 
     def pooled(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,10 @@ gradients, which share their layout) back into the reference's tree.
 :func:`t5_params_from_jax` and :func:`t5_params_to_jax` do the same for
 ``EncoderDecoderModel``'s stacked ``encoder`` and ``decoder``, and
 :func:`bert_params_from_jax` and :func:`bert_params_to_jax` for
-``BertModel``'s stacked ``layers``.
+``BertModel``'s stacked ``layers``; :func:`norm_from_jax` loads a
+reference norm's ``init()`` dict into a :class:`~apex_tpu_torch.ops.
+layer_norm.FusedLayerNorm` or :class:`~apex_tpu_torch.ops.layer_norm.
+FusedRMSNorm`.
 Weights keep their ``(out, in)`` layout, which is already PyTorch's. The
 tests feed both packages the same weights this way, and compare gradients
 and optimizer state leaf by leaf.
@@ -25,6 +28,7 @@ from apex_tpu_torch.models.bert import BertConfig
 from apex_tpu_torch.models.gpt import GPTConfig
 from apex_tpu_torch.models.t5 import DEC_LAYER, ENC_LAYER, T5Config
 from apex_tpu_torch.ops import _backend
+from apex_tpu_torch.ops.layer_norm import FusedLayerNorm
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -284,3 +288,23 @@ def bert_params_to_jax(params: Dict[str, object],
             else:
                 out[name] = a
     return out
+
+
+def norm_from_jax(tree: Dict, module: FusedLayerNorm) -> FusedLayerNorm:
+    """The reference's ``FusedLayerNorm.init()`` / ``FusedRMSNorm.init()``
+    dict (numpy leaves: ``weight``, plus ``bias`` for LayerNorm; empty
+    without the affine) copied into ``module``'s Parameters in place, on
+    their device and in their dtype. Names and shapes are checked."""
+    want = set()
+    if module.elementwise_affine:
+        want = {"weight"} if module.rms else {"weight", "bias"}
+    if set(tree) != want:
+        raise ValueError(f"expected the leaves {sorted(want)} for this "
+                         f"{type(module).__name__}, got {sorted(tree)}")
+    with torch.no_grad():
+        for name in sorted(want):
+            p = getattr(module, name)
+            t = _tensor(tree[name], p.device)
+            _expect(name, t, p.shape, type(module).__name__)
+            p.copy_(t.to(p.dtype))
+    return module

@@ -2,8 +2,12 @@
 
 Port of ``apex_tpu/models/gpt.py``: the config, the parameter
 initialisation (``GPTModel.init``, ``:295-328``, same distributions), the
-training forward — :meth:`GPTModel._attention` (the fused packed-QKV
-flash route of ``:372-407``), :meth:`GPTModel._block` (``:621-645``),
+training forward — :meth:`GPTModel._attention` (the three
+``attention_impl`` routes: ``"softmax"``, the reference's default, the
+head-batched materialised scores through the fused causal softmax of
+``:480-515``; ``"flash"``, the fused packed-QKV flash route of
+``:372-407``; ``"naive"``, the plain fp32 softmax composition of
+``:500-509``), :meth:`GPTModel._block` (``:621-645``),
 :meth:`GPTModel.wrapped_block` (``:647-670``), :meth:`GPTModel.
 hidden_states` (``:767-837``), :meth:`GPTModel.logits` and
 :meth:`GPTModel.loss_fn` (``:857-880``) — and the KV-cached inference
@@ -19,11 +23,13 @@ converts both ways).
 A train step is ``loss_fn`` then ``backward()`` then one
 :class:`apex_tpu_torch.optimizers.FusedAdam` step over
 :func:`param_leaves`. The config carries only the knobs the port runs:
-attention is always the fused flash route, ``remat`` is the reference's
-``"full"`` policy, and ``dropout > 0`` raises ``NotImplementedError``.
-Later slices add the reference's other knobs (remat policies, the
-softmax and naive attention routes, MoE, tensor/sequence/context
-parallelism) together with the code that runs them.
+``attention_impl`` (the training forward's route; the decode branch and
+the prefill take the flash kernels whatever it says, as the reference's
+engines never read it), ``remat`` (the reference's ``"full"`` policy),
+and ``dropout``, whose values > 0 raise ``NotImplementedError``. Later
+slices add the reference's other knobs (remat policies, MoE,
+tensor/sequence/context parallelism) together with the code that runs
+them.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from apex_tpu_torch.ops.decode_attention import (KERNEL_CACHE_TILE,
                                                  KERNEL_MAX_BLOCK,
                                                  decode_attention)
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm
+from apex_tpu_torch.ops.softmax import scaled_upper_triang_masked_softmax
 from apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
     masked_mean, vocab_parallel_cross_entropy)
@@ -64,12 +71,19 @@ class GPTConfig:
     # grouped-query attention: None = num_heads (MHA), 1 = MQA
     num_kv_heads: Optional[int] = None
     dtype: torch.dtype = torch.float32  # parameter dtype
-    # training knobs with the reference's defaults; attention is always the
-    # fused packed-QKV flash route, and dropout > 0 is a later slice
+    # training knobs with the reference's defaults; dropout > 0 is a later
+    # slice. "softmax": materialised scores through the fused causal
+    # softmax kernel; "flash": the fused packed-QKV flash kernels; "naive":
+    # the plain fp32 softmax composition (no kernel)
     dropout: float = 0.0
     remat: bool = True
+    attention_impl: str = "softmax"
 
     def __post_init__(self):
+        if self.attention_impl not in ("softmax", "flash", "naive"):
+            raise ValueError(
+                f"attention_impl must be softmax|flash|naive, got "
+                f"{self.attention_impl!r}")
         if self.hidden_size % self.num_heads:
             raise ValueError(
                 f"hidden_size ({self.hidden_size}) must be divisible by "
@@ -212,12 +226,12 @@ class GPTModel:
         h = F.gelu(self.mlp_up(p["mlp_up"], x), approximate="tanh")
         return self.mlp_down(p["mlp_down"], h)
 
-    def decode_qkv(self, p, x
+    def decode_qkv(self, p, x, impl: str = "auto"
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """ONE token's attention inputs: pre-LN + packed projection of x
         (b, 1, H) → q (b, h, d) and this token's cache rows k/v
         (b, h_kv, 1, d)."""
-        h_in = fused_layer_norm(x, p["ln1_w"], p["ln1_b"])
+        h_in = fused_layer_norm(x, p["ln1_w"], p["ln1_b"], impl=impl)
         q, k, v = self._proj_qkv_bshd(p, h_in)
         return q[:, 0], k.transpose(1, 2), v.transpose(1, 2)
 
@@ -229,12 +243,13 @@ class GPTModel:
         this layer's (k, v) as (b, h_kv, s, d) views — what the engine
         writes into cache rows [0, s). q, k and v go to the kernel as
         views of the packed projection: no copy."""
-        h_in = fused_layer_norm(x, p["ln1_w"], p["ln1_b"])
+        h_in = fused_layer_norm(x, p["ln1_w"], p["ln1_b"], impl=impl)
         q, k, v = self._proj_qkv_bshd(p, h_in)
         ctx = flash_attention(q, k, v, causal=True, layout="bshd",
                               impl=impl)
         x = x + self._proj_attn_out(p, ctx)
-        m = self._mlp(p, fused_layer_norm(x, p["ln2_w"], p["ln2_b"]))
+        m = self._mlp(p, fused_layer_norm(x, p["ln2_w"], p["ln2_b"],
+                                          impl=impl))
         return x + m, (k.transpose(1, 2), v.transpose(1, 2))
 
     def decode_block(self, p, x, q, k_lay, v_lay, lengths, *,
@@ -249,7 +264,8 @@ class GPTModel:
         ctx = decode_attention(q, k_lay, v_lay, lengths,
                                block_tables=block_tables, impl=impl)
         x = x + self._proj_attn_out(p, ctx[:, None])
-        m = self._mlp(p, fused_layer_norm(x, p["ln2_w"], p["ln2_b"]))
+        m = self._mlp(p, fused_layer_norm(x, p["ln2_w"], p["ln2_b"],
+                                          impl=impl))
         return x + m
 
     def unembed(self, params, x) -> torch.Tensor:
@@ -266,25 +282,56 @@ class GPTModel:
                 "dropout_keep) is a later slice of the port; use dropout=0")
 
     def _attention(self, p, x, impl: str = "auto") -> torch.Tensor:
-        """The fused route of the reference's flash attention: packed QKV
-        GEMM → flash kernels on windows of the packed buffer → output GEMM
-        (:func:`fused_qkv_attention`), then the output bias. On a CUDA
-        tensor a shape the kernels refuse (``packed_kernel_ok``)
-        raises: there is no route through materialised scores."""
+        """The config's ``attention_impl`` route.
+
+        ``"flash"``: the fused route of the reference's flash attention:
+        packed QKV GEMM → flash kernels on windows of the packed buffer →
+        output GEMM (:func:`fused_qkv_attention`), then the output bias.
+        On a CUDA tensor a shape the kernels refuse (``packed_kernel_ok``)
+        raises.
+
+        ``"softmax"`` and ``"naive"`` (``:480-515``): the head-batched
+        projection to (b, h, s, d), k and v repeated over the query heads
+        of a group, the scores in x's dtype, then the fused causal
+        softmax kernel (``"softmax"``) or the -1e30 fill and an fp32
+        softmax (``"naive"``), the context, and the output projection
+        contracted over (heads, d)."""
         c = self.config
         h, hkv, d = c.num_heads, c.kv_heads, c.head_dim
-        y = fused_qkv_attention(x, p["qkv"]["weight"], p["qkv"].get("bias"),
-                                p["attn_out"]["weight"], h, hkv, d,
-                                1.0 / float(d) ** 0.5, True, impl=impl)
-        if "bias" in p["attn_out"]:
-            y = y + p["attn_out"]["bias"]
-        return y
+        if c.attention_impl == "flash":
+            y = fused_qkv_attention(x, p["qkv"]["weight"],
+                                    p["qkv"].get("bias"),
+                                    p["attn_out"]["weight"], h, hkv, d,
+                                    1.0 / float(d) ** 0.5, True, impl=impl)
+            if "bias" in p["attn_out"]:
+                y = y + p["attn_out"]["bias"]
+            return y
+        qkv = self.qkv.headwise(p["qkv"], x, h + 2 * hkv)
+        b, s = qkv.shape[0], qkv.shape[2]
+        q, k, v = qkv[:, :h], qkv[:, h:h + hkv], qkv[:, h + hkv:]
+        if hkv < h:
+            k = k.repeat_interleave(h // hkv, dim=1)
+            v = v.repeat_interleave(h // hkv, dim=1)
+        if c.attention_impl == "naive":
+            scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / float(d) ** 0.5
+            keep = torch.ones((s, s), dtype=torch.bool,
+                              device=x.device).tril()
+            scores = torch.where(keep, scores.float(), -1e30)
+            probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        else:
+            scores = torch.einsum("bhqd,bhkd->bhqk", q, k)
+            probs = scaled_upper_triang_masked_softmax(
+                scores.reshape(b * h, s, s), 1.0 / float(d) ** 0.5,
+                impl=impl).reshape(b, h, s, s)
+        ctx = torch.einsum("bhqk,bhkd->bhqd", probs, v)
+        return self.attn_out.headwise(p["attn_out"], ctx)
 
     def _block(self, p, x, impl: str = "auto") -> torch.Tensor:
         """Residual block: x + attn(LN(x)), then + mlp(LN(x))."""
-        x = x + self._attention(p, fused_layer_norm(x, p["ln1_w"],
-                                                    p["ln1_b"]), impl)
-        return x + self._mlp(p, fused_layer_norm(x, p["ln2_w"], p["ln2_b"]))
+        x = x + self._attention(p, fused_layer_norm(
+            x, p["ln1_w"], p["ln1_b"], impl=impl), impl)
+        return x + self._mlp(p, fused_layer_norm(x, p["ln2_w"], p["ln2_b"],
+                                                 impl=impl))
 
     def wrapped_block(self):
         """The block under the config's ``remat``: it recomputes the whole
@@ -315,7 +362,8 @@ class GPTModel:
         block = self.wrapped_block()
         for layer in params["layers"]:
             x = block(layer, x, impl)
-        return fused_layer_norm(x, params["lnf_w"], params["lnf_b"])
+        return fused_layer_norm(x, params["lnf_w"], params["lnf_b"],
+                                impl=impl)
 
     def logits(self, params: Params, tokens: torch.Tensor, *,
                impl: str = "auto") -> torch.Tensor:

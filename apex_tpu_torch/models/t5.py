@@ -9,11 +9,20 @@ cross-attention over the encoder output → MLP, ``:335-353``),
 unembedding (``:426-435``) and :meth:`EncoderDecoderModel.loss_fn`
 (``:437-446``).
 
-Attention is always the reference's ``attention_impl="flash"`` route:
-``flash_attention`` in its bh-flat layout on the (b, h, s, d) views of the
-projection output — on a CUDA tensor the hand-written kernels, with the
-encoder pad lengths as ``kv_lens`` (encoder self-attention and
-cross-attention) and, under ``position_encoding="relative"``, the
+``attention_impl="softmax"`` (the reference's default, ``:292-320``):
+materialised scores on the (b, h, s, d) views. Without a bias they go
+through the fused scaled-masked softmax with the mask ``~tril | pad``
+(decoder self-attention) or the encoder pad mask alone (encoder
+self-attention, cross-attention; none without padding); with the
+relative bias — materialised (1, h, sq, sk) fp32 whatever
+``relative_bias_impl`` says, as in the reference — the scaled scores
+plus the bias, the -1e30 masks and an fp32 softmax cast to v's dtype
+(the reference's ``jax.nn.softmax``: no kernel).
+
+``attention_impl="flash"``: ``flash_attention`` in its bh-flat layout on
+the (b, h, s, d) views of the projection output — on a CUDA tensor the
+hand-written kernels, with the encoder pad lengths as ``kv_lens``
+(encoder self-attention and cross-attention) and, under ``position_encoding="relative"``, the
 per-stack bucket tables as the self-attention's bias (encoder
 bidirectional, decoder causal; cross-attention carries none): with
 ``relative_bias_impl="bucketed"`` (the default) a :class:`BucketedBias`
@@ -31,9 +40,8 @@ Parameters are a plain dict in the reference's tree layout, except that
 ``encoder`` and ``decoder`` are lists of per-layer dicts instead of
 stacked leaves (:func:`apex_tpu_torch.models.convert.t5_params_from_jax`
 converts both ways). The reference's knobs with one working value here —
-``attention_impl`` (the softmax composition), ``remat_policy``
-(``"encode_only"``), ``tp_overlap``, ``plan`` — are not config fields
-yet, and the pipeline ``EncDecPipeline`` is a later slice.
+``remat_policy`` (``"encode_only"``), ``tp_overlap``, ``plan`` — are not
+config fields yet, and the pipeline ``EncDecPipeline`` is a later slice.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from apex_tpu_torch.models.gpt import param_leaves  # noqa: F401
 from apex_tpu_torch.ops import _backend
 from apex_tpu_torch.ops.attention import BucketedBias, flash_attention
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm
+from apex_tpu_torch.ops.softmax import scaled_masked_softmax
 from apex_tpu_torch.transformer.tensor_parallel import (
     masked_mean, vocab_parallel_cross_entropy)
 
@@ -70,18 +79,24 @@ class T5Config:
     num_decoder_layers: int = 6
     num_heads: int = 8
     dtype: torch.dtype = torch.float32  # parameter dtype
+    attention_impl: str = "softmax"  # softmax | flash
     remat: bool = True  # per-block recompute in the backward
     # "learned": absolute learned positions; "relative": T5's per-stack
     # (num_buckets, heads) bias tables on the self-attention scores
     position_encoding: str = "learned"
     relative_num_buckets: int = 32
     relative_max_distance: int = 128
-    # "bucketed": the kernels expand the table per score tile;
-    # "materialized": the (h, sq, sk) array through the array-bias option
-    # and the dbias kernel — the reference's oracle of the bucketed path
+    # flash only — "bucketed": the kernels expand the table per score
+    # tile; "materialized": the (h, sq, sk) array through the array-bias
+    # option and the dbias kernel — the reference's oracle of the bucketed
+    # path. The softmax route always adds the materialised array.
     relative_bias_impl: str = "bucketed"
 
     def __post_init__(self):
+        if self.attention_impl not in ("softmax", "flash"):
+            raise ValueError(
+                f"attention_impl must be softmax|flash, got "
+                f"{self.attention_impl!r}")
         if self.hidden_size % self.num_heads:
             raise ValueError(
                 f"hidden_size ({self.hidden_size}) must be divisible by "
@@ -200,11 +215,13 @@ class EncoderDecoderModel:
 
     def _attn(self, q, k, v, causal, bias=None, kv_lens=None,
               impl: str = "auto"):
-        """Flash attention on (b, h, s, d) views; ``kv_lens`` (b,) per-batch
-        valid KEY lengths, expanded over the heads (which share a row's
-        padding). A materialised bias (1, h, sq, sk) goes to the kernels
-        as its (h, sq, sk) per-head form: row r of the b·h flatten reads
-        bias row r % h, its head."""
+        """Attention on (b, h, s, d) views; ``kv_lens`` (b,) per-batch
+        valid KEY lengths (heads share a row's padding). The flash route
+        expands them over the heads, and hands a materialised bias
+        (1, h, sq, sk) to the kernels as its (h, sq, sk) per-head form:
+        row r of the b·h flatten reads bias row r % h, its head."""
+        if self.config.attention_impl == "softmax":
+            return self._softmax_attn(q, k, v, causal, bias, kv_lens, impl)
         lens = None
         if kv_lens is not None:
             lens = kv_lens.to(torch.int32)[:, None].expand(q.shape[:2])
@@ -213,16 +230,46 @@ class EncoderDecoderModel:
         return flash_attention(q, k, v, causal=causal, kv_lens=lens,
                                bias=bias, layout="bhsd", impl=impl)
 
+    def _softmax_attn(self, q, k, v, causal, bias, kv_lens, impl):
+        """The softmax route (``t5.py:292-320``)."""
+        d = q.shape[-1]
+        scores = torch.einsum("bhqd,bhkd->bhqk", q, k)
+        sq, sk = scores.shape[-2], scores.shape[-1]
+        pad = None
+        if kv_lens is not None:  # True = masked (key position >= length)
+            pad = (torch.arange(sk, device=q.device)[None, :]
+                   >= kv_lens[:, None])[:, None, None, :]
+        if bias is not None:
+            # the relative bias enters the SCALED scores, in fp32
+            s = scores.float() / float(d) ** 0.5 + bias
+            if causal:
+                keep = torch.ones((sq, sk), dtype=torch.bool,
+                                  device=q.device).tril()
+                s = torch.where(keep, s, -1e30)
+            if pad is not None:
+                s = torch.where(pad, -1e30, s)
+            probs = torch.softmax(s, dim=-1).to(v.dtype)
+            return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+        mask = pad
+        if causal:
+            mask = ~torch.ones((sq, sk), dtype=torch.bool,
+                               device=q.device).tril()[None, None]
+            if pad is not None:
+                mask = mask | pad
+        probs = scaled_masked_softmax(scores, mask, 1.0 / float(d) ** 0.5,
+                                      impl=impl)
+        return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
     # --- blocks ---------------------------------------------------------------
 
-    def _mlp(self, p, x):
-        h = fused_layer_norm(x, p["ln2_w"], p["ln2_b"])
+    def _mlp(self, p, x, impl):
+        h = fused_layer_norm(x, p["ln2_w"], p["ln2_b"], impl=impl)
         return x + F.linear(F.gelu(F.linear(h, p["mlp_up"]),
                                    approximate="tanh"), p["mlp_down"])
 
     def _self_attention(self, p, x, causal, bias, kv_lens, impl):
         H = self.config.hidden_size
-        h = fused_layer_norm(x, p["ln1_w"], p["ln1_b"])
+        h = fused_layer_norm(x, p["ln1_w"], p["ln1_b"], impl=impl)
         q, k, v = F.linear(h, p["qkv"]).split(H, dim=-1)
         a = self._merge(self._attn(self._heads(q), self._heads(k),
                                    self._heads(v), causal, bias, kv_lens,
@@ -232,13 +279,13 @@ class EncoderDecoderModel:
     def encoder_block(self, p, x, bias=None, pad_lens=None,
                       impl: str = "auto"):
         x = self._self_attention(p, x, False, bias, pad_lens, impl)
-        return self._mlp(p, x)
+        return self._mlp(p, x, impl)
 
     def decoder_block(self, p, x, enc_out, bias=None, enc_pad_lens=None,
                       impl: str = "auto"):
         H = self.config.hidden_size
         x = self._self_attention(p, x, True, bias, None, impl)
-        h = fused_layer_norm(x, p["ln_x_w"], p["ln_x_b"])
+        h = fused_layer_norm(x, p["ln_x_w"], p["ln_x_b"], impl=impl)
         q = F.linear(h, p["xq"])
         ck, cv = F.linear(enc_out, p["xkv"]).split(H, dim=-1)
         # cross-attention masks the encoder's padded positions as keys
@@ -246,7 +293,7 @@ class EncoderDecoderModel:
                                    self._heads(cv), False, None,
                                    enc_pad_lens, impl))
         x = x + F.linear(a, p["x_out"])
-        return self._mlp(p, x)
+        return self._mlp(p, x, impl)
 
     def _wrapped(self, fn):
         """The block under the config's ``remat``: recomputed whole in the
@@ -263,7 +310,7 @@ class EncoderDecoderModel:
         c = self.config
         if c.position_encoding != "relative":
             return None
-        if c.relative_bias_impl == "bucketed":
+        if c.attention_impl == "flash" and c.relative_bias_impl == "bucketed":
             return BucketedBias(params[name], bidirectional=bidirectional,
                                 max_distance=c.relative_max_distance)
         return relative_bias(params[name].float(), sq, sk,
@@ -274,8 +321,9 @@ class EncoderDecoderModel:
     def enc_bias(self, params, sq: int, sk: int
                  ) -> Optional[Union[BucketedBias, torch.Tensor]]:
         """The encoder self-attention's bias (bidirectional buckets): a
-        :class:`BucketedBias`, the materialised (1, h, sq, sk) fp32 array,
-        or None under learned positions."""
+        :class:`BucketedBias` (the flash route's bucketed mode), the
+        materialised (1, h, sq, sk) fp32 array, or None under learned
+        positions."""
         return self._stack_bias(params, "rel_bias_enc", sq, sk, True)
 
     def dec_bias(self, params, sq: int, sk: int
@@ -306,7 +354,8 @@ class EncoderDecoderModel:
         block = self._wrapped(self.encoder_block)
         for layer in params["encoder"]:
             x = block(layer, x, bias, enc_pad_lens, impl)
-        return fused_layer_norm(x, params["ln_enc_w"], params["ln_enc_b"])
+        return fused_layer_norm(x, params["ln_enc_w"], params["ln_enc_b"],
+                                impl=impl)
 
     def decode(self, params, dec_tokens, enc_out, enc_pad_lens=None, *,
                impl: str = "auto"):
@@ -316,7 +365,8 @@ class EncoderDecoderModel:
         block = self._wrapped(self.decoder_block)
         for layer in params["decoder"]:
             x = block(layer, x, enc_out, bias, enc_pad_lens, impl)
-        return fused_layer_norm(x, params["ln_dec_w"], params["ln_dec_b"])
+        return fused_layer_norm(x, params["ln_dec_w"], params["ln_dec_b"],
+                                impl=impl)
 
     def logits(self, params, enc_tokens, dec_tokens, enc_pad_lens=None, *,
                impl: str = "auto"):

@@ -97,6 +97,19 @@ ENTRY_POINTS = {
     # b, n1, V, sampled, inv_temp, top_k, stream
     "apex_fused_verify_tree": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _I, _F, _I, _P],
+    # x, w, b, y, mean, rstd, dtype, w_bf16, affine, rms, rows, n, eps,
+    # stream
+    "apex_ln_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # dy, x, mean, rstd, w, dx, part, dw, db, dtype, w_bf16, rms, rows, n,
+    # rows_per_cta, stream
+    "apex_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                    _I, _P],
+    # x, y, mask, mask strides (b, h, q, k), heads, q_rows, dtype, mode,
+    # rows, n, sq, scale, stream
+    "apex_softmax_fwd": [_P, _P, _P, _S, _I, _I, _I, _I, _I, _I, _I, _F,
+                         _P],
+    # dy, y, dx, dtype, rows, n, scale, stream
+    "apex_softmax_bwd": [_P, _P, _P, _I, _I, _I, _F, _P],
 }
 
 

@@ -198,7 +198,8 @@ class ServingEngine:
         rows = table_row.long()
         for i, layer in enumerate(params["layers"]):
             ck, cv = pool["k"][i], pool["v"][i]
-            h_in = fused_layer_norm(x, layer["ln1_w"], layer["ln1_b"])
+            h_in = fused_layer_norm(x, layer["ln1_w"], layer["ln1_b"],
+                                    impl=self.impl)
             q, k, v = model._proj_qkv_bshd(layer, h_in)
             # chunk k/v → (C/B, h_kv, B, d) block writes at the ids
             ck[ids] = k[0].reshape(nblk, B, h_kv, d).transpose(1, 2).to(
@@ -219,8 +220,9 @@ class ServingEngine:
             ctx = ctx.permute(2, 0, 1, 3).reshape(1, C, c.num_heads, d)
             x = x + model._proj_attn_out(layer, ctx)
             x = x + model._mlp(layer, fused_layer_norm(
-                x, layer["ln2_w"], layer["ln2_b"]))
-        x = fused_layer_norm(x, params["lnf_w"], params["lnf_b"])
+                x, layer["ln2_w"], layer["ln2_b"], impl=self.impl))
+        x = fused_layer_norm(x, params["lnf_w"], params["lnf_b"],
+                             impl=self.impl)
         last = x[:, live - 1:live]
         logits = model.unembed(params, last)[:, 0]  # (1, V)
         return self._sample(logits, generator)[0], logits[0]
@@ -252,12 +254,13 @@ class ServingEngine:
         row = pos % B
         for i, layer in enumerate(params["layers"]):
             ck, cv = pool["k"][i], pool["v"][i]
-            q, k_row, v_row = model.decode_qkv(layer, x)
+            q, k_row, v_row = model.decode_qkv(layer, x, self.impl)
             ck[bid, :, row] = k_row[:, :, 0].to(ck.dtype)
             cv[bid, :, row] = v_row[:, :, 0].to(cv.dtype)
             x = model.decode_block(layer, x, q, ck, cv, lengths,
                                    block_tables=tables, impl=self.impl)
-        x = fused_layer_norm(x, params["lnf_w"], params["lnf_b"])
+        x = fused_layer_norm(x, params["lnf_w"], params["lnf_b"],
+                             impl=self.impl)
         logits = model.unembed(params, x)[:, 0]  # (S, V)
         return self._sample(logits, generator), logits
 

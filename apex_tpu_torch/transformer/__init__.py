@@ -1,1 +1,2 @@
-"""Port of :mod:`apex_tpu.transformer` (the tensor-parallel layers at tp=1)."""
+"""Port of :mod:`apex_tpu.transformer` (the tensor-parallel layers at tp=1,
+the enums, and ``functional.FusedScaleMaskSoftmax``)."""

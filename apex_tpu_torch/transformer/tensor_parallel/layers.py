@@ -3,7 +3,9 @@
 Port of ``apex_tpu/transformer/tensor_parallel/layers.py`` for the
 single-device case: plain parameter-dict modules (``init`` → a dict of
 tensors, ``__call__(params, x)``), weights stored ``(out, in)`` as in the
-reference and ``nn.Linear``, so ``y = x @ W.T + b``. The sharded forms
+reference and ``nn.Linear``, so ``y = x @ W.T + b``; ``headwise`` gives
+the head-batched projections the materialised-scores attention routes use
+(plain ``torch.einsum``, as the reference leaves them to XLA). The sharded forms
 (tp > 1, sequence parallelism, overlapped rings) are later slices.
 """
 
@@ -28,8 +30,9 @@ def _default_init(generator: torch.Generator, shape, dtype: torch.dtype,
 
 
 @dataclasses.dataclass
-class ColumnParallelLinear:
-    """``y = x @ W.T + b``, W ``(output_size, input_size)``."""
+class _Linear:
+    """``y = x @ W.T + b``, W ``(output_size, input_size)``: the product
+    both parallel linears compute at tp=1."""
 
     input_size: int
     output_size: int
@@ -49,10 +52,44 @@ class ColumnParallelLinear:
         return F.linear(x, params["weight"], params.get("bias"))
 
 
-class RowParallelLinear(ColumnParallelLinear):
-    """At tp=1 the same product as :class:`ColumnParallelLinear`; the
-    reference's difference (input-sharded weight, all-reduce before the
-    bias) only exists across devices."""
+class ColumnParallelLinear(_Linear):
+    """The output-sharded linear; at tp=1 the plain product."""
+
+    def headwise(self, params: Dict[str, torch.Tensor], x: torch.Tensor,
+                 groups: int) -> torch.Tensor:
+        """Head-batched projection (``layers.py:170-186``): (b, s, H) →
+        (b, groups, s, d) with the output features viewed as (groups,
+        d)."""
+        if self.output_size % groups:
+            raise ValueError(f"output_size ({self.output_size}) must be "
+                             f"divisible by groups ({groups})")
+        d = self.output_size // groups
+        w = params["weight"].reshape(groups, d, x.shape[-1])
+        y = torch.einsum("bsH,gdH->bgsd", x, w)
+        if "bias" in params:
+            y = y + params["bias"].reshape(groups, 1, d)
+        return y
+
+
+class RowParallelLinear(_Linear):
+    """The input-sharded linear; at tp=1 the plain product (the
+    reference's all-reduce before the bias only exists across
+    devices)."""
+
+    def headwise(self, params: Dict[str, torch.Tensor],
+                 x: torch.Tensor) -> torch.Tensor:
+        """Head-batched output projection (``layers.py:250-265``): (b, h,
+        s, d) with h·d the input features → (b, s, output), contracted
+        over (heads, d), then the bias."""
+        h, d = x.shape[1], x.shape[3]
+        if h * d != self.input_size:
+            raise ValueError(f"headwise input ({h}x{d}) != input features "
+                             f"({self.input_size})")
+        w = params["weight"].reshape(self.output_size, h, d)
+        y = torch.einsum("bhsd,Hhd->bsH", x, w)
+        if "bias" in params:
+            y = y + params["bias"]
+        return y
 
 
 @dataclasses.dataclass

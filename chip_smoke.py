@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """chip_smoke.py — drive apex_tpu_torch's serving path, its decode engine
 (with speculative decoding), its GPT-medium train step, its T5-base train
-step (with the bucketed and the materialised relative bias) and its
-BERT-large padded MLM train step on one CUDA card.
+step (with the bucketed and the materialised relative bias), its
+BERT-large padded MLM train step, and the three train steps again on the
+models' default softmax attention route, on one CUDA card.
 
 Run from the repository root on a machine with an NVIDIA H100 (no
 arguments, one card, no network):
@@ -22,10 +23,18 @@ without the final line):
    ((8, 32768) at T=0.8 with top-k/top-p on and off), the flash forward
    and the dK/dV and dQ backward kernels (the train step's b 20, s 1024,
    8 heads of 128, and a GQA case: b 8, s 1000, 2 kv heads) and
-   ``xent_stats`` ((20480, 32768) with out-of-range labels) — with the
-   kernel's time (CUDA events, median), the plain version's, a library
-   call's where one computes the same function, and the bound (for the
-   two backward kernels also the pair's time against the bound of the
+   ``xent_stats`` ((20480, 32768) with out-of-range labels), ``ln_fwd``
+   and ``ln_bwd`` at every path's norm shape (GPT 20480 x 1024, BERT
+   16384 x 1024, T5 65536 and 14592 x 768, decode 16 x 1024; RMSNorm,
+   no affine, gamma only, a tail hidden of 1000; dgamma/dbeta
+   bit-identical across two runs), ``softmax_fwd`` and ``softmax_bwd`` at
+   every path's softmax call (GPT causal 20 x 8 x 1024², BERT's key mask
+   32 x 16 x 512², T5's decoder triangle 114², cross 114 x 512 and
+   encoder 512², fully masked rows, a 4096-long row; planted faults in
+   their outputs must fail the rule) — with the kernel's
+   time (CUDA events, median), the plain version's, a library call's
+   where one computes the same function, and the bound (for the two
+   flash backward kernels also the pair's time against the bound of the
    one function they replace);
 4. the serving path: GPT-medium at full width (bf16, vocab 32768, hidden
    1024, 12 layers, 8 heads of 128; random weights from a seed) served by
@@ -34,7 +43,9 @@ without the final line):
    256-token system prompts: a greedy serve, then a sampled one
    (T=0.8, top_k 50, top_p 0.9). The launch counters are zeroed just
    before and read just after, and must equal 12 paged-decode launches
-   per decode step and one sampling launch per sampled step;
+   per decode step, one sampling launch per sampled step and 25
+   ``ln_fwd`` launches per model forward (decode step or prefill
+   chunk);
 5. outside the counted window: the greedy serve again on a fresh engine
    (tokens must be identical), a serve through the plain versions (the
    share of requests with identical tokens is printed; bf16 near-ties may
@@ -53,10 +64,11 @@ without the final line):
      with the counters zeroed just before and read just after, 3 timed
      prefills and 3 timed loops of 127 greedy decode steps into one
      cache; 12 flash_fwd_bshd launches per prefill and 12 decode_attn
-     launches per step; the cache's storage must not move and the passes'
-     tokens must agree. Outside the window: a sampled generate (must
-     differ), a plain-path generate (share of identical tokens printed)
-     and a profiled decode loop (device-busy share);
+     launches per step, 25 ln_fwd per prefill and per step; the cache's
+     storage must not move and the passes' tokens must agree. Outside
+     the window: a sampled generate (must differ), a plain-path
+     generate (share of identical tokens printed) and a profiled decode
+     loop (device-busy share);
    * the spec leg at batch 1 (a 64-token block repeated 4 times, 64 new
      tokens): the chain with ModelDrafter (the target as its own
      drafter) and NGramDrafter(4), the tree with NGramTreeDrafter(4, 2),
@@ -67,10 +79,11 @@ without the final line):
 7. the train path: the same GPT-medium in bf16 (flash attention, no
    remat), batch 20 x 1024 seeded tokens, ``loss_fn`` + ``backward`` + one
    ``FusedAdam(lr=1e-4)`` step: a warm-up step, then 10 timed steps with
-   the train kernels' counters zeroed just before and read just after
-   (12 flash forward, 12 dK/dV, 12 dQ and 1 ``xent_stats`` launch per
-   step); every loss finite and the last below the first; tokens/s, step
-   ms, model TFLOP/s and MFU against the card's dense bf16 peak;
+   the counters zeroed just before and read just after (12 flash
+   forward, 12 dK/dV, 12 dQ, 25 ``ln_fwd``, 25 ``ln_bwd`` and 1
+   ``xent_stats`` launch per step); every loss finite and the last below
+   the first; tokens/s, step ms, model TFLOP/s and MFU against the
+   card's dense bf16 peak;
 8. outside the counted window: one step's loss and gradients on the
    kernel path against the plain path (``impl="torch"``, same weights and
    batch) within stated bounds, and 2 profiled train steps (device time
@@ -89,8 +102,10 @@ without the final line):
    * a warm-up, then 10 timed steps with the counters zeroed just before
      and read just after (per step 72 flat forward launches — 36
      attention calls, each run again by the remat — 36 dK/dV, 24 of them
-     with the table gradient, 36 dQ, 1 xent_stats); losses finite and
-     falling; tokens/s, step ms, model TFLOP/s and MFU;
+     with the table gradient, 36 dQ, 1 xent_stats, 122 ln_fwd — 62
+     norms, run again by the remat but for the two final ones — and 62
+     ln_bwd); losses finite and falling; tokens/s, step ms, model
+     TFLOP/s and MFU;
    * the kernel path and the plain path against an fp32 truth again, at
      the params the timed steps left, on their batch;
    * a padded step (encoder lengths in [256, 512]) with the same counts,
@@ -107,10 +122,10 @@ without the final line):
     * a warm-up, then 10 timed steps of ``mlm_loss`` + backward + one
       ``FusedAdam(lr=1e-4)`` step on a padded batch 32 x 512 (lengths
       uniform in [64, 512], token types, 15% of the valid positions in the
-      loss mask) with 48/24/24/1 bshd-forward/dQ/dK-dV/xent_stats launches
-      and no other flash launch per step asserted; tokens/s over all and
-      over the valid positions, step ms, TFLOP/s, MFU, peak memory, the
-      pad-mask host read's cost; 2 profiled steps;
+      loss mask) with 48/24/24/1/97/49 bshd-forward/dQ/dK-dV/xent_stats/
+      ln_fwd/ln_bwd launches and no other flash launch per step asserted;
+      tokens/s over all and over the valid positions, step ms, TFLOP/s,
+      MFU, peak memory, the pad-mask host read's cost; 2 profiled steps;
 11. the array bias: the flat forward, dK/dV and dQ with an fp32 bias and
     the dbias kernel against their plain versions (dbias within 1e-3
     relative norm of the fp32 plain version) at T5's encoder call (hb 12,
@@ -119,9 +134,23 @@ without the final line):
     "materialized"``): one step against the bucketed path at the same
     params and batch, a warm-up and 3 timed steps with 72 (48 biased) flat
     forwards, 36 (24) dK/dV, 36 (24) dQ and 24 dbias launches per step;
-12. one ``{"kernels": [...]}`` line (all seventeen kernels, each with its
-    launches by main path), the card's name and power limit as nvidia-smi
-    prints them, and last ``{"ok": true, "device": {...}}``.
+12. the softmax routes (``attention_impl="softmax"``, the reference's
+    default): each leg one step at the initial params against the plain
+    path and an fp32 truth, a warm-up, then timed steps with the counters
+    zeroed just before and read just after and no flash launch allowed —
+    GPT-medium (batch 20 x 1024, 5 steps: 12/12 causal softmax, 25/25
+    norm, 1 xent_stats launches per step); BERT-large (the BERT leg's
+    batch, 10 steps: 48/24 softmax, 97/49 norm, 1 xent_stats; tokens/s,
+    MFU, peak memory), then one step on the batch
+    with interior holes punched in every pad mask (which the flash route
+    refuses): finite loss, the same launches; T5 in both position modes
+    (128 x (512, 114), 5 steps: learned 72/36 softmax, relative 24/12 —
+    the cross-attention only, the biased self-attention taking the fp32
+    composition — and 122/62 norm, 1 xent_stats); each leg ends with 2
+    profiled steps (device time by layer, busy share);
+13. one ``{"kernels": [...]}`` line (all twenty-one kernels, each with
+    its launches by main path), the card's name and power limit as
+    nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -142,20 +171,29 @@ FP32_OPS_PER_S = 67e12
 
 # the serving slice's configuration (bench.py's GPT-medium serve cell)
 MODEL = dict(vocab_size=32768, max_seq_len=1024, hidden_size=1024,
-             num_layers=12, num_heads=8)
+             num_layers=12, num_heads=8, attention_impl="flash")
 ENGINE = dict(num_slots=8, block_size=128, prefill_chunk=256, num_blocks=41)
 SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.9)
 DECODE_TOL = 2e-2   # bf16 output: a few bf16 ulps at unit scale
 NEAR_TIE = 1e-5     # relative gap of the two best perturbed scores
 
 # the train slice's configuration (bench.py:2517-2524): GPT-medium, flash
-# attention (the port's only route), no remat; batch 20 x 1024 tokens
+# attention, no remat; batch 20 x 1024 tokens
 TRAIN = dict(MODEL, remat=False)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 20, 1024, 10
 # the flash kernels' bf16 rule: the truth is the plain version in fp32 on
 # the same bf16 inputs; the kernel's max abs error must be at most twice
 # the bf16 plain version's own, plus FLASH_SLACK
 FLASH_SLACK = 1e-3
+# the softmax kernels' bf16 rule: their outputs (probabilities near 1/sk,
+# gradients near scale/sk) sit far below the flash outputs' unit scale,
+# so the slack scales with the output compared: the max abs error vs the
+# fp32 truth at most twice the bf16 plain version's + SOFTMAX_SLACK x the
+# truth's largest entry, AND the error's norm relative to the truth's at
+# most twice the plain version's + SOFTMAX_SLACK. Each call also plants
+# faults in the kernel's output (every entry 10% off; the backward
+# without its - sum(dy * y) term) and fails unless the rule refuses them
+SOFTMAX_SLACK = 1e-3
 # kernel path vs plain path over one whole bf16 train step. At random
 # init the loss sits near ln V whatever attention does, so the loss bound
 # catches little; the gradient bound is the one that separates a faulty
@@ -171,7 +209,8 @@ TRAIN_GRAD_TOL = 5e-2   # each gradient leaf's relative norm error
 T5 = dict(vocab_size=32128, max_seq_len=512, hidden_size=768,
           ffn_hidden_size=3072, num_encoder_layers=12, num_decoder_layers=12,
           num_heads=12, remat=True, position_encoding="relative",
-          relative_num_buckets=32, relative_max_distance=128)
+          relative_num_buckets=32, relative_max_distance=128,
+          attention_impl="flash")
 T5_BATCH, T5_ENC, T5_DEC, T5_STEPS = 128, 512, 114, 10
 T5_PAD_MIN = 256        # padded batches: encoder lengths in [256, 512]
 T5_DTABLE_TOL = 1e-3    # bucket-table gradient: relative norm error
@@ -383,13 +422,13 @@ def flash_case(torch, dev, b, s, h, h_kv, d, seed):
     return qkv, do
 
 
-def rule_check(name, got, plain, truth, shape):
-    """The flash kernels' bf16 rule (see FLASH_SLACK); returns the
-    kernel's max abs error against the fp32 truth."""
+def rule_check(name, got, plain, truth, shape, tag="flash_check"):
+    """The kernels' bf16 rule (see FLASH_SLACK); returns the kernel's max
+    abs error against the fp32 truth."""
     err = (got.float() - truth.float()).abs().max().item()
     err_plain = (plain.float() - truth.float()).abs().max().item()
     tol = 2 * err_plain + FLASH_SLACK
-    emit("flash_check", {"output": name, "shape": shape, "max_abs_err": err,
+    emit(tag, {"output": name, "shape": shape, "max_abs_err": err,
                          "plain_bf16_err": err_plain, "tol": tol})
     check(err <= tol, f"{name} kernel vs plain: max abs err {err} > {tol} "
           f"at {shape}")
@@ -582,58 +621,23 @@ def train_step(model, params, opt, tokens, targets):
     return loss.detach()
 
 
-def train_counters():
-    from apex_tpu_torch.ops import attention as A
-    from apex_tpu_torch.ops import xentropy as X
-
-    return {"flash_fwd": A.flash_fwd_cuda,
-            "flash_bwd_dkv": A.flash_bwd_dkv_cuda,
-            "flash_bwd_dq": A.flash_bwd_dq_cuda,
-            "xent_stats": X.xent_stats_cuda}
-
-
 def phase_train(torch, dev):
     """The main train path: warm-up, then TRAIN_STEPS timed steps with the
-    train kernels' counters zeroed just before and read just after."""
-    from apex_tpu_torch.models.gpt import GPTConfig, GPTModel, param_leaves
+    counters zeroed just before and read just after."""
+    from apex_tpu_torch.models.gpt import param_leaves
     from apex_tpu_torch.optimizers import FusedAdam
 
-    model = GPTModel(GPTConfig(**TRAIN, dtype=torch.bfloat16))
-    params = model.init(torch.Generator(device=dev).manual_seed(0),
-                        device=dev)
-    for t in param_leaves(params):
-        t.requires_grad_()
+    model, params = gpt_model(torch, dev, TRAIN, torch.bfloat16)
     opt = FusedAdam(param_leaves(params), lr=1e-4)
-    g = torch.Generator(device=dev).manual_seed(1)
-    V = TRAIN["vocab_size"]
-    tokens = torch.randint(0, V, (TRAIN_BATCH, TRAIN_SEQ), generator=g,
-                           device=dev)
-    targets = torch.randint(0, V, (TRAIN_BATCH, TRAIN_SEQ), generator=g,
-                            device=dev)
-    train_step(model, params, opt, tokens, targets)  # warm-up, not counted
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    counters = train_counters()
-    for fn in counters.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    losses = [train_step(model, params, opt, tokens, targets)
-              for _ in range(TRAIN_STEPS)]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
-
-    losses = [float(x) for x in losses]
-    check(all(np.isfinite(losses)), f"train losses not finite: {losses}")
-    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    tokens, targets = gpt_batch(torch, dev)
+    losses, wall, launches = timed_steps(
+        torch, lambda: train_step(model, params, opt, tokens, targets),
+        TRAIN_STEPS, "train path")
     L = TRAIN["num_layers"]
-    want = {"flash_fwd": L, "flash_bwd_dkv": L, "flash_bwd_dq": L,
-            "xent_stats": 1}
-    for k, per_step in want.items():
-        check(launches[k] == per_step * TRAIN_STEPS,
-              f"train path: {launches[k]} {k} launches in {TRAIN_STEPS} "
-              f"steps, want {per_step} per step")
+    check_launches(launches, {"flash_fwd": L, "flash_bwd_dkv": L,
+                              "flash_bwd_dq": L, "xent_stats": 1,
+                              "ln_fwd": 2 * L + 1, "ln_bwd": 2 * L + 1},
+                   TRAIN_STEPS, "train path")
     tok = TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS
     flops = model_flops_per_token(TRAIN, TRAIN_SEQ) * tok / wall
     info = {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
@@ -645,7 +649,7 @@ def phase_train(torch, dev):
             "card": torch.cuda.get_device_name(0),
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
             "launches_per_step": {k: v / TRAIN_STEPS
-                                  for k, v in launches.items()}}
+                                  for k, v in launches.items() if v}}
     return (model, params, opt, tokens, targets), info, launches
 
 
@@ -696,6 +700,10 @@ def kernel_category(name):
         return "flash attention kernels"
     if "xent_stats" in name:
         return "xent_stats kernel"
+    if "ln_fwd" in name or "ln_bwd" in name:
+        return "layer-norm kernels"
+    if "softmax_fwd" in name or "softmax_bwd" in name:
+        return "softmax kernels"
     if "nvjet" in name or "gemm" in name.lower() or "cutlass" in name:
         return "GEMMs (cuBLAS)"
     if "multi_tensor_apply" in name:
@@ -1126,11 +1134,13 @@ def decode_counters():
     from apex_tpu_torch.ops import attention as A
     from apex_tpu_torch.ops import decode_attention as D
     from apex_tpu_torch.ops import fused_verify as vf
+    from apex_tpu_torch.ops import layer_norm as LN
 
     return {"flash_fwd_bshd": A.flash_fwd_bshd_cuda,
             "decode_attn": D.decode_attn_cuda,
             "fused_verify": vf.fused_verify_cuda,
-            "fused_verify_tree": vf.fused_verify_tree_cuda}
+            "fused_verify_tree": vf.fused_verify_tree_cuda,
+            "ln_fwd": LN.ln_fwd_cuda}
 
 
 def decode_prompt(torch, dev):
@@ -1187,10 +1197,13 @@ def phase_decode(torch, model, params, dev):
         dec_times.append(time.perf_counter() - t0)
         runs.append(torch.stack(out, dim=1))
     launches = {k: counters[k].launches
-                for k in ("flash_fwd_bshd", "decode_attn")}
+                for k in ("flash_fwd_bshd", "decode_attn", "ln_fwd")}
     L = MODEL["num_layers"]
     prefills = 2 * DECODE_PASSES
     steps = DECODE_PASSES * (DECODE_NEW - 1)
+    check(launches["ln_fwd"] == (2 * L + 1) * (prefills + steps),
+          f"decode leg: {launches['ln_fwd']} ln_fwd launches for "
+          f"{prefills} prefills + {steps} steps x {2 * L + 1} norms")
     check(launches["flash_fwd_bshd"] == L * prefills,
           f"decode leg: {launches['flash_fwd_bshd']} flash_fwd_bshd "
           f"launches for {prefills} prefills x {L} layers")
@@ -1609,17 +1622,26 @@ def t5_flops_per_step(b, s_enc, s_dec):
     return 6 * matmul + attn
 
 
+def t5_ln_counts():
+    """(ln_fwd, ln_bwd) per T5 step with per-block remat: 2 norms per
+    encoder block and 3 per decoder block, run again by the recompute, and
+    the two final norms once."""
+    blocks = 2 * T5["num_encoder_layers"] + 3 * T5["num_decoder_layers"]
+    return {"ln_fwd": 2 * blocks + 2, "ln_bwd": blocks + 2}
+
+
 def t5_check_launches(launches, steps, what):
     """Per step, with per-block remat: each of the 36 attention calls runs
     its forward twice (the recompute), its dK/dV and dQ once; the 24
-    self-attention calls carry the bucket table; one xent_stats; no
-    other flash kernel."""
+    self-attention calls carry the bucket table; one xent_stats; the
+    norms (t5_ln_counts); no other flash or softmax kernel."""
     L = T5["num_encoder_layers"] + 2 * T5["num_decoder_layers"]
     table = T5["num_encoder_layers"] + T5["num_decoder_layers"]
     check_launches(launches, {"flash_fwd_flat": 2 * L,
                               "flash_bwd_flat_dkv": L, "flash_bwd_flat_dq": L,
                               "flash_bwd_flat_dtable": table,
-                              "xent_stats": 1}, steps, what)
+                              "xent_stats": 1, **t5_ln_counts()}, steps,
+                   what)
 
 
 def t5_batch(torch, dev, b, seed):
@@ -1652,21 +1674,9 @@ def phase_t5_train(torch, dev):
     model, params = t5_model(torch, dev, torch.bfloat16)
     opt = FusedAdam(param_leaves(params), lr=1e-4)
     enc, dec, tgt, _ = t5_batch(torch, dev, T5_BATCH, seed=1)
-    t5_step(model, params, opt, enc, dec, tgt)  # warm-up, not counted
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    zero_counters()
-    t0 = time.perf_counter()
-    losses = [t5_step(model, params, opt, enc, dec, tgt)
-              for _ in range(T5_STEPS)]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counters()
-
-    losses = [float(x) for x in losses]
-    check(all(np.isfinite(losses)), f"T5 losses not finite: {losses}")
-    check(losses[-1] < losses[0], f"T5 loss did not fall: {losses}")
+    losses, wall, launches = timed_steps(
+        torch, lambda: t5_step(model, params, opt, enc, dec, tgt), T5_STEPS,
+        "T5 train path")
     t5_check_launches(launches, T5_STEPS, "T5 train path")
     tok = T5_BATCH * (T5_ENC + T5_DEC) * T5_STEPS
     flops = t5_flops_per_step(T5_BATCH, T5_ENC, T5_DEC) * T5_STEPS / wall
@@ -1702,11 +1712,11 @@ def phase_t5_padded(torch, state, dev):
             "launches": {k: v for k, v in launches.items() if v}}
 
 
-def t5_model(torch, dev, dtype):
+def t5_model(torch, dev, dtype, cfg=None):
     from apex_tpu_torch.models.t5 import (EncoderDecoderModel, T5Config,
                                           param_leaves)
 
-    model = EncoderDecoderModel(T5Config(**T5, dtype=dtype))
+    model = EncoderDecoderModel(T5Config(**(cfg or T5), dtype=dtype))
     params = model.init(torch.Generator(device=dev).manual_seed(0),
                         device=dev)
     for t in param_leaves(params):
@@ -1715,7 +1725,7 @@ def t5_model(torch, dev, dtype):
 
 
 def phase_t5_plain(torch, model, params, enc, dec, tgt, pad, what,
-                   bound_kernel_vs_plain):
+                   bound_kernel_vs_plain, cfg=None):
     """One T5 step's loss and gradients at ``params`` on the given batch,
     kernel path vs plain path vs an fp32 truth (compare_paths). The
     kernel-vs-plain bound holds only where ``bound_kernel_vs_plain`` (the
@@ -1725,12 +1735,8 @@ def phase_t5_plain(torch, model, params, enc, dec, tgt, pad, what,
     projections) shrink until bf16 rounding moves them tens of percent in
     BOTH paths, which the fp32 truth shows and a kernel-vs-plain bound
     cannot tell from a fault."""
-    from apex_tpu_torch.models.t5 import param_leaves
-
-    model32, params32 = t5_model(torch, enc.device, torch.float32)
-    with torch.no_grad():
-        for a, b in zip(param_leaves(params32), param_leaves(params)):
-            a.copy_(b.float())
+    model32, params32 = t5_model(torch, enc.device, torch.float32, cfg)
+    upcast_copy(torch, params32, params)
 
     def run(p, impl):
         m = model32 if p is params32 else model
@@ -1749,7 +1755,8 @@ def phase_t5_plain(torch, model, params, enc, dec, tgt, pad, what,
 # BertConfig vocab of 30592 (BERT's 30522 padded to a multiple of 128);
 # bf16, per-block remat, FusedAdam(lr=1e-4); batch 32 x 512
 BERT = dict(vocab_size=30592, max_seq_len=512, hidden_size=1024,
-            ffn_hidden_size=4096, num_layers=24, num_heads=16, remat=True)
+            ffn_hidden_size=4096, num_layers=24, num_heads=16, remat=True,
+            attention_impl="flash")
 BERT_BATCH, BERT_SEQ, BERT_STEPS = 32, 512, 10
 BERT_PAD_MIN = 64       # padded lengths uniform in [64, 512]: ~44% padding
 BERT_MASK_RATE = 0.15   # BERT's masking rate over the valid positions
@@ -2134,15 +2141,22 @@ def bert_batch(torch, dev, seed):
     return (tokens, targets, loss_mask, types, ~valid), lens
 
 
-def bert_model(torch, dev, dtype):
+def bert_model(torch, dev, dtype, cfg=None):
     from apex_tpu_torch.models.bert import BertConfig, BertModel, param_leaves
 
-    model = BertModel(BertConfig(**BERT, dtype=dtype))
+    model = BertModel(BertConfig(**(cfg or BERT), dtype=dtype))
     params = model.init(torch.Generator(device=dev).manual_seed(0),
                         device=dev)
     for t in param_leaves(params):
         t.requires_grad_()
     return model, params
+
+
+def bert_ln_counts():
+    """(ln_fwd, ln_bwd) per BERT step with per-block remat: the embedding
+    norm once, 2 norms per block run again by the recompute."""
+    L = BERT["num_layers"]
+    return {"ln_fwd": 4 * L + 1, "ln_bwd": 2 * L + 1}
 
 
 def bert_step(model, params, opt, batch):
@@ -2154,9 +2168,11 @@ def bert_step(model, params, opt, batch):
 
 
 def path_counters():
-    """Every flash and xent_stats counter, by name: the kernels a path
-    must launch and those it must not."""
+    """Every flash, xent_stats, layer-norm and softmax counter, by name:
+    the kernels a path must launch and those it must not."""
     from apex_tpu_torch.ops import attention as A
+    from apex_tpu_torch.ops import layer_norm as LN
+    from apex_tpu_torch.ops import softmax as S
     from apex_tpu_torch.ops import xentropy as X
 
     return {"flash_fwd": (A.flash_fwd_cuda, "launches"),
@@ -2177,7 +2193,11 @@ def path_counters():
             "flash_bwd_flat_dq_bias": (A.flash_bwd_flat_dq_cuda,
                                        "bias_launches"),
             "flash_bwd_dbias": (A.flash_bwd_dbias_cuda, "launches"),
-            "xent_stats": (X.xent_stats_cuda, "launches")}
+            "xent_stats": (X.xent_stats_cuda, "launches"),
+            "ln_fwd": (LN.ln_fwd_cuda, "launches"),
+            "ln_bwd": (LN.ln_bwd_cuda, "launches"),
+            "softmax_fwd": (S.softmax_fwd_cuda, "launches"),
+            "softmax_bwd": (S.softmax_bwd_cuda, "launches")}
 
 
 def zero_counters():
@@ -2210,25 +2230,14 @@ def phase_bert_train(torch, dev):
     model, params = bert_model(torch, dev, torch.bfloat16)
     opt = FusedAdam(param_leaves(params), lr=1e-4)
     batch, lens = bert_batch(torch, dev, seed=1)
-    bert_step(model, params, opt, batch)  # warm-up, not counted
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    zero_counters()
-    t0 = time.perf_counter()
-    losses = [bert_step(model, params, opt, batch)
-              for _ in range(BERT_STEPS)]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counters()
-
-    losses = [float(x) for x in losses]
-    check(all(np.isfinite(losses)), f"BERT losses not finite: {losses}")
-    check(losses[-1] < losses[0], f"BERT loss did not fall: {losses}")
+    losses, wall, launches = timed_steps(
+        torch, lambda: bert_step(model, params, opt, batch), BERT_STEPS,
+        "BERT train path")
     L = BERT["num_layers"]
     check_launches(launches, {"flash_fwd_bshd": 2 * L,
                               "flash_bwd_bshd_dq": L,
-                              "flash_bwd_bshd_dkv": L, "xent_stats": 1},
+                              "flash_bwd_bshd_dkv": L, "xent_stats": 1,
+                              **bert_ln_counts()},
                    BERT_STEPS, "BERT train path")
     # the interior-mask check reads the pad mask on the host: one
     # synchronising read per step, timed on its own here and seen in the
@@ -2324,19 +2333,15 @@ def compare_paths(torch, run, params, params32, what, bound_kernel_vs_plain,
     return info
 
 
-def phase_bert_plain(torch, dev):
+def phase_bert_plain(torch, dev, cfg=None):
     """One BERT step at the initial params on the timed steps' batch: the
     kernel path against the plain path and both against an fp32 truth
     (compare_paths). The k window of each qkv bias is left out of its
     leaf's norm: its exact gradient is 0 (one constant added to every
     score of a row), so both paths hold only bf16 rounding noise there."""
-    from apex_tpu_torch.models.bert import param_leaves
-
-    model, params = bert_model(torch, dev, torch.bfloat16)
-    model32, params32 = bert_model(torch, dev, torch.float32)
-    with torch.no_grad():
-        for a, b in zip(param_leaves(params32), param_leaves(params)):
-            a.copy_(b.float())
+    model, params = bert_model(torch, dev, torch.bfloat16, cfg)
+    model32, params32 = bert_model(torch, dev, torch.float32, cfg)
+    upcast_copy(torch, params32, params)
     batch, _ = bert_batch(torch, dev, seed=1)
     H = BERT["hidden_size"]
 
@@ -2408,27 +2413,16 @@ def phase_t5_materialized(torch, dev):
     del g_m, g_b, bucketed
 
     opt = FusedAdam(param_leaves(params), lr=1e-4)
-    t5_step(model, params, opt, enc, dec, tgt)  # warm-up, not counted
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_counters()
-    t0 = time.perf_counter()
-    losses = [t5_step(model, params, opt, enc, dec, tgt)
-              for _ in range(T5_MAT_STEPS)]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counters()
-    losses = [float(x) for x in losses]
-    check(all(np.isfinite(losses)), f"T5 materialized losses: {losses}")
-    check(losses[-1] < losses[0], f"T5 materialized loss did not fall: "
-          f"{losses}")
+    losses, wall, launches = timed_steps(
+        torch, lambda: t5_step(model, params, opt, enc, dec, tgt),
+        T5_MAT_STEPS, "T5 materialized leg")
     L = T5["num_encoder_layers"] + 2 * T5["num_decoder_layers"]
     selfs = T5["num_encoder_layers"] + T5["num_decoder_layers"]
     check_launches(launches, {
         "flash_fwd_flat": 2 * L, "flash_fwd_flat_bias": 2 * selfs,
         "flash_bwd_flat_dkv": L, "flash_bwd_flat_dkv_bias": selfs,
         "flash_bwd_flat_dq": L, "flash_bwd_flat_dq_bias": selfs,
-        "flash_bwd_dbias": selfs, "xent_stats": 1},
+        "flash_bwd_dbias": selfs, "xent_stats": 1, **t5_ln_counts()},
         T5_MAT_STEPS, "T5 materialized leg")
     tok = T5_BATCH * (T5_ENC + T5_DEC) * T5_MAT_STEPS
     flops = t5_flops_per_step(T5_BATCH, T5_ENC, T5_DEC) * T5_MAT_STEPS / wall
@@ -2444,6 +2438,556 @@ def phase_t5_materialized(torch, dev):
     return info, launches
 
 
+# --- the norm and softmax kernels and the softmax routes ----------------------
+
+# the reference's default attention route on the train legs' configs
+GPT_SOFTMAX = dict(TRAIN, attention_impl="softmax")
+BERT_SOFTMAX = dict(BERT, attention_impl="softmax")
+LN_EPS = 1e-5
+SOFTMAX_LEG_STEPS = 5   # timed steps of the GPT and T5 softmax legs
+# the main paths' layer-norm calls (rows, hidden): GPT's and BERT's train
+# steps, T5's encoder and decoder (batch 128 x (512, 114)), a decode step
+LN_CALLS = {"gpt": (TRAIN_BATCH * TRAIN_SEQ, 1024),
+            "bert": (BERT_BATCH * BERT_SEQ, 1024),
+            "t5_enc": (T5_BATCH * T5_ENC, 768),
+            "t5_dec": (T5_BATCH * T5_DEC, 768),
+            "decode": (DECODE_BATCH, 1024)}
+# the main paths' softmax calls: (b, h, sq, sk) and the mask each takes
+SOFTMAX_CALLS = {"gpt_causal": ((TRAIN_BATCH, 8, TRAIN_SEQ, TRAIN_SEQ),
+                                "causal"),
+                 "bert_key": ((BERT_BATCH, 16, BERT_SEQ, BERT_SEQ), "key"),
+                 "t5_dec_self": ((T5_BATCH, 12, T5_DEC, T5_DEC), "tril"),
+                 "t5_cross": ((T5_BATCH, 12, T5_DEC, T5_ENC), "key"),
+                 "t5_enc_self": ((T5_BATCH, 12, T5_ENC, T5_ENC), None)}
+
+
+def ln_case(torch, dev, rows, hidden, affine, seed, copies=1):
+    """``copies`` (x, dy) pairs in bf16 and bf16 (gamma, beta) per
+    ``affine`` ("wb", "w" or "")."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sets = [((torch.randn((rows, hidden), generator=g, device=dev) * 2
+              + 0.5).bfloat16(),
+             torch.randn((rows, hidden), generator=g, device=dev).bfloat16())
+            for _ in range(copies)]
+    w = (1 + 0.3 * torch.randn((hidden,), generator=g, device=dev))
+    b = 0.2 * torch.randn((hidden,), generator=g, device=dev)
+    return (sets, w.bfloat16() if "w" in affine else None,
+            b.bfloat16() if "b" in affine else None)
+
+
+def ln_check(torch, dev, rows, hidden, rms, affine, seed, what):
+    """ln_fwd and ln_bwd against their plain versions on one call: y and
+    dx by the bf16 rule against the fp32 truth, mean and rstd within 1e-5
+    of the truth's largest entry, dgamma/dbeta within one bf16 ulp (2^-7)
+    of the largest and bit-identical across two runs. Returns the y and
+    dx errors."""
+    from apex_tpu_torch.ops import layer_norm as LN
+
+    sets, w, b = ln_case(torch, dev, rows, hidden, affine, seed)
+    x, dy = sets[0]
+    f32 = lambda t: None if t is None else t.float()  # noqa: E731
+    shape = {"rows": rows, "hidden": hidden, "rms": rms, "affine": affine,
+             "call": what}
+    y, mean, rstd = LN.ln_fwd_cuda(x, w, b, LN_EPS, rms)
+    dx, dw, db = LN.ln_bwd_cuda(dy, x, mean, rstd, w, rms)
+    again = LN.ln_bwd_cuda(dy, x, mean, rstd, w, rms)
+    yp, mp, rp = LN._torch_fwd(x, w, b, LN_EPS, rms)
+    dxp, _, _ = LN._torch_bwd(dy, x, mp, rp, w, rms)
+    yt, mt, rt = LN._torch_fwd(x.float(), f32(w), f32(b), LN_EPS, rms)
+    dxt, dwt, dbt = LN._torch_bwd(dy.float(), x.float(), mt, rt, f32(w),
+                                  rms)
+    torch.cuda.synchronize()
+    errs = {"y": rule_check("ln y", y, yp, yt, shape, "ln_check"),
+            "dx": rule_check("ln dx", dx, dxp, dxt, shape, "ln_check")}
+    for name, got, want, rel in (("mean", mean, mt, 1e-5),
+                                 ("rstd", rstd, rt, 1e-5),
+                                 ("dgamma", dw, dwt, 2.0 ** -7),
+                                 ("dbeta", db, dbt, 2.0 ** -7)):
+        if got is None:
+            continue
+        err = (got.float() - want).abs().max().item()
+        tol = rel * want.abs().max().item()
+        emit("ln_check", {"output": name, "shape": shape,
+                          "max_abs_err": err, "tol": tol})
+        check(err <= tol, f"ln {name}: max abs err {err} > {tol} at {shape}")
+    check(all(torch.equal(a, c) for a, c in zip((dx, dw, db), again)
+              if a is not None),
+          f"ln_bwd not bit-reproducible at {shape}")
+    return errs
+
+
+def phase_ln_kernels(torch, dev):
+    """ln_fwd and ln_bwd at every main path's norm shape (LayerNorm with
+    gamma and beta, as the models run it), plus RMSNorm, the affine-free
+    and gamma-only forms and a tail hidden of 1000; times, the bound and
+    the library's F.layer_norm at GPT's train step (20480 x 1024, bf16)."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import layer_norm as LN
+
+    errs = {"y": 0.0, "dx": 0.0}
+    cases = [(rows, hidden, False, "wb", what)
+             for what, (rows, hidden) in LN_CALLS.items()]
+    cases += [(20480, 1024, True, "w", "rms"), (4096, 1024, False, "",
+                                                 "no affine"),
+              (4096, 1024, True, "", "rms, no affine"),
+              (4096, 1024, False, "w", "gamma only"),
+              (3000, 1000, False, "wb", "tail hidden")]
+    for i, (rows, hidden, rms, affine, what) in enumerate(cases):
+        e = ln_check(torch, dev, rows, hidden, rms, affine, 40 + i, what)
+        errs = {k: max(errs[k], e[k]) for k in errs}
+    torch.cuda.empty_cache()
+
+    rows, hidden = LN_CALLS["gpt"]
+    # 3 copies of x (42 MB each) cycle through the 50 MB L2
+    sets, w, b = ln_case(torch, dev, rows, hidden, "wb", 7, copies=3)
+    stats = [LN.ln_fwd_cuda(x, w, b, LN_EPS, False) for x, _ in sets]
+    fwd_sets = [(x,) for x, _ in sets]
+    bwd_sets = [(dy, x, m, r) for (x, dy), (_, m, r) in zip(sets, stats)]
+    ms_fwd = time_ms(lambda x: LN.ln_fwd_cuda(x, w, b, LN_EPS, False),
+                     fwd_sets)
+    ms_bwd = time_ms(lambda dy, x, m, r: LN.ln_bwd_cuda(dy, x, m, r, w,
+                                                        False), bwd_sets)
+    plain_fwd = time_ms(lambda x: LN._torch_fwd(x, w, b, LN_EPS, False),
+                        fwd_sets, reps=6, trials=5)
+    plain_bwd = time_ms(lambda dy, x, m, r: LN._torch_bwd(dy, x, m, r, w,
+                                                          False),
+                        bwd_sets, reps=6, trials=5)
+    lib_fwd = time_ms(lambda x: F.layer_norm(x, (hidden,), w, b, LN_EPS),
+                      fwd_sets)
+    graphs = []
+    for x, dy in sets:
+        leaves = [t.detach().requires_grad_() for t in (x, w, b)]
+        graphs.append((F.layer_norm(leaves[0], (hidden,), leaves[1],
+                                    leaves[2], LN_EPS), leaves, dy))
+    lib_bwd = time_ms(lambda out, leaves, dy: torch.autograd.grad(
+        out, leaves, dy, retain_graph=True), graphs)
+    del graphs, stats, sets
+    torch.cuda.empty_cache()
+    # bytes: x (and dy) read once, y (dx) written once, the stats and the
+    # parameters; operations: ~8 fp32 a forward element, ~12 a backward one
+    n = rows * hidden
+    fwd = bound(4 * n + 2 * 2 * hidden + 8 * rows, 8 * n, FP32_OPS_PER_S)
+    bwd = bound(6 * n + 8 * rows + 2 * hidden + 2 * 2 * hidden, 12 * n,
+                FP32_OPS_PER_S)
+    timed = {"rows": rows, "hidden": hidden, "dtype": "bf16",
+             "affine": "gamma and beta (bf16)"}
+    src = "apex_tpu_torch/csrc/layer_norm.cu"
+    return [
+        {"name": "ln_fwd", "route": "cuda", "source": src,
+         "replaces": "apex_tpu/ops/pallas/layer_norm.py:102",
+         "max_abs_err": errs["y"], "ms": ms_fwd, "plain_ms": plain_fwd,
+         "bound_ms": fwd[0], "bound_by": fwd[1], "library_ms": lib_fwd,
+         "library_note": "F.layer_norm", "timed_shape": timed},
+        {"name": "ln_bwd", "route": "cuda", "source": src,
+         "replaces": "apex_tpu/ops/pallas/layer_norm.py:186",
+         "max_abs_err": errs["dx"], "ms": ms_bwd, "plain_ms": plain_bwd,
+         "bound_ms": bwd[0], "bound_by": bwd[1], "library_ms": lib_bwd,
+         "library_note": "F.layer_norm's autograd backward (dx, dgamma, "
+                         "dbeta)",
+         "kernel_note": "two launches a call: the row kernel and the "
+                        "fixed-order dgamma/dbeta reduction",
+         "timed_shape": timed}]
+
+
+def softmax_case(torch, dev, shape, mask_kind, seed):
+    """bf16 scores and upstream gradient at ``shape`` (b, h, sq, sk), and
+    the call's mask (True = masked): "causal" (built in the kernel: None),
+    "key" (b, 1, 1, sk) key padding with lengths in [sk/4, sk] and one
+    length 0 (fully masked rows), "tril" (1, 1, sq, sk), or None."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=dev) * 4).bfloat16()
+    dy = torch.randn(shape, generator=g, device=dev).bfloat16()
+    b, _, sq, sk = shape
+    mask = None
+    if mask_kind == "key":
+        lens = torch.randint(sk // 4, sk + 1, (b,), generator=g, device=dev)
+        lens[1] = 0
+        mask = (torch.arange(sk, device=dev)[None, :]
+                >= lens[:, None])[:, None, None, :]
+    elif mask_kind == "tril":
+        mask = ~torch.ones((sq, sk), dtype=torch.bool,
+                           device=dev).tril()[None, None]
+    return x, dy, mask
+
+
+def softmax_rule(got, plain, truth):
+    """SOFTMAX_SLACK's rule; returns (ok, the errors and limits)."""
+    t = truth.float()
+    d_k, d_p = got.float() - t, plain.float() - t
+    norm = t.norm().item() + 1e-30
+    r = {"max_abs_err": d_k.abs().max().item(),
+         "plain_bf16_err": d_p.abs().max().item(),
+         "rel_norm_err": d_k.norm().item() / norm,
+         "plain_rel_norm_err": d_p.norm().item() / norm}
+    r["tol"] = (2 * r["plain_bf16_err"]
+                + SOFTMAX_SLACK * t.abs().max().item())
+    r["rel_norm_tol"] = 2 * r["plain_rel_norm_err"] + SOFTMAX_SLACK
+    ok = r["max_abs_err"] <= r["tol"] and r["rel_norm_err"] <= r[
+        "rel_norm_tol"]
+    return ok, r
+
+
+def softmax_check(torch, dev, shape, mask_kind, scale, seed, what):
+    """softmax_fwd and softmax_bwd against their plain versions on one
+    call: y and dx by SOFTMAX_SLACK's rule against the fp32 truth, and
+    the planted faults refused; fully masked rows uniform. Returns the y
+    and dx errors."""
+    from apex_tpu_torch.ops import softmax as S
+
+    x, dy, mask = softmax_case(torch, dev, shape, mask_kind, seed)
+    causal = mask_kind == "causal"
+    sk = shape[-1]
+    info = {"shape": list(shape), "mask": mask_kind, "call": what}
+    y = S.softmax_fwd_cuda(x, mask, scale, causal)
+    yp = S._torch_fwd(x, mask, scale, causal)
+    yt = S._torch_fwd(x.float(), mask, scale, causal)
+    torch.cuda.synchronize()
+    if mask is not None:
+        full = torch.broadcast_to(mask, shape).all(-1)
+        if bool(full.any()):
+            err = (y[full].float() - 1.0 / sk).abs().max().item()
+            check(err <= 2 ** -9, f"softmax: fully masked rows not uniform "
+                  f"({err}) at {info}")
+    del x
+    dx = S.softmax_bwd_cuda(dy, yp, scale)
+    dxp = S._torch_bwd(dy, yp, scale)
+    dxt = S._torch_bwd(dy.float(), yp.float(), scale)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, plain, truth, faults in (
+            ("y", y, yp, yt, {"10% off": (y.float() * 1.1).to(y.dtype)}),
+            ("dx", dx, dxp, dxt, {
+                "10% off": (dx.float() * 1.1).to(dx.dtype),
+                "no - sum(dy * y)": (scale * yp.float()
+                                     * dy.float()).to(dx.dtype)})):
+        ok, r = softmax_rule(got, plain, truth)
+        r["planted"] = {}
+        for fault, bad in faults.items():
+            refused, fr = softmax_rule(bad, plain, truth)
+            refused = not refused
+            r["planted"][fault] = {k: fr[k] for k in ("max_abs_err",
+                                                      "rel_norm_err")}
+            check(refused, f"softmax {name}: the rule let the planted "
+                  f"fault '{fault}' through at {info}: {fr}")
+        emit("softmax_check", {"output": name, "shape": info, **r})
+        check(ok, f"softmax {name} kernel vs plain: {r} at {info}")
+        errs[name] = r["max_abs_err"]
+    return errs
+
+
+def phase_softmax_kernels(torch, dev):
+    """softmax_fwd and softmax_bwd at every main path's softmax call (GPT
+    causal, BERT's key mask, T5's decoder triangle, cross and encoder
+    calls), a tail sk of 114, fully masked rows, and a row too long for
+    one warp (sk 4096); times, bounds and the library calls at GPT's
+    causal call (163840 rows x 1024, bf16) and at BERT's."""
+    from apex_tpu_torch.ops import softmax as S
+
+    errs = {"y": 0.0, "dx": 0.0}
+    calls = dict(SOFTMAX_CALLS, long_row=((2, 4, 64, 4096), "key"))
+    for i, (what, (shape, kind)) in enumerate(calls.items()):
+        e = softmax_check(torch, dev, shape, kind, 0.125, 60 + i, what)
+        errs = {k: max(errs[k], e[k]) for k in errs}
+        torch.cuda.empty_cache()
+
+    def times(shape, kind):
+        x, dy, mask = softmax_case(torch, dev, shape, kind, 9)
+        causal = kind == "causal"
+        b, h, sq, sk = shape
+        scale = 0.125
+        y = S.softmax_fwd_cuda(x, mask, scale, causal)
+        fill = (~torch.ones((sq, sk), dtype=torch.bool, device=dev).tril()
+                if causal else mask)
+        out = {"fwd": time_ms(lambda: S.softmax_fwd_cuda(x, mask, scale,
+                                                         causal), [()]),
+               "bwd": time_ms(lambda: S.softmax_bwd_cuda(dy, y, scale),
+                              [()]),
+               "plain_fwd": time_ms(lambda: S._torch_fwd(
+                   x, mask, scale, causal), [()], reps=2, trials=3),
+               "plain_bwd": time_ms(lambda: S._torch_bwd(dy, y, scale),
+                                    [()], reps=2, trials=3),
+               "lib_fwd": time_ms(lambda: torch.softmax(
+                   x.mul(scale).masked_fill(fill, S.MASK_FILL), -1), [()]),
+               "lib_bwd": time_ms(lambda: torch._softmax_backward_data(
+                   dy, y, -1, y.dtype), [()])}
+        # the entries the function must read: a masked score's y is 0
+        # (its dx too) and a fully masked row's y is 1/sk whatever x
+        # holds, so the forward reads x at the live entries only, the
+        # backward dy and y at the live entries and the fully masked rows;
+        # every output is written whole, and the mask read as stored
+        n, es = x.numel(), x.element_size()
+        rows = n // sk
+        mask_bytes, full = 0, 0
+        if causal:
+            live = b * h * sum(min(q + 1, sk) for q in range(sq))
+        elif mask is None:
+            live = n
+        else:
+            live = int((~mask).sum()) * (n // mask.numel())
+            full = int(mask.all(-1).sum()) * (rows * sk // mask.numel())
+            mask_bytes = mask.numel()
+        live_bwd = live + full * sk
+        out["live"] = {"fwd": live, "bwd": live_bwd, "entries": n}
+        # ~5 fp32 operations a live entry
+        out["bound_fwd"] = bound(es * (live + n) + mask_bytes, 5 * live,
+                                 FP32_OPS_PER_S)
+        out["bound_bwd"] = bound(es * (2 * live_bwd + n), 5 * live_bwd,
+                                 FP32_OPS_PER_S)
+        del x, dy, y
+        torch.cuda.empty_cache()
+        return out
+
+    gpt = times(*SOFTMAX_CALLS["gpt_causal"])
+    bert = times(*SOFTMAX_CALLS["bert_key"])
+    src = "apex_tpu_torch/csrc/softmax.cu"
+    note = ("torch.softmax after x.mul(scale).masked_fill(mask, -10000): "
+            "three calls")
+    per_shape = {k: {"bert_key": {"ms": bert[k], "plain_ms": bert["plain_"
+                                                                  + k],
+                                  "library_ms": bert["lib_" + k],
+                                  "bound_ms": bert["bound_" + k][0],
+                                  "entries_read": bert["live"][k],
+                                  "entries": bert["live"]["entries"]}}
+                 for k in ("fwd", "bwd")}
+    timed = {"b": TRAIN_BATCH, "heads": 8, "sq": TRAIN_SEQ, "sk": TRAIN_SEQ,
+             "mask": "causal", "dtype": "bf16",
+             "entries": gpt["live"]["entries"]}
+    bound_note = ("bytes: the inputs read at the live entries only (fwd "
+                  "%d, bwd %d of the timed call's entries), every output "
+                  "written whole" % (gpt["live"]["fwd"], gpt["live"]["bwd"]))
+    return [
+        {"name": "softmax_fwd", "route": "cuda", "source": src,
+         "replaces": "apex_tpu/ops/pallas/softmax.py:83",
+         "max_abs_err": errs["y"], "ms": gpt["fwd"],
+         "plain_ms": gpt["plain_fwd"], "bound_ms": gpt["bound_fwd"][0],
+         "bound_by": gpt["bound_fwd"][1], "library_ms": gpt["lib_fwd"],
+         "library_note": note, "timed_shape": timed,
+         "bound_note": bound_note, "per_shape": per_shape["fwd"]},
+        {"name": "softmax_bwd", "route": "cuda", "source": src,
+         "replaces": "apex_tpu/ops/pallas/softmax.py:108",
+         "max_abs_err": errs["dx"], "ms": gpt["bwd"],
+         "plain_ms": gpt["plain_bwd"], "bound_ms": gpt["bound_bwd"][0],
+         "bound_by": gpt["bound_bwd"][1], "library_ms": gpt["lib_bwd"],
+         "library_note": "torch._softmax_backward_data (no scale)",
+         "timed_shape": timed, "bound_note": bound_note,
+         "per_shape": per_shape["bwd"]}]
+
+
+def timed_steps(torch, step, steps, what):
+    """A warm-up step, then ``steps`` timed ones with every counter zeroed
+    just before and read just after; every loss finite and the last below
+    the first. Returns (losses, wall s, launches)."""
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"{what}: losses not finite: {losses}")
+    check(losses[-1] < losses[0], f"{what}: loss did not fall: {losses}")
+    return losses, wall, launches
+
+
+def upcast_copy(torch, params32, params):
+    from apex_tpu_torch.models.gpt import param_leaves
+
+    with torch.no_grad():
+        for a, c in zip(param_leaves(params32), param_leaves(params)):
+            a.copy_(c.float())
+
+
+def gpt_batch(torch, dev):
+    """The train slice's seeded tokens and targets, (20, 1024) each."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    V = MODEL["vocab_size"]
+    return tuple(torch.randint(0, V, (TRAIN_BATCH, TRAIN_SEQ), generator=g,
+                               device=dev) for _ in range(2))
+
+
+def gpt_model(torch, dev, cfg, dtype):
+    from apex_tpu_torch.models.gpt import GPTConfig, GPTModel, param_leaves
+
+    model = GPTModel(GPTConfig(**cfg, dtype=dtype))
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    for t in param_leaves(params):
+        t.requires_grad_()
+    return model, params
+
+
+def phase_gpt_softmax(torch, dev):
+    """GPT-medium's train step on the reference's default route: the
+    train slice's config and batch with attention_impl="softmax". One
+    step at the initial params against the plain path and an fp32 truth,
+    then a warm-up and SOFTMAX_LEG_STEPS timed steps with 12/12 causal
+    softmax, 25/25 norm and one xent_stats launch per step and no flash
+    launch; 2 profiled steps."""
+    from apex_tpu_torch.models.gpt import param_leaves
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    model, params = gpt_model(torch, dev, GPT_SOFTMAX, torch.bfloat16)
+    tokens, targets = gpt_batch(torch, dev)
+    model32, params32 = gpt_model(torch, dev, GPT_SOFTMAX, torch.float32)
+    upcast_copy(torch, params32, params)
+    H = MODEL["hidden_size"]
+
+    def run(p, impl):
+        m = model32 if p is params32 else model
+        return m.loss_fn(p, tokens, targets, impl=impl)
+
+    def view(name, gr):  # the qkv bias's k window: exact gradient 0
+        return torch.cat([gr[:H], gr[2 * H:]]) if name.endswith(
+            "qkv.bias") else gr
+
+    vs = compare_paths(torch, run, params, params32, "initial (seed 0)",
+                       True, view)
+    del model32, params32
+    torch.cuda.empty_cache()
+    opt = FusedAdam(param_leaves(params), lr=1e-4)
+    losses, wall, launches = timed_steps(
+        torch, lambda: train_step(model, params, opt, tokens, targets),
+        SOFTMAX_LEG_STEPS, "GPT softmax leg")
+    L = MODEL["num_layers"]
+    check_launches(launches, {"softmax_fwd": L, "softmax_bwd": L,
+                              "ln_fwd": 2 * L + 1, "ln_bwd": 2 * L + 1,
+                              "xent_stats": 1}, SOFTMAX_LEG_STEPS,
+                   "GPT softmax leg")
+    tok = TRAIN_BATCH * TRAIN_SEQ * SOFTMAX_LEG_STEPS
+    flops = model_flops_per_token(TRAIN, TRAIN_SEQ) * tok / wall
+    info = {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "steps": SOFTMAX_LEG_STEPS, "losses": losses, "wall_s": wall,
+            "step_ms": 1e3 * wall / SOFTMAX_LEG_STEPS,
+            "tokens_per_s": tok / wall, "model_tflops_per_s": flops / 1e12,
+            "mfu": flops / BF16_OPS_PER_S,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "vs_plain_path": vs,
+            "launches_per_step": {k: v / SOFTMAX_LEG_STEPS
+                                  for k, v in launches.items() if v}}
+    info["profile"] = phase_train_profile(
+        torch, lambda: train_step(model, params, opt, tokens, targets),
+        info["step_ms"] / 1e3)
+    return info, launches
+
+
+def interior_batch(torch, batch):
+    """The padded batch with holes punched inside every sequence: 8
+    seeded positions before each row's last valid token (True = masked,
+    out of the loss mask too), so no row's mask is a suffix."""
+    tokens, targets, loss_mask, types, pad = batch
+    g = torch.Generator(device=pad.device).manual_seed(12)
+    holes = torch.randint(1, BERT_PAD_MIN - 1, (BERT_BATCH, 8), generator=g,
+                          device=pad.device)
+    pad = pad.clone()
+    pad.scatter_(1, holes, True)
+    return (tokens, targets, loss_mask * (~pad).float(), types, pad)
+
+
+def phase_bert_softmax(torch, dev):
+    """BERT-large's padded MLM step on the reference's default route
+    (attention_impl="softmax"), as the BERT leg: one step at the initial
+    params against the plain path and an fp32 truth; a warm-up and
+    BERT_STEPS timed steps with 48/24 softmax (key mask), 97/49 norm and
+    one xent_stats launch per step and no flash launch; one step on a
+    batch whose masks have interior holes (which the flash route
+    refuses): finite loss, the same launches."""
+    from apex_tpu_torch.models.bert import param_leaves
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    vs = phase_bert_plain(torch, dev, BERT_SOFTMAX)
+    torch.cuda.empty_cache()
+    model, params = bert_model(torch, dev, torch.bfloat16, BERT_SOFTMAX)
+    batch, lens = bert_batch(torch, dev, seed=1)
+    opt = FusedAdam(param_leaves(params), lr=1e-4)
+    losses, wall, launches = timed_steps(
+        torch, lambda: bert_step(model, params, opt, batch), BERT_STEPS,
+        "BERT softmax leg")
+    L = BERT["num_layers"]
+    want = {"softmax_fwd": 2 * L, "softmax_bwd": L, "xent_stats": 1,
+            **bert_ln_counts()}
+    check_launches(launches, want, BERT_STEPS, "BERT softmax leg")
+    tok = BERT_BATCH * BERT_SEQ * BERT_STEPS
+    valid = float(lens.double().sum()) * BERT_STEPS
+    flops = bert_flops_per_step(lens) * BERT_STEPS / wall
+    info = {"batch": BERT_BATCH, "seq": BERT_SEQ, "steps": BERT_STEPS,
+            "padding_share": 1 - valid / tok, "losses": losses,
+            "wall_s": wall, "step_ms": 1e3 * wall / BERT_STEPS,
+            "tokens_per_s": tok / wall, "valid_tokens_per_s": valid / wall,
+            "model_flops_per_step": bert_flops_per_step(lens),
+            "model_tflops_per_s": flops / 1e12,
+            "mfu": flops / BF16_OPS_PER_S,
+            "mfu_peak": "989 TFLOP/s dense bf16 (H100 SXM data sheet)",
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "vs_plain_path": vs,
+            "launches_per_step": {k: v / BERT_STEPS
+                                  for k, v in launches.items() if v}}
+    holed = interior_batch(torch, batch)
+    check(bool((holed[4][:, :-1] & ~holed[4][:, 1:]).any(-1).all()),
+          "the interior batch has a row without a hole")
+    zero_counters()
+    loss = float(bert_step(model, params, opt, holed))
+    torch.cuda.synchronize()
+    check(np.isfinite(loss), f"BERT softmax interior-mask step: {loss}")
+    check_launches(read_counters(), want, 1, "BERT interior-mask step")
+    info["interior_mask_step_loss"] = loss
+    info["profile"] = phase_train_profile(
+        torch, lambda: bert_step(model, params, opt, batch),
+        info["step_ms"] / 1e3)
+    return info, launches
+
+
+def phase_t5_softmax(torch, dev, position_encoding):
+    """T5's train step on the reference's default route
+    (attention_impl="softmax"): one step at the initial params on a padded
+    batch against the plain path and an fp32 truth, then a warm-up and
+    SOFTMAX_LEG_STEPS timed steps at 128 x (512, 114). Per step: the
+    norms (t5_ln_counts), one xent_stats and, through the fused softmax,
+    learned: all 36 attention calls (72/36 with the remat), relative: the
+    12 cross-attention calls (24/12; the biased self-attention calls take
+    the fp32 composition); no flash launch; 2 profiled steps."""
+    from apex_tpu_torch.models.t5 import param_leaves
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    cfg = dict(T5, attention_impl="softmax",
+               position_encoding=position_encoding)
+    model, params = t5_model(torch, dev, torch.bfloat16, cfg)
+    vs = phase_t5_plain(torch, model, params,
+                        *t5_batch(torch, dev, T5_BATCH, seed=3),
+                        "initial (seed 0)", True, cfg)
+    torch.cuda.empty_cache()
+    opt = FusedAdam(param_leaves(params), lr=1e-4)
+    enc, dec, tgt, _ = t5_batch(torch, dev, T5_BATCH, seed=1)
+    losses, wall, launches = timed_steps(
+        torch, lambda: t5_step(model, params, opt, enc, dec, tgt),
+        SOFTMAX_LEG_STEPS, f"T5 softmax leg ({position_encoding})")
+    calls = (T5["num_decoder_layers"] if position_encoding == "relative"
+             else T5["num_encoder_layers"] + 2 * T5["num_decoder_layers"])
+    check_launches(launches, {"softmax_fwd": 2 * calls,
+                              "softmax_bwd": calls, "xent_stats": 1,
+                              **t5_ln_counts()}, SOFTMAX_LEG_STEPS,
+                   f"T5 softmax leg ({position_encoding})")
+    tok = T5_BATCH * (T5_ENC + T5_DEC) * SOFTMAX_LEG_STEPS
+    flops = (t5_flops_per_step(T5_BATCH, T5_ENC, T5_DEC) * SOFTMAX_LEG_STEPS
+             / wall)
+    info = {"position_encoding": position_encoding, "batch": T5_BATCH,
+            "enc_len": T5_ENC, "dec_len": T5_DEC,
+            "steps": SOFTMAX_LEG_STEPS, "losses": losses, "wall_s": wall,
+            "step_ms": 1e3 * wall / SOFTMAX_LEG_STEPS,
+            "tokens_per_s": tok / wall, "model_tflops_per_s": flops / 1e12,
+            "mfu": flops / BF16_OPS_PER_S,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "vs_plain_path": vs,
+            "launches_per_step": {k: v / SOFTMAX_LEG_STEPS
+                                  for k, v in launches.items() if v}}
+    info["profile"] = phase_train_profile(
+        torch, lambda: t5_step(model, params, opt, enc, dec, tgt),
+        info["step_ms"] / 1e3)
+    return info, launches
+
+
 def main():
     import torch
 
@@ -2456,6 +3000,7 @@ def main():
     from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
     from apex_tpu_torch.ops import _build
     from apex_tpu_torch.ops import decode_attention as dmod
+    from apex_tpu_torch.ops import layer_norm as lnmod
     from apex_tpu_torch.ops import sampling as smod
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2477,7 +3022,9 @@ def main():
     kernels = [phase_decode_kernel(torch, dev),
                phase_sample_kernel(torch, dev),
                *phase_flash_kernels(torch, dev),
-               phase_xent_kernel(torch, dev)]
+               phase_xent_kernel(torch, dev),
+               *phase_ln_kernels(torch, dev),
+               *phase_softmax_kernels(torch, dev)]
     for k in kernels:
         emit("kernel", k)
     torch.cuda.empty_cache()
@@ -2496,13 +3043,16 @@ def main():
 
     dmod.paged_decode_attn_cuda.launches = 0
     smod.fused_sample_cuda.launches = 0
+    lnmod.ln_fwd_cuda.launches = 0
     greedy, g_info = serve(torch, model, params, dev)
     g_dec = dmod.paged_decode_attn_cuda.launches
     g_smp = smod.fused_sample_cuda.launches
+    g_ln = lnmod.ln_fwd_cuda.launches
     sampled, s_info = serve(torch, model, params, dev, gen_seed=1,
                             **SAMPLED)
     launches = {"paged_decode_attn": dmod.paged_decode_attn_cuda.launches,
-                "fused_sample": smod.fused_sample_cuda.launches}
+                "fused_sample": smod.fused_sample_cuda.launches,
+                "ln_fwd": lnmod.ln_fwd_cuda.launches}
     # each main path's counts, read just after it ran with them zeroed
     paths = {"serve": launches}
     emit("serve_greedy", g_info)
@@ -2525,6 +3075,13 @@ def main():
           f"{s_info['prefill_chunks']} prefill chunks")
     check(any(t != greedy[r] for r, t in sampled.items()),
           "the sampled serve reproduced the greedy tokens")
+    # 2L + 1 norms per model forward: each decode step and prefill chunk
+    for what, n, info in (("greedy", g_ln, g_info),
+                          ("sampled", launches["ln_fwd"] - g_ln, s_info)):
+        forwards = info["decode_steps"] + info["prefill_chunks"]
+        check(n == (2 * L + 1) * forwards,
+              f"{what} serve: {n} ln_fwd launches for {forwards} model "
+              f"forwards x {2 * L + 1} norms")
 
     # --- outside the counted window -------------------------------------------
     again, _ = serve(torch, model, params, dev)
@@ -2642,6 +3199,19 @@ def main():
     m_info, paths["t5_materialized"] = phase_t5_materialized(torch, dev)
     emit("t5_materialized", m_info)
     torch.cuda.empty_cache()
+
+    # --- the softmax routes: the models' default attention_impl -------------
+    sm_info, paths["gpt_softmax_train"] = phase_gpt_softmax(torch, dev)
+    emit("gpt_softmax_train", sm_info)
+    torch.cuda.empty_cache()
+    sm_info, paths["bert_softmax_train"] = phase_bert_softmax(torch, dev)
+    emit("bert_softmax_train", sm_info)
+    torch.cuda.empty_cache()
+    for pe in ("learned", "relative"):
+        sm_info, paths[f"t5_softmax_train_{pe}"] = phase_t5_softmax(
+            torch, dev, pe)
+        emit(f"t5_softmax_train_{pe}", sm_info)
+        torch.cuda.empty_cache()
 
     for k in kernels:
         by = {p_: n[k["name"]] for p_, n in paths.items()

@@ -82,7 +82,8 @@ def _batch(seed=2):
 
 
 def _port(tree, width, remat=True):
-    cfg = BertConfig(**SMALL, **WIDTHS[width], remat=remat)
+    cfg = BertConfig(**SMALL, **WIDTHS[width], remat=remat,
+                     attention_impl="flash")
     params = bert_params_from_jax(tree, cfg, device="cpu")
     for t in param_leaves(params):
         t.requires_grad_()
@@ -303,10 +304,12 @@ def test_weight_bridge_round_trip_and_shape_checks():
 
 def test_knobs_of_later_slices_raise():
     """The reference's knobs with one working value in the port are not
-    config fields."""
-    for kw in (dict(attention_impl="softmax"), dict(tp_size=1),
-               dict(tp_axis=None)):
+    config fields; ``attention_impl`` is one (softmax | flash), validated
+    as the reference validates it."""
+    for kw in (dict(tp_size=1), dict(tp_axis=None)):
         with pytest.raises(TypeError, match=next(iter(kw))):
             BertConfig(**SMALL, **kw)
+    with pytest.raises(ValueError, match="attention_impl"):
+        BertConfig(**SMALL, attention_impl="naive")
     with pytest.raises(ValueError, match="divisible"):
         BertConfig(**SMALL, hidden_size=100, num_heads=3)

@@ -57,7 +57,7 @@ def models(cfg, seed=0):
     np_tree = jax.tree.map(
         lambda a: np.asarray(a) + 0.02 * rng.standard_normal(a.shape)
         .astype(np.float32), jp)
-    tm = GPTModel(GPTConfig(**cfg))
+    tm = GPTModel(GPTConfig(**cfg, attention_impl="flash"))
     return (jm, jax.tree.map(jnp.asarray, np_tree), tm,
             params_from_jax(np_tree, tm.config, device="cpu"))
 

@@ -31,6 +31,15 @@ probability, within 1e-5 relative), at most 1% of rows.
 The bshd backward (BERT's padded train step) and the array bias of both
 layouts: dq, dk, dv, o and lse under the same bf16 rule; dbias within
 1e-3 relative norm of the plain version run in fp32 (the truth).
+
+The layer-norm and softmax kernels: in bf16, y, dx and the softmax's
+probabilities and dx under the same bf16 rule against the plain version
+run in fp32 on the upcast inputs; mean and rstd within 1e-5 of the
+truth's largest entry; dgamma and dbeta within 1e-5 of the largest entry
+with fp32 parameters and within one bf16 ulp of it (2^-7) with bf16
+ones (fp32 sums in another order, then one rounding). In fp32 every
+output within 1e-5 of the plain version's largest entry. dgamma and dbeta
+bit-identical across two runs on the same input.
 """
 
 import numpy as np
@@ -40,7 +49,9 @@ import torch
 from apex_tpu_torch.ops import attention as amod
 from apex_tpu_torch.ops import decode_attention as dmod
 from apex_tpu_torch.ops import fused_verify as vmod
+from apex_tpu_torch.ops import layer_norm as lnmod
 from apex_tpu_torch.ops import sampling as smod
+from apex_tpu_torch.ops import softmax as smxmod
 from apex_tpu_torch.ops import xentropy as xmod
 
 NEAR_TIE = 1e-5
@@ -216,7 +227,7 @@ def test_train_step_kernel_path_matches_plain_path(cuda):
 
     cfg = GPTConfig(vocab_size=512, max_seq_len=256, hidden_size=256,
                     num_layers=2, num_heads=2, remat=False,
-                    dtype=torch.bfloat16)
+                    dtype=torch.bfloat16, attention_impl="flash")
     model = GPTModel(cfg)
     params = model.init(torch.Generator(device=cuda).manual_seed(0))
     leaves = param_leaves(params)
@@ -756,3 +767,289 @@ def test_bshd_backward_and_bias_refuse_what_they_do_not_take(cuda):
         amod.flash_fwd_flat_cuda(
             qf, qf, qf, **kw, bias=torch.zeros((4, 64, 64), device=cuda),
             rel_bias=amod.BucketedBias(torch.zeros((32, 4), device=cuda)))
+
+
+# --- the layer-norm and softmax kernels ----------------------------------------
+
+def _close_to_largest(got, want, rel):
+    err = (got.float() - want.float()).abs().max().item()
+    return err <= rel * want.float().abs().max().item() + 1e-30, err
+
+
+def _ln_case(rows, hidden, dtype, wdtype, affine, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn((rows, hidden), generator=g, device=dev) * 2 + 0.5)
+    dy = torch.randn((rows, hidden), generator=g, device=dev)
+    w = 1 + 0.3 * torch.randn((hidden,), generator=g, device=dev)
+    b = 0.2 * torch.randn((hidden,), generator=g, device=dev)
+    return (x.to(dtype), dy.to(dtype),
+            w.to(wdtype) if "w" in affine else None,
+            b.to(wdtype) if "b" in affine else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,hidden", [(64, 1024), (37, 1000), (5, 768),
+                                         (9, 4096), (3, 33), (600, 64)])
+@pytest.mark.parametrize("dtype,wdtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.float32)])
+@pytest.mark.parametrize("rms,affine", [(False, "wb"), (False, "w"),
+                                        (False, ""), (True, "w"),
+                                        (True, "")])
+def test_layer_norm_kernels_match_plain(cuda, rows, hidden, dtype, wdtype,
+                                        rms, affine):
+    x, dy, w, b = _ln_case(rows, hidden, dtype, wdtype, affine, cuda,
+                           seed=rows + hidden)
+    f32 = lambda t: None if t is None else t.float()  # noqa: E731
+    before = (lnmod.ln_fwd_cuda.launches, lnmod.ln_bwd_cuda.launches)
+    y, mean, rstd = lnmod.ln_fwd_cuda(x, w, b, 1e-5, rms)
+    dx, dw, db = lnmod.ln_bwd_cuda(dy, x, mean, rstd, w, rms)
+    torch.cuda.synchronize()
+    assert (lnmod.ln_fwd_cuda.launches,
+            lnmod.ln_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
+    yp, mp, rp = lnmod._torch_fwd(x, w, b, 1e-5, rms)
+    dxp, dwp, dbp = lnmod._torch_bwd(dy, x, mp, rp, w, rms)
+    yt, mt, rt = lnmod._torch_fwd(x.float(), f32(w), f32(b), 1e-5, rms)
+    dxt, dwt, dbt = lnmod._torch_bwd(dy.float(), x.float(), mt, rt, f32(w),
+                                     rms)
+    assert y.dtype == dtype and dx.dtype == dtype
+    for name, got, want in (("mean", mean, mt), ("rstd", rstd, rt)):
+        ok, err = _close_to_largest(got, want, 1e-5)
+        assert ok, f"{name}: {err}"
+    if dtype == torch.bfloat16:
+        for name, got, plain, truth in (("y", y, yp, yt),
+                                        ("dx", dx, dxp, dxt)):
+            ok, errs = _within_rule(got, plain, truth)
+            assert ok, f"{name}: kernel/plain errors {errs}"
+    else:
+        for name, got, want in (("y", y, yp), ("dx", dx, dxp)):
+            ok, err = _close_to_largest(got, want, 1e-5)
+            assert ok, f"{name}: {err}"
+    if w is None:
+        assert dw is None and db is None
+        return
+    assert dw.dtype == wdtype and db.dtype == wdtype
+    rel = 2.0 ** -7 if wdtype == torch.bfloat16 else 1e-5
+    for name, got, want in (("dgamma", dw, dwt), ("dbeta", db, dbt)):
+        ok, err = _close_to_largest(got, want, rel)
+        assert ok, f"{name}: {err}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,hidden", [(20480, 1024), (14592, 768),
+                                         (1000, 1000)])
+def test_layer_norm_param_grads_are_bit_reproducible(cuda, rows, hidden):
+    x, dy, w, b = _ln_case(rows, hidden, torch.bfloat16, torch.bfloat16,
+                           "wb", cuda, seed=3)
+    y, mean, rstd = lnmod.ln_fwd_cuda(x, w, b, 1e-5, False)
+    first = lnmod.ln_bwd_cuda(dy, x, mean, rstd, w, False)
+    second = lnmod.ln_bwd_cuda(dy, x, mean, rstd, w, False)
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+def test_fused_layer_norm_autograd_runs_the_kernels(cuda):
+    """The op on a CUDA tensor: one forward and one backward launch, and
+    the same values as ``impl="torch"`` within the bf16 rule."""
+    x, dy, w, b = _ln_case(48, 1024, torch.bfloat16, torch.bfloat16, "wb",
+                           cuda, seed=4)
+    out = []
+    for impl in ("auto", "torch"):
+        leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+        before = (lnmod.ln_fwd_cuda.launches, lnmod.ln_bwd_cuda.launches)
+        y = lnmod.fused_layer_norm(*leaves, impl=impl)
+        y.backward(dy)
+        n = (lnmod.ln_fwd_cuda.launches - before[0],
+             lnmod.ln_bwd_cuda.launches - before[1])
+        assert n == ((1, 1) if impl == "auto" else (0, 0))
+        out.append([y.detach()] + [t.grad for t in leaves])
+    for a, c in zip(*out):
+        err = (a.float() - c.float()).abs().max().item()
+        assert err <= 2.0 ** -7 * c.float().abs().max().item()
+
+
+def _within_softmax_rule(got, plain, truth):
+    """chip_smoke.py's SOFTMAX_SLACK rule: max abs error <= 2x the bf16
+    plain version's + 1e-3 of the truth's largest entry, and relative norm
+    error <= 2x the plain version's + 1e-3."""
+    t = truth.float()
+    d_k, d_p = got.float() - t, plain.float() - t
+    norm = t.norm().item() + 1e-30
+    errs = (d_k.abs().max().item(), d_p.abs().max().item(),
+            d_k.norm().item() / norm, d_p.norm().item() / norm)
+    ok = (errs[0] <= 2 * errs[1] + 1e-3 * t.abs().max().item()
+          and errs[2] <= 2 * errs[3] + 1e-3)
+    return ok, errs
+
+
+def _softmax_case(shape, mask_kind, dtype, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=dev) * 4).to(dtype)
+    dy = torch.randn(shape, generator=g, device=dev).to(dtype)
+    b, sq, sk = shape[0], shape[-2], shape[-1]
+    mask = None
+    if mask_kind == "key":  # (b, 1, 1, sk), batch row 1 fully masked
+        lens = torch.tensor([sk * 3 // 4, 0] + [sk] * (b - 2), device=dev)
+        mask = (torch.arange(sk, device=dev)[None, :]
+                >= lens[:, None])[:, None, None, :]
+    elif mask_kind == "full":  # (b, 1, sq, sk) with one fully masked row
+        mask = torch.rand((b, 1, sq, sk), generator=g, device=dev) < 0.3
+        mask[0, 0, 1] = True
+    return x, dy, mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,mask_kind", [
+    ((2, 3, 16, 128), "key"), ((2, 3, 16, 512), "full"),
+    ((2, 2, 114, 114), "causal"), ((3, 2, 16, 114), "key"),
+    ((4, 2, 64, 1024), "causal"), ((2, 2, 8, 2048), "full"),
+    ((2, 2, 4, 2050), "key"), ((1, 2, 40, 3000), "causal"),
+    ((2, 2, 16, 100), None), ((2, 1, 4, 5000), None),
+    ((2, 2, 3, 16, 128), "key")])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_softmax_kernels_match_plain(cuda, shape, mask_kind, dtype):
+    x, dy, mask = _softmax_case(shape, mask_kind, dtype, cuda,
+                                seed=shape[-1])
+    causal = mask_kind == "causal"
+    scale = 0.125
+    before = (smxmod.softmax_fwd_cuda.launches,
+              smxmod.softmax_bwd_cuda.launches)
+    y = smxmod.softmax_fwd_cuda(x, mask, scale, causal)
+    yp = smxmod._torch_fwd(x, mask, scale, causal)
+    yt = smxmod._torch_fwd(x.float(), mask, scale, causal)
+    dx = smxmod.softmax_bwd_cuda(dy, yp, scale)
+    dxp = smxmod._torch_bwd(dy, yp, scale)
+    dxt = smxmod._torch_bwd(dy.float(), yp.float(), scale)
+    torch.cuda.synchronize()
+    assert (smxmod.softmax_fwd_cuda.launches,
+            smxmod.softmax_bwd_cuda.launches) == tuple(n + 1 for n in before)
+    if dtype == torch.bfloat16:
+        for name, got, plain, truth in (("y", y, yp, yt),
+                                        ("dx", dx, dxp, dxt)):
+            ok, errs = _within_softmax_rule(got, plain, truth)
+            assert ok, f"{name}: kernel/plain errors {errs}"
+        # the rule refuses planted faults: 10% off, the dropped - sum term
+        for name, bad, plain, truth in (
+                ("y", y.float() * 1.1, yp, yt),
+                ("dx", dx.float() * 1.1, dxp, dxt),
+                ("dx", scale * yp.float() * dy.float(), dxp, dxt)):
+            assert not _within_softmax_rule(bad.to(dtype), plain, truth)[0], \
+                f"planted fault in {name} passed the rule"
+    else:
+        for name, got, want in (("y", y, yp), ("dx", dx, dxp)):
+            ok, err = _close_to_largest(got, want, 1e-5)
+            assert ok, f"{name}: {err}"
+    if mask_kind in ("key", "full"):  # fully masked rows: uniform
+        full = torch.broadcast_to(mask, shape).all(-1)
+        assert full.any()
+        sk = shape[-1]
+        torch.testing.assert_close(y[full].float(),
+                                   torch.full_like(y[full].float(), 1 / sk),
+                                   rtol=1e-2, atol=0)
+
+
+@pytest.mark.gpu
+def test_softmax_ops_autograd_run_the_kernels(cuda):
+    """Both ops on a CUDA tensor: one forward and one backward launch each,
+    and the same values as ``impl="torch"`` under the bf16 rule."""
+    x, dy, mask = _softmax_case((2, 4, 64, 256), "key", torch.bfloat16,
+                                cuda, seed=1)
+    for op in (lambda t, impl: smxmod.scaled_masked_softmax(
+                   t, mask, 0.3, impl=impl),
+               lambda t, impl: smxmod.scaled_upper_triang_masked_softmax(
+                   t.reshape(8, 64, 256)[:, :, :64].contiguous(), 0.3,
+                   impl=impl)):
+        out = []
+        for impl in ("auto", "torch"):
+            leaf = x.clone().requires_grad_()
+            before = (smxmod.softmax_fwd_cuda.launches,
+                      smxmod.softmax_bwd_cuda.launches)
+            y = op(leaf, impl)
+            y.backward(torch.ones_like(y) * 0.5 + dy.reshape(-1)[
+                :y.numel()].reshape(y.shape))
+            n = (smxmod.softmax_fwd_cuda.launches - before[0],
+                 smxmod.softmax_bwd_cuda.launches - before[1])
+            assert n == ((1, 1) if impl == "auto" else (0, 0))
+            out.append((y.detach().float(), leaf.grad.float()))
+        for a, c in zip(*out):
+            assert (a - c).abs().max().item() <= 2e-2 * c.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_norm_and_softmax_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros((4, 5000), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="impl='torch'"):
+        lnmod.fused_layer_norm(x)
+    with pytest.raises(ValueError, match="impl='torch'"):
+        lnmod.fused_rms_norm(x[:, :64].half())
+    with pytest.raises(ValueError, match="impl='torch'"):
+        smxmod.scaled_masked_softmax(x.half(), None)
+    with pytest.raises(ValueError, match="causal takes no mask"):
+        smxmod.softmax_fwd_cuda(x, x > 0, 1.0, True)
+    assert lnmod.fused_layer_norm(x, impl="torch").shape == x.shape
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["gpt", "bert", "t5"])
+def test_softmax_route_step_kernel_path_matches_plain_path(cuda, which):
+    """A small bf16 model on its softmax route (GPT causal; BERT with an
+    interior pad mask; T5 learned, padded): loss within 1e-4 relative and
+    each gradient leaf within 5e-2 relative norm of the plain path on the
+    same weights (chip_smoke.py's bounds at full width). The k window of a
+    qkv bias is left out (its exact gradient is 0)."""
+    from apex_tpu_torch.models import bert as B, gpt as G, t5 as T
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    rand = lambda *s: torch.randint(0, 512, s, generator=gen,  # noqa: E731
+                                    device=cuda)
+    if which == "gpt":
+        model = G.GPTModel(G.GPTConfig(
+            vocab_size=512, max_seq_len=256, hidden_size=256, num_layers=2,
+            num_heads=2, remat=False, dtype=torch.bfloat16))
+        tok, tgt = rand(4, 256), rand(4, 256)
+        run = lambda p, impl: model.loss_fn(p, tok, tgt,  # noqa: E731
+                                            impl=impl)
+    elif which == "bert":
+        model = B.BertModel(B.BertConfig(
+            vocab_size=512, max_seq_len=128, hidden_size=256, num_layers=2,
+            num_heads=4, dtype=torch.bfloat16))
+        tok, tgt = rand(4, 128), rand(4, 128)
+        pad = torch.zeros((4, 128), dtype=torch.bool, device=cuda)
+        pad[0, 100:] = True
+        pad[1, 10:20] = True
+        lmask = (~pad).float()
+        run = lambda p, impl: model.mlm_loss(  # noqa: E731
+            p, tok, tgt, lmask, None, pad, impl=impl)
+    else:
+        model = T.EncoderDecoderModel(T.T5Config(
+            vocab_size=512, max_seq_len=128, hidden_size=256,
+            num_encoder_layers=1, num_decoder_layers=1, num_heads=4,
+            dtype=torch.bfloat16))
+        enc, dec, tgt = rand(4, 128), rand(4, 114), rand(4, 114)
+        lens = torch.tensor([128, 100, 77, 128], device=cuda)
+        run = lambda p, impl: model.loss_fn(  # noqa: E731
+            p, enc, dec, tgt, enc_pad_lens=lens, impl=impl)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    leaves = G.param_leaves(params)
+    for t in leaves:
+        t.requires_grad_()
+    H = model.config.hidden_size
+    out = []
+    for impl in ("auto", "torch"):
+        loss = run(params, impl)
+        loss.backward()
+        grads = []
+        for t in leaves:
+            if t.grad is None:
+                continue
+            gr = t.grad.float()
+            if t.shape == (3 * H,):  # a packed qkv bias: drop the k window
+                gr = torch.cat([gr[:H], gr[2 * H:]])
+            grads.append(gr)
+            t.grad = None
+        out.append((loss.item(), grads))
+    (lk, gk), (lp, gp) = out
+    assert abs(lk - lp) <= 1e-4 * abs(lp)
+    for a, c in zip(gk, gp):
+        assert (a - c).norm() <= 5e-2 * c.norm()

@@ -44,7 +44,8 @@ def _models(num_kv_heads=None, seed=0):
         lambda a: np.asarray(a) + 0.02 * rng.standard_normal(a.shape)
         .astype(np.float32), jp)
     jp = jax.tree.map(jnp.asarray, np_tree)
-    cfg = GPTConfig(**SMALL, num_kv_heads=num_kv_heads)
+    cfg = GPTConfig(**SMALL, num_kv_heads=num_kv_heads,
+                    attention_impl="flash")
     return jm, jp, GPTModel(cfg), params_from_jax(np_tree, cfg,
                                                   device="cpu")
 

@@ -67,7 +67,8 @@ def _batch(s_dec, seed=2):
 
 
 def _port(tree, position_encoding, remat=False):
-    cfg = T5Config(**SMALL, position_encoding=position_encoding, remat=remat)
+    cfg = T5Config(**SMALL, position_encoding=position_encoding, remat=remat,
+                   attention_impl="flash")
     params = t5_params_from_jax(tree, cfg, device="cpu")
     for t in param_leaves(params):
         t.requires_grad_()
@@ -253,13 +254,15 @@ def test_weight_bridge_round_trip_and_shape_checks():
 def test_knobs_of_later_slices_raise():
     """The reference's knobs with one working value in the port are not
     config fields, and dropout raises at the op; ``relative_bias_impl``
-    is a field now (its second value, "materialized", runs through the
-    array bias) and validated as the reference validates it."""
-    for kw in (dict(attention_impl="softmax"),
-               dict(remat_policy="encode_only"), dict(tp_overlap=False),
+    (its second value, "materialized", runs through the array bias) and
+    ``attention_impl`` (softmax | flash) are fields, validated as the
+    reference validates them."""
+    for kw in (dict(remat_policy="encode_only"), dict(tp_overlap=False),
                dict(plan=None)):
         with pytest.raises(TypeError, match=next(iter(kw))):
             T5Config(**SMALL, **kw)
+    with pytest.raises(ValueError, match="attention_impl"):
+        T5Config(**SMALL, attention_impl="naive")
     with pytest.raises(ValueError, match="position_encoding"):
         T5Config(**SMALL, position_encoding="rotary")
     with pytest.raises(ValueError, match="relative_bias_impl"):
@@ -291,7 +294,8 @@ def test_materialized_bias_matches_reference(pallas, monkeypatch):
             p, jnp.asarray(enc), jnp.asarray(dec), jnp.asarray(tgt),
             enc_pad_lens=jnp.asarray(lens))))(jp)
     cfg = T5Config(**SMALL, position_encoding="relative",
-                   relative_bias_impl="materialized", remat=True)
+                   relative_bias_impl="materialized", remat=True,
+                   attention_impl="flash")
     params = t5_params_from_jax(tree, cfg, device="cpu")
     for t in param_leaves(params):
         t.requires_grad_()
@@ -313,7 +317,7 @@ def test_materialized_bias_matches_bucketed():
     out = {}
     for impl in ("bucketed", "materialized"):
         cfg = T5Config(**SMALL, position_encoding="relative",
-                       relative_bias_impl=impl)
+                       relative_bias_impl=impl, attention_impl="flash")
         params = t5_params_from_jax(tree, cfg, device="cpu")
         for t in param_leaves(params):
             t.requires_grad_()

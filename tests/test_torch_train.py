@@ -64,7 +64,7 @@ def setup():
 
 
 def _port(tree, **cfg_kw):
-    cfg = GPTConfig(**SMALL, **cfg_kw)
+    cfg = GPTConfig(**SMALL, attention_impl="flash", **cfg_kw)
     params = params_from_jax(tree, cfg, device="cpu")
     for t in param_leaves(params):
         t.requires_grad_()
@@ -228,13 +228,17 @@ def test_three_train_steps_match_reference(setup, pallas, monkeypatch):
 
 def test_training_knobs_of_later_slices_raise(setup):
     """dropout > 0 raises at the forward; the reference's knobs that the
-    port does not run yet are not config fields at all."""
+    port does not run yet are not config fields at all; ``attention_impl``
+    is one (softmax | flash | naive), validated as the reference
+    validates it."""
     _, tree, tokens, _ = setup
     cfg = GPTConfig(**SMALL, dropout=0.1)
     params = params_from_jax(tree, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="dropout"):
         GPTModel(cfg).hidden_states(params, torch.tensor(tokens))
-    for kw in (dict(remat_policy="mlp_only"), dict(attention_impl="softmax"),
+    with pytest.raises(ValueError, match="attention_impl"):
+        GPTConfig(**SMALL, attention_impl="ring")
+    for kw in (dict(remat_policy="mlp_only"),
                dict(scan_layers=False), dict(tp_size=2),
                dict(sequence_parallel=True), dict(cp_axis="cp"),
                dict(moe_num_experts=4)):
