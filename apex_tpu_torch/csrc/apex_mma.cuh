@@ -1,7 +1,8 @@
-// Tensor-core and async-copy building blocks of the port's attention
-// kernels (sm_80+ instructions, built for sm_90a): bf16 mma.sync with fp32
-// accumulation, ldmatrix, cp.async with zero-fill, and the tile loader
-// that reads one head's d-wide window out of a (rows, features) buffer.
+// Tensor-core and async-copy building blocks of the port's attention and
+// GEMM kernels (sm_80+ instructions, built for sm_90a): bf16 mma.sync with
+// fp32 accumulation, ldmatrix, cp.async with zero-fill, and the tile
+// loader that reads one head's d-wide window out of a (rows, features)
+// buffer.
 //
 // Fragment layouts of mma.m16n8k16 (PTX ISA, "Matrix fragments for
 // mma.m16n8k16"), with g = lane / 4 and t = lane % 4:
@@ -50,14 +51,31 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(s));
 }
 
-// 16-byte global -> shared copy; zero-fills the destination when !valid
-__device__ __forceinline__ void cp_async_16_zfill(void* smem, const void* gmem,
-                                                  bool valid) {
+// four 8 x 8 b16 matrices from shared memory, not transposed; lane L
+// supplies the address of row (L % 8) of matrix (L / 8)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const __nv_bfloat16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// 16-byte global -> shared copy of the first `bytes` (0..16) source bytes;
+// the rest of the destination is zero-filled
+__device__ __forceinline__ void cp_async_16_bytes(void* smem, const void* gmem,
+                                                  int bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int bytes = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(gmem), "r"(bytes)
                : "memory");
+}
+
+// 16-byte global -> shared copy; zero-fills the destination when !valid
+__device__ __forceinline__ void cp_async_16_zfill(void* smem, const void* gmem,
+                                                  bool valid) {
+  cp_async_16_bytes(smem, gmem, valid ? 16 : 0);
 }
 
 __device__ __forceinline__ void cp_async_commit() {

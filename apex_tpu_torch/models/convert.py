@@ -11,7 +11,9 @@ gradients, which share their layout) back into the reference's tree.
 ``BertModel``'s stacked ``layers``; :func:`norm_from_jax` loads a
 reference norm's ``init()`` dict into a :class:`~apex_tpu_torch.ops.
 layer_norm.FusedLayerNorm` or :class:`~apex_tpu_torch.ops.layer_norm.
-FusedRMSNorm`.
+FusedRMSNorm`, and :func:`dense_from_jax`, :func:`dense_gelu_dense_from_jax`
+and :func:`mlp_from_jax` load ``FusedDense``'s, ``FusedDenseGeluDense``'s
+and ``MLP``'s into the port's modules of the same names.
 Weights keep their ``(out, in)`` layout, which is already PyTorch's. The
 tests feed both packages the same weights this way, and compare gradients
 and optimizer state leaf by leaf.
@@ -28,7 +30,9 @@ from apex_tpu_torch.models.bert import BertConfig
 from apex_tpu_torch.models.gpt import GPTConfig
 from apex_tpu_torch.models.t5 import DEC_LAYER, ENC_LAYER, T5Config
 from apex_tpu_torch.ops import _backend
+from apex_tpu_torch.ops.fused_dense import FusedDense, FusedDenseGeluDense
 from apex_tpu_torch.ops.layer_norm import FusedLayerNorm
+from apex_tpu_torch.ops.mlp import MLP
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -298,7 +302,14 @@ def norm_from_jax(tree: Dict, module: FusedLayerNorm) -> FusedLayerNorm:
     want = set()
     if module.elementwise_affine:
         want = {"weight"} if module.rms else {"weight", "bias"}
-    if set(tree) != want:
+    return _load_module(tree, module, want)
+
+
+def _load_module(tree: Dict, module: torch.nn.Module, want) -> torch.nn.Module:
+    """Copy ``tree``'s leaves, exactly the names ``want``, into
+    ``module``'s Parameters of those names, in place, on their device and
+    in their dtype; names and shapes are checked."""
+    if set(tree) != set(want):
         raise ValueError(f"expected the leaves {sorted(want)} for this "
                          f"{type(module).__name__}, got {sorted(tree)}")
     with torch.no_grad():
@@ -308,3 +319,27 @@ def norm_from_jax(tree: Dict, module: FusedLayerNorm) -> FusedLayerNorm:
             _expect(name, t, p.shape, type(module).__name__)
             p.copy_(t.to(p.dtype))
     return module
+
+
+def dense_from_jax(tree: Dict, module: FusedDense) -> FusedDense:
+    """The reference's ``FusedDense.init()`` dict (numpy leaves:
+    ``weight`` (out, in), plus ``bias`` when the layer has one) copied
+    into ``module``'s Parameters in place."""
+    want = {"weight"} if module.bias is None else {"weight", "bias"}
+    return _load_module(tree, module, want)
+
+
+def dense_gelu_dense_from_jax(tree: Dict, module: FusedDenseGeluDense
+                              ) -> FusedDenseGeluDense:
+    """The reference's ``FusedDenseGeluDense.init()`` dict (``weight1``,
+    ``bias1``, ``weight2``, ``bias2``) copied into ``module`` in place."""
+    return _load_module(tree, module,
+                        {"weight1", "bias1", "weight2", "bias2"})
+
+
+def mlp_from_jax(tree: Dict, module: MLP) -> MLP:
+    """The reference's ``MLP.init()`` dict (``weight_i`` (out, in) and
+    ``bias_i`` per layer) copied into ``module`` in place."""
+    return _load_module(tree, module, {
+        f"{kind}_{i}" for i in range(module.num_layers)
+        for kind in ("weight", "bias")})

@@ -110,6 +110,10 @@ ENTRY_POINTS = {
                          _P],
     # dy, y, dx, dtype, rows, n, scale, stream
     "apex_softmax_bwd": [_P, _P, _P, _I, _I, _I, _F, _P],
+    # a, b, bias, c, dtype, a_k, b_k, a_vec, b_vec, act, bias_f32, out_f32,
+    # M, N, K, lda, ldb, ldc, stream
+    "apex_matmul_bias_act": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _L, _L, _L, _P],
 }
 
 

@@ -2,8 +2,9 @@
 """chip_smoke.py — drive apex_tpu_torch's serving path, its decode engine
 (with speculative decoding), its GPT-medium train step, its T5-base train
 step (with the bucketed and the materialised relative bias), its
-BERT-large padded MLM train step, and the three train steps again on the
-models' default softmax attention route, on one CUDA card.
+BERT-large padded MLM train step, the three train steps again on the
+models' default softmax attention route, and the fused-dense block and
+MLP train steps, on one CUDA card.
 
 Run from the repository root on a machine with an NVIDIA H100 (no
 arguments, one card, no network):
@@ -148,7 +149,34 @@ without the final line):
     the cross-attention only, the biased self-attention taking the fp32
     composition — and 122/62 norm, 1 xent_stats); each leg ends with 2
     profiled steps (device time by layer, busy share);
-13. one ``{"kernels": [...]}`` line (all twenty-one kernels, each with
+13. the fused-dense and MLP slice (``ops/fused_dense.py``, ``ops/mlp.py``
+    over ``matmul_bias_act``):
+    * the kernel against its plain version by MATMUL_SLACK's rule (max abs
+      error vs the fp32 plain version <= 2x the bf16 plain version's +
+      1e-3 x the truth's largest entry; two planted faults — the last K
+      block dropped, the bias left out — refused at every call): the
+      forward layout with each activation, with and without the bias, at
+      the block's up-projection, every call of both legs below (forward,
+      dgrad and wgrad layouts; K = 480, N = 1 and K = 1 among them), and
+      the fp32 instantiation at 300 x 200 x 130 within 1e-5 of the
+      largest entry; each leg call timed beside its bound (2MNK over 989
+      TFLOP/s against the bytes over 3.35 TB/s), the plain version,
+      torch.addmm with the eager activation (torch.mm without a bias) and
+      torch._addmm_activation where it covers the activation;
+    * the block leg: FusedLayerNorm(1024), FusedDenseGeluDense(1024,
+      4096, 1024) and a residual (BASELINE.json line 10 at GPT-medium's
+      widths) over 20 x 1024 bf16 tokens, an fp32 MSE, backward and one
+      FusedAdam(lr=1e-4) step: one step at the initial params against the
+      plain path and an fp32 truth, then 10 timed steps with 6
+      matmul_bias_act, 1 ln_fwd and 1 ln_bwd launches and nothing else
+      per step; step ms, TFLOP/s against 6 x 171.8 GFLOP, peak memory, 2
+      profiled steps;
+    * the MLP leg: MLP([480, 1024, 1024, 512, 256, 1], relu) in bf16 at
+      batch 32768 (DLRM's top MLP): 10 timed train steps with 15 launches
+      a step; a no-grad forward with 5 launches (relu in the epilogue),
+      and it and the sigmoid forward against the plain version and an
+      fp32 truth by MATMUL_SLACK's rule; 2 profiled steps;
+14. one ``{"kernels": [...]}`` line (all twenty-two kernels, each with
     its launches by main path), the card's name and power limit as
     nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.
 """
@@ -696,6 +724,8 @@ def phase_train_plain(torch, model, params, tokens, targets):
 
 def kernel_category(name):
     """The train step's layers, by kernel name."""
+    if "matmul_bias_act" in name:
+        return "matmul_bias_act kernel"
     if "flash_" in name:
         return "flash attention kernels"
     if "xent_stats" in name:
@@ -2168,10 +2198,11 @@ def bert_step(model, params, opt, batch):
 
 
 def path_counters():
-    """Every flash, xent_stats, layer-norm and softmax counter, by name:
-    the kernels a path must launch and those it must not."""
+    """Every flash, xent_stats, layer-norm, softmax and matmul counter, by
+    name: the kernels a path must launch and those it must not."""
     from apex_tpu_torch.ops import attention as A
     from apex_tpu_torch.ops import layer_norm as LN
+    from apex_tpu_torch.ops import matmul as MM
     from apex_tpu_torch.ops import softmax as S
     from apex_tpu_torch.ops import xentropy as X
 
@@ -2197,7 +2228,8 @@ def path_counters():
             "ln_fwd": (LN.ln_fwd_cuda, "launches"),
             "ln_bwd": (LN.ln_bwd_cuda, "launches"),
             "softmax_fwd": (S.softmax_fwd_cuda, "launches"),
-            "softmax_bwd": (S.softmax_bwd_cuda, "launches")}
+            "softmax_bwd": (S.softmax_bwd_cuda, "launches"),
+            "matmul_bias_act": (MM.matmul_bias_act_cuda, "launches")}
 
 
 def zero_counters():
@@ -2988,6 +3020,380 @@ def phase_t5_softmax(torch, dev, position_encoding):
     return info, launches
 
 
+# --- the fused-dense and MLP slice: matmul_bias_act ---------------------------
+
+# the block leg: the repo baseline's LayerNorm + dense-GELU-dense block
+# (BASELINE.json line 10) at GPT-medium's widths (bench.py:2517-2524:
+# hidden 1024, FFN 4096, bf16) over the train batch of 20 x 1024 tokens
+BLOCK_HIDDEN, BLOCK_FFN = 1024, 4096
+BLOCK_ROWS = TRAIN_BATCH * TRAIN_SEQ
+BLOCK_STEPS = 10
+# the MLP leg: DLRM's top MLP (Naumov et al. 2019; the MLPerf DLRM
+# configuration's 479-wide interaction padded to 480), the sizes apex's
+# own MLP test uses; relu, bf16, a batch of 32768 samples
+MLP_SIZES = (480, 1024, 1024, 512, 256, 1)
+MLP_BATCH, MLP_STEPS = 32768, 10
+# the matmul kernel's bf16 rule (the scaled form, as the softmax rule's
+# first half): max abs error vs the fp32 plain version <= 2x the bf16
+# plain version's + MATMUL_SLACK x the truth's largest entry; wgrad
+# outputs, summed over 20480-32768 rows, sit far from unit scale. Each
+# call also plants two faults in the kernel's output (the last 32-deep K
+# block's contribution dropped; the bias left out) and fails unless the
+# rule refuses both. fp32 operands: within MATMUL_FP32_TOL of the plain
+# version's largest entry (exact FFMA, sums in another order)
+MATMUL_SLACK = 1e-3
+MATMUL_FP32_TOL = 1e-5
+
+
+def mm_operands(torch, dev, M, K, N, layout, dtype, seed, bias):
+    """x (M, K) and w (K, N) as the path hands them to the kernel:
+    "fwd" x contiguous and w = weight.t() (weight (N, K)); "dgrad" x = dy
+    and w = weight (K, N), both contiguous; "wgrad" x = dy.t() (dy (K, M))
+    and w = the layer input (K, N). x is scaled by 1/sqrt(K), so the
+    pre-activations sit near unit scale (a saturated sigmoid would hide a
+    fault); the bias is 0.5 N(0, 1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*s, scale=1.0):
+        return (torch.randn(s, generator=g, device=dev) * scale).to(dtype)
+
+    xs = K ** -0.5
+    if layout == "fwd":
+        x, w = rnd(M, K, scale=xs), rnd(N, K).t()
+    elif layout == "dgrad":
+        x, w = rnd(M, K, scale=xs), rnd(K, N)
+    else:
+        x, w = rnd(K, M, scale=xs).t(), rnd(K, N)
+    return x, w, rnd(N, scale=0.5) if bias else None
+
+
+def mm_rule(got, plain, truth):
+    """MATMUL_SLACK's rule; returns (ok, the errors and the limit)."""
+    t = truth.float()
+    r = {"max_abs_err": (got.float() - t).abs().max().item(),
+         "plain_bf16_err": (plain.float() - t).abs().max().item(),
+         "truth_max": t.abs().max().item()}
+    r["tol"] = 2 * r["plain_bf16_err"] + MATMUL_SLACK * r["truth_max"]
+    return r["max_abs_err"] <= r["tol"], r
+
+
+def mm_check(torch, x, w, b, act, what):
+    """The kernel against its plain version on one call, by the rule, with
+    the two planted faults refused. Returns the rule's numbers."""
+    from apex_tpu_torch.ops import matmul as MM
+
+    y = MM.matmul_bias_act_cuda(x, w, b, act)
+    plain = MM._torch_matmul_bias_act(x, w, b, act)
+    info = {"call": what, "M": x.shape[0], "K": x.shape[1],
+            "N": w.shape[1], "bias": b is not None, "activation": act,
+            "dtype": str(x.dtype).replace("torch.", "")}
+    if x.dtype == torch.float32:
+        err = (y - plain).abs().max().item()
+        tol = MATMUL_FP32_TOL * plain.abs().max().item()
+        emit("matmul_check", {**info, "max_abs_err": err, "tol": tol})
+        check(err <= tol, f"matmul_bias_act fp32 vs plain: {err} > {tol} "
+              f"at {info}")
+        return {"max_abs_err": err, "tol": tol}
+    truth = MM._torch_matmul_bias_act(
+        x.float(), w.float(), None if b is None else b.float(), act)
+    torch.cuda.synchronize()
+    ok, r = mm_rule(y, plain, truth)
+    kk = (x.shape[1] - 1) // 32 * 32
+    faults = {"last K block dropped": MM.matmul_bias_act_cuda(
+        x[:, :kk], w[:kk], b, act)}
+    if b is not None:
+        faults["bias left out"] = MM.matmul_bias_act_cuda(x, w, None, act)
+    r["planted"] = {}
+    for fault, bad in faults.items():
+        refused, fr = mm_rule(bad, plain, truth)
+        refused = not refused
+        r["planted"][fault] = fr["max_abs_err"]
+        check(refused, f"matmul_bias_act: the rule let the planted fault "
+              f"'{fault}' through at {info}: {fr}")
+    emit("matmul_check", {**info, **r})
+    check(ok, f"matmul_bias_act kernel vs plain: {r} at {info}")
+    return r
+
+
+def mm_calls():
+    """The calls the two legs make, (M, K, N, layout, bias, activation),
+    by name: the block leg's forward, dgrad and wgrad products, and each
+    MLP layer's on both routes (the no-grad forward with relu in the
+    epilogue, the grad route's forward without it, dX and dW)."""
+    R, H, F = BLOCK_ROWS, BLOCK_HIDDEN, BLOCK_FFN
+    calls = {"block_fwd_up": (R, H, F, "fwd", True, "none"),
+             "block_fwd_down": (R, F, H, "fwd", True, "none"),
+             "block_dgrad_dh": (R, H, F, "dgrad", False, "none"),
+             "block_dgrad_dx": (R, F, H, "dgrad", False, "none"),
+             "block_wgrad_dw2": (H, R, F, "wgrad", False, "none"),
+             "block_wgrad_dw1": (F, R, H, "wgrad", False, "none")}
+    B = MLP_BATCH
+    for i, (din, dout) in enumerate(zip(MLP_SIZES[:-1], MLP_SIZES[1:])):
+        calls[f"mlp{i}_fwd_relu"] = (B, din, dout, "fwd", True, "relu")
+        calls[f"mlp{i}_fwd"] = (B, din, dout, "fwd", True, "none")
+        calls[f"mlp{i}_dgrad"] = (B, dout, din, "dgrad", False, "none")
+        calls[f"mlp{i}_wgrad"] = (dout, B, din, "wgrad", False, "none")
+    return calls
+
+
+def mm_bound(M, K, N, bias):
+    """Each operand read once and the bf16 output written once, against
+    2MNK operations at the dense bf16 peak."""
+    nbytes = 2 * (M * K + K * N + M * N + (N if bias else 0))
+    return bound(nbytes, 2 * M * N * K, BF16_OPS_PER_S)
+
+
+def phase_matmul_kernel(torch, dev):
+    """matmul_bias_act against its plain version: every epilogue of the
+    forward layout (four activations, with and without the bias) at the
+    block's up-projection, every call of both legs (K = 480 and N = 1
+    among them), and the fp32 instantiation at a small shape; each call's
+    time beside its bound, the plain version's, torch.addmm with the
+    eager activation and, where it covers the activation,
+    torch._addmm_activation (timed only, used nowhere in the port)."""
+    from apex_tpu_torch.ops import matmul as MM
+
+    calls = mm_calls()
+    errs, worst = 0.0, 0.0
+    seed = 70
+    M, K, N, layout, _, _ = calls["block_fwd_up"]
+    for act in MM.ACTIVATIONS:
+        for bias in (True, False):
+            seed += 1
+            x, w, b = mm_operands(torch, dev, M, K, N, layout,
+                                  torch.bfloat16, seed, bias)
+            r = mm_check(torch, x, w, b, act, f"block_fwd_up {act} "
+                         f"{'bias' if bias else 'no bias'}")
+            errs, worst = max(errs, r["max_abs_err"]), max(
+                worst, r["max_abs_err"] / r["tol"])
+            del x, w, b
+    for what, (M, K, N, layout, bias, act) in calls.items():
+        seed += 1
+        x, w, b = mm_operands(torch, dev, M, K, N, layout, torch.bfloat16,
+                              seed, bias)
+        r = mm_check(torch, x, w, b, act, what)
+        errs, worst = max(errs, r["max_abs_err"]), max(
+            worst, r["max_abs_err"] / r["tol"])
+    torch.cuda.empty_cache()
+    fp32 = {}
+    for layout, act in (("fwd", "gelu"), ("dgrad", "none"),
+                        ("wgrad", "none")):
+        x, w, b = mm_operands(torch, dev, 300, 200, 130, layout,
+                              torch.float32, 5, layout == "fwd")
+        fp32[layout] = mm_check(torch, x, w, b, act, f"fp32 {layout}")
+
+    per_call = {}
+    for what, (M, K, N, layout, bias, act) in calls.items():
+        x, w, b = mm_operands(torch, dev, M, K, N, layout, torch.bfloat16,
+                              3, bias)
+        t = {"ms": time_ms(lambda: MM.matmul_bias_act_cuda(x, w, b, act),
+                           [()]),
+             "plain_ms": time_ms(lambda: MM._torch_matmul_bias_act(
+                 x, w, b, act), [()], reps=2, trials=3)}
+        if b is None:
+            lib = lambda: torch.mm(x, w)  # noqa: E731
+        else:
+            lib = lambda: MM._apply_act(torch.addmm(b, x, w),  # noqa: E731
+                                        act)
+        t["library_ms"] = time_ms(lib, [()])
+        if b is not None and act in ("relu", "gelu"):
+            t["library_fused_ms"] = time_ms(
+                lambda: torch._addmm_activation(b, x, w,
+                                                use_gelu=act == "gelu"),
+                [()])
+        bd = mm_bound(M, K, N, bias)
+        t.update({"bound_ms": bd[0], "bound_by": bd[1], "M": M, "K": K,
+                  "N": N, "layout": layout, "bias": bias,
+                  "activation": act,
+                  "tflops": 2 * M * N * K / t["ms"] / 1e9})
+        per_call[what] = t
+        del x, w, b
+    torch.cuda.empty_cache()
+    head = per_call["block_fwd_up"]
+    return {"name": "matmul_bias_act", "route": "cuda",
+            "source": "apex_tpu_torch/csrc/matmul_bias_act.cu",
+            "replaces": "apex_tpu/ops/pallas/matmul.py:100",
+            "max_abs_err": errs, "max_err_over_tol": worst,
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "library_note": "torch.addmm then the eager activation (torch.mm "
+                            "without a bias); library_fused_ms: torch."
+                            "_addmm_activation where it covers it",
+            "timed_shape": {"call": "block_fwd_up", "M": head["M"],
+                            "K": head["K"], "N": head["N"], "bias": True,
+                            "activation": "none", "dtype": "bf16"},
+            "per_call": per_call, "fp32": fp32}
+
+
+def block_modules(torch, dev, dtype):
+    """FusedLayerNorm(1024) and FusedDenseGeluDense(1024, 4096, 1024) with
+    weights from seed 0."""
+    from apex_tpu_torch.ops.fused_dense import FusedDenseGeluDense
+    from apex_tpu_torch.ops.layer_norm import FusedLayerNorm
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    return (FusedLayerNorm(BLOCK_HIDDEN, device=dev, dtype=dtype),
+            FusedDenseGeluDense(BLOCK_HIDDEN, BLOCK_FFN, BLOCK_HIDDEN,
+                                generator=g, device=dev, dtype=dtype))
+
+
+def block_loss(ln, dgd, x, target):
+    """The block (LayerNorm, dense-GELU-dense, residual) and an fp32 MSE."""
+    out = x + dgd(ln(x))
+    return (out.float() - target).pow(2).mean()
+
+
+def module_params(*mods):
+    return {f"m{i}": dict(m.named_parameters()) for i, m in enumerate(mods)}
+
+
+def set_impl(mods, impl):
+    for m in mods:
+        m.impl = impl
+
+
+def phase_block_leg(torch, dev):
+    """The block leg: one step at the initial params against the plain
+    path and an fp32 truth, a warm-up, then BLOCK_STEPS timed steps of
+    forward, backward and one FusedAdam(lr=1e-4) step with the counters
+    zeroed just before and read just after (6 matmul_bias_act, 1 ln_fwd,
+    1 ln_bwd and nothing else per step); 2 profiled steps."""
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    mods = block_modules(torch, dev, torch.bfloat16)
+    mods32 = block_modules(torch, dev, torch.float32)
+    params, params32 = module_params(*mods), module_params(*mods32)
+    with torch.no_grad():
+        for a, c in zip(named_leaves(params32), named_leaves(params)):
+            a[1].copy_(c[1].float())
+    g = torch.Generator(device=dev).manual_seed(1)
+    shape = (TRAIN_BATCH, TRAIN_SEQ, BLOCK_HIDDEN)
+    x = torch.randn(shape, generator=g, device=dev).bfloat16()
+    target = torch.randn(shape, generator=g, device=dev)
+
+    def run(p, impl):
+        ms, xx = (mods32, x.float()) if p is params32 else (mods, x)
+        set_impl(ms, impl)
+        try:
+            return block_loss(*ms, xx, target)
+        finally:
+            set_impl(ms, "auto")
+
+    vs = compare_paths(torch, run, params, params32, "initial (seed 0)",
+                       True)
+    del mods32, params32
+    torch.cuda.empty_cache()
+    leaves = [t for _, t in named_leaves(params)]
+    opt = FusedAdam(leaves, lr=1e-4)
+
+    def step():
+        loss = block_loss(*mods, x, target)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    losses, wall, launches = timed_steps(torch, step, BLOCK_STEPS,
+                                         "block leg")
+    check_launches(launches, {"matmul_bias_act": 6, "ln_fwd": 1,
+                              "ln_bwd": 1}, BLOCK_STEPS, "block leg")
+    flops = 6 * 2 * BLOCK_ROWS * BLOCK_HIDDEN * BLOCK_FFN
+    step_s = wall / BLOCK_STEPS
+    info = {"tokens": BLOCK_ROWS, "hidden": BLOCK_HIDDEN, "ffn": BLOCK_FFN,
+            "steps": BLOCK_STEPS, "losses": losses, "wall_s": wall,
+            "step_ms": 1e3 * step_s, "flops_per_step": flops,
+            "tflops_per_s": flops / step_s / 1e12,
+            "bound_ms": flops / BF16_OPS_PER_S * 1e3,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "vs_plain_path": vs,
+            "launches_per_step": {k: v / BLOCK_STEPS
+                                  for k, v in launches.items() if v}}
+    info["profile"] = phase_train_profile(torch, step, step_s)
+    return info, launches
+
+
+def mlp_flops_per_step():
+    """3 x the forward's 2 x batch x sum(din x dout): forward, dX, dW."""
+    return 3 * 2 * MLP_BATCH * sum(a * b for a, b in zip(MLP_SIZES[:-1],
+                                                          MLP_SIZES[1:]))
+
+
+def phase_mlp_leg(torch, dev):
+    """The MLP leg: a warm-up and MLP_STEPS timed train steps (MSE on
+    seeded targets, FusedAdam(lr=1e-4)) with 15 matmul_bias_act launches
+    and nothing else per step; one no-grad forward with 5 launches (relu in
+    the epilogue); that forward and the same with activation="sigmoid"
+    against the plain version and an fp32 truth by MATMUL_SLACK's rule;
+    2 profiled steps."""
+    from apex_tpu_torch.ops.mlp import MLP
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    model = MLP(MLP_SIZES, activation="relu", generator=g, device=dev,
+                dtype=torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((MLP_BATCH, MLP_SIZES[0]), generator=g,
+                    device=dev).bfloat16()
+    target = torch.rand((MLP_BATCH, 1), generator=g, device=dev)
+    opt = FusedAdam(list(model.parameters()), lr=1e-4)
+
+    def step():
+        loss = (model(x).float() - target).pow(2).mean()
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    losses, wall, launches = timed_steps(torch, step, MLP_STEPS, "MLP leg")
+    n = len(MLP_SIZES) - 1
+    check_launches(launches, {"matmul_bias_act": 3 * n}, MLP_STEPS,
+                   "MLP leg")
+    flops = mlp_flops_per_step()
+    step_s = wall / MLP_STEPS
+    info = {"sizes": list(MLP_SIZES), "batch": MLP_BATCH,
+            "steps": MLP_STEPS, "losses": losses, "wall_s": wall,
+            "step_ms": 1e3 * step_s, "flops_per_step": flops,
+            "tflops_per_s": flops / step_s / 1e12,
+            "bound_ms": flops / BF16_OPS_PER_S * 1e3,
+            "samples_per_s": MLP_BATCH / step_s,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches_per_step": {k: v / MLP_STEPS
+                                  for k, v in launches.items() if v}}
+    model32 = MLP(MLP_SIZES, device=dev)
+    with torch.no_grad():
+        for a, c in zip(model32.parameters(), model.parameters()):
+            a.copy_(c.float())
+    fwd = {}
+    for act in ("relu", "sigmoid"):
+        model.activation = model32.activation = act
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            zero_counters()
+            t0 = time.perf_counter()
+            y = model(x)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = read_counters()
+            check_launches(counts, {"matmul_bias_act": n}, 1,
+                           f"MLP no-grad forward ({act})")
+            if act == "relu":
+                fwd_launches = counts
+            model.impl = "torch"
+            plain = model(x)
+            model.impl = "auto"
+            truth = model32(x.float())
+        ok, r = mm_rule(y, plain, truth)
+        check(bool(torch.isfinite(y).all()) and y.shape == (MLP_BATCH, 1),
+              f"MLP no-grad forward ({act}): bad output")
+        check(ok, f"MLP no-grad forward ({act}) kernel vs plain: {r}")
+        fwd[act] = {**r, "first_call_ms": ms}
+    model.activation = "relu"
+    info["no_grad_forward"] = fwd
+    info["profile"] = phase_train_profile(torch, step, step_s)
+    return info, launches, fwd_launches
+
+
 def main():
     import torch
 
@@ -3212,6 +3618,19 @@ def main():
             torch, dev, pe)
         emit(f"t5_softmax_train_{pe}", sm_info)
         torch.cuda.empty_cache()
+
+    # --- the fused-dense and MLP slice: matmul_bias_act -----------------------
+    mm_kernel = phase_matmul_kernel(torch, dev)
+    emit("kernel", mm_kernel)
+    kernels.append(mm_kernel)
+    torch.cuda.empty_cache()
+    b_info, paths["block_train"] = phase_block_leg(torch, dev)
+    emit("block_train", b_info)
+    torch.cuda.empty_cache()
+    m_info, paths["mlp_train"], paths["mlp_forward"] = phase_mlp_leg(
+        torch, dev)
+    emit("mlp_train", m_info)
+    torch.cuda.empty_cache()
 
     for k in kernels:
         by = {p_: n[k["name"]] for p_, n in paths.items()

@@ -40,6 +40,17 @@ with fp32 parameters and within one bf16 ulp of it (2^-7) with bf16
 ones (fp32 sums in another order, then one rounding). In fp32 every
 output within 1e-5 of the plain version's largest entry. dgamma and dbeta
 bit-identical across two runs on the same input.
+
+The matmul_bias_act kernel: in bf16, max abs error against the plain
+version run in fp32 on the upcast inputs at most twice the bf16 plain
+version's plus 1e-3 of the truth's largest entry (the scaled bf16 rule:
+wgrad outputs summed over many rows sit far from unit scale; fp32 sums in
+another order, then one rounding); two planted faults (the last 32-deep
+K block dropped, the bias left out) must fail that rule. In fp32 (exact
+FFMA, no TF32) within 1e-5 of the plain version's largest entry. The
+fused-dense and MLP autograd paths: outputs and every gradient within
+2e-2 of the plain path's largest entry in bf16 (one rounding of each
+intermediate on either side).
 """
 
 import numpy as np
@@ -50,9 +61,12 @@ from apex_tpu_torch.ops import attention as amod
 from apex_tpu_torch.ops import decode_attention as dmod
 from apex_tpu_torch.ops import fused_verify as vmod
 from apex_tpu_torch.ops import layer_norm as lnmod
+from apex_tpu_torch.ops import matmul as mmmod
 from apex_tpu_torch.ops import sampling as smod
 from apex_tpu_torch.ops import softmax as smxmod
 from apex_tpu_torch.ops import xentropy as xmod
+from apex_tpu_torch.ops.fused_dense import fused_dense, fused_dense_gelu_dense
+from apex_tpu_torch.ops.mlp import mlp
 
 NEAR_TIE = 1e-5
 
@@ -1053,3 +1067,189 @@ def test_softmax_route_step_kernel_path_matches_plain_path(cuda, which):
     assert abs(lk - lp) <= 1e-4 * abs(lp)
     for a, c in zip(gk, gp):
         assert (a - c).norm() <= 5e-2 * c.norm()
+
+
+# --- the matmul_bias_act kernel -----------------------------------------------
+
+def _mm_operands(M, K, N, layout, dtype, dev, seed, bias, pad=0):
+    """x (M, K) and w (K, N) in ``layout`` — "fwd" (x K-, w K-contiguous:
+    ``weight.t()``), "dgrad" (x K-, w N-contiguous), "wgrad" (x M-, w
+    N-contiguous: ``dy.t()``), "am_bk" (x M-, w K-contiguous) — as views,
+    each row ``pad`` elements wider than it needs (a row stride that is no
+    multiple of 8 when pad is odd); bias (N,) or None. x is scaled by
+    1/sqrt(K) so the pre-activations sit near unit scale (a saturated
+    sigmoid would hide a fault)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*s, scale=1.0):
+        return (torch.randn(s, generator=g, device=dev) * scale).to(dtype)
+
+    xs = 1.0 / max(K, 1) ** 0.5
+    x_k = layout in ("fwd", "dgrad")
+    w_k = layout in ("fwd", "am_bk")
+    x = (rnd(M, K + pad, scale=xs)[:, :K] if x_k
+         else rnd(K, M + pad, scale=xs)[:, :M].t())
+    w = rnd(N, K + pad)[:, :K].t() if w_k else rnd(K, N + pad)[:, :N]
+    return x, w, rnd(N, scale=0.5) if bias else None
+
+
+def _mm_rule(got, plain, truth):
+    t = truth.float()
+    err = (got.float() - t).abs().max().item()
+    err_plain = (plain.float() - t).abs().max().item()
+    return err <= 2 * err_plain + 1e-3 * t.abs().max().item(), err
+
+
+def _mm_check(x, w, b, act, out_dtype=None):
+    before = mmmod.matmul_bias_act_cuda.launches
+    y = mmmod.matmul_bias_act_cuda(x, w, b, act, out_dtype)
+    torch.cuda.synchronize()
+    assert mmmod.matmul_bias_act_cuda.launches == before + 1
+    assert y.shape == (x.shape[0], w.shape[1]) and y.is_contiguous()
+    assert y.dtype == (out_dtype or x.dtype)
+    plain = mmmod._torch_matmul_bias_act(x, w, b, act, out_dtype)
+    if x.dtype == torch.float32:  # a bf16 output: one rounding apart
+        ok, err = _close_to_largest(
+            y, plain, 1e-5 if y.dtype == torch.float32 else 2.0 ** -8)
+        assert ok, err
+        return y
+    truth = mmmod._torch_matmul_bias_act(
+        x.float(), w.float(), None if b is None else b.float(), act,
+        torch.float32)
+    ok, err = _mm_rule(y, plain, truth)
+    assert ok, err
+    faults = []
+    K = x.shape[1]
+    if K > 0:
+        kk = (K - 1) // 32 * 32  # the last K block dropped
+        faults.append(mmmod.matmul_bias_act_cuda(x[:, :kk], w[:kk], b, act,
+                                                 out_dtype))
+    if b is not None:
+        faults.append(mmmod.matmul_bias_act_cuda(x, w, None, act, out_dtype))
+    for bad in faults:
+        assert not _mm_rule(bad, plain, truth)[0]
+    return y
+
+
+MM_SHAPES = [(256, 128, 256), (200, 100, 130), (37, 480, 1), (33, 1, 65),
+             (129, 257, 3), (1, 64, 300), (300, 40, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", MM_SHAPES)
+@pytest.mark.parametrize("act", mmmod.ACTIVATIONS)
+@pytest.mark.parametrize("bias", [True, False])
+def test_matmul_forward_layout_epilogues_match_plain(cuda, M, K, N, act,
+                                                     bias):
+    x, w, b = _mm_operands(M, K, N, "fwd", torch.bfloat16, cuda, M + N,
+                           bias)
+    _mm_check(x, w, b, act)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", MM_SHAPES + [(4, 0, 9)])
+@pytest.mark.parametrize("layout", ["fwd", "dgrad", "wgrad", "am_bk"])
+@pytest.mark.parametrize("pad", [0, 3])
+def test_matmul_layouts_and_ragged_edges_match_plain(cuda, M, K, N, layout,
+                                                     pad):
+    """Every operand layout without an epilogue, on aligned rows and on
+    rows 3 elements wider than needed (a row stride that is no multiple of
+    8: the element-by-element loader)."""
+    x, w, _ = _mm_operands(M, K, N, layout, torch.bfloat16, cuda, K + pad,
+                           False, pad)
+    _mm_check(x, w, None, "none")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["dgrad", "wgrad", "am_bk"])
+def test_matmul_epilogue_on_other_layouts_and_misaligned_base(cuda, layout):
+    """A bias and an activation with operands outside the forward layout
+    (copied into it), a base off 16 bytes, and an fp32 output."""
+    x, w, b = _mm_operands(70, 96, 50, layout, torch.bfloat16, cuda, 7, True)
+    _mm_check(x, w, b, "gelu")
+    _mm_check(x[1:, 1:], w[1:, 1:], b[1:], "relu", torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(64, 48, 64), (100, 77, 1), (5, 300, 70),
+                                   (3, 0, 4)])
+@pytest.mark.parametrize("layout", ["fwd", "dgrad", "wgrad", "am_bk"])
+@pytest.mark.parametrize("act", mmmod.ACTIVATIONS)
+def test_matmul_fp32_kernel_matches_plain(cuda, M, K, N, layout, act):
+    x, w, b = _mm_operands(M, K, N, layout, torch.float32, cuda, N, True, 1)
+    _mm_check(x, w, b, act)
+    _mm_check(x, w, None, act, torch.bfloat16)
+
+
+def _grads(fn, leaves, dy):
+    for t in leaves:
+        t.grad = None
+    y = fn()
+    y.backward(dy)
+    return [y.detach()] + [t.grad for t in leaves]
+
+
+def _launches(fn):
+    before = mmmod.matmul_bias_act_cuda.launches
+    out = fn()
+    return out, mmmod.matmul_bias_act_cuda.launches - before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["dense", "dense_nobias", "dgd", "mlp_relu",
+                                "mlp_sigmoid", "mlp_none"])
+def test_dense_and_mlp_autograd_run_the_kernel(cuda, op):
+    """fused_dense (3 launches a step), fused_dense_gelu_dense (6) and mlp
+    (2 layers: 2 forward, 4 backward; no-grad 2 with the activation in the
+    epilogue) against the plain path in bf16: outputs and every gradient
+    within 2e-2 of the plain path's largest entry."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    rnd = lambda *s: (torch.randn(s, generator=g, device=cuda)  # noqa: E731
+                      * 0.5).bfloat16().requires_grad_()
+    x = rnd(3, 50, 96)
+    if op.startswith("dense"):
+        ps = [rnd(130, 96)] + ([rnd(130)] if op == "dense" else [])
+        fn = lambda impl: fused_dense(  # noqa: E731
+            x, ps[0], ps[1] if len(ps) > 1 else None, impl=impl)
+        want, out_w = 3, 130
+    elif op == "dgd":
+        ps = [rnd(200, 96), rnd(200), rnd(72, 200), rnd(72)]
+        fn = lambda impl: fused_dense_gelu_dense(  # noqa: E731
+            x, *ps, impl=impl)
+        want, out_w = 6, 72
+    else:
+        act = op.split("_")[1]
+        ps = [rnd(80, 96), rnd(80), rnd(1, 80), rnd(1)]
+        fn = lambda impl: mlp(x, ps[0::2], ps[1::2], act,  # noqa
+                                     impl=impl)
+        want, out_w = 6, 1
+    dy = torch.randn((3, 50, out_w), generator=g, device=cuda).bfloat16()
+    leaves = [x, *ps]
+    got, n = _launches(lambda: _grads(lambda: fn("auto"), leaves, dy))
+    assert n == want
+    ref, n = _launches(lambda: _grads(lambda: fn("torch"), leaves, dy))
+    assert n == 0
+    for a, c in zip(got, ref):
+        assert a.dtype == c.dtype
+        ok, err = _close_to_largest(a, c, 2e-2)
+        assert ok, err
+    if op.startswith("mlp"):
+        with torch.no_grad():
+            y, n = _launches(lambda: fn("auto"))
+            assert n == 2
+            ok, err = _close_to_largest(y, fn("torch"), 2e-2)
+            assert ok, err
+
+
+@pytest.mark.gpu
+def test_matmul_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros((4, 8), dtype=torch.half, device=cuda)
+    with pytest.raises(ValueError, match="impl='torch'"):
+        mmmod.matmul_bias_act(x, x.t())
+    with pytest.raises(ValueError, match="impl='torch'"):
+        fused_dense(x, x)
+    with pytest.raises(ValueError, match="unknown activation"):
+        mmmod.matmul_bias_act(x.bfloat16(), x.t().bfloat16(),
+                              activation="tanh")
+    y = mmmod.matmul_bias_act(x, x.t(), impl="torch")
+    assert y.shape == (4, 4) and y.dtype == torch.half
