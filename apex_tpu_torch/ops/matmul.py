@@ -23,11 +23,31 @@ fused-dense and MLP paths pass views: ``weight.t()`` (forward),
 forward layout only (A and B both K-contiguous, as the call sites give
 them); a call with either on other layouts copies its operands into that
 layout first.
+
+:func:`_plan` makes every launch decision, from the operands alone:
+
+* the variant — ``"wgmma"`` (TMA loads into a ring of shared stages,
+  ``wgmma`` on two consumer warpgroups) when a tensor map can describe
+  both bf16 operands (base on 16 bytes, row stride a multiple of 8
+  elements), else ``"sm80"`` (the ``mma.sync`` body, which takes any
+  strides); fp32 operands take the exact-FFMA kernel (``"fp32"``);
+* split-K for the wgmma variant, when the call's 128 x 128 output tiles
+  would leave more than half the SMs idle and K is deep (the MLP's weight
+  gradients): S slices of at least ``SPLIT_MIN_STEPS`` 64-deep K steps,
+  at most one CTA per SM and ``SPLIT_MAX`` slices, an fp32 workspace
+  (S, M, N), and a second launch that sums the partials in slice order
+  (bit-identical run to run) and applies the epilogue.
+
+No argument or environment variable picks either. The wrapper counts its
+calls in ``matmul_bias_act_cuda.launches`` and by variant in
+``.wgmma_launches``, ``.sm80_launches`` and ``.fp32_launches``; the
+split-K calls also in ``.split_launches``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -38,6 +58,14 @@ _ACT_CODES = {a: i for i, a in enumerate(ACTIVATIONS)}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: 65535 row tiles of the fp32 kernel's 64 rows (the bf16 kernel's are 128)
 MAX_ROWS = 65535 * 64
+#: the wgmma variant's output tile and K step
+TILE_M = TILE_N = 128
+TILE_K = 64
+#: split-K: the least 64-deep K steps a slice walks, and the most slices
+SPLIT_MIN_STEPS = 8
+SPLIT_MAX = 64
+#: an H100 SXM's SMs (the plan's default; a launch asks its card)
+H100_SMS = 132
 
 
 def _apply_act(r: torch.Tensor, activation: str) -> torch.Tensor:
@@ -120,14 +148,94 @@ def _check_kernel_inputs(x: torch.Tensor, w: torch.Tensor,
                          f"{tuple(b.shape)} {b.dtype}")
 
 
-def matmul_bias_act_cuda(x: torch.Tensor, w: torch.Tensor,
-                         b: Optional[torch.Tensor] = None,
-                         activation: str = "none",
-                         out_dtype: Optional[torch.dtype] = None
-                         ) -> torch.Tensor:
-    """Launch the kernel: ``act(x @ w + b)`` for x (M, K), w (K, N) read
-    through their strides, into a new contiguous (M, N) tensor of
-    ``out_dtype``. Counts its launches in ``.launches``."""
+class Plan(NamedTuple):
+    """One call's launch: the variant, its K slices (1: none) and the
+    64-deep K steps of each, the fp32 workspace's shape (None without
+    split-K), and the two operands as :func:`_operand` gives them."""
+    variant: str
+    split: int
+    kt_split: int
+    workspace: Optional[Tuple[int, int, int]]
+    a: Tuple[torch.Tensor, bool, int, bool]
+    b: Tuple[torch.Tensor, bool, int, bool]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _split(M: int, N: int, K: int, sms: int) -> Tuple[int, int]:
+    """(S, K steps per slice): S > 1 when the output tiles fill at most
+    half of the ``sms`` SMs and K holds two slices of SPLIT_MIN_STEPS; then
+    as many slices as keep one CTA per SM, no slice empty."""
+    tiles = _cdiv(M, TILE_M) * _cdiv(N, TILE_N)
+    steps = _cdiv(K, TILE_K)
+    s = min(sms // tiles, steps // SPLIT_MIN_STEPS, SPLIT_MAX)
+    if tiles > sms // 2 or s < 2:
+        return 1, steps
+    per = _cdiv(steps, s)
+    return _cdiv(steps, per), per
+
+
+def _plan(x: torch.Tensor, w: torch.Tensor,
+          b: Optional[torch.Tensor] = None, activation: str = "none",
+          sms: int = H100_SMS) -> Plan:
+    """Every launch decision for ``act(x @ w + b)``, from the operands'
+    dtype, shapes, strides and alignment alone (see the module's doc)."""
+    # the bf16 epilogues run in the forward layout only
+    k_only = x.dtype == torch.bfloat16 and (b is not None
+                                            or activation != "none")
+    a, bm = _operand(x, 1, k_only), _operand(w, 0, k_only)
+    if x.dtype == torch.float32:
+        return Plan("fp32", 1, 0, None, a, bm)
+    M, K = x.shape
+    N = w.shape[1]
+    if not (a[3] and bm[3]) or K == 0:  # an empty operand has no map
+        return Plan("sm80", 1, 0, None, a, bm)
+    split, per = _split(M, N, K, sms)
+    return Plan("wgmma", split, per, (split, M, N) if split > 1 else None,
+                a, bm)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _forced(plan: Plan, variant: Optional[str], split: Optional[int],
+            K: int, M: int, N: int) -> Plan:
+    """``plan`` with the variant and split a caller asked for, checked."""
+    if variant is not None and variant != plan.variant:
+        if plan.variant == "fp32" or variant not in ("wgmma", "sm80"):
+            raise ValueError(f"matmul_bias_act: no {variant!r} variant for "
+                             f"these operands")
+        if variant == "wgmma":
+            raise ValueError("matmul_bias_act: no tensor map describes "
+                             "these operands (a base off 16 bytes, a row "
+                             "stride that is no multiple of 8 elements, or "
+                             "K = 0)")
+        plan = plan._replace(variant="sm80", split=1, kt_split=0,
+                             workspace=None)
+    if split is not None and split != plan.split:
+        steps = _cdiv(K, TILE_K)
+        per = _cdiv(steps, split) if split > 0 else 0
+        if plan.variant != "wgmma" or per == 0 or _cdiv(steps, per) != split:
+            raise ValueError(f"matmul_bias_act: cannot split K = {K} into "
+                             f"{split} slices of the {plan.variant} variant")
+        plan = plan._replace(split=split, kt_split=per, workspace=(
+            (split, M, N) if split > 1 else None))
+    return plan
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor,
+            b: Optional[torch.Tensor] = None, activation: str = "none",
+            out_dtype: Optional[torch.dtype] = None,
+            variant: Optional[str] = None,
+            split: Optional[int] = None) -> torch.Tensor:
+    """The kernel launch behind :func:`matmul_bias_act_cuda`. ``variant``
+    and ``split`` override the plan, for the kernel tests and the A/B
+    timing of the variants only; both raise where the kernel cannot take
+    them."""
     out_dtype = out_dtype or x.dtype
     _check_kernel_inputs(x, w, b, out_dtype)
     act = _ACT_CODES.get(activation)
@@ -138,24 +246,51 @@ def matmul_bias_act_cuda(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
-    # the bf16 epilogues run in the forward layout only
-    k_only = x.dtype == torch.bfloat16 and (b is not None or act != 0)
-    a, a_k, lda, a_vec = _operand(x, 1, k_only)
-    bm, b_k, ldb, b_vec = _operand(w, 0, k_only)
+    index = x.device.index
+    plan = _plan(x, w, b, activation, _sm_count(
+        torch.cuda.current_device() if index is None else index))
+    plan = _forced(plan, variant, split, K, M, N)
+    a, a_k, lda, a_vec = plan.a
+    bm, b_k, ldb, b_vec = plan.b
     bias = None if b is None else b.contiguous()
+    ws = (None if plan.workspace is None else
+          torch.empty(plan.workspace, dtype=torch.float32, device=x.device))
     rc = _build.library().apex_matmul_bias_act(
         a.data_ptr(), bm.data_ptr(), None if bias is None else
-        bias.data_ptr(), out.data_ptr(), _DTYPE_CODES[x.dtype], int(a_k),
-        int(b_k), int(a_vec), int(b_vec), act,
+        bias.data_ptr(), out.data_ptr(), None if ws is None else
+        ws.data_ptr(), _DTYPE_CODES[x.dtype], int(plan.variant == "wgmma"),
+        int(a_k), int(b_k), int(a_vec), int(b_vec), act,
         int(bias is not None and bias.dtype == torch.float32),
-        int(out_dtype == torch.float32), M, N, K, lda, ldb, N,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        int(out_dtype == torch.float32), M, N, K, lda, ldb, N, plan.split,
+        plan.kt_split, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "matmul_bias_act")
-    matmul_bias_act_cuda.launches += 1
+    fn = matmul_bias_act_cuda
+    fn.launches += 1
+    counter = f"{plan.variant}_launches"
+    setattr(fn, counter, getattr(fn, counter) + 1)
+    fn.split_launches += int(plan.split > 1)
     return out
 
 
+def matmul_bias_act_cuda(x: torch.Tensor, w: torch.Tensor,
+                         b: Optional[torch.Tensor] = None,
+                         activation: str = "none",
+                         out_dtype: Optional[torch.dtype] = None
+                         ) -> torch.Tensor:
+    """Launch the kernel: ``act(x @ w + b)`` for x (M, K), w (K, N) read
+    through their strides, into a new contiguous (M, N) tensor of
+    ``out_dtype``, on the variant and split :func:`_plan` picks. Counts
+    its calls in ``.launches``, by variant in ``.wgmma_launches``,
+    ``.sm80_launches`` and ``.fp32_launches``, and the split-K ones in
+    ``.split_launches``."""
+    return _launch(x, w, b, activation, out_dtype)
+
+
 matmul_bias_act_cuda.launches = 0
+matmul_bias_act_cuda.wgmma_launches = 0
+matmul_bias_act_cuda.sm80_launches = 0
+matmul_bias_act_cuda.fp32_launches = 0
+matmul_bias_act_cuda.split_launches = 0
 
 
 def matmul_bias_act(x: torch.Tensor, w: torch.Tensor,

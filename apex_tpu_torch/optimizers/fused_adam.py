@@ -104,7 +104,15 @@ class FusedAdam(torch.optim.Optimizer):
         else:
             m_hat = ms
             den = [v.clone() for v in vs]
-        torch._foreach_sqrt_(den)
+        # torch.sqrt on CPU float32 is not correctly rounded (an ulp off on
+        # ~17% of inputs, which the cancellation in p - lr * update turns
+        # into tens of ulps of a small parameter); the float64 root rounded
+        # once to float32 is, as the reference's IEEE sqrt. CUDA's sqrtf is
+        # IEEE (the kernels build without --use_fast_math).
+        if all(d.is_cuda for d in den):
+            torch._foreach_sqrt_(den)
+        else:
+            den = [d.double().sqrt_().float() for d in den]
         torch._foreach_add_(den, eps)
         upd = torch._foreach_div(m_hat, den)
         del m_hat, den

@@ -150,35 +150,43 @@ without the final line):
     composition — and 122/62 norm, 1 xent_stats); each leg ends with 2
     profiled steps (device time by layer, busy share);
 13. the fused-dense and MLP slice (``ops/fused_dense.py``, ``ops/mlp.py``
-    over ``matmul_bias_act``):
+    over ``matmul_bias_act``, whose bf16 calls take the wgmma/TMA variant
+    when a tensor map describes both operands and the kernel's first,
+    mma.sync body, the sm80 variant, otherwise):
     * the kernel against its plain version by MATMUL_SLACK's rule (max abs
       error vs the fp32 plain version <= 2x the bf16 plain version's +
       1e-3 x the truth's largest entry; two planted faults — the last K
       block dropped, the bias left out — refused at every call): the
       forward layout with each activation, with and without the bias, at
       the block's up-projection, every call of both legs below (forward,
-      dgrad and wgrad layouts; K = 480, N = 1 and K = 1 among them), and
-      the fp32 instantiation at 300 x 200 x 130 within 1e-5 of the
-      largest entry; each leg call timed beside its bound (2MNK over 989
-      TFLOP/s against the bytes over 3.35 TB/s), the plain version,
-      torch.addmm with the eager activation (torch.mm without a bias) and
+      dgrad and wgrad layouts; K = 480, N = 1 and K = 1 among them), each
+      also on the sm80 variant by the same rule, and the fp32
+      instantiation at 300 x 200 x 130 within 1e-5 of the largest entry;
+      every leg call planned onto the wgmma variant, and each split-K
+      call (the MLP's weight gradients) bit-identical across two runs;
+      each leg call timed on the wgmma and the sm80 variant in turns
+      (wgmma, sm80, sm80, wgmma) beside its bound (2MNK over 989 TFLOP/s
+      against the bytes over 3.35 TB/s), the plain version, torch.addmm
+      with the eager activation (torch.mm without a bias) and
       torch._addmm_activation where it covers the activation;
     * the block leg: FusedLayerNorm(1024), FusedDenseGeluDense(1024,
       4096, 1024) and a residual (BASELINE.json line 10 at GPT-medium's
       widths) over 20 x 1024 bf16 tokens, an fp32 MSE, backward and one
       FusedAdam(lr=1e-4) step: one step at the initial params against the
       plain path and an fp32 truth, then 10 timed steps with 6
-      matmul_bias_act, 1 ln_fwd and 1 ln_bwd launches and nothing else
-      per step; step ms, TFLOP/s against 6 x 171.8 GFLOP, peak memory, 2
-      profiled steps;
+      matmul_bias_act launches, all 6 on the wgmma variant, 1 ln_fwd and
+      1 ln_bwd and nothing else per step; step ms, TFLOP/s against 6 x
+      171.8 GFLOP, peak memory, 2 profiled steps;
     * the MLP leg: MLP([480, 1024, 1024, 512, 256, 1], relu) in bf16 at
       batch 32768 (DLRM's top MLP): 10 timed train steps with 15 launches
-      a step; a no-grad forward with 5 launches (relu in the epilogue),
-      and it and the sigmoid forward against the plain version and an
-      fp32 truth by MATMUL_SLACK's rule; 2 profiled steps;
+      a step, all on the wgmma variant, the 5 weight gradients split-K; a
+      no-grad forward with 5 wgmma launches (relu in the epilogue), and
+      it and the sigmoid forward against the plain version and an fp32
+      truth by MATMUL_SLACK's rule; 2 profiled steps;
 14. one ``{"kernels": [...]}`` line (all twenty-two kernels, each with
-    its launches by main path), the card's name and power limit as
-    nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.
+    its launches by main path; matmul_bias_act also by variant), the
+    card's name and power limit as nvidia-smi prints them, and last
+    ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -724,7 +732,8 @@ def phase_train_plain(torch, model, params, tokens, targets):
 
 def kernel_category(name):
     """The train step's layers, by kernel name."""
-    if "matmul_bias_act" in name:
+    if any(k in name for k in ("matmul_bias_act", "matmul_wgmma",
+                               "splitk_reduce")):
         return "matmul_bias_act kernel"
     if "flash_" in name:
         return "flash attention kernels"
@@ -2229,7 +2238,15 @@ def path_counters():
             "ln_bwd": (LN.ln_bwd_cuda, "launches"),
             "softmax_fwd": (S.softmax_fwd_cuda, "launches"),
             "softmax_bwd": (S.softmax_bwd_cuda, "launches"),
-            "matmul_bias_act": (MM.matmul_bias_act_cuda, "launches")}
+            "matmul_bias_act": (MM.matmul_bias_act_cuda, "launches"),
+            "matmul_bias_act_wgmma": (MM.matmul_bias_act_cuda,
+                                      "wgmma_launches"),
+            "matmul_bias_act_sm80": (MM.matmul_bias_act_cuda,
+                                     "sm80_launches"),
+            "matmul_bias_act_fp32": (MM.matmul_bias_act_cuda,
+                                     "fp32_launches"),
+            "matmul_bias_act_split": (MM.matmul_bias_act_cuda,
+                                      "split_launches")}
 
 
 def zero_counters():
@@ -3110,8 +3127,13 @@ def mm_check(torch, x, w, b, act, what):
         r["planted"][fault] = fr["max_abs_err"]
         check(refused, f"matmul_bias_act: the rule let the planted fault "
               f"'{fault}' through at {info}: {fr}")
+    # the mma.sync body, the variant for operands no tensor map takes
+    y80 = MM._launch(x, w, b, act, variant="sm80")
+    ok80, r80 = mm_rule(y80, plain, truth)
+    r["sm80_max_abs_err"] = r80["max_abs_err"]
     emit("matmul_check", {**info, **r})
     check(ok, f"matmul_bias_act kernel vs plain: {r} at {info}")
+    check(ok80, f"matmul_bias_act sm80 variant vs plain: {r80} at {info}")
     return r
 
 
@@ -3147,12 +3169,17 @@ def phase_matmul_kernel(torch, dev):
     """matmul_bias_act against its plain version: every epilogue of the
     forward layout (four activations, with and without the bias) at the
     block's up-projection, every call of both legs (K = 480 and N = 1
-    among them), and the fp32 instantiation at a small shape; each call's
-    time beside its bound, the plain version's, torch.addmm with the
-    eager activation and, where it covers the activation,
-    torch._addmm_activation (timed only, used nowhere in the port)."""
+    among them), and the fp32 instantiation at a small shape; both bf16
+    variants by the rule at every call, and the wgmma variant's with its
+    planted faults; each leg call planned onto the wgmma variant, its
+    split-K result bit-identical across two runs; each call's time, the
+    sm80 variant's in turns with it (wgmma, sm80, sm80, wgmma), beside the
+    bound, the plain version's, torch.addmm with the eager activation and,
+    where it covers the activation, torch._addmm_activation (timed only,
+    used nowhere in the port)."""
     from apex_tpu_torch.ops import matmul as MM
 
+    sms = MM._sm_count(torch.cuda.current_device())
     calls = mm_calls()
     errs, worst = 0.0, 0.0
     seed = 70
@@ -3167,13 +3194,27 @@ def phase_matmul_kernel(torch, dev):
             errs, worst = max(errs, r["max_abs_err"]), max(
                 worst, r["max_abs_err"] / r["tol"])
             del x, w, b
+    split_calls = {}
     for what, (M, K, N, layout, bias, act) in calls.items():
         seed += 1
         x, w, b = mm_operands(torch, dev, M, K, N, layout, torch.bfloat16,
                               seed, bias)
+        plan = MM._plan(x, w, b, act, sms)
+        check(plan.variant == "wgmma", f"matmul_bias_act: {what} planned "
+              f"onto the {plan.variant} variant")
         r = mm_check(torch, x, w, b, act, what)
         errs, worst = max(errs, r["max_abs_err"]), max(
             worst, r["max_abs_err"] / r["tol"])
+        if plan.split > 1:
+            y1 = MM.matmul_bias_act_cuda(x, w, b, act)
+            y2 = MM.matmul_bias_act_cuda(x, w, b, act)
+            same = bool(torch.equal(y1, y2))
+            split_calls[what] = {"split": plan.split,
+                                 "workspace_mb": 4 * M * N * plan.split / 1e6,
+                                 "bit_identical": same}
+            check(same, f"matmul_bias_act: split-K {what} (S {plan.split}) "
+                  f"differs between two runs")
+    emit("matmul_split_k", split_calls)
     torch.cuda.empty_cache()
     fp32 = {}
     for layout, act in (("fwd", "gelu"), ("dgrad", "none"),
@@ -3186,8 +3227,14 @@ def phase_matmul_kernel(torch, dev):
     for what, (M, K, N, layout, bias, act) in calls.items():
         x, w, b = mm_operands(torch, dev, M, K, N, layout, torch.bfloat16,
                               3, bias)
-        t = {"ms": time_ms(lambda: MM.matmul_bias_act_cuda(x, w, b, act),
-                           [()]),
+        plan = MM._plan(x, w, b, act, sms)
+        new = lambda: MM.matmul_bias_act_cuda(x, w, b, act)  # noqa: E731
+        old = lambda: MM._launch(x, w, b, act,  # noqa: E731
+                                 variant="sm80")
+        turns = [time_ms(f, [()]) for f in (new, old, old, new)]
+        t = {"ms": (turns[0] + turns[3]) / 2,
+             "sm80_ms": (turns[1] + turns[2]) / 2, "turns_ms": turns,
+             "variant": plan.variant, "split": plan.split,
              "plain_ms": time_ms(lambda: MM._torch_matmul_bias_act(
                  x, w, b, act), [()], reps=2, trials=3)}
         if b is None:
@@ -3210,11 +3257,15 @@ def phase_matmul_kernel(torch, dev):
         del x, w, b
     torch.cuda.empty_cache()
     head = per_call["block_fwd_up"]
+    slower = {k: v for k, v in per_call.items() if v["ms"] > v["sm80_ms"]}
+    emit("matmul_ab", {"calls": len(per_call),
+                       "wgmma_slower_than_sm80": slower})
     return {"name": "matmul_bias_act", "route": "cuda",
             "source": "apex_tpu_torch/csrc/matmul_bias_act.cu",
             "replaces": "apex_tpu/ops/pallas/matmul.py:100",
             "max_abs_err": errs, "max_err_over_tol": worst,
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "ms": head["ms"], "sm80_ms": head["sm80_ms"],
+            "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
             "library_note": "torch.addmm then the eager activation (torch.mm "
@@ -3223,7 +3274,9 @@ def phase_matmul_kernel(torch, dev):
             "timed_shape": {"call": "block_fwd_up", "M": head["M"],
                             "K": head["K"], "N": head["N"], "bias": True,
                             "activation": "none", "dtype": "bf16"},
-            "per_call": per_call, "fp32": fp32}
+            "variant_note": "ms: the wgmma variant (the path's); sm80_ms: "
+                            "the mma.sync variant in turns with it",
+            "split_k": split_calls, "per_call": per_call, "fp32": fp32}
 
 
 def block_modules(torch, dev, dtype):
@@ -3296,7 +3349,8 @@ def phase_block_leg(torch, dev):
 
     losses, wall, launches = timed_steps(torch, step, BLOCK_STEPS,
                                          "block leg")
-    check_launches(launches, {"matmul_bias_act": 6, "ln_fwd": 1,
+    check_launches(launches, {"matmul_bias_act": 6,
+                              "matmul_bias_act_wgmma": 6, "ln_fwd": 1,
                               "ln_bwd": 1}, BLOCK_STEPS, "block leg")
     flops = 6 * 2 * BLOCK_ROWS * BLOCK_HIDDEN * BLOCK_FFN
     step_s = wall / BLOCK_STEPS
@@ -3347,7 +3401,10 @@ def phase_mlp_leg(torch, dev):
 
     losses, wall, launches = timed_steps(torch, step, MLP_STEPS, "MLP leg")
     n = len(MLP_SIZES) - 1
-    check_launches(launches, {"matmul_bias_act": 3 * n}, MLP_STEPS,
+    # every launch on the wgmma variant; the n weight gradients split K
+    check_launches(launches, {"matmul_bias_act": 3 * n,
+                              "matmul_bias_act_wgmma": 3 * n,
+                              "matmul_bias_act_split": n}, MLP_STEPS,
                    "MLP leg")
     flops = mlp_flops_per_step()
     step_s = wall / MLP_STEPS
@@ -3375,7 +3432,8 @@ def phase_mlp_leg(torch, dev):
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
             counts = read_counters()
-            check_launches(counts, {"matmul_bias_act": n}, 1,
+            check_launches(counts, {"matmul_bias_act": n,
+                                    "matmul_bias_act_wgmma": n}, 1,
                            f"MLP no-grad forward ({act})")
             if act == "relu":
                 fwd_launches = counts
@@ -3638,6 +3696,10 @@ def main():
         k["launches"] = sum(by.values())
         k["launches_by_path"] = by
         check(k["launches"] > 0, f"{k['name']} never launched on the path")
+    mm_kernel["variants"] = {
+        v: {p_: n[f"matmul_bias_act_{v}"] for p_, n in paths.items()
+            if n.get(f"matmul_bias_act_{v}")}
+        for v in ("wgmma", "sm80", "fp32", "split")}
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -46,7 +46,9 @@ version run in fp32 on the upcast inputs at most twice the bf16 plain
 version's plus 1e-3 of the truth's largest entry (the scaled bf16 rule:
 wgrad outputs summed over many rows sit far from unit scale; fp32 sums in
 another order, then one rounding); two planted faults (the last 32-deep
-K block dropped, the bias left out) must fail that rule. In fp32 (exact
+K block dropped, the bias left out) must fail that rule, on both bf16
+variants (wgmma, sm80) through the private launcher; a split-K result
+bit-identical across two runs. In fp32 (exact
 FFMA, no TF32) within 1e-5 of the plain version's largest entry. The
 fused-dense and MLP autograd paths: outputs and every gradient within
 2e-2 of the plain path's largest entry in bf16 (one rounding of each
@@ -1100,11 +1102,17 @@ def _mm_rule(got, plain, truth):
     return err <= 2 * err_plain + 1e-3 * t.abs().max().item(), err
 
 
-def _mm_check(x, w, b, act, out_dtype=None):
-    before = mmmod.matmul_bias_act_cuda.launches
-    y = mmmod.matmul_bias_act_cuda(x, w, b, act, out_dtype)
+def _mm_check(x, w, b, act, out_dtype=None, variant=None):
+    """The kernel (the planned variant, or ``variant`` through the private
+    launcher) against the plain version by the rule, both planted faults
+    refused; the call counted once, under its variant."""
+    fn = mmmod.matmul_bias_act_cuda
+    want = variant or mmmod._plan(x, w, b, act).variant
+    before = (fn.launches, getattr(fn, f"{want}_launches"))
+    y = mmmod._launch(x, w, b, act, out_dtype, variant)
     torch.cuda.synchronize()
-    assert mmmod.matmul_bias_act_cuda.launches == before + 1
+    assert (fn.launches, getattr(fn, f"{want}_launches")) == (
+        before[0] + 1, before[1] + 1)
     assert y.shape == (x.shape[0], w.shape[1]) and y.is_contiguous()
     assert y.dtype == (out_dtype or x.dtype)
     plain = mmmod._torch_matmul_bias_act(x, w, b, act, out_dtype)
@@ -1122,13 +1130,32 @@ def _mm_check(x, w, b, act, out_dtype=None):
     K = x.shape[1]
     if K > 0:
         kk = (K - 1) // 32 * 32  # the last K block dropped
-        faults.append(mmmod.matmul_bias_act_cuda(x[:, :kk], w[:kk], b, act,
-                                                 out_dtype))
+        faults.append(mmmod._launch(x[:, :kk], w[:kk], b, act, out_dtype,
+                                    variant if kk else None))
     if b is not None:
-        faults.append(mmmod.matmul_bias_act_cuda(x, w, None, act, out_dtype))
+        faults.append(mmmod._launch(x, w, None, act, out_dtype, variant))
     for bad in faults:
         assert not _mm_rule(bad, plain, truth)[0]
     return y
+
+
+def _mm_aligned(M, K, N, layout, dev, seed, bias):
+    """:func:`_mm_operands` with every row padded to a multiple of 8
+    elements: operands a tensor map describes, so both variants take
+    them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rows(outer, inner, scale=1.0):
+        wide = -(-inner // 8) * 8
+        return (torch.randn((outer, wide), generator=g, device=dev)
+                * scale).bfloat16()[:, :inner]
+
+    xs = 1.0 / K ** 0.5
+    x = rows(M, K, xs) if layout in ("fwd", "dgrad") else rows(K, M, xs).t()
+    w = rows(N, K).t() if layout in ("fwd", "am_bk") else rows(K, N)
+    b = ((torch.randn(N, generator=g, device=dev) * 0.5).bfloat16()
+         if bias else None)
+    return x, w, b
 
 
 MM_SHAPES = [(256, 128, 256), (200, 100, 130), (37, 480, 1), (33, 1, 65),
@@ -1168,6 +1195,88 @@ def test_matmul_epilogue_on_other_layouts_and_misaligned_base(cuda, layout):
     x, w, b = _mm_operands(70, 96, 50, layout, torch.bfloat16, cuda, 7, True)
     _mm_check(x, w, b, "gelu")
     _mm_check(x[1:, 1:], w[1:, 1:], b[1:], "relu", torch.float32)
+
+
+# K not a multiple of 64 and K < 64, N = 1, M = 1, M and N tails, K = 1
+MM_VARIANT_SHAPES = [(256, 128, 256), (200, 100, 136), (96, 40, 72),
+                     (130, 480, 1), (1, 320, 300), (129, 257, 3),
+                     (300, 1, 70), (333, 1000, 260)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", MM_VARIANT_SHAPES)
+@pytest.mark.parametrize("layout", ["fwd", "dgrad", "wgrad", "am_bk"])
+@pytest.mark.parametrize("variant", ["wgmma", "sm80"])
+def test_matmul_variants_match_plain_in_every_layout(cuda, M, K, N, layout,
+                                                     variant):
+    """Both variants of the bf16 kernel, through the private launcher, on
+    operands both take, in each (A, B) major pair: the rule, and both
+    planted faults refused."""
+    x, w, _ = _mm_aligned(M, K, N, layout, cuda, M + K + N, False)
+    _mm_check(x, w, None, "none", variant=variant)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", mmmod.ACTIVATIONS)
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("variant", ["wgmma", "sm80"])
+def test_matmul_variants_forward_epilogues(cuda, act, bias, variant):
+    x, w, b = _mm_aligned(300, 200, 264, "fwd", cuda, 11, bias)
+    _mm_check(x, w, b, act, variant=variant)
+    _mm_check(x, w, b, act, torch.float32, variant=variant)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout,bias,act", [("fwd", True, "gelu"),
+                                             ("dgrad", False, "none"),
+                                             ("wgrad", False, "none"),
+                                             ("am_bk", False, "none")])
+def test_matmul_split_k_is_deterministic_and_matches_unsplit(cuda, layout,
+                                                             bias, act):
+    """A few output tiles over a deep K: the plan splits K; the split
+    result is bit-identical across two runs, and it and the unsplit one
+    both meet the rule."""
+    x, w, b = _mm_aligned(300, 8192, 200, layout, cuda, 5, bias)
+    plan = mmmod._plan(x, w, b, act)
+    assert plan.variant == "wgmma" and plan.split > 1
+    fn = mmmod.matmul_bias_act_cuda
+    before = fn.split_launches
+    y1 = _mm_check(x, w, b, act)  # and its planted faults, split too
+    y2 = mmmod.matmul_bias_act_cuda(x, w, b, act)
+    assert fn.split_launches == before + 3 + (b is not None)
+    assert torch.equal(y1, y2)
+    before = fn.split_launches
+    y0 = mmmod._launch(x, w, b, act, split=1)
+    assert fn.split_launches == before
+    plain = mmmod._torch_matmul_bias_act(x, w, b, act)
+    truth = mmmod._torch_matmul_bias_act(
+        x.float(), w.float(), None if b is None else b.float(), act,
+        torch.float32)
+    assert _mm_rule(y0, plain, truth)[0]
+
+
+@pytest.mark.gpu
+def test_matmul_variant_counters(cuda):
+    """Each call counted once in ``.launches`` and once under its variant;
+    the wgmma variant refuses operands no tensor map describes."""
+    fn = mmmod.matmul_bias_act_cuda
+    names = ["launches", "wgmma_launches", "sm80_launches", "fp32_launches",
+             "split_launches"]
+
+    def counts():
+        return [getattr(fn, n) for n in names]
+
+    x, w, _ = _mm_aligned(64, 64, 64, "fwd", cuda, 1, False)
+    before = counts()
+    mmmod.matmul_bias_act_cuda(x, w)
+    mmmod.matmul_bias_act_cuda(x[:, 1:], w[1:])  # a base off 16 bytes
+    mmmod.matmul_bias_act_cuda(x.float(), w.float())
+    mmmod._launch(x, w, variant="sm80")
+    assert [a - c for a, c in zip(counts(), before)] == [4, 1, 2, 1, 0]
+    with pytest.raises(ValueError, match="tensor map"):
+        mmmod._launch(x[:, 1:], w[1:], variant="wgmma")
+    with pytest.raises(ValueError, match="split"):
+        mmmod._launch(x, w, split=2)  # one 64-deep K step
 
 
 @pytest.mark.gpu

@@ -9,6 +9,12 @@ reference does, so params agree bit for bit (0 of 5168 differ in these
 cases). Where the two frameworks' fp32 arithmetic (pow, division) differs
 in the last bit, a bf16 rounding could flip, so the test allows at most 1
 element in 1000 to differ, by at most one bf16 ulp.
+
+fp32 bit for bit: the port equals a numpy float32 replay of the
+reference's ``adam_math`` and per-tensor update, one operation at a time
+(numpy's float32 arithmetic and ``sqrt`` are IEEE, as XLA's are), in
+every element of params, m and v, so a square root or an operation order
+that is not the reference's cannot come back unnoticed.
 """
 
 import jax.numpy as jnp
@@ -55,13 +61,17 @@ def _run(dtype_j, dtype_t, steps=3, **kw):
     return pj, state, pt, topt
 
 
-@pytest.mark.parametrize("kw", [
+FP32_CASES = [
     dict(lr=1e-3),
     dict(lr=1e-3, weight_decay=0.1),
     dict(lr=1e-3, weight_decay=0.1, adam_w_mode=False),
     dict(lr=lambda c: 1e-3 * 0.5 ** c, betas=(0.8, 0.99), eps=1e-6),
     dict(lr=2e-3, bias_correction=False, weight_decay=0.01),
-], ids=["adam", "adamw", "l2", "schedule", "no_bias_correction"])
+]
+FP32_IDS = ["adam", "adamw", "l2", "schedule", "no_bias_correction"]
+
+
+@pytest.mark.parametrize("kw", FP32_CASES, ids=FP32_IDS)
 def test_fused_adam_fp32_matches_reference(kw):
     pj, state, pt, topt = _run(jnp.float32, torch.float32, **kw)
     assert int(state.count) == 3
@@ -76,6 +86,58 @@ def test_fused_adam_fp32_matches_reference(kw):
         np.testing.assert_allclose(st["exp_avg_sq"].numpy(),
                                    np.asarray(state.buffers["v"][k]),
                                    rtol=1e-6, atol=1e-12, err_msg=k)
+
+
+def _replay(steps=3, lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+            weight_decay=0.0, adam_w_mode=True, bias_correction=True):
+    """The reference's fp32 ``adam_math`` (``apex_tpu/optimizers/
+    fused_adam.py:39-54``) and per-tensor update (``_fused.py:124-128``,
+    then ``optax.apply_updates``) in numpy float32, one operation at a
+    time; Python-float constants rounded to float32 as JAX's weak types
+    are."""
+    f = np.float32
+    b1, b2 = betas
+    rng = np.random.default_rng(5)
+    p = {k: (rng.standard_normal(s) * 0.05).astype(f) for k, s in
+         SHAPES.items()}
+    m = {k: np.zeros(s, f) for k, s in SHAPES.items()}
+    v = {k: np.zeros(s, f) for k, s in SHAPES.items()}
+    for i in range(steps):
+        count = i + 1
+        step = f(count)
+        lr_t = f(lr(count - 1) if callable(lr) else lr)
+        for k, g in _grads(i).items():
+            if not adam_w_mode and weight_decay:
+                g = g + f(weight_decay) * p[k]
+            m[k] = f(b1) * m[k] + f(1.0 - b1) * g
+            v[k] = f(b2) * v[k] + f(1.0 - b2) * g * g
+            if bias_correction:
+                m_hat = m[k] / (f(1.0) - f(b1) ** step)
+                v_hat = v[k] / (f(1.0) - f(b2) ** step)
+            else:
+                m_hat, v_hat = m[k], v[k]
+            update = m_hat / (np.sqrt(v_hat) + f(eps))
+            if adam_w_mode and weight_decay:
+                update = update + f(weight_decay) * p[k]
+            new_p = p[k] - lr_t * update
+            p[k] = p[k] + (new_p - p[k])
+    return p, m, v
+
+
+@pytest.mark.parametrize("kw", FP32_CASES, ids=FP32_IDS)
+def test_fused_adam_fp32_bit_identical_to_float32_replay(kw):
+    """Every element of params, m and v equal to the replay's, bit for
+    bit."""
+    _, _, pt, topt = _run(jnp.float32, torch.float32, **kw)
+    p, m, v = _replay(**kw)
+    for k in SHAPES:
+        st = topt.state[pt[k]]
+        for name, got, want in (("p", pt[k].detach().numpy(), p[k]),
+                                ("m", st["exp_avg"].numpy(), m[k]),
+                                ("v", st["exp_avg_sq"].numpy(), v[k])):
+            assert got.dtype == want.dtype == np.float32
+            differ = int((got.view(np.int32) != want.view(np.int32)).sum())
+            assert differ == 0, f"{name}[{k}]: {differ} elements differ"
 
 
 @pytest.mark.parametrize("kw", [dict(lr=1e-3), dict(lr=1e-3,
