@@ -1,9 +1,11 @@
-// Hopper (sm_90a) building blocks of the port's kernels: TMA tensor maps,
-// 2-D tile loads and bulk stores, mbarriers and named barriers, the wgmma
-// shared-memory descriptor and the bf16 m64n128k16 wgmma with fp32
-// accumulators, and setmaxnreg. The
-// GEMM (matmul_bias_act.cu) is their first user; the flash kernels'
-// redesigns reuse them.
+// Hopper (sm_90a) building blocks of the port's kernels: TMA tensor maps
+// of rank 2 to 4, tile loads and bulk stores, mbarriers and named
+// barriers, the wgmma shared-memory descriptor and the bf16 wgmma with fp32
+// accumulators (m64n128k16 and m64n64k16 with both operands in shared
+// memory, with and without the accumulator's input; m64n64k16 and
+// m64n128k16 with A in registers), and setmaxnreg.
+// The GEMM (matmul_bias_act.cu) and the flash backward
+// (flash_attn_bwd.cu) use them.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle and
 // read by wgmma through a descriptor of the same swizzle, so neither side
@@ -61,30 +63,72 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A 2-D bf16 tensor map: `inner` elements along the contiguous axis,
-// `outer` rows `ld` elements apart, loaded in boxes of box_inner x
-// box_outer (box_inner * 2 <= 128 bytes: the 128-byte swizzle's span).
-// Elements past either extent read as zero. A row stride is only read
-// when there is a second row, so an operand of one row gets a valid one.
+// cuTensorMapEncodeTiled needs the device's context current on the
+// calling thread. A thread whose first CUDA call is an encode (an autograd
+// worker running a backward whose first op is a kernel of this library)
+// has none until a runtime call binds the primary context: make one, once
+// per thread.
+inline void bind_context() {
+  thread_local bool bound = false;
+  if (!bound) {
+    cudaFree(nullptr);
+    bound = true;
+  }
+}
+
+// A tensor map of rank `rank` (2-4) over `base` (16-byte aligned):
+// dims[0] elements along the contiguous axis, strides[i] the byte stride
+// of axis i + 1 (each a multiple of 16), loaded in boxes of box[0..rank)
+// (with the 128-byte swizzle, box[0] elements span at most 128 bytes).
+// Elements past an extent read as zero. An axis of extent 1 is never
+// stepped: its stride is replaced by one the encoder accepts, the largest
+// span of the others (so an operand of one row gets a valid row stride).
+inline bool make_tensor_map(CUtensorMap* map, CUtensorMapDataType dtype,
+                            int rank, const void* base,
+                            const long long* dims, const long long* strides,
+                            const int* box, CUtensorMapSwizzle swizzle) {
+  bind_context();
+  const EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr || rank < 2 || rank > 4 ||
+      reinterpret_cast<uintptr_t>(base) % 16)
+    return false;
+  const long long elem = dtype == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
+  cuuint64_t d[4], st[3];
+  cuuint32_t bx[4], el[4];
+  long long span = dims[0] * elem;  // bytes an extent-1 axis's stride takes
+  for (int i = 0; i < rank - 1; ++i)
+    if (dims[i + 1] > 1 && strides[i] * dims[i + 1] > span)
+      span = strides[i] * dims[i + 1];
+  for (int i = 0; i < rank; ++i) {
+    if (dims[i] < 1 || box[i] < 1 || box[i] > 256) return false;
+    d[i] = static_cast<cuuint64_t>(dims[i]);
+    bx[i] = static_cast<cuuint32_t>(box[i]);
+    el[i] = 1;
+    if (i + 1 < rank) {
+      const long long s = dims[i + 1] > 1 ? strides[i] : (span + 15) / 16 * 16;
+      if (s < 16 || s % 16) return false;
+      st[i] = static_cast<cuuint64_t>(s);
+    }
+  }
+  return encode(map, dtype, static_cast<cuuint32_t>(rank),
+                const_cast<void*>(base), d, st, bx, el,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 2-D bf16 tensor map with the 128-byte swizzle: `inner` elements along
+// the contiguous axis, `outer` rows `ld` elements apart, boxes of
+// box_inner x box_outer
 inline bool make_tensor_map_bf16(CUtensorMap* map, const void* base,
                                  long long inner, long long outer,
                                  long long ld, int box_inner,
                                  int box_outer) {
-  const EncodeTiledFn encode = encode_tiled_fn();
-  if (encode == nullptr || inner < 1 || outer < 1) return false;
-  const long long stride =
-      outer == 1 ? (inner * 2 + 15) / 16 * 16 : ld * 2;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
-                              static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(stride)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
-                             static_cast<cuuint32_t>(box_outer)};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const long long dims[2] = {inner, outer};
+  const long long strides[1] = {ld * 2};
+  const int box[2] = {box_inner, box_outer};
+  return make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, dims,
+                         strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // --- device: addresses, mbarriers, TMA ------------------------------------
@@ -149,6 +193,49 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c_inner), "r"(c_outer),
       "r"(bar)
       : "memory");
+}
+
+// box (c0, c1, c2) of a rank-3 map into shared memory at dst
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+// box (c0, c1, c2, c3) of a rank-4 map into shared memory at dst
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// 4-byte global -> shared copy; complete after cp_async_wait_all
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+// 8-byte global -> shared copy; complete after cp_async_wait_all
+__device__ __forceinline__ void cp_async_8(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // box (c_inner, c_outer) of `map` from shared memory at src, in this
@@ -216,14 +303,14 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// d (64 x 128, fp32, the warpgroup's fragment) += A (64 x 16) B (16 x
-// 128), both bf16 in shared memory; TA / TB: the operand is MN-major.
-// Fragment of d: warp w of the warpgroup holds rows 16w..16w+15; lane l,
-// with g = l / 4 and t = l % 4, holds d[4i], d[4i+1] at row g, columns
-// 8i + 2t, 8i + 2t + 1, and d[4i+2], d[4i+3] at row g + 8.
+// d (64 x 128, fp32, the warpgroup's fragment) = A (64 x 16) B (16 x 128)
+// [+ d when scale_d], both bf16 in shared memory; TA / TB: the operand is
+// MN-major. Fragment of d (any N): warp w of the warpgroup holds rows
+// 16w..16w+15; lane l, with g = l / 4 and t = l % 4, holds d[4i], d[4i+1]
+// at row g, columns 8i + 2t, 8i + 2t + 1, and d[4i+2], d[4i+3] at row g + 8.
 template <int TA, int TB>
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db) {
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
+                                                  uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -236,7 +323,8 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
       "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -252,7 +340,119 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (64 x 64, fp32, the warpgroup's fragment) = A (64 x 16) B (16 x 64)
+// [+ d when scale_d], both bf16 in shared memory; TA / TB: MN-major
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, bf16 from registers: the fragment
+// of a 64 x 16 slice of an m64nN accumulator, see wgmma_a_frag) B (16 x
+// 64, bf16 in shared memory); TB: B is MN-major
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}
+
+// d (64 x 128, fp32) += A (64 x 16, bf16 from registers: the fragment
+// of a 64 x 16 slice of an m64nN accumulator, see wgmma_a_frag) B (16 x
+// 128, bf16 in shared memory); TB: B is MN-major
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}
+
+
+// The A fragment (bf16 pairs) of the k-th 16-column slice of an m64nN
+// fp32 accumulator: a warp's 16 x 16 block in mma.sync's A layout, which
+// is what a register-A wgmma takes (rows g and g + 8, columns 2t and 2t +
+// 8 of the slice), so a product's result feeds the next product without
+// a shuffle.
+template <int N>
+__device__ __forceinline__ void wgmma_a_frag(uint32_t (&a)[4],
+                                             const float (&d)[N], int k) {
+  const __nv_bfloat162 v0 = __floats2bfloat162_rn(d[8 * k], d[8 * k + 1]);
+  const __nv_bfloat162 v1 = __floats2bfloat162_rn(d[8 * k + 2], d[8 * k + 3]);
+  const __nv_bfloat162 v2 = __floats2bfloat162_rn(d[8 * k + 4], d[8 * k + 5]);
+  const __nv_bfloat162 v3 = __floats2bfloat162_rn(d[8 * k + 6], d[8 * k + 7]);
+  a[0] = *reinterpret_cast<const uint32_t*>(&v0);
+  a[1] = *reinterpret_cast<const uint32_t*>(&v1);
+  a[2] = *reinterpret_cast<const uint32_t*>(&v2);
+  a[3] = *reinterpret_cast<const uint32_t*>(&v3);
 }
 
 // keep the compiler from moving reads or writes of the accumulators
@@ -262,6 +462,7 @@ __device__ __forceinline__ void fence_operand(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+
 
 // hand registers back to (dec) or take them from (inc) the SM's pool;
 // every warp of the warpgroup executes it

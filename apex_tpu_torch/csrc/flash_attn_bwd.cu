@@ -1,1024 +1,1081 @@
-// Flash-attention backward for Hopper (sm_90a): a dK/dV kernel and a dQ
-// kernel, over the packed q|k|v buffer of the GPT train step, the bh-flat
-// (b, h, s, d) views of the T5 train step and the seq-major (b, s, h, d)
-// q/k/v of the BERT train step; the dK/dV kernel also computes the
-// bucket-table gradient of the relative bias.
+// Flash-attention backward for Hopper (sm_90a): a dQ kernel and a dK/dV
+// kernel on wgmma and TMA, one body each for every layout the port has --
+// the packed q|k|v buffer of the GPT train step, the bh-flat (b, h, s, d)
+// views of the T5 train step and the seq-major (b, s, h, d) q/k/v of the
+// BERT train step -- with kv_lens, the bucketed relative bias (whose table
+// gradient the dK/dV kernel sums) and the array bias.
 //
 // Replaces apex_tpu/ops/pallas/attention.py::flash_bwd_packed (:592-775):
-// all three of its Pallas call sites -- the single-block body
-// _bwd_single_block_kernel (:536-589, call :642), which the reference runs
-// when the whole sequence is one block (s <= 1024 at its default blocks),
-// and the _bwd_dq_kernel / _bwd_dkv_kernel pair (:869-1018, calls :676 and
-// :710) for longer sequences. The three compute one function; a 1024 x
-// 1024 fp32 score tile is 4 MB, far over a block's 227 KB of shared
-// memory, so one tiled design serves every sequence length here. And
-// replaces ::flash_bwd (:1249-1411) of the bh-flat layout: its dQ (:1277)
-// and dK/dV (:1302) calls with kv_lens and the bucketed rel_bias, and
-// _dtable_pallas (:1212; body _bwd_dtable_kernel, :1114-1203), a third
-// pass that recomputes dS with both products per tile to sum it by bucket.
-// Here dS already sits in the dK/dV kernel's registers: the table
-// gradient costs no third pass and no extra launch. And replaces
-// ::flash_bwd_bshd (:1395-1530), its dQ (:1455) and dK/dV (:1486) calls,
-// with per-batch kv_lens and the array bias (whose gradient is
-// flash_attn_dbias.cu's); the reference's per-q-head fp32 dK/dV partials
-// summed outside (:1473-1511) are summed over the group in-kernel here.
+// its single-block body _bwd_single_block_kernel (call :642) and the
+// _bwd_dq_kernel / _bwd_dkv_kernel pair (:869-1018, calls :676 and :710);
+// ::flash_bwd (:1249-1411) of the bh-flat layout, its dQ (:1277) and dK/dV
+// (:1302) calls and _dtable_pallas (:1212, a third pass that recomputes dS
+// to sum it by bucket; here dS already sits in the dK/dV kernel's
+// registers); and ::flash_bwd_bshd (:1395-1530), its dQ (:1455) and dK/dV
+// (:1486) calls. The reference's per-q-head fp32 dK/dV partials summed
+// outside (:1473-1511) are summed over the group in-kernel here.
 //
-// Entries: apex_flash_bwd_dkv / apex_flash_bwd_dq (packed): qkv (b, s,
-// (h + 2*h_kv)*d), o and do (b, s, h*d), lse (b, h, s) -> dq (b, s, h*d),
-// dk and dv (b, s, h_kv*d). apex_flash_bwd_flat_dkv / _dq: q, k, v, o,
-// do, dq, dk and dv as (batch, head, row)-strided views
-// (flash_params.cuh), sq != sk with bottom-right causal alignment, and the
-// forward's compile-time options kVarlen, kRel and kArr (the array bias,
-// read from device memory per score), and kv_lens read at bi * lens_b +
-// hi * lens_h; the seq-major (b, s, h, d) tensors go through the same
-// entries as the flat layout's head-stride-d case with per-batch kv_lens
-// (lens_b = 1, lens_h = 0). All bf16 with fp32 lse.
-// The packed and the strided families are separate kernels of one design:
-// one templated body with the packed layout as a compile-time case ran the
-// packed pair slower on an H100 than these kernels do (timed in turns in
-// one call), where sharing the forward's body cost nothing once its
-// pointers and scalars were locals.
+// Layouts. Every operand is a (batch, head, row)-strided view with a unit
+// feature stride (flash_params.cuh). The layout lives only in the host's
+// tensor maps: one 4-D TMA map (d, row, head, batch) per q, k, v and do,
+// from those strides, loaded in 64-row x 64-feature boxes with the
+// 128-byte swizzle (d 128 is two boxes). The packed buffer is the map over
+// its three sections (head stride d, row stride (h + 2*h_kv)*d), a
+// seq-major tensor the head-stride-d case. A map's row extent is sq or sk,
+// so TMA reads zeros past the end of a head (T5's 114, any tail) and
+// never the next head's rows.
+//
+// Call order: dQ first. It is the only pass that reads O: it writes delta
+// = rowsum(do * o) in fp32 ((b*h, sq), beside dq), and dK/dV reads delta.
 //
 // Bound on this card at the GPT train step's shape (b 20, s 1024, h 8,
-// d 128, causal): operations. The backward does 2.5x the forward's products
-// (dV, dP, dK and dQ, plus the recomputed QK^T): ~107 GFLOP per layer,
-// ~108 us at 989 TFLOP/s; this design recomputes QK^T and dP once in each
-// kernel, 3.5x the forward's products, for no atomics and no fp32 dq
-// round trip through device memory.
+// d 128, causal): operations. The backward needs QK^T, dP, dV, dK and dQ
+// once per causal pair (10d operations); this pair recomputes QK^T and dP
+// in each kernel (14d), for no atomics and no fp32 dq round trip through
+// device memory.
 //
-// Design, simple and right first:
-// * dK/dV: one CTA of 4 warps per (b*h_kv, 64-row kv tile); each warp owns
-//   16 kv rows. It walks EVERY query head of its kv group whose kv length
-//   reaches the tile, and every 32-row query tile from the causal diagonal
-//   down, double-buffering q and do tiles by cp.async. Per tile it
-//   recomputes S^T = K Q^T on the tensor cores, p = exp(s*scale [+ bias] -
-//   lse), delta = rowsum(do * o) in fp32 (read here, as :574-575 does: no
-//   prologue pass), then dV += p.to(bf16)^T do, dP^T = V do^T, dS =
-//   (p * (dP - delta) * scale).to(bf16), dK += dS^T q. dK and dV of the
-//   whole group accumulate in fp32 registers and are cast once --
-//   _group_sum's rule, fp32 before the cross-head sum (:317-324, :631,
-//   :657-659). A kv tile no query head reaches writes zeros.
-// * the table gradient (kRel): each warp stores its 16 x 32 tile of the
-//   UNSCALED fp32 dS (the bias enters after the scale, :346-353) in shared
-//   memory; lane L sums the tile's diagonals L - 31 and L + 1 (one offset
-//   each); the sums go to per-CTA bins of the clamped offset (shared
-//   atomics, distinct bins within a warp; the two clamped end bins are
-//   summed over the warp first). When the CTA is done with a head, its
-//   bins are folded into buckets through `bucket` and each nonzero bucket
-//   is added to dtab[head % hb][bucket] with one fp32 atomicAdd.
-// * dQ: one CTA per (b*h, 64-row query tile), walking kv tiles up to the
-//   diagonal and the row's kv length: S, p, dP = do V^T, dS as above,
-//   dQ += dS K; its own delta.
-// * masks: a score takes part iff its query row < sq, its key column <
-//   sk and < the row's kv length, and (causal) column <= row + sk - sq;
-//   other entries get p = 0, which is the reference's exp(-1e30 - lse).
-// Known weaknesses, for a later change: mma.sync instead of wgmma/TMA; K,
-// V, q and do fragments are re-read from shared memory for every product.
+// Design (tiles chosen for the registers and the 227 KB of shared memory
+// at d 128, and for as much MMA work per barrier at d 64; DkvCfg, DqCfg):
+// * Both kernels: 384 threads, warpgroup 0 the producer (warp 0 issues
+//   the TMA loads and stages lse and delta; all four copy a bias that no
+//   tensor map describes; the warpgroup hands its registers to the
+//   consumers by setmaxnreg), two consumer warpgroups of 64 rows each. A
+//   ring of 3 stages (2 where a bias block or the table's dS tiles take
+//   the room), each with a full and an empty mbarrier.
+// * dK/dV: one CTA per (b*h_kv, 128-row kv tile), CTAs kv head by kv head
+//   (those in flight share their heads' Q and dO in the L2: 7% faster at
+//   GPT's call than kv-tile-major) and within a head in kv-tile order
+//   (causal: the longest first). K and V are loaded once. The ring holds
+//   (Q, dO, lse, delta [, bias]) over the query tiles (128 rows at d 64,
+//   64 at d 128 and with the array bias) the mask lets reach the tile --
+//   from the causal diagonal down -- for each query head of the kv group
+//   whose kv length reaches it. Per stage and warpgroup: S^T = K Q^T and
+//   dP^T = V dO^T (wgmma, both operands from shared memory, K-major),
+//   P^T = exp2(S^T scale log2 e [+ bias^T log2 e] - lse log2 e) and the
+//   unscaled dS^T = P^T (dP^T - delta) in registers (a stage wholly inside
+//   the masks skips them), then dV += P^T dO and dK += dS^T scale Q (wgmma
+//   with A from registers -- the accumulators of the first two products
+//   rounded to bf16 are that A fragment, no shuffle -- and B MN-major
+//   through the transpose bit). dK and dV of the whole kv group stay in
+//   fp32 registers with one cast at the end (the reference's _group_sum
+//   rule); a kv tile no query head reaches writes zeros. A warpgroup
+//   skips a stage its rows cannot see (causal, kv_len).
+// * dQ: one CTA per (b*h, 128-row query tile), head by head (sharing K and
+//   V in the L2), within a head the last query tiles first (causal: the
+//   longest). Q and dO are loaded once; the ring holds (K, V
+//   [, bias]) in kv tiles (128 rows at d 64, 64 at d 128) up to the causal
+//   diagonal and the row's kv length. S = Q K^T and dP = dO V^T from
+//   shared memory, dS in registers, dQ += dS K (A from registers, K
+//   MN-major).
+// * The array bias (kArr) is staged per stage in shared memory: the fp32
+//   (bias row r % hb, query tile, kv tile) block in 64 x 32 boxes with the
+//   128-byte swizzle, by TMA when a map describes it (sk a multiple of 4
+//   and a 16-byte aligned base), else by 8- or 4-byte cp.async of the
+//   producer warpgroup into the same layout (T5's decoder: sk 114, rows of
+//   456 bytes). The consumers read it in the accumulator's fragment layout
+//   (the swizzle puts the dK/dV kernel's reads in 32 distinct banks); no
+//   score reads L2.
+// * The bucketed bias (kRel): its lookup in shared memory (where it fits;
+//   else read through the L1), read per score through the clamped offset,
+//   or -- in a stage where no offset clamps -- at compile-time distances
+//   from a per-thread base, or as one value where all clamp to one end.
+//   The table gradient: each warp stages its 16 x kBq tile of
+//   the UNSCALED fp32 dS^T from the wgmma accumulator in shared memory;
+//   lane L sums the tile's diagonals L + 1 - kBq + 32 j and L + 1 into the
+//   CTA's bins of their clamped offsets (distinct within a warp but for
+//   the two clamped ends, summed over the warp first); a stage whose
+//   offsets all clamp to one end skips the tile and sums into one bin.
+//   When the CTA is done with a head, its bins are folded into buckets
+//   through `bucket` and added to dtab[head % hb] with one fp32 atomicAdd
+//   per bucket.
+// * masks: a score takes part iff its query row < sq, its key column < sk
+//   and < the row's kv length, and (causal) column <= row + sk - sq; other
+//   entries get p = 0 by a select (rows past sq included: TMA filled them
+//   with zeros and their lse is not a row's). A fully masked tile is
+//   never loaded.
+// * Determinism: dq, dk and dv use no atomics and are bit-identical from
+//   run to run; the table gradient keeps its fp32 atomics.
+//
+// Entries: apex_flash_bwd_dq and apex_flash_bwd_dkv, variant 1 (this
+// file's kernels) or 0 (flash_attn_bwd_sm80.cu's mma.sync pair, which
+// reads O in both kernels and ignores delta).
 #include <cstdint>
+#include <type_traits>
 
 #include "apex_cuda.cuh"
 #include "apex_mma.cuh"
+#include "apex_sm90.cuh"
 #include "flash_params.cuh"
+
+namespace apex {
+namespace flash_bwd_sm80 {
+int run_dkv(int d, const FlashParams& p, int b, void* stream);
+int run_dq(int d, const FlashParams& p, int b, void* stream);
+}  // namespace flash_bwd_sm80
+}  // namespace apex
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 using apex::FlashParams;
+using namespace apex::sm90;
 
-constexpr int kThreads = 128;  // 4 warps x 16 rows
-constexpr int kBkv = 64;       // dK/dV kernel: kv rows per CTA
-constexpr int kBqStep = 32;    // dK/dV kernel: query rows per step
-constexpr int kBq = 64;        // dQ kernel: query rows per CTA
-constexpr int kBk = 64;        // dQ kernel: kv rows per step
-constexpr int kDsLd = kBqStep + 1;  // flat dK/dV kRel: dS tile row pitch
+constexpr int kThreads = 384;  // warpgroup 0 produces, 1 and 2 consume
+constexpr int kBkv = 128;      // dK/dV: kv rows per CTA (64 per warpgroup)
+constexpr int kBqCta = 128;    // dQ: query rows per CTA (64 per warpgroup)
+constexpr int kBox = 64 * 64 * 2;      // a 64-row x 64-feature bf16 box
+constexpr int kBiasBox = 64 * 32 * 4;  // a 64-row x 32-column fp32 box
 constexpr int kMaxBuckets = 128;
+constexpr int kMaxDist = 4096;
+constexpr float kLog2e = 1.4426950408889634f;
 
-size_t align16(size_t n) { return (n + 15) & ~static_cast<size_t>(15); }
+enum BiasKind : int { kNone = 0, kRel = 1, kArr = 2 };
 
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return static_cast<size_t>(2 * kBkv + 4 * kBqStep) * (D + 8) * sizeof(bf16) +
-         2 * kBqStep * sizeof(float);
+// The dK/dV kernel's tiles and shared memory. Query rows per stage: 128
+// at d 64, 64 at d 128 -- the most the registers hold (S^T and dP^T of 64
+// x kBq each, dK and dV of 64 x d, all fp32: 192 a thread either way), so
+// a d-64 stage does as much MMA work per barrier as a d-128 one; 64 with
+// the array bias at d 64 too (two 128 x 128 fp32 bias blocks and their
+// operands overflow the 227 KB). Stages: 3, or 2 where the bias block
+// (d 128) or the table's dS tiles take the room. Layout: K and V (128
+// rows each), the ring of (Q, dO [, bias]), each stage's lse and delta,
+// the barriers, then (kRel) the warps' dS tiles, the offset bins and the
+// bucket sums.
+template <int D, int BIAS>
+struct DkvCfg {
+  static constexpr int kBq = D == 64 && BIAS != kArr ? 128 : 64;
+  static constexpr int kStages =
+      BIAS == kRel || (BIAS == kArr && D == 128) ? 2 : 3;
+  static constexpr int kKv = D / 64 * 2 * kBox;
+  static constexpr int kQ = D / 64 * (kBq / 64) * kBox;
+  static constexpr int kBias = BIAS == kArr ? kBq * kBkv * 4 : 0;
+  static constexpr int kStage = 2 * kQ + kBias;
+  static constexpr int kRing = 2 * kKv;
+  static constexpr int kStats = kRing + kStages * kStage;
+  static constexpr int kBars = kStats + kStages * 2 * kBq * 4;
+  // a warp's 16 x kBq dS tile: row pitch 8 mod 32 words, so the float2
+  // stores of a half-warp and the diagonal reads hit distinct banks
+  static constexpr int kDsLd = kBq + 8;
+  static constexpr int kDs = kBars + 64;
+  static constexpr int kBins = kDs + (BIAS == kRel ? 8 * 16 * kDsLd * 4 : 0);
+  // the lookup and the offsets' buckets too, after the bins and bucket
+  // sums, where they fit (else both are read from device memory)
+  static constexpr int kRoom = 232448 - 1024 - kBins - 4 * kMaxBuckets;
+  __host__ __device__ static bool tables_in_smem(int nbins) {
+    return BIAS == kRel && 12 * nbins <= kRoom;
+  }
+  static size_t bytes(int nbins) {
+    return 1024 + kBins +
+           (BIAS == kRel ? 4 * (nbins + kMaxBuckets) +
+                               (tables_in_smem(nbins) ? 8 * nbins : 0)
+                         : 0);
+  }
+};
+
+// The dQ kernel's: kv rows per stage 128 at d 64, 64 at d 128 (S and dP
+// of 64 x kBk, dQ of 64 x d); 3 stages, 2 with the bias block. Layout: Q
+// and dO (128 rows each), the ring of (K, V [, bias]), the CTA's delta,
+// the barriers, then (kRel) the lookup.
+template <int D, int BIAS>
+struct DqCfg {
+  static constexpr int kBk = D == 64 ? 128 : 64;
+  static constexpr int kStages = BIAS == kArr ? 2 : 3;
+  static constexpr int kQ = D / 64 * 2 * kBox;
+  static constexpr int kK = D / 64 * (kBk / 64) * kBox;
+  static constexpr int kBias = BIAS == kArr ? kBqCta * kBk * 4 : 0;
+  static constexpr int kStage = 2 * kK + kBias;
+  static constexpr int kRing = 2 * kQ;
+  static constexpr int kDelta = kRing + kStages * kStage;
+  static constexpr int kBars = kDelta + kBqCta * 4;
+  static constexpr int kLut = kBars + 64;
+  static size_t bytes(int nlut) {
+    return 1024 + kLut + (BIAS == kRel ? 4 * nlut : 0);
+  }
+};
+
+// element (row, col) of a staged fp32 bias block: 64 x 32 boxes, COLS / 32
+// of them across, each 64 rows of 128 bytes with 16-byte chunk c of row r
+// at c ^ (r % 8) (TMA's 128-byte swizzle)
+template <int COLS>
+__device__ __forceinline__ int bias_offset(int row, int col) {
+  const int box = (row >> 6) * (COLS / 32) + (col >> 5);
+  const int r = row & 63, c = col & 31;
+  return box * (kBiasBox / 4) + r * 32 +
+         ((((c >> 2) ^ (r & 7)) << 2) | (c & 3));
 }
 
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return static_cast<size_t>(2 * kBq + 4 * kBk) * (D + 8) * sizeof(bf16) +
-         2 * kBq * sizeof(float);
+// the TMA boxes of a ROWS x COLS bias block (query rows from q0, key
+// columns from c0 of bias row `brow`) into the staged layout, counted on
+// `bar`; one thread
+template <int ROWS, int COLS>
+__device__ __forceinline__ void stage_bias_tma(uint32_t dst,
+                                               const CUtensorMap* tm,
+                                               int brow, int q0, int c0,
+                                               uint32_t bar) {
+  for (int i = 0; i < ROWS / 64; ++i)
+    for (int j = 0; j < COLS / 32; ++j)
+      tma_load_3d(dst + (i * (COLS / 32) + j) * kBiasBox, tm, c0 + 32 * j,
+                  q0 + 64 * i, brow, bar);
 }
 
-using apex::row_delta;
-
-// --- the packed kernels -------------------------------------------------------
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const bf16* __restrict__ qkv,
-                         const bf16* __restrict__ o,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, int s, int h, int h_kv,
-                         int causal, float scale) {
-  constexpr int kLd = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);
-  bf16* v_s = k_s + kBkv * kLd;
-  bf16* q_s = v_s + kBkv * kLd;          // [2][kBqStep][kLd]
-  bf16* do_s = q_s + 2 * kBqStep * kLd;  // [2][kBqStep][kLd]
-  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kBqStep * kLd);
-  float* delta_s = lse_s + kBqStep;
-
-  const int group = h / h_kv;
-  const int bi = blockIdx.x / h_kv;
-  const int kvh = blockIdx.x - bi * h_kv;
-  const int k0 = blockIdx.y * kBkv;
-  const size_t feat = static_cast<size_t>(h + 2 * h_kv) * D;
-  const int hd = h * D;
-  const bf16* base = qkv + static_cast<size_t>(bi) * s * feat;
-  const bf16* obase = o + static_cast<size_t>(bi) * s * hd;
-  const bf16* dobase = dout + static_cast<size_t>(bi) * s * hd;
-
-  // query tiles from the diagonal down, for each head of the group
-  const int qt0 = causal ? k0 / kBqStep : 0;
-  const int per = (s + kBqStep - 1) / kBqStep - qt0;
-  const int total = group * per;
-  auto tile_head = [&](int it) { return kvh * group + it / per; };
-  auto tile_q0 = [&](int it) { return (qt0 + it % per) * kBqStep; };
-
-  apex::load_rows<D, kBkv, kThreads>(k_s, base + (h + kvh) * D, feat, k0, s);
-  apex::load_rows<D, kBkv, kThreads>(v_s, base + (h + h_kv + kvh) * D, feat,
-                                     k0, s);
-  apex::load_rows<D, kBqStep, kThreads>(q_s, base + tile_head(0) * D, feat,
-                                        tile_q0(0), s);
-  apex::load_rows<D, kBqStep, kThreads>(do_s, dobase + tile_head(0) * D, hd,
-                                        tile_q0(0), s);
-  apex::cp_async_commit();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int wrow = warp * 16 + g;  // this thread's kv rows: wrow, wrow + 8
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-
-  for (int it = 0; it < total; ++it) {
-    const int buf = it & 1;
-    const int head = tile_head(it);
-    const int q0 = tile_q0(it);
-    if (it + 1 < total) {
-      const int nh = tile_head(it + 1);
-      const int nq0 = tile_q0(it + 1);
-      apex::load_rows<D, kBqStep, kThreads>(q_s + (buf ^ 1) * kBqStep * kLd,
-                                            base + nh * D, feat, nq0, s);
-      apex::load_rows<D, kBqStep, kThreads>(do_s + (buf ^ 1) * kBqStep * kLd,
-                                            dobase + nh * D, hd, nq0, s);
-      apex::cp_async_commit();
-    }
-    {  // delta and lse of this tile's rows: 4 threads per row
-      const int r = threadIdx.x >> 2;
-      const int part = threadIdx.x & 3;
-      const int qr = q0 + r;
-      const size_t off = static_cast<size_t>(qr < s ? qr : 0) * hd + head * D;
-      const float dl = row_delta<D, 4>(dobase + off, obase + off, part);
-      if (part == 0) {
-        delta_s[r] = qr < s ? dl : 0.f;
-        lse_s[r] = qr < s ? lse[(static_cast<size_t>(bi) * h + head) * s + qr]
-                          : 0.f;
-      }
-    }
-    if (it + 1 < total)
-      apex::cp_async_wait<1>();
+// the same block for a bias no tensor map describes, by cp.async of the
+// producer warpgroup's 128 threads: 8 bytes (two columns) where the
+// rows' starts allow it, else 4; complete when this returns. Only the
+// entries inside (sq, sk) are copied: the consumers mask the others out
+// by a select, whatever the staged value
+template <int ROWS, int COLS>
+__device__ __forceinline__ void stage_bias_copy(uint32_t dst,
+                                                const float* bias, int brow,
+                                                int q0, int c0, int sq,
+                                                int sk, int tid) {
+  const float* base = bias + static_cast<size_t>(brow) * sq * sk;
+  const int rows = min(ROWS, sq - q0), cols = min(COLS, sk - c0);
+  const bool pairs =
+      (sk & 1) == 0 && (reinterpret_cast<uintptr_t>(bias) & 7) == 0;
+  const int per_row = pairs ? (cols + 1) / 2 : cols;
+  for (int e = tid; e < rows * per_row; e += 128) {
+    const int r = e / per_row;
+    const int c = pairs ? 2 * (e - r * per_row) : e - r * per_row;
+    const float* src = base + static_cast<size_t>(q0 + r) * sk + c0 + c;
+    const uint32_t at = dst + 4 * bias_offset<COLS>(r, c);
+    if (pairs && c + 1 < cols)
+      cp_async_8(at, src);
     else
-      apex::cp_async_wait<0>();
-    __syncthreads();
-    const bf16* qb = q_s + buf * kBqStep * kLd;
-    const bf16* dob = do_s + buf * kBqStep * kLd;
-
-    // S^T = K Q^T and dP^T = V do^T: 16 kv rows x 32 query columns per warp
-    float st[kBqStep / 8][4], dpt[kBqStep / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBqStep / 8; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) st[nt][c] = dpt[nt][c] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const bf16* kp = k_s + wrow * kLd + kk * 16 + 2 * t;
-      const bf16* vp = v_s + wrow * kLd + kk * 16 + 2 * t;
-      const uint32_t ka[4] = {apex::lds32(kp), apex::lds32(kp + 8 * kLd),
-                              apex::lds32(kp + 8),
-                              apex::lds32(kp + 8 * kLd + 8)};
-      const uint32_t va[4] = {apex::lds32(vp), apex::lds32(vp + 8 * kLd),
-                              apex::lds32(vp + 8),
-                              apex::lds32(vp + 8 * kLd + 8)};
-#pragma unroll
-      for (int nt = 0; nt < kBqStep / 8; ++nt) {
-        const bf16* qp = qb + (nt * 8 + g) * kLd + kk * 16 + 2 * t;
-        const bf16* dp = dob + (nt * 8 + g) * kLd + kk * 16 + 2 * t;
-        apex::mma_bf16(st[nt], ka, apex::lds32(qp), apex::lds32(qp + 8));
-        apex::mma_bf16(dpt[nt], va, apex::lds32(dp), apex::lds32(dp + 8));
-      }
-    }
-
-    // p = exp(s*scale - lse) on live entries, 0 elsewhere; then dS
-#pragma unroll
-    for (int nt = 0; nt < kBqStep / 8; ++nt) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kr = k0 + wrow + (c >> 1) * 8;
-        const int ql = nt * 8 + 2 * t + (c & 1);
-        const int qc = q0 + ql;
-        const bool ok = qc < s && kr < s && (!causal || kr <= qc);
-        const float p = ok ? expf(st[nt][c] * scale - lse_s[ql]) : 0.f;
-        st[nt][c] = p;
-        dpt[nt][c] = p * (dpt[nt][c] - delta_s[ql]) * scale;
-      }
-    }
-
-    // dV += P^T do and dK += dS^T q: A from registers, B (do, q) by
-    // transposed ldmatrix
-#pragma unroll
-    for (int kk = 0; kk < kBqStep / 16; ++kk) {
-      const uint32_t pa[4] = {
-          apex::pack_bf16(st[2 * kk][0], st[2 * kk][1]),
-          apex::pack_bf16(st[2 * kk][2], st[2 * kk][3]),
-          apex::pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-          apex::pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-      const uint32_t da[4] = {
-          apex::pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
-          apex::pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
-          apex::pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
-          apex::pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
-      const int lrow = (kk * 16 + (lane & 15)) * kLd + (lane >> 4) * 8;
-#pragma unroll
-      for (int dt = 0; dt < D / 8; dt += 2) {
-        uint32_t b[4];
-        apex::ldmatrix_x4_trans(b, dob + lrow + dt * 8);
-        apex::mma_bf16(dv_acc[dt], pa, b[0], b[1]);
-        apex::mma_bf16(dv_acc[dt + 1], pa, b[2], b[3]);
-        apex::ldmatrix_x4_trans(b, qb + lrow + dt * 8);
-        apex::mma_bf16(dk_acc[dt], da, b[0], b[1]);
-        apex::mma_bf16(dk_acc[dt + 1], da, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // the next copy reuses this buffer; lse_s/delta_s too
+      cp_async_4(at, src);
   }
-
-  const int kvd = h_kv * D;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int kr = k0 + wrow + i * 8;
-    if (kr >= s) continue;
-    const size_t off = (static_cast<size_t>(bi) * s + kr) * kvd + kvh * D;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(dk + off + dt * 8 + 2 * t) =
-          apex::pack_bf16(dk_acc[dt][2 * i], dk_acc[dt][2 * i + 1]);
-      *reinterpret_cast<uint32_t*>(dv + off + dt * 8 + 2 * t) =
-          apex::pack_bf16(dv_acc[dt][2 * i], dv_acc[dt][2 * i + 1]);
-    }
-  }
+  cp_async_wait_all();
 }
 
+// rows x D bf16 at (row0, head, batch) of a (d, row, head, batch) map, in
+// 64 x 64 boxes: D / 64 column blocks of `rows` rows (128 bytes a row)
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const bf16* __restrict__ qkv,
-                        const bf16* __restrict__ o,
-                        const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, bf16* __restrict__ dq,
-                        int s, int h, int h_kv, int causal, float scale) {
-  constexpr int kLd = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* do_s = q_s + kBq * kLd;
-  bf16* k_s = do_s + kBq * kLd;     // [2][kBk][kLd]
-  bf16* v_s = k_s + 2 * kBk * kLd;  // [2][kBk][kLd]
-  float* lse_s = reinterpret_cast<float*>(v_s + 2 * kBk * kLd);
-  float* delta_s = lse_s + kBq;
-
-  const int bi = blockIdx.x / h;
-  const int head = blockIdx.x - bi * h;
-  const int kvh = head / (h / h_kv);
-  const int q0 = blockIdx.y * kBq;
-  const size_t feat = static_cast<size_t>(h + 2 * h_kv) * D;
-  const int hd = h * D;
-  const bf16* base = qkv + static_cast<size_t>(bi) * s * feat;
-  const bf16* kg = base + (h + kvh) * D;
-  const bf16* vg = base + (h + h_kv + kvh) * D;
-  const bf16* obase = o + static_cast<size_t>(bi) * s * hd + head * D;
-  const bf16* dobase = dout + static_cast<size_t>(bi) * s * hd + head * D;
-
-  const int kv_end = causal ? min(s, q0 + kBq) : s;
-  const int nk = (kv_end + kBk - 1) / kBk;
-
-  apex::load_rows<D, kBq, kThreads>(q_s, base + head * D, feat, q0, s);
-  apex::load_rows<D, kBq, kThreads>(do_s, dobase, hd, q0, s);
-  apex::load_rows<D, kBk, kThreads>(k_s, kg, feat, 0, s);
-  apex::load_rows<D, kBk, kThreads>(v_s, vg, feat, 0, s);
-  apex::cp_async_commit();
-  {  // delta and lse of the tile's rows: 2 threads per row
-    const int r = threadIdx.x >> 1;
-    const int part = threadIdx.x & 1;
-    const int qr = q0 + r;
-    const size_t off = static_cast<size_t>(qr < s ? qr : 0) * hd;
-    const float dl = row_delta<D, 2>(dobase + off, obase + off, part);
-    if (part == 0) {
-      delta_s[r] = qr < s ? dl : 0.f;
-      lse_s[r] =
-          qr < s ? lse[(static_cast<size_t>(bi) * h + head) * s + qr] : 0.f;
-    }
-  }
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int wrow = warp * 16 + g;  // this thread's query rows: wrow, wrow + 8
-
-  float dq_acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dq_acc[i][c] = 0.f;
-
-  for (int j = 0; j < nk; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < nk) {
-      apex::load_rows<D, kBk, kThreads>(k_s + (buf ^ 1) * kBk * kLd, kg, feat,
-                                        (j + 1) * kBk, s);
-      apex::load_rows<D, kBk, kThreads>(v_s + (buf ^ 1) * kBk * kLd, vg, feat,
-                                        (j + 1) * kBk, s);
-      apex::cp_async_commit();
-      apex::cp_async_wait<1>();
-    } else {
-      apex::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* kb = k_s + buf * kBk * kLd;
-    const bf16* vb = v_s + buf * kBk * kLd;
-
-    // S = Q K^T and dP = do V^T: 16 query rows x 64 kv columns per warp
-    float sc[kBk / 8][4], dp[kBk / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBk / 8; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) sc[nt][c] = dp[nt][c] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const bf16* qp = q_s + wrow * kLd + kk * 16 + 2 * t;
-      const bf16* op = do_s + wrow * kLd + kk * 16 + 2 * t;
-      const uint32_t qa[4] = {apex::lds32(qp), apex::lds32(qp + 8 * kLd),
-                              apex::lds32(qp + 8),
-                              apex::lds32(qp + 8 * kLd + 8)};
-      const uint32_t oa[4] = {apex::lds32(op), apex::lds32(op + 8 * kLd),
-                              apex::lds32(op + 8),
-                              apex::lds32(op + 8 * kLd + 8)};
-#pragma unroll
-      for (int nt = 0; nt < kBk / 8; ++nt) {
-        const bf16* kp = kb + (nt * 8 + g) * kLd + kk * 16 + 2 * t;
-        const bf16* vp = vb + (nt * 8 + g) * kLd + kk * 16 + 2 * t;
-        apex::mma_bf16(sc[nt], qa, apex::lds32(kp), apex::lds32(kp + 8));
-        apex::mma_bf16(dp[nt], oa, apex::lds32(vp), apex::lds32(vp + 8));
-      }
-    }
-
-    const int k0 = j * kBk;
-#pragma unroll
-    for (int nt = 0; nt < kBk / 8; ++nt) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int rl = wrow + (c >> 1) * 8;
-        const int qr = q0 + rl;
-        const int kc = k0 + nt * 8 + 2 * t + (c & 1);
-        const bool ok = qr < s && kc < s && (!causal || kc <= qr);
-        const float p = ok ? expf(sc[nt][c] * scale - lse_s[rl]) : 0.f;
-        dp[nt][c] = p * (dp[nt][c] - delta_s[rl]) * scale;
-      }
-    }
-
-    // dQ += dS K: A = dS rounded to bf16, B (K) by transposed ldmatrix
-#pragma unroll
-    for (int kk = 0; kk < kBk / 16; ++kk) {
-      const uint32_t a[4] = {
-          apex::pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
-          apex::pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-          apex::pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-          apex::pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < D / 8; dt += 2) {
-        uint32_t b[4];
-        apex::ldmatrix_x4_trans(
-            b, kb + (kk * 16 + (lane & 15)) * kLd + dt * 8 + (lane >> 4) * 8);
-        apex::mma_bf16(dq_acc[dt], a, b[0], b[1]);
-        apex::mma_bf16(dq_acc[dt + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // the next iteration's copy reuses this buffer
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qr = q0 + wrow + i * 8;
-    if (qr >= s) continue;
-    bf16* row = dq + (static_cast<size_t>(bi) * s + qr) * hd + head * D;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
-      *reinterpret_cast<uint32_t*>(row + dt * 8 + 2 * t) =
-          apex::pack_bf16(dq_acc[dt][2 * i], dq_acc[dt][2 * i + 1]);
-  }
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* tm,
+                                          int rows, int row0, int head,
+                                          int bi, uint32_t bar) {
+  for (int c = 0; c < D / 64; ++c)
+    for (int i = 0; i < rows / 64; ++i)
+      tma_load_4d(dst + c * rows * 128 + i * kBox, tm, c * 64, row0 + 64 * i,
+                  head, bi, bar);
 }
 
-template <int D>
-cudaError_t launch_dkv(const void* qkv, const void* o, const void* dout,
-                       const void* lse, void* dk, void* dv, int b, int s,
-                       int h, int h_kv, int causal, float scale,
-                       cudaStream_t stream) {
-  const size_t smem = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(b * h_kv, (s + kBkv - 1) / kBkv);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(o),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), s, h, h_kv, causal,
-      scale);
-  return cudaGetLastError();
+// K-major operand of `rows` rows in 64-feature column blocks: the
+// descriptor of its k-th 16-deep slice, `row0` rows in (a multiple of 8)
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int rows, int k,
+                                           int row0) {
+  return wgmma_desc(tile + (k >> 2) * rows * 128 + row0 * 128 + (k & 3) * 32,
+                    16, 1024);
 }
 
-template <int D>
-cudaError_t launch_dq(const void* qkv, const void* o, const void* dout,
-                      const void* lse, void* dq, int b, int s, int h,
-                      int h_kv, int causal, float scale,
-                      cudaStream_t stream) {
-  const size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(b * h, (s + kBq - 1) / kBq);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(o),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<bf16*>(dq), s, h, h_kv, causal, scale);
-  return cudaGetLastError();
+// MN-major operand (its K rows contiguous, 128 bytes each; the N features
+// in 64-wide column blocks `lbo` bytes apart): the descriptor of its k-th
+// 16-deep slice
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int k,
+                                            uint32_t lbo) {
+  return wgmma_desc(tile + k * 2048, lbo, 1024);
 }
 
-bool bad_shape(int b, int s, int h, int h_kv, int d) {
-  return b < 1 || s < 1 || h < 1 || h_kv < 1 || h % h_kv ||
-         (d != 64 && d != 128) || (s + kBqStep - 1) / kBqStep > 65535;
+// how a stage reads the bucketed bias's lookup: per score through the
+// clamped offset; one value (every offset clamps to one end); or, where no
+// offset clamps, at a fixed distance from a per-thread row of it
+template <int M>
+using LutMode = std::integral_constant<int, M>;
+constexpr int kLutClamp = 0, kLutOne = 1, kLutRow = 2;
+
+// 2^x (the MUFU's approximation, relative error ~2^-22)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// --- the bh-flat kernels: strided operands, kVarlen, kRel ------------------
-
-// Fold a head's offset bins into its buckets and add each nonzero bucket
-// to dtab[row % hb] with one atomic. Call after a __syncthreads() that
-// follows the last bin update; leaves the bins zeroed.
-__device__ void flush_bins(const FlashParams& p, float* bins, float* bsum,
-                           int row) {
-  const int n = 2 * p.maxd + 1;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const float x = bins[i];
-    if (x != 0.f) atomicAdd(&bsum[p.bucket[i]], x);
-    bins[i] = 0.f;
-  }
-  __syncthreads();
-  float* dst = p.dtab + static_cast<size_t>(row % p.hb) * p.nb;
-  for (int i = threadIdx.x; i < p.nb; i += kThreads) {
-    const float x = bsum[i];
-    if (x != 0.f) atomicAdd(&dst[i], x);
-    bsum[i] = 0.f;
-  }
+template <int N>
+__device__ __forceinline__ void zero(float (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) a[i] = 0.f;
 }
 
-template <int D, bool kVarlen, bool kRel, bool kArr>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_flat_dkv_kernel(const FlashParams p) {
-  const long long q_h = p.q_v.h, kv_b = p.kv_v.b, kv_h = p.kv_v.h;
-  const long long kv_r = p.kv_v.r;
-  const int sk = p.sk, coff = p.sk - p.sq;  // bottom-right causal offset
-  // locals, not the struct's fields, in the body: restrict-qualified
-  // pointers and hoisted scalars (see flash_attn_fwd.cu)
-  const bf16* __restrict__ pq = p.q;
-  const bf16* __restrict__ pk = p.k;
-  const bf16* __restrict__ pv = p.v;
-  const bf16* __restrict__ po = p.o;
-  const bf16* __restrict__ pdo = p.dout;
-  const float* __restrict__ plse = p.lse;
-  const int* __restrict__ kv_lens = p.kv_lens;
-  const float* __restrict__ pbias = p.bias;
-  const apex::View q_v = p.q_v, o_v = p.o_v, do_v = p.do_v;
-  const float scale = p.scale;
-  const int causal = p.causal, h = p.h, h_kv = p.h_kv;
-  const int maxd = p.maxd, rel_off = p.rel_off;
-  const int sq = p.sq;
-  constexpr int kLd = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);
-  bf16* v_s = k_s + kBkv * kLd;
-  bf16* q_s = v_s + kBkv * kLd;          // [2][kBqStep][kLd]
-  bf16* do_s = q_s + 2 * kBqStep * kLd;  // [2][kBqStep][kLd]
-  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kBqStep * kLd);
-  float* delta_s = lse_s + kBqStep;
-  // kRel: [4 warps][16][kDsLd] dS tiles, the lookup, the offset bins and
-  // the bucket sums
-  float* ds_s = delta_s + kBqStep;
-  float* lut_s = ds_s + 4 * 16 * kDsLd;
-  const int nlut = kRel ? 2 * maxd + 1 : 0;
-  float* bins_s = lut_s + nlut;
-  float* bsum_s = bins_s + nlut;
+// d (64 x N) = A B (scale_d 0) or += (1), both from shared memory, K-major
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (N == 128)
+    wgmma_m64n128k16_ss<0, 0>(d, da, db, scale_d);
+  else
+    wgmma_m64n64k16_ss<0, 0>(d, da, db, scale_d);
+}
 
+// d (64 x N) += A (64 x 16 from registers) B (16 x N, MN-major)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 128)
+    wgmma_m64n128k16_rs<1>(d, a, db);
+  else
+    wgmma_m64n64k16_rs<1>(d, a, db);
+}
+
+// --- dK/dV ----------------------------------------------------------------
+
+template <int D, int BIAS>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const __grid_constant__ CUtensorMap tm_bias,
+                        const FlashParams p, int bias_tma) {
+  using C = DkvCfg<D, BIAS>;
+  constexpr int kBq = C::kBq, kS = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* const gbase = smem_raw + (base - raw);
+  const uint32_t k_s = base, v_s = base + C::kKv;
+  const uint32_t ring = base + C::kRing;
+  float* const stats = reinterpret_cast<float*>(gbase + C::kStats);
+  const uint32_t bars = base + C::kBars;
+  const uint32_t kvbar = bars;
+  auto full = [&](int s) { return bars + 8 + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 + 8 * (kS + s); };
+
+  const int h = p.h, h_kv = p.h_kv, sq = p.sq, sk = p.sk;
+  const int coff = sk - sq;  // bottom-right causal offset
+  const int causal = p.causal;
   const int group = h / h_kv;
-  const int bi = blockIdx.x / h_kv;
-  const int kvh = blockIdx.x - bi * h_kv;
-  const int k0 = blockIdx.y * kBkv;
-  const bf16* kg = pk + bi * kv_b + kvh * kv_h;
-  const bf16* vg = pv + bi * kv_b + kvh * kv_h;
-  // the group's query heads whose kv length reaches this tile
-  auto live = [&](int i) {
-    return !kVarlen || k0 < apex::kv_len(kv_lens, bi, kvh * group + i,
-                                         p.lens_b, p.lens_h, sk);
+  const int nkv = (sk + kBkv - 1) / kBkv;
+  // kv head by kv head, so the CTAs in flight share their heads' Q and
+  // dO in the L2; within a head the kv tiles in order (causal: the
+  // longest first)
+  const int bkv = blockIdx.x / nkv;
+  const int kt = blockIdx.x - bkv * nkv;
+  const int bi = bkv / h_kv, kvh = bkv - bi * h_kv;
+  const int k0 = kt * kBkv;
+  const int* __restrict__ kv_lens = p.kv_lens;
+  auto head_len = [&](int head) {
+    return kv_lens ? apex::kv_len(kv_lens, bi, head, p.lens_b, p.lens_h, sk)
+                   : sk;
   };
+  // the group's query heads whose kv length reaches this tile, then the
+  // query tiles from the diagonal down for each
   int nlive = group;
-  if (kVarlen) {
+  if (kv_lens) {
     nlive = 0;
-    for (int i = 0; i < group; ++i) nlive += live(i);
+    for (int i = 0; i < group; ++i) nlive += k0 < head_len(kvh * group + i);
   }
   auto nth_live = [&](int n) {
-    if (!kVarlen) return n;
+    if (!kv_lens) return n;
     for (int i = 0; i < group; ++i)
-      if (live(i) && n-- == 0) return i;
+      if (k0 < head_len(kvh * group + i) && n-- == 0) return i;
     return 0;
   };
-
-  // query tiles from the diagonal down (row r sees column c iff c <= r +
-  // off), for each live head of the group
-  const int qt0 = causal ? max(k0 - coff, 0) / kBqStep : 0;
-  const int per = (sq + kBqStep - 1) / kBqStep - qt0;
+  const int qt0 = causal ? max(k0 - coff, 0) / kBq : 0;
+  const int per = (sq + kBq - 1) / kBq - qt0;
   const int total = nlive * per;
-  auto tile_q0 = [&](int it) { return (qt0 + it % per) * kBqStep; };
-  auto q_base = [&](int head) {
-    return pq + bi * q_v.b + head * q_h;
-  };
-  auto do_base = [&](int head) {
-    return pdo + bi * do_v.b + head * do_v.h;
-  };
+  const bool copy_bias = BIAS == kArr && !bias_tma;
 
-  apex::load_rows<D, kBkv, kThreads>(k_s, kg, kv_r, k0, sk);
-  apex::load_rows<D, kBkv, kThreads>(v_s, vg, kv_r, k0, sk);
-  if (total > 0) {
-    const int h0 = kvh * group + nth_live(0);
-    apex::load_rows<D, kBqStep, kThreads>(q_s, q_base(h0), q_v.r,
-                                          tile_q0(0), sq);
-    apex::load_rows<D, kBqStep, kThreads>(do_s, do_base(h0), do_v.r,
-                                          tile_q0(0), sq);
-  }
-  apex::cp_async_commit();
-  if (kRel) {
-    for (int i = threadIdx.x; i < nlut; i += kThreads) bins_s[i] = 0.f;
-    for (int i = threadIdx.x; i < p.nb; i += kThreads) bsum_s[i] = 0.f;
-  }
-
-  const int warp = threadIdx.x >> 5;
+  const int wg = threadIdx.x >> 7;
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int wrow = warp * 16 + g;  // this thread's kv rows: wrow, wrow + 8
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < kS; ++s) {
+      // the TMA bytes' arrival, then each staging producer warp's
+      mbar_init(full(s), copy_bias ? 5 : 2);
+      mbar_init(empty(s), 8);  // lane 0 of each consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-
-  int cur_head = -1;  // the head whose lookup and bins are loaded
-  for (int it = 0; it < total; ++it) {
-    const int buf = it & 1;
-    const int head = kvh * group + nth_live(it / per);
-    const int row = bi * h + head;
-    const int q0 = tile_q0(it);
-    const int kv_lim =
-        kVarlen ? apex::kv_len(kv_lens, bi, head, p.lens_b, p.lens_h, sk)
-                : sk;
-    if (kRel && head != cur_head) {
-      // the previous iteration ended in __syncthreads(): its bin updates
-      // are done and nothing reads the lookup any more
-      if (cur_head >= 0) {
-        flush_bins(p, bins_s, bsum_s, bi * h + cur_head);
-        __syncthreads();
+  if (wg == 0) {
+    setmaxnreg_dec<40>();
+    // warp 0 issues the TMA loads and stages lse and delta; with a bias
+    // no map describes, all four warps copy it
+    const int pw = threadIdx.x >> 5;
+    if (pw == 0 || copy_bias) {
+      if (threadIdx.x == 0) {
+        tma_prefetch(&tm_q);
+        tma_prefetch(&tm_do);
+        mbar_expect_tx(kvbar, 2 * C::kKv);
+        load_rows<D>(k_s, &tm_k, kBkv, k0, kvh, bi, kvbar);
+        load_rows<D>(v_s, &tm_v, kBkv, k0, kvh, bi, kvbar);
       }
-      const float* lut = p.lut + static_cast<size_t>(row % p.hb) * nlut;
-      for (int i = threadIdx.x; i < nlut; i += kThreads) lut_s[i] = lut[i];
-      cur_head = head;
+      const bool tb = BIAS == kArr && bias_tma;
+      for (int it = 0; it < total; ++it) {
+        const int s = it % kS;
+        const uint32_t ph = (it / kS) & 1;
+        const int head = kvh * group + nth_live(it / per);
+        const int q0 = (qt0 + it % per) * kBq;
+        const int row = bi * h + head;
+        const uint32_t st = ring + s * C::kStage;
+        mbar_wait(empty(s), ph ^ 1);
+        // the TMA loads first, then lse and delta (plain loads, whose
+        // latency overlaps the copies), then the second arrival
+        if (threadIdx.x == 0) {
+          mbar_expect_tx(full(s), 2 * C::kQ + (tb ? C::kBias : 0));
+          load_rows<D>(st, &tm_q, kBq, q0, head, bi, full(s));
+          load_rows<D>(st + C::kQ, &tm_do, kBq, q0, head, bi, full(s));
+          if (tb)
+            stage_bias_tma<kBq, kBkv>(st + 2 * C::kQ, &tm_bias, row % p.hb,
+                                      q0, k0, full(s));
+        }
+        if (copy_bias)
+          stage_bias_copy<kBq, kBkv>(st + 2 * C::kQ, p.bias, row % p.hb, q0,
+                                     k0, sq, sk, threadIdx.x);
+        if (pw == 0) {
+          float* lse_s = stats + s * 2 * kBq;
+          for (int j = lane; j < kBq; j += 32) {
+            const int qr = q0 + j;
+            const bool ok = qr < sq;
+            const size_t at = static_cast<size_t>(row) * sq + (ok ? qr : 0);
+            lse_s[j] = ok ? p.lse[at] * kLog2e : 0.f;
+            lse_s[kBq + j] = ok ? p.delta[at] : 0.f;
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(full(s));
+      }
     }
-    if (it + 1 < total) {
-      const int nh = kvh * group + nth_live((it + 1) / per);
-      const int nq0 = tile_q0(it + 1);
-      apex::load_rows<D, kBqStep, kThreads>(q_s + (buf ^ 1) * kBqStep * kLd,
-                                            q_base(nh), q_v.r, nq0, sq);
-      apex::load_rows<D, kBqStep, kThreads>(do_s + (buf ^ 1) * kBqStep * kLd,
-                                            do_base(nh), do_v.r, nq0, sq);
-      apex::cp_async_commit();
+  } else {
+    setmaxnreg_inc<232>();
+    const int cw = wg - 1;              // this warpgroup's 64 kv rows
+    const int tid = threadIdx.x - 128;  // 0..255 over both warpgroups
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, t = lane & 3;
+    const int kv_lo = k0 + cw * 64;
+    const float scale = p.scale, sl2 = scale * kLog2e;
+    const int maxd = p.maxd, rel_off = p.rel_off;
+    float* const ds_w = reinterpret_cast<float*>(gbase + C::kDs) +
+                        (cw * 4 + warp) * 16 * C::kDsLd;
+    const int nbins = BIAS == kRel ? 2 * maxd + 1 : 0;
+    float* const bins_s = reinterpret_cast<float*>(gbase + C::kBins);
+    float* const bsum_s = bins_s + nbins;
+    float* const lut_s = bsum_s + kMaxBuckets;
+    int* const bucket_s = reinterpret_cast<int*>(lut_s + nbins);
+    const bool tables = C::tables_in_smem(nbins);
+    const float* lut = p.lut;
+    const int* bucket = p.bucket;
+
+    float dk[D / 2], dv[D / 2], sc[kBq / 2], dp[kBq / 2];
+    zero(dk);
+    zero(dv);
+    zero(sc);
+    zero(dp);
+    if (BIAS == kRel) {
+      for (int i = tid; i < nbins; i += 256) bins_s[i] = 0.f;
+      for (int i = tid; i < kMaxBuckets; i += 256) bsum_s[i] = 0.f;
+      if (tables) {  // read at every flush: staged once
+        for (int i = tid; i < nbins; i += 256) bucket_s[i] = p.bucket[i];
+        bucket = bucket_s;
+      }
     }
-    {  // delta and lse of this tile's rows: 4 threads per row
-      const int r = threadIdx.x >> 2;
-      const int part = threadIdx.x & 3;
+    // the bins of the finished head -> its buckets -> dtab[drow]; the 256
+    // consumer threads, after a barrier that follows the last bin update
+    auto flush = [&](int drow) {
+      for (int i = tid; i < nbins; i += 256) {
+        const float x = bins_s[i];
+        if (x != 0.f) atomicAdd(&bsum_s[bucket[i]], x);
+        bins_s[i] = 0.f;
+      }
+      named_barrier(1, 256);
+      float* dst = p.dtab + static_cast<size_t>(drow % p.hb) * p.nb;
+      for (int i = tid; i < p.nb; i += 256) {
+        const float x = bsum_s[i];
+        if (x != 0.f) atomicAdd(&dst[i], x);
+        bsum_s[i] = 0.f;
+      }
+    };
+    int cur_head = -1;
+    if (BIAS == kRel && total > 0) {
+      // the first head's lookup while K and V arrive; later heads' (GQA)
+      // at their first stage
+      cur_head = kvh * group + nth_live(0);
+      lut = p.lut + static_cast<size_t>((bi * h + cur_head) % p.hb) * nbins;
+      if (tables) {
+        for (int i = tid; i < nbins; i += 256) lut_s[i] = lut[i];
+        lut = lut_s;
+      }
+      named_barrier(1, 256);  // the bins zeroed, the tables staged
+    }
+    mbar_wait(kvbar, 0);
+    for (int it = 0; it < total; ++it) {
+      const int s = it % kS;
+      const uint32_t ph = (it / kS) & 1;
+      const int head = kvh * group + nth_live(it / per);
+      const int q0 = (qt0 + it % per) * kBq;
+      const int row = bi * h + head;
+      const int kv_lim = head_len(head);
+      if (BIAS == kRel && head != cur_head) {
+        // both warpgroups: the last head's bin updates are done
+        named_barrier(1, 256);
+        if (cur_head >= 0) {
+          flush(bi * h + cur_head);
+          named_barrier(1, 256);
+        }
+        lut = p.lut + static_cast<size_t>(row % p.hb) * nbins;
+        if (tables) {
+          for (int i = tid; i < nbins; i += 256) lut_s[i] = lut[i];
+          lut = lut_s;
+          named_barrier(1, 256);
+        }
+        cur_head = head;
+      }
+      const uint32_t st = ring + s * C::kStage;
+      const uint32_t q_st = st, do_st = st + C::kQ;
+      const float* lse_s = stats + s * 2 * kBq;
+      const float* delta_s = lse_s + kBq;
+      const float* bias_s =
+          reinterpret_cast<const float*>(gbase + (st - base) + 2 * C::kQ);
+      mbar_wait(full(s), ph);
+      const bool skip = kv_lo >= kv_lim ||
+                        (causal && kv_lo > q0 + kBq - 1 + coff);
+      if (!skip) {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<kBq>(sc, kmajor(k_s, kBkv, kk, cw * 64),
+                        kmajor(q_st, kBq, kk, 0), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<kBq>(dp, kmajor(v_s, kBkv, kk, cw * 64),
+                        kmajor(do_st, kBq, kk, 0), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operand(sc);
+        fence_operand(dp);
+        // kRel: a stage whose offsets all clamp to one end (|kv - q| at or
+        // past max_distance) reads one lookup value and sums into one bin
+        const int n_lo = kv_lo - (q0 + kBq - 1) + rel_off;
+        const int n_hi = kv_lo + 63 - q0 + rel_off;
+        const bool one_bin =
+            BIAS == kRel && (n_lo >= maxd || n_hi <= -maxd);
+        const bool unclamped = BIAS == kRel && n_lo > -maxd && n_hi < maxd;
+        const int bin = n_lo >= maxd ? 2 * maxd : 0;
+        // unclamped: score (c, i)'s offset is this thread's base + 8 (c >> 1)
+        // - 8 i - (c & 1)
+        const float* lut_row =
+            BIAS == kRel
+                ? lut + maxd + (kv_lo + warp * 16 + g - q0 - 2 * t + rel_off)
+                : nullptr;
+        // sc: S^T (kv row, query column) -> P^T; dp: dP^T -> the
+        // unscaled dS^T. Exponents in base 2 (lse stored times log2 e); a
+        // stage wholly inside the masks skips them
+        const bool inside = q0 + kBq <= sq && kv_lo + 64 <= kv_lim &&
+                            (!causal || kv_lo + 63 <= q0 + coff);
+        auto elem = [&](auto masked, auto lut_mode) {
+          constexpr int kMode = decltype(lut_mode)::value;
+#pragma unroll
+          for (int i = 0; i < kBq / 8; ++i) {
+            const float2 l2 =
+                *reinterpret_cast<const float2*>(lse_s + 8 * i + 2 * t);
+            const float2 dl =
+                *reinterpret_cast<const float2*>(delta_s + 8 * i + 2 * t);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int rl = warp * 16 + g + 8 * (c >> 1);  // kv row in WG
+              const int kr = kv_lo + rl;
+              const int ql = 8 * i + 2 * t + (c & 1);
+              const int qc = q0 + ql;
+              float x = fmaf(sc[4 * i + c], sl2, -((c & 1) ? l2.y : l2.x));
+              if (BIAS == kRel)
+                x = fmaf(kMode == kLutOne   ? lut[bin]
+                         : kMode == kLutRow ? lut_row[8 * (c >> 1) - 8 * i -
+                                                      (c & 1)]
+                                            : lut[apex::rel_index(
+                                                  kr, qc, rel_off, maxd)],
+                         kLog2e, x);
+              if (BIAS == kArr)
+                x = fmaf(bias_s[bias_offset<kBkv>(ql, cw * 64 + rl)], kLog2e,
+                         x);
+              float pr = ex2(x);
+              if (decltype(masked)::value)
+                pr = qc < sq && kr < kv_lim && (!causal || kr <= qc + coff)
+                         ? pr
+                         : 0.f;
+              sc[4 * i + c] = pr;
+              dp[4 * i + c] = pr * (dp[4 * i + c] - ((c & 1) ? dl.y : dl.x));
+            }
+          }
+        };
+        if (BIAS == kRel && one_bin) {
+          if (inside)
+            elem(std::false_type{}, LutMode<kLutOne>{});
+          else
+            elem(std::true_type{}, LutMode<kLutOne>{});
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < kBq / 2; ++j) sum += dp[j];
+          sum = apex::warp_sum(sum);
+          if (lane == 0 && sum != 0.f) atomicAdd(&bins_s[bin], sum);
+        } else if (BIAS == kRel && unclamped) {
+          if (inside)
+            elem(std::false_type{}, LutMode<kLutRow>{});
+          else
+            elem(std::true_type{}, LutMode<kLutRow>{});
+        } else {
+          if (inside)
+            elem(std::false_type{}, LutMode<kLutClamp>{});
+          else
+            elem(std::true_type{}, LutMode<kLutClamp>{});
+        }
+        if (BIAS == kRel && !one_bin) {
+#pragma unroll
+          for (int i = 0; i < kBq / 8; ++i)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+              *reinterpret_cast<float2*>(
+                  ds_w + (g + 8 * hh) * C::kDsLd + 8 * i + 2 * t) =
+                  make_float2(dp[4 * i + 2 * hh], dp[4 * i + 2 * hh + 1]);
+        }
+#pragma unroll
+        for (int j = 0; j < kBq / 2; ++j) dp[j] *= scale;
+        uint32_t pa[kBq / 16][4], da[kBq / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kBq / 16; ++kk) {
+          wgmma_a_frag(pa[kk], sc, kk);
+          wgmma_a_frag(da[kk], dp, kk);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBq / 16; ++kk)
+          wgmma_rs<D>(dv, pa[kk], mnmajor(do_st, kk, kBq * 128));
+#pragma unroll
+        for (int kk = 0; kk < kBq / 16; ++kk)
+          wgmma_rs<D>(dk, da[kk], mnmajor(q_st, kk, kBq * 128));
+        wgmma_commit();
+        if (BIAS == kRel && !one_bin) {
+          // the warp's 16 x kBq tile of unscaled dS^T by diagonal: local
+          // offset dd = kv row - query column in [1 - kBq, 15]; lane L
+          // sums dd = L + 1 - kBq + 32 j (j < kBq / 32) and L + 1 (L < 15)
+          // into the bins of their clamped offsets (distinct within the
+          // warp but for the two clamped ends, summed over the warp first)
+          __syncwarp();
+          const int n0 = kv_lo + warp * 16 - q0 + rel_off;  // + dd
+          const int top = 2 * maxd;
+          float lo = 0.f, hi = 0.f;
+#pragma unroll
+          for (int j = 0; j <= kBq / 32; ++j) {
+            const int dd = lane + 1 - kBq + 32 * j;
+            if (j == kBq / 32 && lane >= 15) break;
+            float sum = 0.f;
+#pragma unroll
+            for (int r = 0; r < 16; ++r) {
+              const int col = r - dd;
+              if (col >= 0 && col < kBq) sum += ds_w[r * C::kDsLd + col];
+            }
+            const int idx = min(max(n0 + dd, -maxd), maxd) + maxd;
+            if (idx == 0)
+              lo += sum;
+            else if (idx == top)
+              hi += sum;
+            else if (sum != 0.f)
+              atomicAdd(&bins_s[idx], sum);
+          }
+          lo = apex::warp_sum(lo);
+          hi = apex::warp_sum(hi);
+          if (lane == 0) {
+            if (lo != 0.f) atomicAdd(&bins_s[0], lo);
+            if (hi != 0.f) atomicAdd(&bins_s[top], hi);
+          }
+          __syncwarp();  // the next stage rewrites ds_w
+        }
+        wgmma_wait<0>();
+        fence_operand(dk);
+        fence_operand(dv);
+      }
+      if (lane == 0) mbar_arrive(empty(s));
+    }
+    if (BIAS == kRel && cur_head >= 0) {
+      named_barrier(1, 256);
+      flush(bi * h + cur_head);
+    }
+
+    const long long dkv_b = p.dkv_v.b, dkv_h = p.dkv_v.h, dkv_r = p.dkv_v.r;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int kr = kv_lo + warp * 16 + g + 8 * hh;
+      if (kr >= sk) continue;
+      const long long off = bi * dkv_b + kvh * dkv_h + kr * dkv_r;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        *reinterpret_cast<uint32_t*>(p.dk + off + 8 * i + 2 * t) =
+            apex::pack_bf16(dk[4 * i + 2 * hh], dk[4 * i + 2 * hh + 1]);
+        *reinterpret_cast<uint32_t*>(p.dv + off + 8 * i + 2 * t) =
+            apex::pack_bf16(dv[4 * i + 2 * hh], dv[4 * i + 2 * hh + 1]);
+      }
+    }
+  }
+}
+
+// --- dQ -------------------------------------------------------------------
+
+template <int D, int BIAS>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const __grid_constant__ CUtensorMap tm_bias,
+                       const FlashParams p, int bias_tma) {
+  using C = DqCfg<D, BIAS>;
+  constexpr int kBk = C::kBk, kS = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* const gbase = smem_raw + (base - raw);
+  const uint32_t q_s = base, do_s = base + C::kQ;
+  const uint32_t ring = base + C::kRing;
+  const uint32_t bars = base + C::kBars;
+  const uint32_t qbar = bars;
+  auto full = [&](int s) { return bars + 8 + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 + 8 * (kS + s); };
+
+  const int h = p.h, sq = p.sq, sk = p.sk;
+  const int coff = sk - sq;
+  const int causal = p.causal;
+  const int nq = (sq + kBqCta - 1) / kBqCta;
+  // head by head, so the CTAs in flight share their heads' K and V in the
+  // L2; within a head the last query tiles first (causal: the longest)
+  const int row = blockIdx.x / nq;  // bi * h + head
+  const int qt = nq - 1 - static_cast<int>(blockIdx.x - row * nq);
+  const int bi = row / h, head = row - bi * h;
+  const int kvh = head / (h / p.h_kv);
+  const int q0 = qt * kBqCta;
+  const int kv_lim =
+      p.kv_lens ? apex::kv_len(p.kv_lens, bi, head, p.lens_b, p.lens_h, sk)
+                : sk;
+  const int kv_end = causal ? min(kv_lim, q0 + kBqCta + coff) : kv_lim;
+  const int nk = kv_end > 0 ? (kv_end + kBk - 1) / kBk : 0;
+  const bool copy_bias = BIAS == kArr && !bias_tma;
+
+  const int wg = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < kS; ++s) {
+      // the TMA bytes' arrival, and each bias-copying producer warp's
+      mbar_init(full(s), copy_bias ? 5 : 1);
+      mbar_init(empty(s), 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    setmaxnreg_dec<40>();
+    // warp 0 issues the TMA loads; with a bias no map describes, all four
+    // warps copy it
+    const int pw = threadIdx.x >> 5;
+    if (pw == 0 || copy_bias) {
+      if (threadIdx.x == 0) {
+        tma_prefetch(&tm_k);
+        tma_prefetch(&tm_v);
+        mbar_expect_tx(qbar, 2 * C::kQ);
+        load_rows<D>(q_s, &tm_q, kBqCta, q0, head, bi, qbar);
+        load_rows<D>(do_s, &tm_do, kBqCta, q0, head, bi, qbar);
+      }
+      const bool tb = BIAS == kArr && bias_tma;
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % kS;
+        const uint32_t ph = (j / kS) & 1;
+        const uint32_t st = ring + s * C::kStage;
+        mbar_wait(empty(s), ph ^ 1);
+        if (threadIdx.x == 0) {
+          mbar_expect_tx(full(s), 2 * C::kK + (tb ? C::kBias : 0));
+          load_rows<D>(st, &tm_k, kBk, j * kBk, kvh, bi, full(s));
+          load_rows<D>(st + C::kK, &tm_v, kBk, j * kBk, kvh, bi, full(s));
+          if (tb)
+            stage_bias_tma<kBqCta, kBk>(st + 2 * C::kK, &tm_bias, row % p.hb,
+                                        q0, j * kBk, full(s));
+        }
+        if (copy_bias) {
+          stage_bias_copy<kBqCta, kBk>(st + 2 * C::kK, p.bias, row % p.hb,
+                                       q0, j * kBk, sq, sk, threadIdx.x);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(full(s));
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int cw = wg - 1;  // this warpgroup's 64 query rows
+    const int tid = threadIdx.x - 128;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, t = lane & 3;
+    const float scale = p.scale, sl2 = scale * kLog2e;
+    const int maxd = p.maxd, rel_off = p.rel_off;
+    float* const delta_s = reinterpret_cast<float*>(gbase + C::kDelta);
+    float* const lut_s = reinterpret_cast<float*>(gbase + C::kLut);
+
+    // the prologue's reads first (lse, the lookup), then delta, so their
+    // latencies overlap
+    const int r0 = cw * 64 + warp * 16 + g;  // this thread's rows: r0, r0 + 8
+    float lse_r[2], dl_r[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int qr = q0 + r0 + 8 * hh;
+      lse_r[hh] =
+          qr < sq ? p.lse[static_cast<size_t>(row) * sq + qr] * kLog2e : 0.f;
+    }
+    if (BIAS == kRel) {
+      const int n = 2 * maxd + 1;
+      const float* lut = p.lut + static_cast<size_t>(row % p.hb) * n;
+      for (int i = tid; i < n; i += 256) lut_s[i] = lut[i];
+    }
+    {  // delta of the CTA's rows, 2 threads a row: the only read of O
+      const int r = tid >> 1, part = tid & 1;
       const int qr = q0 + r;
       const long long qrc = qr < sq ? qr : 0;
-      const float dl = row_delta<D, 4>(
-          pdo + bi * do_v.b + head * do_v.h + qrc * do_v.r,
-          po + bi * o_v.b + head * o_v.h + qrc * o_v.r, part);
+      const float dl = apex::row_delta<D, 2>(
+          p.dout + bi * p.do_v.b + head * p.do_v.h + qrc * p.do_v.r,
+          p.o + bi * p.o_v.b + head * p.o_v.h + qrc * p.o_v.r, part);
       if (part == 0) {
         delta_s[r] = qr < sq ? dl : 0.f;
-        lse_s[r] = qr < sq ? plse[static_cast<size_t>(row) * sq + qr] : 0.f;
+        if (qr < sq) p.delta[static_cast<size_t>(row) * sq + qr] = dl;
       }
     }
-    if (it + 1 < total)
-      apex::cp_async_wait<1>();
-    else
-      apex::cp_async_wait<0>();
-    __syncthreads();
-    const bf16* qb = q_s + buf * kBqStep * kLd;
-    const bf16* dob = do_s + buf * kBqStep * kLd;
+    named_barrier(1, 256);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) dl_r[hh] = delta_s[r0 + 8 * hh];
+    const int wq0 = q0 + cw * 64;  // this warpgroup's first query row
 
-    // S^T = K Q^T and dP^T = V do^T: 16 kv rows x 32 query columns per warp
-    float st[kBqStep / 8][4], dpt[kBqStep / 8][4];
+    float dq[D / 2], sc[kBk / 2], dp[kBk / 2];
+    zero(dq);
+    zero(sc);
+    zero(dp);
+    mbar_wait(qbar, 0);
+    for (int j = 0; j < nk; ++j) {
+      const int s = j % kS;
+      const uint32_t ph = (j / kS) & 1;
+      const uint32_t st = ring + s * C::kStage;
+      const uint32_t k_st = st, v_st = st + C::kK;
+      const float* bias_s =
+          reinterpret_cast<const float*>(gbase + (st - base) + 2 * C::kK);
+      const int kc0 = j * kBk;
+      mbar_wait(full(s), ph);
+      const bool skip = wq0 >= sq || (causal && kc0 > wq0 + 63 + coff);
+      if (!skip) {
+        wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < kBqStep / 8; ++nt)
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<kBk>(sc, kmajor(q_s, kBqCta, kk, cw * 64),
+                        kmajor(k_st, kBk, kk, 0), kk > 0);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) st[nt][c] = dpt[nt][c] = 0.f;
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<kBk>(dp, kmajor(do_s, kBqCta, kk, cw * 64),
+                        kmajor(v_st, kBk, kk, 0), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operand(sc);
+        fence_operand(dp);
+        // sc: S -> P; dp: dP -> dS (scaled); base-2 exponents and the
+        // lookup's modes as in dK/dV
+        const bool inside = wq0 + 64 <= sq && kc0 + kBk <= kv_lim &&
+                            (!causal || kc0 + kBk - 1 <= wq0 + coff);
+        const int n_lo = kc0 - (wq0 + 63) + rel_off;
+        const int n_hi = kc0 + kBk - 1 - wq0 + rel_off;
+        const bool one_bin =
+            BIAS == kRel && (n_lo >= maxd || n_hi <= -maxd);
+        const bool unclamped = BIAS == kRel && n_lo > -maxd && n_hi < maxd;
+        const int bin = n_lo >= maxd ? 2 * maxd : 0;
+        // unclamped: score (c, i)'s offset is this thread's base + 8 i +
+        // (c & 1) - 8 (c >> 1)
+        const float* lut_row =
+            lut_s + maxd + (kc0 - q0 - r0 + 2 * t + rel_off);
+        auto elem = [&](auto masked, auto lut_mode) {
+          constexpr int kMode = decltype(lut_mode)::value;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const bf16* kp = k_s + wrow * kLd + kk * 16 + 2 * t;
-      const bf16* vp = v_s + wrow * kLd + kk * 16 + 2 * t;
-      const uint32_t ka[4] = {apex::lds32(kp), apex::lds32(kp + 8 * kLd),
-                              apex::lds32(kp + 8),
-                              apex::lds32(kp + 8 * kLd + 8)};
-      const uint32_t va[4] = {apex::lds32(vp), apex::lds32(vp + 8 * kLd),
-                              apex::lds32(vp + 8),
-                              apex::lds32(vp + 8 * kLd + 8)};
+          for (int i = 0; i < kBk / 8; ++i) {
 #pragma unroll
-      for (int nt = 0; nt < kBqStep / 8; ++nt) {
-        const bf16* qp = qb + (nt * 8 + g) * kLd + kk * 16 + 2 * t;
-        const bf16* dp = dob + (nt * 8 + g) * kLd + kk * 16 + 2 * t;
-        apex::mma_bf16(st[nt], ka, apex::lds32(qp), apex::lds32(qp + 8));
-        apex::mma_bf16(dpt[nt], va, apex::lds32(dp), apex::lds32(dp + 8));
+            for (int c = 0; c < 4; ++c) {
+              const int hh = c >> 1;
+              const int rl = r0 + 8 * hh;
+              const int qr = q0 + rl;
+              const int cl = 8 * i + 2 * t + (c & 1);
+              const int kc = kc0 + cl;
+              float x = fmaf(sc[4 * i + c], sl2, -lse_r[hh]);
+              if (BIAS == kRel)
+                x = fmaf(kMode == kLutOne   ? lut_s[bin]
+                         : kMode == kLutRow ? lut_row[8 * i + (c & 1) -
+                                                      8 * hh]
+                                            : lut_s[apex::rel_index(
+                                                  kc, qr, rel_off, maxd)],
+                         kLog2e, x);
+              if (BIAS == kArr)
+                x = fmaf(bias_s[bias_offset<kBk>(rl, cl)], kLog2e, x);
+              float pr = ex2(x);
+              if (decltype(masked)::value)
+                pr = qr < sq && kc < kv_lim && (!causal || kc <= qr + coff)
+                         ? pr
+                         : 0.f;
+              dp[4 * i + c] = pr * (dp[4 * i + c] - dl_r[hh]) * scale;
+            }
+          }
+        };
+        auto run = [&](auto lut_mode) {
+          if (inside)
+            elem(std::false_type{}, lut_mode);
+          else
+            elem(std::true_type{}, lut_mode);
+        };
+        if (BIAS == kRel && one_bin)
+          run(LutMode<kLutOne>{});
+        else if (BIAS == kRel && unclamped)
+          run(LutMode<kLutRow>{});
+        else
+          run(LutMode<kLutClamp>{});
+        uint32_t da[kBk / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kBk / 16; ++kk) wgmma_a_frag(da[kk], dp, kk);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBk / 16; ++kk)
+          wgmma_rs<D>(dq, da[kk], mnmajor(k_st, kk, kBk * 128));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operand(dq);
       }
+      if (lane == 0) mbar_arrive(empty(s));
     }
 
-    // p = exp(s*scale [+ bias] - lse) on live entries, 0 elsewhere; then dS
-    float* dsw = ds_s + warp * 16 * kDsLd;
+    const long long dq_b = p.out_v.b, dq_h = p.out_v.h, dq_r = p.out_v.r;
 #pragma unroll
-    for (int nt = 0; nt < kBqStep / 8; ++nt) {
+    for (int hh = 0; hh < 2; ++hh) {
+      const int qr = q0 + r0 + 8 * hh;
+      if (qr >= sq) continue;
+      bf16* dst = p.out + bi * dq_b + head * dq_h + qr * dq_r;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kr = k0 + wrow + (c >> 1) * 8;
-        const int ql = nt * 8 + 2 * t + (c & 1);
-        const int qc = q0 + ql;
-        const bool ok =
-            qc < sq && kr < kv_lim && (!causal || kr <= qc + coff);
-        float x = st[nt][c] * scale;
-        if (kRel) x += lut_s[apex::rel_index(kr, qc, rel_off, maxd)];
-        if (kArr) x += apex::bias_at(pbias, row, p.hb, sq, sk, qc, kr);
-        const float pr = ok ? expf(x - lse_s[ql]) : 0.f;
-        st[nt][c] = pr;
-        const float ds = pr * (dpt[nt][c] - delta_s[ql]);
-        if (kRel) dsw[(g + (c >> 1) * 8) * kDsLd + ql] = ds;
-        dpt[nt][c] = ds * scale;
-      }
-    }
-    if (kRel) {
-      // the warp's 16 x 32 tile of unscaled dS by diagonal: local offset
-      // dd = kv row - query column in [-31, 15]; lane L sums dd = L - 31
-      // and (L < 15) dd = L + 1
-      __syncwarp();
-      float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-      for (int r = 0; r < 16; ++r) {
-        if (r <= lane) sum_a += dsw[r * kDsLd + r + 31 - lane];
-        if (r > lane) sum_b += dsw[r * kDsLd + r - lane - 1];
-      }
-      const int base = k0 + warp * 16 - q0;  // + dd = kv row - query row
-      const int ia = apex::rel_index(base + lane - 31, 0, rel_off, maxd);
-      const int ib = apex::rel_index(base + lane + 1, 0, rel_off, maxd);
-      const int top = 2 * maxd;
-      float lo = (ia == 0 ? sum_a : 0.f) + (ib == 0 ? sum_b : 0.f);
-      float hi = (ia == top ? sum_a : 0.f) + (ib == top ? sum_b : 0.f);
-      lo = apex::warp_sum(lo);
-      hi = apex::warp_sum(hi);
-      if (ia != 0 && ia != top && sum_a != 0.f) atomicAdd(&bins_s[ia], sum_a);
-      if (lane < 15 && ib != 0 && ib != top && sum_b != 0.f)
-        atomicAdd(&bins_s[ib], sum_b);
-      if (lane == 0) {
-        if (lo != 0.f) atomicAdd(&bins_s[0], lo);
-        if (hi != 0.f) atomicAdd(&bins_s[top], hi);
-      }
-      __syncwarp();  // the next tile rewrites dsw
-    }
-
-    // dV += P^T do and dK += dS^T q: A from registers, B (do, q) by
-    // transposed ldmatrix
-#pragma unroll
-    for (int kk = 0; kk < kBqStep / 16; ++kk) {
-      const uint32_t pa[4] = {
-          apex::pack_bf16(st[2 * kk][0], st[2 * kk][1]),
-          apex::pack_bf16(st[2 * kk][2], st[2 * kk][3]),
-          apex::pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-          apex::pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-      const uint32_t da[4] = {
-          apex::pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
-          apex::pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
-          apex::pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
-          apex::pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
-      const int lrow = (kk * 16 + (lane & 15)) * kLd + (lane >> 4) * 8;
-#pragma unroll
-      for (int dt = 0; dt < D / 8; dt += 2) {
-        uint32_t b[4];
-        apex::ldmatrix_x4_trans(b, dob + lrow + dt * 8);
-        apex::mma_bf16(dv_acc[dt], pa, b[0], b[1]);
-        apex::mma_bf16(dv_acc[dt + 1], pa, b[2], b[3]);
-        apex::ldmatrix_x4_trans(b, qb + lrow + dt * 8);
-        apex::mma_bf16(dk_acc[dt], da, b[0], b[1]);
-        apex::mma_bf16(dk_acc[dt + 1], da, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // the next copy reuses this buffer; lse_s/delta_s too
-  }
-  if (total == 0) apex::cp_async_wait<0>();
-  if (kRel && cur_head >= 0) {
-    flush_bins(p, bins_s, bsum_s, bi * h + cur_head);
-  }
-
-  const long long dkv_b = p.dkv_v.b, dkv_h = p.dkv_v.h, dkv_r = p.dkv_v.r;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int kr = k0 + wrow + i * 8;
-    if (kr >= sk) continue;
-    const long long off = bi * dkv_b + kvh * dkv_h + kr * dkv_r;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(p.dk + off + dt * 8 + 2 * t) =
-          apex::pack_bf16(dk_acc[dt][2 * i], dk_acc[dt][2 * i + 1]);
-      *reinterpret_cast<uint32_t*>(p.dv + off + dt * 8 + 2 * t) =
-          apex::pack_bf16(dv_acc[dt][2 * i], dv_acc[dt][2 * i + 1]);
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<uint32_t*>(dst + 8 * i + 2 * t) =
+            apex::pack_bf16(dq[4 * i + 2 * hh], dq[4 * i + 2 * hh + 1]);
     }
   }
 }
 
-template <int D, bool kVarlen, bool kRel, bool kArr>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_flat_dq_kernel(const FlashParams p) {
-  const long long q_h = p.q_v.h, kv_b = p.kv_v.b, kv_h = p.kv_v.h;
-  const long long kv_r = p.kv_v.r;
-  const int sk = p.sk, coff = p.sk - p.sq;  // bottom-right causal offset
-  const bf16* __restrict__ pq = p.q;
-  const bf16* __restrict__ pk = p.k;
-  const bf16* __restrict__ pv = p.v;
-  const bf16* __restrict__ po = p.o;
-  const bf16* __restrict__ pdo = p.dout;
-  const float* __restrict__ plse = p.lse;
-  bf16* __restrict__ pdq = p.out;
-  const float* __restrict__ pbias = p.bias;
-  const float scale = p.scale;
-  const int causal = p.causal, h = p.h, h_kv = p.h_kv;
-  const int maxd = p.maxd, rel_off = p.rel_off;
-  const int sq = p.sq;
-  constexpr int kLd = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* do_s = q_s + kBq * kLd;
-  bf16* k_s = do_s + kBq * kLd;     // [2][kBk][kLd]
-  bf16* v_s = k_s + 2 * kBk * kLd;  // [2][kBk][kLd]
-  float* lse_s = reinterpret_cast<float*>(v_s + 2 * kBk * kLd);
-  float* delta_s = lse_s + kBq;
-  float* lut_s = delta_s + kBq;  // kRel
+// --- host -----------------------------------------------------------------
 
-  const int row_id = blockIdx.x;  // bi * h + head
-  const int bi = row_id / h;
-  const int head = row_id - bi * h;
-  const int kvh = head / (h / h_kv);
-  const int q0 = blockIdx.y * kBq;
-  const bf16* kg = pk + bi * kv_b + kvh * kv_h;
-  const bf16* vg = pv + bi * kv_b + kvh * kv_h;
-  const bf16* qg = pq + bi * p.q_v.b + head * q_h;
-  const bf16* og = po + bi * p.o_v.b + head * p.o_v.h;
-  const bf16* dog = pdo + bi * p.do_v.b + head * p.do_v.h;
+struct Maps {
+  CUtensorMap q, k, v, dout, bias;
+};
 
-  int kv_lim = sk;
-  if (kVarlen) kv_lim = apex::kv_len(p.kv_lens, bi, head, p.lens_b, p.lens_h,
-                                     sk);
-  const int kv_end = causal ? min(kv_lim, q0 + kBq + coff) : kv_lim;
-  const int nk = (kv_end + kBk - 1) / kBk;
-
-  apex::load_rows<D, kBq, kThreads>(q_s, qg, p.q_v.r, q0, sq);
-  apex::load_rows<D, kBq, kThreads>(do_s, dog, p.do_v.r, q0, sq);
-  apex::load_rows<D, kBk, kThreads>(k_s, kg, kv_r, 0, kv_lim);
-  apex::load_rows<D, kBk, kThreads>(v_s, vg, kv_r, 0, kv_lim);
-  apex::cp_async_commit();
-  {  // delta and lse of the tile's rows: 2 threads per row
-    const int r = threadIdx.x >> 1;
-    const int part = threadIdx.x & 1;
-    const int qr = q0 + r;
-    const long long qrc = qr < sq ? qr : 0;
-    const float dl = row_delta<D, 2>(dog + qrc * p.do_v.r,
-                                     og + qrc * p.o_v.r, part);
-    if (part == 0) {
-      delta_s[r] = qr < sq ? dl : 0.f;
-      lse_s[r] = qr < sq ? plse[static_cast<size_t>(row_id) * sq + qr] : 0.f;
-    }
-  }
-  if (kRel) {
-    const int n = 2 * maxd + 1;
-    const float* lut = p.lut + static_cast<size_t>(row_id % p.hb) * n;
-    for (int i = threadIdx.x; i < n; i += kThreads) lut_s[i] = lut[i];
-  }
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int wrow = warp * 16 + g;  // this thread's query rows: wrow, wrow + 8
-
-  float dq_acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dq_acc[i][c] = 0.f;
-
-  for (int j = 0; j < nk; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < nk) {
-      apex::load_rows<D, kBk, kThreads>(k_s + (buf ^ 1) * kBk * kLd, kg,
-                                        kv_r, (j + 1) * kBk, kv_lim);
-      apex::load_rows<D, kBk, kThreads>(v_s + (buf ^ 1) * kBk * kLd, vg,
-                                        kv_r, (j + 1) * kBk, kv_lim);
-      apex::cp_async_commit();
-      apex::cp_async_wait<1>();
-    } else {
-      apex::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* kb = k_s + buf * kBk * kLd;
-    const bf16* vb = v_s + buf * kBk * kLd;
-
-    // S = Q K^T and dP = do V^T: 16 query rows x 64 kv columns per warp
-    float sc[kBk / 8][4], dp[kBk / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBk / 8; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) sc[nt][c] = dp[nt][c] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const bf16* qp = q_s + wrow * kLd + kk * 16 + 2 * t;
-      const bf16* op = do_s + wrow * kLd + kk * 16 + 2 * t;
-      const uint32_t qa[4] = {apex::lds32(qp), apex::lds32(qp + 8 * kLd),
-                              apex::lds32(qp + 8),
-                              apex::lds32(qp + 8 * kLd + 8)};
-      const uint32_t oa[4] = {apex::lds32(op), apex::lds32(op + 8 * kLd),
-                              apex::lds32(op + 8),
-                              apex::lds32(op + 8 * kLd + 8)};
-#pragma unroll
-      for (int nt = 0; nt < kBk / 8; ++nt) {
-        const bf16* kp = kb + (nt * 8 + g) * kLd + kk * 16 + 2 * t;
-        const bf16* vp = vb + (nt * 8 + g) * kLd + kk * 16 + 2 * t;
-        apex::mma_bf16(sc[nt], qa, apex::lds32(kp), apex::lds32(kp + 8));
-        apex::mma_bf16(dp[nt], oa, apex::lds32(vp), apex::lds32(vp + 8));
-      }
-    }
-
-    const int k0 = j * kBk;
-#pragma unroll
-    for (int nt = 0; nt < kBk / 8; ++nt) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int rl = wrow + (c >> 1) * 8;
-        const int qr = q0 + rl;
-        const int kc = k0 + nt * 8 + 2 * t + (c & 1);
-        const bool ok =
-            qr < sq && kc < kv_lim && (!causal || kc <= qr + coff);
-        float x = sc[nt][c] * scale;
-        if (kRel) x += lut_s[apex::rel_index(kc, qr, rel_off, maxd)];
-        if (kArr) x += apex::bias_at(pbias, row_id, p.hb, sq, sk, qr, kc);
-        const float pr = ok ? expf(x - lse_s[rl]) : 0.f;
-        dp[nt][c] = pr * (dp[nt][c] - delta_s[rl]) * scale;
-      }
-    }
-
-    // dQ += dS K: A = dS rounded to bf16, B (K) by transposed ldmatrix
-#pragma unroll
-    for (int kk = 0; kk < kBk / 16; ++kk) {
-      const uint32_t a[4] = {
-          apex::pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
-          apex::pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-          apex::pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-          apex::pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < D / 8; dt += 2) {
-        uint32_t b[4];
-        apex::ldmatrix_x4_trans(
-            b, kb + (kk * 16 + (lane & 15)) * kLd + dt * 8 + (lane >> 4) * 8);
-        apex::mma_bf16(dq_acc[dt], a, b[0], b[1]);
-        apex::mma_bf16(dq_acc[dt + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // the next iteration's copy reuses this buffer
-  }
-  if (nk == 0) apex::cp_async_wait<0>();  // a row of kv length 0
-
-  const long long dq_b = p.out_v.b, dq_h = p.out_v.h, dq_r = p.out_v.r;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qr = q0 + wrow + i * 8;
-    if (qr >= sq) continue;
-    bf16* dst = pdq + bi * dq_b + head * dq_h + qr * dq_r;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
-      *reinterpret_cast<uint32_t*>(dst + dt * 8 + 2 * t) =
-          apex::pack_bf16(dq_acc[dt][2 * i], dq_acc[dt][2 * i + 1]);
-  }
+// a (d, row, head, batch) bf16 map of a strided view
+bool view_map(CUtensorMap* map, const void* base, const apex::View& v, int d,
+              int rows, int heads, int batch) {
+  const long long dims[4] = {d, rows, heads, batch};
+  const long long strides[3] = {v.r * 2, v.h * 2, v.b * 2};
+  const int box[4] = {64, 64, 1, 1};
+  return make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base,
+                         dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-template <int D, bool kVarlen, bool kRel, bool kArr>
-cudaError_t launch_flat_dkv(const FlashParams& p, int b, cudaStream_t stream) {
-  size_t smem = dkv_smem_bytes<D>();
-  if (kRel)
-    smem += align16((4 * 16 * kDsLd + 2 * (2 * p.maxd + 1) + kMaxBuckets) *
-                    sizeof(float));
+// every map of a call; the bias's only when it goes by TMA (else the
+// kernel never reads it)
+bool make_maps(Maps& m, const FlashParams& p, int b, int d, int bias_tma) {
+  if (!view_map(&m.q, p.q, p.q_v, d, p.sq, p.h, b) ||
+      !view_map(&m.k, p.k, p.kv_v, d, p.sk, p.h_kv, b) ||
+      !view_map(&m.v, p.v, p.kv_v, d, p.sk, p.h_kv, b) ||
+      !view_map(&m.dout, p.dout, p.do_v, d, p.sq, p.h, b))
+    return false;
+  m.bias = m.q;
+  if (p.bias != nullptr && bias_tma) {
+    const long long dims[3] = {p.sk, p.sq, p.hb};
+    const long long strides[2] = {4LL * p.sk, 4LL * p.sk * p.sq};
+    const int box[3] = {32, 64, 1};
+    return make_tensor_map(&m.bias, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                           p.bias, dims, strides, box,
+                           CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  return true;
+}
+
+template <int D, int BIAS>
+cudaError_t launch_dkv(const Maps& m, const FlashParams& p, int b,
+                       int bias_tma, cudaStream_t st) {
+  auto kernel = flash_bwd_dkv_wgmma<D, BIAS>;
+  const size_t smem = DkvCfg<D, BIAS>::bytes(2 * p.maxd + 1);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_flat_dkv_kernel<D, kVarlen, kRel, kArr>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(b * p.h_kv, (p.sk + kBkv - 1) / kBkv);
-  flash_bwd_flat_dkv_kernel<D, kVarlen, kRel, kArr>
-      <<<grid, kThreads, smem, stream>>>(p);
+  const long long grid =
+      static_cast<long long>(b) * p.h_kv * ((p.sk + kBkv - 1) / kBkv);
+  kernel<<<static_cast<unsigned>(grid), kThreads, smem, st>>>(
+      m.q, m.k, m.v, m.dout, m.bias, p, bias_tma);
   return cudaGetLastError();
 }
 
-template <int D, bool kVarlen, bool kRel, bool kArr>
-cudaError_t launch_flat_dq(const FlashParams& p, int b, cudaStream_t stream) {
-  size_t smem = dq_smem_bytes<D>();
-  if (kRel) smem += align16((2 * p.maxd + 1) * sizeof(float));
+template <int D, int BIAS>
+cudaError_t launch_dq(const Maps& m, const FlashParams& p, int b,
+                      int bias_tma, cudaStream_t st) {
+  auto kernel = flash_bwd_dq_wgmma<D, BIAS>;
+  const size_t smem = DqCfg<D, BIAS>::bytes(2 * p.maxd + 1);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_flat_dq_kernel<D, kVarlen, kRel, kArr>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(b * p.h, (p.sq + kBq - 1) / kBq);
-  flash_bwd_flat_dq_kernel<D, kVarlen, kRel, kArr>
-      <<<grid, kThreads, smem, stream>>>(p);
+  const long long grid =
+      static_cast<long long>(b) * p.h * ((p.sq + kBqCta - 1) / kBqCta);
+  kernel<<<static_cast<unsigned>(grid), kThreads, smem, st>>>(
+      m.q, m.k, m.v, m.dout, m.bias, p, bias_tma);
   return cudaGetLastError();
 }
 
-// one launcher per kernel over the options the arguments ask for
-template <int D, bool kDkv, bool kVarlen>
-cudaError_t dispatch_bias(const FlashParams& p, int b, cudaStream_t st) {
-#define APEX_LAUNCH(R, A)                                 \
-  (kDkv ? launch_flat_dkv<D, kVarlen, R, A>(p, b, st) \
-        : launch_flat_dq<D, kVarlen, R, A>(p, b, st))
-  if (p.lut != nullptr) return APEX_LAUNCH(true, false);
-  if (p.bias != nullptr) return APEX_LAUNCH(false, true);
-  return APEX_LAUNCH(false, false);
+template <bool kDkv, int D>
+cudaError_t dispatch(const Maps& m, const FlashParams& p, int b,
+                     int bias_tma, cudaStream_t st) {
+#define APEX_LAUNCH(K) \
+  (kDkv ? launch_dkv<D, K>(m, p, b, bias_tma, st) \
+        : launch_dq<D, K>(m, p, b, bias_tma, st))
+  if (p.lut != nullptr) return APEX_LAUNCH(kRel);
+  if (p.bias != nullptr) return APEX_LAUNCH(kArr);
+  return APEX_LAUNCH(kNone);
 #undef APEX_LAUNCH
 }
 
-template <int D, bool kDkv>
-cudaError_t dispatch(const FlashParams& p, int b, cudaStream_t st) {
-  return p.kv_lens != nullptr ? dispatch_bias<D, kDkv, true>(p, b, st)
-                              : dispatch_bias<D, kDkv, false>(p, b, st);
+// the checks both variants share
+bool bad_call(const FlashParams& p, int b, int d, bool dkv) {
+  return b < 1 || p.sq < 1 || p.sk < 1 || p.h < 1 || p.h_kv < 1 ||
+         p.h % p.h_kv || (d != 64 && d != 128) ||
+         (p.causal && p.sq > p.sk) ||
+         static_cast<long long>(b) * p.h > 0x7fffffffLL ||
+         (p.lut != nullptr && p.bias != nullptr) ||
+         (p.bias != nullptr && p.hb < 1) ||
+         (p.lut != nullptr &&
+          (p.maxd < 1 || p.maxd > kMaxDist || p.hb < 1 || p.nb < 1 ||
+           p.nb > kMaxBuckets || (dkv && (!p.bucket || !p.dtab))));
 }
 
 template <bool kDkv>
-int run(int d, const FlashParams& p, int b, void* stream) {
-  if (b < 1 || p.sq < 1 || p.sk < 1 || p.h < 1 || p.h_kv < 1 ||
-      p.h % p.h_kv || (d != 64 && d != 128) ||
-      (p.sq + kBqStep - 1) / kBqStep > 65535 ||
-      (p.sk + kBkv - 1) / kBkv > 65535 || (p.causal && p.sq > p.sk) ||
-      static_cast<long long>(b) * p.h > 0x7fffffffLL ||
-      (p.lut != nullptr && p.bias != nullptr) ||
-      (p.bias != nullptr && p.hb < 1) ||
-      (p.lut != nullptr &&
-       (p.maxd < 1 || p.maxd > 4096 || p.hb < 1 || p.nb < 1 ||
-        p.nb > kMaxBuckets || (kDkv && (!p.bucket || !p.dtab)))))
+int run(int d, const FlashParams& p, int b, int variant, int bias_tma,
+        void* stream) {
+  if (bad_call(p, b, d, kDkv) || (variant != 0 && variant != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (variant == 0)
+    return kDkv ? apex::flash_bwd_sm80::run_dkv(d, p, b, stream)
+                : apex::flash_bwd_sm80::run_dq(d, p, b, stream);
+  const long long tiles =
+      kDkv ? static_cast<long long>(b) * p.h_kv * ((p.sk + kBkv - 1) / kBkv)
+           : static_cast<long long>(b) * p.h * ((p.sq + kBqCta - 1) / kBqCta);
+  Maps m;
+  if (p.delta == nullptr || tiles > 0x7fffffffLL ||
+      !make_maps(m, p, b, d, bias_tma))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = d == 128 ? dispatch<128, kDkv>(p, b, st)
-                                   : dispatch<64, kDkv>(p, b, st);
+  const cudaError_t err = d == 128 ? dispatch<kDkv, 128>(m, p, b, bias_tma, st)
+                                   : dispatch<kDkv, 64>(m, p, b, bias_tma, st);
   return static_cast<int>(err);
 }
 
-// the bh-flat entries' shared arguments: `strides` holds (batch, head,
-// row) element strides of q, k/v, o, do and the output(s) (dq, or dk/dv):
-// 15 values, each a multiple of 8 elements (16-byte aligned rows)
+// the entries' shared arguments: `strides` holds (batch, head, row)
+// element strides of q, k/v, o, do and the output(s) (dq, or dk/dv): 15
+// values, each a multiple of 8 elements (16-byte aligned rows)
 bool flat_params(FlashParams& p, const void* q, const void* k, const void* v,
                  const void* o, const void* dout, const void* lse,
-                 const void* kv_lens, const void* lut, const void* bucket,
-                 const void* bias, const long long* strides, int h, int h_kv,
-                 int sq, int sk, int causal, float scale, int maxd,
-                 int rel_off, int hb, int nb, int lens_b, int lens_h) {
+                 const void* delta, const void* kv_lens, const void* lut,
+                 const void* bucket, const void* bias,
+                 const long long* strides, int h, int h_kv, int sq, int sk,
+                 int causal, float scale, int maxd, int rel_off, int hb,
+                 int nb, int lens_b, int lens_h) {
   for (int i = 0; i < 15; ++i)
     if (strides[i] < 0 || strides[i] % 8) return false;
   p.q = static_cast<const bf16*>(q);
@@ -1027,6 +1084,7 @@ bool flat_params(FlashParams& p, const void* q, const void* k, const void* v,
   p.o = static_cast<const bf16*>(o);
   p.dout = static_cast<const bf16*>(dout);
   p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<float*>(const_cast<void*>(delta));
   p.kv_lens = static_cast<const int*>(kv_lens);
   p.lut = static_cast<const float*>(lut);
   p.bucket = static_cast<const int*>(bucket);
@@ -1053,72 +1111,50 @@ bool flat_params(FlashParams& p, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-extern "C" int apex_flash_bwd_dkv(const void* qkv, const void* o,
-                                  const void* dout, const void* lse, void* dk,
-                                  void* dv, int b, int s, int h, int h_kv,
-                                  int d, int causal, float scale,
-                                  void* stream) {
-  if (bad_shape(b, s, h, h_kv, d))
+// dq and delta (b*h, sq) fp32 (written by variant 1; variant 0 computes
+// its own and leaves delta alone). Operands as (batch, head, row)-strided
+// views: q, o, do, dq (b, h, sq, d), k, v (b, h_kv, sk, d), bf16; lse
+// (b*h, sq) fp32; kv_lens int32 at bi * lens_b + hi * lens_h, or null;
+// lut (hb, 2 * maxd + 1) fp32 (the bucketed bias) or bias (hb, sq, sk)
+// fp32 (the array bias), or neither. bias_tma: the wgmma variant stages
+// the bias by TMA (sk a multiple of 4, base 16-byte aligned), else by
+// cp.async. A seq-major tensor is the head-stride-d case of these views,
+// with per-batch kv_lens (lens_b = 1, lens_h = 0); the packed buffer the
+// views of its sections.
+extern "C" int apex_flash_bwd_dq(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* dq, void* delta,
+    const void* kv_lens, const void* lut, const void* bias,
+    const long long* strides, int b, int h, int h_kv, int sq, int sk, int d,
+    int causal, float scale, int maxd, int rel_off, int hb, int lens_b,
+    int lens_h, int variant, int bias_tma, void* stream) {
+  FlashParams p{};
+  if (!flat_params(p, q, k, v, o, dout, lse, delta, kv_lens, lut, nullptr,
+                   bias, strides, h, h_kv, sq, sk, causal, scale, maxd,
+                   rel_off, hb, 1, lens_b, lens_h))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      d == 128 ? launch_dkv<128>(qkv, o, dout, lse, dk, dv, b, s, h, h_kv,
-                                 causal, scale, st)
-               : launch_dkv<64>(qkv, o, dout, lse, dk, dv, b, s, h, h_kv,
-                                causal, scale, st);
-  return static_cast<int>(err);
-}
-
-extern "C" int apex_flash_bwd_dq(const void* qkv, const void* o,
-                                 const void* dout, const void* lse, void* dq,
-                                 int b, int s, int h, int h_kv, int d,
-                                 int causal, float scale, void* stream) {
-  if (bad_shape(b, s, h, h_kv, d))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      d == 128 ? launch_dq<128>(qkv, o, dout, lse, dq, b, s, h, h_kv, causal,
-                                scale, st)
-               : launch_dq<64>(qkv, o, dout, lse, dq, b, s, h, h_kv, causal,
-                               scale, st);
-  return static_cast<int>(err);
+  p.out = static_cast<bf16*>(dq);
+  return run<false>(d, p, b, variant, bias_tma, stream);
 }
 
 // dk, dv (b, h_kv, sk, d) and, with a lut, the bucket-table gradient
-// added into dtab (hb, nb) fp32, which the caller zeroes on the stream;
-// bias (hb, sq, sk) fp32 or null (at most one of lut and bias); kv_lens
-// int32 at bi * lens_b + hi * lens_h, or null. A seq-major (bshd) tensor
-// is the head-stride-d case of these views, with per-batch kv_lens
-// (lens_b = 1, lens_h = 0).
-extern "C" int apex_flash_bwd_flat_dkv(
+// added into dtab (hb, nb) fp32, which the caller zeroes on the stream.
+// Variant 1 reads delta, which the dQ entry wrote; variant 0 reads O.
+extern "C" int apex_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* dk, void* dv, void* dtab,
-    const void* kv_lens, const void* lut, const void* bucket,
+    const void* dout, const void* lse, const void* delta, void* dk, void* dv,
+    void* dtab, const void* kv_lens, const void* lut, const void* bucket,
     const void* bias, const long long* strides, int b, int h, int h_kv,
     int sq, int sk, int d, int causal, float scale, int maxd, int rel_off,
-    int hb, int nb, int lens_b, int lens_h, void* stream) {
+    int hb, int nb, int lens_b, int lens_h, int variant, int bias_tma,
+    void* stream) {
   FlashParams p{};
-  if (!flat_params(p, q, k, v, o, dout, lse, kv_lens, lut, bucket, bias,
-                   strides, h, h_kv, sq, sk, causal, scale, maxd, rel_off, hb,
-                   nb, lens_b, lens_h))
+  if (!flat_params(p, q, k, v, o, dout, lse, delta, kv_lens, lut, bucket,
+                   bias, strides, h, h_kv, sq, sk, causal, scale, maxd,
+                   rel_off, hb, nb, lens_b, lens_h))
     return static_cast<int>(cudaErrorInvalidValue);
   p.dk = static_cast<bf16*>(dk);
   p.dv = static_cast<bf16*>(dv);
   p.dtab = static_cast<float*>(dtab);
-  return run<true>(d, p, b, stream);
-}
-
-extern "C" int apex_flash_bwd_flat_dq(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* dq, const void* kv_lens,
-    const void* lut, const void* bias, const long long* strides, int b,
-    int h, int h_kv, int sq, int sk, int d, int causal, float scale,
-    int maxd, int rel_off, int hb, int lens_b, int lens_h, void* stream) {
-  FlashParams p{};
-  if (!flat_params(p, q, k, v, o, dout, lse, kv_lens, lut, nullptr, bias,
-                   strides, h, h_kv, sq, sk, causal, scale, maxd, rel_off, hb,
-                   1, lens_b, lens_h))
-    return static_cast<int>(cudaErrorInvalidValue);
-  p.out = static_cast<bf16*>(dq);
-  return run<false>(d, p, b, stream);
+  return run<true>(d, p, b, variant, bias_tma, stream);
 }

@@ -48,6 +48,8 @@ struct FlashParams {
   const int* kv_lens;              // see lens_b / lens_h, or null
   const float* bias;               // (hb, sq, sk) fp32 or null
   float* dbias;                    // (hb, sq, sk) fp32 dbias output
+  float* delta;                    // (b*h, sq) fp32 rowsum(do * o): the
+                                   // wgmma dQ kernel writes, dK/dV reads
   const float* lut;                // (hb, 2 * maxd + 1) or null
   const int* bucket;               // (2 * maxd + 1,) or null
   View q_v, kv_v, o_v, do_v, out_v, dkv_v;

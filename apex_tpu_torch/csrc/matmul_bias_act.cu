@@ -524,9 +524,9 @@ __global__ void __launch_bounds__(kWThreads, 1)
         wgmma_fence();
 #pragma unroll
         for (int j = 0; j < kWK / 16; ++j)
-          wgmma_m64n128k16<A_K ? 0 : 1, B_K ? 0 : 1>(
+          wgmma_m64n128k16_ss<A_K ? 0 : 1, B_K ? 0 : 1>(
               acc, wgmma_desc(a + j * kAStep, kALbo, 1024),
-              wgmma_desc(b + j * kBStep, kBLbo, 1024));
+              wgmma_desc(b + j * kBStep, kBLbo, 1024), 1);
         wgmma_commit();
         fence_operand(acc);
         wgmma_wait<1>();  // the previous step's wgmma has read its stage

@@ -55,12 +55,6 @@ ENTRY_POINTS = {
     "apex_fused_sample": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _F, _P],
     # qkv, out, lse, b, s, h, h_kv, d, causal, scale, stream
     "apex_flash_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
-    # qkv, o, do, lse, dk, dv, b, s, h, h_kv, d, causal, scale, stream
-    "apex_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _F, _P],
-    # qkv, o, do, lse, dq, b, s, h, h_kv, d, causal, scale, stream
-    "apex_flash_bwd_dq": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                          _P],
     # logits, labels, m, l, t, row_sum, dtype, labels_int64, n, V, stream
     "apex_xent_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, out, lse, kv_lens, bias, q_bstride, kv_bstride, q_stride,
@@ -71,18 +65,18 @@ ENTRY_POINTS = {
     # h_kv, sq, sk, d, causal, scale, maxd, rel_off, hb, stream
     "apex_flash_fwd_flat": [_P, _P, _P, _P, _P, _P, _P, _P, _S, _I, _I, _I,
                             _I, _I, _I, _I, _F, _I, _I, _I, _P],
-    # q, k, v, o, do, lse, dk, dv, dtab, kv_lens, lut, bucket, bias, strides
-    # (q, kv, o, do, dk/dv), b, h, h_kv, sq, sk, d, causal, scale, maxd,
-    # rel_off, hb, nb, lens_b, lens_h, stream
-    "apex_flash_bwd_flat_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _P, _P, _S, _I, _I, _I, _I, _I, _I, _I, _F,
-                                _I, _I, _I, _I, _I, _I, _P],
-    # q, k, v, o, do, lse, dq, kv_lens, lut, bias, strides (q, kv, o, do,
-    # dq), b, h, h_kv, sq, sk, d, causal, scale, maxd, rel_off, hb, lens_b,
-    # lens_h, stream
-    "apex_flash_bwd_flat_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _S,
-                               _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
-                               _I, _I, _P],
+    # q, k, v, o, do, lse, delta, dk, dv, dtab, kv_lens, lut, bucket, bias,
+    # strides (q, kv, o, do, dk/dv), b, h, h_kv, sq, sk, d, causal, scale,
+    # maxd, rel_off, hb, nb, lens_b, lens_h, variant, bias_tma, stream
+    "apex_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _S, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                           _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, o, do, lse, dq, delta, kv_lens, lut, bias, strides (q, kv,
+    # o, do, dq), b, h, h_kv, sq, sk, d, causal, scale, maxd, rel_off, hb,
+    # lens_b, lens_h, variant, bias_tma, stream
+    "apex_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _S,
+                          _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
+                          _I, _I, _I, _P],
     # q, k, v, o, do, lse, bias, dbias, kv_lens, strides (q, kv, o, do), b,
     # h, h_kv, sq, sk, d, causal, scale, hb, lens_b, lens_h, stream
     "apex_flash_bwd_dbias": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _S, _I, _I,

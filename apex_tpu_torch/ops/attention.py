@@ -23,11 +23,11 @@ Port of the packed path of ``apex_tpu/ops/attention.py``:
   with bottom-right causal alignment, per-BATCH ``kv_lens`` (b,) and the
   array bias — the decode engine's prefill and BERT's padded train step. A
   CUDA tensor launches :func:`flash_fwd_bshd_cuda`,
-  :func:`flash_bwd_bshd_dkv_cuda` and :func:`flash_bwd_bshd_dq_cuda` (the
+  :func:`flash_bwd_bshd_dq_cuda` and :func:`flash_bwd_bshd_dkv_cuda` (the
   ``apex_flash_fwd_bshd`` entry of ``csrc/flash_attn_fwd.cu``, and the
-  bh-flat ``apex_flash_bwd_flat_*`` entries of ``flash_attn_bwd.cu`` on
-  the operands' (b, h, s, d) views with per-batch lengths, replacing the
-  Pallas ``flash_fwd_bshd`` and ``flash_bwd_bshd``); a CPU tensor runs
+  backward pair of ``flash_attn_bwd.cu`` on the operands' (b, h, s, d)
+  views with per-batch lengths, replacing the Pallas ``flash_fwd_bshd``
+  and ``flash_bwd_bshd``); a CPU tensor runs
   :func:`_torch_flash_fwd_bshd` and :func:`_torch_flash_bwd_bshd`, the
   flat plain versions on the (b·h, s, d) rows with the lengths expanded
   over the heads (the reference's XLA path, ``:466-486``, ``:518-527``).
@@ -38,9 +38,9 @@ Port of the packed path of ``apex_tpu/ops/attention.py``:
   and backward: the bh-flat family, q (..., sq, d) and k/v (..., sk, d)
   flattened to rows, with per-row ``kv_lens`` and the bucketed T5
   relative bias (:class:`BucketedBias`, ``:48-130``). A CUDA tensor
-  launches :func:`flash_fwd_flat_cuda`, :func:`flash_bwd_flat_dkv_cuda`
-  and :func:`flash_bwd_flat_dq_cuda` (``apex_flash_fwd_flat`` and
-  ``apex_flash_bwd_flat_*`` of ``csrc/flash_attn_fwd.cu`` and
+  launches :func:`flash_fwd_flat_cuda`, :func:`flash_bwd_flat_dq_cuda`
+  and :func:`flash_bwd_flat_dkv_cuda` (``apex_flash_fwd_flat`` of
+  ``csrc/flash_attn_fwd.cu`` and the backward pair of
   ``flash_attn_bwd.cu``, replacing the Pallas ``flash_fwd``,
   ``flash_bwd`` and ``_dtable_pallas``: the dK/dV kernel also sums the
   bucket-table gradient); a CPU tensor runs :func:`_torch_flash_fwd_flat`
@@ -55,6 +55,12 @@ Port of the packed path of ``apex_tpu/ops/attention.py``:
   kernel, :func:`flash_bwd_dbias_cuda` (``csrc/flash_attn_dbias.cu``,
   replacing the Pallas ``_dbias_pallas``).
 
+The backward pair (:func:`_bwd_plan`) runs on Hopper's ``wgmma``/TMA
+kernels for all three layouts — the dQ kernel first: it writes delta =
+rowsum(do·o) (:func:`bwd_delta` is its plain version), which the dK/dV
+kernel reads — or, through ``variant="sm80"`` on the ``_cuda`` wrappers
+only, on the first ``mma.sync`` pair (``csrc/flash_attn_bwd_sm80.cu``).
+
 Dropout (``dropout_keep``) and the bucketed bias on the bshd layout are
 later slices of the port.
 """
@@ -64,7 +70,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -367,7 +373,7 @@ def _torch_flash_bwd(qkv, o, lse, do, h, h_kv, d, scale, causal):
     sc = masked_scores(q, k[:, :, None], scale, causal)
     p = torch.exp(sc - lse.reshape(b, h_kv, group, s)[..., None])
     del sc
-    delta = (dof * of).sum(-1, keepdim=True)
+    delta = bwd_delta(of, dof)[..., None]
     dv = torch.einsum("bngqk,bngqd->bnkd", p.to(dt).float(), dof)
     dp = torch.einsum("bngqd,bnkd->bngqk", dof, v.float())
     ds = (p * (dp - delta) * scale).to(dt).float()
@@ -393,10 +399,11 @@ def _torch_flash_fwd_flat(q, k, v, scale, causal, kv_lens=None, bias=None):
 
 
 def _torch_flash_bwd_flat(q, k, v, o, lse, do, scale, causal, kv_lens=None,
-                          bias=None):
+                          bias=None, delta=None):
     """The backward of :func:`_torch_flash_fwd_flat` with the Pallas
     kernels' rounding points (``_bwd_dq_kernel``/``_bwd_dkv_kernel``,
-    ``:869-1018``): p = exp(s − lse); delta = rowsum(do·o) in fp32; dV from
+    ``:869-1018``): p = exp(s − lse); delta = rowsum(do·o) in fp32 (given,
+    (bh, sq), as the dQ kernel hands it to dK/dV, or computed); dV from
     p rounded to do's dtype; the unscaled dS = p·(dP − delta) in fp32,
     summed over the rows sharing each bias row for dbias (hb, sq, sk);
     dS·scale rounded to q's dtype before dQ and dK; kv-group sums in fp32
@@ -409,7 +416,7 @@ def _torch_flash_bwd_flat(q, k, v, o, lse, do, scale, causal, kv_lens=None,
     p = torch.exp(s - lse[..., None])
     del s
     dof = do.float()
-    delta = (dof * o.float()).sum(-1, keepdim=True)
+    delta = (bwd_delta(o, do) if delta is None else delta)[..., None]
     dv = torch.einsum("bqk,bqd->bkd", p.to(dt).float(), dof)
     dp = torch.einsum("bqd,bkd->bqk", dof, _repeat_kv(v, bh).float())
     ds = p * (dp - delta)
@@ -528,45 +535,77 @@ def _check_bwd(qkv, o, lse, do, h, h_kv, d, name):
     return b, s
 
 
-def flash_bwd_dkv_cuda(qkv: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
-                       do: torch.Tensor, h: int, h_kv: int, d: int, *,
-                       scale: float, causal: bool
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dK/dV kernel: dk, dv (b, s, h_kv·d) bf16, each kv
-    group's query heads summed in fp32. Counts launches in
-    ``.launches``."""
-    b, s = _check_bwd(qkv, o, lse, do, h, h_kv, d, "flash_bwd_dkv_cuda")
-    dk = torch.empty((b, s, h_kv * d), dtype=qkv.dtype, device=qkv.device)
-    dv = torch.empty_like(dk)
-    rc = _build.library().apex_flash_bwd_dkv(
-        qkv.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, s, h, h_kv, d, int(causal),
-        float(scale), torch.cuda.current_stream(qkv.device).cuda_stream)
-    _build.check(rc, "flash_bwd_dkv")
-    flash_bwd_dkv_cuda.launches += 1
-    return dk, dv
+def _packed_views(qkv: torch.Tensor, h: int, h_kv: int, d: int):
+    """q (b, h, s, d), k and v (b, h_kv, s, d): the packed buffer's three
+    sections as the backward kernels' strided views, no copy."""
+    def heads(lo, n):
+        return qkv[..., lo * d:(lo + n) * d].unflatten(-1, (n, d)).transpose(
+            1, 2)
+    return heads(0, h), heads(h, h_kv), heads(h + h_kv, h_kv)
 
 
-flash_bwd_dkv_cuda.launches = 0
+def _heads4(x: torch.Tensor, d: int) -> torch.Tensor:
+    """A (b, s, heads·d) tensor as a (b, heads, s, d) view."""
+    return x.unflatten(-1, (x.shape[-1] // d, d)).transpose(1, 2)
 
 
 def flash_bwd_dq_cuda(qkv: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
                       do: torch.Tensor, h: int, h_kv: int, d: int, *,
-                      scale: float, causal: bool) -> torch.Tensor:
-    """Launch the dQ kernel: dq (b, s, h·d) bf16. Counts launches in
-    ``.launches``."""
-    b, s = _check_bwd(qkv, o, lse, do, h, h_kv, d, "flash_bwd_dq_cuda")
+                      scale: float, causal: bool,
+                      variant: Optional[str] = None,
+                      planted_fault: Optional[str] = None
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch the dQ kernel on the packed buffer: dq (b, s, h·d) bf16 and
+    delta (b·h, s) fp32 = rowsum(do·o), which the dK/dV kernel reads
+    (None on the ``"sm80"`` variant). ``variant`` and ``planted_fault``
+    are for the A/B timing and the kernel checks (:func:`_bwd_plan`,
+    :func:`_planted`). Counts launches in ``.launches`` and by variant in
+    ``.wgmma_launches`` and ``.sm80_launches``."""
+    name = "flash_bwd_dq_cuda"
+    b, s = _check_bwd(qkv, o, lse, do, h, h_kv, d, name)
     dq = torch.empty((b, s, h * d), dtype=qkv.dtype, device=qkv.device)
-    rc = _build.library().apex_flash_bwd_dq(
-        qkv.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        dq.data_ptr(), b, s, h, h_kv, d, int(causal), float(scale),
-        torch.cuda.current_stream(qkv.device).cuda_stream)
-    _build.check(rc, "flash_bwd_dq")
-    flash_bwd_dq_cuda.launches += 1
-    return dq
+    q4, k4, v4 = _packed_views(qkv, h, h_kv, d)
+    plan, delta = _launch_dq(
+        name, q4, k4, v4, _heads4(o, d), _heads4(do, d), _heads4(dq, d), lse,
+        scale=scale, causal=causal, variant=variant,
+        planted_fault=planted_fault)
+    _count(flash_bwd_dq_cuda, plan)
+    return dq, delta
 
 
 flash_bwd_dq_cuda.launches = 0
+flash_bwd_dq_cuda.wgmma_launches = 0
+flash_bwd_dq_cuda.sm80_launches = 0
+
+
+def flash_bwd_dkv_cuda(qkv: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+                       do: torch.Tensor, h: int, h_kv: int, d: int, *,
+                       scale: float, causal: bool,
+                       delta: Optional[torch.Tensor] = None,
+                       variant: Optional[str] = None,
+                       planted_fault: Optional[str] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dK/dV kernel on the packed buffer: dk, dv (b, s, h_kv·d)
+    bf16, each kv group's query heads summed in fp32. The ``"wgmma"``
+    variant reads ``delta`` from :func:`flash_bwd_dq_cuda` (call it
+    first). Counts launches in ``.launches``, ``.wgmma_launches`` and
+    ``.sm80_launches``."""
+    name = "flash_bwd_dkv_cuda"
+    b, s = _check_bwd(qkv, o, lse, do, h, h_kv, d, name)
+    dk = torch.empty((b, s, h_kv * d), dtype=qkv.dtype, device=qkv.device)
+    dv = torch.empty_like(dk)
+    q4, k4, v4 = _packed_views(qkv, h, h_kv, d)
+    plan = _launch_dkv(
+        name, q4, k4, v4, _heads4(o, d), _heads4(do, d), _heads4(dk, d),
+        _heads4(dv, d), lse, delta, scale=scale, causal=causal,
+        variant=variant, planted_fault=planted_fault)
+    _count(flash_bwd_dkv_cuda, plan)
+    return dk, dv
+
+
+flash_bwd_dkv_cuda.launches = 0
+flash_bwd_dkv_cuda.wgmma_launches = 0
+flash_bwd_dkv_cuda.sm80_launches = 0
 
 
 def _seq_major_ok(t: torch.Tensor) -> bool:
@@ -637,8 +676,14 @@ def _check_bias(bias: Optional[torch.Tensor], rows: int, sq: int, sk: int,
     return bias.shape[0]
 
 
-def _count(fn, bias) -> None:
+def _count(fn, plan=None, bias=None) -> None:
+    """One launch of a wrapper: ``.launches``, by backward variant
+    (``.wgmma_launches``, ``.sm80_launches``) and with an array bias
+    (``.bias_launches``)."""
     fn.launches += 1
+    if plan is not None:
+        attr = f"{plan.variant}_launches"
+        setattr(fn, attr, getattr(fn, attr) + 1)
     if bias is not None:
         fn.bias_launches += 1
 
@@ -667,7 +712,7 @@ def flash_fwd_bshd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.stride(1), k.stride(1), b, sq, sk, h, h_kv, d, int(causal),
         float(scale), hb, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_fwd_bshd")
-    _count(flash_fwd_bshd_cuda, bias)
+    _count(flash_fwd_bshd_cuda, bias=bias)
     return out, lse
 
 
@@ -698,66 +743,68 @@ def _bshd_views(*ts: torch.Tensor):
 _LENS_PER_BATCH = (1, 0)
 
 
+def flash_bwd_bshd_dq_cuda(q, k, v, o, lse, do, *, scale: float,
+                           causal: bool,
+                           kv_lens: Optional[torch.Tensor] = None,
+                           bias: Optional[torch.Tensor] = None,
+                           variant: Optional[str] = None,
+                           planted_fault: Optional[str] = None
+                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch the dQ kernel on seq-major operands: q, o, do (b, sq, h, d),
+    k, v (b, sk, h_kv, d) bf16, lse (b, h, sq) fp32, kv_lens (b,) int32 or
+    None, bias (hb, sq, sk) fp32 or None → dq (b, sq, h, d) bf16 and delta
+    (b·h, sq) fp32 for the dK/dV kernel (None on ``"sm80"``). Counts
+    launches in ``.launches``, by variant and in ``.bias_launches``."""
+    name = "flash_bwd_bshd_dq_cuda"
+    hb = _check_bshd_bwd(q, k, v, o, lse, do, causal, kv_lens, bias, name)
+    b, sq, h, d = q.shape
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    plan, delta = _launch_dq(
+        name, *_bshd_views(q, k, v, o, do, dq), lse, scale=scale,
+        causal=causal, kv_lens=kv_lens, lens_strides=_LENS_PER_BATCH, hb=hb,
+        bias=bias, variant=variant, planted_fault=planted_fault)
+    _count(flash_bwd_bshd_dq_cuda, plan, bias)
+    return dq, delta
+
+
+flash_bwd_bshd_dq_cuda.launches = 0
+flash_bwd_bshd_dq_cuda.wgmma_launches = 0
+flash_bwd_bshd_dq_cuda.sm80_launches = 0
+flash_bwd_bshd_dq_cuda.bias_launches = 0
+
+
 def flash_bwd_bshd_dkv_cuda(q, k, v, o, lse, do, *, scale: float,
                             causal: bool,
                             kv_lens: Optional[torch.Tensor] = None,
-                            bias: Optional[torch.Tensor] = None
+                            bias: Optional[torch.Tensor] = None,
+                            delta: Optional[torch.Tensor] = None,
+                            variant: Optional[str] = None,
+                            planted_fault: Optional[str] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the bh-flat dK/dV kernel on seq-major operands: q, o, do (b,
-    sq, h, d), k, v (b, sk, h_kv, d) bf16, lse (b, h, sq) fp32, kv_lens
-    (b,) int32 or None, bias (hb, sq, sk) fp32 or None → dk, dv (b, sk,
-    h_kv, d) bf16, each kv group's query heads summed in fp32 and cast
-    once. Counts launches in ``.launches`` and ``.bias_launches``."""
+    """Launch the dK/dV kernel on seq-major operands (as
+    :func:`flash_bwd_bshd_dq_cuda`, whose ``delta`` the ``"wgmma"``
+    variant reads) → dk, dv (b, sk, h_kv, d) bf16, each kv group's query
+    heads summed in fp32 and cast once. Counts launches in ``.launches``,
+    by variant and in ``.bias_launches``."""
     name = "flash_bwd_bshd_dkv_cuda"
     hb = _check_bshd_bwd(q, k, v, o, lse, do, causal, kv_lens, bias, name)
     b, sq, h, d = q.shape
     sk, h_kv = k.shape[1], k.shape[2]
     dk = torch.empty((b, sk, h_kv, d), dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
-    q4, k4, o4, do4, dk4 = _bshd_views(q, k, o, do, dk)
-    rc = _build.library().apex_flash_bwd_flat_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), dk.data_ptr(), dv.data_ptr(), None,
-        _ptr(kv_lens), None, None, _ptr(bias),
-        _stride_array(q4, k4, o4, do4, dk4), b, h, h_kv, sq, sk, d,
-        int(causal), float(scale), 0, 0, hb, 1, *_LENS_PER_BATCH,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, "flash_bwd_bshd_dkv")
-    _count(flash_bwd_bshd_dkv_cuda, bias)
+    q4, k4, v4, o4, do4, dk4, dv4 = _bshd_views(q, k, v, o, do, dk, dv)
+    plan = _launch_dkv(
+        name, q4, k4, v4, o4, do4, dk4, dv4, lse, delta, scale=scale,
+        causal=causal, kv_lens=kv_lens, lens_strides=_LENS_PER_BATCH, hb=hb,
+        bias=bias, variant=variant, planted_fault=planted_fault)
+    _count(flash_bwd_bshd_dkv_cuda, plan, bias)
     return dk, dv
 
 
 flash_bwd_bshd_dkv_cuda.launches = 0
+flash_bwd_bshd_dkv_cuda.wgmma_launches = 0
+flash_bwd_bshd_dkv_cuda.sm80_launches = 0
 flash_bwd_bshd_dkv_cuda.bias_launches = 0
-
-
-def flash_bwd_bshd_dq_cuda(q, k, v, o, lse, do, *, scale: float,
-                           causal: bool,
-                           kv_lens: Optional[torch.Tensor] = None,
-                           bias: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
-    """Launch the bh-flat dQ kernel on seq-major operands (as
-    :func:`flash_bwd_bshd_dkv_cuda`) → dq (b, sq, h, d) bf16. Counts
-    launches in ``.launches`` and ``.bias_launches``."""
-    name = "flash_bwd_bshd_dq_cuda"
-    hb = _check_bshd_bwd(q, k, v, o, lse, do, causal, kv_lens, bias, name)
-    b, sq, h, d = q.shape
-    sk, h_kv = k.shape[1], k.shape[2]
-    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    q4, k4, o4, do4, dq4 = _bshd_views(q, k, o, do, dq)
-    rc = _build.library().apex_flash_bwd_flat_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), dq.data_ptr(), _ptr(kv_lens), None,
-        _ptr(bias), _stride_array(q4, k4, o4, do4, dq4), b, h, h_kv, sq, sk,
-        d, int(causal), float(scale), 0, 0, hb, *_LENS_PER_BATCH,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, "flash_bwd_bshd_dq")
-    _count(flash_bwd_bshd_dq_cuda, bias)
-    return dq
-
-
-flash_bwd_bshd_dq_cuda.launches = 0
-flash_bwd_bshd_dq_cuda.bias_launches = 0
 
 
 def _rows4(x: torch.Tensor, group: int = 1) -> torch.Tensor:
@@ -875,6 +922,249 @@ def _flat_bias_args(rel_bias: Optional[BucketedBias],
     return _rel_args(rel_bias, rows)
 
 
+# --- the backward pair's launch plan ------------------------------------------
+
+#: the backward kernels' variants: "wgmma" (TMA and wgmma, one body for
+#: every layout: every path's call) and "sm80" (the first mma.sync pair,
+#: reached only through ``variant="sm80"``, for the A/B timing and tests)
+BWD_VARIANTS = ("wgmma", "sm80")
+#: the wgmma dK/dV kernel's tiles: kv rows per CTA, query rows per stage
+#: (64 at d 128 and with an array bias; 128 otherwise at d 64)
+DKV_KV_TILE, DKV_Q_TILE = 128, 64
+#: the wgmma dQ kernel's tiles: query rows per CTA, kv rows per stage (64
+#: at d 128; 128 at d 64)
+DQ_Q_TILE, DQ_KV_TILE = 128, 64
+#: the faults a backward wrapper plants on request, made from its own
+#: inputs, for the chip checks to refuse: the keys past the start of the
+#: last 64-row kv tile masked off, or the bias (array or bucketed) left out
+PLANTED_FAULTS = ("drop_last_kv_tile", "drop_bias")
+
+
+class TensorMap(NamedTuple):
+    """A TMA map as the kernel's host code encodes it: element type, the
+    extents (innermost first), the byte strides of axes 1.., the box."""
+    dtype: str
+    dims: Tuple[int, ...]
+    strides: Tuple[int, ...]
+    box: Tuple[int, ...]
+
+
+class BwdPlan(NamedTuple):
+    """One backward call's launch: the variant, the TMA maps of its
+    operands (``"q"``, ``"k"``, ``"v"``, ``"do"`` and, staged by TMA, the
+    bias; none on ``"sm80"``), how the array bias reaches shared memory
+    (``"tma"``, ``"cp.async"`` for rows no map describes, ``"global"``: the
+    sm80 kernels read it per score; None without one), and the wgmma
+    kernels' stage tiles, (dK/dV query rows, dQ kv rows) — the tiles
+    :func:`dkv_schedule` and :func:`dq_schedule` walk (None on sm80)."""
+    variant: str
+    maps: dict
+    bias_staging: Optional[str]
+    tiles: Optional[Tuple[int, int]] = None
+
+
+def _tensor_map(dtype: str, dims, strides, box) -> TensorMap:
+    """The map ``make_tensor_map`` (``csrc/apex_sm90.cuh``) encodes: an
+    axis of extent 1 is never stepped, and its stride becomes the largest
+    span of the others (a row's bytes at least), rounded up to 16
+    bytes."""
+    row = dims[0] * (4 if dtype == "fp32" else 2)
+    span = max([row] + [st * n for st, n in zip(strides, dims[1:])
+                        if n > 1])
+    fixed = tuple(st if n > 1 else -(-span // 16) * 16
+                  for st, n in zip(strides, dims[1:]))
+    return TensorMap(dtype, tuple(dims), fixed, tuple(box))
+
+
+def _view_map(x4: torch.Tensor) -> TensorMap:
+    """The (d, row, head, batch) bf16 map of a (b, heads, s, d) view:
+    64-row x 64-feature boxes (128 bytes: the 128-byte swizzle's span)."""
+    b, heads, rows, d = x4.shape
+    sb, sh, sr = _strides(x4)
+    return _tensor_map("bf16", (d, rows, heads, b), (2 * sr, 2 * sh, 2 * sb),
+                       (64, 64, 1, 1))
+
+
+def _bwd_variant(variant: Optional[str]) -> str:
+    if variant is None:
+        return "wgmma"
+    if variant not in BWD_VARIANTS:
+        raise ValueError(f"the flash backward has no variant {variant!r}; "
+                         f"it has {BWD_VARIANTS}")
+    return variant
+
+
+def _bwd_plan(q4: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor,
+              do4: torch.Tensor, bias: Optional[torch.Tensor] = None,
+              variant: Optional[str] = None) -> BwdPlan:
+    """Every host-side decision of a backward call, from its operands:
+    the variant (``"wgmma"`` unless the caller names another), the tensor
+    maps, and the bias's staging — by TMA where a map describes the fp32
+    (sk, sq, hb) bias (rows a multiple of 16 bytes, a 16-byte aligned
+    base; 32-column x 64-row boxes), else by ``cp.async`` of 8 or 4 bytes
+    into the same swizzled layout; and the stage tiles. Raises where no
+    map describes an operand; there is no fallback to the other
+    variant."""
+    variant = _bwd_variant(variant)
+    if variant == "sm80":
+        return BwdPlan("sm80", {}, None if bias is None else "global")
+    d = q4.shape[-1]  # the registers' and shared memory's tiles (DkvCfg)
+    tiles = (128 if d == 64 and bias is None else 64, 128 if d == 64 else 64)
+    maps = {}
+    for name, x4 in (("q", q4), ("k", k4), ("v", v4), ("do", do4)):
+        m = _view_map(x4)
+        if x4.data_ptr() % 16 or x4.stride(-1) != 1 \
+                or any(st % 16 for st in m.strides):
+            raise ValueError(
+                f"the wgmma flash backward: no tensor map describes {name} "
+                f"(strides {tuple(x4.stride())}, base {x4.data_ptr() % 16} "
+                f"bytes off 16)")
+        maps[name] = m
+    staging = None
+    if bias is not None:
+        hb, sq, sk = bias.shape
+        staging = ("tma" if sk % 4 == 0 and bias.data_ptr() % 16 == 0
+                   else "cp.async")
+        if staging == "tma":
+            maps["bias"] = _tensor_map("fp32", (sk, sq, hb),
+                                       (4 * sk, 4 * sk * sq), (32, 64, 1))
+    return BwdPlan(variant, maps, staging, tiles)
+
+
+def dkv_schedule(b: int, h: int, h_kv: int, sq: int, sk: int, causal: bool,
+                 lens=None, q_tile: int = DKV_Q_TILE):
+    """The wgmma dK/dV kernel's CTAs in launch order, as the kernel walks
+    them: (batch, kv head, first kv row, [(query head, first query row),
+    ...] in the order its ring loads them). CTAs go kv head by kv head
+    (so those in flight share their heads' Q and dO in the L2), and
+    within a head kv tile by kv tile (causal: the tiles that see the most
+    queries first); a CTA walks each query head of its kv group whose kv
+    length reaches its tile, and the query tiles (``q_tile`` rows: 128 at
+    d 64 unless an array bias is staged, else 64) from the causal
+    diagonal (bottom-right: row r sees column c iff c <= r + sk - sq)
+    down. ``lens``: (b, h) kv lengths or None."""
+    group, coff = h // h_kv, sk - sq
+    out = []
+    for bi in range(b):
+        for kvh in range(h_kv):
+            for kt in range(-(-sk // DKV_KV_TILE)):
+                k0 = kt * DKV_KV_TILE
+                qt0 = max(k0 - coff, 0) // q_tile if causal else 0
+                qts = range(qt0, -(-sq // q_tile))
+                heads = [kvh * group + i for i in range(group)
+                         if lens is None
+                         or k0 < min(max(int(lens[bi][kvh * group + i]), 0),
+                                     sk)]
+                out.append((bi, kvh, k0, [(hd, qt * q_tile)
+                                          for hd in heads for qt in qts]))
+    return out
+
+
+def dq_schedule(b: int, h: int, h_kv: int, sq: int, sk: int, causal: bool,
+                lens=None, kv_tile: int = DQ_KV_TILE):
+    """The wgmma dQ kernel's CTAs in launch order: (batch, head, first
+    query row, [first kv row of each stage]). CTAs go head by head (so
+    those in flight share their heads' K and V in the L2), within a head
+    the last query tiles first (causal: the longest); a CTA's kv tiles
+    (``kv_tile`` rows: 128 at d 64, 64 at d 128) run up to its last row's
+    causal diagonal and the row's kv length."""
+    coff, out = sk - sq, []
+    nq = -(-sq // DQ_Q_TILE)
+    for bi in range(b):
+        for hd in range(h):
+            lim = sk if lens is None else min(max(int(lens[bi][hd]), 0), sk)
+            for i in range(nq):
+                q0 = (nq - 1 - i) * DQ_Q_TILE
+                end = min(lim, q0 + DQ_Q_TILE + coff) if causal else lim
+                out.append((bi, hd, q0, list(range(0, max(end, 0),
+                                                   kv_tile))))
+    return out
+
+
+def bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """The plain version of the dQ kernel's side output: delta =
+    rowsum(do·o) in fp32 over the last dim (the backward's
+    ``delta``, ``:574-575``)."""
+    return (do.float() * o.float()).sum(-1)
+
+
+def _planted(fault: Optional[str], kv_lens, lens_strides, bias, lut,
+             b: int, h: int, sk: int, dev):
+    """The kernel's (kv_lens, lens strides, bias, lut) with a planted
+    fault (:data:`PLANTED_FAULTS`) made from them, or as given."""
+    if fault is None:
+        return kv_lens, lens_strides, bias, lut
+    if fault not in PLANTED_FAULTS:
+        raise ValueError(f"planted_fault must be one of {PLANTED_FAULTS}; "
+                         f"got {fault!r}")
+    if fault == "drop_bias":
+        return kv_lens, lens_strides, None, None
+    cap = (sk - 1) // DQ_KV_TILE * DQ_KV_TILE
+    if kv_lens is None:  # one length per row
+        return (torch.full((b * h,), cap, dtype=torch.int32, device=dev),
+                (h, 1), bias, lut)
+    return kv_lens.clamp(max=cap), lens_strides, bias, lut
+
+
+def _launch_dq(name, q4, k4, v4, o4, do4, dq4, lse, *, scale, causal,
+               kv_lens=None, lens_strides=None, lut=None, rel_off=0,
+               maxd=0, hb=1, bias=None, variant=None, planted_fault=None):
+    """The dQ entry on (b, heads, s, d) views. Returns (the plan, delta
+    or None)."""
+    b, h, sq, d = q4.shape
+    h_kv, sk = k4.shape[1], k4.shape[2]
+    lens_strides = lens_strides or (h, 1)
+    kv_lens, lens_strides, bias, lut = _planted(
+        planted_fault, kv_lens, lens_strides, bias, lut, b, h, sk, q4.device)
+    plan = _bwd_plan(q4, k4, v4, do4, bias, variant)
+    delta = (torch.empty((b * h, sq), dtype=torch.float32, device=q4.device)
+             if plan.variant == "wgmma" else None)
+    rc = _build.library().apex_flash_bwd_dq(
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
+        do4.data_ptr(), lse.data_ptr(), dq4.data_ptr(), _ptr(delta),
+        _ptr(kv_lens), _ptr(lut), _ptr(bias),
+        _stride_array(q4, k4, o4, do4, dq4), b, h, h_kv, sq, sk, d,
+        int(causal), float(scale), maxd, rel_off, hb, *lens_strides,
+        int(plan.variant == "wgmma"), int(plan.bias_staging == "tma"),
+        torch.cuda.current_stream(q4.device).cuda_stream)
+    _build.check(rc, name)
+    return plan, delta
+
+
+def _launch_dkv(name, q4, k4, v4, o4, do4, dk4, dv4, lse, delta, *, scale,
+                causal, kv_lens=None, lens_strides=None, lut=None,
+                bucket=None, dtab=None, rel_off=0, maxd=0, hb=1, nb=1,
+                bias=None, variant=None, planted_fault=None) -> BwdPlan:
+    """The dK/dV entry on (b, heads, s, d) views (dk and dv share their
+    strides). Returns the plan."""
+    b, h, sq, d = q4.shape
+    h_kv, sk = k4.shape[1], k4.shape[2]
+    lens_strides = lens_strides or (h, 1)
+    kv_lens, lens_strides, bias, lut = _planted(
+        planted_fault, kv_lens, lens_strides, bias, lut, b, h, sk, q4.device)
+    plan = _bwd_plan(q4, k4, v4, do4, bias, variant)
+    if plan.variant == "wgmma":
+        if delta is None:
+            raise ValueError(
+                f"{name}: the wgmma dK/dV kernel reads delta = rowsum(do*o),"
+                f" which the dQ kernel writes: call the dQ wrapper first and"
+                f" pass its delta")
+        _check_like("delta", delta, (b * h, sq), torch.float32, q4)
+    if dk4.stride() != dv4.stride():
+        raise ValueError(f"{name}: dk and dv must share their strides")
+    rc = _build.library().apex_flash_bwd_dkv(
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
+        do4.data_ptr(), lse.data_ptr(), _ptr(delta), dk4.data_ptr(),
+        dv4.data_ptr(), _ptr(dtab), _ptr(kv_lens), _ptr(lut),
+        _ptr(None if lut is None else bucket), _ptr(bias),
+        _stride_array(q4, k4, o4, do4, dk4), b, h, h_kv, sq, sk, d,
+        int(causal), float(scale), maxd, rel_off, hb, nb, *lens_strides,
+        int(plan.variant == "wgmma"), int(plan.bias_staging == "tma"),
+        torch.cuda.current_stream(q4.device).cuda_stream)
+    _build.check(rc, name)
+    return plan
+
+
 def flash_fwd_flat_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, scale: float, causal: bool,
                         kv_lens: Optional[torch.Tensor] = None,
@@ -904,7 +1194,7 @@ def flash_fwd_flat_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         float(scale), maxd, rel_off, hb,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_fwd_flat")
-    _count(flash_fwd_flat_cuda, bias)
+    _count(flash_fwd_flat_cuda, bias=bias)
     return out, lse
 
 
@@ -923,77 +1213,84 @@ def _check_flat_bwd(q4, k4, v4, o4, do4, lse, kv_lens, name):
     _check_like("lse", lse, (b * h, sq), torch.float32, q4)
 
 
+def flash_bwd_flat_dq_cuda(q, k, v, o, lse, do, *, scale: float,
+                           causal: bool,
+                           kv_lens: Optional[torch.Tensor] = None,
+                           rel_bias: Optional[BucketedBias] = None,
+                           bias: Optional[torch.Tensor] = None,
+                           variant: Optional[str] = None,
+                           planted_fault: Optional[str] = None
+                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch the dQ kernel on bh-flat operands: dq in q's shape and delta
+    (bh, sq) fp32 for the dK/dV kernel (None on ``"sm80"``). Counts
+    launches in ``.launches``, by variant and those with an array bias in
+    ``.bias_launches``."""
+    name = "flash_bwd_flat_dq_cuda"
+    rows, q4, k4, v4, o4, do4 = _flat_views(q, k, v, o, do)
+    _check_flat_bwd(q4, k4, v4, o4, do4, lse, kv_lens, name)
+    sq, sk = q4.shape[2], k4.shape[2]
+    lut, _, rel_off, maxd, hb, _ = _flat_bias_args(rel_bias, bias, rows, sq,
+                                                   sk, q, name)
+    dq4, dq = _out_like(q4, q.ndim)
+    plan, delta = _launch_dq(
+        name, q4, k4, v4, o4, do4, dq4, lse, scale=scale, causal=causal,
+        kv_lens=kv_lens, lens_strides=(q4.shape[1], 1), lut=lut,
+        rel_off=rel_off, maxd=maxd, hb=hb, bias=bias, variant=variant,
+        planted_fault=planted_fault)
+    _count(flash_bwd_flat_dq_cuda, plan, bias)
+    return dq, delta
+
+
+flash_bwd_flat_dq_cuda.launches = 0
+flash_bwd_flat_dq_cuda.wgmma_launches = 0
+flash_bwd_flat_dq_cuda.sm80_launches = 0
+flash_bwd_flat_dq_cuda.bias_launches = 0
+
+
 def flash_bwd_flat_dkv_cuda(q, k, v, o, lse, do, *, scale: float,
                             causal: bool,
                             kv_lens: Optional[torch.Tensor] = None,
                             rel_bias: Optional[BucketedBias] = None,
-                            bias: Optional[torch.Tensor] = None):
-    """Launch the bh-flat dK/dV kernel: dk, dv in k's shape (each kv
-    group's query heads summed in fp32) and, with ``rel_bias``, the
-    bucket-table gradient (num_buckets, heads) fp32 summed in the same
+                            bias: Optional[torch.Tensor] = None,
+                            delta: Optional[torch.Tensor] = None,
+                            variant: Optional[str] = None,
+                            planted_fault: Optional[str] = None):
+    """Launch the dK/dV kernel on bh-flat operands: dk, dv in k's shape
+    (each kv group's query heads summed in fp32) and, with ``rel_bias``,
+    the bucket-table gradient (num_buckets, heads) fp32 summed in the same
     kernel (None without; an array ``bias`` gets its gradient from
-    :func:`flash_bwd_dbias_cuda`). Counts launches in ``.launches``, those
-    that carry the table gradient in ``.table_launches`` and those with an
-    array bias in ``.bias_launches``."""
+    :func:`flash_bwd_dbias_cuda`). The ``"wgmma"`` variant reads ``delta``
+    from :func:`flash_bwd_flat_dq_cuda` (call it first). Counts launches
+    in ``.launches``, by variant, those that carry the table gradient in
+    ``.table_launches`` and those with an array bias in
+    ``.bias_launches``."""
     name = "flash_bwd_flat_dkv_cuda"
     rows, q4, k4, v4, o4, do4 = _flat_views(q, k, v, o, do)
     _check_flat_bwd(q4, k4, v4, o4, do4, lse, kv_lens, name)
-    b, h, sq, d = q4.shape
-    h_kv, sk = k4.shape[1], k4.shape[2]
+    sq, sk = q4.shape[2], k4.shape[2]
     lut, bucket, rel_off, maxd, hb, nb = _flat_bias_args(
         rel_bias, bias, rows, sq, sk, q, name)
     dk4, dk = _out_like(k4, k.ndim)
     dv4, dv = _out_like(k4, k.ndim)
     dtab = (None if rel_bias is None else
             torch.zeros((hb, nb), dtype=torch.float32, device=q.device))
-    rc = _build.library().apex_flash_bwd_flat_dkv(
-        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
-        do4.data_ptr(), lse.data_ptr(), dk4.data_ptr(), dv4.data_ptr(),
-        _ptr(dtab), _ptr(kv_lens), _ptr(lut), _ptr(bucket), _ptr(bias),
-        _stride_array(q4, k4, o4, do4, dk4), b, h, h_kv, sq, sk, d,
-        int(causal), float(scale), maxd, rel_off, hb, nb, h, 1,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, "flash_bwd_flat_dkv")
-    _count(flash_bwd_flat_dkv_cuda, bias)
+    plan = _launch_dkv(
+        name, q4, k4, v4, o4, do4, dk4, dv4, lse, delta, scale=scale,
+        causal=causal, kv_lens=kv_lens, lens_strides=(q4.shape[1], 1),
+        lut=lut, bucket=bucket, dtab=dtab, rel_off=rel_off, maxd=maxd,
+        hb=hb, nb=nb, bias=bias, variant=variant,
+        planted_fault=planted_fault)
+    _count(flash_bwd_flat_dkv_cuda, plan, bias)
     if dtab is not None:
         flash_bwd_flat_dkv_cuda.table_launches += 1
     return dk, dv, (None if dtab is None else dtab.t())
 
 
 flash_bwd_flat_dkv_cuda.launches = 0
+flash_bwd_flat_dkv_cuda.wgmma_launches = 0
+flash_bwd_flat_dkv_cuda.sm80_launches = 0
 flash_bwd_flat_dkv_cuda.table_launches = 0
 flash_bwd_flat_dkv_cuda.bias_launches = 0
-
-
-def flash_bwd_flat_dq_cuda(q, k, v, o, lse, do, *, scale: float,
-                           causal: bool,
-                           kv_lens: Optional[torch.Tensor] = None,
-                           rel_bias: Optional[BucketedBias] = None,
-                           bias: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
-    """Launch the bh-flat dQ kernel: dq in q's shape. Counts launches in
-    ``.launches`` and those with an array bias in ``.bias_launches``."""
-    name = "flash_bwd_flat_dq_cuda"
-    rows, q4, k4, v4, o4, do4 = _flat_views(q, k, v, o, do)
-    _check_flat_bwd(q4, k4, v4, o4, do4, lse, kv_lens, name)
-    b, h, sq, d = q4.shape
-    h_kv, sk = k4.shape[1], k4.shape[2]
-    lut, _, rel_off, maxd, hb, _ = _flat_bias_args(rel_bias, bias, rows, sq,
-                                                   sk, q, name)
-    dq4, dq = _out_like(q4, q.ndim)
-    rc = _build.library().apex_flash_bwd_flat_dq(
-        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
-        do4.data_ptr(), lse.data_ptr(), dq4.data_ptr(), _ptr(kv_lens),
-        _ptr(lut), _ptr(bias), _stride_array(q4, k4, o4, do4, dq4), b, h,
-        h_kv, sq, sk, d, int(causal), float(scale), maxd, rel_off, hb, h, 1,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, "flash_bwd_flat_dq")
-    _count(flash_bwd_flat_dq_cuda, bias)
-    return dq
-
-
-flash_bwd_flat_dq_cuda.launches = 0
-flash_bwd_flat_dq_cuda.bias_launches = 0
 
 
 def flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias: torch.Tensor, *,
@@ -1054,12 +1351,13 @@ def flash_bwd_packed(qkv: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Backward of :func:`flash_fwd_packed`: SEPARATE dq (b, s, h·d) and
     dk/dv (b, s, h_kv·d) — the caller contracts each against its weight
-    window."""
+    window. On a CUDA tensor the dQ kernel runs first (it writes delta),
+    then the dK/dV kernel."""
     if _backend.use_kernel(qkv, impl):
-        dk, dv = flash_bwd_dkv_cuda(qkv, o, lse, do, h, h_kv, d,
-                                    scale=scale, causal=causal)
-        dq = flash_bwd_dq_cuda(qkv, o, lse, do, h, h_kv, d, scale=scale,
-                               causal=causal)
+        dq, delta = flash_bwd_dq_cuda(qkv, o, lse, do, h, h_kv, d,
+                                      scale=scale, causal=causal)
+        dk, dv = flash_bwd_dkv_cuda(qkv, o, lse, do, h, h_kv, d, scale=scale,
+                                    causal=causal, delta=delta)
         return dq, dk, dv
     return _torch_flash_bwd(qkv, o, lse, do, h, h_kv, d, scale, causal)
 
@@ -1094,14 +1392,16 @@ def flash_bwd_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    bias: Optional[torch.Tensor] = None, impl: str = "auto"):
     """Backward of :func:`flash_fwd_bshd` (the Pallas ``flash_bwd_bshd``,
     ``:1395-1530``): (dq (b, sq, h, d), dk, dv (b, sk, h_kv, d), dbias
-    (hb, sq, sk) fp32 or None). On a CUDA tensor the bshd dK/dV and dQ
-    kernels run, and with a bias the dbias kernel."""
+    (hb, sq, sk) fp32 or None). On a CUDA tensor the dQ kernel runs (it
+    writes delta), then the dK/dV kernel, and with a bias the dbias
+    kernel."""
     bias = _bias32(bias)
     if _backend.use_kernel(q, impl):
         do = do if _seq_major_ok(do) else do.contiguous()
         kw = dict(scale=scale, causal=causal, kv_lens=kv_lens, bias=bias)
-        dk, dv = flash_bwd_bshd_dkv_cuda(q, k, v, o, lse, do, **kw)
-        dq = flash_bwd_bshd_dq_cuda(q, k, v, o, lse, do, **kw)
+        dq, delta = flash_bwd_bshd_dq_cuda(q, k, v, o, lse, do, **kw)
+        dk, dv = flash_bwd_bshd_dkv_cuda(q, k, v, o, lse, do, delta=delta,
+                                         **kw)
         dbias = (None if bias is None else flash_bwd_dbias_cuda(
             q, k, v, o, lse, do, bias, scale=scale, causal=causal,
             kv_lens=kv_lens, layout="bshd"))
@@ -1149,15 +1449,16 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Backward of :func:`flash_fwd` (the Pallas ``flash_bwd``,
     ``:1249-1411``): (dq, dk, dv) in their operands' shapes and the bias's
     fp32 cotangent — the table's (num_buckets, heads) with ``rel_bias``,
-    dbias (hb, sq, sk) with ``bias``, else None. On a CUDA tensor the
-    dK/dV kernel (which also sums the table gradient) and the dQ kernel
-    run, and with an array bias the dbias kernel."""
+    dbias (hb, sq, sk) with ``bias``, else None. On a CUDA tensor the dQ
+    kernel (which writes delta) and then the dK/dV kernel (which also sums
+    the table gradient) run, and with an array bias the dbias kernel."""
     bias = _bias32(bias)
     if _backend.use_kernel(q, impl):
         kw = dict(scale=scale, causal=causal, kv_lens=kv_lens,
                   rel_bias=rel_bias, bias=bias)
-        dk, dv, dtab = flash_bwd_flat_dkv_cuda(q, k, v, o, lse, do, **kw)
-        dq = flash_bwd_flat_dq_cuda(q, k, v, o, lse, do, **kw)
+        dq, delta = flash_bwd_flat_dq_cuda(q, k, v, o, lse, do, **kw)
+        dk, dv, dtab = flash_bwd_flat_dkv_cuda(q, k, v, o, lse, do,
+                                               delta=delta, **kw)
         if bias is not None:
             dtab = flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias,
                                         scale=scale, causal=causal,

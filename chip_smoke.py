@@ -36,7 +36,17 @@ without the final line):
    time (CUDA events, median), the plain version's, a library call's
    where one computes the same function, and the bound (for the two
    flash backward kernels also the pair's time against the bound of the
-   one function they replace);
+   one function they replace). The flash backward pair (dQ first: it
+   writes delta, which dK/dV reads) runs on its wgmma/TMA variant on
+   every path; at every family call of this and the later slices it is
+   also checked on the sm80 variant (the first mma.sync pair) by the
+   same rules, its dq, dk and dv on wgmma must be bit-identical across
+   two runs, two faults each wrapper plants from its inputs (the keys
+   of the last 64-row kv tile masked off; the bias left out, where the
+   call has one) must fail the rules, and the pair is timed on both
+   variants in turns (wgmma, sm80, sm80, wgmma) beside SDPA's backward
+   (the ``flash_bwd_ab`` line lists every call, and any where wgmma is
+   not the faster);
 4. the serving path: GPT-medium at full width (bf16, vocab 32768, hidden
    1024, 12 layers, 8 heads of 128; random weights from a seed) served by
    ``ServingEngine`` (8 slots, block 128, chunk 256, 41 blocks — ~60% of
@@ -81,8 +91,9 @@ without the final line):
    remat), batch 20 x 1024 seeded tokens, ``loss_fn`` + ``backward`` + one
    ``FusedAdam(lr=1e-4)`` step: a warm-up step, then 10 timed steps with
    the counters zeroed just before and read just after (12 flash
-   forward, 12 dK/dV, 12 dQ, 25 ``ln_fwd``, 25 ``ln_bwd`` and 1
-   ``xent_stats`` launch per step); every loss finite and the last below
+   forward, 12 dK/dV, 12 dQ — every backward launch on the wgmma
+   variant — 25 ``ln_fwd``, 25 ``ln_bwd`` and 1 ``xent_stats`` launch
+   per step); every loss finite and the last below
    the first; tokens/s, step ms, model TFLOP/s and MFU against the
    card's dense bf16 peak;
 8. outside the counted window: one step's loss and gradients on the
@@ -97,13 +108,15 @@ without the final line):
      buckets), decoder self 114 x 114 (causal buckets), cross 114 x 512;
      the encoder self and cross calls with kv_lens in [256, 512] and
      without — each timed beside its plain version, SDPA with the
-     materialised bias as attn_mask, and its bound;
+     materialised bias as attn_mask, and its bound; the table's marginal
+     cost on both variants;
    * one step at the initial params on a padded batch, kernel path
      against plain path and both against an fp32 truth;
    * a warm-up, then 10 timed steps with the counters zeroed just before
      and read just after (per step 72 flat forward launches — 36
      attention calls, each run again by the remat — 36 dK/dV, 24 of them
-     with the table gradient, 36 dQ, 1 xent_stats, 122 ln_fwd — 62
+     with the table gradient, 36 dQ, all 72 on wgmma, 1 xent_stats, 122
+     ln_fwd — 62
      norms, run again by the remat but for the two final ones — and 62
      ln_bwd); losses finite and falling; tokens/s, step ms, model
      TFLOP/s and MFU;
@@ -184,7 +197,8 @@ without the final line):
       it and the sigmoid forward against the plain version and an fp32
       truth by MATMUL_SLACK's rule; 2 profiled steps;
 14. one ``{"kernels": [...]}`` line (all twenty-two kernels, each with
-    its launches by main path; matmul_bias_act also by variant), the
+    its launches by main path; matmul_bias_act and the flash backward
+    kernels also by variant; the latter's ``sm80_ms`` from the A/B), the
     card's name and power limit as nvidia-smi prints them, and last
     ``{"ok": true, "device": {...}}``.
 """
@@ -221,6 +235,8 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 20, 1024, 10
 # the same bf16 inputs; the kernel's max abs error must be at most twice
 # the bf16 plain version's own, plus FLASH_SLACK
 FLASH_SLACK = 1e-3
+VARIANT_NOTE = ("ms: the wgmma/TMA pair (every path's); sm80_ms: the first "
+                "mma.sync pair, timed in turns with it in this run")
 # the softmax kernels' bf16 rule: their outputs (probabilities near 1/sk,
 # gradients near scale/sk) sit far below the flash outputs' unit scale,
 # so the slack scales with the output compared: the max abs error vs the
@@ -471,10 +487,124 @@ def rule_check(name, got, plain, truth, shape, tag="flash_check"):
     return err
 
 
+# the flash backward pair's faults each wrapper plants from its inputs on
+# request (the keys from the last 64-row kv tile on masked off; the array
+# or bucketed bias left out): the rules must refuse both at every call
+BWD_FAULTS = ("drop_last_kv_tile", "drop_bias")
+# each family call's pair on both variants, in turns, beside SDPA's
+# backward: emitted as flash_bwd_ab at the end
+BWD_AB = []
+
+
+def rule_ok(got, plain, truth):
+    """The flash rule without raising: (ok, err, tol)."""
+    err = (got.float() - truth.float()).abs().max().item()
+    err_plain = (plain.float() - truth.float()).abs().max().item()
+    tol = 2 * err_plain + FLASH_SLACK
+    return err <= tol, err, tol
+
+
+def bwd_wrappers(layout):
+    """The layout's dQ and dK/dV wrappers ("packed", "bhsd", "bshd")."""
+    from apex_tpu_torch.ops import attention as A
+
+    return {"packed": (A.flash_bwd_dq_cuda, A.flash_bwd_dkv_cuda),
+            "bhsd": (A.flash_bwd_flat_dq_cuda, A.flash_bwd_flat_dkv_cuda),
+            "bshd": (A.flash_bwd_bshd_dq_cuda,
+                     A.flash_bwd_bshd_dkv_cuda)}[layout]
+
+
+def run_pair(layout, args, kw, variant=None, fault=None):
+    """The backward pair through its wrappers, dQ first (it writes delta,
+    which dK/dV reads): (dq, dk, dv, the table gradient or None)."""
+    dq_fn, dkv_fn = bwd_wrappers(layout)
+    dq, delta = dq_fn(*args, variant=variant, planted_fault=fault, **kw)
+    out = dkv_fn(*args, delta=delta, variant=variant, planted_fault=fault,
+                 **kw)
+    return (dq, *out, None)[:4]
+
+
+def pair_checks(torch, layout, args, kw, plain, truth, shape, tag):
+    """One family call's pair beyond the dispatcher's wgmma check: the
+    sm80 variant by the same rules; dq, dk and dv on wgmma bit-identical
+    across two runs; each planted fault (the bias one where the call has
+    a bias) refused on wgmma. ``plain``/``truth``: the plain backward's
+    (dq, dk, dv, ...) in bf16 and fp32; the table gradient is held to
+    T5_DTABLE_TOL of the plain version's."""
+    table = plain[3] if kw.get("rel_bias") is not None else None
+
+    def table_err(got):
+        return ((got[3] - table).norm() / table.norm()).item()
+
+    got = run_pair(layout, args, kw, "sm80")
+    torch.cuda.synchronize()
+    for name, g_, p_, t_ in zip(("dq", "dk", "dv"), got, plain, truth):
+        check(torch.isfinite(g_.float()).all().item(),
+              f"{tag} {name} sm80 output not finite at {shape}")
+        rule_check(f"{tag} {name} sm80", g_, p_, t_, shape)
+    if table is not None:
+        rel = table_err(got)
+        check(rel <= T5_DTABLE_TOL, f"{tag} dtable sm80 vs plain: rel norm "
+              f"err {rel} at {shape}")
+    first = run_pair(layout, args, kw)
+    second = run_pair(layout, args, kw)
+    same = all(bool(torch.equal(a, b)) for a, b in zip(first[:3],
+                                                       second[:3]))
+    check(same, f"{tag}: dq, dk or dv on wgmma differs between two runs at "
+          f"{shape}")
+    del got, first, second
+    has_bias = kw.get("bias") is not None or table is not None
+    planted = {}
+    for fault in BWD_FAULTS[:2 if has_bias else 1]:
+        bad = run_pair(layout, args, kw, fault=fault)
+        torch.cuda.synchronize()
+        over = [rule_ok(g_, p_, t_) for g_, p_, t_ in zip(bad[:3], plain,
+                                                           truth)]
+        ratio = max(e / t for _, e, t in over)
+        refused = not all(ok for ok, _, _ in over)
+        if table is not None:
+            ratio = max(ratio, table_err(bad) / T5_DTABLE_TOL)
+            refused = refused or table_err(bad) > T5_DTABLE_TOL
+        planted[fault] = ratio
+        check(refused, f"{tag}: the rules let the planted fault '{fault}' "
+              f"through at {shape}")
+        del bad
+    emit("flash_pair_check", {"call": tag, "shape": shape,
+                              "sm80_within_rules": True,
+                              "wgmma_bit_identical": same,
+                              "planted_fault_err_over_tol": planted})
+
+
+def ab_times(torch, layout, args, kw, family, sdpa_bwd_ms):
+    """The pair's device times on both variants in turns (wgmma, sm80,
+    sm80, wgmma): each kernel's mean over its two turns, and the pair's.
+    Logged with SDPA's backward time for flash_bwd_ab."""
+    dq_fn, dkv_fn = bwd_wrappers(layout)
+
+    def once(variant):
+        dq_ms = time_ms(lambda: dq_fn(*args, variant=variant, **kw), [()])
+        _, delta = dq_fn(*args, variant=variant, **kw)
+        dkv_ms = time_ms(lambda: dkv_fn(*args, delta=delta, variant=variant,
+                                        **kw), [()])
+        return dq_ms, dkv_ms
+
+    turns = [once(v) for v in ("wgmma", "sm80", "sm80", "wgmma")]
+    out = {"turns_ms": turns}
+    for v, (i, j) in (("wgmma", (0, 3)), ("sm80", (1, 2))):
+        dq_ms = (turns[i][0] + turns[j][0]) / 2
+        dkv_ms = (turns[i][1] + turns[j][1]) / 2
+        out[v] = {"dq_ms": dq_ms, "dkv_ms": dkv_ms, "pair_ms": dq_ms + dkv_ms}
+    BWD_AB.append({"family": family, "wgmma_ms": out["wgmma"]["pair_ms"],
+                   "sm80_ms": out["sm80"]["pair_ms"],
+                   "sdpa_bwd_ms": sdpa_bwd_ms})
+    return out
+
+
 def phase_flash_kernels(torch, dev):
     """The flash forward and the dK/dV and dQ kernels against the plain
-    version at the train step's shape and at a ragged GQA shape; times at
-    the train step's shape."""
+    version at the train step's shape and at a ragged GQA shape (the pair
+    on both variants, its planted faults, wgmma's determinism); times at
+    the train step's shape, the pair on both variants in turns."""
     import torch.nn.functional as F
     from apex_tpu_torch.ops import attention as A
 
@@ -505,6 +635,8 @@ def phase_flash_kernels(torch, dev):
             e = rule_check(name, g, p_, t_, shape)
             key = "dq" if name == "dq" else "dkv"
             errs[key] = max(errs[key], e)
+        pair_checks(torch, "packed", (qkv, o_p, lse_p, do, h, h_kv, d), kw,
+                    (*plain, None), (*truth, None), shape, "packed")
         del got, plain, truth, o_p, lse_p
         torch.cuda.empty_cache()
 
@@ -513,10 +645,6 @@ def phase_flash_kernels(torch, dev):
     qkv, do = flash_case(torch, dev, b, s, h, h_kv, d, seed=5)
     o, lse = A.flash_fwd_cuda(qkv, h, h_kv, d, **kw)
     ms_fwd = time_ms(lambda: A.flash_fwd_cuda(qkv, h, h_kv, d, **kw), [()])
-    ms_dkv = time_ms(lambda: A.flash_bwd_dkv_cuda(qkv, o, lse, do, h, h_kv,
-                                                  d, **kw), [()])
-    ms_dq = time_ms(lambda: A.flash_bwd_dq_cuda(qkv, o, lse, do, h, h_kv, d,
-                                                **kw), [()])
     plain_fwd = time_ms(lambda: A.flash_fwd_packed(qkv, h, h_kv, d,
                                                    impl="torch", **kw),
                         [()], reps=2, trials=3)
@@ -536,6 +664,9 @@ def phase_flash_kernels(torch, dev):
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         out4, (q4, k4, v4), do4, retain_graph=True), [()], reps=5)
     del leaf, out4
+    ab = ab_times(torch, "packed", (qkv, o, lse, do, h, h_kv, d), kw,
+                  "packed (GPT train step)", lib_bwd)
+    ms_dkv, ms_dq = ab["wgmma"]["dkv_ms"], ab["wgmma"]["dq_ms"]
 
     # bounds from this run's data: causal pairs per head s(s+1)/2; each
     # function's products per pair (QK^T 2d, PV 2d; backward: recomputed
@@ -555,7 +686,8 @@ def phase_flash_kernels(torch, dev):
     bwd = bound(bwd_in + (h + 2 * h_kv) * io, 10 * d * pairs,
                 BF16_OPS_PER_S)
     backward = {"function": "flash_bwd_packed (dq, dk and dv)",
-                "ms": ms_dkv + ms_dq, "bound_ms": bwd[0], "bound_by": bwd[1]}
+                "ms": ms_dkv + ms_dq, "sm80_ms": ab["sm80"]["pair_ms"],
+                "bound_ms": bwd[0], "bound_by": bwd[1]}
     timed = {"b": b, "s": s, "heads": h, "kv_heads": h_kv, "head_dim": d,
              "causal": True, "dtype": "bf16"}
     plain_note = ("one plain backward computes dq, dk and dv together; "
@@ -574,17 +706,21 @@ def phase_flash_kernels(torch, dev):
         {"name": "flash_bwd_dkv", "route": "cuda",
          "source": src + "flash_attn_bwd.cu",
          "replaces": "apex_tpu/ops/pallas/attention.py:710",
-         "max_abs_err": errs["dkv"], "ms": ms_dkv, "plain_ms": plain_bwd,
+         "max_abs_err": errs["dkv"], "ms": ms_dkv,
+         "sm80_ms": ab["sm80"]["dkv_ms"], "plain_ms": plain_bwd,
          "bound_ms": dkv[0], "bound_by": dkv[1], "library_ms": lib_bwd,
          "plain_note": plain_note, "library_note": lib_note,
-         "backward": backward, "timed_shape": timed},
+         "variant_note": VARIANT_NOTE, "backward": backward,
+         "timed_shape": timed},
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": src + "flash_attn_bwd.cu",
          "replaces": "apex_tpu/ops/pallas/attention.py:676",
-         "max_abs_err": errs["dq"], "ms": ms_dq, "plain_ms": plain_bwd,
+         "max_abs_err": errs["dq"], "ms": ms_dq,
+         "sm80_ms": ab["sm80"]["dq_ms"], "plain_ms": plain_bwd,
          "bound_ms": dq[0], "bound_by": dq[1], "library_ms": lib_bwd,
          "plain_note": plain_note, "library_note": lib_note,
-         "backward": backward, "timed_shape": timed},
+         "variant_note": VARIANT_NOTE, "backward": backward,
+         "timed_shape": timed},
     ]
 
 
@@ -671,7 +807,8 @@ def phase_train(torch, dev):
         TRAIN_STEPS, "train path")
     L = TRAIN["num_layers"]
     check_launches(launches, {"flash_fwd": L, "flash_bwd_dkv": L,
-                              "flash_bwd_dq": L, "xent_stats": 1,
+                              "flash_bwd_dq": L, "flash_bwd_dkv_wgmma": L,
+                              "flash_bwd_dq_wgmma": L, "xent_stats": 1,
                               "ln_fwd": 2 * L + 1, "ln_bwd": 2 * L + 1},
                    TRAIN_STEPS, "train path")
     tok = TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS
@@ -1532,21 +1669,24 @@ def phase_t5_kernels(torch, dev):
                                  (got[3] - plain[3]).abs().max().item())
         else:
             check(got[3] is None, "a table gradient without a bias")
+        pair_checks(torch, "bhsd", (q, k, v, o_p, lse_p, do), kw, plain,
+                    truth, shape, f"t5 {name_}")
         del got, plain, truth
         torch.cuda.empty_cache()
 
         # times at this shape; the plain versions at a few repetitions
         o, lse = A.flash_fwd(q, k, v, **kw)
         ms_fwd = time_ms(lambda: A.flash_fwd_flat_cuda(q, k, v, **kw), [()])
-        ms_dkv = time_ms(lambda: A.flash_bwd_flat_dkv_cuda(
-            q, k, v, o, lse, do, **kw), [()])
-        ms_dq = time_ms(lambda: A.flash_bwd_flat_dq_cuda(
-            q, k, v, o, lse, do, **kw), [()])
-        ms_dkv_no_table = None
+        no_table = {}
         if kw["rel_bias"] is not None:  # the same call without the bias
             nob = dict(kw, rel_bias=None)
-            ms_dkv_no_table = time_ms(lambda: A.flash_bwd_flat_dkv_cuda(
-                q, k, v, o, lse, do, **nob), [()])
+            for var in ("wgmma", "sm80"):
+                _, delta = A.flash_bwd_flat_dq_cuda(q, k, v, o, lse, do,
+                                                    variant=var, **nob)
+                no_table[var] = time_ms(
+                    lambda: A.flash_bwd_flat_dkv_cuda(
+                        q, k, v, o, lse, do, delta=delta, variant=var,
+                        **nob), [()])
         plain_fwd = time_ms(lambda: A.flash_fwd(q, k, v, impl="torch", **kw),
                             [()], reps=2, trials=3)
         plain_bwd = time_ms(lambda: A.flash_bwd(q, k, v, o, lse, do,
@@ -1554,6 +1694,9 @@ def phase_t5_kernels(torch, dev):
                             [()], reps=2, trials=3)
         torch.cuda.empty_cache()
         lib_fwd, lib_bwd = t5_library(torch, F, q, k, v, do, kw, sq, sk)
+        ab = ab_times(torch, "bhsd", (q, k, v, o, lse, do), kw,
+                      f"flat, T5 {name_}", lib_bwd)
+        ms_dkv, ms_dq = ab["wgmma"]["dkv_ms"], ab["wgmma"]["dq_ms"]
 
         b = T5_BATCH
         pairs = t5_pairs(kw, b, h, sq, sk)
@@ -1572,7 +1715,10 @@ def phase_t5_kernels(torch, dev):
         per_shape[name_] = {
             "shape": shape, "score_pairs": pairs,
             "fwd_ms": ms_fwd, "dkv_ms": ms_dkv, "dq_ms": ms_dq,
-            "dkv_no_table_ms": ms_dkv_no_table,
+            "sm80_dkv_ms": ab["sm80"]["dkv_ms"],
+            "sm80_dq_ms": ab["sm80"]["dq_ms"], "ab_turns_ms": ab["turns_ms"],
+            "dkv_no_table_ms": no_table.get("wgmma"),
+            "sm80_dkv_no_table_ms": no_table.get("sm80"),
             "plain_fwd_ms": plain_fwd, "plain_bwd_ms": plain_bwd,
             "sdpa_fwd_ms": lib_fwd, "sdpa_bwd_ms": lib_bwd,
             "fwd_bound": fwd_b, "dkv_bound": dkv_b, "dq_bound": dq_b,
@@ -1606,11 +1752,14 @@ def phase_t5_kernels(torch, dev):
          "source": src + "flash_attn_bwd.cu",
          "replaces": "apex_tpu/ops/pallas/attention.py:1302",
          "max_abs_err": errs["dkv"], "ms": enc["dkv_ms"],
+         "sm80_ms": enc["sm80_dkv_ms"],
          "plain_ms": enc["plain_bwd_ms"], "bound_ms": enc["dkv_bound"][0],
          "bound_by": enc["dkv_bound"][1], "library_ms": enc["sdpa_bwd_ms"],
          "plain_note": plain_note, "library_note": lib_note,
+         "variant_note": VARIANT_NOTE,
          "backward": {"function": "flash_bwd (dq, dk, dv, dtable)",
                       "ms": enc["dkv_ms"] + enc["dq_ms"],
+                      "sm80_ms": enc["sm80_dkv_ms"] + enc["sm80_dq_ms"],
                       "bound_ms": enc["bwd_function_bound"][0],
                       "bound_by": enc["bwd_function_bound"][1]},
          "timed_shape": timed},
@@ -1618,15 +1767,18 @@ def phase_t5_kernels(torch, dev):
          "source": src + "flash_attn_bwd.cu",
          "replaces": "apex_tpu/ops/pallas/attention.py:1277",
          "max_abs_err": errs["dq"], "ms": enc["dq_ms"],
+         "sm80_ms": enc["sm80_dq_ms"],
          "plain_ms": enc["plain_bwd_ms"], "bound_ms": enc["dq_bound"][0],
          "bound_by": enc["dq_bound"][1], "library_ms": enc["sdpa_bwd_ms"],
          "plain_note": plain_note, "library_note": lib_note,
-         "timed_shape": timed},
+         "variant_note": VARIANT_NOTE, "timed_shape": timed},
         {"name": "flash_bwd_flat_dtable", "route": "cuda",
          "source": src + "flash_attn_bwd.cu",
          "replaces": "apex_tpu/ops/pallas/attention.py:1212",
          "max_abs_err": errs["dtable"], "ms": enc["dkv_ms"],
+         "sm80_ms": enc["sm80_dkv_ms"],
          "marginal_ms": enc["dkv_ms"] - enc["dkv_no_table_ms"],
+         "sm80_marginal_ms": enc["sm80_dkv_ms"] - enc["sm80_dkv_no_table_ms"],
          "plain_ms": enc["plain_bwd_ms"],
          "bound_ms": enc["dtable_bound"][0],
          "bound_by": enc["dtable_bound"][1], "library_ms": None,
@@ -1671,13 +1823,16 @@ def t5_ln_counts():
 
 def t5_check_launches(launches, steps, what):
     """Per step, with per-block remat: each of the 36 attention calls runs
-    its forward twice (the recompute), its dK/dV and dQ once; the 24
-    self-attention calls carry the bucket table; one xent_stats; the
-    norms (t5_ln_counts); no other flash or softmax kernel."""
+    its forward twice (the recompute), its dK/dV and dQ once, all on the
+    wgmma variant; the 24 self-attention calls carry the bucket table; one
+    xent_stats; the norms (t5_ln_counts); no other flash or softmax
+    kernel."""
     L = T5["num_encoder_layers"] + 2 * T5["num_decoder_layers"]
     table = T5["num_encoder_layers"] + T5["num_decoder_layers"]
     check_launches(launches, {"flash_fwd_flat": 2 * L,
                               "flash_bwd_flat_dkv": L, "flash_bwd_flat_dq": L,
+                              "flash_bwd_flat_dkv_wgmma": L,
+                              "flash_bwd_flat_dq_wgmma": L,
                               "flash_bwd_flat_dtable": table,
                               "xent_stats": 1, **t5_ln_counts()}, steps,
                    what)
@@ -1827,9 +1982,10 @@ def family_check(torch, layout, q, k, v, do, kw, shape, errs, tag):
     """One flash family (``layout`` "bshd": the seq-major dispatchers,
     "bhsd": the bh-flat ones) against its plain version and the fp32
     truth: o and lse, then dq, dk and dv on the plain forward's o and lse
-    by the flash rule; dbias, with an array bias, within DBIAS_TOL
-    relative norm of the fp32 plain version. A row of kv length 0 must
-    give zeros."""
+    by the flash rule (the pair also on the sm80 variant, its planted
+    faults refused, wgmma's bit-identical; pair_checks); dbias, with an
+    array bias, within DBIAS_TOL relative norm of the fp32 plain version.
+    A row of kv length 0 must give zeros."""
     from apex_tpu_torch.ops import attention as A
 
     fwd, bwd = ((A.flash_fwd_bshd, A.flash_bwd_bshd) if layout == "bshd"
@@ -1859,6 +2015,8 @@ def family_check(torch, layout, q, k, v, do, kw, shape, errs, tag):
         e = rule_check(f"{tag} {name}", g_, p_, t_, shape)
         key = "dq" if name == "dq" else "dkv"
         errs[key] = max(errs[key], e)
+    pair_checks(torch, layout, (q, k, v, o_p, lse_p, do), kw, plain, truth,
+                shape, tag)
     if kw.get("bias") is not None:
         rel = ((got[3] - truth[3]).norm() / truth[3].norm()).item()
         emit("flash_check", {"output": f"{tag} dbias", "shape": shape,
@@ -1972,10 +2130,6 @@ def phase_bert_kernels(torch, dev):
     kw = dict(scale=d ** -0.5, causal=False, kv_lens=lens)
     o, lse = A.flash_fwd_bshd_cuda(q, k, v, **kw)
     ms_fwd = time_ms(lambda: A.flash_fwd_bshd_cuda(q, k, v, **kw), [()])
-    ms_dkv = time_ms(lambda: A.flash_bwd_bshd_dkv_cuda(q, k, v, o, lse, do,
-                                                       **kw), [()])
-    ms_dq = time_ms(lambda: A.flash_bwd_bshd_dq_cuda(q, k, v, o, lse, do,
-                                                     **kw), [()])
     plain_fwd = time_ms(lambda: A.flash_fwd_bshd(q, k, v, impl="torch", **kw),
                         [()], reps=2, trials=3)
     plain_bwd = time_ms(lambda: A.flash_bwd_bshd(q, k, v, o, lse, do,
@@ -1984,6 +2138,9 @@ def phase_bert_kernels(torch, dev):
     t = lambda x: x.transpose(1, 2)  # noqa: E731
     lib_fwd, lib_bwd, _ = sdpa_times(torch, F, t(q), t(k), t(v), t(do),
                                      kw["scale"], False, lens, None)
+    ab = ab_times(torch, "bshd", (q, k, v, o, lse, do), kw,
+                  "bshd with kv_lens (BERT)", lib_bwd)
+    ms_dkv, ms_dq = ab["wgmma"]["dkv_ms"], ab["wgmma"]["dq_ms"]
     live = float(lens.sum())
     bd = flash_bounds(b, h, h, s, s, d, s * h * live, h * live)
     del q, k, v, do, o, lse
@@ -1998,7 +2155,8 @@ def phase_bert_kernels(torch, dev):
     lib_note = ("F.scaled_dot_product_attention with the key-padding mask; "
                 "its autograd backward computes dq, dk and dv in one call")
     backward = {"function": "flash_bwd_bshd (dq, dk and dv)",
-                "ms": ms_dkv + ms_dq, "bound_ms": bd["function"][0],
+                "ms": ms_dkv + ms_dq, "sm80_ms": ab["sm80"]["pair_ms"],
+                "bound_ms": bd["function"][0],
                 "bound_by": bd["function"][1]}
     fwd_bert = {"shape": timed, "max_abs_err": errs["fwd"], "ms": ms_fwd,
                 "plain_ms": plain_fwd, "bound_ms": bd["fwd"][0],
@@ -2009,19 +2167,21 @@ def phase_bert_kernels(torch, dev):
         {"name": "flash_bwd_bshd_dkv", "route": "cuda",
          "source": src + "flash_attn_bwd.cu",
          "replaces": "apex_tpu/ops/pallas/attention.py:1486",
-         "max_abs_err": errs["dkv"], "ms": ms_dkv, "plain_ms": plain_bwd,
+         "max_abs_err": errs["dkv"], "ms": ms_dkv,
+         "sm80_ms": ab["sm80"]["dkv_ms"], "plain_ms": plain_bwd,
          "bound_ms": bd["dkv"][0], "bound_by": bd["dkv"][1],
          "library_ms": lib_bwd, "plain_note": plain_note,
-         "library_note": lib_note, "backward": backward,
-         "timed_shape": timed},
+         "library_note": lib_note, "variant_note": VARIANT_NOTE,
+         "backward": backward, "timed_shape": timed},
         {"name": "flash_bwd_bshd_dq", "route": "cuda",
          "source": src + "flash_attn_bwd.cu",
          "replaces": "apex_tpu/ops/pallas/attention.py:1455",
-         "max_abs_err": errs["dq"], "ms": ms_dq, "plain_ms": plain_bwd,
+         "max_abs_err": errs["dq"], "ms": ms_dq,
+         "sm80_ms": ab["sm80"]["dq_ms"], "plain_ms": plain_bwd,
          "bound_ms": bd["dq"][0], "bound_by": bd["dq"][1],
          "library_ms": lib_bwd, "plain_note": plain_note,
-         "library_note": lib_note, "backward": backward,
-         "timed_shape": timed},
+         "library_note": lib_note, "variant_note": VARIANT_NOTE,
+         "backward": backward, "timed_shape": timed},
     ]
 
 
@@ -2068,8 +2228,7 @@ def phase_bias_kernels(torch, dev):
             q, k, v, do = packed_views(torch, dev, b, sq, h, h, d, 90 + i)
             fwd, bwd, lens = A.flash_fwd_bshd, A.flash_bwd_bshd, lens_b
             q4, k4, v4, do4 = (x.transpose(1, 2) for x in (q, k, v, do))
-            kern = (A.flash_fwd_bshd_cuda, A.flash_bwd_bshd_dkv_cuda,
-                    A.flash_bwd_bshd_dq_cuda)
+            fwd_kernel = A.flash_fwd_bshd_cuda
         else:
             (q, k, v, do), _, _ = t5_attn_case(
                 torch, dev, "dec" if c["causal"] else "enc", b, 90 + i,
@@ -2078,8 +2237,7 @@ def phase_bias_kernels(torch, dev):
             lens = (None if lens_b is None else
                     lens_b[:, None].expand(b, h).reshape(-1).contiguous())
             q4, k4, v4, do4 = q, k, v, do
-            kern = (A.flash_fwd_flat_cuda, A.flash_bwd_flat_dkv_cuda,
-                    A.flash_bwd_flat_dq_cuda)
+            fwd_kernel = A.flash_fwd_flat_cuda
         kw = dict(scale=d ** -0.5, causal=c["causal"], kv_lens=lens,
                   bias=bias)
         shape = {"call": name, "layout": layout, "b": b, "h": h, "sq": sq,
@@ -2088,10 +2246,8 @@ def phase_bias_kernels(torch, dev):
         family_check(torch, layout, q, k, v, do, kw, shape, errs,
                      "bias " + layout)
 
-        o, lse = kern[0](q, k, v, **kw)
-        ms_fwd = time_ms(lambda: kern[0](q, k, v, **kw), [()])
-        ms_dkv = time_ms(lambda: kern[1](q, k, v, o, lse, do, **kw), [()])
-        ms_dq = time_ms(lambda: kern[2](q, k, v, o, lse, do, **kw), [()])
+        o, lse = fwd_kernel(q, k, v, **kw)
+        ms_fwd = time_ms(lambda: fwd_kernel(q, k, v, **kw), [()])
         ms_db = time_ms(lambda: A.flash_bwd_dbias_cuda(
             q, k, v, o, lse, do, bias, scale=kw["scale"], causal=c["causal"],
             kv_lens=lens, layout=layout), [()])
@@ -2103,6 +2259,9 @@ def phase_bias_kernels(torch, dev):
         lib_fwd, lib_bwd, lib_db = sdpa_times(
             torch, F, q4, k4, v4, do4, kw["scale"], c["causal"], lens_b,
             bias)
+        ab = ab_times(torch, layout, (q, k, v, o, lse, do), kw,
+                      f"{layout} with the array bias, {name}", lib_bwd)
+        ms_dkv, ms_dq = ab["wgmma"]["dkv_ms"], ab["wgmma"]["dq_ms"]
         if c["causal"]:
             pairs, live = b * h * sq * (sq + 1) / 2, b * h * sk
         elif lens_b is None:
@@ -2113,6 +2272,8 @@ def phase_bias_kernels(torch, dev):
         bd = flash_bounds(b, h, h, sq, sk, d, pairs, live, bias)
         per[name] = {"shape": shape, "score_pairs": pairs, "fwd_ms": ms_fwd,
                      "dkv_ms": ms_dkv, "dq_ms": ms_dq, "dbias_ms": ms_db,
+                     "sm80_dkv_ms": ab["sm80"]["dkv_ms"],
+                     "sm80_dq_ms": ab["sm80"]["dq_ms"],
                      "plain_fwd_ms": plain_fwd, "plain_bwd_ms": plain_bwd,
                      "sdpa_fwd_ms": lib_fwd, "sdpa_bwd_ms": lib_bwd,
                      "sdpa_bwd_with_mask_grad_ms": lib_db, "bounds": bd}
@@ -2208,7 +2369,9 @@ def bert_step(model, params, opt, batch):
 
 def path_counters():
     """Every flash, xent_stats, layer-norm, softmax and matmul counter, by
-    name: the kernels a path must launch and those it must not."""
+    name (the flash backward's also by variant: ``<name>_wgmma``,
+    ``<name>_sm80``): the kernels a path must launch and those it must
+    not."""
     from apex_tpu_torch.ops import attention as A
     from apex_tpu_torch.ops import layer_norm as LN
     from apex_tpu_torch.ops import matmul as MM
@@ -2218,6 +2381,18 @@ def path_counters():
     return {"flash_fwd": (A.flash_fwd_cuda, "launches"),
             "flash_bwd_dkv": (A.flash_bwd_dkv_cuda, "launches"),
             "flash_bwd_dq": (A.flash_bwd_dq_cuda, "launches"),
+            **{f"{name}_{v}": (fn, f"{v}_launches")
+               for name, fn in (("flash_bwd_dkv", A.flash_bwd_dkv_cuda),
+                                ("flash_bwd_dq", A.flash_bwd_dq_cuda),
+                                ("flash_bwd_bshd_dkv",
+                                 A.flash_bwd_bshd_dkv_cuda),
+                                ("flash_bwd_bshd_dq",
+                                 A.flash_bwd_bshd_dq_cuda),
+                                ("flash_bwd_flat_dkv",
+                                 A.flash_bwd_flat_dkv_cuda),
+                                ("flash_bwd_flat_dq",
+                                 A.flash_bwd_flat_dq_cuda))
+               for v in ("wgmma", "sm80")},
             "flash_fwd_bshd": (A.flash_fwd_bshd_cuda, "launches"),
             "flash_fwd_bshd_bias": (A.flash_fwd_bshd_cuda, "bias_launches"),
             "flash_bwd_bshd_dkv": (A.flash_bwd_bshd_dkv_cuda, "launches"),
@@ -2272,7 +2447,8 @@ def phase_bert_train(torch, dev):
     FusedAdam step at BERT-large, batch 32 x 512 padded: a warm-up, then
     BERT_STEPS timed steps with the counters zeroed just before and read
     just after. Per step: 48 bshd forwards (24 layers, run again by the
-    remat), 24 bshd dQ, 24 bshd dK/dV, one xent_stats, nothing else."""
+    remat), 24 bshd dQ, 24 bshd dK/dV (all on the wgmma variant), one
+    xent_stats, nothing else."""
     from apex_tpu_torch.models.bert import param_leaves
     from apex_tpu_torch.optimizers import FusedAdam
 
@@ -2285,7 +2461,9 @@ def phase_bert_train(torch, dev):
     L = BERT["num_layers"]
     check_launches(launches, {"flash_fwd_bshd": 2 * L,
                               "flash_bwd_bshd_dq": L,
-                              "flash_bwd_bshd_dkv": L, "xent_stats": 1,
+                              "flash_bwd_bshd_dkv": L,
+                              "flash_bwd_bshd_dq_wgmma": L,
+                              "flash_bwd_bshd_dkv_wgmma": L, "xent_stats": 1,
                               **bert_ln_counts()},
                    BERT_STEPS, "BERT train path")
     # the interior-mask check reads the pad mask on the host: one
@@ -2423,8 +2601,9 @@ def phase_t5_materialized(torch, dev):
     batch; then a warm-up and T5_MAT_STEPS timed steps with the counters
     zeroed just before and read just after. Per step: 72 flat forwards
     (48 with the array bias: the 24 self-attention calls, each run again
-    by the remat), 36 dK/dV and 36 dQ (24 of each with the bias), 24
-    dbias launches, no table gradient, one xent_stats."""
+    by the remat), 36 dK/dV and 36 dQ (24 of each with the bias; all on
+    the wgmma variant), 24 dbias launches, no table gradient, one
+    xent_stats."""
     from apex_tpu_torch.models.t5 import param_leaves
     from apex_tpu_torch.optimizers import FusedAdam
 
@@ -2471,6 +2650,7 @@ def phase_t5_materialized(torch, dev):
         "flash_fwd_flat": 2 * L, "flash_fwd_flat_bias": 2 * selfs,
         "flash_bwd_flat_dkv": L, "flash_bwd_flat_dkv_bias": selfs,
         "flash_bwd_flat_dq": L, "flash_bwd_flat_dq_bias": selfs,
+        "flash_bwd_flat_dkv_wgmma": L, "flash_bwd_flat_dq_wgmma": L,
         "flash_bwd_dbias": selfs, "xent_stats": 1, **t5_ln_counts()},
         T5_MAT_STEPS, "T5 materialized leg")
     tok = T5_BATCH * (T5_ENC + T5_DEC) * T5_MAT_STEPS
@@ -3649,7 +3829,9 @@ def main():
             k = by_name[name]
             layout = "bshd" if "bshd" in name else "bhsd"
             k["array_bias"] = {
-                call: {"ms": v[f"{op}_ms"], "plain_ms": v[plain],
+                call: {"ms": v[f"{op}_ms"],
+                       "sm80_ms": v.get(f"sm80_{op}_ms"),
+                       "plain_ms": v[plain],
                        "bound_ms": v["bounds"][op][0],
                        "bound_by": v["bounds"][op][1],
                        "library_ms": v["sdpa_fwd_ms" if op == "fwd"
@@ -3700,6 +3882,17 @@ def main():
         v: {p_: n[f"matmul_bias_act_{v}"] for p_, n in paths.items()
             if n.get(f"matmul_bias_act_{v}")}
         for v in ("wgmma", "sm80", "fp32", "split")}
+    for k in kernels:  # the flash backward pair's launches by variant
+        counter = {"flash_bwd_flat_dtable": "flash_bwd_flat_dkv"}.get(
+            k["name"], k["name"])
+        if f"{counter}_wgmma" in paths["gpt_train"]:
+            k["variants"] = {
+                v: {p_: n[f"{counter}_{v}"] for p_, n in paths.items()
+                    if n.get(f"{counter}_{v}")} for v in ("wgmma", "sm80")}
+    emit("flash_bwd_ab", {
+        "calls": BWD_AB,
+        "wgmma_slower_than_sm80": [c for c in BWD_AB
+                                   if c["wgmma_ms"] >= c["sm80_ms"]]})
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

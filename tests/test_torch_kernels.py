@@ -32,6 +32,13 @@ The bshd backward (BERT's padded train step) and the array bias of both
 layouts: dq, dk, dv, o and lse under the same bf16 rule; dbias within
 1e-3 relative norm of the plain version run in fp32 (the truth).
 
+The flash backward pair's two variants (``wgmma``, the path's; ``sm80``,
+the first mma.sync pair) at each family's call, the batch cut: dq, dk
+and dv under the bf16 rule, the bucket-table gradient within 1e-3
+relative norm of the fp32 truth; two planted faults (the last 64-row kv
+tile dropped, the bias left out) must fail those rules on both
+variants; dq, dk and dv on ``wgmma`` bit-identical across two runs.
+
 The layer-norm and softmax kernels: in bf16, y, dx and the softmax's
 probabilities and dx under the same bf16 rule against the plain version
 run in fp32 on the upcast inputs; mean and rstd within 1e-5 of the
@@ -783,6 +790,203 @@ def test_bshd_backward_and_bias_refuse_what_they_do_not_take(cuda):
         amod.flash_fwd_flat_cuda(
             qf, qf, qf, **kw, bias=torch.zeros((4, 64, 64), device=cuda),
             rel_bias=amod.BucketedBias(torch.zeros((32, 4), device=cuda)))
+
+
+# --- the backward pair's two variants (wgmma, sm80) ---------------------------
+
+# (name, layout, b, h, h_kv, sq, sk, d, causal, lens, bias): each family's
+# backward call at its widths, the batch cut. lens: per batch (expanded
+# over the heads on bhsd); bias: "rel" (T5's bucketed table), "arr" (one
+# bias row per head) or "arr1" (hb 1)
+BWD_FAMILIES = [
+    ("gpt_packed_d128", "packed", 2, 8, 8, 1024, 1024, 128, True, None, None),
+    ("packed_gqa_d64", "packed", 2, 8, 2, 1000, 1000, 64, True, None, None),
+    ("t5_encoder_table", "bhsd", 4, 12, 12, 512, 512, 64, False,
+     [300, 512, 256, 400], "rel"),
+    ("t5_decoder_table", "bhsd", 4, 12, 12, 114, 114, 64, True, None, "rel"),
+    ("t5_cross", "bhsd", 4, 12, 12, 114, 512, 64, False, [256, 512, 300, 1],
+     None),
+    ("t5_encoder_bias", "bhsd", 2, 12, 12, 512, 512, 64, False, None, "arr"),
+    ("t5_decoder_bias_114", "bhsd", 4, 12, 12, 114, 114, 64, True, None,
+     "arr"),
+    ("bert_kv_lens", "bshd", 4, 16, 16, 512, 512, 64, False,
+     [512, 0, 64, 300], None),
+    ("bshd_bias_hb1", "bshd", 2, 16, 16, 512, 512, 64, False, None, "arr1"),
+    ("gqa_d128_bias_lens", "bhsd", 2, 8, 4, 300, 300, 128, True, [300, 77],
+     "arr"),
+    ("gqa_d128_table", "bhsd", 2, 8, 2, 256, 256, 128, False, [256, 100],
+     "rel"),
+]
+_BWD_IDS = [f[0] for f in BWD_FAMILIES]
+
+
+def _bwd_family(fam, dev):
+    """(pair, plain, truth, fns): ``pair(variant, fault)`` runs the
+    family's dQ then dK/dV wrapper and returns (dq, dk, dv, dtable or
+    None); plain and truth are the plain backward's in bf16 and in fp32
+    on the plain forward's o and lse; fns the two wrappers."""
+    _, layout, b, h, hkv, sq, sk, d, causal, lens, bias = fam
+    seed = sq + sk + h + d
+    up = lambda ts: [t.float() for t in ts]  # noqa: E731
+    if layout == "packed":
+        qkv, do = _flash_inputs(b, sq, h, hkv, d, dev, seed=seed)
+        kw = dict(scale=d ** -0.5, causal=causal)
+        o, lse = amod.flash_fwd_packed(qkv, h, hkv, d, impl="torch", **kw)
+        plain = amod.flash_bwd_packed(qkv, o, lse, do, h, hkv, d,
+                                      impl="torch", **kw)
+        truth = amod.flash_bwd_packed(qkv.float(), o.float(), lse,
+                                      do.float(), h, hkv, d, impl="torch",
+                                      **kw)
+
+        def pair(variant, fault=None):
+            dq, delta = amod.flash_bwd_dq_cuda(
+                qkv, o, lse, do, h, hkv, d, variant=variant,
+                planted_fault=fault, **kw)
+            dk, dv = amod.flash_bwd_dkv_cuda(
+                qkv, o, lse, do, h, hkv, d, delta=delta, variant=variant,
+                planted_fault=fault, **kw)
+            return dq, dk, dv, None
+        fns = (amod.flash_bwd_dq_cuda, amod.flash_bwd_dkv_cuda)
+        return pair, (*plain, None), (*truth, None), fns
+    lens_t = None
+    if lens is not None:
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    if layout == "bhsd":
+        q, k, v, do = _flat_inputs(b, h, hkv, sq, sk, d, dev, seed, True)
+        if lens_t is not None:
+            lens_t = lens_t.repeat_interleave(h)
+        kw = dict(scale=d ** -0.5, causal=causal, kv_lens=lens_t)
+        if bias == "rel":
+            g = torch.Generator(device=dev).manual_seed(3)
+            table = torch.randn((32, h), generator=g, device=dev) * 0.5
+            kw["rel_bias"] = amod.BucketedBias(table, bidirectional=not causal,
+                                               max_distance=128)
+        elif bias is not None:
+            kw["bias"] = _bias_input(h, sq, sk, dev)
+        fwd, bwd = amod.flash_fwd, amod.flash_bwd
+        fns = (amod.flash_bwd_flat_dq_cuda, amod.flash_bwd_flat_dkv_cuda)
+    else:
+        q, k, v, do = _bshd_inputs(b, sq, sk, h, hkv, d, dev, seed, sq == sk)
+        kw = dict(scale=d ** -0.5, causal=causal, kv_lens=lens_t)
+        if bias is not None:
+            kw["bias"] = _bias_input(1 if bias == "arr1" else h, sq, sk, dev)
+        fwd, bwd = amod.flash_fwd_bshd, amod.flash_bwd_bshd
+        fns = (amod.flash_bwd_bshd_dq_cuda, amod.flash_bwd_bshd_dkv_cuda)
+    o, lse = fwd(q, k, v, impl="torch", **kw)
+    plain = bwd(q, k, v, o, lse, do, impl="torch", **kw)
+    truth = bwd(*up((q, k, v, o)), lse, do.float(), impl="torch", **kw)
+
+    def pair(variant, fault=None):
+        dq, delta = fns[0](q, k, v, o, lse, do, variant=variant,
+                           planted_fault=fault, **kw)
+        out = fns[1](q, k, v, o, lse, do, delta=delta, variant=variant,
+                     planted_fault=fault, **kw)
+        return (dq, *out) if len(out) == 3 else (dq, *out, None)
+    if bias != "rel":  # dbias comes from its own kernel, not the pair
+        plain, truth = (*plain[:3], None), (*truth[:3], None)
+    return pair, plain, truth, fns
+
+
+def _pair_within_rules(got, plain, truth):
+    """(ok, errors): dq, dk, dv by the bf16 rule, the table by 1e-3 rel
+    norm."""
+    errs, ok = {}, True
+    for name, g_, p_, t_ in zip(("dq", "dk", "dv"), got, plain, truth):
+        good, e = _within_rule(g_, p_, t_)
+        good = good and bool(torch.isfinite(g_.float()).all())
+        errs[name] = e
+        ok &= good
+    if truth[3] is not None:
+        rel = ((got[3] - truth[3]).norm() / truth[3].norm()).item()
+        errs["dtable"] = rel
+        ok &= rel <= DTABLE_TOL
+    return ok, errs
+
+
+DTABLE_TOL = 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["wgmma", "sm80"])
+@pytest.mark.parametrize("fam", BWD_FAMILIES, ids=_BWD_IDS)
+def test_flash_bwd_variants_match_plain(cuda, fam, variant):
+    pair, plain, truth, fns = _bwd_family(fam, cuda)
+    before = [(f.launches, getattr(f, f"{variant}_launches")) for f in fns]
+    got = pair(variant)
+    torch.cuda.synchronize()
+    assert [(f.launches, getattr(f, f"{variant}_launches"))
+            for f in fns] == [(n + 1, m + 1) for n, m in before]
+    ok, errs = _pair_within_rules(got, plain, truth)
+    assert ok, f"{fam[0]} on {variant}: {errs}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fam", BWD_FAMILIES, ids=_BWD_IDS)
+def test_flash_bwd_wgmma_is_bit_identical_across_runs(cuda, fam):
+    pair, _, _, _ = _bwd_family(fam, cuda)
+    first = pair("wgmma")
+    second = pair("wgmma")
+    for name, a, b_ in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b_), f"{fam[0]}: {name} differs between runs"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fam", BWD_FAMILIES, ids=_BWD_IDS)
+def test_flash_bwd_planted_faults_are_refused(cuda, fam):
+    """The last 64-row kv tile dropped, and (where the call has one) the
+    bias left out: each must fail the rules on both variants."""
+    pair, plain, truth, _ = _bwd_family(fam, cuda)
+    faults = ["drop_last_kv_tile"] + (["drop_bias"] if fam[-1] else [])
+    for variant in ("wgmma", "sm80"):
+        for fault in faults:
+            ok, errs = _pair_within_rules(pair(variant, fault), plain, truth)
+            assert not ok, f"{fam[0]} {variant}: {fault} passed: {errs}"
+
+
+@pytest.mark.gpu
+def test_flash_bwd_runs_on_a_fresh_thread(cuda):
+    """The pair from a thread whose first CUDA call is the dQ entry (as an
+    autograd worker's can be): the tensor maps' encoder needs the
+    device's context bound on that thread."""
+    import threading
+
+    q, k, v, do = _bshd_inputs(2, 128, 128, 4, 4, 64, cuda, 1, True)
+    kw = dict(scale=0.125, causal=False)
+    o, lse = amod.flash_fwd_bshd(q, k, v, **kw)
+    want = amod.flash_bwd_bshd(q, k, v, o, lse, do, **kw)
+    got, errors = [], []
+
+    def run():
+        try:
+            got.append(amod.flash_bwd_bshd(q, k, v, o, lse, do, **kw))
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert not errors, errors
+    for a, b_ in zip(got[0][:3], want[:3]):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_dkv_wgmma_needs_the_dq_delta(cuda):
+    qkv, do = _flash_inputs(1, 128, 2, 2, 64, cuda)
+    kw = dict(scale=0.125, causal=True)
+    o, lse = amod.flash_fwd_packed(qkv, 2, 2, 64, **kw)
+    with pytest.raises(ValueError, match="delta"):
+        amod.flash_bwd_dkv_cuda(qkv, o, lse, do, 2, 2, 64, **kw)
+    _, delta = amod.flash_bwd_dq_cuda(qkv, o, lse, do, 2, 2, 64, **kw)
+    with pytest.raises(ValueError, match="delta"):
+        amod.flash_bwd_dkv_cuda(qkv, o, lse, do, 2, 2, 64, delta=delta[:1],
+                                **kw)
+    with pytest.raises(ValueError, match="variant"):
+        amod.flash_bwd_dq_cuda(qkv, o, lse, do, 2, 2, 64, variant="sm90",
+                               **kw)
+    dk, dv = amod.flash_bwd_dkv_cuda(qkv, o, lse, do, 2, 2, 64, variant="sm80",
+                                     **kw)
+    assert dk.shape == dv.shape == (1, 128, 128)
 
 
 # --- the layer-norm and softmax kernels ----------------------------------------
