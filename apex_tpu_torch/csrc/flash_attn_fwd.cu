@@ -1,353 +1,558 @@
-// Flash-attention forward for Hopper (sm_90a), over three layouts: the
-// packed q|k|v projection buffer of the GPT train step, separate
-// seq-major q, k and v of the decode engine's prefill, and the bh-flat
-// (b, h, s, d) views of the T5 train step.
+// Flash-attention forward for Hopper (sm_90a) on wgmma and TMA: one kernel
+// body for every layout the port has -- the packed q|k|v projection buffer
+// of the GPT train step, the seq-major (b, s, h, d) q/k/v of the decode
+// engine's prefill and the BERT train step, and the bh-flat (b, h, s, d)
+// views of the T5 train step -- with kv_lens, the bucketed relative bias
+// and the array bias.
 //
-// Replaces apex_tpu/ops/pallas/attention.py::flash_fwd_packed (:464-533;
-// packed index maps :490-498), ::flash_fwd_bshd (:803-857) and ::flash_fwd
-// (:375-461, the bh-flat pallas_call at :436), all running the kernel body
-// _fwd_kernel (:184-297).
-// * apex_flash_fwd (packed): qkv (b, s, (h + 2*h_kv)*d) bf16, features
-//   ordered q-heads | k-heads | v-heads, read straight out of qkv by base
-//   pointer, feature offset and row stride: no slice, no copy.
-// * apex_flash_fwd_bshd: q (b, sq, h, d), k and v (b, sk, h_kv, d), each
-//   with its own row stride, and bottom-right causal alignment: row r sees
-//   columns c <= r + (sk - sq); per-BATCH kv_lens (b,) and the array bias.
-// * apex_flash_fwd_flat: q (b, h, sq, d), k and v (b, h_kv, sk, d) and o,
-//   each with its own batch, head and row strides (flash_params.cuh), so
-//   the transposed (b, h, s, d) views of a projection output need no copy;
-//   per-row kv_lens (b*h,).
-// The strided entries take the compile-time options of _fwd_kernel:
-// kVarlen (columns >= the row's kv length masked, kv tiles wholly past
-// the length skipped, a row of length 0 gives o = 0 and lse = 0 as
-// :284-291), kRel (the bucketed relative bias, :256-267) and kArr (the
-// fp32 (hb, sq, sk) array bias, read straight from device memory: one
-// bias row serves every batch row of its head, so it sits in the L2 and
-// is not staged through shared memory). Either bias is added to the
-// SCALED scores before the masks.
-// All: query head t reads kv head t / (h / h_kv); outputs o bf16 and the
-// fp32 log-normaliser lse (b*h, sq) (the reference's 8-lane lse carrier
-// is a TPU layout rule; here the plain rows).
+// Replaces apex_tpu/ops/pallas/attention.py::flash_fwd_packed (:464-533,
+// the pallas_call at :506), ::flash_fwd_bshd (:803-857, :831) and
+// ::flash_fwd (:375-461, the bh-flat pallas_call at :436), all three
+// running the kernel body _fwd_kernel (:184-297). Outputs: o bf16 and the
+// natural-log normaliser lse (b*h, sq) fp32 (the reference's 8-lane lse
+// carrier is a TPU layout rule; here the plain rows).
 //
-// Bound on this card at the GPT train step's shape (b 20, s 1024, h 8,
-// d 128, causal): operations. 4*b*h*s^2*d/2 = 42.9 GFLOP per layer is 43
-// us at 989 TFLOP/s dense bf16, against 3*b*s*h*d*2 B = 126 MB of q/k/v/o
-// (38 us at 3.35 TB/s) -- close to the ridge, so both matter. The T5
-// encoder's (b*h 1536, s 512, d 64) is bytes-bound near the ridge: 403 MB
-// of q/k/v/o (120 us) against 103 GFLOP (104 us).
+// Entries: apex_flash_fwd (packed), apex_flash_fwd_bshd and
+// apex_flash_fwd_flat, variant 1 (this file's kernel) or 0
+// (flash_attn_fwd_sm80.cu's first mma.sync kernel, for the A/B timing and
+// the kernel tests). The layout lives only in the host's tensor maps: one
+// 4-D TMA map (d, row, head, batch) per q, k and v from the views'
+// strides (flash_sm90.cuh); the packed buffer is the map over its three
+// sections (head stride d, row stride (h + 2*h_kv)*d), a seq-major tensor
+// the head-stride-d case. So the bshd prefill on views of one packed
+// buffer and the packed entry run the same code on the same bytes:
+// bit-identical results.
 //
-// Design, simple and right first:
-// * one CTA of 4 warps per (b*h, 64-row query tile); each warp owns 16
-//   query rows. The CTA walks 64-row kv tiles only up to the causal
-//   diagonal and the row's kv length: the Pallas grid's `run` skip (:239)
-//   becomes the loop bound, shifted by off = sk - sq.
-// * K and V tiles are double-buffered in shared memory by cp.async, so
-//   the next tile's copy overlaps this tile's math; rows past sq, sk or
-//   the kv length are zero-filled and their scores masked.
-// * both products run on the tensor cores (mma.sync m16n8k16, bf16 in,
-//   fp32 accumulate); the score accumulators, rounded to bf16, are reused
-//   in registers as the A operand of P.V.
-// * kRel: the head's 2*maxd + 1 lookup values sit in shared memory; each
-//   score adds lut[clamp(col - row + k_off - q_off)]. kArr: each score
-//   adds bias[r % hb][row][col] (fp32 loads through the read-only path).
-// * the rounding points of _fwd_kernel (:251-297): scores fp32 then *scale;
-//   masked entries -1e30; an online row max; p = exp(s - m) in fp32; l sums
-//   the UNROUNDED p; acc += p.to(bf16) . v in fp32; o = acc / max(l, 1e-30);
-//   lse = m + log(max(l, 1e-30)).
-// Known weaknesses, for a later change: mma.sync instead of wgmma/TMA;
-// causal tiles are uneven work (the diagonal CTAs finish first).
+// Bound on this card: at the GPT train step's call (b 20, s 1024, h 8, d
+// 128, causal) operations, 4 d per causal score pair: 43 us at 989
+// TFLOP/s, against 126 MB of q/k/v/o (38 us at 3.35 TB/s); at T5's encoder
+// (b*h 1536, 512^2, d 64) bytes, 403 MB (120 us) against 103 GFLOP (104
+// us); with T5's array bias (hb 12) its 12.6 MB more.
+//
+// Design:
+// * 384 threads: warpgroup 0 the producer (warp 0 issues the TMA loads;
+//   all four copy an array bias that no tensor map describes; it hands its
+//   registers to the consumers by setmaxnreg 40/232), two consumer
+//   warpgroups of 64 query rows each: a tile is 128 query rows of one
+//   (batch, head). Tiles go head by head (those in flight share their
+//   head's K and V in the L2), within a head the last query tiles first
+//   (causal: the longest, so the short diagonal ones fill the tail).
+// * Tiles of equal work (no causal mask, or one query tile a head: T5's
+//   encoder, cross and 114-row decoder calls, BERT) go to one CTA an SM,
+//   CTA c walking tiles c, c + #SMs, ...: the producer loads the next
+//   tile's K/V (and at d 64 its Q, into a second buffer) while the
+//   consumers finish this one (one CTA a tile left the SM idle through
+//   each short tile's loads and stores, and ran T5's 114-row decoder call
+//   slower than the sm80 kernel). Causal tiles of uneven work (GPT, the
+//   prefill) get one CTA each, the longest first, as the SMs free up.
+// * Q is loaded once a tile; K and V go through a ring of 128-row kv
+//   tiles (64 with the array bias at d 128), each stage with a full and an
+//   empty mbarrier (FwdCfg). The kv walk stops at the
+//   causal diagonal (bottom-right alignment: row r sees column c <= r + sk
+//   - sq) and at the head's kv length; a warpgroup skips a tile wholly
+//   above its rows' diagonal.
+// * Measured and dropped: issuing stage j's S = Q K^T together with stage
+//   j-1's P.V so the softmax of S_j overlaps the tensor cores (FA3's
+//   intra-warpgroup overlap) ran slower at every call timed (GPT's and
+//   T5's), as deferred waits did in the backward pair.
+// * S = Q K^T: wgmma with both operands from shared memory, K-major. The
+//   online softmax runs in registers: the running row max m over the
+//   scores (raw without a bias, scale > 0 keeping the order; scaled and
+//   biased with one), p = 2^(s log2e' - m log2e') with the scale folded
+//   into log2e', l sums the UNROUNDED p, and a tile wholly inside the
+//   masks skips the mask selects. P . V: wgmma with A from registers (the
+//   score accumulators rounded to bf16 are that A fragment, no shuffle) and
+//   V read MN-major through the descriptor's transpose bit.
+// * The array bias (kArr): the CTA's (128 query rows x kv tile) block of
+//   the fp32 (hb, sq, sk) bias rides each ring stage (64 KB at d 64, 2
+//   stages; 32 KB of a 64-row kv tile at d 128, 3 stages: within the 227
+//   KB), by TMA or cp.async (flash_sm90.cuh); each score reads its bias
+//   from shared memory, none from device memory. kRel: the 2*maxd + 1 lookup values of every bias row
+//   in shared memory where they fit (else the tile's row's, reloaded when
+//   it changes), read per score through the clamped offset, at fixed
+//   distances from a per-thread base where no offset clamps, or as one
+//   value where all clamp to one end.
+// * The reference's rounding points (_fwd_kernel :251-297): scores fp32,
+//   * scale, + bias; masked scores -1e30; l sums the unrounded p; p rounded
+//   to bf16 for P.V; o = acc / max(l, 1e-30); lse = m + log(max(l, 1e-30))
+//   in the natural log (the backward reads it); a row of kv length 0 gives
+//   o = 0 and lse = 0. The exponent is the MUFU's 2^x (relative error
+//   ~2^-22) with log2 e folded into the scale. o is stored from registers
+//   (4-byte stores, a quad's 16 bytes a row), lse by the rows' lane 0.
+// * Deterministic: no atomics; bit-identical from run to run.
+//
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W; the sm80 kernel
+// timed in turns in brackets, then SDPA's forward, then the bound), ms:
+// GPT packed 0.140 [0.285] 0.099 0.050; decode prefill 0.0497 [0.0819]
+// 0.0337 0.0201; BERT 0.108 [0.171] 0.151 0.032; T5's encoder 0.387
+// unpadded, 0.415 padded [0.759, 0.644] (SDPA 0.557 padded) 0.107-0.121;
+// its decoder 0.071 [0.079] 0.052 0.027; its cross call 0.094-0.096
+// [0.157-0.183] 0.124-0.133; the array bias at the encoder 0.446
+// [2.480] 0.466 0.125 (1.15x the unbiased call), at the decoder 0.102
+// [0.134] 0.053, bshd hb 1 0.149 [0.491] 0.195. Still held back: one
+// CTA an SM whose two consumer warpgroups each wait for S, do the
+// softmax, then wait for P.V; short rows (T5's 114) are latency-bound;
+// the decoder's bias (rows of 456 bytes) is copied by cp.async.
+// Registers: 168 a thread at launch, no spill but 8-16 bytes at d 128
+// with a bias or the lookup.
 #include <cstdint>
+#include <type_traits>
 
 #include "apex_cuda.cuh"
 #include "apex_mma.cuh"
+#include "apex_sm90.cuh"
 #include "flash_params.cuh"
+#include "flash_sm90.cuh"
+
+namespace apex {
+namespace flash_fwd_sm80 {
+int run(int d, const FlashParams& p, int b, bool strided, void* stream);
+}  // namespace flash_fwd_sm80
+}  // namespace apex
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 using apex::FlashParams;
+using namespace apex::sm90;
+using namespace apex::flash_sm90;
 
-constexpr int kThreads = 128;  // 4 warps x 16 query rows
-constexpr int kBq = 64;
-constexpr int kBk = 64;
+constexpr int kThreads = 384;  // warpgroup 0 produces, 1 and 2 consume
+constexpr int kBqCta = 128;    // query rows per CTA (64 per warpgroup)
 constexpr float kNegInf = -1e30f;
 
-template <int D>
-constexpr size_t tile_smem_bytes() {
-  return static_cast<size_t>(kBq + 4 * kBk) * (D + 8) * sizeof(bf16);
-}
+// The tiles and shared memory: kv rows per stage 128, or 64 with the array
+// bias at d 128 (its 128 x kBk fp32 block rides the stage). Layout: the Q
+// buffers (128 rows each; two at d 64, so a CTA that walks several tiles
+// loads the next tile's Q while it computes this one's), the ring of (K, V
+// [, bias]) -- 3 stages, 2 at d 64 with the array bias (a 64 KB bias block
+// a stage: 225 KB in all) and at d 128 with the lookup --
+// the barriers, then (kRel) the lookup. At d 64 the array bias and the
+// lookup take the same tiles, so T5's materialized and bucketed paths
+// give bit-identical forwards.
+template <int D, int BIAS>
+struct FwdCfg {
+  static constexpr int kBk = BIAS == kArr && D == 128 ? 64 : 128;
+  static constexpr int kQBufs = D == 64 ? 2 : 1;
+  static constexpr int kStages =
+      (D == 128 && BIAS == kRel) || (D == 64 && BIAS == kArr) ? 2 : 3;
+  static constexpr int kQ = D / 64 * 2 * kBox;
+  static constexpr int kK = D / 64 * (kBk / 64) * kBox;
+  static constexpr int kBias = BIAS == kArr ? kBqCta * kBk * 4 : 0;
+  static constexpr int kStage = 2 * kK + kBias;
+  static constexpr int kRing = kQBufs * kQ;
+  static constexpr int kBars = kRing + kStages * kStage;
+  static constexpr int kLut = kBars + 128;
+  static size_t bytes(int nlut) {
+    return 1024 + kLut + (BIAS == kRel ? 4 * nlut : 0);
+  }
+  static_assert(kQBufs <= 4 && kStages <= 4, "the barriers' 128 bytes");
+};
 
-// kStrided: q, k, v and o each with their own strides, sq != sk. The
-// packed instantiation takes k's and v's strides and lengths from q's, o's
-// layout from h, and a zero causal offset as compile-time facts, so its
-// code is the packed-only kernel's (with them at run time the packed
-// forward ran ~10% slower on an H100). kVarlen, kRel and kArr exist only
-// with kStrided; kRel and kArr exclude each other.
-template <int D, bool kStrided, bool kVarlen, bool kRel, bool kArr>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const FlashParams p) {
-  // locals, not the struct's fields, in the body: restrict-qualified
-  // pointers and hoisted scalars (read through the struct, the packed
-  // forward ran 33% slower on an H100)
-  const bf16* __restrict__ pq = p.q;
-  const bf16* __restrict__ pk = p.k;
-  const bf16* __restrict__ pv = p.v;
-  bf16* __restrict__ pout = p.out;
-  float* __restrict__ plse = p.lse_out;
-  const float* __restrict__ pbias = p.bias;
-  const float scale = p.scale;
+template <int D, int BIAS>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_bias,
+                    const FlashParams p, int bias_tma) {
+  using C = FwdCfg<D, BIAS>;
+  constexpr int kBk = C::kBk, kS = C::kStages, kQB = C::kQBufs;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* const gbase = smem_raw + (base - raw);
+  const uint32_t ring = base + C::kRing;
+  const uint32_t bars = base + C::kBars;
+  // the barriers: Q full and empty (4 each at most), then the ring's full
+  // and empty (4 each at most): 128 bytes (4 Q buffers and 4 stages at d
+  // 64 timed no faster on T5's calls than 2 and 3)
+  auto qfull = [&](int b) { return bars + 8 * b; };
+  auto qempty = [&](int b) { return bars + 32 + 8 * b; };
+  auto full = [&](int s) { return bars + 64 + 8 * s; };
+  auto empty = [&](int s) { return bars + 64 + 8 * (kS + s); };
+
+  const int h = p.h, sq = p.sq, sk = p.sk;
+  const int coff = sk - sq;  // bottom-right causal offset
   const int causal = p.causal;
-  const int maxd = p.maxd;
-  const int rel_off = p.rel_off;
-  const int sq = p.sq;
-  const int sk = kStrided ? p.sk : sq;
-  const long long q_h = kStrided ? p.q_v.h : D;
-  const long long kv_b = kStrided ? p.kv_v.b : p.q_v.b;
-  const long long kv_h = kStrided ? p.kv_v.h : D;
-  const long long kv_r = kStrided ? p.kv_v.r : p.q_v.r;
-  constexpr int kLd = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* k_s = q_s + kBq * kLd;      // [2][kBk][kLd]
-  bf16* v_s = k_s + 2 * kBk * kLd;  // [2][kBk][kLd]
-  float* lut_s = reinterpret_cast<float*>(v_s + 2 * kBk * kLd);  // kRel
+  const int nq = (sq + kBqCta - 1) / kBqCta;
+  const int ntiles = p.tiles;
+  // tile t: head by head, within a head the last query tiles first; CTA c
+  // walks tiles c, c + gridDim.x, ...
+  struct Tile {
+    int row, bi, head, q0, kv_lim, nk;
+  };
+  auto tile_at = [&](int t) {
+    Tile u;
+    u.row = t / nq;  // bi * h + head
+    u.bi = u.row / h;
+    u.head = u.row - u.bi * h;
+    u.q0 = (nq - 1 - (t - u.row * nq)) * kBqCta;
+    u.kv_lim = p.kv_lens ? apex::kv_len(p.kv_lens, u.bi, u.head, p.lens_b,
+                                        p.lens_h, sk)
+                         : sk;
+    const int kv_end =
+        causal ? min(u.kv_lim, u.q0 + kBqCta + coff) : u.kv_lim;
+    u.nk = kv_end > 0 ? (kv_end + kBk - 1) / kBk : 0;
+    return u;
+  };
+  const bool copy_bias = BIAS == kArr && !bias_tma;
 
-  const int row_id = blockIdx.x;  // bi * h + head
-  const int bi = row_id / p.h;
-  const int head = row_id - bi * p.h;
-  const int kvh = head / (p.h / p.h_kv);
-  const int q0 = blockIdx.y * kBq;
-  const int off = kStrided ? sk - sq : 0;  // bottom-right causal alignment
-  const bf16* qg = pq + bi * p.q_v.b + head * q_h;
-  const bf16* kg = pk + bi * kv_b + kvh * kv_h;
-  const bf16* vg = pv + bi * kv_b + kvh * kv_h;
-
-  int kv_lim = sk;  // columns >= kv_lim are masked
-  if (kVarlen) kv_lim = apex::kv_len(p.kv_lens, bi, head, p.lens_b, p.lens_h,
-                                     sk);
-  const int kv_end = causal ? min(kv_lim, q0 + kBq + off) : kv_lim;
-  const int nk = (kv_end + kBk - 1) / kBk;
-
-  apex::load_rows<D, kBq, kThreads>(q_s, qg, p.q_v.r, q0, sq);
-  apex::load_rows<D, kBk, kThreads>(k_s, kg, kv_r, 0, kv_lim);
-  apex::load_rows<D, kBk, kThreads>(v_s, vg, kv_r, 0, kv_lim);
-  apex::cp_async_commit();
-  if (kRel) {  // visible after the first iteration's __syncthreads
-    const int n = 2 * maxd + 1;
-    const float* lut = p.lut + static_cast<size_t>(row_id % p.hb) * n;
-    for (int i = threadIdx.x; i < n; i += kThreads) lut_s[i] = lut[i];
-  }
-
-  const int warp = threadIdx.x >> 5;
+  const int wg = threadIdx.x >> 7;
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int wrow = warp * 16 + g;  // this thread's rows: wrow, wrow + 8
-  const int row0 = q0 + wrow;
-  const int diag0 = row0 + off;  // the last visible column of row row0
-
-  float m_run[2] = {kNegInf, kNegInf};
-  float l_run[2] = {0.f, 0.f};  // this thread's columns only, summed last
-  float oacc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) oacc[i][c] = 0.f;
-  uint32_t qf[D / 16][4];
-
-  for (int j = 0; j < nk; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < nk) {
-      apex::load_rows<D, kBk, kThreads>(k_s + (buf ^ 1) * kBk * kLd, kg,
-                                        kv_r, (j + 1) * kBk, kv_lim);
-      apex::load_rows<D, kBk, kThreads>(v_s + (buf ^ 1) * kBk * kLd, vg,
-                                        kv_r, (j + 1) * kBk, kv_lim);
-      apex::cp_async_commit();
-      apex::cp_async_wait<1>();
-    } else {
-      apex::cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < kQB; ++b) {
+      mbar_init(qfull(b), 1);
+      mbar_init(qempty(b), 8);  // lane 0 of each consumer warp
     }
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const bf16* ptr = q_s + wrow * kLd + kk * 16 + 2 * t;
-        qf[kk][0] = apex::lds32(ptr);
-        qf[kk][1] = apex::lds32(ptr + 8 * kLd);
-        qf[kk][2] = apex::lds32(ptr + 8);
-        qf[kk][3] = apex::lds32(ptr + 8 * kLd + 8);
-      }
+    for (int s = 0; s < kS; ++s) {
+      // the TMA bytes' arrival, and each bias-copying producer warp's
+      mbar_init(full(s), copy_bias ? 5 : 1);
+      mbar_init(empty(s), 8);
     }
-    const bf16* kb = k_s + buf * kBk * kLd;
-    const bf16* vb = v_s + buf * kBk * kLd;
-
-    // S = Q K^T for this warp's 16 rows x 64 kv columns
-    float sc[kBk / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBk / 8; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) sc[nt][c] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < kBk / 8; ++nt) {
-        const bf16* ptr = kb + (nt * 8 + g) * kLd + kk * 16 + 2 * t;
-        apex::mma_bf16(sc[nt], qf[kk], apex::lds32(ptr),
-                       apex::lds32(ptr + 8));
-      }
-    }
-
-    // scale, bias, mask, online softmax
-    const int k0 = j * kBk;
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nt = 0; nt < kBk / 8; ++nt) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int diag = diag0 + (c >> 1) * 8;
-        const int col = k0 + nt * 8 + 2 * t + (c & 1);
-        const bool ok = col < kv_lim && (!causal || col <= diag);
-        float x = sc[nt][c] * scale;
-        if (kRel)
-          x += lut_s[apex::rel_index(col, row0 + (c >> 1) * 8, rel_off,
-                                     maxd)];
-        if (kArr)
-          x += apex::bias_at(pbias, row_id, p.hb, sq, sk,
-                             row0 + (c >> 1) * 8, col);
-        const float v = ok ? x : kNegInf;
-        sc[nt][c] = v;
-        mx[c >> 1] = fmaxf(mx[c >> 1], v);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_run[i], mx[i]);
-      alpha[i] = expf(m_run[i] - m_new);
-      m_run[i] = m_new;
-    }
-    float ls[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < kBk / 8; ++nt) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float pr = expf(sc[nt][c] - m_run[c >> 1]);
-        sc[nt][c] = pr;
-        ls[c >> 1] += pr;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + ls[i];
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      oacc[dt][0] *= alpha[0];
-      oacc[dt][1] *= alpha[0];
-      oacc[dt][2] *= alpha[1];
-      oacc[dt][3] *= alpha[1];
-    }
-
-    // O += P V: p rounded to bf16 (V's dtype) as the A operand
-#pragma unroll
-    for (int kk = 0; kk < kBk / 16; ++kk) {
-      const uint32_t a[4] = {
-          apex::pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-          apex::pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-          apex::pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-          apex::pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < D / 8; dt += 2) {
-        uint32_t b[4];
-        apex::ldmatrix_x4_trans(
-            b, vb + (kk * 16 + (lane & 15)) * kLd + dt * 8 + (lane >> 4) * 8);
-        apex::mma_bf16(oacc[dt], a, b[0], b[1]);
-        apex::mma_bf16(oacc[dt + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // the next iteration's copy reuses this buffer
+    fence_barrier_init();
   }
-  if (nk == 0) apex::cp_async_wait<0>();  // a row of kv length 0
+  __syncthreads();
 
-  const int hd = p.h * D;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float l = l_run[i] + __shfl_xor_sync(0xffffffffu, l_run[i], 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const bool dead = kVarlen && !(l > 0.f);  // no visible column
-    l = fmaxf(l, 1e-30f);
-    const int row = row0 + i * 8;
-    if (row < sq) {
-      bf16* orow = kStrided
-                       ? pout + bi * p.out_v.b + head * p.out_v.h +
-                             static_cast<long long>(row) * p.out_v.r
-                       : pout + (static_cast<size_t>(bi) * sq + row) * hd +
-                             head * D;
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t) = apex::pack_bf16(
-            oacc[dt][2 * i] / l, oacc[dt][2 * i + 1] / l);
+  if (wg == 0) {
+    setmaxnreg_dec<40>();
+    // warp 0 issues the TMA loads; with a bias no map describes, all four
+    // warps copy it
+    const int pw = threadIdx.x >> 5;
+    if (pw == 0 || copy_bias) {
+      if (threadIdx.x == 0) {
+        tma_prefetch(&tm_q);
+        tma_prefetch(&tm_k);
+        tma_prefetch(&tm_v);
       }
-      if (t == 0)
-        plse[static_cast<size_t>(row_id) * sq + row] =
-            dead ? 0.f : m_run[i] + logf(l);
+      const bool tb = BIAS == kArr && bias_tma;
+      int it = 0;  // the ring's stage count over the CTA's tiles
+      for (int t = blockIdx.x, ti = 0; t < ntiles; t += gridDim.x, ++ti) {
+        const Tile u = tile_at(t);
+        const int kvh = u.head / (h / p.h_kv);
+        if (threadIdx.x == 0) {  // Q, once its buffer's last tile let it go
+          const int qb = ti % kQB;
+          mbar_wait(qempty(qb), ((ti / kQB) & 1) ^ 1);
+          mbar_expect_tx(qfull(qb), C::kQ);
+          load_rows<D>(base + qb * C::kQ, &tm_q, kBqCta, u.q0, u.head, u.bi,
+                       qfull(qb));
+        }
+        for (int j = 0; j < u.nk; ++j, ++it) {
+          const int s = it % kS;
+          const uint32_t ph = (it / kS) & 1;
+          const uint32_t st = ring + s * C::kStage;
+          mbar_wait(empty(s), ph ^ 1);
+          if (threadIdx.x == 0) {
+            mbar_expect_tx(full(s), 2 * C::kK + (tb ? C::kBias : 0));
+            load_rows<D>(st, &tm_k, kBk, j * kBk, kvh, u.bi, full(s));
+            load_rows<D>(st + C::kK, &tm_v, kBk, j * kBk, kvh, u.bi,
+                         full(s));
+            if (tb)
+              stage_bias_tma<kBqCta, kBk>(st + 2 * C::kK, &tm_bias,
+                                          u.row % p.hb, u.q0, j * kBk,
+                                          full(s));
+          }
+          if (copy_bias) {
+            stage_bias_copy<kBqCta, kBk>(st + 2 * C::kK, p.bias,
+                                         u.row % p.hb, u.q0, j * kBk, sq, sk,
+                                         threadIdx.x);
+            __syncwarp();
+            if (lane == 0) mbar_arrive(full(s));
+          }
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int cw = wg - 1;  // this warpgroup's 64 query rows
+    const int tid = threadIdx.x - 128;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, t = lane & 3;
+    const float scale = p.scale;
+    const int maxd = p.maxd, rel_off = p.rel_off;
+    float* const lut_s = reinterpret_cast<float*>(gbase + C::kLut);
+    const int r0 = cw * 64 + warp * 16 + g;  // this thread's rows: r0, r0 + 8
+    // the running max is over the raw scores without a bias (scale > 0
+    // keeps their order; m = the raw max * scale exactly), over the scaled
+    // and biased ones with a bias; the exponent's multiplier follows
+    constexpr bool kBiased = BIAS != kNone;
+    const float mul = kBiased ? kLog2e : scale * kLog2e;
+    const float mscale = kBiased ? 1.f : scale;  // m in the scores' units
+    const long long o_b = p.out_v.b, o_h = p.out_v.h, o_r = p.out_v.r;
+    int it = 0, lut_row = -1;
+    float o[D / 2], sc[kBk / 2];
+    for (int tt = blockIdx.x, ti = 0; tt < ntiles; tt += gridDim.x, ++ti) {
+      const Tile u = tile_at(tt);
+      const int q0 = u.q0, kv_lim = u.kv_lim;
+      const int wq0 = q0 + cw * 64;  // this warpgroup's first row
+      // the lookup: every bias row's at the CTA's first tile where they all
+      // fit (p.lut_rows == hb), else the tile's row, once every consumer is
+      // done with the last
+      const int nlut = 2 * maxd + 1;
+      const int lrow = p.lut_rows == 1 ? u.row % p.hb : 0;
+      if (BIAS == kRel && lrow != lut_row) {
+        if (lut_row >= 0) named_barrier(1, 256);
+        lut_row = lrow;
+        const float* lut = p.lut + static_cast<size_t>(lrow) * nlut;
+        for (int i = tid; i < p.lut_rows * nlut; i += 256) lut_s[i] = lut[i];
+        named_barrier(1, 256);
+      }
+      const float* lut_h =
+          lut_s + (p.lut_rows == 1 ? 0 : (u.row % p.hb) * nlut);
+      const int qb = ti % kQB;
+      const uint32_t q_s = base + qb * C::kQ;
+      zero(o);
+      float m_run[2] = {kNegInf, kNegInf};
+      float l_run[2] = {0.f, 0.f};  // this thread's columns only, summed last
+      mbar_wait(qfull(qb), (ti / kQB) & 1);
+      for (int j = 0; j < u.nk; ++j, ++it) {
+        const int s = it % kS;
+        const uint32_t ph = (it / kS) & 1;
+        const uint32_t st = ring + s * C::kStage;
+        const uint32_t k_st = st, v_st = st + C::kK;
+        const float* bias_s =
+            reinterpret_cast<const float*>(gbase + (st - base) + 2 * C::kK);
+        const int kc0 = j * kBk;
+        mbar_wait(full(s), ph);
+        const bool skip = wq0 >= sq || (causal && kc0 > wq0 + 63 + coff);
+        if (!skip) {
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss<kBk>(sc, kmajor(q_s, kBqCta, kk, cw * 64),
+                          kmajor(k_st, kBk, kk, 0), kk > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_operand(sc);
+          // rows past sq are never stored: only the kv masks apply
+          const bool inside = kc0 + kBk <= kv_lim &&
+                              (!causal || kc0 + kBk - 1 <= wq0 + coff);
+          const int n_lo = kc0 - (wq0 + 63) + rel_off;
+          const int n_hi = kc0 + kBk - 1 - wq0 + rel_off;
+          const bool one_bin =
+              BIAS == kRel && (n_lo >= maxd || n_hi <= -maxd);
+          const bool unclamped = BIAS == kRel && n_lo > -maxd && n_hi < maxd;
+          const int bin = n_lo >= maxd ? 2 * maxd : 0;
+          // unclamped: score (c, i)'s offset is this thread's base + 8 i +
+          // (c & 1) - 8 (c >> 1)
+          const float* lut_at =
+              lut_h + maxd + (kc0 - q0 - r0 + 2 * t + rel_off);
+          auto elem = [&](auto masked, auto lut_mode) {
+            constexpr int kMode = decltype(lut_mode)::value;
+#pragma unroll
+            for (int i = 0; i < kBk / 8; ++i) {
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                const int hh = c >> 1;
+                const int rl = r0 + 8 * hh;
+                const int qr = q0 + rl;
+                const int cl = 8 * i + 2 * t + (c & 1);
+                const int kc = kc0 + cl;
+                float x = sc[4 * i + c];
+                if (kBiased) x *= scale;
+                if (BIAS == kRel)
+                  x += kMode == kLutOne   ? lut_h[bin]
+                       : kMode == kLutRow ? lut_at[8 * i + (c & 1) - 8 * hh]
+                                          : lut_h[apex::rel_index(
+                                                kc, qr, rel_off, maxd)];
+                if (BIAS == kArr) x += bias_s[bias_offset<kBk>(rl, cl)];
+                if (decltype(masked)::value)
+                  x = kc < kv_lim && (!causal || kc <= qr + coff) ? x
+                                                                  : kNegInf;
+                sc[4 * i + c] = x;
+              }
+            }
+          };
+          auto run = [&](auto lut_mode) {
+            if (inside)
+              elem(std::false_type{}, lut_mode);
+            else
+              elem(std::true_type{}, lut_mode);
+          };
+          if (BIAS == kRel && one_bin)
+            run(LutMode<kLutOne>{});
+          else if (BIAS == kRel && unclamped)
+            run(LutMode<kLutRow>{});
+          else
+            run(LutMode<kLutClamp>{});
+          // the online softmax: the new row max, the old sums' rescale, p
+          float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+          for (int i = 0; i < kBk / 8; ++i)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              mx[c >> 1] = fmaxf(mx[c >> 1], sc[4 * i + c]);
+          float alpha[2], ml[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+            mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+            alpha[hh] = ex2((m_run[hh] - mx[hh]) * mul);
+            m_run[hh] = mx[hh];
+            ml[hh] = mx[hh] * mul;
+          }
+#pragma unroll
+          for (int i = 0; i < kBk / 8; ++i) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const float pr = ex2(fmaf(sc[4 * i + c], mul, -ml[c >> 1]));
+              sc[4 * i + c] = pr;
+              ls[c >> 1] += pr;
+            }
+          }
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            l_run[hh] = l_run[hh] * alpha[hh] + ls[hh];
+#pragma unroll
+          for (int i = 0; i < D / 8; ++i) {
+            o[4 * i] *= alpha[0];
+            o[4 * i + 1] *= alpha[0];
+            o[4 * i + 2] *= alpha[1];
+            o[4 * i + 3] *= alpha[1];
+          }
+          uint32_t pa[kBk / 16][4];
+#pragma unroll
+          for (int kk = 0; kk < kBk / 16; ++kk) wgmma_a_frag(pa[kk], sc, kk);
+          fence_operand(o);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kBk / 16; ++kk)
+            wgmma_rs<D>(o, pa[kk], mnmajor(v_st, kk, kBk * 128));
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_operand(o);
+        }
+        if (lane == 0) mbar_arrive(empty(s));
+      }
+      // every product that reads this Q buffer is complete
+      if (lane == 0) mbar_arrive(qempty(qb));
+
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float l = l_run[hh] + __shfl_xor_sync(0xffffffffu, l_run[hh], 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        const bool dead = !(l > 0.f);  // no visible column (kv length 0)
+        l = fmaxf(l, 1e-30f);
+        const float inv = 1.f / l;  // o = acc / l within an ulp, then bf16
+        const int qr = q0 + r0 + 8 * hh;
+        if (qr >= sq) continue;
+        bf16* dst = p.out + u.bi * o_b + u.head * o_h + qr * o_r;
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i)
+          *reinterpret_cast<uint32_t*>(dst + 8 * i + 2 * t) = apex::pack_bf16(
+              o[4 * i + 2 * hh] * inv, o[4 * i + 2 * hh + 1] * inv);
+        if (t == 0)
+          p.lse_out[static_cast<size_t>(u.row) * sq + qr] =
+              dead ? 0.f : m_run[hh] * mscale + logf(l);
+      }
     }
   }
 }
 
-template <int D, bool kStrided, bool kVarlen, bool kRel, bool kArr>
-cudaError_t launch(const FlashParams& p, int b, cudaStream_t stream) {
-  size_t smem = tile_smem_bytes<D>();
-  if (kRel) smem += (static_cast<size_t>(2 * p.maxd + 1) * 4 + 15) & ~15ull;
+// --- host -----------------------------------------------------------------
+
+struct Maps {
+  CUtensorMap q, k, v, bias;
+};
+
+// every map of a call; the bias's only when it goes by TMA (else the
+// kernel never reads it)
+bool make_maps(Maps& m, const FlashParams& p, int b, int d, int bias_tma) {
+  if (!view_map(&m.q, p.q, p.q_v, d, p.sq, p.h, b) ||
+      !view_map(&m.k, p.k, p.kv_v, d, p.sk, p.h_kv, b) ||
+      !view_map(&m.v, p.v, p.kv_v, d, p.sk, p.h_kv, b))
+    return false;
+  m.bias = m.q;
+  if (p.bias != nullptr && bias_tma)
+    return bias_map(&m.bias, p.bias, p.sq, p.sk, p.hb);
+  return true;
+}
+
+template <int D, int BIAS>
+cudaError_t launch(const Maps& m, const FlashParams& p0, unsigned ctas,
+                   int bias_tma, cudaStream_t st) {
+  auto kernel = flash_fwd_wgmma<D, BIAS>;
+  FlashParams p = p0;
+  // kRel: every bias row's lookup in shared memory where they fit (T5: 12
+  // rows of 257 values), else one row at a time
+  const size_t nlut = 2 * p.maxd + 1;
+  const size_t room = 232448 - FwdCfg<D, BIAS>::bytes(0);
+  p.lut_rows = BIAS == kRel && 4 * nlut * p.hb <= room ? p.hb : 1;
+  const size_t smem = FwdCfg<D, BIAS>::bytes(p.lut_rows * nlut);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, kStrided, kVarlen, kRel, kArr>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(b * p.h, (p.sq + kBq - 1) / kBq);
-  flash_fwd_kernel<D, kStrided, kVarlen, kRel, kArr>
-      <<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<ctas, kThreads, smem, st>>>(m.q, m.k, m.v, m.bias, p, bias_tma);
   return cudaGetLastError();
 }
 
-template <int D, bool kVarlen>
-cudaError_t dispatch_bias(const FlashParams& p, int b, cudaStream_t st) {
-  if (p.lut != nullptr)
-    return launch<D, true, kVarlen, true, false>(p, b, st);
-  if (p.bias != nullptr)
-    return launch<D, true, kVarlen, false, true>(p, b, st);
-  return launch<D, true, kVarlen, false, false>(p, b, st);
-}
-
 template <int D>
-cudaError_t dispatch(const FlashParams& p, int b, bool strided,
-                     cudaStream_t st) {
-  if (!strided) return launch<D, false, false, false, false>(p, b, st);
-  return p.kv_lens != nullptr ? dispatch_bias<D, true>(p, b, st)
-                              : dispatch_bias<D, false>(p, b, st);
+cudaError_t dispatch(const Maps& m, const FlashParams& p, unsigned ctas,
+                     int bias_tma, cudaStream_t st) {
+  if (p.lut != nullptr) return launch<D, kRel>(m, p, ctas, bias_tma, st);
+  if (p.bias != nullptr) return launch<D, kArr>(m, p, ctas, bias_tma, st);
+  return launch<D, kNone>(m, p, ctas, bias_tma, st);
 }
 
-// the shared argument rules; d picks the compiled head dim
-int run(int d, const FlashParams& p, int b, bool strided, void* stream) {
+// the SMs of the current device, asked once per device
+int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (counts[dev] == 0) {
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    counts[dev] = n > 0 ? n : 132;
+  }
+  return counts[dev];
+}
+
+// the argument rules both variants share; d picks the compiled head dim;
+// `strided`: the sm80 variant's instantiation for views with their own
+// strides (else the packed one's)
+int run(int d, const FlashParams& p, int b, bool strided, int variant,
+        int bias_tma, void* stream) {
   if (b < 1 || p.sq < 1 || p.sk < 1 || p.h < 1 || p.h_kv < 1 ||
-      p.h % p.h_kv || (d != 64 && d != 128) ||
-      (p.sq + kBq - 1) / kBq > 65535 || (p.causal && p.sq > p.sk) ||
+      p.h % p.h_kv || (d != 64 && d != 128) || (p.causal && p.sq > p.sk) ||
       static_cast<long long>(b) * p.h > 0x7fffffffLL ||
       (p.lut != nullptr && p.bias != nullptr) ||
       ((p.lut != nullptr || p.bias != nullptr) && p.hb < 1) ||
-      (p.lut != nullptr && (p.maxd < 1 || p.maxd > 4096)))
+      (p.lut != nullptr && (p.maxd < 1 || p.maxd > 4096)) ||
+      (variant != 0 && variant != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (variant == 0) return apex::flash_fwd_sm80::run(d, p, b, strided, stream);
+  const int nq = (p.sq + kBqCta - 1) / kBqCta;
+  const long long tiles = static_cast<long long>(b) * p.h * nq;
+  Maps m;
+  if (tiles > 0x7fffffffLL || !make_maps(m, p, b, d, bias_tma))
+    return static_cast<int>(cudaErrorInvalidValue);
+  FlashParams pt = p;
+  pt.tiles = static_cast<int>(tiles);
+  // tiles of equal work (no causal mask, or one query tile a head) go to
+  // one CTA an SM, each walking several, so a tile's loads overlap the one
+  // before; causal tiles of uneven work one CTA each, the longest first,
+  // as the SMs free up
+  const bool even = !p.causal || nq == 1;
+  const long long sms = sm_count();
+  const long long ctas = even && tiles > sms ? sms : tiles;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      d == 128 ? dispatch<128>(p, b, strided, st)
-               : dispatch<64>(p, b, strided, st);
+  const unsigned n = static_cast<unsigned>(ctas);
+  const cudaError_t err = d == 128 ? dispatch<128>(m, pt, n, bias_tma, st)
+                                   : dispatch<64>(m, pt, n, bias_tma, st);
   return static_cast<int>(err);
 }
 
 }  // namespace
 
-extern "C" int apex_flash_fwd(const void* qkv, void* out, void* lse, int b,
-                              int s, int h, int h_kv, int d, int causal,
-                              float scale, void* stream) {
+// The packed entry: qkv (b, s, (h + 2*h_kv)*d) bf16, features ordered
+// q-heads | k-heads | v-heads, read straight out of qkv (no slice, no
+// copy); o (b, s, h*d) bf16 and lse (b*h, s) fp32. kv_lens (b*h,) int32 per
+// row or null (the path passes none: the chip checks' planted fault does).
+extern "C" int apex_flash_fwd(const void* qkv, void* out, void* lse,
+                              const void* kv_lens, int b, int s, int h,
+                              int h_kv, int d, int causal, float scale,
+                              int variant, void* stream) {
   const bf16* base = static_cast<const bf16*>(qkv);
   const long long feat = static_cast<long long>(h + 2 * h_kv) * d;
   FlashParams p{};
@@ -356,26 +561,36 @@ extern "C" int apex_flash_fwd(const void* qkv, void* out, void* lse, int b,
   p.v = base + (h + h_kv) * d;
   p.out = static_cast<bf16*>(out);
   p.lse_out = static_cast<float*>(lse);
+  p.kv_lens = static_cast<const int*>(kv_lens);
   p.q_v = {s * feat, d, feat};
+  p.kv_v = p.q_v;
+  p.out_v = {static_cast<long long>(s) * h * d, d,
+             static_cast<long long>(h) * d};
   p.sq = p.sk = s;
   p.h = h;
   p.h_kv = h_kv;
   p.causal = causal;
   p.scale = scale;
-  return run(d, p, b, false, stream);
+  p.hb = 1;
+  p.lens_b = h;  // per row
+  p.lens_h = 1;
+  return run(d, p, b, kv_lens != nullptr, variant, 0, stream);
 }
 
 // q (b, sq, h, d) and k, v (b, sk, h_kv, d) with unit head and feature
 // strides; the batch and row strides are the caller's (k and v share
 // theirs), so views into a larger buffer need no copy. kv_lens (b,) int32
 // per batch or null; bias (hb, sq, sk) fp32 with hb | h, or null.
+// bias_tma: the wgmma variant stages the bias by TMA (sk a multiple of 4,
+// base 16-byte aligned), else by cp.async.
 extern "C" int apex_flash_fwd_bshd(const void* q, const void* k,
                                    const void* v, void* out, void* lse,
                                    const void* kv_lens, const void* bias,
                                    long long q_bstride, long long kv_bstride,
                                    int q_stride, int kv_stride, int b, int sq,
                                    int sk, int h, int h_kv, int d, int causal,
-                                   float scale, int hb, void* stream) {
+                                   float scale, int hb, int variant,
+                                   int bias_tma, void* stream) {
   if (q_bstride < 0 || kv_bstride < 0 || q_stride < h * d ||
       kv_stride < h_kv * d || q_stride % 8 || kv_stride % 8 ||
       (bias != nullptr && (hb < 1 || h % hb)))
@@ -401,7 +616,7 @@ extern "C" int apex_flash_fwd_bshd(const void* q, const void* k,
   p.hb = hb;
   p.lens_b = 1;  // per batch: the heads share a row's padding
   p.lens_h = 0;
-  return run(d, p, b, true, stream);
+  return run(d, p, b, true, variant, bias_tma, stream);
 }
 
 // The bh-flat entry: q (b, h, sq, d), k and v (b, h_kv, sk, d) sharing
@@ -411,7 +626,8 @@ extern "C" int apex_flash_fwd_bshd(const void* q, const void* k,
 // aligned); lse (b*h, sq) fp32. kv_lens (b*h,) int32 or
 // null; lut (hb, 2*maxd + 1) fp32 or null, row r reading lut row r % hb,
 // with rel_off = k_offset - q_offset; or bias (hb, sq, sk) fp32 or null,
-// row r reading bias row r % hb (at most one of lut and bias).
+// row r reading bias row r % hb (at most one of lut and bias); bias_tma as
+// the bshd entry's.
 extern "C" int apex_flash_fwd_flat(const void* q, const void* k,
                                    const void* v, void* out, void* lse,
                                    const void* kv_lens, const void* lut,
@@ -419,7 +635,8 @@ extern "C" int apex_flash_fwd_flat(const void* q, const void* k,
                                    const long long* strides, int b, int h,
                                    int h_kv, int sq, int sk, int d,
                                    int causal, float scale, int maxd,
-                                   int rel_off, int hb, void* stream) {
+                                   int rel_off, int hb, int variant,
+                                   int bias_tma, void* stream) {
   for (int i = 0; i < 9; ++i)
     if (strides[i] < 0 || strides[i] % 8)
       return static_cast<int>(cudaErrorInvalidValue);
@@ -446,5 +663,5 @@ extern "C" int apex_flash_fwd_flat(const void* q, const void* k,
   p.maxd = maxd;
   p.rel_off = rel_off;
   p.hb = hb;
-  return run(d, p, b, true, stream);
+  return run(d, p, b, true, variant, bias_tma, stream);
 }

@@ -57,6 +57,8 @@ struct FlashParams {
   float scale;
   int maxd, rel_off, hb, nb;  // hb: rows of the lookup or of the bias
   int lens_b, lens_h;         // kv_lens strides of batch and head
+  int tiles;                  // the wgmma forward's (b*h, query tile)s
+  int lut_rows;               // its lookup rows in shared memory: hb or 1
 };
 
 // rowsum(do * o) in fp32 over D elements, THREADS_PER_ROW threads per row

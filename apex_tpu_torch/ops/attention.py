@@ -55,11 +55,16 @@ Port of the packed path of ``apex_tpu/ops/attention.py``:
   kernel, :func:`flash_bwd_dbias_cuda` (``csrc/flash_attn_dbias.cu``,
   replacing the Pallas ``_dbias_pallas``).
 
-The backward pair (:func:`_bwd_plan`) runs on Hopper's ``wgmma``/TMA
-kernels for all three layouts — the dQ kernel first: it writes delta =
-rowsum(do·o) (:func:`bwd_delta` is its plain version), which the dK/dV
-kernel reads — or, through ``variant="sm80"`` on the ``_cuda`` wrappers
-only, on the first ``mma.sync`` pair (``csrc/flash_attn_bwd_sm80.cu``).
+Every path runs Hopper's ``wgmma``/TMA kernels, one body each for the
+three layouts: the forward (:func:`_fwd_plan`: its maps, the bias's
+staging, the tiles), the backward pair (:func:`_bwd_plan`) — the dQ kernel
+first: it writes delta = rowsum(do·o) (:func:`bwd_delta` is its plain
+version), which the dK/dV kernel and the dbias kernel read — and dbias
+(:func:`_dbias_plan`: the sharing rows split into groups summed in a
+fixed order). ``variant="sm80"`` on the ``_cuda`` wrappers, and only
+there, runs the first ``mma.sync`` kernels instead
+(``csrc/flash_attn_fwd_sm80.cu``, ``flash_attn_bwd_sm80.cu``,
+``flash_attn_dbias_sm80.cu``), for the A/B timing and the tests.
 
 Dropout (``dropout_keep``) and the bucketed bias on the bshd layout are
 later slices of the port.
@@ -76,6 +81,7 @@ import torch
 import torch.nn.functional as F
 
 from apex_tpu_torch.ops import _backend, _build
+from apex_tpu_torch.ops.matmul import _sm_count
 
 #: masked-score value (``apex_tpu/ops/pallas/attention.py:33``)
 NEG_INF = -1e30
@@ -505,25 +511,35 @@ def _check_like(name: str, t: torch.Tensor, shape, dtype, ref) -> None:
 
 
 def flash_fwd_cuda(qkv: torch.Tensor, h: int, h_kv: int, d: int, *,
-                   scale: float, causal: bool
+                   scale: float, causal: bool,
+                   variant: Optional[str] = None,
+                   planted_fault: Optional[str] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the flash forward kernel on the packed buffer. Returns o
-    (b, s, h·d) bf16 and lse (b, h, s) fp32. Counts its launches in
-    ``.launches``."""
+    (b, s, h·d) bf16 and lse (b, h, s) fp32. ``variant`` and
+    ``planted_fault`` are for the A/B timing and the kernel checks
+    (:func:`_fwd_plan`, :func:`_planted`). Counts its launches in
+    ``.launches`` and by variant in ``.wgmma_launches`` and
+    ``.sm80_launches``."""
     _check_packed(qkv, h, h_kv, d, "flash_fwd_cuda")
     b, s, _ = qkv.shape
     out = torch.empty((b, s, h * d), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=qkv.device)
+    kv_lens, _, _, _ = _planted(planted_fault, None, (h, 1), None, None, b,
+                                h, s, qkv.device)
+    plan = _packed_fwd_plan(qkv, h, h_kv, d, variant)
     rc = _build.library().apex_flash_fwd(
-        qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), b, s, h, h_kv, d,
-        int(causal), float(scale),
+        qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), _ptr(kv_lens), b, s,
+        h, h_kv, d, int(causal), float(scale), int(plan.variant == "wgmma"),
         torch.cuda.current_stream(qkv.device).cuda_stream)
     _build.check(rc, "flash_fwd")
-    flash_fwd_cuda.launches += 1
+    _count(flash_fwd_cuda, plan)
     return out, lse
 
 
 flash_fwd_cuda.launches = 0
+flash_fwd_cuda.wgmma_launches = 0
+flash_fwd_cuda.sm80_launches = 0
 
 
 def _check_bwd(qkv, o, lse, do, h, h_kv, d, name):
@@ -677,7 +693,7 @@ def _check_bias(bias: Optional[torch.Tensor], rows: int, sq: int, sk: int,
 
 
 def _count(fn, plan=None, bias=None) -> None:
-    """One launch of a wrapper: ``.launches``, by backward variant
+    """One launch of a wrapper: ``.launches``, by variant
     (``.wgmma_launches``, ``.sm80_launches``) and with an array bias
     (``.bias_launches``)."""
     fn.launches += 1
@@ -691,14 +707,16 @@ def _count(fn, plan=None, bias=None) -> None:
 def flash_fwd_bshd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, scale: float, causal: bool,
                         kv_lens: Optional[torch.Tensor] = None,
-                        bias: Optional[torch.Tensor] = None
+                        bias: Optional[torch.Tensor] = None,
+                        variant: Optional[str] = None,
+                        planted_fault: Optional[str] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the bshd flash forward: q (b, sq, h, d), k/v (b, sk, h_kv,
     d), bf16 — separate tensors or views into one buffer (the batch and
     row strides are passed through); kv_lens (b,) int32 per batch or None;
     bias (hb, sq, sk) fp32 with hb | h or None. Returns o (b, sq, h, d)
-    bf16 and lse (b, h, sq) fp32. Counts its launches in ``.launches``
-    and those with a bias in ``.bias_launches``."""
+    bf16 and lse (b, h, sq) fp32. Counts its launches in ``.launches``, by
+    variant and those with a bias in ``.bias_launches``."""
     name = "flash_fwd_bshd_cuda"
     _check_bshd(q, k, v, causal, name, kv_lens)
     b, sq, h, d = q.shape
@@ -706,17 +724,25 @@ def flash_fwd_bshd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hb = _check_bias(bias, h, sq, sk, q, name)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    kv_lens, _, run_bias, _ = _planted(planted_fault, kv_lens,
+                                       _LENS_PER_BATCH, bias, None, b, h, sk,
+                                       q.device)
+    plan = _bshd_fwd_plan(q, k, v, run_bias, variant)
     rc = _build.library().apex_flash_fwd_bshd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), _ptr(kv_lens), _ptr(bias), q.stride(0), k.stride(0),
-        q.stride(1), k.stride(1), b, sq, sk, h, h_kv, d, int(causal),
-        float(scale), hb, torch.cuda.current_stream(q.device).cuda_stream)
+        lse.data_ptr(), _ptr(kv_lens), _ptr(run_bias), q.stride(0),
+        k.stride(0), q.stride(1), k.stride(1), b, sq, sk, h, h_kv, d,
+        int(causal), float(scale), hb, int(plan.variant == "wgmma"),
+        int(plan.bias_staging == "tma"),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_fwd_bshd")
-    _count(flash_fwd_bshd_cuda, bias=bias)
+    _count(flash_fwd_bshd_cuda, plan, bias)
     return out, lse
 
 
 flash_fwd_bshd_cuda.launches = 0
+flash_fwd_bshd_cuda.wgmma_launches = 0
+flash_fwd_bshd_cuda.sm80_launches = 0
 flash_fwd_bshd_cuda.bias_launches = 0
 
 
@@ -922,22 +948,32 @@ def _flat_bias_args(rel_bias: Optional[BucketedBias],
     return _rel_args(rel_bias, rows)
 
 
-# --- the backward pair's launch plan ------------------------------------------
+# --- the flash kernels' launch plans -------------------------------------------
 
-#: the backward kernels' variants: "wgmma" (TMA and wgmma, one body for
-#: every layout: every path's call) and "sm80" (the first mma.sync pair,
-#: reached only through ``variant="sm80"``, for the A/B timing and tests)
-BWD_VARIANTS = ("wgmma", "sm80")
+#: the flash kernels' variants: "wgmma" (TMA and wgmma, one body for every
+#: layout: every path's call) and "sm80" (the first mma.sync kernels,
+#: reached only through ``variant="sm80"`` on the ``_cuda`` wrappers, for
+#: the A/B timing and tests) — the forward, the backward pair and dbias
+KERNEL_VARIANTS = ("wgmma", "sm80")
+#: the wgmma forward's tiles: query rows per CTA, kv rows per stage (64
+#: with an array bias at d 128: its block rides the stage)
+FWD_Q_TILE, FWD_KV_TILE, FWD_BIAS_KV_TILE = 128, 128, 64
 #: the wgmma dK/dV kernel's tiles: kv rows per CTA, query rows per stage
 #: (64 at d 128 and with an array bias; 128 otherwise at d 64)
 DKV_KV_TILE, DKV_Q_TILE = 128, 64
 #: the wgmma dQ kernel's tiles: query rows per CTA, kv rows per stage (64
 #: at d 128; 128 at d 64)
 DQ_Q_TILE, DQ_KV_TILE = 128, 64
-#: the faults a backward wrapper plants on request, made from its own
-#: inputs, for the chip checks to refuse: the keys past the start of the
-#: last 64-row kv tile masked off, or the bias (array or bucketed) left out
+#: the wgmma dbias kernel's output tiles (query rows, key columns) and the
+#: most groups it splits the sharing rows into
+DBIAS_Q_TILE, DBIAS_KV_TILE, DBIAS_MAX_SPLITS = 128, 64, 64
+#: the faults a wrapper plants on request, made from its own inputs, for
+#: the chip checks to refuse: the keys past the start of the last 64-row kv
+#: tile masked off, or the bias (array or bucketed) left out
 PLANTED_FAULTS = ("drop_last_kv_tile", "drop_bias")
+#: dbias's: the last group of sharing rows left out of the sum (with one
+#: group, its last row), or the bias left out of p
+DBIAS_FAULTS = ("drop_last_group", "drop_bias")
 
 
 class TensorMap(NamedTuple):
@@ -949,17 +985,32 @@ class TensorMap(NamedTuple):
     box: Tuple[int, ...]
 
 
-class BwdPlan(NamedTuple):
-    """One backward call's launch: the variant, the TMA maps of its
-    operands (``"q"``, ``"k"``, ``"v"``, ``"do"`` and, staged by TMA, the
-    bias; none on ``"sm80"``), how the array bias reaches shared memory
-    (``"tma"``, ``"cp.async"`` for rows no map describes, ``"global"``: the
-    sm80 kernels read it per score; None without one), and the wgmma
-    kernels' stage tiles, (dK/dV query rows, dQ kv rows) — the tiles
-    :func:`dkv_schedule` and :func:`dq_schedule` walk (None on sm80)."""
+class FlashPlan(NamedTuple):
+    """One forward or backward call's launch: the variant, the TMA maps of
+    its operands (``"q"``, ``"k"``, ``"v"``, the backward's ``"do"`` and,
+    staged by TMA, the bias; none on ``"sm80"``), how the array bias
+    reaches shared memory (``"tma"``, ``"cp.async"`` for rows no map
+    describes, ``"global"``: the sm80 kernels read it per score; None
+    without one), and the wgmma kernels' tiles — the forward's (query rows
+    per CTA, kv rows per stage), :func:`fwd_schedule`'s; the backward's
+    stage tiles (dK/dV query rows, dQ kv rows), :func:`dkv_schedule`'s and
+    :func:`dq_schedule`'s (None on sm80)."""
     variant: str
     maps: dict
     bias_staging: Optional[str]
+    tiles: Optional[Tuple[int, int]] = None
+
+
+class DbiasPlan(NamedTuple):
+    """One dbias call's launch: the variant, the TMA maps (``"q"``,
+    ``"k"``, ``"v"``, ``"do"``; none on ``"sm80"``), the number of groups
+    the sharing rows are split into (1 on sm80) and the groups, each a
+    [first, last + 1) range of sharing-row indices n (row r = n·hb + th),
+    and the output tiles (query rows, key columns; None on sm80)."""
+    variant: str
+    maps: dict
+    splits: int
+    groups: Tuple[Tuple[int, int], ...]
     tiles: Optional[Tuple[int, int]] = None
 
 
@@ -985,50 +1036,176 @@ def _view_map(x4: torch.Tensor) -> TensorMap:
                        (64, 64, 1, 1))
 
 
-def _bwd_variant(variant: Optional[str]) -> str:
+def _layout_key(a):
+    """What a plan reads of an argument: a tensor's dtype, shape, strides
+    and base offset from 16 bytes; any other argument as it is."""
+    if isinstance(a, torch.Tensor):
+        return a.dtype, tuple(a.shape), a.stride(), a.data_ptr() % 16
+    return a
+
+
+def _by_layout(fn):
+    """Memoize a plan by :func:`_layout_key` of its arguments: a step
+    launches a few layouts again and again, and a plan's maps cost more
+    host time than its launch. A plan that raises is not kept."""
+    cache = {}
+
+    @functools.wraps(fn)
+    def plan(*args, **kw):
+        key = (tuple(map(_layout_key, args)),
+               tuple((k, _layout_key(v)) for k, v in sorted(kw.items())))
+        hit = cache.get(key)
+        if hit is None:
+            if len(cache) >= 1024:
+                cache.clear()
+            hit = cache[key] = fn(*args, **kw)
+        return hit
+    return plan
+
+
+def _variant(variant: Optional[str], what: str) -> str:
     if variant is None:
         return "wgmma"
-    if variant not in BWD_VARIANTS:
-        raise ValueError(f"the flash backward has no variant {variant!r}; "
-                         f"it has {BWD_VARIANTS}")
+    if variant not in KERNEL_VARIANTS:
+        raise ValueError(f"{what} has no variant {variant!r}; it has "
+                         f"{KERNEL_VARIANTS}")
     return variant
 
 
-def _bwd_plan(q4: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor,
-              do4: torch.Tensor, bias: Optional[torch.Tensor] = None,
-              variant: Optional[str] = None) -> BwdPlan:
-    """Every host-side decision of a backward call, from its operands:
-    the variant (``"wgmma"`` unless the caller names another), the tensor
-    maps, and the bias's staging — by TMA where a map describes the fp32
-    (sk, sq, hb) bias (rows a multiple of 16 bytes, a 16-byte aligned
-    base; 32-column x 64-row boxes), else by ``cp.async`` of 8 or 4 bytes
-    into the same swizzled layout; and the stage tiles. Raises where no
-    map describes an operand; there is no fallback to the other
-    variant."""
-    variant = _bwd_variant(variant)
-    if variant == "sm80":
-        return BwdPlan("sm80", {}, None if bias is None else "global")
-    d = q4.shape[-1]  # the registers' and shared memory's tiles (DkvCfg)
-    tiles = (128 if d == 64 and bias is None else 64, 128 if d == 64 else 64)
+def _operand_maps(what: str, **views: torch.Tensor) -> dict:
+    """The TMA map of each named (b, heads, s, d) view; raises where none
+    describes one (no fallback to another variant)."""
     maps = {}
-    for name, x4 in (("q", q4), ("k", k4), ("v", v4), ("do", do4)):
+    for name, x4 in views.items():
         m = _view_map(x4)
         if x4.data_ptr() % 16 or x4.stride(-1) != 1 \
                 or any(st % 16 for st in m.strides):
             raise ValueError(
-                f"the wgmma flash backward: no tensor map describes {name} "
+                f"the wgmma {what}: no tensor map describes {name} "
                 f"(strides {tuple(x4.stride())}, base {x4.data_ptr() % 16} "
                 f"bytes off 16)")
         maps[name] = m
-    staging = None
-    if bias is not None:
-        hb, sq, sk = bias.shape
-        staging = ("tma" if sk % 4 == 0 and bias.data_ptr() % 16 == 0
-                   else "cp.async")
-        if staging == "tma":
-            maps["bias"] = _tensor_map("fp32", (sk, sq, hb),
-                                       (4 * sk, 4 * sk * sq), (32, 64, 1))
-    return BwdPlan(variant, maps, staging, tiles)
+    return maps
+
+
+def _bias_staging(bias: Optional[torch.Tensor], maps: dict) -> Optional[str]:
+    """How a wgmma kernel stages the array bias: by TMA where a map
+    describes the fp32 (sk, sq, hb) bias (rows a multiple of 16 bytes, a
+    16-byte aligned base; 32-column x 64-row boxes, added to ``maps``),
+    else by ``cp.async`` of 8 or 4 bytes into the same swizzled layout."""
+    if bias is None:
+        return None
+    hb, sq, sk = bias.shape
+    if sk % 4 or bias.data_ptr() % 16:
+        return "cp.async"
+    maps["bias"] = _tensor_map("fp32", (sk, sq, hb), (4 * sk, 4 * sk * sq),
+                               (32, 64, 1))
+    return "tma"
+
+
+@_by_layout
+def _bwd_plan(q4: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor,
+              do4: torch.Tensor, bias: Optional[torch.Tensor] = None,
+              variant: Optional[str] = None) -> FlashPlan:
+    """Every host-side decision of a backward call, from its operands:
+    the variant (``"wgmma"`` unless the caller names another), the tensor
+    maps, the bias's staging (:func:`_bias_staging`) and the stage tiles.
+    Raises where no map describes an operand; there is no fallback to the
+    other variant."""
+    variant = _variant(variant, "the flash backward")
+    if variant == "sm80":
+        return FlashPlan("sm80", {}, None if bias is None else "global")
+    d = q4.shape[-1]  # the registers' and shared memory's tiles (DkvCfg)
+    tiles = (128 if d == 64 and bias is None else 64, 128 if d == 64 else 64)
+    maps = _operand_maps("flash backward", q=q4, k=k4, v=v4, do=do4)
+    return FlashPlan(variant, maps, _bias_staging(bias, maps), tiles)
+
+
+@_by_layout
+def _fwd_plan(q4: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor,
+              bias: Optional[torch.Tensor] = None,
+              variant: Optional[str] = None) -> FlashPlan:
+    """Every host-side decision of a forward call, from its (b, heads, s,
+    d) views: the variant (``"wgmma"`` unless the caller names another),
+    the tensor maps of q, k and v, the array bias's staging
+    (:func:`_bias_staging`) and the tiles (128 query rows a CTA; 128 kv
+    rows a stage, 64 with an array bias at d 128). Raises where no map
+    describes an operand; there is no fallback to the other variant nor
+    to the plain version."""
+    variant = _variant(variant, "the flash forward")
+    if variant == "sm80":
+        return FlashPlan("sm80", {}, None if bias is None else "global")
+    maps = _operand_maps("flash forward", q=q4, k=k4, v=v4)
+    narrow = bias is not None and q4.shape[-1] == 128
+    tiles = (FWD_Q_TILE, FWD_BIAS_KV_TILE if narrow else FWD_KV_TILE)
+    return FlashPlan(variant, maps, _bias_staging(bias, maps), tiles)
+
+
+@_by_layout
+def _packed_fwd_plan(qkv: torch.Tensor, h: int, h_kv: int, d: int,
+                     variant: Optional[str]) -> FlashPlan:
+    """:func:`_fwd_plan` of the packed buffer's q/k/v windows, kept by
+    the buffer's layout (the windows are not made again)."""
+    return _fwd_plan(*_packed_views(qkv, h, h_kv, d), variant=variant)
+
+
+@_by_layout
+def _bshd_fwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   bias: Optional[torch.Tensor],
+                   variant: Optional[str]) -> FlashPlan:
+    """:func:`_fwd_plan` of seq-major operands' (b, h, s, d) views, kept
+    by the operands' layout."""
+    return _fwd_plan(*_bshd_views(q, k, v), bias, variant)
+
+
+def dbias_splits(hb: int, sq: int, sk: int, nb: int, sms: int = 132) -> int:
+    """How many contiguous groups the wgmma dbias kernel splits the nb
+    rows sharing a bias row into: enough for its grid of hb × tiles × S
+    CTAs to cover the card's ``sms`` SMs about twice (one CTA an SM), at
+    most nb and :data:`DBIAS_MAX_SPLITS`; 1 where hb × tiles already
+    does."""
+    tiles = hb * -(-sq // DBIAS_Q_TILE) * -(-sk // DBIAS_KV_TILE)
+    return max(1, min(nb, DBIAS_MAX_SPLITS, 2 * sms // tiles))
+
+
+def dbias_groups(nb: int, splits: int) -> Tuple[Tuple[int, int], ...]:
+    """The kernel's groups of sharing rows: group s holds n in [s·nb // S,
+    (s + 1)·nb // S), contiguous and in order."""
+    return tuple((s * nb // splits, (s + 1) * nb // splits)
+                 for s in range(splits))
+
+
+@_by_layout
+def _dbias_plan(q4: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor,
+                do4: torch.Tensor, hb: int, variant: Optional[str] = None,
+                sms: int = 132) -> DbiasPlan:
+    """Every host-side decision of a dbias call: the variant, the tensor
+    maps of q, k, v and do, the split of the sharing rows
+    (:func:`dbias_splits`, :func:`dbias_groups`) and the output tiles.
+    Raises where no map describes an operand."""
+    variant = _variant(variant, "the flash dbias kernel")
+    nb = q4.shape[0] * q4.shape[1] // hb
+    if variant == "sm80":
+        return DbiasPlan("sm80", {}, 1, ((0, nb),))
+    maps = _operand_maps("flash dbias kernel", q=q4, k=k4, v=v4, do=do4)
+    splits = dbias_splits(hb, q4.shape[2], k4.shape[2], nb, sms)
+    return DbiasPlan(variant, maps, splits, dbias_groups(nb, splits),
+                     (DBIAS_Q_TILE, DBIAS_KV_TILE))
+
+
+def dbias_schedule(plan: DbiasPlan, hb: int, sq: int, sk: int):
+    """The wgmma dbias kernel's CTAs in launch order: (group, bias row th,
+    first query row, first key column, [sharing-row indices n it sums, in
+    order]); group-major, then th, then query tile, the kv tile fastest.
+    With one group each CTA writes dbias; else its partial, and the
+    partials of a tile are added in group order."""
+    out = []
+    for s, (n0, n1) in enumerate(plan.groups):
+        for th in range(hb):
+            for q0 in range(0, sq, DBIAS_Q_TILE):
+                for k0 in range(0, sk, DBIAS_KV_TILE):
+                    out.append((s, th, q0, k0, list(range(n0, n1))))
+    return out
 
 
 def dkv_schedule(b: int, h: int, h_kv: int, sq: int, sk: int, causal: bool,
@@ -1060,6 +1237,24 @@ def dkv_schedule(b: int, h: int, h_kv: int, sq: int, sk: int, causal: bool,
     return out
 
 
+def _query_tile_walk(b, h, sq, sk, causal, lens, q_tile, kv_tile):
+    """CTAs of ``q_tile`` query rows in launch order, head by head, within
+    a head the last query tiles first: (batch, head, first query row,
+    [first kv row of each stage]), the ``kv_tile``-row stages up to the
+    CTA's last row's causal diagonal and the row's kv length."""
+    coff, out = sk - sq, []
+    nq = -(-sq // q_tile)
+    for bi in range(b):
+        for hd in range(h):
+            lim = sk if lens is None else min(max(int(lens[bi][hd]), 0), sk)
+            for i in range(nq):
+                q0 = (nq - 1 - i) * q_tile
+                end = min(lim, q0 + q_tile + coff) if causal else lim
+                out.append((bi, hd, q0, list(range(0, max(end, 0),
+                                                   kv_tile))))
+    return out
+
+
 def dq_schedule(b: int, h: int, h_kv: int, sq: int, sk: int, causal: bool,
                 lens=None, kv_tile: int = DQ_KV_TILE):
     """The wgmma dQ kernel's CTAs in launch order: (batch, head, first
@@ -1068,17 +1263,19 @@ def dq_schedule(b: int, h: int, h_kv: int, sq: int, sk: int, causal: bool,
     the last query tiles first (causal: the longest); a CTA's kv tiles
     (``kv_tile`` rows: 128 at d 64, 64 at d 128) run up to its last row's
     causal diagonal and the row's kv length."""
-    coff, out = sk - sq, []
-    nq = -(-sq // DQ_Q_TILE)
-    for bi in range(b):
-        for hd in range(h):
-            lim = sk if lens is None else min(max(int(lens[bi][hd]), 0), sk)
-            for i in range(nq):
-                q0 = (nq - 1 - i) * DQ_Q_TILE
-                end = min(lim, q0 + DQ_Q_TILE + coff) if causal else lim
-                out.append((bi, hd, q0, list(range(0, max(end, 0),
-                                                   kv_tile))))
-    return out
+    return _query_tile_walk(b, h, sq, sk, causal, lens, DQ_Q_TILE, kv_tile)
+
+
+def fwd_schedule(b: int, h: int, h_kv: int, sq: int, sk: int, causal: bool,
+                 lens=None, kv_tile: int = FWD_KV_TILE):
+    """The wgmma forward's tiles in order, as :func:`dq_schedule`'s CTAs
+    (the same walk: 128 query rows a tile, head by head, the last query
+    tiles first, kv tiles up to the causal diagonal and the kv length; a
+    CTA an SM walks every #SMs-th tile where the tiles' work is equal), its
+    stages ``kv_tile`` rows (128; 64 with an array bias at d 128). A
+    warpgroup of a
+    CTA skips a stage wholly above its 64 rows' diagonal."""
+    return _query_tile_walk(b, h, sq, sk, causal, lens, FWD_Q_TILE, kv_tile)
 
 
 def bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -1134,7 +1331,7 @@ def _launch_dq(name, q4, k4, v4, o4, do4, dq4, lse, *, scale, causal,
 def _launch_dkv(name, q4, k4, v4, o4, do4, dk4, dv4, lse, delta, *, scale,
                 causal, kv_lens=None, lens_strides=None, lut=None,
                 bucket=None, dtab=None, rel_off=0, maxd=0, hb=1, nb=1,
-                bias=None, variant=None, planted_fault=None) -> BwdPlan:
+                bias=None, variant=None, planted_fault=None) -> FlashPlan:
     """The dK/dV entry on (b, heads, s, d) views (dk and dv share their
     strides). Returns the plan."""
     b, h, sq, d = q4.shape
@@ -1169,15 +1366,17 @@ def flash_fwd_flat_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, scale: float, causal: bool,
                         kv_lens: Optional[torch.Tensor] = None,
                         rel_bias: Optional[BucketedBias] = None,
-                        bias: Optional[torch.Tensor] = None
+                        bias: Optional[torch.Tensor] = None,
+                        variant: Optional[str] = None,
+                        planted_fault: Optional[str] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the bh-flat flash forward: q (bh, sq, d) or (b, h, sq, d),
     k/v (bh_kv, sk, d) or (b, h_kv, sk, d), bf16, any strides with dense
     rows; kv_lens (bh,) int32 or None; the bucketed bias, or an array bias
     (hb, sq, sk) fp32 with hb | bh, or neither. Returns o (q's shape; a 4D
     o is a (b, sq, h, d) buffer seen as (b, h, sq, d)) and lse (bh, sq)
-    fp32. Counts its launches in ``.launches`` and those with an array
-    bias in ``.bias_launches``."""
+    fp32. Counts its launches in ``.launches``, by variant and those with
+    an array bias in ``.bias_launches``."""
     name = "flash_fwd_flat_cuda"
     rows, q4, k4, v4 = _flat_views(q, k, v)
     _check_flat(q4, k4, v4, kv_lens, name)
@@ -1185,20 +1384,28 @@ def flash_fwd_flat_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     h_kv, sk = k4.shape[1], k4.shape[2]
     lut, _, rel_off, maxd, hb, _ = _flat_bias_args(rel_bias, bias, rows, sq,
                                                    sk, q, name)
+    kv_lens, _, run_bias, lut = _planted(planted_fault, kv_lens, (h, 1),
+                                         bias, lut, b, h, sk, q.device)
+    if lut is None:
+        maxd = rel_off = 0
+    plan = _fwd_plan(q4, k4, v4, run_bias, variant)
     o4, out = _out_like(q4, q.ndim)
     lse = torch.empty((rows, sq), dtype=torch.float32, device=q.device)
     rc = _build.library().apex_flash_fwd_flat(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
-        lse.data_ptr(), _ptr(kv_lens), _ptr(lut), _ptr(bias),
+        lse.data_ptr(), _ptr(kv_lens), _ptr(lut), _ptr(run_bias),
         _stride_array(q4, k4, o4), b, h, h_kv, sq, sk, d, int(causal),
-        float(scale), maxd, rel_off, hb,
+        float(scale), maxd, rel_off, hb, int(plan.variant == "wgmma"),
+        int(plan.bias_staging == "tma"),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_fwd_flat")
-    _count(flash_fwd_flat_cuda, bias=bias)
+    _count(flash_fwd_flat_cuda, plan, bias)
     return out, lse
 
 
 flash_fwd_flat_cuda.launches = 0
+flash_fwd_flat_cuda.wgmma_launches = 0
+flash_fwd_flat_cuda.sm80_launches = 0
 flash_fwd_flat_cuda.bias_launches = 0
 
 
@@ -1293,16 +1500,51 @@ flash_bwd_flat_dkv_cuda.table_launches = 0
 flash_bwd_flat_dkv_cuda.bias_launches = 0
 
 
+def _dbias_planted(fault: Optional[str], plan: DbiasPlan, hb: int,
+                   do4: torch.Tensor, delta: Optional[torch.Tensor],
+                   bias: torch.Tensor):
+    """The (do, delta, bias) the kernel reads, with a planted fault
+    (:data:`DBIAS_FAULTS`) made from them, or as given: the do and delta
+    rows of the plan's last group of sharing rows zeroed (with one group,
+    of its last sharing row), so that p·(dP − delta) is 0 on those rows;
+    or a zero bias in p."""
+    if fault is None:
+        return do4, delta, bias
+    if fault not in DBIAS_FAULTS:
+        raise ValueError(f"planted_fault must be one of {DBIAS_FAULTS}; got "
+                         f"{fault!r}")
+    if fault == "drop_bias":
+        return do4, delta, torch.zeros_like(bias)
+    first, end = plan.groups[-1]
+    r0 = (first or end - 1) * hb  # the rows r = n·hb + th of n >= first
+    b, h, sq, d = do4.shape
+    do4 = do4.clone(memory_format=torch.contiguous_format)
+    do4.view(b * h, sq, d)[r0:] = 0
+    if delta is not None:
+        delta = delta.clone()
+        delta[r0:] = 0
+    return do4, delta, bias
+
+
 def flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias: torch.Tensor, *,
                          scale: float, causal: bool,
                          kv_lens: Optional[torch.Tensor] = None,
-                         layout: str = "bhsd") -> torch.Tensor:
+                         layout: str = "bhsd",
+                         delta: Optional[torch.Tensor] = None,
+                         variant: Optional[str] = None,
+                         planted_fault: Optional[str] = None) -> torch.Tensor:
     """Launch the dbias kernel: the array bias's gradient (hb, sq, sk)
     fp32, the unscaled dS summed over the rows that share each bias row.
     ``layout="bhsd"``: the flat operands of :func:`flash_bwd_flat_dkv_cuda`
     (per-row kv_lens); ``"bshd"``: those of
-    :func:`flash_bwd_bshd_dkv_cuda` (per-batch kv_lens, hb | h). Counts
-    launches in ``.launches``."""
+    :func:`flash_bwd_bshd_dkv_cuda` (per-batch kv_lens, hb | h). The
+    ``"wgmma"`` variant reads ``delta`` (b·h, sq) fp32, the dQ wrapper's
+    side output; without one it computes it here once by
+    :func:`bwd_delta` (for direct callers and tests). It sums the sharing
+    rows in the groups of :func:`_dbias_plan`, then the groups' partials in
+    order. ``variant`` and ``planted_fault`` (:data:`DBIAS_FAULTS`) are for
+    the A/B timing and the kernel checks. Counts launches in
+    ``.launches`` and by variant."""
     name = "flash_bwd_dbias_cuda"
     if layout == "bshd":
         _check_bshd_bwd(q, k, v, o, lse, do, causal, kv_lens, bias, name)
@@ -1318,19 +1560,35 @@ def flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias: torch.Tensor, *,
     b, h, sq, d = q4.shape
     h_kv, sk = k4.shape[1], k4.shape[2]
     hb = _check_bias(bias, rows, sq, sk, q, name)
+    plan = _dbias_plan(q4, k4, v4, do4, hb, variant,
+                       _sm_count(q.device.index or 0))
+    ws = None
+    if plan.variant == "wgmma":
+        if delta is None:
+            delta = bwd_delta(o4, do4).reshape(rows, sq)
+        _check_like("delta", delta, (rows, sq), torch.float32, q4)
+        if plan.splits > 1:
+            ws = torch.empty((plan.splits, hb, sq, sk), dtype=torch.float32,
+                             device=q.device)
+    do4, delta, run_bias = _dbias_planted(planted_fault, plan, hb, do4,
+                                          delta, bias)
     dbias = torch.empty((hb, sq, sk), dtype=torch.float32, device=q.device)
     rc = _build.library().apex_flash_bwd_dbias(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
-        do4.data_ptr(), lse.data_ptr(), bias.data_ptr(), dbias.data_ptr(),
-        _ptr(kv_lens), _stride_array(q4, k4, o4, do4), b, h, h_kv, sq, sk, d,
-        int(causal), float(scale), hb, *lens_strides,
+        do4.data_ptr(), lse.data_ptr(), _ptr(delta), run_bias.data_ptr(),
+        dbias.data_ptr(), _ptr(ws), _ptr(kv_lens),
+        _stride_array(q4, k4, o4, do4), b, h, h_kv, sq, sk, d, int(causal),
+        float(scale), hb, *lens_strides, plan.splits,
+        int(plan.variant == "wgmma"),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_bwd_dbias")
-    flash_bwd_dbias_cuda.launches += 1
+    _count(flash_bwd_dbias_cuda, plan)
     return dbias
 
 
 flash_bwd_dbias_cuda.launches = 0
+flash_bwd_dbias_cuda.wgmma_launches = 0
+flash_bwd_dbias_cuda.sm80_launches = 0
 
 
 # --- dispatch -----------------------------------------------------------------
@@ -1394,7 +1652,7 @@ def flash_bwd_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``:1395-1530``): (dq (b, sq, h, d), dk, dv (b, sk, h_kv, d), dbias
     (hb, sq, sk) fp32 or None). On a CUDA tensor the dQ kernel runs (it
     writes delta), then the dK/dV kernel, and with a bias the dbias
-    kernel."""
+    kernel (both read that delta)."""
     bias = _bias32(bias)
     if _backend.use_kernel(q, impl):
         do = do if _seq_major_ok(do) else do.contiguous()
@@ -1404,7 +1662,7 @@ def flash_bwd_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                          **kw)
         dbias = (None if bias is None else flash_bwd_dbias_cuda(
             q, k, v, o, lse, do, bias, scale=scale, causal=causal,
-            kv_lens=kv_lens, layout="bshd"))
+            kv_lens=kv_lens, layout="bshd", delta=delta))
         return dq, dk, dv, dbias
     return _torch_flash_bwd_bshd(q, k, v, o, lse, do, scale, causal, kv_lens,
                                  bias)
@@ -1451,7 +1709,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fp32 cotangent — the table's (num_buckets, heads) with ``rel_bias``,
     dbias (hb, sq, sk) with ``bias``, else None. On a CUDA tensor the dQ
     kernel (which writes delta) and then the dK/dV kernel (which also sums
-    the table gradient) run, and with an array bias the dbias kernel."""
+    the table gradient) run, and with an array bias the dbias kernel, the
+    last two on the dQ kernel's delta."""
     bias = _bias32(bias)
     if _backend.use_kernel(q, impl):
         kw = dict(scale=scale, causal=causal, kv_lens=kv_lens,
@@ -1462,7 +1721,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if bias is not None:
             dtab = flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias,
                                         scale=scale, causal=causal,
-                                        kv_lens=kv_lens)
+                                        kv_lens=kv_lens, delta=delta)
         return dq, dk, dv, dtab
     sq, sk = q.shape[-2], k.shape[-2]
     arr = bias if rel_bias is None else rel_bias.materialize(sq, sk)

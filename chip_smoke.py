@@ -46,7 +46,21 @@ without the final line):
    call has one) must fail the rules, and the pair is timed on both
    variants in turns (wgmma, sm80, sm80, wgmma) beside SDPA's backward
    (the ``flash_bwd_ab`` line lists every call, and any where wgmma is
-   not the faster);
+   not the faster). The flash forward runs on its wgmma/TMA variant on
+   every path too (one body for the packed, bshd and bh-flat entries),
+   and at every family call (GPT packed and GQA, the prefill and the
+   ragged GQA bshd, BERT's padded bshd and its GQA case, T5's five calls,
+   the four array-bias calls) it is also checked on the sm80 variant
+   (the first mma.sync forward) by the same rules, its o and lse on
+   wgmma must be bit-identical across two runs, the same two planted
+   faults must fail the rules, and it is timed on both variants in turns
+   beside SDPA's forward (the ``flash_fwd_ab`` line); so is dbias at its
+   four calls (the wgmma kernel on the dQ kernel's delta, its sharing
+   rows split into groups summed in a fixed order): the sm80 variant
+   within 1e-3, wgmma bit-identical across two runs, the last group of
+   sharing rows dropped and the bias left out refused, both variants
+   timed in turns beside SDPA's backward with the mask's gradient (the
+   ``dbias_ab`` line);
 4. the serving path: GPT-medium at full width (bf16, vocab 32768, hidden
    1024, 12 layers, 8 heads of 128; random weights from a seed) served by
    ``ServingEngine`` (8 slots, block 128, chunk 256, 41 blocks — ~60% of
@@ -197,8 +211,10 @@ without the final line):
       it and the sigmoid forward against the plain version and an fp32
       truth by MATMUL_SLACK's rule; 2 profiled steps;
 14. one ``{"kernels": [...]}`` line (all twenty-two kernels, each with
-    its launches by main path; matmul_bias_act and the flash backward
-    kernels also by variant; the latter's ``sm80_ms`` from the A/B), the
+    its launches by main path; matmul_bias_act and the flash kernels
+    also by variant, every train leg's, the decode leg's and the T5
+    materialized leg's flash forward and dbias launches asserted on
+    wgmma; the flash kernels' ``sm80_ms`` from the A/B), the
     card's name and power limit as nvidia-smi prints them, and last
     ``{"ok": true, "device": {...}}``.
 """
@@ -600,6 +616,128 @@ def ab_times(torch, layout, args, kw, family, sdpa_bwd_ms):
     return out
 
 
+# each family call's forward on both variants, in turns, beside SDPA's
+# forward, and each dbias call's kernel beside SDPA's backward with the
+# mask's gradient: emitted as flash_fwd_ab and dbias_ab at the end
+FWD_AB = []
+DBIAS_AB = []
+FWD_VARIANT_NOTE = ("ms: the wgmma/TMA forward (every path's); sm80_ms: "
+                    "the first mma.sync forward, timed in turns with it in "
+                    "this run")
+DBIAS_VARIANT_NOTE = ("ms: the wgmma/TMA dbias kernel (every path's, on the "
+                      "dQ kernel's delta); sm80_ms: the first mma.sync "
+                      "kernel, timed in turns with it in this run")
+
+
+def fwd_wrapper(layout):
+    """The layout's forward wrapper ("packed", "bhsd", "bshd")."""
+    from apex_tpu_torch.ops import attention as A
+
+    return {"packed": A.flash_fwd_cuda, "bhsd": A.flash_fwd_flat_cuda,
+            "bshd": A.flash_fwd_bshd_cuda}[layout]
+
+
+def fwd_checks(torch, layout, args, kw, plain, truth, shape, tag):
+    """One family call's forward beyond the dispatcher's wgmma check: the
+    sm80 variant by the same rules; o and lse on wgmma bit-identical
+    across two runs; each planted fault (the last 64-row kv tile dropped,
+    and the bias left out where the call has one) refused on wgmma.
+    ``plain``/``truth``: the plain forward's (o, lse) in bf16 and fp32."""
+    fn = fwd_wrapper(layout)
+    got = fn(*args, variant="sm80", **kw)
+    torch.cuda.synchronize()
+    for name, g_, p_, t_ in zip(("o", "lse"), got, plain, truth):
+        check(torch.isfinite(g_.float()).all().item(),
+              f"{tag} {name} sm80 output not finite at {shape}")
+        rule_check(f"{tag} {name} sm80", g_, p_, t_, shape)
+    first = fn(*args, **kw)
+    second = fn(*args, **kw)
+    same = all(bool(torch.equal(a, b)) for a, b in zip(first, second))
+    check(same, f"{tag}: o or lse on wgmma differs between two runs at "
+          f"{shape}")
+    del got, first, second
+    has_bias = kw.get("bias") is not None or kw.get("rel_bias") is not None
+    planted = {}
+    for fault in BWD_FAULTS[:2 if has_bias else 1]:
+        bad = fn(*args, planted_fault=fault, **kw)
+        torch.cuda.synchronize()
+        over = [rule_ok(g_, p_, t_) for g_, p_, t_ in zip(bad, plain, truth)]
+        planted[fault] = max(e / t for _, e, t in over)
+        check(not all(ok for ok, _, _ in over), f"{tag}: the rules let the "
+              f"planted forward fault '{fault}' through at {shape}")
+        del bad
+    emit("flash_fwd_check", {"call": tag, "shape": shape,
+                             "sm80_within_rules": True,
+                             "wgmma_bit_identical": same,
+                             "planted_fault_err_over_tol": planted})
+
+
+def fwd_ab_times(torch, layout, arg_sets, kw, family, sdpa_fwd_ms):
+    """The forward's device times on both variants in turns (wgmma, sm80,
+    sm80, wgmma), cycling through ``arg_sets``: each variant's mean over
+    its two turns, logged with SDPA's forward time for flash_fwd_ab."""
+    fn = fwd_wrapper(layout)
+    turns = [time_ms(lambda *a: fn(*a, variant=v, **kw), arg_sets)
+             for v in ("wgmma", "sm80", "sm80", "wgmma")]
+    out = {"wgmma": (turns[0] + turns[3]) / 2,
+           "sm80": (turns[1] + turns[2]) / 2, "turns_ms": turns}
+    FWD_AB.append({"family": family, "wgmma_ms": out["wgmma"],
+                   "sm80_ms": out["sm80"], "sdpa_fwd_ms": sdpa_fwd_ms})
+    return out
+
+
+def dbias_checks(torch, layout, args, kw, truth, shape, tag):
+    """One dbias call beyond the dispatcher's wgmma check (on the dQ
+    kernel's delta): the sm80 variant within DBIAS_TOL; wgmma bit-identical
+    across two runs; both planted faults (the last group of sharing rows
+    dropped, the bias left out of p) refused. ``args``: (q, k, v, o, lse,
+    do, bias); ``truth``: the fp32 plain version's dbias."""
+    from apex_tpu_torch.ops import attention as A
+
+    dkw = dict(scale=kw["scale"], causal=kw["causal"],
+               kv_lens=kw.get("kv_lens"), layout=layout)
+
+    def rel(got):
+        return ((got - truth).norm() / truth.norm()).item()
+
+    err = rel(A.flash_bwd_dbias_cuda(*args, variant="sm80", **dkw))
+    check(err <= DBIAS_TOL, f"{tag} dbias sm80 vs the fp32 plain version: "
+          f"rel norm err {err} > {DBIAS_TOL} at {shape}")
+    first = A.flash_bwd_dbias_cuda(*args, **dkw)
+    second = A.flash_bwd_dbias_cuda(*args, **dkw)
+    same = bool(torch.equal(first, second))
+    check(same, f"{tag}: dbias on wgmma differs between two runs at {shape}")
+    planted = {}
+    for fault in A.DBIAS_FAULTS:
+        planted[fault] = rel(A.flash_bwd_dbias_cuda(
+            *args, planted_fault=fault, **dkw)) / DBIAS_TOL
+        check(planted[fault] > 1, f"{tag}: the dbias rule let the planted "
+              f"fault '{fault}' through at {shape}")
+    emit("flash_dbias_check", {"call": tag, "shape": shape,
+                               "sm80_rel_norm_err": err,
+                               "wgmma_bit_identical": same,
+                               "planted_fault_err_over_tol": planted})
+
+
+def dbias_ab_times(torch, layout, args, kw, delta, family, sdpa_ms):
+    """dbias's device times on both variants in turns (wgmma on the given
+    delta, sm80, sm80, wgmma), logged with SDPA's backward with the mask's
+    gradient for dbias_ab."""
+    from apex_tpu_torch.ops import attention as A
+
+    dkw = dict(scale=kw["scale"], causal=kw["causal"],
+               kv_lens=kw.get("kv_lens"), layout=layout, delta=delta)
+    turns = [time_ms(lambda: A.flash_bwd_dbias_cuda(*args, variant=v,
+                                                    **dkw), [()])
+             for v in ("wgmma", "sm80", "sm80", "wgmma")]
+    out = {"wgmma": (turns[0] + turns[3]) / 2,
+           "sm80": (turns[1] + turns[2]) / 2, "turns_ms": turns}
+    DBIAS_AB.append({"family": family, "wgmma_ms": out["wgmma"],
+                     "sm80_ms": out["sm80"], "sdpa_bwd_with_mask_grad_ms":
+                     sdpa_ms})
+    return out
+
+
 def phase_flash_kernels(torch, dev):
     """The flash forward and the dK/dV and dQ kernels against the plain
     version at the train step's shape and at a ragged GQA shape (the pair
@@ -611,6 +749,7 @@ def phase_flash_kernels(torch, dev):
     d = 128
     kw = dict(scale=d ** -0.5, causal=True)
     errs = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
+    fwd_ab = {}
     for b, s, h, h_kv in ((TRAIN_BATCH, TRAIN_SEQ, 8, 8), (8, 1000, 8, 2)):
         shape = {"b": b, "s": s, "h": h, "h_kv": h_kv, "d": d}
         qkv, do = flash_case(torch, dev, b, s, h, h_kv, d, seed=s + h_kv)
@@ -621,7 +760,17 @@ def phase_flash_kernels(torch, dev):
         torch.cuda.synchronize()
         errs["fwd"] = max(errs["fwd"], rule_check("o", o, o_p, o_t, shape),
                           rule_check("lse", lse, lse_p, lse_t, shape))
+        fwd_checks(torch, "packed", (qkv, h, h_kv, d), kw, (o_p, lse_p),
+                   (o_t, lse_t), shape, "packed")
         del o, lse, o_t, lse_t
+        # the forward on both variants in turns beside SDPA on the sliced
+        # q/k/v views of the same buffer (GQA: enable_gqa)
+        q4, k4, v4 = (x.detach() for x in A._packed_views(qkv, h, h_kv, d))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=h_kv < h), [()])
+        fwd_ab[(b, s, h_kv)] = fwd_ab_times(
+            torch, "packed", [(qkv, h, h_kv, d)], kw,
+            f"packed b {b} x {s}, {h}/{h_kv} heads (GPT)", lib)
         got = A.flash_bwd_packed(qkv, o_p, lse_p, do, h, h_kv, d, **kw)
         plain = A.flash_bwd_packed(qkv, o_p, lse_p, do, h, h_kv, d,
                                    impl="torch", **kw)
@@ -644,7 +793,7 @@ def phase_flash_kernels(torch, dev):
     b, s, h, h_kv = TRAIN_BATCH, TRAIN_SEQ, 8, 8
     qkv, do = flash_case(torch, dev, b, s, h, h_kv, d, seed=5)
     o, lse = A.flash_fwd_cuda(qkv, h, h_kv, d, **kw)
-    ms_fwd = time_ms(lambda: A.flash_fwd_cuda(qkv, h, h_kv, d, **kw), [()])
+    ms_fwd = fwd_ab[(b, s, h_kv)]["wgmma"]
     plain_fwd = time_ms(lambda: A.flash_fwd_packed(qkv, h, h_kv, d,
                                                    impl="torch", **kw),
                         [()], reps=2, trials=3)
@@ -700,9 +849,10 @@ def phase_flash_kernels(torch, dev):
         {"name": "flash_fwd", "route": "cuda",
          "source": src + "flash_attn_fwd.cu",
          "replaces": "apex_tpu/ops/pallas/attention.py:506",
-         "max_abs_err": errs["fwd"], "ms": ms_fwd, "plain_ms": plain_fwd,
+         "max_abs_err": errs["fwd"], "ms": ms_fwd,
+         "sm80_ms": fwd_ab[(b, s, h_kv)]["sm80"], "plain_ms": plain_fwd,
          "bound_ms": fwd[0], "bound_by": fwd[1], "library_ms": lib_fwd,
-         "timed_shape": timed},
+         "variant_note": FWD_VARIANT_NOTE, "timed_shape": timed},
         {"name": "flash_bwd_dkv", "route": "cuda",
          "source": src + "flash_attn_bwd.cu",
          "replaces": "apex_tpu/ops/pallas/attention.py:710",
@@ -806,7 +956,8 @@ def phase_train(torch, dev):
         torch, lambda: train_step(model, params, opt, tokens, targets),
         TRAIN_STEPS, "train path")
     L = TRAIN["num_layers"]
-    check_launches(launches, {"flash_fwd": L, "flash_bwd_dkv": L,
+    check_launches(launches, {"flash_fwd": L, "flash_fwd_wgmma": L,
+                              "flash_bwd_dkv": L,
                               "flash_bwd_dq": L, "flash_bwd_dkv_wgmma": L,
                               "flash_bwd_dq_wgmma": L, "xent_stats": 1,
                               "ln_fwd": 2 * L + 1, "ln_bwd": 2 * L + 1},
@@ -1049,18 +1200,30 @@ def phase_bshd_kernel(torch, dev):
               and torch.equal(lse, lse_pk),
               f"bshd kernel on packed views differs from the packed kernel "
               f"at {shape}")
+        fwd_checks(torch, "bshd", (q, k, v), kw, (o_p, lse_p), (o_t, lse_t),
+                   shape, "bshd prefill" if h_kv == h else "bshd gqa")
+        if h_kv < h:  # the prefill's shape is timed below
+            t = lambda x: x.transpose(1, 2)  # noqa: E731
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                t(q), t(k), t(v), is_causal=True, enable_gqa=True), [()])
+            fwd_ab_times(torch, "bshd", [(q, k, v)], kw,
+                         f"bshd b {b} x {s}, {h}/{h_kv} heads (ragged GQA)",
+                         lib)
         del qkv, o, lse, o_p, lse_p, o_t, lse_t, o_pk, lse_pk
 
     b, s, h = DECODE_BATCH, DECODE_PROMPT, 8
     sets = [views(flash_case(torch, dev, b, s, h, h, d, seed=20 + i)[0],
                   h, h) for i in range(2)]  # 2 x 50 MB: cold in the L2
-    ms = time_ms(lambda q, k, v: A.flash_fwd_bshd_cuda(q, k, v, **kw), sets)
     plain_ms = time_ms(lambda q, k, v: A.flash_fwd_bshd(q, k, v,
                                                         impl="torch", **kw),
                        sets, reps=3, trials=5)
     library_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         is_causal=True), sets)
+    ab = fwd_ab_times(torch, "bshd", sets, kw,
+                      f"bshd b {b} x {s}, {h} heads (decode prefill)",
+                      library_ms)
+    ms = ab["wgmma"]
     pairs = b * h * s * (s + 1) / 2
     io = b * s * h * d * 2  # one (b, s, h, d) bf16 tensor
     bms, by = bound(3 * io + io + b * h * s * 4, 4 * d * pairs,
@@ -1068,8 +1231,9 @@ def phase_bshd_kernel(torch, dev):
     return {"name": "flash_fwd_bshd", "route": "cuda",
             "source": "apex_tpu_torch/csrc/flash_attn_fwd.cu",
             "replaces": "apex_tpu/ops/pallas/attention.py:831",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+            "max_abs_err": err, "ms": ms, "sm80_ms": ab["sm80"],
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms, "variant_note": FWD_VARIANT_NOTE,
             "library_note": "F.scaled_dot_product_attention forward, causal",
             "timed_shape": {"b": b, "sq": s, "sk": s, "heads": h,
                             "kv_heads": h, "head_dim": d, "causal": True,
@@ -1357,6 +1521,7 @@ def phase_decode(torch, model, params, dev):
     counters = decode_counters()
     for fn in counters.values():
         fn.launches = 0
+    counters["flash_fwd_bshd"].wgmma_launches = 0
     pre_times, dec_times, runs = [], [], []
     for _ in range(DECODE_PASSES):
         torch.cuda.synchronize()
@@ -1374,15 +1539,18 @@ def phase_decode(torch, model, params, dev):
         runs.append(torch.stack(out, dim=1))
     launches = {k: counters[k].launches
                 for k in ("flash_fwd_bshd", "decode_attn", "ln_fwd")}
+    launches["flash_fwd_bshd_wgmma"] = counters["flash_fwd_bshd"].wgmma_launches
     L = MODEL["num_layers"]
     prefills = 2 * DECODE_PASSES
     steps = DECODE_PASSES * (DECODE_NEW - 1)
     check(launches["ln_fwd"] == (2 * L + 1) * (prefills + steps),
           f"decode leg: {launches['ln_fwd']} ln_fwd launches for "
           f"{prefills} prefills + {steps} steps x {2 * L + 1} norms")
-    check(launches["flash_fwd_bshd"] == L * prefills,
+    check(launches["flash_fwd_bshd"] == L * prefills
+          and launches["flash_fwd_bshd_wgmma"] == L * prefills,
           f"decode leg: {launches['flash_fwd_bshd']} flash_fwd_bshd "
-          f"launches for {prefills} prefills x {L} layers")
+          f"launches ({launches['flash_fwd_bshd_wgmma']} on wgmma) for "
+          f"{prefills} prefills x {L} layers")
     check(launches["decode_attn"] == L * steps,
           f"decode leg: {launches['decode_attn']} decode_attn launches for "
           f"{steps} decode steps x {L} layers")
@@ -1647,6 +1815,8 @@ def phase_t5_kernels(torch, dev):
         errs["fwd"] = max(errs["fwd"],
                           rule_check("flat o", o, o_p, o_t, shape),
                           rule_check("flat lse", lse, lse_p, lse_t, shape))
+        fwd_checks(torch, "bhsd", (q, k, v), kw, (o_p, lse_p), (o_t, lse_t),
+                   shape, f"t5 {name_}")
         del o, o_t, lse_t
         got = A.flash_bwd(q, k, v, o_p, lse_p, do, **kw)
         plain = A.flash_bwd(q, k, v, o_p, lse_p, do, impl="torch", **kw)
@@ -1676,7 +1846,6 @@ def phase_t5_kernels(torch, dev):
 
         # times at this shape; the plain versions at a few repetitions
         o, lse = A.flash_fwd(q, k, v, **kw)
-        ms_fwd = time_ms(lambda: A.flash_fwd_flat_cuda(q, k, v, **kw), [()])
         no_table = {}
         if kw["rel_bias"] is not None:  # the same call without the bias
             nob = dict(kw, rel_bias=None)
@@ -1694,6 +1863,9 @@ def phase_t5_kernels(torch, dev):
                             [()], reps=2, trials=3)
         torch.cuda.empty_cache()
         lib_fwd, lib_bwd = t5_library(torch, F, q, k, v, do, kw, sq, sk)
+        fab = fwd_ab_times(torch, "bhsd", [(q, k, v)], kw,
+                           f"flat, T5 {name_}", lib_fwd)
+        ms_fwd = fab["wgmma"]
         ab = ab_times(torch, "bhsd", (q, k, v, o, lse, do), kw,
                       f"flat, T5 {name_}", lib_bwd)
         ms_dkv, ms_dq = ab["wgmma"]["dkv_ms"], ab["wgmma"]["dq_ms"]
@@ -1715,7 +1887,7 @@ def phase_t5_kernels(torch, dev):
         per_shape[name_] = {
             "shape": shape, "score_pairs": pairs,
             "fwd_ms": ms_fwd, "dkv_ms": ms_dkv, "dq_ms": ms_dq,
-            "sm80_dkv_ms": ab["sm80"]["dkv_ms"],
+            "sm80_fwd_ms": fab["sm80"], "sm80_dkv_ms": ab["sm80"]["dkv_ms"],
             "sm80_dq_ms": ab["sm80"]["dq_ms"], "ab_turns_ms": ab["turns_ms"],
             "dkv_no_table_ms": no_table.get("wgmma"),
             "sm80_dkv_no_table_ms": no_table.get("sm80"),
@@ -1743,8 +1915,10 @@ def phase_t5_kernels(torch, dev):
          "source": src + "flash_attn_fwd.cu",
          "replaces": "apex_tpu/ops/pallas/attention.py:436",
          "max_abs_err": errs["fwd"], "ms": enc["fwd_ms"],
+         "sm80_ms": enc["sm80_fwd_ms"],
          "plain_ms": enc["plain_fwd_ms"], "bound_ms": enc["fwd_bound"][0],
          "bound_by": enc["fwd_bound"][1], "library_ms": enc["sdpa_fwd_ms"],
+         "variant_note": FWD_VARIANT_NOTE,
          "library_note": "F.scaled_dot_product_attention forward with the "
                          "materialised bias and padding as attn_mask",
          "timed_shape": timed, "per_shape": per},
@@ -1830,6 +2004,7 @@ def t5_check_launches(launches, steps, what):
     L = T5["num_encoder_layers"] + 2 * T5["num_decoder_layers"]
     table = T5["num_encoder_layers"] + T5["num_decoder_layers"]
     check_launches(launches, {"flash_fwd_flat": 2 * L,
+                              "flash_fwd_flat_wgmma": 2 * L,
                               "flash_bwd_flat_dkv": L, "flash_bwd_flat_dq": L,
                               "flash_bwd_flat_dkv_wgmma": L,
                               "flash_bwd_flat_dq_wgmma": L,
@@ -1981,11 +2156,12 @@ def seeded_lens(torch, dev, b, lo, hi, seed):
 def family_check(torch, layout, q, k, v, do, kw, shape, errs, tag):
     """One flash family (``layout`` "bshd": the seq-major dispatchers,
     "bhsd": the bh-flat ones) against its plain version and the fp32
-    truth: o and lse, then dq, dk and dv on the plain forward's o and lse
-    by the flash rule (the pair also on the sm80 variant, its planted
-    faults refused, wgmma's bit-identical; pair_checks); dbias, with an
-    array bias, within DBIAS_TOL relative norm of the fp32 plain version.
-    A row of kv length 0 must give zeros."""
+    truth: o and lse (also on the sm80 variant, its planted faults
+    refused, wgmma's bit-identical; fwd_checks), then dq, dk and dv on the
+    plain forward's o and lse by the flash rule (likewise; pair_checks);
+    dbias, with an array bias, within DBIAS_TOL relative norm of the fp32
+    plain version (likewise; dbias_checks). A row of kv length 0 must give
+    zeros."""
     from apex_tpu_torch.ops import attention as A
 
     fwd, bwd = ((A.flash_fwd_bshd, A.flash_bwd_bshd) if layout == "bshd"
@@ -1997,6 +2173,8 @@ def family_check(torch, layout, q, k, v, do, kw, shape, errs, tag):
     torch.cuda.synchronize()
     errs["fwd"] = max(errs["fwd"], rule_check(f"{tag} o", o, o_p, o_t, shape),
                       rule_check(f"{tag} lse", lse, lse_p, lse_t, shape))
+    fwd_checks(torch, layout, (q, k, v), kw, (o_p, lse_p), (o_t, lse_t),
+               shape, tag)
     lens = kw.get("kv_lens")
     if lens is not None and bool((lens == 0).any()):
         dead = lens == 0  # (b,) on bshd, (b·h,) rows on bhsd
@@ -2025,6 +2203,8 @@ def family_check(torch, layout, q, k, v, do, kw, shape, errs, tag):
               f"rel norm err {rel} > {DBIAS_TOL} at {shape}")
         errs["dbias"] = max(errs["dbias"],
                             (got[3] - truth[3]).abs().max().item())
+        dbias_checks(torch, layout, (q, k, v, o_p, lse_p, do, kw["bias"]),
+                     kw, truth[3], shape, tag)
     del got, plain, truth, o_p, lse_p
     torch.cuda.empty_cache()
 
@@ -2083,13 +2263,16 @@ def flash_bounds(b, h, h_kv, sq, sk, d, pairs, live_kv_rows, bias=None):
     each input read once (k and v over the live rows only), each output
     written once (dK and dV whole); operations per pair: 4d forward, 8d
     dK/dV, 6d dQ, 10d the function the backward pair replaces, 4d dbias
-    (QK^T and dP). An array bias adds its read, and dbias its write."""
+    (QK^T and dP). An array bias adds its read. dbias reads q, do, k, v,
+    lse, delta and the bias (no o: delta is its operand, as in the
+    reference) and writes dbias."""
     t_q = b * h * sq * d * 2
     t_kv_in = live_kv_rows * d * 2
     t_kv_out = b * h_kv * sk * d * 2
     small = b * h * sq * 4 + b * 4
     nb = 0 if bias is None else bias.numel() * 4
     bwd_in = 3 * t_q + 2 * t_kv_in + small + nb
+    dbias_in = 2 * t_q + 2 * t_kv_in + small + b * h * sq * 4 + nb
     return {"fwd": bound(2 * t_q + 2 * t_kv_in + small + nb, 4 * d * pairs,
                          BF16_OPS_PER_S),
             "dkv": bound(bwd_in + 2 * t_kv_out, 8 * d * pairs,
@@ -2097,7 +2280,7 @@ def flash_bounds(b, h, h_kv, sq, sk, d, pairs, live_kv_rows, bias=None):
             "dq": bound(bwd_in + t_q, 6 * d * pairs, BF16_OPS_PER_S),
             "function": bound(bwd_in + t_q + 2 * t_kv_out + nb,
                               10 * d * pairs, BF16_OPS_PER_S),
-            "dbias": bound(bwd_in + nb, 4 * d * pairs, BF16_OPS_PER_S)}
+            "dbias": bound(dbias_in + nb, 4 * d * pairs, BF16_OPS_PER_S)}
 
 
 def phase_bert_kernels(torch, dev):
@@ -2129,7 +2312,6 @@ def phase_bert_kernels(torch, dev):
     q, k, v, do = packed_views(torch, dev, b, s, h, h, d, 64)
     kw = dict(scale=d ** -0.5, causal=False, kv_lens=lens)
     o, lse = A.flash_fwd_bshd_cuda(q, k, v, **kw)
-    ms_fwd = time_ms(lambda: A.flash_fwd_bshd_cuda(q, k, v, **kw), [()])
     plain_fwd = time_ms(lambda: A.flash_fwd_bshd(q, k, v, impl="torch", **kw),
                         [()], reps=2, trials=3)
     plain_bwd = time_ms(lambda: A.flash_bwd_bshd(q, k, v, o, lse, do,
@@ -2138,6 +2320,9 @@ def phase_bert_kernels(torch, dev):
     t = lambda x: x.transpose(1, 2)  # noqa: E731
     lib_fwd, lib_bwd, _ = sdpa_times(torch, F, t(q), t(k), t(v), t(do),
                                      kw["scale"], False, lens, None)
+    fab = fwd_ab_times(torch, "bshd", [(q, k, v)], kw,
+                       "bshd with kv_lens (BERT)", lib_fwd)
+    ms_fwd = fab["wgmma"]
     ab = ab_times(torch, "bshd", (q, k, v, o, lse, do), kw,
                   "bshd with kv_lens (BERT)", lib_bwd)
     ms_dkv, ms_dq = ab["wgmma"]["dkv_ms"], ab["wgmma"]["dq_ms"]
@@ -2159,7 +2344,7 @@ def phase_bert_kernels(torch, dev):
                 "bound_ms": bd["function"][0],
                 "bound_by": bd["function"][1]}
     fwd_bert = {"shape": timed, "max_abs_err": errs["fwd"], "ms": ms_fwd,
-                "plain_ms": plain_fwd, "bound_ms": bd["fwd"][0],
+                "sm80_ms": fab["sm80"], "plain_ms": plain_fwd, "bound_ms": bd["fwd"][0],
                 "bound_by": bd["fwd"][1], "library_ms": lib_fwd,
                 "library_note": "F.scaled_dot_product_attention forward with "
                                 "the key-padding mask"}
@@ -2247,10 +2432,6 @@ def phase_bias_kernels(torch, dev):
                      "bias " + layout)
 
         o, lse = fwd_kernel(q, k, v, **kw)
-        ms_fwd = time_ms(lambda: fwd_kernel(q, k, v, **kw), [()])
-        ms_db = time_ms(lambda: A.flash_bwd_dbias_cuda(
-            q, k, v, o, lse, do, bias, scale=kw["scale"], causal=c["causal"],
-            kv_lens=lens, layout=layout), [()])
         plain_fwd = time_ms(lambda: fwd(q, k, v, impl="torch", **kw), [()],
                             reps=2, trials=3)
         plain_bwd = time_ms(lambda: bwd(q, k, v, o, lse, do, impl="torch",
@@ -2259,6 +2440,15 @@ def phase_bias_kernels(torch, dev):
         lib_fwd, lib_bwd, lib_db = sdpa_times(
             torch, F, q4, k4, v4, do4, kw["scale"], c["causal"], lens_b,
             bias)
+        fab = fwd_ab_times(torch, layout, [(q, k, v)], kw,
+                           f"{layout} with the array bias, {name}", lib_fwd)
+        ms_fwd = fab["wgmma"]
+        # dbias on the dQ kernel's delta, as the backward dispatch runs it
+        _, delta = bwd_wrappers(layout)[0](q, k, v, o, lse, do, **kw)
+        dab = dbias_ab_times(torch, layout, (q, k, v, o, lse, do, bias), kw,
+                             delta, f"{layout}, {name}", lib_db)
+        ms_db = dab["wgmma"]
+        del delta
         ab = ab_times(torch, layout, (q, k, v, o, lse, do), kw,
                       f"{layout} with the array bias, {name}", lib_bwd)
         ms_dkv, ms_dq = ab["wgmma"]["dkv_ms"], ab["wgmma"]["dq_ms"]
@@ -2272,6 +2462,7 @@ def phase_bias_kernels(torch, dev):
         bd = flash_bounds(b, h, h, sq, sk, d, pairs, live, bias)
         per[name] = {"shape": shape, "score_pairs": pairs, "fwd_ms": ms_fwd,
                      "dkv_ms": ms_dkv, "dq_ms": ms_dq, "dbias_ms": ms_db,
+                     "sm80_fwd_ms": fab["sm80"], "sm80_dbias_ms": dab["sm80"],
                      "sm80_dkv_ms": ab["sm80"]["dkv_ms"],
                      "sm80_dq_ms": ab["sm80"]["dq_ms"],
                      "plain_fwd_ms": plain_fwd, "plain_bwd_ms": plain_bwd,
@@ -2289,6 +2480,7 @@ def phase_bias_kernels(torch, dev):
         "source": "apex_tpu_torch/csrc/flash_attn_dbias.cu",
         "replaces": "apex_tpu/ops/pallas/attention.py:1095",
         "max_abs_err": errs["dbias"], "ms": enc["dbias_ms"],
+        "sm80_ms": enc["sm80_dbias_ms"], "variant_note": DBIAS_VARIANT_NOTE,
         "plain_ms": enc["plain_bwd_ms"],
         "bound_ms": enc["bounds"]["dbias"][0],
         "bound_by": enc["bounds"]["dbias"][1],
@@ -2369,7 +2561,7 @@ def bert_step(model, params, opt, batch):
 
 def path_counters():
     """Every flash, xent_stats, layer-norm, softmax and matmul counter, by
-    name (the flash backward's also by variant: ``<name>_wgmma``,
+    name (the flash kernels' also by variant: ``<name>_wgmma``,
     ``<name>_sm80``): the kernels a path must launch and those it must
     not."""
     from apex_tpu_torch.ops import attention as A
@@ -2382,7 +2574,11 @@ def path_counters():
             "flash_bwd_dkv": (A.flash_bwd_dkv_cuda, "launches"),
             "flash_bwd_dq": (A.flash_bwd_dq_cuda, "launches"),
             **{f"{name}_{v}": (fn, f"{v}_launches")
-               for name, fn in (("flash_bwd_dkv", A.flash_bwd_dkv_cuda),
+               for name, fn in (("flash_fwd", A.flash_fwd_cuda),
+                                ("flash_fwd_bshd", A.flash_fwd_bshd_cuda),
+                                ("flash_fwd_flat", A.flash_fwd_flat_cuda),
+                                ("flash_bwd_dbias", A.flash_bwd_dbias_cuda),
+                                ("flash_bwd_dkv", A.flash_bwd_dkv_cuda),
                                 ("flash_bwd_dq", A.flash_bwd_dq_cuda),
                                 ("flash_bwd_bshd_dkv",
                                  A.flash_bwd_bshd_dkv_cuda),
@@ -2460,6 +2656,7 @@ def phase_bert_train(torch, dev):
         "BERT train path")
     L = BERT["num_layers"]
     check_launches(launches, {"flash_fwd_bshd": 2 * L,
+                              "flash_fwd_bshd_wgmma": 2 * L,
                               "flash_bwd_bshd_dq": L,
                               "flash_bwd_bshd_dkv": L,
                               "flash_bwd_bshd_dq_wgmma": L,
@@ -2648,6 +2845,7 @@ def phase_t5_materialized(torch, dev):
     selfs = T5["num_encoder_layers"] + T5["num_decoder_layers"]
     check_launches(launches, {
         "flash_fwd_flat": 2 * L, "flash_fwd_flat_bias": 2 * selfs,
+        "flash_fwd_flat_wgmma": 2 * L, "flash_bwd_dbias_wgmma": selfs,
         "flash_bwd_flat_dkv": L, "flash_bwd_flat_dkv_bias": selfs,
         "flash_bwd_flat_dq": L, "flash_bwd_flat_dq_bias": selfs,
         "flash_bwd_flat_dkv_wgmma": L, "flash_bwd_flat_dq_wgmma": L,
@@ -3882,7 +4080,7 @@ def main():
         v: {p_: n[f"matmul_bias_act_{v}"] for p_, n in paths.items()
             if n.get(f"matmul_bias_act_{v}")}
         for v in ("wgmma", "sm80", "fp32", "split")}
-    for k in kernels:  # the flash backward pair's launches by variant
+    for k in kernels:  # the flash kernels' launches by variant
         counter = {"flash_bwd_flat_dtable": "flash_bwd_flat_dkv"}.get(
             k["name"], k["name"])
         if f"{counter}_wgmma" in paths["gpt_train"]:
@@ -3893,6 +4091,14 @@ def main():
         "calls": BWD_AB,
         "wgmma_slower_than_sm80": [c for c in BWD_AB
                                    if c["wgmma_ms"] >= c["sm80_ms"]]})
+    emit("flash_fwd_ab", {
+        "calls": FWD_AB,
+        "wgmma_not_faster_than_sm80": [c for c in FWD_AB
+                                       if c["wgmma_ms"] >= c["sm80_ms"]]})
+    emit("dbias_ab", {
+        "calls": DBIAS_AB,
+        "wgmma_not_faster_than_sm80": [c for c in DBIAS_AB
+                                       if c["wgmma_ms"] >= c["sm80_ms"]]})
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

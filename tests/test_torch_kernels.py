@@ -37,7 +37,12 @@ the first mma.sync pair) at each family's call, the batch cut: dq, dk
 and dv under the bf16 rule, the bucket-table gradient within 1e-3
 relative norm of the fp32 truth; two planted faults (the last 64-row kv
 tile dropped, the bias left out) must fail those rules on both
-variants; dq, dk and dv on ``wgmma`` bit-identical across two runs.
+variants; dq, dk and dv on ``wgmma`` bit-identical across two runs. The
+forward's two variants likewise at each family's call (o and lse under
+the bf16 rule, the same two faults refused, ``wgmma`` bit-identical), and
+dbias's at each dbias call (within 1e-3 relative norm of the fp32 truth;
+the last group of sharing rows dropped and the bias left out refused on
+both variants; ``wgmma``'s split sums bit-identical across two runs).
 
 The layer-norm and softmax kernels: in bf16, y, dx and the softmax's
 probabilities and dx under the same bf16 rule against the plain version
@@ -987,6 +992,202 @@ def test_flash_bwd_dkv_wgmma_needs_the_dq_delta(cuda):
     dk, dv = amod.flash_bwd_dkv_cuda(qkv, o, lse, do, 2, 2, 64, variant="sm80",
                                      **kw)
     assert dk.shape == dv.shape == (1, 128, 128)
+
+
+# --- the forward's and dbias's two variants (wgmma, sm80) ---------------------
+
+# (name, layout, b, h, h_kv, sq, sk, d, causal, lens, bias): each family's
+# forward call at its widths, the batch cut (as BWD_FAMILIES, with the
+# decode prefill's and the ragged GQA bshd calls)
+FWD_FAMILIES = BWD_FAMILIES + [
+    ("prefill_bshd_d128", "bshd", 2, 8, 8, 512, 512, 128, True, None, None),
+    ("gqa_bshd_ragged_300", "bshd", 2, 8, 2, 300, 300, 128, True, None,
+     None),
+]
+_FWD_IDS = [f[0] for f in FWD_FAMILIES]
+
+
+def _fwd_family(fam, dev):
+    """(run, plain, truth, fn): ``run(variant, fault)`` calls the family's
+    forward wrapper and returns (o, lse); plain and truth are the plain
+    forward's in bf16 and in fp32 on the same bf16 inputs."""
+    _, layout, b, h, hkv, sq, sk, d, causal, lens, bias = fam
+    seed = sq + sk + h + d + 1
+    up = lambda ts: [t.float() for t in ts]  # noqa: E731
+    if layout == "packed":
+        qkv, _ = _flash_inputs(b, sq, h, hkv, d, dev, seed=seed)
+        kw = dict(scale=d ** -0.5, causal=causal)
+        plain = amod.flash_fwd_packed(qkv, h, hkv, d, impl="torch", **kw)
+        truth = amod.flash_fwd_packed(qkv.float(), h, hkv, d, impl="torch",
+                                      **kw)
+
+        def run(variant, fault=None):
+            return amod.flash_fwd_cuda(qkv, h, hkv, d, variant=variant,
+                                       planted_fault=fault, **kw)
+        return run, plain, truth, amod.flash_fwd_cuda
+    lens_t = None
+    if lens is not None:
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    if layout == "bhsd":
+        q, k, v, _ = _flat_inputs(b, h, hkv, sq, sk, d, dev, seed, True)
+        if lens_t is not None:
+            lens_t = lens_t.repeat_interleave(h)
+        kw = dict(scale=d ** -0.5, causal=causal, kv_lens=lens_t)
+        if bias == "rel":
+            g = torch.Generator(device=dev).manual_seed(3)
+            table = torch.randn((32, h), generator=g, device=dev) * 0.5
+            kw["rel_bias"] = amod.BucketedBias(table, bidirectional=not causal,
+                                               max_distance=128)
+        elif bias is not None:
+            kw["bias"] = _bias_input(h, sq, sk, dev)
+        fwd, fn = amod.flash_fwd, amod.flash_fwd_flat_cuda
+    else:
+        q, k, v, _ = _bshd_inputs(b, sq, sk, h, hkv, d, dev, seed, sq == sk)
+        kw = dict(scale=d ** -0.5, causal=causal, kv_lens=lens_t)
+        if bias is not None:
+            kw["bias"] = _bias_input(1 if bias == "arr1" else h, sq, sk, dev)
+        fwd, fn = amod.flash_fwd_bshd, amod.flash_fwd_bshd_cuda
+    plain = fwd(q, k, v, impl="torch", **kw)
+    truth = fwd(*up((q, k, v)), impl="torch", **kw)
+
+    def run(variant, fault=None):
+        return fn(q, k, v, variant=variant, planted_fault=fault, **kw)
+    return run, plain, truth, fn
+
+
+def _fwd_within_rules(got, plain, truth):
+    errs, ok = {}, True
+    for name, g_, p_, t_ in zip(("o", "lse"), got, plain, truth):
+        good, e = _within_rule(g_, p_, t_)
+        errs[name] = e
+        ok &= good and bool(torch.isfinite(g_.float()).all())
+    return ok, errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["wgmma", "sm80"])
+@pytest.mark.parametrize("fam", FWD_FAMILIES, ids=_FWD_IDS)
+def test_flash_fwd_variants_match_plain(cuda, fam, variant):
+    run, plain, truth, fn = _fwd_family(fam, cuda)
+    before = (fn.launches, getattr(fn, f"{variant}_launches"))
+    got = run(variant)
+    torch.cuda.synchronize()
+    assert (fn.launches, getattr(fn, f"{variant}_launches")) == (
+        before[0] + 1, before[1] + 1)
+    ok, errs = _fwd_within_rules(got, plain, truth)
+    assert ok, f"{fam[0]} on {variant}: {errs}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fam", FWD_FAMILIES, ids=_FWD_IDS)
+def test_flash_fwd_wgmma_is_bit_identical_across_runs(cuda, fam):
+    run, _, _, _ = _fwd_family(fam, cuda)
+    first, second = run("wgmma"), run("wgmma")
+    for name, a, b_ in zip(("o", "lse"), first, second):
+        assert torch.equal(a, b_), f"{fam[0]}: {name} differs between runs"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fam", FWD_FAMILIES, ids=_FWD_IDS)
+def test_flash_fwd_planted_faults_are_refused(cuda, fam):
+    """The last 64-row kv tile dropped, and (where the call has one) the
+    bias left out: each must fail the rule on both variants."""
+    run, plain, truth, _ = _fwd_family(fam, cuda)
+    faults = ["drop_last_kv_tile"] + (["drop_bias"] if fam[-1] else [])
+    for variant in ("wgmma", "sm80"):
+        for fault in faults:
+            ok, errs = _fwd_within_rules(run(variant, fault), plain, truth)
+            assert not ok, f"{fam[0]} {variant}: {fault} passed: {errs}"
+
+
+# (name, layout, b, h, h_kv, sq, sk, d, causal, lens, hb): each dbias call
+# at its widths, the batch cut
+DBIAS_FAMILIES = [
+    ("t5_encoder_bias", "bhsd", 2, 12, 12, 512, 512, 64, False, None, 12),
+    ("t5_encoder_bias_padded", "bhsd", 2, 12, 12, 512, 512, 64, False,
+     [300, 512], 12),
+    ("t5_decoder_bias_114", "bhsd", 4, 12, 12, 114, 114, 64, True, None, 12),
+    ("bshd_bias_hb1", "bshd", 2, 16, 16, 512, 512, 64, False, [512, 77], 1),
+    ("gqa_d128_bias_lens", "bhsd", 2, 8, 4, 300, 300, 128, True, [300, 77],
+     8),
+]
+_DBIAS_IDS = [f[0] for f in DBIAS_FAMILIES]
+
+
+def _dbias_family(fam, dev):
+    """(run, truth, delta): ``run(variant, fault, delta)`` calls the dbias
+    wrapper on the plain forward's o and lse; truth is the fp32 plain
+    version's dbias; delta the dQ kernel's, as the dispatch hands it."""
+    _, layout, b, h, hkv, sq, sk, d, causal, lens, hb = fam
+    seed = sq + sk + hb
+    lens_t = None
+    if lens is not None:
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    if layout == "bhsd":
+        q, k, v, do = _flat_inputs(b, h, hkv, sq, sk, d, dev, seed, True)
+        if lens_t is not None:
+            lens_t = lens_t.repeat_interleave(h)
+        fwd, bwd, dq = amod.flash_fwd, amod.flash_bwd, \
+            amod.flash_bwd_flat_dq_cuda
+    else:
+        q, k, v, do = _bshd_inputs(b, sq, sk, h, hkv, d, dev, seed, sq == sk)
+        fwd, bwd, dq = amod.flash_fwd_bshd, amod.flash_bwd_bshd, \
+            amod.flash_bwd_bshd_dq_cuda
+    bias = _bias_input(hb, sq, sk, dev, seed=seed)
+    kw = dict(scale=d ** -0.5, causal=causal, kv_lens=lens_t, bias=bias)
+    o, lse = fwd(q, k, v, impl="torch", **kw)
+    truth = bwd(*(t.float() for t in (q, k, v, o)), lse, do.float(),
+                impl="torch", **kw)[3]
+    _, delta = dq(q, k, v, o, lse, do, **kw)
+
+    def run(variant, fault=None, delta=delta):
+        return amod.flash_bwd_dbias_cuda(
+            q, k, v, o, lse, do, bias, scale=kw["scale"], causal=causal,
+            kv_lens=lens_t, layout=layout, delta=delta, variant=variant,
+            planted_fault=fault)
+    return run, truth, delta
+
+
+def _dbias_err(got, truth):
+    return ((got - truth).norm() / truth.norm()).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["wgmma", "sm80"])
+@pytest.mark.parametrize("fam", DBIAS_FAMILIES, ids=_DBIAS_IDS)
+def test_flash_dbias_variants_match_plain(cuda, fam, variant):
+    run, truth, _ = _dbias_family(fam, cuda)
+    fn = amod.flash_bwd_dbias_cuda
+    before = (fn.launches, getattr(fn, f"{variant}_launches"))
+    got = run(variant)
+    torch.cuda.synchronize()
+    assert (fn.launches, getattr(fn, f"{variant}_launches")) == (
+        before[0] + 1, before[1] + 1)
+    _check_dbias(got, truth)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fam", DBIAS_FAMILIES, ids=_DBIAS_IDS)
+def test_flash_dbias_wgmma_is_bit_identical_across_runs(cuda, fam):
+    """The split fixed-order sums: two runs give the same bits, and the
+    wrapper's own delta (computed once by the plain version when none is
+    given) the same dbias as the dQ kernel's within the rule."""
+    run, truth, _ = _dbias_family(fam, cuda)
+    first, second = run("wgmma"), run("wgmma")
+    assert torch.equal(first, second), f"{fam[0]}: dbias differs"
+    _check_dbias(run("wgmma", delta=None), truth)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fam", DBIAS_FAMILIES, ids=_DBIAS_IDS)
+def test_flash_dbias_planted_faults_are_refused(cuda, fam):
+    """The last group of sharing rows dropped, and the bias left out of p:
+    each must fail the 1e-3 rule on both variants."""
+    run, truth, _ = _dbias_family(fam, cuda)
+    for variant in ("wgmma", "sm80"):
+        for fault in amod.DBIAS_FAULTS:
+            err = _dbias_err(run(variant, fault), truth)
+            assert err > DBIAS_TOL, f"{fam[0]} {variant}: {fault} passed"
 
 
 # --- the layer-norm and softmax kernels ----------------------------------------
