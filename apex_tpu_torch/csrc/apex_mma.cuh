@@ -78,6 +78,20 @@ __device__ __forceinline__ void cp_async_16_zfill(void* smem, const void* gmem,
   cp_async_16_bytes(smem, gmem, valid ? 16 : 0);
 }
 
+// 4- or 8-byte global -> shared copy (both addresses aligned to it)
+__device__ __forceinline__ void cp_async_small(void* smem, const void* gmem,
+                                               int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

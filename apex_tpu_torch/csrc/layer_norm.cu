@@ -17,30 +17,52 @@
 // bytes. The forward reads x once and writes y (84 MB, 0.025 ms at 3.35
 // TB/s); the backward reads dy and x and writes dx (126 MB, 0.038 ms).
 // About ten fp32 operations per element are far below the card's rate.
+// What keeps the backward from the bound is latency: every row's two sums
+// cross the warps holding it before its dx can be written, so it needs
+// many warps an SM as well as rows in flight.
 //
-// Design:
-// * one warp per row; lane l holds the 16-byte chunks l, l + 32, ... of
-//   the row in fp32 registers (row_io.cuh), E elements a lane, E one of 8,
-//   32, 128 by the hidden size (at most 32 * 128 = 4096); a hidden that is
-//   no multiple of 8 (bf16) or 4 (fp32) elements moves element by element.
-// * the forward's warps walk rows in a grid-stride loop, holding gamma and
-//   beta in registers across rows.
-// * dgamma/dbeta without atomics, bit-reproducible: CTA c owns the fixed
-//   row block [c * rows_per_cta, (c + 1) * rows_per_cta); its 4 warps keep
-//   fp32 partials in registers, sum them in warp order through shared
-//   memory and write one (2, hidden) row of the partial buffer; a second
-//   launch sums the buffer's rows in a fixed order per column and casts to
-//   the parameters' dtype. The TPU kernel's revisited output block (a sum
-//   carried along a sequential grid) does not carry over to a card whose
-//   CTAs run in no order.
+// Forward: one warp per row; lane l holds the 16-byte chunks l, l + 32, ...
+// of the row in fp32 registers (row_io.cuh), E elements a lane, E one of
+// 8, 32, 128 by the hidden size (at most 32 * 128 = 4096); a hidden that
+// is no multiple of 8 (bf16) or 4 (fp32) elements moves element by
+// element. The warps walk rows in a grid-stride loop, holding gamma and
+// beta in registers across rows.
+//
+// Backward: a row is spread over a group of W warps, so a thread holds at
+// most 16 elements of it (C chunks, W from {1, 2, 3, 4, 6, 8} by the
+// hidden size: 768 in bf16 is 3 warps of one chunk a lane, no idle lane;
+// 1024 is 4; 4096 is 8 warps of two chunks). A CTA holds as many groups as
+// fit in 16 warps at one chunk a thread (64 registers, two CTAs an SM: 32
+// warps to hide the row's reduction latency) or 8 warps at more. Each
+// group keeps S - 1 rows of x, dy, mean and rstd in flight ahead of the
+// row it reduces: every thread copies its own chunks into a ring of S
+// shared-memory stages with cp.async and reads them back after its own
+// wait, so no barrier guards the ring. The row's two sums (sum d, sum d *
+// xhat) cross the group's warps through shared memory at the group's own
+// named barrier, added in warp order. A hidden that is no multiple of the
+// chunk loads element by element, without the ring.
+//
+// dgamma/dbeta without atomics, bit-reproducible: with nb CTAs, CTA c owns
+// the fixed rows c, c + nb, ..., rows_per_cta of them (ops/layer_norm.py
+// picks the count from the row count alone; the stride makes the CTAs
+// stream one contiguous window of rows together), its groups take those
+// rows interleaved and keep fp32 partials of their columns in registers; the
+// groups' partials are added in group order through shared memory into
+// one (2, hidden) row of the partial buffer; a second launch sums the
+// buffer's rows in a fixed order per column and casts to the parameters'
+// dtype. The order depends on the row count and the hidden size alone,
+// never on the card. The TPU kernel's revisited output block (a sum
+// carried along a sequential grid) does not carry over to a card whose
+// CTAs run in no order.
 #include <cstdint>
 
 #include "apex_cuda.cuh"
+#include "apex_mma.cuh"
 #include "row_io.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps, one row each at a time
+constexpr int kThreads = 128;  // the forward's 4 warps, one row each
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxFwdBlocks = 1056;  // 8 a streaming multiprocessor
 constexpr int kMaxHidden = 32 * 128;
@@ -129,123 +151,260 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// --- the backward -----------------------------------------------------------
+//
+// A row group of W warps owns one row at a time; thread j of the group
+// holds the C 16-byte chunks j, j + 32W, ... of the row (E = C * V
+// elements). A CTA holds R row groups, and the groups walk the CTA's
+// fixed rows interleaved.
+constexpr int kRedRows = 16;  // partial rows summed a column, in parallel
+
+// warps a CTA holds: 16 for one chunk a thread (two such CTAs an SM at 64
+// registers a thread), else 8
+__host__ __device__ constexpr int bwd_cta_warps(int c) {
+  return c == 1 ? 16 : 8;
+}
+__host__ __device__ constexpr int bwd_groups(int c, int w) {
+  return w >= bwd_cta_warps(c) ? 1 : bwd_cta_warps(c) / w;
+}
+__host__ __device__ constexpr int bwd_threads(int c, int w) {
+  return bwd_groups(c, w) * w * 32;
+}
+// rows in the cp.async ring of each group: S - 1 rows in flight
+__host__ __device__ constexpr int bwd_stages(int c) { return c == 1 ? 4 : 3; }
+
+// shared memory: [R][S][G] (mean, rstd) pairs, [R][2][W] (sum d, sum d*xh)
+// pairs, then the [R][S][2][C][G] ring of x and dy chunks (after the walk,
+// with R > 1, the (2, n) sum of the groups' dgamma/dbeta partials)
+template <int C, int W>
+size_t bwd_smem(int n) {
+  constexpr int R = bwd_groups(C, W), G = 32 * W, S = bwd_stages(C);
+  const size_t ring = static_cast<size_t>(R) * S * 2 * C * G * 16;
+  const size_t acc = R > 1 ? static_cast<size_t>(2) * n * sizeof(float) : 0;
+  return static_cast<size_t>(R) * S * G * sizeof(float2) +
+         static_cast<size_t>(R) * 2 * W * sizeof(float2) +
+         (ring > acc ? ring : acc);
+}
+
+// the threads of one row group meet at their own barrier (1 + group)
+__device__ __forceinline__ void group_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// the two sums of a row over a warp, side by side
+__device__ __forceinline__ void warp_sum2(float& a, float& b) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
+}
+
 // dx per row; with kW also the CTA's (2, n) partial row of (dgamma, dbeta)
-template <typename T, int E, bool kW>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int C, int W, bool kW>
+__global__ void __launch_bounds__(bwd_threads(C, W), C == 1 ? 2 : 1)
     ln_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
                   const float* __restrict__ mean,
                   const float* __restrict__ rstd, const void* __restrict__ w,
                   T* __restrict__ dx, float* __restrict__ part, int rows,
                   int n, int rows_per_cta, bool rms, bool vec, bool w_bf16) {
-  extern __shared__ float red[];  // (2, n) with kW
   constexpr int V = apex::Chunk<T>::kVec;
-  constexpr int C = E / V;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  constexpr int E = C * V;
+  constexpr int R = bwd_groups(C, W), G = 32 * W, S = bwd_stages(C);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* stats = reinterpret_cast<float2*>(smem);
+  float2* sums = stats + R * S * G;
+  uint4* ring = reinterpret_cast<uint4*>(sums + R * 2 * W);
+  const int grp = threadIdx.x / G;
+  const int j = threadIdx.x % G;
+  const int warp = j >> 5, lane = j & 31;
   float g[kW ? E : 1], dg[kW ? E : 1], db[kW ? E : 1];
   if constexpr (kW) {
 #pragma unroll
     for (int c = 0; c < C; ++c)
 #pragma unroll
       for (int k = 0; k < V; ++k) {
-        g[c * V + k] = load_param(w, w_bf16, (lane + 32 * c) * V + k, n);
+        g[c * V + k] = load_param(w, w_bf16, (j + G * c) * V + k, n);
         dg[c * V + k] = 0.f;
         db[c * V + k] = 0.f;
       }
   }
-  const float nf = static_cast<float>(n);
-  const int r0 = blockIdx.x * rows_per_cta;
-  const int r1 = min(r0 + rows_per_cta, rows);
-  for (int row = r0 + warp; row < r1; row += kWarps) {
+  const float inv_n = 1.f / static_cast<float>(n);
+  // CTA c owns rows c, c + nb, c + 2 nb, ... (rows_per_cta of them, nb the
+  // CTA count), so the CTAs together stream one contiguous window of rows;
+  // group g takes the CTA's rows g, g + R, ... of those
+  const int nb = gridDim.x;
+  const int owned = min(rows_per_cta, (rows - blockIdx.x + nb - 1) / nb);
+  const int count = grp < owned ? (owned - grp + R - 1) / R : 0;
+  const int first = blockIdx.x + grp * nb;
+  const int step = R * nb;
+  uint4* my_ring = ring + grp * S * 2 * C * G;
+  float2* my_stats = stats + grp * S * G;
+  // each thread copies, and later reads, only its own chunks and its own
+  // (mean, rstd) slot: its cp.async wait alone orders them
+  auto prefetch = [&](int it) {
+    const int row = first + it * step;
     const size_t off = static_cast<size_t>(row) * n;
-    float xv[E], gv[E];
+    const int st = it % S;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      apex::load_chunk(x + off, (lane + 32 * c) * V, n, vec, 0.f,
-                       xv + c * V);
-      apex::load_chunk(dy + off, (lane + 32 * c) * V, n, vec, 0.f,
-                       gv + c * V);
+      const int i0 = (j + G * c) * V;
+      if (i0 < n) {
+        apex::cp_async_16_bytes(my_ring + ((st * 2) * C + c) * G + j,
+                                x + off + i0, 16);
+        apex::cp_async_16_bytes(my_ring + ((st * 2 + 1) * C + c) * G + j,
+                                dy + off + i0, 16);
+      }
     }
-    const float mu = rms ? 0.f : mean[row];
-    const float rs = rstd[row];
+    apex::cp_async_small(&my_stats[st * G + j].x, mean + row, 4);
+    apex::cp_async_small(&my_stats[st * G + j].y, rstd + row, 4);
+  };
+  if (vec) {
+#pragma unroll
+    for (int s = 0; s < S - 1; ++s) {
+      if (s < count) prefetch(s);
+      apex::cp_async_commit();
+    }
+  }
+  for (int it = 0; it < count; ++it) {
+    const int row = first + it * step;
+    const size_t off = static_cast<size_t>(row) * n;
+    float xv[E], gv[E], mu, rs;
+    if (vec) {
+      if (it + S - 1 < count) prefetch(it + S - 1);
+      apex::cp_async_commit();
+      apex::cp_async_wait<S - 1>();
+      const int st = it % S;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if ((j + G * c) * V < n) {
+          apex::unpack_chunk<T>(my_ring[((st * 2) * C + c) * G + j],
+                                xv + c * V);
+          apex::unpack_chunk<T>(my_ring[((st * 2 + 1) * C + c) * G + j],
+                                gv + c * V);
+        } else {
+#pragma unroll
+          for (int k = 0; k < V; ++k) xv[c * V + k] = gv[c * V + k] = 0.f;
+        }
+      }
+      const float2 ms = my_stats[st * G + j];
+      mu = ms.x;
+      rs = ms.y;
+    } else {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        apex::load_chunk(x + off, (j + G * c) * V, n, false, 0.f,
+                         xv + c * V);
+        apex::load_chunk(dy + off, (j + G * c) * V, n, false, 0.f,
+                         gv + c * V);
+      }
+      mu = mean[row];
+      rs = rstd[row];
+    }
+    // elements past the row load as 0: their d is 0, so they add nothing
+    const float shift = rms ? 0.f : -mu * rs;
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-    for (int c = 0; c < C; ++c)
-#pragma unroll
-      for (int k = 0; k < V; ++k) {
-        const int e = c * V + k;
-        const float xh =
-            (lane + 32 * c) * V + k < n ? (xv[e] - mu) * rs : 0.f;
-        float d = gv[e];
-        if constexpr (kW) {
-          dg[e] += d * xh;
-          db[e] += d;
-          d *= g[e];
-        }
-        xv[e] = xh;
-        gv[e] = d;
-        s1 += d;
-        s2 += d * xh;
+    for (int e = 0; e < E; ++e) {
+      const float xh = fmaf(xv[e], rs, shift);
+      float d = gv[e];
+      if constexpr (kW) {
+        dg[e] = fmaf(d, xh, dg[e]);
+        db[e] += d;
+        d *= g[e];
       }
-    const float c2 = apex::warp_sum(s2) / nf;
-    const float c1 = rms ? 0.f : apex::warp_sum(s1) / nf;
+      xv[e] = xh;
+      gv[e] = d;
+      s1 += d;
+      s2 = fmaf(d, xh, s2);
+    }
+    warp_sum2(s1, s2);
+    if (rms) s1 = 0.f;
+    if constexpr (W > 1) {
+      // the group's warps' sums, added in warp order; two slots by row
+      // parity, so a warp that runs ahead never overwrites a slot still read
+      float2* slot = sums + (grp * 2 + (it & 1)) * W;
+      if (lane == 0) slot[warp] = make_float2(s1, s2);
+      group_sync(1 + grp, G);
+      s1 = 0.f;
+      s2 = 0.f;
+#pragma unroll
+      for (int wi = 0; wi < W; ++wi) {
+        const float2 p = slot[wi];
+        s1 += p.x;
+        s2 += p.y;
+      }
+    }
+    const float c2 = s2 * inv_n;
+    const float c1 = s1 * inv_n;
 #pragma unroll
     for (int e = 0; e < E; ++e) xv[e] = (gv[e] - c1 - xv[e] * c2) * rs;
 #pragma unroll
     for (int c = 0; c < C; ++c)
-      apex::store_chunk(dx + off, (lane + 32 * c) * V, n, vec, xv + c * V);
+      apex::store_chunk(dx + off, (j + G * c) * V, n, vec, xv + c * V);
   }
   if constexpr (kW) {
-    // lane l of every warp owns the same columns: add the warps' partials
-    // in warp order, then write the CTA's row of the partial buffer
-    for (int wi = 0; wi < kWarps; ++wi) {
-      if (warp == wi) {
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-#pragma unroll
-          for (int k = 0; k < V; ++k) {
-            const int i = (lane + 32 * c) * V + k;
-            if (i < n) {
-              red[i] = (wi ? red[i] : 0.f) + dg[c * V + k];
-              red[n + i] = (wi ? red[n + i] : 0.f) + db[c * V + k];
-            }
-          }
-      }
-      __syncthreads();
-    }
     float* pr = part + static_cast<size_t>(blockIdx.x) * 2 * n;
-    for (int i = threadIdx.x; i < 2 * n; i += kThreads) pr[i] = red[i];
+    if constexpr (R == 1) {
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          const int i = (j + G * c) * V + k;
+          if (i < n) {
+            pr[i] = dg[c * V + k];
+            pr[n + i] = db[c * V + k];
+          }
+        }
+    } else {
+      // thread j of every group owns the same columns: add the groups'
+      // partials in group order in shared memory, then write the CTA's row
+      float* acc = reinterpret_cast<float*>(ring);
+      __syncthreads();  // every group is done with the ring
+      for (int gi = 0; gi < R; ++gi) {
+        if (grp == gi) {
+#pragma unroll
+          for (int c = 0; c < C; ++c)
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+              const int i = (j + G * c) * V + k;
+              if (i < n) {
+                acc[i] = (gi ? acc[i] : 0.f) + dg[c * V + k];
+                acc[n + i] = (gi ? acc[n + i] : 0.f) + db[c * V + k];
+              }
+            }
+        }
+        __syncthreads();
+      }
+      for (int i = threadIdx.x; i < 2 * n; i += R * G) pr[i] = acc[i];
+    }
   }
 }
 
-// (dgamma, dbeta)[col] = the partial rows' sum, in row order 0, 1, ...
-// per thread row group, then the 8 groups in order
-__global__ void __launch_bounds__(256)
+// dgamma (blockIdx.y 0) or dbeta (1) of 32 columns: thread row ty sums the
+// partial rows ty, ty + kRedRows, ... in order, then the kRedRows sums are
+// added in order
+__global__ void __launch_bounds__(32 * kRedRows)
     ln_bwd_reduce_kernel(const float* __restrict__ part, void* dw, void* db,
                          int parts, int n, bool w_bf16) {
-  __shared__ float s[2][8][33];
+  __shared__ float s[kRedRows][33];
+  void* out = blockIdx.y ? db : dw;
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int col = blockIdx.x * 32 + tx;
-  float a = 0.f, bsum = 0.f;
+  float a = 0.f;
   if (col < n) {
-    for (int p = ty; p < parts; p += 8) {
-      const float* pr = part + static_cast<size_t>(p) * 2 * n;
-      a += pr[col];
-      bsum += pr[n + col];
-    }
+    const float* p = part + static_cast<size_t>(blockIdx.y) * n + col;
+#pragma unroll 4
+    for (int r = ty; r < parts; r += kRedRows)
+      a += p[static_cast<size_t>(r) * 2 * n];
   }
-  s[0][ty][tx] = a;
-  s[1][ty][tx] = bsum;
+  s[ty][tx] = a;
   __syncthreads();
   if (ty == 0 && col < n) {
-    float ta = 0.f, tb = 0.f;
+    float t = 0.f;
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      ta += s[0][t][tx];
-      tb += s[1][t][tx];
-    }
-    store_param(dw, w_bf16, col, ta);
-    if (db != nullptr) store_param(db, w_bf16, col, tb);
+    for (int r = 0; r < kRedRows; ++r) t += s[r][tx];
+    store_param(out, w_bf16, col, t);
   }
 }
 
@@ -302,32 +461,63 @@ cudaError_t fwd_t(const void* x, const void* w, const void* b, void* y,
   }
 }
 
-template <typename T, int E>
-cudaError_t bwd_e(const void* dy, const void* x, const void* mean,
-                  const void* rstd, const void* w, void* dx, void* part,
-                  void* dw, void* db, bool rms, int rows, int n,
-                  int rows_per_cta, bool vec, bool w_bf16, cudaStream_t st) {
+template <typename T, int C, int W, bool kW>
+cudaError_t bwd_launch(const T* dy, const T* x, const float* mean,
+                       const float* rstd, const void* w, T* dx, float* part,
+                       bool rms, int rows, int n, int rows_per_cta, bool vec,
+                       bool w_bf16, cudaStream_t st) {
   const int blocks = (rows + rows_per_cta - 1) / rows_per_cta;
+  const size_t smem = bwd_smem<C, W>(n);
+  auto kernel = ln_bwd_kernel<T, C, W, kW>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<blocks, bwd_threads(C, W), smem, st>>>(dy, x, mean, rstd, w, dx,
+                                                  part,
+                                               rows, n, rows_per_cta, rms,
+                                               vec, w_bf16);
+  return cudaGetLastError();
+}
+
+template <typename T, int C, int W>
+cudaError_t bwd_cw(const void* dy, const void* x, const void* mean,
+                   const void* rstd, const void* w, void* dx, void* part,
+                   void* dw, void* db, bool rms, int rows, int n,
+                   int rows_per_cta, bool vec, bool w_bf16, cudaStream_t st) {
   const T* dyp = static_cast<const T*>(dy);
   const T* xp = static_cast<const T*>(x);
   const float* mp = static_cast<const float*>(mean);
   const float* rp = static_cast<const float*>(rstd);
   T* dxp = static_cast<T*>(dx);
   float* pp = static_cast<float*>(part);
-  if (w == nullptr) {
-    ln_bwd_kernel<T, E, false><<<blocks, kThreads, 0, st>>>(
-        dyp, xp, mp, rp, w, dxp, pp, rows, n, rows_per_cta, rms, vec,
-        w_bf16);
-    return cudaGetLastError();
-  }
-  const size_t smem = static_cast<size_t>(2) * n * sizeof(float);
-  ln_bwd_kernel<T, E, true><<<blocks, kThreads, smem, st>>>(
-      dyp, xp, mp, rp, w, dxp, pp, rows, n, rows_per_cta, rms, vec, w_bf16);
-  cudaError_t err = cudaGetLastError();
+  if (w == nullptr)
+    return bwd_launch<T, C, W, false>(dyp, xp, mp, rp, w, dxp, pp, rms, rows,
+                                      n, rows_per_cta, vec, w_bf16, st);
+  const cudaError_t err = bwd_launch<T, C, W, true>(
+      dyp, xp, mp, rp, w, dxp, pp, rms, rows, n, rows_per_cta, vec, w_bf16,
+      st);
   if (err != cudaSuccess) return err;
-  ln_bwd_reduce_kernel<<<(n + 31) / 32, 256, 0, st>>>(pp, dw, db, blocks, n,
-                                                      w_bf16);
+  const int blocks = (rows + rows_per_cta - 1) / rows_per_cta;
+  ln_bwd_reduce_kernel<<<dim3((n + 31) / 32, db != nullptr ? 2 : 1),
+                         32 * kRedRows, 0, st>>>(pp, dw, db, blocks, n,
+                                                 w_bf16);
   return cudaGetLastError();
+}
+
+// the backward's launch shape for a row of n: C chunks a thread (at most
+// 16 elements), then the fewest warps W of {1, 2, 3, 4, 6, 8} that cover
+// the row's chunks (hidden 768 in bf16: 96 chunks, 3 warps of one chunk a
+// lane, no idle lane; 1024: 4 warps; 4096: 8 warps of two chunks)
+template <typename T>
+void bwd_shape(int n, int* c, int* w) {
+  constexpr int V = apex::Chunk<T>::kVec;
+  const int nc = (n + V - 1) / V;
+  *c = nc <= 256 ? 1 : nc <= 512 ? 2 : 4;
+  const int need = (nc + 32 * *c - 1) / (32 * *c);
+  *w = need <= 4 ? need : need <= 6 ? 6 : 8;
 }
 
 template <typename T>
@@ -335,21 +525,28 @@ cudaError_t bwd_t(const void* dy, const void* x, const void* mean,
                   const void* rstd, const void* w, void* dx, void* part,
                   void* dw, void* db, bool rms, int rows, int n,
                   int rows_per_cta, bool w_bf16, cudaStream_t st) {
-  const bool vec = n % apex::Chunk<T>::kVec == 0 && aligned(dy) &&
-                   aligned(x) && aligned(dx);
-  switch (lane_elems<T>(n)) {
-    case 8:
-      return bwd_e<T, 8>(dy, x, mean, rstd, w, dx, part, dw, db, rms, rows,
-                         n, rows_per_cta, vec, w_bf16, st);
-    case 32:
-      return bwd_e<T, 32>(dy, x, mean, rstd, w, dx, part, dw, db, rms, rows,
-                          n, rows_per_cta, vec, w_bf16, st);
-    case 128:
-      return bwd_e<T, 128>(dy, x, mean, rstd, w, dx, part, dw, db, rms,
-                           rows, n, rows_per_cta, vec, w_bf16, st);
-    default:
-      return cudaErrorInvalidValue;
+  constexpr int V = apex::Chunk<T>::kVec;
+  const bool vec = n % V == 0 && aligned(dy) && aligned(x) && aligned(dx);
+  int c, wr;
+  bwd_shape<T>(n, &c, &wr);
+#define APEX_LN_BWD(C_, W_)                                                  \
+  if (c == C_ && wr == W_)                                                   \
+    return bwd_cw<T, C_, W_>(dy, x, mean, rstd, w, dx, part, dw, db, rms,    \
+                             rows, n, rows_per_cta, vec, w_bf16, st);
+  APEX_LN_BWD(1, 1)
+  APEX_LN_BWD(1, 2)
+  APEX_LN_BWD(1, 3)
+  APEX_LN_BWD(1, 4)
+  APEX_LN_BWD(1, 6)
+  APEX_LN_BWD(1, 8)
+  APEX_LN_BWD(2, 6)
+  APEX_LN_BWD(2, 8)
+  if constexpr (V * 4 <= 16) {
+    APEX_LN_BWD(4, 6)
+    APEX_LN_BWD(4, 8)
   }
+#undef APEX_LN_BWD
+  return cudaErrorInvalidValue;
 }
 
 bool dtype_ok(int dtype) {
@@ -377,6 +574,19 @@ extern "C" int apex_ln_fwd(const void* x, const void* w, const void* b,
           : fwd_t<float>(x, w, b, y, mean, rstd, affine, rms != 0, rows, n,
                          eps, w_bf16 != 0, st);
   return static_cast<int>(err);
+}
+
+// the backward row kernel's launch shape for a row of n of dtype: out =
+// (chunks a thread, warps a row, threads a CTA)
+extern "C" int apex_ln_bwd_shape(int dtype, int n, int* out) {
+  if (!dtype_ok(dtype) || n < 1 || n > kMaxHidden || out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == apex::kBFloat16)
+    bwd_shape<__nv_bfloat16>(n, out, out + 1);
+  else
+    bwd_shape<float>(n, out, out + 1);
+  out[2] = bwd_threads(out[0], out[1]);
+  return 0;
 }
 
 // dy, x, dx (rows, n) of dtype; mean, rstd (rows,) fp32; w (n,) or null.

@@ -20,6 +20,25 @@ struct Chunk {
   static constexpr int kVec = 16 / sizeof(T);
 };
 
+// the V elements of a chunk held as 16 raw bytes, in fp32 (bf16 pairs by
+// shifts)
+template <typename T>
+__device__ __forceinline__ void unpack_chunk(const uint4& raw, float* v) {
+  if constexpr (sizeof(T) == 2) {
+    const uint32_t* u = reinterpret_cast<const uint32_t*>(&raw);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[2 * k] = __uint_as_float(u[k] << 16);
+      v[2 * k + 1] = __uint_as_float(u[k] & 0xffff0000u);
+    }
+  } else {
+    v[0] = __uint_as_float(raw.x);
+    v[1] = __uint_as_float(raw.y);
+    v[2] = __uint_as_float(raw.z);
+    v[3] = __uint_as_float(raw.w);
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ void load_chunk(const T* __restrict__ row, int i,
                                            int n, bool vec, float fill,

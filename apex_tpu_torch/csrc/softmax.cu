@@ -19,27 +19,52 @@
 //
 // Bound on this card at GPT's causal call (163840 rows x 1024, bf16):
 // bytes, counting only the entries the function must read (a masked
-// entry's y and dx are 0). The forward reads x on and below the
-// diagonal and writes y whole (503 MB, 0.150 ms at 3.35 TB/s), the
-// backward reads dy and y there and writes dx (671 MB, 0.200 ms). This
-// kernel reads whole rows (671 MB and 1.0 GB).
+// entry's score is MASK_FILL whatever x holds, and its dx is 0). The
+// forward reads x on and below the diagonal and writes y whole (503 MB,
+// 0.150 ms at 3.35 TB/s), the backward reads dy and y there and writes dx
+// (671 MB, 0.200 ms). About five fp32 operations an entry are far below
+// the card's rate.
 //
-// Design: one warp per row while the row fits in registers (sk <= 2048:
-// E = 8, 16, 32 or 64 elements a lane, as 16-byte chunks through
-// row_io.cuh; a row length that is no multiple of the chunk moves element
-// by element; a key-contiguous mask row in 8- or 4-byte accesses): max,
-// exp and sum by warp shuffles, one multiply by the sum's reciprocal, one
-// read and one write of the row. A longer row takes a CTA of 256 threads
-// and three passes over it (max, sum, write), the same arithmetic.
+// Forward (sk <= 2048): L lanes a row (a warp; half a warp for rows of at
+// most 16 chunks, two rows a warp); lane l holds the 16-byte chunks l,
+// l + L, ... of the row (E = 8, 16, 32 or 64 elements a lane). What it does
+// about the bound:
+// * it reads only what the function needs: a row's masked entries are
+//   known before its x is read (causal: from the query index; a mask:
+//   from the row's mask bytes, 8 or 4 at a time when the key stride is 1),
+//   and a chunk whose every entry is masked is not loaded; its entries
+//   take MASK_FILL and its exp is taken once a row. The output is written
+//   whole, so a fully masked row is still uniform;
+// * it keeps loads in flight without registers: as many CTAs as the card
+//   holds at once, each warp walking rows grid-stride; every lane copies
+//   its own chunks of the row S - 1 steps ahead into its own slots of the
+//   warp's shared-memory ring with cp.async (in 16-, 8- or 4-byte pieces
+//   by the row's alignment; element by element, at once, when a row
+//   starts on no 4-byte boundary) and reads them back after its own wait;
+// * it spends few instructions an entry, which the short rows of T5's
+//   decoder are bound by: bf16 pairs unpacked and packed by shifts and one
+//   conversion a pair, exp2 (ex2.approx) on scores prescaled by scale *
+//   log2(e), one reciprocal a row, a row's (b, h, q) kept by additions
+//   instead of divisions, masked bits from the mask bytes by word
+//   arithmetic, and no per-entry bound check where a chunk is whole.
+// A longer row takes a CTA of 256 threads and three passes over it (max,
+// sum, write).
+//
+// Backward: one warp a row, the row in registers (sk <= 2048; lane l
+// holds chunks l, l + 32, ... through row_io.cuh), max-free: the dot of dy
+// and y by warp shuffles, one write; a longer row takes a CTA of 256
+// threads and two passes.
 #include <cmath>
 #include <cstdint>
 
 #include "apex_cuda.cuh"
+#include "apex_mma.cuh"
 #include "row_io.cuh"
 
 namespace {
 
 constexpr float kMaskFill = -10000.f;
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kThreads = 128;  // 4 warps, one row each
 constexpr int kWarps = kThreads / 32;
 constexpr int kLongThreads = 256;
@@ -60,28 +85,32 @@ struct MaskView {
   }
 };
 
-// the mask bytes of elements i .. i + V - 1 of a mask row (0 past n): one
-// access when the key stride is 1 and the bytes are aligned
+// the mask bytes of elements i0 .. i0 + V - 1 of a mask row, packed
+// little-endian (0 past n): one access when the key stride is 1 and the
+// bytes are aligned
 template <int V>
-__device__ __forceinline__ void load_mask(const uint8_t* mr, long long sk,
-                                          int i, int n, uint8_t* mk) {
-  const uint8_t* p = mr + i * sk;
-  if (sk == 1 && i + V <= n && reinterpret_cast<uintptr_t>(p) % V == 0) {
-    if constexpr (V == 8) {
-      const uint2 r = *reinterpret_cast<const uint2*>(p);
-      const uint8_t* b = reinterpret_cast<const uint8_t*>(&r);
-#pragma unroll
-      for (int k = 0; k < V; ++k) mk[k] = b[k];
-    } else {
-      const uint32_t r = *reinterpret_cast<const uint32_t*>(p);
-      const uint8_t* b = reinterpret_cast<const uint8_t*>(&r);
-#pragma unroll
-      for (int k = 0; k < V; ++k) mk[k] = b[k];
-    }
+__device__ __forceinline__ uint2 fetch_mask(const uint8_t* mr, long long sk,
+                                            int i0, int n) {
+  uint2 r = make_uint2(0u, 0u);
+  if (i0 >= n) return r;
+  const uint8_t* p = mr + i0 * sk;
+  if (sk == 1 && i0 + V <= n && reinterpret_cast<uintptr_t>(p) % V == 0) {
+    if constexpr (V == 8)
+      r = *reinterpret_cast<const uint2*>(p);
+    else
+      r.x = *reinterpret_cast<const uint32_t*>(p);
   } else {
 #pragma unroll
-    for (int k = 0; k < V; ++k) mk[k] = i + k < n ? p[k * sk] : 0;
+    for (int k = 0; k < V; ++k)
+      if (i0 + k < n) {
+        const uint32_t b = p[k * sk] != 0;
+        if (k < 4)
+          r.x |= b << (8 * (k & 3));
+        else
+          r.y |= b << (8 * (k & 3));
+      }
   }
+  return r;
 }
 
 // the scaled, masked score of element i of a row
@@ -95,57 +124,282 @@ __device__ __forceinline__ float score(float x, int i, int q,
   return s;
 }
 
-template <typename T, int E, int kMode>
+// stages of a warp's cp.async ring: S - 1 rows in flight ahead of the row
+// it reduces
+__host__ __device__ constexpr int fwd_stages(int c) {
+  return c <= 2 ? 4 : c == 4 ? 3 : 2;
+}
+
+// shared memory of a CTA: each warp's ring of [S][C][32] 16-byte chunk
+// slots, then its [S][C][32] masked bits
+__host__ __device__ constexpr int fwd_smem(int c) {
+  return kWarps * fwd_stages(c) * c * 32 * (16 + 4);
+}
+
+// a reduction over the L lanes of a row (xor partners stay in the group)
+template <int L, bool kMax>
+__device__ __forceinline__ float group_reduce(float v) {
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1) {
+    const float t = __shfl_xor_sync(0xffffffffu, v, o);
+    v = kMax ? fmaxf(v, t) : v + t;
+  }
+  return v;
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {  // 2^x, 0 for -inf
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float fast_rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// bit k set where byte k of w is nonzero (k < 4)
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t w) {
+  const uint32_t hi = ((w & 0x7f7f7f7fu) + 0x7f7f7f7fu) | w;  // byte MSBs
+  return (((hi >> 7) & 0x01010101u) * 0x01020408u) >> 24;
+}
+
+template <typename T>
+__device__ __forceinline__ uint4 pack_chunk(const float* v, float scale) {
+  uint4 raw;
+  if constexpr (sizeof(T) == 2) {
+    uint32_t* u = reinterpret_cast<uint32_t*>(&raw);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const __nv_bfloat162 h =
+          __floats2bfloat162_rn(v[2 * k] * scale, v[2 * k + 1] * scale);
+      u[k] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+  } else {
+    raw = make_uint4(__float_as_uint(v[0] * scale),
+                     __float_as_uint(v[1] * scale),
+                     __float_as_uint(v[2] * scale),
+                     __float_as_uint(v[3] * scale));
+  }
+  return raw;
+}
+
+// the (b, h, q) of the rows a lane visits, r, r + stride, ..., kept by
+// additions: one division per quantity at the start, none per row
+struct RowWalk {
+  int q, h, b;     // the current row
+  int dq, dh, db;  // the stride's
+  int q_rows, heads;
+
+  __device__ RowWalk(int r, int stride, int q_rows_, int heads_)
+      : q_rows(q_rows_), heads(heads_) {
+    int t = r / q_rows;
+    q = r - t * q_rows;
+    b = t / heads;
+    h = t - b * heads;
+    t = stride / q_rows;
+    dq = stride - t * q_rows;
+    db = t / heads;
+    dh = t - db * heads;
+  }
+  __device__ void next() {
+    q += dq;
+    int carry = q >= q_rows;
+    q -= carry ? q_rows : 0;
+    h += dh + carry;
+    carry = h >= heads;
+    h -= carry ? heads : 0;
+    b += db + carry;
+  }
+};
+
+// y = softmax(scale * x) over rows walked by persistent warps, G rows a
+// warp at a time (two for rows of at most 16 chunks, L = 32 / G lanes a
+// row). A row's masked bits are known before its x is read (causal: from
+// its query index; mask: from its mask bytes), so a chunk whose every
+// entry is masked is never loaded. Each lane copies its own chunks of the
+// row S - 1 steps ahead into its own slots of the warp's ring with
+// cp.async, in pieces of w bytes (16, 8, 4; 0: element by element, at
+// once), and reads them back after its own wait: no barrier guards the
+// ring.
+template <typename T, int E, int G, int kMode>
 __global__ void __launch_bounds__(kThreads)
     softmax_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
-                       MaskView m, int rows, int n, int sq, float scale,
-                       bool vec) {
+                       MaskView m, int rows, int n, int sq, float scale2,
+                       int w) {
   constexpr int V = apex::Chunk<T>::kVec;
   constexpr int C = E / V;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const int lane = threadIdx.x & 31;
-  const size_t off = static_cast<size_t>(row) * n;
-  const int q = kMode == kCausal ? row % sq : 0;
-  const uint8_t* mr = kMode == kMask ? m.row(row) : nullptr;
-  float v[E];
+  constexpr int L = 32 / G;
+  constexpr int S = fwd_stages(C);
+  constexpr uint32_t kAll = (1u << V) - 1;
+  constexpr float kFill2 = kMaskFill * kLog2e;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int sl = lane % L;
+  uint4* ring = reinterpret_cast<uint4*>(smem) + warp * S * C * 32;
+  uint32_t* bits = reinterpret_cast<uint32_t*>(smem + kWarps * S * C * 32 *
+                                                           16) +
+                   warp * S * C * 32;
+  const int stride = gridDim.x * kWarps * G;
+  const int base = (blockIdx.x * kWarps + warp) * G;
+  if (base >= rows) return;
+  const int first = base + lane / L;
+  const int count = (rows - base + stride - 1) / stride;
+  // the rows prefetch() visits, in order
+  RowWalk walk(first, stride, kMode == kMask ? m.q_rows : sq,
+               kMode == kMask ? m.heads : 1);
+
+  auto prefetch = [&](int it) {
+    const int r = first + it * stride;
+    const int st = it % S;
+    const bool active = r < rows;
+    const T* xr = x + static_cast<size_t>(r) * n;
+    uint32_t mb[C];
+    if constexpr (kMode == kMask) {
+      const uint8_t* mr = m.p + walk.b * m.sb + walk.h * m.sh + walk.q * m.sq;
+      uint2 raw[C];
 #pragma unroll
-  for (int c = 0; c < C; ++c)
-    apex::load_chunk(x + off, (lane + 32 * c) * V, n, vec, 0.f, v + c * V);
-  float mx = -INFINITY;
+      for (int c = 0; c < C; ++c)
+        raw[c] = active ? fetch_mask<V>(mr, m.sk, (sl + L * c) * V, n)
+                        : make_uint2(0u, 0u);
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int i0 = (lane + 32 * c) * V;
-    uint8_t mk[V];
-    if constexpr (kMode == kMask) load_mask<V>(mr, m.sk, i0, n, mk);
+      for (int c = 0; c < C; ++c)
+        mb[c] = nonzero_bytes(raw[c].x) | (nonzero_bytes(raw[c].y) << 4);
+    } else {
 #pragma unroll
-    for (int k = 0; k < V; ++k) {
-      const int i = i0 + k;
-      if (i < n) {
-        float s = v[c * V + k] * scale;
-        if constexpr (kMode == kCausal) s = i <= q ? s : kMaskFill;
-        if constexpr (kMode == kMask) s = mk[k] ? kMaskFill : s;
-        v[c * V + k] = s;
-        mx = fmaxf(mx, s);
+      for (int c = 0; c < C; ++c) {
+        const int d = walk.q - (sl + L * c) * V;  // k masked where k > d
+        mb[c] = kMode != kCausal ? 0u
+                : d < 0          ? kAll
+                : d >= V - 1     ? 0u
+                                 : kAll & ~((2u << d) - 1);
       }
     }
-  }
-  mx = apex::warp_max(mx);
-  float sum = 0.f;
+    walk.next();
 #pragma unroll
-  for (int c = 0; c < C; ++c)
+    for (int c = 0; c < C; ++c) {
+      const int i0 = (sl + L * c) * V;
+      const int left = n - i0;  // elements of the chunk inside the row
+      const uint32_t dead =
+          left <= 0 ? kAll : left >= V ? 0u : kAll & ~((1u << left) - 1);
+      const uint32_t b = active ? mb[c] & kAll : kAll;
+      const int at = (st * C + c) * 32 + lane;
+      bits[at] = b;
+      if ((b | dead) == kAll) continue;  // nothing of it is read
+      const T* src = xr + i0;
+      if (w == 16) {
+        apex::cp_async_16_bytes(ring + at, src, 16);
+      } else if (w != 0) {
+        const int ep = w / static_cast<int>(sizeof(T));  // elements a piece
+        for (int p = 0; p * ep < left && p * w < 16; ++p)
+          apex::cp_async_small(reinterpret_cast<char*>(ring + at) + p * w,
+                               src + p * ep, w);
+      } else {
+        uint4 tmp = make_uint4(0u, 0u, 0u, 0u);
+        T* e = reinterpret_cast<T*>(&tmp);
 #pragma unroll
-    for (int k = 0; k < V; ++k) {
-      const int e = c * V + k;
-      v[e] = (lane + 32 * c) * V + k < n ? expf(v[e] - mx) : 0.f;
-      sum += v[e];
+        for (int k = 0; k < V; ++k)
+          if (k < left) e[k] = src[k];
+        ring[at] = tmp;
+      }
     }
-  const float inv = 1.f / apex::warp_sum(sum);
+  };
+
+  auto finish = [&](int it) {
+    const int r = first + it * stride;
+    const int st = it % S;
+    float v[E];
+    uint32_t b[C];
+    float mx = -INFINITY;
 #pragma unroll
-  for (int e = 0; e < E; ++e) v[e] *= inv;
+    for (int c = 0; c < C; ++c) {
+      const int i0 = (sl + L * c) * V;
+      const int at = (st * C + c) * 32 + lane;
+      b[c] = bits[at];
+      if (i0 >= n) continue;
+      if (b[c] == kAll) {  // never loaded: every element is the fill
+        mx = fmaxf(mx, kFill2);
+        continue;
+      }
+      apex::unpack_chunk<T>(ring[at], v + c * V);
 #pragma unroll
-  for (int c = 0; c < C; ++c)
-    apex::store_chunk(y + off, (lane + 32 * c) * V, n, vec, v + c * V);
+      for (int k = 0; k < V; ++k) v[c * V + k] *= scale2;
+      if (b[c] != 0 || i0 + V > n) {  // masked entries: the fill; dead: 0
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          if ((b[c] >> k) & 1u) v[c * V + k] = kFill2;
+          if (i0 + k >= n) v[c * V + k] = -INFINITY;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < V; ++k) mx = fmaxf(mx, v[c * V + k]);
+    }
+    mx = group_reduce<L, true>(mx);
+    const float pf = fast_exp2(kFill2 - mx);  // a filled entry's numerator
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int i0 = (sl + L * c) * V;
+      if (i0 >= n) continue;
+      if (b[c] == kAll) {
+        sum += pf * static_cast<float>(min(V, n - i0));
+        continue;
+      }
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        v[c * V + k] = fast_exp2(v[c * V + k] - mx);
+        sum += v[c * V + k];
+      }
+    }
+    const float inv = fast_rcp(group_reduce<L, false>(sum));
+    if (r >= rows) return;
+    T* yr = y + static_cast<size_t>(r) * n;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int i0 = (sl + L * c) * V;
+      if (i0 >= n) continue;
+      if (b[c] == kAll) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) v[c * V + k] = pf;
+      }
+      const uint4 out = pack_chunk<T>(v + c * V, inv);
+      if (w == 16) {
+        *reinterpret_cast<uint4*>(yr + i0) = out;
+      } else if (w == 8) {
+        const int ep = 8 / static_cast<int>(sizeof(T));
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+          if (p * ep < n - i0)
+            reinterpret_cast<uint2*>(yr + i0)[p] =
+                reinterpret_cast<const uint2*>(&out)[p];
+      } else if (w == 4) {
+        const int ep = 4 / static_cast<int>(sizeof(T));
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+          if (p * ep < n - i0)
+            reinterpret_cast<uint32_t*>(yr + i0)[p] =
+                reinterpret_cast<const uint32_t*>(&out)[p];
+      } else {
+        const T* e = reinterpret_cast<const T*>(&out);
+#pragma unroll
+        for (int k = 0; k < V; ++k)
+          if (i0 + k < n) yr[i0 + k] = e[k];
+      }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < count) prefetch(s);
+    apex::cp_async_commit();
+  }
+  for (int it = 0; it < count; ++it) {
+    if (it + S - 1 < count) prefetch(it + S - 1);
+    apex::cp_async_commit();
+    apex::cp_async_wait<S - 1>();
+    finish(it);
+  }
 }
 
 template <typename T, int E>
@@ -245,29 +499,66 @@ bool aligned(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// the forward's grid: every CTA resident at once (its warps walk the rows),
+// or fewer when the rows run out
+template <typename T, int E, int G, int kMode>
+int fwd_blocks(int rows) {
+  static const int resident = [] {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, softmax_fwd_kernel<T, E, G, kMode>, kThreads,
+        fwd_smem(E / apex::Chunk<T>::kVec));
+    return sms * per_sm > 0 ? sms * per_sm : 1;
+  }();
+  return min((rows + kWarps * G - 1) / (kWarps * G), resident);
+}
+
+template <typename T, int E, int G, int kMode>
+void fwd_launch(const T* x, T* y, const MaskView& m, int rows, int n, int sq,
+                float scale2, int w, cudaStream_t st) {
+  constexpr int kSmem = fwd_smem(E / apex::Chunk<T>::kVec);
+  if constexpr (kSmem > 48 * 1024)  // fp32 rows of 2048: 80 KB
+    cudaFuncSetAttribute(softmax_fwd_kernel<T, E, G, kMode>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  softmax_fwd_kernel<T, E, G, kMode>
+      <<<fwd_blocks<T, E, G, kMode>(rows), kThreads, kSmem, st>>>(
+          x, y, m, rows, n, sq, scale2, w);
+}
+
+// the widest piece (16, 8 or 4 bytes; 0: none) that every row of x and y
+// starts on and ends on
+int piece_bytes(const void* x, const void* y, int n, int es) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(x) |
+                      reinterpret_cast<uintptr_t>(y) |
+                      static_cast<uintptr_t>(n) * es;
+  return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : a % 4 == 0 ? 4 : 0;
+}
+
 template <typename T, int kMode>
 cudaError_t fwd_mode(const void* x, void* y, const MaskView& m, int rows,
                      int n, int sq, float scale, cudaStream_t st) {
+  constexpr int V = apex::Chunk<T>::kVec;
   const T* xp = static_cast<const T*>(x);
   T* yp = static_cast<T*>(y);
-  const bool vec = n % apex::Chunk<T>::kVec == 0 && aligned(x) && aligned(y);
-  const int blocks = (rows + kWarps - 1) / kWarps;
+  const int w = piece_bytes(x, y, n, sizeof(T));
+  const float scale2 = scale * kLog2e;
   switch (lane_elems<T>(n)) {
     case 8:
-      softmax_fwd_kernel<T, 8, kMode><<<blocks, kThreads, 0, st>>>(
-          xp, yp, m, rows, n, sq, scale, vec);
+      if ((n + V - 1) / V <= 16)
+        fwd_launch<T, 8, 2, kMode>(xp, yp, m, rows, n, sq, scale2, w, st);
+      else
+        fwd_launch<T, 8, 1, kMode>(xp, yp, m, rows, n, sq, scale2, w, st);
       break;
     case 16:
-      softmax_fwd_kernel<T, 16, kMode><<<blocks, kThreads, 0, st>>>(
-          xp, yp, m, rows, n, sq, scale, vec);
+      fwd_launch<T, 16, 1, kMode>(xp, yp, m, rows, n, sq, scale2, w, st);
       break;
     case 32:
-      softmax_fwd_kernel<T, 32, kMode><<<blocks, kThreads, 0, st>>>(
-          xp, yp, m, rows, n, sq, scale, vec);
+      fwd_launch<T, 32, 1, kMode>(xp, yp, m, rows, n, sq, scale2, w, st);
       break;
     case 64:
-      softmax_fwd_kernel<T, 64, kMode><<<blocks, kThreads, 0, st>>>(
-          xp, yp, m, rows, n, sq, scale, vec);
+      fwd_launch<T, 64, 1, kMode>(xp, yp, m, rows, n, sq, scale2, w, st);
       break;
     default:
       softmax_fwd_long_kernel<T, kMode><<<rows, kLongThreads, 0, st>>>(

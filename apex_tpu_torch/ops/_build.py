@@ -27,7 +27,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import List
+from typing import List, Tuple
 
 from apex_tpu_torch import nvcc_path
 
@@ -44,6 +44,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _S = ctypes.POINTER(ctypes.c_longlong)  # an array of strides
+_IP = ctypes.POINTER(ctypes.c_int)  # an array of ints written back
 # name -> argtypes of every C entry point the library exports
 ENTRY_POINTS = {
     # q, k_pool, v_pool, tables, lengths, out, dtype, b, h_kv, group, d,
@@ -103,6 +104,8 @@ ENTRY_POINTS = {
     # rows_per_cta, stream
     "apex_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                     _I, _P],
+    # dtype, n, out (chunks a thread, warps a row, threads a CTA)
+    "apex_ln_bwd_shape": [_I, _I, _IP],
     # x, y, mask, mask strides (b, h, q, k), heads, q_rows, dtype, mode,
     # rows, n, sq, scale, stream
     "apex_softmax_fwd": [_P, _P, _P, _S, _I, _I, _I, _I, _I, _I, _I, _F,
@@ -132,25 +135,16 @@ def library_path() -> Path:
     return BUILD_DIR / f"libapex_tpu_torch_{_digest()}.so"
 
 
-def build() -> Path:
-    """Compile (if the digest-named library is missing) and return its
-    path. Raises with the compiler's output when a source fails."""
-    lib = library_path()
-    if lib.exists():
-        return lib
-    nvcc = nvcc_path()
-    if nvcc is None:
-        raise RuntimeError(
-            "nvcc not found ($CUDA_HOME/bin/nvcc, /usr/local/cuda/bin/nvcc "
-            "or PATH): the port's CUDA kernels are built from source at "
-            "first use")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def compile_library(srcs: List[Path], include_dir: Path,
+                    lib: Path) -> Tuple[str, List[str]]:
+    """Compile ``srcs`` (one ``nvcc`` each, all started together) and link
+    them into ``lib``: (the compiler's output, the names that failed)."""
     tag = f"{os.getpid()}"
     procs = []
-    for src in sources():
-        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
-        cmd = [nvcc, *ARCH_FLAGS, *COMPILE_FLAGS, "-I", str(CSRC_DIR),
-               "-c", str(src), "-o", str(obj)]
+    for src in srcs:
+        obj = lib.parent / f"{src.stem}.{tag}.o"
+        cmd = [nvcc_path(), *ARCH_FLAGS, *COMPILE_FLAGS, "-I",
+               str(include_dir), "-c", str(src), "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -161,9 +155,9 @@ def build() -> Path:
         if proc.returncode != 0:
             failed.append(src.name)
     if not failed:
-        tmp = BUILD_DIR / f"{lib.name}.{tag}.tmp"
+        tmp = lib.parent / f"{lib.name}.{tag}.tmp"
         link = subprocess.run(
-            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+            [nvcc_path(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
              *[str(obj) for _, obj, _ in procs]],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         log.append(f"== link (rc {link.returncode})\n{link.stdout}")
@@ -173,10 +167,26 @@ def build() -> Path:
             os.replace(tmp, lib)
     for _, obj, _ in procs:
         obj.unlink(missing_ok=True)
-    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    return "\n".join(log), failed
+
+
+def build() -> Path:
+    """Compile (if the digest-named library is missing) and return its
+    path. Raises with the compiler's output when a source fails."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    if nvcc_path() is None:
+        raise RuntimeError(
+            "nvcc not found ($CUDA_HOME/bin/nvcc, /usr/local/cuda/bin/nvcc "
+            "or PATH): the port's CUDA kernels are built from source at "
+            "first use")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    log, failed = compile_library(sources(), CSRC_DIR, lib)
+    (BUILD_DIR / "build.log").write_text(log)
     if failed:
         raise RuntimeError(f"kernel build failed ({', '.join(failed)}):\n"
-                           + "\n".join(log))
+                           + log)
     return lib
 
 

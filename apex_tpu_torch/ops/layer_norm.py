@@ -23,6 +23,7 @@ card.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional, Sequence, Tuple, Union
 
@@ -35,7 +36,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the widest row the kernels hold in registers (32 lanes x 128 elements)
 KERNEL_MAX_HIDDEN = 4096
 #: the backward's partial-sum rows: at most this many CTAs, each owning a
-#: fixed block of rows, so dgamma/dbeta are summed in one fixed order
+#: fixed set of rows, so dgamma/dbeta are summed in one fixed order
 BWD_MAX_CTAS = 256
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -161,11 +162,25 @@ ln_fwd_cuda.launches = 0
 
 
 def bwd_rows_per_cta(rows: int) -> int:
-    """The backward's fixed row block per CTA: a function of ``rows``
-    alone, so the dgamma/dbeta summation order never depends on the
-    card."""
+    """The backward's fixed row count per CTA: a function of ``rows``
+    alone, so the dgamma/dbeta summation order never depends on the card.
+    With ``ctas = ceil(rows / per)``, CTA c owns rows c, c + ctas, c + 2
+    ctas, ... (``per`` of them, those below ``rows``)."""
     ctas = min(-(-rows // 4), BWD_MAX_CTAS)
     return -(-rows // max(ctas, 1))
+
+
+def bwd_launch_shape(hidden: int, dtype: torch.dtype) -> Tuple[int, int, int]:
+    """The backward row kernel's launch shape for rows of ``hidden`` in
+    ``dtype``, as ``layer_norm.cu`` picks it from the hidden size: (16-byte
+    chunks a thread, warps a row, threads a CTA). Asks the kernel
+    library, so it needs the card's build."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"no backward kernel for {dtype}")
+    out = (ctypes.c_int * 3)()
+    _build.check(_build.library().apex_ln_bwd_shape(
+        _DTYPE_CODES[dtype], int(hidden), out), "ln_bwd_shape")
+    return tuple(out)
 
 
 def ln_bwd_cuda(dy2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,

@@ -1,1 +1,1 @@
-"""Measurement scripts of the port that need no card."""
+"""Measurement scripts of the port."""

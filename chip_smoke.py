@@ -9,7 +9,7 @@ MLP train steps, on one CUDA card.
 Run from the repository root on a machine with an NVIDIA H100 (no
 arguments, one card, no network):
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases, none of whose failures is caught (any failure exits non-zero
 without the final line):
@@ -32,7 +32,12 @@ without the final line):
    every path's softmax call (GPT causal 20 x 8 x 1024², BERT's key mask
    32 x 16 x 512², T5's decoder triangle 114², cross 114 x 512 and
    encoder 512², fully masked rows, a 4096-long row; planted faults in
-   their outputs must fail the rule) — with the kernel's
+   their outputs must fail the rule; ``ln_bwd`` timed at each train
+   path's norm call and ``softmax_fwd`` at each of the five softmax calls,
+   with the row kernel's launch shape and ptxas registers and spills, and
+   with ``--parent DIR`` the kernels of that checkout — a git archive of
+   the parent commit — built into a library of their own and timed in
+   turns with this tree's, ``parent_ms``) — with the kernel's
    time (CUDA events, median), the plain version's, a library call's
    where one computes the same function, and the bound (for the two
    flash backward kernels also the pair's time against the bound of the
@@ -219,6 +224,7 @@ without the final line):
     ``{"ok": true, "device": {...}}``.
 """
 
+import concurrent.futures
 import json
 import os
 import statistics
@@ -282,6 +288,11 @@ T5 = dict(vocab_size=32128, max_seq_len=512, hidden_size=768,
 T5_BATCH, T5_ENC, T5_DEC, T5_STEPS = 128, 512, 114, 10
 T5_PAD_MIN = 256        # padded batches: encoder lengths in [256, 512]
 T5_DTABLE_TOL = 1e-3    # bucket-table gradient: relative norm error
+# ``--parent DIR``: that checkout's ln_bwd and softmax_fwd kernels, built
+# into a library of their own, (library, ptxas log); None without it
+PARENT = None
+# registers and spills of every kernel of this run's build, by name
+PTXAS = {}
 
 
 def check(cond, msg):
@@ -2943,11 +2954,51 @@ def ln_check(torch, dev, rows, hidden, rms, affine, seed, what):
     return errs
 
 
+def parent_turns(torch, fn, arg_sets, reps=20, trials=11):
+    """``fn``'s device time (time_ms) on this tree's kernels and, with
+    ``--parent``, on the parent's, in turns (parent, this, this, parent):
+    (ms, parent_ms), each the mean of its two turns; parent_ms is None
+    without ``--parent``."""
+    from apex_tpu_torch.tools import rowwise_ab
+
+    if PARENT is None:
+        return time_ms(fn, arg_sets, reps, trials), None
+    with rowwise_ab.using(PARENT[0]):
+        p1 = time_ms(fn, arg_sets, reps, trials)
+    a = time_ms(fn, arg_sets, reps, trials)
+    b = time_ms(fn, arg_sets, reps, trials)
+    with rowwise_ab.using(PARENT[0]):
+        p2 = time_ms(fn, arg_sets, reps, trials)
+    return (a + b) / 2, (p1 + p2) / 2
+
+
+def ptxas_of(name, args):
+    """Registers and spills of kernel ``name`` instantiated with template
+    ``args`` (a tuple of C++ spellings), from this run's build log: the
+    demangled name where c++filt was found, else the mangled one."""
+    mangled = {"__nv_bfloat16": "13__nv_bfloat16", "float": "f",
+               "true": "Lb1E", "false": "Lb0E"}
+    demangled = f"{name}<{', '.join(args)}>"
+    parts = []
+    for a in args:
+        m = mangled.get(a, f"Li{a}E")
+        parts.append(m)
+    mangled_key = f"{name}I{''.join(parts)}E"
+    for kernel, info in PTXAS.items():
+        if demangled in kernel or mangled_key in kernel:
+            return dict(info, kernel=demangled)
+    return None
+
+
 def phase_ln_kernels(torch, dev):
     """ln_fwd and ln_bwd at every main path's norm shape (LayerNorm with
     gamma and beta, as the models run it), plus RMSNorm, the affine-free
     and gamma-only forms and a tail hidden of 1000; times, the bound and
-    the library's F.layer_norm at GPT's train step (20480 x 1024, bf16)."""
+    the library's F.layer_norm: the forward at GPT's train step (20480 x
+    1024, bf16), the backward at every train path's call (``per_shape``:
+    GPT, BERT, T5's encoder and decoder), with the parent's kernel in turns
+    under ``--parent`` and the row kernel's launch shape, registers and
+    spills."""
     import torch.nn.functional as F
     from apex_tpu_torch.ops import layer_norm as LN
 
@@ -2964,38 +3015,63 @@ def phase_ln_kernels(torch, dev):
         errs = {k: max(errs[k], e[k]) for k in errs}
     torch.cuda.empty_cache()
 
-    rows, hidden = LN_CALLS["gpt"]
-    # 3 copies of x (42 MB each) cycle through the 50 MB L2
-    sets, w, b = ln_case(torch, dev, rows, hidden, "wb", 7, copies=3)
-    stats = [LN.ln_fwd_cuda(x, w, b, LN_EPS, False) for x, _ in sets]
-    fwd_sets = [(x,) for x, _ in sets]
-    bwd_sets = [(dy, x, m, r) for (x, dy), (_, m, r) in zip(sets, stats)]
-    ms_fwd = time_ms(lambda x: LN.ln_fwd_cuda(x, w, b, LN_EPS, False),
-                     fwd_sets)
-    ms_bwd = time_ms(lambda dy, x, m, r: LN.ln_bwd_cuda(dy, x, m, r, w,
-                                                        False), bwd_sets)
-    plain_fwd = time_ms(lambda x: LN._torch_fwd(x, w, b, LN_EPS, False),
-                        fwd_sets, reps=6, trials=5)
-    plain_bwd = time_ms(lambda dy, x, m, r: LN._torch_bwd(dy, x, m, r, w,
+    def lib_graphs(sets, w, b, hidden):
+        graphs = []
+        for x, dy in sets:
+            leaves = [t.detach().requires_grad_() for t in (x, w, b)]
+            graphs.append((F.layer_norm(leaves[0], (hidden,), leaves[1],
+                                        leaves[2], LN_EPS), leaves, dy))
+        return graphs
+
+    per_shape = {}
+    for what in ("gpt", "bert", "t5_enc", "t5_dec"):
+        rows, hidden = LN_CALLS[what]
+        # 3 copies of x and dy (42 MB each at GPT's call) cycle through the
+        # 50 MB L2
+        sets, w, b = ln_case(torch, dev, rows, hidden, "wb", 7, copies=3)
+        stats = [LN.ln_fwd_cuda(x, w, b, LN_EPS, False) for x, _ in sets]
+        bwd_sets = [(dy, x, m, r) for (x, dy), (_, m, r)
+                    in zip(sets, stats)]
+        ms, parent_ms = parent_turns(
+            torch, lambda dy, x, m, r: LN.ln_bwd_cuda(dy, x, m, r, w, False),
+            bwd_sets)
+        plain = time_ms(lambda dy, x, m, r: LN._torch_bwd(dy, x, m, r, w,
                                                           False),
                         bwd_sets, reps=6, trials=5)
-    lib_fwd = time_ms(lambda x: F.layer_norm(x, (hidden,), w, b, LN_EPS),
-                      fwd_sets)
-    graphs = []
-    for x, dy in sets:
-        leaves = [t.detach().requires_grad_() for t in (x, w, b)]
-        graphs.append((F.layer_norm(leaves[0], (hidden,), leaves[1],
-                                    leaves[2], LN_EPS), leaves, dy))
-    lib_bwd = time_ms(lambda out, leaves, dy: torch.autograd.grad(
-        out, leaves, dy, retain_graph=True), graphs)
-    del graphs, stats, sets
-    torch.cuda.empty_cache()
-    # bytes: x (and dy) read once, y (dx) written once, the stats and the
-    # parameters; operations: ~8 fp32 a forward element, ~12 a backward one
-    n = rows * hidden
-    fwd = bound(4 * n + 2 * 2 * hidden + 8 * rows, 8 * n, FP32_OPS_PER_S)
-    bwd = bound(6 * n + 8 * rows + 2 * hidden + 2 * 2 * hidden, 12 * n,
-                FP32_OPS_PER_S)
+        graphs = lib_graphs(sets, w, b, hidden)
+        lib = time_ms(lambda out, leaves, dy: torch.autograd.grad(
+            out, leaves, dy, retain_graph=True), graphs)
+        # bytes: dy and x read once, dx written once, the stats, gamma
+        # read and dgamma/dbeta written; ~12 fp32 operations an element
+        n = rows * hidden
+        bwd = bound(6 * n + 8 * rows + 2 * hidden + 2 * 2 * hidden, 12 * n,
+                    FP32_OPS_PER_S)
+        c, wr, threads = LN.bwd_launch_shape(hidden, torch.bfloat16)
+        per_shape[what] = {
+            "rows": rows, "hidden": hidden, "ms": ms, "parent_ms": parent_ms,
+            "plain_ms": plain, "library_ms": lib, "bound_ms": bwd[0],
+            "bound_by": bwd[1],
+            "launch": {"chunks_a_thread": c, "warps_a_row": wr,
+                       "threads_a_cta": threads,
+                       "ctas": -(-rows // LN.bwd_rows_per_cta(rows))},
+            "ptxas": ptxas_of("ln_bwd_kernel", ("__nv_bfloat16", str(c),
+                                                str(wr), "true"))}
+        emit("ln_bwd_times", dict(per_shape[what], call=what))
+        if what == "gpt":
+            fwd_sets = [(x,) for x, _ in sets]
+            ms_fwd = time_ms(lambda x: LN.ln_fwd_cuda(x, w, b, LN_EPS,
+                                                      False), fwd_sets)
+            plain_fwd = time_ms(lambda x: LN._torch_fwd(x, w, b, LN_EPS,
+                                                        False),
+                                fwd_sets, reps=6, trials=5)
+            lib_fwd = time_ms(lambda x: F.layer_norm(x, (hidden,), w, b,
+                                                     LN_EPS), fwd_sets)
+            fwd = bound(4 * n + 2 * 2 * hidden + 8 * rows, 8 * n,
+                        FP32_OPS_PER_S)
+        del graphs, stats, sets, bwd_sets
+        torch.cuda.empty_cache()
+    gpt = per_shape["gpt"]
+    rows, hidden = LN_CALLS["gpt"]
     timed = {"rows": rows, "hidden": hidden, "dtype": "bf16",
              "affine": "gamma and beta (bf16)"}
     src = "apex_tpu_torch/csrc/layer_norm.cu"
@@ -3007,13 +3083,16 @@ def phase_ln_kernels(torch, dev):
          "library_note": "F.layer_norm", "timed_shape": timed},
         {"name": "ln_bwd", "route": "cuda", "source": src,
          "replaces": "apex_tpu/ops/pallas/layer_norm.py:186",
-         "max_abs_err": errs["dx"], "ms": ms_bwd, "plain_ms": plain_bwd,
-         "bound_ms": bwd[0], "bound_by": bwd[1], "library_ms": lib_bwd,
+         "max_abs_err": errs["dx"], "ms": gpt["ms"],
+         "parent_ms": gpt["parent_ms"], "plain_ms": gpt["plain_ms"],
+         "bound_ms": gpt["bound_ms"], "bound_by": gpt["bound_by"],
+         "library_ms": gpt["library_ms"],
          "library_note": "F.layer_norm's autograd backward (dx, dgamma, "
                          "dbeta)",
          "kernel_note": "two launches a call: the row kernel and the "
-                        "fixed-order dgamma/dbeta reduction",
-         "timed_shape": timed}]
+                        "fixed-order dgamma/dbeta reduction; parent_ms: "
+                        "the parent commit's kernel in turns (--parent)",
+         "timed_shape": timed, "per_shape": per_shape}]
 
 
 def softmax_case(torch, dev, shape, mask_kind, seed):
@@ -3106,8 +3185,10 @@ def phase_softmax_kernels(torch, dev):
     """softmax_fwd and softmax_bwd at every main path's softmax call (GPT
     causal, BERT's key mask, T5's decoder triangle, cross and encoder
     calls), a tail sk of 114, fully masked rows, and a row too long for
-    one warp (sk 4096); times, bounds and the library calls at GPT's
-    causal call (163840 rows x 1024, bf16) and at BERT's."""
+    one warp (sk 4096); the forward's times, bounds and library calls at
+    every main-path call (the parent's kernel in turns under ``--parent``,
+    and the warp-per-row instance's registers and spills), the backward's
+    at GPT's causal call (163840 rows x 1024, bf16) and at BERT's."""
     from apex_tpu_torch.ops import softmax as S
 
     errs = {"y": 0.0, "dx": 0.0}
@@ -3117,26 +3198,30 @@ def phase_softmax_kernels(torch, dev):
         errs = {k: max(errs[k], e[k]) for k in errs}
         torch.cuda.empty_cache()
 
-    def times(shape, kind):
+    def times(shape, kind, with_bwd):
         x, dy, mask = softmax_case(torch, dev, shape, kind, 9)
         causal = kind == "causal"
         b, h, sq, sk = shape
         scale = 0.125
-        y = S.softmax_fwd_cuda(x, mask, scale, causal)
         fill = (~torch.ones((sq, sk), dtype=torch.bool, device=dev).tril()
                 if causal else mask)
-        out = {"fwd": time_ms(lambda: S.softmax_fwd_cuda(x, mask, scale,
-                                                         causal), [()]),
-               "bwd": time_ms(lambda: S.softmax_bwd_cuda(dy, y, scale),
-                              [()]),
-               "plain_fwd": time_ms(lambda: S._torch_fwd(
-                   x, mask, scale, causal), [()], reps=2, trials=3),
-               "plain_bwd": time_ms(lambda: S._torch_bwd(dy, y, scale),
-                                    [()], reps=2, trials=3),
-               "lib_fwd": time_ms(lambda: torch.softmax(
-                   x.mul(scale).masked_fill(fill, S.MASK_FILL), -1), [()]),
-               "lib_bwd": time_ms(lambda: torch._softmax_backward_data(
-                   dy, y, -1, y.dtype), [()])}
+        out = {}
+        out["fwd"], out["parent_fwd"] = parent_turns(
+            torch, lambda: S.softmax_fwd_cuda(x, mask, scale, causal), [()])
+        out["plain_fwd"] = time_ms(lambda: S._torch_fwd(
+            x, mask, scale, causal), [()], reps=2, trials=3)
+        out["lib_fwd"] = time_ms(lambda: torch.softmax(
+            (x.mul(scale) if fill is None
+             else x.mul(scale).masked_fill(fill, S.MASK_FILL)), -1), [()])
+        if with_bwd:
+            y = S.softmax_fwd_cuda(x, mask, scale, causal)
+            out["bwd"] = time_ms(lambda: S.softmax_bwd_cuda(dy, y, scale),
+                                 [()])
+            out["plain_bwd"] = time_ms(lambda: S._torch_bwd(dy, y, scale),
+                                       [()], reps=2, trials=3)
+            out["lib_bwd"] = time_ms(lambda: torch._softmax_backward_data(
+                dy, y, -1, y.dtype), [()])
+            del y
         # the entries the function must read: a masked score's y is 0
         # (its dx too) and a fully masked row's y is 1/sk whatever x
         # holds, so the forward reads x at the live entries only, the
@@ -3160,22 +3245,44 @@ def phase_softmax_kernels(torch, dev):
                                  FP32_OPS_PER_S)
         out["bound_bwd"] = bound(es * (2 * live_bwd + n), 5 * live_bwd,
                                  FP32_OPS_PER_S)
-        del x, dy, y
+        # the warp-per-row kernel's instance (as softmax.cu's fwd_mode
+        # picks it: elements a lane, rows a warp, mode), for the ptxas
+        # report
+        chunks = -(-sk // 8)
+        elems = next((e for e in (8, 16, 32, 64)
+                      if -(-chunks // 32) * 8 <= e), None)
+        mode = 1 if causal else 0 if mask is None else 2
+        out["ptxas"] = (None if elems is None else ptxas_of(
+            "softmax_fwd_kernel", ("__nv_bfloat16", str(elems),
+                                   "2" if chunks <= 16 else "1", str(mode))))
+        del x, dy
         torch.cuda.empty_cache()
         return out
 
-    gpt = times(*SOFTMAX_CALLS["gpt_causal"])
-    bert = times(*SOFTMAX_CALLS["bert_key"])
+    calls = {what: times(shape, kind, what in ("gpt_causal", "bert_key"))
+             for what, (shape, kind) in SOFTMAX_CALLS.items()}
+    for what, c in calls.items():
+        emit("softmax_fwd_times", {"call": what, **{
+            k: c[k] for k in ("fwd", "parent_fwd", "plain_fwd", "lib_fwd",
+                              "bound_fwd", "live", "ptxas")}})
+    gpt, bert = calls["gpt_causal"], calls["bert_key"]
     src = "apex_tpu_torch/csrc/softmax.cu"
     note = ("torch.softmax after x.mul(scale).masked_fill(mask, -10000): "
-            "three calls")
-    per_shape = {k: {"bert_key": {"ms": bert[k], "plain_ms": bert["plain_"
-                                                                  + k],
-                                  "library_ms": bert["lib_" + k],
-                                  "bound_ms": bert["bound_" + k][0],
-                                  "entries_read": bert["live"][k],
-                                  "entries": bert["live"]["entries"]}}
-                 for k in ("fwd", "bwd")}
+            "three calls (two without a mask)")
+    per_fwd = {what: {"shape": list(SOFTMAX_CALLS[what][0]),
+                      "mask": SOFTMAX_CALLS[what][1],
+                      "ms": c["fwd"], "parent_ms": c["parent_fwd"],
+                      "plain_ms": c["plain_fwd"], "library_ms": c["lib_fwd"],
+                      "bound_ms": c["bound_fwd"][0],
+                      "bound_by": c["bound_fwd"][1],
+                      "entries_read": c["live"]["fwd"],
+                      "entries": c["live"]["entries"], "ptxas": c["ptxas"]}
+               for what, c in calls.items()}
+    per_bwd = {"bert_key": {"ms": bert["bwd"], "plain_ms": bert["plain_bwd"],
+                            "library_ms": bert["lib_bwd"],
+                            "bound_ms": bert["bound_bwd"][0],
+                            "entries_read": bert["live"]["bwd"],
+                            "entries": bert["live"]["entries"]}}
     timed = {"b": TRAIN_BATCH, "heads": 8, "sq": TRAIN_SEQ, "sk": TRAIN_SEQ,
              "mask": "causal", "dtype": "bf16",
              "entries": gpt["live"]["entries"]}
@@ -3186,10 +3293,13 @@ def phase_softmax_kernels(torch, dev):
         {"name": "softmax_fwd", "route": "cuda", "source": src,
          "replaces": "apex_tpu/ops/pallas/softmax.py:83",
          "max_abs_err": errs["y"], "ms": gpt["fwd"],
+         "parent_ms": gpt["parent_fwd"],
          "plain_ms": gpt["plain_fwd"], "bound_ms": gpt["bound_fwd"][0],
          "bound_by": gpt["bound_fwd"][1], "library_ms": gpt["lib_fwd"],
          "library_note": note, "timed_shape": timed,
-         "bound_note": bound_note, "per_shape": per_shape["fwd"]},
+         "kernel_note": "parent_ms: the parent commit's kernel in turns "
+                        "(--parent)",
+         "bound_note": bound_note, "per_shape": per_fwd},
         {"name": "softmax_bwd", "route": "cuda", "source": src,
          "replaces": "apex_tpu/ops/pallas/softmax.py:108",
          "max_abs_err": errs["dx"], "ms": gpt["bwd"],
@@ -3197,7 +3307,7 @@ def phase_softmax_kernels(torch, dev):
          "bound_by": gpt["bound_bwd"][1], "library_ms": gpt["lib_bwd"],
          "library_note": "torch._softmax_backward_data (no scale)",
          "timed_shape": timed, "bound_note": bound_note,
-         "per_shape": per_shape["bwd"]}]
+         "per_shape": per_bwd}]
 
 
 def timed_steps(torch, step, steps, what):
@@ -3830,9 +3940,19 @@ def phase_mlp_leg(torch, dev):
     return info, launches, fwd_launches
 
 
-def main():
+def main(argv=None):
+    global PARENT, PTXAS
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Drive apex_tpu_torch's main "
+                                 "paths on one CUDA card.")
+    ap.add_argument("--parent", metavar="DIR", default=None,
+                    help="a checkout (e.g. a git archive of the parent "
+                    "commit) whose ln_bwd and softmax_fwd kernels are "
+                    "timed in turns with this tree's")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
               "runs on a CUDA card", file=sys.stderr)
@@ -3844,6 +3964,7 @@ def main():
     from apex_tpu_torch.ops import decode_attention as dmod
     from apex_tpu_torch.ops import layer_norm as lnmod
     from apex_tpu_torch.ops import sampling as smod
+    from apex_tpu_torch.tools import rowwise_ab
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3853,12 +3974,21 @@ def main():
     # --- build ----------------------------------------------------------------
     _build.library_path().unlink(missing_ok=True)  # build from the sources
     t0 = time.perf_counter()
-    _build.library()
-    build_s = time.perf_counter() - t0
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        other = (pool.submit(rowwise_ab.other_library, args.parent)
+                 if args.parent else None)
+        _build.library()
+        build_s = time.perf_counter() - t0
+        if other is not None:
+            PARENT = other.result()
+    PTXAS = rowwise_ab.ptxas_report(_build.build_log())
     ptxas = [ln.strip() for ln in _build.build_log().splitlines()
              if "registers" in ln or "spill" in ln or "Compiling" in ln]
     emit("build", {"seconds": build_s, "library": str(
-        _build.library_path().relative_to(ROOT)), "ptxas": ptxas})
+        _build.library_path().relative_to(ROOT)), "ptxas": ptxas,
+        "parent": None if PARENT is None else {
+            "root": args.parent,
+            "ptxas": rowwise_ab.ptxas_report(PARENT[1])}})
 
     # --- each kernel against its plain version --------------------------------
     kernels = [phase_decode_kernel(torch, dev),

@@ -1219,6 +1219,12 @@ def _ln_case(rows, hidden, dtype, wdtype, affine, dev, seed):
                                         (True, "")])
 def test_layer_norm_kernels_match_plain(cuda, rows, hidden, dtype, wdtype,
                                         rms, affine):
+    _check_ln(cuda, rows, hidden, dtype, wdtype, rms, affine)
+
+
+def _check_ln(cuda, rows, hidden, dtype, wdtype, rms, affine):
+    """Both kernels on one call against the plain version by the rules of
+    the module docstring, one launch each."""
     x, dy, w, b = _ln_case(rows, hidden, dtype, wdtype, affine, cuda,
                            seed=rows + hidden)
     f32 = lambda t: None if t is None else t.float()  # noqa: E731
@@ -1256,9 +1262,54 @@ def test_layer_norm_kernels_match_plain(cuda, rows, hidden, dtype, wdtype,
         assert ok, f"{name}: {err}"
 
 
+# every launch shape of the backward's row kernel, by dtype: (16-byte
+# chunks a thread, warps a row) -> a hidden size that takes it
+LN_BWD_SHAPES = {
+    torch.bfloat16: {(1, 1): 64, (1, 2): 384, (1, 3): 768, (1, 4): 1000,
+                     (1, 6): 1536, (1, 8): 2048, (2, 6): 3072,
+                     (2, 8): 4096},
+    torch.float32: {(1, 1): 100, (1, 2): 256, (1, 3): 384, (1, 4): 512,
+                    (1, 6): 768, (1, 8): 1024, (2, 6): 1536, (2, 8): 2048,
+                    (4, 6): 3000, (4, 8): 4096}}
+_LN_BWD_CASES = [(dtype, hidden) for dtype, shapes in LN_BWD_SHAPES.items()
+                 for hidden in shapes.values()] + [(torch.bfloat16, 1024),
+                                                   (torch.bfloat16, 33)]
+
+
+@pytest.mark.gpu
+def test_layer_norm_bwd_launch_shapes(cuda):
+    """The row kernel's shape from the hidden size: at most 16 elements a
+    thread, the fewest warps that cover the row — 768 in bf16 exactly (3
+    warps of one chunk a lane), 1024 on 4, 4096 on 8 of two chunks — and
+    as many whole rows as fit in 16 warps a CTA at one chunk a thread (8
+    warps at more)."""
+    for dtype, shapes in LN_BWD_SHAPES.items():
+        for shape, hidden in shapes.items():
+            c, w, threads = lnmod.bwd_launch_shape(hidden, dtype)
+            assert (c, w) == shape, (dtype, hidden)
+            cta_warps = 16 if c == 1 else 8
+            assert threads == 32 * w * max(1, cta_warps // w)
+    assert lnmod.bwd_launch_shape(1024, torch.bfloat16)[:2] == (1, 4)
+    assert lnmod.bwd_launch_shape(33, torch.bfloat16)[:2] == (1, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,hidden", _LN_BWD_CASES,
+                         ids=[f"{str(d)[6:]}-{h}" for d, h in _LN_BWD_CASES])
+@pytest.mark.parametrize("rms,affine", [(False, "wb"), (True, "w"),
+                                        (False, ""), (True, "")])
+@pytest.mark.parametrize("rows", [7, 3001])
+def test_layer_norm_bwd_every_launch_shape_matches_plain(cuda, dtype, hidden,
+                                                         rms, affine, rows):
+    """Every (chunks, warps) shape, RMSNorm and no affine, at 7 rows (one
+    row a CTA) and 3001 (12 a CTA: the cp.async ring wraps)."""
+    _check_ln(cuda, rows, hidden, dtype, dtype, rms, affine)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows,hidden", [(20480, 1024), (14592, 768),
-                                         (1000, 1000)])
+                                         (1000, 1000), (16384, 1024),
+                                         (65536, 768)])
 def test_layer_norm_param_grads_are_bit_reproducible(cuda, rows, hidden):
     x, dy, w, b = _ln_case(rows, hidden, torch.bfloat16, torch.bfloat16,
                            "wb", cuda, seed=3)
@@ -1395,6 +1446,105 @@ def test_softmax_ops_autograd_run_the_kernels(cuda):
             out.append((y.detach().float(), leaf.grad.float()))
         for a, c in zip(*out):
             assert (a - c).abs().max().item() <= 2e-2 * c.abs().max().item()
+
+
+def _check_softmax_fwd(x, mask, causal, scale=0.125):
+    """softmax_fwd with the masked entries of x poisoned (NaN): the rule
+    against the plain version (fp32: 1e-5 of the largest), masked entries
+    exactly 0 on rows with a live entry, fully masked rows uniform."""
+    shape, sk = x.shape, x.shape[-1]
+    if causal:
+        dead = ~torch.ones(shape[-2:], dtype=torch.bool,
+                           device=x.device).tril()
+    else:
+        dead = torch.broadcast_to(mask, shape)
+    x = x.masked_fill(dead, float("nan"))
+    y = smxmod.softmax_fwd_cuda(x, mask, scale, causal)
+    yp = smxmod._torch_fwd(x, mask, scale, causal)
+    yt = smxmod._torch_fwd(x.float(), mask, scale, causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all()
+    if x.dtype == torch.bfloat16:
+        ok, errs = _within_softmax_rule(y, yp, yt)
+        assert ok, f"kernel/plain errors {errs}"
+    else:
+        ok, err = _close_to_largest(y, yp, 1e-5)
+        assert ok, err
+    dead = torch.broadcast_to(dead, shape)
+    full = dead.all(-1)
+    live_rows = ~full
+    assert (y.float()[dead & live_rows[..., None]] == 0).all()
+    if full.any():
+        torch.testing.assert_close(y[full].float(),
+                                   torch.full_like(y[full].float(), 1 / sk),
+                                   rtol=1e-2, atol=0)
+    return y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 2, 114, 114), (2, 2, 64, 1024),
+                                   (1, 3, 130, 200), (1, 2, 257, 257),
+                                   (2, 1, 512, 512), (1, 1, 33, 2048),
+                                   (1, 1, 7, 60)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_softmax_fwd_causal_skip(cuda, shape, dtype):
+    """The causal forward never reads past the diagonal (those entries are
+    NaN here) and gets every row right: the first (one live entry, y 1),
+    the last, rows whose diagonal falls inside a chunk, a tail sk (114,
+    257) and sq < sk."""
+    x, _, _ = _softmax_case(shape, None, dtype, cuda, seed=shape[-1])
+    y = _check_softmax_fwd(x, None, True)
+    assert (y[..., 0, 0].float() == 1).all()
+    sq, sk = shape[-2:]
+    last = y[..., sq - 1, :].float()
+    torch.testing.assert_close(last.sum(-1), torch.ones_like(last[..., 0]),
+                               rtol=2e-2, atol=0)
+    assert (last[..., sq:] == 0).all()
+
+
+def _skip_mask(kind, shape, dev, seed):
+    """Masks (True = masked) for the forward's load skipping: "chunks",
+    a (b, 1, 1, sk) key mask with whole masked chunks in the middle and at
+    the end and one fully masked batch row; "holes", a full-shape mask
+    with interior holes and two fully masked rows; "strided", a key mask
+    read through a key stride of 2; "tril", T5's (1, 1, sq, sk) triangle
+    whose rows start unaligned."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, h, sq, sk = shape
+    if kind == "chunks":
+        keys = torch.arange(sk, device=dev)
+        m = (keys >= sk * 3 // 4) | ((keys >= 64) & (keys < 192))
+        m = m[None].repeat(b, 1)
+        m[1] = True
+        return m[:, None, None, :]
+    if kind == "holes":
+        m = torch.rand(shape, generator=g, device=dev) < 0.5
+        m[0, 0, 1] = True
+        m[-1, -1, -1] = True
+        return m
+    if kind == "strided":
+        wide = torch.rand((b, 1, 1, 2 * sk), generator=g, device=dev) < 0.4
+        wide[0, ..., :2 * sk // 3] = True
+        return wide[..., ::2]
+    return ~torch.ones((sq, sk), dtype=torch.bool,
+                       device=dev).tril()[None, None]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,shape", [
+    ("chunks", (4, 2, 16, 512)), ("chunks", (3, 2, 8, 1024)),
+    ("chunks", (3, 2, 8, 114)), ("chunks", (3, 1, 5, 114)),
+    ("holes", (2, 3, 16, 512)),
+    ("holes", (2, 2, 9, 200)), ("strided", (3, 2, 8, 512)),
+    ("tril", (2, 3, 114, 114))])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_softmax_fwd_mask_skip(cuda, kind, shape, dtype):
+    """The masked forward never reads a masked entry's x (NaN here): whole
+    masked chunks, interior holes, fully masked rows (uniform), a strided
+    key mask and unaligned mask rows."""
+    x, _, _ = _softmax_case(shape, None, dtype, cuda, seed=shape[-1] + 1)
+    mask = _skip_mask(kind, shape, cuda, seed=shape[-1])
+    _check_softmax_fwd(x, mask, False)
 
 
 @pytest.mark.gpu

@@ -178,6 +178,17 @@ def test_module_defaults_to_the_card(monkeypatch):
         tln.FusedRMSNorm(16)
 
 
+def test_bwd_strided_rows_cover_each_row_once():
+    """With ``ctas = ceil(rows / per)`` CTAs, CTA c owns rows c, c + ctas,
+    ... (``per`` of them): every row is owned by exactly one CTA."""
+    for rows in (1, 3, 4, 5, 7, 1000, 3001, 16384, 20480, 14592):
+        per = tln.bwd_rows_per_cta(rows)
+        ctas = -(-rows // per)
+        owned = [c + k * ctas for c in range(ctas) for k in range(per)
+                 if c + k * ctas < rows]
+        assert sorted(owned) == list(range(rows))
+
+
 def test_bwd_row_blocks_depend_on_rows_alone():
     """The backward's dgamma/dbeta summation order: a fixed row block per
     CTA, at most BWD_MAX_CTAS blocks, covering every row."""
