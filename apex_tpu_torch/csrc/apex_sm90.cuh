@@ -3,9 +3,11 @@
 // barriers, the wgmma shared-memory descriptor and the bf16 wgmma with fp32
 // accumulators (m64n128k16 and m64n64k16 with both operands in shared
 // memory, with and without the accumulator's input; m64n64k16 and
-// m64n128k16 with A in registers), and setmaxnreg.
-// The GEMM (matmul_bias_act.cu) and the flash backward
-// (flash_attn_bwd.cu) use them.
+// m64n128k16 with A in registers), setmaxnreg, and 1-D bulk copies,
+// cluster ranks and barriers and distributed shared-memory stores and
+// mbarrier arrivals.
+// The GEMM (matmul_bias_act.cu), the flash kernels and the decode
+// attention (paged_decode_attn.cu) use them.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle and
 // read by wgmma through a descriptor of the same swizzle, so neither side
@@ -276,6 +278,85 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
 
 __device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// --- device: 1-D bulk copies and thread-block clusters ---------------------
+
+// `bytes` (a multiple of 16) from global memory at src into shared memory
+// at dst, both 16-byte aligned, by the bulk-copy engine (no tensor map);
+// completion counted on `bar` in bytes
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// this CTA's rank in its cluster (0 without a cluster launch)
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the cluster barrier, split: every thread of every CTA of the cluster
+// arrives, later waits (acquire) until all have arrived; every thread of a
+// warp executes both. The arrive is relaxed: it orders none of the
+// thread's memory operations, so it waits for none of them (an mbarrier's
+// initialisation reaches the cluster by fence_barrier_init instead)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the shared::cluster address, in the CTA of rank `rank`, of what sits at
+// shared address `addr` in this CTA (distributed shared memory)
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr,
+                                                uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// 16 bytes into another CTA's shared memory (an address of cluster_map)
+__device__ __forceinline__ void st_cluster_v4(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// arrive on another CTA's mbarrier (an address of cluster_map), releasing
+// at cluster scope what this thread wrote and saw before
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          bar)
+      : "memory");
+}
+
+// mbar_wait with an acquire at cluster scope: what the arrivals of other
+// CTAs released (their writes into this CTA's shared memory) is seen after
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
 // --- device: wgmma --------------------------------------------------------

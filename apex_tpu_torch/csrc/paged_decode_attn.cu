@@ -7,14 +7,13 @@
 //   pool (num_blocks, h_kv, bs, d) is shared by every slot; block_tables
 //   (b, nb) names slot i's j-th logical block; lengths (b,) counts live
 //   rows per slot.
-// * contiguous (apex_decode_attn): replaces ::decode_attn_fwd (:156-200),
+// * contiguous (apex_decode_attn): replaces ::decode_attn_fwd (:149-200),
 //   the decode engine's cache. k and v are (rows, max_s, d) with rows =
-//   b*h_kv, a free view of the (b, h_kv, max_s, d) cache; lengths (rows,)
-//   is the per-batch length repeated over kv heads (as at
-//   apex_tpu/ops/decode_attention.py:193). Block j of row r is rows
-//   [j*128, j*128 + 128) of that row: the table lookup becomes r*nb + j.
-// Both share the kernel body _decode_kernel (:56-146). Output
-// (rows, group, d) in q's dtype.
+//   b*h_kv, a free view of the (b, h_kv, max_s, d) cache; lengths (b,) is
+//   read at row / h_kv, as the paged kernel reads it. Block j of row r is
+//   rows [j*128, j*128 + 128) of that row: the table lookup becomes
+//   r*nb + j.
+// Output (rows, group, d) in q's dtype.
 //
 // Bound on this card: HBM bytes. Every live K/V row is read once and each
 // row costs 4*group*d operations against 2*2*d bytes (bf16), far below the
@@ -22,190 +21,282 @@
 // At the serving slice's shapes (8 slots x 512 live rows x 8 kv heads x d
 // 128, bf16) one layer reads 2*8*512*8*128*2 B = 16.8 MB: ~5 us at
 // 3.35 TB/s; at the decode engine's (16 x 8 rows, ~640 live) 42 MB, ~12 us.
+// Those rows alone (64 and 128, one CTA each) would leave SMs idle, each
+// CTA walking its blocks in turn with little in flight.
 //
-// Design, simple and right first:
-// * one CTA (128 threads) per row. The CTA loops over ceil(len / bs)
-//   blocks only: the Pallas grid's `j*bk < kvlen` skip (:99) becomes the
-//   loop bound, and within the last block only the live rows are loaded,
-//   scored and summed — columns >= len take no part, which is exactly the
-//   reference's -1e30 mask (:124): exp(-1e30 - m) is 0 in fp32.
-// * a block's live K and V rows are staged in shared memory (128 x 128
-//   bf16 = 32 KB each) by cp.async 16-byte copies, all in flight at once:
-//   V's copy overlaps the scores, and the next block's K copy overlaps this
-//   block's softmax and PV product.
-// * thread r scores row r of the block (bs <= 128) for the G query heads
-//   of the kv group, reading K and q from shared memory in a rotated order
-//   that keeps a warp's 32 reads in 32 banks. G is a template parameter
-//   (1, 2, 4, 8, 16): loops over a runtime group count, guarded for up to
-//   16 heads, took most of the first version's time.
-// * the online softmax runs in fp32 with m starting at -1e30 and an fp32
-//   accumulator; the block's max and sum are block-wide reductions, and
-//   every thread keeps the running m and l. p is rounded to V's dtype
-//   before the PV product (:137), l sums the unrounded p, and the output
-//   divides by max(l, 1e-30), so a length-0 row comes out as zeros (:145).
-// Known weakness, left for a later change: one CTA per row (64 paged rows
-// at the serving slice's shapes, 128 contiguous rows at the decode
-// engine's) on 132 SMs, each walking its blocks in turn. Split-K over the
-// blocks (flash-decoding) is the fix.
+// Design (the host's plan, ops/decode_attention.py::_decode_plan, picks
+// the split S, the ring's tiles and the shared memory from the shapes):
+// * each row's kv walk is split over a thread-block cluster of S CTAs
+//   (S in 1, 2, 4, 8; grid rows * S, cluster (S, 1, 1)). The CTA of rank r
+//   walks the row's live blocks r, r + S, r + 2S, ...: a strided share
+//   balances any live prefix. Blocks past the row's length are never
+//   loaded (the Pallas grid's `j*bk < kvlen` skip), and within the last
+//   block only the live rows are loaded, scored and summed — the
+//   reference's -1e30 mask (:124).
+// * whole blocks come in by the bulk-copy engine: at (pool block, kv
+//   head) a block's live rows are one contiguous run of live * d elements,
+//   so one thread issues one 1-D cp.async.bulk for a K block and one for a
+//   V block, completing on an mbarrier. A ring of `tiles` slots (each one
+//   K or one V block, K and V alternating) keeps the CTA's next loads in
+//   flight while it computes: the slot freed by a block's scores (K) or by
+//   the previous block's PV product (V) is refilled at the next block
+//   barrier. The CTA's first loads leave before anything else: their table
+//   entries are read beside the length.
+// * 256 threads (8 warps, so that the SM has warps to switch between while
+//   a block's loads land). Scores: 8 lanes share a row, each taking 16-byte
+//   chunks c, c + 8, ... of K and q (kept in q's dtype), so a quarter-warp
+//   reads one row's 128 contiguous bytes (no bank conflict) and q stays in
+//   registers across the rows; three xor-shuffles add the lanes' parts.
+//   The softmax then takes one thread a row, and the PV product gives each
+//   thread 16 bytes of a V row's columns and every (threads / (d / 16-byte
+//   chunks))-th row. At G = 1 a tensor-core tile would be 1/64 full, so
+//   both products stay on the CUDA cores in fp32. G (1, 2, 4, 8, 16) is a
+//   template parameter.
+// * the online softmax runs in fp32 from m = -1e30; p is rounded to V's
+//   dtype before the PV product (:137) and l sums the unrounded p. After
+//   the walk each CTA sums its warps' PV parts in warp order into its state
+//   (acc[G][d], m, l). Rank r > 0 stores its state into rank 0's shared
+//   memory (distributed shared memory), each warp then arrives on rank 0's
+//   merge mbarrier with release semantics, and the CTA exits; rank 0 waits
+//   on it, rescales every state by exp(m_r - max m), sums them in rank
+//   order and writes acc / max(l, 1e-30) — a length-0 row, or a split with
+//   no live block (m = -1e30, l = 0), contributes zeros (:145). A cluster
+//   barrier arrived at the start and waited on before the stores makes sure
+//   rank 0's barrier is set up first. No workspace, no atomics, no second
+//   launch: the merge order is fixed, so the output is the same bits from
+//   run to run. Every CTA, whatever its share of the walk, arrives.
 #include <cstdint>
 
 #include "apex_cuda.cuh"
+#include "apex_sm90.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+namespace sm90 = apex::sm90;
+
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxRows = 128;  // a block's rows at most: one a softmax thread
+constexpr int kMaxTiles = 4;
+constexpr int kMaxSmem = 232448;  // a CTA's most on sm_90 (227 KB)
 constexpr float kNegInf = -1e30f;
 
-// 16-byte global -> shared copy that bypasses registers and L1
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
+__host__ __device__ constexpr size_t round_up(size_t x, size_t m) {
+  return (x + m - 1) / m * m;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
+// Byte offsets of a CTA's dynamic shared memory; the host's plan
+// (decode_smem in ops/decode_attention.py) computes the same total:
+//   ring    tiles slots of bs x d elements; after the walk the warps' PV
+//           sums (warps x G x d fp32) overlay it
+//   q       G x d elements (q's dtype)
+//   s       2 (parity) x G x bs fp32: a block's scores, then its p
+//   red     the per-warp maxima and sums, 2 x warps x G fp32
+//   state   splits slots of (acc G x d, m G, l G) fp32: the CTA's own in
+//           slot 0; at rank 0, rank r's in slot r
+//   bars    tiles ring mbarriers, then the merge mbarrier
+struct Layout {
+  size_t q, s, red, state, state_bytes, bars, total;
+  __host__ __device__ Layout(int elem, int d, int group, int bs, int tiles,
+                             int splits) {
+    const size_t ring = static_cast<size_t>(tiles) * bs * d * elem;
+    const size_t parts = static_cast<size_t>(kWarps) * group * d * 4;
+    q = round_up(ring > parts ? ring : parts, 128);
+    s = q + round_up(static_cast<size_t>(group) * d * elem, 16);
+    red = s + round_up(2 * static_cast<size_t>(group) * bs * 4, 16);
+    state = red + round_up(2 * kWarps * static_cast<size_t>(group) * 4, 16);
+    state_bytes = round_up((static_cast<size_t>(group) * d + 2 * group) * 4,
+                           16);
+    bars = state + splits * state_bytes;
+    total = bars + (static_cast<size_t>(tiles) + 1) * 8;
+  }
+};
 
-// wait until at most N of this thread's copy groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// stage the first `live` rows of pool row `prow` (bs x D elements) into dst
-template <typename T, int D>
-__device__ __forceinline__ void stage_rows(T* dst, const T* pool,
-                                           size_t prow, int bs, int live) {
-  constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte copy
-  const T* src = pool + prow * bs * D;
-  const int nvec = live * D / kVec;
-  for (int i = threadIdx.x; i < nvec; i += kThreads)
-    cp_async_16(dst + i * kVec, src + i * kVec);
-  cp_async_commit();
-}
-
-// q.k for one K row held in shared memory, G query heads at once; row r
-// starts its walk at word r so a warp's reads fall in 32 distinct banks
-template <int D, int G>
-__device__ __forceinline__ void row_scores(const __nv_bfloat16* krow,
-                                           const float* q_s, int r,
-                                           float (&s)[G]) {
-  const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(krow);
-#pragma unroll 8
-  for (int i = 0; i < D / 2; ++i) {
-    const int w = (i + r) & (D / 2 - 1);
-    const float2 k = __bfloat1622float2(k2[w]);
+// the 16-byte vector v as floats: 8 bf16 or 4 fp32
+__device__ __forceinline__ void unpack(const uint4& v, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float2 qv = *reinterpret_cast<const float2*>(q_s + g * D + 2 * w);
-      s[g] += qv.x * k.x + qv.y * k.y;
-    }
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
   }
 }
 
-template <int D, int G>
-__device__ __forceinline__ void row_scores(const float* krow,
-                                           const float* q_s, int r,
-                                           float (&s)[G]) {
-#pragma unroll 8
-  for (int i = 0; i < D; ++i) {
-    const int w = (i + r) & (D - 1);
-    const float k = krow[w];
-#pragma unroll
-    for (int g = 0; g < G; ++g) s[g] += q_s[g * D + w] * k;
-  }
-}
-
-size_t smem_bytes(size_t elem, int d, int bs, int group) {
-  const int split = kThreads / d;
-  return 2 * static_cast<size_t>(bs) * d * elem  // K and V tiles
-         + sizeof(float) *
-               (static_cast<size_t>(group) * d     // q
-                + static_cast<size_t>(group) * bs  // p
-                + 2 * kWarps * group               // per-warp max and sum
-                + static_cast<size_t>(split - 1) * group * d);  // PV parts
+__device__ __forceinline__ void unpack(const uint4& v, float (&f)[4]) {
+  f[0] = __uint_as_float(v.x);
+  f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z);
+  f[3] = __uint_as_float(v.w);
 }
 
 // kPaged: block j of row `row` is pool row table[slot, j] * h_kv + kv head;
-// otherwise (h_kv == 1, tables unused) it is block j of the row's own
-// contiguous max_s strip, row * nb + j
+// otherwise (tables unused) it is block j of the row's own contiguous max_s
+// strip, row * nb + j
 template <typename T, int D, int G, bool kPaged>
 __global__ void __launch_bounds__(kThreads)
     decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                        const T* __restrict__ v_pool,
-                        const int* __restrict__ tables,
-                        const int* __restrict__ lengths, T* __restrict__ out,
-                        int h_kv, int bs, int nb, float scale) {
-  constexpr int kSplit = kThreads / D;  // row subsets of the PV product
+                  const T* __restrict__ v_pool,
+                  const int* __restrict__ tables,
+                  const int* __restrict__ lengths, T* __restrict__ out,
+                  int h_kv, int bs, int nb, int splits, int tiles,
+                  float scale) {
+  constexpr int kVec = 16 / sizeof(T);        // elements in 16 bytes
+  constexpr int kChunks = D / kVec;           // 16-byte chunks a row
+  constexpr int kLaneChunks = kChunks / 8;    // a score lane's chunks
+  constexpr int kParts = kThreads / kChunks;  // row subsets of the PV
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* k_s = reinterpret_cast<T*>(smem);
-  T* v_s = k_s + static_cast<size_t>(bs) * D;
-  float* q_s = reinterpret_cast<float*>(v_s + static_cast<size_t>(bs) * D);
-  float* p_s = q_s + G * D;
-  float* red_max = p_s + G * bs;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout lay(sizeof(T), D, G, bs, tiles, splits);
+  T* ring = reinterpret_cast<T*>(smem);
+  float* part_s = reinterpret_cast<float*>(smem);  // after the walk
+  const T* q_s = reinterpret_cast<const T*>(smem + lay.q);
+  float* s_s = reinterpret_cast<float*>(smem + lay.s);
+  float* red_max = reinterpret_cast<float*>(smem + lay.red);
   float* red_sum = red_max + kWarps * G;
-  float* part_s = red_sum + kWarps * G;
+  float* state = reinterpret_cast<float*>(smem + lay.state);
+  const uint32_t bar0 = sm90::smem_u32(smem + lay.bars);
+  const uint32_t merge_bar = bar0 + 8 * tiles;
 
-  const int row = blockIdx.x;  // slot * h_kv + kv head
+  const int rank = static_cast<int>(sm90::cluster_ctarank());
+  const int row = blockIdx.x / splits;  // slot * h_kv + kv head
   const int slot = row / h_kv;
   const int kvh = row - slot * h_kv;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int col = tid % D;
-  const int part = tid / D;
+  const int srow = tid >> 3;     // scores: rows srow, srow + 32, ...
+  const int sc = tid & 7;        // ... chunks sc, sc + 8, ... of each
+  const int cg = tid % kChunks;  // PV: columns [cg*kVec, +kVec) ...
+  const int part = tid / kChunks;  // ... of rows part, part + kParts, ...
   // a length past the row's nb blocks means every row of them is live
-  const int len = min(lengths[slot], nb * bs);
+  const int len = max(0, min(lengths[slot], nb * bs));
+  const int nblk = (len + bs - 1) / bs;
+  const int mine = nblk > rank ? (nblk - rank + splits - 1) / splits : 0;
+  const int ntiles = 2 * mine;  // K and V of each of this split's blocks
 
-  for (int i = tid; i < G * D; i += kThreads)
-    q_s[i] = apex::to_float(q[static_cast<size_t>(row) * G * D + i]);
+  const int* trow = kPaged ? tables + static_cast<size_t>(slot) * nb : tables;
+  // tile t: the K (t even) or V (t odd) block of this split's block t / 2,
+  // j = rank + (t / 2) * splits; `id` its table entry (paged)
+  auto table_id = [&](int t) {
+    return kPaged ? trow[rank + (t >> 1) * splits] : 0;
+  };
+  auto tile_src = [&](int t, int id) {
+    const int j = rank + (t >> 1) * splits;
+    const size_t prow = kPaged ? static_cast<size_t>(id) * h_kv + kvh
+                               : static_cast<size_t>(row) * nb + j;
+    return ((t & 1) ? v_pool : k_pool) + prow * bs * D;
+  };
+  auto issue = [&](int t, const T* src) {
+    const int live = min(bs, len - (rank + (t >> 1) * splits) * bs);
+    const uint32_t bytes = static_cast<uint32_t>(live * D * sizeof(T));
+    const int s = t % tiles;
+    sm90::mbar_expect_tx(bar0 + 8 * s, bytes);
+    sm90::bulk_load(sm90::smem_u32(ring + static_cast<size_t>(s) * bs * D),
+                    src, bytes, bar0 + 8 * s);
+  };
+
+  // warp 0 starts the first `tiles` loads, one lane a tile: each lane's
+  // table entry is read beside the length (within the row's nb entries,
+  // whether live or not), the barriers are set up meanwhile. The cluster
+  // barrier's arrive follows the barriers' setup (published to the cluster
+  // by the fence), its wait comes after the walk: no peer reaches rank 0's
+  // merge barrier before it is set up
+  if (warp == 0) {
+    const bool first = lane < tiles && rank + (lane >> 1) * splits < nb;
+    const int id = first ? table_id(lane) : 0;
+    if (lane == 0) {
+      for (int s = 0; s < tiles; ++s) sm90::mbar_init(bar0 + 8 * s, 1);
+      sm90::mbar_init(merge_bar, max(1, (splits - 1) * kWarps));
+      sm90::fence_barrier_init();
+    }
+    __syncwarp();
+    if (splits > 1) sm90::cluster_arrive_relaxed();
+    if (lane < min(tiles, ntiles)) issue(lane, tile_src(lane, id));
+  } else if (splits > 1) {
+    sm90::cluster_arrive_relaxed();
+  }
+  {  // q, read beside the length (a CTA with no block reads it unused)
+    T* qw = reinterpret_cast<T*>(smem + lay.q);
+    for (int i = tid; i < G * D; i += kThreads)
+      qw[i] = q[static_cast<size_t>(row) * G * D + i];
+  }
+  __syncthreads();  // q_s and the ring's barriers
+
   // the running softmax state, identical in every thread
-  float m_run[G], l_run[G], acc[G];
+  float m_run[G], l_run[G], acc[G][kVec];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m_run[g] = kNegInf;
     l_run[g] = 0.f;
-    acc[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[g][e] = 0.f;
   }
 
-  const int nblk = (len + bs - 1) / bs;
-  const int* trow = kPaged ? tables + static_cast<size_t>(slot) * nb : tables;
-  auto pool_row = [&](int j) {
-    return kPaged ? static_cast<size_t>(trow[j]) * h_kv + kvh
-                  : static_cast<size_t>(row) * nb + j;
-  };
-  if (nblk > 0) stage_rows<T, D>(k_s, k_pool, pool_row(0), bs, min(bs, len));
-  for (int j = 0; j < nblk; ++j) {
-    const int live = min(bs, len - j * bs);
-    stage_rows<T, D>(v_s, v_pool, pool_row(j), bs, live);
-    cp_async_wait<1>();  // this block's K has landed; V may be in flight
-    __syncthreads();     // ... for every thread's copies (and q_s)
+  for (int i = 0; i < mine; ++i) {
+    const int live = min(bs, len - (rank + i * splits) * bs);
+    float* sb = s_s + (i & 1) * G * bs;  // parity: PV reads the last one
+    // the two refills at this block's barrier: the slots of the previous
+    // block's V (tile 2i - 1) and of this block's K (tile 2i); lanes 0 and
+    // 1 of warp 0 read their table entries now, ahead of the wait
+    const int refill = 2 * i - 1 + lane + tiles;
+    const bool refills = warp == 0 && lane < 2 && 2 * i - 1 + lane >= 0 &&
+                         refill < ntiles;
+    const T* refill_src =
+        refills ? tile_src(refill, table_id(refill)) : nullptr;
 
-    // scores in fp32: thread tid scores row tid of the block
-    float s[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) s[g] = 0.f;
-    const bool mine = tid < live;
-    if (mine) row_scores<D, G>(k_s + tid * D, q_s, tid, s);
+    // scores in fp32, 8 lanes a row, the lanes' parts added by xor-shuffles
+    // (every lane ends with the row's same sum)
+    const int k_slot = (2 * i) % tiles;
+    sm90::mbar_wait(bar0 + 8 * k_slot, ((2 * i) / tiles) & 1);
+    const T* kt = ring + static_cast<size_t>(k_slot) * bs * D;
+    const int row_steps = (live + 31) >> 5;
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      s[g] = mine ? s[g] * scale : kNegInf;
-      const float mx = apex::warp_max(s[g]);
+      float qf[kLaneChunks][kVec];
+      const uint4* qv = reinterpret_cast<const uint4*>(q_s + g * D);
+#pragma unroll
+      for (int c = 0; c < kLaneChunks; ++c) unpack(qv[sc + 8 * c], qf[c]);
+      float mx = kNegInf;
+#pragma unroll 4
+      for (int k = 0; k < row_steps; ++k) {
+        const int r = srow + 32 * k;
+        // a row past the live ones reads the last live row, then is dropped
+        const uint4* kr = reinterpret_cast<const uint4*>(
+            kt + static_cast<size_t>(min(r, live - 1)) * D);
+        float t0 = 0.f, t1 = 0.f;
+#pragma unroll
+        for (int c = 0; c < kLaneChunks; ++c) {
+          float kf[kVec];
+          unpack(kr[sc + 8 * c], kf);
+#pragma unroll
+          for (int e = 0; e < kVec; e += 2) {
+            t0 += qf[c][e] * kf[e];
+            t1 += qf[c][e + 1] * kf[e + 1];
+          }
+        }
+        float dot = t0 + t1;
+        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+        dot += __shfl_xor_sync(0xffffffffu, dot, 4);
+        if (r < live) {
+          dot *= scale;
+          mx = fmaxf(mx, dot);
+          if (sc == 0) sb[g * bs + r] = dot;
+        }
+      }
+      mx = apex::warp_max(mx);
       if (lane == 0) red_max[warp * G + g] = mx;
     }
-    __syncthreads();  // per-warp maxima published; the K tile is free
-    const bool more = j + 1 < nblk;
-    if (more)
-      stage_rows<T, D>(k_s, k_pool, pool_row(j + 1), bs,
-                       min(bs, len - (j + 1) * bs));
+    __syncthreads();  // scores and maxima published; the K slot and the
+                      // last V slot are read by every thread
+    if (refills) issue(refill, refill_src);
 
-    // online softmax: the block's max, p = exp(s - m_new) (p rounded to
-    // V's dtype for the PV product), the block's sum of the unrounded p
+    // online softmax, one thread a row: the block's max, p = exp(s - m_new)
+    // (rounded to V's dtype for the PV product, over the score), the
+    // block's sum of the unrounded p
     float alpha[G];
+    const bool mine_row = tid < live;
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       float mx = red_max[g];
@@ -214,152 +305,282 @@ __global__ void __launch_bounds__(kThreads)
       const float m_new = fmaxf(m_run[g], mx);
       alpha[g] = expf(m_run[g] - m_new);
       m_run[g] = m_new;
-      const float p = mine ? expf(s[g] - m_new) : 0.f;
+      const float p = mine_row ? expf(sb[g * bs + tid] - m_new) : 0.f;
       const float ps = apex::warp_sum(p);
       if (lane == 0) red_sum[warp * G + g] = ps;
-      if (mine) p_s[g * bs + tid] = apex::to_float(apex::from_float<T>(p));
+      if (mine_row) sb[g * bs + tid] = apex::to_float(apex::from_float<T>(p));
     }
-    if (more)
-      cp_async_wait<1>();  // V has landed; the next K may be in flight
-    else
-      cp_async_wait<0>();
-    __syncthreads();
+    const int v_slot = (2 * i + 1) % tiles;
+    sm90::mbar_wait(bar0 + 8 * v_slot, ((2 * i + 1) / tiles) & 1);
+    __syncthreads();  // p and the sums published
 
-    // PV: thread (part, col) owns output column col for rows
-    // part, part + kSplit, ... of the block
+    // PV: thread (part, cg) owns columns [cg*kVec, +kVec) for rows part,
+    // part + kParts, ... of the block
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       float ps = red_sum[g];
 #pragma unroll
       for (int w = 1; w < kWarps; ++w) ps += red_sum[w * G + g];
       l_run[g] = l_run[g] * alpha[g] + ps;
-      acc[g] *= alpha[g];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) acc[g][e] *= alpha[g];
     }
+    const uint4* vt = reinterpret_cast<const uint4*>(
+        ring + static_cast<size_t>(v_slot) * bs * D);
 #pragma unroll 4
-    for (int r = part; r < live; r += kSplit) {
-      const float v = apex::to_float(v_s[r * D + col]);
+    for (int r = part; r < live; r += kParts) {
+      float vf[kVec];
+      unpack(vt[r * kChunks + cg], vf);
 #pragma unroll
-      for (int g = 0; g < G; ++g) acc[g] += p_s[g * bs + r] * v;
-    }
-    __syncthreads();  // the next block overwrites v_s, p_s and red_*
-  }
-
-  if (kSplit > 1) {
-    if (part > 0) {
+      for (int g = 0; g < G; ++g) {
+        const float p = sb[g * bs + r];
 #pragma unroll
-      for (int g = 0; g < G; ++g)
-        part_s[((part - 1) * G + g) * D + col] = acc[g];
-    }
-    __syncthreads();
-    if (part == 0) {
-      for (int p = 1; p < kSplit; ++p) {
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-          acc[g] += part_s[((p - 1) * G + g) * D + col];
+        for (int e = 0; e < kVec; ++e) acc[g][e] += p * vf[e];
       }
     }
+    // the next block's barrier orders these reads before any refill of
+    // this V slot or rewrite of these scores' parity buffer
   }
-  if (part == 0) {
+
+  // the CTA's state: each warp's lanes of one column group summed by
+  // xor-shuffles, then the warps' sums in warp order, over the ring (every
+  // issued tile has been waited on, so no copy is still landing)
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+#pragma unroll
+      for (int o = kChunks; o < 32; o <<= 1)
+        acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+    }
+  }
+  __syncthreads();
+  if (lane < kChunks) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      out[(static_cast<size_t>(row) * G + g) * D + col] =
-          apex::from_float<T>(acc[g] / fmaxf(l_run[g], 1e-30f));
+      float4* dst = reinterpret_cast<float4*>(
+          part_s + (static_cast<size_t>(warp) * G + g) * D + cg * kVec);
+#pragma unroll
+      for (int e = 0; e < kVec; e += 4)
+        dst[e / 4] = make_float4(acc[g][e], acc[g][e + 1], acc[g][e + 2],
+                                 acc[g][e + 3]);
     }
+  }
+  __syncthreads();
+  for (int i = tid; i < G * D; i += kThreads) {
+    float a = part_s[i];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) a += part_s[w * G * D + i];
+    state[i] = a;
+  }
+  if (tid == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      state[G * D + g] = m_run[g];
+      state[G * D + G + g] = l_run[g];
+    }
+  }
+  __syncthreads();
+
+  const size_t slot_floats = lay.state_bytes / 4;
+  if (splits > 1) {
+    sm90::cluster_wait();  // every CTA of the cluster has started
+    if (rank > 0) {
+      // into rank 0's slot `rank`, then each warp arrives on its barrier
+      const uint32_t dst = sm90::cluster_map(
+          sm90::smem_u32(state + rank * slot_floats), 0);
+      for (int i = tid; i < static_cast<int>(slot_floats / 4);
+           i += kThreads)
+        sm90::st_cluster_v4(dst + 16 * i,
+                            reinterpret_cast<const float4*>(state)[i]);
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive_cluster(sm90::cluster_map(merge_bar, 0));
+      return;  // nothing reads this CTA's shared memory
+    }
+    sm90::mbar_wait_cluster(merge_bar, 0);
+  }
+  // rank 0 merges the states in rank order
+  for (int i = tid; i < G * D; i += kThreads) {
+    const int g = i / D;
+    float mx = kNegInf;
+    for (int r = 0; r < splits; ++r)
+      mx = fmaxf(mx, state[r * slot_floats + G * D + g]);
+    float l = 0.f, a = 0.f;
+    for (int r = 0; r < splits; ++r) {
+      const float* st = state + r * slot_floats;
+      const float w = expf(st[G * D + g] - mx);
+      l += w * st[G * D + G + g];
+      a += w * st[i];
+    }
+    out[static_cast<size_t>(row) * G * D + i] =
+        apex::from_float<T>(a / fmaxf(l, 1e-30f));
   }
 }
 
+template <typename T>
+using KernelFn = void (*)(const T*, const T*, const T*, const int*,
+                          const int*, T*, int, int, int, int, int, float);
+
+template <typename T>
+struct Kernel {
+  KernelFn<T> fn;
+  cudaError_t ready;  // raising the dynamic shared-memory ceiling
+};
+
+// one instance, its shared-memory ceiling raised once
 template <typename T, int D, int G, bool kPaged>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* tables, const void* lengths, void* out,
-                   int rows, int h_kv, int bs, int nb, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes(sizeof(T), D, bs, G);
-  cudaError_t err = cudaFuncSetAttribute(
+Kernel<T> instance() {
+  static const cudaError_t ready = cudaFuncSetAttribute(
       decode_kernel<T, D, G, kPaged>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  decode_kernel<T, D, G, kPaged><<<rows, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(tables),
-      static_cast<const int*>(lengths), static_cast<T*>(out), h_kv, bs, nb,
-      scale);
-  return cudaGetLastError();
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  return {decode_kernel<T, D, G, kPaged>, ready};
 }
 
 template <typename T, int D, bool kPaged>
-cudaError_t launch_group(int group, const void* q, const void* k,
-                         const void* v, const void* tables,
-                         const void* lengths, void* out, int rows, int h_kv,
-                         int bs, int nb, float scale, cudaStream_t stream) {
-#define APEX_GROUP_CASE(G)                                                  \
-  case G:                                                                   \
-    return launch<T, D, G, kPaged>(q, k, v, tables, lengths, out, rows,     \
-                                   h_kv, bs, nb, scale, stream);
+Kernel<T> instance_of_group(int group) {
   switch (group) {
-    APEX_GROUP_CASE(1)
-    APEX_GROUP_CASE(2)
-    APEX_GROUP_CASE(4)
-    APEX_GROUP_CASE(8)
-    APEX_GROUP_CASE(16)
+    case 1:
+      return instance<T, D, 1, kPaged>();
+    case 2:
+      return instance<T, D, 2, kPaged>();
+    case 4:
+      return instance<T, D, 4, kPaged>();
+    case 8:
+      return instance<T, D, 8, kPaged>();
+    case 16:
+      return instance<T, D, 16, kPaged>();
     default:
-      return cudaErrorInvalidValue;
+      return {nullptr, cudaErrorInvalidValue};
   }
-#undef APEX_GROUP_CASE
 }
 
-template <bool kPaged>
-int dispatch(int dtype, int d, int group, const void* q, const void* k,
-             const void* v, const void* tables, const void* lengths,
-             void* out, int rows, int h_kv, int bs, int nb, float scale,
+template <typename T>
+Kernel<T> instance_of(bool paged, int d, int group) {
+  if (d == 128)
+    return paged ? instance_of_group<T, 128, true>(group)
+                 : instance_of_group<T, 128, false>(group);
+  if (d == 64)
+    return paged ? instance_of_group<T, 64, true>(group)
+                 : instance_of_group<T, 64, false>(group);
+  return {nullptr, cudaErrorInvalidValue};
+}
+
+// grid rows * splits CTAs in clusters of (splits, 1, 1)
+struct Launch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute cluster;
+  Launch(int ctas, int splits, int smem, cudaStream_t stream) : cfg{} {
+    cfg.gridDim = dim3(ctas);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+    cfg.stream = stream;
+    cluster.id = cudaLaunchAttributeClusterDimension;
+    cluster.val.clusterDim.x = splits;
+    cluster.val.clusterDim.y = 1;
+    cluster.val.clusterDim.z = 1;
+    cfg.attrs = &cluster;
+    cfg.numAttrs = 1;
+  }
+};
+
+// what every launch checks of the plan it is given
+bool bad_plan(int dtype, int d, int group, int bs, int splits, int tiles,
+              int smem) {
+  if ((d != 64 && d != 128) ||
+      (dtype != apex::kFloat32 && dtype != apex::kBFloat16) || bs < 1 ||
+      bs > kMaxRows || tiles < 2 || tiles > kMaxTiles ||
+      (splits != 1 && splits != 2 && splits != 4 && splits != 8))
+    return true;
+  const int elem = dtype == apex::kBFloat16 ? 2 : 4;
+  return smem > kMaxSmem ||
+         static_cast<size_t>(smem) <
+             Layout(elem, d, group, bs, tiles, splits).total;
+}
+
+template <typename T>
+cudaError_t launch(bool paged, int d, int group, const void* q,
+                   const void* k, const void* v, const void* tables,
+                   const void* lengths, void* out, int rows, int h_kv,
+                   int bs, int nb, float scale, int splits, int tiles,
+                   int smem, cudaStream_t stream) {
+  const Kernel<T> kern = instance_of<T>(paged, d, group);
+  if (kern.fn == nullptr || kern.ready != cudaSuccess) return kern.ready;
+  Launch l(rows * splits, splits, smem, stream);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &l.cfg, kern.fn, static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(tables),
+      static_cast<const int*>(lengths), static_cast<T*>(out), h_kv, bs, nb,
+      splits, tiles, scale);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+int dispatch(bool paged, int dtype, int d, int group, const void* q,
+             const void* k, const void* v, const void* tables,
+             const void* lengths, void* out, int rows, int h_kv, int bs,
+             int nb, float scale, int splits, int tiles, int smem,
              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == apex::kBFloat16) {
-    err = d == 128 ? launch_group<__nv_bfloat16, 128, kPaged>(
-                         group, q, k, v, tables, lengths, out, rows, h_kv,
-                         bs, nb, scale, s)
-                   : launch_group<__nv_bfloat16, 64, kPaged>(
-                         group, q, k, v, tables, lengths, out, rows, h_kv,
-                         bs, nb, scale, s);
-  } else {
-    err = d == 128 ? launch_group<float, 128, kPaged>(
-                         group, q, k, v, tables, lengths, out, rows, h_kv,
-                         bs, nb, scale, s)
-                   : launch_group<float, 64, kPaged>(
-                         group, q, k, v, tables, lengths, out, rows, h_kv,
-                         bs, nb, scale, s);
-  }
+  const cudaError_t err =
+      dtype == apex::kBFloat16
+          ? launch<__nv_bfloat16>(paged, d, group, q, k, v, tables, lengths,
+                                  out, rows, h_kv, bs, nb, scale, splits,
+                                  tiles, smem, s)
+          : launch<float>(paged, d, group, q, k, v, tables, lengths, out,
+                          rows, h_kv, bs, nb, scale, splits, tiles, smem, s);
   return static_cast<int>(err);
 }
 
-bool bad_common(int dtype, int d) {
-  return (d != 64 && d != 128) ||
-         (dtype != apex::kFloat32 && dtype != apex::kBFloat16);
+template <typename T>
+cudaError_t max_clusters(bool paged, int d, int group, int splits, int smem,
+                         int* n) {
+  const Kernel<T> kern = instance_of<T>(paged, d, group);
+  if (kern.fn == nullptr || kern.ready != cudaSuccess) return kern.ready;
+  Launch l(splits, splits, smem, nullptr);
+  return cudaOccupancyMaxActiveClusters(n, kern.fn, &l.cfg);
 }
 
 }  // namespace
 
+// splits, tiles, smem: the host's plan (_decode_plan)
 extern "C" int apex_paged_decode_attn(const void* q, const void* k_pool,
                                       const void* v_pool, const void* tables,
                                       const void* lengths, void* out,
                                       int dtype, int b, int h_kv, int group,
                                       int d, int bs, int nb, float scale,
+                                      int splits, int tiles, int smem,
                                       void* stream) {
-  if (b < 1 || h_kv < 1 || bs < 1 || bs > kThreads || nb < 1 ||
-      bad_common(dtype, d))
+  if (b < 1 || h_kv < 1 || nb < 1 ||
+      bad_plan(dtype, d, group, bs, splits, tiles, smem))
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<true>(dtype, d, group, q, k_pool, v_pool, tables, lengths,
-                        out, b * h_kv, h_kv, bs, nb, scale, stream);
+  return dispatch(true, dtype, d, group, q, k_pool, v_pool, tables, lengths,
+                  out, b * h_kv, h_kv, bs, nb, scale, splits, tiles, smem,
+                  stream);
 }
 
-// k, v (rows, max_s, d) with max_s a multiple of 128; lengths (rows,)
+// k, v (b * h_kv, max_s, d) with max_s a multiple of 128; lengths (b,)
 extern "C" int apex_decode_attn(const void* q, const void* k, const void* v,
                                 const void* lengths, void* out, int dtype,
-                                int rows, int group, int d, int max_s,
-                                float scale, void* stream) {
-  if (rows < 1 || max_s < kThreads || max_s % kThreads ||
-      bad_common(dtype, d))
+                                int b, int h_kv, int group, int d, int max_s,
+                                float scale, int splits, int tiles, int smem,
+                                void* stream) {
+  if (b < 1 || h_kv < 1 || max_s < kMaxRows || max_s % kMaxRows ||
+      bad_plan(dtype, d, group, kMaxRows, splits, tiles, smem))
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<false>(dtype, d, group, q, k, v, nullptr, lengths, out,
-                         rows, 1, kThreads, max_s / kThreads, scale, stream);
+  return dispatch(false, dtype, d, group, q, k, v, nullptr, lengths, out,
+                  b * h_kv, h_kv, kMaxRows, max_s / kMaxRows, scale, splits,
+                  tiles, smem, stream);
+}
+
+// how many clusters of the plan's CTAs the card can hold at once
+// (cudaOccupancyMaxActiveClusters) into *n; 0 means the launch is refused
+extern "C" int apex_decode_attn_clusters(int paged, int dtype, int d,
+                                         int group, int bs, int splits,
+                                         int tiles, int smem, int* n) {
+  if (bad_plan(dtype, d, group, bs, splits, tiles, smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err =
+      dtype == apex::kBFloat16
+          ? max_clusters<__nv_bfloat16>(paged != 0, d, group, splits, smem, n)
+          : max_clusters<float>(paged != 0, d, group, splits, smem, n);
+  return static_cast<int>(err);
 }

@@ -48,9 +48,11 @@ _IP = ctypes.POINTER(ctypes.c_int)  # an array of ints written back
 # name -> argtypes of every C entry point the library exports
 ENTRY_POINTS = {
     # q, k_pool, v_pool, tables, lengths, out, dtype, b, h_kv, group, d,
-    # bs, nb, scale, stream
+    # bs, nb, scale, splits, tiles, smem, stream
     "apex_paged_decode_attn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _F, _P],
+                               _I, _I, _F, _I, _I, _I, _P],
+    # paged, dtype, d, group, bs, splits, tiles, smem, out (clusters)
+    "apex_decode_attn_clusters": [_I, _I, _I, _I, _I, _I, _I, _I, _IP],
     # logits, u, out, dtype, b, V, inv_temp, top_k, use_top_p, top_p,
     # stream
     "apex_fused_sample": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _F, _P],
@@ -87,8 +89,10 @@ ENTRY_POINTS = {
     "apex_flash_bwd_dbias": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _S,
                              _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
                              _I, _P],
-    # q, k, v, lengths, out, dtype, rows, group, d, max_s, scale, stream
-    "apex_decode_attn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, lengths (b,), out, dtype, b, h_kv, group, d, max_s, scale,
+    # splits, tiles, smem, stream
+    "apex_decode_attn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                         _I, _I, _P],
     # logits, drafted, u_acc, u_gum, a, next, dtype, b, k1, V, sampled,
     # inv_temp, top_k, stream
     "apex_fused_verify": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,

@@ -20,7 +20,14 @@ without the final line):
    with ptxas's register/shared-memory report;
 3. each kernel against its plain PyTorch version at the slices' shapes in
    bf16 — ``paged_decode_attn`` (8 slots, MHA and GQA, block 128, d 128,
-   41 blocks, permuted tables, ragged lengths with 0), ``fused_sample``
+   41 blocks, permuted tables, ragged lengths with 0; each row's walk
+   split over a cluster of S CTAs by the host's plan, which is printed
+   with the instance's registers and spills (``decode_plan``); output
+   bit-identical across two runs; timed at 8 x 512 live rows and at a
+   ragged serve-like mix, through ``decode_attention`` and the kernel
+   entry alone, the parent's kernel in turns under ``--parent``, and at
+   each split 1, 2, 4, 8 beside every length 0, ``decode_sweep``),
+   ``fused_sample``
    ((8, 32768) at T=0.8 with top-k/top-p on and off), the flash forward
    and the dK/dV and dQ backward kernels (the train step's b 20, s 1024,
    8 heads of 128, and a GQA case: b 8, s 1000, 2 kv heads) and
@@ -32,8 +39,9 @@ without the final line):
    every path's softmax call (GPT causal 20 x 8 x 1024², BERT's key mask
    32 x 16 x 512², T5's decoder triangle 114², cross 114 x 512 and
    encoder 512², fully masked rows, a 4096-long row; planted faults in
-   their outputs must fail the rule; ``ln_bwd`` timed at each train
-   path's norm call and ``softmax_fwd`` at each of the five softmax calls,
+   their outputs must fail the rule; ``ln_fwd`` timed at GPT's and the
+   decode call, ``ln_bwd`` at each train path's norm call and
+   ``softmax_fwd`` at each of the five softmax calls,
    with the row kernel's launch shape and ptxas registers and spills, and
    with ``--parent DIR`` the kernels of that checkout — a git archive of
    the parent commit — built into a library of their own and timed in
@@ -86,7 +94,11 @@ without the final line):
      at b 16, s 512, 8 heads of 128, causal, and a ragged GQA case: b 4,
      s 300, 8 heads over 2 kv heads; bit-identical to the packed kernel on
      the same views), the contiguous decode kernel (16 x 8 rows, max_s
-     1024, ragged lengths with 0 and 1024, MHA and GQA) and both verify
+     1024, ragged lengths with 0 and 1024, MHA and GQA, and the spec
+     leg's batch 1: every split the legs reach; bit-identical across two
+     runs; timed at 640 and 513 live rows through ``decode_attention``
+     and the entry alone, the parent's in turns, and at each split) and
+     both verify
      kernels (greedy and sampled, (1, 5, V), (1, 9, V) and batch 4, with
      forced ties) against their plain versions, with times, bounds and
      library times as above;
@@ -288,8 +300,8 @@ T5 = dict(vocab_size=32128, max_seq_len=512, hidden_size=768,
 T5_BATCH, T5_ENC, T5_DEC, T5_STEPS = 128, 512, 114, 10
 T5_PAD_MIN = 256        # padded batches: encoder lengths in [256, 512]
 T5_DTABLE_TOL = 1e-3    # bucket-table gradient: relative norm error
-# ``--parent DIR``: that checkout's ln_bwd and softmax_fwd kernels, built
-# into a library of their own, (library, ptxas log); None without it
+# ``--parent DIR``: that checkout's ln_bwd, softmax_fwd and decode kernels,
+# built into a library of their own, (library, ptxas log); None without it
 PARENT = None
 # registers and spills of every kernel of this run's build, by name
 PTXAS = {}
@@ -359,66 +371,159 @@ def decode_case(torch, dev, h_kv, lengths, seed, copies=1):
     return sets
 
 
+def decode_plan_info(torch, q3, nb, bs, paged):
+    """The split plan of a decode call on q (rows, group, d): S (the
+    cluster's size), the ring's tiles, the CTAs, the shared memory, how
+    many such clusters the card holds at once, and the instance's
+    registers and spills (ptxas)."""
+    from apex_tpu_torch.ops import decode_attention as D
+
+    rows, group, d = q3.shape
+    plan = D._plan_for(q3, nb, bs)
+    clusters = D.max_active_clusters(plan, q3.dtype, d, group, bs, paged)
+    check(clusters >= 1, f"the card holds no cluster of the decode plan "
+          f"{plan}")
+    dtype = "__nv_bfloat16" if q3.dtype == torch.bfloat16 else "float"
+    return {"rows": rows, "group": group, "blocks": nb, "block_rows": bs,
+            "splits": plan.splits, "cluster": [plan.splits, 1, 1],
+            "ctas": rows * plan.splits, "tiles": plan.tiles,
+            "smem_bytes": plan.smem, "max_active_clusters": clusters,
+            "ptxas": ptxas_of("decode_kernel", (dtype, str(d), str(group),
+                                                "true" if paged else
+                                                "false"))}
+
+
+def decode_split_sweep(torch, fn, sets, zero_sets, q3, nb, bs, what):
+    """``fn``'s device time at each split S (1, 2, 4, 8) with the ring
+    the plan gives that S, on ``sets`` and on ``zero_sets`` (every length
+    0: the launch's fixed cost at that S) — what the plan's choice of S
+    rests on; the ``decode_sweep`` line."""
+    from apex_tpu_torch.ops import decode_attention as D
+
+    rows, group, d = q3.shape
+    sms = torch.cuda.get_device_properties(q3.device).multi_processor_count
+    plan_s = D._plan_for(q3, nb, bs).splits
+    saved, per_split = D._plan_for, {}
+    try:
+        for s in D.DECODE_SPLITS:
+            plan = D.plan_at(rows, nb, bs, d, group, q3.dtype, sms, s)
+            D._plan_for = lambda *_, plan=plan: plan
+            per_split[f"S{s}"] = {"tiles": plan.tiles,
+                                  "ms": time_ms(fn, sets),
+                                  "empty_ms": time_ms(fn, zero_sets)}
+    finally:
+        D._plan_for = saved
+    out = {"call": what, "plan_splits": plan_s, "per_split": per_split}
+    emit("decode_sweep", out)
+    return out
+
+
+def decode_repeat_check(torch, got, again, what):
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"{what}: not bit-identical across two "
+          f"runs")
+
+
 def phase_decode_kernel(torch, dev):
-    from apex_tpu_torch.ops.decode_attention import (_gather_blocks,
-                                                     decode_attention)
+    """The paged decode kernel against its plain version at the serve
+    leg's shape (8 slots, MHA: 64 rows, the plan's S) and GQA (16 rows),
+    ragged lengths with 0, bit-identical across two runs; its plan; times
+    with every slot at 512 live rows and at a ragged serve-like mix, each
+    through ``decode_attention`` (what the path launches) and the kernel
+    entry alone, with the parent's kernel in turns under ``--parent``; and
+    at 8 x 512 at each split (``decode_split_sweep``)."""
+    from apex_tpu_torch.ops import decode_attention as D
+    from apex_tpu_torch.tools import rowwise_ab
     import torch.nn.functional as F
 
     ragged = [0, 1, 127, 128, 129, 300, 512, 1000]
-    err = 0.0
+    err, plans = 0.0, {}
     for h_kv in (8, 2):  # MHA, then GQA
         for (q, pk, pv, lens, tables) in decode_case(torch, dev, h_kv,
                                                      ragged, seed=h_kv):
-            got = decode_attention(q, pk, pv, lens, block_tables=tables)
-            want = decode_attention(q, pk, pv, lens, block_tables=tables,
-                                    impl="torch")
-            torch.cuda.synchronize()
+            got = D.decode_attention(q, pk, pv, lens, block_tables=tables)
+            again = D.decode_attention(q, pk, pv, lens, block_tables=tables)
+            want = D.decode_attention(q, pk, pv, lens, block_tables=tables,
+                                      impl="torch")
+            decode_repeat_check(torch, got, again, "paged decode kernel")
             e = (got.float() - want.float()).abs().max().item()
             check(torch.isfinite(got.float()).all().item(),
                   "paged decode kernel output not finite")
             check(not got[lens == 0].any().item(),
                   "paged decode kernel: length-0 slot not zeros")
+            q3 = q.reshape(8 * h_kv, 8 // h_kv, 128)
+            plans[f"h_kv={h_kv}"] = decode_plan_info(torch, q3, 8, 128,
+                                                     True)
             emit("decode_check", {"h_kv": h_kv, "lengths": ragged,
+                                  "splits": plans[f"h_kv={h_kv}"]["splits"],
                                   "max_abs_err": e, "tol": DECODE_TOL})
             check(e <= DECODE_TOL, f"paged decode kernel vs plain: max abs "
                   f"err {e} > {DECODE_TOL} (h_kv={h_kv})")
             err = max(err, e)
+    emit("decode_plan", {"kernel": "paged_decode_attn", "plans": plans})
 
-    # timing: every slot at 512 live rows (MHA), six pool copies in turn
-    lengths = [512] * 8
-    sets = decode_case(torch, dev, 8, lengths, seed=3, copies=6)
+    b, h, d, scale = 8, 8, 128, 128 ** -0.5
+    kern = lambda *a: D.decode_attention(*a[:4], block_tables=a[4])  # noqa
+    entry = lambda q, pk, pv, lens, t: D.paged_decode_attn_cuda(  # noqa
+        q.reshape(b * 8, 1, d), pk, pv, lens, t, scale=scale)
+    parent = lambda lib, q, pk, pv, lens, t: (  # noqa: E731
+        rowwise_ab.parent_paged_decode_attn(lib, q.reshape(b * 8, 1, d), pk,
+                                            pv, lens, t, scale))
+    per_shape = {}
+    # every slot at 512 live rows (MHA), and a ragged serve-like mix; six
+    # pool copies in turn
+    for what, lengths in (("serve_512", [512] * 8),
+                          ("ragged", [330, 1000, 512, 640, 384, 896, 600,
+                                      350])):
+        sets = decode_case(torch, dev, 8, lengths, seed=3, copies=6)
+        ms, parent_ms = parent_turns(torch, kern, sets, parent_fn=parent)
+        entry_ms, parent_entry_ms = parent_turns(torch, entry, sets,
+                                                 parent_fn=parent)
+        live = sum(lengths)
+        bms, by = bound(2 * b * h * d * 2           # q in, out
+                        + 2 * live * 8 * d * 2      # live K and V, once
+                        + b * 8 * 4 + b * 4,        # tables, lengths
+                        4 * live * h * d, BF16_OPS_PER_S)
+        per_shape[what] = {"lengths": lengths, "ms": ms,
+                           "parent_ms": parent_ms, "entry_ms": entry_ms,
+                           "parent_entry_ms": parent_entry_ms,
+                           "bound_ms": bms, "bound_by": by}
+        emit("decode_times", dict(per_shape[what], call=what))
+        if what == "serve_512":
+            serve_sets, serve_bound = sets, (bms, by)
+    sweep = decode_split_sweep(
+        torch, kern, serve_sets,
+        decode_case(torch, dev, 8, [0] * 8, seed=3, copies=6),
+        serve_sets[0][0].reshape(b * 8, 1, d), 8, 128, "serve_512")
 
     def library(q, pk, pv, lens, tables):
-        k, v = _gather_blocks(pk, tables), _gather_blocks(pv, tables)
+        k = D._gather_blocks(pk, tables)
+        v = D._gather_blocks(pv, tables)
         mask = (torch.arange(k.shape[2], device=dev)[None, :]
                 < lens[:, None])[:, None, None, :]
         return F.scaled_dot_product_attention(q[:, :, None, :], k, v,
                                               attn_mask=mask)
 
-    kern = lambda *a: decode_attention(*a[:4], block_tables=a[4])  # noqa
-    plain = lambda *a: decode_attention(*a[:4], block_tables=a[4],  # noqa
-                                        impl="torch")
-    ms = time_ms(kern, sets)
-    plain_ms = time_ms(plain, sets, reps=5)
-    library_ms = time_ms(library, sets, reps=5)
-    b, h, d = 8, 8, 128
-    live = sum(lengths)
-    nbytes = (2 * b * h * d * 2            # q in, out
-              + 2 * live * 8 * d * 2       # live K and V rows, read once
-              + b * 8 * 4 + b * 4)         # tables, lengths
-    ops = 4 * live * h * d                 # q.k and p.v
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
+    plain = lambda *a: D.decode_attention(*a[:4], block_tables=a[4],  # noqa
+                                          impl="torch")
+    serve = per_shape["serve_512"]
     return {"name": "paged_decode_attn", "route": "cuda",
             "source": "apex_tpu_torch/csrc/paged_decode_attn.cu",
             "replaces": "apex_tpu/ops/pallas/decode_attention.py:211",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                         >= ops / BF16_OPS_PER_S else "operations"),
-            "library_ms": library_ms,
+            "max_abs_err": err, "ms": serve["ms"],
+            "parent_ms": serve["parent_ms"],
+            "plain_ms": time_ms(plain, serve_sets, reps=5),
+            "bound_ms": serve_bound[0], "bound_by": serve_bound[1],
+            "library_ms": time_ms(library, serve_sets, reps=5),
+            "kernel_note": "each row's walk split over a cluster of S CTAs "
+                           "(decode_plan), blocks by the bulk-copy engine; "
+                           "parent_ms: the parent commit's kernel in turns "
+                           "(--parent)",
             "timed_shape": {"slots": b, "heads": h, "kv_heads": 8,
                             "head_dim": d, "block": 128,
-                            "live_rows_per_slot": 512, "dtype": "bf16"}}
+                            "live_rows_per_slot": 512, "dtype": "bf16"},
+            "plan": plans["h_kv=8"], "split_sweep": sweep,
+            "per_shape": per_shape}
 
 
 def phase_sample_kernel(torch, dev):
@@ -1255,44 +1360,91 @@ def phase_bshd_kernel(torch, dev):
 def phase_contig_decode_kernel(torch, dev):
     """The contiguous decode kernel against its plain version on the
     decode engine's cache (16 x 8 rows, max_s 1024, d 128) with ragged
-    lengths including 0 and 1024, and on a GQA cache; times with every row
-    at 640 live positions (the decode leg's last step)."""
+    lengths including 0 and 1024, on a GQA cache, and at the spec leg's
+    batch 1 (each an S the plan picks), bit-identical across two runs; its
+    plan; times with every row at 640 live positions (the decode leg's
+    last step) and at 513, each through ``decode_attention`` and the
+    kernel entry alone, with the parent's kernel in turns under
+    ``--parent`` (its ``decode_attention`` repeated the lengths over kv
+    heads first); and at 640 live at each split (``decode_split_sweep``)."""
     import torch.nn.functional as F
     from apex_tpu_torch.ops import decode_attention as D
+    from apex_tpu_torch.tools import rowwise_ab
 
     b, h, d, max_s = DECODE_BATCH, 8, 128, 1024
     ragged = [0, 1, 127, 128, 129, 300, 512, 513, 600, 640, 700, 900,
               1000, 1023, 1024, 2]
 
-    def case(h_kv, lengths, seed):
+    def case(bb, h_kv, lengths, seed):
         g = torch.Generator(device=dev).manual_seed(seed)
-        q = torch.randn((b, h, d), generator=g, device=dev).bfloat16()
-        k = torch.randn((b, h_kv, max_s, d), generator=g,
+        q = torch.randn((bb, h, d), generator=g, device=dev).bfloat16()
+        k = torch.randn((bb, h_kv, max_s, d), generator=g,
                         device=dev).bfloat16()
-        v = torch.randn((b, h_kv, max_s, d), generator=g,
+        v = torch.randn((bb, h_kv, max_s, d), generator=g,
                         device=dev).bfloat16()
         return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=dev)
 
-    err = 0.0
-    for h_kv in (8, 2):
-        q, k, v, lens = case(h_kv, ragged, seed=h_kv + 40)
+    err, plans = 0.0, {}
+    for what, bb, h_kv, lengths in (("decode", b, 8, ragged),
+                                    ("decode_gqa", b, 2, ragged),
+                                    ("spec", 1, 8, [700])):
+        q, k, v, lens = case(bb, h_kv, lengths, seed=h_kv + 40 + bb)
         got = D.decode_attention(q, k, v, lens)
+        again = D.decode_attention(q, k, v, lens)
         want = D.decode_attention(q, k, v, lens, impl="torch")
-        torch.cuda.synchronize()
+        decode_repeat_check(torch, got, again, "contiguous decode kernel")
         e = (got.float() - want.float()).abs().max().item()
         check(torch.isfinite(got.float()).all().item(),
               "contiguous decode kernel output not finite")
         check(not got[lens == 0].any().item(),
               "contiguous decode kernel: length-0 row not zeros")
-        emit("contig_decode_check", {"h_kv": h_kv, "lengths": ragged,
+        plans[what] = decode_plan_info(
+            torch, q.reshape(bb * h_kv, h // h_kv, d), max_s // 128, 128,
+            False)
+        emit("contig_decode_check", {"call": what, "h_kv": h_kv,
+                                     "lengths": lengths,
+                                     "splits": plans[what]["splits"],
                                      "max_abs_err": e, "tol": DECODE_TOL})
         check(e <= DECODE_TOL, f"contiguous decode kernel vs plain: max abs "
-              f"err {e} > {DECODE_TOL} (h_kv={h_kv})")
+              f"err {e} > {DECODE_TOL} ({what})")
         err = max(err, e)
+    emit("decode_plan", {"kernel": "decode_attn", "plans": plans})
 
-    L = DECODE_PROMPT + DECODE_NEW
-    sets = [case(8, [L] * b, seed=50 + i) for i in range(2)]
+    scale = d ** -0.5
     kern = lambda q, k, v, n: D.decode_attention(q, k, v, n)  # noqa: E731
+    parent = lambda lib, q, k, v, n: (  # noqa: E731
+        rowwise_ab.parent_decode_attention(lib, q, k, v, n))
+    per_shape = {}
+    for L in (DECODE_PROMPT + DECODE_NEW, DECODE_PROMPT + 1):
+        sets = [case(b, 8, [L] * b, seed=50 + i) for i in range(2)]
+        rows3 = [(q.reshape(b * 8, 1, d), k.reshape(b * 8, max_s, d),
+                  v.reshape(b * 8, max_s, d), n) for q, k, v, n in sets]
+        entry_sets = [r + (n.repeat_interleave(8).contiguous(),)
+                      for r, (_, _, _, n) in zip(rows3, sets)]
+        entry = lambda q, k, v, n, _: D.decode_attn_cuda(  # noqa: E731
+            q, k, v, n, scale=scale)
+        parent_entry = lambda lib, q, k, v, _, rn: (  # noqa: E731
+            rowwise_ab.parent_decode_attn(lib, q, k, v, rn, scale))
+        ms, parent_ms = parent_turns(torch, kern, sets, parent_fn=parent)
+        entry_ms, parent_entry_ms = parent_turns(
+            torch, entry, entry_sets, parent_fn=parent_entry)
+        rows = b * h
+        bms, by = bound(2 * rows * L * d * 2 + 2 * b * h * d * 2 + b * 4,
+                        4 * rows * L * d, BF16_OPS_PER_S)
+        per_shape[f"live_{L}"] = {"ms": ms, "parent_ms": parent_ms,
+                                  "entry_ms": entry_ms,
+                                  "parent_entry_ms": parent_entry_ms,
+                                  "bound_ms": bms, "bound_by": by}
+        emit("contig_decode_times", dict(per_shape[f"live_{L}"],
+                                         live_rows=L))
+        if L == DECODE_PROMPT + DECODE_NEW:
+            last_sets, last_bound = sets, (bms, by)
+    sweep = decode_split_sweep(
+        torch, kern, last_sets,
+        [case(b, 8, [0] * b, seed=60 + i) for i in range(2)],
+        last_sets[0][0].reshape(b * 8, 1, d), max_s // 128, 128,
+        f"live_{DECODE_PROMPT + DECODE_NEW}")
+
     plain = lambda q, k, v, n: D.decode_attention(  # noqa: E731
         q, k, v, n, impl="torch")
 
@@ -1302,22 +1454,28 @@ def phase_contig_decode_kernel(torch, dev):
         return F.scaled_dot_product_attention(q[:, :, None, :], k, v,
                                               attn_mask=mask)
 
-    ms = time_ms(kern, sets)
-    plain_ms = time_ms(plain, sets, reps=5)
-    library_ms = time_ms(library, sets, reps=5)
-    rows = b * h
-    bms, by = bound(2 * rows * L * d * 2 + 2 * b * h * d * 2 + rows * 4,
-                    4 * rows * L * d, BF16_OPS_PER_S)
+    L = DECODE_PROMPT + DECODE_NEW
+    last = per_shape[f"live_{L}"]
     return {"name": "decode_attn", "route": "cuda",
             "source": "apex_tpu_torch/csrc/paged_decode_attn.cu",
             "replaces": "apex_tpu/ops/pallas/decode_attention.py:183",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+            "max_abs_err": err, "ms": last["ms"],
+            "parent_ms": last["parent_ms"],
+            "plain_ms": time_ms(plain, last_sets, reps=5),
+            "bound_ms": last_bound[0], "bound_by": last_bound[1],
+            "library_ms": time_ms(library, last_sets, reps=5),
             "library_note": "F.scaled_dot_product_attention over the whole "
                             "cache with a length mask",
+            "kernel_note": "the split body at the plan's S (decode_plan); "
+                           "ms through decode_attention, per-batch lengths "
+                           "read by the kernel; parent_ms: the parent "
+                           "commit's decode_attention (its "
+                           "repeat_interleave and kernel) in turns",
             "timed_shape": {"batch": b, "heads": h, "kv_heads": 8,
                             "head_dim": d, "max_s": max_s,
-                            "live_rows": L, "dtype": "bf16"}}
+                            "live_rows": L, "dtype": "bf16"},
+            "plan": plans["decode"], "split_sweep": sweep,
+            "per_shape": per_shape}
 
 
 def verify_case(torch, dev, b, n1, V, seed, tree):
@@ -2954,21 +3112,29 @@ def ln_check(torch, dev, rows, hidden, rms, affine, seed, what):
     return errs
 
 
-def parent_turns(torch, fn, arg_sets, reps=20, trials=11):
+def parent_turns(torch, fn, arg_sets, reps=20, trials=11, parent_fn=None):
     """``fn``'s device time (time_ms) on this tree's kernels and, with
     ``--parent``, on the parent's, in turns (parent, this, this, parent):
     (ms, parent_ms), each the mean of its two turns; parent_ms is None
-    without ``--parent``."""
+    without ``--parent``. The parent's turns run ``fn`` on the parent's
+    library, or ``parent_fn(library, *args)`` where the parent's entry
+    points take other arguments."""
     from apex_tpu_torch.tools import rowwise_ab
 
     if PARENT is None:
         return time_ms(fn, arg_sets, reps, trials), None
-    with rowwise_ab.using(PARENT[0]):
-        p1 = time_ms(fn, arg_sets, reps, trials)
+
+    def parent():
+        if parent_fn is not None:
+            return time_ms(lambda *a: parent_fn(PARENT[0], *a), arg_sets,
+                           reps, trials)
+        with rowwise_ab.using(PARENT[0]):
+            return time_ms(fn, arg_sets, reps, trials)
+
+    p1 = parent()
     a = time_ms(fn, arg_sets, reps, trials)
     b = time_ms(fn, arg_sets, reps, trials)
-    with rowwise_ab.using(PARENT[0]):
-        p2 = time_ms(fn, arg_sets, reps, trials)
+    p2 = parent()
     return (a + b) / 2, (p1 + p2) / 2
 
 
@@ -3070,6 +3236,23 @@ def phase_ln_kernels(torch, dev):
                         FP32_OPS_PER_S)
         del graphs, stats, sets, bwd_sets
         torch.cuda.empty_cache()
+    # the forward at the decode call too (16 x 1024: most ln_fwd launches
+    # are at the serve and decode legs' 8-16 rows), twelve copies in turn
+    rows, hidden = LN_CALLS["decode"]
+    sets, w, b = ln_case(torch, dev, rows, hidden, "wb", 8, copies=12)
+    fwd_sets = [(x,) for x, _ in sets]
+    dec_bound = bound(4 * rows * hidden + 2 * 2 * hidden + 8 * rows,
+                      8 * rows * hidden, FP32_OPS_PER_S)
+    fwd_decode = {
+        "rows": rows, "hidden": hidden,
+        "ms": time_ms(lambda x: LN.ln_fwd_cuda(x, w, b, LN_EPS, False),
+                      fwd_sets),
+        "plain_ms": time_ms(lambda x: LN._torch_fwd(x, w, b, LN_EPS, False),
+                            fwd_sets),
+        "library_ms": time_ms(lambda x: F.layer_norm(x, (hidden,), w, b,
+                                                     LN_EPS), fwd_sets),
+        "bound_ms": dec_bound[0], "bound_by": dec_bound[1]}
+    emit("ln_fwd_times", dict(fwd_decode, call="decode"))
     gpt = per_shape["gpt"]
     rows, hidden = LN_CALLS["gpt"]
     timed = {"rows": rows, "hidden": hidden, "dtype": "bf16",
@@ -3080,7 +3263,8 @@ def phase_ln_kernels(torch, dev):
          "replaces": "apex_tpu/ops/pallas/layer_norm.py:102",
          "max_abs_err": errs["y"], "ms": ms_fwd, "plain_ms": plain_fwd,
          "bound_ms": fwd[0], "bound_by": fwd[1], "library_ms": lib_fwd,
-         "library_note": "F.layer_norm", "timed_shape": timed},
+         "library_note": "F.layer_norm", "timed_shape": timed,
+         "per_shape": {"decode": fwd_decode}},
         {"name": "ln_bwd", "route": "cuda", "source": src,
          "replaces": "apex_tpu/ops/pallas/layer_norm.py:186",
          "max_abs_err": errs["dx"], "ms": gpt["ms"],
@@ -3950,8 +4134,8 @@ def main(argv=None):
                                  "paths on one CUDA card.")
     ap.add_argument("--parent", metavar="DIR", default=None,
                     help="a checkout (e.g. a git archive of the parent "
-                    "commit) whose ln_bwd and softmax_fwd kernels are "
-                    "timed in turns with this tree's")
+                    "commit) whose ln_bwd, softmax_fwd and decode kernels "
+                    "are timed in turns with this tree's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "

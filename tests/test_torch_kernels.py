@@ -8,7 +8,13 @@ card runs it without either (and without the JAX-importing conftest):
 
 Tolerances: fp32 decode attention 1e-4 (fp32 sums in another order); bf16
 decode attention 2e-2 (the kernel rounds the unnormalised p to bf16, the
-plain version the normalised p: a few bf16 ulps at unit scale). Sampled
+plain version the normalised p: a few bf16 ulps at unit scale). The decode
+kernels split a row's walk over a cluster of S CTAs: each S the plan picks
+(1, 2, 4, 8) is checked at shapes that make it pick it, in both dtypes,
+MHA and GQA, with the card's room for the plan's clusters, the output
+bit-identical across two runs, length-0 rows zeros and one launch counted
+a call; the kernel given lengths one block short must fail the bf16
+tolerance against the plain version on the full lengths. Sampled
 tokens must be identical except on rows whose two best perturbed scores
 lie within 1e-5 relative (``log``/``exp`` and the top-p sums differ in the
 last bits), and at most 1% of rows may be excluded so.
@@ -170,6 +176,157 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     logits = torch.zeros((2, smod.KERNEL_MAX_VOCAB + 1), device=cuda)
     with pytest.raises(ValueError, match="at most"):
         smod.fused_sample(logits, temperature=1.0)
+
+
+# --- the split decode kernels: one cluster of S CTAs a row -----------------
+
+def _split_lengths(b, nb, bs):
+    """Ragged lengths cycling through the full table, a block edge and its
+    neighbours, 1, 0, a middle length and one past the table."""
+    full = nb * bs
+    cycle = [full, bs + 1, 1, 0, bs, bs - 1, full // 2 + 3, full + 100]
+    return [cycle[i % len(cycle)] for i in range(b)]
+
+
+def _split_paged_case(b, h, h_kv, nb, dev, dtype, seed, d=128, bs=128):
+    """q, (num_blocks, h_kv, bs, d) pools with each slot's live blocks at
+    permuted ids (unused entries the dead block 0), tables, lengths."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lengths = _split_lengths(b, nb, bs)
+    nblocks = b * nb + 1
+    q = torch.randn((b, h, d), generator=g, device=dev).to(dtype)
+    pk = torch.randn((nblocks, h_kv, bs, d), generator=g,
+                     device=dev).to(dtype)
+    pv = torch.randn((nblocks, h_kv, bs, d), generator=g,
+                     device=dev).to(dtype)
+    ids = list(np.random.default_rng(seed).permutation(
+        np.arange(1, nblocks)))
+    tables = np.zeros((b, nb), np.int32)
+    for i, n in enumerate(lengths):
+        for j in range(min(-(-n // bs), nb)):
+            tables[i, j] = ids.pop()
+    return (q, pk, pv, torch.tensor(lengths, dtype=torch.int32, device=dev),
+            torch.tensor(tables, device=dev))
+
+
+# (b, h, h_kv, nb, the split the plan must pick at 132 SMs): the serve
+# leg's 64 rows, 32 rows, the spec leg's 16 and fewer, the decode leg's
+# 128 and one block
+SPLIT_CASES = [
+    pytest.param(8, 8, 8, 8, 2, id="serve-S2"),
+    pytest.param(32, 8, 2, 8, 2, id="gqa-S2"),
+    pytest.param(4, 8, 8, 8, 4, id="S4"),
+    pytest.param(16, 8, 2, 8, 4, id="gqa-S4"),
+    pytest.param(2, 8, 8, 8, 8, id="S8"),
+    pytest.param(8, 8, 2, 8, 8, id="gqa-S8"),
+    pytest.param(16, 8, 8, 8, 1, id="decode-S1"),
+    pytest.param(8, 8, 8, 1, 1, id="S1-one-block"),
+]
+
+
+def _max_err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,h,h_kv,nb,splits", SPLIT_CASES)
+def test_paged_decode_split_matches_plain(cuda, dtype, tol, b, h, h_kv, nb,
+                                          splits):
+    q, pk, pv, lens, tables = _split_paged_case(b, h, h_kv, nb, cuda, dtype,
+                                                seed=b + nb)
+    qg = q.reshape(b * h_kv, h // h_kv, 128)
+    plan = dmod._plan_for(qg, nb, 128)
+    assert plan.splits == splits
+    assert dmod.max_active_clusters(plan, dtype, 128, h // h_kv, 128,
+                                    paged=True) >= 1
+    before = dmod.paged_decode_attn_cuda.launches
+    got = dmod.decode_attention(q, pk, pv, lens, block_tables=tables)
+    assert dmod.paged_decode_attn_cuda.launches == before + 1
+    again = dmod.decode_attention(q, pk, pv, lens, block_tables=tables)
+    want = dmod.decode_attention(q, pk, pv, lens, block_tables=tables,
+                                 impl="torch")
+    torch.cuda.synchronize()
+    assert _max_err(got, want) <= tol
+    assert torch.equal(got, again), "not bit-identical across two runs"
+    assert not got[lens == 0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,h,h_kv,nb,splits", SPLIT_CASES)
+def test_contiguous_decode_split_matches_plain(cuda, dtype, tol, b, h, h_kv,
+                                               nb, splits):
+    g = torch.Generator(device=cuda).manual_seed(b + nb)
+    max_s, d = nb * 128, 128
+    q = torch.randn((b, h, d), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, h_kv, max_s, d), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, h_kv, max_s, d), generator=g, device=cuda).to(dtype)
+    lens = torch.tensor(_split_lengths(b, nb, 128), dtype=torch.int32,
+                        device=cuda)
+    plan = dmod._plan_for(q.reshape(b * h_kv, h // h_kv, d), nb, 128)
+    assert plan.splits == splits
+    assert dmod.max_active_clusters(plan, dtype, d, h // h_kv, 128,
+                                    paged=False) >= 1
+    before = dmod.decode_attn_cuda.launches
+    got = dmod.decode_attention(q, k, v, lens)
+    assert dmod.decode_attn_cuda.launches == before + 1
+    again = dmod.decode_attention(q, k, v, lens)
+    want = dmod.decode_attention(q, k, v, lens, impl="torch")
+    torch.cuda.synchronize()
+    assert _max_err(got, want) <= tol
+    assert torch.equal(got, again), "not bit-identical across two runs"
+    assert not got[lens == 0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_contiguous_decode_kernel_takes_batch_lengths(cuda, dtype, tol):
+    """decode_attn_cuda with (b,) lengths at GQA (2 kv heads): each batch
+    row at its own length, read by both of its kv heads' rows."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    b, h_kv, group, max_s, d = 6, 2, 4, 512, 128
+    q = torch.randn((b * h_kv, group, d), generator=g,
+                    device=cuda).to(dtype)
+    k = torch.randn((b * h_kv, max_s, d), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b * h_kv, max_s, d), generator=g, device=cuda).to(dtype)
+    lens = torch.tensor([3, 0, 128, 129, 511, 512], dtype=torch.int32,
+                        device=cuda)
+    got = dmod.decode_attn_cuda(q, k, v, lens, scale=d ** -0.5)
+    want = dmod._torch_decode(q.reshape(b, h_kv, group, d),
+                              k.reshape(b, h_kv, max_s, d),
+                              v.reshape(b, h_kv, max_s, d), lens,
+                              d ** -0.5).reshape(b * h_kv, group, d)
+    torch.cuda.synchronize()
+    assert _max_err(got, want) <= tol
+    assert not got.reshape(b, h_kv, group, d)[1].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [True, False])
+@pytest.mark.parametrize("b,h,h_kv,nb,splits", SPLIT_CASES[:7])
+def test_decode_split_planted_fault_fails_the_rule(cuda, paged, b, h, h_kv,
+                                                   nb, splits):
+    """The kernel given lengths one block short, the plain version the
+    full lengths: a lost split's block must fail the bf16 tolerance."""
+    q, pk, pv, lens, tables = _split_paged_case(b, h, h_kv, nb, cuda,
+                                                torch.bfloat16, seed=b + 3)
+    short = (lens - 128).clamp_min(0)
+    hit = (lens > 128) & (lens < nb * 128 + 100)
+    if paged:
+        got = dmod.decode_attention(q, pk, pv, short, block_tables=tables)
+        want = dmod.decode_attention(q, pk, pv, lens, block_tables=tables,
+                                     impl="torch")
+    else:
+        k = dmod._gather_blocks(pk, tables)
+        v = dmod._gather_blocks(pv, tables)
+        got = dmod.decode_attention(q, k, v, short)
+        want = dmod.decode_attention(q, k, v, lens, impl="torch")
+    torch.cuda.synchronize()
+    assert _max_err(got[hit], want[hit]) > 2e-2
 
 
 def _flash_inputs(b, s, h, h_kv, d, dev, seed=0):

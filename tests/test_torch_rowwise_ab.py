@@ -1,7 +1,9 @@
-"""The A/B helpers for the row-wise kernels, on the CPU: the ``-Xptxas -v``
-log reader of ``apex_tpu_torch/tools/rowwise_ab.py``, its library swap,
-and ``chip_smoke.py``'s lookup of one kernel instance in the report (by
-its demangled name, or its mangled one where ``c++filt`` is missing)."""
+"""The A/B helpers for the row-wise and decode kernels, on the CPU: the
+``-Xptxas -v`` log reader of ``apex_tpu_torch/tools/rowwise_ab.py``, its
+library swap, the parent's decode signatures it binds, ``chip_smoke.py``'s
+lookup of one kernel instance in the report (by its demangled name, or its
+mangled one where ``c++filt`` is missing), and its turns (parent, this,
+this, parent)."""
 
 import importlib.util
 import shutil
@@ -60,3 +62,46 @@ def test_using_swaps_the_library_and_restores_it():
         with rowwise_ab.using(sentinel):
             raise KeyError("inside")
     assert _build.library is before
+
+
+def test_other_library_builds_the_decode_kernels_with_the_parents_signatures():
+    """The parent's decode entries take no launch plan and the contiguous
+    one rows-long lengths: 15 and 12 arguments, where this tree's take 18
+    and 16."""
+    assert "paged_decode_attn.cu" in rowwise_ab.SOURCES
+    parent = rowwise_ab.PARENT_DECODE_ENTRY_POINTS
+    assert set(parent) == {"apex_paged_decode_attn", "apex_decode_attn"}
+    assert len(parent["apex_paged_decode_attn"]) == 15
+    assert len(parent["apex_decode_attn"]) == 12
+    assert len(_build.ENTRY_POINTS["apex_paged_decode_attn"]) == 18
+    assert len(_build.ENTRY_POINTS["apex_decode_attn"]) == 16
+
+
+@pytest.mark.parametrize("parent_fn", [False, True])
+def test_parent_turns_alternate_and_reach_the_parent(monkeypatch, parent_fn):
+    """Turns run parent, this, this, parent; the parent's run either this
+    tree's function on the parent's library or ``parent_fn(library,
+    ...)``."""
+    lib = object()
+    turns = []
+
+    def fake_time(fn, arg_sets, reps=20, trials=11):
+        fn(*arg_sets[0])
+        return float(len(turns))
+
+    def fn(x):
+        turns.append("parent" if _build.library() is lib else "this")
+
+    def pfn(library, x):
+        assert library is lib
+        turns.append("parent")
+
+    monkeypatch.setattr(chip_smoke, "time_ms", fake_time)
+    monkeypatch.setattr(_build, "library", lambda: "this tree")
+    monkeypatch.setattr(chip_smoke, "PARENT", (lib, ""))
+    ms, parent_ms = chip_smoke.parent_turns(
+        None, fn, [(1,)], parent_fn=pfn if parent_fn else None)
+    assert turns == ["parent", "this", "this", "parent"]
+    assert (ms, parent_ms) == ((2 + 3) / 2, (1 + 4) / 2)
+    monkeypatch.setattr(chip_smoke, "PARENT", None)
+    assert chip_smoke.parent_turns(None, fn, [(1,)])[1] is None
