@@ -1,80 +1,462 @@
 // Fused sampling tail: one logits row -> temperature -> top-k -> top-p ->
 // Gumbel-argmax -> one int32 token, for Hopper (sm_90a).
 //
-// Replaces apex_tpu/ops/pallas/sampling.py::fused_sample_fwd (:150; kernel
-// body _sample_kernel :140). Written from the reference's helpers, whose
-// device counterparts live in sample_filter.cuh (shared with the verify
-// kernels), not carried over block by block:
-// * one CTA (1024 threads) per row. The row, scaled by 1/T in fp32, stays
-//   in shared memory for the whole tail (V = 32768 is 128 KB, hence the
-//   dynamic shared-memory attribute).
-// * top-k and top-p thresholds are the reference's 48-step bisection;
-//   entries below the threshold become -1e30.
-// * the draw is argmax(s + (-logf(-logf(u)))), ties to the lowest index.
+// Replaces apex_tpu/ops/pallas/sampling.py::fused_sample_fwd (:156; kernel
+// body _sample_kernel :140), written from the reference's helpers
+// (apply_top_k, apply_top_p, gumbel_argmax :96-125), not carried over
+// block by block. The device code of the filter is sample_cluster.cuh.
 //
-// Bound on this card: operations. A row of V logits costs about
-// 200*V simple fp32 operations (96 bisection passes of compare+add, the
-// exp of the top-p passes counted once per pass) against 6*V bytes
-// (bf16 logits + fp32 noise): at the slice's (8, 32768) ~0.8 us of
-// 67 TFLOP/s fp32 versus ~0.5 us of HBM. The design keeps every pass in
-// shared memory; what it does not do yet is spread a row over several
-// CTAs — 8 rows fill 8 of 132 SMs, and the 96 dependent block-wide
-// reductions (two barriers each) set the time.
+// * Each row is split over a thread-block cluster of S CTAs (the host's
+//   plan, ops/sampling.py::_sample_plan: S in 1, 2, 4, 8 so that rows * S
+//   stays within one CTA an SM; a round's merge and barrier cost more at
+//   16, which was slower in every timed call). Rank r holds the
+//   contiguous share [r * share, (r + 1) * share) of the row and of its
+//   noise in registers (`P` values a thread, loaded once with 16-byte
+//   loads), s = fp32(logit) * (1/T), kept as its key.
+// * top-k and top-p thresholds: 4 rounds of radix select each
+//   (sample_cluster.cuh) instead of the reference's 48 bisection steps;
+//   exp(s - m) is computed once a value and kept for the top-p rounds.
+//   Top-p after a top-k that left at most 256 live entries (the serve's
+//   top-k 50) takes no rounds: every rank stores its live entries into
+//   rank 0, which finds the threshold among them with the same integer
+//   masses (the same threshold) and draws.
+//   Every row-wide quantity (the largest score, the counts and masses of
+//   each round, the draw) is formed per CTA, then read by every CTA from
+//   each rank's shared memory in rank order after a cluster barrier. No
+//   float atomics and no second launch: the same inputs give the same
+//   token on every run.
+// * the draw is argmax(s + (-logf(-logf(u)))) over the kept entries, ties
+//   to the lowest index; the Gumbel term is computed between the first
+//   cluster barrier's arrive and its wait. Each rank stores its draw into
+//   rank 0's shared memory, and rank 0 writes the token.
+// * logf/expf are the accurate ones: the library is built without
+//   --use_fast_math.
+//
+// Bound on this card: bytes at the serve's (8, 32768) (bf16 logits and
+// fp32 noise read once: 0.47 us at 3.35 TB/s; about 40 fp32 operations a
+// value, 0.16 us of 67 TFLOP/s). What sets the time is latency: the
+// launch, the loads, and one cluster barrier with a 256-bin merge and scan
+// for each of the (at most) 9 dependent rounds; the serve's knobs take 5.
+#include <climits>
+#include <cmath>
 #include <cstdint>
 
-#include "sample_filter.cuh"
+#include "row_io.cuh"
+#include "sample_cluster.cuh"
 
 namespace {
 
-using apex::filter::kThreads;
-using apex::filter::kWarps;
+namespace sm90 = apex::sm90;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+using apex::sample::kBins;
+using apex::sample::Shared;
+
+// a CTA's threads at most: 512 (128 registers a thread)
+constexpr int kMaxThreads = 512;
+
+// planted faults, for the tests only: the last rank left out of every
+// merge
+enum Fault : int { kNoFault = 0, kDropLastRank = 1 };
+
+template <typename T, int P>
+__global__ void __launch_bounds__(kMaxThreads)
     fused_sample_kernel(const T* __restrict__ logits,
                         const float* __restrict__ u, int* __restrict__ out,
-                        int V, float inv_temp, int top_k, int use_top_p,
-                        float top_p) {
-  extern __shared__ float s[];
-  __shared__ float red[kWarps];
-  __shared__ int red_i[kWarps];
-  const size_t base = static_cast<size_t>(blockIdx.x) * V;
-  apex::filter::load_filtered(s, logits + base, V, inv_temp, top_k,
-                              use_top_p, top_p, red);
-  const int tok = apex::filter::gumbel_argmax(s, u + base, V, red, red_i);
-  if (threadIdx.x == 0) out[blockIdx.x] = tok;
+                        int V, int splits, int share, float inv_temp,
+                        int top_k, int use_top_p, float top_p, bool vec,
+                        int fault) {
+  constexpr int kChunks = P / 8;  // 8 values a chunk
+  constexpr bool kKeepMass = P <= 16;
+  __shared__ Shared sh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nthreads = blockDim.x;
+  const int rank = static_cast<int>(sm90::cluster_ctarank());
+  const int row = blockIdx.x / splits;
+  const int ranks = fault == kDropLastRank ? splits - 1 : splits;
+  const int begin = rank * share;
+  const int end = min(V, begin + share);
+  const T* lrow = logits + static_cast<size_t>(row) * V;
+  const float* urow = u + static_cast<size_t>(row) * V;
+
+  // value i = 8 c + k of this thread is element begin + 8 (tid + T c) + k;
+  // the thread keeps its scores as keys, and the noise (then the perturbed
+  // scores) in x
+  float s[P], x[P];
+  uint32_t valid = 0u;
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int e0 = begin + 8 * (tid + nthreads * c);
+    float* sc = s + 8 * c;
+    float* uc = x + 8 * c;
+    if (vec && e0 < end) {  // share and V are multiples of 8
+      if constexpr (sizeof(T) == 2) {
+        apex::unpack_chunk<__nv_bfloat16>(
+            *reinterpret_cast<const uint4*>(lrow + e0), sc);
+      } else {
+        apex::unpack_chunk<float>(*reinterpret_cast<const uint4*>(lrow + e0),
+                                  sc);
+        apex::unpack_chunk<float>(
+            *reinterpret_cast<const uint4*>(lrow + e0 + 4), sc + 4);
+      }
+      apex::unpack_chunk<float>(*reinterpret_cast<const uint4*>(urow + e0),
+                                uc);
+      apex::unpack_chunk<float>(
+          *reinterpret_cast<const uint4*>(urow + e0 + 4), uc + 4);
+      valid |= 0xffu << (8 * c);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const bool in = e0 + k < end;
+        sc[k] = in ? apex::to_float(lrow[e0 + k]) : 0.f;
+        uc[k] = in ? urow[e0 + k] : 0.5f;
+        if (in) valid |= 1u << (8 * c + k);
+      }
+    }
+  }
+  if (tid < kBins) {
+    sh.hist[0][tid] = 0ull;
+    sh.hist[1][tid] = 0ull;
+  }
+  if (tid == 0) sh.max_key = 0u;
+  __syncthreads();
+
+  uint32_t key[P];
+  uint32_t kmax = 0u;
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    key[i] = apex::sample::score_key(s[i] * inv_temp);
+    if ((valid >> i) & 1u) kmax = max(kmax, key[i]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    kmax = max(kmax, __shfl_xor_sync(0xffffffffu, kmax, o));
+  if (lane == 0) atomicMax(&sh.max_key, kmax);
+
+  // x = s + (-log(-log u)): run between the first barrier's arrive and wait
+  bool drawn = false;
+  auto gumbel = [&]() {
+    if (drawn) return;
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+      x[i] = apex::sample::key_score(key[i]) + (-logf(-logf(x[i])));
+    drawn = true;
+  };
+  auto nothing = []() {};
+
+  int buf = 0;
+  uint32_t keep = 0u;  // the kept keys are those >= keep
+  double target = 0.0;
+  if (top_k > 0) {
+    uint32_t prefix = 0u;
+    unsigned long long above = 0ull;
+    target = static_cast<double>(top_k);
+    for (int shift = 24; shift >= 0; shift -= 8) {
+      const uint32_t hi = shift == 24 ? 0u : ~0u << (shift + 8);
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        const bool hit =
+            ((valid >> i) & 1u) && ((key[i] ^ prefix) & hi) == 0u;
+        apex::sample::add_count(sh, buf, hit, (key[i] >> shift) & 0xffu);
+      }
+      const uint32_t d = apex::sample::select_digit(
+          sh, buf, ranks, above, target, -1.f, shift == 24, gumbel);
+      prefix |= d << shift;
+      buf ^= 1;
+    }
+    keep = prefix;
+  }
+  if (use_top_p && top_k > 0 && sh.reach <= apex::sample::kGather) {
+    // top-k left at most kGather live entries: rank 0 gathers them (key,
+    // perturbed score, index), finds the top-p threshold among them and
+    // draws, with the same integer masses as the rounds below
+    uint32_t live = 0u;
+    int n_live = 0;
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+      if (((valid >> i) & 1u) && key[i] >= keep) {
+        live |= 1u << i;
+        ++n_live;
+      }
+    // this thread's place among its CTA's live entries: after its warp's
+    // lower lanes and the lower warps
+    int incl = n_live;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (lane == 31) sh.warp_word[warp] = static_cast<uint32_t>(incl);
+    __syncthreads();
+    int off = incl - n_live, total = 0;
+    for (int w = 0; w < nthreads / 32; ++w) {
+      const int c = static_cast<int>(sh.warp_word[w]);
+      if (w < warp) off += c;
+      total += c;
+    }
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int i = 8 * c + k;
+        if (((live >> i) & 1u) && off < apex::sample::kGather) {
+          const int slot = rank * apex::sample::kGather + off;
+          apex::sample::st_cluster_u32(
+              sm90::cluster_map(sm90::smem_u32(&sh.g_key[slot]), 0), key[i]);
+          apex::sample::st_cluster_u32(
+              sm90::cluster_map(sm90::smem_u32(&sh.g_x[slot]), 0),
+              __float_as_uint(x[i]));
+          apex::sample::st_cluster_u32(
+              sm90::cluster_map(sm90::smem_u32(&sh.g_i[slot]), 0),
+              static_cast<uint32_t>(begin + 8 * (tid + nthreads * c) + k));
+          ++off;
+        }
+      }
+    if (tid == 0)
+      apex::sample::st_cluster_u32(
+          sm90::cluster_map(sm90::smem_u32(&sh.g_count[rank]), 0),
+          static_cast<uint32_t>(min(total, apex::sample::kGather)));
+    // every rank's entries are in rank 0, every read of a peer is done
+    apex::sample::cluster_arrive();
+    sm90::cluster_wait();
+    if (rank != 0) return;
+    // entry tid of the ranks' entries in rank order
+    int n = 0, r = 0, at = tid;
+    for (int q = 0; q < ranks; ++q) n += static_cast<int>(sh.g_count[q]);
+    while (r < ranks && at >= static_cast<int>(sh.g_count[r]))
+      at -= static_cast<int>(sh.g_count[r++]);
+    const bool mine = tid < n;
+    const int slot = r * apex::sample::kGather + at;
+    const uint32_t kt = mine ? sh.g_key[slot] : 0u;
+    const float m = apex::sample::key_score(sh.gmax_key);
+    if (mine) {
+      sh.c_key[tid] = kt;
+      sh.c_q[tid] = __float2ull_rn(expf(apex::sample::key_score(kt) - m) *
+                                   apex::sample::kMassScale);
+    }
+    __syncthreads();
+    unsigned long long z = 0ull, above = 0ull;
+    for (int j = 0; j < n; ++j) {
+      const unsigned long long q = sh.c_q[j];
+      z += q;
+      if (sh.c_key[j] >= kt) above += q;
+    }
+    target = static_cast<double>(top_p) * static_cast<double>(z);
+    // the largest key whose mass at and above it reaches p * z
+    keep = apex::sample::block_max_u32(
+        sh, mine && static_cast<double>(above) >= target ? kt : 0u);
+    float best = -INFINITY;
+    int best_i = INT_MAX;
+    if (mine && kt >= keep) {
+      best = sh.g_x[slot];
+      best_i = sh.g_i[slot];
+    }
+    apex::sample::block_argmax(sh, best, best_i);
+    if (tid == 0) out[row] = best_i;
+    return;
+  }
+  if (use_top_p) {
+    if (top_k == 0) {  // the largest score, merged on its own
+      apex::sample::cluster_arrive();
+      gumbel();
+      sm90::cluster_wait();
+      apex::sample::merge_max_key(sh, ranks);
+      __syncthreads();
+    }
+    // e = exp(s - m) over the live entries, computed once a value and
+    // kept for every round (at 32 values a thread the registers hold no
+    // third array: there each round computes it again)
+    const float m = apex::sample::key_score(sh.gmax_key);
+    auto mass = [&](int i) {
+      const bool live = ((valid >> i) & 1u) && key[i] >= keep;
+      return live ? expf(apex::sample::key_score(key[i]) - m) : 0.f;
+    };
+    float e[kKeepMass ? P : 1];
+    if constexpr (kKeepMass) {
+#pragma unroll
+      for (int i = 0; i < P; ++i) e[i] = mass(i);
+    }
+    uint32_t prefix = 0u;
+    unsigned long long above = 0ull;
+    for (int shift = 24; shift >= 0; shift -= 8) {
+      const uint32_t hi = shift == 24 ? 0u : ~0u << (shift + 8);
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        float ei;
+        if constexpr (kKeepMass)
+          ei = e[i];
+        else
+          ei = mass(i);
+        const unsigned long long q =
+            __float2ull_rn(ei * apex::sample::kMassScale);
+        apex::sample::add_mass(sh, buf,
+                               q != 0ull && ((key[i] ^ prefix) & hi) == 0u,
+                               (key[i] >> shift) & 0xffu, q);
+      }
+      const uint32_t d = apex::sample::select_digit(
+          sh, buf, ranks, above, target, shift == 24 ? top_p : -1.f, false,
+          nothing);
+      prefix |= d << shift;
+      buf ^= 1;
+    }
+    keep = prefix;
+  }
+  if (top_k == 0 && !use_top_p) {  // no round ran: every CTA has started
+    apex::sample::cluster_arrive();
+    gumbel();
+    sm90::cluster_wait();
+  }
+
+  // the draw: this thread's, the warp's, the CTA's (warps in order), then
+  // rank 0 takes the ranks' in rank order
+  float best = -INFINITY;
+  int best_i = INT_MAX;
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int i = 8 * c + k;
+      if (((valid >> i) & 1u) && key[i] >= keep && x[i] > best) {
+        best = x[i];
+        best_i = begin + 8 * (tid + nthreads * c) + k;
+      }
+    }
+  apex::sample::block_argmax(sh, best, best_i);
+  if (tid == 0) {
+    const uint32_t slot = sm90::cluster_map(sm90::smem_u32(&sh.best[rank]),
+                                            0);
+    const uint32_t slot_i = sm90::cluster_map(
+        sm90::smem_u32(&sh.best_i[rank]), 0);
+    apex::sample::st_cluster_u32(slot, __float_as_uint(best));
+    apex::sample::st_cluster_u32(slot_i, static_cast<uint32_t>(best_i));
+  }
+  // every CTA's draw is in rank 0, and every read of a peer is done
+  apex::sample::cluster_arrive();
+  sm90::cluster_wait();
+  if (rank == 0 && tid == 0) {
+    best = __uint_as_float(sh.best[0]);
+    best_i = sh.best_i[0];
+    for (int r = 1; r < ranks; ++r)
+      apex::sample::argmax_step(best, best_i, __uint_as_float(sh.best[r]),
+                                sh.best_i[r]);
+    out[row] = best_i;
+  }
+}
+
+template <typename T>
+using KernelFn = void (*)(const T*, const float*, int*, int, int, int,
+                          float, int, int, float, bool, int);
+
+template <typename T>
+KernelFn<T> instance_of(int values) {
+  switch (values) {
+    case 8:
+      return fused_sample_kernel<T, 8>;
+    case 16:
+      return fused_sample_kernel<T, 16>;
+    case 32:
+      return fused_sample_kernel<T, 32>;
+    default:
+      return nullptr;
+  }
+}
+
+// grid b * splits CTAs in clusters of (splits, 1, 1)
+struct Launch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute cluster;
+  Launch(int ctas, int splits, int threads, cudaStream_t stream) : cfg{} {
+    cfg.gridDim = dim3(ctas);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = stream;
+    cluster.id = cudaLaunchAttributeClusterDimension;
+    cluster.val.clusterDim.x = splits;
+    cluster.val.clusterDim.y = 1;
+    cluster.val.clusterDim.z = 1;
+    cfg.attrs = &cluster;
+    cfg.numAttrs = 1;
+  }
+};
+
+// what every launch checks of the plan it is given: S in 1-8, whole
+// warps, at least the scan's 256 threads, the shares cover the row in
+// multiples of 8, the threads hold the share
+bool bad_plan(int dtype, int V, int splits, int threads, int values,
+              int share) {
+  if ((dtype != apex::kFloat32 && dtype != apex::kBFloat16) || V < 1 ||
+      (splits != 1 && splits != 2 && splits != 4 && splits != 8) ||
+      (values != 8 && values != 16 && values != 32))
+    return true;
+  return threads % 32 != 0 || threads < kBins || threads > kMaxThreads ||
+         share < 8 || share % 8 != 0 ||
+         static_cast<long long>(share) * splits < V ||
+         static_cast<long long>(threads) * values < share;
+}
+
+bool aligned(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <typename T>
 cudaError_t launch(const void* logits, const void* u, void* out, int b,
                    int V, float inv_temp, int top_k, int use_top_p,
-                   float top_p, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(V) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_sample_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  fused_sample_kernel<T><<<b, kThreads, smem, stream>>>(
-      static_cast<const T*>(logits), static_cast<const float*>(u),
-      static_cast<int*>(out), V, inv_temp, top_k, use_top_p, top_p);
-  return cudaGetLastError();
+                   float top_p, int splits, int threads, int values,
+                   int share, int fault, cudaStream_t stream) {
+  const KernelFn<T> kern = instance_of<T>(values);
+  if (kern == nullptr) return cudaErrorInvalidValue;
+  const bool vec = V % 8 == 0 && aligned(logits) && aligned(u);
+  Launch l(b * splits, splits, threads, stream);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &l.cfg, kern, static_cast<const T*>(logits),
+      static_cast<const float*>(u), static_cast<int*>(out), V, splits, share,
+      inv_temp, top_k, use_top_p, top_p, vec, fault);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t max_clusters(int splits, int threads, int values, int* n) {
+  const KernelFn<T> kern = instance_of<T>(values);
+  if (kern == nullptr) return cudaErrorInvalidValue;
+  Launch l(splits, splits, threads, nullptr);
+  return cudaOccupancyMaxActiveClusters(n, kern, &l.cfg);
 }
 
 }  // namespace
 
+// logits (b, V) of dtype, u (b, V) fp32 in (0, 1), out (b,) int32.
+// splits, threads, values, share: the host's plan (_sample_plan); fault:
+// 0, or a planted fault of the tests
 extern "C" int apex_fused_sample(const void* logits, const void* u,
                                  void* out, int dtype, int b, int V,
                                  float inv_temp, int top_k, int use_top_p,
-                                 float top_p, void* stream) {
-  if (b < 1 || V < 1 ||
-      (dtype != apex::kFloat32 && dtype != apex::kBFloat16))
+                                 float top_p, int splits, int threads,
+                                 int values, int share, int fault,
+                                 void* stream) {
+  if (b < 1 || top_k < 0 || top_k > V || fault < kNoFault ||
+      fault > kDropLastRank ||
+      bad_plan(dtype, V, splits, threads, values, share))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       dtype == apex::kBFloat16
           ? launch<__nv_bfloat16>(logits, u, out, b, V, inv_temp, top_k,
-                                  use_top_p, top_p, s)
+                                  use_top_p, top_p, splits, threads, values,
+                                  share, fault, s)
           : launch<float>(logits, u, out, b, V, inv_temp, top_k, use_top_p,
-                          top_p, s);
+                          top_p, splits, threads, values, share, fault, s);
+  return static_cast<int>(err);
+}
+
+// how many clusters of the plan's CTAs the card can hold at once
+// (cudaOccupancyMaxActiveClusters) into *n; 0 means the launch is refused
+extern "C" int apex_fused_sample_clusters(int dtype, int V, int splits,
+                                          int threads, int values, int share,
+                                          int* n) {
+  if (bad_plan(dtype, V, splits, threads, values, share))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err =
+      dtype == apex::kBFloat16
+          ? max_clusters<__nv_bfloat16>(splits, threads, values, n)
+          : max_clusters<float>(splits, threads, values, n);
   return static_cast<int>(err);
 }

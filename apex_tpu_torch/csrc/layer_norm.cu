@@ -21,12 +21,23 @@
 // cross the warps holding it before its dx can be written, so it needs
 // many warps an SM as well as rows in flight.
 //
-// Forward: one warp per row; lane l holds the 16-byte chunks l, l + 32, ...
-// of the row in fp32 registers (row_io.cuh), E elements a lane, E one of
-// 8, 32, 128 by the hidden size (at most 32 * 128 = 4096); a hidden that
-// is no multiple of 8 (bf16) or 4 (fp32) elements moves element by
-// element. The warps walk rows in a grid-stride loop, holding gamma and
-// beta in registers across rows.
+// Forward: a row is spread over a group of W warps with the backward's
+// shape (C chunks a thread, at most 16 elements; W from the hidden size),
+// so a thread holds one or two 16-byte chunks of a row (1024 in bf16: 4
+// warps of one chunk). The host's plan (ops/layer_norm.py::_fwd_plan)
+// picks the groups a CTA and the grid from the rows and the SM count: at
+// the serve and decode legs' few rows one row a group and one group a
+// CTA, the rows over as many SMs as there are rows, so a call pays one
+// memory latency (the row's chunks and gamma/beta as 16-byte vectors, in
+// one batch of loads); at the train legs' many rows a grid of resident
+// CTAs whose groups walk their rows with the next D - 1 rows' chunks
+// already in flight in registers while they reduce the current one
+// (D = fwd_depth(C)), gamma and beta held in registers across rows. The
+// row's two sums cross the group's warps through shared memory at the
+// group's own named barrier, added in warp order, so y, mean and rstd are
+// the same bits on every run. A hidden that is no multiple of the chunk
+// (or an unaligned tensor) loads element by element, without the
+// registers in flight.
 //
 // Backward: a row is spread over a group of W warps, so a thread holds at
 // most 16 elements of it (C chunks, W from {1, 2, 3, 4, 6, 8} by the
@@ -62,9 +73,6 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // the forward's 4 warps, one row each
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxFwdBlocks = 1056;  // 8 a streaming multiprocessor
 constexpr int kMaxHidden = 32 * 128;
 
 enum Affine : int { kNone = 0, kWeight = 1, kWeightBias = 2 };
@@ -83,72 +91,6 @@ __device__ __forceinline__ void store_param(void* p, bool w_bf16, int i,
     static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
   else
     static_cast<float*>(p)[i] = v;
-}
-
-template <typename T, int E, int kAff>
-__global__ void __launch_bounds__(kThreads)
-    ln_fwd_kernel(const T* __restrict__ x, const void* __restrict__ w,
-                  const void* __restrict__ b, T* __restrict__ y,
-                  float* __restrict__ mean_out, float* __restrict__ rstd_out,
-                  int rows, int n, float eps, bool rms, bool vec,
-                  bool w_bf16) {
-  constexpr int V = apex::Chunk<T>::kVec;
-  constexpr int C = E / V;  // chunks a lane
-  const int lane = threadIdx.x & 31;
-  float g[kAff >= kWeight ? E : 1];
-  float be[kAff == kWeightBias ? E : 1];
-  if constexpr (kAff >= kWeight) {
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-#pragma unroll
-      for (int k = 0; k < V; ++k) {
-        const int i = (lane + 32 * c) * V + k;
-        g[c * V + k] = load_param(w, w_bf16, i, n);
-        if constexpr (kAff == kWeightBias)
-          be[c * V + k] = load_param(b, w_bf16, i, n);
-      }
-  }
-  const float nf = static_cast<float>(n);
-  for (int row = blockIdx.x * kWarps + (threadIdx.x >> 5); row < rows;
-       row += gridDim.x * kWarps) {
-    float v[E];
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      apex::load_chunk(x + static_cast<size_t>(row) * n, (lane + 32 * c) * V,
-                       n, vec, 0.f, v + c * V);
-    float mu = 0.f;
-    if (!rms) {
-      float s = 0.f;
-#pragma unroll
-      for (int e = 0; e < E; ++e) s += v[e];
-      mu = apex::warp_sum(s) / nf;
-    }
-    float ss = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-#pragma unroll
-      for (int k = 0; k < V; ++k) {
-        const int e = c * V + k;
-        v[e] = (lane + 32 * c) * V + k < n ? v[e] - mu : 0.f;
-        ss += v[e] * v[e];
-      }
-    const float rstd = rsqrtf(apex::warp_sum(ss) / nf + eps);
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      float o = v[e] * rstd;
-      if constexpr (kAff >= kWeight) o *= g[e];
-      if constexpr (kAff == kWeightBias) o += be[e];
-      v[e] = o;
-    }
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      apex::store_chunk(y + static_cast<size_t>(row) * n, (lane + 32 * c) * V,
-                        n, vec, v + c * V);
-    if (lane == 0) {
-      mean_out[row] = mu;
-      rstd_out[row] = rstd;
-    }
-  }
 }
 
 // --- the backward -----------------------------------------------------------
@@ -408,57 +350,250 @@ __global__ void __launch_bounds__(32 * kRedRows)
   }
 }
 
-// elements a lane holds for a row of n: 8, 32 or 128 (0: too long)
-template <typename T>
-int lane_elems(int n) {
+// --- the forward -----------------------------------------------------------
+//
+// A row group of W warps owns one row at a time, thread j of the group the
+// C 16-byte chunks j, j + 32W, ... of it (the backward's shape, bwd_shape);
+// a CTA holds the plan's groups, and group g of CTA c walks rows
+// c * groups + g, then every (grid * groups)-th row after it.
+
+// rows of a group in flight: the current one and fwd_depth - 1 ahead, in
+// registers (2 at one or two chunks a thread, 1 at four; at one chunk 3 or
+// 4 rows ran no faster, or spilled, at 64 registers)
+__host__ __device__ constexpr int fwd_depth(int c) { return c <= 2 ? 2 : 1; }
+// a CTA's threads at most: 16 warps at one chunk a thread (64 registers,
+// two CTAs an SM), else 8 (128 registers)
+__host__ __device__ constexpr int fwd_max_threads(int c) {
+  return c == 1 ? 512 : 256;
+}
+
+// the V parameters from element i on (one chunk's) in fp32, 0 past n: as
+// 16-byte (8-byte for four bf16) vectors where pvec, else one by one
+template <int V>
+__device__ __forceinline__ void load_param_chunk(const void* __restrict__ p,
+                                                 bool w_bf16, int i, int n,
+                                                 bool pvec, float* out) {
+  if (pvec && i + V <= n) {
+    if (w_bf16) {
+      const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p) + i;
+      if constexpr (V == 8) {
+        apex::unpack_chunk<__nv_bfloat16>(*reinterpret_cast<const uint4*>(q),
+                                          out);
+      } else {
+        const uint2 r = *reinterpret_cast<const uint2*>(q);
+        out[0] = __uint_as_float(r.x << 16);
+        out[1] = __uint_as_float(r.x & 0xffff0000u);
+        out[2] = __uint_as_float(r.y << 16);
+        out[3] = __uint_as_float(r.y & 0xffff0000u);
+      }
+    } else {
+      const float4* q =
+          reinterpret_cast<const float4*>(static_cast<const float*>(p) + i);
+#pragma unroll
+      for (int k = 0; k < V / 4; ++k) {
+        const float4 r = q[k];
+        out[4 * k] = r.x;
+        out[4 * k + 1] = r.y;
+        out[4 * k + 2] = r.z;
+        out[4 * k + 3] = r.w;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) out[k] = load_param(p, w_bf16, i + k, n);
+  }
+}
+
+template <typename T, int C, int kAff>
+__global__ void __launch_bounds__(fwd_max_threads(C), 2)
+    ln_fwd_kernel(const T* __restrict__ x, const void* __restrict__ w,
+                  const void* __restrict__ b, T* __restrict__ y,
+                  float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                  int rows, int n, int warps, float eps, bool rms, bool vec,
+                  bool pvec, bool w_bf16) {
   constexpr int V = apex::Chunk<T>::kVec;
-  const int need = ((n + V - 1) / V + 31) / 32 * V;
-  return need <= 8 ? 8 : need <= 32 ? 32 : need <= 128 ? 128 : 0;
+  constexpr int E = C * V;
+  constexpr int D = fwd_depth(C);
+  extern __shared__ float red[];  // [groups][2][warps]: the warps' sums
+  const int G = 32 * warps;
+  const int grp = threadIdx.x / G;
+  const int j = threadIdx.x - grp * G;
+  const int warp = j >> 5, lane = j & 31;
+  const int groups = blockDim.x / G;
+  const int first = blockIdx.x * groups + grp;
+  const int step = gridDim.x * groups;
+  const int count = first < rows ? (rows - first + step - 1) / step : 0;
+  float* slots = red + grp * 2 * warps;
+  const float nf = static_cast<float>(n);
+
+  // the chunks of the group's row `it` (vec), zeros past the row
+  uint4 raw[D][C];
+  auto fetch = [&](uint4(&dst)[C], int it) {
+    const T* xr = x + static_cast<size_t>(first + it * step) * n;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int i0 = (j + G * c) * V;
+      dst[c] = i0 < n ? *reinterpret_cast<const uint4*>(xr + i0)
+                      : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  // the first D rows' loads, then the parameters': one batch
+  if (vec) {
+#pragma unroll
+    for (int s = 0; s < D; ++s)
+      if (s < count) fetch(raw[s], s);
+  }
+  float g[kAff >= kWeight ? E : 1];
+  float be[kAff == kWeightBias ? E : 1];
+  if constexpr (kAff >= kWeight) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int i0 = (j + G * c) * V;
+      load_param_chunk<V>(w, w_bf16, i0, n, pvec, g + c * V);
+      if constexpr (kAff == kWeightBias)
+        load_param_chunk<V>(b, w_bf16, i0, n, pvec, be + c * V);
+    }
+  }
+
+  // the group's sum of every thread's t: its warp's by shuffles, then the
+  // group's warps' in warp order; two slots by barrier parity, so a warp
+  // that runs ahead never overwrites a slot another still reads
+  int phase = 0;
+  auto group_total = [&](float t) {
+    t = apex::warp_sum(t);
+    if (warps > 1) {
+      float* slot = slots + (phase & 1) * warps;
+      if (lane == 0) slot[warp] = t;
+      group_sync(1 + grp, G);
+      t = 0.f;
+      for (int wi = 0; wi < warps; ++wi) t += slot[wi];
+      ++phase;
+    }
+    return t;
+  };
+
+  for (int base = 0; base < count; base += D) {
+#pragma unroll
+    for (int s = 0; s < D; ++s) {
+      const int it = base + s;
+      if (it >= count) break;
+      const int row = first + it * step;
+      const size_t off = static_cast<size_t>(row) * n;
+      float v[E];
+      if (vec) {
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          apex::unpack_chunk<T>(raw[s][c], v + c * V);
+        if (it + D < count) fetch(raw[s], it + D);  // in flight meanwhile
+      } else {
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          apex::load_chunk(x + off, (j + G * c) * V, n, false, 0.f,
+                           v + c * V);
+      }
+      float mu = 0.f;
+      if (!rms) {
+        float t = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) t += v[e];
+        mu = group_total(t) / nf;
+      }
+      float ss = 0.f;
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          const int e = c * V + k;
+          v[e] = (j + G * c) * V + k < n ? v[e] - mu : 0.f;
+          ss = fmaf(v[e], v[e], ss);
+        }
+      const float rstd = rsqrtf(group_total(ss) / nf + eps);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        float o = v[e] * rstd;
+        if constexpr (kAff >= kWeight) o *= g[e];
+        if constexpr (kAff == kWeightBias) o += be[e];
+        v[e] = o;
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        apex::store_chunk(y + off, (j + G * c) * V, n, vec, v + c * V);
+      if (j == 0) {
+        mean_out[row] = mu;
+        rstd_out[row] = rstd;
+      }
+    }
+  }
 }
 
 bool aligned(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <typename T, int E>
-cudaError_t fwd_e(const void* x, const void* w, const void* b, void* y,
-                  void* mean, void* rstd, int affine, bool rms, int rows,
-                  int n, float eps, bool vec, bool w_bf16, cudaStream_t st) {
-  const int blocks = min((rows + kWarps - 1) / kWarps, kMaxFwdBlocks);
+template <typename T, int C>
+cudaError_t fwd_launch(const void* x, const void* w, const void* b, void* y,
+                       void* mean, void* rstd, int affine, bool rms, int rows,
+                       int n, float eps, int warps, int groups, int ctas,
+                       int smem, bool w_bf16, cudaStream_t st) {
+  const bool vec = n % apex::Chunk<T>::kVec == 0 && aligned(x) && aligned(y);
+  const bool pvec = n % apex::Chunk<T>::kVec == 0 &&
+                    (w == nullptr || aligned(w)) &&
+                    (b == nullptr || aligned(b));
   const T* xp = static_cast<const T*>(x);
   T* yp = static_cast<T*>(y);
   float* mp = static_cast<float*>(mean);
   float* rp = static_cast<float*>(rstd);
+  const int threads = groups * warps * 32;
   if (affine == kWeightBias)
-    ln_fwd_kernel<T, E, kWeightBias><<<blocks, kThreads, 0, st>>>(
-        xp, w, b, yp, mp, rp, rows, n, eps, rms, vec, w_bf16);
+    ln_fwd_kernel<T, C, kWeightBias><<<ctas, threads, smem, st>>>(
+        xp, w, b, yp, mp, rp, rows, n, warps, eps, rms, vec, pvec, w_bf16);
   else if (affine == kWeight)
-    ln_fwd_kernel<T, E, kWeight><<<blocks, kThreads, 0, st>>>(
-        xp, w, b, yp, mp, rp, rows, n, eps, rms, vec, w_bf16);
+    ln_fwd_kernel<T, C, kWeight><<<ctas, threads, smem, st>>>(
+        xp, w, b, yp, mp, rp, rows, n, warps, eps, rms, vec, pvec, w_bf16);
   else
-    ln_fwd_kernel<T, E, kNone><<<blocks, kThreads, 0, st>>>(
-        xp, w, b, yp, mp, rp, rows, n, eps, rms, vec, w_bf16);
+    ln_fwd_kernel<T, C, kNone><<<ctas, threads, smem, st>>>(
+        xp, w, b, yp, mp, rp, rows, n, warps, eps, rms, vec, pvec, w_bf16);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t fwd_t(const void* x, const void* w, const void* b, void* y,
                   void* mean, void* rstd, int affine, bool rms, int rows,
-                  int n, float eps, bool w_bf16, cudaStream_t st) {
-  const bool vec = n % apex::Chunk<T>::kVec == 0 && aligned(x) && aligned(y);
-  switch (lane_elems<T>(n)) {
-    case 8:
-      return fwd_e<T, 8>(x, w, b, y, mean, rstd, affine, rms, rows, n, eps,
-                         vec, w_bf16, st);
-    case 32:
-      return fwd_e<T, 32>(x, w, b, y, mean, rstd, affine, rms, rows, n, eps,
-                          vec, w_bf16, st);
-    case 128:
-      return fwd_e<T, 128>(x, w, b, y, mean, rstd, affine, rms, rows, n,
-                           eps, vec, w_bf16, st);
+                  int n, float eps, int chunks, int warps, int groups,
+                  int ctas, int smem, bool w_bf16, cudaStream_t st) {
+  switch (chunks) {
+    case 1:
+      return fwd_launch<T, 1>(x, w, b, y, mean, rstd, affine, rms, rows, n,
+                              eps, warps, groups, ctas, smem, w_bf16, st);
+    case 2:
+      return fwd_launch<T, 2>(x, w, b, y, mean, rstd, affine, rms, rows, n,
+                              eps, warps, groups, ctas, smem, w_bf16, st);
+    case 4:
+      if constexpr (apex::Chunk<T>::kVec * 4 <= 16)
+        return fwd_launch<T, 4>(x, w, b, y, mean, rstd, affine, rms, rows,
+                                n, eps, warps, groups, ctas, smem, w_bf16,
+                                st);
+      return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// whether the host's plan covers a row of n and fits the kernel: chunks
+// of 1, 2 (4 in fp32), whole warps a row, at most fwd_max_threads a CTA,
+// a named barrier for each group of more than one warp, and room for the
+// groups' sums
+template <typename T>
+bool fwd_plan_ok(int n, int chunks, int warps, int groups, int ctas,
+                 int smem) {
+  constexpr int V = apex::Chunk<T>::kVec;
+  if (chunks != 1 && chunks != 2 && !(chunks == 4 && V == 4)) return false;
+  if (warps < 1 || groups < 1 || ctas < 1 ||
+      groups * warps * 32 > fwd_max_threads(chunks) ||
+      (warps > 1 && groups > 15))
+    return false;
+  return chunks * warps * 32 * V >= n &&
+         smem >= groups * 2 * warps * static_cast<int>(sizeof(float));
 }
 
 template <typename T, int C, int W, bool kW>
@@ -556,23 +691,32 @@ bool dtype_ok(int dtype) {
 }  // namespace
 
 // x, y (rows, n) of dtype; w, b (n,) fp32 or bf16 (w_bf16) or null by
-// `affine` (0 none, 1 weight, 2 weight and bias); mean, rstd (rows,) fp32
+// `affine` (0 none, 1 weight, 2 weight and bias); mean, rstd (rows,) fp32.
+// chunks, warps, groups, ctas, smem: the host's plan (_fwd_plan)
 extern "C" int apex_ln_fwd(const void* x, const void* w, const void* b,
                            void* y, void* mean, void* rstd, int dtype,
                            int w_bf16, int affine, int rms, int rows, int n,
-                           float eps, void* stream) {
+                           float eps, int chunks, int warps, int groups,
+                           int ctas, int smem, void* stream) {
   if (!dtype_ok(dtype) || rows < 1 || n < 1 || n > kMaxHidden ||
       affine < kNone || affine > kWeightBias ||
       (affine >= kWeight && w == nullptr) ||
       (affine == kWeightBias && b == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool ok =
+      dtype == apex::kBFloat16
+          ? fwd_plan_ok<__nv_bfloat16>(n, chunks, warps, groups, ctas, smem)
+          : fwd_plan_ok<float>(n, chunks, warps, groups, ctas, smem);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       dtype == apex::kBFloat16
           ? fwd_t<__nv_bfloat16>(x, w, b, y, mean, rstd, affine, rms != 0,
-                                 rows, n, eps, w_bf16 != 0, st)
+                                 rows, n, eps, chunks, warps, groups, ctas,
+                                 smem, w_bf16 != 0, st)
           : fwd_t<float>(x, w, b, y, mean, rstd, affine, rms != 0, rows, n,
-                         eps, w_bf16 != 0, st);
+                         eps, chunks, warps, groups, ctas, smem, w_bf16 != 0,
+                         st);
   return static_cast<int>(err);
 }
 

@@ -54,8 +54,11 @@ ENTRY_POINTS = {
     # paged, dtype, d, group, bs, splits, tiles, smem, out (clusters)
     "apex_decode_attn_clusters": [_I, _I, _I, _I, _I, _I, _I, _I, _IP],
     # logits, u, out, dtype, b, V, inv_temp, top_k, use_top_p, top_p,
-    # stream
-    "apex_fused_sample": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _F, _P],
+    # splits, threads, values, share, fault, stream
+    "apex_fused_sample": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _F, _I, _I,
+                          _I, _I, _I, _P],
+    # dtype, V, splits, threads, values, share, out (clusters)
+    "apex_fused_sample_clusters": [_I, _I, _I, _I, _I, _I, _IP],
     # qkv, out, lse, kv_lens, b, s, h, h_kv, d, causal, scale, variant,
     # stream
     "apex_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
@@ -102,8 +105,9 @@ ENTRY_POINTS = {
     "apex_fused_verify_tree": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _I, _F, _I, _P],
     # x, w, b, y, mean, rstd, dtype, w_bf16, affine, rms, rows, n, eps,
-    # stream
-    "apex_ln_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # chunks, warps, groups, ctas, smem, stream
+    "apex_ln_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                    _I, _I, _I, _I, _P],
     # dy, x, mean, rstd, w, dx, part, dw, db, dtype, w_bf16, rms, rows, n,
     # rows_per_cta, stream
     "apex_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

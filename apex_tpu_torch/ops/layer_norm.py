@@ -11,9 +11,10 @@ then cast to the parameters' dtype — and the ``nn.Module`` classes
 aliases (``:190-233``).
 
 Dispatch follows :mod:`apex_tpu_torch.ops._backend`: on a CUDA tensor the
-forward launches :func:`ln_fwd_cuda` and the backward :func:`ln_bwd_cuda`,
-the hand-written kernels of ``apex_tpu_torch/csrc/layer_norm.cu`` that
-replace the Pallas ``ln_fwd``/``ln_bwd``; on a CPU tensor (or with
+forward launches :func:`ln_fwd_cuda` on :func:`_fwd_plan`'s shape and the
+backward :func:`ln_bwd_cuda`, the hand-written kernels of
+``apex_tpu_torch/csrc/layer_norm.cu`` that replace the Pallas
+``ln_fwd``/``ln_bwd``; on a CPU tensor (or with
 ``impl="torch"``) the plain versions :func:`_torch_fwd` and
 :func:`_torch_bwd`, copies of the reference's ``_xla_fwd``/``_xla_bwd``.
 The reference's ``auto`` picks its XLA composition over the kernel from a
@@ -24,13 +25,15 @@ card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Sequence, Tuple, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
 from apex_tpu_torch.ops import _backend, _build
+from apex_tpu_torch.ops.matmul import _sm_count
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the widest row the kernels hold in registers (32 lanes x 128 elements)
@@ -38,6 +41,14 @@ KERNEL_MAX_HIDDEN = 4096
 #: the backward's partial-sum rows: at most this many CTAs, each owning a
 #: fixed set of rows, so dgamma/dbeta are summed in one fixed order
 BWD_MAX_CTAS = 256
+#: the forward's rows of a group in flight, by 16-byte chunks a thread
+#: (``fwd_depth`` in ``csrc/layer_norm.cu``: the registers a thread holds)
+FWD_DEPTH = {1: 2, 2: 2, 4: 1}
+#: a forward CTA's warps at most, and the warps an SM holds at the
+#: kernel's launch bounds, by chunks a thread: 16 of 32 at one chunk (64
+#: registers a thread), 8 of 16 at more (128 registers)
+FWD_CTA_WARPS = {1: 16, 2: 8, 4: 8}
+FWD_SM_WARPS = {1: 32, 2: 16, 4: 16}
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -125,11 +136,56 @@ def _check_kernel_inputs(name: str, x2d: torch.Tensor,
                          f"tensors on x's device")
 
 
+def row_shape(hidden: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """(16-byte chunks a thread, warps a row) for rows of ``hidden`` in
+    ``dtype``: at most 16 elements a thread, then the fewest warps of {1,
+    2, 3, 4, 6, 8} that cover the row's chunks (768 in bf16: 3 warps of one
+    chunk, no idle lane; 1024: 4; 4096: 8 of two chunks). The backward's
+    ``bwd_shape`` in ``csrc/layer_norm.cu`` picks the same."""
+    vec = 16 // (2 if dtype == torch.bfloat16 else 4)
+    nc = -(-hidden // vec)
+    c = 1 if nc <= 256 else 2 if nc <= 512 else 4
+    need = -(-nc // (32 * c))
+    return c, (need if need <= 4 else 6 if need <= 6 else 8)
+
+
+class LnFwdPlan(NamedTuple):
+    """One forward launch: ``warps`` a row, ``chunks`` 16-byte chunks a
+    thread, ``groups`` rows at once a CTA, each group ``depth`` rows in
+    flight, ``ctas`` CTAs, ``smem`` bytes of the groups' warp sums."""
+    chunks: int
+    warps: int
+    groups: int
+    depth: int
+    ctas: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_plan(rows: int, hidden: int, dtype: torch.dtype,
+              sms: int) -> LnFwdPlan:
+    """The forward's launch from the shapes and the card's ``sms`` alone.
+    Few rows (the serve and decode legs' 1-16, a prefill chunk's 256): one
+    row a group and as few groups a CTA as spread the rows over the SMs,
+    so every row is loaded at once and a call pays one memory latency.
+    Many rows (the train legs' 8192-65536): full CTAs, as many as the SMs
+    hold at once at the kernel's launch bounds, each group walking every
+    (ctas * groups)-th row with ``depth`` - 1 rows' loads in flight."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"no forward kernel for {dtype}")
+    c, w = row_shape(hidden, dtype)
+    most = max(1, FWD_CTA_WARPS[c] // w)
+    groups = min(most, -(-rows // sms))
+    resident = sms * max(1, FWD_SM_WARPS[c] // (groups * w))
+    ctas = min(-(-rows // groups), resident)
+    return LnFwdPlan(c, w, groups, FWD_DEPTH[c], ctas, groups * 2 * w * 4)
+
+
 def ln_fwd_cuda(x2d: torch.Tensor, weight: Optional[torch.Tensor],
                 bias: Optional[torch.Tensor], eps: float,
                 rms: bool) -> Stats:
-    """Launch the forward kernel: (y, mean (rows, 1), rstd (rows, 1)).
-    Counts its launches in ``.launches``."""
+    """Launch the forward kernel on :func:`_fwd_plan`'s shape: (y, mean
+    (rows, 1), rstd (rows, 1)). Counts its launches in ``.launches``."""
     if weight is None and bias is not None:
         raise ValueError("bias without weight is not supported")
     _check_kernel_inputs("ln_fwd_cuda", x2d, weight)
@@ -146,12 +202,16 @@ def ln_fwd_cuda(x2d: torch.Tensor, weight: Optional[torch.Tensor],
     if rows == 0:
         return y, mean, rstd
     affine = 0 if weight is None else (1 if bias is None else 2)
+    index = x2d.device.index
+    plan = _fwd_plan(rows, hidden, x2d.dtype, _sm_count(
+        torch.cuda.current_device() if index is None else index))
     rc = _build.library().apex_ln_fwd(
         x2d.data_ptr(), None if weight is None else weight.data_ptr(),
         None if bias is None else bias.data_ptr(), y.data_ptr(),
         mean.data_ptr(), rstd.data_ptr(), _DTYPE_CODES[x2d.dtype],
         int(weight is not None and weight.dtype == torch.bfloat16), affine,
-        int(rms), rows, hidden, float(eps),
+        int(rms), rows, hidden, float(eps), plan.chunks, plan.warps,
+        plan.groups, plan.ctas, plan.smem,
         torch.cuda.current_stream(x2d.device).cuda_stream)
     _build.check(rc, "ln_fwd")
     ln_fwd_cuda.launches += 1

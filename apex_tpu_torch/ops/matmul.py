@@ -198,6 +198,7 @@ def _plan(x: torch.Tensor, w: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
+@functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 

@@ -8,6 +8,12 @@ CUDA tensor launches :func:`fused_sample_cuda` (the hand-written kernel
 ``apex_tpu_torch/csrc/fused_sample.cu``, replacing the Pallas
 ``fused_sample_fwd``), a CPU tensor runs the helpers.
 
+The kernel splits each row over a thread-block cluster and finds the
+top-k and top-p thresholds exactly by radix select (4 rounds of 8-bit
+digits on the order-preserving key of each score) instead of bisecting;
+:func:`_sample_plan` picks the split, the threads and the values a thread
+from the shapes alone.
+
 The uniform noise is an operand (``u``) or is drawn here from an explicit
 ``torch.Generator``. torch cannot reproduce JAX's threefry bits, so parity
 with the reference is tested on shared noise.
@@ -15,11 +21,14 @@ with the reference is tested on shared noise.
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from apex_tpu_torch.ops import _backend, _build
+from apex_tpu_torch.ops.matmul import _sm_count
 
 #: masked-out logit value (``apex_tpu/ops/pallas/sampling.py:53``)
 FILTERED = -1e30
@@ -27,9 +36,98 @@ FILTERED = -1e30
 #: bisection steps to a one-ulp threshold (``:58``)
 BISECT_ITERS = 48
 
-#: the widest row the kernel holds in shared memory (fp32, 192 KB)
+#: the widest row the kernel takes (its shares held in registers)
 KERNEL_MAX_VOCAB = 49152
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: cluster sizes the plan picks from (16 ran slower than 8 at every timed
+#: call: a round's merge and barrier grow with the cluster)
+SAMPLE_SPLITS = (1, 2, 4, 8)
+#: values a thread holds in registers, and a CTA's threads at most at each
+#: (the kernel's launch bounds: 512 threads, 128 registers a thread)
+SAMPLE_VALUES = {8: 512, 16: 512, 32: 512}
+#: the fewest threads a CTA: one for each of the 256 bins of a radix round
+SAMPLE_MIN_THREADS = 256
+#: the fewest values a rank's share holds when the split is not forced
+SAMPLE_MIN_SHARE = 256
+#: a CTA's static shared memory (``Shared`` in ``csrc/sample_cluster.cuh``,
+#: bytes): two 256-bin u64 histograms, the scan's 8 warp totals, the
+#: selected digit and its masses, the largest keys, the ranks' and the
+#: warps' draws, then rank 0's gathered entries (8 ranks x 256 of key,
+#: score and index, their counts, 256 compacted keys and u64 masses)
+SAMPLE_SMEM = (2 * 256 * 8 + 8 * 8 + 2 * 8 + 3 * 4 + 2 * 8 * 4 + 3 * 32 * 4
+               + 3 * 8 * 256 * 4 + 8 * 4 + 256 * 4 + 4 + 256 * 8)
+#: planted faults of the kernel's tests: the last rank of a cluster left
+#: out of every merge, or top-k run with k + 1
+PLANTED_FAULTS = ("drop_last_rank", "top_k_plus_one")
+
+
+class SamplePlan(NamedTuple):
+    """One sampling launch: each row over a cluster of ``splits`` CTAs of
+    ``threads`` threads; rank r holds ``share`` values of the row (the last
+    rank what is left), ``values`` a thread in registers."""
+    splits: int
+    threads: int
+    values: int
+    share: int
+
+
+def _share(V: int, splits: int) -> int:
+    """A rank's share of a row of V: ceil(V / S), up to a multiple of 8 so
+    every share starts on a 16-byte chunk."""
+    return -(-(-(-V // splits)) // 8) * 8
+
+
+def _fit(share: int) -> Optional[Tuple[int, int]]:
+    """(threads, values a thread) that hold ``share`` values: the fewest
+    values a thread, then whole warps and at least 256 threads; None if no
+    CTA holds it in registers."""
+    for values, most in SAMPLE_VALUES.items():
+        threads = -(-(-(-share // values)) // 32) * 32
+        if threads <= most:
+            return max(threads, SAMPLE_MIN_THREADS), values
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def _sample_plan(b: int, V: int, sms: int) -> SamplePlan:
+    """The sampling launch from the shapes and the card's ``sms`` alone
+    (never the logits): the largest cluster size S that keeps the grid of
+    b × S CTAs within one CTA an SM (a second CTA an SM only adds fixed
+    cost) and each rank's share at least :data:`SAMPLE_MIN_SHARE` values,
+    but never less than the S whose shares fit a CTA's registers (V 32768
+    needs S 2). The serve's decode steps (b 8) and prefill chunks (b 1)
+    take S 8."""
+    if not 1 <= V <= KERNEL_MAX_VOCAB:
+        raise ValueError(f"the sampling kernel takes a row of 1 to "
+                         f"{KERNEL_MAX_VOCAB} logits; got V={V}")
+    least = next(S for S in SAMPLE_SPLITS if _fit(_share(V, S)))
+    splits = least
+    for S in SAMPLE_SPLITS:
+        if S > least and b * S <= sms and _share(V, S) >= SAMPLE_MIN_SHARE:
+            splits = S
+    share = _share(V, splits)
+    threads, values = _fit(share)
+    return SamplePlan(splits, threads, values, share)
+
+
+def _plan_for(logits: torch.Tensor) -> SamplePlan:
+    b, V = logits.shape
+    index = logits.device.index
+    return _sample_plan(b, V, _sm_count(
+        torch.cuda.current_device() if index is None else index))
+
+
+def max_active_clusters(plan: SamplePlan, dtype: torch.dtype, V: int) -> int:
+    """How many of ``plan``'s clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``); 0: the card refuses the launch.
+    Needs the card."""
+    n = ctypes.c_int(0)
+    rc = _build.library().apex_fused_sample_clusters(
+        _DTYPE_CODES[dtype], V, plan.splits, plan.threads, plan.values,
+        plan.share, ctypes.byref(n))
+    _build.check(rc, "fused_sample_clusters")
+    return n.value
 
 
 def uniform_noise(shape, generator: Optional[torch.Generator],
@@ -103,11 +201,12 @@ def filtered_scaled(logits: torch.Tensor, *, temperature: float, top_k: int,
 
 
 def fused_sample_cuda(logits: torch.Tensor, u: torch.Tensor, *,
-                      temperature: float, top_k: int,
-                      top_p: float) -> torch.Tensor:
+                      temperature: float, top_k: int, top_p: float,
+                      planted_fault: Optional[str] = None) -> torch.Tensor:
     """Launch the fused sampling kernel: (b, V) logits + (b, V) fp32
-    uniform noise → (b,) int32 tokens, one CTA per row. Counts its
-    launches in ``.launches``."""
+    uniform noise → (b,) int32 tokens, each row over a cluster of CTAs
+    (:func:`_sample_plan`). ``planted_fault`` (tests only) is one of
+    :data:`PLANTED_FAULTS`. Counts its launches in ``.launches``."""
     b, V = logits.shape
     if logits.device.type != "cuda" or u.device != logits.device:
         raise ValueError("fused_sample_cuda takes CUDA tensors on one "
@@ -124,12 +223,19 @@ def fused_sample_cuda(logits: torch.Tensor, u: torch.Tensor, *,
                                        and u.is_contiguous()):
         raise ValueError(f"logits and u must be contiguous (b, V); got "
                          f"{tuple(logits.shape)}, {tuple(u.shape)}")
+    if not 0 <= top_k <= V:
+        raise ValueError(f"top_k must be in [0, V={V}]; got {top_k}")
+    if planted_fault not in (None, *PLANTED_FAULTS):
+        raise ValueError(f"no planted fault {planted_fault!r}")
+    if planted_fault == "top_k_plus_one":
+        top_k = min(top_k + 1, V)
+    plan = _plan_for(logits)
     out = torch.empty((b,), dtype=torch.int32, device=logits.device)
-    lib = _build.library()
-    rc = lib.apex_fused_sample(
+    rc = _build.library().apex_fused_sample(
         logits.data_ptr(), u.data_ptr(), out.data_ptr(),
         _DTYPE_CODES[logits.dtype], b, V, 1.0 / temperature, int(top_k),
-        int(top_p < 1.0), float(top_p),
+        int(top_p < 1.0), float(top_p), plan.splits, plan.threads,
+        plan.values, plan.share, int(planted_fault == "drop_last_rank"),
         torch.cuda.current_stream(logits.device).cuda_stream)
     _build.check(rc, "fused_sample")
     fused_sample_cuda.launches += 1

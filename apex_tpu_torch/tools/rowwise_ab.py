@@ -1,24 +1,30 @@
-"""The row-wise and decode kernels of another checkout, for timing in turns.
+"""The row-wise, decode and sampling kernels of another checkout, for
+timing in turns.
 
-Builds a second checkout's ``layer_norm.cu``, ``softmax.cu`` and
-``paged_decode_attn.cu`` (with its own headers and ``errors.cu``) into a
-library of their own, loads it with ``ctypes``, and runs the port's
-wrappers through it inside :func:`using` — the wrappers look the library
-up on every call, so the same Python code launches either tree's kernels:
+Builds a second checkout's ``layer_norm.cu``, ``softmax.cu``,
+``paged_decode_attn.cu`` and ``fused_sample.cu`` (with its own headers and
+``errors.cu``) into a library of their own, loads it with ``ctypes``, and
+runs the port's wrappers through it inside :func:`using` — the wrappers
+look the library up on every call, so the same Python code launches either
+tree's kernels:
 
     from apex_tpu_torch.tools import rowwise_ab
     lib = rowwise_ab.other_library("/path/to/parent/checkout")
     with rowwise_ab.using(lib):
         ln_bwd_cuda(...)          # the other checkout's apex_ln_bwd
 
-``chip_smoke.py --parent DIR`` times ``ln_bwd``, ``softmax_fwd`` and the
-two decode kernels so, against a ``git archive`` of the parent commit
-unpacked into a directory that ``.gitignore`` lists. The row-wise entry
-points must have the signatures of this tree's ``_build.ENTRY_POINTS``;
-the decode entries have the parent's own (:data:`PARENT_DECODE_ENTRY_POINTS`:
-no launch plan, and rows-long lengths for the contiguous one), and
-:func:`parent_decode_attn` and :func:`parent_paged_decode_attn` launch
-them as the parent's wrappers did. Needs ``nvcc``.
+``chip_smoke.py --parent DIR`` times ``ln_fwd``, ``ln_bwd``,
+``softmax_fwd``, the two decode kernels and ``fused_sample`` so, against a
+``git archive`` of the parent commit unpacked into a directory that
+``.gitignore`` lists. The entry points take the signatures of this tree's
+``_build.ENTRY_POINTS``, except those this tree changed: the parent's
+``apex_ln_fwd`` and ``apex_fused_sample`` take no launch plan
+(:data:`PARENT_ENTRY_POINTS`), and :func:`parent_ln_fwd` and
+:func:`parent_fused_sample` launch them as the parent's wrappers did.
+Needs ``nvcc``.
+
+:func:`empty_library` builds this tree's ``ln_fwd`` and sampling kernels
+returning at once, for the fixed cost of a launch.
 
 :func:`ptxas_report` reads a build log written with ``-Xptxas -v`` into
 registers and spills per kernel.
@@ -39,23 +45,24 @@ from apex_tpu_torch import nvcc_path
 from apex_tpu_torch.ops import _build
 
 SOURCES = ("layer_norm.cu", "softmax.cu", "paged_decode_attn.cu",
-           "errors.cu")
+           "fused_sample.cu", "errors.cu")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: the parent commit's decode entries: one CTA a row, no plan arguments
-PARENT_DECODE_ENTRY_POINTS = {
-    # q, k_pool, v_pool, tables, lengths (b,), out, dtype, b, h_kv, group,
-    # d, bs, nb, scale, stream
-    "apex_paged_decode_attn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _F, _P],
-    # q, k, v, lengths (rows,), out, dtype, rows, group, d, max_s, scale,
+#: the parent commit's entries whose signatures this tree changed: no
+#: launch plan
+PARENT_ENTRY_POINTS = {
+    # x, w, b, y, mean, rstd, dtype, w_bf16, affine, rms, rows, n, eps,
     # stream
-    "apex_decode_attn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "apex_ln_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # logits, u, out, dtype, b, V, inv_temp, top_k, use_top_p, top_p,
+    # stream
+    "apex_fused_sample": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _F, _P],
 }
 
 
 def other_library(root) -> Tuple[ctypes.CDLL, str]:
-    """Build ``root``'s row-wise kernels with this tree's flags into
-    ``_build/other_<digest>/`` and load them: (library, ptxas log)."""
+    """Build ``root``'s row-wise, decode and sampling kernels with this
+    tree's flags into ``_build/other_<digest>/`` and load them: (library,
+    ptxas log)."""
     csrc = Path(root).resolve() / "apex_tpu_torch" / "csrc"
     h = hashlib.sha256(" ".join(_build.ARCH_FLAGS
                                 + _build.COMPILE_FLAGS).encode())
@@ -74,19 +81,58 @@ def other_library(root) -> Tuple[ctypes.CDLL, str]:
         raise RuntimeError(f"building {csrc}'s {', '.join(failed)} "
                            f"failed:\n{log}")
     lib = ctypes.CDLL(str(lib_path))
-    for name, argtypes in _build.ENTRY_POINTS.items():
-        if name.startswith(("apex_ln_", "apex_softmax_")) \
-                and hasattr(lib, name):
+    for name, argtypes in {**_build.ENTRY_POINTS,
+                           **PARENT_ENTRY_POINTS}.items():
+        if hasattr(lib, name):
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-    for name, argtypes in PARENT_DECODE_ENTRY_POINTS.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
     lib.apex_cuda_error_string.argtypes = [ctypes.c_int]
     lib.apex_cuda_error_string.restype = ctypes.c_char_p
     return lib, log
+
+
+#: the edits that make this tree's ln_fwd and sampling kernels return at
+#: once, for the fixed cost of a launch at a plan's grid and clusters:
+#: source -> (the line the early return follows, the early return)
+EMPTY_EDITS = {
+    "layer_norm.cu": ("  constexpr int D = fwd_depth(C);\n",
+                      "  if (rows > 0) return;\n"),
+    "fused_sample.cu": ("  constexpr bool kKeepMass = P <= 16;\n",
+                        "  if (V > 0) return;\n"),
+}
+
+
+def empty_library() -> ctypes.CDLL:
+    """This tree's ``layer_norm.cu`` and ``fused_sample.cu`` with
+    :data:`EMPTY_EDITS` applied to a copy under ``_build/`` (never to the
+    sources), built and loaded with this tree's entry points: the same
+    launches (grid, clusters, checks) doing no work."""
+    csrc = _build.CSRC_DIR
+    out = _build.BUILD_DIR / f"empty_{_build._digest()}"
+    if out.exists():
+        shutil.rmtree(out)
+    shutil.copytree(csrc, out)
+    for name, (after, line) in EMPTY_EDITS.items():
+        text = (out / name).read_text()
+        if after not in text:
+            raise RuntimeError(f"{name} no longer has the line the empty "
+                               f"launch's return follows: {after!r}")
+        (out / name).write_text(text.replace(after, after + line, 1))
+    lib_path = out / "libempty.so"
+    log, failed = _build.compile_library(
+        [out / name for name in (*EMPTY_EDITS, "errors.cu")], out, lib_path)
+    if failed:
+        raise RuntimeError(f"building the empty kernels failed:\n{log}")
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in _build.ENTRY_POINTS.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    lib.apex_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.apex_cuda_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _stream(t):
@@ -95,61 +141,45 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def parent_paged_decode_attn(lib, q, k_pool, v_pool, lengths, block_tables,
-                             scale):
-    """The parent's paged decode kernel on the tree wrapper's operands
-    (q (b·h_kv, group, d), int32 lengths and tables), as its wrapper
-    launched it."""
+def parent_ln_fwd(lib, x2d, weight, bias, eps, rms):
+    """The parent's forward kernel on the tree wrapper's operands, as its
+    wrapper launched it: (y, mean (rows, 1), rstd (rows, 1))."""
     import torch
 
-    from apex_tpu_torch.ops.decode_attention import _DTYPE_CODES
+    from apex_tpu_torch.ops.layer_norm import _DTYPE_CODES
 
-    rows, group, d = q.shape
-    _, h_kv, bs, _ = k_pool.shape
-    b, nb = block_tables.shape
-    out = torch.empty_like(q)
-    rc = lib.apex_paged_decode_attn(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        _DTYPE_CODES[q.dtype], b, h_kv, group, d, bs, nb, float(scale),
-        _stream(q))
+    rows, hidden = x2d.shape
+    y = torch.empty_like(x2d)
+    mean = torch.empty((rows, 1), dtype=torch.float32, device=x2d.device)
+    rstd = torch.empty((rows, 1), dtype=torch.float32, device=x2d.device)
+    affine = 0 if weight is None else (1 if bias is None else 2)
+    rc = lib.apex_ln_fwd(
+        x2d.data_ptr(), None if weight is None else weight.data_ptr(),
+        None if bias is None else bias.data_ptr(), y.data_ptr(),
+        mean.data_ptr(), rstd.data_ptr(), _DTYPE_CODES[x2d.dtype],
+        int(weight is not None and weight.dtype == torch.bfloat16), affine,
+        int(rms), rows, hidden, float(eps), _stream(x2d))
     if rc:
-        raise RuntimeError(f"the parent's paged decode kernel: CUDA error "
-                           f"{rc}")
-    return out
+        raise RuntimeError(f"the parent's ln_fwd kernel: CUDA error {rc}")
+    return y, mean, rstd
 
 
-def parent_decode_attn(lib, q, k, v, row_lengths, scale):
-    """The parent's contiguous decode kernel: q (rows, group, d), k/v
-    (rows, max_s, d), ``row_lengths`` (rows,) int32 — the per-batch
-    lengths repeated over kv heads, as its wrapper made them."""
+def parent_fused_sample(lib, logits, u, *, temperature, top_k, top_p):
+    """The parent's sampling kernel (one CTA a row) on (b, V) logits and
+    noise, as its wrapper launched it: (b,) int32 tokens."""
     import torch
 
-    from apex_tpu_torch.ops.decode_attention import _DTYPE_CODES
+    from apex_tpu_torch.ops.sampling import _DTYPE_CODES
 
-    rows, group, d = q.shape
-    out = torch.empty_like(q)
-    rc = lib.apex_decode_attn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), row_lengths.data_ptr(),
-        out.data_ptr(), _DTYPE_CODES[q.dtype], rows, group, d, k.shape[1],
-        float(scale), _stream(q))
+    b, V = logits.shape
+    out = torch.empty((b,), dtype=torch.int32, device=logits.device)
+    rc = lib.apex_fused_sample(
+        logits.data_ptr(), u.data_ptr(), out.data_ptr(),
+        _DTYPE_CODES[logits.dtype], b, V, 1.0 / temperature, int(top_k),
+        int(top_p < 1.0), float(top_p), _stream(logits))
     if rc:
-        raise RuntimeError(f"the parent's decode kernel: CUDA error {rc}")
+        raise RuntimeError(f"the parent's sampling kernel: CUDA error {rc}")
     return out
-
-
-def parent_decode_attention(lib, q, k, v, lengths):
-    """What the parent's ``decode_attention`` launched for a contiguous
-    cache: q (b, h, d), k/v (b, h_kv, max_s, d), lengths (b,) int32 — the
-    ``repeat_interleave`` of the lengths over kv heads, then its kernel."""
-    b, h, d = q.shape
-    h_kv, max_s = k.shape[1], k.shape[2]
-    rows = b * h_kv
-    out = parent_decode_attn(
-        lib, q.reshape(rows, h // h_kv, d), k.reshape(rows, max_s, d),
-        v.reshape(rows, max_s, d),
-        lengths.repeat_interleave(h_kv).contiguous(), d ** -0.5)
-    return out.reshape(b, h, d)
 
 
 @contextlib.contextmanager

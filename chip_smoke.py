@@ -27,8 +27,12 @@ without the final line):
    ragged serve-like mix, through ``decode_attention`` and the kernel
    entry alone, the parent's kernel in turns under ``--parent``, and at
    each split 1, 2, 4, 8 beside every length 0, ``decode_sweep``),
-   ``fused_sample``
-   ((8, 32768) at T=0.8 with top-k/top-p on and off), the flash forward
+   ``fused_sample`` (each row over a cluster of S CTAs by the host's
+   plan; the serve's decode step (8, 32768) and prefill chunk (1, 32768)
+   at T=0.8 with top-k/top-p on and off, 4 seeds each, tokens
+   bit-identical across two runs; timed at both with the serve's knobs,
+   the parent's kernel in turns under ``--parent``, and with each knob
+   set, ``sample_times``), the flash forward
    and the dK/dV and dQ backward kernels (the train step's b 20, s 1024,
    8 heads of 128, and a GQA case: b 8, s 1000, 2 kv heads) and
    ``xent_stats`` ((20480, 32768) with out-of-range labels), ``ln_fwd``
@@ -39,8 +43,11 @@ without the final line):
    every path's softmax call (GPT causal 20 x 8 x 1024², BERT's key mask
    32 x 16 x 512², T5's decoder triangle 114², cross 114 x 512 and
    encoder 512², fully masked rows, a 4096-long row; planted faults in
-   their outputs must fail the rule; ``ln_fwd`` timed at GPT's and the
-   decode call, ``ln_bwd`` at each train path's norm call and
+   their outputs must fail the rule; y, mean and rstd bit-identical
+   across two runs; ``ln_fwd`` timed at every main path's call — the
+   serve's 8 and 256 rows, the decode leg's 16 and 8192, BERT's, GPT's,
+   T5's two — and at one row, each with its plan (``ln_fwd_times``),
+   ``ln_bwd`` at each train path's norm call and
    ``softmax_fwd`` at each of the five softmax calls,
    with the row kernel's launch shape and ptxas registers and spills, and
    with ``--parent DIR`` the kernels of that checkout — a git archive of
@@ -300,11 +307,14 @@ T5 = dict(vocab_size=32128, max_seq_len=512, hidden_size=768,
 T5_BATCH, T5_ENC, T5_DEC, T5_STEPS = 128, 512, 114, 10
 T5_PAD_MIN = 256        # padded batches: encoder lengths in [256, 512]
 T5_DTABLE_TOL = 1e-3    # bucket-table gradient: relative norm error
-# ``--parent DIR``: that checkout's ln_bwd, softmax_fwd and decode kernels,
+# ``--parent DIR``: that checkout's row-wise, decode and sampling kernels,
 # built into a library of their own, (library, ptxas log); None without it
 PARENT = None
 # registers and spills of every kernel of this run's build, by name
 PTXAS = {}
+# this tree's ln_fwd and sampling kernels returning at once
+# (rowwise_ab.empty_library): the fixed cost of their launches
+EMPTY = None
 
 
 def check(cond, msg):
@@ -433,7 +443,6 @@ def phase_decode_kernel(torch, dev):
     entry alone, with the parent's kernel in turns under ``--parent``; and
     at 8 x 512 at each split (``decode_split_sweep``)."""
     from apex_tpu_torch.ops import decode_attention as D
-    from apex_tpu_torch.tools import rowwise_ab
     import torch.nn.functional as F
 
     ragged = [0, 1, 127, 128, 129, 300, 512, 1000]
@@ -466,9 +475,6 @@ def phase_decode_kernel(torch, dev):
     kern = lambda *a: D.decode_attention(*a[:4], block_tables=a[4])  # noqa
     entry = lambda q, pk, pv, lens, t: D.paged_decode_attn_cuda(  # noqa
         q.reshape(b * 8, 1, d), pk, pv, lens, t, scale=scale)
-    parent = lambda lib, q, pk, pv, lens, t: (  # noqa: E731
-        rowwise_ab.parent_paged_decode_attn(lib, q.reshape(b * 8, 1, d), pk,
-                                            pv, lens, t, scale))
     per_shape = {}
     # every slot at 512 live rows (MHA), and a ragged serve-like mix; six
     # pool copies in turn
@@ -476,9 +482,8 @@ def phase_decode_kernel(torch, dev):
                           ("ragged", [330, 1000, 512, 640, 384, 896, 600,
                                       350])):
         sets = decode_case(torch, dev, 8, lengths, seed=3, copies=6)
-        ms, parent_ms = parent_turns(torch, kern, sets, parent_fn=parent)
-        entry_ms, parent_entry_ms = parent_turns(torch, entry, sets,
-                                                 parent_fn=parent)
+        ms, parent_ms = parent_turns(torch, kern, sets)
+        entry_ms, parent_entry_ms = parent_turns(torch, entry, sets)
         live = sum(lengths)
         bms, by = bound(2 * b * h * d * 2           # q in, out
                         + 2 * live * 8 * d * 2      # live K and V, once
@@ -526,35 +531,58 @@ def phase_decode_kernel(torch, dev):
             "per_shape": per_shape}
 
 
-def phase_sample_kernel(torch, dev):
-    from apex_tpu_torch.ops.sampling import filtered_scaled, fused_sample
+def sample_case(torch, dev, b, V, seed):
+    """bf16 logits (randn x 3) and fp32 noise in [tiny, 1) of (b, V)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logits = (torch.randn((b, V), generator=g, device=dev) * 3.0).bfloat16()
+    u = torch.rand((b, V), generator=g, device=dev).clamp_min(
+        torch.finfo(torch.float32).tiny)
+    return logits, u
 
-    b, V = 8, 32768
-    knobs = [(0, 1.0), (50, 1.0), (0, 0.9), (50, 0.9)]
+
+# the sampler's knob sets (top_k, top_p) at T 0.8: none, top-k, top-p, both
+SAMPLE_KNOBS = [(0, 1.0), (50, 1.0), (0, 0.9), (50, 0.9)]
+
+
+def phase_sample_kernel(torch, dev):
+    """The sampling kernel against its plain version at the serve's decode
+    step (8 rows) and prefill chunk (1 row), V 32768, over 4 seeds x 4 knob
+    sets: no token mismatch outside near-ties (at most 1% of rows
+    excluded), tokens bit-identical across two runs; the plans and the
+    card's room for their clusters; times at (8, V) and (1, V) with the
+    serve's knobs, the parent's kernel in turns under ``--parent``, a copy
+    of the kernel that returns at once on the same clusters (``empty_ms``)
+    and each knob set (``none``: the loads, one cluster barrier and the
+    draw)."""
+    from apex_tpu_torch.ops import sampling as SM
+    from apex_tpu_torch.ops.matmul import _sm_count
+    from apex_tpu_torch.tools import rowwise_ab
+
+    V = MODEL["vocab_size"]
     mismatches = ties_total = rows = 0
     err = 0
-    for seed in range(4):
-        g = torch.Generator(device=dev).manual_seed(100 + seed)
-        logits = (torch.randn((b, V), generator=g, device=dev)
-                  * 3.0).bfloat16()
-        u = torch.rand((b, V), generator=g, device=dev).clamp_min(
-            torch.finfo(torch.float32).tiny)
-        for top_k, top_p in knobs:
-            kw = dict(temperature=0.8, top_k=top_k, top_p=top_p, u=u)
-            got = fused_sample(logits, **kw)
-            want = fused_sample(logits, impl="torch", **kw)
-            s = filtered_scaled(logits, temperature=0.8, top_k=top_k,
-                                top_p=top_p)
-            x = (s - torch.log(-torch.log(u))).double()
-            top2 = x.topk(2, dim=-1).values
-            ties = ((top2[:, 0] - top2[:, 1]).abs()
-                    <= NEAR_TIE * top2[:, 0].abs())
-            bad = (got != want) & ~ties
-            mismatches += int(bad.sum())
-            ties_total += int(ties.sum())
-            rows += b
-            diff = (got.long() - want.long()).abs()[~ties]
-            err = max(err, int(diff.max()) if diff.numel() else 0)
+    for b in (8, 1):
+        for seed in range(4):
+            logits, u = sample_case(torch, dev, b, V, 100 + 10 * b + seed)
+            for top_k, top_p in SAMPLE_KNOBS:
+                kw = dict(temperature=0.8, top_k=top_k, top_p=top_p, u=u)
+                got = SM.fused_sample(logits, **kw)
+                again = SM.fused_sample(logits, **kw)
+                check(torch.equal(got, again), f"fused_sample not "
+                      f"bit-reproducible at b {b}, knobs {top_k, top_p}")
+                want = SM.fused_sample(logits, impl="torch", **kw)
+                s = SM.filtered_scaled(logits, temperature=0.8, top_k=top_k,
+                                       top_p=top_p)
+                x = (s - torch.log(-torch.log(u))).double()
+                top2 = x.topk(2, dim=-1).values
+                ties = ((top2[:, 0] - top2[:, 1]).abs()
+                        <= NEAR_TIE * top2[:, 0].abs())
+                bad = (got != want) & ~ties
+                mismatches += int(bad.sum())
+                ties_total += int(ties.sum())
+                rows += b
+                diff = (got.long() - want.long()).abs()[~ties]
+                err = max(err, int(diff.max()) if diff.numel() else 0)
     emit("sample_check", {"rows": rows, "near_ties_excluded": ties_total,
                           "mismatches": mismatches})
     check(mismatches == 0, f"fused_sample kernel vs plain: {mismatches} "
@@ -562,33 +590,64 @@ def phase_sample_kernel(torch, dev):
     check(ties_total <= 0.01 * rows, f"{ties_total} near-tie rows "
           f"excluded of {rows}")
 
-    g = torch.Generator(device=dev).manual_seed(7)
-    logits = (torch.randn((b, V), generator=g, device=dev) * 3.0).bfloat16()
-    u = torch.rand((b, V), generator=g, device=dev).clamp_min(
-        torch.finfo(torch.float32).tiny)
-    kern = lambda lg, uu: fused_sample(lg, u=uu, **SAMPLED)  # noqa: E731
-    plain = lambda lg, uu: fused_sample(lg, u=uu, impl="torch",  # noqa
-                                        **SAMPLED)
-    ms = time_ms(kern, [(logits, u)])
-    plain_ms = time_ms(plain, [(logits, u)], reps=3, trials=5)
-    nbytes = b * V * 2 + b * V * 4 + b * 4
-    # per element: scale 1, top-k bisection 48 x (compare, add), filter 1,
-    # max 1, exp + sum 2, live min 1, top-p bisection 48 x (compare, add),
-    # filter 1, Gumbel (2 logs, add, compare) 4
-    ops = b * V * (1 + 96 + 1 + 1 + 2 + 1 + 96 + 1 + 4)
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
+    sms = _sm_count(torch.cuda.current_device())
+    per_shape = {}
+    for b in (8, 1):
+        sets = [sample_case(torch, dev, b, V, 7 + b)]
+        plan = SM._sample_plan(b, V, sms)
+        clusters = SM.max_active_clusters(plan, torch.bfloat16, V)
+        check(clusters > 0, f"the card holds no cluster of the sampling "
+              f"plan {plan}")
+        kern = lambda lg, uu: SM.fused_sample(lg, u=uu, **SAMPLED)  # noqa
+        ms, parent_ms = parent_turns(
+            torch, kern, sets,
+            parent_fn=lambda lib, lg, uu: rowwise_ab.parent_fused_sample(
+                lib, lg, uu, **SAMPLED))
+        with rowwise_ab.using(EMPTY):
+            empty_ms = time_ms(kern, sets)
+        knobs = {}
+        for top_k, top_p in SAMPLE_KNOBS:
+            kw = dict(temperature=0.8, top_k=top_k, top_p=top_p)
+            name = ("none" if not top_k and top_p == 1.0 else
+                    f"top_k {top_k}" if top_p == 1.0 else
+                    f"top_p {top_p}" if not top_k else "both")
+            knobs[name] = time_ms(lambda lg, uu: SM.fused_sample(
+                lg, u=uu, **kw), sets)
+        nbytes = b * V * 2 + b * V * 4 + b * 4
+        # per value: the scale, its key and the largest key 3, four
+        # top-k rounds (prefix compare, bin, count) 12, the Gumbel term (2
+        # logs, an add) 3, the draw 2; top-p over the 50 live entries
+        # top-k leaves: each entry's exp and mass against every other's
+        ops = b * V * 20 + b * (2 * 50 * 50 + 50)
+        bms, by = bound(nbytes, ops, FP32_OPS_PER_S)
+        per_shape[f"b{b}"] = {
+            "rows": b, "vocab": V, "ms": ms, "parent_ms": parent_ms,
+            "empty_ms": empty_ms, "knobs_ms": knobs,
+            "plain_ms": time_ms(lambda lg, uu: SM.fused_sample(
+                lg, u=uu, impl="torch", **SAMPLED), sets, reps=3, trials=5),
+            "bound_ms": bms, "bound_by": by,
+            "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "ops_bound_ms": ops / FP32_OPS_PER_S * 1e3,
+            "plan": plan._asdict(), "max_active_clusters": clusters,
+            "ptxas": ptxas_of("fused_sample_kernel", ("__nv_bfloat16",
+                                                      str(plan.values)))}
+        emit("sample_times", dict(per_shape[f"b{b}"], **SAMPLED))
+    serve = per_shape["b8"]
     return {"name": "fused_sample", "route": "cuda",
             "source": "apex_tpu_torch/csrc/fused_sample.cu",
-            "replaces": "apex_tpu/ops/pallas/sampling.py:150",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                         >= ops / FP32_OPS_PER_S else "operations"),
+            "replaces": "apex_tpu/ops/pallas/sampling.py:156",
+            "max_abs_err": err, "ms": serve["ms"],
+            "parent_ms": serve["parent_ms"], "plain_ms": serve["plain_ms"],
+            "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
             "library_ms": None,
             "library_note": "no single PyTorch call computes temperature + "
                             "top-k + top-p + a draw on given noise",
-            "timed_shape": {"rows": b, "vocab": V, "dtype": "bf16",
-                            **SAMPLED}}
+            "kernel_note": "each row over a cluster of the plan's CTAs, "
+                           "radix-select thresholds; parent_ms: the parent "
+                           "commit's kernel in turns (--parent)",
+            "timed_shape": {"rows": 8, "vocab": V, "dtype": "bf16",
+                            **SAMPLED},
+            "plan": serve["plan"], "per_shape": per_shape}
 
 
 def bound(nbytes, ops, ops_per_s):
@@ -1365,11 +1424,9 @@ def phase_contig_decode_kernel(torch, dev):
     plan; times with every row at 640 live positions (the decode leg's
     last step) and at 513, each through ``decode_attention`` and the
     kernel entry alone, with the parent's kernel in turns under
-    ``--parent`` (its ``decode_attention`` repeated the lengths over kv
-    heads first); and at 640 live at each split (``decode_split_sweep``)."""
+    ``--parent``; and at 640 live at each split (``decode_split_sweep``)."""
     import torch.nn.functional as F
     from apex_tpu_torch.ops import decode_attention as D
-    from apex_tpu_torch.tools import rowwise_ab
 
     b, h, d, max_s = DECODE_BATCH, 8, 128, 1024
     ragged = [0, 1, 127, 128, 129, 300, 512, 513, 600, 640, 700, 900,
@@ -1412,22 +1469,15 @@ def phase_contig_decode_kernel(torch, dev):
 
     scale = d ** -0.5
     kern = lambda q, k, v, n: D.decode_attention(q, k, v, n)  # noqa: E731
-    parent = lambda lib, q, k, v, n: (  # noqa: E731
-        rowwise_ab.parent_decode_attention(lib, q, k, v, n))
     per_shape = {}
     for L in (DECODE_PROMPT + DECODE_NEW, DECODE_PROMPT + 1):
         sets = [case(b, 8, [L] * b, seed=50 + i) for i in range(2)]
-        rows3 = [(q.reshape(b * 8, 1, d), k.reshape(b * 8, max_s, d),
-                  v.reshape(b * 8, max_s, d), n) for q, k, v, n in sets]
-        entry_sets = [r + (n.repeat_interleave(8).contiguous(),)
-                      for r, (_, _, _, n) in zip(rows3, sets)]
-        entry = lambda q, k, v, n, _: D.decode_attn_cuda(  # noqa: E731
+        entry_sets = [(q.reshape(b * 8, 1, d), k.reshape(b * 8, max_s, d),
+                       v.reshape(b * 8, max_s, d), n) for q, k, v, n in sets]
+        entry = lambda q, k, v, n: D.decode_attn_cuda(  # noqa: E731
             q, k, v, n, scale=scale)
-        parent_entry = lambda lib, q, k, v, _, rn: (  # noqa: E731
-            rowwise_ab.parent_decode_attn(lib, q, k, v, rn, scale))
-        ms, parent_ms = parent_turns(torch, kern, sets, parent_fn=parent)
-        entry_ms, parent_entry_ms = parent_turns(
-            torch, entry, entry_sets, parent_fn=parent_entry)
+        ms, parent_ms = parent_turns(torch, kern, sets)
+        entry_ms, parent_entry_ms = parent_turns(torch, entry, entry_sets)
         rows = b * h
         bms, by = bound(2 * rows * L * d * 2 + 2 * b * h * d * 2 + b * 4,
                         4 * rows * L * d, BF16_OPS_PER_S)
@@ -1469,8 +1519,7 @@ def phase_contig_decode_kernel(torch, dev):
             "kernel_note": "the split body at the plan's S (decode_plan); "
                            "ms through decode_attention, per-batch lengths "
                            "read by the kernel; parent_ms: the parent "
-                           "commit's decode_attention (its "
-                           "repeat_interleave and kernel) in turns",
+                           "commit's kernel in turns (--parent)",
             "timed_shape": {"batch": b, "heads": h, "kv_heads": 8,
                             "head_dim": d, "max_s": max_s,
                             "live_rows": L, "dtype": "bf16"},
@@ -3048,6 +3097,16 @@ LN_CALLS = {"gpt": (TRAIN_BATCH * TRAIN_SEQ, 1024),
             "t5_enc": (T5_BATCH * T5_ENC, 768),
             "t5_dec": (T5_BATCH * T5_DEC, 768),
             "decode": (DECODE_BATCH, 1024)}
+# every main path's ln_fwd call (rows, hidden): the serve's decode step and
+# prefill chunk, the decode leg's step and prefill, and the train legs'
+LN_FWD_CALLS = {"serve": (ENGINE["num_slots"], 1024),
+                "decode": (DECODE_BATCH, 1024),
+                "prefill_chunk": (ENGINE["prefill_chunk"], 1024),
+                "decode_prefill": (DECODE_BATCH * DECODE_PROMPT, 1024),
+                "bert": (BERT_BATCH * BERT_SEQ, 1024),
+                "gpt": (TRAIN_BATCH * TRAIN_SEQ, 1024),
+                "t5_dec": (T5_BATCH * T5_DEC, 768),
+                "t5_enc": (T5_BATCH * T5_ENC, 768)}
 # the main paths' softmax calls: (b, h, sq, sk) and the mask each takes
 SOFTMAX_CALLS = {"gpt_causal": ((TRAIN_BATCH, 8, TRAIN_SEQ, TRAIN_SEQ),
                                 "causal"),
@@ -3075,8 +3134,8 @@ def ln_check(torch, dev, rows, hidden, rms, affine, seed, what):
     """ln_fwd and ln_bwd against their plain versions on one call: y and
     dx by the bf16 rule against the fp32 truth, mean and rstd within 1e-5
     of the truth's largest entry, dgamma/dbeta within one bf16 ulp (2^-7)
-    of the largest and bit-identical across two runs. Returns the y and
-    dx errors."""
+    of the largest; y, mean, rstd, dx, dgamma and dbeta bit-identical
+    across two runs. Returns the y and dx errors."""
     from apex_tpu_torch.ops import layer_norm as LN
 
     sets, w, b = ln_case(torch, dev, rows, hidden, affine, seed)
@@ -3085,6 +3144,7 @@ def ln_check(torch, dev, rows, hidden, rms, affine, seed, what):
     shape = {"rows": rows, "hidden": hidden, "rms": rms, "affine": affine,
              "call": what}
     y, mean, rstd = LN.ln_fwd_cuda(x, w, b, LN_EPS, rms)
+    fwd_again = LN.ln_fwd_cuda(x, w, b, LN_EPS, rms)
     dx, dw, db = LN.ln_bwd_cuda(dy, x, mean, rstd, w, rms)
     again = LN.ln_bwd_cuda(dy, x, mean, rstd, w, rms)
     yp, mp, rp = LN._torch_fwd(x, w, b, LN_EPS, rms)
@@ -3109,6 +3169,8 @@ def ln_check(torch, dev, rows, hidden, rms, affine, seed, what):
     check(all(torch.equal(a, c) for a, c in zip((dx, dw, db), again)
               if a is not None),
           f"ln_bwd not bit-reproducible at {shape}")
+    check(all(torch.equal(a, c) for a, c in zip((y, mean, rstd), fwd_again)),
+          f"ln_fwd not bit-reproducible at {shape}")
     return errs
 
 
@@ -3223,36 +3285,10 @@ def phase_ln_kernels(torch, dev):
             "ptxas": ptxas_of("ln_bwd_kernel", ("__nv_bfloat16", str(c),
                                                 str(wr), "true"))}
         emit("ln_bwd_times", dict(per_shape[what], call=what))
-        if what == "gpt":
-            fwd_sets = [(x,) for x, _ in sets]
-            ms_fwd = time_ms(lambda x: LN.ln_fwd_cuda(x, w, b, LN_EPS,
-                                                      False), fwd_sets)
-            plain_fwd = time_ms(lambda x: LN._torch_fwd(x, w, b, LN_EPS,
-                                                        False),
-                                fwd_sets, reps=6, trials=5)
-            lib_fwd = time_ms(lambda x: F.layer_norm(x, (hidden,), w, b,
-                                                     LN_EPS), fwd_sets)
-            fwd = bound(4 * n + 2 * 2 * hidden + 8 * rows, 8 * n,
-                        FP32_OPS_PER_S)
         del graphs, stats, sets, bwd_sets
         torch.cuda.empty_cache()
-    # the forward at the decode call too (16 x 1024: most ln_fwd launches
-    # are at the serve and decode legs' 8-16 rows), twelve copies in turn
-    rows, hidden = LN_CALLS["decode"]
-    sets, w, b = ln_case(torch, dev, rows, hidden, "wb", 8, copies=12)
-    fwd_sets = [(x,) for x, _ in sets]
-    dec_bound = bound(4 * rows * hidden + 2 * 2 * hidden + 8 * rows,
-                      8 * rows * hidden, FP32_OPS_PER_S)
-    fwd_decode = {
-        "rows": rows, "hidden": hidden,
-        "ms": time_ms(lambda x: LN.ln_fwd_cuda(x, w, b, LN_EPS, False),
-                      fwd_sets),
-        "plain_ms": time_ms(lambda x: LN._torch_fwd(x, w, b, LN_EPS, False),
-                            fwd_sets),
-        "library_ms": time_ms(lambda x: F.layer_norm(x, (hidden,), w, b,
-                                                     LN_EPS), fwd_sets),
-        "bound_ms": dec_bound[0], "bound_by": dec_bound[1]}
-    emit("ln_fwd_times", dict(fwd_decode, call="decode"))
+    fwd_shape = ln_fwd_times(torch, dev)
+    fwd = fwd_shape["gpt"]
     gpt = per_shape["gpt"]
     rows, hidden = LN_CALLS["gpt"]
     timed = {"rows": rows, "hidden": hidden, "dtype": "bf16",
@@ -3261,10 +3297,14 @@ def phase_ln_kernels(torch, dev):
     return [
         {"name": "ln_fwd", "route": "cuda", "source": src,
          "replaces": "apex_tpu/ops/pallas/layer_norm.py:102",
-         "max_abs_err": errs["y"], "ms": ms_fwd, "plain_ms": plain_fwd,
-         "bound_ms": fwd[0], "bound_by": fwd[1], "library_ms": lib_fwd,
-         "library_note": "F.layer_norm", "timed_shape": timed,
-         "per_shape": {"decode": fwd_decode}},
+         "max_abs_err": errs["y"], "ms": fwd["ms"],
+         "parent_ms": fwd["parent_ms"], "plain_ms": fwd["plain_ms"],
+         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
+         "library_ms": fwd["library_ms"], "library_note": "F.layer_norm",
+         "kernel_note": "a row over the plan's warps (ln_fwd_times' plan); "
+                        "parent_ms: the parent commit's kernel in turns "
+                        "(--parent)",
+         "timed_shape": timed, "per_shape": fwd_shape},
         {"name": "ln_bwd", "route": "cuda", "source": src,
          "replaces": "apex_tpu/ops/pallas/layer_norm.py:186",
          "max_abs_err": errs["dx"], "ms": gpt["ms"],
@@ -3277,6 +3317,60 @@ def phase_ln_kernels(torch, dev):
                         "fixed-order dgamma/dbeta reduction; parent_ms: "
                         "the parent commit's kernel in turns (--parent)",
          "timed_shape": timed, "per_shape": per_shape}]
+
+
+def ln_fwd_times(torch, dev):
+    """ln_fwd (LayerNorm, bf16 x, gamma and beta) at every main path's call
+    (LN_FWD_CALLS) and at one row (the fixed cost of a call), with the
+    parent's kernel in turns under ``--parent``, F.layer_norm, the plain
+    version and the bound beside each, the plan, registers and spills:
+    one ``ln_fwd_times`` line a call; ``empty_ms``: the same launch of a
+    copy of the kernel that returns at once (``rowwise_ab.empty_library``);
+    ``copy_ms``: the card's copy of x into another tensor (the same bytes
+    moved, no arithmetic).
+    Copies of x cycle through more than the 50 MB L2 at the train calls."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import layer_norm as LN
+    from apex_tpu_torch.ops.matmul import _sm_count
+    from apex_tpu_torch.tools import rowwise_ab
+
+    out = {}
+    for what, (rows, hidden) in [("one_row", (1, 1024)),
+                                 *LN_FWD_CALLS.items()]:
+        copies = min(12, max(3, -(-150_000_000 // (2 * rows * hidden))))
+        sets, w, b = ln_case(torch, dev, rows, hidden, "wb", 9,
+                             copies=copies)
+        fwd_sets = [(x,) for x, _ in sets]
+        del sets
+        kern = lambda x: LN.ln_fwd_cuda(x, w, b, LN_EPS, False)  # noqa
+        ms, parent_ms = parent_turns(
+            torch, kern, fwd_sets,
+            parent_fn=lambda lib, x: rowwise_ab.parent_ln_fwd(
+                lib, x, w, b, LN_EPS, False))
+        with rowwise_ab.using(EMPTY):
+            empty_ms = time_ms(kern, fwd_sets)
+        copy_ms = time_ms(lambda x, y: y.copy_(x),
+                          [(x, torch.empty_like(x)) for x, in fwd_sets])
+        n = rows * hidden
+        bms, by = bound(4 * n + 2 * 2 * hidden + 8 * rows, 8 * n,
+                        FP32_OPS_PER_S)
+        plan = LN._fwd_plan(rows, hidden, torch.bfloat16,
+                            _sm_count(torch.cuda.current_device()))
+        out[what] = {
+            "rows": rows, "hidden": hidden, "ms": ms, "parent_ms": parent_ms,
+            "empty_ms": empty_ms, "copy_ms": copy_ms,
+            "plain_ms": time_ms(lambda x: LN._torch_fwd(x, w, b, LN_EPS,
+                                                        False),
+                                fwd_sets, reps=6, trials=5),
+            "library_ms": time_ms(lambda x: F.layer_norm(
+                x, (hidden,), w, b, LN_EPS), fwd_sets),
+            "bound_ms": bms, "bound_by": by, "plan": plan._asdict(),
+            "ptxas": ptxas_of("ln_fwd_kernel", ("__nv_bfloat16",
+                                                str(plan.chunks), "2"))}
+        emit("ln_fwd_times", dict(out[what], call=what))
+        del fwd_sets
+        torch.cuda.empty_cache()
+    return out
 
 
 def softmax_case(torch, dev, shape, mask_kind, seed):
@@ -4125,7 +4219,7 @@ def phase_mlp_leg(torch, dev):
 
 
 def main(argv=None):
-    global PARENT, PTXAS
+    global PARENT, PTXAS, EMPTY
     import argparse
 
     import torch
@@ -4134,8 +4228,9 @@ def main(argv=None):
                                  "paths on one CUDA card.")
     ap.add_argument("--parent", metavar="DIR", default=None,
                     help="a checkout (e.g. a git archive of the parent "
-                    "commit) whose ln_bwd, softmax_fwd and decode kernels "
-                    "are timed in turns with this tree's")
+                    "commit) whose ln_fwd, ln_bwd, softmax_fwd, decode "
+                    "and sampling kernels are timed in turns with this "
+                    "tree's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
@@ -4158,13 +4253,15 @@ def main(argv=None):
     # --- build ----------------------------------------------------------------
     _build.library_path().unlink(missing_ok=True)  # build from the sources
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
         other = (pool.submit(rowwise_ab.other_library, args.parent)
                  if args.parent else None)
+        empty = pool.submit(rowwise_ab.empty_library)
         _build.library()
         build_s = time.perf_counter() - t0
         if other is not None:
             PARENT = other.result()
+        EMPTY = empty.result()
     PTXAS = rowwise_ab.ptxas_report(_build.build_log())
     ptxas = [ln.strip() for ln in _build.build_log().splitlines()
              if "registers" in ln or "spill" in ln or "Compiling" in ln]

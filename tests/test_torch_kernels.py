@@ -17,7 +17,13 @@ a call; the kernel given lengths one block short must fail the bf16
 tolerance against the plain version on the full lengths. Sampled
 tokens must be identical except on rows whose two best perturbed scores
 lie within 1e-5 relative (``log``/``exp`` and the top-p sums differ in the
-last bits), and at most 1% of rows may be excluded so.
+last bits), and at most 1% of rows may be excluded so; the sampler splits
+each row over a cluster of S CTAs: each S its plan reaches (8, 2, 1) with
+every knob set, tokens bit-identical across two runs, one launch a call,
+and two planted faults (the last rank left out of the merges, top-k run
+with k + 1) must give mismatches. The layer-norm forward runs on every
+planned shape (a row over each W warps; few rows, and many with the next
+rows in flight) with y, mean and rstd bit-identical across two runs.
 
 The bf16 rule for the flash-attention kernels: the truth is the plain
 version run in fp32 on the same bf16 inputs (upcast); the kernel's max
@@ -176,6 +182,97 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     logits = torch.zeros((2, smod.KERNEL_MAX_VOCAB + 1), device=cuda)
     with pytest.raises(ValueError, match="at most"):
         smod.fused_sample(logits, temperature=1.0)
+
+
+# --- the sampler: each row over a cluster of S CTAs ---------------------------
+
+def _sample_case(b, V, dev, dtype=torch.bfloat16, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed + b + V)
+    logits = (torch.randn((b, V), generator=g, device=dev) * 3.0).to(dtype)
+    u = torch.rand((b, V), generator=g, device=dev).clamp_min(
+        torch.finfo(torch.float32).tiny)
+    return logits, u
+
+
+def _sample_mismatches(got, logits, u, t, k, p):
+    """Rows whose token differs from the plain version's outside a
+    near-tie (module docstring), and the near-tie rows."""
+    want = smod.fused_sample(logits, temperature=t, top_k=k, top_p=p, u=u,
+                             impl="torch")
+    s = smod.filtered_scaled(logits, temperature=t, top_k=k, top_p=p)
+    x = (s - torch.log(-torch.log(u))).double()
+    top2 = x.topk(2, dim=-1).values
+    ties = (top2[:, 0] - top2[:, 1]).abs() <= NEAR_TIE * top2[:, 0].abs()
+    return int(((got != want) & ~ties).sum()), int(ties.sum())
+
+
+# (b, V) at each split the plan reaches: S 8 (b 1, 8; V 30592 and 1000
+# too), S 2 (b 64, 256), S 1 (b 256, V 1000)
+SAMPLE_CASES = [(1, 32768), (8, 32768), (64, 32768), (256, 32768),
+                (8, 30592), (64, 30592), (8, 1000), (256, 1000)]
+SAMPLE_KNOBS = [(0.8, 0, 1.0), (0.8, 50, 1.0), (0.8, 0, 0.9),
+                (0.8, 50, 0.9), (1.3, 1, 1.0), (0.7, "V", 0.5)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,V", SAMPLE_CASES)
+def test_fused_sample_every_split_matches_plain(cuda, dtype, b, V):
+    """Each knob set at the plan's split: no token mismatch outside
+    near-ties (at most 1% of rows excluded), tokens bit-identical across
+    two runs, one launch a call, and room on the card for the plan's
+    clusters."""
+    from apex_tpu_torch.ops.matmul import _sm_count
+
+    plan = smod._sample_plan(b, V, _sm_count(torch.cuda.current_device()))
+    assert smod.max_active_clusters(plan, dtype, V) > 0
+    logits, u = _sample_case(b, V, cuda, dtype)
+    bad = ties = 0
+    for t, k, p in SAMPLE_KNOBS:
+        k = V if k == "V" else k
+        before = smod.fused_sample_cuda.launches
+        got = smod.fused_sample(logits, temperature=t, top_k=k, top_p=p,
+                                u=u)
+        again = smod.fused_sample(logits, temperature=t, top_k=k, top_p=p,
+                                  u=u)
+        assert smod.fused_sample_cuda.launches == before + 2
+        assert torch.equal(got, again), (t, k, p)
+        n_bad, n_ties = _sample_mismatches(got, logits, u, t, k, p)
+        bad += n_bad
+        ties += n_ties
+    assert bad == 0
+    assert ties <= 0.01 * b * len(SAMPLE_KNOBS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,V", [(16, 32768), (64, 32768)])
+@pytest.mark.parametrize("fault,t,k,p", [("drop_last_rank", 0.8, 50, 0.9),
+                                         ("top_k_plus_one", 1.3, 1, 1.0)])
+def test_fused_sample_planted_faults_fail_the_check(cuda, b, V, fault, t, k,
+                                                    p):
+    """The last rank's share left out of every merge, and top-k run with
+    k + 1, must give token mismatches outside near-ties."""
+    logits, u = _sample_case(b, V, cuda, seed=3)
+    got = smod.fused_sample_cuda(logits, u, temperature=t, top_k=k,
+                                 top_p=p, planted_fault=fault)
+    assert _sample_mismatches(got, logits, u, t, k, p)[0] > 0
+    sound = smod.fused_sample_cuda(logits, u, temperature=t, top_k=k,
+                                   top_p=p)
+    assert _sample_mismatches(sound, logits, u, t, k, p)[0] == 0
+
+
+@pytest.mark.gpu
+def test_fused_sample_refuses_what_it_does_not_take(cuda):
+    logits, u = _sample_case(2, 1024, cuda)
+    with pytest.raises(ValueError, match="planted fault"):
+        smod.fused_sample_cuda(logits, u, temperature=1.0, top_k=0,
+                               top_p=1.0, planted_fault="other")
+    with pytest.raises(ValueError, match="top_k"):
+        smod.fused_sample_cuda(logits, u, temperature=1.0, top_k=1025,
+                               top_p=1.0)
+    with pytest.raises(ValueError, match="float32 noise"):
+        smod.fused_sample_cuda(logits, u.double(), temperature=1.0,
+                               top_k=0, top_p=1.0)
 
 
 # --- the split decode kernels: one cluster of S CTAs a row -----------------
@@ -1475,6 +1572,79 @@ def test_layer_norm_param_grads_are_bit_reproducible(cuda, rows, hidden):
     second = lnmod.ln_bwd_cuda(dy, x, mean, rstd, w, False)
     for a, c in zip(first, second):
         assert torch.equal(a, c)
+
+
+# the forward's planned shapes: each (chunks, warps) of LN_BWD_SHAPES at 7
+# rows (one row a CTA) and 3001 (resident CTAs walking their rows, the
+# next row's loads in flight), and the GPT train call
+_LN_FWD_CASES = [(dtype, hidden, rows)
+                 for dtype, shapes in LN_BWD_SHAPES.items()
+                 for hidden in shapes.values() for rows in (7, 3001)] + [
+    (torch.bfloat16, 1024, 20480), (torch.bfloat16, 768, 14592),
+    (torch.bfloat16, 1024, 16), (torch.bfloat16, 1000, 300)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,hidden,rows", _LN_FWD_CASES,
+                         ids=[f"{str(d)[6:]}-{h}-{r}"
+                              for d, h, r in _LN_FWD_CASES])
+@pytest.mark.parametrize("rms,affine,wdtype", [
+    (False, "wb", None), (False, "w", torch.float32), (False, "", None),
+    (True, "w", None)])
+def test_layer_norm_fwd_every_plan_matches_plain(cuda, dtype, hidden, rows,
+                                                 rms, affine, wdtype):
+    """The forward on each planned shape against the plain version (the
+    module docstring's rules: y by the bf16 rule, mean and rstd within
+    1e-5 of the largest), y, mean and rstd bit-identical across two runs,
+    one launch a call."""
+    x, _, w, b = _ln_case(rows, hidden, dtype, wdtype or dtype, affine,
+                          cuda, seed=rows + hidden)
+    f32 = lambda t: None if t is None else t.float()  # noqa: E731
+    before = lnmod.ln_fwd_cuda.launches
+    got = lnmod.ln_fwd_cuda(x, w, b, 1e-5, rms)
+    again = lnmod.ln_fwd_cuda(x, w, b, 1e-5, rms)
+    assert lnmod.ln_fwd_cuda.launches == before + 2
+    torch.cuda.synchronize()
+    for a, c in zip(got, again):
+        assert torch.equal(a, c)
+    y, mean, rstd = got
+    yp, _, _ = lnmod._torch_fwd(x, w, b, 1e-5, rms)
+    yt, mt, rt = lnmod._torch_fwd(x.float(), f32(w), f32(b), 1e-5, rms)
+    for name, g, want in (("mean", mean, mt), ("rstd", rstd, rt)):
+        ok, err = _close_to_largest(g, want, 1e-5)
+        assert ok, f"{name}: {err}"
+    if dtype == torch.bfloat16:
+        ok, errs = _within_rule(y, yp, yt)
+    else:
+        ok, errs = _close_to_largest(y, yp, 1e-5)
+    assert ok, f"y: {errs}"
+
+
+@pytest.mark.gpu
+def test_layer_norm_fwd_plan_mirrors_the_backward_shape(cuda):
+    """The forward plan's row shape is the one ``apex_ln_bwd_shape`` gives,
+    and the entry refuses a plan that does not cover the row."""
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.ops.matmul import _sm_count
+
+    sms = _sm_count(torch.cuda.current_device())
+    for dtype, shapes in LN_BWD_SHAPES.items():
+        for shape, hidden in shapes.items():
+            plan = lnmod._fwd_plan(4096, hidden, dtype, sms)
+            assert (plan.chunks, plan.warps) == shape
+            assert (plan.chunks, plan.warps) == lnmod.bwd_launch_shape(
+                hidden, dtype)[:2]
+    x = torch.ones((4, 1024), device=cuda, dtype=torch.bfloat16)
+    y, m, r = (torch.empty_like(x), torch.empty((4, 1), device=cuda),
+               torch.empty((4, 1), device=cuda))
+    lib = _build.library()
+    for plan in ((1, 2, 1, 4, 16), (1, 4, 0, 4, 32), (3, 4, 1, 4, 32),
+                 (1, 4, 1, 4, 0), (1, 4, 16, 4, 512)):
+        rc = lib.apex_ln_fwd(x.data_ptr(), None, None, y.data_ptr(),
+                             m.data_ptr(), r.data_ptr(), 1, 0, 0, 0, 4,
+                             1024, 1e-5, *plan,
+                             torch.cuda.current_stream().cuda_stream)
+        assert rc != 0, plan
 
 
 @pytest.mark.gpu

@@ -1,6 +1,6 @@
-"""The A/B helpers for the row-wise and decode kernels, on the CPU: the
-``-Xptxas -v`` log reader of ``apex_tpu_torch/tools/rowwise_ab.py``, its
-library swap, the parent's decode signatures it binds, ``chip_smoke.py``'s
+"""The A/B helpers for the row-wise, decode and sampling kernels, on the
+CPU: the ``-Xptxas -v`` log reader of ``apex_tpu_torch/tools/rowwise_ab.py``,
+its library swap, the parent's signatures it binds, ``chip_smoke.py``'s
 lookup of one kernel instance in the report (by its demangled name, or its
 mangled one where ``c++filt`` is missing), and its turns (parent, this,
 this, parent)."""
@@ -65,14 +65,19 @@ def test_using_swaps_the_library_and_restores_it():
 
 
 def test_other_library_builds_the_decode_kernels_with_the_parents_signatures():
-    """The parent's decode entries take no launch plan and the contiguous
-    one rows-long lengths: 15 and 12 arguments, where this tree's take 18
-    and 16."""
-    assert "paged_decode_attn.cu" in rowwise_ab.SOURCES
-    parent = rowwise_ab.PARENT_DECODE_ENTRY_POINTS
-    assert set(parent) == {"apex_paged_decode_attn", "apex_decode_attn"}
-    assert len(parent["apex_paged_decode_attn"]) == 15
-    assert len(parent["apex_decode_attn"]) == 12
+    """The parent builds the decode and sampling kernels too. Its decode
+    entries take this tree's signatures (18 and 16 arguments); the entries
+    this tree changed keep the parent's own: ``apex_ln_fwd`` and
+    ``apex_fused_sample`` without a launch plan (14 and 11 arguments,
+    where this tree's take 19 and 16)."""
+    assert {"paged_decode_attn.cu", "fused_sample.cu",
+            "layer_norm.cu"} <= set(rowwise_ab.SOURCES)
+    parent = rowwise_ab.PARENT_ENTRY_POINTS
+    assert set(parent) == {"apex_ln_fwd", "apex_fused_sample"}
+    assert len(parent["apex_ln_fwd"]) == 14
+    assert len(parent["apex_fused_sample"]) == 11
+    assert len(_build.ENTRY_POINTS["apex_ln_fwd"]) == 19
+    assert len(_build.ENTRY_POINTS["apex_fused_sample"]) == 16
     assert len(_build.ENTRY_POINTS["apex_paged_decode_attn"]) == 18
     assert len(_build.ENTRY_POINTS["apex_decode_attn"]) == 16
 
@@ -105,3 +110,12 @@ def test_parent_turns_alternate_and_reach_the_parent(monkeypatch, parent_fn):
     assert (ms, parent_ms) == ((2 + 3) / 2, (1 + 4) / 2)
     monkeypatch.setattr(chip_smoke, "PARENT", None)
     assert chip_smoke.parent_turns(None, fn, [(1,)])[1] is None
+
+
+def test_empty_library_edits_find_their_lines():
+    """The early returns of ``empty_library`` follow a line each source
+    still has, once, inside the kernel it empties."""
+    for name, (after, line) in rowwise_ab.EMPTY_EDITS.items():
+        text = (_build.CSRC_DIR / name).read_text()
+        assert text.count(after) == 1, name
+        assert line.strip().startswith("if (") and "return;" in line
