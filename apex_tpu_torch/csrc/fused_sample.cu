@@ -48,11 +48,10 @@ namespace {
 
 namespace sm90 = apex::sm90;
 
+using apex::sample::aligned;
 using apex::sample::kBins;
+using apex::sample::kMaxThreads;
 using apex::sample::Shared;
-
-// a CTA's threads at most: 512 (128 registers a thread)
-constexpr int kMaxThreads = 512;
 
 // planted faults, for the tests only: the last rank left out of every
 // merge
@@ -78,59 +77,16 @@ __global__ void __launch_bounds__(kMaxThreads)
   const T* lrow = logits + static_cast<size_t>(row) * V;
   const float* urow = u + static_cast<size_t>(row) * V;
 
-  // value i = 8 c + k of this thread is element begin + 8 (tid + T c) + k;
   // the thread keeps its scores as keys, and the noise (then the perturbed
   // scores) in x
   float s[P], x[P];
-  uint32_t valid = 0u;
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    const int e0 = begin + 8 * (tid + nthreads * c);
-    float* sc = s + 8 * c;
-    float* uc = x + 8 * c;
-    if (vec && e0 < end) {  // share and V are multiples of 8
-      if constexpr (sizeof(T) == 2) {
-        apex::unpack_chunk<__nv_bfloat16>(
-            *reinterpret_cast<const uint4*>(lrow + e0), sc);
-      } else {
-        apex::unpack_chunk<float>(*reinterpret_cast<const uint4*>(lrow + e0),
-                                  sc);
-        apex::unpack_chunk<float>(
-            *reinterpret_cast<const uint4*>(lrow + e0 + 4), sc + 4);
-      }
-      apex::unpack_chunk<float>(*reinterpret_cast<const uint4*>(urow + e0),
-                                uc);
-      apex::unpack_chunk<float>(
-          *reinterpret_cast<const uint4*>(urow + e0 + 4), uc + 4);
-      valid |= 0xffu << (8 * c);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const bool in = e0 + k < end;
-        sc[k] = in ? apex::to_float(lrow[e0 + k]) : 0.f;
-        uc[k] = in ? urow[e0 + k] : 0.5f;
-        if (in) valid |= 1u << (8 * c + k);
-      }
-    }
-  }
-  if (tid < kBins) {
-    sh.hist[0][tid] = 0ull;
-    sh.hist[1][tid] = 0ull;
-  }
-  if (tid == 0) sh.max_key = 0u;
+  const uint32_t valid = apex::sample::load_share<T, P>(lrow, urow, begin,
+                                                        end, vec, s, x);
+  apex::sample::clear_row(sh);
   __syncthreads();
 
   uint32_t key[P];
-  uint32_t kmax = 0u;
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    key[i] = apex::sample::score_key(s[i] * inv_temp);
-    if ((valid >> i) & 1u) kmax = max(kmax, key[i]);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    kmax = max(kmax, __shfl_xor_sync(0xffffffffu, kmax, o));
-  if (lane == 0) atomicMax(&sh.max_key, kmax);
+  apex::sample::score_keys(sh, s, valid, inv_temp, key);
 
   // x = s + (-log(-log u)): run between the first barrier's arrive and wait
   bool drawn = false;
@@ -145,26 +101,9 @@ __global__ void __launch_bounds__(kMaxThreads)
 
   int buf = 0;
   uint32_t keep = 0u;  // the kept keys are those >= keep
-  double target = 0.0;
-  if (top_k > 0) {
-    uint32_t prefix = 0u;
-    unsigned long long above = 0ull;
-    target = static_cast<double>(top_k);
-    for (int shift = 24; shift >= 0; shift -= 8) {
-      const uint32_t hi = shift == 24 ? 0u : ~0u << (shift + 8);
-#pragma unroll
-      for (int i = 0; i < P; ++i) {
-        const bool hit =
-            ((valid >> i) & 1u) && ((key[i] ^ prefix) & hi) == 0u;
-        apex::sample::add_count(sh, buf, hit, (key[i] >> shift) & 0xffu);
-      }
-      const uint32_t d = apex::sample::select_digit(
-          sh, buf, ranks, above, target, -1.f, shift == 24, gumbel);
-      prefix |= d << shift;
-      buf ^= 1;
-    }
-    keep = prefix;
-  }
+  if (top_k > 0)
+    keep = apex::sample::top_k_keep(sh, key, valid, top_k, ranks, buf,
+                                    gumbel);
   if (use_top_p && top_k > 0 && sh.reach <= apex::sample::kGather) {
     // top-k left at most kGather live entries: rank 0 gathers them (key,
     // perturbed score, index), finds the top-p threshold among them and
@@ -207,7 +146,7 @@ __global__ void __launch_bounds__(kMaxThreads)
               __float_as_uint(x[i]));
           apex::sample::st_cluster_u32(
               sm90::cluster_map(sm90::smem_u32(&sh.g_i[slot]), 0),
-              static_cast<uint32_t>(begin + 8 * (tid + nthreads * c) + k));
+              static_cast<uint32_t>(apex::sample::share_elem(begin, i)));
           ++off;
         }
       }
@@ -230,8 +169,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     const float m = apex::sample::key_score(sh.gmax_key);
     if (mine) {
       sh.c_key[tid] = kt;
-      sh.c_q[tid] = __float2ull_rn(expf(apex::sample::key_score(kt) - m) *
-                                   apex::sample::kMassScale);
+      sh.c_q[tid] = apex::sample::key_mass(kt, m);
     }
     __syncthreads();
     unsigned long long z = 0ull, above = 0ull;
@@ -240,7 +178,8 @@ __global__ void __launch_bounds__(kMaxThreads)
       z += q;
       if (sh.c_key[j] >= kt) above += q;
     }
-    target = static_cast<double>(top_p) * static_cast<double>(z);
+    const double target =
+        static_cast<double>(top_p) * static_cast<double>(z);
     // the largest key whose mass at and above it reaches p * z
     keep = apex::sample::block_max_u32(
         sh, mine && static_cast<double>(above) >= target ? kt : 0u);
@@ -277,6 +216,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     }
     uint32_t prefix = 0u;
     unsigned long long above = 0ull;
+    double target = 0.0;  // top_p times the first round's total
     for (int shift = 24; shift >= 0; shift -= 8) {
       const uint32_t hi = shift == 24 ? 0u : ~0u << (shift + 8);
 #pragma unroll
@@ -286,8 +226,7 @@ __global__ void __launch_bounds__(kMaxThreads)
           ei = e[i];
         else
           ei = mass(i);
-        const unsigned long long q =
-            __float2ull_rn(ei * apex::sample::kMassScale);
+        const unsigned long long q = apex::sample::to_mass(ei);
         apex::sample::add_mass(sh, buf,
                                q != 0ull && ((key[i] ^ prefix) & hi) == 0u,
                                (key[i] >> shift) & 0xffu, q);
@@ -306,40 +245,21 @@ __global__ void __launch_bounds__(kMaxThreads)
     sm90::cluster_wait();
   }
 
-  // the draw: this thread's, the warp's, the CTA's (warps in order), then
-  // rank 0 takes the ranks' in rank order
+  // the draw: this thread's, the warp's, the CTA's, then rank 0 takes the
+  // ranks' in rank order
   float best = -INFINITY;
   int best_i = INT_MAX;
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c)
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int i = 8 * c + k;
-      if (((valid >> i) & 1u) && key[i] >= keep && x[i] > best) {
-        best = x[i];
-        best_i = begin + 8 * (tid + nthreads * c) + k;
-      }
+  for (int i = 0; i < P; ++i)
+    if (((valid >> i) & 1u) && key[i] >= keep && x[i] > best) {
+      best = x[i];
+      best_i = apex::sample::share_elem(begin, i);
     }
-  apex::sample::block_argmax(sh, best, best_i);
-  if (tid == 0) {
-    const uint32_t slot = sm90::cluster_map(sm90::smem_u32(&sh.best[rank]),
-                                            0);
-    const uint32_t slot_i = sm90::cluster_map(
-        sm90::smem_u32(&sh.best_i[rank]), 0);
-    apex::sample::st_cluster_u32(slot, __float_as_uint(best));
-    apex::sample::st_cluster_u32(slot_i, static_cast<uint32_t>(best_i));
-  }
+  apex::sample::send_draw(sh, best, best_i, rank);
   // every CTA's draw is in rank 0, and every read of a peer is done
   apex::sample::cluster_arrive();
   sm90::cluster_wait();
-  if (rank == 0 && tid == 0) {
-    best = __uint_as_float(sh.best[0]);
-    best_i = sh.best_i[0];
-    for (int r = 1; r < ranks; ++r)
-      apex::sample::argmax_step(best, best_i, __uint_as_float(sh.best[r]),
-                                sh.best_i[r]);
-    out[row] = best_i;
-  }
+  if (rank == 0 && tid == 0) out[row] = apex::sample::merge_draws(sh, ranks);
 }
 
 template <typename T>
@@ -360,43 +280,6 @@ KernelFn<T> instance_of(int values) {
   }
 }
 
-// grid b * splits CTAs in clusters of (splits, 1, 1)
-struct Launch {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute cluster;
-  Launch(int ctas, int splits, int threads, cudaStream_t stream) : cfg{} {
-    cfg.gridDim = dim3(ctas);
-    cfg.blockDim = dim3(threads);
-    cfg.dynamicSmemBytes = 0;
-    cfg.stream = stream;
-    cluster.id = cudaLaunchAttributeClusterDimension;
-    cluster.val.clusterDim.x = splits;
-    cluster.val.clusterDim.y = 1;
-    cluster.val.clusterDim.z = 1;
-    cfg.attrs = &cluster;
-    cfg.numAttrs = 1;
-  }
-};
-
-// what every launch checks of the plan it is given: S in 1-8, whole
-// warps, at least the scan's 256 threads, the shares cover the row in
-// multiples of 8, the threads hold the share
-bool bad_plan(int dtype, int V, int splits, int threads, int values,
-              int share) {
-  if ((dtype != apex::kFloat32 && dtype != apex::kBFloat16) || V < 1 ||
-      (splits != 1 && splits != 2 && splits != 4 && splits != 8) ||
-      (values != 8 && values != 16 && values != 32))
-    return true;
-  return threads % 32 != 0 || threads < kBins || threads > kMaxThreads ||
-         share < 8 || share % 8 != 0 ||
-         static_cast<long long>(share) * splits < V ||
-         static_cast<long long>(threads) * values < share;
-}
-
-bool aligned(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 template <typename T>
 cudaError_t launch(const void* logits, const void* u, void* out, int b,
                    int V, float inv_temp, int top_k, int use_top_p,
@@ -405,7 +288,7 @@ cudaError_t launch(const void* logits, const void* u, void* out, int b,
   const KernelFn<T> kern = instance_of<T>(values);
   if (kern == nullptr) return cudaErrorInvalidValue;
   const bool vec = V % 8 == 0 && aligned(logits) && aligned(u);
-  Launch l(b * splits, splits, threads, stream);
+  apex::sample::ClusterLaunch l(b * splits, splits, threads, stream);
   const cudaError_t err = cudaLaunchKernelEx(
       &l.cfg, kern, static_cast<const T*>(logits),
       static_cast<const float*>(u), static_cast<int*>(out), V, splits, share,
@@ -417,7 +300,7 @@ template <typename T>
 cudaError_t max_clusters(int splits, int threads, int values, int* n) {
   const KernelFn<T> kern = instance_of<T>(values);
   if (kern == nullptr) return cudaErrorInvalidValue;
-  Launch l(splits, splits, threads, nullptr);
+  apex::sample::ClusterLaunch l(splits, splits, threads, nullptr);
   return cudaOccupancyMaxActiveClusters(n, kern, &l.cfg);
 }
 
@@ -434,7 +317,8 @@ extern "C" int apex_fused_sample(const void* logits, const void* u,
                                  void* stream) {
   if (b < 1 || top_k < 0 || top_k > V || fault < kNoFault ||
       fault > kDropLastRank ||
-      bad_plan(dtype, V, splits, threads, values, share))
+      apex::sample::bad_plan(dtype, V, splits, threads, values, share,
+                             true))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
@@ -452,7 +336,8 @@ extern "C" int apex_fused_sample(const void* logits, const void* u,
 extern "C" int apex_fused_sample_clusters(int dtype, int V, int splits,
                                           int threads, int values, int share,
                                           int* n) {
-  if (bad_plan(dtype, V, splits, threads, values, share))
+  if (apex::sample::bad_plan(dtype, V, splits, threads, values, share,
+                             true))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err =
       dtype == apex::kBFloat16

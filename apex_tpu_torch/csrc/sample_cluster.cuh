@@ -1,8 +1,13 @@
-// The sampling filter split over a thread-block cluster (fused_sample.cu):
-// each row's V scores are spread over the S CTAs of a cluster, and every
+// The sampling filter split over a thread-block cluster, shared by the
+// fused sampler (fused_sample.cu) and the speculative verify kernels
+// (fused_verify.cu), as the reference shares
+// apex_tpu/ops/pallas/sampling.py's helpers with ops/pallas/verify.py: each
+// row's V scores are spread over the S CTAs of a cluster, and every
 // row-wide quantity is merged across the cluster through distributed
-// shared memory, in rank order. sample_filter.cuh (one CTA a row, 48-step
-// bisections) stays for the verify kernels.
+// shared memory, in rank order. The per-row pieces both kernels run are
+// here: the share's loads, the keys and the largest key, the top-k rounds,
+// the fixed-point masses and the rank-ordered merge of the draws, and the
+// host side of their cluster launches.
 //
 // * The thresholds are exact order statistics found by radix select on
 //   the order-preserving 32-bit key of each fp32 score: 4 rounds of 8-bit
@@ -21,10 +26,13 @@
 // * -0.0 keys as +0.0, so key(s) >= key(t) exactly when s >= t.
 #pragma once
 
+#include <climits>
+#include <cmath>
 #include <cstdint>
 
 #include "apex_cuda.cuh"
 #include "apex_sm90.cuh"
+#include "row_io.cuh"
 
 namespace apex {
 namespace sample {
@@ -80,8 +88,8 @@ __device__ __forceinline__ void st_cluster_u32(uint32_t addr, uint32_t v) {
                : "memory");
 }
 
-// a CTA's shared state
-struct Shared {
+// a CTA's shared state for one row's work (both kernels)
+struct RowShared {
   unsigned long long hist[2][kBins];  // by round parity
   unsigned long long warp_tot[kScanWarps];
   unsigned long long above;  // the selected digit's mass above it
@@ -94,6 +102,10 @@ struct Shared {
   float warp_best[32];
   int warp_best_i[32];
   uint32_t warp_word[32];
+};
+
+// the sampler's: plus rank 0's gathered live entries
+struct Shared : RowShared {
   // rank 0: each rank's gathered live entries at [rank * kGather, ...)
   // (key, perturbed score, index) and their counts; then the entries'
   // keys and masses, compacted
@@ -122,7 +134,8 @@ __device__ __forceinline__ void warp_argmax(float& best, int& best_i) {
 }
 
 // the CTA's largest word, returned to every thread
-__device__ __forceinline__ uint32_t block_max_u32(Shared& sh, uint32_t v) {
+__device__ __forceinline__ uint32_t block_max_u32(RowShared& sh,
+                                                  uint32_t v) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
@@ -137,7 +150,7 @@ __device__ __forceinline__ uint32_t block_max_u32(Shared& sh, uint32_t v) {
 
 // the CTA's draw into thread 0's (best, best_i): the warps', then theirs
 // in warp order
-__device__ __forceinline__ void block_argmax(Shared& sh, float& best,
+__device__ __forceinline__ void block_argmax(RowShared& sh, float& best,
                                              int& best_i) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   warp_argmax(best, best_i);
@@ -155,7 +168,7 @@ __device__ __forceinline__ void block_argmax(Shared& sh, float& best,
 // first: one shared atomic for each distinct bin of a warp (the first
 // round's bins are few, and same-address atomics serialize). Counts by
 // their match groups, masses by a warp sum for each distinct bin in turn
-__device__ __forceinline__ void add_count(Shared& sh, int buf, bool hit,
+__device__ __forceinline__ void add_count(RowShared& sh, int buf, bool hit,
                                           uint32_t bin) {
   const unsigned hits = __ballot_sync(0xffffffffu, hit);
   if (hit) {
@@ -166,7 +179,7 @@ __device__ __forceinline__ void add_count(Shared& sh, int buf, bool hit,
   }
 }
 
-__device__ __forceinline__ void add_mass(Shared& sh, int buf, bool hit,
+__device__ __forceinline__ void add_mass(RowShared& sh, int buf, bool hit,
                                          uint32_t bin,
                                          unsigned long long q) {
   const int lane = threadIdx.x & 31;
@@ -185,7 +198,7 @@ __device__ __forceinline__ void add_mass(Shared& sh, int buf, bool hit,
 
 // the cluster's largest key, from each of the first `ranks` CTAs' (after
 // a cluster barrier), into sh.gmax_key by thread 0
-__device__ __forceinline__ void merge_max_key(Shared& sh, int ranks) {
+__device__ __forceinline__ void merge_max_key(RowShared& sh, int ranks) {
   if (threadIdx.x == 0) {
     const uint32_t a = sm90::smem_u32(&sh.max_key);
     uint32_t k[kMaxSplits];
@@ -209,7 +222,7 @@ __device__ __forceinline__ void merge_max_key(Shared& sh, int ranks) {
 // key is merged too (sh.gmax_key). Returns d; `above` becomes the mass of
 // the bins above d, added to what was above before.
 template <typename Overlap>
-__device__ __forceinline__ uint32_t select_digit(Shared& sh, int buf,
+__device__ __forceinline__ uint32_t select_digit(RowShared& sh, int buf,
                                                  int ranks,
                                                  unsigned long long& above,
                                                  double& target, float top_p,
@@ -262,6 +275,207 @@ __device__ __forceinline__ uint32_t select_digit(Shared& sh, int buf,
   __syncthreads();
   above = sh.above;
   return sh.digit;
+}
+
+// --- the per-row pieces of both kernels -------------------------------------
+// A rank's share of a row is [begin, end); its thread tid holds the 8-value
+// chunks tid, tid + T, tid + 2T, ... (T threads), P values in registers:
+// value i = 8 c + k is element share_elem(begin, i).
+
+__device__ __forceinline__ int share_elem(int begin, int i) {
+  return begin + 8 * (static_cast<int>(threadIdx.x) +
+                      static_cast<int>(blockDim.x) * (i >> 3)) +
+         (i & 7);
+}
+
+// this thread's P values of the share of a logit row (s, in fp32) and of
+// its noise row (x), each loaded once; 16-byte loads where `vec` (share
+// and V multiples of 8, rows 16-byte aligned). Returns the mask of the
+// values that lie in the share.
+template <typename T, int P>
+__device__ __forceinline__ uint32_t load_share(const T* __restrict__ lrow,
+                                               const float* __restrict__ urow,
+                                               int begin, int end, bool vec,
+                                               float (&s)[P], float (&x)[P]) {
+  constexpr int kChunks = P / 8;
+  uint32_t valid = 0u;
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int e0 = share_elem(begin, 8 * c);
+    float* sc = s + 8 * c;
+    float* uc = x + 8 * c;
+    if (vec && e0 < end) {
+      if constexpr (sizeof(T) == 2) {
+        unpack_chunk<__nv_bfloat16>(
+            *reinterpret_cast<const uint4*>(lrow + e0), sc);
+      } else {
+        unpack_chunk<float>(*reinterpret_cast<const uint4*>(lrow + e0), sc);
+        unpack_chunk<float>(*reinterpret_cast<const uint4*>(lrow + e0 + 4),
+                            sc + 4);
+      }
+      unpack_chunk<float>(*reinterpret_cast<const uint4*>(urow + e0), uc);
+      unpack_chunk<float>(*reinterpret_cast<const uint4*>(urow + e0 + 4),
+                          uc + 4);
+      valid |= 0xffu << (8 * c);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const bool in = e0 + k < end;
+        sc[k] = in ? to_float(lrow[e0 + k]) : 0.f;
+        uc[k] = in ? urow[e0 + k] : 0.5f;
+        if (in) valid |= 1u << (8 * c + k);
+      }
+    }
+  }
+  return valid;
+}
+
+// the histograms and this CTA's largest key, cleared before a row's rounds
+// (a __syncthreads must follow)
+__device__ __forceinline__ void clear_row(RowShared& sh) {
+  const int tid = threadIdx.x;
+  if (tid < kBins) {
+    sh.hist[0][tid] = 0ull;
+    sh.hist[1][tid] = 0ull;
+  }
+  if (tid == 0) sh.max_key = 0u;
+}
+
+// key = score_key(s * (1/T)), and the largest valid key into sh.max_key
+template <int P>
+__device__ __forceinline__ void score_keys(RowShared& sh, const float (&s)[P],
+                                           uint32_t valid, float inv_temp,
+                                           uint32_t (&key)[P]) {
+  uint32_t kmax = 0u;
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    key[i] = score_key(s[i] * inv_temp);
+    if ((valid >> i) & 1u) kmax = max(kmax, key[i]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    kmax = max(kmax, __shfl_xor_sync(0xffffffffu, kmax, o));
+  if ((threadIdx.x & 31) == 0) atomicMax(&sh.max_key, kmax);
+}
+
+// The top-k threshold: the k-th largest key of the row over the first
+// `ranks` CTAs, by 4 radix rounds (counts in sh.hist[buf], buf flipped
+// each round); the first round also merges the cluster's largest key into
+// sh.gmax_key, and overlap() runs inside each round's barrier. sh.reach is
+// then the count at and above the threshold.
+template <int P, typename Overlap>
+__device__ __forceinline__ uint32_t top_k_keep(RowShared& sh,
+                                               const uint32_t (&key)[P],
+                                               uint32_t valid, int top_k,
+                                               int ranks, int& buf,
+                                               Overlap&& overlap) {
+  uint32_t prefix = 0u;
+  unsigned long long above = 0ull;
+  double target = static_cast<double>(top_k);
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    const uint32_t hi = shift == 24 ? 0u : ~0u << (shift + 8);
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const bool hit = ((valid >> i) & 1u) && ((key[i] ^ prefix) & hi) == 0u;
+      add_count(sh, buf, hit, (key[i] >> shift) & 0xffu);
+    }
+    const uint32_t d = select_digit(sh, buf, ranks, above, target, -1.f,
+                                    shift == 24, overlap);
+    prefix |= d << shift;
+    buf ^= 1;
+  }
+  return prefix;
+}
+
+// a mass e = exp(s - m) in [0, 1] in fixed point: sums of these are exact
+// in any order
+__device__ __forceinline__ unsigned long long to_mass(float e) {
+  return __float2ull_rn(e * kMassScale);
+}
+
+// the fixed-point mass of a kept score's key, m the row's largest score
+__device__ __forceinline__ unsigned long long key_mass(uint32_t key, float m) {
+  return to_mass(expf(key_score(key) - m));
+}
+
+// this thread's draw -> its warp's -> the CTA's (the warps' merged in one
+// warp) -> rank 0's sh.best[rank] and sh.best_i[rank], stored by thread 0;
+// rank 0 merges them with merge_draws after the next cluster barrier. Ties
+// go to the lower index at every step, so the result is the CTA's lowest
+// index among its largest values, whatever the order of the merges
+__device__ __forceinline__ void send_draw(RowShared& sh, float best,
+                                          int best_i, int rank) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  warp_argmax(best, best_i);
+  if (lane == 0) {
+    sh.warp_best[warp] = best;
+    sh.warp_best_i[warp] = best_i;
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  const bool in = lane < static_cast<int>(blockDim.x >> 5);
+  best = in ? sh.warp_best[lane] : -INFINITY;
+  best_i = in ? sh.warp_best_i[lane] : INT_MAX;
+  warp_argmax(best, best_i);
+  if (lane == 0) {
+    st_cluster_u32(sm90::cluster_map(sm90::smem_u32(&sh.best[rank]), 0),
+                   __float_as_uint(best));
+    st_cluster_u32(sm90::cluster_map(sm90::smem_u32(&sh.best_i[rank]), 0),
+                   static_cast<uint32_t>(best_i));
+  }
+}
+
+// rank 0: the first `ranks` ranks' draws merged in rank order, ties to the
+// lower index
+__device__ __forceinline__ int merge_draws(const RowShared& sh, int ranks) {
+  float best = __uint_as_float(sh.best[0]);
+  int best_i = sh.best_i[0];
+  for (int r = 1; r < ranks; ++r)
+    argmax_step(best, best_i, __uint_as_float(sh.best[r]), sh.best_i[r]);
+  return best_i;
+}
+
+// --- the host side of both kernels' launches --------------------------------
+
+// a CTA's threads at most: 512 (128 registers a thread)
+constexpr int kMaxThreads = 512;
+
+// a grid of `ctas` CTAs in clusters of (splits, 1, 1)
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute cluster;
+  ClusterLaunch(int ctas, int splits, int threads, cudaStream_t stream)
+      : cfg{} {
+    cfg.gridDim = dim3(ctas);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = stream;
+    cluster.id = cudaLaunchAttributeClusterDimension;
+    cluster.val.clusterDim.x = splits;
+    cluster.val.clusterDim.y = 1;
+    cluster.val.clusterDim.z = 1;
+    cfg.attrs = &cluster;
+    cfg.numAttrs = 1;
+  }
+};
+
+// what every launch checks of the plan it is given: S in 1-8, whole
+// warps, at least the scan's 256 threads, the shares cover the row in
+// multiples of 8, and (in_registers) the threads hold the share
+inline bool bad_plan(int dtype, int V, int splits, int threads, int values,
+                     int share, bool in_registers) {
+  if ((dtype != kFloat32 && dtype != kBFloat16) || V < 1 ||
+      (splits != 1 && splits != 2 && splits != 4 && splits != 8) ||
+      (values != 8 && values != 16 && values != 32))
+    return true;
+  return threads % 32 != 0 || threads < kBins || threads > kMaxThreads ||
+         share < 8 || share % 8 != 0 ||
+         static_cast<long long>(share) * splits < V ||
+         (in_registers && static_cast<long long>(threads) * values < share);
+}
+
+inline bool aligned(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace sample

@@ -10,13 +10,24 @@ CUDA tensor launches :func:`fused_verify_cuda` or
 ``fused_verify_fwd`` and ``fused_verify_tree_fwd``), a CPU tensor runs the
 helpers.
 
+The kernels put every verify row on its own thread-block cluster (b × N1
+clusters in one launch; :func:`_verify_plan` picks the cluster size, the
+threads and the values a thread from the shapes and the card's SM count
+alone), run the sampler's cluster code (``csrc/sample_cluster.cuh``:
+radix-select top-k, fixed-point masses, rank-ordered merges) on each row,
+and resolve the tree in the same launch: each row publishes its candidate
+and its children's verdicts into fixed slots of a workspace the wrapper
+owns (:func:`_workspace`), and the last row of a batch row to arrive
+takes the deepest accepted path.
+
 Acceptance is exact. Greedy (temperature 0): a draft is accepted iff it
 equals the argmax of its target row (ties to the lowest index), so the
 spec stream is token-identical to greedy decoding. Sampled: point-mass
 rejection sampling under the temperature → top-k distribution of
-:mod:`apex_tpu_torch.ops.sampling` (the same filter code, on the card and
-here): a draft d is accepted iff ``u_acc < p(d)``, and the correction is a
-Gumbel-argmax draw on ``u_gum`` with the rejected drafts filtered out.
+:mod:`apex_tpu_torch.ops.sampling` (its plain filter here, its kernel's
+radix select on the card): a draft d is accepted iff ``u_acc < p(d)``, and
+the correction is a Gumbel-argmax draw on ``u_gum`` with the rejected
+drafts filtered out.
 Top-p stays off: ``DecodeEngine``, the only caller, has no top-p.
 
 The noise is drawn from the caller's ``torch.Generator``, or passed as
@@ -26,14 +37,18 @@ The noise is drawn from the caller's ``torch.Generator``, or passed as
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from apex_tpu_torch.ops import _backend, _build
+from apex_tpu_torch.ops.matmul import _sm_count
 from apex_tpu_torch.ops.sampling import (FILTERED, KERNEL_MAX_VOCAB,
-                                         filtered_scaled, gumbel_argmax,
-                                         uniform_noise)
+                                         SAMPLE_MIN_SHARE, SAMPLE_SPLITS,
+                                         _fit, _share, filtered_scaled,
+                                         gumbel_argmax, uniform_noise)
 
 #: sentinel drafted id for the bonus row (``verify.py:56``): never equals a
 #: candidate, so its accept flag is always False
@@ -42,6 +57,119 @@ NO_DRAFT = -1
 #: the most verify rows (k+1 or N+1) one kernel launch takes
 KERNEL_MAX_ROWS = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: a CTA's threads and values a thread where a share does not fit the
+#: registers (greedy mode only, V > 131072: it walks its share in a loop)
+VERIFY_LOOP_FIT = (512, 32)
+#: a CTA's static shared memory (``VerifyShared`` in
+#: ``csrc/fused_verify.cu``, bytes): the sampler's row state (two 256-bin
+#: u64 histograms, the scan's totals, the digit, the keys, the ranks' and
+#: the warps' draws: 4640), the ranks' and the warps' masses, the row's
+#: child tokens, the resolver's candidates, accept bits and the tree's
+#: ancestor bits (128 nodes x 4 words)
+VERIFY_SMEM = 4640 + 8 * 8 + 32 * 8 + 128 * 4 + 4 + 4 + 8 + 128 * 4 + 16 \
+    + 128 * 4 * 4
+#: planted faults of the kernels' tests: the last rank of a cluster left
+#: out of every merge; row 0's slots never published
+PLANTED_FAULTS = ("drop_last_rank", "no_publish")
+
+
+class VerifyPlan(NamedTuple):
+    """One verify launch: each of the b × N1 rows over a cluster of
+    ``splits`` CTAs of ``threads`` threads; rank r holds ``share`` values
+    of its row (the last rank what is left), ``values`` a thread in
+    registers in sampled mode; ``smem`` bytes of static shared memory a
+    CTA."""
+    splits: int
+    threads: int
+    values: int
+    share: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def _verify_plan(b: int, n1: int, V: int, sms: int) -> VerifyPlan:
+    """The verify launch from the shapes and the card's ``sms`` alone
+    (never the logits), as :func:`~apex_tpu_torch.ops.sampling._sample_plan`
+    plans a sampling launch: the least cluster size S whose shares fit a
+    CTA's registers (V 32768 needs S 2), raised to the largest S that keeps
+    the grid of b × N1 × S CTAs within one CTA an SM and each rank's share
+    at least ``SAMPLE_MIN_SHARE`` values. Where b × N1 rows at the least S
+    exceed the SMs (b 4 × N1 33 is 132 rows) the grid runs in waves. The
+    spec leg's chain (1, 5) and tree (1, 9) take S 8."""
+    if not 2 <= n1 <= KERNEL_MAX_ROWS:
+        raise ValueError(f"the verify kernels take 2 to {KERNEL_MAX_ROWS} "
+                         f"verify rows; got {n1}")
+    if b < 1 or V < 1:
+        raise ValueError(f"the verify kernels take b >= 1 and V >= 1; got "
+                         f"b={b}, V={V}")
+    rows = b * n1
+    least = next((S for S in SAMPLE_SPLITS if _fit(_share(V, S))),
+                 SAMPLE_SPLITS[0])
+    splits = least
+    for S in SAMPLE_SPLITS:
+        if S > least and rows * S <= sms \
+                and _share(V, S) >= SAMPLE_MIN_SHARE:
+            splits = S
+    share = _share(V, splits)
+    threads, values = _fit(share) or VERIFY_LOOP_FIT
+    return VerifyPlan(splits, threads, values, share, VERIFY_SMEM)
+
+
+def _plan_for(logits: torch.Tensor) -> VerifyPlan:
+    b, n1, V = logits.shape
+    index = logits.device.index
+    return _verify_plan(b, n1, V, _sm_count(
+        torch.cuda.current_device() if index is None else index))
+
+
+class _Workspace:
+    """The verify kernels' scratch on one device and stream: one zeroed
+    int32 buffer holding each batch row's arrival counter (``rows``
+    entries, zero between calls: the last arriver resets its own) and two
+    64-bit slots a node (the row's candidate, the node's accept flag),
+    each tagged with its call's epoch, so a slot left from an earlier call
+    is never read as this call's. Grown (a new zeroed buffer) when a call
+    has more rows; never zeroed again."""
+
+    def __init__(self, rows: int, device: torch.device):
+        self.rows = -(-rows // 64) * 64
+        self.buf = torch.zeros((5 * self.rows,), dtype=torch.int32,
+                               device=device)
+        self.epoch = 0
+
+    def pointers(self) -> Tuple[int, int, int]:
+        """(slots, arrivals, epoch) for the next launch."""
+        self.epoch = self.epoch % (2 ** 31 - 1) + 1
+        base = self.buf.data_ptr()
+        return base + 4 * self.rows, base, self.epoch
+
+
+_WORKSPACES: Dict[Tuple[int, int], _Workspace] = {}
+
+
+def _workspace(logits: torch.Tensor, stream: int) -> _Workspace:
+    """The workspace of ``logits``' device and ``stream``, holding at least
+    its b × N1 rows."""
+    b, n1, _ = logits.shape
+    key = (logits.device.index, stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws.rows < b * n1:
+        ws = _WORKSPACES[key] = _Workspace(b * n1, logits.device)
+    return ws
+
+
+def verify_occupancy(plan: VerifyPlan, dtype: torch.dtype, V: int,
+                     tree: bool) -> Tuple[int, int]:
+    """(how many of ``plan``'s clusters the card holds at once, a CTA's
+    static shared memory in bytes) for the chain or tree kernel; 0
+    clusters: the card refuses the launch. Needs the card."""
+    out = (ctypes.c_int * 2)()
+    rc = _build.library().apex_fused_verify_occupancy(
+        int(tree), _DTYPE_CODES[dtype], V, plan.splits, plan.threads,
+        plan.values, plan.share, out)
+    _build.check(rc, "fused_verify_occupancy")
+    return out[0], out[1]
 
 
 # --- plain version: the reference's helpers -----------------------------------
@@ -197,8 +325,8 @@ def _check_kernel(logits: torch.Tensor, ints, floats, name: str) -> None:
                          f"got {n1}")
     if floats and V > KERNEL_MAX_VOCAB:
         raise ValueError(f"{name}'s sampled mode holds a row of at most "
-                         f"{KERNEL_MAX_VOCAB} logits in shared memory; got "
-                         f"V={V}")
+                         f"{KERNEL_MAX_VOCAB} logits in its cluster's "
+                         f"registers; got V={V}")
     if any(t.dtype != torch.int32 for t in ints) \
             or any(t.dtype != torch.float32 for t in floats):
         raise ValueError(f"{name}: token operands int32, noise float32")
@@ -211,14 +339,33 @@ def _knobs(temperature: float, top_k: int):
     return (int(sampled), 1.0 / temperature if sampled else 1.0, int(top_k))
 
 
+def _launch_args(logits: torch.Tensor, planted_fault: Optional[str]):
+    """A launch's arguments around its shapes and knobs: (the workspace's
+    slots, counters and epoch, the dtype code), (the plan's splits,
+    threads, values and share, the fault code, the stream)."""
+    if planted_fault not in (None, *PLANTED_FAULTS):
+        raise ValueError(f"no planted fault {planted_fault!r}")
+    plan = _plan_for(logits)
+    if planted_fault == "drop_last_rank" and plan.splits == 1:
+        raise ValueError("drop_last_rank needs a plan of 2 or more ranks")
+    stream = torch.cuda.current_stream(logits.device).cuda_stream
+    fault = 0 if planted_fault is None else \
+        1 + PLANTED_FAULTS.index(planted_fault)
+    return (*_workspace(logits, stream).pointers(),
+            _DTYPE_CODES[logits.dtype]), \
+        (plan.splits, plan.threads, plan.values, plan.share, fault, stream)
+
+
 def fused_verify_cuda(logits: torch.Tensor, drafted_pad: torch.Tensor,
                       u_acc: Optional[torch.Tensor],
                       u_gum: Optional[torch.Tensor], *, temperature: float,
-                      top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                      top_k: int, planted_fault: Optional[str] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the chain verify kernel: logits (b, k+1, V), drafted_pad
     (b, k+1) int32 (bonus NO_DRAFT), and for temperature > 0 u_acc
     (b, k+1) and u_gum (b, k+1, V) fp32. Returns (accept_len, next) (b,)
-    int32. Counts its launches in ``.launches``."""
+    int32. ``planted_fault`` (tests only) is one of
+    :data:`PLANTED_FAULTS`. Counts its launches in ``.launches``."""
     b, k1, V = logits.shape
     floats = () if temperature <= 0 else (u_acc, u_gum)
     _check_kernel(logits, (drafted_pad,), floats, "fused_verify_cuda")
@@ -227,13 +374,12 @@ def fused_verify_cuda(logits: torch.Tensor, drafted_pad: torch.Tensor,
         raise ValueError("fused_verify_cuda: operand shapes disagree")
     a = torch.empty((b,), dtype=torch.int32, device=logits.device)
     nxt = torch.empty_like(a)
+    ws, plan = _launch_args(logits, planted_fault)
     rc = _build.library().apex_fused_verify(
         logits.data_ptr(), drafted_pad.data_ptr(),
         floats[0].data_ptr() if floats else None,
         floats[1].data_ptr() if floats else None, a.data_ptr(),
-        nxt.data_ptr(), _DTYPE_CODES[logits.dtype], b, k1, V,
-        *_knobs(temperature, top_k),
-        torch.cuda.current_stream(logits.device).cuda_stream)
+        nxt.data_ptr(), *ws, b, k1, V, *_knobs(temperature, top_k), *plan)
     _build.check(rc, "fused_verify")
     fused_verify_cuda.launches += 1
     return a, nxt
@@ -246,13 +392,15 @@ def fused_verify_tree_cuda(logits: torch.Tensor, tokens: torch.Tensor,
                            parents: torch.Tensor, anc: torch.Tensor,
                            u_acc: Optional[torch.Tensor],
                            u_gum: Optional[torch.Tensor], *,
-                           temperature: float, top_k: int
+                           temperature: float, top_k: int,
+                           planted_fault: Optional[str] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
     """Launch the tree verify kernel: logits (b, N1, V), tokens/parents
     (b, N1) and anc (b, N1, N1) int32, and for temperature > 0 u_acc
     (b, N1) and u_gum (b, N1, V) fp32. Returns (accept_len, j_star, next)
-    (b,) int32. Counts its launches in ``.launches``."""
+    (b,) int32. ``planted_fault`` as :func:`fused_verify_cuda`'s. Counts
+    its launches in ``.launches``."""
     b, n1, V = logits.shape
     floats = () if temperature <= 0 else (u_acc, u_gum)
     _check_kernel(logits, (tokens, parents, anc), floats,
@@ -263,13 +411,13 @@ def fused_verify_tree_cuda(logits: torch.Tensor, tokens: torch.Tensor,
         raise ValueError("fused_verify_tree_cuda: operand shapes disagree")
     a = torch.empty((b,), dtype=torch.int32, device=logits.device)
     j_star, nxt = torch.empty_like(a), torch.empty_like(a)
+    ws, plan = _launch_args(logits, planted_fault)
     rc = _build.library().apex_fused_verify_tree(
         logits.data_ptr(), tokens.data_ptr(), parents.data_ptr(),
         anc.data_ptr(), floats[0].data_ptr() if floats else None,
         floats[1].data_ptr() if floats else None, a.data_ptr(),
-        j_star.data_ptr(), nxt.data_ptr(), _DTYPE_CODES[logits.dtype], b,
-        n1, V, *_knobs(temperature, top_k),
-        torch.cuda.current_stream(logits.device).cuda_stream)
+        j_star.data_ptr(), nxt.data_ptr(), *ws, b, n1, V,
+        *_knobs(temperature, top_k), *plan)
     _build.check(rc, "fused_verify_tree")
     fused_verify_tree_cuda.launches += 1
     return a, j_star, nxt

@@ -1,9 +1,9 @@
-"""The row-wise, decode and sampling kernels of another checkout, for
-timing in turns.
+"""The row-wise, decode, sampling and verify kernels of another checkout,
+for timing in turns.
 
 Builds a second checkout's ``layer_norm.cu``, ``softmax.cu``,
-``paged_decode_attn.cu`` and ``fused_sample.cu`` (with its own headers and
-``errors.cu``) into a library of their own, loads it with ``ctypes``, and
+``paged_decode_attn.cu``, ``fused_sample.cu`` and ``fused_verify.cu``
+(with its own headers and ``errors.cu``) into a library of their own, loads it with ``ctypes``, and
 runs the port's wrappers through it inside :func:`using` — the wrappers
 look the library up on every call, so the same Python code launches either
 tree's kernels:
@@ -14,17 +14,17 @@ tree's kernels:
         ln_bwd_cuda(...)          # the other checkout's apex_ln_bwd
 
 ``chip_smoke.py --parent DIR`` times ``ln_fwd``, ``ln_bwd``,
-``softmax_fwd``, the two decode kernels and ``fused_sample`` so, against a
-``git archive`` of the parent commit unpacked into a directory that
-``.gitignore`` lists. The entry points take the signatures of this tree's
-``_build.ENTRY_POINTS``, except those this tree changed: the parent's
-``apex_ln_fwd`` and ``apex_fused_sample`` take no launch plan
-(:data:`PARENT_ENTRY_POINTS`), and :func:`parent_ln_fwd` and
-:func:`parent_fused_sample` launch them as the parent's wrappers did.
-Needs ``nvcc``.
+``softmax_fwd``, the two decode kernels, ``fused_sample`` and the two
+verify kernels so, against a ``git archive`` of the parent commit unpacked
+into a directory that ``.gitignore`` lists. The entry points take the
+signatures of this tree's ``_build.ENTRY_POINTS``, except those this tree
+changed (:data:`PARENT_ENTRY_POINTS`): the parent's ``apex_fused_verify``
+and ``apex_fused_verify_tree`` take no launch plan and no workspace, and
+:func:`parent_fused_verify` and :func:`parent_fused_verify_tree` launch
+them as the parent's wrappers did. Needs ``nvcc``.
 
-:func:`empty_library` builds this tree's ``ln_fwd`` and sampling kernels
-returning at once, for the fixed cost of a launch.
+:func:`empty_library` builds this tree's ``ln_fwd``, sampling and verify
+kernels returning at once, for the fixed cost of a launch.
 
 :func:`ptxas_report` reads a build log written with ``-Xptxas -v`` into
 registers and spills per kernel.
@@ -45,17 +45,19 @@ from apex_tpu_torch import nvcc_path
 from apex_tpu_torch.ops import _build
 
 SOURCES = ("layer_norm.cu", "softmax.cu", "paged_decode_attn.cu",
-           "fused_sample.cu", "errors.cu")
+           "fused_sample.cu", "fused_verify.cu", "errors.cu")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: the parent commit's entries whose signatures this tree changed: no
-#: launch plan
+#: launch plan and no workspace
 PARENT_ENTRY_POINTS = {
-    # x, w, b, y, mean, rstd, dtype, w_bf16, affine, rms, rows, n, eps,
-    # stream
-    "apex_ln_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
-    # logits, u, out, dtype, b, V, inv_temp, top_k, use_top_p, top_p,
-    # stream
-    "apex_fused_sample": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _F, _P],
+    # logits, drafted, u_acc, u_gum, a, next, dtype, b, k1, V, sampled,
+    # inv_temp, top_k, stream
+    "apex_fused_verify": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                          _I, _P],
+    # logits, tokens, parents, anc, u_acc, u_gum, a, j_star, next, dtype,
+    # b, n1, V, sampled, inv_temp, top_k, stream
+    "apex_fused_verify_tree": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _F, _I, _P],
 }
 
 
@@ -92,19 +94,23 @@ def other_library(root) -> Tuple[ctypes.CDLL, str]:
     return lib, log
 
 
-#: the edits that make this tree's ln_fwd and sampling kernels return at
-#: once, for the fixed cost of a launch at a plan's grid and clusters:
-#: source -> (the line the early return follows, the early return)
+#: the edits that make this tree's ln_fwd, sampling and verify kernels
+#: return at once, for the fixed cost of a launch at a plan's grid and
+#: clusters: source -> (the line the early return follows, the early
+#: return)
 EMPTY_EDITS = {
     "layer_norm.cu": ("  constexpr int D = fwd_depth(C);\n",
                       "  if (rows > 0) return;\n"),
     "fused_sample.cu": ("  constexpr bool kKeepMass = P <= 16;\n",
                         "  if (V > 0) return;\n"),
+    "fused_verify.cu": ("  __shared__ VerifyShared sh;\n",
+                        "  if (V > 0) return;\n"),
 }
 
 
 def empty_library() -> ctypes.CDLL:
-    """This tree's ``layer_norm.cu`` and ``fused_sample.cu`` with
+    """This tree's ``layer_norm.cu``, ``fused_sample.cu`` and
+    ``fused_verify.cu`` with
     :data:`EMPTY_EDITS` applied to a copy under ``_build/`` (never to the
     sources), built and loaded with this tree's entry points: the same
     launches (grid, clusters, checks) doing no work."""
@@ -141,45 +147,49 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def parent_ln_fwd(lib, x2d, weight, bias, eps, rms):
-    """The parent's forward kernel on the tree wrapper's operands, as its
-    wrapper launched it: (y, mean (rows, 1), rstd (rows, 1))."""
+def parent_fused_verify(lib, logits, drafted_pad, u_acc, u_gum, *,
+                        temperature, top_k):
+    """The parent's chain verify kernel (one CTA a batch row) on the tree
+    wrapper's operands, as its wrapper launched it: (accept_len, next)."""
     import torch
 
-    from apex_tpu_torch.ops.layer_norm import _DTYPE_CODES
+    from apex_tpu_torch.ops.fused_verify import _DTYPE_CODES, _knobs
 
-    rows, hidden = x2d.shape
-    y = torch.empty_like(x2d)
-    mean = torch.empty((rows, 1), dtype=torch.float32, device=x2d.device)
-    rstd = torch.empty((rows, 1), dtype=torch.float32, device=x2d.device)
-    affine = 0 if weight is None else (1 if bias is None else 2)
-    rc = lib.apex_ln_fwd(
-        x2d.data_ptr(), None if weight is None else weight.data_ptr(),
-        None if bias is None else bias.data_ptr(), y.data_ptr(),
-        mean.data_ptr(), rstd.data_ptr(), _DTYPE_CODES[x2d.dtype],
-        int(weight is not None and weight.dtype == torch.bfloat16), affine,
-        int(rms), rows, hidden, float(eps), _stream(x2d))
+    b, k1, V = logits.shape
+    a = torch.empty((b,), dtype=torch.int32, device=logits.device)
+    nxt = torch.empty_like(a)
+    rc = lib.apex_fused_verify(
+        logits.data_ptr(), drafted_pad.data_ptr(),
+        None if u_acc is None else u_acc.data_ptr(),
+        None if u_gum is None else u_gum.data_ptr(), a.data_ptr(),
+        nxt.data_ptr(), _DTYPE_CODES[logits.dtype], b, k1, V,
+        *_knobs(temperature, top_k), _stream(logits))
     if rc:
-        raise RuntimeError(f"the parent's ln_fwd kernel: CUDA error {rc}")
-    return y, mean, rstd
+        raise RuntimeError(f"the parent's verify kernel: CUDA error {rc}")
+    return a, nxt
 
 
-def parent_fused_sample(lib, logits, u, *, temperature, top_k, top_p):
-    """The parent's sampling kernel (one CTA a row) on (b, V) logits and
-    noise, as its wrapper launched it: (b,) int32 tokens."""
+def parent_fused_verify_tree(lib, logits, tokens, parents, anc, u_acc,
+                             u_gum, *, temperature, top_k):
+    """The parent's tree verify kernel, as :func:`parent_fused_verify`:
+    (accept_len, j_star, next)."""
     import torch
 
-    from apex_tpu_torch.ops.sampling import _DTYPE_CODES
+    from apex_tpu_torch.ops.fused_verify import _DTYPE_CODES, _knobs
 
-    b, V = logits.shape
-    out = torch.empty((b,), dtype=torch.int32, device=logits.device)
-    rc = lib.apex_fused_sample(
-        logits.data_ptr(), u.data_ptr(), out.data_ptr(),
-        _DTYPE_CODES[logits.dtype], b, V, 1.0 / temperature, int(top_k),
-        int(top_p < 1.0), float(top_p), _stream(logits))
+    b, n1, V = logits.shape
+    a = torch.empty((b,), dtype=torch.int32, device=logits.device)
+    j_star, nxt = torch.empty_like(a), torch.empty_like(a)
+    rc = lib.apex_fused_verify_tree(
+        logits.data_ptr(), tokens.data_ptr(), parents.data_ptr(),
+        anc.data_ptr(), None if u_acc is None else u_acc.data_ptr(),
+        None if u_gum is None else u_gum.data_ptr(), a.data_ptr(),
+        j_star.data_ptr(), nxt.data_ptr(), _DTYPE_CODES[logits.dtype], b,
+        n1, V, *_knobs(temperature, top_k), _stream(logits))
     if rc:
-        raise RuntimeError(f"the parent's sampling kernel: CUDA error {rc}")
-    return out
+        raise RuntimeError(f"the parent's tree verify kernel: CUDA error "
+                           f"{rc}")
+    return a, j_star, nxt
 
 
 @contextlib.contextmanager

@@ -31,7 +31,8 @@ without the final line):
    plan; the serve's decode step (8, 32768) and prefill chunk (1, 32768)
    at T=0.8 with top-k/top-p on and off, 4 seeds each, tokens
    bit-identical across two runs; timed at both with the serve's knobs,
-   the parent's kernel in turns under ``--parent``, and with each knob
+   the parent's kernel in turns under ``--parent`` (its tokens
+   bit-identical to this tree's), and with each knob
    set, ``sample_times``), the flash forward
    and the dK/dV and dQ backward kernels (the train step's b 20, s 1024,
    8 heads of 128, and a GQA case: b 8, s 1000, 2 kv heads) and
@@ -47,8 +48,9 @@ without the final line):
    across two runs; ``ln_fwd`` timed at every main path's call — the
    serve's 8 and 256 rows, the decode leg's 16 and 8192, BERT's, GPT's,
    T5's two — and at one row, each with its plan (``ln_fwd_times``),
-   ``ln_bwd`` at each train path's norm call and
-   ``softmax_fwd`` at each of the five softmax calls,
+   ``ln_bwd`` at each train path's norm call,
+   ``softmax_fwd`` and ``softmax_bwd`` at each of the five softmax calls
+   and at the T5 legs' unmasked cross call (``softmax_bwd_times``),
    with the row kernel's launch shape and ptxas registers and spills, and
    with ``--parent DIR`` the kernels of that checkout — a git archive of
    the parent commit — built into a library of their own and timed in
@@ -105,10 +107,17 @@ without the final line):
      leg's batch 1: every split the legs reach; bit-identical across two
      runs; timed at 640 and 513 live rows through ``decode_attention``
      and the entry alone, the parent's in turns, and at each split) and
-     both verify
-     kernels (greedy and sampled, (1, 5, V), (1, 9, V) and batch 4, with
-     forced ties) against their plain versions, with times, bounds and
-     library times as above;
+     both verify kernels (each verify row over a cluster of S CTAs by
+     the host's plan, the tree resolved by the last row to arrive;
+     greedy and sampled at (1, 5), (1, 9), (4, 5), (4, 9) and (1, 33) x
+     V, with forced ties, over 4 seeds) against their plain versions,
+     verdicts bit-identical across two runs, two planted faults (the
+     last rank left out of the merges, row 0's slots never published)
+     refused at every shape and mode, the card's room for the plan's
+     clusters and its shared memory; each shape and mode timed with the
+     parent's kernel in turns under ``--parent``, an empty launch of the
+     plan, the plain version, the bound, the plan and the instance's
+     registers and spills (``verify_times``);
    * the decode leg of bench.py (batch 16, prompt 512, 128 new tokens):
      with the counters zeroed just before and read just after, 3 timed
      prefills and 3 timed loops of 127 greedy decode steps into one
@@ -123,8 +132,10 @@ without the final line):
      drafter) and NGramDrafter(4), the tree with NGramTreeDrafter(4, 2),
      greedy, then the n-gram chain sampled; each run's verify counter
      zeroed just before and read just after must equal its rounds;
-     acceptance, tokens per round and the share of tokens identical to
-     plain greedy are printed;
+     acceptance, tokens per round, the share of tokens identical to
+     plain greedy and the verify launches by mode are printed, and the
+     leg's launches x (time - bound) of each verify kernel and mode
+     (``spec_verify_gap``);
 7. the train path: the same GPT-medium in bf16 (flash attention, no
    remat), batch 20 x 1024 seeded tokens, ``loss_fn`` + ``backward`` + one
    ``FusedAdam(lr=1e-4)`` step: a warm-up step, then 10 timed steps with
@@ -307,12 +318,13 @@ T5 = dict(vocab_size=32128, max_seq_len=512, hidden_size=768,
 T5_BATCH, T5_ENC, T5_DEC, T5_STEPS = 128, 512, 114, 10
 T5_PAD_MIN = 256        # padded batches: encoder lengths in [256, 512]
 T5_DTABLE_TOL = 1e-3    # bucket-table gradient: relative norm error
-# ``--parent DIR``: that checkout's row-wise, decode and sampling kernels,
-# built into a library of their own, (library, ptxas log); None without it
+# ``--parent DIR``: that checkout's row-wise, decode, sampling and verify
+# kernels, built into a library of their own, (library, ptxas log); None
+# without it
 PARENT = None
 # registers and spills of every kernel of this run's build, by name
 PTXAS = {}
-# this tree's ln_fwd and sampling kernels returning at once
+# this tree's ln_fwd, sampling and verify kernels returning at once
 # (rowwise_ab.empty_library): the fixed cost of their launches
 EMPTY = None
 
@@ -548,9 +560,11 @@ def phase_sample_kernel(torch, dev):
     """The sampling kernel against its plain version at the serve's decode
     step (8 rows) and prefill chunk (1 row), V 32768, over 4 seeds x 4 knob
     sets: no token mismatch outside near-ties (at most 1% of rows
-    excluded), tokens bit-identical across two runs; the plans and the
-    card's room for their clusters; times at (8, V) and (1, V) with the
-    serve's knobs, the parent's kernel in turns under ``--parent``, a copy
+    excluded), tokens bit-identical across two runs and, under
+    ``--parent``, to the parent's kernel's; the plans and the card's room
+    for their clusters; times at (8, V) and (1, V) with the serve's knobs,
+    the parent's kernel in turns under ``--parent`` (``within_3pct_of_
+    parent``), a copy
     of the kernel that returns at once on the same clusters (``empty_ms``)
     and each knob set (``none``: the loads, one cluster barrier and the
     draw)."""
@@ -570,6 +584,12 @@ def phase_sample_kernel(torch, dev):
                 again = SM.fused_sample(logits, **kw)
                 check(torch.equal(got, again), f"fused_sample not "
                       f"bit-reproducible at b {b}, knobs {top_k, top_p}")
+                if PARENT is not None:  # the kernel's results unchanged
+                    with rowwise_ab.using(PARENT[0]):
+                        before = SM.fused_sample(logits, **kw)
+                    check(torch.equal(got, before), f"fused_sample differs "
+                          f"from the parent's at b {b}, knobs "
+                          f"{top_k, top_p}")
                 want = SM.fused_sample(logits, impl="torch", **kw)
                 s = SM.filtered_scaled(logits, temperature=0.8, top_k=top_k,
                                        top_p=top_p)
@@ -599,10 +619,7 @@ def phase_sample_kernel(torch, dev):
         check(clusters > 0, f"the card holds no cluster of the sampling "
               f"plan {plan}")
         kern = lambda lg, uu: SM.fused_sample(lg, u=uu, **SAMPLED)  # noqa
-        ms, parent_ms = parent_turns(
-            torch, kern, sets,
-            parent_fn=lambda lib, lg, uu: rowwise_ab.parent_fused_sample(
-                lib, lg, uu, **SAMPLED))
+        ms, parent_ms = parent_turns(torch, kern, sets)
         with rowwise_ab.using(EMPTY):
             empty_ms = time_ms(kern, sets)
         knobs = {}
@@ -622,6 +639,8 @@ def phase_sample_kernel(torch, dev):
         bms, by = bound(nbytes, ops, FP32_OPS_PER_S)
         per_shape[f"b{b}"] = {
             "rows": b, "vocab": V, "ms": ms, "parent_ms": parent_ms,
+            "within_3pct_of_parent": (None if parent_ms is None
+                                      else ms <= 1.03 * parent_ms),
             "empty_ms": empty_ms, "knobs_ms": knobs,
             "plain_ms": time_ms(lambda lg, uu: SM.fused_sample(
                 lg, u=uu, impl="torch", **SAMPLED), sets, reps=3, trials=5),
@@ -1527,6 +1546,11 @@ def phase_contig_decode_kernel(torch, dev):
             "per_shape": per_shape}
 
 
+# the verify kernels' shapes (batch, rows): the spec leg's chain (1, 5) and
+# tree (1, 9), their batch-4 forms, and the drafters' longest chain (1, 33)
+VERIFY_SHAPES = ((1, 5), (1, 9), (4, 5), (4, 9), (1, 33))
+
+
 def verify_case(torch, dev, b, n1, V, seed, tree):
     """bf16 logits with a forced argmax tie in row 1 (indices 3 and 7),
     drafts that follow their parent row's argmax except for a wrong
@@ -1555,6 +1579,28 @@ def verify_case(torch, dev, b, n1, V, seed, tree):
     tiny = torch.finfo(torch.float32).tiny
     u_acc = torch.rand((b, n1), generator=g, device=dev).clamp_min(tiny)
     u_gum = torch.rand((b, n1, V), generator=g, device=dev).clamp_min(tiny)
+    return logits, extra, u_acc, u_gum
+
+
+def verify_fault_case(torch, dev, b, n1, V, tree):
+    """A case both planted faults must change: row 0's largest logit, 30
+    above the rest (beyond any Gumbel term at T 0.8), in the LAST rank's
+    share at V - 5, and row 0's children (the chain's node 1, the tree's
+    nodes 1 and 1 + depth) drafting tokens 11 and 12 with acceptance draws
+    near 1. The sound kernel rejects them and emits
+    V - 5 in both modes; without the last rank's share (drop_last_rank),
+    or without row 0's slot (no_publish: candidate -1), it cannot."""
+    logits, extra, u_acc, u_gum = verify_case(torch, dev, b, n1, V, 5, tree)
+    logits[:, 0, V - 5] = logits[:, 0].amax(-1) + 30.0
+    if tree:
+        tokens = extra[0].clone()
+        tokens[:, 1], tokens[:, 1 + (n1 - 1) // 2] = 11, 12
+        extra = (tokens, *extra[1:])
+    else:
+        drafted = extra[0].clone()
+        drafted[:, 0] = 11
+        extra = (drafted,)
+    u_acc = torch.full_like(u_acc, 0.999)
     return logits, extra, u_acc, u_gum
 
 
@@ -1595,18 +1641,41 @@ def verify_near_ties(torch, logits, extra, u_acc, u_gum, tree):
     return tie.any(-1) | gap.any(-1)
 
 
-def phase_verify_kernels(torch, dev):
-    """Both verify kernels against their plain versions, greedy and
-    sampled (T 0.8, top_k 50), at the spec leg's shapes (1, 5, V) and
-    (1, 9, V) and at batch 4, over 4 seeds; times at the spec leg's
-    shapes."""
+def verify_kernel_args(torch, logits, extra, tree):
+    """The ``*_cuda`` wrapper's operands from the op's: the chain's drafts
+    padded with the bonus entry, the tree's column 0 pinned to NO_DRAFT."""
     from apex_tpu_torch.ops import fused_verify as vf
 
+    if tree:
+        tokens = extra[0].clone()
+        tokens[:, 0] = vf.NO_DRAFT
+        return (logits, tokens, *extra[1:])
+    pad = torch.cat([extra[0], torch.full_like(extra[0][:, :1],
+                                               vf.NO_DRAFT)], 1)
+    return (logits, pad)
+
+
+def phase_verify_kernels(torch, dev):
+    """Both verify kernels against their plain versions, greedy and
+    sampled (T 0.8, top_k 50), at every shape of VERIFY_SHAPES over 4
+    seeds: no verdict mismatch outside near-ties, verdicts bit-identical
+    across two runs; both planted faults (the last rank left out of the
+    merges, row 0's slots never published) refused at every shape and
+    mode; the plan's clusters held by the card, its shared memory the
+    kernel's. Times at every shape and mode: the kernel, the parent's in
+    turns under ``--parent``, a copy that returns at once on the same
+    clusters (``empty_ms``), the plain version, the bound; the plan and
+    the instance's registers and spills."""
+    from apex_tpu_torch.ops import fused_verify as vf
+    from apex_tpu_torch.ops.matmul import _sm_count
+    from apex_tpu_torch.tools import rowwise_ab
+
     V = MODEL["vocab_size"]
-    rows = mismatches = ties_total = 0
+    sms = _sm_count(torch.cuda.current_device())
+    rows = mismatches = ties_total = refused = faults = 0
     for seed in range(4):
-        for tree, n1 in ((False, SPEC_K + 1), (True, 2 * SPEC_K + 1)):
-            for b in (1, 4):
+        for b, n1 in VERIFY_SHAPES:
+            for tree in (False, True):
                 logits, extra, u_acc, u_gum = verify_case(
                     torch, dev, b, n1, V, 100 * seed + b + n1, tree)
                 fn = vf.fused_verify_tree if tree else vf.fused_verify
@@ -1615,6 +1684,10 @@ def phase_verify_kernels(torch, dev):
                     if sampled:
                         kw.update(u_acc=u_acc, u_gum=u_gum)
                     got = fn(logits, *extra, **kw)
+                    again = fn(logits, *extra, **kw)
+                    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                          f"verify not bit-reproducible at {(b, n1)}, "
+                          f"tree {tree}, sampled {sampled}")
                     want = fn(logits, *extra, impl="torch", **kw)
                     bad = torch.zeros((b,), dtype=torch.bool, device=dev)
                     for x, y in zip(got, want):
@@ -1626,65 +1699,128 @@ def phase_verify_kernels(torch, dev):
                         bad &= ~ties
                     mismatches += int(bad.sum())
                     rows += b
+    # the planted faults, at every shape and mode
+    for b, n1 in VERIFY_SHAPES:
+        for tree in (False, True):
+            logits, extra, u_acc, u_gum = verify_fault_case(torch, dev, b,
+                                                            n1, V, tree)
+            args = verify_kernel_args(torch, logits, extra, tree)
+            kern = vf.fused_verify_tree_cuda if tree else \
+                vf.fused_verify_cuda
+            fn = vf.fused_verify_tree if tree else vf.fused_verify
+            for sampled in (False, True):
+                kw = dict(DECODE_SAMPLED) if sampled else {}
+                if sampled:
+                    kw.update(u_acc=u_acc, u_gum=u_gum)
+                want = fn(logits, *extra, impl="torch", **kw)
+                check(bool((want[-1] == V - 5).all()), "the fault case's "
+                      "plain verdict is not the last rank's token")
+                noise = (u_acc, u_gum) if sampled else (None, None)
+                knobs = (dict(DECODE_SAMPLED) if sampled
+                         else dict(temperature=0.0, top_k=0))
+                sound = kern(*args, *noise, **knobs)
+                check(all(torch.equal(x, y) for x, y in zip(sound, want)),
+                      f"verify fault case at {(b, n1)}, tree {tree}, "
+                      f"sampled {sampled}: the sound kernel disagrees")
+                for fault in vf.PLANTED_FAULTS:
+                    got = kern(*args, *noise, **knobs, planted_fault=fault)
+                    bad = torch.zeros((b,), dtype=torch.bool, device=dev)
+                    for x, y in zip(got, want):
+                        bad |= x != y
+                    faults += 1
+                    refused += int(bad.all())  # every batch row changed
     emit("verify_check", {"rows": rows, "near_ties_excluded": ties_total,
-                          "mismatches": mismatches})
+                          "mismatches": mismatches,
+                          "planted_faults": faults,
+                          "planted_faults_refused": refused})
     check(mismatches == 0, f"verify kernels vs plain: {mismatches} verdict "
           f"mismatches outside near-ties")
     check(ties_total <= max(1, 0.01 * rows), f"{ties_total} near-tie rows "
           f"excluded of {rows}")
+    check(refused == faults, f"verify: {faults - refused} of {faults} "
+          f"planted faults not refused")
 
     out = []
-    for tree, n1, name, site in (
-            (False, SPEC_K + 1, "fused_verify", "verify.py:290"),
-            (True, 2 * SPEC_K + 1, "fused_verify_tree", "verify.py:356")):
-        logits, extra, u_acc, u_gum = verify_case(torch, dev, 1, n1, V, 7,
-                                                  tree)
-        if tree:
-            tokens = extra[0].clone()
-            tokens[:, 0] = vf.NO_DRAFT
-            args = (tokens, *extra[1:])
-            kern = lambda *a, **k: vf.fused_verify_tree_cuda(  # noqa: E731
-                logits, *args, *a, **k)
-        else:
-            pad = torch.cat([extra[0], torch.full_like(extra[0][:, :1],
-                                                       vf.NO_DRAFT)], 1)
-            kern = lambda *a, **k: vf.fused_verify_cuda(  # noqa: E731
-                logits, pad, *a, **k)
+    for tree, name, site in ((False, "fused_verify", "verify.py:290"),
+                             (True, "fused_verify_tree", "verify.py:356")):
+        kern_cuda = vf.fused_verify_tree_cuda if tree else \
+            vf.fused_verify_cuda
+        parent_kern = (rowwise_ab.parent_fused_verify_tree if tree
+                       else rowwise_ab.parent_fused_verify)
         fn = vf.fused_verify_tree if tree else vf.fused_verify
-        modes = {}
-        for sampled in (False, True):
-            knobs = (dict(DECODE_SAMPLED) if sampled
-                     else dict(temperature=0.0, top_k=0))
-            noise = (u_acc, u_gum) if sampled else (None, None)
-            plain_kw = dict(knobs, u_acc=u_acc, u_gum=u_gum) \
-                if sampled else {}
-            ms = time_ms(lambda: kern(*noise, **knobs), [()])
-            plain_ms = time_ms(lambda: fn(logits, *extra, impl="torch",
-                                          **plain_kw), [()], reps=3,
-                               trials=5)
-            elems = n1 * V
-            nbytes = elems * 2 + 4 * n1 * (3 if tree else 1) + 12
-            # greedy: one compare per logit; sampled: scale 1, top-k
-            # bisection 96, filter 1, max 1, exp + sum 2, Gumbel 4
-            ops = elems * (105 if sampled else 1)
-            if sampled:
-                nbytes += elems * 4 + n1 * 4 + (4 * n1 * n1 if tree else 0)
-            bms, by = bound(nbytes, ops, FP32_OPS_PER_S)
-            modes["sampled" if sampled else "greedy"] = {
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                "bound_by": by}
-        g_ = modes["greedy"]
+        per_shape = {}
+        for b, n1 in VERIFY_SHAPES:
+            logits, extra, u_acc, u_gum = verify_case(torch, dev, b, n1, V,
+                                                      7, tree)
+            args = verify_kernel_args(torch, logits, extra, tree)
+            plan = vf._verify_plan(b, n1, V, sms)
+            clusters, smem = vf.verify_occupancy(plan, torch.bfloat16, V,
+                                                 tree)
+            check(clusters > 0, f"the card holds no cluster of the verify "
+                  f"plan {plan}")
+            check(smem == plan.smem, f"verify: the kernel's shared memory "
+                  f"{smem} B, the plan's {plan.smem} B")
+            modes = {}
+            for sampled in (False, True):
+                knobs = (dict(DECODE_SAMPLED) if sampled
+                         else dict(temperature=0.0, top_k=0))
+                noise = (u_acc, u_gum) if sampled else (None, None)
+                plain_kw = dict(knobs, u_acc=u_acc, u_gum=u_gum) \
+                    if sampled else {}
+                run = lambda: kern_cuda(*args, *noise, **knobs)  # noqa
+                ms, parent_ms = parent_turns(
+                    torch, run, [()], parent_fn=lambda lib: parent_kern(
+                        lib, *args, *noise, **knobs))
+                with rowwise_ab.using(EMPTY):
+                    empty_ms = time_ms(run, [()])
+                plain_ms = time_ms(lambda: fn(logits, *extra, impl="torch",
+                                              **plain_kw), [()], reps=3,
+                                   trials=5)
+                elems = b * n1 * V
+                nbytes = elems * 2 + 4 * b * n1 * (2 if tree else 1) + 12 * b
+                if tree:
+                    nbytes += 4 * b * n1 * n1
+                # greedy: one compare a logit; sampled, as the sampler: the
+                # scale, its key and the largest key 3, four top-k rounds
+                # 12, the Gumbel term 3, the draw 2, then each kept
+                # entry's mass (exp, scale, sum) 3
+                ops = elems
+                if sampled:
+                    nbytes += elems * 4 + 4 * b * n1
+                    ops = elems * 20 + 3 * b * n1 * DECODE_SAMPLED["top_k"]
+                bms, by = bound(nbytes, ops, FP32_OPS_PER_S)
+                modes["sampled" if sampled else "greedy"] = {
+                    "ms": ms, "parent_ms": parent_ms, "empty_ms": empty_ms,
+                    "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                    "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                    "ops_bound_ms": ops / FP32_OPS_PER_S * 1e3}
+            info = {"batch": b, "rows": n1, "vocab": V, **modes,
+                    "plan": plan._asdict(), "max_active_clusters": clusters,
+                    "ptxas": ptxas_of("verify_kernel", (
+                        "__nv_bfloat16", str(plan.values),
+                        "true" if tree else "false"))}
+            per_shape[f"{b}x{n1}"] = info
+            emit("verify_times", dict(info, kernel=name, **DECODE_SAMPLED))
+        spec = per_shape[f"1x{2 * SPEC_K + 1 if tree else SPEC_K + 1}"]
+        g_ = spec["greedy"]
         out.append({"name": name, "route": "cuda",
                     "source": "apex_tpu_torch/csrc/fused_verify.cu",
                     "replaces": "apex_tpu/ops/pallas/" + site,
                     "max_abs_err": 0, "ms": g_["ms"],
+                    "parent_ms": g_["parent_ms"],
                     "plain_ms": g_["plain_ms"], "bound_ms": g_["bound_ms"],
                     "bound_by": g_["bound_by"], "library_ms": None,
                     "library_note": "no PyTorch call verifies drafts",
-                    "sampled": modes["sampled"],
-                    "timed_shape": {"batch": 1, "rows": n1, "vocab": V,
-                                    "dtype": "bf16", "ms_is": "greedy",
-                                    **DECODE_SAMPLED}})
+                    "kernel_note": "each verify row over a cluster of the "
+                                   "plan's CTAs, the tree resolved by the "
+                                   "last row to arrive; parent_ms: the "
+                                   "parent commit's kernel in turns "
+                                   "(--parent)",
+                    "sampled": spec["sampled"], "plan": spec["plan"],
+                    "timed_shape": {"batch": 1, "rows": spec["rows"],
+                                    "vocab": V, "dtype": "bf16",
+                                    "ms_is": "greedy", **DECODE_SAMPLED},
+                    "per_shape": per_shape})
     return out
 
 
@@ -1874,6 +2010,7 @@ def phase_spec(torch, model, params, dev):
              DecodeEngine(model, device=dev, **DECODE_SAMPLED),
              lambda: NGramDrafter(SPEC_K), "fused_verify")]
     launches = {"fused_verify": 0, "fused_verify_tree": 0}
+    by_mode = {k: {"greedy": 0, "sampled": 0} for k in launches}
     info = {}
     for name, eng, make, kernel in runs:
         draft = make()
@@ -1896,6 +2033,7 @@ def phase_spec(torch, model, params, dev):
             out < MODEL["vocab_size"])).all().item(),
               f"spec {name}: bad output")
         launches[kernel] += n
+        by_mode[kernel]["sampled" if eng.temperature > 0 else "greedy"] += n
         info[name] = {
             "rounds": st.rounds, "drafted": st.drafted,
             "accepted": st.accepted, "nodes": st.nodes,
@@ -1910,7 +2048,24 @@ def phase_spec(torch, model, params, dev):
     torch.cuda.synchronize()
     info["plain_greedy"] = {"tokens_per_s": SPEC_NEW
                             / (time.perf_counter() - t0)}
+    info["verify_launches_by_mode"] = by_mode
     return info, launches
+
+
+def verify_gap(kernels, by_mode):
+    """The spec leg's launches x (time - bound) of each verify kernel, each
+    mode at its own time and bound at the spec leg's shape."""
+    out, total = {}, 0.0
+    for k in kernels:
+        if k["name"] not in by_mode:
+            continue
+        modes = {"greedy": {"ms": k["ms"], "bound_ms": k["bound_ms"]},
+                 "sampled": k["sampled"]}
+        for mode, n in by_mode[k["name"]].items():
+            gap = n * (modes[mode]["ms"] - modes[mode]["bound_ms"])
+            out[f"{k['name']}_{mode}"] = {"launches": n, "gap_ms": gap}
+            total += gap
+    return dict(out, total_gap_ms=total)
 
 
 
@@ -3343,10 +3498,7 @@ def ln_fwd_times(torch, dev):
         fwd_sets = [(x,) for x, _ in sets]
         del sets
         kern = lambda x: LN.ln_fwd_cuda(x, w, b, LN_EPS, False)  # noqa
-        ms, parent_ms = parent_turns(
-            torch, kern, fwd_sets,
-            parent_fn=lambda lib, x: rowwise_ab.parent_ln_fwd(
-                lib, x, w, b, LN_EPS, False))
+        ms, parent_ms = parent_turns(torch, kern, fwd_sets)
         with rowwise_ab.using(EMPTY):
             empty_ms = time_ms(kern, fwd_sets)
         copy_ms = time_ms(lambda x, y: y.copy_(x),
@@ -3463,10 +3615,10 @@ def phase_softmax_kernels(torch, dev):
     """softmax_fwd and softmax_bwd at every main path's softmax call (GPT
     causal, BERT's key mask, T5's decoder triangle, cross and encoder
     calls), a tail sk of 114, fully masked rows, and a row too long for
-    one warp (sk 4096); the forward's times, bounds and library calls at
-    every main-path call (the parent's kernel in turns under ``--parent``,
-    and the warp-per-row instance's registers and spills), the backward's
-    at GPT's causal call (163840 rows x 1024, bf16) and at BERT's."""
+    one warp (sk 4096); the forward's and the backward's times, bounds
+    and library calls at every main-path call (the forward's parent
+    kernel in turns under ``--parent``, and the warp-per-row instance's
+    registers and spills), and at the T5 legs' unmasked cross call."""
     from apex_tpu_torch.ops import softmax as S
 
     errs = {"y": 0.0, "dx": 0.0}
@@ -3537,18 +3689,31 @@ def phase_softmax_kernels(torch, dev):
         torch.cuda.empty_cache()
         return out
 
-    calls = {what: times(shape, kind, what in ("gpt_causal", "bert_key"))
-             for what, (shape, kind) in SOFTMAX_CALLS.items()}
+    # the backward at every call too, and at the T5 legs' cross call as
+    # their timed (unpadded) steps call it, with no mask: the learned
+    # leg's and the relative leg's only softmax call
+    bwd_calls = dict(SOFTMAX_CALLS,
+                     t5_cross_unmasked=((T5_BATCH, 12, T5_DEC, T5_ENC), None))
+    calls = {what: times(shape, kind, True)
+             for what, (shape, kind) in bwd_calls.items()}
     for what, c in calls.items():
         emit("softmax_fwd_times", {"call": what, **{
             k: c[k] for k in ("fwd", "parent_fwd", "plain_fwd", "lib_fwd",
                               "bound_fwd", "live", "ptxas")}})
+        emit("softmax_bwd_times", {
+            "call": what, "shape": list(bwd_calls[what][0]),
+            "mask": bwd_calls[what][1], "ms": c["bwd"],
+            "plain_ms": c["plain_bwd"], "library_ms": c["lib_bwd"],
+            "bound_ms": c["bound_bwd"][0], "bound_by": c["bound_bwd"][1],
+            "bound_share": c["bound_bwd"][0] / c["bwd"],
+            "entries_read": c["live"]["bwd"],
+            "entries": c["live"]["entries"]})
     gpt, bert = calls["gpt_causal"], calls["bert_key"]
     src = "apex_tpu_torch/csrc/softmax.cu"
     note = ("torch.softmax after x.mul(scale).masked_fill(mask, -10000): "
             "three calls (two without a mask)")
-    per_fwd = {what: {"shape": list(SOFTMAX_CALLS[what][0]),
-                      "mask": SOFTMAX_CALLS[what][1],
+    per_fwd = {what: {"shape": list(bwd_calls[what][0]),
+                      "mask": bwd_calls[what][1],
                       "ms": c["fwd"], "parent_ms": c["parent_fwd"],
                       "plain_ms": c["plain_fwd"], "library_ms": c["lib_fwd"],
                       "bound_ms": c["bound_fwd"][0],
@@ -3556,11 +3721,13 @@ def phase_softmax_kernels(torch, dev):
                       "entries_read": c["live"]["fwd"],
                       "entries": c["live"]["entries"], "ptxas": c["ptxas"]}
                for what, c in calls.items()}
-    per_bwd = {"bert_key": {"ms": bert["bwd"], "plain_ms": bert["plain_bwd"],
-                            "library_ms": bert["lib_bwd"],
-                            "bound_ms": bert["bound_bwd"][0],
-                            "entries_read": bert["live"]["bwd"],
-                            "entries": bert["live"]["entries"]}}
+    per_bwd = {what: {"ms": c["bwd"], "plain_ms": c["plain_bwd"],
+                      "library_ms": c["lib_bwd"],
+                      "bound_ms": c["bound_bwd"][0],
+                      "bound_by": c["bound_bwd"][1],
+                      "entries_read": c["live"]["bwd"],
+                      "entries": c["live"]["entries"]}
+               for what, c in calls.items() if what != "gpt_causal"}
     timed = {"b": TRAIN_BATCH, "heads": 8, "sq": TRAIN_SEQ, "sk": TRAIN_SEQ,
              "mask": "causal", "dtype": "bf16",
              "entries": gpt["live"]["entries"]}
@@ -4228,9 +4395,9 @@ def main(argv=None):
                                  "paths on one CUDA card.")
     ap.add_argument("--parent", metavar="DIR", default=None,
                     help="a checkout (e.g. a git archive of the parent "
-                    "commit) whose ln_fwd, ln_bwd, softmax_fwd, decode "
-                    "and sampling kernels are timed in turns with this "
-                    "tree's")
+                    "commit) whose ln_fwd, ln_bwd, softmax_fwd, decode, "
+                    "sampling and verify kernels are timed in turns with "
+                    "this tree's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
@@ -4368,6 +4535,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     s_info, paths["spec"] = phase_spec(torch, model, params, dev)
     emit("spec", s_info)
+    emit("spec_verify_gap", verify_gap(d_kernels,
+                                       s_info["verify_launches_by_mode"]))
     del model, params
     torch.cuda.empty_cache()
 

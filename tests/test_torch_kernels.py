@@ -38,7 +38,13 @@ buffer; the contiguous decode kernel at the paged kernel's tolerances;
 the verify kernels' verdicts equal to the plain version's exactly in
 greedy mode, and in sampled mode except on a batch row with a near-tie
 (two best perturbed scores of a row, or an acceptance draw and its
-probability, within 1e-5 relative), at most 1% of rows.
+probability, within 1e-5 relative), at most 1% of rows; each verify row
+over a cluster of S CTAs: each S the plan takes (8, 4, 2, 1) in both
+dtypes, with the card's room for the plan's clusters and its shared
+memory, verdicts bit-identical across two runs, launches back to back on
+one workspace each right (the counters reset), and two planted faults
+(the last rank left out of the merges, row 0's slots never published)
+refused at every batch row.
 
 The bshd backward (BERT's padded train step) and the array bias of both
 layouts: dq, dk, dv, o and lse under the same bf16 rule; dbias within
@@ -720,33 +726,147 @@ def _verify_near_ties(logits, extra, u_acc, u_gum, kw, tree):
     return tie.any(-1) | gap.any(-1)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,n1,tree", [(1, 5, False), (4, 5, False),
-                                       (1, 9, True), (4, 9, True)])
-@pytest.mark.parametrize("temperature", [0.0, 0.8])
-def test_verify_kernels_match_plain(cuda, dtype, b, n1, tree, temperature):
-    V = 32768
-    logits, extra, u_acc, u_gum = _verify_case(cuda, dtype, b, n1, V,
-                                               seed=b * n1, tree=tree)
-    kw = dict(temperature=temperature, top_k=50)
+# (b, n1, V) whose plans take each split: S 8 (the spec leg's shapes), 4,
+# 2, and 1; a V that is no multiple of 8 (element loads)
+VERIFY_SPLITS = [(1, 5, 32768, 8), (1, 9, 32768, 8), (4, 5, 32768, 4),
+                 (4, 9, 32768, 2), (16, 9, 1000, 1), (2, 5, 1001, 4)]
+
+
+def _verify_verdicts(tree, logits, extra, kw):
     fn = vmod.fused_verify_tree if tree else vmod.fused_verify
-    counter = vmod.fused_verify_tree_cuda if tree else vmod.fused_verify_cuda
-    noise = dict(u_acc=u_acc, u_gum=u_gum) if temperature else {}
-    before = counter.launches
-    got = fn(logits, *extra, **kw, **noise)
-    assert counter.launches == before + 1
-    want = fn(logits, *extra, **kw, **noise, impl="torch")
-    torch.cuda.synchronize()
-    bad = torch.zeros((b,), dtype=torch.bool, device=cuda)
+    return fn(logits, *extra, **kw)
+
+
+def _verify_bad(got, want):
+    bad = torch.zeros_like(got[0], dtype=torch.bool)
     for x, y in zip(got, want):
         bad |= x != y
+    return bad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n1,V,splits", VERIFY_SPLITS)
+@pytest.mark.parametrize("tree", [False, True])
+@pytest.mark.parametrize("temperature,top_k", [(0.0, 0), (0.8, 50),
+                                               (1.3, 0)])
+def test_verify_kernels_match_plain(cuda, dtype, b, n1, V, splits, tree,
+                                   temperature, top_k):
+    """Each cluster size the plan takes, in both dtypes: verdicts equal to
+    the plain version's (sampled: outside near-ties), bit-identical across
+    two runs, one launch a call; the card holds the plan's clusters and
+    the kernel's shared memory is the plan's."""
+    plan = vmod._plan_for(torch.empty((b, n1, V), device=cuda))
+    assert plan.splits == splits
+    clusters, smem = vmod.verify_occupancy(plan, dtype, V, tree)
+    assert clusters > 0 and smem == plan.smem
+    logits, extra, u_acc, u_gum = _verify_case(cuda, dtype, b, n1, V,
+                                               seed=b * n1 + V, tree=tree)
+    kw = dict(temperature=temperature, top_k=top_k)
     if temperature:
-        ties = _verify_near_ties(logits, extra, u_acc, u_gum,
-                                 dict(temperature=temperature, top_k=50),
-                                 tree)
-        bad &= ~ties
+        kw.update(u_acc=u_acc, u_gum=u_gum)
+    counter = vmod.fused_verify_tree_cuda if tree else vmod.fused_verify_cuda
+    before = counter.launches
+    got = _verify_verdicts(tree, logits, extra, kw)
+    again = _verify_verdicts(tree, logits, extra, kw)
+    assert counter.launches == before + 2
+    want = _verify_verdicts(tree, logits, extra, dict(kw, impl="torch"))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    bad = _verify_bad(got, want)
+    if temperature:
+        bad &= ~_verify_near_ties(logits, extra, u_acc, u_gum,
+                                  dict(temperature=temperature,
+                                       top_k=top_k), tree)
     assert not bad.any(), f"verdicts {got} vs plain {want}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tree", [False, True])
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_verify_back_to_back_launches_reset_the_counters(cuda, tree,
+                                                         temperature):
+    """Launches back to back on one workspace, on different inputs and
+    shapes: each verdict right, so each launch's last arriver left its
+    counters at 0 and no slot of an earlier call was read as its own."""
+    V = 32768
+    cases = [_verify_case(cuda, torch.bfloat16, b, n1, V, seed=s, tree=tree)
+             for b, n1, s in ((1, 9, 1), (1, 9, 2), (4, 5, 3), (1, 5, 4),
+                              (4, 9, 5))]
+    kws = []
+    for logits, extra, u_acc, u_gum in cases:
+        kw = dict(temperature=temperature, top_k=50)
+        if temperature:
+            kw.update(u_acc=u_acc, u_gum=u_gum)
+        kws.append(kw)
+    got = [_verify_verdicts(tree, c[0], c[1], kw)
+           for c, kw in zip(cases, kws)]
+    for (logits, extra, u_acc, u_gum), kw, g in zip(cases, kws, got):
+        want = _verify_verdicts(tree, logits, extra, dict(kw, impl="torch"))
+        bad = _verify_bad(g, want)
+        if temperature:
+            bad &= ~_verify_near_ties(logits, extra, u_acc, u_gum,
+                                      dict(temperature=temperature,
+                                           top_k=50), tree)
+        assert not bad.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n1", [(1, 5), (1, 9), (4, 9)])
+@pytest.mark.parametrize("tree", [False, True])
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("fault", vmod.PLANTED_FAULTS)
+def test_verify_planted_faults_are_refused(cuda, b, n1, tree, temperature,
+                                           fault):
+    """Row 0's largest logit, 30 above the rest, in the last rank's share,
+    its children drafting other tokens with draws near 1: the sound kernel
+    emits that token at every batch row; with the last rank left out of
+    the merges, or row 0's slots never published, no batch row does."""
+    V = 32768
+    logits, extra, u_acc, u_gum = _verify_case(cuda, torch.bfloat16, b, n1,
+                                               V, seed=5, tree=tree)
+    logits[:, 0, V - 5] = logits[:, 0].float().amax(-1).bfloat16() + 30.0
+    if tree:
+        tokens = extra[0].clone()
+        tokens[:, 0] = vmod.NO_DRAFT
+        tokens[:, 1], tokens[:, 1 + (n1 - 1) // 2] = 11, 12
+        args = (logits, tokens, *extra[1:])
+        kern = vmod.fused_verify_tree_cuda
+    else:
+        pad = torch.cat([extra[0], torch.full_like(extra[0][:, :1],
+                                                   vmod.NO_DRAFT)], 1)
+        pad[:, 0] = 11
+        args = (logits, pad)
+        kern = vmod.fused_verify_cuda
+    noise = (torch.full_like(u_acc, 0.999), u_gum) if temperature \
+        else (None, None)
+    kw = dict(temperature=temperature, top_k=50)
+    sound = kern(*args, *noise, **kw)
+    assert (sound[-1] == V - 5).all()
+    got = kern(*args, *noise, **kw, planted_fault=fault)
+    assert _verify_bad(got, sound).all()
+    again = kern(*args, *noise, **kw)  # a sound launch after the fault
+    assert all(torch.equal(x, y) for x, y in zip(again, sound))
+
+
+@pytest.mark.gpu
+def test_verify_kernels_refuse_what_they_do_not_take(cuda):
+    V = vmod.KERNEL_MAX_VOCAB + 8
+    logits = torch.zeros((1, 5, V), dtype=torch.bfloat16, device=cuda)
+    pad = torch.full((1, 5), vmod.NO_DRAFT, dtype=torch.int32, device=cuda)
+    u = torch.full((1, 5), 0.5, device=cuda)
+    with pytest.raises(ValueError, match="registers"):
+        vmod.fused_verify_cuda(logits, pad, u, u[..., None].expand(
+            1, 5, V).contiguous(), temperature=0.8, top_k=50)
+    a, nxt = vmod.fused_verify_cuda(logits, pad, None, None,
+                                    temperature=0.0, top_k=0)
+    assert int(a) == 0 and int(nxt) == 0  # greedy takes any V
+    with pytest.raises(ValueError, match="no planted fault"):
+        vmod.fused_verify_cuda(logits, pad, None, None, temperature=0.0,
+                               top_k=0, planted_fault="drop_bias")
+    with pytest.raises(ValueError, match="verify rows"):
+        vmod.fused_verify_cuda(logits[:, :1], pad[:, :1], None, None,
+                               temperature=0.0, top_k=0)
 
 
 @pytest.mark.gpu

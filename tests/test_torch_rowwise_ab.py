@@ -1,5 +1,5 @@
-"""The A/B helpers for the row-wise, decode and sampling kernels, on the
-CPU: the ``-Xptxas -v`` log reader of ``apex_tpu_torch/tools/rowwise_ab.py``,
+"""The A/B helpers for the row-wise, decode, sampling and verify kernels,
+on the CPU: the ``-Xptxas -v`` log reader of ``apex_tpu_torch/tools/rowwise_ab.py``,
 its library swap, the parent's signatures it binds, ``chip_smoke.py``'s
 lookup of one kernel instance in the report (by its demangled name, or its
 mangled one where ``c++filt`` is missing), and its turns (parent, this,
@@ -65,17 +65,20 @@ def test_using_swaps_the_library_and_restores_it():
 
 
 def test_other_library_builds_the_decode_kernels_with_the_parents_signatures():
-    """The parent builds the decode and sampling kernels too. Its decode
-    entries take this tree's signatures (18 and 16 arguments); the entries
-    this tree changed keep the parent's own: ``apex_ln_fwd`` and
-    ``apex_fused_sample`` without a launch plan (14 and 11 arguments,
-    where this tree's take 19 and 16)."""
-    assert {"paged_decode_attn.cu", "fused_sample.cu",
-            "layer_norm.cu"} <= set(rowwise_ab.SOURCES)
+    """The parent builds the decode, sampling and verify kernels too. Its
+    decode, sampling and layer-norm entries take this tree's signatures
+    (18, 16 and 19 arguments); the entries this tree changed keep the
+    parent's own: ``apex_fused_verify`` and ``apex_fused_verify_tree``
+    without a launch plan and a workspace (14 and 17 arguments, where this
+    tree's take 22 and 25)."""
+    assert {"paged_decode_attn.cu", "fused_sample.cu", "layer_norm.cu",
+            "fused_verify.cu"} <= set(rowwise_ab.SOURCES)
     parent = rowwise_ab.PARENT_ENTRY_POINTS
-    assert set(parent) == {"apex_ln_fwd", "apex_fused_sample"}
-    assert len(parent["apex_ln_fwd"]) == 14
-    assert len(parent["apex_fused_sample"]) == 11
+    assert set(parent) == {"apex_fused_verify", "apex_fused_verify_tree"}
+    assert len(parent["apex_fused_verify"]) == 14
+    assert len(parent["apex_fused_verify_tree"]) == 17
+    assert len(_build.ENTRY_POINTS["apex_fused_verify"]) == 22
+    assert len(_build.ENTRY_POINTS["apex_fused_verify_tree"]) == 25
     assert len(_build.ENTRY_POINTS["apex_ln_fwd"]) == 19
     assert len(_build.ENTRY_POINTS["apex_fused_sample"]) == 16
     assert len(_build.ENTRY_POINTS["apex_paged_decode_attn"]) == 18
