@@ -50,12 +50,32 @@
 // A longer row takes a CTA of 256 threads and three passes over it (max,
 // sum, write).
 //
-// Backward: one warp a row, the row in registers (sk <= 2048; lane l
-// holds chunks l, l + 32, ... through row_io.cuh), max-free: the dot of dy
-// and y by warp shuffles, one write; a longer row takes a CTA of 256
-// threads and two passes.
+// Backward (sk <= 2048), told the forward's mode and mask. A masked
+// entry's y is the same all along its row (one exp a row), and on a row
+// with a live entry that y is 0 in practice, so its dx is 0 and it adds
+// nothing to sum(dy * y). The kernel reads dy and y only in 16-byte chunks
+// with a live entry, zeroes a partly masked chunk's masked lanes from the
+// mask bits (never from dy * y: a NaN in dy there never reaches the row),
+// and writes 0 for every fully masked chunk. It trusts that only after
+// reading ONE masked y of the row, the guard (the first masked entry of the
+// first lane that has one; its chunk's y is loaded even when all of it is
+// masked). A row whose guard is not 0 (a fully masked row, uniform at
+// 1/sk; live scaled scores within about 90 of MASK_FILL) is read whole,
+// its masked chunks loaded then. One divergence from the reference: a
+// non-finite dy at an entry whose y is exactly 0 gives NaN there and a
+// finite row here. Bound: bytes, the live entries of dy and y read and dx
+// written whole (GPT's causal call: 671 MB, 0.200 ms at 3.35 TB/s). A
+// lane holds its chunks of a row as raw 16-byte registers (the dot by
+// group shuffles in a fixed order, then dx from the same registers). With
+// a mask the warps are persistent and keep the next row's loads in
+// flight; without one a warp takes one row group and the grid covers the
+// rows (the card then holds as many rows in flight as warps, every byte
+// of them read). Rows of at most 16 chunks (T5's decoder, 114 long) go
+// four to a warp. A longer row takes a CTA of 256 threads and two passes
+// over every entry, whatever the mask.
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "apex_cuda.cuh"
 #include "apex_mma.cuh"
@@ -214,6 +234,74 @@ struct RowWalk {
   }
 };
 
+// the masked bits of a lane's C chunks of the row at `walk` (bit k of
+// chunk c: element (sl + L c) V + k masked): from the row's mask bytes, or
+// k > q under causal (which may set bits past n)
+template <int kMode, int C, int V, int L>
+__device__ __forceinline__ void row_bits(uint32_t* mb, const RowWalk& walk,
+                                         const MaskView& m, int sl, int n,
+                                         bool active) {
+  constexpr uint32_t kAll = (1u << V) - 1;
+  if constexpr (kMode == kMask) {
+    const uint8_t* mr = m.p + walk.b * m.sb + walk.h * m.sh + walk.q * m.sq;
+    uint2 raw[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      raw[c] = active ? fetch_mask<V>(mr, m.sk, (sl + L * c) * V, n)
+                      : make_uint2(0u, 0u);
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      mb[c] = nonzero_bytes(raw[c].x) | (nonzero_bytes(raw[c].y) << 4);
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int d = walk.q - (sl + L * c) * V;  // k masked where k > d
+      mb[c] = kMode != kCausal ? 0u
+              : d < 0          ? kAll
+              : d >= V - 1     ? 0u
+                               : kAll & ~((2u << d) - 1);
+    }
+  }
+}
+
+// bit k set where element k of a chunk with `left` elements inside the
+// row lies past its end
+template <int V>
+__device__ __forceinline__ uint32_t dead_bits(int left) {
+  constexpr uint32_t kAll = (1u << V) - 1;
+  return left <= 0 ? kAll : left >= V ? 0u : kAll & ~((1u << left) - 1);
+}
+
+// a chunk's packed elements into the row at i0, up to n: 16 bytes, pieces
+// of w = 8 or 4 bytes, or (w 0) element by element
+template <typename T>
+__device__ __forceinline__ void put_chunk(T* row, int i0, int n, int w,
+                                          const uint4& out) {
+  constexpr int V = apex::Chunk<T>::kVec;
+  if (w == 16) {
+    *reinterpret_cast<uint4*>(row + i0) = out;
+  } else if (w == 8) {
+    const int ep = 8 / static_cast<int>(sizeof(T));
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+      if (p * ep < n - i0)
+        reinterpret_cast<uint2*>(row + i0)[p] =
+            reinterpret_cast<const uint2*>(&out)[p];
+  } else if (w == 4) {
+    const int ep = 4 / static_cast<int>(sizeof(T));
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+      if (p * ep < n - i0)
+        reinterpret_cast<uint32_t*>(row + i0)[p] =
+            reinterpret_cast<const uint32_t*>(&out)[p];
+  } else {
+    const T* e = reinterpret_cast<const T*>(&out);
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      if (i0 + k < n) row[i0 + k] = e[k];
+  }
+}
+
 // y = softmax(scale * x) over rows walked by persistent warps, G rows a
 // warp at a time (two for rows of at most 16 chunks, L = 32 / G lanes a
 // row). A row's masked bits are known before its x is read (causal: from
@@ -256,26 +344,7 @@ __global__ void __launch_bounds__(kThreads)
     const bool active = r < rows;
     const T* xr = x + static_cast<size_t>(r) * n;
     uint32_t mb[C];
-    if constexpr (kMode == kMask) {
-      const uint8_t* mr = m.p + walk.b * m.sb + walk.h * m.sh + walk.q * m.sq;
-      uint2 raw[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        raw[c] = active ? fetch_mask<V>(mr, m.sk, (sl + L * c) * V, n)
-                        : make_uint2(0u, 0u);
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        mb[c] = nonzero_bytes(raw[c].x) | (nonzero_bytes(raw[c].y) << 4);
-    } else {
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int d = walk.q - (sl + L * c) * V;  // k masked where k > d
-        mb[c] = kMode != kCausal ? 0u
-                : d < 0          ? kAll
-                : d >= V - 1     ? 0u
-                                 : kAll & ~((2u << d) - 1);
-      }
-    }
+    row_bits<kMode, C, V, L>(mb, walk, m, sl, n, active);
     walk.next();
 #pragma unroll
     for (int c = 0; c < C; ++c) {
@@ -363,29 +432,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int k = 0; k < V; ++k) v[c * V + k] = pf;
       }
-      const uint4 out = pack_chunk<T>(v + c * V, inv);
-      if (w == 16) {
-        *reinterpret_cast<uint4*>(yr + i0) = out;
-      } else if (w == 8) {
-        const int ep = 8 / static_cast<int>(sizeof(T));
-#pragma unroll
-        for (int p = 0; p < 2; ++p)
-          if (p * ep < n - i0)
-            reinterpret_cast<uint2*>(yr + i0)[p] =
-                reinterpret_cast<const uint2*>(&out)[p];
-      } else if (w == 4) {
-        const int ep = 4 / static_cast<int>(sizeof(T));
-#pragma unroll
-        for (int p = 0; p < 4; ++p)
-          if (p * ep < n - i0)
-            reinterpret_cast<uint32_t*>(yr + i0)[p] =
-                reinterpret_cast<const uint32_t*>(&out)[p];
-      } else {
-        const T* e = reinterpret_cast<const T*>(&out);
-#pragma unroll
-        for (int k = 0; k < V; ++k)
-          if (i0 + k < n) yr[i0 + k] = e[k];
-      }
+      put_chunk<T>(yr, i0, n, w, pack_chunk<T>(v + c * V, inv));
     }
   };
 
@@ -402,32 +449,250 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int E>
+// a chunk's elements [0, left) of a row as 16 raw bytes (0 past left):
+// one 16-byte load, pieces of w = 8 or 4 bytes, or (w 0) element by
+// element
+template <typename T>
+__device__ __forceinline__ uint4 load_raw(const T* src, int left, int w) {
+  constexpr int V = apex::Chunk<T>::kVec;
+  uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+  if (w == 16) {
+    raw = *reinterpret_cast<const uint4*>(src);
+  } else if (w == 8) {
+    const int ep = 8 / static_cast<int>(sizeof(T));
+    uint2* d = reinterpret_cast<uint2*>(&raw);
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+      if (p * ep < left) d[p] = reinterpret_cast<const uint2*>(src)[p];
+  } else if (w == 4) {
+    const int ep = 4 / static_cast<int>(sizeof(T));
+    uint32_t* d = reinterpret_cast<uint32_t*>(&raw);
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+      if (p * ep < left) d[p] = reinterpret_cast<const uint32_t*>(src)[p];
+  } else {
+    T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      if (k < left) e[k] = src[k];
+  }
+  return raw;
+}
+
+// element k of a chunk held as 16 raw bytes, in fp32 (no local memory for
+// a k known only at run time)
+template <typename T>
+__device__ __forceinline__ float raw_elem(const uint4& raw, int k) {
+  const int i = sizeof(T) == 2 ? k >> 1 : k;
+  const uint32_t u = i == 0 ? raw.x : i == 1 ? raw.y : i == 2 ? raw.z : raw.w;
+  if constexpr (sizeof(T) == 2)
+    return __uint_as_float(k & 1 ? u & 0xffff0000u : u << 16);
+  return __uint_as_float(u);
+}
+
+// the mask bytes of elements i0 .. i0 + V - 1 of a mask row (i0 >= 0),
+// 0 past n, with a key stride of 1 where the rows start on no V-byte
+// boundary (T5's (1, 1, 114, 114) triangle): the (at most 3) 4-byte
+// words that hold them, each with a byte of the row, shifted into place,
+// in place of fetch_mask's V byte loads
+template <int V>
+__device__ __forceinline__ uint2 mask_words(const uint8_t* mr, int i0,
+                                            int n) {
+  const int hi = min(i0 + V, n);
+  uint2 r = make_uint2(0u, 0u);
+  if (i0 >= hi) return r;
+  const uintptr_t pa = reinterpret_cast<uintptr_t>(mr + i0);
+  const uint32_t* wp = reinterpret_cast<const uint32_t*>(pa & ~uintptr_t{3});
+  const int s = static_cast<int>(pa & 3) * 8;
+  const int words = (static_cast<int>(pa & 3) + hi - i0 + 3) >> 2;
+  const uint32_t w0 = wp[0];
+  const uint32_t w1 = words > 1 ? wp[1] : 0u;
+  const uint32_t w2 = words > 2 ? wp[2] : 0u;
+  uint64_t b = (static_cast<uint64_t>(__funnelshift_r(w1, w2, s)) << 32) |
+               __funnelshift_r(w0, w1, s);
+  const int keep = hi - i0;
+  if (keep < 8) b &= (uint64_t{1} << (8 * keep)) - 1;
+  r.x = static_cast<uint32_t>(b);
+  r.y = static_cast<uint32_t>(b >> 32);
+  return r;
+}
+
+// row_bits for the backward: with `words`, a mask is read by mask_words
+template <int kMode, int C, int V, int L>
+__device__ __forceinline__ void bwd_bits(uint32_t* mb, const RowWalk& walk,
+                                         const MaskView& m, int sl, int n,
+                                         bool active, bool words) {
+  if (kMode == kMask && words) {
+    const uint8_t* mr = m.p + walk.b * m.sb + walk.h * m.sh + walk.q * m.sq;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const uint2 raw = active ? mask_words<V>(mr, (sl + L * c) * V, n)
+                               : make_uint2(0u, 0u);
+      mb[c] = nonzero_bytes(raw.x) | (nonzero_bytes(raw.y) << 4);
+    }
+  } else {
+    row_bits<kMode, C, V, L>(mb, walk, m, sl, n, active);
+  }
+}
+
+// dx = scale * y * (dy - sum(dy * y)) over rows walked by warps, G rows a
+// warp at a time, as the forward walks them. With D 2 the warps are
+// persistent and walk rows grid-stride, the next row's loads in flight
+// while a row is reduced; with D 1 (no mask: every byte of a row is read,
+// and the card holds as many rows in flight as warps) a warp takes one
+// row group and the grid covers the rows. A lane holds chunks l, l + L,
+// ... of a row as raw 16-byte registers. A row's masked bits are
+// known before its loads are issued; a lane loads dy and y in its chunks
+// with a live entry, and the y of the guard's chunk. The dot is each
+// lane's chunks in order, then the group's xor shuffles, so dx is the same
+// bits from run to run.
+template <typename T, int E, int G, int kMode, int D, bool kFull>
 __global__ void __launch_bounds__(kThreads)
     softmax_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ y,
-                       T* __restrict__ dx, int rows, int n, float scale,
-                       bool vec) {
+                       T* __restrict__ dx, MaskView m, int rows, int n,
+                       int sq, float scale, int piece, bool words) {
+  // every row whole 16-byte chunks (kFull: no code for narrower pieces,
+  // fewer registers), else pieces of `piece` bytes
+  const int w = kFull ? 16 : piece;
   constexpr int V = apex::Chunk<T>::kVec;
   constexpr int C = E / V;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const int lane = threadIdx.x & 31;
-  const size_t off = static_cast<size_t>(row) * n;
-  float g[E], p[E];
+  constexpr int L = 32 / G;
+  constexpr uint32_t kAll = (1u << V) - 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int sl = lane % L;
+  // the lanes of this lane's row
+  const unsigned group =
+      L == 32 ? 0xffffffffu : ((1u << L) - 1) << (lane & ~(L - 1));
+  const int stride = gridDim.x * kWarps * G;
+  const int base = (blockIdx.x * kWarps + warp) * G;
+  if (base >= rows) return;
+  const int first = base + lane / L;
+  const int count = (rows - base + stride - 1) / stride;
+  // the rows load() visits, in order
+  RowWalk walk(first, stride, kMode == kMask ? m.q_rows : sq,
+               kMode == kMask ? m.heads : 1);
+
+  // a row as a lane holds it: its chunks of dy and y, raw, and their
+  // masked bits inside the row
+  struct Row {
+    uint4 g[C], p[C];
+    uint32_t mk[C];
+  };
+
+  // the guard's lane: the row's first lane with a masked entry inside the
+  // row, -1 where the row has none
+  auto guard_lane = [&](const uint32_t* mk) {
+    bool has = false;
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    apex::load_chunk(dy + off, (lane + 32 * c) * V, n, vec, 0.f, g + c * V);
-    apex::load_chunk(y + off, (lane + 32 * c) * V, n, vec, 0.f, p + c * V);
+    for (int c = 0; c < C; ++c) has |= mk[c] != 0;
+    const unsigned b = __ballot_sync(0xffffffffu, has) & group;
+    return b ? __ffs(b) - 1 : -1;
+  };
+
+  auto load = [&](Row& row, int it) {
+    const int r = first + it * stride;
+    const bool active = r < rows;
+    const size_t off = static_cast<size_t>(r) * n;
+    bwd_bits<kMode, C, V, L>(row.mk, walk, m, sl, n, active, words);
+    walk.next();
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      row.mk[c] = active ? row.mk[c] & ~dead_bits<V>(n - (sl + L * c) * V) &
+                               kAll
+                         : 0u;
+    bool guard = kMode != kNoMask && lane == guard_lane(row.mk);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int i0 = (sl + L * c) * V;
+      const int left = n - i0;  // elements of the chunk inside the row
+      if (!active || left <= 0) continue;
+      const bool live = (row.mk[c] | dead_bits<V>(left)) != kAll;
+      if (live) row.g[c] = load_raw(dy + off + i0, left, w);
+      if (live || (guard && row.mk[c] != 0))
+        row.p[c] = load_raw(y + off + i0, left, w);
+      guard = guard && row.mk[c] == 0;
+    }
+  };
+
+  auto finish = [&](const Row& row, int it) {
+    const int r = first + it * stride;
+    const bool active = r < rows;
+    const size_t off = static_cast<size_t>(r) * n;
+    // the guard's y, shared over the row: the skip holds where it is 0
+    bool whole = false;
+    if constexpr (kMode != kNoMask) {
+      const int gl = guard_lane(row.mk);
+      bool look = lane == gl;
+      float gy = 0.f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (look && row.mk[c] != 0)
+          gy = raw_elem<T>(row.p[c], __ffs(row.mk[c]) - 1);
+        look = look && row.mk[c] == 0;
+      }
+      gy = __shfl_sync(0xffffffffu, gy, gl < 0 ? lane : gl);
+      whole = active && gy != 0.f;
+    }
+    // chunk c's dy and y in fp32 (on a whole row a chunk never loaded
+    // comes from device memory); returns the bits of its entries left
+    // out: past n, and masked where the skip holds (kAll: g and p unset)
+    auto values = [&](int c, float* g, float* p) -> uint32_t {
+      const int i0 = (sl + L * c) * V;
+      const int left = n - i0;
+      const uint32_t dead = dead_bits<V>(left);
+      if (left > 0 && (row.mk[c] | dead) != kAll) {
+        apex::unpack_chunk<T>(row.g[c], g);
+        apex::unpack_chunk<T>(row.p[c], p);
+        return dead | (whole ? 0u : row.mk[c]);
+      }
+      if (left <= 0 || !whole) return kAll;
+      apex::unpack_chunk<T>(load_raw(dy + off + i0, left, w), g);
+      apex::unpack_chunk<T>(load_raw(y + off + i0, left, w), p);
+      return dead;
+    };
+    float dot = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      float g[V], p[V];
+      const uint32_t out = values(c, g, p);
+      if (out == kAll) continue;
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        dot += ((out >> k) & 1u) ? 0.f : g[k] * p[k];
+    }
+    dot = group_reduce<L, false>(dot);
+    if (!active) return;
+    T* dxr = dx + off;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int i0 = (sl + L * c) * V;
+      if (i0 >= n) continue;
+      float g[V], p[V], v[V];
+      const uint32_t out = values(c, g, p);
+      if (out == kAll) {  // every entry masked: dx 0, nothing to pack
+        put_chunk<T>(dxr, i0, n, w, make_uint4(0u, 0u, 0u, 0u));
+        continue;
+      }
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        v[k] = ((out >> k) & 1u) ? 0.f : scale * p[k] * (g[k] - dot);
+      put_chunk<T>(dxr, i0, n, w, pack_chunk<T>(v, 1.f));
+    }
+  };
+
+  Row cur;
+  load(cur, 0);
+  for (int it = 0; it < count; ++it) {
+    if constexpr (D == 2) {  // the next row's loads issued first
+      Row next;
+      if (it + 1 < count) load(next, it + 1);
+      finish(cur, it);
+      cur = next;
+    } else {
+      if (it > 0) load(cur, it);
+      finish(cur, it);
+    }
   }
-  float dot = 0.f;
-#pragma unroll
-  for (int e = 0; e < E; ++e) dot += g[e] * p[e];
-  dot = apex::warp_sum(dot);
-#pragma unroll
-  for (int e = 0; e < E; ++e) g[e] = scale * p[e] * (g[e] - dot);
-#pragma unroll
-  for (int c = 0; c < C; ++c)
-    apex::store_chunk(dx + off, (lane + 32 * c) * V, n, vec, g + c * V);
 }
 
 // a CTA-wide sum (is_max false) or max over kLongThreads threads
@@ -495,24 +760,39 @@ int lane_elems(int n) {
                                                        : need <= 64 ? 64 : 0;
 }
 
-bool aligned(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+// CTAs of `kernel` (kThreads threads, `smem` bytes of dynamic shared
+// memory) the card holds at once
+template <typename K>
+int resident_ctas(K kernel, int smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                smem);
+  return sms * per_sm > 0 ? sms * per_sm : 1;
 }
 
-// the forward's grid: every CTA resident at once (its warps walk the rows),
-// or fewer when the rows run out
+// the grids: every CTA resident at once (its warps walk the rows), or
+// fewer when the rows run out
 template <typename T, int E, int G, int kMode>
 int fwd_blocks(int rows) {
-  static const int resident = [] {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, softmax_fwd_kernel<T, E, G, kMode>, kThreads,
-        fwd_smem(E / apex::Chunk<T>::kVec));
-    return sms * per_sm > 0 ? sms * per_sm : 1;
-  }();
+  static const int resident = resident_ctas(
+      softmax_fwd_kernel<T, E, G, kMode>, fwd_smem(E / apex::Chunk<T>::kVec));
   return min((rows + kWarps * G - 1) / (kWarps * G), resident);
+}
+
+// rows a lane holds at once in the backward: the row it reduces, and with
+// a mask the next one, whose loads are in flight
+constexpr int bwd_depth(int mode) { return mode == kNoMask ? 1 : 2; }
+
+
+template <typename T, int E, int G, int kMode, int D, bool kFull>
+int bwd_blocks(int rows) {
+  const int all = (rows + kWarps * G - 1) / (kWarps * G);
+  if constexpr (D == 1) return all;
+  static const int resident =
+      resident_ctas(softmax_bwd_kernel<T, E, G, kMode, D, kFull>, 0);
+  return min(all, resident);
 }
 
 template <typename T, int E, int G, int kMode>
@@ -527,6 +807,21 @@ void fwd_launch(const T* x, T* y, const MaskView& m, int rows, int n, int sq,
           x, y, m, rows, n, sq, scale2, w);
 }
 
+template <typename T, int E, int G, int kMode>
+void bwd_launch(const T* dy, const T* y, T* dx, const MaskView& m, int rows,
+                int n, int sq, float scale, int w, bool words,
+                cudaStream_t st) {
+  constexpr int D = bwd_depth(kMode);
+  if (w == 16)
+    softmax_bwd_kernel<T, E, G, kMode, D, true>
+        <<<bwd_blocks<T, E, G, kMode, D, true>(rows), kThreads, 0, st>>>(
+            dy, y, dx, m, rows, n, sq, scale, w, words);
+  else
+    softmax_bwd_kernel<T, E, G, kMode, D, false>
+        <<<bwd_blocks<T, E, G, kMode, D, false>(rows), kThreads, 0, st>>>(
+            dy, y, dx, m, rows, n, sq, scale, w, words);
+}
+
 // the widest piece (16, 8 or 4 bytes; 0: none) that every row of x and y
 // starts on and ends on
 int piece_bytes(const void* x, const void* y, int n, int es) {
@@ -536,34 +831,91 @@ int piece_bytes(const void* x, const void* y, int n, int es) {
   return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : a % 4 == 0 ? 4 : 0;
 }
 
+// launch(E, G) with the warp kernels' elements a lane and rows a warp for
+// rows of n, as std::integral_constants; false for a row too long for a
+// warp
+template <typename T, typename F>
+bool by_width(int n, F&& launch) {
+  constexpr int V = apex::Chunk<T>::kVec;
+  using I8 = std::integral_constant<int, 8>;
+  using G1 = std::integral_constant<int, 1>;
+  switch (lane_elems<T>(n)) {
+    case 8:
+      if ((n + V - 1) / V <= 16)
+        launch(I8{}, std::integral_constant<int, 2>{});
+      else
+        launch(I8{}, G1{});
+      return true;
+    case 16:
+      launch(std::integral_constant<int, 16>{}, G1{});
+      return true;
+    case 32:
+      launch(std::integral_constant<int, 32>{}, G1{});
+      return true;
+    case 64:
+      launch(std::integral_constant<int, 64>{}, G1{});
+      return true;
+  }
+  return false;
+}
+
 template <typename T, int kMode>
 cudaError_t fwd_mode(const void* x, void* y, const MaskView& m, int rows,
                      int n, int sq, float scale, cudaStream_t st) {
-  constexpr int V = apex::Chunk<T>::kVec;
   const T* xp = static_cast<const T*>(x);
   T* yp = static_cast<T*>(y);
   const int w = piece_bytes(x, y, n, sizeof(T));
   const float scale2 = scale * kLog2e;
-  switch (lane_elems<T>(n)) {
-    case 8:
-      if ((n + V - 1) / V <= 16)
-        fwd_launch<T, 8, 2, kMode>(xp, yp, m, rows, n, sq, scale2, w, st);
-      else
-        fwd_launch<T, 8, 1, kMode>(xp, yp, m, rows, n, sq, scale2, w, st);
-      break;
-    case 16:
-      fwd_launch<T, 16, 1, kMode>(xp, yp, m, rows, n, sq, scale2, w, st);
-      break;
-    case 32:
-      fwd_launch<T, 32, 1, kMode>(xp, yp, m, rows, n, sq, scale2, w, st);
-      break;
-    case 64:
-      fwd_launch<T, 64, 1, kMode>(xp, yp, m, rows, n, sq, scale2, w, st);
-      break;
-    default:
-      softmax_fwd_long_kernel<T, kMode><<<rows, kLongThreads, 0, st>>>(
-          xp, yp, m, n, sq, scale);
+  if (!by_width<T>(n, [&](auto e, auto g) {
+        fwd_launch<T, decltype(e)::value, decltype(g)::value, kMode>(
+            xp, yp, m, rows, n, sq, scale2, w, st);
+      }))
+    softmax_fwd_long_kernel<T, kMode><<<rows, kLongThreads, 0, st>>>(
+        xp, yp, m, n, sq, scale);
+  return cudaGetLastError();
+}
+
+// by_width for the backward: rows of at most 16 blocks go 4 to a warp
+// (8 lanes a row, 1 or 2 blocks a lane), so a warp has more bytes in
+// flight a step
+template <typename T, typename F>
+bool bwd_width(int n, F&& launch) {
+  constexpr int V = apex::Chunk<T>::kVec;
+  const int blocks = (n + V - 1) / V;
+  if (blocks <= 8) {
+    launch(std::integral_constant<int, V>{}, std::integral_constant<int, 4>{});
+    return true;
   }
+  if (blocks <= 16) {
+    launch(std::integral_constant<int, 2 * V>{},
+           std::integral_constant<int, 4>{});
+    return true;
+  }
+  return by_width<T>(n, launch);
+}
+
+template <typename T, int kMode>
+cudaError_t bwd_mode(const void* dy, const void* y, void* dx,
+                     const MaskView& m, int rows, int n, int sq, float scale,
+                     cudaStream_t st) {
+  const T* dyp = static_cast<const T*>(dy);
+  const T* yp = static_cast<const T*>(y);
+  T* dxp = static_cast<T*>(dx);
+  const int w = min(piece_bytes(dy, y, n, sizeof(T)),
+                    piece_bytes(dx, dx, n, sizeof(T)));
+  // every mask row on a V-byte boundary: fetch_mask's one load a chunk;
+  // else words (a per-launch choice, so no warp splits between the two)
+  const bool words =
+      kMode == kMask && m.sk == 1 &&
+      (reinterpret_cast<uintptr_t>(m.p) | m.sb | m.sh | m.sq) %
+              apex::Chunk<T>::kVec !=
+          0;
+  if (!bwd_width<T>(n, [&](auto e, auto g) {
+        bwd_launch<T, decltype(e)::value, decltype(g)::value, kMode>(
+            dyp, yp, dxp, m, rows, n, sq, scale, w, words, st);
+      }))  // every entry read, whatever the mask
+    softmax_bwd_long_kernel<T><<<rows, kLongThreads, 0, st>>>(
+        dyp, yp, dxp, n, scale);
   return cudaGetLastError();
 }
 
@@ -578,40 +930,40 @@ cudaError_t fwd_t(const void* x, void* y, const MaskView& m, int mode,
 }
 
 template <typename T>
-cudaError_t bwd_t(const void* dy, const void* y, void* dx, int rows, int n,
-                  float scale, cudaStream_t st) {
-  const T* dyp = static_cast<const T*>(dy);
-  const T* yp = static_cast<const T*>(y);
-  T* dxp = static_cast<T*>(dx);
-  const bool vec = n % apex::Chunk<T>::kVec == 0 && aligned(dy) &&
-                   aligned(y) && aligned(dx);
-  const int blocks = (rows + kWarps - 1) / kWarps;
-  switch (lane_elems<T>(n)) {
-    case 8:
-      softmax_bwd_kernel<T, 8><<<blocks, kThreads, 0, st>>>(
-          dyp, yp, dxp, rows, n, scale, vec);
-      break;
-    case 16:
-      softmax_bwd_kernel<T, 16><<<blocks, kThreads, 0, st>>>(
-          dyp, yp, dxp, rows, n, scale, vec);
-      break;
-    case 32:
-      softmax_bwd_kernel<T, 32><<<blocks, kThreads, 0, st>>>(
-          dyp, yp, dxp, rows, n, scale, vec);
-      break;
-    case 64:
-      softmax_bwd_kernel<T, 64><<<blocks, kThreads, 0, st>>>(
-          dyp, yp, dxp, rows, n, scale, vec);
-      break;
-    default:
-      softmax_bwd_long_kernel<T><<<rows, kLongThreads, 0, st>>>(
-          dyp, yp, dxp, n, scale);
-  }
-  return cudaGetLastError();
+cudaError_t bwd_t(const void* dy, const void* y, void* dx, const MaskView& m,
+                  int mode, int rows, int n, int sq, float scale,
+                  cudaStream_t st) {
+  if (mode == kCausal)
+    return bwd_mode<T, kCausal>(dy, y, dx, m, rows, n, sq, scale, st);
+  if (mode == kMask)
+    return bwd_mode<T, kMask>(dy, y, dx, m, rows, n, sq, scale, st);
+  return bwd_mode<T, kNoMask>(dy, y, dx, m, rows, n, sq, scale, st);
 }
 
 bool dtype_ok(int dtype) {
   return dtype == apex::kFloat32 || dtype == apex::kBFloat16;
+}
+
+// the mask arguments of both entries as a MaskView; false where they are
+// out of range
+bool mask_view(const void* mask, const long long* mstrides, int heads,
+               int q_rows, int mode, int sq, MaskView* m) {
+  if (mode < kNoMask || mode > kMask || (mode == kCausal && sq < 1) ||
+      (mode == kMask && (mask == nullptr || mstrides == nullptr ||
+                         heads < 1 || q_rows < 1)))
+    return false;
+  *m = MaskView{static_cast<const uint8_t*>(mask), 0, 0, 0, 0, 1, 1};
+  if (mode == kMask) {
+    for (int i = 0; i < 4; ++i)
+      if (mstrides[i] < 0) return false;
+    m->sb = mstrides[0];
+    m->sh = mstrides[1];
+    m->sq = mstrides[2];
+    m->sk = mstrides[3];
+    m->heads = heads;
+    m->q_rows = q_rows;
+  }
+  return true;
 }
 
 }  // namespace
@@ -623,22 +975,10 @@ extern "C" int apex_softmax_fwd(const void* x, void* y, const void* mask,
                                 const long long* mstrides, int heads,
                                 int q_rows, int dtype, int mode, int rows,
                                 int n, int sq, float scale, void* stream) {
-  if (!dtype_ok(dtype) || rows < 1 || n < 1 || mode < kNoMask ||
-      mode > kMask || (mode == kCausal && sq < 1) ||
-      (mode == kMask && (mask == nullptr || mstrides == nullptr ||
-                         heads < 1 || q_rows < 1)))
+  MaskView m;
+  if (!dtype_ok(dtype) || rows < 1 || n < 1 ||
+      !mask_view(mask, mstrides, heads, q_rows, mode, sq, &m))
     return static_cast<int>(cudaErrorInvalidValue);
-  MaskView m{static_cast<const uint8_t*>(mask), 0, 0, 0, 0, 1, 1};
-  if (mode == kMask) {
-    for (int i = 0; i < 4; ++i)
-      if (mstrides[i] < 0) return static_cast<int>(cudaErrorInvalidValue);
-    m.sb = mstrides[0];
-    m.sh = mstrides[1];
-    m.sq = mstrides[2];
-    m.sk = mstrides[3];
-    m.heads = heads;
-    m.q_rows = q_rows;
-  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       dtype == apex::kBFloat16
@@ -647,16 +987,22 @@ extern "C" int apex_softmax_fwd(const void* x, void* y, const void* mask,
   return static_cast<int>(err);
 }
 
-// dy, y, dx (rows, n) of dtype
+// dy, y, dx (rows, n) of dtype; the forward's mode and mask arguments, as
+// apex_softmax_fwd takes them: the masked entries the forward filled are
+// not read where the row's guard is 0
 extern "C" int apex_softmax_bwd(const void* dy, const void* y, void* dx,
-                                int dtype, int rows, int n, float scale,
+                                const void* mask, const long long* mstrides,
+                                int heads, int q_rows, int dtype, int mode,
+                                int rows, int n, int sq, float scale,
                                 void* stream) {
-  if (!dtype_ok(dtype) || rows < 1 || n < 1)
+  MaskView m;
+  if (!dtype_ok(dtype) || rows < 1 || n < 1 ||
+      !mask_view(mask, mstrides, heads, q_rows, mode, sq, &m))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       dtype == apex::kBFloat16
-          ? bwd_t<__nv_bfloat16>(dy, y, dx, rows, n, scale, st)
-          : bwd_t<float>(dy, y, dx, rows, n, scale, st);
+          ? bwd_t<__nv_bfloat16>(dy, y, dx, m, mode, rows, n, sq, scale, st)
+          : bwd_t<float>(dy, y, dx, m, mode, rows, n, sq, scale, st);
   return static_cast<int>(err);
 }

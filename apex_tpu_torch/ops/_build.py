@@ -123,8 +123,10 @@ ENTRY_POINTS = {
     # rows, n, sq, scale, stream
     "apex_softmax_fwd": [_P, _P, _P, _S, _I, _I, _I, _I, _I, _I, _I, _F,
                          _P],
-    # dy, y, dx, dtype, rows, n, scale, stream
-    "apex_softmax_bwd": [_P, _P, _P, _I, _I, _I, _F, _P],
+    # dy, y, dx, mask, mask strides (b, h, q, k), heads, q_rows, dtype,
+    # mode, rows, n, sq, scale, stream (the forward's mask arguments)
+    "apex_softmax_bwd": [_P, _P, _P, _P, _S, _I, _I, _I, _I, _I, _I, _I,
+                         _F, _P],
     # a, b, bias, c, ws, dtype, variant, a_k, b_k, a_vec, b_vec, act,
     # bias_f32, out_f32, M, N, K, lda, ldb, ldc, split, kt_split, stream
     "apex_matmul_bias_act": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

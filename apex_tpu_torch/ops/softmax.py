@@ -14,9 +14,11 @@ Dispatch follows :mod:`apex_tpu_torch.ops._backend`: on a CUDA tensor
 hand-written kernels of ``apex_tpu_torch/csrc/softmax.cu`` that replace
 the Pallas ``softmax_fwd``/``softmax_bwd``; on a CPU tensor (or with
 ``impl="torch"``) the plain versions :func:`_torch_fwd` and
-:func:`_torch_bwd` run. The kernel reads the mask through its strides
+:func:`_torch_bwd` run. The kernels read the mask through its strides
 (0 on every broadcast dimension); the reference materialises it at x's
-shape first (``:90-91``). The reference's ``auto`` (XLA on its TPU
+shape first (``:90-91``). The backward is told the forward's mask (the
+autograd core saves it beside y) and skips the masked entries where that
+is exact (see :func:`_torch_bwd`). The reference's ``auto`` (XLA on its TPU
 measurement) and its ``sk % 128`` kernel rule do not carry over: any sk
 runs the kernel on the card.
 """
@@ -61,7 +63,18 @@ def _torch_fwd(x: torch.Tensor, mask: Optional[torch.Tensor],
 def _torch_bwd(dy: torch.Tensor, y: torch.Tensor,
                scale: float) -> torch.Tensor:
     """The explicit backward from the saved probabilities over the last
-    axis, in fp32, cast to y's dtype."""
+    axis, in fp32, cast to y's dtype, reading every entry.
+
+    The kernel (:func:`softmax_bwd_cuda`, told the forward's mask) reads
+    less. The forward gives every masked entry of a row the same y, 0 on a
+    row with a live entry unless its live scaled scores all lie within
+    about 90 of :data:`MASK_FILL`. The kernel reads one masked y of each
+    row, the guard. Where the guard is 0, it skips the row's masked
+    entries: their dx is 0 and they add nothing to the sum. Otherwise (a
+    fully masked row, or such a row) it reads the row whole. So for finite
+    dy the skip changes no bit of the kernel's dx but the sign of a zero.
+    A non-finite dy at an entry whose y is exactly 0 gives NaN here and a
+    finite row from the kernel."""
     yf, dyf = y.float(), dy.float()
     dx = scale * yf * (dyf - (dyf * yf).sum(dim=-1, keepdim=True))
     return dx.to(y.dtype)
@@ -101,6 +114,27 @@ def mask_view(mask: torch.Tensor, shape) -> torch.Tensor:
     return m
 
 
+def _mask_args(name: str, x: torch.Tensor, mask: Optional[torch.Tensor],
+               causal: bool):
+    """Both kernels' mask arguments for scores shaped as ``x``: (mode,
+    mask pointer, its four byte strides, heads, q_rows, sq, the mask view
+    to keep alive through the launch)."""
+    if causal and mask is not None:
+        raise ValueError(f"{name}: causal takes no mask")
+    if causal and x.ndim < 2:
+        raise ValueError(f"{name}: causal needs (…, sq, sk)")
+    sq = x.shape[-2] if x.ndim >= 2 else 1
+    if causal:
+        return _CAUSAL, None, None, 1, 1, sq, None
+    if mask is None:
+        return _NO_MASK, None, None, 1, 1, sq, None
+    if mask.device != x.device:
+        raise ValueError(f"{name}: the mask must be on x's device")
+    m = mask_view(mask, x.shape)
+    return (_MASK, m.data_ptr(), (ctypes.c_longlong * 4)(*m.stride()),
+            m.shape[1], m.shape[2], sq, m)
+
+
 def softmax_fwd_cuda(x: torch.Tensor, mask: Optional[torch.Tensor],
                      scale: float, causal: bool) -> torch.Tensor:
     """Launch the forward kernel over the last axis of ``x`` (…, sq, sk):
@@ -108,27 +142,13 @@ def softmax_fwd_cuda(x: torch.Tensor, mask: Optional[torch.Tensor],
     masked) read through its strides, or neither. Counts its launches in
     ``.launches``."""
     _check_rows("softmax_fwd_cuda", x)
-    if causal and mask is not None:
-        raise ValueError("softmax_fwd_cuda: causal takes no mask")
-    if causal and x.ndim < 2:
-        raise ValueError("softmax_fwd_cuda: causal needs (…, sq, sk)")
+    mode, mptr, strides, heads, q_rows, sq, _m = _mask_args(
+        "softmax_fwd_cuda", x, mask, causal)
     sk = x.shape[-1]
     rows = x.numel() // sk
     y = torch.empty_like(x)
     if rows == 0:
         return y
-    sq = x.shape[-2] if x.ndim >= 2 else 1
-    mode, mptr, strides, heads, q_rows = _NO_MASK, None, None, 1, 1
-    if causal:
-        mode = _CAUSAL
-    elif mask is not None:
-        if mask.device != x.device:
-            raise ValueError("softmax_fwd_cuda: the mask must be on x's "
-                             "device")
-        mode = _MASK
-        m = mask_view(mask, x.shape)
-        strides = (ctypes.c_longlong * 4)(*m.stride())
-        mptr, heads, q_rows = m.data_ptr(), m.shape[1], m.shape[2]
     rc = _build.library().apex_softmax_fwd(
         x.data_ptr(), y.data_ptr(), mptr, strides, heads, q_rows,
         _DTYPE_CODES[x.dtype], mode, rows, sk, sq, float(scale),
@@ -141,19 +161,25 @@ def softmax_fwd_cuda(x: torch.Tensor, mask: Optional[torch.Tensor],
 softmax_fwd_cuda.launches = 0
 
 
-def softmax_bwd_cuda(dy: torch.Tensor, y: torch.Tensor,
-                     scale: float) -> torch.Tensor:
+def softmax_bwd_cuda(dy: torch.Tensor, y: torch.Tensor, scale: float, *,
+                     causal: bool = False,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the backward kernel: dx = scale * y * (dy - sum(dy * y)) per
-    row of the last axis. Counts its launches in ``.launches``."""
+    row of the last axis, y from :func:`softmax_fwd_cuda` with the same
+    ``causal`` and ``mask``. Told them, the kernel skips the masked
+    entries of each row whose guard is 0 (see :func:`_torch_bwd`); with
+    neither it reads every entry. Counts its launches in ``.launches``."""
     _check_rows("softmax_bwd_cuda", y, dy)
+    mode, mptr, strides, heads, q_rows, sq, _m = _mask_args(
+        "softmax_bwd_cuda", y, mask, causal)
     sk = y.shape[-1]
     rows = y.numel() // sk
     dx = torch.empty_like(y)
     if rows == 0:
         return dx
     rc = _build.library().apex_softmax_bwd(
-        dy.data_ptr(), y.data_ptr(), dx.data_ptr(), _DTYPE_CODES[y.dtype],
-        rows, sk, float(scale),
+        dy.data_ptr(), y.data_ptr(), dx.data_ptr(), mptr, strides, heads,
+        q_rows, _DTYPE_CODES[y.dtype], mode, rows, sk, sq, float(scale),
         torch.cuda.current_stream(y.device).cuda_stream)
     _build.check(rc, "softmax_bwd")
     softmax_bwd_cuda.launches += 1
@@ -166,7 +192,10 @@ softmax_bwd_cuda.launches = 0
 # --- the autograd core --------------------------------------------------------
 
 class _SoftmaxCore(torch.autograd.Function):
-    """``_softmax_core``: saves y only."""
+    """``_softmax_core``: saves y, and the mask as the caller passed it
+    (a (b, 1, 1, sk) key mask, a (1, 1, sq, sk) triangle) for the backward
+    kernel's skip; an in-place edit of the mask between the two is
+    caught."""
 
     @staticmethod
     def forward(ctx, x, mask, scale, causal, use_kernel):
@@ -175,16 +204,17 @@ class _SoftmaxCore(torch.autograd.Function):
             y = softmax_fwd_cuda(x, mask, scale, causal)
         else:
             y = _torch_fwd(x, mask, scale, causal)
-        ctx.save_for_backward(y)
-        ctx.scale, ctx.use_kernel = scale, use_kernel
+        ctx.save_for_backward(y, mask)
+        ctx.scale, ctx.causal, ctx.use_kernel = scale, causal, use_kernel
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        y, = ctx.saved_tensors
+        y, mask = ctx.saved_tensors
         dy = dy.contiguous()
         if ctx.use_kernel:
-            dx = softmax_bwd_cuda(dy, y, ctx.scale)
+            dx = softmax_bwd_cuda(dy, y, ctx.scale, causal=ctx.causal,
+                                  mask=mask)
         else:
             dx = _torch_bwd(dy, y, ctx.scale)
         return dx, None, None, None, None

@@ -18,10 +18,9 @@ tree's kernels:
 verify kernels so, against a ``git archive`` of the parent commit unpacked
 into a directory that ``.gitignore`` lists. The entry points take the
 signatures of this tree's ``_build.ENTRY_POINTS``, except those this tree
-changed (:data:`PARENT_ENTRY_POINTS`): the parent's ``apex_fused_verify``
-and ``apex_fused_verify_tree`` take no launch plan and no workspace, and
-:func:`parent_fused_verify` and :func:`parent_fused_verify_tree` launch
-them as the parent's wrappers did. Needs ``nvcc``.
+changed (:data:`PARENT_ENTRY_POINTS`): the parent's ``apex_softmax_bwd``
+takes no mask, and :func:`parent_softmax_bwd` launches it as the parent's
+wrapper did. Needs ``nvcc``.
 
 :func:`empty_library` builds this tree's ``ln_fwd``, sampling and verify
 kernels returning at once, for the fixed cost of a launch.
@@ -47,17 +46,10 @@ from apex_tpu_torch.ops import _build
 SOURCES = ("layer_norm.cu", "softmax.cu", "paged_decode_attn.cu",
            "fused_sample.cu", "fused_verify.cu", "errors.cu")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: the parent commit's entries whose signatures this tree changed: no
-#: launch plan and no workspace
+#: the parent commit's entries whose signatures this tree changed
 PARENT_ENTRY_POINTS = {
-    # logits, drafted, u_acc, u_gum, a, next, dtype, b, k1, V, sampled,
-    # inv_temp, top_k, stream
-    "apex_fused_verify": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                          _I, _P],
-    # logits, tokens, parents, anc, u_acc, u_gum, a, j_star, next, dtype,
-    # b, n1, V, sampled, inv_temp, top_k, stream
-    "apex_fused_verify_tree": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                               _I, _I, _I, _F, _I, _P],
+    # dy, y, dx, dtype, rows, n, scale, stream: not told the mask
+    "apex_softmax_bwd": [_P, _P, _P, _I, _I, _I, _F, _P],
 }
 
 
@@ -147,49 +139,21 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def parent_fused_verify(lib, logits, drafted_pad, u_acc, u_gum, *,
-                        temperature, top_k):
-    """The parent's chain verify kernel (one CTA a batch row) on the tree
-    wrapper's operands, as its wrapper launched it: (accept_len, next)."""
+def parent_softmax_bwd(lib, dy, y, scale):
+    """The parent's softmax backward (every entry read, no mask) on the
+    same operands, as its wrapper launched it: dx."""
     import torch
 
-    from apex_tpu_torch.ops.fused_verify import _DTYPE_CODES, _knobs
+    from apex_tpu_torch.ops.softmax import _DTYPE_CODES
 
-    b, k1, V = logits.shape
-    a = torch.empty((b,), dtype=torch.int32, device=logits.device)
-    nxt = torch.empty_like(a)
-    rc = lib.apex_fused_verify(
-        logits.data_ptr(), drafted_pad.data_ptr(),
-        None if u_acc is None else u_acc.data_ptr(),
-        None if u_gum is None else u_gum.data_ptr(), a.data_ptr(),
-        nxt.data_ptr(), _DTYPE_CODES[logits.dtype], b, k1, V,
-        *_knobs(temperature, top_k), _stream(logits))
+    sk = y.shape[-1]
+    dx = torch.empty_like(y)
+    rc = lib.apex_softmax_bwd(dy.data_ptr(), y.data_ptr(), dx.data_ptr(),
+                              _DTYPE_CODES[y.dtype], y.numel() // sk, sk,
+                              float(scale), _stream(y))
     if rc:
-        raise RuntimeError(f"the parent's verify kernel: CUDA error {rc}")
-    return a, nxt
-
-
-def parent_fused_verify_tree(lib, logits, tokens, parents, anc, u_acc,
-                             u_gum, *, temperature, top_k):
-    """The parent's tree verify kernel, as :func:`parent_fused_verify`:
-    (accept_len, j_star, next)."""
-    import torch
-
-    from apex_tpu_torch.ops.fused_verify import _DTYPE_CODES, _knobs
-
-    b, n1, V = logits.shape
-    a = torch.empty((b,), dtype=torch.int32, device=logits.device)
-    j_star, nxt = torch.empty_like(a), torch.empty_like(a)
-    rc = lib.apex_fused_verify_tree(
-        logits.data_ptr(), tokens.data_ptr(), parents.data_ptr(),
-        anc.data_ptr(), None if u_acc is None else u_acc.data_ptr(),
-        None if u_gum is None else u_gum.data_ptr(), a.data_ptr(),
-        j_star.data_ptr(), nxt.data_ptr(), _DTYPE_CODES[logits.dtype], b,
-        n1, V, *_knobs(temperature, top_k), _stream(logits))
-    if rc:
-        raise RuntimeError(f"the parent's tree verify kernel: CUDA error "
-                           f"{rc}")
-    return a, j_star, nxt
+        raise RuntimeError(f"the parent's softmax backward: CUDA error {rc}")
+    return dx
 
 
 @contextlib.contextmanager

@@ -44,13 +44,16 @@ without the final line):
    every path's softmax call (GPT causal 20 x 8 x 1024², BERT's key mask
    32 x 16 x 512², T5's decoder triangle 114², cross 114 x 512 and
    encoder 512², fully masked rows, a 4096-long row; planted faults in
-   their outputs must fail the rule; y, mean and rstd bit-identical
-   across two runs; ``ln_fwd`` timed at every main path's call — the
-   serve's 8 and 256 rows, the decode leg's 16 and 8192, BERT's, GPT's,
-   T5's two — and at one row, each with its plan (``ln_fwd_times``),
-   ``ln_bwd`` at each train path's norm call,
+   their outputs must fail the rule, the backward told the forward's mask,
+   its dx unchanged by NaN in dy at masked entries; y, mean, rstd and the
+   softmax's dx bit-identical across two runs, and under ``--parent`` the
+   softmax's y bit-identical to the parent's; ``ln_fwd`` timed at every
+   main path's call — the serve's 8 and 256 rows, the decode leg's 16 and
+   8192, BERT's, GPT's, T5's two — and at one row, each with its plan
+   (``ln_fwd_times``), ``ln_bwd`` at each train path's norm call,
    ``softmax_fwd`` and ``softmax_bwd`` at each of the five softmax calls
-   and at the T5 legs' unmasked cross call (``softmax_bwd_times``),
+   and at the T5 legs' unmasked cross call (``softmax_bwd_times``; after
+   the softmax legs, their launches x (time - bound), ``softmax_bwd_gap``),
    with the row kernel's launch shape and ptxas registers and spills, and
    with ``--parent DIR`` the kernels of that checkout — a git archive of
    the parent commit — built into a library of their own and timed in
@@ -1745,8 +1748,6 @@ def phase_verify_kernels(torch, dev):
                              (True, "fused_verify_tree", "verify.py:356")):
         kern_cuda = vf.fused_verify_tree_cuda if tree else \
             vf.fused_verify_cuda
-        parent_kern = (rowwise_ab.parent_fused_verify_tree if tree
-                       else rowwise_ab.parent_fused_verify)
         fn = vf.fused_verify_tree if tree else vf.fused_verify
         per_shape = {}
         for b, n1 in VERIFY_SHAPES:
@@ -1768,9 +1769,7 @@ def phase_verify_kernels(torch, dev):
                 plain_kw = dict(knobs, u_acc=u_acc, u_gum=u_gum) \
                     if sampled else {}
                 run = lambda: kern_cuda(*args, *noise, **knobs)  # noqa
-                ms, parent_ms = parent_turns(
-                    torch, run, [()], parent_fn=lambda lib: parent_kern(
-                        lib, *args, *noise, **knobs))
+                ms, parent_ms = parent_turns(torch, run, [()])
                 with rowwise_ab.using(EMPTY):
                     empty_ms = time_ms(run, [()])
                 plain_ms = time_ms(lambda: fn(logits, *extra, impl="torch",
@@ -3565,10 +3564,18 @@ def softmax_rule(got, plain, truth):
 
 def softmax_check(torch, dev, shape, mask_kind, scale, seed, what):
     """softmax_fwd and softmax_bwd against their plain versions on one
-    call: y and dx by SOFTMAX_SLACK's rule against the fp32 truth, and
-    the planted faults refused; fully masked rows uniform. Returns the y
-    and dx errors."""
+    call, the backward told the forward's mask as the autograd core tells
+    it: y and dx by SOFTMAX_SLACK's rule against the fp32 truth, with the
+    planted faults refused (y: every entry 10% off; dx: 10% off, without
+    - sum(dy * y), and where the call has them, the guard ignored (the
+    fully masked rows' dx zeroed) and the masked entries' dy * y counted
+    (on dy with NaN there)); fully masked rows uniform; dx the same bits
+    across two runs and with NaN in dy at the masked entries of every row
+    with a live entry (rows of at most 2048, which the warp kernel takes;
+    a longer row is read whole); under ``--parent``, y the same bits as
+    the parent's kernel's. Returns the y and dx errors."""
     from apex_tpu_torch.ops import softmax as S
+    from apex_tpu_torch.tools import rowwise_ab
 
     x, dy, mask = softmax_case(torch, dev, shape, mask_kind, seed)
     causal = mask_kind == "causal"
@@ -3577,25 +3584,47 @@ def softmax_check(torch, dev, shape, mask_kind, scale, seed, what):
     y = S.softmax_fwd_cuda(x, mask, scale, causal)
     yp = S._torch_fwd(x, mask, scale, causal)
     yt = S._torch_fwd(x.float(), mask, scale, causal)
+    if PARENT is not None:
+        with rowwise_ab.using(PARENT[0]):
+            y_parent = S.softmax_fwd_cuda(x, mask, scale, causal)
+        check(torch.equal(y, y_parent), f"softmax_fwd: y is not the "
+              f"parent's, bit for bit, at {info}")
+        del y_parent
     torch.cuda.synchronize()
-    if mask is not None:
-        full = torch.broadcast_to(mask, shape).all(-1)
-        if bool(full.any()):
-            err = (y[full].float() - 1.0 / sk).abs().max().item()
-            check(err <= 2 ** -9, f"softmax: fully masked rows not uniform "
-                  f"({err}) at {info}")
+    dead = (~torch.ones(shape[-2:], dtype=torch.bool, device=dev).tril()
+            if causal else mask)
+    dead = None if dead is None else torch.broadcast_to(dead, shape)
+    full = None if dead is None else dead.all(-1)
+    if full is not None and bool(full.any()):
+        err = (y[full].float() - 1.0 / sk).abs().max().item()
+        check(err <= 2 ** -9, f"softmax: fully masked rows not uniform "
+              f"({err}) at {info}")
     del x
-    dx = S.softmax_bwd_cuda(dy, yp, scale)
+    kw = dict(causal=causal, mask=mask)
+    dx = S.softmax_bwd_cuda(dy, yp, scale, **kw)
+    again = S.softmax_bwd_cuda(dy, yp, scale, **kw)
     dxp = S._torch_bwd(dy, yp, scale)
     dxt = S._torch_bwd(dy.float(), yp.float(), scale)
+    dx_faults = {"10% off": (dx.float() * 1.1).to(dx.dtype),
+                 "no - sum(dy * y)": (scale * yp.float()
+                                      * dy.float()).to(dx.dtype)}
+    if full is not None and bool(full.any()):
+        dx_faults["guard ignored"] = dx.masked_fill(full[..., None], 0)
+    if dead is not None and sk <= 2048:
+        dy_bad = dy.masked_fill(dead & ~full[..., None], float("nan"))
+        poisoned = S.softmax_bwd_cuda(dy_bad, yp, scale, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(poisoned, dx), f"softmax_bwd: NaN in dy at "
+              f"masked entries changed dx at {info}")
+        dx_faults["masked dy * y counted"] = S._torch_bwd(dy_bad, yp, scale)
+        del dy_bad, poisoned
     torch.cuda.synchronize()
+    check(torch.equal(dx, again), f"softmax_bwd not bit-reproducible at "
+          f"{info}")
     errs = {}
     for name, got, plain, truth, faults in (
             ("y", y, yp, yt, {"10% off": (y.float() * 1.1).to(y.dtype)}),
-            ("dx", dx, dxp, dxt, {
-                "10% off": (dx.float() * 1.1).to(dx.dtype),
-                "no - sum(dy * y)": (scale * yp.float()
-                                     * dy.float()).to(dx.dtype)})):
+            ("dx", dx, dxp, dxt, dx_faults)):
         ok, r = softmax_rule(got, plain, truth)
         r["planted"] = {}
         for fault, bad in faults.items():
@@ -3615,11 +3644,13 @@ def phase_softmax_kernels(torch, dev):
     """softmax_fwd and softmax_bwd at every main path's softmax call (GPT
     causal, BERT's key mask, T5's decoder triangle, cross and encoder
     calls), a tail sk of 114, fully masked rows, and a row too long for
-    one warp (sk 4096); the forward's and the backward's times, bounds
-    and library calls at every main-path call (the forward's parent
-    kernel in turns under ``--parent``, and the warp-per-row instance's
-    registers and spills), and at the T5 legs' unmasked cross call."""
+    one warp (sk 4096); the forward's and the backward's times (the
+    backward told the call's mask), bounds and library calls at every
+    main-path call, with each parent kernel in turns under ``--parent``
+    and each warp kernel's instance's registers and spills, and at the T5
+    legs' unmasked cross call."""
     from apex_tpu_torch.ops import softmax as S
+    from apex_tpu_torch.tools import rowwise_ab
 
     errs = {"y": 0.0, "dx": 0.0}
     calls = dict(SOFTMAX_CALLS, long_row=((2, 4, 64, 4096), "key"))
@@ -3645,8 +3676,11 @@ def phase_softmax_kernels(torch, dev):
              else x.mul(scale).masked_fill(fill, S.MASK_FILL)), -1), [()])
         if with_bwd:
             y = S.softmax_fwd_cuda(x, mask, scale, causal)
-            out["bwd"] = time_ms(lambda: S.softmax_bwd_cuda(dy, y, scale),
-                                 [()])
+            out["bwd"], out["parent_bwd"] = parent_turns(
+                torch, lambda: S.softmax_bwd_cuda(
+                    dy, y, scale, causal=causal, mask=mask), [()],
+                parent_fn=lambda lib: rowwise_ab.parent_softmax_bwd(
+                    lib, dy, y, scale))
             out["plain_bwd"] = time_ms(lambda: S._torch_bwd(dy, y, scale),
                                        [()], reps=2, trials=3)
             out["lib_bwd"] = time_ms(lambda: torch._softmax_backward_data(
@@ -3656,7 +3690,8 @@ def phase_softmax_kernels(torch, dev):
         # (its dx too) and a fully masked row's y is 1/sk whatever x
         # holds, so the forward reads x at the live entries only, the
         # backward dy and y at the live entries and the fully masked rows;
-        # every output is written whole, and the mask read as stored
+        # every output is written whole, and the mask read as stored by
+        # both
         n, es = x.numel(), x.element_size()
         rows = n // sk
         mask_bytes, full = 0, 0
@@ -3673,18 +3708,29 @@ def phase_softmax_kernels(torch, dev):
         # ~5 fp32 operations a live entry
         out["bound_fwd"] = bound(es * (live + n) + mask_bytes, 5 * live,
                                  FP32_OPS_PER_S)
-        out["bound_bwd"] = bound(es * (2 * live_bwd + n), 5 * live_bwd,
-                                 FP32_OPS_PER_S)
-        # the warp-per-row kernel's instance (as softmax.cu's fwd_mode
-        # picks it: elements a lane, rows a warp, mode), for the ptxas
-        # report
+        out["bound_bwd"] = bound(es * (2 * live_bwd + n) + mask_bytes,
+                                 5 * live_bwd, FP32_OPS_PER_S)
+        # the warp kernels' instances, for the ptxas report, as
+        # softmax.cu picks them: the forward's by_width (elements a lane,
+        # rows a warp, mode); the backward's bwd_width (rows of at most 16
+        # chunks four a warp), its depth (1 without a mask, else 2) and
+        # whole 16-byte chunks or not (the tensors 16-byte aligned)
         chunks = -(-sk // 8)
         elems = next((e for e in (8, 16, 32, 64)
                       if -(-chunks // 32) * 8 <= e), None)
         mode = 1 if causal else 0 if mask is None else 2
         out["ptxas"] = (None if elems is None else ptxas_of(
             "softmax_fwd_kernel", ("__nv_bfloat16", str(elems),
-                                   "2" if chunks <= 16 else "1", str(mode))))
+                                   "2" if chunks <= 16 else "1",
+                                   str(mode))))
+        b_elems, b_rows = ((8 if chunks <= 8 else 16, 4) if chunks <= 16
+                           else (elems, 1))
+        out["ptxas_bwd"] = (None if b_elems is None else ptxas_of(
+            "softmax_bwd_kernel", ("__nv_bfloat16", str(b_elems),
+                                   str(b_rows), str(mode),
+                                   "1" if mode == 0 else "2",
+                                   "true" if sk * es % 16 == 0
+                                   else "false")))
         del x, dy
         torch.cuda.empty_cache()
         return out
@@ -3703,12 +3749,13 @@ def phase_softmax_kernels(torch, dev):
         emit("softmax_bwd_times", {
             "call": what, "shape": list(bwd_calls[what][0]),
             "mask": bwd_calls[what][1], "ms": c["bwd"],
+            "parent_ms": c["parent_bwd"],
             "plain_ms": c["plain_bwd"], "library_ms": c["lib_bwd"],
             "bound_ms": c["bound_bwd"][0], "bound_by": c["bound_bwd"][1],
             "bound_share": c["bound_bwd"][0] / c["bwd"],
             "entries_read": c["live"]["bwd"],
-            "entries": c["live"]["entries"]})
-    gpt, bert = calls["gpt_causal"], calls["bert_key"]
+            "entries": c["live"]["entries"], "ptxas": c["ptxas_bwd"]})
+    gpt = calls["gpt_causal"]
     src = "apex_tpu_torch/csrc/softmax.cu"
     note = ("torch.softmax after x.mul(scale).masked_fill(mask, -10000): "
             "three calls (two without a mask)")
@@ -3721,13 +3768,15 @@ def phase_softmax_kernels(torch, dev):
                       "entries_read": c["live"]["fwd"],
                       "entries": c["live"]["entries"], "ptxas": c["ptxas"]}
                for what, c in calls.items()}
-    per_bwd = {what: {"ms": c["bwd"], "plain_ms": c["plain_bwd"],
+    per_bwd = {what: {"ms": c["bwd"], "parent_ms": c["parent_bwd"],
+                      "plain_ms": c["plain_bwd"],
                       "library_ms": c["lib_bwd"],
                       "bound_ms": c["bound_bwd"][0],
                       "bound_by": c["bound_bwd"][1],
                       "entries_read": c["live"]["bwd"],
-                      "entries": c["live"]["entries"]}
-               for what, c in calls.items() if what != "gpt_causal"}
+                      "entries": c["live"]["entries"],
+                      "ptxas": c["ptxas_bwd"]}
+               for what, c in calls.items()}
     timed = {"b": TRAIN_BATCH, "heads": 8, "sq": TRAIN_SEQ, "sk": TRAIN_SEQ,
              "mask": "causal", "dtype": "bf16",
              "entries": gpt["live"]["entries"]}
@@ -3748,11 +3797,42 @@ def phase_softmax_kernels(torch, dev):
         {"name": "softmax_bwd", "route": "cuda", "source": src,
          "replaces": "apex_tpu/ops/pallas/softmax.py:108",
          "max_abs_err": errs["dx"], "ms": gpt["bwd"],
+         "parent_ms": gpt["parent_bwd"],
          "plain_ms": gpt["plain_bwd"], "bound_ms": gpt["bound_bwd"][0],
          "bound_by": gpt["bound_bwd"][1], "library_ms": gpt["lib_bwd"],
          "library_note": "torch._softmax_backward_data (no scale)",
+         "kernel_note": "told the forward's mask: masked chunks not read "
+                        "where the row's guard is 0; parent_ms: the "
+                        "parent commit's kernel in turns (--parent)",
          "timed_shape": timed, "bound_note": bound_note,
          "per_shape": per_bwd}]
+
+
+def softmax_bwd_gap(per_call, paths):
+    """softmax_bwd's launches x (time - bound) at each main-path call, the
+    launches from the softmax legs: GPT's at its causal call, BERT's at
+    its key mask, the T5 learned leg's a third each at its encoder self,
+    decoder triangle and (unpadded, unmasked) cross calls, the relative
+    leg's at its cross call; with ``--parent`` the same at the parent's
+    times."""
+    def n(path):
+        return paths.get(path, {}).get("softmax_bwd", 0)
+
+    t5 = n("t5_softmax_train_learned") / 3
+    launches = {"gpt_causal": n("gpt_softmax_train"),
+                "bert_key": n("bert_softmax_train"),
+                "t5_dec_self": t5, "t5_enc_self": t5,
+                "t5_cross_unmasked": t5 + n("t5_softmax_train_relative")}
+    out, total, parent_total = {}, 0.0, 0.0
+    for call, k in launches.items():
+        c = per_call[call]
+        out[call] = {"launches": k, "gap_ms": k * (c["ms"] - c["bound_ms"])}
+        total += out[call]["gap_ms"]
+        if c["parent_ms"] is not None:
+            out[call]["parent_gap_ms"] = k * (c["parent_ms"] - c["bound_ms"])
+            parent_total += out[call]["parent_gap_ms"]
+    return dict(out, total_gap_ms=total,
+                parent_total_gap_ms=parent_total if PARENT else None)
 
 
 def timed_steps(torch, step, steps, what):
@@ -4636,6 +4716,8 @@ def main(argv=None):
             torch, dev, pe)
         emit(f"t5_softmax_train_{pe}", sm_info)
         torch.cuda.empty_cache()
+    emit("softmax_bwd_gap", softmax_bwd_gap(
+        by_name["softmax_bwd"]["per_shape"], paths))
 
     # --- the fused-dense and MLP slice: matmul_bias_act -----------------------
     mm_kernel = phase_matmul_kernel(torch, dev)

@@ -69,7 +69,13 @@ truth's largest entry; dgamma and dbeta within 1e-5 of the largest entry
 with fp32 parameters and within one bf16 ulp of it (2^-7) with bf16
 ones (fp32 sums in another order, then one rounding). In fp32 every
 output within 1e-5 of the plain version's largest entry. dgamma and dbeta
-bit-identical across two runs on the same input.
+bit-identical across two runs on the same input. The softmax backward,
+told the forward's mask, is also run with NaN in dy at the masked
+entries of rows with a live entry: its dx finite, 0 there, the same bits
+as on clean dy and across two runs; fully masked rows and a row whose
+masked y is not 0 (live scores 16 above the fill) read whole; two
+planted faults (those rows' dx zeroed, the masked entries' dy * y
+counted) refused by the rule.
 
 The matmul_bias_act kernel: in bf16, max abs error against the plain
 version run in fp32 on the upcast inputs at most twice the bf16 plain
@@ -1838,14 +1844,18 @@ def test_softmax_kernels_match_plain(cuda, shape, mask_kind, dtype):
     yp = smxmod._torch_fwd(x, mask, scale, causal)
     yt = smxmod._torch_fwd(x.float(), mask, scale, causal)
     dx = smxmod.softmax_bwd_cuda(dy, yp, scale)
+    # told the forward's mask, as the autograd core calls it
+    dxm = smxmod.softmax_bwd_cuda(dy, yp, scale, causal=causal, mask=mask)
     dxp = smxmod._torch_bwd(dy, yp, scale)
     dxt = smxmod._torch_bwd(dy.float(), yp.float(), scale)
     torch.cuda.synchronize()
     assert (smxmod.softmax_fwd_cuda.launches,
-            smxmod.softmax_bwd_cuda.launches) == tuple(n + 1 for n in before)
+            smxmod.softmax_bwd_cuda.launches) == (before[0] + 1,
+                                                  before[1] + 2)
     if dtype == torch.bfloat16:
         for name, got, plain, truth in (("y", y, yp, yt),
-                                        ("dx", dx, dxp, dxt)):
+                                        ("dx", dx, dxp, dxt),
+                                        ("dx masked", dxm, dxp, dxt)):
             ok, errs = _within_softmax_rule(got, plain, truth)
             assert ok, f"{name}: kernel/plain errors {errs}"
         # the rule refuses planted faults: 10% off, the dropped - sum term
@@ -1856,7 +1866,8 @@ def test_softmax_kernels_match_plain(cuda, shape, mask_kind, dtype):
             assert not _within_softmax_rule(bad.to(dtype), plain, truth)[0], \
                 f"planted fault in {name} passed the rule"
     else:
-        for name, got, want in (("y", y, yp), ("dx", dx, dxp)):
+        for name, got, want in (("y", y, yp), ("dx", dx, dxp),
+                                ("dx masked", dxm, dxp)):
             ok, err = _close_to_largest(got, want, 1e-5)
             assert ok, f"{name}: {err}"
     if mask_kind in ("key", "full"):  # fully masked rows: uniform
@@ -1994,6 +2005,113 @@ def test_softmax_fwd_mask_skip(cuda, kind, shape, dtype):
     _check_softmax_fwd(x, mask, False)
 
 
+def _check_softmax_bwd(x, dy, mask, causal, scale=0.125):
+    """softmax_bwd told the forward's mask, with NaN in dy at the masked
+    entries of every row with a live entry: dx finite and exactly 0 there,
+    the same bits across two runs and as on clean dy, within the rule of
+    the plain version on clean dy (fp32: 1e-5 of the largest); in bf16
+    two planted faults refused: the guard ignored (the fully masked rows'
+    dx zeroed, where the call has such rows) and the masked entries'
+    dy * y counted (NaN on the poisoned dy)."""
+    shape = x.shape
+    if causal:
+        dead = ~torch.ones(shape[-2:], dtype=torch.bool,
+                           device=x.device).tril()
+    else:
+        dead = mask
+    dead = torch.broadcast_to(dead, shape)
+    full = dead.all(-1)
+    poison = dead & ~full[..., None]
+    y = smxmod.softmax_fwd_cuda(x, mask, scale, causal)
+    bad = dy.masked_fill(poison, float("nan"))
+    kw = dict(causal=causal, mask=mask)
+    dx = smxmod.softmax_bwd_cuda(bad, y, scale, **kw)
+    again = smxmod.softmax_bwd_cuda(bad, y, scale, **kw)
+    clean = smxmod.softmax_bwd_cuda(dy, y, scale, **kw)
+    dxp = smxmod._torch_bwd(dy, y, scale)
+    dxt = smxmod._torch_bwd(dy.float(), y.float(), scale)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dx).all()
+    assert torch.equal(dx, again) and torch.equal(dx, clean)
+    assert (dx.float()[poison] == 0).all()
+    if x.dtype == torch.bfloat16:
+        ok, errs = _within_softmax_rule(dx, dxp, dxt)
+        assert ok, f"kernel/plain errors {errs}"
+        faults = {"masked dy * y counted": smxmod._torch_bwd(bad, y, scale)}
+        if full.any():
+            faults["guard ignored"] = dx.masked_fill(full[..., None], 0)
+        for name, wrong in faults.items():
+            assert not _within_softmax_rule(wrong, dxp, dxt)[0], \
+                f"planted fault '{name}' passed the rule"
+    else:
+        ok, err = _close_to_largest(dx, dxp, 1e-5)
+        assert ok, err
+    return y, dx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,shape", [
+    ("causal", (1, 2, 114, 114)), ("causal", (2, 2, 64, 1024)),
+    ("causal", (1, 3, 130, 200)), ("causal", (1, 2, 257, 257)),
+    ("causal", (2, 1, 512, 512)), ("causal", (1, 1, 33, 2048)),
+    ("causal", (1, 1, 7, 60)),
+    ("chunks", (4, 2, 16, 512)), ("chunks", (3, 2, 8, 1024)),
+    ("chunks", (3, 2, 8, 114)), ("chunks", (3, 1, 5, 114)),
+    ("holes", (2, 3, 16, 512)),
+    ("holes", (2, 2, 9, 200)), ("strided", (3, 2, 8, 512)),
+    ("tril", (2, 3, 114, 114))])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_softmax_bwd_skip(cuda, kind, shape, dtype):
+    """The backward told the forward's mask never lets a masked entry's dy
+    (NaN here) reach a row with a live entry, and gets every row right:
+    the causal forward's rows (the first, rows whose diagonal falls inside
+    a chunk, a tail sk, sq < sk) and the masks of the forward's skip test
+    (whole masked chunks, interior holes, fully masked rows, read whole, a
+    strided key mask, T5's unaligned triangle rows)."""
+    x, dy, _ = _softmax_case(shape, None, dtype, cuda, seed=shape[-1] + 2)
+    mask = None if kind == "causal" else _skip_mask(kind, shape, cuda,
+                                                    seed=shape[-1])
+    y, dx = _check_softmax_bwd(x, dy, mask, kind == "causal")
+    if kind in ("chunks", "holes"):  # fully masked rows: read whole
+        full = torch.broadcast_to(mask, shape).all(-1)
+        assert full.any()
+        want = smxmod._torch_bwd(dy, y, 0.125)[full].float()
+        got = dx[full].float()
+        assert (got - want).abs().max() <= 2e-2 * want.abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sk", [114, 512])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_softmax_bwd_reads_pathological_rows_whole(cuda, sk, dtype):
+    """A row whose live scaled scores all lie 16 above MASK_FILL: its
+    masked y is about e^-16 of a live one, not 0, so the guard sends it
+    down the whole-row read. Its masked entries' dx are then not 0, and
+    the row is within the rule of the plain version."""
+    shape = (2, 2, 8, sk)
+    x, dy, _ = _softmax_case(shape, None, dtype, cuda, seed=sk)
+    mask = torch.zeros((2, 1, 1, sk), dtype=torch.bool, device=cuda)
+    mask[..., sk * 3 // 4:] = True
+    x[1, 0, 3] = -79872  # scaled by 0.125: -9984, exact in bf16
+    y = smxmod.softmax_fwd_cuda(x, mask, 0.125, False)
+    dx = smxmod.softmax_bwd_cuda(dy, y, 0.125, mask=mask)
+    dxp = smxmod._torch_bwd(dy, y, 0.125)
+    dxt = smxmod._torch_bwd(dy.float(), y.float(), 0.125)
+    torch.cuda.synchronize()
+    assert (y[1, 0, 3, sk * 3 // 4:] > 0).all()
+    assert (y[0, 0, 3, sk * 3 // 4:] == 0).all()
+    assert (dx[1, 0, 3, sk * 3 // 4:] != 0).any()
+    assert (dx[0, 0, 3, sk * 3 // 4:] == 0).all()
+    if dtype == torch.bfloat16:
+        ok, errs = _within_softmax_rule(dx, dxp, dxt)
+        assert ok, f"kernel/plain errors {errs}"
+    else:
+        ok, err = _close_to_largest(dx, dxp, 1e-5)
+        assert ok, err
+    row, prow = dx[1, 0, 3].float(), dxp[1, 0, 3].float()
+    assert (row - prow).abs().max() <= 2e-2 * prow.abs().max()
+
+
 @pytest.mark.gpu
 def test_norm_and_softmax_kernels_refuse_what_they_do_not_take(cuda):
     x = torch.zeros((4, 5000), dtype=torch.bfloat16, device=cuda)
@@ -2005,6 +2123,8 @@ def test_norm_and_softmax_kernels_refuse_what_they_do_not_take(cuda):
         smxmod.scaled_masked_softmax(x.half(), None)
     with pytest.raises(ValueError, match="causal takes no mask"):
         smxmod.softmax_fwd_cuda(x, x > 0, 1.0, True)
+    with pytest.raises(ValueError, match="causal takes no mask"):
+        smxmod.softmax_bwd_cuda(x, x, 1.0, causal=True, mask=x > 0)
     assert lnmod.fused_layer_norm(x, impl="torch").shape == x.shape
 
 
