@@ -64,11 +64,9 @@ __global__ void __launch_bounds__(kMaxThreads)
                         int V, int splits, int share, float inv_temp,
                         int top_k, int use_top_p, float top_p, bool vec,
                         int fault) {
-  constexpr int kChunks = P / 8;  // 8 values a chunk
   constexpr bool kKeepMass = P <= 16;
   __shared__ Shared sh;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nthreads = blockDim.x;
+  const int tid = threadIdx.x;
   const int rank = static_cast<int>(sm90::cluster_ctarank());
   const int row = blockIdx.x / splits;
   const int ranks = fault == kDropLastRank ? splits - 1 : splits;
@@ -97,7 +95,6 @@ __global__ void __launch_bounds__(kMaxThreads)
       x[i] = apex::sample::key_score(key[i]) + (-logf(-logf(x[i])));
     drawn = true;
   };
-  auto nothing = []() {};
 
   int buf = 0;
   uint32_t keep = 0u;  // the kept keys are those >= keep
@@ -108,86 +105,16 @@ __global__ void __launch_bounds__(kMaxThreads)
     // top-k left at most kGather live entries: rank 0 gathers them (key,
     // perturbed score, index), finds the top-p threshold among them and
     // draws, with the same integer masses as the rounds below
-    uint32_t live = 0u;
-    int n_live = 0;
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-      if (((valid >> i) & 1u) && key[i] >= keep) {
-        live |= 1u << i;
-        ++n_live;
-      }
-    // this thread's place among its CTA's live entries: after its warp's
-    // lower lanes and the lower warps
-    int incl = n_live;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += y;
-    }
-    if (lane == 31) sh.warp_word[warp] = static_cast<uint32_t>(incl);
-    __syncthreads();
-    int off = incl - n_live, total = 0;
-    for (int w = 0; w < nthreads / 32; ++w) {
-      const int c = static_cast<int>(sh.warp_word[w]);
-      if (w < warp) off += c;
-      total += c;
-    }
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c)
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int i = 8 * c + k;
-        if (((live >> i) & 1u) && off < apex::sample::kGather) {
-          const int slot = rank * apex::sample::kGather + off;
-          apex::sample::st_cluster_u32(
-              sm90::cluster_map(sm90::smem_u32(&sh.g_key[slot]), 0), key[i]);
-          apex::sample::st_cluster_u32(
-              sm90::cluster_map(sm90::smem_u32(&sh.g_x[slot]), 0),
-              __float_as_uint(x[i]));
-          apex::sample::st_cluster_u32(
-              sm90::cluster_map(sm90::smem_u32(&sh.g_i[slot]), 0),
-              static_cast<uint32_t>(apex::sample::share_elem(begin, i)));
-          ++off;
-        }
-      }
-    if (tid == 0)
-      apex::sample::st_cluster_u32(
-          sm90::cluster_map(sm90::smem_u32(&sh.g_count[rank]), 0),
-          static_cast<uint32_t>(min(total, apex::sample::kGather)));
-    // every rank's entries are in rank 0, every read of a peer is done
-    apex::sample::cluster_arrive();
-    sm90::cluster_wait();
+    apex::sample::gather_survivors(sh, key, x, valid, keep, begin, rank,
+                                   [](int) { return 0u; });
     if (rank != 0) return;
-    // entry tid of the ranks' entries in rank order
-    int n = 0, r = 0, at = tid;
-    for (int q = 0; q < ranks; ++q) n += static_cast<int>(sh.g_count[q]);
-    while (r < ranks && at >= static_cast<int>(sh.g_count[r]))
-      at -= static_cast<int>(sh.g_count[r++]);
-    const bool mine = tid < n;
-    const int slot = r * apex::sample::kGather + at;
-    const uint32_t kt = mine ? sh.g_key[slot] : 0u;
-    const float m = apex::sample::key_score(sh.gmax_key);
-    if (mine) {
-      sh.c_key[tid] = kt;
-      sh.c_q[tid] = apex::sample::key_mass(kt, m);
-    }
-    __syncthreads();
-    unsigned long long z = 0ull, above = 0ull;
-    for (int j = 0; j < n; ++j) {
-      const unsigned long long q = sh.c_q[j];
-      z += q;
-      if (sh.c_key[j] >= kt) above += q;
-    }
-    const double target =
-        static_cast<double>(top_p) * static_cast<double>(z);
-    // the largest key whose mass at and above it reaches p * z
-    keep = apex::sample::block_max_u32(
-        sh, mine && static_cast<double>(above) >= target ? kt : 0u);
+    const apex::sample::Gathered g = apex::sample::gathered_top_p(
+        sh, ranks, apex::sample::key_score(sh.gmax_key), top_p);
     float best = -INFINITY;
     int best_i = INT_MAX;
-    if (mine && kt >= keep) {
-      best = sh.g_x[slot];
-      best_i = sh.g_i[slot];
+    if (g.kept) {
+      best = sh.g_x[g.slot];
+      best_i = sh.g_i[g.slot];
     }
     apex::sample::block_argmax(sh, best, best_i);
     if (tid == 0) out[row] = best_i;
@@ -214,30 +141,13 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
       for (int i = 0; i < P; ++i) e[i] = mass(i);
     }
-    uint32_t prefix = 0u;
-    unsigned long long above = 0ull;
-    double target = 0.0;  // top_p times the first round's total
-    for (int shift = 24; shift >= 0; shift -= 8) {
-      const uint32_t hi = shift == 24 ? 0u : ~0u << (shift + 8);
-#pragma unroll
-      for (int i = 0; i < P; ++i) {
-        float ei;
-        if constexpr (kKeepMass)
-          ei = e[i];
-        else
-          ei = mass(i);
-        const unsigned long long q = apex::sample::to_mass(ei);
-        apex::sample::add_mass(sh, buf,
-                               q != 0ull && ((key[i] ^ prefix) & hi) == 0u,
-                               (key[i] >> shift) & 0xffu, q);
-      }
-      const uint32_t d = apex::sample::select_digit(
-          sh, buf, ranks, above, target, shift == 24 ? top_p : -1.f, false,
-          nothing);
-      prefix |= d << shift;
-      buf ^= 1;
-    }
-    keep = prefix;
+    keep = apex::sample::top_p_rounds(
+        sh, key, top_p, ranks, buf, [&](int i) {
+          if constexpr (kKeepMass)
+            return apex::sample::to_mass(e[i]);
+          else
+            return apex::sample::to_mass(mass(i));
+        });
   }
   if (top_k == 0 && !use_top_p) {  // no round ran: every CTA has started
     apex::sample::cluster_arrive();

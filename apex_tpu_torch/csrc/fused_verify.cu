@@ -22,19 +22,32 @@
 // * greedy: each rank walks its share with 16-byte loads for its argmax in
 //   fp32 (ties to the lowest index); rank 0 merges the ranks' in rank
 //   order: cand[r]. Node c is accepted iff cand[parent(c)] == token[c].
-// * sampled, on the sampler's own device code (sample_cluster.cuh) with
-//   its top-p off, as DecodeEngine has no top-p: the share held in
-//   registers, s = fp32(logit) * (1/T) as its order-preserving key, the
-//   top-k threshold by 4 radix rounds (ties at the k-th value kept, as the
-//   reference's converged bisection keeps them), m the cluster's largest
-//   score. z and each drafted child's mass are fixed-point integers
-//   exp(s - m) * 2^40 (a filtered token has mass 0), so child c of row r
-//   is accepted iff u_acc[c] < q[c] / z, the same bits on every run. Row
-//   r's candidate is the Gumbel-argmax s + (-logf(-logf(u))) with EVERY
-//   real drafted child's token filtered (verify.py:235-241; a filtered
-//   entry takes the reference's -1e30 + its Gumbel term), merged at rank 0
-//   in rank order together with the ranks' masses: one cluster barrier
-//   after the rounds.
+// * sampled, on the sampler's own device code (sample_cluster.cuh): the
+//   share held in registers, s = fp32(logit) * (1/T) as its
+//   order-preserving key, the top-k threshold by 4 radix rounds (ties at
+//   the k-th value kept, as the reference's converged bisection keeps
+//   them), m the cluster's largest score, then top-p over the top-k
+//   survivors (verify.py:99-125, 199-242 through sampling.py's
+//   filtered_scaled) as the sampler takes it: after a top-k that left at
+//   most kGather entries every rank stores its survivors (key, Gumbel
+//   term, index) into rank 0, which finds the threshold among them and
+//   finishes the row alone; otherwise (top_k 0, or ties at the k-th value
+//   past kGather) 4 mass rounds of select_digit with the top-p target.
+//   Either way the kept set is {key >= t}, t the largest key whose mass at
+//   and above it reaches top_p * z over the top-k survivors (the crossing
+//   token and its ties kept), taken before any drafted token is filtered.
+//   Top-p runs in an instance of its own (kTopP), so the greedy and
+//   sampled modes without it carry neither its shared memory (the
+//   gathered survivors, 27.7 KB) nor its registers.
+//   z and each drafted child's mass are fixed-point integers exp(s - m) *
+//   2^40 summed over the kept set (a filtered token has mass 0), so child
+//   c of row r is accepted iff u_acc[c] < q[c] / z, the same bits on every
+//   run. Row r's candidate is the Gumbel-argmax s + (-logf(-logf(u))) over
+//   the kept set with EVERY real drafted child's token filtered
+//   (verify.py:235-241; a filtered entry takes the reference's -1e30 + its
+//   Gumbel term, which rounds to -1e30: with nothing left the candidate is
+//   index 0), merged at rank 0 in rank order together with the ranks'
+//   masses: one cluster barrier after the rounds.
 // * the tree resolved in the same launch, with no float atomics: rank 0 of
 //   each row's cluster publishes cand[r] (and, sampled, its children's
 //   accept flags) into fixed slots of a workspace, tagged with the call's
@@ -56,11 +69,13 @@
 // are read once: at the spec leg's (1, 9, 32768) bf16 that is 0.6 MB
 // greedy, 1.8 MB sampled: 0.18-0.53 us at 3.35 TB/s, below a launch's own
 // cost. What sets the time is latency: the launch, one wave of loads, the
-// cluster barriers (greedy 1, sampled 5 with top-k), the counter's atomic
-// and the last cluster's resolution.
+// cluster barriers (greedy 1, sampled 5 with top-k; top-p adds 1 after a
+// gathering top-k, else 4 mass rounds), the counter's atomic and the last
+// cluster's resolution.
 #include <climits>
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "sample_cluster.cuh"
 
@@ -75,12 +90,23 @@ using smp::kMaxThreads;
 constexpr int kMaxNodes = 128;
 constexpr int kWords = kMaxNodes / 32;
 constexpr int kNoDraft = -1;
+// a gathered survivor's index, marked as a drafted child of its row
+constexpr uint32_t kChildBit = 1u << 30;
 
 // planted faults, for the tests only: the last rank left out of every
-// merge; row 0's slots never published
-enum Fault : int { kNoFault = 0, kDropLastRank = 1, kNoPublish = 2 };
+// merge; row 0's slots never published; top-p skipped
+enum Fault : int {
+  kNoFault = 0,
+  kDropLastRank = 1,
+  kNoPublish = 2,
+  kNoTopP = 3
+};
 
-struct VerifyShared : smp::RowShared {
+// the sampler's row state (with top-p, rank 0's gathered survivors too)
+// and the verify's own
+template <bool kTopP>
+struct VerifyShared
+    : std::conditional_t<kTopP, smp::Shared, smp::RowShared> {
   unsigned long long z_part[smp::kMaxSplits];  // rank 0: each rank's mass
   unsigned long long warp_z[32];
   int kid_tok[kMaxNodes];  // the row's drafted children's tokens in [0, V)
@@ -119,7 +145,9 @@ __device__ __forceinline__ void st_cluster_u64(uint32_t addr,
                : "memory");
 }
 
-template <typename T, int P, bool kTree>
+// kTopP: the instance that takes top-p (its shared memory holds the
+// gathered survivors); the other runs greedy and sampled without it
+template <typename T, int P, bool kTree, bool kTopP>
 __global__ void __launch_bounds__(kMaxThreads)
     verify_kernel(const T* __restrict__ logits, const int* __restrict__ toks,
                   const int* __restrict__ parents, const int* __restrict__ anc,
@@ -129,8 +157,8 @@ __global__ void __launch_bounds__(kMaxThreads)
                   unsigned long long* __restrict__ slots,
                   unsigned* __restrict__ arrivals, unsigned epoch, int n1,
                   int V, int splits, int share, int sampled, float inv_temp,
-                  int top_k, bool vec, int fault) {
-  __shared__ VerifyShared sh;
+                  int top_k, float top_p, bool vec, int fault) {
+  __shared__ VerifyShared<kTopP> sh;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nthreads = blockDim.x;
   const int rank = static_cast<int>(sm90::cluster_ctarank());
@@ -142,6 +170,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   const size_t nodes = static_cast<size_t>(bi) * n1;
   const T* lrow = logits + static_cast<size_t>(row) * V;
   const bool publishes = !(fault == kNoPublish && r == 0);
+  const bool top_p_on = kTopP && fault != kNoTopP;
 
   // thread c < n1 holds node c's token and parent
   int tok = kNoDraft, par = -1;
@@ -248,44 +277,89 @@ __global__ void __launch_bounds__(kMaxThreads)
           drop |= 1u << (8 * (chunk / nthreads) + (at & 7));
       }
     }
-    // the kept entries' mass, and the draw over the kept entries that are
-    // no drafted child (the rest at the reference's -1e30 + Gumbel)
-    unsigned long long z = 0ull;
-    float best = -INFINITY;
-    int best_i = INT_MAX;
+    // top-k left at most kGather survivors: every rank stores its own
+    // (key, Gumbel term, index with the drafted-child bit) into rank 0,
+    // which finds the top-p threshold among them with the rounds' integer
+    // masses and finishes the row alone
+    if (top_p_on && top_k > 0 && sh.reach <= smp::kGather) {
+      if constexpr (kTopP) {
+        smp::gather_survivors(sh, key, x, valid, keep, begin, rank,
+                              [&](int i) {
+                                return ((drop >> i) & 1u) ? kChildBit : 0u;
+                              });
+        if (rank != 0) return;
+        const smp::Gathered g = smp::gathered_top_p(sh, ranks, m, top_p);
+        keep = g.keep;
+        unsigned long long z = g.kept ? sh.c_q[tid] : 0ull;
 #pragma unroll
-    for (int i = 0; i < P; ++i) {
-      if (!((valid >> i) & 1u)) continue;
-      const bool kept = key[i] >= keep;
-      if (kept) z += smp::key_mass(key[i], m);
-      const float xi = ((kept && !((drop >> i) & 1u))
-                            ? smp::key_score(key[i])
-                            : smp::kFiltered) +
-                       x[i];
-      if (xi > best) {
-        best = xi;
-        best_i = smp::share_elem(begin, i);
+        for (int o = 16; o > 0; o >>= 1)
+          z += __shfl_xor_sync(0xffffffffu, z, o);
+        if (lane == 0) sh.warp_z[warp] = z;
+        float best = -INFINITY;
+        int best_i = INT_MAX;
+        if (g.kept && !(sh.g_i[g.slot] & kChildBit)) {
+          best = smp::key_score(sh.c_key[tid]) + sh.g_x[g.slot];
+          best_i = static_cast<int>(sh.g_i[g.slot]);
+        }
+        smp::block_argmax(sh, best, best_i);  // its barrier publishes warp_z
+        if (tid == 0) {
+          unsigned long long zr = 0ull;
+          for (int w = 0; w < nthreads / 32; ++w) zr += sh.warp_z[w];
+          sh.z = zr;
+          // nothing kept but drafted children: every entry at -1e30
+          cand = best_i == INT_MAX ? 0 : best_i;
+        }
       }
-    }
+    } else {
+      if (top_p_on) {
+        // top-p by 4 mass rounds over the top-k survivors: the target is
+        // top_p times the first round's total, z over the survivors
+        keep = smp::top_p_rounds(sh, key, top_p, ranks, buf, [&](int i) {
+          return ((valid >> i) & 1u) && key[i] >= keep
+                     ? smp::key_mass(key[i], m)
+                     : 0ull;
+        });
+      }
+      // the kept entries' mass, and the draw over the kept entries that
+      // are no drafted child (the rest at the reference's -1e30 + Gumbel)
+      unsigned long long z = 0ull;
+      float best = -INFINITY;
+      int best_i = INT_MAX;
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) z += __shfl_xor_sync(0xffffffffu, z, o);
-    if (lane == 0) sh.warp_z[warp] = z;
-    smp::send_draw(sh, best, best_i, rank);  // its barrier publishes warp_z
-    if (tid == 0) {
-      unsigned long long zc = 0ull;
-      for (int w = 0; w < nthreads / 32; ++w) zc += sh.warp_z[w];
-      st_cluster_u64(sm90::cluster_map(sm90::smem_u32(&sh.z_part[rank]), 0),
-                     zc);
-    }
-    // every CTA's draw and mass are in rank 0, every read of a peer done
-    smp::cluster_arrive();
-    sm90::cluster_wait();
-    if (rank != 0) return;
-    if (tid == 0) {
-      unsigned long long zr = 0ull;
-      for (int q = 0; q < ranks; ++q) zr += sh.z_part[q];
-      sh.z = zr;
-      cand = smp::merge_draws(sh, ranks);
+      for (int i = 0; i < P; ++i) {
+        if (!((valid >> i) & 1u)) continue;
+        const bool kept = key[i] >= keep;
+        if (kept) z += smp::key_mass(key[i], m);
+        const float xi = ((kept && !((drop >> i) & 1u))
+                              ? smp::key_score(key[i])
+                              : smp::kFiltered) +
+                         x[i];
+        if (xi > best) {
+          best = xi;
+          best_i = smp::share_elem(begin, i);
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        z += __shfl_xor_sync(0xffffffffu, z, o);
+      if (lane == 0) sh.warp_z[warp] = z;
+      smp::send_draw(sh, best, best_i, rank);  // its barrier publishes warp_z
+      if (tid == 0) {
+        unsigned long long zc = 0ull;
+        for (int w = 0; w < nthreads / 32; ++w) zc += sh.warp_z[w];
+        st_cluster_u64(
+            sm90::cluster_map(sm90::smem_u32(&sh.z_part[rank]), 0), zc);
+      }
+      // every CTA's draw and mass are in rank 0, every read of a peer done
+      smp::cluster_arrive();
+      sm90::cluster_wait();
+      if (rank != 0) return;
+      if (tid == 0) {
+        unsigned long long zr = 0ull;
+        for (int q = 0; q < ranks; ++q) zr += sh.z_part[q];
+        sh.z = zr;
+        cand = smp::merge_draws(sh, ranks);
+      }
     }
     __syncthreads();
     if (kid && publishes) {  // node tid's accept flag
@@ -370,20 +444,26 @@ template <typename T, bool kTree>
 using KernelFn = void (*)(const T*, const int*, const int*, const int*,
                           const float*, const float*, int*, int*, int*,
                           unsigned long long*, unsigned*, unsigned, int, int,
-                          int, int, int, float, int, bool, int);
+                          int, int, int, float, int, float, bool, int);
 
-template <typename T, bool kTree>
+template <typename T, bool kTree, bool kTopP>
 KernelFn<T, kTree> instance_of(int values) {
   switch (values) {
     case 8:
-      return verify_kernel<T, 8, kTree>;
+      return verify_kernel<T, 8, kTree, kTopP>;
     case 16:
-      return verify_kernel<T, 16, kTree>;
+      return verify_kernel<T, 16, kTree, kTopP>;
     case 32:
-      return verify_kernel<T, 32, kTree>;
+      return verify_kernel<T, 32, kTree, kTopP>;
     default:
       return nullptr;
   }
+}
+
+template <typename T, bool kTree>
+KernelFn<T, kTree> instance_of(int values, bool top_p) {
+  return top_p ? instance_of<T, kTree, true>(values)
+               : instance_of<T, kTree, false>(values);
 }
 
 template <bool kTree>
@@ -391,11 +471,12 @@ int run(const void* logits, const void* toks, const void* parents,
         const void* anc, const void* u_acc, const void* u_gum, void* a_out,
         void* j_out, void* next_out, void* slots, void* arrivals, int epoch,
         int dtype, int b, int n1, int V, int sampled, float inv_temp,
-        int top_k, int splits, int threads, int values, int share, int fault,
-        void* stream) {
+        int top_k, int use_top_p, float top_p, int splits, int threads,
+        int values, int share, int fault, void* stream) {
   if (b < 1 || n1 < 2 || n1 > kMaxNodes ||
       (sampled && V > 49152) || top_k < 0 || top_k > V || epoch == 0 ||
-      fault < kNoFault || fault > kNoPublish ||
+      (use_top_p && (!sampled || !(top_p > 0.f && top_p <= 1.f))) ||
+      fault < kNoFault || fault > kNoTopP ||
       reinterpret_cast<uintptr_t>(slots) % 8 != 0 ||
       smp::bad_plan(dtype, V, splits, threads, values, share, sampled) ||
       static_cast<long long>(b) * n1 * splits > INT_MAX)
@@ -406,7 +487,7 @@ int run(const void* logits, const void* toks, const void* parents,
            static_cast<cudaStream_t>(stream));
   cudaError_t err;
   if (dtype == apex::kBFloat16) {
-    const auto kern = instance_of<__nv_bfloat16, kTree>(values);
+    const auto kern = instance_of<__nv_bfloat16, kTree>(values, use_top_p);
     err = cudaLaunchKernelEx(
         &l.cfg, kern, static_cast<const __nv_bfloat16*>(logits),
         static_cast<const int*>(toks), static_cast<const int*>(parents),
@@ -415,9 +496,9 @@ int run(const void* logits, const void* toks, const void* parents,
         static_cast<int*>(j_out), static_cast<int*>(next_out),
         static_cast<unsigned long long*>(slots),
         static_cast<unsigned*>(arrivals), static_cast<unsigned>(epoch), n1,
-        V, splits, share, sampled, inv_temp, top_k, vec, fault);
+        V, splits, share, sampled, inv_temp, top_k, top_p, vec, fault);
   } else {
-    const auto kern = instance_of<float, kTree>(values);
+    const auto kern = instance_of<float, kTree>(values, use_top_p);
     err = cudaLaunchKernelEx(
         &l.cfg, kern, static_cast<const float*>(logits),
         static_cast<const int*>(toks), static_cast<const int*>(parents),
@@ -426,14 +507,15 @@ int run(const void* logits, const void* toks, const void* parents,
         static_cast<int*>(j_out), static_cast<int*>(next_out),
         static_cast<unsigned long long*>(slots),
         static_cast<unsigned*>(arrivals), static_cast<unsigned>(epoch), n1,
-        V, splits, share, sampled, inv_temp, top_k, vec, fault);
+        V, splits, share, sampled, inv_temp, top_k, top_p, vec, fault);
   }
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 template <typename T, bool kTree>
-cudaError_t occupancy(int splits, int threads, int values, int* out) {
-  const KernelFn<T, kTree> kern = instance_of<T, kTree>(values);
+cudaError_t occupancy(int splits, int threads, int values, bool top_p,
+                      int* out) {
+  const KernelFn<T, kTree> kern = instance_of<T, kTree>(values, top_p);
   if (kern == nullptr) return cudaErrorInvalidValue;
   smp::ClusterLaunch l(splits, splits, threads, nullptr);
   cudaError_t err = cudaOccupancyMaxActiveClusters(&out[0], kern, &l.cfg);
@@ -449,21 +531,22 @@ cudaError_t occupancy(int splits, int threads, int values, int* out) {
 // logits (b, k+1, V); drafted (b, k+1) int32 with the bonus entry NO_DRAFT;
 // u_acc (b, k+1) and u_gum (b, k+1, V) fp32, read only when sampled.
 // slots (2 b (k+1) u64) and arrivals (b u32, zero between calls): the
-// wrapper's workspace; epoch: this call's tag, never 0. splits, threads,
-// values, share: the host's plan (_verify_plan); fault: 0, or a planted
-// fault of the tests
+// wrapper's workspace; epoch: this call's tag, never 0. use_top_p, top_p:
+// the nucleus filter after top-k (sampled only). splits, threads, values,
+// share: the host's plan (_verify_plan); fault: 0, or a planted fault of
+// the tests
 extern "C" int apex_fused_verify(const void* logits, const void* drafted,
                                  const void* u_acc, const void* u_gum,
                                  void* a_out, void* next_out, void* slots,
                                  void* arrivals, int epoch, int dtype, int b,
                                  int k1, int V, int sampled, float inv_temp,
-                                 int top_k, int splits, int threads,
-                                 int values, int share, int fault,
-                                 void* stream) {
+                                 int top_k, int use_top_p, float top_p,
+                                 int splits, int threads, int values,
+                                 int share, int fault, void* stream) {
   return run<false>(logits, drafted, nullptr, nullptr, u_acc, u_gum, a_out,
                     nullptr, next_out, slots, arrivals, epoch, dtype, b, k1,
-                    V, sampled, inv_temp, top_k, splits, threads, values,
-                    share, fault, stream);
+                    V, sampled, inv_temp, top_k, use_top_p, top_p, splits,
+                    threads, values, share, fault, stream);
 }
 
 // logits (b, N1, V); tokens, parents (b, N1) and anc (b, N1, N1) int32;
@@ -474,29 +557,33 @@ extern "C" int apex_fused_verify_tree(
     const void* anc, const void* u_acc, const void* u_gum, void* a_out,
     void* j_out, void* next_out, void* slots, void* arrivals, int epoch,
     int dtype, int b, int n1, int V, int sampled, float inv_temp, int top_k,
-    int splits, int threads, int values, int share, int fault,
-    void* stream) {
+    int use_top_p, float top_p, int splits, int threads, int values,
+    int share, int fault, void* stream) {
   return run<true>(logits, tokens, parents, anc, u_acc, u_gum, a_out, j_out,
                    next_out, slots, arrivals, epoch, dtype, b, n1, V, sampled,
-                   inv_temp, top_k, splits, threads, values, share, fault,
-                   stream);
+                   inv_temp, top_k, use_top_p, top_p, splits, threads, values,
+                   share, fault, stream);
 }
 
-// for the plan's clusters (tree or chain instance): out[0] how many the
-// card holds at once (cudaOccupancyMaxActiveClusters; 0 means the launch
-// is refused), out[1] a CTA's static shared memory in bytes
-extern "C" int apex_fused_verify_occupancy(int tree, int dtype, int V,
-                                           int splits, int threads,
-                                           int values, int share, int* out) {
+// for the plan's clusters (tree or chain instance, with or without
+// top-p): out[0] how many the card holds at once
+// (cudaOccupancyMaxActiveClusters; 0 means the launch is refused), out[1]
+// a CTA's static shared memory in bytes
+extern "C" int apex_fused_verify_occupancy(int tree, int use_top_p,
+                                           int dtype, int V, int splits,
+                                           int threads, int values,
+                                           int share, int* out) {
   if (smp::bad_plan(dtype, V, splits, threads, values, share, false))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool p = use_top_p != 0;
   cudaError_t err;
   if (dtype == apex::kBFloat16)
-    err = tree ? occupancy<__nv_bfloat16, true>(splits, threads, values, out)
-               : occupancy<__nv_bfloat16, false>(splits, threads, values,
+    err = tree ? occupancy<__nv_bfloat16, true>(splits, threads, values, p,
+                                                out)
+               : occupancy<__nv_bfloat16, false>(splits, threads, values, p,
                                                  out);
   else
-    err = tree ? occupancy<float, true>(splits, threads, values, out)
-               : occupancy<float, false>(splits, threads, values, out);
+    err = tree ? occupancy<float, true>(splits, threads, values, p, out)
+               : occupancy<float, false>(splits, threads, values, p, out);
   return static_cast<int>(err);
 }

@@ -6,7 +6,8 @@
 // row-wide quantity is merged across the cluster through distributed
 // shared memory, in rank order. The per-row pieces both kernels run are
 // here: the share's loads, the keys and the largest key, the top-k rounds,
-// the fixed-point masses and the rank-ordered merge of the draws, and the
+// the fixed-point masses, top-p over the top-k survivors (gathered into
+// rank 0, or by mass rounds), the rank-ordered merge of the draws, and the
 // host side of their cluster launches.
 //
 // * The thresholds are exact order statistics found by radix select on
@@ -104,11 +105,11 @@ struct RowShared {
   uint32_t warp_word[32];
 };
 
-// the sampler's: plus rank 0's gathered live entries
+// top-p's: plus rank 0's gathered live entries
 struct Shared : RowShared {
   // rank 0: each rank's gathered live entries at [rank * kGather, ...)
-  // (key, perturbed score, index) and their counts; then the entries'
-  // keys and masses, compacted
+  // (key, the kernel's x, tagged index) and their counts; then the
+  // entries' keys and masses, compacted
   uint32_t g_key[kMaxSplits * kGather];
   float g_x[kMaxSplits * kGather];
   int g_i[kMaxSplits * kGather];
@@ -433,6 +434,133 @@ __device__ __forceinline__ int merge_draws(const RowShared& sh, int ranks) {
   for (int r = 1; r < ranks; ++r)
     argmax_step(best, best_i, __uint_as_float(sh.best[r]), sh.best_i[r]);
   return best_i;
+}
+
+// --- top-p over the top-k survivors -----------------------------------------
+
+// After a top-k that left at most kGather survivors (sh.reach): every rank
+// stores its values with key >= keep -- key, x[i], element index | tag(i)
+// -- into rank 0's g_key/g_x/g_i at [rank * kGather, ...) and their count
+// into g_count[rank], then the cluster barrier. Afterwards rank 0 finds
+// the threshold among them (gathered_top_p) and finishes the row alone;
+// the other ranks are done with it.
+template <int P, typename Tag>
+__device__ __forceinline__ void gather_survivors(
+    Shared& sh, const uint32_t (&key)[P], const float (&x)[P],
+    uint32_t valid, uint32_t keep, int begin, int rank, Tag&& tag) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t live = 0u;
+  int n_live = 0;
+#pragma unroll
+  for (int i = 0; i < P; ++i)
+    if (((valid >> i) & 1u) && key[i] >= keep) {
+      live |= 1u << i;
+      ++n_live;
+    }
+  // this thread's place among its CTA's survivors: after its warp's lower
+  // lanes and the lower warps
+  int incl = n_live;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) sh.warp_word[warp] = static_cast<uint32_t>(incl);
+  __syncthreads();
+  int off = incl - n_live, total = 0;
+  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) {
+    const int c = static_cast<int>(sh.warp_word[w]);
+    if (w < warp) off += c;
+    total += c;
+  }
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    if (((live >> i) & 1u) && off < kGather) {
+      const int slot = rank * kGather + off;
+      st_cluster_u32(sm90::cluster_map(sm90::smem_u32(&sh.g_key[slot]), 0),
+                     key[i]);
+      st_cluster_u32(sm90::cluster_map(sm90::smem_u32(&sh.g_x[slot]), 0),
+                     __float_as_uint(x[i]));
+      st_cluster_u32(sm90::cluster_map(sm90::smem_u32(&sh.g_i[slot]), 0),
+                     static_cast<uint32_t>(share_elem(begin, i)) | tag(i));
+      ++off;
+    }
+  }
+  if (threadIdx.x == 0)
+    st_cluster_u32(sm90::cluster_map(sm90::smem_u32(&sh.g_count[rank]), 0),
+                   static_cast<uint32_t>(min(total, kGather)));
+  // every rank's survivors are in rank 0, every read of a peer done
+  cluster_arrive();
+  sm90::cluster_wait();
+}
+
+// rank 0's thread t after gather_survivors: the t-th gathered entry of the
+// first `ranks` ranks in rank order, at g_*[slot], and whether top-p keeps
+// it. keep is the largest gathered key whose mass at and above it reaches
+// top_p times the gathered mass, with the masses of top_p_rounds (the same
+// integers, so the same threshold); sh.c_q[t] holds the entry's mass.
+struct Gathered {
+  uint32_t keep;
+  int slot;
+  bool kept;
+};
+
+__device__ __forceinline__ Gathered gathered_top_p(Shared& sh, int ranks,
+                                                   float m, float top_p) {
+  const int tid = threadIdx.x;
+  int n = 0, r = 0, at = tid;
+  for (int q = 0; q < ranks; ++q) n += static_cast<int>(sh.g_count[q]);
+  while (r < ranks && at >= static_cast<int>(sh.g_count[r]))
+    at -= static_cast<int>(sh.g_count[r++]);
+  const bool mine = tid < n;
+  Gathered g;
+  g.slot = r * kGather + at;
+  const uint32_t kt = mine ? sh.g_key[g.slot] : 0u;
+  if (mine) {
+    sh.c_key[tid] = kt;
+    sh.c_q[tid] = key_mass(kt, m);
+  }
+  __syncthreads();
+  unsigned long long z = 0ull, above = 0ull;
+  for (int j = 0; j < n; ++j) {
+    const unsigned long long q = sh.c_q[j];
+    z += q;
+    if (sh.c_key[j] >= kt) above += q;
+  }
+  const double target = static_cast<double>(top_p) * static_cast<double>(z);
+  g.keep = block_max_u32(
+      sh, mine && static_cast<double>(above) >= target ? kt : 0u);
+  g.kept = mine && kt >= g.keep;
+  return g;
+}
+
+// top-p by 4 mass rounds of select_digit: mass(i) is value i's fixed-point
+// mass (0 where the value is filtered or invalid), the target top_p times
+// the first round's total. Returns the threshold key.
+template <int P, typename Mass>
+__device__ __forceinline__ uint32_t top_p_rounds(RowShared& sh,
+                                                 const uint32_t (&key)[P],
+                                                 float top_p, int ranks,
+                                                 int& buf, Mass&& mass) {
+  auto nothing = []() {};
+  uint32_t prefix = 0u;
+  unsigned long long above = 0ull;
+  double target = 0.0;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    const uint32_t hi = shift == 24 ? 0u : ~0u << (shift + 8);
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const unsigned long long q = mass(i);
+      add_mass(sh, buf, q != 0ull && ((key[i] ^ prefix) & hi) == 0u,
+               (key[i] >> shift) & 0xffu, q);
+    }
+    const uint32_t d = select_digit(sh, buf, ranks, above, target,
+                                    shift == 24 ? top_p : -1.f, false,
+                                    nothing);
+    prefix |= d << shift;
+    buf ^= 1;
+  }
+  return prefix;
 }
 
 // --- the host side of both kernels' launches --------------------------------

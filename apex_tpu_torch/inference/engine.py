@@ -18,16 +18,19 @@ Port of ``apex_tpu/inference/engine.py`` (``:82-912``), the tp=1 bodies:
   and the verify kernel (:func:`apex_tpu_torch.ops.fused_verify` /
   :func:`~apex_tpu_torch.ops.fused_verify.fused_verify_tree`) accepts the
   longest valid prefix (path). Greedy spec output is token-identical to
-  greedy decoding; :class:`SpecStats` accounts acceptance.
+  greedy decoding; :class:`SpecStats` accounts acceptance. On the tree
+  path ``adaptive=`` (an :class:`~apex_tpu_torch.spec.tree.
+  AdaptiveSpecController`) re-picks each round's (depth, branching).
 
 PyTorch runs eagerly, so nothing here compiles; positions are host
 integers. JAX keys become one explicit ``torch.Generator`` per
 ``generate`` call, drawn in order: the prefill's noise, then each decode
 step's or spec round's. The reference's ``plan=`` (tensor parallelism),
-``adaptive=`` (``AdaptiveSpecController``), the models' decode relative
-bias and ``jit_encoder`` are later slices of the port, and
-``cache_dtype`` has no second value the decode kernel takes, so these
-knobs are not in the signatures here.
+the models' decode relative bias and ``jit_encoder`` are later slices of
+the port, and ``cache_dtype`` has no second value the decode kernel takes,
+so these knobs are not in the signatures here. A
+:class:`~apex_tpu_torch.spec.tree.PagedModelDrafter` needs a serving
+scheduler to bind to, so it drafts for ``ServingEngine.serve`` only.
 """
 
 from __future__ import annotations
@@ -400,40 +403,47 @@ class DecodeEngine:
     def _generate_spec_tree(self, params, prompt: torch.Tensor,
                             max_new_tokens: int,
                             generator: Optional[torch.Generator],
-                            draft) -> torch.Tensor:
-        """The tree loop behind ``generate(draft=<tree drafter>)``."""
+                            draft, adaptive) -> torch.Tensor:
+        """The tree loop behind ``generate(draft=<tree drafter>)``
+        (``:663-756``); ``adaptive`` re-picks (depth, branching) per round
+        from its choices."""
         from apex_tpu_torch.spec.drafter import validate_drafter
         from apex_tpu_torch.spec.tree import draft_tree
 
         self._check_batch1(prompt)
         s = prompt.shape[1]
-        depth, branching = int(draft.depth), int(draft.branching)
+        shapes = (adaptive.choices if adaptive is not None
+                  else ((int(draft.depth), int(draft.branching)),))
+        depth_max = max(dd for dd, _ in shapes)
         validate_drafter(draft, self.config,
-                         needed_rows=s + max_new_tokens + depth)
-        self._check_rows(prompt, max_new_tokens, depth, "tree depth")
-        tree = draft_tree(branching, depth)
+                         needed_rows=s + max_new_tokens + depth_max)
+        self._check_rows(prompt, max_new_tokens, depth_max, "tree depth")
         dev = self.device
-        parents_np, anc_np = tree.operands(1)
-        parents = torch.as_tensor(parents_np, device=dev)
-        anc = torch.as_tensor(anc_np, device=dev)
         cache, tok, _ = self.prefill(params, prompt, generator=generator)
         stats = SpecStats()
         gen = [int(tok[0])]
         context = [int(t) for t in prompt[0].tolist()] + gen
         while len(gen) < max_new_tokens:
-            node_tokens = np.asarray(draft.propose_tree(0, context),
-                                     np.int32).reshape(-1)
+            depth, branching = (adaptive.choice(0) if adaptive is not None
+                                else (int(draft.depth), int(draft.branching)))
+            tree = draft_tree(branching, depth)
+            node_tokens = np.asarray(
+                draft.propose_tree(0, context, shape=(depth, branching)),
+                np.int32).reshape(-1)
             if node_tokens.shape != (tree.num_nodes,):
                 raise ValueError(
                     f"drafter proposed {node_tokens.shape} node tokens; the "
                     f"({branching}, {depth}) topology needs exactly "
                     f"{tree.num_nodes}")
+            parents_np, anc_np = tree.operands(1)
             pos = s + len(gen) - 1
             tokens = torch.as_tensor(
                 np.concatenate([[gen[-1]], node_tokens]).astype(np.int32),
                 device=dev)[None]
             a, j_star, nxt = self._spec_tree_verify_body(
-                params, cache, tokens, pos, parents, anc, depth, generator)
+                params, cache, tokens, pos,
+                torch.as_tensor(parents_np, device=dev),
+                torch.as_tensor(anc_np, device=dev), depth, generator)
             a = int(a[0])
             emitted = tree.path_tokens(node_tokens, a, int(j_star[0]),
                                        int(nxt[0]))
@@ -443,14 +453,18 @@ class DecodeEngine:
             stats.drafted += depth
             stats.accepted += a
             stats.nodes += tree.num_nodes
+            if adaptive is not None:
+                adaptive.note_round(0, a, depth)
         draft.release(0)
+        if adaptive is not None:
+            adaptive.release(0)
         self.last_spec_stats = stats
         return torch.tensor([gen[:max_new_tokens]], dtype=torch.int32,
                             device=dev)
 
     def generate(self, params, prompt, max_new_tokens: int,
                  generator: Optional[torch.Generator] = None,
-                 draft=None) -> torch.Tensor:
+                 draft=None, adaptive=None) -> torch.Tensor:
         """Greedy/sampled continuation: prompt (b, s) → generated tokens
         (b, max_new_tokens) int32 on the engine's device. ``generator``
         (on the engine's device) draws the sampling noise and is required
@@ -459,7 +473,10 @@ class DecodeEngine:
         (:class:`~apex_tpu_torch.spec.drafter.NGramDrafter`,
         :class:`~apex_tpu_torch.spec.drafter.ModelDrafter`) or a tree
         drafter (:class:`~apex_tpu_torch.spec.tree.NGramTreeDrafter`);
-        acceptance is accounted in :attr:`last_spec_stats`."""
+        acceptance is accounted in :attr:`last_spec_stats`. ``adaptive``
+        (tree drafters only) attaches an
+        :class:`~apex_tpu_torch.spec.tree.AdaptiveSpecController` that
+        re-picks (depth, branching) per round from its choices."""
         prompt = torch.as_tensor(prompt, device=self.device)
         b, s = prompt.shape
         if max_new_tokens < 1:
@@ -484,9 +501,19 @@ class DecodeEngine:
             if is_tree_drafter(draft):
                 return self._generate_spec_tree(params, prompt,
                                                 max_new_tokens, generator,
-                                                draft)
+                                                draft, adaptive)
+            if adaptive is not None:
+                raise ValueError(
+                    "adaptive= (k, b) selection needs a tree-capable "
+                    "drafter (propose_tree + depth/branching); this "
+                    "drafter only proposes chains — use "
+                    "NGramTreeDrafter, or drop adaptive=")
             return self._generate_spec(params, prompt, max_new_tokens,
                                        generator, draft)
+        if adaptive is not None:
+            raise ValueError(
+                "adaptive= requires draft= (there is no draft shape to "
+                "adapt without a drafter)")
         cache, tok, _ = self.prefill(params, prompt, generator=generator)
         out = [tok]
         for t in range(1, max_new_tokens):

@@ -97,18 +97,19 @@ ENTRY_POINTS = {
     "apex_decode_attn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
                          _I, _I, _P],
     # logits, drafted, u_acc, u_gum, a, next, slots, arrivals, epoch,
-    # dtype, b, k1, V, sampled, inv_temp, top_k, splits, threads, values,
-    # share, fault, stream
-    "apex_fused_verify": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _F, _I, _I, _I, _I, _I, _I, _P],
-    # logits, tokens, parents, anc, u_acc, u_gum, a, j_star, next, slots,
-    # arrivals, epoch, dtype, b, n1, V, sampled, inv_temp, top_k, splits,
+    # dtype, b, k1, V, sampled, inv_temp, top_k, use_top_p, top_p, splits,
     # threads, values, share, fault, stream
+    "apex_fused_verify": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _F, _I, _I, _F, _I, _I, _I, _I, _I, _P],
+    # logits, tokens, parents, anc, u_acc, u_gum, a, j_star, next, slots,
+    # arrivals, epoch, dtype, b, n1, V, sampled, inv_temp, top_k, use_top_p,
+    # top_p, splits, threads, values, share, fault, stream
     "apex_fused_verify_tree": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
-                               _I, _I, _P],
-    # tree, dtype, V, splits, threads, values, share, out (clusters, smem)
-    "apex_fused_verify_occupancy": [_I, _I, _I, _I, _I, _I, _I, _IP],
+                               _I, _I, _I, _I, _I, _I, _F, _I, _I, _F, _I,
+                               _I, _I, _I, _I, _P],
+    # tree, top_p, dtype, V, splits, threads, values, share, out (clusters,
+    # smem)
+    "apex_fused_verify_occupancy": [_I] * 8 + [_IP],
     # x, w, b, y, mean, rstd, dtype, w_bf16, affine, rms, rows, n, eps,
     # chunks, warps, groups, ctas, smem, stream
     "apex_ln_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,

@@ -1833,7 +1833,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if dropout_rate != 0.0 or dropout_seed is not None:
         raise NotImplementedError(
             "flash_attention's in-kernel dropout (dropout_keep) is a later "
-            "slice of the port (ROADMAP queue 1 item 1)")
+            "slice of the port (ROADMAP queue 1, the rest of the train "
+            "step: dropout in the flash kernels)")
     if isinstance(bias, BucketedBias):
         if layout == "bshd":
             raise NotImplementedError(

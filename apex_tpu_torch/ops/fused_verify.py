@@ -27,8 +27,9 @@ rejection sampling under the temperature → top-k distribution of
 :mod:`apex_tpu_torch.ops.sampling` (its plain filter here, its kernel's
 radix select on the card): a draft d is accepted iff ``u_acc < p(d)``, and
 the correction is a Gumbel-argmax draw on ``u_gum`` with the rejected
-drafts filtered out.
-Top-p stays off: ``DecodeEngine``, the only caller, has no top-p.
+drafts filtered out. ``top_p < 1`` (the serve's sampled spec rounds) adds
+the nucleus filter after top-k: a drafted token outside the nucleus has
+p = 0 and is never accepted.
 
 The noise is drawn from the caller's ``torch.Generator``, or passed as
 ``u_acc``/``u_gum`` (the tests pass JAX's draws): both uniform in
@@ -46,9 +47,10 @@ import torch
 from apex_tpu_torch.ops import _backend, _build
 from apex_tpu_torch.ops.matmul import _sm_count
 from apex_tpu_torch.ops.sampling import (FILTERED, KERNEL_MAX_VOCAB,
-                                         SAMPLE_MIN_SHARE, SAMPLE_SPLITS,
-                                         _fit, _share, filtered_scaled,
-                                         gumbel_argmax, uniform_noise)
+                                         SAMPLE_MIN_SHARE, SAMPLE_SMEM,
+                                         SAMPLE_SPLITS, _fit, _share,
+                                         filtered_scaled, gumbel_argmax,
+                                         uniform_noise)
 
 #: sentinel drafted id for the bonus row (``verify.py:56``): never equals a
 #: candidate, so its accept flag is always False
@@ -61,17 +63,23 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: a CTA's threads and values a thread where a share does not fit the
 #: registers (greedy mode only, V > 131072: it walks its share in a loop)
 VERIFY_LOOP_FIT = (512, 32)
-#: a CTA's static shared memory (``VerifyShared`` in
-#: ``csrc/fused_verify.cu``, bytes): the sampler's row state (two 256-bin
-#: u64 histograms, the scan's totals, the digit, the keys, the ranks' and
-#: the warps' draws: 4640), the ranks' and the warps' masses, the row's
+#: the verify's own shared state in ``VerifyShared`` (``csrc/
+#: fused_verify.cu``, bytes): the ranks' and the warps' masses, the row's
 #: child tokens, the resolver's candidates, accept bits and the tree's
 #: ancestor bits (128 nodes x 4 words)
-VERIFY_SMEM = 4640 + 8 * 8 + 32 * 8 + 128 * 4 + 4 + 4 + 8 + 128 * 4 + 16 \
+_VERIFY_OWN_SMEM = 8 * 8 + 32 * 8 + 128 * 4 + 4 + 4 + 8 + 128 * 4 + 16 \
     + 128 * 4 * 4
+#: a CTA's static shared memory without top-p: the sampler's row state
+#: (two 256-bin u64 histograms, the scan's totals, the digit, the keys,
+#: the ranks' and the warps' draws: 4640) and the verify's own
+VERIFY_SMEM = 4640 + _VERIFY_OWN_SMEM
+#: ... in the top-p instance: the sampler's with rank 0's gathered top-k
+#: survivors (:data:`~apex_tpu_torch.ops.sampling.SAMPLE_SMEM`) and the
+#: verify's own
+VERIFY_TOP_P_SMEM = SAMPLE_SMEM + _VERIFY_OWN_SMEM
 #: planted faults of the kernels' tests: the last rank of a cluster left
-#: out of every merge; row 0's slots never published
-PLANTED_FAULTS = ("drop_last_rank", "no_publish")
+#: out of every merge; row 0's slots never published; top-p skipped
+PLANTED_FAULTS = ("drop_last_rank", "no_publish", "no_top_p")
 
 
 class VerifyPlan(NamedTuple):
@@ -79,7 +87,8 @@ class VerifyPlan(NamedTuple):
     ``splits`` CTAs of ``threads`` threads; rank r holds ``share`` values
     of its row (the last rank what is left), ``values`` a thread in
     registers in sampled mode; ``smem`` bytes of static shared memory a
-    CTA."""
+    CTA of the instance without top-p (:data:`VERIFY_TOP_P_SMEM` that of
+    the one with it)."""
     splits: int
     threads: int
     values: int
@@ -160,14 +169,15 @@ def _workspace(logits: torch.Tensor, stream: int) -> _Workspace:
 
 
 def verify_occupancy(plan: VerifyPlan, dtype: torch.dtype, V: int,
-                     tree: bool) -> Tuple[int, int]:
+                     tree: bool, top_p: bool = False) -> Tuple[int, int]:
     """(how many of ``plan``'s clusters the card holds at once, a CTA's
-    static shared memory in bytes) for the chain or tree kernel; 0
-    clusters: the card refuses the launch. Needs the card."""
+    static shared memory in bytes) for the chain or tree kernel, in its
+    instance with or without top-p; 0 clusters: the card refuses the
+    launch. Needs the card."""
     out = (ctypes.c_int * 2)()
     rc = _build.library().apex_fused_verify_occupancy(
-        int(tree), _DTYPE_CODES[dtype], V, plan.splits, plan.threads,
-        plan.values, plan.share, out)
+        int(tree), int(top_p), _DTYPE_CODES[dtype], V, plan.splits,
+        plan.threads, plan.values, plan.share, out)
     _build.check(rc, "fused_verify_occupancy")
     return out[0], out[1]
 
@@ -216,14 +226,15 @@ def verify_greedy(logits: torch.Tensor, drafted_pad: torch.Tensor
 
 def verify_sampled(logits: torch.Tensor, drafted_pad: torch.Tensor,
                    u_acc: torch.Tensor, u_gum: torch.Tensor, *,
-                   temperature: float, top_k: int
+                   temperature: float, top_k: int, top_p: float = 1.0
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Rejection-sampling acceptance for point-mass drafts: row i accepts
-    d_i iff ``u_acc_i < p(d_i)``; every row's correction candidate is a
+    """Rejection-sampling acceptance for point-mass drafts under the
+    temperature → top-k → top-p filtered target: row i accepts d_i iff
+    ``u_acc_i < p(d_i)``; every row's correction candidate is a
     Gumbel-argmax draw on ``u_gum`` with its drafted token filtered, and
     the first rejected row's candidate is emitted."""
     s = filtered_scaled(logits, temperature=temperature, top_k=top_k,
-                        top_p=1.0)
+                        top_p=top_p)
     V = s.shape[-1]
     cols = torch.arange(V, device=s.device)
     onehot = cols == drafted_pad[..., None]
@@ -280,13 +291,14 @@ def verify_tree_greedy(logits: torch.Tensor, tokens: torch.Tensor,
 def verify_tree_sampled(logits: torch.Tensor, tokens: torch.Tensor,
                         parents: torch.Tensor, anc: torch.Tensor,
                         u_acc: torch.Tensor, u_gum: torch.Tensor, *,
-                        temperature: float, top_k: int
+                        temperature: float, top_k: int, top_p: float = 1.0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Rejection-sampling tree acceptance: node j accepts iff
-    ``u_acc[j] < p_parent(tokens[j])``; each row's correction candidate
-    filters ALL of that node's real drafted children."""
+    """Rejection-sampling tree acceptance under the temperature → top-k
+    → top-p filtered target: node j accepts iff ``u_acc[j] <
+    p_parent(tokens[j])``; each row's correction candidate filters ALL of
+    that node's real drafted children."""
     s = filtered_scaled(logits, temperature=temperature, top_k=top_k,
-                        top_p=1.0)                        # (..., N1, V)
+                        top_p=top_p)                      # (..., N1, V)
     n1 = s.shape[-2]
     real = tokens != NO_DRAFT
     m = s.amax(dim=-1, keepdim=True)
@@ -334,9 +346,10 @@ def _check_kernel(logits: torch.Tensor, ints, floats, name: str) -> None:
         raise ValueError(f"{name} takes contiguous tensors")
 
 
-def _knobs(temperature: float, top_k: int):
+def _knobs(temperature: float, top_k: int, top_p: float):
     sampled = temperature > 0.0
-    return (int(sampled), 1.0 / temperature if sampled else 1.0, int(top_k))
+    return (int(sampled), 1.0 / temperature if sampled else 1.0, int(top_k),
+            int(sampled and top_p < 1.0), float(top_p))
 
 
 def _launch_args(logits: torch.Tensor, planted_fault: Optional[str]):
@@ -359,13 +372,16 @@ def _launch_args(logits: torch.Tensor, planted_fault: Optional[str]):
 def fused_verify_cuda(logits: torch.Tensor, drafted_pad: torch.Tensor,
                       u_acc: Optional[torch.Tensor],
                       u_gum: Optional[torch.Tensor], *, temperature: float,
-                      top_k: int, planted_fault: Optional[str] = None
+                      top_k: int, top_p: float = 1.0,
+                      planted_fault: Optional[str] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the chain verify kernel: logits (b, k+1, V), drafted_pad
     (b, k+1) int32 (bonus NO_DRAFT), and for temperature > 0 u_acc
     (b, k+1) and u_gum (b, k+1, V) fp32. Returns (accept_len, next) (b,)
     int32. ``planted_fault`` (tests only) is one of
-    :data:`PLANTED_FAULTS`. Counts its launches in ``.launches``."""
+    :data:`PLANTED_FAULTS`. Counts its launches in ``.launches``, and
+    those with ``temperature > 0`` and ``top_p < 1`` also in
+    ``.top_p_launches``."""
     b, k1, V = logits.shape
     floats = () if temperature <= 0 else (u_acc, u_gum)
     _check_kernel(logits, (drafted_pad,), floats, "fused_verify_cuda")
@@ -379,13 +395,16 @@ def fused_verify_cuda(logits: torch.Tensor, drafted_pad: torch.Tensor,
         logits.data_ptr(), drafted_pad.data_ptr(),
         floats[0].data_ptr() if floats else None,
         floats[1].data_ptr() if floats else None, a.data_ptr(),
-        nxt.data_ptr(), *ws, b, k1, V, *_knobs(temperature, top_k), *plan)
+        nxt.data_ptr(), *ws, b, k1, V, *_knobs(temperature, top_k, top_p),
+        *plan)
     _build.check(rc, "fused_verify")
     fused_verify_cuda.launches += 1
+    fused_verify_cuda.top_p_launches += int(bool(floats) and top_p < 1.0)
     return a, nxt
 
 
 fused_verify_cuda.launches = 0
+fused_verify_cuda.top_p_launches = 0
 
 
 def fused_verify_tree_cuda(logits: torch.Tensor, tokens: torch.Tensor,
@@ -393,6 +412,7 @@ def fused_verify_tree_cuda(logits: torch.Tensor, tokens: torch.Tensor,
                            u_acc: Optional[torch.Tensor],
                            u_gum: Optional[torch.Tensor], *,
                            temperature: float, top_k: int,
+                           top_p: float = 1.0,
                            planted_fault: Optional[str] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
@@ -400,7 +420,7 @@ def fused_verify_tree_cuda(logits: torch.Tensor, tokens: torch.Tensor,
     (b, N1) and anc (b, N1, N1) int32, and for temperature > 0 u_acc
     (b, N1) and u_gum (b, N1, V) fp32. Returns (accept_len, j_star, next)
     (b,) int32. ``planted_fault`` as :func:`fused_verify_cuda`'s. Counts
-    its launches in ``.launches``."""
+    its launches as :func:`fused_verify_cuda` does."""
     b, n1, V = logits.shape
     floats = () if temperature <= 0 else (u_acc, u_gum)
     _check_kernel(logits, (tokens, parents, anc), floats,
@@ -417,22 +437,27 @@ def fused_verify_tree_cuda(logits: torch.Tensor, tokens: torch.Tensor,
         anc.data_ptr(), floats[0].data_ptr() if floats else None,
         floats[1].data_ptr() if floats else None, a.data_ptr(),
         j_star.data_ptr(), nxt.data_ptr(), *ws, b, n1, V,
-        *_knobs(temperature, top_k), *plan)
+        *_knobs(temperature, top_k, top_p), *plan)
     _build.check(rc, "fused_verify_tree")
     fused_verify_tree_cuda.launches += 1
+    fused_verify_tree_cuda.top_p_launches += int(bool(floats)
+                                                 and top_p < 1.0)
     return a, j_star, nxt
 
 
 fused_verify_tree_cuda.launches = 0
+fused_verify_tree_cuda.top_p_launches = 0
 
 
 # --- the ops ------------------------------------------------------------------
 
-def _check_knobs(temperature: float, top_k: int) -> None:
+def _check_knobs(temperature: float, top_k: int, top_p: float) -> None:
     if temperature < 0:
         raise ValueError(f"temperature must be >= 0, got {temperature}")
     if top_k < 0:
         raise ValueError(f"top_k must be >= 0, got {top_k}")
+    if not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
 
 
 def _noise(logits: torch.Tensor, generator: Optional[torch.Generator],
@@ -461,6 +486,7 @@ def _noise(logits: torch.Tensor, generator: Optional[torch.Generator],
 def fused_verify(logits: torch.Tensor, drafted: torch.Tensor,
                  generator: Optional[torch.Generator] = None, *,
                  temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 1.0,
                  u_acc: Optional[torch.Tensor] = None,
                  u_gum: Optional[torch.Tensor] = None, impl: str = "auto"
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -471,7 +497,8 @@ def fused_verify(logits: torch.Tensor, drafted: torch.Tensor,
     ``drafted`` (b, k). Returns ``(accept_len (b,), next_token (b,))``
     int32: one spec round emits ``drafted[:accept_len] + [next_token]``.
     ``temperature > 0`` needs ``generator`` or both ``u_acc`` (b, k+1) and
-    ``u_gum`` (b, k+1, V)."""
+    ``u_gum`` (b, k+1, V); it filters the target by temperature, then
+    ``top_k`` (0 = all), then ``top_p`` (1.0 = all)."""
     if logits.ndim != 3:
         raise ValueError(f"fused_verify takes (b, k+1, V) logits; got "
                          f"{tuple(logits.shape)}")
@@ -484,7 +511,7 @@ def fused_verify(logits: torch.Tensor, drafted: torch.Tensor,
         raise ValueError(
             f"fused_verify needs k >= 1 drafted tokens (k+1 = {k1} logit "
             f"rows); a 1-row verify is just sampling — use fused_sample")
-    _check_knobs(temperature, top_k)
+    _check_knobs(temperature, top_k, top_p)
     sampled = temperature > 0.0
     drafted_pad = torch.cat(
         [drafted.to(torch.int32),
@@ -497,10 +524,11 @@ def fused_verify(logits: torch.Tensor, drafted: torch.Tensor,
     if _backend.use_kernel(logits, impl):
         return fused_verify_cuda(
             logits.contiguous(), drafted_pad, u_acc, u_gum,
-            temperature=float(temperature), top_k=top_k)
+            temperature=float(temperature), top_k=top_k, top_p=float(top_p))
     if sampled:
         return verify_sampled(logits, drafted_pad, u_acc, u_gum,
-                              temperature=float(temperature), top_k=top_k)
+                              temperature=float(temperature), top_k=top_k,
+                              top_p=float(top_p))
     return verify_greedy(logits, drafted_pad)
 
 
@@ -508,6 +536,7 @@ def fused_verify_tree(logits: torch.Tensor, tokens: torch.Tensor,
                       parents: torch.Tensor, anc: torch.Tensor,
                       generator: Optional[torch.Generator] = None, *,
                       temperature: float = 0.0, top_k: int = 0,
+                      top_p: float = 1.0,
                       u_acc: Optional[torch.Tensor] = None,
                       u_gum: Optional[torch.Tensor] = None,
                       impl: str = "auto"
@@ -521,7 +550,8 @@ def fused_verify_tree(logits: torch.Tensor, tokens: torch.Tensor,
     (``parents[:, j] < j``); ``anc`` (b, N+1, N+1) the ancestor-or-self
     closure. Returns ``(accept_len, j_star, next_token)`` (b,) int32: the
     deepest fully-accepted root path's length, its terminal node, and the
-    token drawn from that node's row."""
+    token drawn from that node's row. The knobs are
+    :func:`fused_verify`'s."""
     if logits.ndim != 3:
         raise ValueError(f"fused_verify_tree takes (b, N+1, V) logits; got "
                          f"{tuple(logits.shape)}")
@@ -540,7 +570,7 @@ def fused_verify_tree(logits: torch.Tensor, tokens: torch.Tensor,
             f"fused_verify_tree needs N >= 1 drafted nodes (N+1 = {n1} "
             f"logit rows); a 1-row verify is just sampling — use "
             f"fused_sample")
-    _check_knobs(temperature, top_k)
+    _check_knobs(temperature, top_k, top_p)
     sampled = temperature > 0.0
     tokens = tokens.to(torch.int32).clone()
     tokens[:, 0] = NO_DRAFT
@@ -553,9 +583,9 @@ def fused_verify_tree(logits: torch.Tensor, tokens: torch.Tensor,
     if _backend.use_kernel(logits, impl):
         return fused_verify_tree_cuda(
             logits.contiguous(), tokens, parents, anc, u_acc, u_gum,
-            temperature=float(temperature), top_k=top_k)
+            temperature=float(temperature), top_k=top_k, top_p=float(top_p))
     if sampled:
         return verify_tree_sampled(logits, tokens, parents, anc, u_acc,
                                    u_gum, temperature=float(temperature),
-                                   top_k=top_k)
+                                   top_k=top_k, top_p=float(top_p))
     return verify_tree_greedy(logits, tokens, parents, anc)

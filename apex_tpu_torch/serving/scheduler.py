@@ -6,9 +6,11 @@ Port of ``apex_tpu/serving/scheduler.py`` (plain numpy host code):
 :class:`Scheduler`, with the same policies and the same decisions, held
 identical to the reference by ``tests/test_torch_kv_blocks.py``. The
 device side never sees traffic, only fixed-shape operand *contents*
-(tokens, lengths, block tables). Later slices of the port add the
-reference's telemetry hooks, ``ReplanPolicy`` and the speculative-round
-methods.
+(tokens, lengths, block tables). The speculative rounds' methods are here
+(``decode_batch(lookahead=)``, :meth:`Scheduler.note_spec`,
+:meth:`Scheduler.note_spec_tokens`, the ``draft_owner`` whose drafter
+blocks free with their stream); the reference's telemetry hooks and
+``ReplanPolicy`` are later slices of the port.
 
 Policies:
 
@@ -39,17 +41,23 @@ Policies:
   at a time, interleaved with decode steps.
 * **Eviction = free + clear.** A finished request's references go back
   to the allocator and its table row resets to the dead block.
+* **Speculative rewind.** A spec round reserves blocks for its drafted
+  rows (``lookahead``); :meth:`Scheduler.note_spec_tokens` commits the
+  accepted tokens and frees the reservation past the new frontier in
+  reverse allocation order, so the allocator's LIFO free list is restored
+  exactly.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Deque, List, Optional, Tuple
+from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from apex_tpu_torch.serving.kv_blocks import (
+    DEAD_BLOCK,
     ROOT_EID,
     BlockAllocator,
     BlockTables,
@@ -183,6 +191,10 @@ class Scheduler:
         self.completed: List[Request] = []
         self.preemptions = 0
         self.recompute_tokens = 0
+        # a drafter whose KV blocks live in this allocator
+        # (PagedModelDrafter.bind sets it): its evict_stream runs from
+        # _finish and _preempt, so drafter blocks free with their stream
+        self.draft_owner = None
 
     # --- capacity accounting -------------------------------------------------
 
@@ -206,7 +218,10 @@ class Scheduler:
         """Free pool blocks until ``need`` fit: reclaim LRU prefix-cache
         residents first, then preempt the YOUNGEST in-flight request.
         Returns False when the requester itself was the youngest and got
-        preempted (the caller skips it this round)."""
+        preempted (the caller skips it this round). Where the reference
+        raises (the requester is the only stream left), the requester's
+        own drafter blocks are freed first (``draft_owner.evict_stream``:
+        the drafter rebuilds them by replay); only then does it raise."""
         alloc = self.allocator
         while alloc.num_free < need:
             if (self.prefix_cache is not None
@@ -216,6 +231,12 @@ class Scheduler:
             victim = self._admit_order[-1] if self._admit_order else None
             if victim is None or (victim == requester
                                   and len(self._admit_order) == 1):
+                if victim is not None and self.draft_owner is not None:
+                    free = alloc.num_free
+                    self.draft_owner.evict_stream(
+                        self._slots[victim].request.rid)
+                    if alloc.num_free > free:
+                        continue
                 raise RuntimeError(
                     f"cannot make room for {need} block(s): nothing to "
                     f"reclaim or preempt with {alloc.num_free} free of "
@@ -418,14 +439,17 @@ class Scheduler:
         return [i for i, s in enumerate(self._slots)
                 if s.request is not None and s.prefill_done]
 
-    def decode_batch(self, now: float = 0.0
+    def decode_batch(self, now: float = 0.0, lookahead: int = 0
                      ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
         """The next decode step's host operands: ``(tokens, lengths)``
         over the full slot array — ``lengths[i]`` counts live rows
         INCLUDING slot i's incoming token (0 marks a dead slot). Allocates
         the new block when a slot crosses a block boundary, visiting slots
         OLDEST-FIRST so that under pool pressure the youngest yields.
-        None when nothing is decoding."""
+        None when nothing is decoding. ``lookahead`` reserves blocks for
+        that many EXTRA rows past the incoming token: a speculative
+        round's drafted rows (:meth:`note_spec_tokens` rewinds the
+        reservation to the accepted frontier)."""
         tokens = np.zeros((self.num_slots,), np.int32)
         lengths = np.zeros((self.num_slots,), np.int32)
         any_live = False
@@ -433,7 +457,7 @@ class Scheduler:
             slot = self._slots[i]
             if slot.request is None or not slot.prefill_done:
                 continue
-            need = blocks_needed(slot.length + 1,
+            need = blocks_needed(slot.length + 1 + lookahead,
                                  self.block_size) - slot.n_blocks
             if need > 0:
                 if not self._make_room(need, i, now):
@@ -448,6 +472,51 @@ class Scheduler:
         if not any_live:
             return None
         return tokens, lengths
+
+    def note_spec(self, drafted: np.ndarray, accepted: np.ndarray,
+                  next_tokens: np.ndarray, now: float) -> List[Request]:
+        """Record one CHAIN speculative round: per decoding slot, the
+        accepted draft prefix plus the corrected token, committed through
+        :meth:`note_spec_tokens`."""
+        emitted = {}
+        for i in self.decoding_slots():
+            a = int(accepted[i])
+            emitted[i] = [int(t) for t in drafted[i][:a]] \
+                + [int(next_tokens[i])]
+        return self.note_spec_tokens(emitted, now)
+
+    def note_spec_tokens(self, emitted_by_slot: Dict[int, List[int]],
+                         now: float) -> List[Request]:
+        """Commit one speculative round's emissions (a chain prefix or a
+        tree path, already per-slot token lists) capped at each request's
+        remaining budget, and REWIND the block tables to the accepted
+        frontier: blocks reserved past ``blocks_needed(new length)`` free
+        in reverse allocation order (the allocator's LIFO free list is
+        restored exactly; an all-rejected round leaves tables, lengths and
+        free list as a plain decode step would) and their table entries
+        reset to the dead block. A round's tokens share one timestamp.
+        Returns requests finished by the round."""
+        finished = []
+        B = self.block_size
+        for i, emitted in emitted_by_slot.items():
+            slot = self._slots[i]
+            req = slot.request
+            emitted = emitted[:req.max_new_tokens - slot.generated]
+            m = len(emitted)
+            req.tokens.extend(emitted)
+            req.token_s.extend([now] * m)
+            slot.generated += m
+            slot.length += m
+            slot.last_token = emitted[-1]
+            keep = blocks_needed(slot.length, B)
+            while slot.n_blocks > keep:
+                bid = slot.block_ids.pop()
+                slot.n_blocks -= 1
+                self.tables.assign(i, slot.n_blocks, DEAD_BLOCK)
+                self.allocator.free([bid])
+            if slot.generated >= req.max_new_tokens:
+                finished.append(self._finish(i, now))
+        return finished
 
     def note_decode(self, sampled: np.ndarray, now: float) -> List[Request]:
         """Record one decode step's samples; returns requests finished
@@ -472,6 +541,9 @@ class Scheduler:
         req = slot.request
         req.finish_s = now
         self.allocator.free(slot.block_ids)
+        if self.draft_owner is not None:
+            # the stream's drafter blocks free through the same path
+            self.draft_owner.evict_stream(req.rid)
         self.tables.clear(i)
         self._slots[i] = _Slot()
         self._admit_order.remove(i)
@@ -489,11 +561,35 @@ class Scheduler:
                                   else slot.prefilled)
         self.preemptions += 1
         self.allocator.free(slot.block_ids)
+        if self.draft_owner is not None:
+            # the drafter's frontier rebuilds by replay on re-admission
+            self.draft_owner.evict_stream(req.rid)
         self.tables.clear(i)
         self._slots[i] = _Slot()
         self._admit_order.remove(i)
         self._waiting.appendleft(req)
         return req
+
+    def blocks_held(self, i: int) -> int:
+        """Pool blocks currently allocated to slot ``i``."""
+        return self._slots[i].n_blocks
+
+    def slot_length(self, i: int) -> int:
+        """Live cache rows of slot ``i`` (the spec round's headroom check
+        reads this before reserving draft rows)."""
+        return self._slots[i].length
+
+    def slot_rid(self, i: int) -> int:
+        """Request id bound to slot ``i`` (the drafter's stream key)."""
+        return self._slots[i].request.rid
+
+    def slot_context(self, i: int) -> List[int]:
+        """Slot ``i``'s TRUE token stream — prompt plus every generated
+        token — the context the drafter continues (not the effective
+        prompt: a resumed stream is the unpreempted stream, so the
+        drafter's frontier survives eviction)."""
+        req = self._slots[i].request
+        return [int(t) for t in req.prompt] + list(req.tokens)
 
     # --- state queries -------------------------------------------------------
 

@@ -12,9 +12,9 @@ quality moves the acceptance rate, never the tokens.
   one greedy token at a time through the port's
   :class:`~apex_tpu_torch.inference.engine.DecodeEngine` at batch 1.
 
-The reference's ``block_size`` knob, ``reset`` and a tree drafter's
-``chain_k`` serve ``ServingEngine.serve(draft=...)``; they wait for the
-slice that ports that serve path.
+Every drafter here also drives ``ServingEngine.serve(draft=...)``; the
+paged model drafter of that path is :class:`~apex_tpu_torch.spec.tree.
+PagedModelDrafter`.
 """
 
 from __future__ import annotations
@@ -39,6 +39,9 @@ class Drafter:
 
     k: int = 0
     vocab_size: Optional[int] = None
+    #: the paged-pool granularity the drafter's cache rides, when it has
+    #: one; None: no block constraint
+    block_size: Optional[int] = None
 
     def propose(self, stream: int,
                 context: Sequence[int]) -> np.ndarray:  # pragma: no cover
@@ -47,12 +50,19 @@ class Drafter:
     def release(self, stream: int) -> None:
         """Drop per-stream state (request finished); default no-op."""
 
+    def reset(self) -> None:
+        """Drop ALL stream state (a fresh serve reusing ids)."""
 
-def validate_drafter(draft: Drafter, config, *, needed_rows: int) -> int:
+
+def validate_drafter(draft: Drafter, config, *, needed_rows: int,
+                     cache_rows: Optional[int] = None,
+                     block_size: Optional[int] = None) -> int:
     """Eager validation of a drafter against a target config; every
     mismatch raises a knob-naming ``ValueError``. Returns ``draft.k``.
     ``needed_rows`` is the worst-case cache rows a spec round can touch;
-    a drafter with its own cache states its capacity as ``cache_rows``."""
+    ``cache_rows`` the drafter's own cache capacity (default: its
+    ``cache_rows`` attribute); ``block_size`` the target engine's paged
+    granularity, checked against a paged drafter's."""
     k = getattr(draft, "k", None)
     if not isinstance(k, int) or not 1 <= k <= MAX_DRAFT_K:
         raise ValueError(
@@ -65,7 +75,15 @@ def validate_drafter(draft: Drafter, config, *, needed_rows: int) -> int:
             f"({config.vocab_size}) — drafted ids would index a "
             f"different token space; use a drafter model sharing the "
             f"target's tokenizer/vocab")
-    rows = getattr(draft, "cache_rows", None)
+    db = getattr(draft, "block_size", None)
+    if block_size is not None and db is not None and db != block_size:
+        raise ValueError(
+            f"drafter block_size ({db}) != engine block_size "
+            f"({block_size}) — the drafter's paged cache cannot ride "
+            f"the engine's block tables; construct the drafter with "
+            f"block_size={block_size} (or leave it None)")
+    rows = getattr(draft, "cache_rows", None) \
+        if cache_rows is None else cache_rows
     if rows is not None and rows < needed_rows:
         raise ValueError(
             f"drafter cache holds {rows} rows but a spec round can "
@@ -88,6 +106,12 @@ def validate_drafter(draft: Drafter, config, *, needed_rows: int) -> int:
                 f"per-slot row cap ({needed_rows}) — shrink the drafter's "
                 f"depth to <= {needed_rows - 1} or raise the engine's "
                 f"max_seq_len")
+        chain_k = getattr(draft, "chain_k", k)
+        if not isinstance(chain_k, int) or not 1 <= chain_k <= depth:
+            raise ValueError(
+                f"tree drafter chain_k must be an int in [1, depth="
+                f"{depth}] (the chain-fallback rung cannot draft deeper "
+                f"than the tree); got {chain_k!r}")
     return k
 
 
@@ -129,6 +153,9 @@ class NGramDrafter(Drafter):
 
     def release(self, stream: int) -> None:
         self._streams.pop(stream, None)
+
+    def reset(self) -> None:
+        self._streams.clear()
 
 
 class ModelDrafter(Drafter):
@@ -198,3 +225,6 @@ class ModelDrafter(Drafter):
 
     def release(self, stream: int) -> None:
         self._streams.pop(stream, None)
+
+    def reset(self) -> None:
+        self._streams.clear()

@@ -14,13 +14,14 @@ tree's kernels:
         ln_bwd_cuda(...)          # the other checkout's apex_ln_bwd
 
 ``chip_smoke.py --parent DIR`` times ``ln_fwd``, ``ln_bwd``,
-``softmax_fwd``, the two decode kernels, ``fused_sample`` and the two
-verify kernels so, against a ``git archive`` of the parent commit unpacked
-into a directory that ``.gitignore`` lists. The entry points take the
-signatures of this tree's ``_build.ENTRY_POINTS``, except those this tree
-changed (:data:`PARENT_ENTRY_POINTS`): the parent's ``apex_softmax_bwd``
-takes no mask, and :func:`parent_softmax_bwd` launches it as the parent's
-wrapper did. Needs ``nvcc``.
+``softmax_fwd``, ``softmax_bwd``, the two decode kernels, ``fused_sample``
+and the two verify kernels so, against a ``git archive`` of the parent
+commit unpacked into a directory that ``.gitignore`` lists. The entry
+points take the signatures of this tree's ``_build.ENTRY_POINTS``, except
+those this tree changed (:data:`PARENT_ENTRY_POINTS`): the parent's verify
+pair has no top-p, and the library :func:`other_library` returns drops
+this tree's ``use_top_p, top_p`` from their calls (refusing a call that
+asks for top-p). Needs ``nvcc``.
 
 :func:`empty_library` builds this tree's ``ln_fwd``, sampling and verify
 kernels returning at once, for the fixed cost of a launch.
@@ -46,17 +47,42 @@ from apex_tpu_torch.ops import _build
 SOURCES = ("layer_norm.cu", "softmax.cu", "paged_decode_attn.cu",
            "fused_sample.cu", "fused_verify.cu", "errors.cu")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: the parent commit's entries whose signatures this tree changed
+#: the parent commit's entries whose signatures this tree changed: the
+#: verify pair without ``use_top_p, top_p`` after ``top_k``
 PARENT_ENTRY_POINTS = {
-    # dy, y, dx, dtype, rows, n, scale, stream: not told the mask
-    "apex_softmax_bwd": [_P, _P, _P, _I, _I, _I, _F, _P],
+    "apex_fused_verify": [_P] * 8 + [_I] * 6 + [_F] + [_I] * 6 + [_P],
+    "apex_fused_verify_tree": [_P] * 11 + [_I] * 6 + [_F] + [_I] * 6 + [_P],
 }
+#: where this tree's ``use_top_p, top_p`` sit in those entries' arguments
+_TOP_P_AT = {"apex_fused_verify": 16, "apex_fused_verify_tree": 19}
 
 
-def other_library(root) -> Tuple[ctypes.CDLL, str]:
-    """Build ``root``'s row-wise, decode and sampling kernels with this
-    tree's flags into ``_build/other_<digest>/`` and load them: (library,
-    ptxas log)."""
+class ParentLibrary:
+    """The parent's library under this tree's entry signatures: calls of
+    the entries in :data:`PARENT_ENTRY_POINTS` drop the arguments the
+    parent does not take (a call asking for top-p, which the parent's
+    verify pair has not, raises); every other entry is the parent's."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        at = _TOP_P_AT.get(name)
+        if at is None:
+            return fn
+
+        def call(*args):
+            if args[at]:
+                raise ValueError(f"the parent's {name} has no top-p")
+            return fn(*args[:at], *args[at + 2:])
+        return call
+
+
+def other_library(root) -> Tuple[ParentLibrary, str]:
+    """Build ``root``'s row-wise, decode, sampling and verify kernels with
+    this tree's flags into ``_build/other_<digest>/`` and load them:
+    (library under this tree's signatures, ptxas log)."""
     csrc = Path(root).resolve() / "apex_tpu_torch" / "csrc"
     h = hashlib.sha256(" ".join(_build.ARCH_FLAGS
                                 + _build.COMPILE_FLAGS).encode())
@@ -83,7 +109,7 @@ def other_library(root) -> Tuple[ctypes.CDLL, str]:
             fn.restype = ctypes.c_int
     lib.apex_cuda_error_string.argtypes = [ctypes.c_int]
     lib.apex_cuda_error_string.restype = ctypes.c_char_p
-    return lib, log
+    return ParentLibrary(lib), log
 
 
 #: the edits that make this tree's ln_fwd, sampling and verify kernels
@@ -95,7 +121,7 @@ EMPTY_EDITS = {
                       "  if (rows > 0) return;\n"),
     "fused_sample.cu": ("  constexpr bool kKeepMass = P <= 16;\n",
                         "  if (V > 0) return;\n"),
-    "fused_verify.cu": ("  __shared__ VerifyShared sh;\n",
+    "fused_verify.cu": ("  __shared__ VerifyShared<kTopP> sh;\n",
                         "  if (V > 0) return;\n"),
 }
 
@@ -131,29 +157,6 @@ def empty_library() -> ctypes.CDLL:
     lib.apex_cuda_error_string.argtypes = [ctypes.c_int]
     lib.apex_cuda_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _stream(t):
-    import torch
-
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def parent_softmax_bwd(lib, dy, y, scale):
-    """The parent's softmax backward (every entry read, no mask) on the
-    same operands, as its wrapper launched it: dx."""
-    import torch
-
-    from apex_tpu_torch.ops.softmax import _DTYPE_CODES
-
-    sk = y.shape[-1]
-    dx = torch.empty_like(y)
-    rc = lib.apex_softmax_bwd(dy.data_ptr(), y.data_ptr(), dx.data_ptr(),
-                              _DTYPE_CODES[y.dtype], y.numel() // sk, sk,
-                              float(scale), _stream(y))
-    if rc:
-        raise RuntimeError(f"the parent's softmax backward: CUDA error {rc}")
-    return dx
 
 
 @contextlib.contextmanager

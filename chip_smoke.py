@@ -112,15 +112,21 @@ without the final line):
      and the entry alone, the parent's in turns, and at each split) and
      both verify kernels (each verify row over a cluster of S CTAs by
      the host's plan, the tree resolved by the last row to arrive;
-     greedy and sampled at (1, 5), (1, 9), (4, 5), (4, 9) and (1, 33) x
-     V, with forced ties, over 4 seeds) against their plain versions,
+     greedy and sampled at (1, 5), (1, 9), (4, 5), (4, 9), (1, 33),
+     (8, 5) and (8, 9) x V, with forced ties, over 4 seeds; and with
+     top-p 0.9 after top-k 50 and alone at (1, 5), (1, 9), (8, 5) and
+     (8, 9), on plain logits and on ties that overflow the survivors
+     rank 0 gathers, over 2 seeds) against their plain versions,
      verdicts bit-identical across two runs, two planted faults (the
      last rank left out of the merges, row 0's slots never published)
-     refused at every shape and mode, the card's room for the plan's
-     clusters and its shared memory; each shape and mode timed with the
-     parent's kernel in turns under ``--parent``, an empty launch of the
-     plan, the plain version, the bound, the plan and the instance's
-     registers and spills (``verify_times``);
+     refused at every shape and mode, and a third (top-p skipped)
+     refused at a row whose draft lies outside the nucleus, which the
+     sound kernel rejects at every batch row; the card's room for the
+     plan's clusters and its shared memory; each shape and mode timed
+     (the parent's kernel in turns under ``--parent``, but for top-p,
+     which the parent's has not), an empty launch of the plan, the plain
+     version, the bound, the plan and the instance's registers and
+     spills (``verify_times``);
    * the decode leg of bench.py (batch 16, prompt 512, 128 new tokens):
      with the counters zeroed just before and read just after, 3 timed
      prefills and 3 timed loops of 127 greedy decode steps into one
@@ -139,6 +145,28 @@ without the final line):
      plain greedy and the verify launches by mode are printed, and the
      leg's launches x (time - bound) of each verify kernel and mode
      (``spec_verify_gap``);
+   * the spec_serve leg (``ServingEngine.serve(draft=...)`` on the
+     serve's model, engine and trace): a) NGramDrafter(4), chain; b)
+     NGramTreeDrafter(4, 2), tree; c) a PagedModelDrafter (a 2-layer GPT
+     at GPT-medium's widths, its own seed; depth 4 x branching 2) whose
+     blocks come from the serve's own pool; d) the target as its own
+     paged drafter on 2 requests; e) a) and b) sampled at T 0.8, top_k
+     50, top_p 0.9; f) c) with the pool lowered until a stream holding
+     drafter blocks is preempted; g) b) with an AdaptiveSpecController.
+     Each serve's counters zeroed just before and read just after: one
+     fused_verify launch per chain round, one fused_verify_tree launch
+     per tree round (each a top-p launch when sampled), 12 paged-decode
+     launches per plain step and one per drafter layer each drafter step
+     (2; the self-drafter's 12), 25 ln_fwd per model forward and 2 x the
+     drafter's layers + 1 per drafter step; exact accounting at drain,
+     no block live beyond the prefix cache's, no drafter block left.
+     Every greedy serve's tokens against the plain greedy serve at the
+     same pool size: the share of identical requests, and at each
+     divergence the plain path's top-2 logit gap from a teacher-forced
+     forward, which must be a near-tie (at most 2^-6 x |top-1|); tokens/s,
+     rounds, acceptance, tokens per round, degraded rounds, the leg's
+     seconds (``spec_serve``), and its launches x (time - bound) by mode
+     (``spec_serve_verify_gap``);
 7. the train path: the same GPT-medium in bf16 (flash attention, no
    remat), batch 20 x 1024 seeded tokens, ``loss_fn`` + ``backward`` + one
    ``FusedAdam(lr=1e-4)`` step: a warm-up step, then 10 timed steps with
@@ -281,6 +309,12 @@ ENGINE = dict(num_slots=8, block_size=128, prefill_chunk=256, num_blocks=41)
 SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.9)
 DECODE_TOL = 2e-2   # bf16 output: a few bf16 ulps at unit scale
 NEAR_TIE = 1e-5     # relative gap of the two best perturbed scores
+# the nucleus boundary's near-tie: a cumulative mass within this share of
+# top_p x z. The kernel sums fixed-point masses (2^-41 each: < 2e-8 of z
+# over 32768 entries), the plain version fp32 exps in a pairwise sum (about
+# log2(32768) x 2^-24 < 1e-6 relative), so a boundary farther off than
+# 1e-6 is decided alike by both
+TOP_P_EDGE = 1e-6
 
 # the train slice's configuration (bench.py:2517-2524): GPT-medium, flash
 # attention, no remat; batch 20 x 1024 tokens
@@ -1551,7 +1585,14 @@ def phase_contig_decode_kernel(torch, dev):
 
 # the verify kernels' shapes (batch, rows): the spec leg's chain (1, 5) and
 # tree (1, 9), their batch-4 forms, and the drafters' longest chain (1, 33)
-VERIFY_SHAPES = ((1, 5), (1, 9), (4, 5), (4, 9), (1, 33))
+VERIFY_SHAPES = ((1, 5), (1, 9), (4, 5), (4, 9), (1, 33), (8, 5), (8, 9))
+# the serve's sampled spec rounds: top-p after top-k (the survivors gathered
+# into rank 0) and without top-k (the mass rounds), at the spec leg's
+# batch-1 shapes and the serve's 8 slots (chain k 4: (8, 5); tree depth 4
+# x branching 2: (8, 9), 144 CTAs at S 2, more than one wave)
+TOP_P_SHAPES = ((1, 5), (1, 9), (8, 5), (8, 9))
+TOP_P_KNOBS = {"top_p_k50": dict(temperature=0.8, top_k=50, top_p=0.9),
+               "top_p_k0": dict(temperature=0.8, top_k=0, top_p=0.9)}
 
 
 def verify_case(torch, dev, b, n1, V, seed, tree):
@@ -1607,15 +1648,33 @@ def verify_fault_case(torch, dev, b, n1, V, tree):
     return logits, extra, u_acc, u_gum
 
 
-def verify_near_ties(torch, logits, extra, u_acc, u_gum, tree):
+def verify_near_ties(torch, logits, extra, u_acc, u_gum, tree,
+                     knobs=None):
     """Batch rows where a near-tie could flip a sampled verdict: an
     acceptance draw within NEAR_TIE of its probability, or a row's two
-    best perturbed scores within NEAR_TIE (the sampler's rule)."""
+    best perturbed scores within NEAR_TIE (the sampler's rule); with
+    top_p < 1 also a cumulative mass of the top-k survivors (best first,
+    at the last of each group of equal scores) within TOP_P_EDGE of top_p
+    times their total."""
     from apex_tpu_torch.ops import fused_verify as vf
     from apex_tpu_torch.ops import sampling as sm
 
-    s = sm.filtered_scaled(logits, temperature=DECODE_SAMPLED["temperature"],
-                           top_k=DECODE_SAMPLED["top_k"], top_p=1.0)
+    knobs = {**DECODE_SAMPLED, "top_p": 1.0, **(knobs or {})}
+    s = sm.filtered_scaled(logits, temperature=knobs["temperature"],
+                           top_k=knobs["top_k"], top_p=knobs["top_p"])
+    edge = torch.zeros(logits.shape[0], dtype=torch.bool,
+                       device=logits.device)
+    if knobs["top_p"] < 1.0:
+        sk = sm.filtered_scaled(logits, temperature=knobs["temperature"],
+                                top_k=knobs["top_k"],
+                                top_p=1.0).double().sort(
+                                    dim=-1, descending=True).values
+        cum = torch.exp(sk - sk[..., :1]).cumsum(-1)
+        target = knobs["top_p"] * cum[..., -1:]
+        ends = torch.ones_like(sk, dtype=torch.bool)
+        ends[..., :-1] = sk[..., 1:] != sk[..., :-1]
+        edge = (ends & ((cum - target).abs()
+                        <= TOP_P_EDGE * target)).any(-1).any(-1)
     n1 = s.shape[-2]
     if tree:
         tokens, parents, _ = extra
@@ -1641,7 +1700,49 @@ def verify_near_ties(torch, logits, extra, u_acc, u_gum, tree):
          - torch.log(-torch.log(u_gum))).double()
     top2 = x.topk(2, dim=-1).values
     gap = (top2[..., 0] - top2[..., 1]).abs() <= NEAR_TIE * top2[..., 0].abs()
-    return tie.any(-1) | gap.any(-1)
+    # a row whose every entry is filtered ties exactly at -1e30: both
+    # sides take index 0, so that is no near-tie
+    gap &= top2[..., 0] > sm.FILTERED / 2
+    return tie.any(-1) | gap.any(-1) | edge
+
+
+def verify_gather_ties(torch, logits):
+    """The forced-tie variant: 40 logits above each row's largest, then
+    300 equal ones 1 below it (the 50th value), so top-k's survivors
+    overflow the 256 the kernel gathers and it takes the mass rounds."""
+    top = logits.float().amax(-1, keepdim=True)
+    steps = 0.25 * torch.arange(1, 41, device=logits.device)
+    logits = logits.clone()
+    logits[..., 1000:1040] = (top + steps).to(logits.dtype)
+    logits[..., 2000:2300] = (top - 1.0).expand(
+        *logits.shape[:2], 300).to(logits.dtype)
+    return logits
+
+
+def verify_nucleus_case(torch, dev, b, n1, V, tree):
+    """A row whose draft lies inside top-k but outside the nucleus: row 0
+    puts 0.95 of its mass on token 100 (T 0.8), its top 50 distinct, and
+    its first child drafts token 200 (p 0.047 before top-p) with an
+    acceptance draw of 1e-3. The sound kernel rejects it at every batch
+    row and emits 100; with top-p skipped (``no_top_p``) it accepts."""
+    from apex_tpu_torch.ops import fused_verify as vf
+
+    logits, extra, u_acc, u_gum = verify_case(torch, dev, b, n1, V, 3, tree)
+    logits[:, 0] = -30.0
+    logits[:, 0, 300:348] = (-10.0 + 0.125 * torch.arange(
+        48, device=dev)).to(logits.dtype)
+    logits[:, 0, 100] = 8.0
+    logits[:, 0, 200] = 5.6
+    if tree:
+        tokens = extra[0].clone()
+        tokens[:, 1] = 200
+        tokens[:, 1 + (n1 - 1) // 2] = 300
+        extra = (tokens, *extra[1:])
+    else:
+        drafted = extra[0].clone()
+        drafted[:, 0] = 200
+        extra = (drafted,)
+    return logits, extra, torch.full_like(u_acc, 1e-3), u_gum
 
 
 def verify_kernel_args(torch, logits, extra, tree):
@@ -1661,11 +1762,16 @@ def verify_kernel_args(torch, logits, extra, tree):
 def phase_verify_kernels(torch, dev):
     """Both verify kernels against their plain versions, greedy and
     sampled (T 0.8, top_k 50), at every shape of VERIFY_SHAPES over 4
-    seeds: no verdict mismatch outside near-ties, verdicts bit-identical
-    across two runs; both planted faults (the last rank left out of the
-    merges, row 0's slots never published) refused at every shape and
-    mode; the plan's clusters held by the card, its shared memory the
-    kernel's. Times at every shape and mode: the kernel, the parent's in
+    seeds, and with top-p (TOP_P_KNOBS: top_p 0.9 after top_k 50 or alone)
+    at every shape of TOP_P_SHAPES over 2 seeds, on plain logits and on
+    forced ties that overflow the gathered survivors: no verdict mismatch
+    outside near-ties, verdicts bit-identical across two runs; both
+    planted faults (the last rank left out of the merges, row 0's slots
+    never published) refused at every shape and mode, and ``no_top_p``
+    (top-p skipped) at a row whose draft lies outside the nucleus, which
+    the sound kernel rejects at every batch row; the plan's clusters held
+    by the card, its shared memory the kernel's. Times at every shape and
+    mode (the top-p modes at TOP_P_SHAPES): the kernel, the parent's in
     turns under ``--parent``, a copy that returns at once on the same
     clusters (``empty_ms``), the plain version, the bound; the plan and
     the instance's registers and spills."""
@@ -1725,23 +1831,108 @@ def phase_verify_kernels(torch, dev):
                 check(all(torch.equal(x, y) for x, y in zip(sound, want)),
                       f"verify fault case at {(b, n1)}, tree {tree}, "
                       f"sampled {sampled}: the sound kernel disagrees")
-                for fault in vf.PLANTED_FAULTS:
+                for fault in ("drop_last_rank", "no_publish"):
                     got = kern(*args, *noise, **knobs, planted_fault=fault)
                     bad = torch.zeros((b,), dtype=torch.bool, device=dev)
                     for x, y in zip(got, want):
                         bad |= x != y
                     faults += 1
                     refused += int(bad.all())  # every batch row changed
+    # top-p (the serve's sampled spec rounds): both knob sets, plain and
+    # forced-tie logits, over 2 seeds; the three faults refused
+    p_rows = p_mismatches = p_ties = p_all = 0
+    for seed in range(2):
+        for b, n1 in TOP_P_SHAPES:
+            for tree in (False, True):
+                for ties in (False, True):
+                    logits, extra, u_acc, u_gum = verify_case(
+                        torch, dev, b, n1, V, 300 + 100 * seed + b + n1,
+                        tree)
+                    if ties:
+                        logits = verify_gather_ties(torch, logits)
+                    fn = vf.fused_verify_tree if tree else vf.fused_verify
+                    for mode, knobs in TOP_P_KNOBS.items():
+                        kw = dict(knobs, u_acc=u_acc, u_gum=u_gum)
+                        got = fn(logits, *extra, **kw)
+                        again = fn(logits, *extra, **kw)
+                        check(all(torch.equal(x, y)
+                                  for x, y in zip(got, again)),
+                              f"verify {mode} not bit-reproducible at "
+                              f"{(b, n1)}, tree {tree}, ties {ties}")
+                        want = fn(logits, *extra, impl="torch", **kw)
+                        bad = torch.zeros((b,), dtype=torch.bool,
+                                          device=dev)
+                        for x, y in zip(got, want):
+                            bad |= x != y
+                        near = verify_near_ties(torch, logits, extra, u_acc,
+                                                u_gum, tree, knobs)
+                        p_ties += int(near.sum())
+                        p_mismatches += int((bad & ~near).sum())
+                        p_all += int(bad.sum())
+                        p_rows += b
+    p_faults = p_refused = 0
+    for b, n1 in TOP_P_SHAPES:
+        for tree in (False, True):
+            kern = vf.fused_verify_tree_cuda if tree else \
+                vf.fused_verify_cuda
+            fn = vf.fused_verify_tree if tree else vf.fused_verify
+            for knobs in TOP_P_KNOBS.values():
+                logits, extra, u_acc, u_gum = verify_fault_case(
+                    torch, dev, b, n1, V, tree)
+                args = verify_kernel_args(torch, logits, extra, tree)
+                want = fn(logits, *extra, impl="torch", u_acc=u_acc,
+                          u_gum=u_gum, **knobs)
+                sound = kern(*args, u_acc, u_gum, **knobs)
+                check(all(torch.equal(x, y) for x, y in zip(sound, want))
+                      and bool((want[-1] == V - 5).all()),
+                      f"verify top-p fault case at {(b, n1)}, tree {tree}: "
+                      f"the sound kernel disagrees")
+                for fault in ("drop_last_rank", "no_publish"):
+                    got = kern(*args, u_acc, u_gum, **knobs,
+                               planted_fault=fault)
+                    bad = torch.zeros((b,), dtype=torch.bool, device=dev)
+                    for x, y in zip(got, want):
+                        bad |= x != y
+                    p_faults += 1
+                    p_refused += int(bad.all())
+                # a draft outside the nucleus: rejected at every batch row;
+                # with top-p skipped, accepted at every batch row
+                logits, extra, u_acc, u_gum = verify_nucleus_case(
+                    torch, dev, b, n1, V, tree)
+                args = verify_kernel_args(torch, logits, extra, tree)
+                want = fn(logits, *extra, impl="torch", u_acc=u_acc,
+                          u_gum=u_gum, **knobs)
+                sound = kern(*args, u_acc, u_gum, **knobs)
+                check(bool((sound[0] == 0).all() and (sound[-1] == 100).all()
+                           and (want[0] == 0).all()),
+                      f"verify at {(b, n1)}, tree {tree}, {knobs}: a draft "
+                      f"outside the nucleus was accepted")
+                got = kern(*args, u_acc, u_gum, **knobs,
+                           planted_fault="no_top_p")
+                p_faults += 1
+                p_refused += int((got[0] >= 1).all())
     emit("verify_check", {"rows": rows, "near_ties_excluded": ties_total,
                           "mismatches": mismatches,
                           "planted_faults": faults,
-                          "planted_faults_refused": refused})
+                          "planted_faults_refused": refused,
+                          "top_p": {"rows": p_rows,
+                                    "near_ties_excluded": p_ties,
+                                    "mismatches": p_mismatches,
+                                    "mismatches_with_near_ties": p_all,
+                                    "planted_faults": p_faults,
+                                    "planted_faults_refused": p_refused}})
     check(mismatches == 0, f"verify kernels vs plain: {mismatches} verdict "
           f"mismatches outside near-ties")
     check(ties_total <= max(1, 0.01 * rows), f"{ties_total} near-tie rows "
           f"excluded of {rows}")
     check(refused == faults, f"verify: {faults - refused} of {faults} "
           f"planted faults not refused")
+    check(p_mismatches == 0, f"verify kernels vs plain with top-p: "
+          f"{p_mismatches} verdict mismatches outside near-ties")
+    check(p_ties <= max(1, 0.01 * p_rows), f"top-p: {p_ties} near-tie rows "
+          f"excluded of {p_rows}")
+    check(p_refused == p_faults, f"verify top-p: {p_faults - p_refused} of "
+          f"{p_faults} planted faults not refused")
 
     out = []
     for tree, name, site in ((False, "fused_verify", "verify.py:290"),
@@ -1762,14 +1953,28 @@ def phase_verify_kernels(torch, dev):
             check(smem == plan.smem, f"verify: the kernel's shared memory "
                   f"{smem} B, the plan's {plan.smem} B")
             modes = {}
-            for sampled in (False, True):
-                knobs = (dict(DECODE_SAMPLED) if sampled
-                         else dict(temperature=0.0, top_k=0))
+            mode_knobs = {"greedy": dict(temperature=0.0, top_k=0),
+                          "sampled": dict(DECODE_SAMPLED)}
+            top_p_clusters = None
+            if (b, n1) in TOP_P_SHAPES:
+                mode_knobs.update(TOP_P_KNOBS)
+                top_p_clusters, smem = vf.verify_occupancy(
+                    plan, torch.bfloat16, V, tree, top_p=True)
+                check(top_p_clusters > 0, f"the card holds no cluster of "
+                      f"the verify plan {plan} with top-p")
+                check(smem == vf.VERIFY_TOP_P_SMEM, f"verify with top-p: "
+                      f"the kernel's shared memory {smem} B, the plan's "
+                      f"{vf.VERIFY_TOP_P_SMEM} B")
+            for mode, knobs in mode_knobs.items():
+                sampled = mode != "greedy"
                 noise = (u_acc, u_gum) if sampled else (None, None)
                 plain_kw = dict(knobs, u_acc=u_acc, u_gum=u_gum) \
                     if sampled else {}
                 run = lambda: kern_cuda(*args, *noise, **knobs)  # noqa
-                ms, parent_ms = parent_turns(torch, run, [()])
+                if mode in TOP_P_KNOBS:  # the parent's pair has no top-p
+                    ms, parent_ms = time_ms(run, [()]), None
+                else:
+                    ms, parent_ms = parent_turns(torch, run, [()])
                 with rowwise_ab.using(EMPTY):
                     empty_ms = time_ms(run, [()])
                 plain_ms = time_ms(lambda: fn(logits, *extra, impl="torch",
@@ -1782,25 +1987,36 @@ def phase_verify_kernels(torch, dev):
                 # greedy: one compare a logit; sampled, as the sampler: the
                 # scale, its key and the largest key 3, four top-k rounds
                 # 12, the Gumbel term 3, the draw 2, then each kept
-                # entry's mass (exp, scale, sum) 3
+                # entry's mass (exp, scale, sum) 3; top-p after top-k (the
+                # sampler's count): each survivor's mass against every
+                # other's, 2L^2 at L 50; without top-k, 4 mass rounds of
+                # (exp, scale, convert, prefix compare, bin, add) a value
                 ops = elems
                 if sampled:
                     nbytes += elems * 4 + 4 * b * n1
-                    ops = elems * 20 + 3 * b * n1 * DECODE_SAMPLED["top_k"]
+                    kept = knobs["top_k"] or V
+                    ops = elems * 20 + 3 * b * n1 * min(kept, 50)
+                    if knobs.get("top_p", 1.0) < 1.0:
+                        ops += (2 * 50 * 50 * b * n1 if knobs["top_k"]
+                                else 24 * elems)
                 bms, by = bound(nbytes, ops, FP32_OPS_PER_S)
-                modes["sampled" if sampled else "greedy"] = {
+                modes[mode] = {
                     "ms": ms, "parent_ms": parent_ms, "empty_ms": empty_ms,
                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                     "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                    "ops_bound_ms": ops / FP32_OPS_PER_S * 1e3}
-            info = {"batch": b, "rows": n1, "vocab": V, **modes,
-                    "plan": plan._asdict(), "max_active_clusters": clusters,
+                    "ops_bound_ms": ops / FP32_OPS_PER_S * 1e3,
                     "ptxas": ptxas_of("verify_kernel", (
                         "__nv_bfloat16", str(plan.values),
-                        "true" if tree else "false"))}
+                        "true" if tree else "false",
+                        "true" if mode in TOP_P_KNOBS else "false"))}
+            info = {"batch": b, "rows": n1, "vocab": V, **modes,
+                    "plan": plan._asdict(), "max_active_clusters": clusters,
+                    "top_p_max_active_clusters": top_p_clusters}
             per_shape[f"{b}x{n1}"] = info
-            emit("verify_times", dict(info, kernel=name, **DECODE_SAMPLED))
+            emit("verify_times", dict(info, kernel=name, **DECODE_SAMPLED,
+                                      top_p_modes=TOP_P_KNOBS))
         spec = per_shape[f"1x{2 * SPEC_K + 1 if tree else SPEC_K + 1}"]
+        served = per_shape[f"8x{2 * SPEC_K + 1 if tree else SPEC_K + 1}"]
         g_ = spec["greedy"]
         out.append({"name": name, "route": "cuda",
                     "source": "apex_tpu_torch/csrc/fused_verify.cu",
@@ -1816,6 +2032,9 @@ def phase_verify_kernels(torch, dev):
                                    "parent commit's kernel in turns "
                                    "(--parent)",
                     "sampled": spec["sampled"], "plan": spec["plan"],
+                    "top_p": {mode: served[mode] for mode in TOP_P_KNOBS},
+                    "top_p_shape": {"batch": 8, "rows": served["rows"],
+                                    "vocab": V, "dtype": "bf16"},
                     "timed_shape": {"batch": 1, "rows": spec["rows"],
                                     "vocab": V, "dtype": "bf16",
                                     "ms_is": "greedy", **DECODE_SAMPLED},
@@ -2066,6 +2285,315 @@ def verify_gap(kernels, by_mode):
             total += gap
     return dict(out, total_gap_ms=total)
 
+
+
+# --- speculative serving ------------------------------------------------------
+
+# the spec_serve leg: the serve's GPT-medium, ENGINE and trace; the model
+# drafter a 2-layer GPT at GPT-medium's widths and vocabulary, its own
+# weights from SPEC_DRAFTER_SEED; drafted trees of depth SPEC_K x
+# branching 2, chains of SPEC_K
+SPEC_DRAFTER = dict(MODEL, num_layers=2)
+SPEC_DRAFTER_SEED = 5
+# pool sizes tried in turn for the preemption serve, down to the first at
+# which a stream holding drafter blocks is preempted. Above 21 the drafter's
+# headroom check keeps it out of a short pool, so the streams preempted
+# there held none at 37, 33, 29 and 25 blocks (PERF.md §6)
+SPEC_PREEMPT_BLOCKS = (21, 17)
+# a greedy spec serve may leave the plain serve's tokens only at a near-tie:
+# the plain path's top-2 logit gap at the first diverging position at most
+# this share of the top-1 logit's magnitude (teacher-forced forward)
+SPEC_TIE_SHARE = 2.0 ** -6
+
+
+def spec_serve_counters():
+    """The serve's kernels by name, their launches counted by mode where
+    the verify pair ran with top-p."""
+    from apex_tpu_torch.ops import decode_attention as D
+    from apex_tpu_torch.ops import fused_verify as vf
+    from apex_tpu_torch.ops import layer_norm as LN
+    from apex_tpu_torch.ops import sampling as SM
+
+    return {"paged_decode_attn": (D.paged_decode_attn_cuda, "launches"),
+            "fused_sample": (SM.fused_sample_cuda, "launches"),
+            "ln_fwd": (LN.ln_fwd_cuda, "launches"),
+            "fused_verify": (vf.fused_verify_cuda, "launches"),
+            "fused_verify_tree": (vf.fused_verify_tree_cuda, "launches"),
+            "fused_verify_top_p": (vf.fused_verify_cuda, "top_p_launches"),
+            "fused_verify_tree_top_p": (vf.fused_verify_tree_cuda,
+                                        "top_p_launches")}
+
+
+def spec_serve_run(torch, model, params, dev, what, *, draft=None,
+                   adaptive=None, reqs=None, num_blocks=None,
+                   sampled=False, on_scheduler=None):
+    """One serve of ``reqs`` (default the whole trace) on a fresh engine,
+    with the launch counters zeroed just before and read just after, held
+    to the leg's equalities: one fused_verify launch per chain round, one
+    fused_verify_tree launch per tree round (sampled: each a top-p
+    launch), 12 paged-decode launches per plain step and the drafter's
+    layers per drafter step, 25 ln_fwd per model forward and the
+    drafter's 2 x layers + 1 per drafter step, one sampling launch per
+    plain step and prefill chunk when sampled (none greedy). At drain the
+    pool's accounting is exact, no block lives beyond the prefix cache's
+    residents and the drafter holds none. Returns (tokens by rid, info,
+    launches)."""
+    from apex_tpu_torch.serving.engine import ServingEngine
+
+    kw = dict(ENGINE)
+    if num_blocks is not None:
+        kw["num_blocks"] = num_blocks
+    if sampled:
+        kw.update(SAMPLED)
+    eng = ServingEngine(model, device=dev, **kw)
+    sched = eng.make_scheduler()
+    if on_scheduler is not None:
+        on_scheduler(sched)
+    reqs = build_trace() if reqs is None else reqs
+    gen = (torch.Generator(device=dev).manual_seed(11) if sampled
+           else None)
+    counters = spec_serve_counters()
+    steps0 = getattr(draft, "steps", 0)
+    torch.cuda.synchronize()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    done = eng.serve(params, reqs, scheduler=sched, generator=gen,
+                     draft=draft, adaptive=adaptive)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    d_steps = getattr(draft, "steps", 0) - steps0
+    check(len(done) == len(reqs), f"spec serve {what} lost requests")
+    for r in done:
+        check(len(r.tokens) == r.max_new_tokens
+              and all(0 <= t < MODEL["vocab_size"] for t in r.tokens),
+              f"spec serve {what}: request {r.rid} bad tokens")
+    alloc = sched.allocator
+    alloc.check_accounting()
+    check(alloc.num_live == alloc.num_resident, f"spec serve {what}: blocks "
+          f"live beyond the prefix cache's residents after drain")
+    if hasattr(draft, "pool_blocks"):
+        check(draft.pool_blocks() == 0, f"spec serve {what}: drafter blocks "
+              f"left in the pool")
+    st = eng.last_stats
+    L = MODEL["num_layers"]
+    dL = draft.model.config.num_layers if d_steps else 0
+    chain = st.spec_rounds - st.tree_rounds
+    plain = st.decode_steps - st.spec_rounds
+    forwards = st.prefill_chunks + st.decode_steps
+    want = {"fused_verify": chain, "fused_verify_tree": st.tree_rounds,
+            "fused_verify_top_p": chain if sampled else 0,
+            "fused_verify_tree_top_p": st.tree_rounds if sampled else 0,
+            "paged_decode_attn": L * plain + dL * d_steps,
+            "ln_fwd": (2 * L + 1) * forwards + (2 * dL + 1) * d_steps,
+            "fused_sample": st.prefill_chunks + plain if sampled else 0}
+    for k, n in want.items():
+        check(launches[k] == n, f"spec serve {what}: {launches[k]} {k} "
+              f"launches, want {n} ({chain} chain and {st.tree_rounds} tree "
+              f"rounds, {plain} plain steps, {st.prefill_chunks} chunks, "
+              f"{d_steps} drafter steps)")
+    n_tok = sum(len(r.tokens) for r in done)
+    info = {"requests": len(done), "tokens": n_tok, "wall_s": wall,
+            "tokens_per_s": n_tok / wall, "decode_steps": st.decode_steps,
+            "plain_steps": plain, "prefill_chunks": st.prefill_chunks,
+            "spec_rounds": st.spec_rounds, "tree_rounds": st.tree_rounds,
+            "spec_drafted": st.spec_drafted,
+            "spec_accepted": st.spec_accepted,
+            "acceptance": st.spec_acceptance_rate,
+            "efficiency": st.spec_efficiency,
+            "tokens_per_slot_round": ((st.spec_accepted
+                                       + st.spec_slot_rounds)
+                                      / max(st.spec_slot_rounds, 1)),
+            "spec_degraded": st.spec_degraded, "drafter_steps": d_steps,
+            "draft_s": st.draft_s, "decode_s": st.decode_s,
+            "prefill_s": st.prefill_s,
+            "evictions": sum(r.evictions for r in done),
+            "preemptions": sched.preemptions,
+            "num_blocks": eng.num_blocks, "launches": launches}
+    return {r.rid: list(r.tokens) for r in done}, info, launches
+
+
+def spec_near_ties(torch, model, params, reqs, spec, plain, what):
+    """The share of requests whose greedy spec tokens equal the plain
+    serve's; at each diverging request the first diverging position and
+    the plain path's top-2 logit gap there, from a teacher-forced forward
+    of the prompt and the plain tokens before it. Fails unless every
+    divergence is a near-tie (gap <= SPEC_TIE_SHARE x |top-1 logit|)."""
+    out = []
+    for r in reqs:
+        a, b = spec[r.rid], plain[r.rid]
+        if a == b:
+            continue
+        pos = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        seq = np.concatenate([r.prompt, np.asarray(b[:pos], np.int32)])
+        with torch.no_grad():
+            row = model.logits(params, torch.tensor(
+                seq[None], device=params["lnf_w"].device))[0, -1].float()
+        top = row.topk(2).values
+        gap, top1 = float(top[0] - top[1]), float(top[0])
+        out.append({"rid": r.rid, "position": pos, "plain_token": b[pos],
+                    "spec_token": a[pos], "top1_logit": top1,
+                    "top2_gap": gap,
+                    "near_tie": gap <= SPEC_TIE_SHARE * abs(top1)})
+    share = 1.0 - len(out) / len(reqs)
+    for d in out:
+        check(d["near_tie"], f"spec serve {what}: request {d['rid']} left "
+              f"the plain tokens at position {d['position']}, where the "
+              f"top-2 gap {d['top2_gap']} exceeds {SPEC_TIE_SHARE} x the "
+              f"top-1 logit {d['top1_logit']}")
+    return {"share_of_requests_identical": share, "divergences": out}
+
+
+def phase_spec_serve(torch, model, params, dev):
+    """Speculative serving on the serve's GPT-medium, ENGINE and trace:
+    a) NGramDrafter(SPEC_K), chain; b) NGramTreeDrafter(SPEC_K, 2), tree;
+    c) a PagedModelDrafter (SPEC_DRAFTER, depth SPEC_K x branching 2) in
+    the serve's own pool; d) the target as its own PagedModelDrafter on 2
+    requests (every draft accepted: the bonus and deepest-path commits
+    run); e) a) and b) sampled at SAMPLED (the verify pair's top-p); f)
+    c) with the pool lowered (SPEC_PREEMPT_BLOCKS) until a stream holding
+    drafter blocks is preempted; g) b) with an AdaptiveSpecController
+    (every dispatched tree shape one of its choices). Each serve's
+    counters zeroed just before it and read just after
+    (``spec_serve_run``); every greedy serve's tokens against the plain
+    greedy serve at the same pool size and requests
+    (``spec_near_ties``)."""
+    from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
+    from apex_tpu_torch.spec import (AdaptiveSpecController, NGramDrafter,
+                                     NGramTreeDrafter, PagedModelDrafter)
+
+    t_leg = time.perf_counter()
+    dmodel = GPTModel(GPTConfig(**SPEC_DRAFTER, dtype=torch.bfloat16))
+    dparams = dmodel.init(torch.Generator(device=dev).manual_seed(
+        SPEC_DRAFTER_SEED), device=dev)
+    trace = build_trace()
+    totals = {}
+    by_mode = {k: {"greedy": 0, "top_p": 0}
+               for k in ("fused_verify", "fused_verify_tree")}
+    info = {}
+
+    def counted(name, toks_info_launches, sampled=False):
+        toks, inf, launches = toks_info_launches
+        for k in ("paged_decode_attn", "fused_sample", "ln_fwd",
+                  "fused_verify", "fused_verify_tree"):
+            totals[k] = totals.get(k, 0) + launches[k]
+        for k in by_mode:
+            by_mode[k]["top_p" if sampled else "greedy"] += launches[k]
+        info[name] = inf
+        return toks, inf
+
+    plain, info["plain_greedy"], _ = spec_serve_run(
+        torch, model, params, dev, "plain")
+    paged = lambda: PagedModelDrafter(  # noqa: E731
+        dmodel, dparams, depth=SPEC_K, branching=2, device=dev)
+    for name, make in (("a_ngram_chain", lambda: NGramDrafter(SPEC_K)),
+                       ("b_ngram_tree", lambda: NGramTreeDrafter(SPEC_K,
+                                                                 2)),
+                       ("c_paged_model", paged)):
+        draft = make()
+        toks, inf = counted(name, spec_serve_run(
+            torch, model, params, dev, name, draft=draft))
+        check(inf["spec_rounds"] > 0, f"spec serve {name}: no round ran")
+        if name != "c_paged_model":  # the drafter's pool headroom decides
+            check((inf["tree_rounds"] > 0) == (name == "b_ngram_tree"),
+                  f"spec serve {name}: {inf['tree_rounds']} tree rounds")
+        if name == "c_paged_model":
+            check(draft.peak_blocks > 0, "the model drafter never held a "
+                  "block of the pool")
+            inf["drafter_peak_blocks"] = draft.peak_blocks
+        inf["vs_plain"] = spec_near_ties(torch, model, params, trace, toks,
+                                         plain, name)
+    # d) the target drafting for itself, on 2 requests
+    two = build_trace()[:2]
+    plain2, _, _ = spec_serve_run(torch, model, params, dev, "plain_2",
+                                  reqs=two)
+    toks, inf = counted("d_self_draft", spec_serve_run(
+        torch, model, params, dev, "d_self_draft",
+        draft=PagedModelDrafter(model, params, depth=SPEC_K, branching=2,
+                                device=dev), reqs=build_trace()[:2]))
+    check(inf["acceptance"] >= 0.9, f"the self-drafted serve accepted "
+          f"{inf['acceptance']} of its drafts")
+    inf["vs_plain"] = spec_near_ties(torch, model, params, two, toks,
+                                     plain2, "d_self_draft")
+    # e) sampled, the verify pair's top-p
+    for name, make in (("e_sampled_chain", lambda: NGramDrafter(SPEC_K)),
+                       ("e_sampled_tree", lambda: NGramTreeDrafter(SPEC_K,
+                                                                   2))):
+        _, inf = counted(name, spec_serve_run(
+            torch, model, params, dev, name, draft=make(), sampled=True),
+            sampled=True)
+        check(inf["spec_rounds"] > 0, f"spec serve {name}: no round ran")
+    # f) the model drafter in a pool small enough to preempt its streams
+    for nb in SPEC_PREEMPT_BLOCKS:
+        held = []
+        draft = paged()
+
+        def watch(sched, draft=draft, held=held):
+            preempt = sched._preempt
+
+            def counting(i, now, *a, **k):
+                st = draft._streams.get(sched._slots[i].request.rid)
+                held.append(bool(st and st["n_blocks"]))
+                return preempt(i, now, *a, **k)
+            sched._preempt = counting
+
+        plain_nb, _, _ = spec_serve_run(torch, model, params, dev,
+                                        f"plain_{nb}", num_blocks=nb)
+        toks, inf = counted("f_preempted", spec_serve_run(
+            torch, model, params, dev, f"f_preempted_{nb}", draft=draft,
+            num_blocks=nb, on_scheduler=watch))
+        inf["preempted_holding_drafter_blocks"] = sum(held)
+        inf["vs_plain"] = spec_near_ties(torch, model, params, trace, toks,
+                                         plain_nb, f"f_preempted_{nb}")
+        if sum(held):
+            break
+    check(inf["preempted_holding_drafter_blocks"] > 0, "no pool size of "
+          f"{SPEC_PREEMPT_BLOCKS} preempted a stream holding drafter blocks")
+    check(inf["evictions"] > 0 and inf["spec_degraded"] > 0,
+          f"the preempted serve at {inf['num_blocks']} blocks: "
+          f"{inf['evictions']} evictions, {inf['spec_degraded']} degraded")
+    # g) the adaptive controller
+    shapes = []
+    ctl = AdaptiveSpecController()
+    round_shape = ctl.round_shape
+
+    def recording(streams):
+        shape = round_shape(streams)
+        shapes.append(shape)
+        return shape
+    ctl.round_shape = recording
+    toks, inf = counted("g_adaptive", spec_serve_run(
+        torch, model, params, dev, "g_adaptive",
+        draft=NGramTreeDrafter(SPEC_K, 2), adaptive=ctl))
+    check(shapes and set(shapes) <= set(ctl.choices), f"the adaptive serve "
+          f"dispatched shapes {sorted(set(shapes))} outside its choices "
+          f"{ctl.choices}")
+    inf["shapes_dispatched"] = {str(k): shapes.count(k)
+                                for k in sorted(set(shapes))}
+    inf["adjustments"] = ctl.adjustments
+    inf["vs_plain"] = spec_near_ties(torch, model, params, trace, toks,
+                                     plain, "g_adaptive")
+    info["verify_launches_by_mode"] = by_mode
+    info["leg_s"] = time.perf_counter() - t_leg
+    return info, totals
+
+
+def serve_verify_gap(kernels, by_mode):
+    """The spec_serve leg's launches x (time - bound) of each verify
+    kernel: greedy launches at the kernel's greedy time at the serve's 8
+    slots, top-p launches at its top_p_k50 time (SAMPLED's knobs)."""
+    out, total = {}, 0.0
+    for k in kernels:
+        if k["name"] not in by_mode:
+            continue
+        per = k["per_shape"][f"8x{k['top_p_shape']['rows']}"]
+        for mode, key in (("greedy", "greedy"), ("top_p", "top_p_k50")):
+            n = by_mode[k["name"]][mode]
+            gap = n * (per[key]["ms"] - per[key]["bound_ms"])
+            out[f"{k['name']}_{mode}"] = {"launches": n, "gap_ms": gap}
+            total += gap
+    return dict(out, total_gap_ms=total)
 
 
 # --- the T5 slice -------------------------------------------------------------
@@ -3650,7 +4178,6 @@ def phase_softmax_kernels(torch, dev):
     and each warp kernel's instance's registers and spills, and at the T5
     legs' unmasked cross call."""
     from apex_tpu_torch.ops import softmax as S
-    from apex_tpu_torch.tools import rowwise_ab
 
     errs = {"y": 0.0, "dx": 0.0}
     calls = dict(SOFTMAX_CALLS, long_row=((2, 4, 64, 4096), "key"))
@@ -3678,9 +4205,7 @@ def phase_softmax_kernels(torch, dev):
             y = S.softmax_fwd_cuda(x, mask, scale, causal)
             out["bwd"], out["parent_bwd"] = parent_turns(
                 torch, lambda: S.softmax_bwd_cuda(
-                    dy, y, scale, causal=causal, mask=mask), [()],
-                parent_fn=lambda lib: rowwise_ab.parent_softmax_bwd(
-                    lib, dy, y, scale))
+                    dy, y, scale, causal=causal, mask=mask), [()])
             out["plain_bwd"] = time_ms(lambda: S._torch_bwd(dy, y, scale),
                                        [()], reps=2, trials=3)
             out["lib_bwd"] = time_ms(lambda: torch._softmax_backward_data(
@@ -4617,6 +5142,12 @@ def main(argv=None):
     emit("spec", s_info)
     emit("spec_verify_gap", verify_gap(d_kernels,
                                        s_info["verify_launches_by_mode"]))
+    torch.cuda.empty_cache()
+    ss_info, paths["spec_serve"] = phase_spec_serve(torch, model, params,
+                                                    dev)
+    emit("spec_serve", ss_info)
+    emit("spec_serve_verify_gap", serve_verify_gap(
+        d_kernels, ss_info["verify_launches_by_mode"]))
     del model, params
     torch.cuda.empty_cache()
 

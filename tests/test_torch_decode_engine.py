@@ -309,7 +309,9 @@ class TestValidation:
         _, _, tm, tp = mha
         with pytest.raises(TypeError):
             DecodeEngine(tm, device="cpu", plan=object())
-        with pytest.raises(TypeError):
+        # adaptive= is ported with the tree path; without a drafter it
+        # is refused as the reference refuses it
+        with pytest.raises(ValueError, match="requires draft"):
             DecodeEngine(tm, device="cpu").generate(
                 tp, torch.from_numpy(prompt(1, 128)), 2, adaptive=object())
 

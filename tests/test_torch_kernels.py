@@ -703,7 +703,7 @@ def _verify_case(dev, dtype, b, n1, V, seed, tree):
 
 def _verify_near_ties(logits, extra, u_acc, u_gum, kw, tree):
     """Batch rows on which a near-tie could flip the sampled verdict."""
-    s = smod.filtered_scaled(logits, **kw, top_p=1.0)
+    s = smod.filtered_scaled(logits, **dict(dict(top_p=1.0), **kw))
     n1, V = s.shape[-2], s.shape[-1]
     if tree:
         tokens, parents, _ = extra
@@ -821,7 +821,7 @@ def test_verify_back_to_back_launches_reset_the_counters(cuda, tree,
 @pytest.mark.parametrize("b,n1", [(1, 5), (1, 9), (4, 9)])
 @pytest.mark.parametrize("tree", [False, True])
 @pytest.mark.parametrize("temperature", [0.0, 0.8])
-@pytest.mark.parametrize("fault", vmod.PLANTED_FAULTS)
+@pytest.mark.parametrize("fault", ("drop_last_rank", "no_publish"))
 def test_verify_planted_faults_are_refused(cuda, b, n1, tree, temperature,
                                            fault):
     """Row 0's largest logit, 30 above the rest, in the last rank's share,
@@ -852,6 +852,128 @@ def test_verify_planted_faults_are_refused(cuda, b, n1, tree, temperature,
     got = kern(*args, *noise, **kw, planted_fault=fault)
     assert _verify_bad(got, sound).all()
     again = kern(*args, *noise, **kw)  # a sound launch after the fault
+    assert all(torch.equal(x, y) for x, y in zip(again, sound))
+
+
+def _top_p_near_ties(logits, extra, u_acc, u_gum, kw, tree):
+    """Batch rows on which a near-tie could flip a top-p verdict: those of
+    :func:`_verify_near_ties` on the top-p filtered target, and rows whose
+    nucleus boundary is near a tie (a cumulative mass of the top-k
+    survivors, best first, within 1e-5 relative of top_p times their
+    total)."""
+    t, k, p = kw["temperature"], kw["top_k"], kw["top_p"]
+    near = _verify_near_ties(logits, extra, u_acc, u_gum,
+                             dict(temperature=t, top_k=k, top_p=p), tree)
+    s = smod.filtered_scaled(logits, temperature=t, top_k=k,
+                             top_p=1.0).double()
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    cum = e.sort(dim=-1, descending=True).values.cumsum(-1)
+    target = p * cum[..., -1:]
+    edge = ((cum - target).abs() <= NEAR_TIE * target).any(-1)  # (b, r)
+    return near | edge.any(-1)
+
+
+# the serve's shapes (8 slots: chain k 4, tree depth 4 x branching 2), the
+# spec leg's, and (16, 9): 288 CTAs at S 2, more than one wave
+VERIFY_TOP_P_SHAPES = [(1, 5), (1, 9), (8, 5), (8, 9), (16, 9)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n1", VERIFY_TOP_P_SHAPES)
+@pytest.mark.parametrize("tree", [False, True])
+@pytest.mark.parametrize("top_k,top_p", [(50, 0.9), (0, 0.9), (50, 0.5),
+                                         (0, 0.5)])
+def test_verify_top_p_matches_plain(cuda, b, n1, tree, top_k, top_p):
+    """Top-p after top-k (the gathered survivors at top_k 50, the mass
+    rounds at top_k 0) at the serve's shapes and past one wave: verdicts
+    equal to the plain version's outside near-ties, bit-identical across
+    two runs, each launch counted as a top-p launch; the card holds the
+    top-p instance's clusters, whose shared memory is its own."""
+    V = 32768
+    plan = vmod._plan_for(torch.empty((b, n1, V), device=cuda))
+    clusters, smem = vmod.verify_occupancy(plan, torch.bfloat16, V, tree,
+                                           top_p=True)
+    assert clusters > 0 and smem == vmod.VERIFY_TOP_P_SMEM
+    logits, extra, u_acc, u_gum = _verify_case(cuda, torch.bfloat16, b, n1,
+                                               V, seed=b * n1 + top_k,
+                                               tree=tree)
+    kw = dict(temperature=0.8, top_k=top_k, top_p=top_p, u_acc=u_acc,
+              u_gum=u_gum)
+    counter = vmod.fused_verify_tree_cuda if tree else vmod.fused_verify_cuda
+    before = counter.top_p_launches
+    got = _verify_verdicts(tree, logits, extra, kw)
+    again = _verify_verdicts(tree, logits, extra, kw)
+    assert counter.top_p_launches == before + 2
+    want = _verify_verdicts(tree, logits, extra, dict(kw, impl="torch"))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    bad = _verify_bad(got, want)
+    bad &= ~_top_p_near_ties(logits, extra, u_acc, u_gum, kw, tree)
+    assert not bad.any(), f"verdicts {got} vs plain {want}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n1", [(1, 9), (8, 9)])
+@pytest.mark.parametrize("tree", [False, True])
+def test_verify_top_p_ties_past_the_gather(cuda, b, n1, tree):
+    """Ties at the k-th value push top-k's survivors past the 256 rank 0
+    gathers (40 logits above each row's largest, then 300 equal ones 1
+    below it, the 50th value): the kernel takes the mass rounds instead,
+    with the same verdicts as the plain version."""
+    V = 32768
+    logits, extra, u_acc, u_gum = _verify_case(cuda, torch.bfloat16, b, n1,
+                                               V, seed=n1, tree=tree)
+    top = logits.float().amax(-1, keepdim=True)
+    steps = 0.25 * torch.arange(1, 41, device=cuda)
+    logits[..., 1000:1040] = (top + steps).to(logits.dtype)
+    logits[..., 2000:2300] = (top - 1.0).expand(b, n1, 300).to(logits.dtype)
+    kw = dict(temperature=0.8, top_k=50, top_p=0.9, u_acc=u_acc,
+              u_gum=u_gum)
+    got = _verify_verdicts(tree, logits, extra, kw)
+    want = _verify_verdicts(tree, logits, extra, dict(kw, impl="torch"))
+    bad = _verify_bad(got, want)
+    bad &= ~_top_p_near_ties(logits, extra, u_acc, u_gum, kw, tree)
+    assert not bad.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n1", [(1, 5), (8, 5), (1, 9), (8, 9)])
+@pytest.mark.parametrize("tree", [False, True])
+@pytest.mark.parametrize("top_k", [0, 50])
+def test_verify_no_top_p_fault_is_refused(cuda, b, n1, tree, top_k):
+    """Row 0 puts 0.95 of its mass on token 100 and row 0's first child
+    drafts the runner-up (p 0.047), inside top-k but outside the 0.9
+    nucleus, with an acceptance draw of 1e-3: the sound kernel rejects it
+    at every batch row (p = 0), the kernel with top-p skipped accepts it.
+    The row's top 50 are distinct (the gathered path at top_k 50)."""
+    V = 32768
+    logits, extra, u_acc, u_gum = _verify_case(cuda, torch.bfloat16, b, n1,
+                                               V, seed=3, tree=tree)
+    logits[:, 0] = -30.0
+    logits[:, 0, 300:348] = (-10.0 + 0.125 * torch.arange(
+        48, device=cuda)).to(logits.dtype)
+    logits[:, 0, 100] = 8.0
+    logits[:, 0, 200] = 5.6
+    if tree:
+        tokens = extra[0].clone()
+        tokens[:, 0] = vmod.NO_DRAFT
+        tokens[:, 1] = 200
+        tokens[:, 1 + (n1 - 1) // 2] = 300
+        args = (logits, tokens, *extra[1:])
+        kern = vmod.fused_verify_tree_cuda
+    else:
+        pad = torch.cat([extra[0], torch.full_like(extra[0][:, :1],
+                                                   vmod.NO_DRAFT)], 1)
+        pad[:, 0] = 200
+        args = (logits, pad)
+        kern = vmod.fused_verify_cuda
+    noise = (torch.full_like(u_acc, 1e-3), u_gum)
+    kw = dict(temperature=0.8, top_k=top_k, top_p=0.9)
+    sound = kern(*args, *noise, **kw)
+    assert (sound[0] == 0).all() and (sound[-1] == 100).all()
+    got = kern(*args, *noise, **kw, planted_fault="no_top_p")
+    assert (got[0] >= 1).all()
+    again = kern(*args, *noise, **kw)
     assert all(torch.equal(x, y) for x, y in zip(again, sound))
 
 

@@ -78,27 +78,65 @@ def test_using_swaps_the_library_and_restores_it():
 
 def test_other_library_builds_the_decode_kernels_with_the_parents_signatures():
     """The parent builds the decode, sampling and verify kernels too. Its
-    decode, sampling, verify and layer-norm entries take this tree's
-    signatures (18, 16, 22, 25 and 19 arguments); the entry this tree
-    changed keeps the parent's own: ``apex_softmax_bwd`` without the
-    forward's mask arguments (8 arguments, where this tree's takes 14, the
-    forward's 13 and dx), launched by ``parent_softmax_bwd``."""
+    decode, sampling, softmax and layer-norm entries take this tree's
+    signatures (18, 16, 14 and 19 arguments); the entries this tree
+    changed keep the parent's own: the verify pair without ``use_top_p,
+    top_p`` (22 and 25 arguments, where this tree's take 24 and 27)."""
     assert {"paged_decode_attn.cu", "fused_sample.cu", "layer_norm.cu",
             "softmax.cu", "fused_verify.cu"} <= set(rowwise_ab.SOURCES)
     parent = rowwise_ab.PARENT_ENTRY_POINTS
-    assert set(parent) == {"apex_softmax_bwd"}
-    assert len(parent["apex_softmax_bwd"]) == 8
+    assert set(parent) == {"apex_fused_verify", "apex_fused_verify_tree"}
+    assert len(parent["apex_fused_verify"]) == 22
+    assert len(parent["apex_fused_verify_tree"]) == 25
+    for name, at in (("apex_fused_verify", 16),
+                     ("apex_fused_verify_tree", 19)):
+        this = _build.ENTRY_POINTS[name]
+        assert len(this) == len(parent[name]) + 2
+        assert this[:at] + this[at + 2:] == parent[name]
     assert len(_build.ENTRY_POINTS["apex_softmax_bwd"]) == 14
     assert _build.ENTRY_POINTS["apex_softmax_bwd"][3:] == \
         _build.ENTRY_POINTS["apex_softmax_fwd"][2:]
-    assert len(_build.ENTRY_POINTS["apex_fused_verify"]) == 22
-    assert len(_build.ENTRY_POINTS["apex_fused_verify_tree"]) == 25
     assert len(_build.ENTRY_POINTS["apex_ln_fwd"]) == 19
     assert len(_build.ENTRY_POINTS["apex_fused_sample"]) == 16
     assert len(_build.ENTRY_POINTS["apex_paged_decode_attn"]) == 18
     assert len(_build.ENTRY_POINTS["apex_decode_attn"]) == 16
-    assert callable(rowwise_ab.parent_softmax_bwd)
+    assert not hasattr(rowwise_ab, "parent_softmax_bwd")
     assert not hasattr(rowwise_ab, "parent_fused_verify")
+
+
+def test_parent_library_drops_the_top_p_arguments():
+    """A verify call through the parent's library drops this tree's
+    ``use_top_p, top_p`` and refuses a call that asks for top-p; other
+    entries pass through untouched."""
+    calls = []
+
+    class Lib:
+        def apex_fused_verify(self, *a):
+            calls.append(("chain", a))
+            return 0
+
+        def apex_fused_verify_tree(self, *a):
+            calls.append(("tree", a))
+            return 0
+
+        def apex_ln_fwd(self, *a):
+            calls.append(("ln", a))
+            return 0
+
+    lib = rowwise_ab.ParentLibrary(Lib())
+    chain = list(range(24))
+    chain[16], chain[17] = 0, 1.0
+    assert lib.apex_fused_verify(*chain) == 0
+    assert calls[-1] == ("chain", tuple(chain[:16] + chain[18:]))
+    tree = list(range(27))
+    tree[19], tree[20] = 0, 1.0
+    lib.apex_fused_verify_tree(*tree)
+    assert calls[-1] == ("tree", tuple(tree[:19] + tree[21:]))
+    lib.apex_ln_fwd(1, 2)
+    assert calls[-1] == ("ln", (1, 2))
+    chain[16] = 1
+    with pytest.raises(ValueError, match="top-p"):
+        lib.apex_fused_verify(*chain)
 
 
 @pytest.mark.parametrize("parent_fn", [False, True])

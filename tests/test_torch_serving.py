@@ -276,7 +276,8 @@ class TestEngineSurface:
         with pytest.raises(NotImplementedError, match="tensor-parallel"):
             ServingEngine(tm, device="cpu", plan=Plan(), **ENGINE)
         te = ServingEngine(tm, device="cpu", **ENGINE)
-        with pytest.raises(NotImplementedError, match="speculative"):
+        # speculative serving is ported: a drafter without k is refused
+        with pytest.raises(ValueError, match="draft.k"):
             te.serve(tp, [], draft=object())
         te_s = ServingEngine(tm, device="cpu", temperature=0.5, **ENGINE)
         with pytest.raises(ValueError, match="generator"):
