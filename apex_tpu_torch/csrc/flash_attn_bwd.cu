@@ -93,6 +93,24 @@
 //   entries get p = 0 by a select (rows past sq included: TMA filled them
 //   with zeros and their lse is not a row's). A fully masked tile is
 //   never loaded.
+// * Dropout (_bwd_dq_kernel :929, _bwd_dkv_kernel :996-1008): instances
+//   of their own (kDrop; not with the array bias), compiled in
+//   flash_attn_bwd_dropout.cu beside this file, so the dropout-free
+//   kernels are the code they were (a uniform runtime branch cost GPT's
+//   dQ 6%, PERF.md). Each score's keep bit from dropout_hash.cuh on (q-head row --
+//   under GQA the q head's, never the kv head's -- query row, key column),
+//   the same global coordinates the masks use, so any tiling rebuilds the
+//   forward's mask. Both kernels scale dP by 1/(1 - rate) or 0 before
+//   dS = P (dP - delta) (delta = rowsum(dO O) of the dropped O needs
+//   nothing); dK/dV keeps the stage's bits in registers and gives dV the
+//   dropped, rescaled P. The table gradient sums this dS.
+//   Measured with dropout 0.1 (chip_smoke.py's flash_dropout_times, NVIDIA
+//   H100 80GB HBM3 at 700 W), dQ / dK-dV ms: GPT 0.2478 / 0.3851 (1.35x
+//   / 1.57x the dropout-free calls), BERT 0.2060 / 0.3433 (1.45x /
+//   1.98x), T5's encoder 0.8399 / 1.6862 (1.47x / 1.65x). The kDrop dK/dV
+//   instances spill (260 bytes at d 128, 860-928 at d 64: the stage's
+//   keep bits and the hash beside S^T, dP^T, dK and dV); the dQ ones do
+//   not.
 // * Determinism: dq, dk and dv use no atomics and are bit-identical from
 //   run to run; the table gradient keeps its fp32 atomics.
 //
@@ -113,6 +131,11 @@ namespace flash_bwd_sm80 {
 int run_dkv(int d, const FlashParams& p, int b, void* stream);
 int run_dq(int d, const FlashParams& p, int b, void* stream);
 }  // namespace flash_bwd_sm80
+// the dropout instances (kDrop), compiled in flash_attn_bwd_dropout.cu
+namespace flash_bwd_dropout {
+int run(bool dkv, int d, const FlashParams& p, int b, int bias_tma,
+        void* stream);
+}  // namespace flash_bwd_dropout
 }  // namespace apex
 
 namespace {
@@ -192,7 +215,7 @@ struct DqCfg {
 
 // --- dK/dV ----------------------------------------------------------------
 
-template <int D, int BIAS>
+template <int D, int BIAS, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_k,
@@ -200,6 +223,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                         const __grid_constant__ CUtensorMap tm_do,
                         const __grid_constant__ CUtensorMap tm_bias,
                         const FlashParams p, int bias_tma) {
+  static_assert(!(kDrop && BIAS == kArr), "no dropout with the array bias");
   using C = DkvCfg<D, BIAS>;
   constexpr int kBq = C::kBq, kS = C::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -418,6 +442,45 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_wait<0>();
         fence_operand(sc);
         fence_operand(dp);
+        // dropout (the kDrop instances; _bwd_dkv_kernel :996-1008): the
+        // keep bits of this stage's scores (query row qc of q-head row
+        // `row`, key column kr), dP^T *= scale or 0 before dS^T; P^T takes
+        // them after, for dV
+        uint32_t dbits[kBq / 64] = {};
+        if (kDrop) {
+          // the planted fault kDropNoDkvDsMask leaves dP unmasked
+          const uint32_t dthresh = p.drop.thresh;
+          const bool ds_mask = p.drop.fault != apex::kDropNoDkvDsMask;
+          const float dkeep = ds_mask ? p.drop.scale : 1.f;
+          const float dgone = ds_mask ? 0.f : 1.f;
+          const int trow =
+              p.drop.fault == apex::kDropKeyKvHead ? bkv : row;
+          const uint32_t dkey =
+              apex::drop_key(p.drop.seed, static_cast<uint32_t>(trow));
+          auto mask = [&](auto swap) {
+#pragma unroll
+            for (int i = 0; i < kBq / 8; ++i)
+#pragma unroll
+              for (int cc = 0; cc < 2; ++cc) {
+                const uint32_t qc = q0 + 8 * i + 2 * t + cc;
+                const uint32_t rk =
+                    decltype(swap)::value ? 0u : apex::drop_row_key(dkey, qc);
+#pragma unroll
+                for (int hh = 0; hh < 2; ++hh) {
+                  const int e = 4 * i + 2 * hh + cc;
+                  const uint32_t kr = kv_lo + warp * 16 + g + 8 * hh;
+                  const bool keep = apex::drop_keep_at<decltype(swap)::value>(
+                      dkey, rk, qc, kr, dthresh);
+                  dbits[e >> 5] |= static_cast<uint32_t>(keep) << (e & 31);
+                  dp[e] *= keep ? dkeep : dgone;
+                }
+              }
+          };
+          if (p.drop.fault == apex::kDropSwapRowCol)
+            mask(std::true_type{});
+          else
+            mask(std::false_type{});
+        }
         // kRel: a stage whose offsets all clamp to one end (|kv - q| at or
         // past max_distance) reads one lookup value and sums into one bin
         const int n_lo = kv_lo - (q0 + kBq - 1) + rel_off;
@@ -492,6 +555,12 @@ __global__ void __launch_bounds__(kThreads, 1)
             elem(std::false_type{}, LutMode<kLutClamp>{});
           else
             elem(std::true_type{}, LutMode<kLutClamp>{});
+        }
+        if (kDrop) {  // dV = (P^T dropped and rescaled) dO
+          const float dscale = p.drop.scale;
+#pragma unroll
+          for (int e = 0; e < kBq / 2; ++e)
+            sc[e] *= (dbits[e >> 5] >> (e & 31)) & 1u ? dscale : 0.f;
         }
         if (BIAS == kRel && !one_bin) {
 #pragma unroll
@@ -584,7 +653,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // --- dQ -------------------------------------------------------------------
 
-template <int D, int BIAS>
+template <int D, int BIAS, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
@@ -592,6 +661,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                        const __grid_constant__ CUtensorMap tm_do,
                        const __grid_constant__ CUtensorMap tm_bias,
                        const FlashParams p, int bias_tma) {
+  static_assert(!(kDrop && BIAS == kArr), "no dropout with the array bias");
   using C = DqCfg<D, BIAS>;
   constexpr int kBk = C::kBk, kS = C::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -743,6 +813,37 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_wait<0>();
         fence_operand(sc);
         fence_operand(dp);
+        // dropout (the kDrop instances): dP *= scale or 0 before dS
+        // (_bwd_dq_kernel :929), from the keys of q-head row `row` and this
+        // thread's two query rows
+        if (kDrop) {
+          const uint32_t dthresh = p.drop.thresh;
+          const float dscale = p.drop.scale;
+          const int trow =
+              p.drop.fault == apex::kDropKeyKvHead ? bi * p.h_kv + kvh : row;
+          const uint32_t dkey =
+              apex::drop_key(p.drop.seed, static_cast<uint32_t>(trow));
+          const uint32_t drk[2] = {apex::drop_row_key(dkey, q0 + r0),
+                                   apex::drop_row_key(dkey, q0 + r0 + 8)};
+          auto mask = [&](auto swap) {
+#pragma unroll
+            for (int i = 0; i < kBk / 8; ++i)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                const int hh = c >> 1;
+                const uint32_t kc = kc0 + 8 * i + 2 * t + (c & 1);
+                dp[4 * i + c] *=
+                    apex::drop_keep_at<decltype(swap)::value>(
+                        dkey, drk[hh], q0 + r0 + 8 * hh, kc, dthresh)
+                        ? dscale
+                        : 0.f;
+              }
+          };
+          if (p.drop.fault == apex::kDropSwapRowCol)
+            mask(std::true_type{});
+          else
+            mask(std::false_type{});
+        }
         // sc: S -> P; dp: dP -> dS (scaled); base-2 exponents and the
         // lookup's modes as in dK/dV
         const bool inside = wq0 + 64 <= sq && kc0 + kBk <= kv_lim &&
@@ -847,10 +948,10 @@ bool make_maps(Maps& m, const FlashParams& p, int b, int d, int bias_tma) {
   return true;
 }
 
-template <int D, int BIAS>
+template <int D, int BIAS, bool kDrop>
 cudaError_t launch_dkv(const Maps& m, const FlashParams& p, int b,
                        int bias_tma, cudaStream_t st) {
-  auto kernel = flash_bwd_dkv_wgmma<D, BIAS>;
+  auto kernel = flash_bwd_dkv_wgmma<D, BIAS, kDrop>;
   const size_t smem = DkvCfg<D, BIAS>::bytes(2 * p.maxd + 1);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -863,10 +964,10 @@ cudaError_t launch_dkv(const Maps& m, const FlashParams& p, int b,
   return cudaGetLastError();
 }
 
-template <int D, int BIAS>
+template <int D, int BIAS, bool kDrop>
 cudaError_t launch_dq(const Maps& m, const FlashParams& p, int b,
                       int bias_tma, cudaStream_t st) {
-  auto kernel = flash_bwd_dq_wgmma<D, BIAS>;
+  auto kernel = flash_bwd_dq_wgmma<D, BIAS, kDrop>;
   const size_t smem = DqCfg<D, BIAS>::bytes(2 * p.maxd + 1);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -879,21 +980,26 @@ cudaError_t launch_dq(const Maps& m, const FlashParams& p, int b,
   return cudaGetLastError();
 }
 
-template <bool kDkv, int D>
+template <bool kDkv, int D, bool kDrop>
 cudaError_t dispatch(const Maps& m, const FlashParams& p, int b,
                      int bias_tma, cudaStream_t st) {
-#define APEX_LAUNCH(K) \
-  (kDkv ? launch_dkv<D, K>(m, p, b, bias_tma, st) \
-        : launch_dq<D, K>(m, p, b, bias_tma, st))
-  if (p.lut != nullptr) return APEX_LAUNCH(kRel);
-  if (p.bias != nullptr) return APEX_LAUNCH(kArr);
-  return APEX_LAUNCH(kNone);
+#define APEX_LAUNCH(K, DROP) \
+  (kDkv ? launch_dkv<D, K, DROP>(m, p, b, bias_tma, st) \
+        : launch_dq<D, K, DROP>(m, p, b, bias_tma, st))
+  if (p.lut != nullptr) return APEX_LAUNCH(kRel, kDrop);
+  if constexpr (!kDrop) {
+    if (p.bias != nullptr) return APEX_LAUNCH(kArr, false);
+  }
+  return APEX_LAUNCH(kNone, kDrop);
 #undef APEX_LAUNCH
 }
 
-// the checks both variants share
-bool bad_call(const FlashParams& p, int b, int d, bool dkv) {
-  return b < 1 || p.sq < 1 || p.sk < 1 || p.h < 1 || p.h_kv < 1 ||
+// the checks both variants share; dropout only on variant 1 and without
+// the array bias
+bool bad_call(const FlashParams& p, int b, int d, bool dkv, int variant) {
+  return (p.drop.thresh > 0 &&
+          (variant != 1 || p.bias != nullptr || p.drop.thresh > (1u << 24))) ||
+         b < 1 || p.sq < 1 || p.sk < 1 || p.h < 1 || p.h_kv < 1 ||
          p.h % p.h_kv || (d != 64 && d != 128) ||
          (p.causal && p.sq > p.sk) ||
          static_cast<long long>(b) * p.h > 0x7fffffffLL ||
@@ -904,14 +1010,11 @@ bool bad_call(const FlashParams& p, int b, int d, bool dkv) {
            p.nb > kMaxBuckets || (dkv && (!p.bucket || !p.dtab))));
 }
 
-template <bool kDkv>
-int run(int d, const FlashParams& p, int b, int variant, int bias_tma,
-        void* stream) {
-  if (bad_call(p, b, d, kDkv) || (variant != 0 && variant != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (variant == 0)
-    return kDkv ? apex::flash_bwd_sm80::run_dkv(d, p, b, stream)
-                : apex::flash_bwd_sm80::run_dq(d, p, b, stream);
+// the wgmma kernels' launch: the tensor maps and the grid; kDrop picks the
+// dropout instances
+template <bool kDkv, bool kDrop>
+int run_wgmma(int d, const FlashParams& p, int b, int bias_tma,
+              void* stream) {
   const long long tiles =
       kDkv ? static_cast<long long>(b) * p.h_kv * ((p.sk + kBkv - 1) / kBkv)
            : static_cast<long long>(b) * p.h * ((p.sq + kBqCta - 1) / kBqCta);
@@ -920,9 +1023,24 @@ int run(int d, const FlashParams& p, int b, int variant, int bias_tma,
       !make_maps(m, p, b, d, bias_tma))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = d == 128 ? dispatch<kDkv, 128>(m, p, b, bias_tma, st)
-                                   : dispatch<kDkv, 64>(m, p, b, bias_tma, st);
+  const cudaError_t err =
+      d == 128 ? dispatch<kDkv, 128, kDrop>(m, p, b, bias_tma, st)
+               : dispatch<kDkv, 64, kDrop>(m, p, b, bias_tma, st);
   return static_cast<int>(err);
+}
+
+#ifndef APEX_FLASH_DROPOUT_TU
+template <bool kDkv>
+int run(int d, const FlashParams& p, int b, int variant, int bias_tma,
+        void* stream) {
+  if (bad_call(p, b, d, kDkv, variant) || (variant != 0 && variant != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (variant == 0)
+    return kDkv ? apex::flash_bwd_sm80::run_dkv(d, p, b, stream)
+                : apex::flash_bwd_sm80::run_dq(d, p, b, stream);
+  if (p.drop.thresh > 0)
+    return apex::flash_bwd_dropout::run(kDkv, d, p, b, bias_tma, stream);
+  return run_wgmma<kDkv, false>(d, p, b, bias_tma, stream);
 }
 
 // the entries' shared arguments: `strides` holds (batch, head, row)
@@ -934,9 +1052,12 @@ bool flat_params(FlashParams& p, const void* q, const void* k, const void* v,
                  const void* bucket, const void* bias,
                  const long long* strides, int h, int h_kv, int sq, int sk,
                  int causal, float scale, int maxd, int rel_off, int hb,
-                 int nb, int lens_b, int lens_h) {
+                 int nb, int lens_b, int lens_h, unsigned drop_seed,
+                 int drop_thresh, float drop_scale, int drop_fault) {
   for (int i = 0; i < 15; ++i)
     if (strides[i] < 0 || strides[i] % 8) return false;
+  p.drop = {drop_seed, static_cast<uint32_t>(drop_thresh), drop_scale,
+            drop_fault};
   p.q = static_cast<const bf16*>(q);
   p.k = static_cast<const bf16*>(k);
   p.v = static_cast<const bf16*>(v);
@@ -967,8 +1088,17 @@ bool flat_params(FlashParams& p, const void* q, const void* k, const void* v,
   p.lens_h = lens_h;
   return true;
 }
+#endif
 
 }  // namespace
+
+#ifdef APEX_FLASH_DROPOUT_TU
+int apex::flash_bwd_dropout::run(bool dkv, int d, const FlashParams& p, int b,
+                                 int bias_tma, void* stream) {
+  return dkv ? run_wgmma<true, true>(d, p, b, bias_tma, stream)
+             : run_wgmma<false, true>(d, p, b, bias_tma, stream);
+}
+#else
 
 // dq and delta (b*h, sq) fp32 (written by variant 1; variant 0 computes
 // its own and leaves delta alone). Operands as (batch, head, row)-strided
@@ -979,18 +1109,22 @@ bool flat_params(FlashParams& p, const void* q, const void* k, const void* v,
 // the bias by TMA (sk a multiple of 4, base 16-byte aligned), else by
 // cp.async. A seq-major tensor is the head-stride-d case of these views,
 // with per-batch kv_lens (lens_b = 1, lens_h = 0); the packed buffer the
-// views of its sections.
+// views of its sections. drop_seed, drop_thresh (0: no dropout),
+// drop_scale and drop_fault as the forward entries' (variant 1, no array
+// bias); both entries rebuild the forward's mask.
 extern "C" int apex_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* delta,
     const void* kv_lens, const void* lut, const void* bias,
     const long long* strides, int b, int h, int h_kv, int sq, int sk, int d,
     int causal, float scale, int maxd, int rel_off, int hb, int lens_b,
-    int lens_h, int variant, int bias_tma, void* stream) {
+    int lens_h, int variant, int bias_tma, unsigned drop_seed,
+    int drop_thresh, float drop_scale, int drop_fault, void* stream) {
   FlashParams p{};
   if (!flat_params(p, q, k, v, o, dout, lse, delta, kv_lens, lut, nullptr,
                    bias, strides, h, h_kv, sq, sk, causal, scale, maxd,
-                   rel_off, hb, 1, lens_b, lens_h))
+                   rel_off, hb, 1, lens_b, lens_h, drop_seed, drop_thresh,
+                   drop_scale, drop_fault))
     return static_cast<int>(cudaErrorInvalidValue);
   p.out = static_cast<bf16*>(dq);
   return run<false>(d, p, b, variant, bias_tma, stream);
@@ -1006,14 +1140,17 @@ extern "C" int apex_flash_bwd_dkv(
     const void* bias, const long long* strides, int b, int h, int h_kv,
     int sq, int sk, int d, int causal, float scale, int maxd, int rel_off,
     int hb, int nb, int lens_b, int lens_h, int variant, int bias_tma,
+    unsigned drop_seed, int drop_thresh, float drop_scale, int drop_fault,
     void* stream) {
   FlashParams p{};
   if (!flat_params(p, q, k, v, o, dout, lse, delta, kv_lens, lut, bucket,
                    bias, strides, h, h_kv, sq, sk, causal, scale, maxd,
-                   rel_off, hb, nb, lens_b, lens_h))
+                   rel_off, hb, nb, lens_b, lens_h, drop_seed, drop_thresh,
+                   drop_scale, drop_fault))
     return static_cast<int>(cudaErrorInvalidValue);
   p.dk = static_cast<bf16*>(dk);
   p.dv = static_cast<bf16*>(dv);
   p.dtab = static_cast<float*>(dtab);
   return run<true>(d, p, b, variant, bias_tma, stream);
 }
+#endif  // APEX_FLASH_DROPOUT_TU

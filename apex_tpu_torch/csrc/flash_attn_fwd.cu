@@ -79,6 +79,15 @@
 //   o = 0 and lse = 0. The exponent is the MUFU's 2^x (relative error
 //   ~2^-22) with log2 e folded into the scale. o is stored from registers
 //   (4-byte stores, a quad's 16 bytes a row), lse by the rows' lane 0.
+// * Dropout (_fwd_kernel :191-196, :269-272): instances of their own
+//   (kDrop; not with the array bias), compiled in flash_attn_fwd_dropout.cu
+//   beside this file, so the dropout-free kernels are the code they were
+//   (a uniform runtime branch cost the GPT and T5 calls 2-5%, PERF.md).
+//   After the stage's p, each score's keep bit from dropout_hash.cuh on
+//   (q-head row u.row, query row, key column) -- the key and the thread's
+//   two query rows' keys a stage, one fmix32 a score -- and p *= scale or
+//   0 before the bf16 A fragment of P.V; l sums the un-dropped p, so lse
+//   equals the dropout-free call's bit for bit.
 // * Deterministic: no atomics; bit-identical from run to run.
 //
 // Measured (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W; the sm80 kernel
@@ -94,7 +103,11 @@
 // softmax, then wait for P.V; short rows (T5's 114) are latency-bound;
 // the decoder's bias (rows of 456 bytes) is copied by cp.async.
 // Registers: 168 a thread at launch, no spill but 8-16 bytes at d 128
-// with a bias or the lookup.
+// with a bias or the lookup. With dropout 0.1 (the kDrop instances, the
+// same registers and spills; chip_smoke.py's flash_dropout_times, NVIDIA
+// H100 80GB HBM3 at 700 W), ms: GPT 0.2203 (1.55x its dropout-free call),
+// BERT 0.1734 (1.63x), T5's encoder 0.7201 (1.76x); the hash is about 13
+// integer operations a score against the 4d = 512 of the two products.
 #include <cstdint>
 #include <type_traits>
 
@@ -108,6 +121,10 @@ namespace apex {
 namespace flash_fwd_sm80 {
 int run(int d, const FlashParams& p, int b, bool strided, void* stream);
 }  // namespace flash_fwd_sm80
+// the dropout instances (kDrop), compiled in flash_attn_fwd_dropout.cu
+namespace flash_fwd_dropout {
+int run(int d, const FlashParams& p, int b, int bias_tma, void* stream);
+}  // namespace flash_fwd_dropout
 }  // namespace apex
 
 namespace {
@@ -149,13 +166,14 @@ struct FwdCfg {
   static_assert(kQBufs <= 4 && kStages <= 4, "the barriers' 128 bytes");
 };
 
-template <int D, int BIAS>
+template <int D, int BIAS, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
                     const __grid_constant__ CUtensorMap tm_bias,
                     const FlashParams p, int bias_tma) {
+  static_assert(!(kDrop && BIAS == kArr), "no dropout with the array bias");
   using C = FwdCfg<D, BIAS>;
   constexpr int kBk = C::kBk, kS = C::kStages, kQB = C::kQBufs;
   extern __shared__ unsigned char smem_raw[];
@@ -400,6 +418,45 @@ __global__ void __launch_bounds__(kThreads, 1)
               ls[c >> 1] += pr;
             }
           }
+          // dropout (the kDrop instances): l keeps the un-dropped p; P.V
+          // takes p * scale where kept (_fwd_kernel :269-272)
+          if (kDrop) {
+            const uint32_t dthresh = p.drop.thresh;
+            const float dscale = p.drop.scale;
+            // the key of q-head row u.row, this thread's two query rows'
+            const int trow = p.drop.fault == apex::kDropKeyKvHead
+                                 ? u.bi * p.h_kv + u.head / (h / p.h_kv)
+                                 : u.row;
+            const uint32_t dkey =
+                apex::drop_key(p.drop.seed, static_cast<uint32_t>(trow));
+            const uint32_t drk[2] = {apex::drop_row_key(dkey, q0 + r0),
+                                     apex::drop_row_key(dkey, q0 + r0 + 8)};
+            auto mask = [&](auto swap) {
+#pragma unroll
+              for (int i = 0; i < kBk / 8; ++i)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                  const int hh = c >> 1;
+                  const uint32_t kc = kc0 + 8 * i + 2 * t + (c & 1);
+                  sc[4 * i + c] *=
+                      apex::drop_keep_at<decltype(swap)::value>(
+                          dkey, drk[hh], q0 + r0 + 8 * hh, kc, dthresh)
+                          ? dscale
+                          : 0.f;
+                }
+            };
+            if (p.drop.fault == apex::kDropSwapRowCol)
+              mask(std::true_type{});
+            else
+              mask(std::false_type{});
+            if (p.drop.fault == apex::kDropLFromDropped) {
+              ls[0] = ls[1] = 0.f;
+#pragma unroll
+              for (int i = 0; i < kBk / 8; ++i)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) ls[c >> 1] += sc[4 * i + c];
+            }
+          }
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh)
             l_run[hh] = l_run[hh] * alpha[hh] + ls[hh];
@@ -468,10 +525,10 @@ bool make_maps(Maps& m, const FlashParams& p, int b, int d, int bias_tma) {
   return true;
 }
 
-template <int D, int BIAS>
+template <int D, int BIAS, bool kDrop>
 cudaError_t launch(const Maps& m, const FlashParams& p0, unsigned ctas,
                    int bias_tma, cudaStream_t st) {
-  auto kernel = flash_fwd_wgmma<D, BIAS>;
+  auto kernel = flash_fwd_wgmma<D, BIAS, kDrop>;
   FlashParams p = p0;
   // kRel: every bias row's lookup in shared memory where they fit (T5: 12
   // rows of 257 values), else one row at a time
@@ -487,12 +544,16 @@ cudaError_t launch(const Maps& m, const FlashParams& p0, unsigned ctas,
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kDrop>
 cudaError_t dispatch(const Maps& m, const FlashParams& p, unsigned ctas,
                      int bias_tma, cudaStream_t st) {
-  if (p.lut != nullptr) return launch<D, kRel>(m, p, ctas, bias_tma, st);
-  if (p.bias != nullptr) return launch<D, kArr>(m, p, ctas, bias_tma, st);
-  return launch<D, kNone>(m, p, ctas, bias_tma, st);
+  if (p.lut != nullptr)
+    return launch<D, kRel, kDrop>(m, p, ctas, bias_tma, st);
+  if constexpr (!kDrop) {
+    if (p.bias != nullptr)
+      return launch<D, kArr, false>(m, p, ctas, bias_tma, st);
+  }
+  return launch<D, kNone, kDrop>(m, p, ctas, bias_tma, st);
 }
 
 // the SMs of the current device, asked once per device
@@ -508,20 +569,11 @@ int sm_count() {
   return counts[dev];
 }
 
-// the argument rules both variants share; d picks the compiled head dim;
-// `strided`: the sm80 variant's instantiation for views with their own
-// strides (else the packed one's)
-int run(int d, const FlashParams& p, int b, bool strided, int variant,
-        int bias_tma, void* stream) {
-  if (b < 1 || p.sq < 1 || p.sk < 1 || p.h < 1 || p.h_kv < 1 ||
-      p.h % p.h_kv || (d != 64 && d != 128) || (p.causal && p.sq > p.sk) ||
-      static_cast<long long>(b) * p.h > 0x7fffffffLL ||
-      (p.lut != nullptr && p.bias != nullptr) ||
-      ((p.lut != nullptr || p.bias != nullptr) && p.hb < 1) ||
-      (p.lut != nullptr && (p.maxd < 1 || p.maxd > 4096)) ||
-      (variant != 0 && variant != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (variant == 0) return apex::flash_fwd_sm80::run(d, p, b, strided, stream);
+// the wgmma kernel's launch: the tensor maps, the tiles, the grid; kDrop
+// picks the dropout instances
+template <bool kDrop>
+int run_wgmma(int d, const FlashParams& p, int b, int bias_tma,
+              void* stream) {
   const int nq = (p.sq + kBqCta - 1) / kBqCta;
   const long long tiles = static_cast<long long>(b) * p.h * nq;
   Maps m;
@@ -538,13 +590,50 @@ int run(int d, const FlashParams& p, int b, bool strided, int variant,
   const long long ctas = even && tiles > sms ? sms : tiles;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned n = static_cast<unsigned>(ctas);
-  const cudaError_t err = d == 128 ? dispatch<128>(m, pt, n, bias_tma, st)
-                                   : dispatch<64>(m, pt, n, bias_tma, st);
+  const cudaError_t err =
+      d == 128 ? dispatch<128, kDrop>(m, pt, n, bias_tma, st)
+               : dispatch<64, kDrop>(m, pt, n, bias_tma, st);
   return static_cast<int>(err);
 }
 
+#ifndef APEX_FLASH_DROPOUT_TU
+// the argument rules both variants share; d picks the compiled head dim;
+// `strided`: the sm80 variant's instantiation for views with their own
+// strides (else the packed one's). Dropout: the wgmma kernel only, never
+// with the array bias
+int run(int d, const FlashParams& p, int b, bool strided, int variant,
+        int bias_tma, void* stream) {
+  const bool drop = p.drop.thresh > 0;
+  if ((drop && (variant != 1 || p.bias != nullptr ||
+                p.drop.thresh > (1u << 24))) ||
+      b < 1 || p.sq < 1 || p.sk < 1 || p.h < 1 || p.h_kv < 1 ||
+      p.h % p.h_kv || (d != 64 && d != 128) || (p.causal && p.sq > p.sk) ||
+      static_cast<long long>(b) * p.h > 0x7fffffffLL ||
+      (p.lut != nullptr && p.bias != nullptr) ||
+      ((p.lut != nullptr || p.bias != nullptr) && p.hb < 1) ||
+      (p.lut != nullptr && (p.maxd < 1 || p.maxd > 4096)) ||
+      (variant != 0 && variant != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (variant == 0) return apex::flash_fwd_sm80::run(d, p, b, strided, stream);
+  if (drop) return apex::flash_fwd_dropout::run(d, p, b, bias_tma, stream);
+  return run_wgmma<false>(d, p, b, bias_tma, stream);
+}
+#endif
+
 }  // namespace
 
+#ifdef APEX_FLASH_DROPOUT_TU
+int apex::flash_fwd_dropout::run(int d, const FlashParams& p, int b,
+                                 int bias_tma, void* stream) {
+  return run_wgmma<true>(d, p, b, bias_tma, stream);
+}
+#else
+
+// Every entry's drop_seed (the int32 seed's bits), drop_thresh (the 24-bit
+// threshold; 0: no dropout), drop_scale (float32(1 / (1 - rate))) and
+// drop_fault (DropFault; 0 sound): the probabilities' dropout, on variant
+// 1 and without the array bias only.
+//
 // The packed entry: qkv (b, s, (h + 2*h_kv)*d) bf16, features ordered
 // q-heads | k-heads | v-heads, read straight out of qkv (no slice, no
 // copy); o (b, s, h*d) bf16 and lse (b*h, s) fp32. kv_lens (b*h,) int32 per
@@ -552,7 +641,9 @@ int run(int d, const FlashParams& p, int b, bool strided, int variant,
 extern "C" int apex_flash_fwd(const void* qkv, void* out, void* lse,
                               const void* kv_lens, int b, int s, int h,
                               int h_kv, int d, int causal, float scale,
-                              int variant, void* stream) {
+                              int variant, unsigned drop_seed,
+                              int drop_thresh, float drop_scale,
+                              int drop_fault, void* stream) {
   const bf16* base = static_cast<const bf16*>(qkv);
   const long long feat = static_cast<long long>(h + 2 * h_kv) * d;
   FlashParams p{};
@@ -574,6 +665,8 @@ extern "C" int apex_flash_fwd(const void* qkv, void* out, void* lse,
   p.hb = 1;
   p.lens_b = h;  // per row
   p.lens_h = 1;
+  p.drop = {drop_seed, static_cast<uint32_t>(drop_thresh), drop_scale,
+            drop_fault};
   return run(d, p, b, kv_lens != nullptr, variant, 0, stream);
 }
 
@@ -590,7 +683,9 @@ extern "C" int apex_flash_fwd_bshd(const void* q, const void* k,
                                    int q_stride, int kv_stride, int b, int sq,
                                    int sk, int h, int h_kv, int d, int causal,
                                    float scale, int hb, int variant,
-                                   int bias_tma, void* stream) {
+                                   int bias_tma, unsigned drop_seed,
+                                   int drop_thresh, float drop_scale,
+                                   int drop_fault, void* stream) {
   if (q_bstride < 0 || kv_bstride < 0 || q_stride < h * d ||
       kv_stride < h_kv * d || q_stride % 8 || kv_stride % 8 ||
       (bias != nullptr && (hb < 1 || h % hb)))
@@ -616,6 +711,8 @@ extern "C" int apex_flash_fwd_bshd(const void* q, const void* k,
   p.hb = hb;
   p.lens_b = 1;  // per batch: the heads share a row's padding
   p.lens_h = 0;
+  p.drop = {drop_seed, static_cast<uint32_t>(drop_thresh), drop_scale,
+            drop_fault};
   return run(d, p, b, true, variant, bias_tma, stream);
 }
 
@@ -636,7 +733,9 @@ extern "C" int apex_flash_fwd_flat(const void* q, const void* k,
                                    int h_kv, int sq, int sk, int d,
                                    int causal, float scale, int maxd,
                                    int rel_off, int hb, int variant,
-                                   int bias_tma, void* stream) {
+                                   int bias_tma, unsigned drop_seed,
+                                   int drop_thresh, float drop_scale,
+                                   int drop_fault, void* stream) {
   for (int i = 0; i < 9; ++i)
     if (strides[i] < 0 || strides[i] % 8)
       return static_cast<int>(cudaErrorInvalidValue);
@@ -663,5 +762,8 @@ extern "C" int apex_flash_fwd_flat(const void* q, const void* k,
   p.maxd = maxd;
   p.rel_off = rel_off;
   p.hb = hb;
+  p.drop = {drop_seed, static_cast<uint32_t>(drop_thresh), drop_scale,
+            drop_fault};
   return run(d, p, b, true, variant, bias_tma, stream);
 }
+#endif  // APEX_FLASH_DROPOUT_TU

@@ -17,6 +17,10 @@
 // masks; row r reads bias row r % hb. Its gradient is the unscaled dS
 // summed over the rows that share a bias row (flash_attn_dbias.cu).
 //
+// Dropout (drop.thresh > 0, the wgmma kernels only): the mask of q-head
+// row r = bi * heads + hi (the row that indexes lse), query row, key
+// column (dropout_hash.cuh).
+//
 // The bucketed T5 bias (apex_tpu/ops/pallas/attention.py:119-175,
 // _rel_bias_block) depends only on the offset n = (k_off + col) -
 // (q_off + row) clamped to [-maxd, maxd]: from max_distance on, every
@@ -30,6 +34,8 @@
 #pragma once
 
 #include <cuda_bf16.h>
+
+#include "dropout_hash.cuh"
 
 namespace apex {
 
@@ -59,6 +65,7 @@ struct FlashParams {
   int lens_b, lens_h;         // kv_lens strides of batch and head
   int tiles;                  // the wgmma forward's (b*h, query tile)s
   int lut_rows;               // its lookup rows in shared memory: hb or 1
+  DropParams drop;            // the probabilities' dropout (thresh 0: off)
 };
 
 // rowsum(do * o) in fp32 over D elements, THREADS_PER_ROW threads per row

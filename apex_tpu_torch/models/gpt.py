@@ -25,11 +25,24 @@ A train step is ``loss_fn`` then ``backward()`` then one
 :func:`param_leaves`. The config carries only the knobs the port runs:
 ``attention_impl`` (the training forward's route; the decode branch and
 the prefill take the flash kernels whatever it says, as the reference's
-engines never read it), ``remat`` (the reference's ``"full"`` policy),
-and ``dropout``, whose values > 0 raise ``NotImplementedError``. Later
-slices add the reference's other knobs (remat policies, MoE,
-tensor/sequence/context parallelism) together with the code that runs
-them.
+engines never read it), ``remat`` with the reference's four
+``remat_policy`` values (``:69-79``, :meth:`GPTModel.wrapped_block`), and
+``dropout``. Later slices add the reference's other knobs (MoE,
+tensor/sequence/context parallelism, ``scan_layers``, which has no second
+working value in eager PyTorch) together with the code that runs them.
+
+Dropout (``:354-370``, ``:505-516``, ``:621-645``): the reference folds a
+``jax.random`` key per (layer, slot); the port takes the seeds those
+folds give, explicitly — ``dropout_seeds`` (num_layers, 3) int32 on the
+CPU (:meth:`GPTModel.dropout_seeds` draws them from a
+``torch.Generator``), read on the host once per layer. Slot 0 drops the
+attention probabilities on every route (in the flash kernels; through
+:func:`apex_tpu_torch.ops.dropout.dropout` on the softmax and naive
+routes), slots 1 and 2 the attention and MLP outputs before their
+residual adds. ``dropout_seeds=None`` is the reference's ``key=None``: no
+dropout. The masks are pure functions of the seeds, so a recompute under
+remat rebuilds the same ones. The decode branch, the prefill and the
+engines never drop, as the reference's do not.
 """
 
 from __future__ import annotations
@@ -51,6 +64,7 @@ from apex_tpu_torch.ops.decode_attention import (KERNEL_CACHE_TILE,
                                                  KERNEL_HEAD_DIMS,
                                                  KERNEL_MAX_BLOCK,
                                                  decode_attention)
+from apex_tpu_torch.ops.dropout import dropout as drop_out
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm
 from apex_tpu_torch.ops.softmax import scaled_upper_triang_masked_softmax
 from apex_tpu_torch.transformer.tensor_parallel import (
@@ -58,6 +72,11 @@ from apex_tpu_torch.transformer.tensor_parallel import (
     masked_mean, vocab_parallel_cross_entropy)
 
 Params = Dict[str, object]
+#: the reference's remat policies (``gpt.py:69-79``)
+REMAT_POLICIES = ("full", "save_attn", "save_attn_mlp", "mlp_only")
+#: the dropout seed slots of a layer: the attention probabilities, the
+#: attention output, the MLP output (``gpt.py:366``, ``:630``, ``:643``)
+DROPOUT_SLOTS = 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,12 +90,17 @@ class GPTConfig:
     # grouped-query attention: None = num_heads (MHA), 1 = MQA
     num_kv_heads: Optional[int] = None
     dtype: torch.dtype = torch.float32  # parameter dtype
-    # training knobs with the reference's defaults; dropout > 0 is a later
-    # slice. "softmax": materialised scores through the fused causal
+    # training knobs with the reference's defaults. dropout: the rate of
+    # the probability and residual dropout (applied when the forward is
+    # given seeds). remat_policy: "full" recomputes the whole block,
+    # "save_attn"/"save_attn_mlp" keep the attention output (and the MLP
+    # hidden) and recompute the rest, "mlp_only" recomputes the MLP half
+    # only. "softmax": materialised scores through the fused causal
     # softmax kernel; "flash": the fused packed-QKV flash kernels; "naive":
     # the plain fp32 softmax composition (no kernel)
     dropout: float = 0.0
     remat: bool = True
+    remat_policy: str = "full"
     attention_impl: str = "softmax"
 
     def __post_init__(self):
@@ -84,6 +108,13 @@ class GPTConfig:
             raise ValueError(
                 f"attention_impl must be softmax|flash|naive, got "
                 f"{self.attention_impl!r}")
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"remat_policy must be full|save_attn|save_attn_mlp|"
+                f"mlp_only, got {self.remat_policy!r}")
+        if not 0.0 <= self.dropout < 1.0:
+            raise ValueError(f"dropout must be in [0, 1), got "
+                             f"{self.dropout}")
         if self.hidden_size % self.num_heads:
             raise ValueError(
                 f"hidden_size ({self.hidden_size}) must be divisible by "
@@ -222,9 +253,12 @@ class GPTModel:
             y = y + p["attn_out"]["bias"]
         return y
 
+    def _gelu_up(self, p, x):
+        """gelu(mlp_up(x)): the MLP's hidden ("mlp_h", ``:576-582``)."""
+        return F.gelu(self.mlp_up(p["mlp_up"], x), approximate="tanh")
+
     def _mlp(self, p, x):
-        h = F.gelu(self.mlp_up(p["mlp_up"], x), approximate="tanh")
-        return self.mlp_down(p["mlp_down"], h)
+        return self.mlp_down(p["mlp_down"], self._gelu_up(p, x))
 
     def decode_qkv(self, p, x, impl: str = "auto"
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -274,14 +308,33 @@ class GPTModel:
 
     # --- training forward -----------------------------------------------------
 
-    def check_train_supported(self) -> None:
-        """Raise for the training knobs that are later slices of the port."""
-        if self.config.dropout > 0:
-            raise NotImplementedError(
-                "dropout > 0 (the reference's counter-hash masks, "
-                "dropout_keep) is a later slice of the port; use dropout=0")
+    def dropout_seeds(self, generator: torch.Generator) -> torch.Tensor:
+        """Fresh dropout seeds for one forward: (num_layers, 3) int32 on
+        the CPU, uniform over all int32 values, drawn from ``generator``
+        (on the CPU, or on a card: then copied to the CPU once)."""
+        seeds = torch.randint(-2 ** 31, 2 ** 31,
+                              (self.config.num_layers, DROPOUT_SLOTS),
+                              dtype=torch.int32, generator=generator,
+                              device=generator.device)
+        return seeds.cpu()
 
-    def _attention(self, p, x, impl: str = "auto") -> torch.Tensor:
+    def _layer_seeds(self, dropout_seeds, num_layers: int):
+        """Per layer, None (no dropout) or its (probs, attn, mlp) seeds as
+        host ints."""
+        if dropout_seeds is None or self.config.dropout == 0.0:
+            return [None] * num_layers
+        seeds = torch.as_tensor(dropout_seeds)
+        if seeds.device.type != "cpu" or tuple(seeds.shape) != (
+                num_layers, DROPOUT_SLOTS) or seeds.dtype not in (
+                torch.int32, torch.int64):
+            raise ValueError(
+                f"dropout_seeds must be a ({num_layers}, {DROPOUT_SLOTS}) "
+                f"integer tensor on the CPU (GPTModel.dropout_seeds); got "
+                f"{tuple(seeds.shape)} {seeds.dtype} on {seeds.device}")
+        return [tuple(int(v) for v in row) for row in seeds.tolist()]
+
+    def _attention(self, p, x, impl: str = "auto",
+                   seeds=None) -> torch.Tensor:
         """The config's ``attention_impl`` route.
 
         ``"flash"``: the fused route of the reference's flash attention:
@@ -295,14 +348,23 @@ class GPTModel:
         of a group, the scores in x's dtype, then the fused causal
         softmax kernel (``"softmax"``) or the -1e30 fill and an fp32
         softmax (``"naive"``), the context, and the output projection
-        contracted over (heads, d)."""
+        contracted over (heads, d).
+
+        ``seeds``: None, or the layer's (probs, attn, mlp) seeds; slot 0
+        drops the probabilities — in the flash kernels, or after the
+        softmax (``:507-516``)."""
         c = self.config
         h, hkv, d = c.num_heads, c.kv_heads, c.head_dim
+        rate = c.dropout if seeds is not None else 0.0
         if c.attention_impl == "flash":
             y = fused_qkv_attention(x, p["qkv"]["weight"],
                                     p["qkv"].get("bias"),
                                     p["attn_out"]["weight"], h, hkv, d,
-                                    1.0 / float(d) ** 0.5, True, impl=impl)
+                                    1.0 / float(d) ** 0.5, True,
+                                    dropout_rate=rate,
+                                    dropout_seed=(None if seeds is None
+                                                  else seeds[0]),
+                                    impl=impl)
             if "bias" in p["attn_out"]:
                 y = y + p["attn_out"]["bias"]
             return y
@@ -323,63 +385,124 @@ class GPTModel:
             probs = scaled_upper_triang_masked_softmax(
                 scores.reshape(b * h, s, s), 1.0 / float(d) ** 0.5,
                 impl=impl).reshape(b, h, s, s)
+        if rate > 0.0:
+            probs = drop_out(probs, rate, seeds[0], impl=impl)
         ctx = torch.einsum("bhqk,bhkd->bhqd", probs, v)
         return self.attn_out.headwise(p["attn_out"], ctx)
 
-    def _block(self, p, x, impl: str = "auto") -> torch.Tensor:
-        """Residual block: x + attn(LN(x)), then + mlp(LN(x))."""
-        x = x + self._attention(p, fused_layer_norm(
-            x, p["ln1_w"], p["ln1_b"], impl=impl), impl)
-        return x + self._mlp(p, fused_layer_norm(x, p["ln2_w"], p["ln2_b"],
+    def _attn_half(self, p, x, impl="auto", seeds=None) -> torch.Tensor:
+        """The attention output of the block: attn(LN1(x)), undropped."""
+        return self._attention(p, fused_layer_norm(
+            x, p["ln1_w"], p["ln1_b"], impl=impl), impl, seeds)
+
+    def _mlp_half(self, p, x, impl="auto") -> torch.Tensor:
+        return self._mlp(p, fused_layer_norm(x, p["ln2_w"], p["ln2_b"],
+                                             impl=impl))
+
+    def _mlp_hidden(self, p, x, impl="auto") -> torch.Tensor:
+        return self._gelu_up(p, fused_layer_norm(x, p["ln2_w"], p["ln2_b"],
                                                  impl=impl))
 
-    def wrapped_block(self):
-        """The block under the config's ``remat``: it recomputes the whole
-        block in the backward (``torch.utils.checkpoint``, non-reentrant —
-        the reference's ``jax.checkpoint`` with its default ``"full"``
-        policy)."""
-        if not self.config.remat:
-            return self._block
+    def _residual(self, x, y, seeds, slot: int, impl: str) -> torch.Tensor:
+        """x + dropout(y) with the layer's seed of ``slot`` (1: the
+        attention output, 2: the MLP output)."""
+        if seeds is not None and self.config.dropout > 0.0:
+            y = drop_out(y, self.config.dropout, seeds[slot], impl=impl)
+        return x + y
 
-        def block(p, x, impl="auto"):
-            return checkpoint(self._block, p, x, impl, use_reentrant=False)
+    def _block(self, p, x, impl: str = "auto", seeds=None) -> torch.Tensor:
+        """Residual block (``:621-645``): x + drop(attn(LN(x))), then
+        + drop(mlp(LN(x)))."""
+        x = self._residual(x, self._attn_half(p, x, impl, seeds), seeds, 1,
+                           impl)
+        return self._residual(x, self._mlp_half(p, x, impl), seeds, 2, impl)
+
+    def wrapped_block(self):
+        """The block under the config's ``remat`` and ``remat_policy``
+        (``:647-670``), each recompute by ``torch.utils.checkpoint``
+        (non-reentrant):
+
+        * ``"full"``: the whole block, recomputed in the backward from its
+          input (``jax.checkpoint`` with the default policy);
+        * ``"save_attn"``: the attention output is kept (the checkpoint of
+          the attention half returns it; the residual after it is what the
+          MLP half's checkpoint keeps), the attention half and the MLP half
+          are recomputed — as ``save_only_these_names("attn_out")``, where
+          the attention's backward needs q, k, v and so reruns it anyway;
+        * ``"save_attn_mlp"``: also the MLP hidden gelu(mlp_up(LN(x)))
+          ("mlp_h"), kept by the down projection; LN2, the up projection
+          and the gelu are recomputed;
+        * ``"mlp_only"``: the attention half runs once, its activations
+          kept; the MLP half is recomputed.
+
+        Dropout masks are pure functions of the seeds: every recompute
+        rebuilds the forward's."""
+        c = self.config
+        if not c.remat:
+            return self._block
+        ck = lambda fn, *a: checkpoint(fn, *a,  # noqa: E731
+                                       use_reentrant=False)
+        if c.remat_policy == "full":
+            return lambda p, x, impl="auto", seeds=None: ck(
+                self._block, p, x, impl, seeds)
+
+        def block(p, x, impl="auto", seeds=None):
+            if c.remat_policy == "mlp_only":
+                a = self._attn_half(p, x, impl, seeds)
+            else:
+                a = ck(self._attn_half, p, x, impl, seeds)
+            x = self._residual(x, a, seeds, 1, impl)
+            if c.remat_policy == "save_attn_mlp":
+                m = self.mlp_down(p["mlp_down"],
+                                  ck(self._mlp_hidden, p, x, impl))
+            else:
+                m = ck(self._mlp_half, p, x, impl)
+            return self._residual(x, m, seeds, 2, impl)
 
         return block
 
     def hidden_states(self, params: Params, tokens: torch.Tensor, *,
+                      dropout_seeds: Optional[torch.Tensor] = None,
                       impl: str = "auto") -> torch.Tensor:
         """(b, s) token ids → final-LN hidden states (b, s, H): embedding
         plus ``pos_embedding[:s]``, the blocks in an unrolled loop, the
-        final LN."""
-        self.check_train_supported()
+        final LN. ``dropout_seeds``: None (no dropout, the reference's
+        ``key=None``) or (num_layers, 3) int32 on the CPU
+        (:meth:`dropout_seeds`), row i the seeds of layer i."""
         c = self.config
         s = tokens.shape[1]
         if s > c.max_seq_len:
             raise ValueError(f"sequence {s} exceeds max_seq_len "
                              f"{c.max_seq_len}")
+        layer_seeds = self._layer_seeds(dropout_seeds,
+                                        len(params["layers"]))
         x = self.embedding(params["embedding"], tokens)
         x = x + params["pos_embedding"][:s]
         block = self.wrapped_block()
-        for layer in params["layers"]:
-            x = block(layer, x, impl)
+        for layer, seeds in zip(params["layers"], layer_seeds):
+            x = block(layer, x, impl, seeds)
         return fused_layer_norm(x, params["lnf_w"], params["lnf_b"],
                                 impl=impl)
 
     def logits(self, params: Params, tokens: torch.Tensor, *,
+               dropout_seeds: Optional[torch.Tensor] = None,
                impl: str = "auto") -> torch.Tensor:
         """Tied unembedding of the hidden states: (b, s, V)."""
-        return self.unembed(params, self.hidden_states(params, tokens,
-                                                       impl=impl))
+        return self.unembed(params, self.hidden_states(
+            params, tokens, dropout_seeds=dropout_seeds, impl=impl))
 
     def loss_fn(self, params: Params, tokens: torch.Tensor,
                 targets: torch.Tensor,
                 loss_mask: Optional[torch.Tensor] = None, *,
+                dropout_seeds: Optional[torch.Tensor] = None,
                 impl: str = "auto") -> torch.Tensor:
         """Mean LM loss through the vocab-parallel cross-entropy (tp=1);
-        ``loss_mask`` (tokens-shaped, 1 = count) weights the mean.
-        ``impl="torch"`` runs every kernel's plain version (for holding
-        the kernel path against it on the card)."""
-        logits = self.logits(params, tokens, impl=impl)
+        ``loss_mask`` (tokens-shaped, 1 = count) weights the mean;
+        ``dropout_seeds`` as :meth:`hidden_states`'. ``impl="torch"`` runs
+        every kernel's plain version (for holding the kernel path against
+        it on the card)."""
+        logits = self.logits(params, tokens, dropout_seeds=dropout_seeds,
+                             impl=impl)
         losses = vocab_parallel_cross_entropy(logits, targets, impl=impl)
         return masked_mean(losses, loss_mask)
 

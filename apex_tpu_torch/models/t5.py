@@ -31,17 +31,20 @@ reference's oracle of the bucketed path, ``t5.py:75-79``) the (h, sq, sk)
 fp32 array built by :func:`relative_bias`, whose gradient comes from the
 dbias kernel and flows through the gather into the table. The bias enters
 the SCALED scores: this model keeps the 1/sqrt(d) scale that T5 itself
-omits (``:300-303``). ``remat=True`` recomputes each block in the backward
-(``torch.utils.checkpoint``, non-reentrant: the reference's per-block
-``jax.checkpoint``). The loss goes through the ported vocab-parallel
+omits (``:300-303``). ``remat=True`` recomputes in the backward
+(``torch.utils.checkpoint``, non-reentrant) by ``remat_policy``
+(``:54-60``): ``"blocks"`` each block (the reference's per-block
+``jax.checkpoint``), ``"encode_only"`` the whole encoder as ONE
+checkpoint (``:429``: only enc_out stays live through the decoder, which
+runs un-rematted). The loss goes through the ported vocab-parallel
 cross-entropy (the ``xent_stats`` kernel) and ``masked_mean``.
 
 Parameters are a plain dict in the reference's tree layout, except that
 ``encoder`` and ``decoder`` are lists of per-layer dicts instead of
 stacked leaves (:func:`apex_tpu_torch.models.convert.t5_params_from_jax`
 converts both ways). The reference's knobs with one working value here —
-``remat_policy`` (``"encode_only"``), ``tp_overlap``, ``plan`` — are not
-config fields yet, and the pipeline ``EncDecPipeline`` is a later slice.
+``tp_overlap``, ``plan`` — are not config fields yet, and the pipeline
+``EncDecPipeline`` is a later slice.
 """
 
 from __future__ import annotations
@@ -80,7 +83,10 @@ class T5Config:
     num_heads: int = 8
     dtype: torch.dtype = torch.float32  # parameter dtype
     attention_impl: str = "softmax"  # softmax | flash
-    remat: bool = True  # per-block recompute in the backward
+    remat: bool = True  # recompute in the backward, by remat_policy
+    # "blocks": each block; "encode_only": the whole encoder as one
+    # checkpoint, the decoder not rematted
+    remat_policy: str = "blocks"
     # "learned": absolute learned positions; "relative": T5's per-stack
     # (num_buckets, heads) bias tables on the self-attention scores
     position_encoding: str = "learned"
@@ -101,6 +107,10 @@ class T5Config:
             raise ValueError(
                 f"hidden_size ({self.hidden_size}) must be divisible by "
                 f"num_heads ({self.num_heads})")
+        if self.remat_policy not in ("blocks", "encode_only"):
+            raise ValueError(
+                f"remat_policy must be blocks|encode_only, got "
+                f"{self.remat_policy!r}")
         if self.position_encoding not in ("learned", "relative"):
             raise ValueError(
                 f"position_encoding must be learned|relative, got "
@@ -297,8 +307,10 @@ class EncoderDecoderModel:
 
     def _wrapped(self, fn):
         """The block under the config's ``remat``: recomputed whole in the
-        backward (the reference's per-block ``jax.checkpoint``)."""
-        if not self.config.remat:
+        backward (the reference's per-block ``jax.checkpoint``) under
+        ``remat_policy="blocks"`` (``t5.py:357``)."""
+        c = self.config
+        if not (c.remat and c.remat_policy == "blocks"):
             return fn
 
         def block(*args):
@@ -370,7 +382,16 @@ class EncoderDecoderModel:
 
     def logits(self, params, enc_tokens, dec_tokens, enc_pad_lens=None, *,
                impl: str = "auto"):
-        enc_out = self.encode(params, enc_tokens, enc_pad_lens, impl=impl)
+        c = self.config
+        if c.remat and c.remat_policy == "encode_only":
+            # re-encode in the backward (t5.py:425-431): only enc_out stays
+            # live through the decoder
+            enc_out = checkpoint(
+                lambda p, e, lens: self.encode(p, e, lens, impl=impl),
+                params, enc_tokens, enc_pad_lens, use_reentrant=False)
+        else:
+            enc_out = self.encode(params, enc_tokens, enc_pad_lens,
+                                  impl=impl)
         x = self.decode(params, dec_tokens, enc_out, enc_pad_lens, impl=impl)
         return F.linear(x, params["embedding"])  # tied unembedding
 

@@ -45,6 +45,10 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 _S = ctypes.POINTER(ctypes.c_longlong)  # an array of strides
 _IP = ctypes.POINTER(ctypes.c_int)  # an array of ints written back
+_U = ctypes.c_uint
+# the flash entries' dropout arguments: the seed's bits, the 24-bit
+# threshold (0: no dropout), float32(1 / (1 - rate)), the planted fault
+_DROP = [_U, _I, _F, _I]
 # name -> argtypes of every C entry point the library exports
 ENTRY_POINTS = {
     # q, k_pool, v_pool, tables, lengths, out, dtype, b, h_kv, group, d,
@@ -61,31 +65,36 @@ ENTRY_POINTS = {
     "apex_fused_sample_clusters": [_I, _I, _I, _I, _I, _I, _IP],
     # qkv, out, lse, kv_lens, b, s, h, h_kv, d, causal, scale, variant,
     # stream
-    "apex_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # drop_seed, drop_thresh, drop_scale, drop_fault, stream
+    "apex_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                       *_DROP, _P],
     # logits, labels, m, l, t, row_sum, dtype, labels_int64, n, V, stream
     "apex_xent_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, out, lse, kv_lens, bias, q_bstride, kv_bstride, q_stride,
     # kv_stride, b, sq, sk, h, h_kv, d, causal, scale, hb, variant,
-    # bias_tma, stream
+    # bias_tma, the dropout arguments, stream
     "apex_flash_fwd_bshd": [_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+                            _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, *_DROP,
+                            _P],
     # q, k, v, out, lse, kv_lens, lut, bias, strides (q, kv, o), b, h,
     # h_kv, sq, sk, d, causal, scale, maxd, rel_off, hb, variant,
-    # bias_tma, stream
+    # bias_tma, the dropout arguments, stream
     "apex_flash_fwd_flat": [_P, _P, _P, _P, _P, _P, _P, _P, _S, _I, _I, _I,
-                            _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
+                            _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, *_DROP,
+                            _P],
     # q, k, v, o, do, lse, delta, dk, dv, dtab, kv_lens, lut, bucket, bias,
     # strides (q, kv, o, do, dk/dv), b, h, h_kv, sq, sk, d, causal, scale,
-    # maxd, rel_off, hb, nb, lens_b, lens_h, variant, bias_tma, stream
+    # maxd, rel_off, hb, nb, lens_b, lens_h, variant, bias_tma, the
+    # dropout arguments, stream
     "apex_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _S, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                           _I, _I, _I, _I, _I, _I, _I, _P],
+                           _I, _I, _I, _I, _I, _I, _I, *_DROP, _P],
     # q, k, v, o, do, lse, dq, delta, kv_lens, lut, bias, strides (q, kv,
     # o, do, dq), b, h, h_kv, sq, sk, d, causal, scale, maxd, rel_off, hb,
-    # lens_b, lens_h, variant, bias_tma, stream
+    # lens_b, lens_h, variant, bias_tma, the dropout arguments, stream
     "apex_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _S,
                           _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
-                          _I, _I, _I, _P],
+                          _I, _I, _I, *_DROP, _P],
     # q, k, v, o, do, lse, delta, bias, dbias, ws, kv_lens, strides (q,
     # kv, o, do), b, h, h_kv, sq, sk, d, causal, scale, hb, lens_b, lens_h,
     # splits, variant, stream
@@ -128,6 +137,8 @@ ENTRY_POINTS = {
     # mode, rows, n, sq, scale, stream (the forward's mask arguments)
     "apex_softmax_bwd": [_P, _P, _P, _P, _S, _I, _I, _I, _I, _I, _I, _I,
                          _F, _P],
+    # x, y, dtype, numel, n, seed, thresh, div, inv, fault, stream
+    "apex_dropout": [_P, _P, _I, _L, _L, _U, _I, _F, _F, _I, _P],
     # a, b, bias, c, ws, dtype, variant, a_k, b_k, a_vec, b_vec, act,
     # bias_f32, out_f32, M, N, K, lda, ldb, ldc, split, kt_split, stream
     "apex_matmul_bias_act": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -66,8 +66,17 @@ there, runs the first ``mma.sync`` kernels instead
 (``csrc/flash_attn_fwd_sm80.cu``, ``flash_attn_bwd_sm80.cu``,
 ``flash_attn_dbias_sm80.cu``), for the A/B timing and the tests.
 
-Dropout (``dropout_keep``) and the bucketed bias on the bshd layout are
-later slices of the port.
+Dropout (``:700-737``): every entry takes ``dropout_rate`` and a
+``dropout_seed`` (an int32 value kept on the host). The mask is the
+reference's counter hash, :func:`dropout_keep` (``pallas/attention.py:
+56-96``), of (q-head row t = the flattened batch·head row, query row, key
+column): a pure function of the seed, rebuilt by the backward and by a
+recompute, never saved. The probabilities' normaliser stays un-dropped;
+the kept probabilities are scaled by float32(1/(1 - rate)). On a CUDA
+tensor the wgmma kernels evaluate it per score; the plain versions
+materialise it (:func:`_dropout_keep_dense`). It is refused with an array
+bias (the dbias kernel has no mask) and on the sm80 variant. The bucketed
+bias on the bshd layout is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -286,6 +295,92 @@ def _table_grad(bias: BucketedBias, dbias: torch.Tensor) -> torch.Tensor:
     return out.index_add_(0, idx, dbias.float().reshape(hb, -1).t())
 
 
+# --- the counter-hash dropout mask --------------------------------------------
+
+_M32 = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B9
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """murmur3's fmix32 on uint32 values held in int64 (``pallas/
+    attention.py:56-63``). A product of two uint32 values can pass 2^63
+    and wrap; its low 32 bits survive, so every multiply is masked."""
+    h = h ^ (h >> 16)
+    h = (h * 0x85EBCA6B) & _M32
+    h = h ^ (h >> 13)
+    h = (h * 0xC2B2AE35) & _M32
+    return h ^ (h >> 16)
+
+
+def _u32(x) -> Union[int, torch.Tensor]:
+    """An int32 (or any integer) value, tensor or int, as its uint32 bits
+    in int64."""
+    if torch.is_tensor(x):
+        return x.to(torch.int64) & _M32
+    return int(x) & _M32
+
+
+def dropout_threshold(rate: float) -> int:
+    """The 24-bit keep threshold (``pallas/attention.py:84``): Python's
+    round (half to even) of rate·2^24 on the double, at most 2^24."""
+    return min(1 << 24, int(round(rate * (1 << 24))))
+
+
+def dropout_scale(rate: float) -> float:
+    """The flash kernels' multiplier of a kept probability:
+    float32(1 / (1 - rate)) (``pallas/attention.py:95``)."""
+    return float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32))
+
+
+def dropout_keep(seed, t, rows, cols, rate: float) -> torch.Tensor:
+    """Bernoulli(1 - rate) keep mask of score elements (rows, cols) of
+    q-head row ``t`` (``pallas/attention.py:66-86``, bit for bit): key =
+    fmix(seed ^ t·0x9E3779B9), row_key = fmix(key ^ row), keep iff
+    (fmix(row_key ^ col) >> 8) >= the 24-bit threshold. ``seed`` an int32
+    (its bits read as uint32; an int or a tensor), ``t``/``rows``/``cols``
+    integer tensors or ints that broadcast; ``rate`` a float. A pure
+    function of (seed, coordinates): the forward, the backward and a
+    recompute under remat rebuild the same mask."""
+    key = _fmix32(torch.as_tensor(_u32(seed) ^ ((_u32(t) * _GOLDEN) & _M32)))
+    h = _fmix32(_fmix32(key ^ _u32(rows)) ^ _u32(cols))
+    return (h >> 8) >= dropout_threshold(rate)
+
+
+def _dropout_keep_dense(seed, lead, sq: int, sk: int, rate: float,
+                        device=None) -> torch.Tensor:
+    """(*lead, sq, sk) bool keep mask of the scores of the rows over the
+    leading dims ``lead``, flattened in order to the q-head rows t
+    (``apex_tpu/ops/attention.py:210-222``)."""
+    lead = tuple(lead)
+    n = 1
+    for x in lead:
+        n *= x
+    t = torch.arange(n, device=device).reshape(*lead, 1, 1)
+    rows = torch.arange(sq, device=device)[:, None]
+    cols = torch.arange(sk, device=device)[None, :]
+    return dropout_keep(seed, t, rows, cols, rate)
+
+
+def _dropout_apply_dense(x: torch.Tensor, keep: torch.Tensor,
+                         rate: float) -> torch.Tensor:
+    """where(keep, x · float32(1/(1 - rate)), 0) (``:225-228``)."""
+    return torch.where(keep, x * dropout_scale(rate), 0.0)
+
+
+def _check_dropout(dropout_rate: float, dropout_seed) -> Optional[int]:
+    """The dropout arguments as the kernels and plain versions take them:
+    None without dropout, else the seed as a host int (an int, or an int
+    tensor of one element: its value is read once here)."""
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got "
+                         f"{dropout_rate}")
+    if dropout_rate == 0.0:
+        return None
+    if dropout_seed is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seed")
+    return int(dropout_seed)
+
+
 # --- plain version ------------------------------------------------------------
 
 def masked_scores(q: torch.Tensor, k: torch.Tensor, scale: float,
@@ -318,14 +413,23 @@ def masked_scores(q: torch.Tensor, k: torch.Tensor, scale: float,
 def _xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: float, causal: bool,
                    kv_lens: Optional[torch.Tensor] = None,
-                   bias: Optional[torch.Tensor] = None
+                   bias: Optional[torch.Tensor] = None,
+                   dropout_rate: float = 0.0,
+                   dropout_seed: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(…, s, d) q/k/v → (o in q's dtype, fp32 lse); p is rounded to q's
     dtype before the PV product. A row of kv length 0 gets o = 0 and
-    lse = 0 (``:238-246``), so the backward's p = exp(NEG_INF - 0) is 0."""
+    lse = 0 (``:238-246``), so the backward's p = exp(NEG_INF - 0) is 0.
+    With ``dropout_rate > 0`` (``:231-245``) lse stays un-dropped and the
+    PV product takes p masked by :func:`dropout_keep` on the rows of the
+    leading dims, flattened in order, and scaled by float32(1/(1 - r))."""
     s = masked_scores(q, k, scale, causal, kv_lens, bias)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
+    if dropout_rate > 0.0:
+        p = _dropout_apply_dense(p, _dropout_keep_dense(
+            dropout_seed, s.shape[:-2], s.shape[-2], s.shape[-1],
+            dropout_rate, s.device), dropout_rate)
     o = torch.einsum("...qk,...kd->...qd", p.to(q.dtype).float(), v.float())
     if kv_lens is not None:
         dead = (kv_lens == 0)[:, None]
@@ -355,20 +459,26 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, hk * d)
 
 
-def _torch_flash_fwd(qkv, h, h_kv, d, scale, causal):
+def _torch_flash_fwd(qkv, h, h_kv, d, scale, causal, dropout_rate=0.0,
+                     dropout_seed=None):
     b, s, _ = qkv.shape
     q, k, v = _split_packed(qkv, h, h_kv, d)
-    o, lse = _xla_attention(q, k[:, :, None], v[:, :, None], scale, causal)
+    # the (b, h_kv, group) leading dims flatten to t = b·h + head
+    o, lse = _xla_attention(q, k[:, :, None], v[:, :, None], scale, causal,
+                            dropout_rate=dropout_rate,
+                            dropout_seed=dropout_seed)
     return _merge_heads(o), lse.reshape(b, h, s)
 
 
-def _torch_flash_bwd(qkv, o, lse, do, h, h_kv, d, scale, causal):
+def _torch_flash_bwd(qkv, o, lse, do, h, h_kv, d, scale, causal,
+                     dropout_rate=0.0, dropout_seed=None):
     """The backward of :func:`_torch_flash_fwd` with the Pallas kernels'
     rounding points (``_bwd_single_block_kernel``, ``:568-589``):
     delta = rowsum(do·o) in fp32; dV from p rounded to do's dtype; dS =
     p·(dP − delta)·scale rounded to q's dtype before dQ and dK; every
     product accumulates in fp32 and the kv-group sum happens in fp32
-    before the one cast."""
+    before the one cast. With dropout (``:295-345``) the mask is rebuilt
+    from the seed: dV takes p∘M/(1−r), dS = p·(M/(1−r)∘dP − delta)."""
     b, s, _ = qkv.shape
     group = h // h_kv
     dt = qkv.dtype
@@ -380,8 +490,15 @@ def _torch_flash_bwd(qkv, o, lse, do, h, h_kv, d, scale, causal):
     p = torch.exp(sc - lse.reshape(b, h_kv, group, s)[..., None])
     del sc
     delta = bwd_delta(of, dof)[..., None]
-    dv = torch.einsum("bngqk,bngqd->bnkd", p.to(dt).float(), dof)
+    keep = (None if dropout_rate == 0.0 else _dropout_keep_dense(
+        dropout_seed, p.shape[:-2], s, s, dropout_rate, p.device))
+    pd = p if keep is None else _dropout_apply_dense(p, keep, dropout_rate)
+    dv = torch.einsum("bngqk,bngqd->bnkd", pd.to(dt).float(), dof)
+    del pd
     dp = torch.einsum("bngqd,bnkd->bngqk", dof, v.float())
+    if keep is not None:
+        dp = _dropout_apply_dense(dp, keep, dropout_rate)
+        del keep
     ds = (p * (dp - delta) * scale).to(dt).float()
     del p, dp
     dq = torch.einsum("bngqk,bnkd->bngqd", ds, k.float())
@@ -396,16 +513,19 @@ def _repeat_kv(x: torch.Tensor, rows: int) -> torch.Tensor:
     return x.repeat_interleave(group, 0) if group > 1 else x
 
 
-def _torch_flash_fwd_flat(q, k, v, scale, causal, kv_lens=None, bias=None):
+def _torch_flash_fwd_flat(q, k, v, scale, causal, kv_lens=None, bias=None,
+                          dropout_rate=0.0, dropout_seed=None):
     """q (bh, sq, d), k/v (bh_kv, sk, d), kv_lens (bh,) or None, bias
-    (hb, sq, sk) fp32 or None → (o (bh, sq, d), lse (bh, sq))."""
+    (hb, sq, sk) fp32 or None → (o (bh, sq, d), lse (bh, sq)); dropout
+    keyed by the q row t."""
     return _xla_attention(q, _repeat_kv(k, q.shape[0]),
                           _repeat_kv(v, q.shape[0]), scale, causal, kv_lens,
-                          bias)
+                          bias, dropout_rate, dropout_seed)
 
 
 def _torch_flash_bwd_flat(q, k, v, o, lse, do, scale, causal, kv_lens=None,
-                          bias=None, delta=None):
+                          bias=None, delta=None, dropout_rate=0.0,
+                          dropout_seed=None):
     """The backward of :func:`_torch_flash_fwd_flat` with the Pallas
     kernels' rounding points (``_bwd_dq_kernel``/``_bwd_dkv_kernel``,
     ``:869-1018``): p = exp(s − lse); delta = rowsum(do·o) in fp32 (given,
@@ -413,7 +533,9 @@ def _torch_flash_bwd_flat(q, k, v, o, lse, do, scale, causal, kv_lens=None,
     p rounded to do's dtype; the unscaled dS = p·(dP − delta) in fp32,
     summed over the rows sharing each bias row for dbias (hb, sq, sk);
     dS·scale rounded to q's dtype before dQ and dK; kv-group sums in fp32
-    before the one cast. Returns (dq, dk, dv, dbias or None)."""
+    before the one cast. With dropout the mask M is rebuilt from the seed:
+    dV from p∘M/(1−r), dS = p·(M/(1−r)∘dP − delta) (``:295-345``).
+    Returns (dq, dk, dv, dbias or None)."""
     bh, sq, d = q.shape
     sk = k.shape[1]
     group = bh // k.shape[0]
@@ -423,8 +545,15 @@ def _torch_flash_bwd_flat(q, k, v, o, lse, do, scale, causal, kv_lens=None,
     del s
     dof = do.float()
     delta = (bwd_delta(o, do) if delta is None else delta)[..., None]
-    dv = torch.einsum("bqk,bqd->bkd", p.to(dt).float(), dof)
+    keep = (None if dropout_rate == 0.0 else _dropout_keep_dense(
+        dropout_seed, (bh,), sq, sk, dropout_rate, p.device))
+    pd = p if keep is None else _dropout_apply_dense(p, keep, dropout_rate)
+    dv = torch.einsum("bqk,bqd->bkd", pd.to(dt).float(), dof)
+    del pd
     dp = torch.einsum("bqd,bkd->bqk", dof, _repeat_kv(v, bh).float())
+    if keep is not None:
+        dp = _dropout_apply_dense(dp, keep, dropout_rate)
+        del keep
     ds = p * (dp - delta)
     del p, dp
     dbias = (None if bias is None
@@ -456,26 +585,29 @@ def _expand_lens_bh(kv_lens: Optional[torch.Tensor],
     return None if kv_lens is None else kv_lens.repeat_interleave(h)
 
 
-def _torch_flash_fwd_bshd(q, k, v, scale, causal, kv_lens=None, bias=None):
+def _torch_flash_fwd_bshd(q, k, v, scale, causal, kv_lens=None, bias=None,
+                          dropout_rate=0.0, dropout_seed=None):
     """q (b, sq, h, d), k/v (b, sk, h_kv, d), kv_lens (b,) or None, bias
     (hb, sq, sk) fp32 with hb | h or None → (o (b, sq, h, d), lse (b, h,
-    sq)): the flat plain version on the (b·h, s, d) rows, bottom-right
-    causal alignment ``off = sk − sq``."""
+    sq)): the flat plain version on the (b·h, s, d) rows (dropout's t =
+    b·h + head), bottom-right causal alignment ``off = sk − sq``."""
     b, sq, h, _ = q.shape
     o, lse = _torch_flash_fwd_flat(_to_bh(q), _to_bh(k), _to_bh(v), scale,
-                                   causal, _expand_lens_bh(kv_lens, h), bias)
+                                   causal, _expand_lens_bh(kv_lens, h), bias,
+                                   dropout_rate, dropout_seed)
     return _from_bh(o, b), lse.reshape(b, h, sq)
 
 
 def _torch_flash_bwd_bshd(q, k, v, o, lse, do, scale, causal, kv_lens=None,
-                          bias=None):
+                          bias=None, dropout_rate=0.0, dropout_seed=None):
     """The backward of :func:`_torch_flash_fwd_bshd` through the flat plain
     version: (dq (b, sq, h, d), dk, dv (b, sk, h_kv, d), dbias (hb, sq, sk)
     fp32 or None)."""
     b, sq, h, _ = q.shape
     dq, dk, dv, dbias = _torch_flash_bwd_flat(
         _to_bh(q), _to_bh(k), _to_bh(v), _to_bh(o), lse.reshape(b * h, sq),
-        _to_bh(do), scale, causal, _expand_lens_bh(kv_lens, h), bias)
+        _to_bh(do), scale, causal, _expand_lens_bh(kv_lens, h), bias,
+        dropout_rate=dropout_rate, dropout_seed=dropout_seed)
     return _from_bh(dq, b), _from_bh(dk, b), _from_bh(dv, b), dbias
 
 
@@ -511,16 +643,20 @@ def _check_like(name: str, t: torch.Tensor, shape, dtype, ref) -> None:
 
 
 def flash_fwd_cuda(qkv: torch.Tensor, h: int, h_kv: int, d: int, *,
-                   scale: float, causal: bool,
+                   scale: float, causal: bool, dropout_rate: float = 0.0,
+                   dropout_seed: Optional[int] = None,
                    variant: Optional[str] = None,
                    planted_fault: Optional[str] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the flash forward kernel on the packed buffer. Returns o
-    (b, s, h·d) bf16 and lse (b, h, s) fp32. ``variant`` and
-    ``planted_fault`` are for the A/B timing and the kernel checks
-    (:func:`_fwd_plan`, :func:`_planted`). Counts its launches in
-    ``.launches`` and by variant in ``.wgmma_launches`` and
-    ``.sm80_launches``."""
+    (b, s, h·d) bf16 and lse (b, h, s) fp32. ``dropout_rate > 0`` drops
+    the probabilities in the kernel by :func:`dropout_keep` of
+    ``dropout_seed`` (a host int), q-head row t = b·h + head; lse stays
+    the un-dropped one. ``variant`` and ``planted_fault`` are for the A/B
+    timing and the kernel checks (:func:`_fwd_plan`, :func:`_planted`,
+    :data:`DROPOUT_FAULTS`). Counts its launches in ``.launches``, by
+    variant in ``.wgmma_launches`` and ``.sm80_launches`` and those with
+    dropout in ``.dropout_launches``."""
     _check_packed(qkv, h, h_kv, d, "flash_fwd_cuda")
     b, s, _ = qkv.shape
     out = torch.empty((b, s, h * d), dtype=qkv.dtype, device=qkv.device)
@@ -528,18 +664,21 @@ def flash_fwd_cuda(qkv: torch.Tensor, h: int, h_kv: int, d: int, *,
     kv_lens, _, _, _ = _planted(planted_fault, None, (h, 1), None, None, b,
                                 h, s, qkv.device)
     plan = _packed_fwd_plan(qkv, h, h_kv, d, variant)
+    drop = _drop_args(dropout_rate, dropout_seed, plan, planted_fault,
+                      "flash_fwd_cuda")
     rc = _build.library().apex_flash_fwd(
         qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), _ptr(kv_lens), b, s,
         h, h_kv, d, int(causal), float(scale), int(plan.variant == "wgmma"),
-        torch.cuda.current_stream(qkv.device).cuda_stream)
+        *drop, torch.cuda.current_stream(qkv.device).cuda_stream)
     _build.check(rc, "flash_fwd")
-    _count(flash_fwd_cuda, plan)
+    _count(flash_fwd_cuda, plan, dropout=dropout_rate)
     return out, lse
 
 
 flash_fwd_cuda.launches = 0
 flash_fwd_cuda.wgmma_launches = 0
 flash_fwd_cuda.sm80_launches = 0
+flash_fwd_cuda.dropout_launches = 0
 
 
 def _check_bwd(qkv, o, lse, do, h, h_kv, d, name):
@@ -567,7 +706,8 @@ def _heads4(x: torch.Tensor, d: int) -> torch.Tensor:
 
 def flash_bwd_dq_cuda(qkv: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
                       do: torch.Tensor, h: int, h_kv: int, d: int, *,
-                      scale: float, causal: bool,
+                      scale: float, causal: bool, dropout_rate: float = 0.0,
+                      dropout_seed: Optional[int] = None,
                       variant: Optional[str] = None,
                       planted_fault: Optional[str] = None
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -575,37 +715,43 @@ def flash_bwd_dq_cuda(qkv: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
     delta (b·h, s) fp32 = rowsum(do·o), which the dK/dV kernel reads
     (None on the ``"sm80"`` variant). ``variant`` and ``planted_fault``
     are for the A/B timing and the kernel checks (:func:`_bwd_plan`,
-    :func:`_planted`). Counts launches in ``.launches`` and by variant in
-    ``.wgmma_launches`` and ``.sm80_launches``."""
+    :func:`_planted`). ``dropout_rate``/``dropout_seed`` as the forward's:
+    dP is masked and rescaled before dS. Counts launches in ``.launches``,
+    by variant in ``.wgmma_launches`` and ``.sm80_launches`` and with
+    dropout in ``.dropout_launches``."""
     name = "flash_bwd_dq_cuda"
     b, s = _check_bwd(qkv, o, lse, do, h, h_kv, d, name)
     dq = torch.empty((b, s, h * d), dtype=qkv.dtype, device=qkv.device)
     q4, k4, v4 = _packed_views(qkv, h, h_kv, d)
     plan, delta = _launch_dq(
         name, q4, k4, v4, _heads4(o, d), _heads4(do, d), _heads4(dq, d), lse,
-        scale=scale, causal=causal, variant=variant,
-        planted_fault=planted_fault)
-    _count(flash_bwd_dq_cuda, plan)
+        scale=scale, causal=causal, dropout=(dropout_rate, dropout_seed),
+        variant=variant, planted_fault=planted_fault)
+    _count(flash_bwd_dq_cuda, plan, dropout=dropout_rate)
     return dq, delta
 
 
 flash_bwd_dq_cuda.launches = 0
 flash_bwd_dq_cuda.wgmma_launches = 0
 flash_bwd_dq_cuda.sm80_launches = 0
+flash_bwd_dq_cuda.dropout_launches = 0
 
 
 def flash_bwd_dkv_cuda(qkv: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
                        do: torch.Tensor, h: int, h_kv: int, d: int, *,
                        scale: float, causal: bool,
                        delta: Optional[torch.Tensor] = None,
+                       dropout_rate: float = 0.0,
+                       dropout_seed: Optional[int] = None,
                        variant: Optional[str] = None,
                        planted_fault: Optional[str] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dK/dV kernel on the packed buffer: dk, dv (b, s, h_kv·d)
     bf16, each kv group's query heads summed in fp32. The ``"wgmma"``
     variant reads ``delta`` from :func:`flash_bwd_dq_cuda` (call it
-    first). Counts launches in ``.launches``, ``.wgmma_launches`` and
-    ``.sm80_launches``."""
+    first). With dropout, dV takes the dropped and rescaled p and dP is
+    masked before dS. Counts launches in ``.launches``,
+    ``.wgmma_launches``, ``.sm80_launches`` and ``.dropout_launches``."""
     name = "flash_bwd_dkv_cuda"
     b, s = _check_bwd(qkv, o, lse, do, h, h_kv, d, name)
     dk = torch.empty((b, s, h_kv * d), dtype=qkv.dtype, device=qkv.device)
@@ -614,14 +760,16 @@ def flash_bwd_dkv_cuda(qkv: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
     plan = _launch_dkv(
         name, q4, k4, v4, _heads4(o, d), _heads4(do, d), _heads4(dk, d),
         _heads4(dv, d), lse, delta, scale=scale, causal=causal,
-        variant=variant, planted_fault=planted_fault)
-    _count(flash_bwd_dkv_cuda, plan)
+        dropout=(dropout_rate, dropout_seed), variant=variant,
+        planted_fault=planted_fault)
+    _count(flash_bwd_dkv_cuda, plan, dropout=dropout_rate)
     return dk, dv
 
 
 flash_bwd_dkv_cuda.launches = 0
 flash_bwd_dkv_cuda.wgmma_launches = 0
 flash_bwd_dkv_cuda.sm80_launches = 0
+flash_bwd_dkv_cuda.dropout_launches = 0
 
 
 def _seq_major_ok(t: torch.Tensor) -> bool:
@@ -692,22 +840,26 @@ def _check_bias(bias: Optional[torch.Tensor], rows: int, sq: int, sk: int,
     return bias.shape[0]
 
 
-def _count(fn, plan=None, bias=None) -> None:
+def _count(fn, plan=None, bias=None, dropout=0.0) -> None:
     """One launch of a wrapper: ``.launches``, by variant
-    (``.wgmma_launches``, ``.sm80_launches``) and with an array bias
-    (``.bias_launches``)."""
+    (``.wgmma_launches``, ``.sm80_launches``), with an array bias
+    (``.bias_launches``) and with dropout (``.dropout_launches``)."""
     fn.launches += 1
     if plan is not None:
         attr = f"{plan.variant}_launches"
         setattr(fn, attr, getattr(fn, attr) + 1)
     if bias is not None:
         fn.bias_launches += 1
+    if dropout > 0.0:
+        fn.dropout_launches += 1
 
 
 def flash_fwd_bshd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, scale: float, causal: bool,
                         kv_lens: Optional[torch.Tensor] = None,
                         bias: Optional[torch.Tensor] = None,
+                        dropout_rate: float = 0.0,
+                        dropout_seed: Optional[int] = None,
                         variant: Optional[str] = None,
                         planted_fault: Optional[str] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -715,8 +867,10 @@ def flash_fwd_bshd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d), bf16 — separate tensors or views into one buffer (the batch and
     row strides are passed through); kv_lens (b,) int32 per batch or None;
     bias (hb, sq, sk) fp32 with hb | h or None. Returns o (b, sq, h, d)
-    bf16 and lse (b, h, sq) fp32. Counts its launches in ``.launches``, by
-    variant and those with a bias in ``.bias_launches``."""
+    bf16 and lse (b, h, sq) fp32. Dropout as :func:`flash_fwd_cuda`'s
+    (q-head row t = b·h + head; not with a bias). Counts its launches in
+    ``.launches``, by variant, those with a bias in ``.bias_launches`` and
+    those with dropout in ``.dropout_launches``."""
     name = "flash_fwd_bshd_cuda"
     _check_bshd(q, k, v, causal, name, kv_lens)
     b, sq, h, d = q.shape
@@ -728,15 +882,17 @@ def flash_fwd_bshd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        _LENS_PER_BATCH, bias, None, b, h, sk,
                                        q.device)
     plan = _bshd_fwd_plan(q, k, v, run_bias, variant)
+    drop = _drop_args(dropout_rate, dropout_seed, plan, planted_fault, name,
+                      bias)
     rc = _build.library().apex_flash_fwd_bshd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), _ptr(kv_lens), _ptr(run_bias), q.stride(0),
         k.stride(0), q.stride(1), k.stride(1), b, sq, sk, h, h_kv, d,
         int(causal), float(scale), hb, int(plan.variant == "wgmma"),
-        int(plan.bias_staging == "tma"),
+        int(plan.bias_staging == "tma"), *drop,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_fwd_bshd")
-    _count(flash_fwd_bshd_cuda, plan, bias)
+    _count(flash_fwd_bshd_cuda, plan, bias, dropout_rate)
     return out, lse
 
 
@@ -744,6 +900,7 @@ flash_fwd_bshd_cuda.launches = 0
 flash_fwd_bshd_cuda.wgmma_launches = 0
 flash_fwd_bshd_cuda.sm80_launches = 0
 flash_fwd_bshd_cuda.bias_launches = 0
+flash_fwd_bshd_cuda.dropout_launches = 0
 
 
 def _check_bshd_bwd(q, k, v, o, lse, do, causal, kv_lens, bias, name):
@@ -773,14 +930,17 @@ def flash_bwd_bshd_dq_cuda(q, k, v, o, lse, do, *, scale: float,
                            causal: bool,
                            kv_lens: Optional[torch.Tensor] = None,
                            bias: Optional[torch.Tensor] = None,
+                           dropout_rate: float = 0.0,
+                           dropout_seed: Optional[int] = None,
                            variant: Optional[str] = None,
                            planted_fault: Optional[str] = None
                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch the dQ kernel on seq-major operands: q, o, do (b, sq, h, d),
     k, v (b, sk, h_kv, d) bf16, lse (b, h, sq) fp32, kv_lens (b,) int32 or
     None, bias (hb, sq, sk) fp32 or None → dq (b, sq, h, d) bf16 and delta
-    (b·h, sq) fp32 for the dK/dV kernel (None on ``"sm80"``). Counts
-    launches in ``.launches``, by variant and in ``.bias_launches``."""
+    (b·h, sq) fp32 for the dK/dV kernel (None on ``"sm80"``); dropout as
+    :func:`flash_bwd_dq_cuda`'s. Counts launches in ``.launches``, by
+    variant, in ``.bias_launches`` and ``.dropout_launches``."""
     name = "flash_bwd_bshd_dq_cuda"
     hb = _check_bshd_bwd(q, k, v, o, lse, do, causal, kv_lens, bias, name)
     b, sq, h, d = q.shape
@@ -788,8 +948,9 @@ def flash_bwd_bshd_dq_cuda(q, k, v, o, lse, do, *, scale: float,
     plan, delta = _launch_dq(
         name, *_bshd_views(q, k, v, o, do, dq), lse, scale=scale,
         causal=causal, kv_lens=kv_lens, lens_strides=_LENS_PER_BATCH, hb=hb,
-        bias=bias, variant=variant, planted_fault=planted_fault)
-    _count(flash_bwd_bshd_dq_cuda, plan, bias)
+        bias=bias, dropout=(dropout_rate, dropout_seed), variant=variant,
+        planted_fault=planted_fault)
+    _count(flash_bwd_bshd_dq_cuda, plan, bias, dropout_rate)
     return dq, delta
 
 
@@ -797,12 +958,15 @@ flash_bwd_bshd_dq_cuda.launches = 0
 flash_bwd_bshd_dq_cuda.wgmma_launches = 0
 flash_bwd_bshd_dq_cuda.sm80_launches = 0
 flash_bwd_bshd_dq_cuda.bias_launches = 0
+flash_bwd_bshd_dq_cuda.dropout_launches = 0
 
 
 def flash_bwd_bshd_dkv_cuda(q, k, v, o, lse, do, *, scale: float,
                             causal: bool,
                             kv_lens: Optional[torch.Tensor] = None,
                             bias: Optional[torch.Tensor] = None,
+                            dropout_rate: float = 0.0,
+                            dropout_seed: Optional[int] = None,
                             delta: Optional[torch.Tensor] = None,
                             variant: Optional[str] = None,
                             planted_fault: Optional[str] = None
@@ -810,8 +974,9 @@ def flash_bwd_bshd_dkv_cuda(q, k, v, o, lse, do, *, scale: float,
     """Launch the dK/dV kernel on seq-major operands (as
     :func:`flash_bwd_bshd_dq_cuda`, whose ``delta`` the ``"wgmma"``
     variant reads) → dk, dv (b, sk, h_kv, d) bf16, each kv group's query
-    heads summed in fp32 and cast once. Counts launches in ``.launches``,
-    by variant and in ``.bias_launches``."""
+    heads summed in fp32 and cast once; dropout as
+    :func:`flash_bwd_dkv_cuda`'s. Counts launches in ``.launches``, by
+    variant, in ``.bias_launches`` and ``.dropout_launches``."""
     name = "flash_bwd_bshd_dkv_cuda"
     hb = _check_bshd_bwd(q, k, v, o, lse, do, causal, kv_lens, bias, name)
     b, sq, h, d = q.shape
@@ -822,8 +987,9 @@ def flash_bwd_bshd_dkv_cuda(q, k, v, o, lse, do, *, scale: float,
     plan = _launch_dkv(
         name, q4, k4, v4, o4, do4, dk4, dv4, lse, delta, scale=scale,
         causal=causal, kv_lens=kv_lens, lens_strides=_LENS_PER_BATCH, hb=hb,
-        bias=bias, variant=variant, planted_fault=planted_fault)
-    _count(flash_bwd_bshd_dkv_cuda, plan, bias)
+        bias=bias, dropout=(dropout_rate, dropout_seed), variant=variant,
+        planted_fault=planted_fault)
+    _count(flash_bwd_bshd_dkv_cuda, plan, bias, dropout_rate)
     return dk, dv
 
 
@@ -831,6 +997,7 @@ flash_bwd_bshd_dkv_cuda.launches = 0
 flash_bwd_bshd_dkv_cuda.wgmma_launches = 0
 flash_bwd_bshd_dkv_cuda.sm80_launches = 0
 flash_bwd_bshd_dkv_cuda.bias_launches = 0
+flash_bwd_bshd_dkv_cuda.dropout_launches = 0
 
 
 def _rows4(x: torch.Tensor, group: int = 1) -> torch.Tensor:
@@ -974,6 +1141,20 @@ PLANTED_FAULTS = ("drop_last_kv_tile", "drop_bias")
 #: dbias's: the last group of sharing rows left out of the sum (with one
 #: group, its last row), or the bias left out of p
 DBIAS_FAULTS = ("drop_last_group", "drop_bias")
+#: the dropout faults the wgmma kernels plant on request, by the code the
+#: kernels read: the mask keyed by the kv head's row instead of the q
+#: head's (every kernel; visible under GQA), the row and column swapped in
+#: the hash (every kernel), the mask left out of the dK/dV kernel's dS
+#: (its dV keeps it), the forward's l summed from the dropped p
+DROPOUT_FAULTS = {"key_kv_head": 1, "swap_row_col": 2, "no_dkv_ds_mask": 3,
+                  "l_from_dropped": 4}
+#: where dropout is refused: the sm80 kernels (deleted by ROADMAP's
+#: simplicity item) and the array bias (its dbias kernel has no mask)
+SM80_DROPOUT = ("the sm80 variant has no dropout (ROADMAP, Simplicity "
+                "items: the sm80 kernels' deletion); use the wgmma variant")
+BIAS_DROPOUT = ("dropout with an array bias is not ported: its gradient "
+                "kernel has no mask (ROADMAP queue 2: dropout in the "
+                "dbias kernel)")
 
 
 class TensorMap(NamedTuple):
@@ -1285,11 +1466,32 @@ def bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.float() * o.float()).sum(-1)
 
 
+def _drop_args(rate: float, seed: Optional[int], plan: FlashPlan,
+               fault: Optional[str], name: str,
+               bias: Optional[torch.Tensor] = None):
+    """(seed bits, 24-bit threshold, fp32 scale, fault code) for a flash
+    entry; (0, 0, 1.0, 0) without dropout. Raises on the sm80 variant and
+    with an array bias."""
+    if rate == 0.0:
+        if fault in DROPOUT_FAULTS:
+            raise ValueError(f"{name}: planted_fault {fault!r} needs "
+                             f"dropout_rate > 0")
+        return 0, 0, 1.0, 0
+    seed = _check_dropout(rate, seed)
+    if plan.variant == "sm80":
+        raise ValueError(f"{name}: {SM80_DROPOUT}")
+    if bias is not None:
+        raise NotImplementedError(f"{name}: {BIAS_DROPOUT}")
+    return (seed & _M32, dropout_threshold(rate), dropout_scale(rate),
+            DROPOUT_FAULTS.get(fault, 0))
+
+
 def _planted(fault: Optional[str], kv_lens, lens_strides, bias, lut,
              b: int, h: int, sk: int, dev):
     """The kernel's (kv_lens, lens strides, bias, lut) with a planted
-    fault (:data:`PLANTED_FAULTS`) made from them, or as given."""
-    if fault is None:
+    fault (:data:`PLANTED_FAULTS`) made from them, or as given (the
+    dropout faults, :data:`DROPOUT_FAULTS`, are planted in the kernel)."""
+    if fault is None or fault in DROPOUT_FAULTS:
         return kv_lens, lens_strides, bias, lut
     if fault not in PLANTED_FAULTS:
         raise ValueError(f"planted_fault must be one of {PLANTED_FAULTS}; "
@@ -1305,15 +1507,17 @@ def _planted(fault: Optional[str], kv_lens, lens_strides, bias, lut,
 
 def _launch_dq(name, q4, k4, v4, o4, do4, dq4, lse, *, scale, causal,
                kv_lens=None, lens_strides=None, lut=None, rel_off=0,
-               maxd=0, hb=1, bias=None, variant=None, planted_fault=None):
-    """The dQ entry on (b, heads, s, d) views. Returns (the plan, delta
-    or None)."""
+               maxd=0, hb=1, bias=None, dropout=(0.0, None), variant=None,
+               planted_fault=None):
+    """The dQ entry on (b, heads, s, d) views; ``dropout`` (rate, seed).
+    Returns (the plan, delta or None)."""
     b, h, sq, d = q4.shape
     h_kv, sk = k4.shape[1], k4.shape[2]
     lens_strides = lens_strides or (h, 1)
     kv_lens, lens_strides, bias, lut = _planted(
         planted_fault, kv_lens, lens_strides, bias, lut, b, h, sk, q4.device)
     plan = _bwd_plan(q4, k4, v4, do4, bias, variant)
+    drop = _drop_args(*dropout, plan, planted_fault, name, bias)
     delta = (torch.empty((b * h, sq), dtype=torch.float32, device=q4.device)
              if plan.variant == "wgmma" else None)
     rc = _build.library().apex_flash_bwd_dq(
@@ -1322,7 +1526,7 @@ def _launch_dq(name, q4, k4, v4, o4, do4, dq4, lse, *, scale, causal,
         _ptr(kv_lens), _ptr(lut), _ptr(bias),
         _stride_array(q4, k4, o4, do4, dq4), b, h, h_kv, sq, sk, d,
         int(causal), float(scale), maxd, rel_off, hb, *lens_strides,
-        int(plan.variant == "wgmma"), int(plan.bias_staging == "tma"),
+        int(plan.variant == "wgmma"), int(plan.bias_staging == "tma"), *drop,
         torch.cuda.current_stream(q4.device).cuda_stream)
     _build.check(rc, name)
     return plan, delta
@@ -1331,15 +1535,17 @@ def _launch_dq(name, q4, k4, v4, o4, do4, dq4, lse, *, scale, causal,
 def _launch_dkv(name, q4, k4, v4, o4, do4, dk4, dv4, lse, delta, *, scale,
                 causal, kv_lens=None, lens_strides=None, lut=None,
                 bucket=None, dtab=None, rel_off=0, maxd=0, hb=1, nb=1,
-                bias=None, variant=None, planted_fault=None) -> FlashPlan:
+                bias=None, dropout=(0.0, None), variant=None,
+                planted_fault=None) -> FlashPlan:
     """The dK/dV entry on (b, heads, s, d) views (dk and dv share their
-    strides). Returns the plan."""
+    strides); ``dropout`` (rate, seed). Returns the plan."""
     b, h, sq, d = q4.shape
     h_kv, sk = k4.shape[1], k4.shape[2]
     lens_strides = lens_strides or (h, 1)
     kv_lens, lens_strides, bias, lut = _planted(
         planted_fault, kv_lens, lens_strides, bias, lut, b, h, sk, q4.device)
     plan = _bwd_plan(q4, k4, v4, do4, bias, variant)
+    drop = _drop_args(*dropout, plan, planted_fault, name, bias)
     if plan.variant == "wgmma":
         if delta is None:
             raise ValueError(
@@ -1356,7 +1562,7 @@ def _launch_dkv(name, q4, k4, v4, o4, do4, dk4, dv4, lse, delta, *, scale,
         _ptr(None if lut is None else bucket), _ptr(bias),
         _stride_array(q4, k4, o4, do4, dk4), b, h, h_kv, sq, sk, d,
         int(causal), float(scale), maxd, rel_off, hb, nb, *lens_strides,
-        int(plan.variant == "wgmma"), int(plan.bias_staging == "tma"),
+        int(plan.variant == "wgmma"), int(plan.bias_staging == "tma"), *drop,
         torch.cuda.current_stream(q4.device).cuda_stream)
     _build.check(rc, name)
     return plan
@@ -1367,6 +1573,8 @@ def flash_fwd_flat_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_lens: Optional[torch.Tensor] = None,
                         rel_bias: Optional[BucketedBias] = None,
                         bias: Optional[torch.Tensor] = None,
+                        dropout_rate: float = 0.0,
+                        dropout_seed: Optional[int] = None,
                         variant: Optional[str] = None,
                         planted_fault: Optional[str] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -1375,8 +1583,10 @@ def flash_fwd_flat_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rows; kv_lens (bh,) int32 or None; the bucketed bias, or an array bias
     (hb, sq, sk) fp32 with hb | bh, or neither. Returns o (q's shape; a 4D
     o is a (b, sq, h, d) buffer seen as (b, h, sq, d)) and lse (bh, sq)
-    fp32. Counts its launches in ``.launches``, by variant and those with
-    an array bias in ``.bias_launches``."""
+    fp32. Dropout as :func:`flash_fwd_cuda`'s, q-head row t the flat row
+    (with the bucketed bias or none; not with an array bias). Counts its
+    launches in ``.launches``, by variant, those with an array bias in
+    ``.bias_launches`` and those with dropout in ``.dropout_launches``."""
     name = "flash_fwd_flat_cuda"
     rows, q4, k4, v4 = _flat_views(q, k, v)
     _check_flat(q4, k4, v4, kv_lens, name)
@@ -1389,6 +1599,8 @@ def flash_fwd_flat_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lut is None:
         maxd = rel_off = 0
     plan = _fwd_plan(q4, k4, v4, run_bias, variant)
+    drop = _drop_args(dropout_rate, dropout_seed, plan, planted_fault, name,
+                      bias)
     o4, out = _out_like(q4, q.ndim)
     lse = torch.empty((rows, sq), dtype=torch.float32, device=q.device)
     rc = _build.library().apex_flash_fwd_flat(
@@ -1396,10 +1608,10 @@ def flash_fwd_flat_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lse.data_ptr(), _ptr(kv_lens), _ptr(lut), _ptr(run_bias),
         _stride_array(q4, k4, o4), b, h, h_kv, sq, sk, d, int(causal),
         float(scale), maxd, rel_off, hb, int(plan.variant == "wgmma"),
-        int(plan.bias_staging == "tma"),
+        int(plan.bias_staging == "tma"), *drop,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_fwd_flat")
-    _count(flash_fwd_flat_cuda, plan, bias)
+    _count(flash_fwd_flat_cuda, plan, bias, dropout_rate)
     return out, lse
 
 
@@ -1407,6 +1619,7 @@ flash_fwd_flat_cuda.launches = 0
 flash_fwd_flat_cuda.wgmma_launches = 0
 flash_fwd_flat_cuda.sm80_launches = 0
 flash_fwd_flat_cuda.bias_launches = 0
+flash_fwd_flat_cuda.dropout_launches = 0
 
 
 def _check_flat_bwd(q4, k4, v4, o4, do4, lse, kv_lens, name):
@@ -1425,13 +1638,16 @@ def flash_bwd_flat_dq_cuda(q, k, v, o, lse, do, *, scale: float,
                            kv_lens: Optional[torch.Tensor] = None,
                            rel_bias: Optional[BucketedBias] = None,
                            bias: Optional[torch.Tensor] = None,
+                           dropout_rate: float = 0.0,
+                           dropout_seed: Optional[int] = None,
                            variant: Optional[str] = None,
                            planted_fault: Optional[str] = None
                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch the dQ kernel on bh-flat operands: dq in q's shape and delta
-    (bh, sq) fp32 for the dK/dV kernel (None on ``"sm80"``). Counts
-    launches in ``.launches``, by variant and those with an array bias in
-    ``.bias_launches``."""
+    (bh, sq) fp32 for the dK/dV kernel (None on ``"sm80"``); dropout as
+    :func:`flash_bwd_dq_cuda`'s. Counts launches in ``.launches``, by
+    variant, those with an array bias in ``.bias_launches`` and those with
+    dropout in ``.dropout_launches``."""
     name = "flash_bwd_flat_dq_cuda"
     rows, q4, k4, v4, o4, do4 = _flat_views(q, k, v, o, do)
     _check_flat_bwd(q4, k4, v4, o4, do4, lse, kv_lens, name)
@@ -1442,9 +1658,10 @@ def flash_bwd_flat_dq_cuda(q, k, v, o, lse, do, *, scale: float,
     plan, delta = _launch_dq(
         name, q4, k4, v4, o4, do4, dq4, lse, scale=scale, causal=causal,
         kv_lens=kv_lens, lens_strides=(q4.shape[1], 1), lut=lut,
-        rel_off=rel_off, maxd=maxd, hb=hb, bias=bias, variant=variant,
+        rel_off=rel_off, maxd=maxd, hb=hb, bias=bias,
+        dropout=(dropout_rate, dropout_seed), variant=variant,
         planted_fault=planted_fault)
-    _count(flash_bwd_flat_dq_cuda, plan, bias)
+    _count(flash_bwd_flat_dq_cuda, plan, bias, dropout_rate)
     return dq, delta
 
 
@@ -1452,6 +1669,7 @@ flash_bwd_flat_dq_cuda.launches = 0
 flash_bwd_flat_dq_cuda.wgmma_launches = 0
 flash_bwd_flat_dq_cuda.sm80_launches = 0
 flash_bwd_flat_dq_cuda.bias_launches = 0
+flash_bwd_flat_dq_cuda.dropout_launches = 0
 
 
 def flash_bwd_flat_dkv_cuda(q, k, v, o, lse, do, *, scale: float,
@@ -1460,6 +1678,8 @@ def flash_bwd_flat_dkv_cuda(q, k, v, o, lse, do, *, scale: float,
                             rel_bias: Optional[BucketedBias] = None,
                             bias: Optional[torch.Tensor] = None,
                             delta: Optional[torch.Tensor] = None,
+                            dropout_rate: float = 0.0,
+                            dropout_seed: Optional[int] = None,
                             variant: Optional[str] = None,
                             planted_fault: Optional[str] = None):
     """Launch the dK/dV kernel on bh-flat operands: dk, dv in k's shape
@@ -1467,10 +1687,12 @@ def flash_bwd_flat_dkv_cuda(q, k, v, o, lse, do, *, scale: float,
     the bucket-table gradient (num_buckets, heads) fp32 summed in the same
     kernel (None without; an array ``bias`` gets its gradient from
     :func:`flash_bwd_dbias_cuda`). The ``"wgmma"`` variant reads ``delta``
-    from :func:`flash_bwd_flat_dq_cuda` (call it first). Counts launches
-    in ``.launches``, by variant, those that carry the table gradient in
-    ``.table_launches`` and those with an array bias in
-    ``.bias_launches``."""
+    from :func:`flash_bwd_flat_dq_cuda` (call it first). Dropout as
+    :func:`flash_bwd_dkv_cuda`'s (the table gradient sums the dropped
+    dS). Counts launches in ``.launches``, by variant, those that carry
+    the table gradient in ``.table_launches``, those with an array bias in
+    ``.bias_launches`` and those with dropout in
+    ``.dropout_launches``."""
     name = "flash_bwd_flat_dkv_cuda"
     rows, q4, k4, v4, o4, do4 = _flat_views(q, k, v, o, do)
     _check_flat_bwd(q4, k4, v4, o4, do4, lse, kv_lens, name)
@@ -1485,9 +1707,9 @@ def flash_bwd_flat_dkv_cuda(q, k, v, o, lse, do, *, scale: float,
         name, q4, k4, v4, o4, do4, dk4, dv4, lse, delta, scale=scale,
         causal=causal, kv_lens=kv_lens, lens_strides=(q4.shape[1], 1),
         lut=lut, bucket=bucket, dtab=dtab, rel_off=rel_off, maxd=maxd,
-        hb=hb, nb=nb, bias=bias, variant=variant,
-        planted_fault=planted_fault)
-    _count(flash_bwd_flat_dkv_cuda, plan, bias)
+        hb=hb, nb=nb, bias=bias, dropout=(dropout_rate, dropout_seed),
+        variant=variant, planted_fault=planted_fault)
+    _count(flash_bwd_flat_dkv_cuda, plan, bias, dropout_rate)
     if dtab is not None:
         flash_bwd_flat_dkv_cuda.table_launches += 1
     return dk, dv, (None if dtab is None else dtab.t())
@@ -1498,6 +1720,7 @@ flash_bwd_flat_dkv_cuda.wgmma_launches = 0
 flash_bwd_flat_dkv_cuda.sm80_launches = 0
 flash_bwd_flat_dkv_cuda.table_launches = 0
 flash_bwd_flat_dkv_cuda.bias_launches = 0
+flash_bwd_flat_dkv_cuda.dropout_launches = 0
 
 
 def _dbias_planted(fault: Optional[str], plan: DbiasPlan, hb: int,
@@ -1594,30 +1817,42 @@ flash_bwd_dbias_cuda.sm80_launches = 0
 # --- dispatch -----------------------------------------------------------------
 
 def flash_fwd_packed(qkv: torch.Tensor, h: int, h_kv: int, d: int, *,
-                     scale: float, causal: bool, impl: str = "auto"
+                     scale: float, causal: bool, dropout_rate: float = 0.0,
+                     dropout_seed: Optional[int] = None, impl: str = "auto"
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash forward reading q/k/v out of the PACKED projection output
-    ``qkv`` (b, s, (h+2·h_kv)·d). Returns (o (b, s, h·d), lse (b, h, s))."""
+    ``qkv`` (b, s, (h+2·h_kv)·d). Returns (o (b, s, h·d), lse (b, h, s)).
+    ``dropout_rate > 0`` drops the probabilities by :func:`dropout_keep`
+    of the host int ``dropout_seed`` (the Pallas ``flash_fwd_packed``'s
+    ``dropout_rate``/``dropout_seed``)."""
+    seed = _check_dropout(dropout_rate, dropout_seed)
     if _backend.use_kernel(qkv, impl):
-        return flash_fwd_cuda(qkv, h, h_kv, d, scale=scale, causal=causal)
-    return _torch_flash_fwd(qkv, h, h_kv, d, scale, causal)
+        return flash_fwd_cuda(qkv, h, h_kv, d, scale=scale, causal=causal,
+                              dropout_rate=dropout_rate, dropout_seed=seed)
+    return _torch_flash_fwd(qkv, h, h_kv, d, scale, causal, dropout_rate,
+                            seed)
 
 
 def flash_bwd_packed(qkv: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
                      do: torch.Tensor, h: int, h_kv: int, d: int, *,
-                     scale: float, causal: bool, impl: str = "auto"
+                     scale: float, causal: bool, dropout_rate: float = 0.0,
+                     dropout_seed: Optional[int] = None, impl: str = "auto"
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Backward of :func:`flash_fwd_packed`: SEPARATE dq (b, s, h·d) and
     dk/dv (b, s, h_kv·d) — the caller contracts each against its weight
     window. On a CUDA tensor the dQ kernel runs first (it writes delta),
-    then the dK/dV kernel."""
+    then the dK/dV kernel; both rebuild the forward's dropout mask from
+    the same seed."""
+    seed = _check_dropout(dropout_rate, dropout_seed)
     if _backend.use_kernel(qkv, impl):
-        dq, delta = flash_bwd_dq_cuda(qkv, o, lse, do, h, h_kv, d,
-                                      scale=scale, causal=causal)
-        dk, dv = flash_bwd_dkv_cuda(qkv, o, lse, do, h, h_kv, d, scale=scale,
-                                    causal=causal, delta=delta)
+        kw = dict(scale=scale, causal=causal, dropout_rate=dropout_rate,
+                  dropout_seed=seed)
+        dq, delta = flash_bwd_dq_cuda(qkv, o, lse, do, h, h_kv, d, **kw)
+        dk, dv = flash_bwd_dkv_cuda(qkv, o, lse, do, h, h_kv, d,
+                                    delta=delta, **kw)
         return dq, dk, dv
-    return _torch_flash_bwd(qkv, o, lse, do, h, h_kv, d, scale, causal)
+    return _torch_flash_bwd(qkv, o, lse, do, h, h_kv, d, scale, causal,
+                            dropout_rate, seed)
 
 
 def _bias32(bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -1629,34 +1864,46 @@ def _bias32(bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 def flash_fwd_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    scale: float, causal: bool,
                    kv_lens: Optional[torch.Tensor] = None,
-                   bias: Optional[torch.Tensor] = None, impl: str = "auto"
+                   bias: Optional[torch.Tensor] = None,
+                   dropout_rate: float = 0.0,
+                   dropout_seed: Optional[int] = None, impl: str = "auto"
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Seq-major flash forward (the Pallas ``flash_fwd_bshd``): q (b, sq,
     h, d), k/v (b, sk, h_kv, d); ``kv_lens`` (b,) int32 per batch (the
     heads share a row's padding); ``bias`` (hb, sq, sk) with hb | h, head
     t reading bias row t % hb. Returns (o (b, sq, h, d), lse (b, h,
-    sq))."""
+    sq)); dropout keyed by q-head row t = b·h + head."""
     bias = _bias32(bias)
+    seed = _check_dropout(dropout_rate, dropout_seed)
+    _refuse_bias_dropout(bias, dropout_rate)
     if _backend.use_kernel(q, impl):
         return flash_fwd_bshd_cuda(q, k, v, scale=scale, causal=causal,
-                                   kv_lens=kv_lens, bias=bias)
-    return _torch_flash_fwd_bshd(q, k, v, scale, causal, kv_lens, bias)
+                                   kv_lens=kv_lens, bias=bias,
+                                   dropout_rate=dropout_rate,
+                                   dropout_seed=seed)
+    return _torch_flash_fwd_bshd(q, k, v, scale, causal, kv_lens, bias,
+                                 dropout_rate, seed)
 
 
 def flash_bwd_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
                    scale: float, causal: bool,
                    kv_lens: Optional[torch.Tensor] = None,
-                   bias: Optional[torch.Tensor] = None, impl: str = "auto"):
+                   bias: Optional[torch.Tensor] = None,
+                   dropout_rate: float = 0.0,
+                   dropout_seed: Optional[int] = None, impl: str = "auto"):
     """Backward of :func:`flash_fwd_bshd` (the Pallas ``flash_bwd_bshd``,
     ``:1395-1530``): (dq (b, sq, h, d), dk, dv (b, sk, h_kv, d), dbias
     (hb, sq, sk) fp32 or None). On a CUDA tensor the dQ kernel runs (it
     writes delta), then the dK/dV kernel, and with a bias the dbias
     kernel (both read that delta)."""
     bias = _bias32(bias)
+    seed = _check_dropout(dropout_rate, dropout_seed)
+    _refuse_bias_dropout(bias, dropout_rate)
     if _backend.use_kernel(q, impl):
         do = do if _seq_major_ok(do) else do.contiguous()
-        kw = dict(scale=scale, causal=causal, kv_lens=kv_lens, bias=bias)
+        kw = dict(scale=scale, causal=causal, kv_lens=kv_lens, bias=bias,
+                  dropout_rate=dropout_rate, dropout_seed=seed)
         dq, delta = flash_bwd_bshd_dq_cuda(q, k, v, o, lse, do, **kw)
         dk, dv = flash_bwd_bshd_dkv_cuda(q, k, v, o, lse, do, delta=delta,
                                          **kw)
@@ -1665,7 +1912,12 @@ def flash_bwd_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             kv_lens=kv_lens, layout="bshd", delta=delta))
         return dq, dk, dv, dbias
     return _torch_flash_bwd_bshd(q, k, v, o, lse, do, scale, causal, kv_lens,
-                                 bias)
+                                 bias, dropout_rate, seed)
+
+
+def _refuse_bias_dropout(bias, dropout_rate: float) -> None:
+    if bias is not None and dropout_rate > 0.0:
+        raise NotImplementedError(BIAS_DROPOUT)
 
 
 def _rows3(x: torch.Tensor) -> torch.Tensor:
@@ -1676,8 +1928,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               scale: float, causal: bool,
               kv_lens: Optional[torch.Tensor] = None,
               rel_bias: Optional[BucketedBias] = None,
-              bias: Optional[torch.Tensor] = None, impl: str = "auto"
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+              bias: Optional[torch.Tensor] = None,
+              dropout_rate: float = 0.0, dropout_seed: Optional[int] = None,
+              impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
     """The bh-flat flash forward (the Pallas ``flash_fwd``, ``:375-461``):
     q (bh, sq, d), k/v (bh_kv, sk, d) with bh_kv | bh — or the same as
     (b, h, s, d) views, which the kernel reads without a copy. ``kv_lens``
@@ -1685,16 +1938,20 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     gives o = 0, lse = 0); ``rel_bias`` adds the bucketed bias, row r
     reading table column r % heads, or ``bias`` the array bias (hb, sq,
     sk), row r reading bias row r % hb. Returns (o in q's shape, lse (bh,
-    sq) fp32)."""
+    sq) fp32). Dropout keyed by the flat q row t (not with an array
+    bias)."""
     bias = _bias32(bias)
+    seed = _check_dropout(dropout_rate, dropout_seed)
+    _refuse_bias_dropout(bias, dropout_rate)
     if _backend.use_kernel(q, impl):
         return flash_fwd_flat_cuda(q, k, v, scale=scale, causal=causal,
                                    kv_lens=kv_lens, rel_bias=rel_bias,
-                                   bias=bias)
+                                   bias=bias, dropout_rate=dropout_rate,
+                                   dropout_seed=seed)
     if rel_bias is not None:
         bias = rel_bias.materialize(q.shape[-2], k.shape[-2])
     o, lse = _torch_flash_fwd_flat(_rows3(q), _rows3(k), _rows3(v), scale,
-                                   causal, kv_lens, bias)
+                                   causal, kv_lens, bias, dropout_rate, seed)
     return o.reshape(q.shape), lse
 
 
@@ -1703,7 +1960,9 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float, causal: bool,
               kv_lens: Optional[torch.Tensor] = None,
               rel_bias: Optional[BucketedBias] = None,
-              bias: Optional[torch.Tensor] = None, impl: str = "auto"):
+              bias: Optional[torch.Tensor] = None,
+              dropout_rate: float = 0.0, dropout_seed: Optional[int] = None,
+              impl: str = "auto"):
     """Backward of :func:`flash_fwd` (the Pallas ``flash_bwd``,
     ``:1249-1411``): (dq, dk, dv) in their operands' shapes and the bias's
     fp32 cotangent — the table's (num_buckets, heads) with ``rel_bias``,
@@ -1712,9 +1971,12 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the table gradient) run, and with an array bias the dbias kernel, the
     last two on the dQ kernel's delta."""
     bias = _bias32(bias)
+    seed = _check_dropout(dropout_rate, dropout_seed)
+    _refuse_bias_dropout(bias, dropout_rate)
     if _backend.use_kernel(q, impl):
         kw = dict(scale=scale, causal=causal, kv_lens=kv_lens,
-                  rel_bias=rel_bias, bias=bias)
+                  rel_bias=rel_bias, bias=bias, dropout_rate=dropout_rate,
+                  dropout_seed=seed)
         dq, delta = flash_bwd_flat_dq_cuda(q, k, v, o, lse, do, **kw)
         dk, dv, dtab = flash_bwd_flat_dkv_cuda(q, k, v, o, lse, do,
                                                delta=delta, **kw)
@@ -1727,7 +1989,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     arr = bias if rel_bias is None else rel_bias.materialize(sq, sk)
     dq, dk, dv, dbias = _torch_flash_bwd_flat(
         _rows3(q), _rows3(k), _rows3(v), _rows3(o), lse, _rows3(do), scale,
-        causal, kv_lens, arr)
+        causal, kv_lens, arr, dropout_rate=dropout_rate, dropout_seed=seed)
     if rel_bias is not None:
         dbias = _table_grad(rel_bias, dbias)
     return (dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(v.shape),
@@ -1738,53 +2000,62 @@ class _FlashFlat(torch.autograd.Function):
     """The bh-flat core (``_flash_core``, ``:255-390``): the forward saves
     q, k, v, o and lse; the backward returns dq, dk, dv and the bias's
     cotangent. ``bias_t`` is the bucket table when ``rel`` (its bucketing)
-    is given, else the fp32 array bias or None."""
+    is given, else the fp32 array bias or None. ``drop`` is (rate, seed as
+    a host int): no mask is saved, the backward rebuilds it."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias_t, kv_lens, scale, causal, rel, impl):
+    def forward(ctx, q, k, v, bias_t, kv_lens, scale, causal, rel, impl,
+                drop):
         rb, arr = ((None, bias_t) if rel is None
                    else (BucketedBias(bias_t, *rel), None))
         o, lse = flash_fwd(q, k, v, scale=scale, causal=causal,
-                           kv_lens=kv_lens, rel_bias=rb, bias=arr, impl=impl)
+                           kv_lens=kv_lens, rel_bias=rb, bias=arr,
+                           dropout_rate=drop[0], dropout_seed=drop[1],
+                           impl=impl)
         ctx.save_for_backward(q, k, v, o, lse, kv_lens, bias_t)
-        ctx.attn = (scale, causal, rel, impl)
+        ctx.attn = (scale, causal, rel, impl, drop)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse, kv_lens, bias_t = ctx.saved_tensors
-        scale, causal, rel, impl = ctx.attn
+        scale, causal, rel, impl, drop = ctx.attn
         rb, arr = ((None, bias_t) if rel is None
                    else (BucketedBias(bias_t, *rel), None))
         dq, dk, dv, dbias = flash_bwd(q, k, v, o, lse, do, scale=scale,
                                       causal=causal, kv_lens=kv_lens,
-                                      rel_bias=rb, bias=arr, impl=impl)
+                                      rel_bias=rb, bias=arr,
+                                      dropout_rate=drop[0],
+                                      dropout_seed=drop[1], impl=impl)
         dbias = None if dbias is None else dbias.to(bias_t.dtype)
-        return dq, dk, dv, dbias, None, None, None, None, None
+        return dq, dk, dv, dbias, None, None, None, None, None, None
 
 
 class _FlashBshd(torch.autograd.Function):
     """The seq-major core (``_flash_core_bshd``, ``_flash_fwd_res_bshd``,
     ``_flash_bwd_bshd_impl``, ``:442-539``): the forward saves q, k, v, o
     and lse; the backward returns dq, dk, dv and the fp32 array bias's
-    cotangent."""
+    cotangent. ``drop`` (rate, host seed) as :class:`_FlashFlat`'s."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, kv_lens, scale, causal, impl):
+    def forward(ctx, q, k, v, bias, kv_lens, scale, causal, impl, drop):
         o, lse = flash_fwd_bshd(q, k, v, scale=scale, causal=causal,
-                                kv_lens=kv_lens, bias=bias, impl=impl)
+                                kv_lens=kv_lens, bias=bias,
+                                dropout_rate=drop[0], dropout_seed=drop[1],
+                                impl=impl)
         ctx.save_for_backward(q, k, v, o, lse, kv_lens, bias)
-        ctx.attn = (scale, causal, impl)
+        ctx.attn = (scale, causal, impl, drop)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse, kv_lens, bias = ctx.saved_tensors
-        scale, causal, impl = ctx.attn
+        scale, causal, impl, drop = ctx.attn
         dq, dk, dv, dbias = flash_bwd_bshd(q, k, v, o, lse, do, scale=scale,
                                            causal=causal, kv_lens=kv_lens,
-                                           bias=bias, impl=impl)
-        return dq, dk, dv, dbias, None, None, None, None
+                                           bias=bias, dropout_rate=drop[0],
+                                           dropout_seed=drop[1], impl=impl)
+        return dq, dk, dv, dbias, None, None, None, None, None
 
 
 def _bias_rows(bias: Union[BucketedBias, torch.Tensor]) -> int:
@@ -1797,7 +2068,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     bias: Optional[Union[BucketedBias, torch.Tensor]] = None,
                     impl: str = "auto", layout: str = "bhsd",
                     dropout_rate: float = 0.0,
-                    dropout_seed: Optional[torch.Tensor] = None
+                    dropout_seed: Optional[Union[int, torch.Tensor]] = None
                     ) -> torch.Tensor:
     """Blockwise attention (``apex_tpu/ops/attention.py:647-844``). ``scale``
     defaults to 1/sqrt(d); ``causal`` aligns bottom-right (row r sees keys
@@ -1826,15 +2097,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sharing a bias row) comes back in its own dtype. Both layouts run
     forward and backward.
 
-    ``dropout_rate > 0`` and a :class:`BucketedBias` on the bshd layout
-    are later slices of the port and raise ``NotImplementedError``."""
+    ``dropout_rate > 0`` drops the probabilities in the kernels
+    (``:700-737``): the mask is :func:`dropout_keep` of ``dropout_seed``
+    (an int32 value: an int, or a one-element int tensor, read once on
+    the host) over (q-head row t, query row, key column), t the row of
+    the flattened (batch·heads) leading dims; lse stays un-dropped and
+    kept probabilities are scaled by float32(1/(1 - rate)). The backward
+    rebuilds the mask from the seed; none is saved. Dropout with an array
+    bias raises ``NotImplementedError`` (its gradient kernel has no mask),
+    as does a :class:`BucketedBias` on the bshd layout (a later slice)."""
     if layout not in ("bhsd", "bshd"):
         raise ValueError(f"layout must be bhsd|bshd, got {layout!r}")
-    if dropout_rate != 0.0 or dropout_seed is not None:
-        raise NotImplementedError(
-            "flash_attention's in-kernel dropout (dropout_keep) is a later "
-            "slice of the port (ROADMAP queue 1, the rest of the train "
-            "step: dropout in the flash kernels)")
+    drop = (float(dropout_rate), _check_dropout(dropout_rate, dropout_seed))
+    if torch.is_tensor(bias) and dropout_rate > 0.0:
+        raise NotImplementedError(BIAS_DROPOUT)
     if isinstance(bias, BucketedBias):
         if layout == "bshd":
             raise NotImplementedError(
@@ -1871,7 +2147,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 f"layout='bshd' needs bias rows ({bias.shape[0]}) dividing "
                 f"q heads ({q.shape[2]})")
         return _FlashBshd.apply(q, k, v, _bias32(bias), kv_lens, s_scale,
-                                bool(causal), impl)
+                                bool(causal), impl, drop)
     if q.ndim < 2 or k.ndim != q.ndim or v.ndim != q.ndim:
         raise ValueError(f"layout='bhsd' takes (..., s, d) operands of one "
                          f"rank; got {tuple(q.shape)} / {tuple(k.shape)} / "
@@ -1917,7 +2193,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    int(bias.q_offset), int(bias.k_offset))
             bias_t = bias.table
     o = _FlashFlat.apply(q_, k_, v_, bias_t, kv_lens, s_scale, bool(causal),
-                         rel, impl)
+                         rel, impl, drop)
     return o.reshape(*lead, q.shape[-2], d)
 
 
@@ -1930,26 +2206,29 @@ class _FusedQKVAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w_qkv, b_qkv, w_out, h, h_kv, d, scale, causal,
-                impl):
+                impl, drop):
         qkv = F.linear(x, w_qkv, b_qkv)
         o, lse = flash_fwd_packed(qkv, h, h_kv, d, scale=scale,
-                                  causal=causal, impl=impl)
+                                  causal=causal, dropout_rate=drop[0],
+                                  dropout_seed=drop[1], impl=impl)
         y = F.linear(o, w_out)
         ctx.save_for_backward(x, qkv, o, lse, w_qkv, w_out)
-        ctx.attn = (h, h_kv, d, scale, causal, impl, b_qkv is not None)
+        ctx.attn = (h, h_kv, d, scale, causal, impl, b_qkv is not None, drop)
         return y
 
     @staticmethod
     def backward(ctx, dy):
         x, qkv, o, lse, w_qkv, w_out = ctx.saved_tensors
-        h, h_kv, d, scale, causal, impl, has_bias = ctx.attn
+        h, h_kv, d, scale, causal, impl, has_bias, drop = ctx.attn
         b, s, H = x.shape
         T = b * s
         dy2 = dy.reshape(T, -1)
         dw_out = dy2.t() @ o.reshape(T, h * d)
         do = (dy2 @ w_out).reshape(b, s, h * d)
         dq, dk, dv = flash_bwd_packed(qkv, o, lse, do, h, h_kv, d,
-                                      scale=scale, causal=causal, impl=impl)
+                                      scale=scale, causal=causal,
+                                      dropout_rate=drop[0],
+                                      dropout_seed=drop[1], impl=impl)
         del do
         x2 = x.reshape(T, H)
         dq2, dk2, dv2 = dq.reshape(T, -1), dk.reshape(T, -1), dv.reshape(T, -1)
@@ -1961,13 +2240,15 @@ class _FusedQKVAttention(torch.autograd.Function):
         db_qkv = (torch.cat([dq2.sum(0), dk2.sum(0), dv2.sum(0)]).to(
             w_qkv.dtype) if has_bias else None)
         return (dx, dw_qkv.to(w_qkv.dtype), db_qkv, dw_out.to(w_out.dtype),
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 def fused_qkv_attention(x: torch.Tensor, w_qkv: torch.Tensor,
                         b_qkv: Optional[torch.Tensor], w_out: torch.Tensor,
                         h: int, h_kv: int, d: int, scale: float,
-                        causal: bool = True, *,
+                        causal: bool = True, *, dropout_rate: float = 0.0,
+                        dropout_seed: Optional[Union[int,
+                                                     torch.Tensor]] = None,
                         impl: str = "auto") -> torch.Tensor:
     """Packed-QKV projection → flash attention → output projection as ONE
     differentiable block. ``x`` (b, s, H); ``w_qkv`` ((h + 2·h_kv)·d, H)
@@ -1978,7 +2259,11 @@ def fused_qkv_attention(x: torch.Tensor, w_qkv: torch.Tensor,
     tensor (an unsupported shape or dtype raises) and the plain version on
     a CPU tensor or with ``impl="torch"``. The backward returns dq/dk/dv
     separately and contracts each against its weight window: dx sums three
-    GEMMs, dW_qkv concatenates three, db_qkv three column sums."""
+    GEMMs, dW_qkv concatenates three, db_qkv three column sums.
+    ``dropout_rate > 0`` drops the probabilities in the flash kernels
+    (``:545-547``; the seed as :func:`flash_attention`'s), the backward
+    rebuilding the mask from the seed."""
+    drop = (float(dropout_rate), _check_dropout(dropout_rate, dropout_seed))
     if x.ndim != 3 or w_qkv.shape != ((h + 2 * h_kv) * d, x.shape[-1]) \
             or w_out.shape[-1] != h * d:
         raise ValueError(
@@ -1987,4 +2272,4 @@ def fused_qkv_attention(x: torch.Tensor, w_qkv: torch.Tensor,
             f"{tuple(w_qkv.shape)}, w_out {tuple(w_out.shape)} for h={h}, "
             f"h_kv={h_kv}, d={d}")
     return _FusedQKVAttention.apply(x, w_qkv, b_qkv, w_out, h, h_kv, d,
-                                    float(scale), bool(causal), impl)
+                                    float(scale), bool(causal), impl, drop)

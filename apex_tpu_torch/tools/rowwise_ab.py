@@ -1,9 +1,12 @@
-"""The row-wise, decode, sampling and verify kernels of another checkout,
-for timing in turns.
+"""The row-wise, decode, sampling, verify and flash kernels of another
+checkout, for timing in turns.
 
 Builds a second checkout's ``layer_norm.cu``, ``softmax.cu``,
-``paged_decode_attn.cu``, ``fused_sample.cu`` and ``fused_verify.cu``
-(with its own headers and ``errors.cu``) into a library of their own, loads it with ``ctypes``, and
+``paged_decode_attn.cu``, ``fused_sample.cu``, ``fused_verify.cu`` and the
+flash forward and backward pair (``flash_attn_fwd.cu``,
+``flash_attn_bwd.cu``, the sm80 and dropout files their entries reach;
+with its own headers and ``errors.cu``) into a library of their own, loads
+it with ``ctypes``, and
 runs the port's wrappers through it inside :func:`using` — the wrappers
 look the library up on every call, so the same Python code launches either
 tree's kernels:
@@ -14,14 +17,15 @@ tree's kernels:
         ln_bwd_cuda(...)          # the other checkout's apex_ln_bwd
 
 ``chip_smoke.py --parent DIR`` times ``ln_fwd``, ``ln_bwd``,
-``softmax_fwd``, ``softmax_bwd``, the two decode kernels, ``fused_sample``
-and the two verify kernels so, against a ``git archive`` of the parent
-commit unpacked into a directory that ``.gitignore`` lists. The entry
-points take the signatures of this tree's ``_build.ENTRY_POINTS``, except
-those this tree changed (:data:`PARENT_ENTRY_POINTS`): the parent's verify
-pair has no top-p, and the library :func:`other_library` returns drops
-this tree's ``use_top_p, top_p`` from their calls (refusing a call that
-asks for top-p). Needs ``nvcc``.
+``softmax_fwd``, ``softmax_bwd``, the two decode kernels, ``fused_sample``,
+the two verify kernels and the dropout-free flash forward, dQ and dK/dV so,
+against a ``git archive`` of the parent commit unpacked into a directory
+that ``.gitignore`` lists. The entry points take the signatures of this
+tree's ``_build.ENTRY_POINTS``, except those this tree changed
+(:data:`PARENT_ENTRY_POINTS`): the parent's five flash entries have no
+dropout, and the library :func:`other_library` returns drops this tree's
+four dropout arguments (before the stream) from their calls, refusing a
+call that asks for dropout. Needs ``nvcc``.
 
 :func:`empty_library` builds this tree's ``ln_fwd``, sampling and verify
 kernels returning at once, for the fixed cost of a launch.
@@ -45,42 +49,46 @@ from apex_tpu_torch import nvcc_path
 from apex_tpu_torch.ops import _build
 
 SOURCES = ("layer_norm.cu", "softmax.cu", "paged_decode_attn.cu",
-           "fused_sample.cu", "fused_verify.cu", "errors.cu")
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+           "fused_sample.cu", "fused_verify.cu", "flash_attn_fwd.cu",
+           "flash_attn_fwd_sm80.cu", "flash_attn_fwd_dropout.cu",
+           "flash_attn_bwd.cu", "flash_attn_bwd_sm80.cu",
+           "flash_attn_bwd_dropout.cu", "errors.cu")
+#: the flash entries whose dropout arguments (the seed, the threshold, the
+#: scale, the planted fault: the four before the stream) the parent has not
+_DROPOUT_ENTRIES = ("apex_flash_fwd", "apex_flash_fwd_bshd",
+                    "apex_flash_fwd_flat", "apex_flash_bwd_dq",
+                    "apex_flash_bwd_dkv")
 #: the parent commit's entries whose signatures this tree changed: the
-#: verify pair without ``use_top_p, top_p`` after ``top_k``
-PARENT_ENTRY_POINTS = {
-    "apex_fused_verify": [_P] * 8 + [_I] * 6 + [_F] + [_I] * 6 + [_P],
-    "apex_fused_verify_tree": [_P] * 11 + [_I] * 6 + [_F] + [_I] * 6 + [_P],
-}
-#: where this tree's ``use_top_p, top_p`` sit in those entries' arguments
-_TOP_P_AT = {"apex_fused_verify": 16, "apex_fused_verify_tree": 19}
+#: flash entries without the dropout arguments
+PARENT_ENTRY_POINTS = {name: _build.ENTRY_POINTS[name][:-5]
+                       + _build.ENTRY_POINTS[name][-1:]
+                       for name in _DROPOUT_ENTRIES}
 
 
 class ParentLibrary:
     """The parent's library under this tree's entry signatures: calls of
     the entries in :data:`PARENT_ENTRY_POINTS` drop the arguments the
-    parent does not take (a call asking for top-p, which the parent's
-    verify pair has not, raises); every other entry is the parent's."""
+    parent does not take (a call asking for dropout, which the parent's
+    flash kernels have not, raises); every other entry is the parent's."""
 
     def __init__(self, lib):
         self._lib = lib
 
     def __getattr__(self, name):
         fn = getattr(self._lib, name)
-        at = _TOP_P_AT.get(name)
-        if at is None:
+        if name not in PARENT_ENTRY_POINTS:
             return fn
 
         def call(*args):
-            if args[at]:
-                raise ValueError(f"the parent's {name} has no top-p")
-            return fn(*args[:at], *args[at + 2:])
+            if args[-4]:  # the dropout threshold
+                raise ValueError(f"the parent's {name} has no dropout")
+            return fn(*args[:-5], args[-1])
         return call
 
 
 def other_library(root) -> Tuple[ParentLibrary, str]:
-    """Build ``root``'s row-wise, decode, sampling and verify kernels with
+    """Build ``root``'s row-wise, decode, sampling, verify and flash
+    kernels with
     this tree's flags into ``_build/other_<digest>/`` and load them:
     (library under this tree's signatures, ptxas log)."""
     csrc = Path(root).resolve() / "apex_tpu_torch" / "csrc"
@@ -95,8 +103,11 @@ def other_library(root) -> Tuple[ParentLibrary, str]:
         raise RuntimeError("nvcc not found: the other checkout's kernels "
                            "are built from source")
     lib_path = out / "librowwise.so"
-    log, failed = _build.compile_library([csrc / src for src in SOURCES],
-                                         csrc, lib_path)
+    # a checkout older than a source in SOURCES builds without it (the
+    # flash dropout units came with the flash entries' dropout arguments)
+    log, failed = _build.compile_library(
+        [csrc / src for src in SOURCES if (csrc / src).exists()], csrc,
+        lib_path)
     if failed:
         raise RuntimeError(f"building {csrc}'s {', '.join(failed)} "
                            f"failed:\n{log}")

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """chip_smoke.py — drive apex_tpu_torch's serving path, its decode engine
-(with speculative decoding), its GPT-medium train step, its T5-base train
-step (with the bucketed and the materialised relative bias), its
+(with speculative decoding), its GPT-medium train step (also with GPT-2's
+dropout 0.1 and under each remat policy), its T5-base train
+step (with the bucketed and the materialised relative bias, and under
+``remat_policy="encode_only"``), its
 BERT-large padded MLM train step, the three train steps again on the
 models' default softmax attention route, and the fused-dense block and
 MLP train steps, on one CUDA card.
@@ -180,6 +182,27 @@ without the final line):
    kernel path against the plain path (``impl="torch"``, same weights and
    batch) within stated bounds, and 2 profiled train steps (device time
    by kernel, launches per step, device-busy share);
+8b. dropout: each flash family with dropout 0.1 against its
+   plain version on the same seed under the bf16 rule, forward and
+   backward, lse bit-identical to the dropout-free call's — packed at
+   GPT's call, bshd at BERT's with kv_lens, bh-flat at T5's encoder call
+   with the bucketed bias (the table gradient), a packed GQA 8/2 case —
+   and four planted faults refused on the GQA case (the key of the kv
+   head's row, row and column swapped, the mask left out of dK/dV's dS,
+   l summed from the dropped p; ``dropout_faults``); the elementwise
+   dropout kernel bit-identical to its plain version forward and
+   backward in fp32 and bf16, its kept share over the GPT activation
+   within 5 binomial sigmas of 0.9 and its fp32-scale fault refused
+   (``dropout_kernel_check``); times of each flash kernel with and
+   without dropout at GPT's, BERT's and T5's calls, without beside the
+   parent's in turns under ``--parent`` (``flash_dropout_times``); then
+   the ``gpt_dropout_train`` leg (the train config with dropout 0.1: one
+   step kernel vs plain on one set of seeds, 5 timed steps with fresh
+   seeds, per step 12 flash forwards, dQ and dK/dV all with dropout and
+   24 + 24 dropout-kernel launches asserted; step ms, tokens/s and MFU
+   beside the dropout-free leg's) and the ``gpt_remat_policies`` leg
+   (each remat policy's loss and gradients against remat off on one set
+   of seeds, then 2 steps each: step ms, peak memory, launches);
 9. the T5 slice (T5-base widths, relative position bias, per-block
    remat, batch 128 x (512 in, 114 out)):
    * the bh-flat flash forward, dK/dV (with the fused bucket-table
@@ -204,6 +227,11 @@ without the final line):
      the params the timed steps left, on their batch;
    * a padded step (encoder lengths in [256, 512]) with the same counts,
      and 2 profiled steps;
+   * ``remat_policy="encode_only"`` beside ``"blocks"`` (the whole
+     encoder one checkpoint, the decoder not rematted): one step's loss
+     and gradients against blocks' and each policy's peak memory, then 2
+     steps each (48/36/36/24 flat forward/dK-dV/dQ/table launches a step
+     under encode_only);
 10. the BERT slice (BERT-large: 24 layers, hidden 1024, 16 heads of 64,
     FFN 4096, vocab 30592, sequence 512, bf16, per-block remat):
     * the bshd forward with per-batch kv_lens, dQ and dK/dV kernels
@@ -241,7 +269,10 @@ without the final line):
     (128 x (512, 114), 5 steps: learned 72/36 softmax, relative 24/12 —
     the cross-attention only, the biased self-attention taking the fp32
     composition — and 122/62 norm, 1 xent_stats); each leg ends with 2
-    profiled steps (device time by layer, busy share);
+    profiled steps (device time by layer, busy share); then one step of
+    the GPT route with dropout 0.1 (``gpt_softmax_dropout``), kernel path
+    against plain path, with 12/12 softmax and 36/36 dropout-kernel
+    launches;
 13. the fused-dense and MLP slice (``ops/fused_dense.py``, ``ops/mlp.py``
     over ``matmul_bias_act``, whose bf16 calls take the wgmma/TMA variant
     when a tensor map describes both operands and the kernel's first,
@@ -276,7 +307,7 @@ without the final line):
       no-grad forward with 5 wgmma launches (relu in the epilogue), and
       it and the sigmoid forward against the plain version and an fp32
       truth by MATMUL_SLACK's rule; 2 profiled steps;
-14. one ``{"kernels": [...]}`` line (all twenty-two kernels, each with
+14. one ``{"kernels": [...]}`` line (all twenty-three kernels, each with
     its launches by main path; matmul_bias_act and the flash kernels
     also by variant, every train leg's, the decode leg's and the T5
     materialized leg's flash forward and dbias launches asserted on
@@ -1208,17 +1239,20 @@ def phase_train(torch, dev):
     return (model, params, opt, tokens, targets), info, launches
 
 
-def phase_train_plain(torch, model, params, tokens, targets):
+def phase_train_plain(torch, model, params, tokens, targets, seeds=None,
+                      tag="train_plain_path"):
     """One step's loss and gradients, kernel path vs plain path, on the
-    same weights and batch (no optimizer step). The k window of each
-    qkv bias is left out of its leaf's norm: its exact gradient is 0 (one
-    constant added to every score of a row), so both paths hold only bf16
-    rounding noise there."""
+    same weights and batch (no optimizer step), with the dropout
+    ``seeds`` (None: no dropout). The k window of each qkv bias is left
+    out of its leaf's norm: its exact gradient is 0 (one constant added to
+    every score of a row), so both paths hold only bf16 rounding noise
+    there."""
     c = model.config
     h, d = c.num_heads, c.head_dim
 
     def loss_and_grads(impl):
-        loss = model.loss_fn(params, tokens, targets, impl=impl)
+        loss = model.loss_fn(params, tokens, targets, dropout_seeds=seeds,
+                             impl=impl)
         loss.backward()
         out = {}
         for name, t in named_leaves(params):
@@ -1241,12 +1275,13 @@ def phase_train_plain(torch, model, params, tokens, targets):
             "grad_worst_leaf": worst[0][0], "grad_tol": TRAIN_GRAD_TOL,
             "median_leaf_err": statistics.median(rel.values()),
             "leaf_rel_norm_err": rel}
-    emit("train_plain_path", info)
+    emit(tag, info)
     check(info["loss_rel_diff"] <= TRAIN_LOSS_TOL,
           f"train loss kernel vs plain: rel diff {info['loss_rel_diff']}")
     check(worst[0][1] <= TRAIN_GRAD_TOL,
           f"train gradient {worst[0][0]} kernel vs plain: rel norm err "
           f"{worst[0][1]} > {TRAIN_GRAD_TOL}")
+    return info
 
 
 def kernel_category(name):
@@ -3460,17 +3495,34 @@ def bert_step(model, params, opt, batch):
 
 
 def path_counters():
-    """Every flash, xent_stats, layer-norm, softmax and matmul counter, by
-    name (the flash kernels' also by variant: ``<name>_wgmma``,
-    ``<name>_sm80``): the kernels a path must launch and those it must
+    """Every flash, xent_stats, layer-norm, softmax, matmul and dropout
+    counter, by name (the flash kernels' also by variant: ``<name>_wgmma``,
+    ``<name>_sm80``, and with dropout, ``<name>_dropout``; the dropout
+    kernel's forward and backward launches, ``dropout_fwd`` and
+    ``dropout_bwd``): the kernels a path must launch and those it must
     not."""
     from apex_tpu_torch.ops import attention as A
+    from apex_tpu_torch.ops import dropout as D
     from apex_tpu_torch.ops import layer_norm as LN
     from apex_tpu_torch.ops import matmul as MM
     from apex_tpu_torch.ops import softmax as S
     from apex_tpu_torch.ops import xentropy as X
 
+    flash = (("flash_fwd", A.flash_fwd_cuda),
+             ("flash_fwd_bshd", A.flash_fwd_bshd_cuda),
+             ("flash_fwd_flat", A.flash_fwd_flat_cuda),
+             ("flash_bwd_dkv", A.flash_bwd_dkv_cuda),
+             ("flash_bwd_dq", A.flash_bwd_dq_cuda),
+             ("flash_bwd_bshd_dkv", A.flash_bwd_bshd_dkv_cuda),
+             ("flash_bwd_bshd_dq", A.flash_bwd_bshd_dq_cuda),
+             ("flash_bwd_flat_dkv", A.flash_bwd_flat_dkv_cuda),
+             ("flash_bwd_flat_dq", A.flash_bwd_flat_dq_cuda))
     return {"flash_fwd": (A.flash_fwd_cuda, "launches"),
+            **{f"{name}_dropout": (fn, "dropout_launches")
+               for name, fn in flash},
+            "dropout": (D.dropout_cuda, "launches"),
+            "dropout_fwd": (D.dropout_cuda, "fwd_launches"),
+            "dropout_bwd": (D.dropout_cuda, "bwd_launches"),
             "flash_bwd_dkv": (A.flash_bwd_dkv_cuda, "launches"),
             "flash_bwd_dq": (A.flash_bwd_dq_cuda, "launches"),
             **{f"{name}_{v}": (fn, f"{v}_launches")
@@ -4990,6 +5042,539 @@ def phase_mlp_leg(torch, dev):
     return info, launches, fwd_launches
 
 
+# --- dropout: the flash kernels' masks, the elementwise kernel, the legs ------
+
+# GPT-2's dropout (Radford et al. 2019, the public GPT-2 config:
+# attn_pdrop = resid_pdrop = 0.1) on the train slice's configuration
+DROP_RATE = 0.1
+GPT_DROPOUT = dict(TRAIN, dropout=DROP_RATE)
+DROPOUT_STEPS = 5        # timed steps of the gpt_dropout_train leg
+REMAT_STEPS = 2          # steps of each policy of the gpt_remat_policies leg
+ENCODE_ONLY_STEPS = 2    # steps of each policy of the T5 encode_only leg
+# the elementwise kernel's kept share over the GPT activation must lie
+# within this many binomial standard deviations of 1 - rate
+KEEP_SIGMAS = 5.0
+# the flash kernels' dropout faults (DROPOUT_FAULTS): the rule must refuse
+# each on the GQA case, where a kv head's row differs from a q head's
+FLASH_DROP_FAULTS = {"key_kv_head": ("fwd", "dq", "dkv"),
+                     "swap_row_col": ("fwd", "dq", "dkv"),
+                     "no_dkv_ds_mask": ("dkv",),
+                     "l_from_dropped": ("fwd",)}
+# each dropout kernel check's results, by case, for the kernels line
+DROPOUT_CHECKS = {}
+
+
+def drop_family(torch, name, fwd, bwd, ins, do, kw, seed, shape):
+    """One flash family's dispatchers with dropout against their plain
+    versions under the bf16 rule (rule_check), forward and backward, the
+    same seed on both: o, and lse bit-identical to the dropout-free
+    kernel call's; dq, dk, dv (and the bucket table's gradient, held to
+    T5_DTABLE_TOL of the fp32 truth beside the plain version's error).
+    ``fwd(ins, **kw)`` -> (o, lse); ``bwd(ins, o, lse, do, **kw)`` ->
+    (dq, dk, dv[, table or bias gradient]). Returns the plain outputs
+    (o, lse) and each output's max abs error."""
+    dk = dict(kw, dropout_rate=DROP_RATE, dropout_seed=seed)
+    up = [x.float() for x in ins]
+    o, lse = fwd(ins, **dk)
+    _, lse0 = fwd(ins, **kw)
+    o_p, lse_p = fwd(ins, impl="torch", **dk)
+    o_t, lse_t = fwd(up, impl="torch", **dk)
+    torch.cuda.synchronize()
+    tag = "dropout_check"
+    errs = {"o": rule_check(f"{name} o", o, o_p, o_t, shape, tag),
+            "lse": rule_check(f"{name} lse", lse, lse_p, lse_t, shape, tag)}
+    same = torch.equal(lse, lse0)
+    check(same, f"{name}: lse with dropout differs from the dropout-free "
+          f"call's")
+    del o, o_t, lse_t, lse0
+    got = bwd(ins, o_p, lse_p, do, **dk)
+    plain = bwd(ins, o_p, lse_p, do, impl="torch", **dk)
+    truth = bwd(up, o_p.float(), lse_p, do.float(), impl="torch", **dk)
+    torch.cuda.synchronize()
+    for out, g, p_, t_ in zip(("dq", "dk", "dv"), got, plain, truth):
+        check(torch.isfinite(g.float()).all().item(),
+              f"{name} {out}: not finite")
+        errs[out] = rule_check(f"{name} {out}", g, p_, t_, shape, tag)
+    if len(got) > 3 and got[3] is not None:
+        nrm = truth[3].norm().clamp_min(1e-30)
+        e_k = ((got[3] - truth[3]).norm() / nrm).item()
+        e_p = ((plain[3].float() - truth[3]).norm() / nrm).item()
+        emit(tag, {"output": f"{name} dtable", "shape": shape,
+                   "rel_norm_err": e_k, "plain_bf16_rel_norm_err": e_p})
+        check(e_k <= 2 * e_p + T5_DTABLE_TOL,
+              f"{name} table gradient: rel norm err {e_k}")
+        errs["dtable_rel"] = e_k
+    DROPOUT_CHECKS[name] = dict(errs, lse_bit_identical=same, seed=seed,
+                                shape=shape)
+    del got, plain, truth, up
+    torch.cuda.empty_cache()
+    return (o_p, lse_p), errs
+
+
+def drop_faults(torch, qkv, do, h, h_kv, d, plain_fwd, seed):
+    """Each planted dropout fault (FLASH_DROP_FAULTS) on the packed GQA
+    case must fail the bf16 rule on an output it touches (or, for l from
+    the dropped p, leave lse unequal to the dropout-free call's)."""
+    from apex_tpu_torch.ops import attention as A
+
+    kw = dict(scale=d ** -0.5, causal=True, dropout_rate=DROP_RATE,
+              dropout_seed=seed)
+    o_p, lse_p = plain_fwd
+    o_t, _ = A.flash_fwd_packed(qkv.float(), h, h_kv, d, impl="torch", **kw)
+    plain = A.flash_bwd_packed(qkv, o_p, lse_p, do, h, h_kv, d,
+                               impl="torch", **kw)
+    truth = A.flash_bwd_packed(qkv.float(), o_p.float(), lse_p, do.float(),
+                               h, h_kv, d, impl="torch", **kw)
+    _, lse0 = A.flash_fwd_cuda(qkv, h, h_kv, d, scale=kw["scale"],
+                               causal=True)
+    out = {}
+    for fault, where in FLASH_DROP_FAULTS.items():
+        f = lambda k: fault if k in where else None  # noqa: E731
+        o, lse = A.flash_fwd_cuda(qkv, h, h_kv, d, planted_fault=f("fwd"),
+                                  **kw)
+        dq, delta = A.flash_bwd_dq_cuda(qkv, o_p, lse_p, do, h, h_kv, d,
+                                        planted_fault=f("dq"), **kw)
+        dk, dv = A.flash_bwd_dkv_cuda(qkv, o_p, lse_p, do, h, h_kv, d,
+                                      delta=delta, planted_fault=f("dkv"),
+                                      **kw)
+        torch.cuda.synchronize()
+        fails = [n for n, g, p_, t_ in (("o", o, o_p, o_t),
+                                        ("dq", dq, plain[0], truth[0]),
+                                        ("dk", dk, plain[1], truth[1]),
+                                        ("dv", dv, plain[2], truth[2]))
+                 if not rule_ok(g, p_, t_)[0]]
+        if not torch.equal(lse, lse0):
+            fails.append("lse")
+        out[fault] = fails
+        check(fails, f"planted dropout fault {fault!r} passed every rule")
+    emit("dropout_faults", out)
+    return out
+
+
+def drop_times(torch, wrappers, ins, bwd_ins, kw, seed):
+    """The wrappers' (forward, dQ, dK/dV) device times without dropout —
+    beside the parent's kernels in turns under --parent (parent_turns) —
+    and with dropout at DROP_RATE, on the same inputs."""
+    fwd_w, dq_w, dkv_w = wrappers
+    out = {}
+    for rate in (0.0, DROP_RATE):
+        k = dict(kw, dropout_rate=rate, dropout_seed=seed if rate else None)
+        _, delta = dq_w(*bwd_ins, **k)
+        calls = {"fwd": lambda k=k: fwd_w(*ins, **k),
+                 "dq": lambda k=k: dq_w(*bwd_ins, **k),
+                 "dkv": lambda k=k, dl=delta: dkv_w(*bwd_ins, delta=dl,
+                                                    **k)}
+        for name, fn in calls.items():
+            if rate == 0.0:
+                ms, parent = parent_turns(torch, fn, [()])
+                out[name] = {"no_dropout_ms": ms, "parent_ms": parent}
+            else:
+                out[name]["dropout_ms"] = time_ms(fn, [()])
+    for v in out.values():
+        v["dropout_over_no_dropout"] = v["dropout_ms"] / v["no_dropout_ms"]
+        if v["parent_ms"]:
+            v["no_dropout_over_parent"] = v["no_dropout_ms"] / v["parent_ms"]
+    return out
+
+
+def phase_dropout_kernels(torch, dev):
+    """Dropout in the flash kernels and the elementwise dropout kernel:
+    each flash family at rate 0.1 against its plain version with the same
+    seed (drop_family) — packed at GPT's call (20 x 1024, 8 x 128,
+    causal), bshd at BERT's call with kv_lens (views of one packed
+    projection, a full row and a length-0 row), bh-flat at T5's encoder
+    call with the bucketed bias and kv_lens (the table gradient), a
+    packed GQA 8/2 case — the planted faults refused on the GQA case;
+    the elementwise kernel bit-identical to its plain version forward and
+    backward in fp32 and bf16, its kept share over the GPT activation
+    within KEEP_SIGMAS binomial deviations, its fp32-scale fault refused;
+    times: each flash kernel with and without dropout at GPT's, BERT's
+    and T5's calls (without, in turns with the parent's under --parent),
+    the elementwise kernel beside its bound. Returns (the dropout kernel's
+    kernels-line entry, the flash kernels' dropout times by family)."""
+    from apex_tpu_torch.ops import attention as A
+    from apex_tpu_torch.ops import dropout as D
+
+    packed = lambda h, h_kv, d: (  # noqa: E731
+        lambda ins, **k: A.flash_fwd_packed(ins[0], h, h_kv, d, **k),
+        lambda ins, o, lse, do, **k: A.flash_bwd_packed(
+            ins[0], o, lse, do, h, h_kv, d, **k))
+    times = {}
+    for name, (b, s, h, h_kv) in (("gpt_packed", (TRAIN_BATCH, TRAIN_SEQ,
+                                                  8, 8)),
+                                  ("gqa_packed", (8, 1000, 8, 2))):
+        d, seed = 128, -12345 if h_kv < h else 2 ** 31 - 1
+        qkv, do = flash_case(torch, dev, b, s, h, h_kv, d, seed=s + h_kv)
+        kw = dict(scale=d ** -0.5, causal=True)
+        shape = {"b": b, "s": s, "h": h, "h_kv": h_kv, "d": d,
+                 "rate": DROP_RATE}
+        plain_fwd, _ = drop_family(torch, name, *packed(h, h_kv, d), (qkv,),
+                                   do, kw, seed, shape)
+        if h_kv < h:
+            drop_faults(torch, qkv, do, h, h_kv, d, plain_fwd, seed)
+        else:
+            o, lse = plain_fwd
+            times["gpt_packed"] = drop_times(
+                torch, (A.flash_fwd_cuda, A.flash_bwd_dq_cuda,
+                        A.flash_bwd_dkv_cuda), (qkv, h, h_kv, d),
+                (qkv, o, lse, do, h, h_kv, d), kw, seed)
+        del qkv, do, plain_fwd
+        torch.cuda.empty_cache()
+
+    # BERT's call: views of one packed projection, per-batch kv_lens
+    b, s, h, d = BERT_BATCH, BERT_SEQ, BERT["num_heads"], 64
+    q, k, v, do = packed_views(torch, dev, b, s, h, h, d, seed=31)
+    lens = seeded_lens(torch, dev, b, BERT_PAD_MIN, s, seed=32)
+    lens[0], lens[1] = s, 0
+    kw = dict(scale=d ** -0.5, causal=False, kv_lens=lens)
+    drop_family(torch, "bert_bshd",
+                lambda ins, **k_: A.flash_fwd_bshd(*ins, **k_),
+                lambda ins, o, lse, g, **k_: A.flash_bwd_bshd(*ins, o, lse, g,
+                                                              **k_),
+                (q, k, v), do, kw, 424242,
+                {"b": b, "s": s, "h": h, "d": d, "kv_lens": "[64, 512]",
+                 "rate": DROP_RATE})
+    o, lse = A.flash_fwd_bshd(q, k, v, **kw)
+    times["bert_bshd"] = drop_times(
+        torch, (A.flash_fwd_bshd_cuda, A.flash_bwd_bshd_dq_cuda,
+                A.flash_bwd_bshd_dkv_cuda), (q, k, v), (q, k, v, o, lse, do),
+        kw, 424242)
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+
+    # T5's encoder call: bh-flat views, the bucketed bias, kv_lens
+    ins, kw, (sq, sk, h, d) = t5_attn_case(torch, dev, "enc", T5_BATCH,
+                                           seed=41, padded=True)
+    q, k, v, do = ins
+    drop_family(torch, "t5_enc_flat",
+                lambda x, **k_: A.flash_fwd(*x, **k_),
+                lambda x, o, lse, g, **k_: A.flash_bwd(*x, o, lse, g, **k_),
+                (q, k, v), do, kw, -2 ** 31,
+                {"b": T5_BATCH, "h": h, "sq": sq, "sk": sk, "d": d,
+                 "bias": "bucketed", "kv_lens": "[256, 512]",
+                 "rate": DROP_RATE})
+    o, lse = A.flash_fwd(q, k, v, **kw)
+    times["t5_enc_flat"] = drop_times(
+        torch, (A.flash_fwd_flat_cuda, A.flash_bwd_flat_dq_cuda,
+                A.flash_bwd_flat_dkv_cuda), (q, k, v), (q, k, v, o, lse, do),
+        kw, -2 ** 31)
+    del q, k, v, do, o, lse, ins
+    torch.cuda.empty_cache()
+    emit("flash_dropout_times", times)
+
+    # the elementwise kernel
+    n_rows, n = TRAIN_BATCH * TRAIN_SEQ, MODEL["hidden_size"]
+    g = torch.Generator(device=dev).manual_seed(51)
+    x32 = torch.randn((n_rows, n), generator=g, device=dev)
+    dy32 = torch.randn((n_rows, n), generator=g, device=dev)
+    exact = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for shape in ((n_rows, n), (7, 13), (3, 5, 96)):
+            numel = int(np.prod(shape))
+            x = x32.flatten()[:numel].view(shape).to(dt)
+            dy = dy32.flatten()[:numel].view(shape).to(dt)
+            for seed in (0, -7, 2 ** 31 - 1, -2 ** 31):
+                same = (torch.equal(D.dropout_cuda(x, DROP_RATE, seed),
+                                    D.dropout_plain(x, DROP_RATE, seed))
+                        and torch.equal(
+                            D.dropout_cuda(dy, DROP_RATE, seed,
+                                           backward=True),
+                            D.dropout_plain(dy, DROP_RATE, seed)))
+                exact[f"{dt} {shape} seed {seed}"] = same
+                check(same, f"dropout kernel differs from its plain version "
+                      f"at {dt} {shape}, seed {seed}")
+    xb = x32.bfloat16()
+    fault = D.dropout_cuda(xb, DROP_RATE, 3, planted_fault="fp32_scale")
+    refused = not torch.equal(fault, D.dropout_plain(xb, DROP_RATE, 3))
+    check(refused, "the dropout kernel's fp32-scale fault matched the plain "
+          "version")
+    ones = torch.ones((n_rows, n), dtype=torch.bfloat16, device=dev)
+    kept = (D.dropout_cuda(ones, DROP_RATE, 99) != 0).double().mean().item()
+    numel = n_rows * n
+    sigma = (DROP_RATE * (1 - DROP_RATE) / numel) ** 0.5
+    check(abs(kept - (1 - DROP_RATE)) <= KEEP_SIGMAS * sigma,
+          f"dropout kernel keeps {kept} of {numel}, more than "
+          f"{KEEP_SIGMAS} sigma from {1 - DROP_RATE}")
+    xs = [xb, (x32 * 0.5).bfloat16()]  # two copies: 84 MB, past the L2
+    ms = time_ms(lambda a: D.dropout_cuda(a, DROP_RATE, 3), [(a,) for a in xs])
+    plain_ms = time_ms(lambda a: D.dropout_plain(a, DROP_RATE, 3),
+                       [(a,) for a in xs], reps=3, trials=5)
+    # bytes: x read once, y written once; operations: one fp32 division an
+    # element (the integer hash has no row in the peak table)
+    bms, by = bound(2 * numel * 2, numel, FP32_OPS_PER_S)
+    info = {"bit_identical": all(exact.values()), "cases": len(exact),
+            "kept_share": kept, "kept_sigma": sigma,
+            "fp32_scale_fault_refused": refused}
+    emit("dropout_kernel_check", info)
+    entry = {"name": "dropout", "route": "cuda",
+             "source": "apex_tpu_torch/csrc/dropout.cu",
+             "replaces": "apex_tpu/models/gpt.py:883 (_dropout; XLA in the "
+                         "reference, no Pallas kernel)",
+             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bms, "bound_by": by, "library_ms": None,
+             "library_note": "no PyTorch call computes this counter-hash "
+                             "mask (F.dropout draws Philox bits)",
+             "checks": info,
+             "timed_shape": {"rows": n_rows, "cols": n, "dtype": "bf16",
+                             "rate": DROP_RATE}}
+    return entry, times
+
+
+def gpt_dropout_counts(L, flash_per_step=None):
+    """Per-step launches of a GPT flash-route step with dropout, no remat:
+    the train path's, every flash launch with dropout, and the dropout
+    kernel on the 2 residual dropouts a layer, forward and backward."""
+    f = flash_per_step or L
+    return {"flash_fwd": f, "flash_fwd_wgmma": f, "flash_fwd_dropout": f,
+            "flash_bwd_dkv": L, "flash_bwd_dkv_wgmma": L,
+            "flash_bwd_dkv_dropout": L, "flash_bwd_dq": L,
+            "flash_bwd_dq_wgmma": L, "flash_bwd_dq_dropout": L,
+            "xent_stats": 1, "ln_fwd": 2 * L + 1, "ln_bwd": 2 * L + 1,
+            "dropout": 4 * L, "dropout_fwd": 2 * L, "dropout_bwd": 2 * L}
+
+
+def gpt_drop_step(model, params, opt, tokens, targets, gen):
+    """One train step with fresh seeds from ``gen``."""
+    seeds = model.dropout_seeds(gen)
+    loss = model.loss_fn(params, tokens, targets, dropout_seeds=seeds)
+    loss.backward()
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    return loss.detach()
+
+
+def phase_gpt_dropout_train(torch, dev, t_info):
+    """GPT's train step at GPT-2's dropout 0.1 (the train slice's config
+    with dropout=0.1, flash route, no remat): one step's loss and
+    gradients, kernel path against plain path on the same seeds
+    (phase_train_plain's bounds), then a warm-up and DROPOUT_STEPS timed
+    steps with fresh seeds from a generator each step and the counters
+    zeroed just before and read just after (gpt_dropout_counts); step
+    ms, tokens/s and MFU beside the dropout-free leg's."""
+    from apex_tpu_torch.models.gpt import param_leaves
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    model, params = gpt_model(torch, dev, GPT_DROPOUT, torch.bfloat16)
+    tokens, targets = gpt_batch(torch, dev)
+    seeds = model.dropout_seeds(torch.Generator().manual_seed(16))
+    plain = phase_train_plain(torch, model, params, tokens, targets, seeds,
+                              "gpt_dropout_plain_path")
+    opt = FusedAdam(param_leaves(params), lr=1e-4)
+    gen = torch.Generator().manual_seed(17)
+    losses, wall, launches = timed_steps(
+        torch, lambda: gpt_drop_step(model, params, opt, tokens, targets,
+                                     gen), DROPOUT_STEPS, "GPT dropout leg")
+    L = TRAIN["num_layers"]
+    check_launches(launches, gpt_dropout_counts(L), DROPOUT_STEPS,
+                   "GPT dropout leg")
+    tok = TRAIN_BATCH * TRAIN_SEQ * DROPOUT_STEPS
+    flops = model_flops_per_token(TRAIN, TRAIN_SEQ) * tok / wall
+    info = {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "rate": DROP_RATE,
+            "steps": DROPOUT_STEPS, "losses": losses, "wall_s": wall,
+            "step_ms": 1e3 * wall / DROPOUT_STEPS,
+            "tokens_per_s": tok / wall, "model_tflops_per_s": flops / 1e12,
+            "mfu": flops / BF16_OPS_PER_S,
+            "dropout_free": {k: t_info[k] for k in ("step_ms",
+                                                    "tokens_per_s", "mfu")},
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "vs_plain_path": {k: plain[k] for k in (
+                "loss_rel_diff", "grad_rel_norm_err_max", "grad_worst_leaf",
+                "median_leaf_err")},
+            "launches_per_step": {k: v / DROPOUT_STEPS
+                                  for k, v in launches.items() if v}}
+    return info, launches
+
+
+def phase_gpt_remat_policies(torch, dev):
+    """The dropout config with remat on, each of GPTModel's remat
+    policies (full, save_attn, save_attn_mlp, mlp_only) beside remat off:
+    at the initial params one step's loss and gradients on one set of
+    seeds against remat off's (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL), then
+    REMAT_STEPS steps with fresh seeds: step ms, peak memory and launches
+    per step (dQ and dK/dV once a layer under every policy; the forward
+    twice under a full-block recompute, once under mlp_only)."""
+    from apex_tpu_torch.models.gpt import (REMAT_POLICIES, GPTConfig,
+                                           GPTModel, param_leaves)
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    model0, params = gpt_model(torch, dev, GPT_DROPOUT, torch.bfloat16)
+    tokens, targets = gpt_batch(torch, dev)
+    seeds = model0.dropout_seeds(torch.Generator().manual_seed(23))
+    L = TRAIN["num_layers"]
+    models = {"off": model0, **{p: GPTModel(GPTConfig(
+        **dict(GPT_DROPOUT, remat=True, remat_policy=p),
+        dtype=torch.bfloat16)) for p in REMAT_POLICIES}}
+
+    def loss_and_grads(model):
+        loss = model.loss_fn(params, tokens, targets, dropout_seeds=seeds)
+        loss.backward()
+        out = {}
+        for name, t in named_leaves(params):
+            out[name] = t.grad.float()
+            t.grad = None
+        return loss.item(), out
+
+    loss0, g0 = loss_and_grads(model0)
+    info = {"rate": DROP_RATE, "steps": REMAT_STEPS, "policies": {}}
+    for policy in REMAT_POLICIES:  # at the initial params, before any step
+        loss, g = loss_and_grads(models[policy])
+        rel = {n: ((g[n] - g0[n]).norm() / g0[n].norm().clamp_min(
+            1e-30)).item() for n in g0}
+        worst = max(rel, key=rel.get)
+        info["policies"][policy] = dict(
+            loss_rel_diff=abs(loss - loss0) / abs(loss0),
+            grad_rel_norm_err_max=rel[worst], grad_worst_leaf=worst)
+        check(abs(loss - loss0) / abs(loss0) <= TRAIN_LOSS_TOL,
+              f"remat {policy}: loss vs remat off {loss} / {loss0}")
+        check(rel[worst] <= TRAIN_GRAD_TOL,
+              f"remat {policy}: gradient {worst} vs remat off: rel norm "
+              f"err {rel[worst]}")
+        del g
+    del g0
+    opt = FusedAdam(param_leaves(params), lr=1e-4)
+    gen = torch.Generator().manual_seed(29)
+    gpt_drop_step(model0, params, opt, tokens, targets, gen)  # opt state
+    paths = {}
+    for policy, model in models.items():
+        entry = info["policies"].setdefault(policy, {})
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        t0 = time.perf_counter()
+        # the losses read after the steps: a read a step would stop the
+        # host queueing ahead of the card
+        losses = [gpt_drop_step(model, params, opt, tokens, targets, gen)
+                  for _ in range(REMAT_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [float(x) for x in losses]
+        launches = read_counters()
+        check(all(np.isfinite(losses)), f"remat {policy}: losses {losses}")
+        fwd = launches["flash_fwd"] / REMAT_STEPS
+        check(launches["flash_bwd_dq"] == L * REMAT_STEPS
+              and launches["flash_bwd_dkv"] == L * REMAT_STEPS
+              and fwd == (L if policy in ("off", "mlp_only") else 2 * L)
+              and launches["flash_fwd_dropout"] == launches["flash_fwd"]
+              and launches["dropout_bwd"] == 2 * L * REMAT_STEPS,
+              f"remat {policy}: launches {launches}")
+        entry.update(losses=losses, step_ms=1e3 * wall / REMAT_STEPS,
+                     peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                     launches_per_step={k: v / REMAT_STEPS
+                                        for k, v in launches.items() if v})
+        paths[f"gpt_remat_{policy}"] = launches
+    return info, paths
+
+
+def phase_gpt_softmax_dropout(torch, dev):
+    """One dropout step on the GPT softmax leg's route (the train slice's
+    config with attention_impl="softmax" and dropout 0.1): loss and
+    gradients, kernel path against plain path on the same seeds
+    (phase_train_plain's bounds), the kernel path's launches counted: a
+    causal softmax forward and backward a layer, and the dropout kernel
+    on the probabilities and the 2 residuals, forward and backward."""
+    model, params = gpt_model(torch, dev, dict(GPT_SOFTMAX,
+                                               dropout=DROP_RATE),
+                              torch.bfloat16)
+    tokens, targets = gpt_batch(torch, dev)
+    seeds = model.dropout_seeds(torch.Generator().manual_seed(37))
+    zero_counters()
+    info = phase_train_plain(torch, model, params, tokens, targets, seeds,
+                             "gpt_softmax_dropout_plain_path")
+    torch.cuda.synchronize()
+    launches = read_counters()
+    L = TRAIN["num_layers"]
+    check_launches(launches, {"softmax_fwd": L, "softmax_bwd": L,
+                              "ln_fwd": 2 * L + 1, "ln_bwd": 2 * L + 1,
+                              "xent_stats": 1, "dropout": 6 * L,
+                              "dropout_fwd": 3 * L, "dropout_bwd": 3 * L},
+                   1, "GPT softmax dropout step")
+    return {k: info[k] for k in ("loss_kernel", "loss_plain",
+                                 "loss_rel_diff", "grad_rel_norm_err_max",
+                                 "grad_worst_leaf", "median_leaf_err")}, \
+        launches
+
+
+def phase_t5_encode_only(torch, dev):
+    """T5's train step under remat_policy="encode_only" (the whole
+    encoder one checkpoint, the decoder not rematted) beside "blocks", at
+    T5's width and batch: at the initial params one step's loss and
+    gradients against blocks' (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL) and each
+    policy's peak memory over that step; then ENCODE_ONLY_STEPS train
+    steps of each, counted: encode_only's flash forwards are the
+    encoder's twice (the recompute) and the decoder's once."""
+    from apex_tpu_torch.models.t5 import (EncoderDecoderModel, T5Config,
+                                          param_leaves)
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    model_b, params = t5_model(torch, dev, torch.bfloat16)
+    model_e = EncoderDecoderModel(T5Config(**dict(
+        T5, remat_policy="encode_only"), dtype=torch.bfloat16))
+    enc, dec, tgt, _ = t5_batch(torch, dev, T5_BATCH, seed=1)
+    out = {}
+    grads = {}
+    for policy, model in (("blocks", model_b), ("encode_only", model_e)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss = model.loss_fn(params, enc, dec, tgt)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[policy] = {"loss": loss.item(),
+                       "peak_memory_gb": torch.cuda.max_memory_allocated()
+                       / 1e9,
+                       "peak_over_params_gb":
+                           (torch.cuda.max_memory_allocated() - base) / 1e9}
+        grads[policy] = {n: t.grad.float() for n, t in named_leaves(params)}
+        for t in param_leaves(params):
+            t.grad = None
+    rel = {n: ((grads["encode_only"][n] - grads["blocks"][n]).norm()
+               / grads["blocks"][n].norm().clamp_min(1e-30)).item()
+           for n in grads["blocks"]}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(out["encode_only"]["loss"] - out["blocks"]["loss"]) / abs(
+        out["blocks"]["loss"])
+    check(loss_rel <= TRAIN_LOSS_TOL, f"T5 encode_only loss vs blocks: "
+          f"rel diff {loss_rel}")
+    check(rel[worst] <= TRAIN_GRAD_TOL, f"T5 encode_only gradient {worst} "
+          f"vs blocks: rel norm err {rel[worst]}")
+    del grads
+    opt = FusedAdam(param_leaves(params), lr=1e-4)
+    Le, Ld = T5["num_encoder_layers"], T5["num_decoder_layers"]
+    paths = {}
+    for policy, model in (("blocks", model_b), ("encode_only", model_e)):
+        t5_step(model, params, opt, enc, dec, tgt)  # warm-up
+        torch.cuda.synchronize()
+        zero_counters()
+        t0 = time.perf_counter()
+        losses = [t5_step(model, params, opt, enc, dec, tgt)
+                  for _ in range(ENCODE_ONLY_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [float(x) for x in losses]
+        launches = read_counters()
+        check(all(np.isfinite(losses)), f"T5 {policy}: losses {losses}")
+        if policy == "encode_only":
+            n = ENCODE_ONLY_STEPS
+            want = {"flash_fwd_flat": 2 * Le + 2 * Ld,
+                    "flash_bwd_flat_dkv": Le + 2 * Ld,
+                    "flash_bwd_flat_dq": Le + 2 * Ld,
+                    "flash_bwd_flat_dtable": Le + Ld, "xent_stats": 1}
+            check(all(launches[k] == v * n for k, v in want.items()),
+                  f"T5 encode_only: launches {launches}, want {want} a step")
+            paths["t5_encode_only"] = launches
+        out[policy].update(losses=losses,
+                           step_ms=1e3 * wall / ENCODE_ONLY_STEPS,
+                           launches_per_step={
+                               k: v / ENCODE_ONLY_STEPS
+                               for k, v in launches.items() if v})
+    out.update(loss_rel_diff=loss_rel, grad_rel_norm_err_max=rel[worst],
+               grad_worst_leaf=worst, batch=T5_BATCH,
+               steps=ENCODE_ONLY_STEPS)
+    return out, paths
+
+
 def main(argv=None):
     global PARENT, PTXAS, EMPTY
     import argparse
@@ -5160,6 +5745,20 @@ def main(argv=None):
     del state
     torch.cuda.empty_cache()
 
+    # --- dropout: the flash kernels' masks, the elementwise kernel, GPT ------
+    drop_kernel, drop_times_ = phase_dropout_kernels(torch, dev)
+    emit("kernel", drop_kernel)
+    kernels.append(drop_kernel)
+    torch.cuda.empty_cache()
+    dt_info, paths["gpt_dropout_train"] = phase_gpt_dropout_train(
+        torch, dev, t_info)
+    emit("gpt_dropout_train", dt_info)
+    torch.cuda.empty_cache()
+    rp_info, rp_paths = phase_gpt_remat_policies(torch, dev)
+    paths.update(rp_paths)
+    emit("gpt_remat_policies", rp_info)
+    torch.cuda.empty_cache()
+
     # --- the T5 slice ---------------------------------------------------------
     t5_kernels = phase_t5_kernels(torch, dev)
     for k in t5_kernels:
@@ -5184,6 +5783,10 @@ def main(argv=None):
         torch, lambda: t5_step(*t5_state, enc, dec, tgt),
         t5_info["step_ms"] / 1e3))
     del t5_state, enc, dec, tgt
+    torch.cuda.empty_cache()
+    eo_info, eo_paths = phase_t5_encode_only(torch, dev)
+    paths.update(eo_paths)
+    emit("t5_encode_only", eo_info)
     torch.cuda.empty_cache()
 
     # --- the BERT slice -------------------------------------------------------
@@ -5239,6 +5842,10 @@ def main(argv=None):
     sm_info, paths["gpt_softmax_train"] = phase_gpt_softmax(torch, dev)
     emit("gpt_softmax_train", sm_info)
     torch.cuda.empty_cache()
+    sd_info, paths["gpt_softmax_dropout"] = phase_gpt_softmax_dropout(
+        torch, dev)
+    emit("gpt_softmax_dropout", sd_info)
+    torch.cuda.empty_cache()
     sm_info, paths["bert_softmax_train"] = phase_bert_softmax(torch, dev)
     emit("bert_softmax_train", sm_info)
     torch.cuda.empty_cache()
@@ -5280,6 +5887,22 @@ def main(argv=None):
             k["variants"] = {
                 v: {p_: n[f"{counter}_{v}"] for p_, n in paths.items()
                     if n.get(f"{counter}_{v}")} for v in ("wgmma", "sm80")}
+    by_name = {k["name"]: k for k in kernels}
+    # the flash kernels' dropout: the checks and the times with and
+    # without it (the latter beside the parent's in turns under --parent)
+    for fam, names in (("gpt_packed", ("flash_fwd", "flash_bwd_dq",
+                                       "flash_bwd_dkv")),
+                       ("bert_bshd", ("flash_fwd_bshd", "flash_bwd_bshd_dq",
+                                      "flash_bwd_bshd_dkv")),
+                       ("t5_enc_flat", ("flash_fwd_flat", "flash_bwd_flat_dq",
+                                        "flash_bwd_flat_dkv"))):
+        for op, name in zip(("fwd", "dq", "dkv"), names):
+            by_name[name]["dropout"] = dict(drop_times_[fam][op], call=fam)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        by_name[name]["dropout"]["gqa_check"] = DROPOUT_CHECKS["gqa_packed"]
+        by_name[name]["dropout"]["launches_with_dropout"] = {
+            p_: n[f"{name}_dropout"] for p_, n in paths.items()
+            if n.get(f"{name}_dropout")}
     emit("flash_bwd_ab", {
         "calls": BWD_AB,
         "wgmma_slower_than_sm80": [c for c in BWD_AB

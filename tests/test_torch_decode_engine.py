@@ -143,14 +143,15 @@ class TestKernelsPlainVersions:
         x = torch.zeros((1, 8, 2, 64))
         # the bh-flat layout is the default (as in the reference) and runs
         assert amod.flash_attention(x, x, x).shape == x.shape
-        # per-batch kv_lens and an array bias run on the bshd layout now;
-        # dropout and the bucketed bias there are later slices
+        # per-batch kv_lens, an array bias and dropout run on the bshd
+        # layout now; the bucketed bias there is a later slice
         assert amod.flash_attention(x, x, x, layout="bshd",
                                     kv_lens=torch.ones(1)).shape == x.shape
-        for kw in (dict(bias=amod.BucketedBias(torch.zeros(32, 2))),
-                   dict(dropout_rate=0.1)):
-            with pytest.raises(NotImplementedError, match="later slice"):
-                amod.flash_attention(x, x, x, layout="bshd", **kw)
+        assert amod.flash_attention(x, x, x, layout="bshd", dropout_rate=0.1,
+                                    dropout_seed=3).shape == x.shape
+        with pytest.raises(NotImplementedError, match="later slice"):
+            amod.flash_attention(x, x, x, layout="bshd",
+                                 bias=amod.BucketedBias(torch.zeros(32, 2)))
         with pytest.raises(ValueError, match="bias must be"):
             amod.flash_attention(x, x, x, layout="bshd", bias=x)
         with pytest.raises(ValueError, match="sq <= sk"):

@@ -200,6 +200,9 @@ def test_flash_attention_refusals():
     with pytest.raises(ValueError, match="bias must be"):
         amod.flash_attention(x, x, x, bias=torch.zeros(2, 128, 64))
     with pytest.raises(NotImplementedError, match="dropout"):
+        amod.flash_attention(x, x, x, bias=torch.zeros((2, 128, 128)),
+                             dropout_rate=0.1, dropout_seed=1)
+    with pytest.raises(ValueError, match="dropout_seed"):
         amod.flash_attention(x, x, x, dropout_rate=0.1)
     with pytest.raises(ValueError, match="sq <= sk"):
         amod.flash_attention(x, x[:, :, :64], x[:, :, :64], causal=True)

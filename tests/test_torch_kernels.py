@@ -2606,3 +2606,192 @@ def test_matmul_refuses_what_it_does_not_take(cuda):
                               activation="tanh")
     y = mmmod.matmul_bias_act(x, x.t(), impl="torch")
     assert y.shape == (4, 4) and y.dtype == torch.half
+
+
+# --- dropout: the flash kernels' masks and the elementwise kernel -------------
+
+DROP = 0.1
+
+
+def _drop_case(kind, cuda):
+    """(fwd, bwd, ins, do, kw) of one flash family with dropout inputs:
+    ``fwd(ins, **kw)``, ``bwd(ins, o, lse, do, **kw)``."""
+    g = torch.Generator(device=cuda).manual_seed(len(kind))
+    rnd = lambda *s: torch.randn(s, generator=g,  # noqa: E731
+                                 device=cuda).bfloat16()
+    if kind in ("packed", "packed_gqa", "packed_d64"):
+        h, h_kv, d, s = (8, 8 if kind == "packed" else 2,
+                         64 if kind == "packed_d64" else 128, 300)
+        qkv, do = rnd(2, s, (h + 2 * h_kv) * d), rnd(2, s, h * d)
+        return (lambda x, **k: amod.flash_fwd_packed(x[0], h, h_kv, d, **k),
+                lambda x, o, l, dy, **k: amod.flash_bwd_packed(
+                    x[0], o, l, dy, h, h_kv, d, **k),
+                (qkv,), do, dict(scale=d ** -0.5, causal=True))
+    if kind == "bshd":
+        q, k, v, do = rnd(3, 200, 4, 64), rnd(3, 200, 2, 64), \
+            rnd(3, 200, 2, 64), rnd(3, 200, 4, 64)
+        lens = torch.tensor([200, 77, 0], dtype=torch.int32, device=cuda)
+        return (lambda x, **k_: amod.flash_fwd_bshd(*x, **k_),
+                lambda x, o, l, dy, **k_: amod.flash_bwd_bshd(*x, o, l, dy,
+                                                              **k_),
+                (q, k, v), do, dict(scale=0.125, causal=False, kv_lens=lens))
+    q, k, v, do = (rnd(2, 4, 256, 64) for _ in range(4))
+    table = torch.randn((32, 4), generator=g, device=cuda) * 0.1
+    bias = amod.BucketedBias(table, bidirectional=kind == "flat_enc",
+                             max_distance=128)
+    lens = (torch.tensor([256, 100], dtype=torch.int32, device=cuda)
+            .repeat_interleave(4) if kind == "flat_enc" else None)
+    return (lambda x, **k_: amod.flash_fwd(*x, **k_),
+            lambda x, o, l, dy, **k_: amod.flash_bwd(*x, o, l, dy, **k_),
+            (q, k, v), do, dict(scale=0.125, causal=kind == "flat_dec",
+                                kv_lens=lens, rel_bias=bias))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["packed", "packed_gqa", "packed_d64",
+                                  "bshd", "flat_enc", "flat_dec"])
+def test_flash_dropout_kernels_match_plain(cuda, kind):
+    """Every flash family with dropout 0.1 against its plain version on
+    the same seed, under the bf16 rule (o, dq, dk, dv; the bucket table's
+    gradient within 1e-3 relative norm beside the plain version's own
+    error); lse bit-identical to the dropout-free kernel's."""
+    fwd, bwd, ins, do, kw = _drop_case(kind, cuda)
+    dk = dict(kw, dropout_rate=DROP, dropout_seed=-2 ** 31 + 5)
+    up = [x.float() for x in ins]
+    o, lse = fwd(ins, **dk)
+    _, lse0 = fwd(ins, **kw)
+    o_p, lse_p = fwd(ins, impl="torch", **dk)
+    o_t, _ = fwd(up, impl="torch", **dk)
+    assert torch.equal(lse, lse0)
+    assert _within_rule(o, o_p, o_t)[0]
+    got = bwd(ins, o_p, lse_p, do, **dk)
+    plain = bwd(ins, o_p, lse_p, do, impl="torch", **dk)
+    truth = bwd(up, o_p.float(), lse_p, do.float(), impl="torch", **dk)
+    for name, a, p, t in zip(("dq", "dk", "dv"), got, plain, truth):
+        ok, errs = _within_rule(a, p, t)
+        assert ok, f"{kind} {name}: kernel/plain errors {errs}"
+    if len(got) > 3 and got[3] is not None:
+        nrm = truth[3].norm()
+        assert (got[3] - truth[3]).norm() <= 2 * (
+            plain[3].float() - truth[3]).norm() + 1e-3 * nrm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", sorted(amod.DROPOUT_FAULTS))
+def test_flash_dropout_planted_faults_are_refused(cuda, fault):
+    """Each planted dropout fault, at a GQA case (a kv head's row is not
+    a q head's), fails the rule on an output it touches or moves lse."""
+    h, h_kv, d, b, s = 8, 2, 128, 2, 300
+    g = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn((b, s, (h + 2 * h_kv) * d), generator=g,
+                      device=cuda).bfloat16()
+    do = torch.randn((b, s, h * d), generator=g, device=cuda).bfloat16()
+    kw = dict(scale=d ** -0.5, causal=True, dropout_rate=DROP,
+              dropout_seed=11)
+    o_p, lse_p = amod.flash_fwd_packed(qkv, h, h_kv, d, impl="torch", **kw)
+    o_t, _ = amod.flash_fwd_packed(qkv.float(), h, h_kv, d, impl="torch",
+                                   **kw)
+    plain = amod.flash_bwd_packed(qkv, o_p, lse_p, do, h, h_kv, d,
+                                  impl="torch", **kw)
+    truth = amod.flash_bwd_packed(qkv.float(), o_p.float(), lse_p,
+                                  do.float(), h, h_kv, d, impl="torch", **kw)
+    at = {"l_from_dropped": ("fwd",), "no_dkv_ds_mask": ("dkv",)}.get(
+        fault, ("fwd", "dq", "dkv"))
+    f = lambda k: fault if k in at else None  # noqa: E731
+    o, lse = amod.flash_fwd_cuda(qkv, h, h_kv, d, planted_fault=f("fwd"),
+                                 **kw)
+    _, lse0 = amod.flash_fwd_cuda(qkv, h, h_kv, d, scale=kw["scale"],
+                                  causal=True)
+    dq, delta = amod.flash_bwd_dq_cuda(qkv, o_p, lse_p, do, h, h_kv, d,
+                                       planted_fault=f("dq"), **kw)
+    dk, dv = amod.flash_bwd_dkv_cuda(qkv, o_p, lse_p, do, h, h_kv, d,
+                                     delta=delta, planted_fault=f("dkv"),
+                                     **kw)
+    refused = [not _within_rule(a, p, t)[0] for a, p, t in (
+        (o, o_p, o_t), (dq, plain[0], truth[0]), (dk, plain[1], truth[1]),
+        (dv, plain[2], truth[2]))]
+    assert any(refused) or not torch.equal(lse, lse0)
+
+
+@pytest.mark.gpu
+def test_flash_dropout_refusals_and_counts(cuda):
+    """Dropout on the sm80 variant raises ValueError naming ROADMAP's
+    simplicity item, with an array bias NotImplementedError; a dropout
+    launch counts in ``.dropout_launches``."""
+    b, s, h, d = 1, 128, 2, 64
+    qkv = torch.randn((b, s, 3 * h * d), device=cuda).bfloat16()
+    kw = dict(scale=0.125, causal=True, dropout_rate=DROP, dropout_seed=1)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        amod.flash_fwd_cuda(qkv, h, h, d, variant="sm80", **kw)
+    q = torch.randn((b, s, h, d), device=cuda).bfloat16()
+    bias = torch.zeros((1, s, s), device=cuda)
+    with pytest.raises(NotImplementedError, match="dbias"):
+        amod.flash_fwd_bshd_cuda(q, q, q, bias=bias, **kw)
+    n = amod.flash_fwd_cuda.dropout_launches
+    amod.flash_fwd_cuda(qkv, h, h, d, **kw)
+    amod.flash_fwd_cuda(qkv, h, h, d, scale=0.125, causal=True)
+    assert amod.flash_fwd_cuda.dropout_launches == n + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4096, 1024), (7, 13), (3, 5, 96),
+                                   (2, 8, 64, 64)])
+def test_dropout_kernel_is_bit_identical_to_plain(cuda, dtype, shape):
+    """The elementwise kernel against its plain version, forward and
+    backward (one function), at the int32 seed edges; its fp32-scale
+    fault refused in bf16; one launch counted a call."""
+    from apex_tpu_torch.ops import dropout as dmod
+
+    x = torch.randn(shape, device=cuda).to(dtype)
+    for seed in (0, -1, 2 ** 31 - 1, -2 ** 31):
+        n = dmod.dropout_cuda.launches
+        assert torch.equal(dmod.dropout_cuda(x, DROP, seed),
+                           dmod.dropout_plain(x, DROP, seed))
+        assert torch.equal(dmod.dropout_cuda(x, DROP, seed, backward=True),
+                           dmod.dropout_plain(x, DROP, seed))
+        assert dmod.dropout_cuda.launches == n + 2
+    if dtype == torch.bfloat16 and x.numel() > 1000:
+        assert not torch.equal(
+            dmod.dropout_cuda(x, DROP, 5, planted_fault="fp32_scale"),
+            dmod.dropout_plain(x, DROP, 5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["flash", "softmax"])
+def test_dropout_train_step_kernel_path_matches_plain_path(cuda, route):
+    """A small bf16 GPT with dropout 0.1, one set of seeds: loss and
+    gradients through the kernels against the plain versions, at
+    test_train_step_kernel_path_matches_plain_path's bounds."""
+    from apex_tpu_torch.models.gpt import GPTConfig, GPTModel, param_leaves
+
+    cfg = GPTConfig(vocab_size=512, max_seq_len=256, hidden_size=256,
+                    num_layers=2, num_heads=2, remat=False, dropout=DROP,
+                    dtype=torch.bfloat16, attention_impl=route)
+    model = GPTModel(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    leaves = param_leaves(params)
+    for t in leaves:
+        t.requires_grad_()
+    g = torch.Generator(device=cuda).manual_seed(1)
+    tokens, targets = (torch.randint(0, 512, (4, 256), generator=g,
+                                     device=cuda) for _ in range(2))
+    seeds = model.dropout_seeds(torch.Generator().manual_seed(2))
+    hd = cfg.num_heads * cfg.head_dim
+    out = []
+    for impl in ("auto", "torch"):
+        loss = model.loss_fn(params, tokens, targets, dropout_seeds=seeds,
+                             impl=impl)
+        loss.backward()
+        grads = []
+        for t in leaves:
+            gr = t.grad.float()
+            if t.shape == (cfg.qkv_features,):
+                gr = torch.cat([gr[:hd], gr[2 * hd:]])
+            grads.append(gr)
+            t.grad = None
+        out.append((loss.item(), grads))
+    (lk, gk), (lp, gp) = out
+    assert abs(lk - lp) <= 1e-4 * abs(lp)
+    for a, b in zip(gk, gp):
+        assert (a - b).norm() <= 5e-2 * b.norm()

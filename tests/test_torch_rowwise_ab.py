@@ -77,22 +77,27 @@ def test_using_swaps_the_library_and_restores_it():
 
 
 def test_other_library_builds_the_decode_kernels_with_the_parents_signatures():
-    """The parent builds the decode, sampling and verify kernels too. Its
-    decode, sampling, softmax and layer-norm entries take this tree's
-    signatures (18, 16, 14 and 19 arguments); the entries this tree
-    changed keep the parent's own: the verify pair without ``use_top_p,
-    top_p`` (22 and 25 arguments, where this tree's take 24 and 27)."""
+    """The parent builds the decode, sampling, verify and flash kernels
+    too. Its decode, sampling, softmax, layer-norm and verify entries take
+    this tree's signatures (18, 16, 14, 19, 24 and 27 arguments); the
+    entries this tree changed keep the parent's own: the five flash
+    entries without the four dropout arguments before the stream."""
     assert {"paged_decode_attn.cu", "fused_sample.cu", "layer_norm.cu",
-            "softmax.cu", "fused_verify.cu"} <= set(rowwise_ab.SOURCES)
+            "softmax.cu", "fused_verify.cu", "flash_attn_fwd.cu",
+            "flash_attn_bwd.cu", "flash_attn_fwd_sm80.cu",
+            "flash_attn_bwd_sm80.cu"} <= set(rowwise_ab.SOURCES)
     parent = rowwise_ab.PARENT_ENTRY_POINTS
-    assert set(parent) == {"apex_fused_verify", "apex_fused_verify_tree"}
-    assert len(parent["apex_fused_verify"]) == 22
-    assert len(parent["apex_fused_verify_tree"]) == 25
-    for name, at in (("apex_fused_verify", 16),
-                     ("apex_fused_verify_tree", 19)):
+    assert set(parent) == {"apex_flash_fwd", "apex_flash_fwd_bshd",
+                           "apex_flash_fwd_flat", "apex_flash_bwd_dq",
+                           "apex_flash_bwd_dkv"}
+    for name, n in (("apex_flash_fwd", 13), ("apex_flash_fwd_bshd", 23),
+                    ("apex_flash_fwd_flat", 23), ("apex_flash_bwd_dq", 28),
+                    ("apex_flash_bwd_dkv", 32)):
         this = _build.ENTRY_POINTS[name]
-        assert len(this) == len(parent[name]) + 2
-        assert this[:at] + this[at + 2:] == parent[name]
+        assert len(parent[name]) == n and len(this) == n + 4
+        assert this[:-5] + this[-1:] == parent[name]
+    assert len(_build.ENTRY_POINTS["apex_fused_verify"]) == 24
+    assert len(_build.ENTRY_POINTS["apex_fused_verify_tree"]) == 27
     assert len(_build.ENTRY_POINTS["apex_softmax_bwd"]) == 14
     assert _build.ENTRY_POINTS["apex_softmax_bwd"][3:] == \
         _build.ENTRY_POINTS["apex_softmax_fwd"][2:]
@@ -105,38 +110,39 @@ def test_other_library_builds_the_decode_kernels_with_the_parents_signatures():
 
 
 def test_parent_library_drops_the_top_p_arguments():
-    """A verify call through the parent's library drops this tree's
-    ``use_top_p, top_p`` and refuses a call that asks for top-p; other
-    entries pass through untouched."""
+    """The arguments the parent's entries lack are dropped from this
+    tree's calls: since the parent has the verify pair's top-p, the
+    flash entries' four dropout arguments before the stream. A call that
+    asks for dropout (a nonzero threshold) is refused; other entries,
+    the verify pair's top-p included, pass through untouched."""
     calls = []
 
     class Lib:
+        def apex_flash_fwd(self, *a):
+            calls.append(("fwd", a))
+            return 0
+
+        def apex_flash_bwd_dkv(self, *a):
+            calls.append(("dkv", a))
+            return 0
+
         def apex_fused_verify(self, *a):
             calls.append(("chain", a))
             return 0
 
-        def apex_fused_verify_tree(self, *a):
-            calls.append(("tree", a))
-            return 0
-
-        def apex_ln_fwd(self, *a):
-            calls.append(("ln", a))
-            return 0
-
     lib = rowwise_ab.ParentLibrary(Lib())
+    fwd = list(range(12)) + [0, 0, 1.0, 0, "stream"]
+    assert lib.apex_flash_fwd(*fwd) == 0
+    assert calls[-1] == ("fwd", tuple(range(12)) + ("stream",))
+    dkv = list(range(31)) + [0, 0, 1.0, 0, "stream"]
+    lib.apex_flash_bwd_dkv(*dkv)
+    assert calls[-1] == ("dkv", tuple(range(31)) + ("stream",))
     chain = list(range(24))
-    chain[16], chain[17] = 0, 1.0
-    assert lib.apex_fused_verify(*chain) == 0
-    assert calls[-1] == ("chain", tuple(chain[:16] + chain[18:]))
-    tree = list(range(27))
-    tree[19], tree[20] = 0, 1.0
-    lib.apex_fused_verify_tree(*tree)
-    assert calls[-1] == ("tree", tuple(tree[:19] + tree[21:]))
-    lib.apex_ln_fwd(1, 2)
-    assert calls[-1] == ("ln", (1, 2))
-    chain[16] = 1
-    with pytest.raises(ValueError, match="top-p"):
-        lib.apex_fused_verify(*chain)
+    lib.apex_fused_verify(*chain)
+    assert calls[-1] == ("chain", tuple(chain))
+    fwd[-4] = 1677722
+    with pytest.raises(ValueError, match="dropout"):
+        lib.apex_flash_fwd(*fwd)
 
 
 @pytest.mark.parametrize("parent_fn", [False, True])

@@ -66,9 +66,9 @@ def _batch(s_dec, seed=2):
             rng.integers(0, V, (B, s_dec)).astype(np.int32))
 
 
-def _port(tree, position_encoding, remat=False):
+def _port(tree, position_encoding, remat=False, remat_policy="blocks"):
     cfg = T5Config(**SMALL, position_encoding=position_encoding, remat=remat,
-                   attention_impl="flash")
+                   remat_policy=remat_policy, attention_impl="flash")
     params = t5_params_from_jax(tree, cfg, device="cpu")
     for t in param_leaves(params):
         t.requires_grad_()
@@ -218,6 +218,52 @@ def test_three_train_steps_match_reference(pallas, monkeypatch):
                             state.buffers[name], 1e-4, name)
 
 
+@pytest.mark.parametrize("pallas", ["interpret", "0"])
+def test_encode_only_matches_reference(pallas, monkeypatch):
+    """``remat_policy="encode_only"`` (``t5.py:425-431``): the whole
+    encoder one checkpoint, the decoder not rematted — the loss and every
+    gradient against the reference under the same policy, on a padded
+    batch with the relative bias."""
+    monkeypatch.setenv("APEX_TPU_PALLAS", pallas)
+    _, tree = _tree("relative")
+    jm = JModel(JConfig(**SMALL, attention_impl="flash", remat=True,
+                        remat_policy="encode_only",
+                        position_encoding="relative"))
+    enc, dec, tgt = _batch(128)
+    lens = np.asarray([100, 128], np.int32)
+    jp = jax.tree.map(jnp.asarray, tree)
+    with jax.default_matmul_precision("highest"):
+        loss_j, grads_j = jax.jit(jax.value_and_grad(lambda p: jm.loss_fn(
+            p, jnp.asarray(enc), jnp.asarray(dec), jnp.asarray(tgt),
+            enc_pad_lens=jnp.asarray(lens))))(jp)
+    model, cfg, params = _port(tree, "relative", remat=True,
+                               remat_policy="encode_only")
+    loss = model.loss_fn(params, *_torch(enc, dec, tgt),
+                         enc_pad_lens=torch.tensor(lens))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(loss_j), rtol=LOSS_RTOL)
+    _assert_trees_close(t5_params_to_jax(_grads(params), cfg), grads_j,
+                        GRAD_RTOL, "grad")
+
+
+def test_encode_only_equals_blocks():
+    """The two remat policies recompute different spans of the same
+    operations: the same loss, the gradients within 1e-6 of each other."""
+    _, tree = _tree("relative")
+    enc, dec, tgt = _batch(128)
+    out = []
+    for policy in ("blocks", "encode_only"):
+        model, cfg, params = _port(tree, "relative", remat=True,
+                                   remat_policy=policy)
+        loss = model.loss_fn(params, *_torch(enc, dec, tgt),
+                             enc_pad_lens=torch.tensor([90, 128]))
+        loss.backward()
+        out.append((loss.detach(), param_leaves(_grads(params))))
+    torch.testing.assert_close(out[1][0], out[0][0], rtol=0, atol=0)
+    for a, b in zip(out[1][1], out[0][1]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-9)
+
+
 @pytest.mark.parametrize("bidirectional", [True, False])
 def test_relative_bias_matches_reference(bidirectional):
     table = np.random.default_rng(5).standard_normal((32, 3)).astype(
@@ -253,14 +299,16 @@ def test_weight_bridge_round_trip_and_shape_checks():
 
 def test_knobs_of_later_slices_raise():
     """The reference's knobs with one working value in the port are not
-    config fields, and dropout raises at the op; ``relative_bias_impl``
-    (its second value, "materialized", runs through the array bias) and
+    config fields, and dropout with an array bias raises at the op;
+    ``relative_bias_impl`` (its second value, "materialized", runs through
+    the array bias), ``remat_policy`` (blocks | encode_only) and
     ``attention_impl`` (softmax | flash) are fields, validated as the
     reference validates them."""
-    for kw in (dict(remat_policy="encode_only"), dict(tp_overlap=False),
-               dict(plan=None)):
+    for kw in (dict(tp_overlap=False), dict(plan=None)):
         with pytest.raises(TypeError, match=next(iter(kw))):
             T5Config(**SMALL, **kw)
+    with pytest.raises(ValueError, match="remat_policy"):
+        T5Config(**SMALL, remat_policy="decode_only")
     with pytest.raises(ValueError, match="attention_impl"):
         T5Config(**SMALL, attention_impl="naive")
     with pytest.raises(ValueError, match="position_encoding"):
@@ -271,8 +319,8 @@ def test_knobs_of_later_slices_raise():
     assert amod.flash_attention(
         x, x, x, bias=torch.zeros((2, 128, 128))).shape == x.shape
     with pytest.raises(NotImplementedError, match="dropout"):
-        amod.flash_attention(x, x, x, dropout_rate=0.1,
-                             dropout_seed=torch.tensor(1))
+        amod.flash_attention(x, x, x, bias=torch.zeros((2, 128, 128)),
+                             dropout_rate=0.1, dropout_seed=torch.tensor(1))
 
 
 @pytest.mark.parametrize("pallas", ["interpret", "0"])

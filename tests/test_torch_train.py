@@ -227,19 +227,23 @@ def test_three_train_steps_match_reference(setup, pallas, monkeypatch):
 
 
 def test_training_knobs_of_later_slices_raise(setup):
-    """dropout > 0 raises at the forward; the reference's knobs that the
-    port does not run yet are not config fields at all; ``attention_impl``
-    is one (softmax | flash | naive), validated as the reference
-    validates it."""
+    """A dropout rate outside [0, 1) and seeds of the wrong shape raise;
+    the reference's knobs that the port does not run yet are not config
+    fields at all; ``attention_impl`` (softmax | flash | naive) and
+    ``remat_policy`` are, validated as the reference validates them."""
     _, tree, tokens, _ = setup
     cfg = GPTConfig(**SMALL, dropout=0.1)
     params = params_from_jax(tree, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="dropout"):
-        GPTModel(cfg).hidden_states(params, torch.tensor(tokens))
+    with pytest.raises(ValueError, match="dropout_seeds"):
+        GPTModel(cfg).hidden_states(params, torch.tensor(tokens),
+                                    dropout_seeds=torch.zeros((1, 3)))
+    with pytest.raises(ValueError, match="dropout"):
+        GPTConfig(**SMALL, dropout=1.5)
     with pytest.raises(ValueError, match="attention_impl"):
         GPTConfig(**SMALL, attention_impl="ring")
-    for kw in (dict(remat_policy="mlp_only"),
-               dict(scan_layers=False), dict(tp_size=2),
+    with pytest.raises(ValueError, match="remat_policy"):
+        GPTConfig(**SMALL, remat_policy="nothing")
+    for kw in (dict(scan_layers=False), dict(tp_size=2),
                dict(sequence_parallel=True), dict(cp_axis="cp"),
                dict(moe_num_experts=4)):
         with pytest.raises(TypeError, match=next(iter(kw))):
