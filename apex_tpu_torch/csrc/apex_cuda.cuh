@@ -1,18 +1,21 @@
 // Shared helpers of the port's CUDA kernels: element conversions and the
-// dtype codes the Python wrappers pass (0 = float32, 1 = bfloat16).
+// dtype codes the Python wrappers pass (0 = float32, 1 = bfloat16, 2 =
+// float16).
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace apex {
 
-enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+enum DType : int { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -24,6 +27,12 @@ __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+// round to nearest even; past the range (|x| >= 65520) to inf, never
+// saturated: the loss scaler finds an overflow by its inf
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -15,15 +15,29 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace apex {
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in bits 0-15
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// two fp32 values as a pair of T (bf16 or fp16), rounded to nearest: an
+// fp16 past its range becomes inf, never a saturated 65504
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    return pack_bf16(lo, hi);
+  }
 }
 
 __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's kernels: TMA tensor maps
 // of rank 2 to 4, tile loads and bulk stores, mbarriers and named
-// barriers, the wgmma shared-memory descriptor and the bf16 wgmma with fp32
-// accumulators (m64n128k16 and m64n64k16 with both operands in shared
+// barriers, the wgmma shared-memory descriptor and the bf16 and fp16 wgmma
+// with fp32 accumulators (m64n128k16 and m64n64k16 with both operands in shared
 // memory, with and without the accumulator's input; m64n64k16 and
 // m64n128k16 with A in registers), setmaxnreg, and 1-D bulk copies,
 // cluster ranks and barriers and distributed shared-memory stores and
@@ -28,9 +28,11 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace apex {
 namespace sm90 {
@@ -384,148 +386,187 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// The wgmma statements, by the operands' type TY ("bf16" or "f16"; the
+// accumulators fp32 either way): one text for both types' instances.
+#define APEX_WGMMA_M64N128K16_SS(TY)                                \
+  asm volatile(                                                     \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                  \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                            \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                      \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                    \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                    \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                    \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                    \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                    \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                      \
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"                        \
+      :                                                             \
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),             \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),             \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),           \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),         \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),         \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),         \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),         \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),         \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),         \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),         \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),         \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),         \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),         \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),         \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),         \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])          \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+
+#define APEX_WGMMA_M64N64K16_SS(TY)                                \
+  asm volatile(                                                    \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                 \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                           \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                     \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                   \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                     \
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"                       \
+      :                                                            \
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),            \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),            \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),          \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),        \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),        \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),        \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),        \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])         \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+
+#define APEX_WGMMA_M64N64K16_RS(TY)                                  \
+  asm volatile(                                                      \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                   \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"   \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                             \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                       \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                     \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                       \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"             \
+      :                                                              \
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),              \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),              \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),            \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),          \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),          \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),          \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),          \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])           \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), \
+        "n"(TB));
+
+#define APEX_WGMMA_M64N128K16_RS(TY)                                 \
+  asm volatile(                                                      \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                   \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"  \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                             \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                       \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                     \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                     \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                     \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                     \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                     \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                       \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"             \
+      :                                                              \
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),              \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),              \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),            \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),          \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),          \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),          \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),          \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),          \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),          \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),          \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),          \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),          \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),          \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),          \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),          \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])           \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), \
+        "n"(TB));
+
 // d (64 x 128, fp32, the warpgroup's fragment) = A (64 x 16) B (16 x 128)
-// [+ d when scale_d], both bf16 in shared memory; TA / TB: the operand is
-// MN-major. Fragment of d (any N): warp w of the warpgroup holds rows
+// [+ d when scale_d], both T (bf16 or fp16) in shared memory; TA / TB: the
+// operand is MN-major. Fragment of d (any N): warp w of the warpgroup holds rows
 // 16w..16w+15; lane l, with g = l / 4 and t = l % 4, holds d[4i], d[4i+1]
 // at row g, columns 8i + 2t, 8i + 2t + 1, and d[4i+2], d[4i+3] at row g + 8.
-template <int TA, int TB>
+template <int TA, int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
                                                   uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  if constexpr (std::is_same<T, __half>::value) {
+    APEX_WGMMA_M64N128K16_SS("f16");
+  } else {
+    APEX_WGMMA_M64N128K16_SS("bf16");
+  }
 }
 
 // d (64 x 64, fp32, the warpgroup's fragment) = A (64 x 16) B (16 x 64)
-// [+ d when scale_d], both bf16 in shared memory; TA / TB: MN-major
-template <int TA, int TB>
+// [+ d when scale_d], both T in shared memory; TA / TB: MN-major
+template <int TA, int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
                                                   uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  if constexpr (std::is_same<T, __half>::value) {
+    APEX_WGMMA_M64N64K16_SS("f16");
+  } else {
+    APEX_WGMMA_M64N64K16_SS("bf16");
+  }
 }
 
-// d (64 x 64, fp32) += A (64 x 16, bf16 from registers: the fragment
-// of a 64 x 16 slice of an m64nN accumulator, see wgmma_a_frag) B (16 x
-// 64, bf16 in shared memory); TB: B is MN-major
-template <int TB>
+// d (64 x 64, fp32) += A (64 x 16, T from registers: the fragment of a
+// 64 x 16 slice of an m64nN accumulator, see wgmma_a_frag) B (16 x 64, T
+// in shared memory); TB: B is MN-major
+template <int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
                                                   const uint32_t (&a)[4],
                                                   uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
-        "n"(TB));
+  if constexpr (std::is_same<T, __half>::value) {
+    APEX_WGMMA_M64N64K16_RS("f16");
+  } else {
+    APEX_WGMMA_M64N64K16_RS("bf16");
+  }
 }
 
-// d (64 x 128, fp32) += A (64 x 16, bf16 from registers: the fragment
-// of a 64 x 16 slice of an m64nN accumulator, see wgmma_a_frag) B (16 x
-// 128, bf16 in shared memory); TB: B is MN-major
-template <int TB>
+// d (64 x 128, fp32) += A (64 x 16, T from registers: the fragment of a
+// 64 x 16 slice of an m64nN accumulator, see wgmma_a_frag) B (16 x 128, T
+// in shared memory); TB: B is MN-major
+template <int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
                                                   const uint32_t (&a)[4],
                                                   uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
-        "n"(TB));
+  if constexpr (std::is_same<T, __half>::value) {
+    APEX_WGMMA_M64N128K16_RS("f16");
+  } else {
+    APEX_WGMMA_M64N128K16_RS("bf16");
+  }
 }
 
 
-// The A fragment (bf16 pairs) of the k-th 16-column slice of an m64nN
-// fp32 accumulator: a warp's 16 x 16 block in mma.sync's A layout, which
-// is what a register-A wgmma takes (rows g and g + 8, columns 2t and 2t +
-// 8 of the slice), so a product's result feeds the next product without
-// a shuffle.
-template <int N>
+// The A fragment (T pairs, rounded to nearest) of the k-th 16-column slice
+// of an m64nN fp32 accumulator: a warp's 16 x 16 block in mma.sync's A
+// layout, which is what a register-A wgmma takes (rows g and g + 8,
+// columns 2t and 2t + 8 of the slice), so a product's result feeds the
+// next product without a shuffle.
+template <int N, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_a_frag(uint32_t (&a)[4],
                                              const float (&d)[N], int k) {
+  if constexpr (std::is_same<T, __half>::value) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __half2 v = __floats2half2_rn(d[8 * k + 2 * i],
+                                          d[8 * k + 2 * i + 1]);
+      a[i] = *reinterpret_cast<const uint32_t*>(&v);
+    }
+    return;
+  }
   const __nv_bfloat162 v0 = __floats2bfloat162_rn(d[8 * k], d[8 * k + 1]);
   const __nv_bfloat162 v1 = __floats2bfloat162_rn(d[8 * k + 2], d[8 * k + 3]);
   const __nv_bfloat162 v2 = __floats2bfloat162_rn(d[8 * k + 4], d[8 * k + 5]);

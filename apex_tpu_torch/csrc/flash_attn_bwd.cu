@@ -15,6 +15,17 @@
 // (:1486) calls. The reference's per-q-head fp32 dK/dV partials summed
 // outside (:1473-1511) are summed over the group in-kernel here.
 //
+// fp16 (amp's strict-fp16 GPT step): both bodies are templates on the
+// element type; flash_attn_bwd_f16.cu compiles their fp16 instances (the
+// entries apex_flash_bwd_dq_f16 and apex_flash_bwd_dkv_f16, on the packed
+// buffer's views, d 64 and 128, without kv_lens, bias or dropout) in a
+// translation unit of its own, so the bf16 instances stay the code they
+// were. S, dP, delta and the sums stay fp32; P and dS are rounded to fp16
+// (round to nearest) as the products' A operands, as the plain version
+// rounds them to the inputs' dtype: a dS past 65504 is inf, one below
+// 6e-8 is 0, and dq, dk and dv overflow to inf, which the loss scaler
+// reads as a skipped step.
+//
 // Layouts. Every operand is a (batch, head, row)-strided view with a unit
 // feature stride (flash_params.cuh). The layout lives only in the host's
 // tensor maps: one 4-D TMA map (d, row, head, batch) per q, k, v and do,
@@ -215,15 +226,17 @@ struct DqCfg {
 
 // --- dK/dV ----------------------------------------------------------------
 
-template <int D, int BIAS, bool kDrop>
+// T: the element type; kF16Fault: an fp16 instance's planted fault
+template <int D, int BIAS, bool kDrop, typename T = bf16, int kF16Fault = 0>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v,
                         const __grid_constant__ CUtensorMap tm_do,
                         const __grid_constant__ CUtensorMap tm_bias,
-                        const FlashParams p, int bias_tma) {
+                        const apex::FlashParamsT<T> p, int bias_tma) {
   static_assert(!(kDrop && BIAS == kArr), "no dropout with the array bias");
+  constexpr int f16_fault = kF16Fault;  // 0 in every bf16 instance
   using C = DkvCfg<D, BIAS>;
   constexpr int kBq = C::kBq, kS = C::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -432,11 +445,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss<kBq>(sc, kmajor(k_s, kBkv, kk, cw * 64),
+          wgmma_ss<kBq, T>(sc, kmajor(k_s, kBkv, kk, cw * 64),
                         kmajor(q_st, kBq, kk, 0), kk > 0);
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss<kBq>(dp, kmajor(v_s, kBkv, kk, cw * 64),
+          wgmma_ss<kBq, T>(dp, kmajor(v_s, kBkv, kk, cw * 64),
                         kmajor(do_st, kBq, kk, 0), kk > 0);
         wgmma_commit();
         wgmma_wait<0>();
@@ -576,16 +589,16 @@ __global__ void __launch_bounds__(kThreads, 1)
         uint32_t pa[kBq / 16][4], da[kBq / 16][4];
 #pragma unroll
         for (int kk = 0; kk < kBq / 16; ++kk) {
-          wgmma_a_frag(pa[kk], sc, kk);
-          wgmma_a_frag(da[kk], dp, kk);
+          a_frag<T, f16_fault>(pa[kk], sc, kk);
+          a_frag<T, f16_fault>(da[kk], dp, kk);
         }
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kBq / 16; ++kk)
-          wgmma_rs<D>(dv, pa[kk], mnmajor(do_st, kk, kBq * 128));
+          wgmma_rs<D, T>(dv, pa[kk], mnmajor(do_st, kk, kBq * 128));
 #pragma unroll
         for (int kk = 0; kk < kBq / 16; ++kk)
-          wgmma_rs<D>(dk, da[kk], mnmajor(q_st, kk, kBq * 128));
+          wgmma_rs<D, T>(dk, da[kk], mnmajor(q_st, kk, kBq * 128));
         wgmma_commit();
         if (BIAS == kRel && !one_bin) {
           // the warp's 16 x kBq tile of unscaled dS^T by diagonal: local
@@ -643,9 +656,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int i = 0; i < D / 8; ++i) {
         *reinterpret_cast<uint32_t*>(p.dk + off + 8 * i + 2 * t) =
-            apex::pack_bf16(dk[4 * i + 2 * hh], dk[4 * i + 2 * hh + 1]);
+            out_pair<T, f16_fault>(dk[4 * i + 2 * hh],
+                                   dk[4 * i + 2 * hh + 1]);
         *reinterpret_cast<uint32_t*>(p.dv + off + 8 * i + 2 * t) =
-            apex::pack_bf16(dv[4 * i + 2 * hh], dv[4 * i + 2 * hh + 1]);
+            out_pair<T, f16_fault>(dv[4 * i + 2 * hh],
+                                   dv[4 * i + 2 * hh + 1]);
       }
     }
   }
@@ -653,15 +668,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // --- dQ -------------------------------------------------------------------
 
-template <int D, int BIAS, bool kDrop>
+template <int D, int BIAS, bool kDrop, typename T = bf16, int kF16Fault = 0>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        const __grid_constant__ CUtensorMap tm_do,
                        const __grid_constant__ CUtensorMap tm_bias,
-                       const FlashParams p, int bias_tma) {
+                       const apex::FlashParamsT<T> p, int bias_tma) {
   static_assert(!(kDrop && BIAS == kArr), "no dropout with the array bias");
+  constexpr int f16_fault = kF16Fault;  // 0 in every bf16 instance
   using C = DqCfg<D, BIAS>;
   constexpr int kBk = C::kBk, kS = C::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -771,7 +787,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int r = tid >> 1, part = tid & 1;
       const int qr = q0 + r;
       const long long qrc = qr < sq ? qr : 0;
-      const float dl = apex::row_delta<D, 2>(
+      const float dl = apex::row_delta<D, 2, T>(
           p.dout + bi * p.do_v.b + head * p.do_v.h + qrc * p.do_v.r,
           p.o + bi * p.o_v.b + head * p.o_v.h + qrc * p.o_v.r, part);
       if (part == 0) {
@@ -803,11 +819,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss<kBk>(sc, kmajor(q_s, kBqCta, kk, cw * 64),
+          wgmma_ss<kBk, T>(sc, kmajor(q_s, kBqCta, kk, cw * 64),
                         kmajor(k_st, kBk, kk, 0), kk > 0);
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss<kBk>(dp, kmajor(do_s, kBqCta, kk, cw * 64),
+          wgmma_ss<kBk, T>(dp, kmajor(do_s, kBqCta, kk, cw * 64),
                         kmajor(v_st, kBk, kk, 0), kk > 0);
         wgmma_commit();
         wgmma_wait<0>();
@@ -902,11 +918,12 @@ __global__ void __launch_bounds__(kThreads, 1)
           run(LutMode<kLutClamp>{});
         uint32_t da[kBk / 16][4];
 #pragma unroll
-        for (int kk = 0; kk < kBk / 16; ++kk) wgmma_a_frag(da[kk], dp, kk);
+        for (int kk = 0; kk < kBk / 16; ++kk)
+          a_frag<T, f16_fault>(da[kk], dp, kk);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kBk / 16; ++kk)
-          wgmma_rs<D>(dq, da[kk], mnmajor(k_st, kk, kBk * 128));
+          wgmma_rs<D, T>(dq, da[kk], mnmajor(k_st, kk, kBk * 128));
         wgmma_commit();
         wgmma_wait<0>();
         fence_operand(dq);
@@ -919,11 +936,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int hh = 0; hh < 2; ++hh) {
       const int qr = q0 + r0 + 8 * hh;
       if (qr >= sq) continue;
-      bf16* dst = p.out + bi * dq_b + head * dq_h + qr * dq_r;
+      T* dst = p.out + bi * dq_b + head * dq_h + qr * dq_r;
 #pragma unroll
       for (int i = 0; i < D / 8; ++i)
         *reinterpret_cast<uint32_t*>(dst + 8 * i + 2 * t) =
-            apex::pack_bf16(dq[4 * i + 2 * hh], dq[4 * i + 2 * hh + 1]);
+            out_pair<T, f16_fault>(dq[4 * i + 2 * hh],
+                                   dq[4 * i + 2 * hh + 1]);
     }
   }
 }
@@ -936,11 +954,13 @@ struct Maps {
 
 // every map of a call; the bias's only when it goes by TMA (else the
 // kernel never reads it)
-bool make_maps(Maps& m, const FlashParams& p, int b, int d, int bias_tma) {
-  if (!view_map(&m.q, p.q, p.q_v, d, p.sq, p.h, b) ||
-      !view_map(&m.k, p.k, p.kv_v, d, p.sk, p.h_kv, b) ||
-      !view_map(&m.v, p.v, p.kv_v, d, p.sk, p.h_kv, b) ||
-      !view_map(&m.dout, p.dout, p.do_v, d, p.sq, p.h, b))
+template <typename T>
+bool make_maps(Maps& m, const apex::FlashParamsT<T>& p, int b, int d,
+               int bias_tma) {
+  if (!view_map<T>(&m.q, p.q, p.q_v, d, p.sq, p.h, b) ||
+      !view_map<T>(&m.k, p.k, p.kv_v, d, p.sk, p.h_kv, b) ||
+      !view_map<T>(&m.v, p.v, p.kv_v, d, p.sk, p.h_kv, b) ||
+      !view_map<T>(&m.dout, p.dout, p.do_v, d, p.sq, p.h, b))
     return false;
   m.bias = m.q;
   if (p.bias != nullptr && bias_tma)
@@ -948,10 +968,10 @@ bool make_maps(Maps& m, const FlashParams& p, int b, int d, int bias_tma) {
   return true;
 }
 
-template <int D, int BIAS, bool kDrop>
-cudaError_t launch_dkv(const Maps& m, const FlashParams& p, int b,
+template <int D, int BIAS, bool kDrop, typename T, int F = 0>
+cudaError_t launch_dkv(const Maps& m, const apex::FlashParamsT<T>& p, int b,
                        int bias_tma, cudaStream_t st) {
-  auto kernel = flash_bwd_dkv_wgmma<D, BIAS, kDrop>;
+  auto kernel = flash_bwd_dkv_wgmma<D, BIAS, kDrop, T, F>;
   const size_t smem = DkvCfg<D, BIAS>::bytes(2 * p.maxd + 1);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -964,10 +984,10 @@ cudaError_t launch_dkv(const Maps& m, const FlashParams& p, int b,
   return cudaGetLastError();
 }
 
-template <int D, int BIAS, bool kDrop>
-cudaError_t launch_dq(const Maps& m, const FlashParams& p, int b,
+template <int D, int BIAS, bool kDrop, typename T, int F = 0>
+cudaError_t launch_dq(const Maps& m, const apex::FlashParamsT<T>& p, int b,
                       int bias_tma, cudaStream_t st) {
-  auto kernel = flash_bwd_dq_wgmma<D, BIAS, kDrop>;
+  auto kernel = flash_bwd_dq_wgmma<D, BIAS, kDrop, T, F>;
   const size_t smem = DqCfg<D, BIAS>::bytes(2 * p.maxd + 1);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -980,23 +1000,33 @@ cudaError_t launch_dq(const Maps& m, const FlashParams& p, int b,
   return cudaGetLastError();
 }
 
-template <bool kDkv, int D, bool kDrop>
-cudaError_t dispatch(const Maps& m, const FlashParams& p, int b,
+// the instance of a call's options; the fp16 instances have none but
+// their planted faults
+template <bool kDkv, int D, bool kDrop, typename T>
+cudaError_t dispatch(const Maps& m, const apex::FlashParamsT<T>& p, int b,
                      int bias_tma, cudaStream_t st) {
-#define APEX_LAUNCH(K, DROP) \
-  (kDkv ? launch_dkv<D, K, DROP>(m, p, b, bias_tma, st) \
-        : launch_dq<D, K, DROP>(m, p, b, bias_tma, st))
-  if (p.lut != nullptr) return APEX_LAUNCH(kRel, kDrop);
-  if constexpr (!kDrop) {
-    if (p.bias != nullptr) return APEX_LAUNCH(kArr, false);
+#define APEX_LAUNCH(K, DROP, F) \
+  (kDkv ? launch_dkv<D, K, DROP, T, F>(m, p, b, bias_tma, st) \
+        : launch_dq<D, K, DROP, T, F>(m, p, b, bias_tma, st))
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (p.lut != nullptr) return APEX_LAUNCH(kRel, kDrop, 0);
+    if constexpr (!kDrop) {
+      if (p.bias != nullptr) return APEX_LAUNCH(kArr, false, 0);
+    }
+  } else {
+    if (p.drop.fault == kF16Bf16P) return APEX_LAUNCH(kNone, kDrop, kF16Bf16P);
+    if (p.drop.fault == kF16Satfinite)
+      return APEX_LAUNCH(kNone, kDrop, kF16Satfinite);
   }
-  return APEX_LAUNCH(kNone, kDrop);
+  return APEX_LAUNCH(kNone, kDrop, 0);
 #undef APEX_LAUNCH
 }
 
 // the checks both variants share; dropout only on variant 1 and without
 // the array bias
-bool bad_call(const FlashParams& p, int b, int d, bool dkv, int variant) {
+template <typename T>
+bool bad_call(const apex::FlashParamsT<T>& p, int b, int d, bool dkv,
+              int variant) {
   return (p.drop.thresh > 0 &&
           (variant != 1 || p.bias != nullptr || p.drop.thresh > (1u << 24))) ||
          b < 1 || p.sq < 1 || p.sk < 1 || p.h < 1 || p.h_kv < 1 ||
@@ -1011,9 +1041,9 @@ bool bad_call(const FlashParams& p, int b, int d, bool dkv, int variant) {
 }
 
 // the wgmma kernels' launch: the tensor maps and the grid; kDrop picks the
-// dropout instances
-template <bool kDkv, bool kDrop>
-int run_wgmma(int d, const FlashParams& p, int b, int bias_tma,
+// dropout instances, T the element type
+template <bool kDkv, bool kDrop, typename T = bf16>
+int run_wgmma(int d, const apex::FlashParamsT<T>& p, int b, int bias_tma,
               void* stream) {
   const long long tiles =
       kDkv ? static_cast<long long>(b) * p.h_kv * ((p.sk + kBkv - 1) / kBkv)
@@ -1024,12 +1054,12 @@ int run_wgmma(int d, const FlashParams& p, int b, int bias_tma,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      d == 128 ? dispatch<kDkv, 128, kDrop>(m, p, b, bias_tma, st)
-               : dispatch<kDkv, 64, kDrop>(m, p, b, bias_tma, st);
+      d == 128 ? dispatch<kDkv, 128, kDrop, T>(m, p, b, bias_tma, st)
+               : dispatch<kDkv, 64, kDrop, T>(m, p, b, bias_tma, st);
   return static_cast<int>(err);
 }
 
-#ifndef APEX_FLASH_DROPOUT_TU
+#if !defined(APEX_FLASH_DROPOUT_TU) && !defined(APEX_FLASH_F16_TU)
 template <bool kDkv>
 int run(int d, const FlashParams& p, int b, int variant, int bias_tma,
         void* stream) {
@@ -1043,10 +1073,14 @@ int run(int d, const FlashParams& p, int b, int variant, int bias_tma,
   return run_wgmma<kDkv, false>(d, p, b, bias_tma, stream);
 }
 
+#endif
+
+#ifndef APEX_FLASH_DROPOUT_TU
 // the entries' shared arguments: `strides` holds (batch, head, row)
 // element strides of q, k/v, o, do and the output(s) (dq, or dk/dv): 15
 // values, each a multiple of 8 elements (16-byte aligned rows)
-bool flat_params(FlashParams& p, const void* q, const void* k, const void* v,
+template <typename T>
+bool flat_params(apex::FlashParamsT<T>& p, const void* q, const void* k, const void* v,
                  const void* o, const void* dout, const void* lse,
                  const void* delta, const void* kv_lens, const void* lut,
                  const void* bucket, const void* bias,
@@ -1058,11 +1092,11 @@ bool flat_params(FlashParams& p, const void* q, const void* k, const void* v,
     if (strides[i] < 0 || strides[i] % 8) return false;
   p.drop = {drop_seed, static_cast<uint32_t>(drop_thresh), drop_scale,
             drop_fault};
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.o = static_cast<const bf16*>(o);
-  p.dout = static_cast<const bf16*>(dout);
+  p.q = static_cast<const T*>(q);
+  p.k = static_cast<const T*>(k);
+  p.v = static_cast<const T*>(v);
+  p.o = static_cast<const T*>(o);
+  p.dout = static_cast<const T*>(dout);
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<float*>(const_cast<void*>(delta));
   p.kv_lens = static_cast<const int*>(kv_lens);
@@ -1092,11 +1126,63 @@ bool flat_params(FlashParams& p, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-#ifdef APEX_FLASH_DROPOUT_TU
+#if defined(APEX_FLASH_DROPOUT_TU)
 int apex::flash_bwd_dropout::run(bool dkv, int d, const FlashParams& p, int b,
                                  int bias_tma, void* stream) {
   return dkv ? run_wgmma<true, true>(d, p, b, bias_tma, stream)
              : run_wgmma<false, true>(d, p, b, bias_tma, stream);
+}
+#elif defined(APEX_FLASH_F16_TU)
+namespace {
+
+// the fp16 entries' rules: the packed path's calls, causal or not, without
+// kv_lens, bias, lookup or dropout; fault a planted Fp16Fault (0 sound)
+template <bool kDkv>
+int run_f16(const apex::FlashParamsT<__half>& p, int b, int d, int fault,
+            void* stream) {
+  if (bad_call(p, b, d, kDkv, 1) ||
+      (fault != apex::flash_sm90::kF16Sound &&
+       fault != apex::flash_sm90::kF16Bf16P &&
+       fault != apex::flash_sm90::kF16Satfinite))
+    return static_cast<int>(cudaErrorInvalidValue);
+  apex::FlashParamsT<__half> pf = p;
+  pf.drop.fault = fault;
+  return run_wgmma<kDkv, false, __half>(d, pf, b, 0, stream);
+}
+
+}  // namespace
+
+// The backward pair's fp16 instances (amp's strict-fp16 GPT step), on the
+// packed buffer's views as apex_flash_bwd_dq's and apex_flash_bwd_dkv's:
+// q, o, do, dq (b, h, sq, d), k, v, dk, dv (b, h_kv, sk, d) fp16, lse and
+// delta (b*h, sq) fp32 (dQ writes delta, dK/dV reads it).
+extern "C" int apex_flash_bwd_dq_f16(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* dq, void* delta,
+    const long long* strides, int b, int h, int h_kv, int sq, int sk, int d,
+    int causal, float scale, int fault, void* stream) {
+  apex::FlashParamsT<__half> p{};
+  if (!flat_params(p, q, k, v, o, dout, lse, delta, nullptr, nullptr,
+                   nullptr, nullptr, strides, h, h_kv, sq, sk, causal, scale,
+                   0, 0, 1, 1, h, 1, 0u, 0, 1.f, 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.out = static_cast<__half*>(dq);
+  return run_f16<false>(p, b, d, fault, stream);
+}
+
+extern "C" int apex_flash_bwd_dkv_f16(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, const void* delta, void* dk, void* dv,
+    const long long* strides, int b, int h, int h_kv, int sq, int sk, int d,
+    int causal, float scale, int fault, void* stream) {
+  apex::FlashParamsT<__half> p{};
+  if (!flat_params(p, q, k, v, o, dout, lse, delta, nullptr, nullptr,
+                   nullptr, nullptr, strides, h, h_kv, sq, sk, causal, scale,
+                   0, 0, 1, 1, h, 1, 0u, 0, 1.f, 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.dk = static_cast<__half*>(dk);
+  p.dv = static_cast<__half*>(dv);
+  return run_f16<true>(p, b, d, fault, stream);
 }
 #else
 
@@ -1153,4 +1239,4 @@ extern "C" int apex_flash_bwd_dkv(
   p.dtab = static_cast<float*>(dtab);
   return run<true>(d, p, b, variant, bias_tma, stream);
 }
-#endif  // APEX_FLASH_DROPOUT_TU
+#endif  // APEX_FLASH_DROPOUT_TU, APEX_FLASH_F16_TU

@@ -12,6 +12,16 @@
 // natural-log normaliser lse (b*h, sq) fp32 (the reference's 8-lane lse
 // carrier is a TPU layout rule; here the plain rows).
 //
+// fp16 (amp's strict-fp16 GPT step): the body is a template on the element
+// type, and flash_attn_fwd_f16.cu compiles its fp16 instance (the packed
+// entry apex_flash_fwd_f16, d 64 and 128, without kv_lens, bias or
+// dropout) in a translation unit of its own, so the bf16 instances stay
+// the code they were. Scores and the softmax stay fp32; P is rounded to
+// fp16 (round to nearest) as the A operand of the m64nNk16 f32.f16.f16
+// product, o to fp16 by round-to-nearest, so an overflow is inf. The
+// reference sends fp16 to XLA (Mosaic has no f16); Hopper's tensor cores
+// take it at the bf16 rate.
+//
 // Entries: apex_flash_fwd (packed), apex_flash_fwd_bshd and
 // apex_flash_fwd_flat, variant 1 (this file's kernel) or 0
 // (flash_attn_fwd_sm80.cu's first mma.sync kernel, for the A/B timing and
@@ -166,14 +176,16 @@ struct FwdCfg {
   static_assert(kQBufs <= 4 && kStages <= 4, "the barriers' 128 bytes");
 };
 
-template <int D, int BIAS, bool kDrop>
+// T: the element type; kF16Fault: an fp16 instance's planted fault
+template <int D, int BIAS, bool kDrop, typename T = bf16, int kF16Fault = 0>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
                     const __grid_constant__ CUtensorMap tm_bias,
-                    const FlashParams p, int bias_tma) {
+                    const apex::FlashParamsT<T> p, int bias_tma) {
   static_assert(!(kDrop && BIAS == kArr), "no dropout with the array bias");
+  constexpr int f16_fault = kF16Fault;  // 0 in every bf16 instance
   using C = FwdCfg<D, BIAS>;
   constexpr int kBk = C::kBk, kS = C::kStages, kQB = C::kQBufs;
   extern __shared__ unsigned char smem_raw[];
@@ -337,7 +349,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < D / 16; ++kk)
-            wgmma_ss<kBk>(sc, kmajor(q_s, kBqCta, kk, cw * 64),
+            wgmma_ss<kBk, T>(sc, kmajor(q_s, kBqCta, kk, cw * 64),
                           kmajor(k_st, kBk, kk, 0), kk > 0);
           wgmma_commit();
           wgmma_wait<0>();
@@ -469,12 +481,13 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
           uint32_t pa[kBk / 16][4];
 #pragma unroll
-          for (int kk = 0; kk < kBk / 16; ++kk) wgmma_a_frag(pa[kk], sc, kk);
+          for (int kk = 0; kk < kBk / 16; ++kk)
+            a_frag<T, f16_fault>(pa[kk], sc, kk);
           fence_operand(o);
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < kBk / 16; ++kk)
-            wgmma_rs<D>(o, pa[kk], mnmajor(v_st, kk, kBk * 128));
+            wgmma_rs<D, T>(o, pa[kk], mnmajor(v_st, kk, kBk * 128));
           wgmma_commit();
           wgmma_wait<0>();
           fence_operand(o);
@@ -490,14 +503,15 @@ __global__ void __launch_bounds__(kThreads, 1)
         l += __shfl_xor_sync(0xffffffffu, l, 2);
         const bool dead = !(l > 0.f);  // no visible column (kv length 0)
         l = fmaxf(l, 1e-30f);
-        const float inv = 1.f / l;  // o = acc / l within an ulp, then bf16
+        const float inv = 1.f / l;  // o = acc / l within an ulp, then T
         const int qr = q0 + r0 + 8 * hh;
         if (qr >= sq) continue;
-        bf16* dst = p.out + u.bi * o_b + u.head * o_h + qr * o_r;
+        T* dst = p.out + u.bi * o_b + u.head * o_h + qr * o_r;
 #pragma unroll
         for (int i = 0; i < D / 8; ++i)
-          *reinterpret_cast<uint32_t*>(dst + 8 * i + 2 * t) = apex::pack_bf16(
-              o[4 * i + 2 * hh] * inv, o[4 * i + 2 * hh + 1] * inv);
+          *reinterpret_cast<uint32_t*>(dst + 8 * i + 2 * t) =
+              out_pair<T, f16_fault>(o[4 * i + 2 * hh] * inv,
+                                     o[4 * i + 2 * hh + 1] * inv);
         if (t == 0)
           p.lse_out[static_cast<size_t>(u.row) * sq + qr] =
               dead ? 0.f : m_run[hh] * mscale + logf(l);
@@ -514,10 +528,12 @@ struct Maps {
 
 // every map of a call; the bias's only when it goes by TMA (else the
 // kernel never reads it)
-bool make_maps(Maps& m, const FlashParams& p, int b, int d, int bias_tma) {
-  if (!view_map(&m.q, p.q, p.q_v, d, p.sq, p.h, b) ||
-      !view_map(&m.k, p.k, p.kv_v, d, p.sk, p.h_kv, b) ||
-      !view_map(&m.v, p.v, p.kv_v, d, p.sk, p.h_kv, b))
+template <typename T>
+bool make_maps(Maps& m, const apex::FlashParamsT<T>& p, int b, int d,
+               int bias_tma) {
+  if (!view_map<T>(&m.q, p.q, p.q_v, d, p.sq, p.h, b) ||
+      !view_map<T>(&m.k, p.k, p.kv_v, d, p.sk, p.h_kv, b) ||
+      !view_map<T>(&m.v, p.v, p.kv_v, d, p.sk, p.h_kv, b))
     return false;
   m.bias = m.q;
   if (p.bias != nullptr && bias_tma)
@@ -525,11 +541,11 @@ bool make_maps(Maps& m, const FlashParams& p, int b, int d, int bias_tma) {
   return true;
 }
 
-template <int D, int BIAS, bool kDrop>
-cudaError_t launch(const Maps& m, const FlashParams& p0, unsigned ctas,
-                   int bias_tma, cudaStream_t st) {
-  auto kernel = flash_fwd_wgmma<D, BIAS, kDrop>;
-  FlashParams p = p0;
+template <int D, int BIAS, bool kDrop, typename T, int F = 0>
+cudaError_t launch(const Maps& m, const apex::FlashParamsT<T>& p0,
+                   unsigned ctas, int bias_tma, cudaStream_t st) {
+  auto kernel = flash_fwd_wgmma<D, BIAS, kDrop, T, F>;
+  apex::FlashParamsT<T> p = p0;
   // kRel: every bias row's lookup in shared memory where they fit (T5: 12
   // rows of 257 values), else one row at a time
   const size_t nlut = 2 * p.maxd + 1;
@@ -544,16 +560,26 @@ cudaError_t launch(const Maps& m, const FlashParams& p0, unsigned ctas,
   return cudaGetLastError();
 }
 
-template <int D, bool kDrop>
-cudaError_t dispatch(const Maps& m, const FlashParams& p, unsigned ctas,
-                     int bias_tma, cudaStream_t st) {
-  if (p.lut != nullptr)
-    return launch<D, kRel, kDrop>(m, p, ctas, bias_tma, st);
-  if constexpr (!kDrop) {
-    if (p.bias != nullptr)
-      return launch<D, kArr, false>(m, p, ctas, bias_tma, st);
+// the instance of a call's options; the fp16 instances have none but
+// their planted faults
+template <int D, bool kDrop, typename T>
+cudaError_t dispatch(const Maps& m, const apex::FlashParamsT<T>& p,
+                     unsigned ctas, int bias_tma, cudaStream_t st) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (p.lut != nullptr)
+      return launch<D, kRel, kDrop, T>(m, p, ctas, bias_tma, st);
+    if constexpr (!kDrop) {
+      if (p.bias != nullptr)
+        return launch<D, kArr, false, T>(m, p, ctas, bias_tma, st);
+    }
+  } else {
+    if (p.drop.fault == kF16Bf16P)
+      return launch<D, kNone, kDrop, T, kF16Bf16P>(m, p, ctas, bias_tma, st);
+    if (p.drop.fault == kF16Satfinite)
+      return launch<D, kNone, kDrop, T, kF16Satfinite>(m, p, ctas, bias_tma,
+                                                       st);
   }
-  return launch<D, kNone, kDrop>(m, p, ctas, bias_tma, st);
+  return launch<D, kNone, kDrop, T>(m, p, ctas, bias_tma, st);
 }
 
 // the SMs of the current device, asked once per device
@@ -570,16 +596,16 @@ int sm_count() {
 }
 
 // the wgmma kernel's launch: the tensor maps, the tiles, the grid; kDrop
-// picks the dropout instances
-template <bool kDrop>
-int run_wgmma(int d, const FlashParams& p, int b, int bias_tma,
+// picks the dropout instances, T the element type
+template <bool kDrop, typename T = bf16>
+int run_wgmma(int d, const apex::FlashParamsT<T>& p, int b, int bias_tma,
               void* stream) {
   const int nq = (p.sq + kBqCta - 1) / kBqCta;
   const long long tiles = static_cast<long long>(b) * p.h * nq;
   Maps m;
   if (tiles > 0x7fffffffLL || !make_maps(m, p, b, d, bias_tma))
     return static_cast<int>(cudaErrorInvalidValue);
-  FlashParams pt = p;
+  apex::FlashParamsT<T> pt = p;
   pt.tiles = static_cast<int>(tiles);
   // tiles of equal work (no causal mask, or one query tile a head) go to
   // one CTA an SM, each walking several, so a tile's loads overlap the one
@@ -591,12 +617,12 @@ int run_wgmma(int d, const FlashParams& p, int b, int bias_tma,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned n = static_cast<unsigned>(ctas);
   const cudaError_t err =
-      d == 128 ? dispatch<128, kDrop>(m, pt, n, bias_tma, st)
-               : dispatch<64, kDrop>(m, pt, n, bias_tma, st);
+      d == 128 ? dispatch<128, kDrop, T>(m, pt, n, bias_tma, st)
+               : dispatch<64, kDrop, T>(m, pt, n, bias_tma, st);
   return static_cast<int>(err);
 }
 
-#ifndef APEX_FLASH_DROPOUT_TU
+#if !defined(APEX_FLASH_DROPOUT_TU) && !defined(APEX_FLASH_F16_TU)
 // the argument rules both variants share; d picks the compiled head dim;
 // `strided`: the sm80 variant's instantiation for views with their own
 // strides (else the packed one's). Dropout: the wgmma kernel only, never
@@ -622,10 +648,49 @@ int run(int d, const FlashParams& p, int b, bool strided, int variant,
 
 }  // namespace
 
-#ifdef APEX_FLASH_DROPOUT_TU
+#if defined(APEX_FLASH_DROPOUT_TU)
 int apex::flash_fwd_dropout::run(int d, const FlashParams& p, int b,
                                  int bias_tma, void* stream) {
   return run_wgmma<true>(d, p, b, bias_tma, stream);
+}
+#elif defined(APEX_FLASH_F16_TU)
+// The packed entry's fp16 instance (amp's strict-fp16 GPT step): qkv (b,
+// s, (h + 2*h_kv)*d) fp16 as apex_flash_fwd's, o (b, s, h*d) fp16 and lse
+// (b*h, s) fp32; the wgmma kernel without kv_lens, bias or dropout. fault:
+// a planted Fp16Fault (0 sound).
+extern "C" int apex_flash_fwd_f16(const void* qkv, void* out, void* lse,
+                                  int b, int s, int h, int h_kv, int d,
+                                  int causal, float scale, int fault,
+                                  void* stream) {
+  if (b < 1 || s < 1 || h < 1 || h_kv < 1 || h % h_kv ||
+      (d != 64 && d != 128) ||
+      static_cast<long long>(b) * h > 0x7fffffffLL ||
+      (fault != apex::flash_sm90::kF16Sound &&
+       fault != apex::flash_sm90::kF16Bf16P &&
+       fault != apex::flash_sm90::kF16Satfinite))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const __half* base = static_cast<const __half*>(qkv);
+  const long long feat = static_cast<long long>(h + 2 * h_kv) * d;
+  apex::FlashParamsT<__half> p{};
+  p.q = base;
+  p.k = base + h * d;
+  p.v = base + (h + h_kv) * d;
+  p.out = static_cast<__half*>(out);
+  p.lse_out = static_cast<float*>(lse);
+  p.q_v = {s * feat, d, feat};
+  p.kv_v = p.q_v;
+  p.out_v = {static_cast<long long>(s) * h * d, d,
+             static_cast<long long>(h) * d};
+  p.sq = p.sk = s;
+  p.h = h;
+  p.h_kv = h_kv;
+  p.causal = causal;
+  p.scale = scale;
+  p.hb = 1;
+  p.lens_b = h;
+  p.lens_h = 1;
+  p.drop.fault = fault;
+  return run_wgmma<false, __half>(d, p, b, 0, stream);
 }
 #else
 
@@ -766,4 +831,4 @@ extern "C" int apex_flash_fwd_flat(const void* q, const void* k,
             drop_fault};
   return run(d, p, b, true, variant, bias_tma, stream);
 }
-#endif  // APEX_FLASH_DROPOUT_TU
+#endif  // APEX_FLASH_DROPOUT_TU, APEX_FLASH_F16_TU

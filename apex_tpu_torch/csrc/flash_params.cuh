@@ -34,6 +34,9 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+
+#include <type_traits>
 
 #include "dropout_hash.cuh"
 
@@ -43,13 +46,16 @@ struct View {
   long long b, h, r;  // element strides of batch, head and row
 };
 
-struct FlashParams {
-  const __nv_bfloat16 *q, *k, *v;  // forward and backward inputs
-  const __nv_bfloat16 *o, *dout;   // backward inputs
+// T: the 16-bit element type of q, k, v, o, do and the outputs -- bf16
+// (FlashParams, every entry), or fp16 (the packed path's fp16 instances)
+template <typename T>
+struct FlashParamsT {
+  const T *q, *k, *v;              // forward and backward inputs
+  const T *o, *dout;               // backward inputs
   const float* lse;                // backward input (forward output)
-  __nv_bfloat16* out;              // forward output, or dq
+  T* out;                          // forward output, or dq
   float* lse_out;                  // forward output
-  __nv_bfloat16 *dk, *dv;          // dK/dV outputs
+  T *dk, *dv;                      // dK/dV outputs
   float* dtab;                     // (hb, nb) fp32, zeroed before launch
   const int* kv_lens;              // see lens_b / lens_h, or null
   const float* bias;               // (hb, sq, sk) fp32 or null
@@ -65,15 +71,18 @@ struct FlashParams {
   int lens_b, lens_h;         // kv_lens strides of batch and head
   int tiles;                  // the wgmma forward's (b*h, query tile)s
   int lut_rows;               // its lookup rows in shared memory: hb or 1
-  DropParams drop;            // the probabilities' dropout (thresh 0: off)
+  DropParams drop;            // the probabilities' dropout (thresh 0: off);
+                              // at fp16, drop.fault names the planted
+                              // Fp16Fault whose instance the launch
+                              // picks (flash_sm90.cuh)
 };
+using FlashParams = FlashParamsT<__nv_bfloat16>;
 
-// rowsum(do * o) in fp32 over D elements, THREADS_PER_ROW threads per row
-// (neighbouring lanes), each reading D / THREADS_PER_ROW elements in
-// 16-byte loads
-template <int D, int THREADS_PER_ROW>
-__device__ __forceinline__ float row_delta(const __nv_bfloat16* dorow,
-                                           const __nv_bfloat16* orow,
+// rowsum(do * o) in fp32 over D elements of T (bf16 or fp16),
+// THREADS_PER_ROW threads per row (neighbouring lanes), each reading
+// D / THREADS_PER_ROW elements in 16-byte loads
+template <int D, int THREADS_PER_ROW, typename T = __nv_bfloat16>
+__device__ __forceinline__ float row_delta(const T* dorow, const T* orow,
                                            int part) {
   constexpr int kPer = D / THREADS_PER_ROW;
   float acc = 0.f;
@@ -81,12 +90,16 @@ __device__ __forceinline__ float row_delta(const __nv_bfloat16* dorow,
   for (int i = 0; i < kPer; i += 8) {
     const uint4 a = *reinterpret_cast<const uint4*>(dorow + part * kPer + i);
     const uint4 b = *reinterpret_cast<const uint4*>(orow + part * kPer + i);
-    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
-    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const float2 x = __bfloat1622float2(a2[k]);
-      const float2 y = __bfloat1622float2(b2[k]);
+      float2 x, y;
+      if constexpr (std::is_same<T, __half>::value) {
+        x = __half22float2(reinterpret_cast<const __half2*>(&a)[k]);
+        y = __half22float2(reinterpret_cast<const __half2*>(&b)[k]);
+      } else {
+        x = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(&a)[k]);
+        y = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(&b)[k]);
+      }
       acc += x.x * y.x + x.y * y.y;
     }
   }

@@ -2,7 +2,8 @@
 // forward (flash_attn_fwd.cu), the backward pair (flash_attn_bwd.cu) and
 // the array bias's gradient (flash_attn_dbias.cu).
 //
-// Operands are (batch, head, row)-strided bf16 views with a unit feature
+// Operands are (batch, head, row)-strided bf16 (or, in the fp16 instances
+// of the packed path, fp16) views with a unit feature
 // stride (flash_params.cuh), each read through one 4-D TMA map (d, row,
 // head, batch) in 64-row x 64-feature boxes with the 128-byte swizzle (d
 // 128 is two boxes across). A tile of `rows` rows lies in shared memory as
@@ -25,6 +26,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "apex_mma.cuh"
 #include "apex_sm90.cuh"
 #include "flash_params.cuh"
 
@@ -140,37 +142,77 @@ __device__ __forceinline__ void zero(float (&a)[N]) {
   for (int i = 0; i < N; ++i) a[i] = 0.f;
 }
 
-// d (64 x N) = A B (scale_d 0) or += (1), both from shared memory, K-major
-template <int N>
+// d (64 x N) = A B (scale_d 0) or += (1), both T from shared memory,
+// K-major
+template <int N, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d) {
   if constexpr (N == 128)
-    wgmma_m64n128k16_ss<0, 0>(d, da, db, scale_d);
+    wgmma_m64n128k16_ss<0, 0, T>(d, da, db, scale_d);
   else
-    wgmma_m64n64k16_ss<0, 0>(d, da, db, scale_d);
+    wgmma_m64n64k16_ss<0, 0, T>(d, da, db, scale_d);
 }
 
-// d (64 x N) += A (64 x 16 from registers) B (16 x N, MN-major)
-template <int N>
+// d (64 x N) += A (64 x 16 from registers) B (16 x N, MN-major), both T
+template <int N, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
   if constexpr (N == 128)
-    wgmma_m64n128k16_rs<1>(d, a, db);
+    wgmma_m64n128k16_rs<1, T>(d, a, db);
   else
-    wgmma_m64n64k16_rs<1>(d, a, db);
+    wgmma_m64n64k16_rs<1, T>(d, a, db);
+}
+
+// The fp16 instances' planted faults, by the code the entries take in
+// FlashParams::drop.fault and the launch turns into an instance of its own
+// (a runtime branch in the inner loop cost the sound instance 5-10%): P
+// and dS rounded through bf16 before the fp16 operand, or every output
+// clamped to +-65504
+enum Fp16Fault : int { kF16Sound = 0, kF16Bf16P = 16, kF16Satfinite = 17 };
+
+// the T operand fragment of an accumulator slice (wgmma_a_frag); the fp16
+// kF16Bf16P instance rounds it through bf16 first
+template <typename T, int kFault, int N>
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const float (&d)[N],
+                                       int k) {
+  if constexpr (std::is_same<T, __half>::value && kFault == kF16Bf16P) {
+    float r[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      r[i] = __bfloat162float(__float2bfloat16_rn(d[8 * k + i]));
+    wgmma_a_frag<8, T>(a, r, 0);
+  } else {
+    wgmma_a_frag<N, T>(a, d, k);
+  }
+}
+
+// a pair of outputs as T; the fp16 kF16Satfinite instance clamps them to
+// +-65504 first (so an overflow is not inf, and a nan is a number)
+template <typename T, int kFault>
+__device__ __forceinline__ uint32_t out_pair(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value && kFault == kF16Satfinite) {
+    lo = fminf(fmaxf(lo, -65504.f), 65504.f);
+    hi = fminf(fmaxf(hi, -65504.f), 65504.f);
+  }
+  return apex::pack2<T>(lo, hi);
 }
 
 // --- host -----------------------------------------------------------------
 
-// a (d, row, head, batch) bf16 map of a strided view
+// a (d, row, head, batch) map of a strided view of T (bf16 or fp16)
+template <typename T = __nv_bfloat16>
 inline bool view_map(CUtensorMap* map, const void* base, const View& v, int d,
                      int rows, int heads, int batch) {
   const long long dims[4] = {d, rows, heads, batch};
   const long long strides[3] = {v.r * 2, v.h * 2, v.b * 2};
   const int box[4] = {64, 64, 1, 1};
-  return make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base,
-                         dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  return make_tensor_map(map,
+                         std::is_same<T, __half>::value
+                             ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         4, base, dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // the (sk, sq, hb) fp32 map of the array bias, 32-column x 64-row boxes

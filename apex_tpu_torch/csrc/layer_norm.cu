@@ -8,7 +8,10 @@
 // registers: the mean, then the mean of (x - mean)^2 (never E[x^2] -
 // mean^2). RMSNorm writes mean 0 and skips the centring. The affine
 // (gamma, or gamma and beta) is a compile-time option; the parameters may
-// be fp32 or bf16 whatever x is.
+// be fp32 or bf16 with fp32 or bf16 x, fp32 or fp16 with fp16 x. The fp16
+// instances (amp's strict-fp16 step under O2 and O3) are the bf16 ones
+// with fp16 loads and round-to-nearest stores: an overflow reaches dx, or
+// dgamma/dbeta, as inf.
 //
 // Entries: apex_ln_fwd and apex_ln_bwd (the backward is two launches: the
 // row kernel, then the parameter reduction).
@@ -66,6 +69,7 @@
 // carried along a sequential grid) does not carry over to a card whose
 // CTAs run in no order.
 #include <cstdint>
+#include <type_traits>
 
 #include "apex_cuda.cuh"
 #include "apex_mma.cuh"
@@ -77,18 +81,28 @@ constexpr int kMaxHidden = 32 * 128;
 
 enum Affine : int { kNone = 0, kWeight = 1, kWeightBias = 2 };
 
-// element i of a float32 (w_bf16 false) or bfloat16 (true) vector, 0 past n
-__device__ __forceinline__ float load_param(const void* p, bool w_bf16,
+// the 16-bit parameter type beside fp32 (the w_half flag) of a kernel of
+// x's type T: fp16 with fp16 x (amp's O2 and O3 at fp16), else bf16. So
+// the weight's dtype code has three values, and the fp32 and bf16 kernels
+// are the code they were.
+template <typename T>
+using HalfParam = typename std::conditional<std::is_same<T, __half>::value,
+                                            __half, __nv_bfloat16>::type;
+
+// element i of a float32 (w_half false) or P (true) vector, 0 past n
+template <typename P>
+__device__ __forceinline__ float load_param(const void* p, bool w_half,
                                             int i, int n) {
   if (i >= n) return 0.f;
-  return w_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+  return w_half ? apex::to_float(static_cast<const P*>(p)[i])
                 : static_cast<const float*>(p)[i];
 }
 
-__device__ __forceinline__ void store_param(void* p, bool w_bf16, int i,
+template <typename P>
+__device__ __forceinline__ void store_param(void* p, bool w_half, int i,
                                             float v) {
-  if (w_bf16)
-    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
+  if (w_half)
+    static_cast<P*>(p)[i] = apex::from_float<P>(v);
   else
     static_cast<float*>(p)[i] = v;
 }
@@ -149,7 +163,7 @@ __global__ void __launch_bounds__(bwd_threads(C, W), C == 1 ? 2 : 1)
                   const float* __restrict__ mean,
                   const float* __restrict__ rstd, const void* __restrict__ w,
                   T* __restrict__ dx, float* __restrict__ part, int rows,
-                  int n, int rows_per_cta, bool rms, bool vec, bool w_bf16) {
+                  int n, int rows_per_cta, bool rms, bool vec, bool w_half) {
   constexpr int V = apex::Chunk<T>::kVec;
   constexpr int E = C * V;
   constexpr int R = bwd_groups(C, W), G = 32 * W, S = bwd_stages(C);
@@ -166,7 +180,8 @@ __global__ void __launch_bounds__(bwd_threads(C, W), C == 1 ? 2 : 1)
     for (int c = 0; c < C; ++c)
 #pragma unroll
       for (int k = 0; k < V; ++k) {
-        g[c * V + k] = load_param(w, w_bf16, (j + G * c) * V + k, n);
+        g[c * V + k] =
+            load_param<HalfParam<T>>(w, w_half, (j + G * c) * V + k, n);
         dg[c * V + k] = 0.f;
         db[c * V + k] = 0.f;
       }
@@ -326,9 +341,10 @@ __global__ void __launch_bounds__(bwd_threads(C, W), C == 1 ? 2 : 1)
 // dgamma (blockIdx.y 0) or dbeta (1) of 32 columns: thread row ty sums the
 // partial rows ty, ty + kRedRows, ... in order, then the kRedRows sums are
 // added in order
+template <typename P>
 __global__ void __launch_bounds__(32 * kRedRows)
     ln_bwd_reduce_kernel(const float* __restrict__ part, void* dw, void* db,
-                         int parts, int n, bool w_bf16) {
+                         int parts, int n, bool w_half) {
   __shared__ float s[kRedRows][33];
   void* out = blockIdx.y ? db : dw;
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
@@ -346,7 +362,7 @@ __global__ void __launch_bounds__(32 * kRedRows)
     float t = 0.f;
 #pragma unroll
     for (int r = 0; r < kRedRows; ++r) t += s[r][tx];
-    store_param(out, w_bf16, col, t);
+    store_param<P>(out, w_half, col, t);
   }
 }
 
@@ -369,17 +385,17 @@ __host__ __device__ constexpr int fwd_max_threads(int c) {
 
 // the V parameters from element i on (one chunk's) in fp32, 0 past n: as
 // 16-byte (8-byte for four bf16) vectors where pvec, else one by one
-template <int V>
+template <int V, typename P>
 __device__ __forceinline__ void load_param_chunk(const void* __restrict__ p,
-                                                 bool w_bf16, int i, int n,
+                                                 bool w_half, int i, int n,
                                                  bool pvec, float* out) {
   if (pvec && i + V <= n) {
-    if (w_bf16) {
-      const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p) + i;
+    if (w_half) {
+      const P* q = static_cast<const P*>(p) + i;
       if constexpr (V == 8) {
-        apex::unpack_chunk<__nv_bfloat16>(*reinterpret_cast<const uint4*>(q),
-                                          out);
-      } else {
+        apex::unpack_chunk<P>(*reinterpret_cast<const uint4*>(q), out);
+      } else {  // fp32 x's bf16 parameters
+        static_assert(std::is_same<P, __nv_bfloat16>::value, "bf16 pairs");
         const uint2 r = *reinterpret_cast<const uint2*>(q);
         out[0] = __uint_as_float(r.x << 16);
         out[1] = __uint_as_float(r.x & 0xffff0000u);
@@ -400,7 +416,7 @@ __device__ __forceinline__ void load_param_chunk(const void* __restrict__ p,
     }
   } else {
 #pragma unroll
-    for (int k = 0; k < V; ++k) out[k] = load_param(p, w_bf16, i + k, n);
+    for (int k = 0; k < V; ++k) out[k] = load_param<P>(p, w_half, i + k, n);
   }
 }
 
@@ -410,7 +426,7 @@ __global__ void __launch_bounds__(fwd_max_threads(C), 2)
                   const void* __restrict__ b, T* __restrict__ y,
                   float* __restrict__ mean_out, float* __restrict__ rstd_out,
                   int rows, int n, int warps, float eps, bool rms, bool vec,
-                  bool pvec, bool w_bf16) {
+                  bool pvec, bool w_half) {
   constexpr int V = apex::Chunk<T>::kVec;
   constexpr int E = C * V;
   constexpr int D = fwd_depth(C);
@@ -449,9 +465,10 @@ __global__ void __launch_bounds__(fwd_max_threads(C), 2)
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int i0 = (j + G * c) * V;
-      load_param_chunk<V>(w, w_bf16, i0, n, pvec, g + c * V);
+      load_param_chunk<V, HalfParam<T>>(w, w_half, i0, n, pvec, g + c * V);
       if constexpr (kAff == kWeightBias)
-        load_param_chunk<V>(b, w_bf16, i0, n, pvec, be + c * V);
+        load_param_chunk<V, HalfParam<T>>(b, w_half, i0, n, pvec,
+                                          be + c * V);
     }
   }
 
@@ -534,7 +551,7 @@ template <typename T, int C>
 cudaError_t fwd_launch(const void* x, const void* w, const void* b, void* y,
                        void* mean, void* rstd, int affine, bool rms, int rows,
                        int n, float eps, int warps, int groups, int ctas,
-                       int smem, bool w_bf16, cudaStream_t st) {
+                       int smem, bool w_half, cudaStream_t st) {
   const bool vec = n % apex::Chunk<T>::kVec == 0 && aligned(x) && aligned(y);
   const bool pvec = n % apex::Chunk<T>::kVec == 0 &&
                     (w == nullptr || aligned(w)) &&
@@ -546,13 +563,13 @@ cudaError_t fwd_launch(const void* x, const void* w, const void* b, void* y,
   const int threads = groups * warps * 32;
   if (affine == kWeightBias)
     ln_fwd_kernel<T, C, kWeightBias><<<ctas, threads, smem, st>>>(
-        xp, w, b, yp, mp, rp, rows, n, warps, eps, rms, vec, pvec, w_bf16);
+        xp, w, b, yp, mp, rp, rows, n, warps, eps, rms, vec, pvec, w_half);
   else if (affine == kWeight)
     ln_fwd_kernel<T, C, kWeight><<<ctas, threads, smem, st>>>(
-        xp, w, b, yp, mp, rp, rows, n, warps, eps, rms, vec, pvec, w_bf16);
+        xp, w, b, yp, mp, rp, rows, n, warps, eps, rms, vec, pvec, w_half);
   else
     ln_fwd_kernel<T, C, kNone><<<ctas, threads, smem, st>>>(
-        xp, w, b, yp, mp, rp, rows, n, warps, eps, rms, vec, pvec, w_bf16);
+        xp, w, b, yp, mp, rp, rows, n, warps, eps, rms, vec, pvec, w_half);
   return cudaGetLastError();
 }
 
@@ -560,18 +577,18 @@ template <typename T>
 cudaError_t fwd_t(const void* x, const void* w, const void* b, void* y,
                   void* mean, void* rstd, int affine, bool rms, int rows,
                   int n, float eps, int chunks, int warps, int groups,
-                  int ctas, int smem, bool w_bf16, cudaStream_t st) {
+                  int ctas, int smem, bool w_half, cudaStream_t st) {
   switch (chunks) {
     case 1:
       return fwd_launch<T, 1>(x, w, b, y, mean, rstd, affine, rms, rows, n,
-                              eps, warps, groups, ctas, smem, w_bf16, st);
+                              eps, warps, groups, ctas, smem, w_half, st);
     case 2:
       return fwd_launch<T, 2>(x, w, b, y, mean, rstd, affine, rms, rows, n,
-                              eps, warps, groups, ctas, smem, w_bf16, st);
+                              eps, warps, groups, ctas, smem, w_half, st);
     case 4:
       if constexpr (apex::Chunk<T>::kVec * 4 <= 16)
         return fwd_launch<T, 4>(x, w, b, y, mean, rstd, affine, rms, rows,
-                                n, eps, warps, groups, ctas, smem, w_bf16,
+                                n, eps, warps, groups, ctas, smem, w_half,
                                 st);
       return cudaErrorInvalidValue;
     default:
@@ -600,7 +617,7 @@ template <typename T, int C, int W, bool kW>
 cudaError_t bwd_launch(const T* dy, const T* x, const float* mean,
                        const float* rstd, const void* w, T* dx, float* part,
                        bool rms, int rows, int n, int rows_per_cta, bool vec,
-                       bool w_bf16, cudaStream_t st) {
+                       bool w_half, cudaStream_t st) {
   const int blocks = (rows + rows_per_cta - 1) / rows_per_cta;
   const size_t smem = bwd_smem<C, W>(n);
   auto kernel = ln_bwd_kernel<T, C, W, kW>;
@@ -613,7 +630,7 @@ cudaError_t bwd_launch(const T* dy, const T* x, const float* mean,
   kernel<<<blocks, bwd_threads(C, W), smem, st>>>(dy, x, mean, rstd, w, dx,
                                                   part,
                                                rows, n, rows_per_cta, rms,
-                                               vec, w_bf16);
+                                               vec, w_half);
   return cudaGetLastError();
 }
 
@@ -621,7 +638,7 @@ template <typename T, int C, int W>
 cudaError_t bwd_cw(const void* dy, const void* x, const void* mean,
                    const void* rstd, const void* w, void* dx, void* part,
                    void* dw, void* db, bool rms, int rows, int n,
-                   int rows_per_cta, bool vec, bool w_bf16, cudaStream_t st) {
+                   int rows_per_cta, bool vec, bool w_half, cudaStream_t st) {
   const T* dyp = static_cast<const T*>(dy);
   const T* xp = static_cast<const T*>(x);
   const float* mp = static_cast<const float*>(mean);
@@ -630,15 +647,15 @@ cudaError_t bwd_cw(const void* dy, const void* x, const void* mean,
   float* pp = static_cast<float*>(part);
   if (w == nullptr)
     return bwd_launch<T, C, W, false>(dyp, xp, mp, rp, w, dxp, pp, rms, rows,
-                                      n, rows_per_cta, vec, w_bf16, st);
+                                      n, rows_per_cta, vec, w_half, st);
   const cudaError_t err = bwd_launch<T, C, W, true>(
-      dyp, xp, mp, rp, w, dxp, pp, rms, rows, n, rows_per_cta, vec, w_bf16,
+      dyp, xp, mp, rp, w, dxp, pp, rms, rows, n, rows_per_cta, vec, w_half,
       st);
   if (err != cudaSuccess) return err;
   const int blocks = (rows + rows_per_cta - 1) / rows_per_cta;
-  ln_bwd_reduce_kernel<<<dim3((n + 31) / 32, db != nullptr ? 2 : 1),
+  ln_bwd_reduce_kernel<HalfParam<T>><<<dim3((n + 31) / 32, db != nullptr ? 2 : 1),
                          32 * kRedRows, 0, st>>>(pp, dw, db, blocks, n,
-                                                 w_bf16);
+                                                 w_half);
   return cudaGetLastError();
 }
 
@@ -659,7 +676,7 @@ template <typename T>
 cudaError_t bwd_t(const void* dy, const void* x, const void* mean,
                   const void* rstd, const void* w, void* dx, void* part,
                   void* dw, void* db, bool rms, int rows, int n,
-                  int rows_per_cta, bool w_bf16, cudaStream_t st) {
+                  int rows_per_cta, bool w_half, cudaStream_t st) {
   constexpr int V = apex::Chunk<T>::kVec;
   const bool vec = n % V == 0 && aligned(dy) && aligned(x) && aligned(dx);
   int c, wr;
@@ -667,7 +684,7 @@ cudaError_t bwd_t(const void* dy, const void* x, const void* mean,
 #define APEX_LN_BWD(C_, W_)                                                  \
   if (c == C_ && wr == W_)                                                   \
     return bwd_cw<T, C_, W_>(dy, x, mean, rstd, w, dx, part, dw, db, rms,    \
-                             rows, n, rows_per_cta, vec, w_bf16, st);
+                             rows, n, rows_per_cta, vec, w_half, st);
   APEX_LN_BWD(1, 1)
   APEX_LN_BWD(1, 2)
   APEX_LN_BWD(1, 3)
@@ -685,38 +702,52 @@ cudaError_t bwd_t(const void* dy, const void* x, const void* mean,
 }
 
 bool dtype_ok(int dtype) {
-  return dtype == apex::kFloat32 || dtype == apex::kBFloat16;
+  return dtype == apex::kFloat32 || dtype == apex::kBFloat16 ||
+         dtype == apex::kFloat16;
+}
+
+// the parameters' dtype code beside x's: fp32, or the 16-bit type
+// HalfParam gives x's (fp16 for fp16 x, bf16 for bf16 and fp32 x)
+bool param_ok(int dtype, int w_dtype) {
+  return w_dtype == apex::kFloat32 ||
+         w_dtype == (dtype == apex::kFloat16 ? apex::kFloat16
+                                             : apex::kBFloat16);
 }
 
 }  // namespace
 
-// x, y (rows, n) of dtype; w, b (n,) fp32 or bf16 (w_bf16) or null by
+// x, y (rows, n) of dtype; w, b (n,) of w_dtype (param_ok) or null by
 // `affine` (0 none, 1 weight, 2 weight and bias); mean, rstd (rows,) fp32.
 // chunks, warps, groups, ctas, smem: the host's plan (_fwd_plan)
 extern "C" int apex_ln_fwd(const void* x, const void* w, const void* b,
                            void* y, void* mean, void* rstd, int dtype,
-                           int w_bf16, int affine, int rms, int rows, int n,
+                           int w_dtype, int affine, int rms, int rows, int n,
                            float eps, int chunks, int warps, int groups,
                            int ctas, int smem, void* stream) {
-  if (!dtype_ok(dtype) || rows < 1 || n < 1 || n > kMaxHidden ||
-      affine < kNone || affine > kWeightBias ||
+  if (!dtype_ok(dtype) || !param_ok(dtype, w_dtype) || rows < 1 || n < 1 ||
+      n > kMaxHidden || affine < kNone || affine > kWeightBias ||
       (affine >= kWeight && w == nullptr) ||
       (affine == kWeightBias && b == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool ok =
       dtype == apex::kBFloat16
           ? fwd_plan_ok<__nv_bfloat16>(n, chunks, warps, groups, ctas, smem)
+      : dtype == apex::kFloat16
+          ? fwd_plan_ok<__half>(n, chunks, warps, groups, ctas, smem)
           : fwd_plan_ok<float>(n, chunks, warps, groups, ctas, smem);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool w_half = w_dtype != apex::kFloat32;
   const cudaError_t err =
       dtype == apex::kBFloat16
           ? fwd_t<__nv_bfloat16>(x, w, b, y, mean, rstd, affine, rms != 0,
                                  rows, n, eps, chunks, warps, groups, ctas,
-                                 smem, w_bf16 != 0, st)
+                                 smem, w_half, st)
+      : dtype == apex::kFloat16
+          ? fwd_t<__half>(x, w, b, y, mean, rstd, affine, rms != 0, rows, n,
+                          eps, chunks, warps, groups, ctas, smem, w_half, st)
           : fwd_t<float>(x, w, b, y, mean, rstd, affine, rms != 0, rows, n,
-                         eps, chunks, warps, groups, ctas, smem, w_bf16 != 0,
-                         st);
+                         eps, chunks, warps, groups, ctas, smem, w_half, st);
   return static_cast<int>(err);
 }
 
@@ -725,10 +756,10 @@ extern "C" int apex_ln_fwd(const void* x, const void* w, const void* b,
 extern "C" int apex_ln_bwd_shape(int dtype, int n, int* out) {
   if (!dtype_ok(dtype) || n < 1 || n > kMaxHidden || out == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == apex::kBFloat16)
-    bwd_shape<__nv_bfloat16>(n, out, out + 1);
-  else
+  if (dtype == apex::kFloat32)
     bwd_shape<float>(n, out, out + 1);
+  else  // the 16-bit types' chunks are alike
+    bwd_shape<__nv_bfloat16>(n, out, out + 1);
   out[2] = bwd_threads(out[0], out[1]);
   return 0;
 }
@@ -739,19 +770,22 @@ extern "C" int apex_ln_bwd_shape(int dtype, int n, int* out) {
 extern "C" int apex_ln_bwd(const void* dy, const void* x, const void* mean,
                            const void* rstd, const void* w, void* dx,
                            void* part, void* dw, void* db, int dtype,
-                           int w_bf16, int rms, int rows, int n,
+                           int w_dtype, int rms, int rows, int n,
                            int rows_per_cta, void* stream) {
-  if (!dtype_ok(dtype) || rows < 1 || n < 1 || n > kMaxHidden ||
-      rows_per_cta < 1 ||
+  if (!dtype_ok(dtype) || !param_ok(dtype, w_dtype) || rows < 1 || n < 1 ||
+      n > kMaxHidden || rows_per_cta < 1 ||
       (w != nullptr && (part == nullptr || dw == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool w_half = w_dtype != apex::kFloat32;
   const cudaError_t err =
       dtype == apex::kBFloat16
           ? bwd_t<__nv_bfloat16>(dy, x, mean, rstd, w, dx, part, dw, db,
-                                 rms != 0, rows, n, rows_per_cta,
-                                 w_bf16 != 0, st)
+                                 rms != 0, rows, n, rows_per_cta, w_half, st)
+      : dtype == apex::kFloat16
+          ? bwd_t<__half>(dy, x, mean, rstd, w, dx, part, dw, db, rms != 0,
+                          rows, n, rows_per_cta, w_half, st)
           : bwd_t<float>(dy, x, mean, rstd, w, dx, part, dw, db, rms != 0,
-                         rows, n, rows_per_cta, w_bf16 != 0, st);
+                         rows, n, rows_per_cta, w_half, st);
   return static_cast<int>(err);
 }

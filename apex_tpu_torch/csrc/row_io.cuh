@@ -10,6 +10,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include "apex_cuda.cuh"
 
@@ -21,10 +22,18 @@ struct Chunk {
 };
 
 // the V elements of a chunk held as 16 raw bytes, in fp32 (bf16 pairs by
-// shifts)
+// shifts, fp16 pairs by the conversion instruction)
 template <typename T>
 __device__ __forceinline__ void unpack_chunk(const uint4& raw, float* v) {
-  if constexpr (sizeof(T) == 2) {
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2* u = reinterpret_cast<const __half2*>(&raw);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __half22float2(u[k]);
+      v[2 * k] = f.x;
+      v[2 * k + 1] = f.y;
+    }
+  } else if constexpr (sizeof(T) == 2) {
     const uint32_t* u = reinterpret_cast<const uint32_t*>(&raw);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {

@@ -2,7 +2,7 @@
 //
 // Replaces apex_tpu/ops/pallas/xentropy.py::xent_stats (:73-101; kernel
 // body _stats_kernel :41-70). Same contract: for each row of (N, V)
-// logits (bf16 or fp32) and an int32/int64 label per row, four fp32
+// logits (bf16, fp16 or fp32) and an int32/int64 label per row, four fp32
 // statistics -- the row max m, sum(exp(x - m)), the raw target logit
 // x[label] (0 when the label lies outside [0, V)), and the raw row sum
 // (what label smoothing needs).
@@ -49,6 +49,23 @@ struct Vec<__nv_bfloat16> {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+};
+
+// fp16 (amp's strict-fp16 step): the same loads, converted in pairs; an
+// inf logit makes the row's statistics inf or nan, as in the plain version
+template <>
+struct Vec<__half> {
+  static constexpr int N = 8;
+  __device__ static void load(const __half* p, float (&v)[8]) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    const __half2* h = reinterpret_cast<const __half2*>(&x);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(h[i]);
       v[2 * i] = f.x;
       v[2 * i + 1] = f.y;
     }
@@ -129,13 +146,18 @@ cudaError_t launch(const void* x, const void* labels, void* m, void* l,
 extern "C" int apex_xent_stats(const void* x, const void* labels, void* m,
                                void* l, void* t, void* s, int dtype,
                                int labels_int64, int n, int V, void* stream) {
-  const int vec = dtype == apex::kBFloat16 ? 8 : 4;
+  const int vec = dtype == apex::kFloat32 ? 4 : 8;
   if (n < 1 || V < 1 || V % vec ||
-      (dtype != apex::kFloat32 && dtype != apex::kBFloat16))
+      (dtype != apex::kFloat32 && dtype != apex::kBFloat16 &&
+       dtype != apex::kFloat16))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == apex::kBFloat16) {
+  if (dtype == apex::kFloat16) {
+    err = labels_int64
+              ? launch<__half, long long>(x, labels, m, l, t, s, n, V, st)
+              : launch<__half, int>(x, labels, m, l, t, s, n, V, st);
+  } else if (dtype == apex::kBFloat16) {
     err = labels_int64
               ? launch<__nv_bfloat16, long long>(x, labels, m, l, t, s, n, V,
                                                  st)

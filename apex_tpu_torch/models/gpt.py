@@ -54,6 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from apex_tpu_torch.amp.lists import apply_op_rules
 from apex_tpu_torch.ops import _backend
 from apex_tpu_torch.ops.attention import (bshd_output_projection,
                                           bshd_qkv_projection,
@@ -339,7 +340,10 @@ class GPTModel:
 
         ``"flash"``: the fused route of the reference's flash attention:
         packed QKV GEMM → flash kernels on windows of the packed buffer →
-        output GEMM (:func:`fused_qkv_attention`), then the output bias.
+        output GEMM (:func:`fused_qkv_attention`), then the output bias;
+        under an O1 policy x and the three weights are cast first (HALF:
+        the flash kernels run at the compute dtype, the bias add promotes
+        back to fp32).
         On a CUDA tensor a shape the kernels refuse (``packed_kernel_ok``)
         raises.
 
@@ -357,9 +361,12 @@ class GPTModel:
         h, hkv, d = c.num_heads, c.kv_heads, c.head_dim
         rate = c.dropout if seeds is not None else 0.0
         if c.attention_impl == "flash":
-            y = fused_qkv_attention(x, p["qkv"]["weight"],
-                                    p["qkv"].get("bias"),
-                                    p["attn_out"]["weight"], h, hkv, d,
+            # the O1 cast comes before the kernels (``:375-386``): under an
+            # fp16 O1 policy the flash kernels' fp16 instances run
+            xc, w_qkv, b_qkv, w_out = apply_op_rules(
+                "attention", x, p["qkv"]["weight"], p["qkv"].get("bias"),
+                p["attn_out"]["weight"])
+            y = fused_qkv_attention(xc, w_qkv, b_qkv, w_out, h, hkv, d,
                                     1.0 / float(d) ** 0.5, True,
                                     dropout_rate=rate,
                                     dropout_seed=(None if seeds is None

@@ -68,6 +68,18 @@ ENTRY_POINTS = {
     # drop_seed, drop_thresh, drop_scale, drop_fault, stream
     "apex_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
                        *_DROP, _P],
+    # the packed forward's fp16 instance: qkv, out, lse, b, s, h, h_kv, d,
+    # causal, scale, fault, stream
+    "apex_flash_fwd_f16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # the backward pair's fp16 instances on the packed buffer's views: q,
+    # k, v, o, do, lse, dq, delta, strides (q, kv, o, do, dq), b, h, h_kv,
+    # sq, sk, d, causal, scale, fault, stream
+    "apex_flash_bwd_dq_f16": [_P, _P, _P, _P, _P, _P, _P, _P, _S, _I, _I,
+                              _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, o, do, lse, delta, dk, dv, strides (q, kv, o, do, dk/dv), b,
+    # h, h_kv, sq, sk, d, causal, scale, fault, stream
+    "apex_flash_bwd_dkv_f16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _S, _I,
+                               _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # logits, labels, m, l, t, row_sum, dtype, labels_int64, n, V, stream
     "apex_xent_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, out, lse, kv_lens, bias, q_bstride, kv_bstride, q_stride,
@@ -119,11 +131,11 @@ ENTRY_POINTS = {
     # tree, top_p, dtype, V, splits, threads, values, share, out (clusters,
     # smem)
     "apex_fused_verify_occupancy": [_I] * 8 + [_IP],
-    # x, w, b, y, mean, rstd, dtype, w_bf16, affine, rms, rows, n, eps,
+    # x, w, b, y, mean, rstd, dtype, w_dtype, affine, rms, rows, n, eps,
     # chunks, warps, groups, ctas, smem, stream
     "apex_ln_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
                     _I, _I, _I, _I, _P],
-    # dy, x, mean, rstd, w, dx, part, dw, db, dtype, w_bf16, rms, rows, n,
+    # dy, x, mean, rstd, w, dx, part, dw, db, dtype, w_dtype, rms, rows, n,
     # rows_per_cta, stream
     "apex_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                     _I, _P],

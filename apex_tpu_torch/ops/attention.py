@@ -77,6 +77,14 @@ tensor the wgmma kernels evaluate it per score; the plain versions
 materialise it (:func:`_dropout_keep_dense`). It is refused with an array
 bias (the dbias kernel has no mask) and on the sm80 variant. The bucketed
 bias on the bshd layout is a later slice of the port.
+
+fp16 (amp's strict-fp16 GPT step): the packed entries' wgmma kernels have
+fp16 instances (``apex_flash_fwd_f16``, ``apex_flash_bwd_dq_f16``,
+``apex_flash_bwd_dkv_f16``) without dropout, ``kv_lens`` or a bias; the
+plain versions run at fp16 as they are. The other entries refuse fp16
+(:data:`FP16_FAMILY`), as do dropout and the sm80 variant; ``f16_launches``
+counts the fp16 launches. :func:`flash_attention` applies the O1 cast
+(``apply_op_rules("attention", ...)``) first.
 """
 
 from __future__ import annotations
@@ -89,6 +97,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from apex_tpu_torch.amp.lists import apply_op_rules
 from apex_tpu_torch.ops import _backend, _build
 from apex_tpu_torch.ops.matmul import _sm_count
 
@@ -99,6 +108,19 @@ NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 128)
 #: the longest sequence the kernels' grids cover (65535 tiles of 32 rows)
 KERNEL_MAX_SEQ = 65535 * 32
+#: the flash kernels' element types: bf16 on every entry and option; fp16
+#: (the wgmma kernels' fp16 instances, for amp's strict-fp16 GPT step) on
+#: the packed entry, without dropout, kv_lens or a bias
+KERNEL_DTYPES = (torch.bfloat16, torch.float16)
+#: where fp16 is refused, with the ROADMAP item that brings it
+FP16_FAMILY = ("the bh-flat and bshd flash entries and dbias take bfloat16; "
+               "fp16 runs on the packed entry (ROADMAP queue 2, item 6: fp16 "
+               "on the bh-flat and bshd flash and dbias)")
+FP16_DROPOUT = ("fp16 with dropout is not ported: the kDrop instances are "
+                "bf16 (ROADMAP queue 2, item 6: fp16 in dropout.cu and the "
+                "kDrop instances)")
+SM80_FP16 = ("the sm80 variant has no fp16 instance (ROADMAP, Simplicity "
+             "items: the sm80 kernels' deletion); use the wgmma variant")
 
 
 def bshd_qkv_projection(x: torch.Tensor, weight: torch.Tensor,
@@ -124,10 +146,13 @@ def bshd_output_projection(ctx: torch.Tensor, weight: torch.Tensor, h: int,
 
 def packed_kernel_ok(s: int, h: int, d: int, dtype: torch.dtype) -> bool:
     """What the CUDA flash kernels take — the port's counterpart of
-    ``bshd_kernel_ok`` (``apex_tpu/ops/attention.py:394-403``): bf16, a head
-    dim of 64 or 128, any sequence length up to :data:`KERNEL_MAX_SEQ`
-    (the ragged last tile is masked in-kernel), any number of heads."""
-    return (dtype == torch.bfloat16 and d in KERNEL_HEAD_DIMS
+    ``bshd_kernel_ok`` (``apex_tpu/ops/attention.py:394-403``): bf16 or
+    fp16 (:data:`KERNEL_DTYPES`; fp16 on the packed entry only, without
+    dropout), a head dim of 64 or 128, any sequence length up to
+    :data:`KERNEL_MAX_SEQ` (the ragged last tile is masked in-kernel), any
+    number of heads. The reference's gate refuses fp16 (Mosaic has no
+    f16); Hopper's tensor cores take it."""
+    return (dtype in KERNEL_DTYPES and d in KERNEL_HEAD_DIMS
             and 1 <= s <= KERNEL_MAX_SEQ and h >= 1)
 
 
@@ -624,7 +649,7 @@ def _check_packed(qkv: torch.Tensor, h: int, h_kv: int, d: int,
             f"{tuple(qkv.shape)} for h={h}, h_kv={h_kv}, d={d}")
     if not packed_kernel_ok(qkv.shape[1], h, d, qkv.dtype):
         raise ValueError(
-            f"{name}: the flash kernels take bfloat16, head_dim in "
+            f"{name}: the flash kernels take bfloat16 or float16, head_dim in "
             f"{KERNEL_HEAD_DIMS} and 1 <= s <= {KERNEL_MAX_SEQ}; got "
             f"{qkv.dtype}, d={d}, s={qkv.shape[1]}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
@@ -649,7 +674,9 @@ def flash_fwd_cuda(qkv: torch.Tensor, h: int, h_kv: int, d: int, *,
                    planted_fault: Optional[str] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the flash forward kernel on the packed buffer. Returns o
-    (b, s, h·d) bf16 and lse (b, h, s) fp32. ``dropout_rate > 0`` drops
+    (b, s, h·d) in qkv's dtype (bf16, or fp16: the fp16 instance, on the
+    wgmma variant without dropout; ``planted_fault`` then names one of
+    :data:`FP16_FAULTS`) and lse (b, h, s) fp32. ``dropout_rate > 0`` drops
     the probabilities in the kernel by :func:`dropout_keep` of
     ``dropout_seed`` (a host int), q-head row t = b·h + head; lse stays
     the un-dropped one. ``variant`` and ``planted_fault`` are for the A/B
@@ -661,17 +688,26 @@ def flash_fwd_cuda(qkv: torch.Tensor, h: int, h_kv: int, d: int, *,
     b, s, _ = qkv.shape
     out = torch.empty((b, s, h * d), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=qkv.device)
-    kv_lens, _, _, _ = _planted(planted_fault, None, (h, 1), None, None, b,
-                                h, s, qkv.device)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
     plan = _packed_fwd_plan(qkv, h, h_kv, d, variant)
-    drop = _drop_args(dropout_rate, dropout_seed, plan, planted_fault,
-                      "flash_fwd_cuda")
-    rc = _build.library().apex_flash_fwd(
-        qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), _ptr(kv_lens), b, s,
-        h, h_kv, d, int(causal), float(scale), int(plan.variant == "wgmma"),
-        *drop, torch.cuda.current_stream(qkv.device).cuda_stream)
+    f16 = qkv.dtype == torch.float16
+    if f16:
+        rc = _build.library().apex_flash_fwd_f16(
+            qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), b, s, h, h_kv, d,
+            int(causal), float(scale),
+            _f16_fault("flash_fwd_cuda", plan, dropout_rate, planted_fault),
+            stream)
+    else:
+        kv_lens, _, _, _ = _planted(planted_fault, None, (h, 1), None, None,
+                                    b, h, s, qkv.device)
+        drop = _drop_args(dropout_rate, dropout_seed, plan, planted_fault,
+                          "flash_fwd_cuda")
+        rc = _build.library().apex_flash_fwd(
+            qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), _ptr(kv_lens), b,
+            s, h, h_kv, d, int(causal), float(scale),
+            int(plan.variant == "wgmma"), *drop, stream)
     _build.check(rc, "flash_fwd")
-    _count(flash_fwd_cuda, plan, dropout=dropout_rate)
+    _count(flash_fwd_cuda, plan, dropout=dropout_rate, f16=f16)
     return out, lse
 
 
@@ -679,6 +715,7 @@ flash_fwd_cuda.launches = 0
 flash_fwd_cuda.wgmma_launches = 0
 flash_fwd_cuda.sm80_launches = 0
 flash_fwd_cuda.dropout_launches = 0
+flash_fwd_cuda.f16_launches = 0
 
 
 def _check_bwd(qkv, o, lse, do, h, h_kv, d, name):
@@ -727,7 +764,8 @@ def flash_bwd_dq_cuda(qkv: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
         name, q4, k4, v4, _heads4(o, d), _heads4(do, d), _heads4(dq, d), lse,
         scale=scale, causal=causal, dropout=(dropout_rate, dropout_seed),
         variant=variant, planted_fault=planted_fault)
-    _count(flash_bwd_dq_cuda, plan, dropout=dropout_rate)
+    _count(flash_bwd_dq_cuda, plan, dropout=dropout_rate,
+           f16=qkv.dtype == torch.float16)
     return dq, delta
 
 
@@ -735,6 +773,7 @@ flash_bwd_dq_cuda.launches = 0
 flash_bwd_dq_cuda.wgmma_launches = 0
 flash_bwd_dq_cuda.sm80_launches = 0
 flash_bwd_dq_cuda.dropout_launches = 0
+flash_bwd_dq_cuda.f16_launches = 0
 
 
 def flash_bwd_dkv_cuda(qkv: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
@@ -762,7 +801,8 @@ def flash_bwd_dkv_cuda(qkv: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
         _heads4(dv, d), lse, delta, scale=scale, causal=causal,
         dropout=(dropout_rate, dropout_seed), variant=variant,
         planted_fault=planted_fault)
-    _count(flash_bwd_dkv_cuda, plan, dropout=dropout_rate)
+    _count(flash_bwd_dkv_cuda, plan, dropout=dropout_rate,
+           f16=qkv.dtype == torch.float16)
     return dk, dv
 
 
@@ -770,6 +810,7 @@ flash_bwd_dkv_cuda.launches = 0
 flash_bwd_dkv_cuda.wgmma_launches = 0
 flash_bwd_dkv_cuda.sm80_launches = 0
 flash_bwd_dkv_cuda.dropout_launches = 0
+flash_bwd_dkv_cuda.f16_launches = 0
 
 
 def _seq_major_ok(t: torch.Tensor) -> bool:
@@ -800,6 +841,8 @@ def _check_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(
             f"{name}: q (b, sq, h, d) and k/v (b, sk, h_kv, d) with h_kv | h;"
             f" got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dtype == torch.float16:
+        raise ValueError(f"{name}: {FP16_FAMILY}")
     if not packed_kernel_ok(sq, h, d, q.dtype) or k.dtype != q.dtype \
             or v.dtype != q.dtype or k.shape[1] > KERNEL_MAX_SEQ:
         raise ValueError(
@@ -840,11 +883,14 @@ def _check_bias(bias: Optional[torch.Tensor], rows: int, sq: int, sk: int,
     return bias.shape[0]
 
 
-def _count(fn, plan=None, bias=None, dropout=0.0) -> None:
+def _count(fn, plan=None, bias=None, dropout=0.0, f16=False) -> None:
     """One launch of a wrapper: ``.launches``, by variant
     (``.wgmma_launches``, ``.sm80_launches``), with an array bias
-    (``.bias_launches``) and with dropout (``.dropout_launches``)."""
+    (``.bias_launches``), with dropout (``.dropout_launches``) and on the
+    fp16 instance (``.f16_launches``)."""
     fn.launches += 1
+    if f16:
+        fn.f16_launches += 1
     if plan is not None:
         attr = f"{plan.variant}_launches"
         setattr(fn, attr, getattr(fn, attr) + 1)
@@ -1032,6 +1078,8 @@ def _check_flat(q4, k4, v4, kv_lens, name) -> None:
             f"{name}: q (b, h, sq, d) and k/v (b, h_kv, sk, d) with h_kv | "
             f"h; got {tuple(q4.shape)}, {tuple(k4.shape)}, "
             f"{tuple(v4.shape)}")
+    if q4.dtype == torch.float16:
+        raise ValueError(f"{name}: {FP16_FAMILY}")
     if not packed_kernel_ok(sq, h, d, q4.dtype) or k4.dtype != q4.dtype \
             or v4.dtype != q4.dtype or k4.shape[2] > KERNEL_MAX_SEQ:
         raise ValueError(
@@ -1148,6 +1196,12 @@ DBIAS_FAULTS = ("drop_last_group", "drop_bias")
 #: (its dV keeps it), the forward's l summed from the dropped p
 DROPOUT_FAULTS = {"key_kv_head": 1, "swap_row_col": 2, "no_dkv_ds_mask": 3,
                   "l_from_dropped": 4}
+#: the faults the fp16 instances plant on request, by the code their
+#: entries take (each launches a template instance of its own): P (and,
+#: in the backward, dS) rounded through bf16 before the fp16 tensor-core
+#: operand, which the error rule refuses; every output clamped to +-65504
+#: (a saturating conversion), which the overflow check refuses
+FP16_FAULTS = {"bf16_p": 16, "satfinite": 17}
 #: where dropout is refused: the sm80 kernels (deleted by ROADMAP's
 #: simplicity item) and the array bias (its dbias kernel has no mask)
 SM80_DROPOUT = ("the sm80 variant has no dropout (ROADMAP, Simplicity "
@@ -1209,11 +1263,13 @@ def _tensor_map(dtype: str, dims, strides, box) -> TensorMap:
 
 
 def _view_map(x4: torch.Tensor) -> TensorMap:
-    """The (d, row, head, batch) bf16 map of a (b, heads, s, d) view:
-    64-row x 64-feature boxes (128 bytes: the 128-byte swizzle's span)."""
+    """The (d, row, head, batch) bf16 (or fp16) map of a (b, heads, s, d)
+    view: 64-row x 64-feature boxes (128 bytes: the 128-byte swizzle's
+    span)."""
     b, heads, rows, d = x4.shape
     sb, sh, sr = _strides(x4)
-    return _tensor_map("bf16", (d, rows, heads, b), (2 * sr, 2 * sh, 2 * sb),
+    return _tensor_map("f16" if x4.dtype == torch.float16 else "bf16",
+                       (d, rows, heads, b), (2 * sr, 2 * sh, 2 * sb),
                        (64, 64, 1, 1))
 
 
@@ -1505,6 +1561,31 @@ def _planted(fault: Optional[str], kv_lens, lens_strides, bias, lut,
     return kv_lens.clamp(max=cap), lens_strides, bias, lut
 
 
+def _check_delta(name, delta, b, h, sq, ref) -> None:
+    if delta is None:
+        raise ValueError(
+            f"{name}: the wgmma dK/dV kernel reads delta = rowsum(do*o), "
+            f"which the dQ kernel writes: call the dQ wrapper first and pass "
+            f"its delta")
+    _check_like("delta", delta, (b * h, sq), torch.float32, ref)
+
+
+def _f16_fault(name: str, plan: FlashPlan, rate: float,
+               fault: Optional[str]) -> int:
+    """The fp16 instances' fault code (0: sound); raises where they do not
+    run: the sm80 variant, dropout, a fault they do not plant."""
+    if plan.variant == "sm80":
+        raise ValueError(f"{name}: {SM80_FP16}")
+    if rate > 0.0:
+        raise NotImplementedError(f"{name}: {FP16_DROPOUT}")
+    if fault is None:
+        return 0
+    if fault not in FP16_FAULTS:
+        raise ValueError(f"{name}: the fp16 instances plant "
+                         f"{tuple(FP16_FAULTS)}; got {fault!r}")
+    return FP16_FAULTS[fault]
+
+
 def _launch_dq(name, q4, k4, v4, o4, do4, dq4, lse, *, scale, causal,
                kv_lens=None, lens_strides=None, lut=None, rel_off=0,
                maxd=0, hb=1, bias=None, dropout=(0.0, None), variant=None,
@@ -1513,6 +1594,19 @@ def _launch_dq(name, q4, k4, v4, o4, do4, dq4, lse, *, scale, causal,
     Returns (the plan, delta or None)."""
     b, h, sq, d = q4.shape
     h_kv, sk = k4.shape[1], k4.shape[2]
+    if q4.dtype == torch.float16:  # the packed wrappers: no lens nor bias
+        plan = _bwd_plan(q4, k4, v4, do4, None, variant)
+        fault = _f16_fault(name, plan, dropout[0], planted_fault)
+        delta = torch.empty((b * h, sq), dtype=torch.float32,
+                            device=q4.device)
+        rc = _build.library().apex_flash_bwd_dq_f16(
+            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
+            do4.data_ptr(), lse.data_ptr(), dq4.data_ptr(), delta.data_ptr(),
+            _stride_array(q4, k4, o4, do4, dq4), b, h, h_kv, sq, sk, d,
+            int(causal), float(scale), fault,
+            torch.cuda.current_stream(q4.device).cuda_stream)
+        _build.check(rc, name)
+        return plan, delta
     lens_strides = lens_strides or (h, 1)
     kv_lens, lens_strides, bias, lut = _planted(
         planted_fault, kv_lens, lens_strides, bias, lut, b, h, sk, q4.device)
@@ -1541,20 +1635,27 @@ def _launch_dkv(name, q4, k4, v4, o4, do4, dk4, dv4, lse, delta, *, scale,
     strides); ``dropout`` (rate, seed). Returns the plan."""
     b, h, sq, d = q4.shape
     h_kv, sk = k4.shape[1], k4.shape[2]
+    if dk4.stride() != dv4.stride():
+        raise ValueError(f"{name}: dk and dv must share their strides")
+    if q4.dtype == torch.float16:  # the packed wrappers: no lens nor bias
+        plan = _bwd_plan(q4, k4, v4, do4, None, variant)
+        fault = _f16_fault(name, plan, dropout[0], planted_fault)
+        _check_delta(name, delta, b, h, sq, q4)
+        rc = _build.library().apex_flash_bwd_dkv_f16(
+            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
+            do4.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk4.data_ptr(),
+            dv4.data_ptr(), _stride_array(q4, k4, o4, do4, dk4), b, h, h_kv,
+            sq, sk, d, int(causal), float(scale), fault,
+            torch.cuda.current_stream(q4.device).cuda_stream)
+        _build.check(rc, name)
+        return plan
     lens_strides = lens_strides or (h, 1)
     kv_lens, lens_strides, bias, lut = _planted(
         planted_fault, kv_lens, lens_strides, bias, lut, b, h, sk, q4.device)
     plan = _bwd_plan(q4, k4, v4, do4, bias, variant)
     drop = _drop_args(*dropout, plan, planted_fault, name, bias)
     if plan.variant == "wgmma":
-        if delta is None:
-            raise ValueError(
-                f"{name}: the wgmma dK/dV kernel reads delta = rowsum(do*o),"
-                f" which the dQ kernel writes: call the dQ wrapper first and"
-                f" pass its delta")
-        _check_like("delta", delta, (b * h, sq), torch.float32, q4)
-    if dk4.stride() != dv4.stride():
-        raise ValueError(f"{name}: dk and dv must share their strides")
+        _check_delta(name, delta, b, h, sq, q4)
     rc = _build.library().apex_flash_bwd_dkv(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
         do4.data_ptr(), lse.data_ptr(), _ptr(delta), dk4.data_ptr(),
@@ -2105,7 +2206,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kept probabilities are scaled by float32(1/(1 - rate)). The backward
     rebuilds the mask from the seed; none is saved. Dropout with an array
     bias raises ``NotImplementedError`` (its gradient kernel has no mask),
-    as does a :class:`BucketedBias` on the bshd layout (a later slice)."""
+    as does a :class:`BucketedBias` on the bshd layout (a later slice).
+    HALF-class under an O1 policy (q, k and v cast)."""
+    q, k, v = apply_op_rules("attention", q, k, v)
     if layout not in ("bhsd", "bshd"):
         raise ValueError(f"layout must be bhsd|bshd, got {layout!r}")
     drop = (float(dropout_rate), _check_dropout(dropout_rate, dropout_seed))

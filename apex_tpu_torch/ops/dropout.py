@@ -64,7 +64,10 @@ def dropout_cuda(x: torch.Tensor, rate: float, seed: int, *,
         raise ValueError("dropout_cuda takes CUDA tensors")
     if x.dtype not in KERNEL_DTYPES:
         raise ValueError(f"dropout_cuda takes {KERNEL_DTYPES}; got "
-                         f"{x.dtype}")
+                         f"{x.dtype}" + (
+                             " (fp16 in dropout.cu and the flash kernels' "
+                             "kDrop instances: ROADMAP queue 2, item 6)"
+                             if x.dtype == torch.float16 else ""))
     if x.ndim < 1 or x.numel() == 0 or not x.is_contiguous():
         raise ValueError(f"dropout_cuda takes a contiguous non-empty tensor "
                          f"of rank >= 1; got {tuple(x.shape)} strides "

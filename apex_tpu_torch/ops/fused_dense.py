@@ -19,9 +19,9 @@ tensor, or with ``impl="torch"``, the plain version. ``db`` is a plain
 torch sum, outside any kernel as in the reference. The reference's
 ``auto`` picks XLA from a TPU measurement (``:146-155``); here ``auto`` on
 a CUDA tensor is the kernel, and the reference's 128-multiple width rule
-does not carry over: the kernel takes any width. The reference's amp
-cast (``apply_op_rules``) is the identity under its default policy and
-the port has no amp yet, so it is not called.
+does not carry over: the kernel takes any width. Both functions apply
+the O1 cast (``apply_op_rules("dense", ...)``) where the reference does;
+outside O1 it is the identity.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
+from apex_tpu_torch.amp.lists import apply_op_rules
 from apex_tpu_torch.ops import _backend
 from apex_tpu_torch.ops.matmul import (_torch_matmul_bias_act,
                                        matmul_bias_act_cuda)
@@ -86,7 +87,8 @@ def fused_dense(x: torch.Tensor, weight: torch.Tensor,
                 bias: Optional[torch.Tensor] = None, *,
                 impl: str = "auto") -> torch.Tensor:
     """``fused_dense_function``: ``x @ weightᵀ + bias`` over x's last axis
-    (weight (out, in))."""
+    (weight (out, in)). HALF-class under an O1 policy."""
+    x, weight, bias = apply_op_rules("dense", x, weight, bias)
     lead = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1])
     y = _DenseCore.apply(x2d, weight, bias, _backend.use_kernel(x, impl))
@@ -127,7 +129,9 @@ def fused_dense_gelu_dense(x: torch.Tensor, weight1: torch.Tensor,
                            bias2: torch.Tensor, *,
                            impl: str = "auto") -> torch.Tensor:
     """``FusedDenseGeluDenseFunc``: two Linears with a tanh-GELU between,
-    saving the pre-GELU for backward."""
+    saving the pre-GELU for backward. HALF-class under an O1 policy."""
+    x, weight1, bias1, weight2, bias2 = apply_op_rules(
+        "dense", x, weight1, bias1, weight2, bias2)
     lead = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1])
     y = _DenseGeluDenseCore.apply(x2d, weight1, bias1, weight2, bias2,

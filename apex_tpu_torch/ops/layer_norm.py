@@ -32,10 +32,13 @@ from typing import NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 from torch import nn
 
+from apex_tpu_torch.amp.lists import apply_op_rules
 from apex_tpu_torch.ops import _backend, _build
 from apex_tpu_torch.ops.matmul import _sm_count
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernels' dtype codes, of x and of the parameters: fp16 x takes fp16
+#: or fp32 parameters, fp32 and bf16 x fp32 or bf16 ones
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the widest row the kernels hold in registers (32 lanes x 128 elements)
 KERNEL_MAX_HIDDEN = 4096
 #: the backward's partial-sum rows: at most this many CTAs, each owning a
@@ -118,12 +121,16 @@ def _check_kernel_inputs(name: str, x2d: torch.Tensor,
         raise ValueError(f"{name} takes a contiguous (rows, hidden) x; got "
                          f"{tuple(x2d.shape)}")
     hidden = x2d.shape[1]
-    if x2d.dtype not in _DTYPE_CODES or (
-            weight is not None and weight.dtype not in _DTYPE_CODES):
-        raise ValueError(f"the layer-norm kernels take float32 or bfloat16 "
-                         f"x and parameters; got {x2d.dtype}, "
-                         f"{None if weight is None else weight.dtype} — "
-                         f"pass impl='torch' for the plain version")
+    w_dt = None if weight is None else weight.dtype
+    half_x = x2d.dtype == torch.float16
+    if x2d.dtype not in _DTYPE_CODES or (w_dt is not None and (
+            w_dt not in _DTYPE_CODES or (w_dt == torch.float16) != half_x
+            and w_dt != torch.float32)):
+        raise ValueError(f"the layer-norm kernels take float32, bfloat16 or "
+                         f"float16 x with float32 parameters or parameters "
+                         f"of a 16-bit x's own dtype (bfloat16 also with "
+                         f"float32 x); got {x2d.dtype}, {w_dt} — pass "
+                         f"impl='torch' for the plain version")
     if not 1 <= hidden <= KERNEL_MAX_HIDDEN:
         raise ValueError(f"the layer-norm kernels hold a row of at most "
                          f"{KERNEL_MAX_HIDDEN} in registers; got hidden "
@@ -142,7 +149,7 @@ def row_shape(hidden: int, dtype: torch.dtype) -> Tuple[int, int]:
     2, 3, 4, 6, 8} that cover the row's chunks (768 in bf16: 3 warps of one
     chunk, no idle lane; 1024: 4; 4096: 8 of two chunks). The backward's
     ``bwd_shape`` in ``csrc/layer_norm.cu`` picks the same."""
-    vec = 16 // (2 if dtype == torch.bfloat16 else 4)
+    vec = 16 // (4 if dtype == torch.float32 else 2)
     nc = -(-hidden // vec)
     c = 1 if nc <= 256 else 2 if nc <= 512 else 4
     need = -(-nc // (32 * c))
@@ -209,16 +216,18 @@ def ln_fwd_cuda(x2d: torch.Tensor, weight: Optional[torch.Tensor],
         x2d.data_ptr(), None if weight is None else weight.data_ptr(),
         None if bias is None else bias.data_ptr(), y.data_ptr(),
         mean.data_ptr(), rstd.data_ptr(), _DTYPE_CODES[x2d.dtype],
-        int(weight is not None and weight.dtype == torch.bfloat16), affine,
+        0 if weight is None else _DTYPE_CODES[weight.dtype], affine,
         int(rms), rows, hidden, float(eps), plan.chunks, plan.warps,
         plan.groups, plan.ctas, plan.smem,
         torch.cuda.current_stream(x2d.device).cuda_stream)
     _build.check(rc, "ln_fwd")
     ln_fwd_cuda.launches += 1
+    ln_fwd_cuda.f16_launches += x2d.dtype == torch.float16
     return y, mean, rstd
 
 
 ln_fwd_cuda.launches = 0
+ln_fwd_cuda.f16_launches = 0
 
 
 def bwd_rows_per_cta(rows: int) -> int:
@@ -282,15 +291,17 @@ def ln_bwd_cuda(dy2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
         None if part is None else part.data_ptr(),
         None if dw is None else dw.data_ptr(),
         None if db is None else db.data_ptr(), _DTYPE_CODES[x2d.dtype],
-        int(weight is not None and weight.dtype == torch.bfloat16), int(rms),
+        0 if weight is None else _DTYPE_CODES[weight.dtype], int(rms),
         rows, hidden, per_cta,
         torch.cuda.current_stream(x2d.device).cuda_stream)
     _build.check(rc, "ln_bwd")
     ln_bwd_cuda.launches += 1
+    ln_bwd_cuda.f16_launches += x2d.dtype == torch.float16
     return dx, dw, db
 
 
 ln_bwd_cuda.launches = 0
+ln_bwd_cuda.f16_launches = 0
 
 
 # --- the autograd core --------------------------------------------------------
@@ -345,14 +356,18 @@ def fused_layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
                      normalized_shape: Optional[Sequence[int]] = None, *,
                      eps: float = 1e-5, impl: str = "auto") -> torch.Tensor:
     """LayerNorm over the trailing ``normalized_shape`` dims (default: the
-    last, or ``weight``'s shape); statistics in fp32, y in x's dtype."""
+    last, or ``weight``'s shape); statistics in fp32, y in x's dtype.
+    FLOAT-class under an O1 policy."""
+    x, weight, bias = apply_op_rules("layer_norm", x, weight, bias)
     return _norm(x, weight, bias, normalized_shape, eps, False, impl)
 
 
 def fused_rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
                    normalized_shape: Optional[Sequence[int]] = None, *,
                    eps: float = 1e-5, impl: str = "auto") -> torch.Tensor:
-    """RMSNorm (``fused_rms_norm_affine``): no centring, mean 0."""
+    """RMSNorm (``fused_rms_norm_affine``): no centring, mean 0.
+    FLOAT-class under an O1 policy."""
+    x, weight = apply_op_rules("rms_norm", x, weight)
     return _norm(x, weight, None, normalized_shape, eps, True, impl)
 
 

@@ -56,6 +56,9 @@ from apex_tpu_torch.ops import _backend, _build
 ACTIVATIONS = ("none", "gelu", "relu", "sigmoid")
 _ACT_CODES = {a: i for i, a in enumerate(ACTIVATIONS)}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: why fp16 is refused: no model calls the kernel (ROADMAP queue 2)
+FP16 = (" (an fp16 instance of matmul_bias_act: ROADMAP queue 2, item 6, "
+        "with the path that needs it)")
 #: 65535 row tiles of the fp32 kernel's 64 rows (the bf16 kernel's are 128)
 MAX_ROWS = 65535 * 64
 #: the wgmma variant's output tile and K step
@@ -128,7 +131,8 @@ def _check_kernel_inputs(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"the matmul_bias_act kernel takes float32 or "
                          f"bfloat16 operands of one dtype; got {x.dtype} "
                          f"and {w.dtype} — pass impl='torch' for the plain "
-                         f"version")
+                         f"version" + (FP16 if torch.float16 in (
+                             x.dtype, w.dtype) else ""))
     if out_dtype not in _DTYPE_CODES:
         raise ValueError(f"the matmul_bias_act kernel writes float32 or "
                          f"bfloat16; got out_dtype {out_dtype} — pass "

@@ -18,7 +18,8 @@ Products go through :func:`apex_tpu_torch.ops.fused_dense._mm`: the
 hand-written kernel on a CUDA tensor, the plain version on a CPU tensor
 or with ``impl="torch"``. The reference's pallas route requires every
 width to be a multiple of 128 (``:99-104``); the kernel takes any width.
-The reference's amp cast is not called (no amp in the port yet).
+The O1 cast (``apply_op_rules("mlp", ...)``) applies where the
+reference's does; outside O1 it is the identity.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from typing import List, Optional, Sequence, Union
 import torch
 from torch import nn
 
+from apex_tpu_torch.amp.lists import apply_op_rules
 from apex_tpu_torch.ops import _backend
 from apex_tpu_torch.ops.fused_dense import _mm, uniform_weight
 
@@ -98,7 +100,11 @@ def mlp(x: torch.Tensor, weights: Sequence[torch.Tensor],
         impl: str = "auto") -> torch.Tensor:
     """Functional MLP over x's last axis; weights (out, in), the
     activation after every layer including the last (``mlp_cuda``'s
-    semantics)."""
+    semantics). HALF-class under an O1 policy (apex registers MLP as a
+    half function): the whole chain runs in the compute dtype."""
+    cast = apply_op_rules("mlp", x, *weights, *biases)
+    x, weights, biases = (cast[0], cast[1:1 + len(weights)],
+                          cast[1 + len(weights):])
     if activation not in MLP_ACTIVATIONS:
         raise ValueError(f"mlp activation must be none|relu|sigmoid, got "
                          f"{activation!r}")

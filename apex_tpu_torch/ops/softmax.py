@@ -30,12 +30,16 @@ from typing import Optional
 
 import torch
 
+from apex_tpu_torch.amp.lists import apply_op_rules
 from apex_tpu_torch.ops import _backend, _build
 
 #: the fill of masked scores (the reference's ``pallas/softmax.py:25``)
 MASK_FILL = -10000.0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: why fp16 is refused: no path runs it (O1 computes softmax in fp32)
+FP16 = (" (fp16 softmax kernels: ROADMAP queue 2, item 6, with the path "
+        "that needs them)")
 _NO_MASK, _CAUSAL, _MASK = 0, 1, 2
 
 
@@ -89,7 +93,8 @@ def _check_rows(name: str, *ts: torch.Tensor) -> None:
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"the softmax kernels take float32 or bfloat16 "
                          f"scores; got {x.dtype} — pass impl='torch' for "
-                         f"the plain version")
+                         f"the plain version" + (FP16 if x.dtype ==
+                                                torch.float16 else ""))
     for t in ts:
         if t.shape != x.shape or t.dtype != x.dtype \
                 or t.device != x.device or not t.is_contiguous():
@@ -225,7 +230,9 @@ def scaled_masked_softmax(x: torch.Tensor, mask: Optional[torch.Tensor],
                           impl: str = "auto") -> torch.Tensor:
     """``ScaledMaskedSoftmax``: softmax over the last axis of x (b, np, sq,
     sk) of ``scale * x`` with masked entries (``mask`` broadcastable to x,
-    True or nonzero = masked) set to :data:`MASK_FILL`."""
+    True or nonzero = masked) set to :data:`MASK_FILL`. FLOAT-class under
+    an O1 policy."""
+    x, = apply_op_rules("softmax", x)
     return _SoftmaxCore.apply(x, mask, float(scale), False,
                               _backend.use_kernel(x, impl))
 
@@ -234,6 +241,7 @@ def scaled_upper_triang_masked_softmax(x: torch.Tensor, scale: float = 1.0,
                                        *, impl: str = "auto"
                                        ) -> torch.Tensor:
     """``ScaledUpperTriangMaskedSoftmax``: causal softmax over (…, sq, sk),
-    key k kept for query q where k <= q."""
+    key k kept for query q where k <= q. FLOAT-class under an O1 policy."""
+    x, = apply_op_rules("softmax", x)
     return _SoftmaxCore.apply(x, None, float(scale), True,
                               _backend.use_kernel(x, impl))

@@ -20,9 +20,9 @@ import torch
 
 from apex_tpu_torch.ops import _backend, _build
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: logits per 16-byte load, by dtype: the kernel takes V a multiple of it
-KERNEL_VEC = {torch.float32: 4, torch.bfloat16: 8}
+KERNEL_VEC = {torch.float32: 4, torch.bfloat16: 8, torch.float16: 8}
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -37,8 +37,9 @@ def _torch_xent_stats(logits2d: torch.Tensor, labels: torch.Tensor) -> Stats:
 
 
 def xent_stats_cuda(logits2d: torch.Tensor, labels: torch.Tensor) -> Stats:
-    """Launch the row-statistics kernel on (N, V) float32/bfloat16 logits
-    and (N,) int32/int64 labels. Counts its launches in ``.launches``."""
+    """Launch the row-statistics kernel on (N, V) float32, bfloat16 or
+    float16 logits and (N,) int32/int64 labels. Counts its launches in
+    ``.launches``, those on fp16 logits also in ``.f16_launches``."""
     if logits2d.device.type != "cuda" or labels.device != logits2d.device:
         raise ValueError("xent_stats_cuda takes CUDA tensors on one device")
     if logits2d.ndim != 2 or labels.shape != (logits2d.shape[0],):
@@ -47,8 +48,8 @@ def xent_stats_cuda(logits2d: torch.Tensor, labels: torch.Tensor) -> Stats:
                          f"{tuple(labels.shape)}")
     if logits2d.dtype not in _DTYPE_CODES \
             or labels.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f"the xent_stats kernel takes float32 or bfloat16 "
-                         f"logits and int32/int64 labels; got "
+        raise ValueError(f"the xent_stats kernel takes float32, bfloat16 or "
+                         f"float16 logits and int32/int64 labels; got "
                          f"{logits2d.dtype}, {labels.dtype}")
     n, V = logits2d.shape
     vec = KERNEL_VEC[logits2d.dtype]
@@ -69,10 +70,12 @@ def xent_stats_cuda(logits2d: torch.Tensor, labels: torch.Tensor) -> Stats:
         torch.cuda.current_stream(logits2d.device).cuda_stream)
     _build.check(rc, "xent_stats")
     xent_stats_cuda.launches += 1
+    xent_stats_cuda.f16_launches += logits2d.dtype == torch.float16
     return m, l, t, s
 
 
 xent_stats_cuda.launches = 0
+xent_stats_cuda.f16_launches = 0
 
 
 def xent_stats(logits2d: torch.Tensor, labels: torch.Tensor, *,

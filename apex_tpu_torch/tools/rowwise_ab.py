@@ -1,12 +1,12 @@
-"""The row-wise, decode, sampling, verify and flash kernels of another
-checkout, for timing in turns.
+"""The row-wise, decode, sampling, verify, flash, cross-entropy and GEMM
+kernels of another checkout, for timing in turns.
 
 Builds a second checkout's ``layer_norm.cu``, ``softmax.cu``,
-``paged_decode_attn.cu``, ``fused_sample.cu``, ``fused_verify.cu`` and the
+``paged_decode_attn.cu``, ``fused_sample.cu``, ``fused_verify.cu``, the
 flash forward and backward pair (``flash_attn_fwd.cu``,
-``flash_attn_bwd.cu``, the sm80 and dropout files their entries reach;
-with its own headers and ``errors.cu``) into a library of their own, loads
-it with ``ctypes``, and
+``flash_attn_bwd.cu``, the sm80 and dropout files their entries reach),
+``xent_stats.cu`` and ``matmul_bias_act.cu`` (with its own headers and
+``errors.cu``) into a library of their own, loads it with ``ctypes``, and
 runs the port's wrappers through it inside :func:`using` — the wrappers
 look the library up on every call, so the same Python code launches either
 tree's kernels:
@@ -18,14 +18,16 @@ tree's kernels:
 
 ``chip_smoke.py --parent DIR`` times ``ln_fwd``, ``ln_bwd``,
 ``softmax_fwd``, ``softmax_bwd``, the two decode kernels, ``fused_sample``,
-the two verify kernels and the dropout-free flash forward, dQ and dK/dV so,
-against a ``git archive`` of the parent commit unpacked into a directory
-that ``.gitignore`` lists. The entry points take the signatures of this
-tree's ``_build.ENTRY_POINTS``, except those this tree changed
-(:data:`PARENT_ENTRY_POINTS`): the parent's five flash entries have no
-dropout, and the library :func:`other_library` returns drops this tree's
-four dropout arguments (before the stream) from their calls, refusing a
-call that asks for dropout. Needs ``nvcc``.
+the two verify kernels, the dropout-free flash forward, dQ and dK/dV and
+``xent_stats`` so, against a ``git archive`` of the parent commit unpacked
+into a directory that ``.gitignore`` lists, and compares every kernel's
+registers and spills with the parent's (:func:`ptxas_changes`). The entry
+points take the signatures of this tree's ``_build.ENTRY_POINTS``, except
+those this tree changed (:data:`PARENT_ENTRY_POINTS`, empty while the
+parent has every entry's signature): the library :func:`other_library`
+returns drops the arguments a listed entry lacks (the four before the
+stream, the dropout arguments the flash entries gained) from its calls,
+refusing a call that asks for dropout. Needs ``nvcc``.
 
 :func:`empty_library` builds this tree's ``ln_fwd``, sampling and verify
 kernels returning at once, for the fixed cost of a launch.
@@ -52,17 +54,12 @@ SOURCES = ("layer_norm.cu", "softmax.cu", "paged_decode_attn.cu",
            "fused_sample.cu", "fused_verify.cu", "flash_attn_fwd.cu",
            "flash_attn_fwd_sm80.cu", "flash_attn_fwd_dropout.cu",
            "flash_attn_bwd.cu", "flash_attn_bwd_sm80.cu",
-           "flash_attn_bwd_dropout.cu", "errors.cu")
-#: the flash entries whose dropout arguments (the seed, the threshold, the
-#: scale, the planted fault: the four before the stream) the parent has not
-_DROPOUT_ENTRIES = ("apex_flash_fwd", "apex_flash_fwd_bshd",
-                    "apex_flash_fwd_flat", "apex_flash_bwd_dq",
-                    "apex_flash_bwd_dkv")
-#: the parent commit's entries whose signatures this tree changed: the
-#: flash entries without the dropout arguments
-PARENT_ENTRY_POINTS = {name: _build.ENTRY_POINTS[name][:-5]
-                       + _build.ENTRY_POINTS[name][-1:]
-                       for name in _DROPOUT_ENTRIES}
+           "flash_attn_bwd_dropout.cu", "xent_stats.cu",
+           "matmul_bias_act.cu", "errors.cu")
+#: the parent commit's entries whose signatures this tree changed, by
+#: their argtypes there: none (this tree only added entries, the flash
+#: pair's fp16 instances, which the parent's library lacks)
+PARENT_ENTRY_POINTS: Dict[str, list] = {}
 
 
 class ParentLibrary:
@@ -87,8 +84,8 @@ class ParentLibrary:
 
 
 def other_library(root) -> Tuple[ParentLibrary, str]:
-    """Build ``root``'s row-wise, decode, sampling, verify and flash
-    kernels with
+    """Build ``root``'s row-wise, decode, sampling, verify, flash,
+    cross-entropy and GEMM kernels with
     this tree's flags into ``_build/other_<digest>/`` and load them:
     (library under this tree's signatures, ptxas log)."""
     csrc = Path(root).resolve() / "apex_tpu_torch" / "csrc"
@@ -219,3 +216,39 @@ def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
             found[current]["registers"] = int(m.group(1))
     names = _demangle(list(found))
     return {names[k]: v for k, v in found.items()}
+
+
+def kernel_key(name: str) -> str:
+    """A demangled kernel's name without its namespace, return type and
+    parameter list, and with the template arguments a body gained for its
+    fp16 instances dropped at their bf16 values (``, __nv_bfloat16, 0>``:
+    the flash bodies' element type and planted fault; ``<__nv_bfloat16>``:
+    the norms' reduction's parameter type): the key under which a bf16
+    instance meets its parent's kernel."""
+    base = name.replace("(anonymous namespace)::", "").split("(", 1)[0]
+    base = base[5:] if base.startswith("void ") else base  # templates'
+    for tail, repl in ((", __nv_bfloat16, 0>", ">"),
+                       ("<__nv_bfloat16>", "")):
+        base = base.replace(tail, repl)
+    return base
+
+
+def ptxas_changes(this: Dict[str, Dict[str, int]],
+                  parent: Dict[str, Dict[str, int]]) -> dict:
+    """Every parent kernel (by :func:`kernel_key`) against this tree's:
+    how many were compared, those whose registers or spills differ, and
+    those this tree lacks."""
+    mine = {kernel_key(k): v for k, v in this.items()}
+    keys = ("registers", "spill_stores", "spill_loads")
+    changed, missing, compared = [], [], 0
+    for name, want in parent.items():
+        got = mine.get(kernel_key(name))
+        if got is None:
+            missing.append(name)
+            continue
+        compared += 1
+        if any(got.get(k) != want.get(k) for k in keys):
+            changed.append({"kernel": kernel_key(name),
+                            "this": {k: got.get(k) for k in keys},
+                            "parent": {k: want.get(k) for k in keys}})
+    return {"compared": compared, "changed": changed, "missing": missing}

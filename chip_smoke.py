@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """chip_smoke.py — drive apex_tpu_torch's serving path, its decode engine
 (with speculative decoding), its GPT-medium train step (also with GPT-2's
-dropout 0.1 and under each remat policy), its T5-base train
+dropout 0.1, under each remat policy, and under amp at fp16: O2 with fp32
+master weights and the dynamic loss scaler, and O1), its T5-base train
 step (with the bucketed and the materialised relative bias, and under
 ``remat_policy="encode_only"``), its
 BERT-large padded MLM train step, the three train steps again on the
@@ -19,7 +20,9 @@ without the final line):
 1. the toolchain report (``apex_tpu_torch.env_report()``);
 2. the CUDA kernels' build from ``apex_tpu_torch/csrc`` with ``nvcc`` for
    ``sm_90a`` (one ``nvcc`` per source, all started together), timed,
-   with ptxas's register/shared-memory report;
+   with ptxas's register/shared-memory report (under ``--parent`` also
+   every parent kernel's registers and spills against this tree's, which
+   must not differ: ``ptxas_changes``);
 3. each kernel against its plain PyTorch version at the slices' shapes in
    bf16 — ``paged_decode_attn`` (8 slots, MHA and GQA, block 128, d 128,
    41 blocks, permuted tables, ragged lengths with 0; each row's walk
@@ -202,7 +205,31 @@ without the final line):
    24 + 24 dropout-kernel launches asserted; step ms, tokens/s and MFU
    beside the dropout-free leg's) and the ``gpt_remat_policies`` leg
    (each remat policy's loss and gradients against remat off on one set
-   of seeds, then 2 steps each: step ms, peak memory, launches);
+   of seeds, then 2 steps each: step ms, peak memory, launches); then
+   amp: the fp16 instances of the packed flash forward, dQ and
+   dK/dV at GPT-medium's calls (20 x 1024 and the flagship's 16 x 1024,
+   8 heads of 128, causal), of ``ln_fwd``/``ln_bwd`` at 16384 x 1024
+   (fp16 parameters) and of ``xent_stats`` at 16384 x 32768, each by the
+   fp16 rule (F16_SLACK) against the fp32 truth and bit-identical across
+   two runs, the overflow checks (a dO or dy scaled past fp16's range:
+   the plain version's infs, robust to 2^-6 of the scale, are the
+   kernel's; inf inputs to the forwards), two planted faults refused at
+   every flash call (``bf16_p``: P and dS rounded through bf16, by the
+   rule; ``satfinite``: outputs clamped to +-65504, by the overflow
+   check), the times of each fp16 instance beside its bf16 one in turns
+   and, under ``--parent``, the bf16 ones beside the parent's (within
+   1%); the ``amp_o2_fp16_train`` leg (the flagship of
+   tools/fp16_and_cp_bench.py: amp.initialize O2 at fp16 over
+   FusedAdam(lr 1e-4), the dynamic scaler, batch 16 x 1024, 2 warm-up
+   and 20 timed steps with 12/12/12 flash, 25/25 norm and 1 xent_stats
+   launches a step all on the fp16 instances; loss and scale
+   trajectories, skipped steps, step ms, tokens/s, MFU, peak memory, and
+   the bf16 train step's at the same batch), the ``amp_o1_fp16_train``
+   leg (O1 at fp16: one step against the plain path and an fp32 truth,
+   5 steps with the flash trio on fp16 and the norms and xent_stats on
+   fp32) and ``amp_overflow`` (the flagship step from a scale of 2**24:
+   skipped steps leave the masters, the model params and Adam's state
+   bit-identical, the scale halves, finite steps follow);
 9. the T5 slice (T5-base widths, relative position bias, per-block
    remat, batch 128 x (512 in, 114 out)):
    * the bh-flat flash forward, dK/dV (with the fused bucket-table
@@ -307,7 +334,8 @@ without the final line):
       no-grad forward with 5 wgmma launches (relu in the epilogue), and
       it and the sigmoid forward against the plain version and an fp32
       truth by MATMUL_SLACK's rule; 2 profiled steps;
-14. one ``{"kernels": [...]}`` line (all twenty-three kernels, each with
+14. one ``{"kernels": [...]}`` line (all twenty-three kernels and the six
+    fp16 instances, ``<name>_f16``, each with
     its launches by main path; matmul_bias_act and the flash kernels
     also by variant, every train leg's, the decode leg's and the T5
     materialized leg's flash forward and dbias launches asserted on
@@ -3499,8 +3527,9 @@ def path_counters():
     counter, by name (the flash kernels' also by variant: ``<name>_wgmma``,
     ``<name>_sm80``, and with dropout, ``<name>_dropout``; the dropout
     kernel's forward and backward launches, ``dropout_fwd`` and
-    ``dropout_bwd``): the kernels a path must launch and those it must
-    not."""
+    ``dropout_bwd``; the packed flash trio's, ``ln_fwd``'s, ``ln_bwd``'s and
+    ``xent_stats``'s launches on their fp16 instances, ``<name>_f16``):
+    the kernels a path must launch and those it must not."""
     from apex_tpu_torch.ops import attention as A
     from apex_tpu_torch.ops import dropout as D
     from apex_tpu_torch.ops import layer_norm as LN
@@ -3559,6 +3588,13 @@ def path_counters():
             "xent_stats": (X.xent_stats_cuda, "launches"),
             "ln_fwd": (LN.ln_fwd_cuda, "launches"),
             "ln_bwd": (LN.ln_bwd_cuda, "launches"),
+            # the fp16 instances (amp's strict-fp16 step)
+            **{f"{name}_f16": (fn, "f16_launches") for name, fn in (
+                ("flash_fwd", A.flash_fwd_cuda),
+                ("flash_bwd_dq", A.flash_bwd_dq_cuda),
+                ("flash_bwd_dkv", A.flash_bwd_dkv_cuda),
+                ("xent_stats", X.xent_stats_cuda),
+                ("ln_fwd", LN.ln_fwd_cuda), ("ln_bwd", LN.ln_bwd_cuda))},
             "softmax_fwd": (S.softmax_fwd_cuda, "launches"),
             "softmax_bwd": (S.softmax_bwd_cuda, "launches"),
             "matmul_bias_act": (MM.matmul_bias_act_cuda, "launches"),
@@ -5575,6 +5611,721 @@ def phase_t5_encode_only(torch, dev):
     return out, paths
 
 
+# --- the amp slice: fp16 instances, the O2 and O1 fp16 legs, overflow -------
+
+# the flagship's step (tools/fp16_and_cp_bench.py:26-87): GPT-medium, O2
+# with half_dtype=float16, fp32 masters, the dynamic scaler, FusedAdam at
+# lr 1e-4, batch 16 x 1024, flash, no remat; 2 warm-up and 20 timed steps
+AMP_BATCH, AMP_WARMUP, AMP_STEPS, AMP_O1_STEPS = 16, 2, 20, 5
+AMP_LR = 1e-4
+# the overflow phase: the flagship's step from a loss scale of 2**24, at
+# most this many steps, ending after 3 finite ones
+AMP_OVERFLOW_STEPS, AMP_OVERFLOW_INIT = 12, 2.0 ** 24
+# the fp16 rule: the truth is the plain version in fp32 on the same fp16
+# inputs; the kernel's max abs error at most twice the fp16 plain
+# version's + F16_SLACK x max(1, the truth's largest entry), and its error's
+# norm relative to the truth's at most twice the plain version's +
+# F16_SLACK. The slack is the bf16 rule's 1e-3 scaled by fp16's three more
+# mantissa bits (2^-13); the norm clause is the softmax rule's. At +1e-3
+# the forward with P rounded through bf16 came within 10% of passing (the
+# fp16_faults line prints that fault's errors beside the limits)
+F16_SLACK = 2.0 ** -13
+# the overflow check: dO x 2^14 (clamped to +-6e4: the input stays finite,
+# dS and the outputs' sums pass 65504); an output non-finite in the fp16
+# plain version at 1 - 2^-6 of the scale must be non-finite in the
+# kernel's, and the two all-finite flags agree at the scale
+F16_DO_SCALE, F16_ROBUST = 2.0 ** 14, 1 - 2.0 ** -6
+# the fp16 instances at GPT-medium's calls: the train leg's batch and the
+# flagship's; the LN and xent calls at the flagship's 16384 tokens
+F16_FLASH_CALLS = ((TRAIN_BATCH, TRAIN_SEQ), (AMP_BATCH, TRAIN_SEQ))
+F16_ROWS = AMP_BATCH * TRAIN_SEQ
+
+
+def f16_rule(got, plain, truth):
+    """The fp16 rule without raising: (ok, details)."""
+    t = truth.float()
+    tn = t.norm().item() + 1e-30
+    err = (got.float() - t).abs().max().item()
+    err_p = (plain.float() - t).abs().max().item()
+    rel = (got.float() - t).norm().item() / tn
+    rel_p = (plain.float() - t).norm().item() / tn
+    tol = 2 * err_p + F16_SLACK * max(1.0, t.abs().max().item())
+    rel_tol = 2 * rel_p + F16_SLACK
+    return err <= tol and rel <= rel_tol, {
+        "max_abs_err": err, "plain_fp16_err": err_p, "tol": tol,
+        "rel_norm_err": rel, "plain_rel_norm_err": rel_p,
+        "rel_tol": rel_tol}
+
+
+def f16_check(name, got, plain, truth, shape):
+    ok, info = f16_rule(got, plain, truth)
+    emit("fp16_check", dict(info, output=name, shape=shape))
+    check(ok, f"fp16 {name} kernel vs plain at {shape}: {info}")
+    return info["max_abs_err"]
+
+
+def overflow_contained(torch, got, plain, robust):
+    """(ok, details): every output non-finite in ``robust`` (the plain
+    version at F16_ROBUST of the scale) is non-finite in ``got``, the
+    all-finite flags of ``got`` and ``plain`` agree, and some output
+    overflows."""
+    from apex_tpu_torch.amp import all_finite
+
+    lost = sum(int((~torch.isfinite(r) & torch.isfinite(g)).sum())
+               for g, r in zip(got, robust))
+    n_robust = sum(int((~torch.isfinite(r)).sum()) for r in robust)
+    flags = (bool(all_finite(list(got))), bool(all_finite(list(plain))))
+    return (lost == 0 and flags[0] == flags[1] and n_robust > 0), {
+        "plain_nonfinite_robust": n_robust,
+        "kernel_nonfinite": sum(int((~torch.isfinite(g)).sum())
+                                for g in got),
+        "robust_nonfinite_finite_in_kernel": lost,
+        "all_finite_kernel_plain": flags}
+
+
+def f16_turns(torch, fn16, fn_bf16, arg_sets=((),), reps=20, trials=11):
+    """Device times of the fp16 and the bf16 instance at one call, in
+    turns (fp16, bf16, bf16, fp16): (fp16 ms, bf16 ms)."""
+    a1 = time_ms(fn16, list(arg_sets), reps, trials)
+    b1 = time_ms(fn_bf16, list(arg_sets), reps, trials)
+    b2 = time_ms(fn_bf16, list(arg_sets), reps, trials)
+    a2 = time_ms(fn16, list(arg_sets), reps, trials)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def parent_ms(torch, fn):
+    """The parent's time of ``fn`` in turns with this tree's (the
+    parent's half of parent_turns), None without --parent."""
+    return None if PARENT is None else parent_turns(torch, fn, [()])[1]
+
+
+def f16_flash_outputs(A, qkv, do, h, d, kw, fault=None):
+    o, lse = A.flash_fwd_cuda(qkv, h, h, d, planted_fault=fault, **kw)
+    dq, delta = A.flash_bwd_dq_cuda(qkv, o, lse, do, h, h, d,
+                                    planted_fault=fault, **kw)
+    dk, dv = A.flash_bwd_dkv_cuda(qkv, o, lse, do, h, h, d, delta=delta,
+                                  planted_fault=fault, **kw)
+    return o, lse, dq, dk, dv
+
+
+def f16_flash_plain(A, qkv, do, h, d, kw):
+    o, lse = A.flash_fwd_packed(qkv, h, h, d, impl="torch", **kw)
+    return (o, lse, *A.flash_bwd_packed(qkv, o, lse, do, h, h, d,
+                                        impl="torch", **kw))
+
+
+def f16_flash_overflow(torch, A, qkv, do32, h, d, kw, fault=None):
+    """The backward at dO x F16_DO_SCALE: (ok, details)."""
+    big = (do32.float() * F16_DO_SCALE).clamp(-6e4, 6e4).half()
+    lower = (do32.float() * F16_DO_SCALE * F16_ROBUST).clamp(
+        -6e4, 6e4).half()
+    _, _, *got = f16_flash_outputs(A, qkv, big, h, d, kw, fault)
+    po, plse = A.flash_fwd_packed(qkv, h, h, d, impl="torch", **kw)
+    plain = A.flash_bwd_packed(qkv, po, plse, big, h, h, d, impl="torch",
+                               **kw)
+    robust = A.flash_bwd_packed(qkv, po, plse, lower, h, h, d,
+                                impl="torch", **kw)
+    return overflow_contained(torch, got, plain, robust)
+
+
+def phase_fp16_flash(torch, dev):
+    """The packed flash pair's fp16 instances at GPT-medium's calls (8
+    heads of 128, causal; the train leg's 20 x 1024 and the flagship's
+    16 x 1024): the fp16 rule against the fp32 truth, lse within 1e-5 of
+    its largest entry, every output bit-identical across two runs, the
+    overflow checks (the backward at a scaled dO; the forward with an inf
+    in a q row and a k row), the planted faults refused at every call
+    (bf16_p by the rule in o, dq, dk and dv; satfinite by the overflow
+    check), then the times of the fp16 and the bf16 instance in turns,
+    the bf16 one's beside the parent's under --parent."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import attention as A
+
+    h, d = 8, 128
+    kw = dict(scale=d ** -0.5, causal=True)
+    errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    faults = {}
+    for b, s in F16_FLASH_CALLS:
+        shape = {"b": b, "s": s, "h": h, "d": d}
+        qkv32, do32 = (t.float() for t in flash_case(torch, dev, b, s, h, h,
+                                                     d, seed=s + b))
+        qkv, do = qkv32.half(), do32.half()
+        got = f16_flash_outputs(A, qkv, do, h, d, kw)
+        again = f16_flash_outputs(A, qkv, do, h, d, kw)
+        check(all(torch.equal(a, c) for a, c in zip(got, again)),
+              f"fp16 flash outputs differ across two runs at {shape}")
+        plain = f16_flash_plain(A, qkv, do, h, d, kw)
+        truth = f16_flash_plain(A, qkv.float(), do.float(), h, d, kw)
+        del again
+        for name, g, p_, t_ in zip(("o", "lse", "dq", "dk", "dv"), got,
+                                   plain, truth):
+            if name == "lse":
+                e = (g - t_).abs().max().item()
+                check(e <= 1e-5 * t_.abs().max().item(),
+                      f"fp16 lse err {e} at {shape}")
+                continue
+            key = {"o": "fwd", "dq": "dq"}.get(name, "dkv")
+            errs[key] = max(errs[key], f16_check(name, g, p_, t_, shape))
+        refused = {}
+        bad = f16_flash_outputs(A, qkv, do, h, d, kw, fault="bf16_p")
+        rules = {n: f16_rule(bad[i], plain[i], truth[i])
+                 for n, i in (("o", 0), ("dq", 2), ("dk", 3), ("dv", 4))}
+        refused["bf16_p"] = {n: not r[0] for n, r in rules.items()}
+        refused["bf16_p_errors"] = {n: r[1] for n, r in rules.items()}
+        del bad, got, plain, truth
+        ok, info = f16_flash_overflow(torch, A, qkv, do32, h, d, kw)
+        emit("fp16_overflow", dict(info, shape=shape, kernel="flash bwd"))
+        check(ok, f"fp16 flash backward overflow at {shape}: {info}")
+        ok_sat, info_sat = f16_flash_overflow(torch, A, qkv, do32, h, d, kw,
+                                              fault="satfinite")
+        refused["satfinite"] = not ok_sat
+        qi = qkv.clone()
+        qi[0, s // 3, :d] = float("inf")            # a q row of head 0
+        qi[0, s // 2, h * d:h * d + d] = float("inf")  # a k row of kv head 0
+        o_i, _ = A.flash_fwd_cuda(qi, h, h, d, **kw)
+        po_i, _ = A.flash_fwd_packed(qi, h, h, d, impl="torch", **kw)
+        o_sat, _ = A.flash_fwd_cuda(qi, h, h, d, planted_fault="satfinite",
+                                    **kw)
+        same = torch.equal(~torch.isfinite(o_i), ~torch.isfinite(po_i))
+        emit("fp16_overflow", {"shape": shape, "kernel": "flash fwd",
+                               "inf_rows": ["q", "k"],
+                               "plain_nonfinite": int(
+                                   (~torch.isfinite(po_i)).sum()),
+                               "same_nonfinite_outputs": same})
+        check(same and (~torch.isfinite(po_i)).any(),
+              f"fp16 flash forward with inf inputs at {shape}")
+        refused["satfinite_fwd"] = not torch.equal(
+            ~torch.isfinite(o_sat), ~torch.isfinite(po_i))
+        emit("fp16_faults", {"shape": shape, "refused": refused,
+                             "satfinite_overflow": info_sat})
+        check(all(refused["bf16_p"].values()) and refused["satfinite"]
+              and refused["satfinite_fwd"],
+              f"an fp16 planted fault passed at {shape}: {refused}")
+        faults[f"{b}x{s}"] = refused
+        del qi, o_i, po_i, o_sat, qkv, do
+        torch.cuda.empty_cache()
+
+    # times at both calls: the fp16 instance and the bf16 one in turns;
+    # under --parent the bf16 one beside the parent's in turns
+    times = {}
+    for b, s in F16_FLASH_CALLS:
+        q16, do16 = (t.half() for t in flash_case(torch, dev, b, s, h, h, d,
+                                                  seed=3))
+        qb, dob = q16.bfloat16(), do16.bfloat16()
+        o16, l16 = A.flash_fwd_cuda(q16, h, h, d, **kw)
+        ob, lb = A.flash_fwd_cuda(qb, h, h, d, **kw)
+        _, dl16 = A.flash_bwd_dq_cuda(q16, o16, l16, do16, h, h, d, **kw)
+        _, dlb = A.flash_bwd_dq_cuda(qb, ob, lb, dob, h, h, d, **kw)
+        fns = {
+            "fwd": (lambda: A.flash_fwd_cuda(q16, h, h, d, **kw),
+                    lambda: A.flash_fwd_cuda(qb, h, h, d, **kw)),
+            "dq": (lambda: A.flash_bwd_dq_cuda(q16, o16, l16, do16, h, h, d,
+                                               **kw),
+                   lambda: A.flash_bwd_dq_cuda(qb, ob, lb, dob, h, h, d,
+                                               **kw)),
+            "dkv": (lambda: A.flash_bwd_dkv_cuda(q16, o16, l16, do16, h, h,
+                                                 d, delta=dl16, **kw),
+                    lambda: A.flash_bwd_dkv_cuda(qb, ob, lb, dob, h, h, d,
+                                                 delta=dlb, **kw))}
+        call = {}
+        for op, (f16, fbf) in fns.items():
+            ms16, msbf = f16_turns(torch, f16, fbf)
+            parent = parent_ms(torch, fbf)
+            call[op] = {"f16_ms": ms16, "bf16_ms": msbf,
+                        "bf16_parent_ms": parent}
+        q4, k4, v4 = (x.detach() for x in A._packed_views(q16, h, h, d))
+        call["sdpa_fwd_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), [()])
+        # SDPA's backward to the q, k and v views (as the bf16 phase's)
+        leaf = q16.detach().requires_grad_()
+        lq, lk, lv = A._packed_views(leaf, h, h, d)
+        out4 = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+        call["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            out4, (lq, lk, lv), do16.view(b, s, h, d).transpose(1, 2),
+            retain_graph=True), [()], reps=5)
+        if (b, s) == (AMP_BATCH, TRAIN_SEQ):
+            call["plain_fwd_ms"] = time_ms(lambda: A.flash_fwd_packed(
+                q16, h, h, d, impl="torch", **kw), [()], reps=2, trials=3)
+            call["plain_bwd_ms"] = time_ms(lambda: A.flash_bwd_packed(
+                q16, o16, l16, do16, h, h, d, impl="torch", **kw), [()],
+                reps=2, trials=3)
+        pairs = b * h * s * (s + 1) / 2
+        call["bounds"] = flash_bounds(b, h, h, s, s, d, pairs, b * h * s)
+        times[f"{b}x{s}"] = call
+        del q16, do16, qb, dob, o16, l16, ob, lb, leaf, out4
+        torch.cuda.empty_cache()
+    emit("fp16_flash_times", {"calls": times, "note": (
+        "f16_ms and bf16_ms: the two instances at one call in turns "
+        "(f16, bf16, bf16, f16); bf16_parent_ms: the parent commit's "
+        "bf16 kernel in turns with this tree's (--parent)")})
+    for key, call in times.items():
+        for op in ("fwd", "dq", "dkv"):
+            par = call[op]["bf16_parent_ms"]
+            if par is not None:
+                check(call[op]["bf16_ms"] <= 1.01 * par,
+                      f"bf16 flash {op} at {key}: {call[op]['bf16_ms']} ms "
+                      f"against the parent's {par}")
+    flag = times[f"{AMP_BATCH}x{TRAIN_SEQ}"]
+    src = "apex_tpu_torch/csrc/"
+    out = []
+    for name, op, file, line, err in (
+            ("flash_fwd_f16", "fwd", "flash_attn_fwd_f16.cu", 506, "fwd"),
+            ("flash_bwd_dq_f16", "dq", "flash_attn_bwd_f16.cu", 676, "dq"),
+            ("flash_bwd_dkv_f16", "dkv", "flash_attn_bwd_f16.cu", 710,
+             "dkv")):
+        bms, by = flag["bounds"][op]
+        out.append({
+            "name": name, "route": "cuda", "source": src + file,
+            "replaces": f"apex_tpu/ops/pallas/attention.py:{line}",
+            "max_abs_err": errs[err], "ms": flag[op]["f16_ms"],
+            "bf16_ms": flag[op]["bf16_ms"],
+            "plain_ms": flag["plain_fwd_ms" if op == "fwd"
+                             else "plain_bwd_ms"],
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": flag["sdpa_fwd_ms" if op == "fwd"
+                               else "sdpa_bwd_ms"],
+            "per_shape": {k: v[op] for k, v in times.items()},
+            "faults_refused": faults,
+            "timed_shape": {"b": AMP_BATCH, "s": TRAIN_SEQ, "heads": h,
+                            "head_dim": d, "causal": True,
+                            "dtype": "fp16"}})
+    return out
+
+
+def phase_fp16_rows(torch, dev):
+    """ln_fwd, ln_bwd and xent_stats's fp16 instances at the flagship's
+    16384 x 1024 norm call and 16384 x 32768 logits: the fp16 rule for y
+    and dx, mean/rstd within 1e-5 of the largest, dgamma/dbeta (fp16)
+    within 2^-10 of the largest and bit-identical across two runs; the
+    statistics' max and target exact, sum-exp 1e-5 relative; the overflow
+    checks (an inf in a row, a scaled dy, an inf logit); the times of the
+    fp16 and bf16 instances in turns, the bf16 ones beside the parent's
+    under --parent."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import layer_norm as LN
+    from apex_tpu_torch.ops import xentropy as X
+
+    rows, hidden = F16_ROWS, TRAIN["hidden_size"]
+    g = torch.Generator(device=dev).manual_seed(21)
+    x32 = torch.randn((rows, hidden), generator=g, device=dev) * 2 + 0.5
+    dy32 = torch.randn((rows, hidden), generator=g, device=dev)
+    w32 = 1 + 0.3 * torch.randn((hidden,), generator=g, device=dev)
+    b32 = 0.2 * torch.randn((hidden,), generator=g, device=dev)
+    x, dy, w, b = (t.half() for t in (x32, dy32, w32, b32))
+    shape = {"rows": rows, "hidden": hidden, "dtype": "fp16"}
+    y, mean, rstd = LN.ln_fwd_cuda(x, w, b, LN_EPS, False)
+    dx, dw, db = LN.ln_bwd_cuda(dy, x, mean, rstd, w, False)
+    _, dw2, db2 = LN.ln_bwd_cuda(dy, x, mean, rstd, w, False)
+    yp, mp, rp = LN._torch_fwd(x, w, b, LN_EPS, False)
+    yt, mt, rt = LN._torch_fwd(x.float(), w.float(), b.float(), LN_EPS,
+                               False)
+    dxp, _, _ = LN._torch_bwd(dy, x, mp, rp, w, False)
+    dxt, dwt, dbt = LN._torch_bwd(dy.float(), x.float(), mt, rt, w.float(),
+                                  False)
+    ln_errs = {"y": f16_check("ln y", y, yp, yt, shape),
+               "dx": f16_check("ln dx", dx, dxp, dxt, shape)}
+    for name, got, t in (("mean", mean, mt), ("rstd", rstd, rt)):
+        e = (got - t).abs().max().item()
+        check(e <= 1e-5 * t.abs().max().item(), f"fp16 ln {name} err {e}")
+    for name, got, t, again in (("dgamma", dw, dwt, dw2),
+                                ("dbeta", db, dbt, db2)):
+        e = (got.float() - t).abs().max().item()
+        check(got.dtype == torch.float16 and torch.equal(got, again)
+              and e <= 2.0 ** -10 * t.abs().max().item(),
+              f"fp16 ln {name}: err {e}, dtype {got.dtype}")
+        ln_errs[name] = e
+    xi = x.clone()
+    xi[rows // 2, hidden // 3] = float("inf")
+    yi, _, _ = LN.ln_fwd_cuda(xi, w, b, LN_EPS, False)
+    ypi, _, _ = LN._torch_fwd(xi, w, b, LN_EPS, False)
+    check(torch.equal(~torch.isfinite(yi), ~torch.isfinite(ypi)),
+          "fp16 ln forward with an inf input")
+    big = (dy32 * F16_DO_SCALE).clamp(-6e4, 6e4).half()
+    lower = (dy32 * F16_DO_SCALE * F16_ROBUST).clamp(-6e4, 6e4).half()
+    dxb, dwb, dbb = LN.ln_bwd_cuda(big, x, mean, rstd, w, False)
+    pxb, pwb, pbb = LN._torch_bwd(big, x, mp, rp, w, False)
+    rxb, rwb, rbb = LN._torch_bwd(lower, x, mp, rp, w, False)
+    ok, info = overflow_contained(
+        torch, (dxb, dwb, dbb), (pxb, pwb.half(), pbb.half()),
+        (rxb, rwb.half(), rbb.half()))
+    emit("fp16_overflow", dict(info, shape=shape, kernel="ln_bwd"))
+    check(ok, f"fp16 ln backward overflow: {info}")
+    del xi, yi, ypi, dxb, dwb, dbb, pxb, pwb, pbb, rxb, rwb, rbb
+
+    xb, dyb, wb, bb = (t.bfloat16() for t in (x32, dy32, w32, b32))
+    _, meanb, rstdb = LN.ln_fwd_cuda(xb, wb, bb, LN_EPS, False)
+    ln_t = {}
+    for op, f16, fbf in (
+            ("fwd", lambda: LN.ln_fwd_cuda(x, w, b, LN_EPS, False),
+             lambda: LN.ln_fwd_cuda(xb, wb, bb, LN_EPS, False)),
+            ("bwd", lambda: LN.ln_bwd_cuda(dy, x, mean, rstd, w, False),
+             lambda: LN.ln_bwd_cuda(dyb, xb, meanb, rstdb, wb, False))):
+        ms16, msbf = f16_turns(torch, f16, fbf)
+        parent = parent_ms(torch, fbf)
+        ln_t[op] = {"f16_ms": ms16, "bf16_ms": msbf,
+                    "bf16_parent_ms": parent}
+        if parent is not None:
+            check(msbf <= 1.01 * parent, f"bf16 ln_{op}: {msbf} ms against "
+                  f"the parent's {parent}")
+    plain_fwd = time_ms(lambda: LN._torch_fwd(x, w, b, LN_EPS, False), [()],
+                        reps=5, trials=5)
+    plain_bwd = time_ms(lambda: LN._torch_bwd(dy, x, mean, rstd, w, False),
+                        [()], reps=5, trials=5)
+    lib_fwd = time_ms(lambda: F.layer_norm(x, (hidden,), w, b, LN_EPS),
+                      [()])
+    xl, wl, bl = (t.detach().requires_grad_() for t in (x, w, b))
+    yl = F.layer_norm(xl, (hidden,), wl, bl, LN_EPS)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(yl, (xl, wl, bl), dy,
+                                                  retain_graph=True), [()])
+    io = rows * hidden * 2
+    fwd_b = bound(io * 2 + 2 * hidden * 2 + rows * 8, 8 * rows * hidden,
+                  FP32_OPS_PER_S)
+    bwd_b = bound(io * 3 + 3 * hidden * 2 + rows * 8, 12 * rows * hidden,
+                  FP32_OPS_PER_S)
+    del xl, wl, bl, yl
+    torch.cuda.empty_cache()
+
+    n, V = F16_ROWS, TRAIN["vocab_size"]
+    logits = (torch.randn((n, V), generator=g, device=dev) * 2.0).half()
+    labels = torch.randint(0, V, (n,), generator=g, device=dev)
+    labels[::97] = -1
+    got = X.xent_stats_cuda(logits, labels)
+    want = X.xent_stats(logits, labels, impl="torch")
+    errs = {k: (a - c).abs().max().item() for k, a, c in
+            zip(("max", "sumexp", "target", "rowsum"), got, want)}
+    rel = ((got[1] - want[1]).abs() / want[1]).max().item()
+    rowsum_tol = 1e-5 * logits.float().abs().sum(-1).max().item()
+    emit("fp16_xent_check", {"rows": n, "vocab": V, "abs_err": errs,
+                             "sumexp_rel_err": rel})
+    check(errs["max"] == 0 and errs["target"] == 0 and rel <= 1e-5
+          and errs["rowsum"] <= rowsum_tol, f"fp16 xent_stats: {errs}")
+    li = logits.clone()
+    li[3, 7] = float("inf")
+    same = all(torch.equal(~torch.isfinite(a), ~torch.isfinite(c))
+               for a, c in zip(X.xent_stats_cuda(li, labels),
+                               X.xent_stats(li, labels, impl="torch")))
+    check(same, "fp16 xent_stats with an inf logit")
+    del li
+    lb = logits.bfloat16()
+    ms16, msbf = f16_turns(torch, lambda: X.xent_stats_cuda(logits, labels),
+                           lambda: X.xent_stats_cuda(lb, labels))
+    parent = parent_ms(torch, lambda: X.xent_stats_cuda(lb, labels))
+    if parent is not None:
+        check(msbf <= 1.01 * parent, f"bf16 xent_stats: {msbf} ms against "
+              f"the parent's {parent}")
+    x_plain = time_ms(lambda: X.xent_stats(logits, labels, impl="torch"),
+                      [()], reps=3, trials=5)
+    x_b = bound(n * V * 2 + n * 8 + 4 * n * 4, 5 * n * V, FP32_OPS_PER_S)
+    emit("fp16_row_times", {"ln": ln_t, "xent": {
+        "f16_ms": ms16, "bf16_ms": msbf, "bf16_parent_ms": parent}})
+    src = "apex_tpu_torch/csrc/"
+    ln_shape = {"rows": rows, "hidden": hidden, "dtype": "fp16",
+                "params": "fp16"}
+    del logits, lb
+    torch.cuda.empty_cache()
+    return [
+        {"name": "ln_fwd_f16", "route": "cuda",
+         "source": src + "layer_norm.cu",
+         "replaces": "apex_tpu/ops/pallas/layer_norm.py:102",
+         "max_abs_err": ln_errs["y"], "ms": ln_t["fwd"]["f16_ms"],
+         "bf16_ms": ln_t["fwd"]["bf16_ms"], "plain_ms": plain_fwd,
+         "bound_ms": fwd_b[0], "bound_by": fwd_b[1], "library_ms": lib_fwd,
+         "timed_shape": ln_shape},
+        {"name": "ln_bwd_f16", "route": "cuda",
+         "source": src + "layer_norm.cu",
+         "replaces": "apex_tpu/ops/pallas/layer_norm.py:186",
+         "max_abs_err": max(ln_errs["dx"], ln_errs["dgamma"],
+                            ln_errs["dbeta"]),
+         "ms": ln_t["bwd"]["f16_ms"], "bf16_ms": ln_t["bwd"]["bf16_ms"],
+         "plain_ms": plain_bwd, "bound_ms": bwd_b[0], "bound_by": bwd_b[1],
+         "library_ms": lib_bwd, "timed_shape": ln_shape},
+        {"name": "xent_stats_f16", "route": "cuda",
+         "source": src + "xent_stats.cu",
+         "replaces": "apex_tpu/ops/pallas/xentropy.py:86",
+         "max_abs_err": max(errs.values()), "ms": ms16, "bf16_ms": msbf,
+         "plain_ms": x_plain, "bound_ms": x_b[0], "bound_by": x_b[1],
+         "library_ms": None,
+         "library_note": "no single PyTorch call computes the row max, "
+                         "sum-exp, target logit and row sum",
+         "timed_shape": {"rows": n, "vocab": V, "dtype": "fp16",
+                         "labels": "int64"}}]
+
+
+def amp_counts(L, half_ln, half_xent):
+    """One GPT step's launches under amp: the flash trio on the fp16
+    instances, the norms and xent_stats on fp16 (O2) or fp32 (O1)."""
+    want = {"flash_fwd": L, "flash_fwd_wgmma": L, "flash_fwd_f16": L,
+            "flash_bwd_dq": L, "flash_bwd_dq_wgmma": L,
+            "flash_bwd_dq_f16": L, "flash_bwd_dkv": L,
+            "flash_bwd_dkv_wgmma": L, "flash_bwd_dkv_f16": L,
+            "ln_fwd": 2 * L + 1, "ln_bwd": 2 * L + 1, "xent_stats": 1}
+    if half_ln:
+        want.update(ln_fwd_f16=2 * L + 1, ln_bwd_f16=2 * L + 1)
+    if half_xent:
+        want["xent_stats_f16"] = 1
+    return want
+
+
+def amp_batch(torch, dev):
+    g = torch.Generator(device=dev).manual_seed(1)
+    V = MODEL["vocab_size"]
+    return tuple(torch.randint(0, V, (AMP_BATCH, TRAIN_SEQ), generator=g,
+                               device=dev) for _ in range(2))
+
+
+def amp_flagship(torch, dev, init_scale=None):
+    """The flagship's pieces: the model, amp.initialize's O2 fp16 state
+    over FusedAdam(lr 1e-4) (or, with ``init_scale``, the same built from
+    its parts with that scale) and the batch."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models.gpt import param_leaves
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    model, params = gpt_model(torch, dev, TRAIN, torch.float32)
+    opt = FusedAdam(param_leaves(params), lr=AMP_LR)
+    st = amp.initialize(params, opt, "O2", half_dtype=torch.float16)
+    if init_scale is not None:
+        st.scaler = amp.init_loss_scaler("dynamic", init_scale=init_scale,
+                                         device=dev)
+    return model, st, amp_batch(torch, dev)
+
+
+def amp_step(amp, model, st, tokens, targets):
+    """One flagship step: scaled loss and gradients, the skip-guarded Adam
+    step over the masters, the resync. Returns (loss, finite), on the
+    device; st.scaler advances."""
+    loss, (grads, finite, st.scaler) = amp.scaled_value_and_grad(
+        model.loss_fn)(st.scaler, st.params.model, tokens, targets)
+    amp.apply_updates_with_master(st.params, st.optimizer, grads,
+                                  grads_finite=finite)
+    return loss.detach(), finite
+
+
+def phase_amp_o2_fp16_train(torch, dev):
+    """The flagship: GPT-medium's train step under amp O2 at fp16 (fp32
+    masters, the dynamic scaler from 2**16, FusedAdam(lr 1e-4) behind the
+    skip guard), batch 16 x 1024: 2 warm-up steps, then 20 timed ones with
+    the counters zeroed just before and read just after (12/12/12 flash
+    forward/dQ/dK-dV, 25/25 ln_fwd/ln_bwd and 1 xent_stats a step, all on
+    the fp16 instances); the loss and scale trajectories, the skipped
+    steps, step ms, tokens/s, MFU, peak memory. Then the bf16 train leg's
+    step (bf16 params, FusedAdam) at the same batch and step counts. Each
+    leg with 2 profiled steps (device time by layer, busy share)."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    model, st, (tokens, targets) = amp_flagship(torch, dev)
+    for _ in range(AMP_WARMUP):
+        amp_step(amp, model, st, tokens, targets)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    losses, scales, flags = [], [], []
+    t0 = time.perf_counter()
+    for _ in range(AMP_STEPS):
+        loss, finite = amp_step(amp, model, st, tokens, targets)
+        losses.append(loss)
+        flags.append(finite)
+        scales.append(st.scaler.loss_scale)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(v) for v in losses]
+    scales = [float(v) for v in scales]
+    flags = [bool(v) for v in flags]
+    L = TRAIN["num_layers"]
+    check_launches(launches, amp_counts(L, True, True), AMP_STEPS,
+                   "amp_o2_fp16_train")
+    fin = [v for v, f in zip(losses, flags) if f]
+    check(all(np.isfinite(fin)) and len(fin) >= 2 and fin[-1] < fin[0],
+          f"amp_o2_fp16_train: finite-step losses {losses} (flags {flags})")
+    tok = AMP_BATCH * TRAIN_SEQ * AMP_STEPS
+    flops = model_flops_per_token(TRAIN, TRAIN_SEQ) * tok / wall
+    info = {"batch": AMP_BATCH, "seq": TRAIN_SEQ, "steps": AMP_STEPS,
+            "warmup_steps": AMP_WARMUP, "lr": AMP_LR,
+            "losses": losses, "loss_scales": scales, "finite": flags,
+            "skipped_steps": int(st.scaler.skipped_steps),
+            "wall_s": wall, "step_ms": 1e3 * wall / AMP_STEPS,
+            "tokens_per_s": tok / wall,
+            "model_tflops_per_s": flops / 1e12,
+            "mfu": flops / BF16_OPS_PER_S,
+            "mfu_peak": "989 TFLOP/s dense fp16/bf16 (H100 SXM data sheet)",
+            "host_syncs_per_step": 1, "peak_memory_gb": peak,
+            "launches_per_step": {k: v / AMP_STEPS
+                                  for k, v in launches.items() if v}}
+    info["profile"] = phase_train_profile(
+        torch, lambda: amp_step(amp, model, st, tokens, targets),
+        wall / AMP_STEPS)
+    del model, st
+    torch.cuda.empty_cache()
+
+    # the bf16 train leg's step at the flagship's batch
+    from apex_tpu_torch.models.gpt import param_leaves
+    model, params = gpt_model(torch, dev, TRAIN, torch.bfloat16)
+    opt = FusedAdam(param_leaves(params), lr=AMP_LR)
+    for _ in range(AMP_WARMUP):
+        train_step(model, params, opt, tokens, targets)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bl = [train_step(model, params, opt, tokens, targets)
+          for _ in range(AMP_STEPS)]
+    torch.cuda.synchronize()
+    bwall = time.perf_counter() - t0
+    bflops = model_flops_per_token(TRAIN, TRAIN_SEQ) * tok / bwall
+    info["bf16_train_same_batch"] = {
+        "losses": [float(v) for v in bl],
+        "step_ms": 1e3 * bwall / AMP_STEPS, "tokens_per_s": tok / bwall,
+        "mfu": bflops / BF16_OPS_PER_S,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    info["fp16_over_bf16_step"] = info["step_ms"] / (1e3 * bwall / AMP_STEPS)
+    info["bf16_train_same_batch"]["profile"] = phase_train_profile(
+        torch, lambda: train_step(model, params, opt, tokens, targets),
+        bwall / AMP_STEPS)
+    del model, params, opt
+    torch.cuda.empty_cache()
+    return info, launches
+
+
+def phase_amp_o1_fp16_train(torch, dev):
+    """The same model under ``with_policy(O1 at fp16)`` (fp32 params, the
+    flash route cast to fp16): one step's loss and gradients on the kernel
+    path against the plain path and an fp32 truth (the loss within
+    TRAIN_LOSS_TOL, each leaf's error from the truth within twice the plain
+    path's + 1e-3), then a warm-up and 5 timed
+    steps (amp.initialize's O1 scaler and the skip-guarded FusedAdam) with
+    12/12/12 flash launches on the fp16 instances, 25/25 norms and 1
+    xent_stats on the fp32 instances a step."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models.gpt import param_leaves
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    model, params = gpt_model(torch, dev, TRAIN, torch.float32)
+    tokens, targets = amp_batch(torch, dev)
+    _, truth = gpt_model(torch, dev, TRAIN, torch.float32)  # the same seed
+    pol = amp.get_policy("O1", half_dtype=torch.float16)
+    c = model.config
+    hd = c.num_heads * c.head_dim
+
+    def run(p, impl):
+        if p is truth:  # the fp32 truth: no cast
+            return model.loss_fn(p, tokens, targets, impl=impl)
+        with amp.with_policy(pol):
+            return model.loss_fn(p, tokens, targets, impl=impl)
+
+    def view(name, g):  # the qkv bias's k window: an exact 0 gradient
+        if name.endswith("qkv.bias"):
+            return torch.cat([g[:hd], g[hd + c.kv_heads * c.head_dim:]])
+        return g
+
+    # the O1 rule: the loss within TRAIN_LOSS_TOL of the plain path's and
+    # each leaf no farther from the fp32 truth than twice the plain path's
+    # + 1e-3; no kernel-vs-plain leaf bound (both paths carry fp16 noise in
+    # the attention's gradients: the vs_plain_path line prints the leaves'
+    # kernel-vs-plain errors)
+    vs_plain = compare_paths(torch, run, params, truth,
+                             "initial (seed 0), O1 fp16", False, view)
+    del truth
+    torch.cuda.empty_cache()
+    st = amp.initialize(params, FusedAdam(param_leaves(params), lr=AMP_LR),
+                        "O1", half_dtype=torch.float16)
+    check(st.scaler is not None and st.policy.per_op_rules,
+          "amp.initialize O1: no scaler or no per-op rules")
+
+    def step():
+        with amp.with_policy(st.policy):
+            loss, (grads, finite, st.scaler) = amp.scaled_value_and_grad(
+                model.loss_fn)(st.scaler, st.params, tokens, targets)
+        for t, g_ in zip(param_leaves(st.params), param_leaves(grads)):
+            t.grad = g_
+        st.optimizer.step(grads_finite=finite)
+        st.optimizer.zero_grad(set_to_none=True)
+        return loss
+
+    losses, wall, launches = timed_steps(torch, step, AMP_O1_STEPS,
+                                         "amp_o1_fp16_train")
+    L = c.num_layers
+    check_launches(launches, amp_counts(L, False, False), AMP_O1_STEPS,
+                   "amp_o1_fp16_train")
+    tok = AMP_BATCH * TRAIN_SEQ * AMP_O1_STEPS
+    info = {"batch": AMP_BATCH, "seq": TRAIN_SEQ, "steps": AMP_O1_STEPS,
+            "losses": losses, "step_ms": 1e3 * wall / AMP_O1_STEPS,
+            "tokens_per_s": tok / wall,
+            "mfu": model_flops_per_token(TRAIN, TRAIN_SEQ) * tok / wall
+            / BF16_OPS_PER_S,
+            "loss_scale": float(st.scaler.loss_scale),
+            "skipped_steps": int(st.scaler.skipped_steps),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "vs_plain_path": vs_plain,
+            "launches_per_step": {k: v / AMP_O1_STEPS
+                                  for k, v in launches.items() if v}}
+    del model, params, st
+    torch.cuda.empty_cache()
+    return info, launches
+
+
+def phase_amp_overflow(torch, dev):
+    """The flagship's step from a loss scale of 2**24: at least one skipped
+    step; on each skipped step the masters, the fp16 model params and
+    every exp_avg, exp_avg_sq and step count bit-identical to their copies
+    from before it, the scale halved; finite steps after the overflows."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.utils.pytree import tree_leaves
+
+    model, st, (tokens, targets) = amp_flagship(torch, dev,
+                                                AMP_OVERFLOW_INIT)
+    opt = st.optimizer
+    trail = []
+    finite_after = 0
+    for _ in range(AMP_OVERFLOW_STEPS):
+        masters = [t.clone() for t in tree_leaves(st.params.master)]
+        models = [t.detach().clone() for t in tree_leaves(st.params.model)]
+        state = [(s_["step"], s_["exp_avg"].clone(), s_["exp_avg_sq"].clone())
+                 for s_ in (opt.state.get(t) for t in
+                            tree_leaves(st.params.master)) if s_]
+        scale = float(st.scaler.loss_scale)
+        loss, finite = amp_step(amp, model, st, tokens, targets)
+        finite = bool(finite)
+        new_scale = float(st.scaler.loss_scale)
+        rec = {"scale_before": scale, "scale_after": new_scale,
+               "finite": finite, "loss": float(loss)}
+        if not finite:
+            after = [(s_["step"], s_["exp_avg"], s_["exp_avg_sq"])
+                     for s_ in (opt.state.get(t) for t in
+                                tree_leaves(st.params.master)) if s_]
+            same = (all(torch.equal(a, b_) for a, b_ in zip(
+                masters, tree_leaves(st.params.master)))
+                and all(torch.equal(a, b_.detach()) for a, b_ in zip(
+                    models, tree_leaves(st.params.model)))
+                and len(after) == len(state)
+                and all(a[0] == b_[0] and torch.equal(a[1], b_[1])
+                        and torch.equal(a[2], b_[2])
+                        for a, b_ in zip(state, after)))
+            rec["state_unchanged"] = same
+            check(same, f"amp_overflow: a skipped step changed the masters, "
+                  f"the model params or Adam's state (scale {scale})")
+            check(new_scale == scale / 2, f"amp_overflow: scale {scale} -> "
+                  f"{new_scale} on an overflow")
+        elif any(not r["finite"] for r in trail):
+            finite_after += 1
+        trail.append(rec)
+        del masters, models, state
+        if finite_after >= 3:
+            break
+    skipped = int(st.scaler.skipped_steps)
+    check(skipped >= 1, "amp_overflow: no skipped step from 2**24")
+    check(finite_after >= 1 and trail[-1]["finite"]
+          and np.isfinite(trail[-1]["loss"]),
+          f"amp_overflow: no finite step after the overflows: {trail}")
+    info = {"init_scale": AMP_OVERFLOW_INIT, "steps": trail,
+            "skipped_steps": skipped,
+            "final_scale": float(st.scaler.loss_scale)}
+    del model, st
+    torch.cuda.empty_cache()
+    return info
+
+
 def main(argv=None):
     global PARENT, PTXAS, EMPTY
     import argparse
@@ -5622,11 +6373,20 @@ def main(argv=None):
     PTXAS = rowwise_ab.ptxas_report(_build.build_log())
     ptxas = [ln.strip() for ln in _build.build_log().splitlines()
              if "registers" in ln or "spill" in ln or "Compiling" in ln]
+    changes = None if PARENT is None else rowwise_ab.ptxas_changes(
+        PTXAS, rowwise_ab.ptxas_report(PARENT[1]))
     emit("build", {"seconds": build_s, "library": str(
         _build.library_path().relative_to(ROOT)), "ptxas": ptxas,
         "parent": None if PARENT is None else {
             "root": args.parent,
-            "ptxas": rowwise_ab.ptxas_report(PARENT[1])}})
+            "ptxas": rowwise_ab.ptxas_report(PARENT[1]),
+            "ptxas_changes": changes}})
+    # every parent kernel (the bf16 instances of the bodies that gained an
+    # element type among them) keeps its registers and spills
+    check(changes is None or (not changes["changed"]
+                              and not changes["missing"]),
+          f"kernels whose registers or spills differ from the parent's: "
+          f"{changes}")
 
     # --- each kernel against its plain version --------------------------------
     kernels = [phase_decode_kernel(torch, dev),
@@ -5757,6 +6517,19 @@ def main(argv=None):
     rp_info, rp_paths = phase_gpt_remat_policies(torch, dev)
     paths.update(rp_paths)
     emit("gpt_remat_policies", rp_info)
+    torch.cuda.empty_cache()
+
+    # --- amp: the fp16 instances, the O2 and O1 fp16 legs, the overflow ----
+    f16_kernels = phase_fp16_flash(torch, dev) + phase_fp16_rows(torch, dev)
+    for k in f16_kernels:
+        emit("kernel", k)
+    kernels += f16_kernels
+    torch.cuda.empty_cache()
+    a2_info, paths["amp_o2_fp16_train"] = phase_amp_o2_fp16_train(torch, dev)
+    emit("amp_o2_fp16_train", a2_info)
+    a1_info, paths["amp_o1_fp16_train"] = phase_amp_o1_fp16_train(torch, dev)
+    emit("amp_o1_fp16_train", a1_info)
+    emit("amp_overflow", phase_amp_overflow(torch, dev))
     torch.cuda.empty_cache()
 
     # --- the T5 slice ---------------------------------------------------------

@@ -121,8 +121,10 @@ def test_plain_backward_is_the_forward_gradient():
 
 
 def test_packed_kernel_gate():
-    """What the CUDA flash kernels take: bf16, head dim 64 or 128, any
-    sequence length (ragged tails are masked in-kernel)."""
+    """What the CUDA flash kernels take: bf16 or fp16, head dim 64 or 128,
+    any sequence length (ragged tails are masked in-kernel)."""
+    assert amod.packed_kernel_ok(1024, 8, 128, torch.float16)
+    assert not amod.packed_kernel_ok(1024, 8, 96, torch.float16)
     assert amod.packed_kernel_ok(1024, 8, 128, torch.bfloat16)
     assert amod.packed_kernel_ok(1000, 8, 64, torch.bfloat16)
     assert amod.packed_kernel_ok(1, 1, 128, torch.bfloat16)

@@ -50,7 +50,9 @@ def test_every_module_imports_with_jax_blocked():
         "    importlib.import_module(m)\n"
         "for want in ('serving.engine', 'inference.engine', "
         "'inference.sampling', 'ops.fused_verify', 'spec.drafter', "
-        "'spec.tree', 'models.t5', 'models.bert', 'models.convert'):\n"
+        "'spec.tree', 'models.t5', 'models.bert', 'models.convert', "
+        "'amp.policy', 'amp.lists', 'amp.scaler', 'amp.master', "
+        "'amp.frontend', 'transformer.amp', 'utils.pytree'):\n"
         "    assert 'apex_tpu_torch.' + want in mods, want\n"
         "assert not any(k.split('.')[0] in ('jax', 'apex_tpu') and "
         "sys.modules[k] is not None for k in list(sys.modules))\n"

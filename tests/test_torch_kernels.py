@@ -577,8 +577,22 @@ def test_xent_stats_kernel_matches_plain(cuda, dtype, label_dtype):
 @pytest.mark.gpu
 def test_train_kernels_refuse_what_they_do_not_take(cuda):
     qkv, _ = _flash_inputs(1, 64, 2, 2, 128, cuda)
-    with pytest.raises(ValueError, match="bfloat16"):
+    with pytest.raises(ValueError, match="bfloat16 or float16"):
         amod.flash_fwd_packed(qkv.float(), 2, 2, 128, scale=1.0, causal=True)
+    # fp16: the packed entry's wgmma kernels without dropout only
+    half = qkv.half()
+    with pytest.raises(ValueError, match="sm80"):
+        amod.flash_fwd_cuda(half, 2, 2, 128, scale=1.0, causal=True,
+                            variant="sm80")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+        amod.flash_fwd_cuda(half, 2, 2, 128, scale=1.0, causal=True,
+                            dropout_rate=0.1, dropout_seed=1)
+    with pytest.raises(ValueError, match="fp16 instances plant"):
+        amod.flash_fwd_cuda(half, 2, 2, 128, scale=1.0, causal=True,
+                            planted_fault="drop_last_kv_tile")
+    q4 = half[..., :256].unflatten(-1, (2, 128))
+    with pytest.raises(ValueError, match="ROADMAP queue 2"):
+        amod.flash_attention(q4, q4, q4, causal=True, layout="bshd")
     bad = torch.zeros((1, 64, 4 * 96), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         amod.flash_fwd_packed(bad, 2, 1, 96, scale=1.0, causal=True)
@@ -592,8 +606,8 @@ def test_train_kernels_refuse_what_they_do_not_take(cuda):
     lab = torch.zeros((4,), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="multiple of 8"):
         xmod.xent_stats(x, lab)
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        xmod.xent_stats(x[:, :96].half(), lab)
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        xmod.xent_stats(x[:, :96].double(), lab)
 
 
 @pytest.mark.gpu
@@ -2240,8 +2254,11 @@ def test_norm_and_softmax_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="impl='torch'"):
         lnmod.fused_layer_norm(x)
     with pytest.raises(ValueError, match="impl='torch'"):
-        lnmod.fused_rms_norm(x[:, :64].half())
+        lnmod.fused_rms_norm(x[:, :64].double())
     with pytest.raises(ValueError, match="impl='torch'"):
+        lnmod.fused_layer_norm(x[:, :64].half(), torch.ones(
+            64, dtype=torch.bfloat16, device=cuda))
+    with pytest.raises(ValueError, match="ROADMAP queue 2"):
         smxmod.scaled_masked_softmax(x.half(), None)
     with pytest.raises(ValueError, match="causal takes no mask"):
         smxmod.softmax_fwd_cuda(x, x > 0, 1.0, True)
@@ -2795,3 +2812,241 @@ def test_dropout_train_step_kernel_path_matches_plain_path(cuda, route):
     assert abs(lk - lp) <= 1e-4 * abs(lp)
     for a, b in zip(gk, gp):
         assert (a - b).norm() <= 5e-2 * b.norm()
+
+
+# --- fp16 instances (amp's strict-fp16 GPT step) ------------------------------
+#
+# The fp16 rule: the truth is the plain version run in fp32 on the same fp16
+# inputs; the kernel's max abs error at most twice the fp16 plain version's
+# plus 2^-13 of max(1, the truth's largest entry), and its relative norm
+# error at most twice the plain version's plus 2^-13 (the bf16 rule's 1e-3
+# slack scaled by fp16's three more mantissa bits, with the softmax rule's
+# norm clause: at +1e-3 the forward with P rounded through bf16 passes).
+# Overflow: the backward at a dO scaled by 2^14 (its entries clamped to
+# +-6e4, so the input stays finite) until the outputs' sums pass 65504; an
+# output non-finite in the fp16 plain version at 1 - 2^-6 of that
+# scale (so no finite/inf call rests on the last bits of an fp32 sum) must
+# be non-finite in the kernel's, and the all-finite flags agree at the
+# scale. The forward with an inf in a q row and a k row: the same
+# non-finite outputs (the plain version masks by a select, so nothing
+# leaks through masked entries).
+
+F16_SLACK = 2.0 ** -13
+
+
+def _f16_rule(got, plain, truth):
+    t = truth.float()
+    err_k = (got.float() - t).abs().max().item()
+    err_p = (plain.float() - t).abs().max().item()
+    tn = t.norm().item() + 1e-30
+    rel_k = (got.float() - t).norm().item() / tn
+    rel_p = (plain.float() - t).norm().item() / tn
+    ok = (err_k <= 2 * err_p + F16_SLACK * max(1.0, t.abs().max().item())
+          and rel_k <= 2 * rel_p + F16_SLACK)
+    return ok, (err_k, err_p, rel_k, rel_p)
+
+
+def _f16_flash(b, s, h, h_kv, d, dev, fault=None, do=None):
+    qkv32, do32 = _flash_inputs(b, s, h, h_kv, d, dev, seed=s + d + h_kv)
+    qkv, do = qkv32.half(), (do32.half() if do is None else do)
+    sc = d ** -0.5
+    o, lse = amod.flash_fwd_cuda(qkv, h, h_kv, d, scale=sc, causal=True,
+                                 planted_fault=fault)
+    dq, delta = amod.flash_bwd_dq_cuda(qkv, o, lse, do, h, h_kv, d, scale=sc,
+                                       causal=True, planted_fault=fault)
+    dk, dv = amod.flash_bwd_dkv_cuda(qkv, o, lse, do, h, h_kv, d, scale=sc,
+                                     causal=True, delta=delta,
+                                     planted_fault=fault)
+    return qkv, do, (o, lse, dq, dk, dv)
+
+
+def _f16_plain(qkv, do, h, h_kv, d):
+    sc = d ** -0.5
+    o, lse = amod._torch_flash_fwd(qkv, h, h_kv, d, sc, True)
+    return (o, lse, *amod._torch_flash_bwd(qkv, o, lse, do, h, h_kv, d, sc,
+                                           True))
+
+
+F16_FLASH_CALLS = [(2, 1024, 8, 8, 128), (1, 1000, 8, 2, 128),
+                   (2, 512, 16, 16, 64), (1, 333, 4, 1, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,h_kv,d", F16_FLASH_CALLS)
+def test_fp16_flash_packed_matches_plain(cuda, b, s, h, h_kv, d):
+    """The packed entry's fp16 instances (forward, dQ, dK/dV) by the fp16
+    rule against the fp32 truth, lse within 1e-5 of the truth's largest,
+    every output bit-identical across two runs, one f16 launch each."""
+    before = _counts(amod.flash_fwd_cuda, amod.flash_bwd_dq_cuda,
+                     amod.flash_bwd_dkv_cuda)
+    f16 = [f.f16_launches for f in (amod.flash_fwd_cuda,
+                                    amod.flash_bwd_dq_cuda,
+                                    amod.flash_bwd_dkv_cuda)]
+    qkv, do, got = _f16_flash(b, s, h, h_kv, d, cuda)
+    assert all(t.dtype == torch.float16 for i, t in enumerate(got) if i != 1)
+    assert [f.f16_launches - n for f, n in zip(
+        (amod.flash_fwd_cuda, amod.flash_bwd_dq_cuda,
+         amod.flash_bwd_dkv_cuda), f16)] == [1, 1, 1]
+    assert [a - n for a, n in zip(_counts(
+        amod.flash_fwd_cuda, amod.flash_bwd_dq_cuda, amod.flash_bwd_dkv_cuda),
+        before)] == [1, 1, 1]
+    _, _, again = _f16_flash(b, s, h, h_kv, d, cuda)
+    plain = _f16_plain(qkv, do, h, h_kv, d)
+    truth = _f16_plain(qkv.float(), do.float(), h, h_kv, d)
+    for name, g, p, t, a in zip(("o", "lse", "dq", "dk", "dv"), got, plain,
+                                truth, again):
+        assert torch.equal(g, a), name
+        if name == "lse":
+            ok, err = _close_to_largest(g, t, 1e-5)
+        else:
+            ok, err = _f16_rule(g, p, t)
+        assert ok, (name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", sorted(amod.FP16_FAULTS))
+@pytest.mark.parametrize("b,s,h,h_kv,d", F16_FLASH_CALLS[:3])
+def test_fp16_flash_planted_faults_are_refused(cuda, b, s, h, h_kv, d,
+                                               fault):
+    """bf16_p (P and dS rounded through bf16) fails the fp16 rule in o,
+    dq, dk and dv; satfinite (outputs clamped to +-65504) fails the
+    overflow check: at the scaled dO the plain version's infs come back
+    finite."""
+    qkv, do, got = _f16_flash(b, s, h, h_kv, d, cuda, fault=fault)
+    if fault == "bf16_p":
+        plain = _f16_plain(qkv, do, h, h_kv, d)
+        truth = _f16_plain(qkv.float(), do.float(), h, h_kv, d)
+        for i in (0, 2, 3, 4):
+            assert not _f16_rule(got[i], plain[i], truth[i])[0], i
+        return
+    ok, why = _f16_overflow_check(cuda, b, s, h, h_kv, d, fault)
+    assert not ok, why
+
+
+def _scaled_do(do, scale):
+    """dO x scale in fp16, its entries kept finite (clamped to +-6e4): the
+    outputs' sums pass 65504, the input does not."""
+    return (do.float() * scale).clamp(-6e4, 6e4).half()
+
+
+def _f16_overflow_check(dev, b, s, h, h_kv, d, fault=None):
+    """The backward's overflow rule at dO x 2^14."""
+    qkv, do = _flash_inputs(b, s, h, h_kv, d, dev, seed=s + d + h_kv)
+    qkv = qkv.half()
+    scale = 2.0 ** 14
+    big, lower = _scaled_do(do, scale), _scaled_do(do, scale * (
+        1 - 2.0 ** -6))
+    _, _, got = _f16_flash(b, s, h, h_kv, d, dev, fault=fault, do=big)
+    o, lse = amod._torch_flash_fwd(qkv, h, h_kv, d, d ** -0.5, True)
+    plain = amod._torch_flash_bwd(qkv, o, lse, big, h, h_kv, d, d ** -0.5,
+                                  True)
+    robust = amod._torch_flash_bwd(qkv, o, lse, lower, h, h_kv, d,
+                                   d ** -0.5, True)
+    if all(torch.isfinite(r).all() for r in robust):
+        return False, "the plain version overflows nowhere"
+    for name, g, p, r in zip(("dq", "dk", "dv"), got[2:], plain, robust):
+        inf_r = ~torch.isfinite(r)
+        if (inf_r & torch.isfinite(g)).any():
+            return False, (name, int((inf_r & torch.isfinite(g)).sum()))
+        if bool(torch.isfinite(g).all()) != bool(torch.isfinite(p).all()):
+            return False, (name, "all-finite flags differ")
+    return True, None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,h_kv,d", F16_FLASH_CALLS[:3])
+def test_fp16_flash_overflow_reaches_the_output_as_inf(cuda, b, s, h, h_kv,
+                                                       d):
+    ok, why = _f16_overflow_check(cuda, b, s, h, h_kv, d)
+    assert ok, why
+    # the forward: an inf in a q row and in a k row
+    qkv, _ = _flash_inputs(b, s, h, h_kv, d, cuda, seed=7)
+    qkv = qkv.half()
+    qkv[0, s // 3, :d] = float("inf")                 # q row, head 0
+    qkv[0, s // 2, h * d:h * d + d] = float("inf")    # k row, kv head 0
+    o, _ = amod.flash_fwd_cuda(qkv, h, h_kv, d, scale=d ** -0.5, causal=True)
+    po, _ = amod._torch_flash_fwd(qkv, h, h_kv, d, d ** -0.5, True)
+    assert (~torch.isfinite(po)).any()
+    assert torch.equal(~torch.isfinite(o), ~torch.isfinite(po))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,hidden", [(16384, 1024), (37, 1000), (5, 768)])
+@pytest.mark.parametrize("wdtype", [torch.float16, torch.float32])
+@pytest.mark.parametrize("rms,affine", [(False, "wb"), (True, "w"),
+                                        (False, "")])
+def test_fp16_layer_norm_matches_plain(cuda, rows, hidden, wdtype, rms,
+                                       affine):
+    """The norms' fp16 instances: y and dx by the fp16 rule, mean and rstd
+    within 1e-5 of the truth's largest, dgamma/dbeta in the parameters'
+    dtype within 2^-10 of the largest (one fp16 ulp; 1e-5 in fp32) and
+    bit-identical across two runs; an inf in a row makes that row's y
+    non-finite as in the plain version; dy scaled past fp16's range makes
+    dx and dgamma overflow where the plain version's do."""
+    x, dy, w, b = _ln_case(rows, hidden, torch.float16, wdtype, affine, cuda,
+                           seed=rows + hidden)
+    f16 = (lnmod.ln_fwd_cuda.f16_launches, lnmod.ln_bwd_cuda.f16_launches)
+    y, mean, rstd = lnmod.ln_fwd_cuda(x, w, b, 1e-5, rms)
+    dx, dw, db = lnmod.ln_bwd_cuda(dy, x, mean, rstd, w, rms, b is not None)
+    assert (lnmod.ln_fwd_cuda.f16_launches - f16[0],
+            lnmod.ln_bwd_cuda.f16_launches - f16[1]) == (1, 1)
+    yp, mp, rp = lnmod._torch_fwd(x, w, b, 1e-5, rms)
+    yt, mt, rt = lnmod._torch_fwd(x.float(), None if w is None else w.float(),
+                                  None if b is None else b.float(), 1e-5, rms)
+    dxp, _, _ = lnmod._torch_bwd(dy, x, mp, rp, w, rms)
+    dxt, dwt, dbt = lnmod._torch_bwd(dy.float(), x.float(), mt, rt,
+                                     None if w is None else w.float(), rms)
+    assert y.dtype == dx.dtype == torch.float16
+    for name, g, p, t in (("y", y, yp, yt), ("dx", dx, dxp, dxt)):
+        ok, err = _f16_rule(g, p, t)
+        assert ok, (name, err)
+    for g, t in ((mean, mt), (rstd, rt)):
+        assert _close_to_largest(g, t, 1e-5)[0]
+    if w is not None:
+        tol = 2.0 ** -10 if wdtype == torch.float16 else 1e-5
+        assert dw.dtype == wdtype
+        assert _close_to_largest(dw, dwt, tol)[0]
+        if db is not None:
+            assert _close_to_largest(db, dbt, tol)[0]
+        _, dw2, _ = lnmod.ln_bwd_cuda(dy, x, mean, rstd, w, rms,
+                                      b is not None)
+        assert torch.equal(dw, dw2)
+    xi = x.clone()
+    xi[rows // 2, hidden // 3] = float("inf")
+    yi, _, _ = lnmod.ln_fwd_cuda(xi, w, b, 1e-5, rms)
+    ypi, _, _ = lnmod._torch_fwd(xi, w, b, 1e-5, rms)
+    assert torch.equal(~torch.isfinite(yi), ~torch.isfinite(ypi))
+    big = _scaled_do(dy, 2.0 ** 14)
+    lower = _scaled_do(dy, 2.0 ** 14 * (1 - 2.0 ** -6))
+    dxb, dwb, _ = lnmod.ln_bwd_cuda(big, x, mean, rstd, w, rms, False)
+    dxr, dwr, _ = lnmod._torch_bwd(lower, x, mp, rp, w, rms)
+    dxr = dxr.float()
+    if w is not None:
+        dwr = dwr.to(w.dtype)
+        assert not (~torch.isfinite(dwr) & torch.isfinite(dwb)).any()
+    assert not (~torch.isfinite(dxr) & torch.isfinite(dxb)).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n,V", [(2048, 32768), (5, 256)])
+def test_fp16_xent_stats_matches_plain(cuda, n, V, label_dtype):
+    """xent_stats's fp16 instance: max and target exact, the exp-sum within
+    1e-5 relative, the row sum within 1e-5 of its scale; an inf logit
+    gives the plain version's non-finite statistics."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = (3 * torch.randn((n, V), generator=g, device=cuda)).half()
+    lab = torch.randint(-1, V + 1, (n,), generator=g, device=cuda).to(
+        label_dtype)
+    before = xmod.xent_stats_cuda.f16_launches
+    got = xmod.xent_stats_cuda(x, lab)
+    assert xmod.xent_stats_cuda.f16_launches - before == 1
+    m, l, t, s = got
+    mp, lp, tp, sp = xmod._torch_xent_stats(x, lab)
+    assert torch.equal(m, mp) and torch.equal(t, tp)
+    assert ((l - lp).abs() / lp).max().item() <= 1e-5
+    assert ((s - sp).abs().max() <= 1e-5 * x.float().abs().sum(-1).max())
+    x[1, 3] = float("inf")
+    for a, b in zip(xmod.xent_stats_cuda(x, lab),
+                    xmod._torch_xent_stats(x, lab)):
+        assert torch.equal(~torch.isfinite(a), ~torch.isfinite(b))

@@ -93,8 +93,13 @@ def test_walk_covers_every_row_once(rows, sms):
 
 
 def test_plan_refuses_other_dtypes():
+    """float64 has no kernel; fp16 (amp's strict-fp16 step) takes bf16's
+    plan: the same 2-byte chunks."""
     with pytest.raises(ValueError, match="no forward kernel"):
-        LN._fwd_plan(16, 1024, torch.float16, H100_SMS)
+        LN._fwd_plan(16, 1024, torch.float64, H100_SMS)
+    for rows, hidden in ((16, 1024), (16384, 1024), (5, 768)):
+        assert LN._fwd_plan(rows, hidden, torch.float16, H100_SMS) == \
+            LN._fwd_plan(rows, hidden, torch.bfloat16, H100_SMS)
 
 
 # --- the kernel's arithmetic, emulated -----------------------------------------

@@ -77,25 +77,25 @@ def test_using_swaps_the_library_and_restores_it():
 
 
 def test_other_library_builds_the_decode_kernels_with_the_parents_signatures():
-    """The parent builds the decode, sampling, verify and flash kernels
-    too. Its decode, sampling, softmax, layer-norm and verify entries take
-    this tree's signatures (18, 16, 14, 19, 24 and 27 arguments); the
-    entries this tree changed keep the parent's own: the five flash
-    entries without the four dropout arguments before the stream."""
+    """The parent builds the decode, sampling, verify, flash,
+    cross-entropy and GEMM kernels too. Its entries take this tree's
+    signatures (18, 16, 14, 19, 24 and 27 arguments; the five flash
+    entries with the four dropout arguments before the stream, which the
+    parent has since the flash kernels' dropout): no entry keeps a
+    signature of its own. This tree's fp16 flash entries are new, so the
+    parent's library lacks them and they are not bound there."""
     assert {"paged_decode_attn.cu", "fused_sample.cu", "layer_norm.cu",
             "softmax.cu", "fused_verify.cu", "flash_attn_fwd.cu",
             "flash_attn_bwd.cu", "flash_attn_fwd_sm80.cu",
-            "flash_attn_bwd_sm80.cu"} <= set(rowwise_ab.SOURCES)
-    parent = rowwise_ab.PARENT_ENTRY_POINTS
-    assert set(parent) == {"apex_flash_fwd", "apex_flash_fwd_bshd",
-                           "apex_flash_fwd_flat", "apex_flash_bwd_dq",
-                           "apex_flash_bwd_dkv"}
+            "flash_attn_bwd_sm80.cu", "xent_stats.cu",
+            "matmul_bias_act.cu"} <= set(rowwise_ab.SOURCES)
+    assert rowwise_ab.PARENT_ENTRY_POINTS == {}
     for name, n in (("apex_flash_fwd", 13), ("apex_flash_fwd_bshd", 23),
                     ("apex_flash_fwd_flat", 23), ("apex_flash_bwd_dq", 28),
                     ("apex_flash_bwd_dkv", 32)):
-        this = _build.ENTRY_POINTS[name]
-        assert len(parent[name]) == n and len(this) == n + 4
-        assert this[:-5] + this[-1:] == parent[name]
+        assert len(_build.ENTRY_POINTS[name]) == n + 4
+    assert {"apex_flash_fwd_f16", "apex_flash_bwd_dq_f16",
+            "apex_flash_bwd_dkv_f16"} <= set(_build.ENTRY_POINTS)
     assert len(_build.ENTRY_POINTS["apex_fused_verify"]) == 24
     assert len(_build.ENTRY_POINTS["apex_fused_verify_tree"]) == 27
     assert len(_build.ENTRY_POINTS["apex_softmax_bwd"]) == 14
@@ -109,12 +109,13 @@ def test_other_library_builds_the_decode_kernels_with_the_parents_signatures():
     assert not hasattr(rowwise_ab, "parent_fused_verify")
 
 
-def test_parent_library_drops_the_top_p_arguments():
-    """The arguments the parent's entries lack are dropped from this
-    tree's calls: since the parent has the verify pair's top-p, the
-    flash entries' four dropout arguments before the stream. A call that
-    asks for dropout (a nonzero threshold) is refused; other entries,
-    the verify pair's top-p included, pass through untouched."""
+def test_parent_library_drops_the_top_p_arguments(monkeypatch):
+    """The arguments a listed parent entry lacks are dropped from this
+    tree's calls (the four before the stream, as the flash entries' had
+    before their dropout: listed here as a parent that predates it). A
+    call that asks for dropout (a nonzero threshold) is refused; entries
+    not listed (the verify pair's, and every entry while the list is
+    empty) pass through untouched."""
     calls = []
 
     class Lib:
@@ -130,11 +131,16 @@ def test_parent_library_drops_the_top_p_arguments():
             calls.append(("chain", a))
             return 0
 
-    lib = rowwise_ab.ParentLibrary(Lib())
     fwd = list(range(12)) + [0, 0, 1.0, 0, "stream"]
+    dkv = list(range(31)) + [0, 0, 1.0, 0, "stream"]
+    lib = rowwise_ab.ParentLibrary(Lib())
+    lib.apex_flash_fwd(*fwd)
+    assert calls[-1] == ("fwd", tuple(fwd))
+    monkeypatch.setattr(rowwise_ab, "PARENT_ENTRY_POINTS", {
+        name: _build.ENTRY_POINTS[name][:-5] + _build.ENTRY_POINTS[name][-1:]
+        for name in ("apex_flash_fwd", "apex_flash_bwd_dkv")})
     assert lib.apex_flash_fwd(*fwd) == 0
     assert calls[-1] == ("fwd", tuple(range(12)) + ("stream",))
-    dkv = list(range(31)) + [0, 0, 1.0, 0, "stream"]
     lib.apex_flash_bwd_dkv(*dkv)
     assert calls[-1] == ("dkv", tuple(range(31)) + ("stream",))
     chain = list(range(24))
@@ -192,3 +198,42 @@ def test_softmax_bwd_variants_edit_the_source(name):
     edited = softmax_bwd_variants.edited_source(name)
     assert edited != source
     assert "softmax_bwd_kernel" in edited
+
+
+def test_ptxas_changes_meet_bf16_instances_under_their_parents_names():
+    """A body that gained template parameters for its fp16 instances (the
+    element type and the planted fault, at their bf16 values) meets its
+    parent's kernel: the parameter list and those arguments are left out
+    of the key; a change of registers or spills is reported, a kernel this
+    tree lacks listed."""
+    this = {
+        "void (anonymous namespace)::flash_fwd_wgmma<128, 0, false, "
+        "__nv_bfloat16, 0>(CUtensorMap_st, apex::FlashParamsT<"
+        "__nv_bfloat16>, int)":
+            {"registers": 168, "spill_stores": 0, "spill_loads": 0},
+        "void (anonymous namespace)::flash_fwd_wgmma<128, 0, false, __half, "
+        "0>(CUtensorMap_st, apex::FlashParamsT<__half>, int)":
+            {"registers": 168, "spill_stores": 0, "spill_loads": 0},
+        "void (anonymous namespace)::ln_bwd_reduce_kernel<__nv_bfloat16>("
+        "float const*, void*, void*, int, int, bool)":
+            {"registers": 30, "spill_stores": 0, "spill_loads": 0},
+    }
+    parent = {
+        "void (anonymous namespace)::flash_fwd_wgmma<128, 0, false>("
+        "CUtensorMap_st, apex::FlashParams, int)":
+            {"registers": 168, "spill_stores": 0, "spill_loads": 0},
+        "(anonymous namespace)::ln_bwd_reduce_kernel(float const*, "
+        "void*, void*, int, int, bool)":
+            {"registers": 32, "spill_stores": 0, "spill_loads": 0},
+        "void (anonymous namespace)::gone<1>(int)": {"registers": 8},
+    }
+    assert rowwise_ab.kernel_key(next(iter(parent))) == \
+        rowwise_ab.kernel_key(next(iter(this))) == \
+        "flash_fwd_wgmma<128, 0, false>"
+    got = rowwise_ab.ptxas_changes(this, parent)
+    assert got["compared"] == 2
+    assert got["changed"] == [{
+        "kernel": "ln_bwd_reduce_kernel",
+        "this": {"registers": 30, "spill_stores": 0, "spill_loads": 0},
+        "parent": {"registers": 32, "spill_stores": 0, "spill_loads": 0}}]
+    assert got["missing"] == ["void (anonymous namespace)::gone<1>(int)"]
