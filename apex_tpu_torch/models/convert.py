@@ -13,7 +13,9 @@ reference norm's ``init()`` dict into a :class:`~apex_tpu_torch.ops.
 layer_norm.FusedLayerNorm` or :class:`~apex_tpu_torch.ops.layer_norm.
 FusedRMSNorm`, and :func:`dense_from_jax`, :func:`dense_gelu_dense_from_jax`
 and :func:`mlp_from_jax` load ``FusedDense``'s, ``FusedDenseGeluDense``'s
-and ``MLP``'s into the port's modules of the same names.
+and ``MLP``'s into the port's modules of the same names;
+:func:`optimizer_state_from_jax` gives a reference optimizer's state as
+the port optimizer's.
 Weights keep their ``(out, in)`` layout, which is already PyTorch's. The
 tests feed both packages the same weights this way, and compare gradients
 and optimizer state leaf by leaf.
@@ -33,6 +35,11 @@ from apex_tpu_torch.ops import _backend
 from apex_tpu_torch.ops.fused_dense import FusedDense, FusedDenseGeluDense
 from apex_tpu_torch.ops.layer_norm import FusedLayerNorm
 from apex_tpu_torch.ops.mlp import MLP
+from apex_tpu_torch.optimizers import (FusedAdagrad, FusedAdam, FusedLAMB,
+                                       FusedMixedPrecisionLamb, FusedNovoGrad,
+                                       FusedSGD)
+from apex_tpu_torch.optimizers.multi_tensor import (make_layout,
+                                                    unflatten_from_chunks)
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -343,3 +350,96 @@ def mlp_from_jax(tree: Dict, module: MLP) -> MLP:
     return _load_module(tree, module, {
         f"{kind}_{i}" for i in range(module.num_layers)
         for kind in ("weight", "bias")})
+
+
+# --- optimizer state ---------------------------------------------------------
+
+def _field(state, name: str):
+    return state[name] if isinstance(state, dict) else getattr(state, name)
+
+
+def _take(ref, i: int, path: str):
+    """Layer ``i`` of a stacked reference subtree: index ``i`` of every
+    leaf. A 0-dim leaf (a per-tensor scalar of a stacked leaf) has no
+    layer to take."""
+    if isinstance(ref, dict):
+        return {k: _take(v, i, f"{path}.{k}") for k, v in ref.items()}
+    if ref.ndim == 0:
+        raise ValueError(
+            f"{path}: the reference keeps one per-tensor scalar for all "
+            f"layers of this stacked leaf; it cannot become one a layer — "
+            f"run the reference on the per-layer tree (params_to_jax's "
+            f"inverse layout)")
+    return ref[i]
+
+
+def _pairs(ref, port, path: str = "params"):
+    """(port tensor, reference leaf) in the port tree's leaf order (dict
+    keys sorted). Where the port keeps a list of layers and the reference
+    a stacked subtree, layer i takes index i of every reference leaf."""
+    if isinstance(port, torch.Tensor):
+        return [(port, ref)]
+    if isinstance(port, dict):
+        return [pr for k in sorted(port)
+                for pr in _pairs(ref[k], port[k], f"{path}.{k}")]
+    if isinstance(ref, (list, tuple)):
+        return [pr for i, (r, p) in enumerate(zip(ref, port))
+                for pr in _pairs(r, p, f"{path}.{i}")]
+    return [pr for i, p in enumerate(port)
+            for pr in _pairs(_take(ref, i, path), p, f"{path}.{i}")]
+
+
+def _torch_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _torch_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_torch_tree(v) for v in tree]
+    return _tensor(tree, torch.device("cpu"))
+
+
+def optimizer_state_from_jax(state, optimizer: torch.optim.Optimizer,
+                             params, jax_params) -> Dict[torch.Tensor, dict]:
+    """The reference optimizer's state as the port optimizer's per-tensor
+    state: ``opt.state.update(optimizer_state_from_jax(...))``.
+
+    ``state``: the reference's state with numpy leaves (``jax.tree.map(
+    np.asarray, state)``, or a dict of the same fields): a
+    ``PerTensorState`` (``count``, ``buffers``, ``scalars``) for
+    ``fused_adam``, ``fused_lamb``, ``fused_sgd``, ``fused_novograd`` and
+    ``fused_adagrad``, or a ``MixedPrecisionLambState`` (``count``, the
+    chunked ``master``/``m``/``v`` and its ``layout.chunk_size``).
+    ``optimizer`` names the port's state (its type); ``params`` is the
+    port's tree it steps over; ``jax_params`` the tree the reference was
+    initialised with (numpy leaves), stacked or per layer: where it
+    stacks layers that the port keeps apart, each layer takes its slice,
+    and a per-tensor scalar (NovoGrad's ``v``) raises ``ValueError``.
+    Tensors land fp32 on each parameter's device."""
+    count = int(np.asarray(_field(state, "count")))
+    if isinstance(optimizer, FusedMixedPrecisionLamb):
+        skeleton = _torch_tree(jax_params)
+        layout = make_layout(skeleton, int(getattr(
+            _field(state, "layout"), "chunk_size", 1024)))
+        trees = {name: unflatten_from_chunks(
+            _tensor(_field(state, key), torch.device("cpu")), layout)
+            for name, key in (("master", "master"), ("exp_avg", "m"),
+                              ("exp_avg_sq", "v"))}
+    else:
+        names = {FusedAdam: {"m": "exp_avg", "v": "exp_avg_sq"},
+                 FusedLAMB: {"m": "exp_avg", "v": "exp_avg_sq"},
+                 FusedSGD: {"momentum": "momentum_buffer"},
+                 FusedNovoGrad: {"m": "exp_avg", "v": "exp_avg_sq"},
+                 FusedAdagrad: {"h": "sum"}}[type(optimizer)]
+        trees = {}
+        for kind in ("buffers", "scalars"):
+            for key, tree in (_field(state, kind) or {}).items():
+                trees[names[key]] = tree
+    out = {p: {"step": count} for p, _ in _pairs(jax_params, params)}
+    for name, tree in trees.items():
+        for p, ref in _pairs(tree, params):
+            t = _tensor(ref, p.device).to(torch.float32)
+            if t.ndim and t.shape != p.shape:
+                raise ValueError(f"{name}: reference shape "
+                                 f"{tuple(t.shape)} for a tensor of "
+                                 f"{tuple(p.shape)}")
+            out[p][name] = t
+    return out

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """chip_smoke.py — drive apex_tpu_torch's serving path, its decode engine
 (with speculative decoding), its GPT-medium train step (also with GPT-2's
-dropout 0.1, under each remat policy, and under amp at fp16: O2 with fp32
-master weights and the dynamic loss scaler, and O1), its T5-base train
+dropout 0.1, under each remat policy, under amp at fp16: O2 with fp32
+master weights and the dynamic loss scaler, and O1, and under the legacy
+``FP16_Optimizer``), its T5-base train
 step (with the bucketed and the materialised relative bias, and under
 ``remat_policy="encode_only"``), its
-BERT-large padded MLM train step, the three train steps again on the
-models' default softmax attention route, and the fused-dense block and
-MLP train steps, on one CUDA card.
+BERT-large padded MLM train step (also under LAMB and mixed-precision
+LAMB), the three train steps again on the models' default softmax
+attention route, the fused-dense block and MLP train steps (also under
+LARC + SGD), and every optimizer's step at GPT-medium's size, on one
+CUDA card.
 
 Run from the repository root on a machine with an NVIDIA H100 (no
 arguments, one card, no network):
@@ -334,7 +337,36 @@ without the final line):
       no-grad forward with 5 wgmma launches (relu in the epilogue), and
       it and the sigmoid forward against the plain version and an fp32
       truth by MATMUL_SLACK's rule; 2 profiled steps;
-14. one ``{"kernels": [...]}`` line (all twenty-three kernels and the six
+14. the optimizers and the legacy fp16 API (no kernel of their own; the
+    legs' launches are the kernels' they drive):
+    * ``bert_lamb_train``: the BERT leg's model and batch under
+      ``FusedLAMB`` in NVIDIA's recipe (two groups: the weights at decay
+      0.01, the 1-D biases and norm parameters at 0; lr 4e-3, betas (0.9,
+      0.999), eps 1e-6, clip 1.0), a warm-up and 10 timed steps with the
+      BERT leg's launches asserted, losses finite and falling; step ms,
+      tokens/s, MFU, peak memory and ``opt.step()``'s own ms (CUDA events)
+      beside the FusedAdam leg's; ``bert_mp_lamb_train`` the same under
+      ``FusedMixedPrecisionLamb`` (fp32 masters in its state);
+    * ``gpt_fp16_optimizer_train`` (after the amp legs): GPT-medium through
+      ``convert_network(params, torch.float16)`` (ln*/lnf_* kept fp32, the
+      LayerNorm kernels handed fp16 x and fp32 parameters) under
+      ``FP16_Optimizer(FusedAdam(lr=1e-4), dynamic_loss_scale=True)`` at
+      16 x 1024: 2 warm-up and 10 timed steps with the flagship's fp16
+      launches asserted, beside the flagship's step; then from 2**24 for 5
+      steps, at least one skipped with the masters, fp16 params and Adam's
+      state bit-identical across it;
+    * ``mlp_larc_sgd`` (after the MLP leg): ``LARC(FusedSGD(lr=0.1,
+      momentum=0.9), trust_coefficient=0.02, clip=True)`` on the MLP leg,
+      10 timed steps with its 15 wgmma launches a step and no other kernel,
+      losses finite and falling;
+    * ``optimizer_steps``: FusedAdam, FusedLAMB, FusedMixedPrecisionLamb,
+      FusedSGD (momentum, Nesterov), FusedNovoGrad (L2, inf), FusedAdagrad
+      and LARC + FusedSGD each stepping GPT-medium's 186M bf16 parameters
+      on seeded gradients: the first step held against the same optimizer
+      on CPU copies of four leaves by the CPU parity tests' tolerance, 2
+      more, the median of 10 more beside the bytes bound; LAMB with its
+      trust ratio left out (a patched copy of ``lamb_math``) refused;
+15. one ``{"kernels": [...]}`` line (all twenty-three kernels and the six
     fp16 instances, ``<name>_f16``, each with
     its launches by main path; matmul_bias_act and the flash kernels
     also by variant, every train leg's, the decode leg's and the T5
@@ -418,6 +450,10 @@ T5_DTABLE_TOL = 1e-3    # bucket-table gradient: relative norm error
 # kernels, built into a library of their own, (library, ptxas log); None
 # without it
 PARENT = None
+# ``--parent DIR``: that checkout's FusedAdam class (its own fused_adam.py
+# and, where it has one, its own _fused.py), stepped in turns with this
+# tree's in the flagship and at 186M; None without it
+PARENT_ADAM = None
 # registers and spills of every kernel of this run's build, by name
 PTXAS = {}
 # this tree's ln_fwd, sampling and verify kernels returning at once
@@ -3514,12 +3550,33 @@ def bert_ln_counts():
     return {"ln_fwd": 4 * L + 1, "ln_bwd": 2 * L + 1}
 
 
-def bert_step(model, params, opt, batch):
+def bert_step(model, params, opt, batch, opt_events=None):
     loss = model.mlm_loss(params, *batch)
     loss.backward()
-    opt.step()
+    opt_step(opt, opt_events)
     opt.zero_grad(set_to_none=True)
     return loss.detach()
+
+
+def opt_step(opt, events=None):
+    """``opt.step()``; with ``events`` (a list), between two CUDA events
+    appended to it as a pair (read them after a synchronize)."""
+    if events is None:
+        opt.step()
+        return
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    opt.step()
+    end.record()
+    events.append((start, end))
+
+
+def event_ms(events):
+    """Each (start, end) pair's elapsed ms; the device must be synced."""
+    return [a.elapsed_time(b) for a, b in events]
 
 
 def path_counters():
@@ -3639,18 +3696,12 @@ def phase_bert_train(torch, dev):
     model, params = bert_model(torch, dev, torch.bfloat16)
     opt = FusedAdam(param_leaves(params), lr=1e-4)
     batch, lens = bert_batch(torch, dev, seed=1)
+    events = []
     losses, wall, launches = timed_steps(
-        torch, lambda: bert_step(model, params, opt, batch), BERT_STEPS,
-        "BERT train path")
-    L = BERT["num_layers"]
-    check_launches(launches, {"flash_fwd_bshd": 2 * L,
-                              "flash_fwd_bshd_wgmma": 2 * L,
-                              "flash_bwd_bshd_dq": L,
-                              "flash_bwd_bshd_dkv": L,
-                              "flash_bwd_bshd_dq_wgmma": L,
-                              "flash_bwd_bshd_dkv_wgmma": L, "xent_stats": 1,
-                              **bert_ln_counts()},
-                   BERT_STEPS, "BERT train path")
+        torch, lambda: bert_step(model, params, opt, batch, events),
+        BERT_STEPS, "BERT train path")
+    check_launches(launches, bert_train_counts(), BERT_STEPS,
+                   "BERT train path")
     # the interior-mask check reads the pad mask on the host: one
     # synchronising read per step, timed on its own here and seen in the
     # profile's idle share
@@ -3675,9 +3726,21 @@ def phase_bert_train(torch, dev):
             "card": torch.cuda.get_device_name(0),
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
             "pad_mask_check_ms": check_ms,
+            "opt_step_ms": statistics.median(event_ms(events[1:])),
             "launches_per_step": {k: v / BERT_STEPS
                                   for k, v in launches.items() if v}}
     return (model, params, opt, batch), info, launches
+
+
+def bert_train_counts():
+    """Per BERT flash step: 48 bshd forwards (24 layers, run again by the
+    remat), 24 bshd dQ, 24 bshd dK/dV, all on wgmma, one xent_stats, and
+    the norms."""
+    L = BERT["num_layers"]
+    return {"flash_fwd_bshd": 2 * L, "flash_fwd_bshd_wgmma": 2 * L,
+            "flash_bwd_bshd_dq": L, "flash_bwd_bshd_dkv": L,
+            "flash_bwd_bshd_dq_wgmma": L, "flash_bwd_bshd_dkv_wgmma": L,
+            "xent_stats": 1, **bert_ln_counts()}
 
 
 def compare_paths(torch, run, params, params32, what, bound_kernel_vs_plain,
@@ -4463,7 +4526,8 @@ def timed_steps(torch, step, steps, what):
     launches = read_counters()
     losses = [float(x) for x in losses]
     check(all(np.isfinite(losses)), f"{what}: losses not finite: {losses}")
-    check(losses[-1] < losses[0], f"{what}: loss did not fall: {losses}")
+    check(losses[-1] < losses[0],
+          f"{what}: loss did not fall: {losses}")
     return losses, wall, launches
 
 
@@ -6073,16 +6137,17 @@ def amp_batch(torch, dev):
                                device=dev) for _ in range(2))
 
 
-def amp_flagship(torch, dev, init_scale=None):
+def amp_flagship(torch, dev, init_scale=None, adam=None):
     """The flagship's pieces: the model, amp.initialize's O2 fp16 state
-    over FusedAdam(lr 1e-4) (or, with ``init_scale``, the same built from
-    its parts with that scale) and the batch."""
+    over FusedAdam(lr 1e-4) (the class ``adam`` if given; with
+    ``init_scale``, the same built from its parts with that scale) and
+    the batch."""
     from apex_tpu_torch import amp
     from apex_tpu_torch.models.gpt import param_leaves
     from apex_tpu_torch.optimizers import FusedAdam
 
     model, params = gpt_model(torch, dev, TRAIN, torch.float32)
-    opt = FusedAdam(param_leaves(params), lr=AMP_LR)
+    opt = (adam or FusedAdam)(param_leaves(params), lr=AMP_LR)
     st = amp.initialize(params, opt, "O2", half_dtype=torch.float16)
     if init_scale is not None:
         st.scaler = amp.init_loss_scaler("dynamic", init_scale=init_scale,
@@ -6101,6 +6166,76 @@ def amp_step(amp, model, st, tokens, targets):
     return loss.detach(), finite
 
 
+def load_parent_adam(root):
+    """``root``'s FusedAdam class: its optimizers/fused_adam.py, run with
+    its own optimizers/_fused.py in place of this tree's where it has
+    one (both import torch and numpy only)."""
+    import importlib.util
+
+    import apex_tpu_torch.optimizers  # noqa: F401  (this tree's, bound first)
+
+    where = os.path.join(root, "apex_tpu_torch", "optimizers")
+
+    def load(name, file):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(where, file))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    base = "apex_tpu_torch.optimizers._fused"
+    saved = sys.modules.get(base)
+    try:
+        if os.path.exists(os.path.join(where, "_fused.py")):
+            sys.modules[base] = load("parent_fused", "_fused.py")
+        return load("parent_fused_adam", "fused_adam.py").FusedAdam
+    finally:
+        sys.modules.pop(base, None)
+        if saved is not None:
+            sys.modules[base] = saved
+
+
+def amp_adam_turns(torch, dev):
+    """The flagship over the parent's FusedAdam and over this tree's, in
+    turns (parent, this, this, parent) of AMP_STEPS steps each after
+    AMP_WARMUP warm-up steps: each side's step ms (the mean of its two
+    turns), its device time (2 profiled steps), and whether the two
+    sides' losses agree bit for bit (both take the same steps from the
+    same seeded state)."""
+    from apex_tpu_torch import amp
+
+    sides = {"parent": amp_flagship(torch, dev, adam=PARENT_ADAM),
+             "this": amp_flagship(torch, dev)}
+    losses = {k: [] for k in sides}
+    for k, (model, st, (tokens, targets)) in sides.items():
+        for _ in range(AMP_WARMUP):
+            amp_step(amp, model, st, tokens, targets)
+    turns = {k: [] for k in sides}
+    for k in ("parent", "this", "this", "parent"):
+        model, st, (tokens, targets) = sides[k]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = [amp_step(amp, model, st, tokens, targets)[0]
+               for _ in range(AMP_STEPS)]
+        torch.cuda.synchronize()
+        turns[k].append(1e3 * (time.perf_counter() - t0) / AMP_STEPS)
+        losses[k] += [float(v) for v in out]
+    info = {"turn_step_ms": turns,
+            "losses_bit_identical": losses["parent"] == losses["this"]}
+    for k, (model, st, (tokens, targets)) in sides.items():
+        step_ms = statistics.mean(turns[k])
+        prof = phase_train_profile(
+            torch, lambda: amp_step(amp, model, st, tokens, targets),
+            step_ms / 1e3)
+        info[k] = {"step_ms": step_ms,
+                   "device_ms_per_step": 1e3 * prof["device_busy_s_per_step"],
+                   "device_busy_share": prof["device_busy_share"],
+                   "by_layer": prof["by_layer"]}
+    del sides, model, st
+    torch.cuda.empty_cache()
+    return info
+
+
 def phase_amp_o2_fp16_train(torch, dev):
     """The flagship: GPT-medium's train step under amp O2 at fp16 (fp32
     masters, the dynamic scaler from 2**16, FusedAdam(lr 1e-4) behind the
@@ -6108,9 +6243,11 @@ def phase_amp_o2_fp16_train(torch, dev):
     the counters zeroed just before and read just after (12/12/12 flash
     forward/dQ/dK-dV, 25/25 ln_fwd/ln_bwd and 1 xent_stats a step, all on
     the fp16 instances); the loss and scale trajectories, the skipped
-    steps, step ms, tokens/s, MFU, peak memory. Then the bf16 train leg's
-    step (bf16 params, FusedAdam) at the same batch and step counts. Each
-    leg with 2 profiled steps (device time by layer, busy share)."""
+    steps, step ms, tokens/s, MFU, peak memory; under ``--parent`` the
+    flagship over the parent's FusedAdam and this tree's in turns
+    (amp_adam_turns). Then the bf16 train leg's step (bf16 params,
+    FusedAdam) at the same batch and step counts. Each leg with 2
+    profiled steps (device time by layer, busy share)."""
     from apex_tpu_torch import amp
     from apex_tpu_torch.optimizers import FusedAdam
 
@@ -6159,6 +6296,8 @@ def phase_amp_o2_fp16_train(torch, dev):
         wall / AMP_STEPS)
     del model, st
     torch.cuda.empty_cache()
+    if PARENT_ADAM is not None:
+        info["parent_adam_turns"] = amp_adam_turns(torch, dev)
 
     # the bf16 train leg's step at the flagship's batch
     from apex_tpu_torch.models.gpt import param_leaves
@@ -6326,8 +6465,539 @@ def phase_amp_overflow(torch, dev):
     return info
 
 
+# --- the optimizers and the legacy fp16 API ----------------------------------
+
+# NVIDIA's BERT pretraining recipe (DeepLearningExamples' phase-2 LAMB):
+# lr 4e-3, betas (0.9, 0.999), eps 1e-6, the gradient clipped at a global
+# norm of 1.0, weight decay 0.01 on the weights and 0 on the biases and
+# norm parameters
+LAMB = dict(lr=4e-3, betas=(0.9, 0.999), eps=1e-6, max_grad_norm=1.0)
+LAMB_DECAY = 0.01
+# FP16_Optimizer on GPT-medium at the amp flagship's batch: 2 warm-up and
+# 10 timed steps from 2**16, then 5 steps from 2**24
+FP16_OPT_WARMUP, FP16_OPT_STEPS = 2, 10
+FP16_OPT_OVERFLOW_STEPS, FP16_OPT_OVERFLOW_INIT = 5, 2.0 ** 24
+LARC_SGD, LARC_TRUST = dict(lr=0.1, momentum=0.9), 0.02
+# optimizer_steps: seeded gradients of std 1e-3 over GPT-medium's 186M
+# bf16 parameters (global norm ~13.6: LAMB's clip of 1 divides by it);
+# after the checked first step, 2 untimed (on an H100 the first steps
+# after it ran up to 20x the rest) and 10 timed
+OPT_GRAD_STD, OPT_WARM_STEPS, OPT_TIMED_STEPS = 1e-3, 2, 10
+# LAMB's clip divisor on the card (over both groups' 186M gradients)
+# against the float64 norm of every gradient: relative
+OPT_CLIP_RTOL = 1e-5
+# the leaves the card's step is held against on the CPU, by the CPU parity
+# tests' tolerance (fp32 state: 1e-6 relative + 1e-9, or 1e-6 of the
+# leaf's largest entry where a norm's summation order enters; bf16
+# params: at most 1 in 1000 one ulp off)
+OPT_CHECK_LEAVES = ("lnf_w", "layers.0.qkv.bias", "layers.0.mlp_up.weight",
+                    "pos_embedding")
+OPT_RTOL, OPT_ATOL, OPT_OF_LARGEST = 1e-6, 1e-9, 1e-6
+
+
+def lamb_groups(leaves):
+    """NVIDIA's recipe's two groups: the weights (every tensor of 2 or more
+    dims: the matrices and the embeddings) at LAMB_DECAY, the biases and
+    norm parameters (1-D) at 0."""
+    return [{"params": [t for t in leaves if t.ndim >= 2],
+             "weight_decay": LAMB_DECAY},
+            {"params": [t for t in leaves if t.ndim < 2],
+             "weight_decay": 0.0}]
+
+
+def leg_summary(info):
+    keys = ("step_ms", "opt_step_ms", "tokens_per_s", "mfu",
+            "peak_memory_gb")
+    return {k: info[k] for k in keys if k in info}
+
+
+def phase_bert_lamb_train(torch, dev, mixed, beside):
+    """BERT-large's flash step (bert_train's model, batch 32 x 512 with
+    padded lengths, remat, bf16) under FusedLAMB in NVIDIA's two groups,
+    or with ``mixed`` under FusedMixedPrecisionLamb (fp32 masters in its
+    state): a warm-up and BERT_STEPS timed steps with bert_train's
+    launches per step asserted (the optimizer adds no kernel), losses
+    finite and falling; step ms, tokens/s, MFU, peak memory and the
+    optimizer step's own ms (CUDA events around opt.step()), beside the
+    legs in ``beside``."""
+    from apex_tpu_torch.models.bert import param_leaves
+    from apex_tpu_torch.optimizers import FusedLAMB, FusedMixedPrecisionLamb
+
+    what = "bert_mp_lamb_train" if mixed else "bert_lamb_train"
+    cls = FusedMixedPrecisionLamb if mixed else FusedLAMB
+    model, params = bert_model(torch, dev, torch.bfloat16)
+    leaves = param_leaves(params)
+    opt = cls(lamb_groups(leaves), **LAMB)
+    batch, lens = bert_batch(torch, dev, seed=1)
+    events = []
+    losses, wall, launches = timed_steps(
+        torch, lambda: bert_step(model, params, opt, batch, events),
+        BERT_STEPS, what)
+    check_launches(launches, bert_train_counts(), BERT_STEPS, what)
+    info = {"optimizer": cls.__name__, "hyper": {**LAMB,
+                                                 "weight_decay": LAMB_DECAY},
+            "groups": [len(g["params"]) for g in opt.param_groups]}
+    if mixed:  # fp32 masters; the model lands where the reference's old +
+        # (cast(new) - old) in bf16 puts it, which misses the master's own
+        # rounding where that difference is not a bf16 number: counted
+        stepped = [t for t in leaves if t in opt.state]
+        check(all(opt.state[t]["master"].dtype == torch.float32
+                  for t in stepped), f"{what}: a master is not fp32")
+        n = sum(t.numel() for t in stepped)
+        info["model_off_master_rounding"] = sum(
+            int((opt.state[t]["master"].to(t.dtype) != t.detach()).sum())
+            for t in stepped) / n
+        info["master_gb"] = n * 4 / 1e9
+    tok = BERT_BATCH * BERT_SEQ * BERT_STEPS
+    flops = bert_flops_per_step(lens) * BERT_STEPS / wall
+    opt_ms = event_ms(events[1:])
+    info.update({
+        "batch": BERT_BATCH, "seq": BERT_SEQ, "steps": BERT_STEPS,
+        "losses": losses, "wall_s": wall, "step_ms": 1e3 * wall / BERT_STEPS,
+        "tokens_per_s": tok / wall, "mfu": flops / BF16_OPS_PER_S,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "opt_step_ms": statistics.median(opt_ms), "opt_step_ms_all": opt_ms,
+        "card": torch.cuda.get_device_name(0),
+        "beside": {k: leg_summary(v) for k, v in beside.items()},
+        "launches_per_step": {k: v / BERT_STEPS
+                              for k, v in launches.items() if v}})
+    del model, params, opt, batch
+    torch.cuda.empty_cache()
+    return info, launches
+
+
+def fp16_optimizer_gpt(torch, dev, dynamic_loss_args=None):
+    """GPT-medium at fp32, ``convert_network(params, torch.float16)`` (the
+    ln*/lnf_* leaves stay fp32, every other leaf fp16, checked by name),
+    ``FP16_Optimizer(FusedAdam(lr=AMP_LR), dynamic_loss_scale=True)``."""
+    from apex_tpu_torch.fp16_utils import FP16_Optimizer, convert_network
+    from apex_tpu_torch.models.gpt import param_leaves
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    model, params32 = gpt_model(torch, dev, TRAIN, torch.float32)
+    params = convert_network(params32, torch.float16)
+    del params32
+    for name, t in named_leaves(params):
+        norm = name.split(".")[-1].startswith("ln")
+        check(t.dtype == (torch.float32 if norm else torch.float16)
+              and t.requires_grad and t.is_leaf,
+              f"convert_network: {name} is {t.dtype}")
+    opt = FP16_Optimizer(FusedAdam(param_leaves(params), lr=AMP_LR),
+                         dynamic_loss_scale=True,
+                         dynamic_loss_args=dynamic_loss_args)
+    return model, params, opt
+
+
+def fp16_optimizer_step(model, params, opt, tokens, targets, trail=None):
+    loss = model.loss_fn(params, tokens, targets)
+    opt.backward(loss)
+    opt.step()
+    opt.zero_grad()
+    if trail is not None:
+        trail.append((opt.overflow, opt.loss_scale))
+    return loss.detach()
+
+
+def ln_dtype_probe(torch, step):
+    """Run ``step`` once with the LayerNorm wrappers recording the dtypes
+    they are handed (x, weight, bias). Returns the forward's and the
+    backward's sets."""
+    from apex_tpu_torch.ops import layer_norm as LN
+
+    seen = {"fwd": set(), "bwd": set()}
+    orig = LN.ln_fwd_cuda, LN.ln_bwd_cuda
+
+    def fwd(x2d, weight, bias, *a, **k):
+        seen["fwd"].add((str(x2d.dtype), str(weight.dtype), str(bias.dtype)))
+        return orig[0](x2d, weight, bias, *a, **k)
+
+    def bwd(dy, x2d, mean, rstd, weight, *a, **k):
+        seen["bwd"].add((str(x2d.dtype), str(weight.dtype)))
+        return orig[1](dy, x2d, mean, rstd, weight, *a, **k)
+
+    # the wrappers count through their module names: the probes carry the
+    # counters while they stand in
+    for f in (fwd, bwd):
+        f.launches = f.f16_launches = 0
+    LN.ln_fwd_cuda, LN.ln_bwd_cuda = fwd, bwd
+    try:
+        step()
+    finally:
+        LN.ln_fwd_cuda, LN.ln_bwd_cuda = orig
+    return {k: sorted(v) for k, v in seen.items()}
+
+
+def phase_gpt_fp16_optimizer_train(torch, dev, amp_info):
+    """The legacy fp16 API on GPT-medium at the amp flagship's batch (16 x
+    1024): ``convert_network`` to fp16 with the norms' parameters in fp32,
+    ``FP16_Optimizer(FusedAdam(lr=1e-4), dynamic_loss_scale=True)``; the
+    first warm-up step with the LayerNorm wrappers handed fp16 x and the
+    fp32 parameters (no cast in GPT's forward), a second, then
+    FP16_OPT_STEPS timed steps with 12/12/12 packed flash forward/dQ/dK-dV,
+    25/25 ln_fwd/ln_bwd and 1 xent_stats launches a step, all on the fp16
+    instances; step ms, tokens/s, MFU, peak memory and the scale beside the
+    flagship's. Then anew from a scale of 2**24 for 5 steps: at least one
+    skipped, and on each skipped step the masters, the fp16 params and
+    every Adam state tensor bit-identical, the scale halved."""
+    from apex_tpu_torch.models.gpt import param_leaves
+
+    what = "gpt_fp16_optimizer_train"
+    model, params, opt = fp16_optimizer_gpt(torch, dev)
+    tokens, targets = amp_batch(torch, dev)
+    trail = []
+
+    def step():
+        return fp16_optimizer_step(model, params, opt, tokens, targets,
+                                   trail)
+
+    probe = ln_dtype_probe(torch, step)
+    check(probe["fwd"] == [("torch.float16", "torch.float32",
+                            "torch.float32")]
+          and probe["bwd"] == [("torch.float16", "torch.float32")],
+          f"{what}: the LayerNorm kernels were handed {probe}")
+    # the probe's step and timed_steps' own: FP16_OPT_WARMUP warm-up steps
+    losses, wall, launches = timed_steps(torch, step, FP16_OPT_STEPS, what)
+    L = TRAIN["num_layers"]
+    check_launches(launches, amp_counts(L, True, True), FP16_OPT_STEPS, what)
+    tok = AMP_BATCH * TRAIN_SEQ * FP16_OPT_STEPS
+    flops = model_flops_per_token(TRAIN, TRAIN_SEQ) * tok / wall
+    timed = trail[-FP16_OPT_STEPS:]
+    info = {"batch": AMP_BATCH, "seq": TRAIN_SEQ, "steps": FP16_OPT_STEPS,
+            "warmup_steps": FP16_OPT_WARMUP, "lr": AMP_LR,
+            "ln_dtypes": probe, "losses": losses,
+            "loss_scales": [s_ for _, s_ in timed],
+            "skipped_steps": sum(o for o, _ in timed),
+            "wall_s": wall, "step_ms": 1e3 * wall / FP16_OPT_STEPS,
+            "tokens_per_s": tok / wall, "mfu": flops / BF16_OPS_PER_S,
+            "host_syncs_per_step": 1,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "card": torch.cuda.get_device_name(0),
+            "amp_o2_fp16_train": leg_summary(amp_info),
+            "over_amp_o2_step": 1e3 * wall / FP16_OPT_STEPS
+            / amp_info["step_ms"],
+            "launches_per_step": {k: v / FP16_OPT_STEPS
+                                  for k, v in launches.items() if v}}
+    del model, params, opt
+    torch.cuda.empty_cache()
+
+    model, params, opt = fp16_optimizer_gpt(
+        torch, dev, {"init_scale": FP16_OPT_OVERFLOW_INIT})
+    adam = opt.optimizer
+    steps = []
+    for _ in range(FP16_OPT_OVERFLOW_STEPS):
+        masters = [m.clone() for m in opt.master_params]
+        model_ts = [t.detach().clone() for t in param_leaves(params)]
+        state = {k: (v["step"], v["exp_avg"].clone(), v["exp_avg_sq"].clone())
+                 for k, v in adam.state.items()}
+        scale = opt.loss_scale
+        loss = fp16_optimizer_step(model, params, opt, tokens, targets)
+        rec = {"scale_before": scale, "scale_after": opt.loss_scale,
+               "overflow": opt.overflow, "loss": float(loss)}
+        if opt.overflow:
+            same = (all(torch.equal(a, b) for a, b in zip(
+                masters, opt.master_params))
+                and all(torch.equal(a, b.detach()) for a, b in zip(
+                    model_ts, param_leaves(params)))
+                and state.keys() == adam.state.keys()
+                and all(v[0] == adam.state[k]["step"]
+                        and torch.equal(v[1], adam.state[k]["exp_avg"])
+                        and torch.equal(v[2], adam.state[k]["exp_avg_sq"])
+                        for k, v in state.items()))
+            rec["state_unchanged"] = same
+            check(same, f"{what}: a skipped step changed the masters, the "
+                  f"fp16 params or Adam's state (scale {scale})")
+            check(opt.loss_scale == scale / 2,
+                  f"{what}: scale {scale} -> {opt.loss_scale} on an overflow")
+        steps.append(rec)
+        del masters, model_ts, state
+    skipped = sum(r["overflow"] for r in steps)
+    check(skipped >= 1, f"{what}: no skipped step from 2**24: {steps}")
+    info["overflow"] = {"init_scale": FP16_OPT_OVERFLOW_INIT,
+                        "steps": steps, "skipped_steps": skipped}
+    del model, params, opt, adam
+    torch.cuda.empty_cache()
+    return info, launches
+
+
+def phase_mlp_larc_sgd(torch, dev, mlp_info):
+    """The MLP leg's model and data (DLRM's top MLP, bf16, batch 32768)
+    under ``LARC(FusedSGD(lr=0.1, momentum=0.9), trust_coefficient=0.02,
+    clip=True)``: a warm-up and MLP_STEPS timed steps with 15
+    matmul_bias_act launches a step, all wgmma (the 5 weight gradients
+    split-K), and no other kernel; losses finite and falling; step ms and the
+    optimizer step's ms beside the FusedAdam MLP leg's."""
+    from apex_tpu_torch.ops.mlp import MLP
+    from apex_tpu_torch.optimizers import FusedSGD
+    from apex_tpu_torch.parallel import LARC
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    model = MLP(MLP_SIZES, activation="relu", generator=g, device=dev,
+                dtype=torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((MLP_BATCH, MLP_SIZES[0]), generator=g,
+                    device=dev).bfloat16()
+    target = torch.rand((MLP_BATCH, 1), generator=g, device=dev)
+    opt = LARC(FusedSGD(list(model.parameters()), **LARC_SGD),
+               trust_coefficient=LARC_TRUST, clip=True)
+    events = []
+
+    def step():
+        loss = (model(x).float() - target).pow(2).mean()
+        loss.backward()
+        opt_step(opt, events)
+        opt.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    losses, wall, launches = timed_steps(torch, step, MLP_STEPS,
+                                         "mlp_larc_sgd")
+    n = len(MLP_SIZES) - 1
+    check_launches(launches, {"matmul_bias_act": 3 * n,
+                              "matmul_bias_act_wgmma": 3 * n,
+                              "matmul_bias_act_split": n}, MLP_STEPS,
+                   "mlp_larc_sgd")
+    step_s = wall / MLP_STEPS
+    info = {"optimizer": "LARC(FusedSGD)", "hyper": {
+                **LARC_SGD, "trust_coefficient": LARC_TRUST, "clip": True},
+            "sizes": list(MLP_SIZES), "batch": MLP_BATCH,
+            "steps": MLP_STEPS, "losses": losses, "wall_s": wall,
+            "step_ms": 1e3 * step_s, "samples_per_s": MLP_BATCH / step_s,
+            "opt_step_ms": statistics.median(event_ms(events[1:])),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "mlp_train": leg_summary(mlp_info),
+            "launches_per_step": {k: v / MLP_STEPS
+                                  for k, v in launches.items() if v}}
+    del model, opt, x, target
+    torch.cuda.empty_cache()
+    return info, launches
+
+
+def optimizer_configs():
+    """name -> (the optimizer over a list of tensors, fp32 state bytes per
+    parameter, extra bytes per parameter, the parity tolerance's share of
+    a leaf's largest entry)."""
+    from apex_tpu_torch.optimizers import (FusedAdagrad, FusedAdam,
+                                           FusedLAMB, FusedMixedPrecisionLamb,
+                                           FusedNovoGrad, FusedSGD)
+    from apex_tpu_torch.parallel import LARC
+
+    return {
+        "adam": (lambda ps: FusedAdam(ps, lr=AMP_LR), 8, 0, 0.0),
+        "lamb": (lambda ps: FusedLAMB(lamb_groups(ps), **LAMB), 8, 0,
+                 OPT_OF_LARGEST),
+        "mp_lamb": (lambda ps: FusedMixedPrecisionLamb(lamb_groups(ps),
+                                                       **LAMB), 12, 0,
+                    OPT_OF_LARGEST),
+        "sgd_momentum": (lambda ps: FusedSGD(ps, **LARC_SGD), 4, 0, 0.0),
+        "sgd_nesterov": (lambda ps: FusedSGD(ps, nesterov=True, **LARC_SGD),
+                         4, 0, 0.0),
+        "novograd_l2": (lambda ps: FusedNovoGrad(ps, lr=1e-2), 4, 0,
+                        OPT_OF_LARGEST),
+        "novograd_inf": (lambda ps: FusedNovoGrad(ps, lr=1e-2, norm_type=0),
+                         4, 0, OPT_OF_LARGEST),
+        "adagrad": (lambda ps: FusedAdagrad(ps), 4, 0, 0.0),
+        # LARC reads p and g and writes g (bf16) before the SGD step
+        "larc_sgd": (lambda ps: LARC(FusedSGD(ps, **LARC_SGD),
+                                     trust_coefficient=LARC_TRUST), 4, 6,
+                     OPT_OF_LARGEST)}
+
+
+def lamb_without_trust_ratio():
+    """A context that puts a patched copy of ``fused_lamb.lamb_math`` in
+    its module, the trust ratio left out (every tensor steps by lr): the
+    planted fault the CPU check must refuse."""
+    import contextlib
+    import inspect
+
+    from apex_tpu_torch.optimizers import fused_lamb as FL
+
+    src = inspect.getsource(FL.lamb_math)
+    old = "lr * p_norm / u_norm"
+    check(src.count(old) == 1, "lamb_math no longer holds the trust ratio "
+          "the planted fault removes")
+    ns = dict(vars(FL))
+    exec(compile(src.replace(old, "torch.full_like(p_norm, lr)"),
+                 FL.__file__, "exec"), ns)
+
+    @contextlib.contextmanager
+    def planted():
+        orig = FL.lamb_math
+        FL.lamb_math = ns["lamb_math"]
+        try:
+            yield
+        finally:
+            FL.lamb_math = orig
+    return planted()
+
+
+def opt_rule(got, want, of_largest, half):
+    """The CPU parity tests' rule for one tensor: (ok, max abs error)."""
+    a = got.detach().float().cpu().numpy()
+    b = want.detach().float().numpy()
+    err = float(np.abs(a - b).max()) if a.size else 0.0
+    if half:  # at most 1 in 1000 (and at least 1) one ulp off
+        diff = a != b
+        ok = (int(diff.sum()) <= max(1, a.size // 1000)
+              and bool((np.abs(a - b)[diff]
+                        <= np.abs(b[diff]) * 2.0 ** -7).all()))
+        return ok, err
+    big = float(np.abs(b).max()) if b.size else 0.0
+    ok = bool((np.abs(a - b) <= OPT_ATOL + max(0.0, of_largest * big)
+               + OPT_RTOL * np.abs(b)).all())
+    return ok, err
+
+
+def lamb_clip(torch, opt, leaves):
+    """LAMB's clip divisor as the card's ``opt`` computes it over all its
+    groups, held against one from the float64 norm of every gradient in
+    ``leaves``: (divisor, relative error)."""
+    got = opt._global_stats([g["params"] for g in opt.param_groups])
+    sq = sum(float(t.grad.double().square().sum()) for t in leaves)
+    norm = np.float32(np.sqrt(sq))
+    cap = np.float32(opt.max_grad_norm)
+    want = norm / cap if norm > cap else np.float32(1.0)
+    return got, abs(float(got) - float(want)) / float(want)
+
+
+def opt_check(torch, make, leaves, idx, of_largest, fault=None):
+    """One step of ``make(leaves)`` on the card (under ``fault``, a
+    context, if given) held against ``make`` over CPU copies of the leaves
+    ``idx`` stepped on copies of their gradients. LAMB's clip spans every
+    gradient, not the copies': the CPU side takes the card's divisor,
+    itself held against the float64 norm (OPT_CLIP_RTOL). Returns (ok,
+    errors by leaf and tensor, the card's optimizer)."""
+    import contextlib
+
+    from apex_tpu_torch.optimizers import FusedLAMB
+
+    cpu = [leaves[i].detach().cpu().clone().requires_grad_() for i in idx]
+    for c, i in zip(cpu, idx):
+        c.grad = leaves[i].grad.detach().cpu().clone()
+    opt = make(leaves)
+    ok, errs = True, {}
+    copt = make(cpu)
+    inner, cinner = getattr(opt, "optim", opt), getattr(copt, "optim", copt)
+    if isinstance(inner, FusedLAMB):
+        clip, rel = lamb_clip(torch, inner, leaves)
+        check(float(clip) > 1.0, f"optimizer_steps: the clip divisor "
+              f"{float(clip)} does not engage the clip")
+        ok &= rel <= OPT_CLIP_RTOL
+        errs["clip_divisor_rel"] = rel
+        cinner._global_stats = lambda params: clip.cpu()
+    with fault if fault is not None else contextlib.nullcontext():
+        opt.step()
+    torch.cuda.synchronize()
+    copt.step()
+    for c, i in zip(cpu, idx):
+        pairs = [("param", leaves[i], c, True)] + [
+            (k, v, cinner.state[c][k], False)
+            for k, v in inner.state[leaves[i]].items()
+            if isinstance(v, torch.Tensor)]
+        for k, got, want, half in pairs:
+            good, err = opt_rule(got, want, of_largest, half)
+            ok &= good
+            errs[f"{i}.{k}"] = err
+    return ok, errs, opt
+
+
+def opt_adam_turns(torch, leaves):
+    """The parent's FusedAdam and this tree's, each over ``leaves`` and
+    warmed OPT_WARM_STEPS + 1 steps, then OPT_TIMED_STEPS steps between
+    CUDA events in turns (parent, this, this, parent): each side's median
+    ms."""
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    opts = {"parent": PARENT_ADAM(leaves, lr=AMP_LR),
+            "this": FusedAdam(leaves, lr=AMP_LR)}
+    for opt in opts.values():
+        for _ in range(OPT_WARM_STEPS + 1):
+            opt.step()
+    events = {k: [] for k in opts}
+    for k in ("parent", "this", "this", "parent"):
+        for _ in range(OPT_TIMED_STEPS):
+            opt_step(opts[k], events[k])
+    torch.cuda.synchronize()
+    out = {k: statistics.median(event_ms(ev)) for k, ev in events.items()}
+    del opts
+    torch.cuda.empty_cache()
+    return {"ms": out["this"], "parent_ms": out["parent"]}
+
+
+def phase_optimizer_steps(torch, dev):
+    """Each optimizer's step over GPT-medium's 186M bf16 parameters with
+    seeded gradients: the first step held against the same optimizer
+    stepping CPU copies of OPT_CHECK_LEAVES, OPT_WARM_STEPS more, then
+    OPT_TIMED_STEPS each between CUDA events (median ms; the host's
+    enqueue inside, as a train step sees it) beside the bound: each
+    parameter
+    and state tensor read once and written once, each gradient read once
+    (LARC: p and g read, g written too), over 3.35 TB/s; under
+    ``--parent`` the parent's FusedAdam in turns with this tree's
+    (opt_adam_turns). The planted fault (LAMB without its trust ratio)
+    must be refused. No kernel launches."""
+    model, params = gpt_model(torch, dev, TRAIN, torch.bfloat16)
+    del model
+    named = named_leaves(params)
+    leaves = [t for _, t in named]
+    idx = [i for i, (n, _) in enumerate(named) if n in OPT_CHECK_LEAVES]
+    check(len(idx) == len(OPT_CHECK_LEAVES), f"optimizer_steps: leaves "
+          f"{OPT_CHECK_LEAVES} not all found")
+    n_params = sum(t.numel() for t in leaves)
+
+    def seed_grads():
+        g = torch.Generator(device=dev).manual_seed(7)
+        for t in leaves:
+            t.grad = (torch.randn(t.shape, generator=g, device=dev)
+                      * OPT_GRAD_STD).to(t.dtype)
+
+    zero_counters()
+    out = {}
+    for name, (make, state_b, extra_b, ofl) in optimizer_configs().items():
+        seed_grads()
+        ok, errs, opt = opt_check(torch, make, leaves, idx, ofl)
+        check(ok, f"optimizer_steps {name}: the card's step off the CPU's: "
+              f"{errs}")
+        for _ in range(OPT_WARM_STEPS):
+            opt.step()
+        events = []
+        for _ in range(OPT_TIMED_STEPS):
+            opt_step(opt, events)
+        torch.cuda.synchronize()
+        ms = event_ms(events)
+        nbytes = n_params * (2 * 2 + 2 + 2 * state_b + extra_b)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = {"ms": statistics.median(ms), "ms_all": ms,
+                     "bound_ms": bound_ms, "bound_by": "bytes",
+                     "bytes": nbytes,
+                     "over_bound": statistics.median(ms) / bound_ms,
+                     "check_max_abs_err": errs}
+        del opt
+        torch.cuda.empty_cache()
+    if PARENT_ADAM is not None:
+        seed_grads()
+        out["adam"]["parent_turns"] = opt_adam_turns(torch, leaves)
+    seed_grads()
+    make, _, _, ofl = optimizer_configs()["lamb"]
+    ok, errs, opt = opt_check(torch, make, leaves, idx, ofl,
+                              fault=lamb_without_trust_ratio())
+    check(not ok, f"optimizer_steps: the planted fault (LAMB without its "
+          f"trust ratio) was not refused: {errs}")
+    launches = read_counters()
+    check(not any(launches.values()), f"optimizer_steps launched kernels: "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    info = {"params": n_params, "grad_std": OPT_GRAD_STD,
+            "warm_steps": OPT_WARM_STEPS, "timed_steps": OPT_TIMED_STEPS,
+            "check_leaves": list(OPT_CHECK_LEAVES),
+            "card": torch.cuda.get_device_name(0),
+            "optimizers": out,
+            "planted_fault": {"lamb_without_trust_ratio": errs,
+                              "refused": True}}
+    del opt, params, leaves, named
+    torch.cuda.empty_cache()
+    return info, launches
+
+
 def main(argv=None):
-    global PARENT, PTXAS, EMPTY
+    global PARENT, PARENT_ADAM, PTXAS, EMPTY
     import argparse
 
     import torch
@@ -6337,8 +7007,8 @@ def main(argv=None):
     ap.add_argument("--parent", metavar="DIR", default=None,
                     help="a checkout (e.g. a git archive of the parent "
                     "commit) whose ln_fwd, ln_bwd, softmax_fwd, decode, "
-                    "sampling and verify kernels are timed in turns with "
-                    "this tree's")
+                    "sampling and verify kernels, and whose FusedAdam, "
+                    "are timed in turns with this tree's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
@@ -6346,6 +7016,8 @@ def main(argv=None):
         return 2
     sys.path.insert(0, ROOT)
     import apex_tpu_torch
+    if args.parent:
+        PARENT_ADAM = load_parent_adam(args.parent)
     from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
     from apex_tpu_torch.ops import _build
     from apex_tpu_torch.ops import decode_attention as dmod
@@ -6531,6 +7203,9 @@ def main(argv=None):
     emit("amp_o1_fp16_train", a1_info)
     emit("amp_overflow", phase_amp_overflow(torch, dev))
     torch.cuda.empty_cache()
+    fo_info, paths["gpt_fp16_optimizer_train"] = \
+        phase_gpt_fp16_optimizer_train(torch, dev, a2_info)
+    emit("gpt_fp16_optimizer_train", fo_info)
 
     # --- the T5 slice ---------------------------------------------------------
     t5_kernels = phase_t5_kernels(torch, dev)
@@ -6580,6 +7255,14 @@ def main(argv=None):
         torch, lambda: bert_step(*b_state), b_info["step_ms"] / 1e3))
     del b_state
     torch.cuda.empty_cache()
+    # the BERT step under LAMB: NVIDIA's recipe, then mixed precision
+    bl_info, paths["bert_lamb_train"] = phase_bert_lamb_train(
+        torch, dev, False, {"bert_train (FusedAdam)": b_info})
+    emit("bert_lamb_train", bl_info)
+    bm_info, paths["bert_mp_lamb_train"] = phase_bert_lamb_train(
+        torch, dev, True, {"bert_train (FusedAdam)": b_info,
+                           "bert_lamb_train": bl_info})
+    emit("bert_mp_lamb_train", bm_info)
 
     # --- the array bias and the T5 materialized leg ---------------------------
     per_bias, dbias_kernel = phase_bias_kernels(torch, dev)
@@ -6642,6 +7325,12 @@ def main(argv=None):
         torch, dev)
     emit("mlp_train", m_info)
     torch.cuda.empty_cache()
+
+    # --- the optimizers: LARC + SGD on the MLP leg, each optimizer's step --
+    ml_info, paths["mlp_larc_sgd"] = phase_mlp_larc_sgd(torch, dev, m_info)
+    emit("mlp_larc_sgd", ml_info)
+    os_info, paths["optimizer_steps"] = phase_optimizer_steps(torch, dev)
+    emit("optimizer_steps", os_info)
 
     for k in kernels:
         by = {p_: n[k["name"]] for p_, n in paths.items()

@@ -52,7 +52,13 @@ def test_every_module_imports_with_jax_blocked():
         "'inference.sampling', 'ops.fused_verify', 'spec.drafter', "
         "'spec.tree', 'models.t5', 'models.bert', 'models.convert', "
         "'amp.policy', 'amp.lists', 'amp.scaler', 'amp.master', "
-        "'amp.frontend', 'transformer.amp', 'utils.pytree'):\n"
+        "'amp.frontend', 'transformer.amp', 'utils.pytree', "
+        "'optimizers._fused', 'optimizers.multi_tensor', "
+        "'optimizers.fused_adam', 'optimizers.fused_lamb', "
+        "'optimizers.fused_mixed_precision_lamb', 'optimizers.fused_sgd', "
+        "'optimizers.fused_novograd', 'optimizers.fused_adagrad', "
+        "'parallel.larc', 'fp16_utils.loss_scaler', 'fp16_utils.fp16util', "
+        "'fp16_utils.fp16_optimizer'):\n"
         "    assert 'apex_tpu_torch.' + want in mods, want\n"
         "assert not any(k.split('.')[0] in ('jax', 'apex_tpu') and "
         "sys.modules[k] is not None for k in list(sys.modules))\n"
