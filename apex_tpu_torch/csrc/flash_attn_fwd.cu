@@ -738,7 +738,9 @@ extern "C" int apex_flash_fwd(const void* qkv, void* out, void* lse,
 // q (b, sq, h, d) and k, v (b, sk, h_kv, d) with unit head and feature
 // strides; the batch and row strides are the caller's (k and v share
 // theirs), so views into a larger buffer need no copy. kv_lens (b,) int32
-// per batch or null; bias (hb, sq, sk) fp32 with hb | h, or null.
+// per batch or null; bias (hb, sq, sk) fp32 with hb | h, or null; or the
+// bucketed bias: lut (hb, 2 * maxd + 1) fp32 with hb | h (head t reads
+// lookup row t % hb: the b-major rows' r % hb) and rel_off, or null.
 // bias_tma: the wgmma variant stages the bias by TMA (sk a multiple of 4,
 // base 16-byte aligned), else by cp.async.
 extern "C" int apex_flash_fwd_bshd(const void* q, const void* k,
@@ -750,10 +752,11 @@ extern "C" int apex_flash_fwd_bshd(const void* q, const void* k,
                                    float scale, int hb, int variant,
                                    int bias_tma, unsigned drop_seed,
                                    int drop_thresh, float drop_scale,
-                                   int drop_fault, void* stream) {
+                                   int drop_fault, const void* lut, int maxd,
+                                   int rel_off, void* stream) {
   if (q_bstride < 0 || kv_bstride < 0 || q_stride < h * d ||
       kv_stride < h_kv * d || q_stride % 8 || kv_stride % 8 ||
-      (bias != nullptr && (hb < 1 || h % hb)))
+      ((bias != nullptr || lut != nullptr) && (hb < 1 || h % hb)))
     return static_cast<int>(cudaErrorInvalidValue);
   FlashParams p{};
   p.q = static_cast<const bf16*>(q);
@@ -763,6 +766,9 @@ extern "C" int apex_flash_fwd_bshd(const void* q, const void* k,
   p.lse_out = static_cast<float*>(lse);
   p.kv_lens = static_cast<const int*>(kv_lens);
   p.bias = static_cast<const float*>(bias);
+  p.lut = static_cast<const float*>(lut);
+  p.maxd = maxd;
+  p.rel_off = rel_off;
   p.q_v = {q_bstride, d, q_stride};
   p.kv_v = {kv_bstride, d, kv_stride};
   p.out_v = {static_cast<long long>(sq) * h * d, d,

@@ -65,20 +65,92 @@
 //   rank 0's barrier is set up first. No workspace, no atomics, no second
 //   launch: the merge order is fixed, so the output is the same bits from
 //   run to run. Every CTA, whatever its share of the walk, arrives.
+//
+// Options (each a template instance of the one body; the host's plan takes
+// them into the shared memory it sizes):
+// * quantized pools (kv_dtype 1 = int8, 2 = fp8 e4m3; paged, bf16 q):
+//   replaces the Pallas kernel's `quant` branch (_decode_kernel,
+//   decode_attention.py:99-103, :123-127). The pools hold 1-byte cells and
+//   k_scale, v_scale (num_blocks, bs) fp32 hold one scale a block row,
+//   shared by the kv heads and found through the same table entry. A ring
+//   slot holds bs x d bytes, and beside it its block's scales, which the
+//   same mbarrier counts: one more bulk copy of the live rows' scales,
+//   rounded up to 4 rows (16 bytes; bs is a multiple of 4). Cells convert
+//   to fp32 exactly (int8 by a byte permute into 2^23's mantissa and one
+//   add, fp8 by the hardware's fp8x2 -> half2 cvt); the row's K scale
+//   multiplies the row's dot product (q . k) * s_k, and its V scale
+//   multiplies p before the PV product, so the loops add no multiply a
+//   cell. p is NOT rounded to a
+//   storage type (the reference keeps it fp32 here). The score lanes read
+//   16-byte chunks (8-byte at d 64: 8 lanes still cover a row), the PV
+//   threads 8-byte ones (8 columns each, as at bf16). Bound: half the bf16
+//   pool's bytes, plus 4 bytes a live row for each scale plane.
+// * the causal bucketed relative bias (rel, bf16 q; both addressings):
+//   replaces the Pallas kernel's `rel` option (:108-118). The bias at
+//   column col of a row of length len is the table's value at the bucket
+//   of offset col - (len - 1) <= 0, clamped at -maxd (every farther offset
+//   falls in the last bucket). The host passes BucketedBias's per-head
+//   lookup (heads, 2 * maxd + 1), built by the integer-exact bucket
+//   function the flash kernels use; the CTA copies its group's first
+//   maxd + 1 values of each query head into shared memory beside q, and
+//   adds lut[maxd + col - (len - 1)] to the scaled score (len the slot's
+//   length as given, past the table too: the query's position). The reference
+//   refuses a quantized pool with a bias, and so does every entry here.
+// The quantized and the biased instances live in translation units of
+// their own (paged_decode_attn_quant.cu, paged_decode_attn_rel.cu, which
+// include this file), so the build compiles them beside the float ones.
+
+#include <cuda_fp8.h>
+
 #include <cstdint>
+#include <type_traits>
 
 #include "apex_cuda.cuh"
 #include "apex_sm90.cuh"
 
+namespace apex {
+
+// a decode launch as the entries pass it to the instance that runs it
+struct DecodeArgs {
+  bool paged;
+  int dtype;     // q's and the output's: kFloat32 or kBFloat16
+  int kv_dtype;  // the pools': 0 q's dtype, 1 int8, 2 fp8 e4m3
+  int d, group;
+  const void *q, *k, *v;
+  const float *k_scale, *v_scale;  // (num_blocks, bs) fp32, kv_dtype != 0
+  const int *tables, *lengths;
+  const float* lut;  // (h, 2 * maxd + 1) fp32, or null
+  void* out;
+  int rows, h_kv, bs, nb, maxd;
+  float scale;
+  int splits, tiles, smem;
+  cudaStream_t stream;
+};
+
+// the instances of the two other translation units
+namespace decode_quant {
+cudaError_t launch(const DecodeArgs& a);
+cudaError_t clusters(const DecodeArgs& a, int* n);
+}  // namespace decode_quant
+namespace decode_rel {
+cudaError_t launch(const DecodeArgs& a);
+cudaError_t clusters(const DecodeArgs& a, int* n);
+}  // namespace decode_rel
+
+}  // namespace apex
+
 namespace {
 
 namespace sm90 = apex::sm90;
+using bf16 = __nv_bfloat16;
+using fp8 = __nv_fp8_e4m3;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRows = 128;  // a block's rows at most: one a softmax thread
 constexpr int kMaxTiles = 4;
 constexpr int kMaxSmem = 232448;  // a CTA's most on sm_90 (227 KB)
+constexpr int kMaxDistance = 4096;
 constexpr float kNegInf = -1e30f;
 
 __host__ __device__ constexpr size_t round_up(size_t x, size_t m) {
@@ -87,24 +159,32 @@ __host__ __device__ constexpr size_t round_up(size_t x, size_t m) {
 
 // Byte offsets of a CTA's dynamic shared memory; the host's plan
 // (decode_smem in ops/decode_attention.py) computes the same total:
-//   ring    tiles slots of bs x d elements; after the walk the warps' PV
+//   ring    tiles slots of bs x d cells; after the walk the warps' PV
 //           sums (warps x G x d fp32) overlay it
 //   q       G x d elements (q's dtype)
 //   s       2 (parity) x G x bs fp32: a block's scores, then its p
 //   red     the per-warp maxima and sums, 2 x warps x G fp32
+//   sc      quantized pools: tiles slots of bs fp32, each ring slot's
+//           block's scales
+//   lut     the bias: G x (maxd + 1) fp32, the group's query heads'
+//           values at offsets -maxd .. 0
 //   state   splits slots of (acc G x d, m G, l G) fp32: the CTA's own in
 //           slot 0; at rank 0, rank r's in slot r
 //   bars    tiles ring mbarriers, then the merge mbarrier
 struct Layout {
-  size_t q, s, red, state, state_bytes, bars, total;
-  __host__ __device__ Layout(int elem, int d, int group, int bs, int tiles,
+  size_t q, s, red, sc, lut, state, state_bytes, bars, total;
+  __host__ __device__ Layout(int elem, int kv_elem, bool quant, int lut_len,
+                             int d, int group, int bs, int tiles,
                              int splits) {
-    const size_t ring = static_cast<size_t>(tiles) * bs * d * elem;
+    const size_t ring = static_cast<size_t>(tiles) * bs * d * kv_elem;
     const size_t parts = static_cast<size_t>(kWarps) * group * d * 4;
     q = round_up(ring > parts ? ring : parts, 128);
     s = q + round_up(static_cast<size_t>(group) * d * elem, 16);
     red = s + round_up(2 * static_cast<size_t>(group) * bs * 4, 16);
-    state = red + round_up(2 * kWarps * static_cast<size_t>(group) * 4, 16);
+    sc = red + round_up(2 * kWarps * static_cast<size_t>(group) * 4, 16);
+    lut = sc + (quant ? round_up(static_cast<size_t>(tiles) * bs * 4, 16)
+                      : 0);
+    state = lut + round_up(static_cast<size_t>(group) * lut_len * 4, 16);
     state_bytes = round_up((static_cast<size_t>(group) * d + 2 * group) * 4,
                            16);
     bars = state + splits * state_bytes;
@@ -112,48 +192,108 @@ struct Layout {
   }
 };
 
-// the 16-byte vector v as floats: 8 bf16 or 4 fp32
-__device__ __forceinline__ void unpack(const uint4& v, float (&f)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+// the 4 one-byte cells of w as floats, exactly. int8: each cell's bits
+// with the sign flipped (c + 128, 0..255) become the low mantissa byte of
+// 2^23 (one byte permute), and 2^23 + 128 is subtracted (one add): the
+// integer-to-float conversion's unit runs at a quarter of the adds' rate
+template <typename TK>
+__device__ __forceinline__ void bytes4(uint32_t w, float* f) {
+  if constexpr (std::is_same<TK, int8_t>::value) {
+    const uint32_t u = w ^ 0x80808080u;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
+    for (int j = 0; j < 4; ++j)
+      f[j] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u + j)) -
+             8388736.f;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+          static_cast<__nv_fp8x2_storage_t>(w >> (16 * j)), __NV_E4M3);
+      const float2 t = __half22float2(__half2(h));
+      f[2 * j] = t.x;
+      f[2 * j + 1] = t.y;
+    }
   }
 }
 
-__device__ __forceinline__ void unpack(const uint4& v, float (&f)[4]) {
-  f[0] = __uint_as_float(v.x);
-  f[1] = __uint_as_float(v.y);
-  f[2] = __uint_as_float(v.z);
-  f[3] = __uint_as_float(v.w);
+// N consecutive elements at p (16-byte loads; 8-byte ones for 8 one-byte
+// cells) as floats
+template <typename T, int N>
+__device__ __forceinline__ void load_floats(const T* p, float (&f)[N]) {
+  if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[i];
+      f[4 * i] = __uint_as_float(v.x);
+      f[4 * i + 1] = __uint_as_float(v.y);
+      f[4 * i + 2] = __uint_as_float(v.z);
+      f[4 * i + 3] = __uint_as_float(v.w);
+    }
+  } else if constexpr (std::is_same<T, bf16>::value) {
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[i];
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 t = __bfloat1622float2(h[j]);
+        f[8 * i + 2 * j] = t.x;
+        f[8 * i + 2 * j + 1] = t.y;
+      }
+    }
+  } else if constexpr (N == 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    bytes4<T>(v.x, f);
+    bytes4<T>(v.y, f + 4);
+    bytes4<T>(v.z, f + 8);
+    bytes4<T>(v.w, f + 12);
+  } else {
+    static_assert(N == 8, "one-byte cells load 8 or 16 at a time");
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    bytes4<T>(v.x, f);
+    bytes4<T>(v.y, f + 4);
+  }
 }
 
-// kPaged: block j of row `row` is pool row table[slot, j] * h_kv + kv head;
-// otherwise (tables unused) it is block j of the row's own contiguous max_s
-// strip, row * nb + j
-template <typename T, int D, int G, bool kPaged>
+// T: q's and the output's type; TK: the pool's cells (T, or int8_t / fp8
+// for a quantized pool, with k_scale/v_scale). kPaged: block j of row
+// `row` is pool row table[slot, j] * h_kv + kv head; otherwise (tables
+// unused) block j of the row's own contiguous max_s strip, row * nb + j.
+// kRel: the causal bucketed bias from `lut`.
+template <typename T, typename TK, int D, int G, bool kPaged, bool kRel>
 __global__ void __launch_bounds__(kThreads)
-    decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                  const T* __restrict__ v_pool,
+    decode_kernel(const T* __restrict__ q, const TK* __restrict__ k_pool,
+                  const TK* __restrict__ v_pool,
+                  const float* __restrict__ k_scale,
+                  const float* __restrict__ v_scale,
                   const int* __restrict__ tables,
-                  const int* __restrict__ lengths, T* __restrict__ out,
-                  int h_kv, int bs, int nb, int splits, int tiles,
+                  const int* __restrict__ lengths,
+                  const float* __restrict__ lut, T* __restrict__ out,
+                  int h_kv, int bs, int nb, int splits, int tiles, int maxd,
                   float scale) {
-  constexpr int kVec = 16 / sizeof(T);        // elements in 16 bytes
-  constexpr int kChunks = D / kVec;           // 16-byte chunks a row
-  constexpr int kLaneChunks = kChunks / 8;    // a score lane's chunks
+  constexpr bool kQuant = sizeof(TK) == 1;
+  static_assert(!kQuant || kPaged, "quantized pools are paged");
+  // scores: 8 lanes a row, each lane kLaneChunks chunks of kSVec cells
+  constexpr int kSBytes = D * sizeof(TK) / 8 < 16 ? D * sizeof(TK) / 8 : 16;
+  constexpr int kSVec = kSBytes / sizeof(TK);
+  constexpr int kLaneChunks = D / kSVec / 8;
+  // PV: kVec columns a thread (16 bytes of T, 8 one-byte cells)
+  constexpr int kVec = sizeof(TK) == 4 ? 4 : 8;
+  constexpr int kChunks = D / kVec;          // column groups a row
   constexpr int kParts = kThreads / kChunks;  // row subsets of the PV
+  const int lut_len = kRel ? maxd + 1 : 0;
 
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout lay(sizeof(T), D, G, bs, tiles, splits);
-  T* ring = reinterpret_cast<T*>(smem);
+  const Layout lay(sizeof(T), sizeof(TK), kQuant, lut_len, D, G, bs, tiles,
+                   splits);
+  TK* ring = reinterpret_cast<TK*>(smem);
   float* part_s = reinterpret_cast<float*>(smem);  // after the walk
   const T* q_s = reinterpret_cast<const T*>(smem + lay.q);
   float* s_s = reinterpret_cast<float*>(smem + lay.s);
   float* red_max = reinterpret_cast<float*>(smem + lay.red);
   float* red_sum = red_max + kWarps * G;
+  float* sc_s = reinterpret_cast<float*>(smem + lay.sc);
+  float* lut_s = reinterpret_cast<float*>(smem + lay.lut);
   float* state = reinterpret_cast<float*>(smem + lay.state);
   const uint32_t bar0 = sm90::smem_u32(smem + lay.bars);
   const uint32_t merge_bar = bar0 + 8 * tiles;
@@ -169,8 +309,10 @@ __global__ void __launch_bounds__(kThreads)
   const int sc = tid & 7;        // ... chunks sc, sc + 8, ... of each
   const int cg = tid % kChunks;  // PV: columns [cg*kVec, +kVec) ...
   const int part = tid / kChunks;  // ... of rows part, part + kParts, ...
-  // a length past the row's nb blocks means every row of them is live
-  const int len = max(0, min(lengths[slot], nb * bs));
+  // a length past the row's nb blocks means every row of them is live;
+  // the bias's query sits at the unclamped length - 1, as the reference's
+  const int qpos = lengths[slot] - 1;
+  const int len = max(0, min(qpos + 1, nb * bs));
   const int nblk = (len + bs - 1) / bs;
   const int mine = nblk > rank ? (nblk - rank + splits - 1) / splits : 0;
   const int ntiles = 2 * mine;  // K and V of each of this split's blocks
@@ -181,17 +323,25 @@ __global__ void __launch_bounds__(kThreads)
   auto table_id = [&](int t) {
     return kPaged ? trow[rank + (t >> 1) * splits] : 0;
   };
-  auto tile_src = [&](int t, int id) {
+  auto issue = [&](int t, int id) {
     const int j = rank + (t >> 1) * splits;
     const size_t prow = kPaged ? static_cast<size_t>(id) * h_kv + kvh
                                : static_cast<size_t>(row) * nb + j;
-    return ((t & 1) ? v_pool : k_pool) + prow * bs * D;
-  };
-  auto issue = [&](int t, const T* src) {
-    const int live = min(bs, len - (rank + (t >> 1) * splits) * bs);
-    const uint32_t bytes = static_cast<uint32_t>(live * D * sizeof(T));
+    const TK* src = ((t & 1) ? v_pool : k_pool) + prow * bs * D;
+    const int live = min(bs, len - j * bs);
+    const uint32_t bytes = static_cast<uint32_t>(live * D * sizeof(TK));
     const int s = t % tiles;
-    sm90::mbar_expect_tx(bar0 + 8 * s, bytes);
+    if constexpr (kQuant) {
+      // the live rows' scales, rounded up to 4 rows (16 bytes)
+      const uint32_t sbytes = static_cast<uint32_t>(((live + 3) & ~3) * 4);
+      sm90::mbar_expect_tx(bar0 + 8 * s, bytes + sbytes);
+      sm90::bulk_load(sm90::smem_u32(sc_s + static_cast<size_t>(s) * bs),
+                      ((t & 1) ? v_scale : k_scale) +
+                          static_cast<size_t>(id) * bs,
+                      sbytes, bar0 + 8 * s);
+    } else {
+      sm90::mbar_expect_tx(bar0 + 8 * s, bytes);
+    }
     sm90::bulk_load(sm90::smem_u32(ring + static_cast<size_t>(s) * bs * D),
                     src, bytes, bar0 + 8 * s);
   };
@@ -212,16 +362,24 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncwarp();
     if (splits > 1) sm90::cluster_arrive_relaxed();
-    if (lane < min(tiles, ntiles)) issue(lane, tile_src(lane, id));
+    if (lane < min(tiles, ntiles)) issue(lane, id);
   } else if (splits > 1) {
     sm90::cluster_arrive_relaxed();
   }
-  {  // q, read beside the length (a CTA with no block reads it unused)
+  {  // q and the bias's lookup, read beside the length (a CTA with no
+     // block reads them unused)
     T* qw = reinterpret_cast<T*>(smem + lay.q);
     for (int i = tid; i < G * D; i += kThreads)
       qw[i] = q[static_cast<size_t>(row) * G * D + i];
+    if constexpr (kRel) {
+      for (int i = tid; i < G * lut_len; i += kThreads) {
+        const int g = i / lut_len;
+        lut_s[i] = lut[static_cast<size_t>(kvh * G + g) * (2 * maxd + 1) +
+                       (i - g * lut_len)];
+      }
+    }
   }
-  __syncthreads();  // q_s and the ring's barriers
+  __syncthreads();  // q_s, lut_s and the ring's barriers
 
   // the running softmax state, identical in every thread
   float m_run[G], l_run[G], acc[G][kVec];
@@ -234,7 +392,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   for (int i = 0; i < mine; ++i) {
-    const int live = min(bs, len - (rank + i * splits) * bs);
+    const int col0 = (rank + i * splits) * bs;  // the block's first column
+    const int live = min(bs, len - col0);
     float* sb = s_s + (i & 1) * G * bs;  // parity: PV reads the last one
     // the two refills at this block's barrier: the slots of the previous
     // block's V (tile 2i - 1) and of this block's K (tile 2i); lanes 0 and
@@ -242,35 +401,34 @@ __global__ void __launch_bounds__(kThreads)
     const int refill = 2 * i - 1 + lane + tiles;
     const bool refills = warp == 0 && lane < 2 && 2 * i - 1 + lane >= 0 &&
                          refill < ntiles;
-    const T* refill_src =
-        refills ? tile_src(refill, table_id(refill)) : nullptr;
+    const int refill_id = refills ? table_id(refill) : 0;
 
     // scores in fp32, 8 lanes a row, the lanes' parts added by xor-shuffles
     // (every lane ends with the row's same sum)
     const int k_slot = (2 * i) % tiles;
     sm90::mbar_wait(bar0 + 8 * k_slot, ((2 * i) / tiles) & 1);
-    const T* kt = ring + static_cast<size_t>(k_slot) * bs * D;
+    const TK* kt = ring + static_cast<size_t>(k_slot) * bs * D;
+    const float* ksc = sc_s + static_cast<size_t>(k_slot) * bs;
     const int row_steps = (live + 31) >> 5;
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      float qf[kLaneChunks][kVec];
-      const uint4* qv = reinterpret_cast<const uint4*>(q_s + g * D);
+      float qf[kLaneChunks][kSVec];
 #pragma unroll
-      for (int c = 0; c < kLaneChunks; ++c) unpack(qv[sc + 8 * c], qf[c]);
+      for (int c = 0; c < kLaneChunks; ++c)
+        load_floats<T, kSVec>(q_s + g * D + (sc + 8 * c) * kSVec, qf[c]);
       float mx = kNegInf;
 #pragma unroll 4
       for (int k = 0; k < row_steps; ++k) {
         const int r = srow + 32 * k;
         // a row past the live ones reads the last live row, then is dropped
-        const uint4* kr = reinterpret_cast<const uint4*>(
-            kt + static_cast<size_t>(min(r, live - 1)) * D);
+        const TK* kr = kt + static_cast<size_t>(min(r, live - 1)) * D;
         float t0 = 0.f, t1 = 0.f;
 #pragma unroll
         for (int c = 0; c < kLaneChunks; ++c) {
-          float kf[kVec];
-          unpack(kr[sc + 8 * c], kf);
+          float kf[kSVec];
+          load_floats<TK, kSVec>(kr + (sc + 8 * c) * kSVec, kf);
 #pragma unroll
-          for (int e = 0; e < kVec; e += 2) {
+          for (int e = 0; e < kSVec; e += 2) {
             t0 += qf[c][e] * kf[e];
             t1 += qf[c][e + 1] * kf[e + 1];
           }
@@ -280,7 +438,10 @@ __global__ void __launch_bounds__(kThreads)
         dot += __shfl_xor_sync(0xffffffffu, dot, 2);
         dot += __shfl_xor_sync(0xffffffffu, dot, 4);
         if (r < live) {
+          if constexpr (kQuant) dot *= ksc[r];
           dot *= scale;
+          if constexpr (kRel)
+            dot += lut_s[g * lut_len + max(0, maxd + col0 + r - qpos)];
           mx = fmaxf(mx, dot);
           if (sc == 0) sb[g * bs + r] = dot;
         }
@@ -290,11 +451,12 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();  // scores and maxima published; the K slot and the
                       // last V slot are read by every thread
-    if (refills) issue(refill, refill_src);
+    if (refills) issue(refill, refill_id);
 
     // online softmax, one thread a row: the block's max, p = exp(s - m_new)
-    // (rounded to V's dtype for the PV product, over the score), the
-    // block's sum of the unrounded p
+    // (a float pool's p rounded to V's dtype for the PV product, over the
+    // score; a quantized pool's kept fp32), the block's sum of the
+    // unrounded p
     float alpha[G];
     const bool mine_row = tid < live;
 #pragma unroll
@@ -308,7 +470,9 @@ __global__ void __launch_bounds__(kThreads)
       const float p = mine_row ? expf(sb[g * bs + tid] - m_new) : 0.f;
       const float ps = apex::warp_sum(p);
       if (lane == 0) red_sum[warp * G + g] = ps;
-      if (mine_row) sb[g * bs + tid] = apex::to_float(apex::from_float<T>(p));
+      if (mine_row)
+        sb[g * bs + tid] =
+            kQuant ? p : apex::to_float(apex::from_float<T>(p));
     }
     const int v_slot = (2 * i + 1) % tiles;
     sm90::mbar_wait(bar0 + 8 * v_slot, ((2 * i + 1) / tiles) & 1);
@@ -325,15 +489,16 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < kVec; ++e) acc[g][e] *= alpha[g];
     }
-    const uint4* vt = reinterpret_cast<const uint4*>(
-        ring + static_cast<size_t>(v_slot) * bs * D);
+    const TK* vt = ring + static_cast<size_t>(v_slot) * bs * D;
+    const float* vsc = sc_s + static_cast<size_t>(v_slot) * bs;
 #pragma unroll 4
     for (int r = part; r < live; r += kParts) {
       float vf[kVec];
-      unpack(vt[r * kChunks + cg], vf);
+      load_floats<TK, kVec>(vt + static_cast<size_t>(r) * D + cg * kVec, vf);
+      const float vs = kQuant ? vsc[r] : 1.f;
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        const float p = sb[g * bs + r];
+        const float p = kQuant ? sb[g * bs + r] * vs : sb[g * bs + r];
 #pragma unroll
         for (int e = 0; e < kVec; ++e) acc[g][e] += p * vf[e];
       }
@@ -417,51 +582,59 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-using KernelFn = void (*)(const T*, const T*, const T*, const int*,
-                          const int*, T*, int, int, int, int, int, float);
+template <typename T, typename TK>
+using KernelFn = void (*)(const T*, const TK*, const TK*, const float*,
+                          const float*, const int*, const int*, const float*,
+                          T*, int, int, int, int, int, int, float);
 
-template <typename T>
+template <typename T, typename TK>
 struct Kernel {
-  KernelFn<T> fn;
+  KernelFn<T, TK> fn;
   cudaError_t ready;  // raising the dynamic shared-memory ceiling
 };
 
 // one instance, its shared-memory ceiling raised once
-template <typename T, int D, int G, bool kPaged>
-Kernel<T> instance() {
+template <typename T, typename TK, int D, int G, bool kPaged, bool kRel>
+Kernel<T, TK> instance() {
   static const cudaError_t ready = cudaFuncSetAttribute(
-      decode_kernel<T, D, G, kPaged>,
+      decode_kernel<T, TK, D, G, kPaged, kRel>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  return {decode_kernel<T, D, G, kPaged>, ready};
+  return {decode_kernel<T, TK, D, G, kPaged, kRel>, ready};
 }
 
-template <typename T, int D, bool kPaged>
-Kernel<T> instance_of_group(int group) {
+template <typename T, typename TK, int D, bool kPaged, bool kRel>
+Kernel<T, TK> instance_of_group(int group) {
   switch (group) {
     case 1:
-      return instance<T, D, 1, kPaged>();
+      return instance<T, TK, D, 1, kPaged, kRel>();
     case 2:
-      return instance<T, D, 2, kPaged>();
+      return instance<T, TK, D, 2, kPaged, kRel>();
     case 4:
-      return instance<T, D, 4, kPaged>();
+      return instance<T, TK, D, 4, kPaged, kRel>();
     case 8:
-      return instance<T, D, 8, kPaged>();
+      return instance<T, TK, D, 8, kPaged, kRel>();
     case 16:
-      return instance<T, D, 16, kPaged>();
+      return instance<T, TK, D, 16, kPaged, kRel>();
     default:
       return {nullptr, cudaErrorInvalidValue};
   }
 }
 
-template <typename T>
-Kernel<T> instance_of(bool paged, int d, int group) {
-  if (d == 128)
-    return paged ? instance_of_group<T, 128, true>(group)
-                 : instance_of_group<T, 128, false>(group);
-  if (d == 64)
-    return paged ? instance_of_group<T, 64, true>(group)
-                 : instance_of_group<T, 64, false>(group);
+// a quantized pool has only the paged instances
+template <typename T, typename TK, bool kRel>
+Kernel<T, TK> instance_of(bool paged, int d, int group) {
+  if constexpr (sizeof(TK) == 1) {
+    if (!paged) return {nullptr, cudaErrorInvalidValue};
+    if (d == 128) return instance_of_group<T, TK, 128, true, kRel>(group);
+    if (d == 64) return instance_of_group<T, TK, 64, true, kRel>(group);
+  } else {
+    if (d == 128)
+      return paged ? instance_of_group<T, TK, 128, true, kRel>(group)
+                   : instance_of_group<T, TK, 128, false, kRel>(group);
+    if (d == 64)
+      return paged ? instance_of_group<T, TK, 64, true, kRel>(group)
+                   : instance_of_group<T, TK, 64, false, kRel>(group);
+  }
   return {nullptr, cudaErrorInvalidValue};
 }
 
@@ -483,104 +656,155 @@ struct Launch {
   }
 };
 
-// what every launch checks of the plan it is given
-bool bad_plan(int dtype, int d, int group, int bs, int splits, int tiles,
-              int smem) {
-  if ((d != 64 && d != 128) ||
-      (dtype != apex::kFloat32 && dtype != apex::kBFloat16) || bs < 1 ||
-      bs > kMaxRows || tiles < 2 || tiles > kMaxTiles ||
-      (splits != 1 && splits != 2 && splits != 4 && splits != 8))
-    return true;
-  const int elem = dtype == apex::kBFloat16 ? 2 : 4;
-  return smem > kMaxSmem ||
-         static_cast<size_t>(smem) <
-             Layout(elem, d, group, bs, tiles, splits).total;
-}
-
-template <typename T>
-cudaError_t launch(bool paged, int d, int group, const void* q,
-                   const void* k, const void* v, const void* tables,
-                   const void* lengths, void* out, int rows, int h_kv,
-                   int bs, int nb, float scale, int splits, int tiles,
-                   int smem, cudaStream_t stream) {
-  const Kernel<T> kern = instance_of<T>(paged, d, group);
+template <typename T, typename TK, bool kRel>
+cudaError_t launch_t(const apex::DecodeArgs& a) {
+  const Kernel<T, TK> kern = instance_of<T, TK, kRel>(a.paged, a.d, a.group);
   if (kern.fn == nullptr || kern.ready != cudaSuccess) return kern.ready;
-  Launch l(rows * splits, splits, smem, stream);
+  Launch l(a.rows * a.splits, a.splits, a.smem, a.stream);
   const cudaError_t err = cudaLaunchKernelEx(
-      &l.cfg, kern.fn, static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(tables),
-      static_cast<const int*>(lengths), static_cast<T*>(out), h_kv, bs, nb,
-      splits, tiles, scale);
+      &l.cfg, kern.fn, static_cast<const T*>(a.q),
+      static_cast<const TK*>(a.k), static_cast<const TK*>(a.v), a.k_scale,
+      a.v_scale, a.tables, a.lengths, a.lut, static_cast<T*>(a.out), a.h_kv,
+      a.bs, a.nb, a.splits, a.tiles, a.maxd, a.scale);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-int dispatch(bool paged, int dtype, int d, int group, const void* q,
-             const void* k, const void* v, const void* tables,
-             const void* lengths, void* out, int rows, int h_kv, int bs,
-             int nb, float scale, int splits, int tiles, int smem,
-             void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      dtype == apex::kBFloat16
-          ? launch<__nv_bfloat16>(paged, d, group, q, k, v, tables, lengths,
-                                  out, rows, h_kv, bs, nb, scale, splits,
-                                  tiles, smem, s)
-          : launch<float>(paged, d, group, q, k, v, tables, lengths, out,
-                          rows, h_kv, bs, nb, scale, splits, tiles, smem, s);
-  return static_cast<int>(err);
-}
-
-template <typename T>
-cudaError_t max_clusters(bool paged, int d, int group, int splits, int smem,
-                         int* n) {
-  const Kernel<T> kern = instance_of<T>(paged, d, group);
+template <typename T, typename TK, bool kRel>
+cudaError_t clusters_t(const apex::DecodeArgs& a, int* n) {
+  const Kernel<T, TK> kern = instance_of<T, TK, kRel>(a.paged, a.d, a.group);
   if (kern.fn == nullptr || kern.ready != cudaSuccess) return kern.ready;
-  Launch l(splits, splits, smem, nullptr);
+  Launch l(a.splits, a.splits, a.smem, nullptr);
   return cudaOccupancyMaxActiveClusters(n, kern.fn, &l.cfg);
 }
 
 }  // namespace
 
-// splits, tiles, smem: the host's plan (_decode_plan)
+#if defined(APEX_DECODE_QUANT_TU)
+// the int8 and fp8 pools' instances (bf16 q, paged)
+cudaError_t apex::decode_quant::launch(const DecodeArgs& a) {
+  return a.kv_dtype == 1 ? launch_t<bf16, int8_t, false>(a)
+                         : launch_t<bf16, fp8, false>(a);
+}
+cudaError_t apex::decode_quant::clusters(const DecodeArgs& a, int* n) {
+  return a.kv_dtype == 1 ? clusters_t<bf16, int8_t, false>(a, n)
+                         : clusters_t<bf16, fp8, false>(a, n);
+}
+#elif defined(APEX_DECODE_REL_TU)
+// the bucketed bias's instances (bf16, both addressings)
+cudaError_t apex::decode_rel::launch(const DecodeArgs& a) {
+  return launch_t<bf16, bf16, true>(a);
+}
+cudaError_t apex::decode_rel::clusters(const DecodeArgs& a, int* n) {
+  return clusters_t<bf16, bf16, true>(a, n);
+}
+#else
+namespace {
+
+// what every launch checks of the plan and the options it is given: a
+// quantized pool (paged, bf16 q, bs a multiple of 4) or the bias (bf16
+// q, maxd in [1, 4096]), never both
+bool bad_plan(int dtype, int kv_dtype, int maxd, int d, int group, int bs,
+              int splits, int tiles, int smem) {
+  if ((d != 64 && d != 128) ||
+      (dtype != apex::kFloat32 && dtype != apex::kBFloat16) || bs < 1 ||
+      bs > kMaxRows || tiles < 2 || tiles > kMaxTiles ||
+      (splits != 1 && splits != 2 && splits != 4 && splits != 8) ||
+      kv_dtype < 0 || kv_dtype > 2 || maxd < 0 || maxd > kMaxDistance ||
+      ((kv_dtype != 0 || maxd != 0) && dtype != apex::kBFloat16) ||
+      (kv_dtype != 0 && (maxd != 0 || bs % 4)))
+    return true;
+  const int elem = dtype == apex::kBFloat16 ? 2 : 4;
+  return smem > kMaxSmem ||
+         static_cast<size_t>(smem) <
+             Layout(elem, kv_dtype != 0 ? 1 : elem, kv_dtype != 0,
+                    maxd != 0 ? maxd + 1 : 0, d, group, bs, tiles, splits)
+                 .total;
+}
+
+cudaError_t run(const apex::DecodeArgs& a) {
+  if (a.kv_dtype != 0) return apex::decode_quant::launch(a);
+  if (a.lut != nullptr) return apex::decode_rel::launch(a);
+  return a.dtype == apex::kBFloat16 ? launch_t<bf16, bf16, false>(a)
+                                    : launch_t<float, float, false>(a);
+}
+
+}  // namespace
+
+// splits, tiles, smem: the host's plan (_decode_plan). kv_dtype 0: the
+// pools hold q's dtype; 1 int8, 2 fp8 e4m3, with k_scale, v_scale
+// (num_blocks, bs) fp32. lut (h, 2 * maxd + 1) fp32 and maxd >= 1: the
+// causal bucketed bias; null and 0 without
 extern "C" int apex_paged_decode_attn(const void* q, const void* k_pool,
                                       const void* v_pool, const void* tables,
                                       const void* lengths, void* out,
                                       int dtype, int b, int h_kv, int group,
                                       int d, int bs, int nb, float scale,
                                       int splits, int tiles, int smem,
+                                      const void* k_scale,
+                                      const void* v_scale, int kv_dtype,
+                                      const void* lut, int maxd,
                                       void* stream) {
-  if (b < 1 || h_kv < 1 || nb < 1 ||
-      bad_plan(dtype, d, group, bs, splits, tiles, smem))
+  if (b < 1 || h_kv < 1 || nb < 1 || (lut != nullptr) != (maxd > 0) ||
+      (kv_dtype != 0) != (k_scale != nullptr && v_scale != nullptr) ||
+      bad_plan(dtype, kv_dtype, maxd, d, group, bs, splits, tiles, smem))
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(true, dtype, d, group, q, k_pool, v_pool, tables, lengths,
-                  out, b * h_kv, h_kv, bs, nb, scale, splits, tiles, smem,
-                  stream);
+  apex::DecodeArgs a{true, dtype, kv_dtype, d, group, q, k_pool, v_pool,
+                     static_cast<const float*>(k_scale),
+                     static_cast<const float*>(v_scale),
+                     static_cast<const int*>(tables),
+                     static_cast<const int*>(lengths),
+                     static_cast<const float*>(lut), out, b * h_kv, h_kv,
+                     bs, nb, maxd, scale, splits, tiles, smem,
+                     static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(run(a));
 }
 
-// k, v (b * h_kv, max_s, d) with max_s a multiple of 128; lengths (b,)
+// k, v (b * h_kv, max_s, d) with max_s a multiple of 128; lengths (b,);
+// lut and maxd as the paged entry's
 extern "C" int apex_decode_attn(const void* q, const void* k, const void* v,
                                 const void* lengths, void* out, int dtype,
                                 int b, int h_kv, int group, int d, int max_s,
                                 float scale, int splits, int tiles, int smem,
-                                void* stream) {
+                                const void* lut, int maxd, void* stream) {
   if (b < 1 || h_kv < 1 || max_s < kMaxRows || max_s % kMaxRows ||
-      bad_plan(dtype, d, group, kMaxRows, splits, tiles, smem))
+      (lut != nullptr) != (maxd > 0) ||
+      bad_plan(dtype, 0, maxd, d, group, kMaxRows, splits, tiles, smem))
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(false, dtype, d, group, q, k, v, nullptr, lengths, out,
-                  b * h_kv, h_kv, kMaxRows, max_s / kMaxRows, scale, splits,
-                  tiles, smem, stream);
+  apex::DecodeArgs a{false, dtype, 0, d, group, q, k, v, nullptr, nullptr,
+                     nullptr, static_cast<const int*>(lengths),
+                     static_cast<const float*>(lut), out, b * h_kv, h_kv,
+                     kMaxRows, max_s / kMaxRows, maxd, scale, splits, tiles,
+                     smem, static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(run(a));
 }
 
 // how many clusters of the plan's CTAs the card can hold at once
-// (cudaOccupancyMaxActiveClusters) into *n; 0 means the launch is refused
+// (cudaOccupancyMaxActiveClusters) into *n; 0 means the launch is refused.
+// kv_dtype and maxd pick the instance, as the entries' do
 extern "C" int apex_decode_attn_clusters(int paged, int dtype, int d,
                                          int group, int bs, int splits,
-                                         int tiles, int smem, int* n) {
-  if (bad_plan(dtype, d, group, bs, splits, tiles, smem))
+                                         int tiles, int smem, int kv_dtype,
+                                         int maxd, int* n) {
+  if (bad_plan(dtype, kv_dtype, maxd, d, group, bs, splits, tiles, smem) ||
+      (kv_dtype != 0 && !paged))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err =
-      dtype == apex::kBFloat16
-          ? max_clusters<__nv_bfloat16>(paged != 0, d, group, splits, smem, n)
-          : max_clusters<float>(paged != 0, d, group, splits, smem, n);
+  apex::DecodeArgs a{};
+  a.paged = paged != 0;
+  a.dtype = dtype;
+  a.kv_dtype = kv_dtype;
+  a.d = d;
+  a.group = group;
+  a.maxd = maxd;
+  a.splits = splits;
+  a.smem = smem;
+  cudaError_t err;
+  if (kv_dtype != 0)
+    err = apex::decode_quant::clusters(a, n);
+  else if (maxd != 0)
+    err = apex::decode_rel::clusters(a, n);
+  else
+    err = dtype == apex::kBFloat16 ? clusters_t<bf16, bf16, false>(a, n)
+                                   : clusters_t<float, float, false>(a, n);
   return static_cast<int>(err);
 }
+#endif

@@ -25,10 +25,12 @@ Port of ``apex_tpu/inference/engine.py`` (``:82-912``), the tp=1 bodies:
 PyTorch runs eagerly, so nothing here compiles; positions are host
 integers. JAX keys become one explicit ``torch.Generator`` per
 ``generate`` call, drawn in order: the prefill's noise, then each decode
-step's or spec round's. The reference's ``plan=`` (tensor parallelism),
-the models' decode relative bias and ``jit_encoder`` are later slices of
-the port, and ``cache_dtype`` has no second value the decode kernel takes,
-so these knobs are not in the signatures here. A
+step's or spec round's. A model's ``decode_rel_bias(params)`` hook (a
+causal BucketedBias) reaches every decode step's kernel, as the
+reference's (``:273-293``); ``generate(draft=)`` refuses such a model. The
+reference's ``plan=`` (tensor parallelism) and ``jit_encoder`` are later
+slices of the port, and ``cache_dtype`` has no second value the decode
+kernel takes, so these knobs are not in the signatures here. A
 :class:`~apex_tpu_torch.spec.tree.PagedModelDrafter` needs a serving
 scheduler to bind to, so it drafts for ``ServingEngine.serve`` only.
 """
@@ -189,16 +191,31 @@ class DecodeEngine:
         lengths = torch.full((b,), pos + 1, dtype=torch.int32,
                              device=tokens.device)
         ck, cv = cache["k"], cache["v"]
+        # the hook's bias reaches every block (:273-293); the prefill stays
+        # unbiased, as the reference's
+        hook = getattr(model, "decode_rel_bias", None)
+        rel_bias = None if hook is None else hook(params)
         for i, layer in enumerate(params["layers"]):
             q, k_row, v_row = model.decode_qkv(layer, x, self.impl)
             ck[i, :, :, pos:pos + 1] = k_row
             cv[i, :, :, pos:pos + 1] = v_row
             x = model.decode_block(layer, x, q, ck[i], cv[i], lengths,
-                                   impl=self.impl)
+                                   rel_bias=rel_bias, impl=self.impl)
         x = fused_layer_norm(x, params["lnf_w"], params["lnf_b"],
                              impl=self.impl)
         logits = model.unembed(params, x)[:, 0]
         return cache, self._sample(logits, generator, u), logits
+
+    def _refuse_rel_bias(self) -> None:
+        """``draft=`` with a hooked model (``:689-694``, ``:770-779``): the
+        spec scoring does not carry the bias, so verifying biased logits
+        against unbiased ones would break the token-identical contract."""
+        if getattr(self.model, "decode_rel_bias", None) is not None:
+            raise ValueError(
+                "draft= speculative decoding cannot run a model with a "
+                "decode relative-position bias (the spec verify step does "
+                "not carry the bucketed bias) — generate with draft=None "
+                "for this model")
 
     # --- speculative verification --------------------------------------------
 
@@ -364,6 +381,7 @@ class DecodeEngine:
         from apex_tpu_torch.spec.drafter import validate_drafter
 
         self._check_batch1(prompt)
+        self._refuse_rel_bias()
         s = prompt.shape[1]
         K = validate_drafter(draft, self.config,
                              needed_rows=s + max_new_tokens
@@ -411,6 +429,7 @@ class DecodeEngine:
         from apex_tpu_torch.spec.tree import draft_tree
 
         self._check_batch1(prompt)
+        self._refuse_rel_bias()
         s = prompt.shape[1]
         shapes = (adaptive.choices if adaptive is not None
                   else ((int(draft.depth), int(draft.branching)),))

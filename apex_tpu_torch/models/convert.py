@@ -15,7 +15,9 @@ FusedRMSNorm`, and :func:`dense_from_jax`, :func:`dense_gelu_dense_from_jax`
 and :func:`mlp_from_jax` load ``FusedDense``'s, ``FusedDenseGeluDense``'s
 and ``MLP``'s into the port's modules of the same names;
 :func:`optimizer_state_from_jax` gives a reference optimizer's state as
-the port optimizer's.
+the port optimizer's, and :func:`serving_pool_from_jax` a reference
+serving engine's block pool (float, or int8/fp8 with its scale planes) as
+the port's.
 Weights keep their ``(out, in)`` layout, which is already PyTorch's. The
 tests feed both packages the same weights this way, and compare gradients
 and optimizer state leaf by leaf.
@@ -46,6 +48,9 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     arr = np.asarray(a)
     if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16: same bits as torch's
         t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    elif arr.dtype.name == "float8_e4m3fn":  # ml_dtypes' fp8: torch's bits
+        t = torch.from_numpy(arr.view(np.uint8).copy()).view(
+            torch.float8_e4m3fn)
     else:
         t = torch.from_numpy(np.array(arr, copy=True))
     return t.to(device)
@@ -442,4 +447,43 @@ def optimizer_state_from_jax(state, optimizer: torch.optim.Optimizer,
                                  f"{tuple(t.shape)} for a tensor of "
                                  f"{tuple(p.shape)}")
             out[p][name] = t
+    return out
+
+
+#: a serving pool's cell dtypes the bridge takes: the float pools' and the
+#: quantized ones' (``kv_dtype="int8"`` / ``"fp8_e4m3"``)
+_POOL_DTYPES = ("float32", "bfloat16", "float16", "int8", "float8_e4m3fn")
+
+
+def serving_pool_from_jax(pool: Dict, *,
+                          device: Union[str, torch.device] = "cpu"
+                          ) -> Dict[str, torch.Tensor]:
+    """A reference ``ServingEngine``'s block pool (numpy leaves: ``{k: np.
+    asarray(v) for k, v in pool.items()}``) as the port's: ``k``/``v``
+    (layers, num_blocks, kv_heads, block_size, head_dim) float, int8 or
+    float8_e4m3fn cells, and with a quantized pool ``k_scale``/``v_scale``
+    (layers, num_blocks, block_size) fp32. The bits are kept."""
+    device = torch.device(device)
+    quant = "k_scale" in pool or "v_scale" in pool
+    names = ("k", "v", "k_scale", "v_scale") if quant else ("k", "v")
+    if set(pool) != set(names):
+        raise ValueError(f"a serving pool has {names}; got {sorted(pool)}")
+    out = {name: _tensor(pool[name], device) for name in names}
+    k = out["k"]
+    if k.ndim != 5 or out["v"].shape != k.shape or out["v"].dtype != k.dtype:
+        raise ValueError(f"k/v must be one (layers, num_blocks, kv_heads, "
+                         f"block_size, head_dim) shape and dtype; got "
+                         f"{tuple(k.shape)} {k.dtype}, "
+                         f"{tuple(out['v'].shape)} {out['v'].dtype}")
+    if str(k.dtype).split(".")[-1] not in _POOL_DTYPES \
+            or quant != (k.element_size() == 1):
+        raise ValueError(f"k/v cells of {k.dtype} with{'' if quant else 'out'}"
+                         f" scale planes: a quantized pool has 1-byte cells "
+                         f"and both scales, a float pool neither")
+    for name in names[2:]:
+        want = (k.shape[0], k.shape[1], k.shape[3])
+        if tuple(out[name].shape) != want \
+                or out[name].dtype != torch.float32:
+            raise ValueError(f"{name} must be {want} float32; got "
+                             f"{tuple(out[name].shape)} {out[name].dtype}")
     return out

@@ -200,10 +200,13 @@ class GPTModel:
     # --- KV-cached inference branch -------------------------------------------
 
     def check_paged_decode_supported(self, device: torch.device,
-                                     block_size: int) -> None:
+                                     block_size: int, *,
+                                     quantized: bool = False,
+                                     rel: bool = False) -> None:
         """Eager check that the paged decode kernel takes this model's
         attention shape and the pool's ``block_size`` on ``device`` (the
-        CPU's plain version takes any)."""
+        CPU's plain version takes any), with a quantized pool or the
+        model's decode bias where asked."""
         if device.type != "cuda":
             return
         c = self.config
@@ -216,6 +219,15 @@ class GPTModel:
                 f"head and blocks of at most {KERNEL_MAX_BLOCK} rows; this "
                 f"model has head_dim {c.head_dim} and {group} query heads "
                 f"per kv head, the pool block_size {block_size}")
+        if (quantized or rel) and c.dtype != torch.bfloat16:
+            raise ValueError(
+                f"the paged decode kernel's quantized-pool and bias "
+                f"instances take bfloat16; this model is {c.dtype}")
+        if quantized and block_size % 4:
+            raise ValueError(
+                f"a quantized pool's block_size must be a multiple of 4 on "
+                f"the card (the kernel copies a block's scales in 16-byte "
+                f"units); got {block_size}")
 
     def check_engine_supported(self, device: torch.device,
                                max_s: int) -> None:
@@ -287,17 +299,23 @@ class GPTModel:
                                           impl=impl))
         return x + m, (k.transpose(1, 2), v.transpose(1, 2))
 
-    def decode_block(self, p, x, q, k_lay, v_lay, lengths, *,
+    def decode_block(self, p, x, q, k_lay, v_lay, lengths, rel_bias=None,
                      block_tables: Optional[torch.Tensor] = None,
-                     impl: str = "auto") -> torch.Tensor:
+                     kv_scales=None, *, impl: str = "auto") -> torch.Tensor:
         """One token through one block against this layer's cache,
         ALREADY holding the token's own row: x (b, 1, H) the residual
         stream, q (b, h, d), ``lengths`` (b,) live rows including this
         token. ``k_lay``/``v_lay`` are the contiguous (b, h_kv, max_s, d)
         cache, or with ``block_tables`` (b, nb) the shared
-        (num_blocks, h_kv, block_size, d) pool. Returns (b, 1, H)."""
-        ctx = decode_attention(q, k_lay, v_lay, lengths,
-                               block_tables=block_tables, impl=impl)
+        (num_blocks, h_kv, block_size, d) pool. ``rel_bias``: a causal
+        BucketedBias the engines thread from the model's
+        ``decode_rel_bias`` hook; ``kv_scales``: a quantized pool's
+        ``(k_scale, v_scale)`` (``gpt.py:737-760``). Returns (b, 1, H)."""
+        k_scale, v_scale = kv_scales if kv_scales is not None else (None,
+                                                                    None)
+        ctx = decode_attention(q, k_lay, v_lay, lengths, bias=rel_bias,
+                               block_tables=block_tables, k_scale=k_scale,
+                               v_scale=v_scale, impl=impl)
         x = x + self._proj_attn_out(p, ctx[:, None])
         m = self._mlp(p, fused_layer_norm(x, p["ln2_w"], p["ln2_b"],
                                           impl=impl))

@@ -52,11 +52,15 @@ _DROP = [_U, _I, _F, _I]
 # name -> argtypes of every C entry point the library exports
 ENTRY_POINTS = {
     # q, k_pool, v_pool, tables, lengths, out, dtype, b, h_kv, group, d,
-    # bs, nb, scale, splits, tiles, smem, stream
+    # bs, nb, scale, splits, tiles, smem, k_scale, v_scale, kv_dtype, lut,
+    # maxd, stream
     "apex_paged_decode_attn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _F, _I, _I, _I, _P],
-    # paged, dtype, d, group, bs, splits, tiles, smem, out (clusters)
-    "apex_decode_attn_clusters": [_I, _I, _I, _I, _I, _I, _I, _I, _IP],
+                               _I, _I, _F, _I, _I, _I, _P, _P, _I, _P, _I,
+                               _P],
+    # paged, dtype, d, group, bs, splits, tiles, smem, kv_dtype, maxd, out
+    # (clusters)
+    "apex_decode_attn_clusters": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  _IP],
     # logits, u, out, dtype, b, V, inv_temp, top_k, use_top_p, top_p,
     # splits, threads, values, share, fault, stream
     "apex_fused_sample": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _F, _I, _I,
@@ -84,10 +88,10 @@ ENTRY_POINTS = {
     "apex_xent_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, out, lse, kv_lens, bias, q_bstride, kv_bstride, q_stride,
     # kv_stride, b, sq, sk, h, h_kv, d, causal, scale, hb, variant,
-    # bias_tma, the dropout arguments, stream
+    # bias_tma, the dropout arguments, lut, maxd, rel_off, stream
     "apex_flash_fwd_bshd": [_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I,
                             _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, *_DROP,
-                            _P],
+                            _P, _I, _I, _P],
     # q, k, v, out, lse, kv_lens, lut, bias, strides (q, kv, o), b, h,
     # h_kv, sq, sk, d, causal, scale, maxd, rel_off, hb, variant,
     # bias_tma, the dropout arguments, stream
@@ -114,9 +118,9 @@ ENTRY_POINTS = {
                              _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
                              _I, _P],
     # q, k, v, lengths (b,), out, dtype, b, h_kv, group, d, max_s, scale,
-    # splits, tiles, smem, stream
+    # splits, tiles, smem, lut, maxd, stream
     "apex_decode_attn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
-                         _I, _I, _P],
+                         _I, _I, _P, _I, _P],
     # logits, drafted, u_acc, u_gum, a, next, slots, arrivals, epoch,
     # dtype, b, k1, V, sampled, inv_temp, top_k, use_top_p, top_p, splits,
     # threads, values, share, fault, stream

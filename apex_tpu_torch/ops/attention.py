@@ -259,6 +259,11 @@ class BucketedBias:
     max_distance: int = 128
     q_offset: int = 0
     k_offset: int = 0
+    # the kernels' lookup and buckets, kept while the table is unchanged
+    # (its storage and version counter): the decode engines make one bias
+    # a step and hand it to every layer's kernel
+    _operands: Optional[tuple] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def num_buckets(self) -> int:
@@ -287,10 +292,16 @@ class BucketedBias:
         + 1) fp32 of the table's value at each clamped offset, the
         offsets' buckets (2·max_distance + 1,) int32, and ``k_offset −
         q_offset``."""
-        bucket = _offset_buckets(self.bidirectional, self.num_buckets,
-                                 self.max_distance, self.table.device)
-        lut = self.table.detach().float().t()[:, bucket.long()]
-        return lut.contiguous(), bucket, int(self.k_offset - self.q_offset)
+        t = self.table
+        key = (t.data_ptr(), t._version, t.device, t.dtype, tuple(t.shape),
+               self.bidirectional, self.max_distance)
+        if self._operands is None or self._operands[0] != key:
+            bucket = _offset_buckets(self.bidirectional, self.num_buckets,
+                                     self.max_distance, t.device)
+            lut = t.detach().float().t()[:, bucket.long()].contiguous()
+            self._operands = (key, lut, bucket)
+        _, lut, bucket = self._operands
+        return lut, bucket, int(self.k_offset - self.q_offset)
 
 
 def _validate_bucketed(bias: BucketedBias) -> None:
@@ -903,6 +914,7 @@ def _count(fn, plan=None, bias=None, dropout=0.0, f16=False) -> None:
 def flash_fwd_bshd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, scale: float, causal: bool,
                         kv_lens: Optional[torch.Tensor] = None,
+                        rel_bias: Optional[BucketedBias] = None,
                         bias: Optional[torch.Tensor] = None,
                         dropout_rate: float = 0.0,
                         dropout_seed: Optional[int] = None,
@@ -912,21 +924,26 @@ def flash_fwd_bshd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the bshd flash forward: q (b, sq, h, d), k/v (b, sk, h_kv,
     d), bf16 — separate tensors or views into one buffer (the batch and
     row strides are passed through); kv_lens (b,) int32 per batch or None;
-    bias (hb, sq, sk) fp32 with hb | h or None. Returns o (b, sq, h, d)
-    bf16 and lse (b, h, sq) fp32. Dropout as :func:`flash_fwd_cuda`'s
-    (q-head row t = b·h + head; not with a bias). Counts its launches in
-    ``.launches``, by variant, those with a bias in ``.bias_launches`` and
-    those with dropout in ``.dropout_launches``."""
+    the bucketed bias (its heads dividing h: head t reads table column t %
+    heads), or an array bias (hb, sq, sk) fp32 with hb | h, or neither.
+    Returns o (b, sq, h, d) bf16 and lse (b, h, sq) fp32. Dropout as
+    :func:`flash_fwd_cuda`'s (q-head row t = b·h + head; not with an array
+    bias). Counts its launches in ``.launches``, by variant, those with an
+    array bias in ``.bias_launches``, with the bucketed bias in
+    ``.rel_launches`` and those with dropout in ``.dropout_launches``."""
     name = "flash_fwd_bshd_cuda"
     _check_bshd(q, k, v, causal, name, kv_lens)
     b, sq, h, d = q.shape
     sk, h_kv = k.shape[1], k.shape[2]
-    hb = _check_bias(bias, h, sq, sk, q, name)
+    lut, _, rel_off, maxd, hb, _ = _flat_bias_args(rel_bias, bias, h, sq,
+                                                   sk, q, name)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    kv_lens, _, run_bias, _ = _planted(planted_fault, kv_lens,
-                                       _LENS_PER_BATCH, bias, None, b, h, sk,
-                                       q.device)
+    kv_lens, _, run_bias, lut = _planted(planted_fault, kv_lens,
+                                         _LENS_PER_BATCH, bias, lut, b, h,
+                                         sk, q.device)
+    if lut is None:
+        maxd = rel_off = 0
     plan = _bshd_fwd_plan(q, k, v, run_bias, variant)
     drop = _drop_args(dropout_rate, dropout_seed, plan, planted_fault, name,
                       bias)
@@ -935,14 +952,17 @@ def flash_fwd_bshd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lse.data_ptr(), _ptr(kv_lens), _ptr(run_bias), q.stride(0),
         k.stride(0), q.stride(1), k.stride(1), b, sq, sk, h, h_kv, d,
         int(causal), float(scale), hb, int(plan.variant == "wgmma"),
-        int(plan.bias_staging == "tma"), *drop,
+        int(plan.bias_staging == "tma"), *drop, _ptr(lut), maxd, rel_off,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_fwd_bshd")
     _count(flash_fwd_bshd_cuda, plan, bias, dropout_rate)
+    if rel_bias is not None:
+        flash_fwd_bshd_cuda.rel_launches += 1
     return out, lse
 
 
 flash_fwd_bshd_cuda.launches = 0
+flash_fwd_bshd_cuda.rel_launches = 0
 flash_fwd_bshd_cuda.wgmma_launches = 0
 flash_fwd_bshd_cuda.sm80_launches = 0
 flash_fwd_bshd_cuda.bias_launches = 0
@@ -975,6 +995,7 @@ _LENS_PER_BATCH = (1, 0)
 def flash_bwd_bshd_dq_cuda(q, k, v, o, lse, do, *, scale: float,
                            causal: bool,
                            kv_lens: Optional[torch.Tensor] = None,
+                           rel_bias: Optional[BucketedBias] = None,
                            bias: Optional[torch.Tensor] = None,
                            dropout_rate: float = 0.0,
                            dropout_seed: Optional[int] = None,
@@ -983,24 +1004,31 @@ def flash_bwd_bshd_dq_cuda(q, k, v, o, lse, do, *, scale: float,
                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch the dQ kernel on seq-major operands: q, o, do (b, sq, h, d),
     k, v (b, sk, h_kv, d) bf16, lse (b, h, sq) fp32, kv_lens (b,) int32 or
-    None, bias (hb, sq, sk) fp32 or None → dq (b, sq, h, d) bf16 and delta
-    (b·h, sq) fp32 for the dK/dV kernel (None on ``"sm80"``); dropout as
-    :func:`flash_bwd_dq_cuda`'s. Counts launches in ``.launches``, by
-    variant, in ``.bias_launches`` and ``.dropout_launches``."""
+    None, the bucketed bias or an array bias (hb, sq, sk) fp32 or neither
+    → dq (b, sq, h, d) bf16 and delta (b·h, sq) fp32 for the dK/dV kernel
+    (None on ``"sm80"``); dropout as :func:`flash_bwd_dq_cuda`'s. Counts
+    launches in ``.launches``, by variant, in ``.bias_launches``,
+    ``.rel_launches`` and ``.dropout_launches``."""
     name = "flash_bwd_bshd_dq_cuda"
-    hb = _check_bshd_bwd(q, k, v, o, lse, do, causal, kv_lens, bias, name)
+    _check_bshd_bwd(q, k, v, o, lse, do, causal, kv_lens, bias, name)
     b, sq, h, d = q.shape
+    lut, _, rel_off, maxd, hb, _ = _flat_bias_args(rel_bias, bias, h, sq,
+                                                   k.shape[1], q, name)
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     plan, delta = _launch_dq(
         name, *_bshd_views(q, k, v, o, do, dq), lse, scale=scale,
-        causal=causal, kv_lens=kv_lens, lens_strides=_LENS_PER_BATCH, hb=hb,
-        bias=bias, dropout=(dropout_rate, dropout_seed), variant=variant,
+        causal=causal, kv_lens=kv_lens, lens_strides=_LENS_PER_BATCH,
+        lut=lut, rel_off=rel_off, maxd=maxd, hb=hb, bias=bias,
+        dropout=(dropout_rate, dropout_seed), variant=variant,
         planted_fault=planted_fault)
     _count(flash_bwd_bshd_dq_cuda, plan, bias, dropout_rate)
+    if rel_bias is not None:
+        flash_bwd_bshd_dq_cuda.rel_launches += 1
     return dq, delta
 
 
 flash_bwd_bshd_dq_cuda.launches = 0
+flash_bwd_bshd_dq_cuda.rel_launches = 0
 flash_bwd_bshd_dq_cuda.wgmma_launches = 0
 flash_bwd_bshd_dq_cuda.sm80_launches = 0
 flash_bwd_bshd_dq_cuda.bias_launches = 0
@@ -1010,36 +1038,48 @@ flash_bwd_bshd_dq_cuda.dropout_launches = 0
 def flash_bwd_bshd_dkv_cuda(q, k, v, o, lse, do, *, scale: float,
                             causal: bool,
                             kv_lens: Optional[torch.Tensor] = None,
+                            rel_bias: Optional[BucketedBias] = None,
                             bias: Optional[torch.Tensor] = None,
                             dropout_rate: float = 0.0,
                             dropout_seed: Optional[int] = None,
                             delta: Optional[torch.Tensor] = None,
                             variant: Optional[str] = None,
-                            planted_fault: Optional[str] = None
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+                            planted_fault: Optional[str] = None):
     """Launch the dK/dV kernel on seq-major operands (as
     :func:`flash_bwd_bshd_dq_cuda`, whose ``delta`` the ``"wgmma"``
     variant reads) → dk, dv (b, sk, h_kv, d) bf16, each kv group's query
-    heads summed in fp32 and cast once; dropout as
-    :func:`flash_bwd_dkv_cuda`'s. Counts launches in ``.launches``, by
-    variant, in ``.bias_launches`` and ``.dropout_launches``."""
+    heads summed in fp32 and cast once, and with ``rel_bias`` a third
+    output, the bucket-table gradient (num_buckets, heads) fp32 summed in
+    the same kernel (``dtab[:, :num_buckets].T``, ``:515-520``); dropout
+    as :func:`flash_bwd_dkv_cuda`'s. Counts launches in ``.launches``, by
+    variant, in ``.bias_launches``, ``.rel_launches`` and
+    ``.dropout_launches``."""
     name = "flash_bwd_bshd_dkv_cuda"
-    hb = _check_bshd_bwd(q, k, v, o, lse, do, causal, kv_lens, bias, name)
+    _check_bshd_bwd(q, k, v, o, lse, do, causal, kv_lens, bias, name)
     b, sq, h, d = q.shape
     sk, h_kv = k.shape[1], k.shape[2]
+    lut, bucket, rel_off, maxd, hb, nb = _flat_bias_args(
+        rel_bias, bias, h, sq, sk, q, name)
     dk = torch.empty((b, sk, h_kv, d), dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
+    dtab = (None if rel_bias is None else
+            torch.zeros((hb, nb), dtype=torch.float32, device=q.device))
     q4, k4, v4, o4, do4, dk4, dv4 = _bshd_views(q, k, v, o, do, dk, dv)
     plan = _launch_dkv(
         name, q4, k4, v4, o4, do4, dk4, dv4, lse, delta, scale=scale,
-        causal=causal, kv_lens=kv_lens, lens_strides=_LENS_PER_BATCH, hb=hb,
-        bias=bias, dropout=(dropout_rate, dropout_seed), variant=variant,
-        planted_fault=planted_fault)
+        causal=causal, kv_lens=kv_lens, lens_strides=_LENS_PER_BATCH,
+        lut=lut, bucket=bucket, dtab=dtab, rel_off=rel_off, maxd=maxd,
+        hb=hb, nb=nb, bias=bias, dropout=(dropout_rate, dropout_seed),
+        variant=variant, planted_fault=planted_fault)
     _count(flash_bwd_bshd_dkv_cuda, plan, bias, dropout_rate)
-    return dk, dv
+    if dtab is None:
+        return dk, dv
+    flash_bwd_bshd_dkv_cuda.rel_launches += 1
+    return dk, dv, dtab.t()
 
 
 flash_bwd_bshd_dkv_cuda.launches = 0
+flash_bwd_bshd_dkv_cuda.rel_launches = 0
 flash_bwd_bshd_dkv_cuda.wgmma_launches = 0
 flash_bwd_bshd_dkv_cuda.sm80_launches = 0
 flash_bwd_bshd_dkv_cuda.bias_launches = 0
@@ -1965,23 +2005,28 @@ def _bias32(bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 def flash_fwd_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    scale: float, causal: bool,
                    kv_lens: Optional[torch.Tensor] = None,
+                   rel_bias: Optional[BucketedBias] = None,
                    bias: Optional[torch.Tensor] = None,
                    dropout_rate: float = 0.0,
                    dropout_seed: Optional[int] = None, impl: str = "auto"
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Seq-major flash forward (the Pallas ``flash_fwd_bshd``): q (b, sq,
     h, d), k/v (b, sk, h_kv, d); ``kv_lens`` (b,) int32 per batch (the
-    heads share a row's padding); ``bias`` (hb, sq, sk) with hb | h, head
-    t reading bias row t % hb. Returns (o (b, sq, h, d), lse (b, h,
-    sq)); dropout keyed by q-head row t = b·h + head."""
+    heads share a row's padding); ``rel_bias`` the bucketed bias (its
+    heads dividing h, head t reading table column t % heads) or ``bias``
+    (hb, sq, sk) with hb | h, head t reading bias row t % hb. Returns (o
+    (b, sq, h, d), lse (b, h, sq)); dropout keyed by q-head row t = b·h +
+    head (not with an array bias)."""
     bias = _bias32(bias)
     seed = _check_dropout(dropout_rate, dropout_seed)
     _refuse_bias_dropout(bias, dropout_rate)
     if _backend.use_kernel(q, impl):
         return flash_fwd_bshd_cuda(q, k, v, scale=scale, causal=causal,
-                                   kv_lens=kv_lens, bias=bias,
-                                   dropout_rate=dropout_rate,
+                                   kv_lens=kv_lens, rel_bias=rel_bias,
+                                   bias=bias, dropout_rate=dropout_rate,
                                    dropout_seed=seed)
+    if rel_bias is not None:
+        bias = rel_bias.materialize(q.shape[1], k.shape[1])
     return _torch_flash_fwd_bshd(q, k, v, scale, causal, kv_lens, bias,
                                  dropout_rate, seed)
 
@@ -1990,30 +2035,41 @@ def flash_bwd_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
                    scale: float, causal: bool,
                    kv_lens: Optional[torch.Tensor] = None,
+                   rel_bias: Optional[BucketedBias] = None,
                    bias: Optional[torch.Tensor] = None,
                    dropout_rate: float = 0.0,
                    dropout_seed: Optional[int] = None, impl: str = "auto"):
     """Backward of :func:`flash_fwd_bshd` (the Pallas ``flash_bwd_bshd``,
-    ``:1395-1530``): (dq (b, sq, h, d), dk, dv (b, sk, h_kv, d), dbias
-    (hb, sq, sk) fp32 or None). On a CUDA tensor the dQ kernel runs (it
-    writes delta), then the dK/dV kernel, and with a bias the dbias
-    kernel (both read that delta)."""
+    ``:1395-1530``): (dq (b, sq, h, d), dk, dv (b, sk, h_kv, d), and the
+    bias's fp32 cotangent: the table's (num_buckets, heads) with
+    ``rel_bias``, dbias (hb, sq, sk) with ``bias``, else None). On a CUDA
+    tensor the dQ kernel runs (it writes delta), then the dK/dV kernel
+    (which also sums the table gradient), and with an array bias the
+    dbias kernel (both read that delta)."""
     bias = _bias32(bias)
     seed = _check_dropout(dropout_rate, dropout_seed)
     _refuse_bias_dropout(bias, dropout_rate)
     if _backend.use_kernel(q, impl):
         do = do if _seq_major_ok(do) else do.contiguous()
-        kw = dict(scale=scale, causal=causal, kv_lens=kv_lens, bias=bias,
-                  dropout_rate=dropout_rate, dropout_seed=seed)
+        kw = dict(scale=scale, causal=causal, kv_lens=kv_lens,
+                  rel_bias=rel_bias, bias=bias, dropout_rate=dropout_rate,
+                  dropout_seed=seed)
         dq, delta = flash_bwd_bshd_dq_cuda(q, k, v, o, lse, do, **kw)
-        dk, dv = flash_bwd_bshd_dkv_cuda(q, k, v, o, lse, do, delta=delta,
-                                         **kw)
-        dbias = (None if bias is None else flash_bwd_dbias_cuda(
-            q, k, v, o, lse, do, bias, scale=scale, causal=causal,
-            kv_lens=kv_lens, layout="bshd", delta=delta))
+        dk, dv, *dtab = flash_bwd_bshd_dkv_cuda(q, k, v, o, lse, do,
+                                                delta=delta, **kw)
+        dbias = (dtab[0] if dtab else None if bias is None
+                 else flash_bwd_dbias_cuda(
+                     q, k, v, o, lse, do, bias, scale=scale, causal=causal,
+                     kv_lens=kv_lens, layout="bshd", delta=delta))
         return dq, dk, dv, dbias
-    return _torch_flash_bwd_bshd(q, k, v, o, lse, do, scale, causal, kv_lens,
-                                 bias, dropout_rate, seed)
+    arr = (bias if rel_bias is None
+           else rel_bias.materialize(q.shape[1], k.shape[1]))
+    dq, dk, dv, dbias = _torch_flash_bwd_bshd(q, k, v, o, lse, do, scale,
+                                              causal, kv_lens, arr,
+                                              dropout_rate, seed)
+    if rel_bias is not None:
+        dbias = _table_grad(rel_bias, dbias)
+    return dq, dk, dv, dbias
 
 
 def _refuse_bias_dropout(bias, dropout_rate: float) -> None:
@@ -2135,28 +2191,37 @@ class _FlashFlat(torch.autograd.Function):
 class _FlashBshd(torch.autograd.Function):
     """The seq-major core (``_flash_core_bshd``, ``_flash_fwd_res_bshd``,
     ``_flash_bwd_bshd_impl``, ``:442-539``): the forward saves q, k, v, o
-    and lse; the backward returns dq, dk, dv and the fp32 array bias's
-    cotangent. ``drop`` (rate, host seed) as :class:`_FlashFlat`'s."""
+    and lse; the backward returns dq, dk, dv and the bias's cotangent.
+    ``bias_t`` is the bucket table when ``rel`` (its bucketing) is given,
+    else the fp32 array bias or None. ``drop`` (rate, host seed) as
+    :class:`_FlashFlat`'s."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, kv_lens, scale, causal, impl, drop):
+    def forward(ctx, q, k, v, bias_t, kv_lens, scale, causal, rel, impl,
+                drop):
+        rb, arr = ((None, bias_t) if rel is None
+                   else (BucketedBias(bias_t, *rel), None))
         o, lse = flash_fwd_bshd(q, k, v, scale=scale, causal=causal,
-                                kv_lens=kv_lens, bias=bias,
+                                kv_lens=kv_lens, rel_bias=rb, bias=arr,
                                 dropout_rate=drop[0], dropout_seed=drop[1],
                                 impl=impl)
-        ctx.save_for_backward(q, k, v, o, lse, kv_lens, bias)
-        ctx.attn = (scale, causal, impl, drop)
+        ctx.save_for_backward(q, k, v, o, lse, kv_lens, bias_t)
+        ctx.attn = (scale, causal, rel, impl, drop)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse, kv_lens, bias = ctx.saved_tensors
-        scale, causal, impl, drop = ctx.attn
+        q, k, v, o, lse, kv_lens, bias_t = ctx.saved_tensors
+        scale, causal, rel, impl, drop = ctx.attn
+        rb, arr = ((None, bias_t) if rel is None
+                   else (BucketedBias(bias_t, *rel), None))
         dq, dk, dv, dbias = flash_bwd_bshd(q, k, v, o, lse, do, scale=scale,
                                            causal=causal, kv_lens=kv_lens,
-                                           bias=bias, dropout_rate=drop[0],
+                                           rel_bias=rb, bias=arr,
+                                           dropout_rate=drop[0],
                                            dropout_seed=drop[1], impl=impl)
-        return dq, dk, dv, dbias, None, None, None, None, None
+        dbias = None if dbias is None else dbias.to(bias_t.dtype)
+        return dq, dk, dv, dbias, None, None, None, None, None, None
 
 
 def _bias_rows(bias: Union[BucketedBias, torch.Tensor]) -> int:
@@ -2188,11 +2253,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``layout="bshd"``: q (b, sq, h, d) and k/v (b, sk, h_kv, d);
     ``kv_lens`` is PER BATCH, (b,) (the heads share a row's padding).
 
-    ``bias``: a :class:`BucketedBias` (``layout="bhsd"`` only) whose heads
-    divide the flattened rows, its table getting a gradient; or an
+    ``bias``: a :class:`BucketedBias` whose heads divide the flattened
+    rows (on ``"bshd"``, the heads), its table getting a gradient; or an
     additive array (hb, sq, sk) — on ``"bhsd"`` hb divides the flattened
-    rows, on ``"bshd"`` the heads — row r of the flattened (batch·heads)
-    leading dims reading bias row r % hb. Either is added to the scaled
+    rows, on ``"bshd"`` the heads — row r of the flattened
+    (batch·heads) leading dims reading bias row r % hb (table column r
+    % heads). Either is added to the scaled
     scores before the causal and ``kv_lens`` masks; the array is cast to
     fp32 once, and its gradient (the unscaled dS summed over the rows
     sharing a bias row) comes back in its own dtype. Both layouts run
@@ -2205,8 +2271,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the flattened (batch·heads) leading dims; lse stays un-dropped and
     kept probabilities are scaled by float32(1/(1 - rate)). The backward
     rebuilds the mask from the seed; none is saved. Dropout with an array
-    bias raises ``NotImplementedError`` (its gradient kernel has no mask),
-    as does a :class:`BucketedBias` on the bshd layout (a later slice).
+    bias raises ``NotImplementedError`` (its gradient kernel has no mask).
     HALF-class under an O1 policy (q, k and v cast)."""
     q, k, v = apply_op_rules("attention", q, k, v)
     if layout not in ("bhsd", "bshd"):
@@ -2215,11 +2280,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if torch.is_tensor(bias) and dropout_rate > 0.0:
         raise NotImplementedError(BIAS_DROPOUT)
     if isinstance(bias, BucketedBias):
-        if layout == "bshd":
-            raise NotImplementedError(
-                "a BucketedBias on flash_attention(layout='bshd') is a later "
-                "slice of the port (with T5's decode path); use "
-                "layout='bhsd' or an array bias")
         _validate_bucketed(bias)
     elif bias is not None:
         sq_, sk_ = ((q.shape[1], k.shape[1]) if layout == "bshd"
@@ -2245,12 +2305,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     f"layout='bshd' takes per-batch kv_lens of shape "
                     f"({q.shape[0]},); got {tuple(kv_lens.shape)}")
             kv_lens = kv_lens.to(torch.int32)
-        if bias is not None and q.shape[2] % bias.shape[0]:
+        if bias is not None and q.shape[2] % _bias_rows(bias):
             raise ValueError(
-                f"layout='bshd' needs bias rows ({bias.shape[0]}) dividing "
-                f"q heads ({q.shape[2]})")
-        return _FlashBshd.apply(q, k, v, _bias32(bias), kv_lens, s_scale,
-                                bool(causal), impl, drop)
+                f"layout='bshd' needs bias rows ({_bias_rows(bias)}) "
+                f"dividing q heads ({q.shape[2]})")
+        rel, bias_t = None, _bias32(bias) if torch.is_tensor(bias) else None
+        if isinstance(bias, BucketedBias):
+            rel = (bias.bidirectional, int(bias.max_distance),
+                   int(bias.q_offset), int(bias.k_offset))
+            bias_t = bias.table
+        return _FlashBshd.apply(q, k, v, bias_t, kv_lens, s_scale,
+                                bool(causal), rel, impl, drop)
     if q.ndim < 2 or k.ndim != q.ndim or v.ndim != q.ndim:
         raise ValueError(f"layout='bhsd' takes (..., s, d) operands of one "
                          f"rank; got {tuple(q.shape)} / {tuple(k.shape)} / "

@@ -1,7 +1,10 @@
 """ServingEngine: continuous-batching generation over a paged KV cache.
 
-Port of ``apex_tpu/serving/engine.py`` at tp=1 with a float pool. Its
-device steps, run eagerly:
+Port of ``apex_tpu/serving/engine.py`` at tp=1, with a float pool or a
+quantized one (``kv_dtype="int8"`` / ``"fp8_e4m3"``: 1-byte cells and one
+fp32 scale a block row, :func:`_quant_rows` at every write site, the
+decode kernel's quantized instances and dequantizing gathers at every
+read). Its device steps, run eagerly:
 
 * :meth:`ServingEngine.prefill_chunk` — one fixed-size chunk of ONE slot's
   prompt through the stack: the chunk's k/v land in the slot's pool blocks
@@ -40,9 +43,14 @@ donation: a step's memory traffic is the live cache read plus one token's
 writes, never a pool copy. Everything dynamic about traffic stays in the
 host-side :class:`~apex_tpu_torch.serving.scheduler.Scheduler`.
 
-Not in this slice (raising where a caller could ask for them): quantized
-pools (``kv_dtype``), tensor-parallel serving (``plan.tp > 1``), serving
-telemetry, ``ReplanPolicy`` and weight hot-swap.
+A model's ``decode_rel_bias(params)`` hook (a causal BucketedBias, T5's
+relative positions at decode) reaches every decode step's kernel, as the
+reference's (``:647-674``); a quantized pool and ``serve(draft=)`` refuse
+such a model, as the reference does.
+
+Not in this slice (raising where a caller could ask for them):
+tensor-parallel serving (``plan.tp > 1``), serving telemetry,
+``ReplanPolicy`` and weight hot-swap.
 """
 
 from __future__ import annotations
@@ -65,6 +73,36 @@ from apex_tpu_torch.serving.kv_blocks import (DEAD_BLOCK, BlockAllocator,
 from apex_tpu_torch.serving.scheduler import Request, Scheduler, SLOPolicy
 
 Pool = Dict[str, torch.Tensor]
+
+#: legal kv_dtype values and their (qmax, storage dtype): int8 rounds into
+#: [-127, 127]; fp8_e4m3 keeps a mantissa and scales amax onto the
+#: format's finite ceiling (448) — the same per-block-row fp32 scale
+#: planes, the same 1 byte a cell, so the two pools share every write and
+#: gather site (``:82-88``)
+KV_QUANT_SPECS = {
+    "int8": (127.0, torch.int8),
+    "fp8_e4m3": (448.0, torch.float8_e4m3fn),
+}
+
+
+def _quant_rows(x: torch.Tensor, dims: Tuple[int, ...], *,
+                qmax: float = 127.0, qdtype: torch.dtype = torch.int8
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row quantization (``:92-109``): one fp32 scale a row,
+    ``dims`` reduced away (the kv heads and head_dim share it: the write
+    sites land one token row at a time). An integer target rounds half to
+    even into [-qmax, qmax]; fp8 clips at qmax and casts (round to nearest
+    even). The 1e-20 floor keeps an all-zero row's scale finite (dead-block
+    writes, padding): it dequantizes back to exact zeros. Returns (cells,
+    scales)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=dims, keepdim=True).clamp_min(1e-20) / qmax
+    y = xf / scale
+    if qdtype.is_floating_point:
+        q = y.clamp(-qmax, qmax).to(qdtype)
+    else:
+        q = torch.round(y).clamp(-qmax, qmax).to(qdtype)
+    return q, scale.squeeze(dims)
 
 
 @dataclasses.dataclass
@@ -139,10 +177,25 @@ class ServingEngine:
                  top_k: int = 0, top_p: float = 1.0, plan=None,
                  device: Optional[Union[str, torch.device]] = None,
                  impl: str = "auto"):
-        if kv_dtype is not None:
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r}: quantized pools are a later slice "
-                f"of the port; serve with the float pool (kv_dtype=None)")
+        # quantized pools: 1 byte a cell instead of 2, halving the bytes the
+        # decode kernel streams and doubling the live tokens a pool holds;
+        # validated here, naming the knob (:218-231)
+        if kv_dtype not in (None, *KV_QUANT_SPECS):
+            legal = ", ".join(repr(k) for k in KV_QUANT_SPECS)
+            raise ValueError(
+                f"kv_dtype must be None (the float pool, in the model's "
+                f"dtype) or one of {legal} (per-block-row scales, "
+                f"dequantized in-kernel); got {kv_dtype!r}")
+        if kv_dtype is not None \
+                and getattr(model, "decode_rel_bias", None) is not None:
+            raise ValueError(
+                f"kv_dtype={kv_dtype!r} cannot serve a model with a decode "
+                f"relative-position bias (the quantized paged kernel path "
+                f"does not carry the bucketed bias) — serve this model "
+                f"with the float pool (kv_dtype=None)")
+        self.kv_dtype = kv_dtype
+        self.quantized = kv_dtype is not None
+        self._qmax, self._qdtype = KV_QUANT_SPECS.get(kv_dtype, (None, None))
         if plan is not None and int(getattr(plan, "tp", 1)) > 1:
             raise NotImplementedError(
                 "tensor-parallel serving (plan.tp > 1) is a later slice of "
@@ -154,7 +207,11 @@ class ServingEngine:
         self.impl = impl
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
-        model.check_paged_decode_supported(self.device, block_size)
+        kernels = impl == "auto"
+        model.check_paged_decode_supported(
+            self.device, block_size, quantized=self.quantized and kernels,
+            rel=kernels and getattr(model, "decode_rel_bias",
+                                    None) is not None)
         self.model = model
         c = self.config = model.config
         self.block_size = int(block_size)
@@ -181,6 +238,8 @@ class ServingEngine:
         self.top_k = int(top_k)
         self.top_p = float(top_p)
         self.last_stats: Optional[ServeStats] = None
+        # the last serve's final pool, as the reference keeps it (:320-322)
+        self.last_pool: Optional[Pool] = None
 
     # --- pool ----------------------------------------------------------------
 
@@ -188,19 +247,69 @@ class ServingEngine:
         """The zeroed block pool ``{"k"/"v": (layers, num_blocks,
         kv_heads, block_size, head_dim)}`` on the engine's device — block
         0 is the dead block (see kv_blocks). Cells are in the model's
-        parameter dtype."""
+        parameter dtype; under a quantized ``kv_dtype`` they are 1-byte
+        and ``k_scale``/``v_scale`` ``(layers, num_blocks, block_size)``
+        fp32 ride alongside (``:345-369``)."""
         c = self.config
         shape = (c.num_layers, self.num_blocks, c.kv_heads,
                  self.block_size, c.head_dim)
-        return {name: torch.zeros(shape, dtype=c.dtype, device=self.device)
+        dtype = self._qdtype if self.quantized else c.dtype
+        pool = {name: torch.zeros(shape, dtype=dtype, device=self.device)
                 for name in ("k", "v")}
+        if self.quantized:
+            for name in ("k_scale", "v_scale"):
+                pool[name] = torch.zeros(shape[:2] + shape[3:4],
+                                         dtype=torch.float32,
+                                         device=self.device)
+        return pool
 
     def pool_bytes(self) -> int:
-        """Device footprint of the whole pool (k and v)."""
+        """Device footprint of the whole pool (k and v, plus the scale
+        planes of a quantized pool)."""
         c = self.config
         cells = (c.num_layers * self.num_blocks * c.kv_heads
                  * self.block_size * c.head_dim)
+        if self.quantized:
+            scales = c.num_layers * self.num_blocks * self.block_size
+            return 2 * cells + 2 * scales * 4
         return 2 * cells * torch.empty((), dtype=c.dtype).element_size()
+
+    # --- the pool's writes and gathers ---------------------------------------
+
+    def _write_rows(self, pool: Pool, i: int, bid: torch.Tensor,
+                    row: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> None:
+        """Layer i's token rows k/v (bid.shape + (h_kv, d)) into pool
+        blocks ``bid`` at rows ``row``, in place; a quantized pool takes
+        the cells and each row's scale at the same ids, so the dead-block
+        redirect covers the scale planes too."""
+        for name, x in (("k", k), ("v", v)):
+            if self.quantized:
+                xq, xs = _quant_rows(x, (-2, -1), qmax=self._qmax,
+                                     qdtype=self._qdtype)
+                pool[name][i][bid, :, row] = xq
+                pool[name + "_scale"][i][bid, row] = xs
+            else:
+                pool[name][i][bid, :, row] = x.to(pool[name].dtype)
+
+    def _gather_cache(self, pool: Pool, name: str, i: int,
+                      tables: torch.Tensor, dtype: torch.dtype
+                      ) -> torch.Tensor:
+        """Layer i's ``name`` pool gathered through the tables (S, nb) into
+        each slot's padded cache (S, h_kv, max_s, d). A quantized pool's
+        cells dequantize in fp32 (cell × its row's scale); its keys are
+        then rounded to ``dtype`` (the queries'), its values stay fp32, as
+        the reference's gathers (``:581-590``, ``:754-760``)."""
+        c = self.config
+        S = tables.shape[0]
+        g = pool[name][i][tables]  # (S, nb, h_kv, B, d)
+        if self.quantized:
+            g = g.float() * pool[name + "_scale"][i][tables][:, :, None, :,
+                                                             None]
+            if name == "k":
+                g = g.to(dtype)
+        return g.transpose(1, 2).reshape(S, c.kv_heads, self.max_s,
+                                         c.head_dim)
 
     # --- sampling tail -------------------------------------------------------
 
@@ -248,28 +357,30 @@ class ServingEngine:
         js = torch.arange(max_s, device=dev)
         mask = js[None, None, None, :] <= pos[None, None, :, None]
         rows = table_row.long()
+        bids = ids[:, None].expand(nblk, B)
+        brows = torch.arange(B, device=dev)[None, :].expand(nblk, B)
         for i, layer in enumerate(params["layers"]):
-            ck, cv = pool["k"][i], pool["v"][i]
             h_in = fused_layer_norm(x, layer["ln1_w"], layer["ln1_b"],
                                     impl=self.impl)
             q, k, v = model._proj_qkv_bshd(layer, h_in)
-            # chunk k/v → (C/B, h_kv, B, d) block writes at the ids
-            ck[ids] = k[0].reshape(nblk, B, h_kv, d).transpose(1, 2).to(
-                ck.dtype)
-            cv[ids] = v[0].reshape(nblk, B, h_kv, d).transpose(1, 2).to(
-                cv.dtype)
+            # chunk k/v → (C/B, B) rows of blocks at the ids
+            self._write_rows(pool, i, bids, brows,
+                             k[0].reshape(nblk, B, h_kv, d),
+                             v[0].reshape(nblk, B, h_kv, d))
             # chunk queries × the slot's gathered padded cache (the chunk's
             # own rows included — causal within the chunk falls out of the
-            # same mask); scores in fp32, p cast to v's dtype for PV
-            k_all = ck[rows].transpose(0, 1).reshape(h_kv, max_s, d)
-            v_all = cv[rows].transpose(0, 1).reshape(h_kv, max_s, d)
+            # same mask); scores in fp32, p cast to v's dtype for PV (fp32
+            # from a quantized pool, whose context is then cast back)
+            k_all = self._gather_cache(pool, "k", i, rows[None], q.dtype)[0]
+            v_all = self._gather_cache(pool, "v", i, rows[None], q.dtype)[0]
             qg = q[0].reshape(C, h_kv, group, d).permute(1, 2, 0, 3)
             s = torch.einsum("hgcd,hsd->hgcs", qg.float(),
                              k_all.float()) * scale
             s = torch.where(mask, s, NEG_INF)
             p = torch.softmax(s, dim=-1)
             ctx = torch.einsum("hgcs,hsd->hgcd", p.to(v_all.dtype), v_all)
-            ctx = ctx.permute(2, 0, 1, 3).reshape(1, C, c.num_heads, d)
+            ctx = ctx.permute(2, 0, 1, 3).reshape(1, C, c.num_heads, d).to(
+                q.dtype)
             x = x + model._proj_attn_out(layer, ctx)
             x = x + model._mlp(layer, fused_layer_norm(
                 x, layer["ln2_w"], layer["ln2_b"], impl=self.impl))
@@ -304,29 +415,24 @@ class ServingEngine:
         # already names real blocks
         bid = torch.where(lengths > 0, bid, DEAD_BLOCK)
         row = pos % B
+        hook = getattr(model, "decode_rel_bias", None)
+        rel_bias = None if hook is None else hook(params)
         for i, layer in enumerate(params["layers"]):
-            ck, cv = pool["k"][i], pool["v"][i]
             q, k_row, v_row = model.decode_qkv(layer, x, self.impl)
-            ck[bid, :, row] = k_row[:, :, 0].to(ck.dtype)
-            cv[bid, :, row] = v_row[:, :, 0].to(cv.dtype)
-            x = model.decode_block(layer, x, q, ck, cv, lengths,
-                                   block_tables=tables, impl=self.impl)
+            self._write_rows(pool, i, bid, row, k_row[:, :, 0],
+                             v_row[:, :, 0])
+            scales = ((pool["k_scale"][i], pool["v_scale"][i])
+                      if self.quantized else None)
+            x = model.decode_block(layer, x, q, pool["k"][i], pool["v"][i],
+                                   lengths, rel_bias=rel_bias,
+                                   block_tables=tables, kv_scales=scales,
+                                   impl=self.impl)
         x = fused_layer_norm(x, params["lnf_w"], params["lnf_b"],
                              impl=self.impl)
         logits = model.unembed(params, x)[:, 0]  # (S, V)
         return self._sample(logits, generator), logits
 
     # --- speculative rounds --------------------------------------------------
-
-    def _gather_cache(self, cache: torch.Tensor, tables: torch.Tensor
-                      ) -> torch.Tensor:
-        """One layer's pool (num_blocks, h_kv, B, d) gathered through the
-        tables (S, nb) into each slot's padded cache (S, h_kv, max_s,
-        d)."""
-        S = tables.shape[0]
-        c = self.config
-        return cache[tables].transpose(1, 2).reshape(S, c.kv_heads,
-                                                     self.max_s, c.head_dim)
 
     def _heads(self, q: torch.Tensor) -> torch.Tensor:
         """(S, n, h, d) queries → (S, h_kv, group, n, d)."""
@@ -379,19 +485,18 @@ class ServingEngine:
         # prefix-causal: row j of slot i sees keys [0, base_i + j]
         mask = js[None, None, None, None, :] <= pos[:, None, None, :, None]
         for i, layer in enumerate(params["layers"]):
-            ck, cv = pool["k"][i], pool["v"][i]
             h_in = fused_layer_norm(x, layer["ln1_w"], layer["ln1_b"],
                                     impl=self.impl)
             q, k, v = model._proj_qkv_bshd(layer, h_in)  # (S, K1, h, d)
-            ck[bid, :, row] = k.to(ck.dtype)
-            cv[bid, :, row] = v.to(cv.dtype)
-            k_all = self._gather_cache(ck, tables)
-            v_all = self._gather_cache(cv, tables)
+            self._write_rows(pool, i, bid, row, k, v)
+            k_all = self._gather_cache(pool, "k", i, tables, q.dtype)
+            v_all = self._gather_cache(pool, "v", i, tables, q.dtype)
             sc = torch.einsum("bhgcd,bhsd->bhgcs", self._heads(q).float(),
                               k_all.float()) * scale
             p = torch.softmax(torch.where(mask, sc, NEG_INF), dim=-1)
             ctx = torch.einsum("bhgcs,bhsd->bhgcd", p.to(v_all.dtype), v_all)
-            x = x + model._proj_attn_out(layer, self._merge_heads(ctx))
+            x = x + model._proj_attn_out(layer, self._merge_heads(ctx).to(
+                q.dtype))
             x = x + model._mlp(layer, fused_layer_norm(
                 x, layer["ln2_w"], layer["ln2_b"], impl=self.impl))
         x = fused_layer_norm(x, params["lnf_w"], params["lnf_b"],
@@ -439,14 +544,13 @@ class ServingEngine:
         tree_mask = (anc != 0)[:, None, None]  # (S, 1, 1, N1, N1)
         tks, tvs = [], []
         for i, layer in enumerate(params["layers"]):
-            ck, cv = pool["k"][i], pool["v"][i]
             h_in = fused_layer_norm(x, layer["ln1_w"], layer["ln1_b"],
                                     impl=self.impl)
             q, k, v = model._proj_qkv_bshd(layer, h_in)  # (S, N1, h, d)
             tks.append(k)
             tvs.append(v)
-            k_all = self._gather_cache(ck, tables)
-            v_all = self._gather_cache(cv, tables)
+            k_all = self._gather_cache(pool, "k", i, tables, q.dtype)
+            v_all = self._gather_cache(pool, "v", i, tables, q.dtype)
             qg = self._heads(q).float()
             kt, vt = k.transpose(1, 2), v.transpose(1, 2)  # (S, h, N1, d)
             s_c = torch.einsum("bhgcd,bhsd->bhgcs", qg, k_all.float()) * scale
@@ -459,7 +563,8 @@ class ServingEngine:
             ctx = (torch.einsum("bhgcs,bhsd->bhgcd", p_c.to(v_all.dtype),
                                 v_all)
                    + torch.einsum("bhgcn,bhnd->bhgcd", p_t.to(vt.dtype), vt))
-            x = x + model._proj_attn_out(layer, self._merge_heads(ctx))
+            x = x + model._proj_attn_out(layer, self._merge_heads(ctx).to(
+                q.dtype))
             x = x + model._mlp(layer, fused_layer_norm(
                 x, layer["ln2_w"], layer["ln2_b"], impl=self.impl))
         x = fused_layer_norm(x, params["lnf_w"], params["lnf_b"],
@@ -486,9 +591,8 @@ class ServingEngine:
         pick = node[:, :, None, None].expand(S, depth + 1, c.kv_heads,
                                              c.head_dim)
         for i in range(c.num_layers):
-            ck, cv = pool["k"][i], pool["v"][i]
-            ck[bid, :, row] = tks[i].gather(1, pick).to(ck.dtype)
-            cv[bid, :, row] = tvs[i].gather(1, pick).to(cv.dtype)
+            self._write_rows(pool, i, bid, row, tks[i].gather(1, pick),
+                             tvs[i].gather(1, pick))
         return a, j_star, nxt
 
     # --- the serving loop ----------------------------------------------------
@@ -582,9 +686,11 @@ class ServingEngine:
         for r in requests:
             sched.submit(r)
         stats = ServeStats()
-        self._serve_loop(params, generator, sched, stats, now, wall,
-                         self.init_pool(), draft, adaptive)
+        pool = self.init_pool()
+        self._serve_loop(params, generator, sched, stats, now, wall, pool,
+                         draft, adaptive)
         self.last_stats = stats
+        self.last_pool = pool
         return sched.completed
 
     def _spec_mode(self, sched: Scheduler, stats: ServeStats, draft,

@@ -23,11 +23,10 @@ the two verify kernels, the dropout-free flash forward, dQ and dK/dV and
 into a directory that ``.gitignore`` lists, and compares every kernel's
 registers and spills with the parent's (:func:`ptxas_changes`). The entry
 points take the signatures of this tree's ``_build.ENTRY_POINTS``, except
-those this tree changed (:data:`PARENT_ENTRY_POINTS`, empty while the
-parent has every entry's signature): the library :func:`other_library`
-returns drops the arguments a listed entry lacks (the four before the
-stream, the dropout arguments the flash entries gained) from its calls,
-refusing a call that asks for dropout. Needs ``nvcc``.
+those this tree changed (:data:`PARENT_ENTRY_POINTS`): the library
+:func:`other_library` returns drops the arguments a listed entry lacks
+(those just before its last, the options this tree's entries gained)
+from its calls, refusing a call that sets one of them. Needs ``nvcc``.
 
 :func:`empty_library` builds this tree's ``ln_fwd``, sampling and verify
 kernels returning at once, for the fixed cost of a launch.
@@ -57,16 +56,29 @@ SOURCES = ("layer_norm.cu", "softmax.cu", "paged_decode_attn.cu",
            "flash_attn_bwd_dropout.cu", "xent_stats.cu",
            "matmul_bias_act.cu", "errors.cu")
 #: the parent commit's entries whose signatures this tree changed, by
-#: their argtypes there: none (this tree only added entries, the flash
-#: pair's fp16 instances, which the parent's library lacks)
-PARENT_ENTRY_POINTS: Dict[str, list] = {}
+#: their argtypes there: the decode pair's quantized-pool and bias options
+#: (k_scale, v_scale, kv_dtype, lut, maxd before the stream; lut, maxd),
+#: their occupancy query's (kv_dtype, maxd before the count) and the bshd
+#: flash forward's bucketed bias (lut, maxd, rel_off before the stream)
+PARENT_ENTRY_POINTS: Dict[str, list] = {
+    "apex_paged_decode_attn": (_build.ENTRY_POINTS["apex_paged_decode_attn"]
+                               [:17] + [ctypes.c_void_p]),
+    "apex_decode_attn": (_build.ENTRY_POINTS["apex_decode_attn"][:15]
+                         + [ctypes.c_void_p]),
+    "apex_decode_attn_clusters": (
+        _build.ENTRY_POINTS["apex_decode_attn_clusters"][:8]
+        + _build.ENTRY_POINTS["apex_decode_attn_clusters"][-1:]),
+    "apex_flash_fwd_bshd": (_build.ENTRY_POINTS["apex_flash_fwd_bshd"][:26]
+                            + [ctypes.c_void_p]),
+}
 
 
 class ParentLibrary:
     """The parent's library under this tree's entry signatures: calls of
     the entries in :data:`PARENT_ENTRY_POINTS` drop the arguments the
-    parent does not take (a call asking for dropout, which the parent's
-    flash kernels have not, raises); every other entry is the parent's."""
+    parent does not take, those just before the last (a call that sets
+    one, not None or 0 — an option the parent's kernels have not —
+    raises); every other entry is the parent's."""
 
     def __init__(self, lib):
         self._lib = lib
@@ -75,11 +87,13 @@ class ParentLibrary:
         fn = getattr(self._lib, name)
         if name not in PARENT_ENTRY_POINTS:
             return fn
+        keep = len(PARENT_ENTRY_POINTS[name]) - 1
 
         def call(*args):
-            if args[-4]:  # the dropout threshold
-                raise ValueError(f"the parent's {name} has no dropout")
-            return fn(*args[:-5], args[-1])
+            if any(a not in (None, 0) for a in args[keep:-1]):
+                raise ValueError(f"the parent's {name} has no such option: "
+                                 f"{args[keep:-1]}")
+            return fn(*args[:keep], args[-1])
         return call
 
 

@@ -175,6 +175,29 @@ without the final line):
      rounds, acceptance, tokens per round, degraded rounds, the leg's
      seconds (``spec_serve``), and its launches x (time - bound) by mode
      (``spec_serve_verify_gap``);
+6b. quantized pools and the decode bias, on the serve's model and
+   weights: the paged kernel's int8 and fp8 instances at the serve's
+   shapes (8 slots, MHA and GQA, ragged lengths with 0) against their fp32
+   function within DECODE_TOL and the reference-order plain version
+   within its own distance from that function plus one bf16 ulp,
+   bit-identical across two runs, every scale at 1 refused, timed at 8 x
+   512 and a ragged mix in turns with the bf16 instance
+   (``quant_decode_times``); both decode kernels' bias instances (a
+   seeded causal table, 32 buckets, max distance 128) at the serve's and
+   the decode leg's shapes against the plain version, a zero table
+   refused, timed in turns with the unbiased instance and beside SDPA
+   with the bias as a float mask (``rel_decode_times``); then
+   ``quant_serve``: the greedy trace with kv_dtype="int8" and "fp8_e4m3"
+   (12 quantized launches per decode step asserted, tokens/s,
+   pool_bytes beside the float pool's, exact accounting at drain, the
+   teacher-forced max |logit difference| against the float pool over 32
+   tokens, ``quant_logit_err``), an int8 serve with the n-gram chain
+   drafter held to the int8 plain serve's tokens (near-ties only); and
+   ``rel_decode``: GPT-medium with a ``decode_rel_bias`` hook through
+   DecodeEngine at the decode leg's shape and a greedy serve (12 biased
+   launches per step asserted), the kernel path's logits against
+   impl="torch" on the same card (the gap at most twice the unbiased
+   model's plus DECODE_TOL, and below the bias's own effect);
 7. the train path: the same GPT-medium in bf16 (flash attention, no
    remat), batch 20 x 1024 seeded tokens, ``loss_fn`` + ``backward`` + one
    ``FusedAdam(lr=1e-4)`` step: a warm-up step, then 10 timed steps with
@@ -278,6 +301,15 @@ without the final line):
       ln_fwd/ln_bwd launches and no other flash launch per step asserted;
       tokens/s over all and over the valid positions, step ms, TFLOP/s,
       MFU, peak memory, the pad-mask host read's cost; 2 profiled steps;
+    * the bshd forward, dQ and dK/dV with T5's bucketed table (32
+      bidirectional buckets, max distance 128, a column a head) at BERT's
+      call, by the flash family's checks, the table gradient within 1e-3
+      relative norm of the plain version's and the fp32 truth's, timed in
+      turns with the bh-flat entry on the same data and beside SDPA with
+      the bias as a float mask; then ``bshd_rel_attention``: 3 forward and
+      backward steps of ``flash_attention(layout="bshd",
+      bias=BucketedBias)`` through autograd, one launch of each biased
+      kernel a step asserted;
 11. the array bias: the flat forward, dK/dV and dQ with an fp32 bias and
     the dbias kernel against their plain versions (dbias within 1e-3
     relative norm of the fp32 plain version) at T5's encoder call (hb 12,
@@ -366,8 +398,11 @@ without the final line):
       on CPU copies of four leaves by the CPU parity tests' tolerance, 2
       more, the median of 10 more beside the bytes bound; LAMB with its
       trust ratio left out (a patched copy of ``lamb_math``) refused;
-15. one ``{"kernels": [...]}`` line (all twenty-three kernels and the six
-    fp16 instances, ``<name>_f16``, each with
+15. one ``{"kernels": [...]}`` line (all twenty-three kernels, the six
+    fp16 instances, ``<name>_f16``, and the seven instances of this
+    slice: ``paged_decode_attn_int8``/``_fp8``/``_rel``,
+    ``decode_attn_rel``, ``flash_fwd_bshd_rel``,
+    ``flash_bwd_bshd_dq_rel``/``_dkv_rel``, each with
     its launches by main path; matmul_bias_act and the flash kernels
     also by variant, every train leg's, the decode leg's and the T5
     materialized leg's flash forward and dbias launches asserted on
@@ -525,26 +560,30 @@ def decode_case(torch, dev, h_kv, lengths, seed, copies=1):
     return sets
 
 
-def decode_plan_info(torch, q3, nb, bs, paged):
-    """The split plan of a decode call on q (rows, group, d): S (the
+def decode_plan_info(torch, q3, nb, bs, paged, kv_dtype=None, maxd=0):
+    """The split plan of a decode call on q (rows, group, d) — on a
+    quantized pool's ``kv_dtype`` or with the bias's ``maxd`` — S (the
     cluster's size), the ring's tiles, the CTAs, the shared memory, how
     many such clusters the card holds at once, and the instance's
     registers and spills (ptxas)."""
     from apex_tpu_torch.ops import decode_attention as D
 
     rows, group, d = q3.shape
-    plan = D._plan_for(q3, nb, bs)
-    clusters = D.max_active_clusters(plan, q3.dtype, d, group, bs, paged)
+    plan = D._plan_for(q3, nb, bs, kv_dtype, maxd)
+    clusters = D.max_active_clusters(plan, q3.dtype, d, group, bs, paged,
+                                     kv_dtype, maxd)
     check(clusters >= 1, f"the card holds no cluster of the decode plan "
           f"{plan}")
     dtype = "__nv_bfloat16" if q3.dtype == torch.bfloat16 else "float"
+    cells = {torch.int8: "signed char",
+             torch.float8_e4m3fn: "__nv_fp8_e4m3"}.get(kv_dtype, dtype)
     return {"rows": rows, "group": group, "blocks": nb, "block_rows": bs,
             "splits": plan.splits, "cluster": [plan.splits, 1, 1],
             "ctas": rows * plan.splits, "tiles": plan.tiles,
             "smem_bytes": plan.smem, "max_active_clusters": clusters,
-            "ptxas": ptxas_of("decode_kernel", (dtype, str(d), str(group),
-                                                "true" if paged else
-                                                "false"))}
+            "ptxas": ptxas_of("decode_kernel", (
+                dtype, cells, str(d), str(group),
+                "true" if paged else "false", "true" if maxd else "false"))}
 
 
 def decode_split_sweep(torch, fn, sets, zero_sets, q3, nb, bs, what):
@@ -2695,6 +2734,798 @@ def serve_verify_gap(kernels, by_mode):
     return dict(out, total_gap_ms=total)
 
 
+# --- quantized pools and the decode bias -------------------------------------
+
+# the serving engine's quantized pools (kv_dtype), each a kernel instance
+QUANT_KV = ("int8", "fp8_e4m3")
+QUANT_NAMES = {"int8": "paged_decode_attn_int8",
+               "fp8_e4m3": "paged_decode_attn_fp8"}
+# teacher-forced decode steps of the quantized serve's logit error
+# (bench.py::_spec_quant_err's 32 tokens)
+QUANT_ERR_TOKENS = 32
+# the decode bias: T5's bucketing (32 causal buckets, max distance 128),
+# one seeded table column a query head
+REL_BUCKETS, REL_MAX_DISTANCE, REL_SEED = 32, 128, 71
+# teacher-forced decode steps at which the biased model's kernel-path
+# logits are held against its plain path's
+REL_LOGIT_STEPS = 8
+
+
+def quant_pools(torch, pk, pv, kv):
+    """Pools quantized row by row as the serving engine's write sites do
+    (``_quant_rows`` over each block row's kv heads and head_dim): (k
+    cells, v cells, k_scale, v_scale)."""
+    from apex_tpu_torch.serving.engine import KV_QUANT_SPECS, _quant_rows
+
+    qmax, qdtype = KV_QUANT_SPECS[kv]
+    cells, scales = [], []
+    for pool in (pk, pv):
+        c, s = _quant_rows(pool.transpose(1, 2), (2, 3), qmax=qmax,
+                           qdtype=qdtype)
+        cells.append(c.transpose(1, 2).contiguous())
+        scales.append(s.contiguous())
+    return cells[0], cells[1], scales[0], scales[1]
+
+
+def quant_rule(got, plain, want32):
+    """The quantized kernel's rules: within DECODE_TOL of its fp32
+    function (``quant_decode_fp32``: the kernel differs from it by its
+    bf16 output rounding and fp32 sums in another order), and within the
+    reference-order plain version's own distance from that function plus
+    one bf16 ulp of its largest output (the plain version rounds the
+    dequantized cells and p to bf16: the triangle inequality's bound).
+    Returns (ok, err vs the function, err vs the plain version, that
+    bound)."""
+    e32 = (got.float() - want32).abs().max().item()
+    ep = (got.float() - plain.float()).abs().max().item()
+    gap = ((plain.float() - want32).abs().max().item()
+           + 2.0 ** -8 * want32.abs().max().item())
+    return e32 <= DECODE_TOL and ep <= gap, e32, ep, gap
+
+
+def quant_bytes(b, h, h_kv, d, live, cell):
+    """Bytes a paged decode call must move: q in and out (bf16), each live
+    row's K and V cells once (``cell`` bytes each), a quantized pool's two
+    fp32 scales a live row, the tables and lengths."""
+    scales = 2 * live * 4 if cell == 1 else 0
+    return (2 * b * h * d * 2 + 2 * live * h_kv * d * cell + scales
+            + b * 8 * 4 + b * 4)
+
+
+def phase_quant_decode_kernel(torch, dev):
+    """The paged kernel's int8 and fp8 instances at the serve's shapes (8
+    slots, MHA and GQA, block 128, d 128, 41 blocks, permuted tables,
+    ragged lengths with a 0): each against its fp32 function and the
+    reference-order plain version (``quant_rule``), bit-identical across
+    two runs, length-0 slots zeros, every scale at 1 (a planted fault)
+    refused; the plans with ptxas's registers and spills; times at 8 x
+    512 and at the ragged mix in turns with the bf16 instance on the same
+    rows (quant, bf16, bf16, quant), each with its bytes bound."""
+    from apex_tpu_torch.ops import decode_attention as D
+
+    ragged = [0, 1, 127, 128, 129, 300, 512, 1000]
+    b, h, d = 8, 8, 128
+    errs = {kv: 0.0 for kv in QUANT_KV}
+    plans = {}
+    for h_kv in (8, 2):
+        (q, pk, pv, lens, tables), = decode_case(torch, dev, h_kv, ragged,
+                                                 seed=h_kv + 20)
+        q3 = q.reshape(b * h_kv, h // h_kv, d)
+        for kv in QUANT_KV:
+            kc, vc, ks, vs = quant_pools(torch, pk, pv, kv)
+            kw = dict(block_tables=tables, k_scale=ks, v_scale=vs)
+            got = D.decode_attention(q, kc, vc, lens, **kw)
+            again = D.decode_attention(q, kc, vc, lens, **kw)
+            plain = D.decode_attention(q, kc, vc, lens, impl="torch", **kw)
+            want32 = D.quant_decode_fp32(q.float(), kc, vc, lens, tables,
+                                         ks, vs)
+            bad = D.paged_decode_attn_cuda(
+                q3, kc, vc, lens, tables, scale=d ** -0.5, k_scale=ks,
+                v_scale=vs, planted_fault="unit_scales").reshape(b, h, d)
+            decode_repeat_check(torch, got, again, f"{kv} decode kernel")
+            check(torch.isfinite(got.float()).all().item(),
+                  f"{kv} decode kernel output not finite")
+            check(not got[lens == 0].any().item(),
+                  f"{kv} decode kernel: length-0 slot not zeros")
+            ok, e32, ep, gap = quant_rule(got, plain, want32)
+            bad_ok, bad32, badp, _ = quant_rule(bad, plain, want32)
+            plans[f"{kv} h_kv={h_kv}"] = decode_plan_info(
+                torch, q3, 8, 128, True, kv_dtype=kc.dtype)
+            emit("quant_decode_check", {
+                "kv_dtype": kv, "h_kv": h_kv, "lengths": ragged,
+                "splits": plans[f"{kv} h_kv={h_kv}"]["splits"],
+                "max_abs_err_vs_fp32_function": e32, "tol": DECODE_TOL,
+                "max_abs_err_vs_plain": ep, "plain_tol": gap,
+                "unit_scales_fault_err": [bad32, badp]})
+            check(ok, f"{kv} decode kernel: err {e32} vs its fp32 function "
+                  f"(tol {DECODE_TOL}), {ep} vs the plain version (tol "
+                  f"{gap}), h_kv={h_kv}")
+            check(not bad_ok, f"{kv} decode kernel: the rules let the "
+                  f"planted unit-scales fault through")
+            errs[kv] = max(errs[kv], e32)
+    emit("decode_plan", {"kernel": "paged_decode_attn (int8, fp8)",
+                         "plans": plans})
+
+    kern_q = lambda q, kc, vc, ks, vs, n, t: D.decode_attention(  # noqa
+        q, kc, vc, n, block_tables=t, k_scale=ks, v_scale=vs)
+    kern_b = lambda q, pk, pv, n, t: D.decode_attention(  # noqa: E731
+        q, pk, pv, n, block_tables=t)
+    per = {kv: {} for kv in QUANT_KV}
+    serve_sets = {}
+    for what, lengths in (("serve_512", [512] * 8),
+                          ("ragged", [330, 1000, 512, 640, 384, 896, 600,
+                                      350])):
+        sets = decode_case(torch, dev, 8, lengths, seed=3, copies=6)
+        live = sum(lengths)
+        bf_bound = bound(quant_bytes(b, h, 8, d, live, 2), 4 * live * h * d,
+                         BF16_OPS_PER_S)
+        for kv in QUANT_KV:
+            qsets = [(q, *quant_pools(torch, pk, pv, kv), n, t)
+                     for q, pk, pv, n, t in sets]
+            turns = [time_ms(kern_q, qsets), time_ms(kern_b, sets),
+                     time_ms(kern_b, sets), time_ms(kern_q, qsets)]
+            bms, by = bound(quant_bytes(b, h, 8, d, live, 1),
+                            4 * live * h * d, BF16_OPS_PER_S)
+            per[kv][what] = {"lengths": lengths,
+                             "ms": (turns[0] + turns[3]) / 2,
+                             "bf16_ms": (turns[1] + turns[2]) / 2,
+                             "turns_ms": turns, "bound_ms": bms,
+                             "bound_by": by, "bf16_bound_ms": bf_bound[0]}
+            emit("quant_decode_times", dict(per[kv][what], call=what,
+                                            kv_dtype=kv))
+            if what == "serve_512":
+                serve_sets[kv] = qsets
+            del qsets
+        del sets
+    torch.cuda.empty_cache()
+    out = []
+    for kv in QUANT_KV:
+        plain = lambda q, kc, vc, ks, vs, n, t: D.decode_attention(  # noqa
+            q, kc, vc, n, block_tables=t, k_scale=ks, v_scale=vs,
+            impl="torch")
+        serve = per[kv]["serve_512"]
+        out.append({
+            "name": QUANT_NAMES[kv], "route": "cuda",
+            "source": "apex_tpu_torch/csrc/paged_decode_attn_quant.cu",
+            "replaces": "apex_tpu/ops/pallas/decode_attention.py:211",
+            "max_abs_err": errs[kv], "ms": serve["ms"],
+            "bf16_ms": serve["bf16_ms"],
+            "plain_ms": time_ms(plain, serve_sets[kv], reps=5),
+            "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
+            "library_ms": None,
+            "library_note": "no PyTorch call attends over 1-byte cells "
+                            "with per-row scales",
+            "kernel_note": "the paged body's instance for "
+                           f"{kv} cells (the body in paged_decode_attn.cu); "
+                           "max_abs_err against its fp32 function; bf16_ms: "
+                           "the bf16 instance on the same rows, in turns",
+            "timed_shape": {"slots": b, "heads": h, "kv_heads": 8,
+                            "head_dim": d, "block": 128,
+                            "live_rows_per_slot": 512, "cells": kv},
+            "plan": plans[f"{kv} h_kv=8"], "per_shape": per[kv]})
+    del serve_sets
+    torch.cuda.empty_cache()
+    return out
+
+
+def rel_table(torch, dev, h, std=1.0):
+    g = torch.Generator(device=dev).manual_seed(REL_SEED)
+    return torch.randn((REL_BUCKETS, h), generator=g, device=dev) * std
+
+
+def causal_rel_bias(table):
+    from apex_tpu_torch.ops.attention import BucketedBias
+
+    return BucketedBias(table, bidirectional=False,
+                        max_distance=REL_MAX_DISTANCE)
+
+
+def rel_checks(torch, D, q, k, v, lens, bias, kw, what):
+    """One biased decode call: the kernel against the plain version with
+    the bias (DECODE_TOL), bit-identical across two runs, length-0 rows
+    zeros, and a zero table (the bias left out) refused. Returns the
+    error."""
+    got = D.decode_attention(q, k, v, lens, bias=bias, **kw)
+    again = D.decode_attention(q, k, v, lens, bias=bias, **kw)
+    want = D.decode_attention(q, k, v, lens, bias=bias, impl="torch", **kw)
+    zero = D.decode_attention(q, k, v, lens, bias=causal_rel_bias(
+        torch.zeros_like(bias.table)), **kw)
+    decode_repeat_check(torch, got, again, f"{what} biased decode kernel")
+    e = (got.float() - want.float()).abs().max().item()
+    ez = (zero.float() - want.float()).abs().max().item()
+    check(torch.isfinite(got.float()).all().item(),
+          f"{what} biased decode kernel output not finite")
+    check(not got[lens == 0].any().item(),
+          f"{what} biased decode kernel: length-0 row not zeros")
+    emit("rel_decode_check", {"call": what, "max_abs_err": e,
+                              "tol": DECODE_TOL, "zero_table_err": ez})
+    check(e <= DECODE_TOL, f"{what} biased decode kernel vs plain: max abs "
+          f"err {e} > {DECODE_TOL}")
+    check(ez > DECODE_TOL, f"{what}: the rule let a zero table through")
+    return e
+
+
+def rel_library(torch, D, F, bias, q, k, v, lens):
+    """SDPA with the bias and the length mask folded into one float mask
+    (the plain version's bias), on a contiguous cache (b, h_kv, s, d)."""
+    b, h, d = q.shape
+    h_kv, max_s = k.shape[1], k.shape[2]
+    fm = D._bias_scores(bias, lens, h_kv, h // h_kv, max_s).reshape(
+        b, h, 1, max_s)
+    live = (torch.arange(max_s, device=q.device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    fm = fm.masked_fill(~live, float("-inf")).to(q.dtype)
+    kk = k.repeat_interleave(h // h_kv, 1)
+    vv = v.repeat_interleave(h // h_kv, 1)
+    return F.scaled_dot_product_attention(q[:, :, None, :], kk, vv,
+                                          attn_mask=fm)
+
+
+def phase_rel_decode_kernel(torch, dev):
+    """Both decode kernels' bias instances with a seeded causal table (32
+    buckets, max distance 128, 8 heads): the paged one at the serve's
+    shapes (MHA and GQA, ragged lengths with 0), the contiguous one at the
+    decode leg's (16 x 8 rows, max_s 1024, ragged, and GQA) (``rel_checks``;
+    the plans with ptxas's registers and spills); times at 8 x 512 (paged)
+    and 16 x 640 (contiguous) in turns with the unbiased instance, each
+    with its bound, and SDPA with the bias as a float mask."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import decode_attention as D
+
+    b, h, d = 8, 8, 128
+    bias = causal_rel_bias(rel_table(torch, dev, h))
+    ragged = [0, 1, 127, 128, 129, 300, 512, 1000]
+    errs, plans = {"paged": 0.0, "contig": 0.0}, {}
+    for h_kv in (8, 2):
+        (q, pk, pv, lens, tables), = decode_case(torch, dev, h_kv, ragged,
+                                                 seed=h_kv + 30)
+        errs["paged"] = max(errs["paged"], rel_checks(
+            torch, D, q, pk, pv, lens, bias, dict(block_tables=tables),
+            f"paged h_kv={h_kv}"))
+        plans[f"paged h_kv={h_kv}"] = decode_plan_info(
+            torch, q.reshape(b * h_kv, h // h_kv, d), 8, 128, True,
+            maxd=REL_MAX_DISTANCE)
+    B, max_s = DECODE_BATCH, 1024
+    c_ragged = ([0, 1, 127, 128, 129, 300, 512, 513, 600, 640, 700, 900,
+                 1000, 1023, 1024, 2] * B)[:B]
+
+    def ccase(h_kv, lengths, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        q = torch.randn((B, h, d), generator=g, device=dev).bfloat16()
+        k = torch.randn((B, h_kv, max_s, d), generator=g,
+                        device=dev).bfloat16()
+        v = torch.randn((B, h_kv, max_s, d), generator=g,
+                        device=dev).bfloat16()
+        return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+    for h_kv in (8, 2):
+        q, k, v, lens = ccase(h_kv, c_ragged, seed=h_kv + 35)
+        errs["contig"] = max(errs["contig"], rel_checks(
+            torch, D, q, k, v, lens, bias, {}, f"contiguous h_kv={h_kv}"))
+        plans[f"contig h_kv={h_kv}"] = decode_plan_info(
+            torch, q.reshape(B * h_kv, h // h_kv, d), max_s // 128, 128,
+            False, maxd=REL_MAX_DISTANCE)
+    emit("decode_plan", {"kernel": "decode_attn and paged_decode_attn "
+                         "(bias)", "plans": plans})
+
+    lut_bytes = h * (2 * REL_MAX_DISTANCE + 1) * 4
+    out = []
+    for name, kind in (("paged_decode_attn_rel", "paged"),
+                       ("decode_attn_rel", "contig")):
+        if kind == "paged":
+            sets = decode_case(torch, dev, 8, [512] * 8, seed=3, copies=6)
+            live, bb = 512 * 8, b
+            kw_of = lambda s: dict(block_tables=s[4])  # noqa: E731
+            lib_sets = [(q, D._gather_blocks(pk, t), D._gather_blocks(pv, t),
+                         n) for q, pk, pv, n, t in sets[:2]]
+        else:
+            L = DECODE_PROMPT + DECODE_NEW
+            sets = [ccase(8, [L] * B, seed=50 + i) + (None,)
+                    for i in range(2)]
+            live, bb = L * B, B
+            kw_of = lambda s: {}  # noqa: E731
+            lib_sets = [s[:4] for s in sets]
+
+        def biased(*s, kw_of=kw_of):
+            return D.decode_attention(*s[:4], bias=bias, **kw_of(s))
+
+        def unbiased(*s, kw_of=kw_of):
+            return D.decode_attention(*s[:4], **kw_of(s))
+
+        def plain(*s, kw_of=kw_of):
+            return D.decode_attention(*s[:4], bias=bias, impl="torch",
+                                      **kw_of(s))
+        turns = [time_ms(biased, sets), time_ms(unbiased, sets),
+                 time_ms(unbiased, sets), time_ms(biased, sets)]
+        bms, by = bound(quant_bytes(bb, h, 8, d, live, 2) + lut_bytes,
+                        4 * live * h * d, BF16_OPS_PER_S)
+        lib_ms = time_ms(lambda q, k, v, n: rel_library(
+            torch, D, F, bias, q, k, v, n), lib_sets, reps=5)
+        entry = {"name": name, "route": "cuda",
+                 "source": "apex_tpu_torch/csrc/paged_decode_attn_rel.cu",
+                 "replaces": ("apex_tpu/ops/pallas/decode_attention.py:211"
+                              if kind == "paged" else
+                              "apex_tpu/ops/pallas/decode_attention.py:149"),
+                 "max_abs_err": errs[kind],
+                 "ms": (turns[0] + turns[3]) / 2,
+                 "unbiased_ms": (turns[1] + turns[2]) / 2,
+                 "turns_ms": turns,
+                 "plain_ms": time_ms(plain, sets, reps=5),
+                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+                 "library_note": "F.scaled_dot_product_attention with the "
+                                 "bias and the length mask as one float "
+                                 "mask" + (", on the gathered cache"
+                                           if kind == "paged" else ""),
+                 "kernel_note": "the body's causal bucketed-bias instance "
+                                "(32 buckets, max distance 128, a lookup "
+                                "in shared memory); unbiased_ms: the "
+                                "unbiased instance on the same rows, in "
+                                "turns",
+                 "timed_shape": {"rows": bb, "heads": h, "kv_heads": 8,
+                                 "head_dim": d,
+                                 "live_rows_per_row": live // bb},
+                 "plan": plans[f"{kind} h_kv=8"]}
+        emit("rel_decode_times", {k_: entry[k_] for k_ in (
+            "name", "ms", "unbiased_ms", "turns_ms", "bound_ms",
+            "library_ms")})
+        out.append(entry)
+        del sets, lib_sets
+        torch.cuda.empty_cache()
+    return out
+
+
+def quant_serve_run(torch, model, params, dev, kv, draft=None):
+    """One greedy serve of the whole trace with a ``kv`` pool, its paged
+    decode counters zeroed just before and read just after: 12 launches
+    of the quantized instance per plain decode step and none of another,
+    exact accounting at drain. Returns (tokens by rid, info, launches)."""
+    from apex_tpu_torch.ops import decode_attention as D
+    from apex_tpu_torch.serving.engine import ServingEngine
+
+    eng = ServingEngine(model, device=dev, kv_dtype=kv, **ENGINE)
+    sched = eng.make_scheduler()
+    reqs = build_trace()
+    fn = D.paged_decode_attn_cuda
+    torch.cuda.synchronize()
+    fn.launches = fn.int8_launches = fn.fp8_launches = fn.rel_launches = 0
+    t0 = time.perf_counter()
+    done = eng.serve(params, reqs, scheduler=sched, draft=draft)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_decode_attn": fn.launches,
+                "paged_decode_attn_int8": fn.int8_launches,
+                "paged_decode_attn_fp8": fn.fp8_launches}
+    check(len(done) == len(reqs), f"{kv} serve lost requests")
+    for r in done:
+        check(len(r.tokens) == r.max_new_tokens
+              and all(0 <= t < MODEL["vocab_size"] for t in r.tokens),
+              f"{kv} serve: request {r.rid} bad tokens")
+    sched.allocator.check_accounting()
+    check(sched.allocator.num_live == sched.allocator.num_resident,
+          f"{kv} serve: blocks live beyond the prefix cache's residents "
+          f"after drain")
+    st = eng.last_stats
+    L = MODEL["num_layers"]
+    plain = st.decode_steps - st.spec_rounds
+    mine = QUANT_NAMES[kv]
+    check(launches["paged_decode_attn"] == launches[mine] == L * plain
+          and fn.rel_launches == 0,
+          f"{kv} serve: {launches} paged decode launches for {plain} plain "
+          f"steps x {L} layers")
+    n_tok = sum(len(r.tokens) for r in done)
+    info = {"kv_dtype": kv, "requests": len(done), "tokens": n_tok,
+            "wall_s": wall, "tokens_per_s": n_tok / wall,
+            "decode_steps": st.decode_steps, "plain_steps": plain,
+            "spec_rounds": st.spec_rounds,
+            "prefill_chunks": st.prefill_chunks,
+            "decode_step_ms": 1e3 * st.decode_s / max(st.decode_steps, 1),
+            "preemptions": sched.preemptions,
+            "prefix_hit_blocks": sum(r.prefix_hit_blocks for r in done),
+            "pool_bytes": eng.pool_bytes(), "launches": launches,
+            "launches_per_plain_step": launches[mine] / max(plain, 1)}
+    return {r.rid: list(r.tokens) for r in done}, info, launches
+
+
+def teacher_forced_logits(torch, engine, params, dev, prompt, n, forced):
+    """One request through ``engine``'s own steps (prefill chunks, then
+    n - 1 decode steps), each step's sampled token replaced by
+    ``forced[t]`` where given: (logits (n - 1, V) fp32, the tokens)."""
+    from apex_tpu_torch.serving.scheduler import Request
+
+    sched = engine.make_scheduler()
+    sched.submit(Request(rid=0, prompt=prompt, max_new_tokens=n))
+    sched.admit(0.0)
+    pool = engine.init_pool()
+    as_dev = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+    while True:
+        w = sched.next_prefill(0.0)
+        if w is None:
+            break
+        tok, _ = engine.prefill_chunk(params, pool,
+                                      as_dev(sched.tables.row(w.slot)),
+                                      as_dev(w.tokens), w.start, w.live)
+        sched.note_prefill(w, int(tok), 0.0)
+    rows, toks = [], []
+    for t in range(n - 1):
+        batch = sched.decode_batch(0.0)
+        if batch is None:
+            break
+        tk, lens = batch
+        sampled, logits = engine.decode_step(
+            params, pool, as_dev(sched.tables.asarray()), as_dev(tk),
+            as_dev(lens))
+        sampled = sampled.cpu().numpy().copy()
+        if forced is not None:
+            sampled[0] = forced[t]
+        rows.append(logits[0].float())
+        toks.append(int(sampled[0]))
+        sched.note_decode(sampled, 0.0)
+    return torch.stack(rows), toks
+
+
+def phase_quant_serve(torch, model, params, dev, float_toks):
+    """The serve's GPT-medium, ENGINE and trace with a quantized pool:
+    greedy with kv_dtype="int8", then "fp8_e4m3" (``quant_serve_run``):
+    tokens/s, launches, pool_bytes beside the float pool's, the share of
+    requests token-identical to the float pool's greedy serve
+    (``float_toks``, the main path's); the teacher-forced
+    max |logit difference| against the float pool over 32 tokens (one
+    request, its prompt halved: bench.py::_spec_quant_err); an int8 serve
+    with the n-gram chain drafter, whose tokens must equal the int8 plain
+    serve's or leave them only at a near-tie (``spec_near_ties``).
+    Returns (info, launches)."""
+    from apex_tpu_torch.serving.engine import ServingEngine
+    from apex_tpu_torch.spec import NGramDrafter
+
+    float_eng = ServingEngine(model, device=dev, **ENGINE)
+    info, totals = {"float_pool_bytes": float_eng.pool_bytes()}, {}
+    plain_by_kv = {}
+    for kv in QUANT_KV:
+        toks, inf, launches = quant_serve_run(torch, model, params, dev, kv)
+        for k, n in launches.items():
+            totals[k] = totals.get(k, 0) + n
+        inf["share_of_requests_identical_to_float_pool"] = sum(
+            toks[r] == float_toks[r] for r in toks) / len(toks)
+        inf["pool_bytes_over_float"] = inf["pool_bytes"] / info[
+            "float_pool_bytes"]
+        check(inf["pool_bytes"] < 0.6 * info["float_pool_bytes"],
+              f"{kv} pool_bytes {inf['pool_bytes']} not about half the "
+              f"float pool's {info['float_pool_bytes']}")
+        info[kv] = inf
+        plain_by_kv[kv] = toks
+        torch.cuda.empty_cache()
+    req = build_trace()[0]
+    prompt = np.asarray(req.prompt[:max(len(req.prompt) // 2, 4)], np.int32)
+    oracle, forced = teacher_forced_logits(torch, float_eng, params, dev,
+                                           prompt, QUANT_ERR_TOKENS, None)
+    for kv in QUANT_KV:
+        q_eng = ServingEngine(model, device=dev, kv_dtype=kv, **ENGINE)
+        got, _ = teacher_forced_logits(torch, q_eng, params, dev, prompt,
+                                       QUANT_ERR_TOKENS, forced)
+        err = (got - oracle).abs().max().item()
+        check(np.isfinite(err), f"{kv} teacher-forced logits not finite")
+        info[kv]["logit_err"] = {
+            "max_abs": err, "tokens": QUANT_ERR_TOKENS,
+            "oracle_max_abs_logit": oracle.abs().max().item(),
+            "top1_agreement": float((got.argmax(-1) == oracle.argmax(
+                -1)).float().mean())}
+    emit("quant_logit_err", {kv: info[kv]["logit_err"] for kv in QUANT_KV})
+    spec, s_inf, s_launch = quant_serve_run(torch, model, params, dev,
+                                            "int8",
+                                            draft=NGramDrafter(SPEC_K))
+    for k, n in s_launch.items():
+        totals[k] = totals.get(k, 0) + n
+    check(s_inf["spec_rounds"] > 0, "int8 spec serve: no round ran")
+    s_inf["vs_int8_plain"] = spec_near_ties(
+        torch, model, params, build_trace(), spec, plain_by_kv["int8"],
+        "int8 chain")
+    info["int8_spec_chain"] = s_inf
+    del float_eng
+    torch.cuda.empty_cache()
+    return info, totals
+
+
+def rel_gpt(torch, model, dev):
+    """GPT-medium with a ``decode_rel_bias`` hook: the seeded causal table
+    (32 buckets, max distance 128, a column a head)."""
+    from apex_tpu_torch.models.gpt import GPTModel
+
+    class RelGPT(GPTModel):
+        def decode_rel_bias(self, params):
+            return causal_rel_bias(self.table)
+
+    m = RelGPT(model.config)
+    m.table = rel_table(torch, dev, model.config.num_heads)
+    return m
+
+
+def decode_forced_logits(torch, eng, params, prompt, steps):
+    """The prefill's logits, then ``steps`` decode steps' (each fed the
+    greedy token of the first engine's run: teacher-forced), (steps + 1,
+    b, V) fp32, and those tokens."""
+    cache, tok, lg = eng.prefill(params, prompt)
+    rows, toks = [lg.float()], [tok]
+    for t in range(steps):
+        cache, tok, lg = eng.decode_step(params, cache, toks[-1],
+                                         prompt.shape[1] + t)
+        rows.append(lg.float())
+        toks.append(tok)
+    return torch.stack(rows), toks
+
+
+def phase_rel_decode(torch, model, params, dev):
+    """GPT-medium with a ``decode_rel_bias`` hook (``rel_gpt``), on the
+    serve's weights: a) DecodeEngine at the decode leg's shape (16 x 512,
+    128 new tokens, greedy) with the contiguous kernel's launches counted
+    (12 biased launches per step); its logits over REL_LOGIT_STEPS
+    teacher-forced steps held against impl="torch" on the same card: the
+    biased model's kernel-vs-plain gap at most twice the unbiased model's
+    plus DECODE_TOL, and below the bias's own effect; b) a greedy serve of
+    the trace (12 biased paged launches per decode step), and one serve
+    decode step on a seeded pool against impl="torch" by the same rule.
+    Returns (info, launches)."""
+    from apex_tpu_torch.inference import DecodeEngine
+    from apex_tpu_torch.ops import decode_attention as D
+    from apex_tpu_torch.serving.engine import ServingEngine
+
+    rmodel = rel_gpt(torch, model, dev)
+    L = MODEL["num_layers"]
+    prompt = decode_prompt(torch, dev)
+    info = {}
+    eng = DecodeEngine(rmodel, device=dev)
+    eng.generate(params, prompt[:, :DECODE_PROMPT], 2)  # warm-up
+    c = D.decode_attn_cuda
+    torch.cuda.synchronize()
+    c.launches = c.rel_launches = 0
+    t0 = time.perf_counter()
+    out = eng.generate(params, prompt, DECODE_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = DECODE_NEW - 1
+    check(c.launches == c.rel_launches == L * steps,
+          f"rel decode: {c.launches} decode_attn launches ({c.rel_launches} "
+          f"biased) for {steps} steps x {L} layers")
+    check(((out >= 0) & (out < MODEL["vocab_size"])).all().item(),
+          "rel decode produced a token outside the vocabulary")
+    launches = {"decode_attn": c.launches, "decode_attn_rel": c.rel_launches}
+    info["decode_engine"] = {"batch": DECODE_BATCH, "prompt": DECODE_PROMPT,
+                             "new_tokens": DECODE_NEW, "wall_s": wall,
+                             "tokens_per_s": DECODE_BATCH * DECODE_NEW / wall,
+                             "launches": dict(launches)}
+    gaps = {}
+    for what, m in (("biased", rmodel), ("unbiased", model)):
+        k_rows, toks = decode_forced_logits(
+            torch, DecodeEngine(m, device=dev), params, prompt,
+            REL_LOGIT_STEPS)
+        p_eng = DecodeEngine(m, device=dev, impl="torch")
+        cache, _, lg = p_eng.prefill(params, prompt)
+        p_rows = [lg.float()]
+        for t in range(REL_LOGIT_STEPS):
+            cache, _, lg = p_eng.decode_step(params, cache, toks[t],
+                                             DECODE_PROMPT + t)
+            p_rows.append(lg.float())
+        gaps[what] = (k_rows - torch.stack(p_rows)).abs().max().item()
+        if what == "biased":
+            biased_rows = k_rows
+        else:
+            gaps["bias_effect"] = (biased_rows - k_rows).abs().max().item()
+        del cache, p_eng
+        torch.cuda.empty_cache()
+    info["decode_engine"]["logit_gaps"] = gaps
+    check(gaps["biased"] <= 2 * gaps["unbiased"] + DECODE_TOL
+          and gaps["biased"] < gaps["bias_effect"],
+          f"rel decode: kernel-vs-plain logit gaps {gaps}")
+
+    s_eng = ServingEngine(rmodel, device=dev, **ENGINE)
+    p = D.paged_decode_attn_cuda
+    torch.cuda.synchronize()
+    p.launches = p.rel_launches = 0
+    t0 = time.perf_counter()
+    done = s_eng.serve(params, build_trace())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = s_eng.last_stats
+    check(p.launches == p.rel_launches == L * st.decode_steps,
+          f"rel serve: {p.launches} paged launches ({p.rel_launches} "
+          f"biased) for {st.decode_steps} steps x {L} layers")
+    launches.update(paged_decode_attn=p.launches,
+                    paged_decode_attn_rel=p.rel_launches)
+    n_tok = sum(len(r.tokens) for r in done)
+    info["serve"] = {"tokens": n_tok, "wall_s": wall,
+                     "tokens_per_s": n_tok / wall,
+                     "decode_steps": st.decode_steps,
+                     "launches": {"paged_decode_attn": p.launches,
+                                  "paged_decode_attn_rel": p.rel_launches}}
+
+    (q, pk, pv, lens, tables), = decode_case(torch, dev, 8, [0, 1, 127, 128,
+                                                             129, 300, 512,
+                                                             1000], seed=77)
+    g = torch.Generator(device=dev).manual_seed(78)
+    tokens = torch.randint(0, MODEL["vocab_size"], (8,), generator=g,
+                           device=dev, dtype=torch.int32)
+    cfg = model.config
+    shape = (L, ENGINE["num_blocks"], cfg.kv_heads, ENGINE["block_size"],
+             cfg.head_dim)
+    base = torch.randn(shape, generator=g, device=dev).bfloat16()
+    del q, pk, pv
+    step_gaps = {}
+    for what, m in (("biased", rmodel), ("unbiased", model)):
+        rows = []
+        for impl in ("auto", "torch"):
+            e = ServingEngine(m, device=dev, impl=impl, **ENGINE)
+            pool = {"k": base.clone(), "v": base.flip(0).clone()}
+            _, lg = e.decode_step(params, pool, tables, tokens, lens)
+            rows.append(lg.float())
+        step_gaps[what] = (rows[0] - rows[1]).abs().max().item()
+        if what == "biased":
+            b_row = rows[0]
+        else:
+            step_gaps["bias_effect"] = (b_row - rows[0]).abs().max().item()
+    info["serve"]["decode_step_logit_gaps"] = step_gaps
+    check(step_gaps["biased"] <= 2 * step_gaps["unbiased"] + DECODE_TOL
+          and step_gaps["biased"] < step_gaps["bias_effect"],
+          f"rel serve step: kernel-vs-plain logit gaps {step_gaps}")
+    del s_eng, base
+    torch.cuda.empty_cache()
+    return info, launches
+
+
+def phase_bshd_rel_kernels(torch, dev):
+    """The bshd forward, dQ and dK/dV with T5's bucketed table (32
+    bidirectional buckets, max distance 128, a column a head) at BERT's
+    call (32 x 512, 16 heads of 64, views of one packed projection,
+    seeded lengths with a full row and one of length 0): the flash family
+    checks (``family_check``: the bf16 rule, the sm80 variant, wgmma
+    bit-identical, the two planted faults) and the table gradient within
+    T5_DTABLE_TOL relative norm of the plain version's and of the fp32
+    truth's; times beside the bh-flat route on the same data (the
+    operands' (b, h, s, d) views, per-row lengths) and SDPA with the bias
+    as a float mask, with bounds; then the path: 3 forward + backward
+    steps of ``flash_attention(layout="bshd", bias=BucketedBias)``
+    through autograd with the counters zeroed just before and read just
+    after (one launch of each biased kernel a step). Returns (kernel
+    entries, launches)."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import attention as A
+
+    b, s = BERT_BATCH, BERT_SEQ
+    h = BERT["num_heads"]
+    d = BERT["hidden_size"] // h
+    table = rel_table(torch, dev, h, std=0.5)
+    bias = A.BucketedBias(table, bidirectional=True,
+                          max_distance=REL_MAX_DISTANCE)
+    lens = seeded_lens(torch, dev, b, BERT_PAD_MIN, s, seed=81)
+    lens[0], lens[1] = s, 0
+    q, k, v, do = packed_views(torch, dev, b, s, h, h, d, 82)
+    kw = dict(scale=d ** -0.5, causal=False, kv_lens=lens, rel_bias=bias)
+    shape = {"b": b, "s": s, "h": h, "d": d, "buckets": REL_BUCKETS,
+             "max_distance": REL_MAX_DISTANCE, "bidirectional": True,
+             "kv_lens": lens.tolist()[:8]}
+    errs = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0, "dbias": 0.0}
+    family_check(torch, "bshd", q, k, v, do, kw, shape, errs, "bshd_rel")
+    o, lse = A.flash_fwd_bshd(q, k, v, **kw)
+    got = A.flash_bwd_bshd(q, k, v, o, lse, do, **kw)[3]
+    plain = A.flash_bwd_bshd(q, k, v, o, lse, do, impl="torch", **kw)[3]
+    truth = A.flash_bwd_bshd(*(t.float() for t in (q, k, v, o)), lse,
+                             do.float(), impl="torch", **kw)[3]
+    rel_p = ((got - plain).norm() / plain.norm()).item()
+    rel_t = ((got - truth).norm() / truth.norm()).item()
+    emit("flash_check", {"output": "bshd_rel dtable", "shape": shape,
+                         "rel_norm_err_vs_plain": rel_p,
+                         "rel_norm_err_vs_fp32": rel_t,
+                         "tol": T5_DTABLE_TOL})
+    check(rel_p <= T5_DTABLE_TOL and rel_t <= T5_DTABLE_TOL,
+          f"bshd table gradient: rel norm err {rel_p} vs plain, {rel_t} vs "
+          f"fp32 (tol {T5_DTABLE_TOL})")
+    errs["dbias"] = (got - truth).abs().max().item()
+
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    flat_lens = lens.repeat_interleave(h)
+    fkw = dict(scale=d ** -0.5, causal=False, kv_lens=flat_lens,
+               rel_bias=bias)
+    bkw = kw
+    dq_, delta = A.flash_bwd_bshd_dq_cuda(q, k, v, o, lse, do, **bkw)
+    fo, flse = A.flash_fwd_flat_cuda(t(q), t(k), t(v), **fkw)
+    _, fdelta = A.flash_bwd_flat_dq_cuda(t(q), t(k), t(v), fo, flse, t(do),
+                                         **fkw)
+    turns = {}
+    for name, fn_b, fn_f in (
+            ("fwd", lambda: A.flash_fwd_bshd_cuda(q, k, v, **bkw),
+             lambda: A.flash_fwd_flat_cuda(t(q), t(k), t(v), **fkw)),
+            ("dq", lambda: A.flash_bwd_bshd_dq_cuda(q, k, v, o, lse, do,
+                                                    **bkw),
+             lambda: A.flash_bwd_flat_dq_cuda(t(q), t(k), t(v), fo, flse,
+                                              t(do), **fkw)),
+            ("dkv", lambda: A.flash_bwd_bshd_dkv_cuda(
+                q, k, v, o, lse, do, delta=delta, **bkw),
+             lambda: A.flash_bwd_flat_dkv_cuda(
+                 t(q), t(k), t(v), fo, flse, t(do), delta=fdelta, **fkw))):
+        tt = [time_ms(fn_b, [()]), time_ms(fn_f, [()]),
+              time_ms(fn_f, [()]), time_ms(fn_b, [()])]
+        turns[name] = {"ms": (tt[0] + tt[3]) / 2,
+                       "flat_ms": (tt[1] + tt[2]) / 2, "turns_ms": tt}
+    plain_fwd = time_ms(lambda: A.flash_fwd_bshd(q, k, v, impl="torch",
+                                                 **kw), [()], reps=2,
+                        trials=3)
+    plain_bwd = time_ms(lambda: A.flash_bwd_bshd(q, k, v, o, lse, do,
+                                                 impl="torch", **kw),
+                        [()], reps=2, trials=3)
+    lib_fwd, lib_bwd, _ = sdpa_times(torch, F, t(q), t(k), t(v), t(do),
+                                     kw["scale"], False, lens,
+                                     bias.materialize(s, s))
+    live = float(lens.sum())
+    bd = flash_bounds(b, h, h, s, s, d, s * h * live, h * live)
+    del dq_, delta, fo, flse, fdelta, o, lse
+    torch.cuda.empty_cache()
+
+    # the path: flash_attention through autograd, counted
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    tab = table.clone().requires_grad_()
+    counters = {"flash_fwd_bshd_rel": A.flash_fwd_bshd_cuda,
+                "flash_bwd_bshd_dq_rel": A.flash_bwd_bshd_dq_cuda,
+                "flash_bwd_bshd_dkv_rel": A.flash_bwd_bshd_dkv_cuda}
+    steps = 3
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = fn.rel_launches = fn.wgmma_launches = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        out = A.flash_attention(*leaves, layout="bshd", kv_lens=lens,
+                                bias=A.BucketedBias(
+                                    tab, bidirectional=True,
+                                    max_distance=REL_MAX_DISTANCE))
+        out.backward(do)
+    torch.cuda.synchronize()
+    path_ms = 1e3 * (time.perf_counter() - t0) / steps
+    launches = {}
+    for name, fn in counters.items():
+        check(fn.launches == fn.rel_launches == fn.wgmma_launches == steps,
+              f"bshd_rel path: {fn.launches} {name} launches "
+              f"({fn.rel_launches} biased, {fn.wgmma_launches} wgmma) for "
+              f"{steps} steps")
+        launches[name] = fn.rel_launches
+        launches[name[:-4]] = fn.launches
+    check(torch.isfinite(tab.grad).all().item() and tab.grad.abs().sum() > 0,
+          "bshd_rel path: the table got no gradient")
+    del leaves, tab, out, q, k, v, do
+    torch.cuda.empty_cache()
+    timed = dict(shape, layout="views of the packed projection",
+                 dtype="bf16")
+    src = "apex_tpu_torch/csrc/"
+    note = ("flat_ms: the bh-flat entry on the same operands' (b, h, s, d) "
+            "views with per-row lengths, in turns (ms, flat, flat, ms)")
+    lib_note = ("F.scaled_dot_product_attention with the bias and the "
+                "key-padding mask as one float mask")
+    common = dict(route="cuda", plain_note="one plain backward computes "
+                  "dq, dk, dv and the table gradient together",
+                  timed_shape=timed, path_step_ms=path_ms, kernel_note=note)
+    return [
+        dict(common, name="flash_fwd_bshd_rel",
+             source=src + "flash_attn_fwd.cu",
+             replaces="apex_tpu/ops/pallas/attention.py:778",
+             max_abs_err=errs["fwd"], ms=turns["fwd"]["ms"],
+             flat_ms=turns["fwd"]["flat_ms"], plain_ms=plain_fwd,
+             bound_ms=bd["fwd"][0], bound_by=bd["fwd"][1],
+             library_ms=lib_fwd, library_note=lib_note + " (forward)"),
+        dict(common, name="flash_bwd_bshd_dq_rel",
+             source=src + "flash_attn_bwd.cu",
+             replaces="apex_tpu/ops/pallas/attention.py:1455",
+             max_abs_err=errs["dq"], ms=turns["dq"]["ms"],
+             flat_ms=turns["dq"]["flat_ms"], plain_ms=plain_bwd,
+             bound_ms=bd["dq"][0], bound_by=bd["dq"][1],
+             library_ms=lib_bwd, library_note=lib_note + " (its autograd "
+             "backward: dq, dk and dv in one call)"),
+        dict(common, name="flash_bwd_bshd_dkv_rel",
+             source=src + "flash_attn_bwd.cu",
+             replaces="apex_tpu/ops/pallas/attention.py:1486",
+             max_abs_err=errs["dkv"], dtable_max_abs_err=errs["dbias"],
+             ms=turns["dkv"]["ms"], flat_ms=turns["dkv"]["flat_ms"],
+             plain_ms=plain_bwd, bound_ms=bd["dkv"][0],
+             bound_by=bd["dkv"][1], library_ms=lib_bwd,
+             library_note=lib_note + " (its autograd backward)"),
+    ], launches
+
+
 # --- the T5 slice -------------------------------------------------------------
 
 def t5_attn_case(torch, dev, kind, b, seed, padded):
@@ -4038,6 +4869,7 @@ def ptxas_of(name, args):
     ``args`` (a tuple of C++ spellings), from this run's build log: the
     demangled name where c++filt was found, else the mangled one."""
     mangled = {"__nv_bfloat16": "13__nv_bfloat16", "float": "f",
+               "signed char": "a", "__nv_fp8_e4m3": "13__nv_fp8_e4m3",
                "true": "Lb1E", "false": "Lb0E"}
     demangled = f"{name}<{', '.join(args)}>"
     parts = []
@@ -7165,6 +7997,22 @@ def main(argv=None):
     emit("spec_serve", ss_info)
     emit("spec_serve_verify_gap", serve_verify_gap(
         d_kernels, ss_info["verify_launches_by_mode"]))
+    torch.cuda.empty_cache()
+
+    # --- quantized pools and the decode bias ---------------------------------
+    q_kernels = (phase_quant_decode_kernel(torch, dev)
+                 + phase_rel_decode_kernel(torch, dev))
+    for k in q_kernels:
+        emit("kernel", k)
+    kernels += q_kernels
+    torch.cuda.empty_cache()
+    qs_info, paths["quant_serve"] = phase_quant_serve(torch, model, params,
+                                                      dev, greedy)
+    emit("quant_serve", qs_info)
+    torch.cuda.empty_cache()
+    rd_info, paths["rel_decode"] = phase_rel_decode(torch, model, params,
+                                                    dev)
+    emit("rel_decode", rd_info)
     del model, params
     torch.cuda.empty_cache()
 
@@ -7263,6 +8111,13 @@ def main(argv=None):
         torch, dev, True, {"bert_train (FusedAdam)": b_info,
                            "bert_lamb_train": bl_info})
     emit("bert_mp_lamb_train", bm_info)
+    torch.cuda.empty_cache()
+    # the bucketed bias on the seq-major kernels, at BERT's call
+    br_kernels, paths["bshd_rel_attention"] = phase_bshd_rel_kernels(torch,
+                                                                     dev)
+    for k in br_kernels:
+        emit("kernel", k)
+    kernels += br_kernels
 
     # --- the array bias and the T5 materialized leg ---------------------------
     per_bias, dbias_kernel = phase_bias_kernels(torch, dev)

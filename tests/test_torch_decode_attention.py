@@ -85,17 +85,41 @@ def test_explicit_scale_and_int64_tables():
 
 
 def test_later_slices_and_bad_inputs_raise():
+    """The reference's validation errors, type for type: quantized pools
+    and the bias are ported, so what raises is what the reference
+    refuses."""
+    from apex_tpu_torch.ops.attention import BucketedBias
+
     q, pk, pv, tables, lens = [torch.from_numpy(a) for a in
                                _case(8, 2, [5, 6], d=16, bs=16)]
     # without tables the pool is read as a contiguous (b, h_kv, max_s, d)
     # cache, whose batch it does not match
     with pytest.raises(ValueError, match="cache \\(b, h_kv, max_s, d\\)"):
         decode_attention(q, pk, pv, lens)
-    with pytest.raises(NotImplementedError, match="BucketedBias"):
+    with pytest.raises(ValueError, match="BucketedBias"):
         decode_attention(q, pk, pv, lens, block_tables=tables, bias=object())
-    with pytest.raises(NotImplementedError, match="quantized"):
-        decode_attention(q, pk.to(torch.int8), pv.to(torch.int8), lens,
-                         block_tables=tables)
+    with pytest.raises(ValueError, match="causal"):
+        decode_attention(q, pk, pv, lens, block_tables=tables,
+                         bias=BucketedBias(torch.zeros(16, 8),
+                                           bidirectional=True))
+    with pytest.raises(ValueError, match="heads"):
+        decode_attention(q, pk, pv, lens, block_tables=tables,
+                         bias=BucketedBias(torch.zeros(16, 10)))
+    qk, qv = pk.to(torch.int8), pv.to(torch.int8)
+    sc = torch.ones(pk.shape[0], pk.shape[2])
+    with pytest.raises(ValueError, match="BOTH k_scale and v_scale"):
+        decode_attention(q, qk, qv, lens, block_tables=tables)
+    with pytest.raises(ValueError, match="BOTH k_scale and v_scale"):
+        decode_attention(q, pk, pv, lens, block_tables=tables, k_scale=sc,
+                         v_scale=sc)
+    with pytest.raises(ValueError, match="k_scale must be"):
+        decode_attention(q, qk, qv, lens, block_tables=tables,
+                         k_scale=sc[:, :3], v_scale=sc)
+    with pytest.raises(ValueError, match="relative bias"):
+        decode_attention(q, qk, qv, lens, block_tables=tables, k_scale=sc,
+                         v_scale=sc, bias=BucketedBias(torch.zeros(16, 8)))
+    with pytest.raises(ValueError, match="PAGED path only"):
+        decode_attention(q, qk[:2], qv[:2], lens)
     with pytest.raises(ValueError, match="h_kv \\| h"):
         decode_attention(q[:, :3], pk, pv, lens, block_tables=tables)
     with pytest.raises(ValueError, match="block_tables"):

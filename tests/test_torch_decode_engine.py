@@ -143,15 +143,19 @@ class TestKernelsPlainVersions:
         x = torch.zeros((1, 8, 2, 64))
         # the bh-flat layout is the default (as in the reference) and runs
         assert amod.flash_attention(x, x, x).shape == x.shape
-        # per-batch kv_lens, an array bias and dropout run on the bshd
-        # layout now; the bucketed bias there is a later slice
+        # per-batch kv_lens, an array bias, dropout and the bucketed bias
+        # run on the bshd layout; a table whose heads do not divide q's is
+        # refused, as the reference refuses it
         assert amod.flash_attention(x, x, x, layout="bshd",
                                     kv_lens=torch.ones(1)).shape == x.shape
         assert amod.flash_attention(x, x, x, layout="bshd", dropout_rate=0.1,
                                     dropout_seed=3).shape == x.shape
-        with pytest.raises(NotImplementedError, match="later slice"):
+        assert amod.flash_attention(
+            x, x, x, layout="bshd",
+            bias=amod.BucketedBias(torch.zeros(32, 2))).shape == x.shape
+        with pytest.raises(ValueError, match="dividing q heads"):
             amod.flash_attention(x, x, x, layout="bshd",
-                                 bias=amod.BucketedBias(torch.zeros(32, 2)))
+                                 bias=amod.BucketedBias(torch.zeros(32, 3)))
         with pytest.raises(ValueError, match="bias must be"):
             amod.flash_attention(x, x, x, layout="bshd", bias=x)
         with pytest.raises(ValueError, match="sq <= sk"):

@@ -92,6 +92,36 @@ def test_splits_fill_the_card_once_and_never_outnumber_the_blocks(rows,
     assert s == 8 or 2 * s > nb or rows * 2 * s > H100_SMS
 
 
+@pytest.mark.parametrize("rows,nb,group", [(64, 8, 1), (16, 8, 4),
+                                           (128, 8, 1), (8, 8, 16)])
+@pytest.mark.parametrize("kv_dtype,maxd", [(torch.int8, 0),
+                                           (torch.float8_e4m3fn, 0),
+                                           (None, 128), (None, 32)])
+def test_option_plans_lay_out_the_options(rows, nb, group, kv_dtype, maxd):
+    """A quantized pool's ring holds 1-byte cells and, beside each slot,
+    its block's bs fp32 scales; the bias adds the group's (maxd + 1)
+    lookup values a head. The split is the float plan's (it never reads
+    the options)."""
+    base = D._decode_plan(rows, nb, 128, 128, group, torch.bfloat16,
+                          H100_SMS)
+    plan = D._decode_plan(rows, nb, 128, 128, group, torch.bfloat16,
+                          H100_SMS, kv_dtype, maxd)
+    assert plan.splits == base.splits
+    quant = kv_dtype is not None
+    assert plan.smem == D.decode_smem(2, 128, group, 128, plan.tiles,
+                                      plan.splits, 1 if quant else 2, quant,
+                                      maxd) <= D.SMEM_PER_CTA
+    if quant and plan.tiles == base.tiles:
+        ring = plan.tiles * 128 * 128
+        parts = 8 * group * 128 * 4
+        assert plan.smem - base.smem == (max(ring, parts) - max(2 * ring,
+                                                                parts)
+                                         + plan.tiles * 128 * 4)
+    if not quant:
+        assert plan.tiles == base.tiles
+        assert plan.smem - base.smem == -(-group * (maxd + 1) * 4 // 16) * 16
+
+
 def test_plan_depends_on_the_shapes_alone():
     a = D._decode_plan(64, 8, 128, 128, 1, torch.bfloat16, H100_SMS)
     assert D._decode_plan(64, 8, 128, 128, 1, torch.bfloat16,

@@ -227,6 +227,8 @@ def test_array_bias_refusals():
     with pytest.raises(ValueError, match="per-batch"):
         amod.flash_attention(xs, xs, xs, kv_lens=torch.ones(2, 4),
                              layout="bshd")
-    with pytest.raises(NotImplementedError, match="BucketedBias"):
+    # the bucketed bias is ported on bshd: its table's heads must divide
+    # q's heads, as the reference's (attention.py:771-774)
+    with pytest.raises(ValueError, match="dividing q heads"):
         amod.flash_attention(xs, xs, xs, layout="bshd",
-                             bias=amod.BucketedBias(torch.zeros(32, 4)))
+                             bias=amod.BucketedBias(torch.zeros(32, 3)))

@@ -8,7 +8,14 @@ card runs it without either (and without the JAX-importing conftest):
 
 Tolerances: fp32 decode attention 1e-4 (fp32 sums in another order); bf16
 decode attention 2e-2 (the kernel rounds the unnormalised p to bf16, the
-plain version the normalised p: a few bf16 ulps at unit scale). The decode
+plain version the normalised p: a few bf16 ulps at unit scale). The paged
+kernel's int8 and fp8 instances: within one bf16 ulp (2^-8 relative, plus
+1e-5) of their fp32 function, and within the reference-order plain
+version's own distance from that function plus one bf16 ulp of its
+largest output (that version rounds the dequantized cells and p to bf16);
+every scale at 1 refused. The decode kernels' bias instances (a seeded
+causal table of 32 buckets): the bf16 tolerance against the plain version
+with the bias; a zero table refused. The decode
 kernels split a row's walk over a cluster of S CTAs: each S the plan picks
 (1, 2, 4, 8) is checked at shapes that make it pick it, in both dtypes,
 MHA and GQA, with the card's room for the plan's clusters, the output
@@ -412,6 +419,132 @@ def test_contiguous_decode_kernel_takes_batch_lengths(cuda, dtype, tol):
     torch.cuda.synchronize()
     assert _max_err(got, want) <= tol
     assert not got.reshape(b, h_kv, group, d)[1].any()
+
+
+def _quant_case(b, h, h_kv, nb, dev, kv, seed, d=128, bs=128):
+    """The split case's q, tables and lengths with its pools quantized
+    row by row as the serving engine writes them (``_quant_rows``):
+    (q, k cells, v cells, lengths, tables, k_scale, v_scale)."""
+    from apex_tpu_torch.serving.engine import KV_QUANT_SPECS, _quant_rows
+
+    q, pk, pv, lens, tables = _split_paged_case(b, h, h_kv, nb, dev,
+                                                torch.bfloat16, seed, d=d,
+                                                bs=bs)
+    qmax, qdtype = KV_QUANT_SPECS[kv]
+    out = []
+    for pool in (pk, pv):
+        cells, scales = _quant_rows(pool.float().transpose(1, 2) * 3.0,
+                                    (2, 3), qmax=qmax, qdtype=qdtype)
+        out += [cells.transpose(1, 2).contiguous(), scales.contiguous()]
+    return q, out[0], out[2], lens, tables, out[1], out[3]
+
+
+def _one_bf16_ulp(got, want32):
+    """got (bf16) within one bf16 ulp of the fp32 function (2^-8
+    relative) plus 1e-5: the bf16 output rounding of fp32 sums taken in
+    another order."""
+    return bool(((got.float() - want32).abs()
+                 <= 2.0 ** -8 * want32.abs() + 1e-5).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 64])
+@pytest.mark.parametrize("kv", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("b,h,h_kv,nb,splits", SPLIT_CASES)
+def test_quant_decode_matches_fp32_function(cuda, kv, d, b, h, h_kv, nb,
+                                            splits):
+    """The int8 and fp8 instances at every split: within one bf16 ulp of
+    their fp32 function (:func:`quant_decode_fp32`), within the
+    reference-order plain version's (cells and p rounded to bf16) own
+    distance from that function plus one bf16 ulp, bit-identical across
+    two runs, one launch counted by its format, and every scale at 1
+    refused."""
+    q, kc, vc, lens, tables, ks, vs = _quant_case(b, h, h_kv, nb, cuda, kv,
+                                                  seed=b + nb + d, d=d)
+    qg = q.reshape(b * h_kv, h // h_kv, d)
+    plan = dmod._plan_for(qg, nb, 128, kc.dtype)
+    assert plan.splits == splits
+    assert dmod.max_active_clusters(plan, torch.bfloat16, d, h // h_kv, 128,
+                                    True, kc.dtype) >= 1
+    counter = "int8_launches" if kv == "int8" else "fp8_launches"
+    before = getattr(dmod.paged_decode_attn_cuda, counter)
+    kw = dict(block_tables=tables, k_scale=ks, v_scale=vs)
+    got = dmod.decode_attention(q, kc, vc, lens, **kw)
+    assert getattr(dmod.paged_decode_attn_cuda, counter) == before + 1
+    again = dmod.decode_attention(q, kc, vc, lens, **kw)
+    want32 = dmod.quant_decode_fp32(q.float(), kc, vc, lens, tables, ks, vs)
+    plain = dmod.decode_attention(q, kc, vc, lens, impl="torch", **kw)
+    bad = dmod.paged_decode_attn_cuda(
+        qg, kc, vc, lens, tables, scale=d ** -0.5, k_scale=ks, v_scale=vs,
+        planted_fault="unit_scales").reshape(b, h, d)
+    torch.cuda.synchronize()
+    # the reference-order plain version rounds the dequantized cells and p
+    # to bf16: the kernel lies within that version's own distance from the
+    # fp32 function plus one bf16 ulp of the largest output
+    gap = _max_err(plain, want32) + 2.0 ** -8 * want32.abs().max().item()
+    assert _one_bf16_ulp(got, want32), _max_err(got, want32)
+    assert _max_err(got, plain) <= gap
+    assert torch.equal(got, again), "not bit-identical across two runs"
+    assert not got[lens == 0].any()
+    assert not _one_bf16_ulp(bad, want32) and _max_err(bad, plain) > gap
+
+
+@pytest.mark.gpu
+def test_quant_decode_refuses_what_it_does_not_take(cuda):
+    q, kc, vc, lens, tables, ks, vs = _quant_case(8, 8, 8, 8, cuda, "int8",
+                                                  seed=1)
+    qg = q.reshape(64, 1, 128)
+    kw = dict(scale=0.1, k_scale=ks, v_scale=vs)
+    with pytest.raises(ValueError, match="bfloat16 q"):
+        dmod.paged_decode_attn_cuda(qg.float(), kc, vc, lens, tables, **kw)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        dmod.paged_decode_attn_cuda(qg, kc[:, :, :126], vc[:, :, :126], lens,
+                                    tables, scale=0.1,
+                                    k_scale=ks[:, :126].contiguous(),
+                                    v_scale=vs[:, :126].contiguous())
+    with pytest.raises(ValueError, match="no bias"):
+        dmod.paged_decode_attn_cuda(qg, kc, vc, lens, tables, **kw,
+                                    rel_bias=_table_bias(8, True, cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [True, False])
+@pytest.mark.parametrize("b,h,h_kv,nb,splits", SPLIT_CASES)
+def test_rel_decode_matches_plain(cuda, paged, b, h, h_kv, nb, splits):
+    """The bias instances of both entries at every split (bf16, a seeded
+    causal table of 32 buckets, max distance 128): within the bf16 decode
+    tolerance of the plain version with the bias, bit-identical across
+    two runs, one launch counted in ``.rel_launches``; a zero table fails
+    the tolerance against the biased plain version."""
+    q, pk, pv, lens, tables = _split_paged_case(b, h, h_kv, nb, cuda,
+                                                torch.bfloat16, seed=b + nb)
+    bias = _table_bias(h, True, cuda)
+    bias.table.mul_(4.0)  # visible against the unit-scale scores
+    if paged:
+        kw, fn = dict(block_tables=tables), dmod.paged_decode_attn_cuda
+    else:  # the same rows laid out as each slot's contiguous cache
+        pk, pv = (dmod._gather_blocks(p_, tables).contiguous()
+                  for p_ in (pk, pv))
+        kw, fn = {}, dmod.decode_attn_cuda
+    plan = dmod._plan_for(q.reshape(b * h_kv, h // h_kv, 128), nb, 128,
+                          None, 128)
+    assert plan.splits == splits
+    assert dmod.max_active_clusters(plan, torch.bfloat16, 128, h // h_kv,
+                                    128, paged, None, 128) >= 1
+    before = fn.rel_launches
+    got = dmod.decode_attention(q, pk, pv, lens, bias=bias, **kw)
+    assert fn.rel_launches == before + 1
+    again = dmod.decode_attention(q, pk, pv, lens, bias=bias, **kw)
+    want = dmod.decode_attention(q, pk, pv, lens, bias=bias, impl="torch",
+                                 **kw)
+    zero = dmod.decode_attention(
+        q, pk, pv, lens, bias=amod.BucketedBias(
+            torch.zeros_like(bias.table), max_distance=128), **kw)
+    torch.cuda.synchronize()
+    assert _max_err(got, want) <= 2e-2
+    assert torch.equal(got, again), "not bit-identical across two runs"
+    assert not got[lens == 0].any()
+    assert _max_err(zero, want) > 2e-2
 
 
 @pytest.mark.gpu
@@ -1337,8 +1470,22 @@ BWD_FAMILIES = [
      "arr"),
     ("gqa_d128_table", "bhsd", 2, 8, 2, 256, 256, 128, False, [256, 100],
      "rel"),
+    # the bucketed table on the seq-major layout (queue 2, item 3)
+    ("bshd_table_lens", "bshd", 4, 16, 16, 512, 512, 64, False,
+     [512, 0, 64, 300], "rel"),
+    ("bshd_table_gqa_causal", "bshd", 2, 8, 2, 256, 256, 128, True, None,
+     "rel"),
 ]
 _BWD_IDS = [f[0] for f in BWD_FAMILIES]
+
+
+def _table_bias(h, causal, dev):
+    """T5's bucketed bias: a seeded (32, h) table, max distance 128,
+    bidirectional unless causal."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    table = torch.randn((32, h), generator=g, device=dev) * 0.5
+    return amod.BucketedBias(table, bidirectional=not causal,
+                             max_distance=128)
 
 
 def _bwd_family(fam, dev):
@@ -1389,7 +1536,9 @@ def _bwd_family(fam, dev):
     else:
         q, k, v, do = _bshd_inputs(b, sq, sk, h, hkv, d, dev, seed, sq == sk)
         kw = dict(scale=d ** -0.5, causal=causal, kv_lens=lens_t)
-        if bias is not None:
+        if bias == "rel":
+            kw["rel_bias"] = _table_bias(h, causal, dev)
+        elif bias is not None:
             kw["bias"] = _bias_input(1 if bias == "arr1" else h, sq, sk, dev)
         fwd, bwd = amod.flash_fwd_bshd, amod.flash_bwd_bshd
         fns = (amod.flash_bwd_bshd_dq_cuda, amod.flash_bwd_bshd_dkv_cuda)
@@ -1560,7 +1709,9 @@ def _fwd_family(fam, dev):
     else:
         q, k, v, _ = _bshd_inputs(b, sq, sk, h, hkv, d, dev, seed, sq == sk)
         kw = dict(scale=d ** -0.5, causal=causal, kv_lens=lens_t)
-        if bias is not None:
+        if bias == "rel":
+            kw["rel_bias"] = _table_bias(h, causal, dev)
+        elif bias is not None:
             kw["bias"] = _bias_input(1 if bias == "arr1" else h, sq, sk, dev)
         fwd, fn = amod.flash_fwd_bshd, amod.flash_fwd_bshd_cuda
     plain = fwd(q, k, v, impl="torch", **kw)

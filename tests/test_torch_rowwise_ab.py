@@ -79,21 +79,27 @@ def test_using_swaps_the_library_and_restores_it():
 def test_other_library_builds_the_decode_kernels_with_the_parents_signatures():
     """The parent builds the decode, sampling, verify, flash,
     cross-entropy and GEMM kernels too. Its entries take this tree's
-    signatures (18, 16, 14, 19, 24 and 27 arguments; the five flash
-    entries with the four dropout arguments before the stream, which the
-    parent has since the flash kernels' dropout): no entry keeps a
-    signature of its own. This tree's fp16 flash entries are new, so the
-    parent's library lacks them and they are not bound there."""
+    signatures (18, 16, 14, 19, 24 and 27 arguments before this tree's
+    new options; the five flash entries with the four dropout arguments
+    before the stream, which the parent has since the flash kernels'
+    dropout), except the four that gained options here: the decode pair's
+    quantized pools and bias, their occupancy query's, and the bshd flash
+    forward's bucketed bias, whose parent signatures are listed. This
+    tree's fp16 flash entries are not bound in a parent that lacks
+    them."""
     assert {"paged_decode_attn.cu", "fused_sample.cu", "layer_norm.cu",
             "softmax.cu", "fused_verify.cu", "flash_attn_fwd.cu",
             "flash_attn_bwd.cu", "flash_attn_fwd_sm80.cu",
             "flash_attn_bwd_sm80.cu", "xent_stats.cu",
             "matmul_bias_act.cu"} <= set(rowwise_ab.SOURCES)
-    assert rowwise_ab.PARENT_ENTRY_POINTS == {}
-    for name, n in (("apex_flash_fwd", 13), ("apex_flash_fwd_bshd", 23),
+    parent = rowwise_ab.PARENT_ENTRY_POINTS
+    assert set(parent) == {"apex_paged_decode_attn", "apex_decode_attn",
+                           "apex_decode_attn_clusters", "apex_flash_fwd_bshd"}
+    for name, n in (("apex_flash_fwd", 13), ("apex_flash_fwd_bshd", 26),
                     ("apex_flash_fwd_flat", 23), ("apex_flash_bwd_dq", 28),
                     ("apex_flash_bwd_dkv", 32)):
         assert len(_build.ENTRY_POINTS[name]) == n + 4
+    assert len(parent["apex_flash_fwd_bshd"]) == 23 + 4
     assert {"apex_flash_fwd_f16", "apex_flash_bwd_dq_f16",
             "apex_flash_bwd_dkv_f16"} <= set(_build.ENTRY_POINTS)
     assert len(_build.ENTRY_POINTS["apex_fused_verify"]) == 24
@@ -103,52 +109,62 @@ def test_other_library_builds_the_decode_kernels_with_the_parents_signatures():
         _build.ENTRY_POINTS["apex_softmax_fwd"][2:]
     assert len(_build.ENTRY_POINTS["apex_ln_fwd"]) == 19
     assert len(_build.ENTRY_POINTS["apex_fused_sample"]) == 16
-    assert len(_build.ENTRY_POINTS["apex_paged_decode_attn"]) == 18
-    assert len(_build.ENTRY_POINTS["apex_decode_attn"]) == 16
+    assert len(_build.ENTRY_POINTS["apex_paged_decode_attn"]) == 18 + 5
+    assert len(parent["apex_paged_decode_attn"]) == 18
+    assert len(_build.ENTRY_POINTS["apex_decode_attn"]) == 16 + 2
+    assert len(parent["apex_decode_attn"]) == 16
+    assert len(parent["apex_decode_attn_clusters"]) == 9
+    for name, argtypes in parent.items():
+        mine = _build.ENTRY_POINTS[name]
+        assert mine[:len(argtypes) - 1] == argtypes[:-1]
+        assert mine[-1] == argtypes[-1]
     assert not hasattr(rowwise_ab, "parent_softmax_bwd")
     assert not hasattr(rowwise_ab, "parent_fused_verify")
 
 
 def test_parent_library_drops_the_top_p_arguments(monkeypatch):
     """The arguments a listed parent entry lacks are dropped from this
-    tree's calls (the four before the stream, as the flash entries' had
-    before their dropout: listed here as a parent that predates it). A
-    call that asks for dropout (a nonzero threshold) is refused; entries
-    not listed (the verify pair's, and every entry while the list is
-    empty) pass through untouched."""
+    tree's calls (those just before the last: the decode pair's quantized
+    pool and bias, the bshd forward's bucketed bias). A call that sets one
+    (not None or 0) is refused; entries not listed (the verify pair's)
+    pass through untouched."""
     calls = []
 
     class Lib:
-        def apex_flash_fwd(self, *a):
-            calls.append(("fwd", a))
+        def apex_paged_decode_attn(self, *a):
+            calls.append(("paged", a))
             return 0
 
-        def apex_flash_bwd_dkv(self, *a):
-            calls.append(("dkv", a))
+        def apex_decode_attn_clusters(self, *a):
+            calls.append(("clusters", a))
+            return 0
+
+        def apex_flash_fwd_bshd(self, *a):
+            calls.append(("bshd", a))
             return 0
 
         def apex_fused_verify(self, *a):
             calls.append(("chain", a))
             return 0
 
-    fwd = list(range(12)) + [0, 0, 1.0, 0, "stream"]
-    dkv = list(range(31)) + [0, 0, 1.0, 0, "stream"]
     lib = rowwise_ab.ParentLibrary(Lib())
-    lib.apex_flash_fwd(*fwd)
-    assert calls[-1] == ("fwd", tuple(fwd))
-    monkeypatch.setattr(rowwise_ab, "PARENT_ENTRY_POINTS", {
-        name: _build.ENTRY_POINTS[name][:-5] + _build.ENTRY_POINTS[name][-1:]
-        for name in ("apex_flash_fwd", "apex_flash_bwd_dkv")})
-    assert lib.apex_flash_fwd(*fwd) == 0
-    assert calls[-1] == ("fwd", tuple(range(12)) + ("stream",))
-    lib.apex_flash_bwd_dkv(*dkv)
-    assert calls[-1] == ("dkv", tuple(range(31)) + ("stream",))
+    paged = list(range(17)) + [None, None, 0, None, 0, "stream"]
+    assert lib.apex_paged_decode_attn(*paged) == 0
+    assert calls[-1] == ("paged", tuple(range(17)) + ("stream",))
+    lib.apex_decode_attn_clusters(*range(8), 0, 0, "n")
+    assert calls[-1] == ("clusters", tuple(range(8)) + ("n",))
+    bshd = list(range(26)) + [None, 0, 0, "stream"]
+    lib.apex_flash_fwd_bshd(*bshd)
+    assert calls[-1] == ("bshd", tuple(range(26)) + ("stream",))
     chain = list(range(24))
     lib.apex_fused_verify(*chain)
     assert calls[-1] == ("chain", tuple(chain))
-    fwd[-4] = 1677722
-    with pytest.raises(ValueError, match="dropout"):
-        lib.apex_flash_fwd(*fwd)
+    paged[19] = 1  # an int8 pool
+    with pytest.raises(ValueError, match="no such option"):
+        lib.apex_paged_decode_attn(*paged)
+    bshd[-4] = 12345  # a lookup table
+    with pytest.raises(ValueError, match="no such option"):
+        lib.apex_flash_fwd_bshd(*bshd)
 
 
 @pytest.mark.parametrize("parent_fn", [False, True])

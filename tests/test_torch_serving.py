@@ -266,9 +266,14 @@ class TestServe:
 
 class TestEngineSurface:
     def test_later_slices_raise(self):
+        """Quantized pools are ported: an illegal kv_dtype raises the
+        reference's ValueError; tensor parallelism is still a later
+        slice."""
         _, _, tm, tp = _models()
-        with pytest.raises(NotImplementedError, match="kv_dtype"):
-            ServingEngine(tm, device="cpu", kv_dtype="int8", **ENGINE)
+        with pytest.raises(ValueError, match="kv_dtype must be None"):
+            ServingEngine(tm, device="cpu", kv_dtype="int4", **ENGINE)
+        assert ServingEngine(tm, device="cpu", kv_dtype="fp8_e4m3",
+                             **ENGINE).quantized
 
         class Plan:
             tp = 2
