@@ -28,23 +28,33 @@ integers. JAX keys become one explicit ``torch.Generator`` per
 step's or spec round's. A model's ``decode_rel_bias(params)`` hook (a
 causal BucketedBias) reaches every decode step's kernel, as the
 reference's (``:273-293``); ``generate(draft=)`` refuses such a model. The
-reference's ``plan=`` (tensor parallelism) and ``jit_encoder`` are later
-slices of the port, and ``cache_dtype`` has no second value the decode
-kernel takes, so these knobs are not in the signatures here. A
+prefill, each decode step and each spec round run inside the
+``decode_prefill`` / ``decode_step`` / ``spec_verify`` spans, and a
+``generate`` call inside one trace id (:mod:`apex_tpu_torch.monitor`). A
 :class:`~apex_tpu_torch.spec.tree.PagedModelDrafter` needs a serving
 scheduler to bind to, so it drafts for ``ServingEngine.serve`` only.
+
+:func:`jit_encoder` is the encoder-serving entry (``:915-934``): BERT's
+hidden states and pooler at fixed padded shapes, eager under
+``torch.inference_mode()``.
+
+Not ported yet: the reference's ``DecodeEngine(plan=)`` (tensor-parallel
+decode, ROADMAP queue 1, item 6); ``cache_dtype`` has no second value the
+decode kernel takes, so it is not in the signature here.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from apex_tpu_torch.inference.sampling import sample_logits
 from apex_tpu_torch.models.gpt import GPTModel
+from apex_tpu_torch.monitor import spans as monitor_spans
+from apex_tpu_torch.monitor import trace as monitor_trace
 from apex_tpu_torch.ops import _backend
 from apex_tpu_torch.ops.fused_verify import fused_verify, fused_verify_tree
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm
@@ -146,7 +156,6 @@ class DecodeEngine:
 
     # --- prefill -------------------------------------------------------------
 
-    @torch.no_grad()
     def prefill(self, params, tokens: torch.Tensor, *,
                 cache: Optional[Cache] = None,
                 generator: Optional[torch.Generator] = None,
@@ -156,7 +165,16 @@ class DecodeEngine:
         [0, s), next token (b,), last-position logits (b, V)). ``cache``
         (from :meth:`init_cache`) is written in place; without one a new
         cache is allocated. Rows past s keep what they held: the lengths
-        mask them."""
+        mask them. Runs inside the ``decode_prefill`` span."""
+        with monitor_spans.span("decode_prefill"):
+            return self._prefill_body(params, tokens, cache, generator, u)
+
+    @torch.no_grad()
+    def _prefill_body(self, params, tokens: torch.Tensor,
+                      cache: Optional[Cache],
+                      generator: Optional[torch.Generator],
+                      u: Optional[torch.Tensor]
+                      ) -> Tuple[Cache, torch.Tensor, torch.Tensor]:
         model, c = self.model, self.config
         b, s = tokens.shape
         if cache is None:
@@ -174,7 +192,6 @@ class DecodeEngine:
 
     # --- decode --------------------------------------------------------------
 
-    @torch.no_grad()
     def decode_step(self, params, cache: Cache, tokens: torch.Tensor,
                     pos: int, *, generator: Optional[torch.Generator] = None,
                     u: Optional[torch.Tensor] = None
@@ -182,7 +199,17 @@ class DecodeEngine:
         """One generation step: ``tokens`` (b,) at position ``pos`` (the
         count of cache rows already live) run through the stack; each
         layer writes their k/v at row ``pos`` in place, then attends rows
-        [0, pos]. Returns (cache, next tokens (b,), logits (b, V))."""
+        [0, pos]. Returns (cache, next tokens (b,), logits (b, V)). Runs
+        inside the ``decode_step`` span."""
+        with monitor_spans.span("decode_step"):
+            return self._decode_step_body(params, cache, tokens, pos,
+                                          generator, u)
+
+    @torch.no_grad()
+    def _decode_step_body(self, params, cache: Cache, tokens: torch.Tensor,
+                          pos: int, generator: Optional[torch.Generator],
+                          u: Optional[torch.Tensor]
+                          ) -> Tuple[Cache, torch.Tensor, torch.Tensor]:
         model, c = self.model, self.config
         b = tokens.shape[0]
         pos = int(pos)
@@ -218,6 +245,20 @@ class DecodeEngine:
                 "for this model")
 
     # --- speculative verification --------------------------------------------
+
+    def _spec_verify_step(self, *args) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A chain round (:meth:`_spec_verify_body`) inside the
+        ``spec_verify`` span."""
+        with monitor_spans.span("spec_verify"):
+            return self._spec_verify_body(*args)
+
+    def _spec_tree_verify_step(self, *args
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+        """A tree round (:meth:`_spec_tree_verify_body`) inside the
+        ``spec_verify`` span."""
+        with monitor_spans.span("spec_verify"):
+            return self._spec_tree_verify_body(*args)
 
     def _embed_at(self, params, tokens: torch.Tensor,
                   positions: torch.Tensor) -> torch.Tensor:
@@ -403,7 +444,7 @@ class DecodeEngine:
             d_t = torch.as_tensor(drafted, device=dev)[None]
             tokens = torch.cat([torch.tensor([[gen[-1]]], dtype=torch.int32,
                                              device=dev), d_t], dim=1)
-            a, nxt = self._spec_verify_body(params, cache, tokens, pos, d_t,
+            a, nxt = self._spec_verify_step(params, cache, tokens, pos, d_t,
                                             generator)
             a = int(a[0])
             emitted = [int(t) for t in drafted[:a]] + [int(nxt[0])]
@@ -459,7 +500,7 @@ class DecodeEngine:
             tokens = torch.as_tensor(
                 np.concatenate([[gen[-1]], node_tokens]).astype(np.int32),
                 device=dev)[None]
-            a, j_star, nxt = self._spec_tree_verify_body(
+            a, j_star, nxt = self._spec_tree_verify_step(
                 params, cache, tokens, pos,
                 torch.as_tensor(parents_np, device=dev),
                 torch.as_tensor(anc_np, device=dev), depth, generator)
@@ -515,6 +556,19 @@ class DecodeEngine:
         if self.temperature > 0 and generator is None:
             raise ValueError("temperature > 0 generation requires a "
                              "generator")
+        # one trace id per generate() call: every span the loop emits
+        # (decode_prefill, decode_step, spec_verify) joins to this call; an
+        # already-ambient id (a caller's serve or step context) is reused
+        tid = (monitor_trace.current_trace_id()
+               or monitor_trace.new_trace_id("gen"))
+        with monitor_trace.trace_context(tid):
+            return self._generate(params, prompt, max_new_tokens, generator,
+                                  draft, adaptive)
+
+    def _generate(self, params, prompt: torch.Tensor, max_new_tokens: int,
+                  generator: Optional[torch.Generator], draft,
+                  adaptive) -> torch.Tensor:
+        s = prompt.shape[1]
         if draft is not None:
             from apex_tpu_torch.spec.tree import is_tree_drafter
             if is_tree_drafter(draft):
@@ -541,3 +595,44 @@ class DecodeEngine:
             out.append(tok)
         return torch.stack(out, dim=1)
 
+
+
+def jit_encoder(model, *, with_pooler: bool = True,
+                device: Optional[Union[str, torch.device]] = None
+                ) -> Callable:
+    """BERT-style encoder serving (``engine.py:915-934``): encoders have no
+    autoregressive structure, so the serving entry is the model's own
+    forward. Returns ``encode(params, tokens, token_types=None,
+    pad_mask=None)`` → (hidden (b, s, H), pooled (b, H) or None), run
+    eagerly under ``torch.inference_mode()`` (no autograd state, nothing
+    compiled: the name is the reference's). As the reference says, pad
+    every request batch to a few fixed (b, s) buckets and pass
+    ``pad_mask`` (True = padding): the kernels then see the same shapes
+    call after call.
+
+    ``device`` defaults to the card and raises without one; the CPU runs
+    the plain versions only when asked (``device="cpu"``). ``params`` must
+    live on that device (``tokens`` and the masks are moved to it)."""
+    dev = _backend.resolve_device(device)
+
+    @torch.inference_mode()
+    def encode(params, tokens, token_types=None, pad_mask=None
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        pdev = params["embedding"]["weight"].device
+        if pdev.type != dev.type or (dev.index is not None
+                                     and pdev.index != dev.index):
+            raise ValueError(
+                f"jit_encoder runs on {dev}, but the params live on {pdev} "
+                f"— build the encoder with device={str(pdev)!r} or move "
+                f"the params")
+
+        def on_dev(x):
+            return None if x is None else torch.as_tensor(x, device=pdev)
+
+        hidden = model.hidden_states(params, on_dev(tokens),
+                                     token_types=on_dev(token_types),
+                                     pad_mask=on_dev(pad_mask))
+        pooled = model.pooled(params, hidden) if with_pooler else None
+        return hidden, pooled
+
+    return encode

@@ -48,13 +48,23 @@ relative positions at decode) reaches every decode step's kernel, as the
 reference's (``:647-674``); a quantized pool and ``serve(draft=)`` refuse
 such a model, as the reference does.
 
-Not in this slice (raising where a caller could ask for them):
-tensor-parallel serving (``plan.tp > 1``), serving telemetry,
-``ReplanPolicy`` and weight hot-swap.
+``serve(telemetry=)`` attaches a :class:`~apex_tpu_torch.serving.telemetry.
+ServeTelemetry` (lifecycle records, windows, the anomaly layer; one is
+auto-attached while the monitor registry is enabled), and every step runs
+inside its ``serve_prefill`` / ``serve_decode`` / ``serve_spec`` /
+``serve_spec_tree`` span. :meth:`ServingEngine.request_swap` hot-swaps the
+weights between dispatch steps: a contents-only replacement of the params
+tree (same keys, shapes, dtypes and device), to which the engine rebinds;
+the pool and every in-flight request stay.
+
+Not ported yet (a caller asking for them gets an error):
+tensor-parallel serving (``plan.tp > 1``), the reference's
+``ReplanPolicy`` and ``serve(pool=)`` (the disaggregated decode role).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, Dict, List, Optional, Tuple, Union
@@ -63,6 +73,9 @@ import numpy as np
 import torch
 
 from apex_tpu_torch.models.gpt import GPTModel
+from apex_tpu_torch.monitor import registry as monitor_registry
+from apex_tpu_torch.monitor import spans as monitor_spans
+from apex_tpu_torch.monitor import trace as monitor_trace
 from apex_tpu_torch.ops import _backend
 from apex_tpu_torch.ops.decode_attention import NEG_INF
 from apex_tpu_torch.ops.fused_verify import fused_verify, fused_verify_tree
@@ -71,6 +84,8 @@ from apex_tpu_torch.ops.sampling import fused_sample
 from apex_tpu_torch.serving.kv_blocks import (DEAD_BLOCK, BlockAllocator,
                                               PrefixCache)
 from apex_tpu_torch.serving.scheduler import Request, Scheduler, SLOPolicy
+from apex_tpu_torch.serving.telemetry import ServeTelemetry
+from apex_tpu_torch.utils.pytree import tree_paths
 
 Pool = Dict[str, torch.Tensor]
 
@@ -119,11 +134,13 @@ class ServeStats:
     a tree round), ``spec_accepted`` the accepted ones, ``spec_nodes``
     the drafted verify rows scored, ``spec_slot_rounds`` the live slots
     over all rounds, ``spec_degraded`` the rounds the tree → chain →
-    plain ladder stepped down."""
+    plain ladder stepped down. ``swaps`` counts the weight hot-swaps
+    applied (:meth:`ServingEngine.request_swap`)."""
 
     decode_steps: int = 0
     prefill_chunks: int = 0
     blocks_high_water: int = 0
+    swaps: int = 0
     prefill_s: float = 0.0
     decode_s: float = 0.0
     draft_s: float = 0.0
@@ -240,6 +257,8 @@ class ServingEngine:
         self.last_stats: Optional[ServeStats] = None
         # the last serve's final pool, as the reference keeps it (:320-322)
         self.last_pool: Optional[Pool] = None
+        # (at_step, new params, source) of a queued hot-swap
+        self._pending_swap: Optional[tuple] = None
 
     # --- pool ----------------------------------------------------------------
 
@@ -311,6 +330,75 @@ class ServingEngine:
         return g.transpose(1, 2).reshape(S, c.kv_heads, self.max_s,
                                          c.head_dim)
 
+    # --- weight hot-swap -----------------------------------------------------
+
+    @staticmethod
+    def _validate_swap_avals(old, new) -> None:
+        """The hot-swap contract (``engine.py:407-437``): the new tree is a
+        contents-only replacement — the same keys, and per leaf the same
+        shape, dtype and device. Every mismatch names its leaf path
+        eagerly, before a step could run on a tree the steps were not
+        written for."""
+        old_paths, new_paths = tree_paths(old), tree_paths(new)
+        ok = [p for p, _ in old_paths]
+        nk = [p for p, _ in new_paths]
+        if ok != nk:
+            extra = sorted(set(nk) - set(ok))
+            missing = sorted(set(ok) - set(nk))
+            raise ValueError(
+                f"hot-swap params tree mismatch: new tree "
+                f"{'adds ' + str(extra) if extra else ''}"
+                f"{' and ' if extra and missing else ''}"
+                f"{'drops ' + str(missing) if missing else ''}"
+                f"{'' if extra or missing else 'has a different structure'}"
+                f" — a swap is contents-only (same model, new weights)")
+        for (path, a), (_, b) in zip(old_paths, new_paths):
+            ta, tb = isinstance(a, torch.Tensor), isinstance(b, torch.Tensor)
+            if ta != tb or (ta and (a.shape != b.shape or a.dtype != b.dtype
+                                    or a.device != b.device)):
+                desc = (lambda x: f"{tuple(x.shape)}/{x.dtype}/{x.device}"
+                        if isinstance(x, torch.Tensor) else type(x).__name__)
+                raise ValueError(
+                    f"hot-swap aval mismatch at {path}: serving {desc(a)}, "
+                    f"new params {desc(b)} — a swap must keep every leaf's "
+                    f"shape, dtype and device")
+
+    def request_swap(self, new_params, *, at_step: Optional[int] = None,
+                     source: Optional[str] = None) -> None:
+        """Queue a weight hot-swap for the live serve loop
+        (``engine.py:439-463``): the NEXT loop iteration whose dispatch
+        counter has reached ``at_step`` (immediately when ``None``)
+        replaces the params BETWEEN dispatch steps — in-flight requests
+        keep their KV cache and finish against the new weights. The tree is
+        validated against the live params at apply time (an eager,
+        leaf-naming ``ValueError``); ``source`` labels the ``swap``
+        lifecycle event. The engine rebinds to ``new_params``' tensors: the
+        caller's old tensors are never written, and the pool stays.
+
+        One swap is pending at a time (a newer request replaces an
+        unapplied one), and an unapplied swap does NOT outlive the serve
+        call: if ``at_step`` is never reached it is dropped when ``serve``
+        returns or raises (``last_stats.swaps == 0`` is the tell)."""
+        self._pending_swap = (at_step, new_params, source)
+
+    def _maybe_swap(self, params, nstep: int, tel, stats: ServeStats,
+                    now: float):
+        if self._pending_swap is None:
+            return params
+        at_step, new_params, source = self._pending_swap
+        if at_step is not None and nstep < at_step:
+            return params
+        self._pending_swap = None
+        t0 = time.perf_counter()
+        self._validate_swap_avals(params, new_params)
+        stats.swaps += 1
+        if tel is not None:
+            # the measured validate+rebind pause: attribution carves it out
+            # of the decode time of every mid-decode request
+            tel.on_swap(nstep, now, source=source,
+                        dur_ms=(time.perf_counter() - t0) * 1e3)
+        return new_params
+
     # --- sampling tail -------------------------------------------------------
 
     def _sample(self, logits: torch.Tensor,
@@ -321,7 +409,6 @@ class ServingEngine:
 
     # --- prefill chunk -------------------------------------------------------
 
-    @torch.no_grad()
     def prefill_chunk(self, params, pool: Pool, table_row: torch.Tensor,
                       tokens: torch.Tensor, start: int, live: int,
                       generator: Optional[torch.Generator] = None
@@ -330,7 +417,18 @@ class ServingEngine:
         positions [start, start+C) with the first ``live`` valid. Writes
         the chunk's k/v into ``pool`` in place and returns
         ``(token, last_logits)`` — meaningful on the prompt's LAST chunk
-        (row ``live - 1`` is then its final token)."""
+        (row ``live - 1`` is then its final token). Runs inside the
+        ``serve_prefill`` span."""
+        with monitor_spans.span("serve_prefill"):
+            return self._prefill_chunk_body(params, pool, table_row, tokens,
+                                            start, live, generator)
+
+    @torch.no_grad()
+    def _prefill_chunk_body(self, params, pool: Pool,
+                            table_row: torch.Tensor, tokens: torch.Tensor,
+                            start: int, live: int,
+                            generator: Optional[torch.Generator]
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
         model, c = self.model, self.config
         C, B = self.prefill_chunk_size, self.block_size
         nb, max_s = self.max_blocks_per_slot, self.max_s
@@ -392,7 +490,6 @@ class ServingEngine:
 
     # --- decode step ---------------------------------------------------------
 
-    @torch.no_grad()
     def decode_step(self, params, pool: Pool, tables: torch.Tensor,
                     tokens: torch.Tensor, lengths: torch.Tensor,
                     generator: Optional[torch.Generator] = None
@@ -400,7 +497,17 @@ class ServingEngine:
         """One token for EVERY slot: ``tokens`` (S,) each slot's incoming
         token, ``lengths`` (S,) live rows INCLUDING it (0 = dead slot: its
         write lands in the dead block, its output is ignored). Writes the
-        pool in place; returns ``(next_tokens, logits)``."""
+        pool in place; returns ``(next_tokens, logits)``. Runs inside the
+        ``serve_decode`` span."""
+        with monitor_spans.span("serve_decode"):
+            return self._decode_step_body(params, pool, tables, tokens,
+                                          lengths, generator)
+
+    @torch.no_grad()
+    def _decode_step_body(self, params, pool: Pool, tables: torch.Tensor,
+                          tokens: torch.Tensor, lengths: torch.Tensor,
+                          generator: Optional[torch.Generator]
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
         model = self.model
         B = self.block_size
         lengths = lengths.to(torch.int32)
@@ -448,7 +555,6 @@ class ServingEngine:
         return ctx.permute(0, 3, 1, 2, 4).reshape(S, n, c.num_heads,
                                                   c.head_dim)
 
-    @torch.no_grad()
     def spec_step(self, params, pool: Pool, tables: torch.Tensor,
                   tokens: torch.Tensor, lengths: torch.Tensor,
                   drafted: torch.Tensor,
@@ -463,7 +569,18 @@ class ServingEngine:
         frontier (the scheduler reserved them), row j of slot i attends
         keys [0, base_i + j] of the gathered cache, and the verify kernel
         emits ``(accept_len (S,), next_token (S,))``. Rows past the
-        accepted frontier hold rejected drafts: the scheduler rewinds."""
+        accepted frontier hold rejected drafts: the scheduler rewinds.
+        Runs inside the ``serve_spec`` span."""
+        with monitor_spans.span("serve_spec"):
+            return self._spec_step_body(params, pool, tables, tokens,
+                                        lengths, drafted, generator)
+
+    @torch.no_grad()
+    def _spec_step_body(self, params, pool: Pool, tables: torch.Tensor,
+                        tokens: torch.Tensor, lengths: torch.Tensor,
+                        drafted: torch.Tensor,
+                        generator: Optional[torch.Generator]
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         model, c = self.model, self.config
         B = self.block_size
         S, K1 = tokens.shape
@@ -506,7 +623,6 @@ class ServingEngine:
                             temperature=self.temperature, top_k=self.top_k,
                             top_p=self.top_p, impl=self.impl)
 
-    @torch.no_grad()
     def spec_tree_step(self, params, pool: Pool, tables: torch.Tensor,
                        tokens: torch.Tensor, lengths: torch.Tensor,
                        parents: torch.Tensor, anc: torch.Tensor, depth: int,
@@ -522,7 +638,21 @@ class ServingEngine:
         verify kernel picks the deepest accepted path, and only that
         path's k/v lands in the pool (level l at row base + l; levels past
         the accepted length, and dead slots, go to the dead block).
-        Returns ``(accept_len, j_star, next_token)``, each (S,)."""
+        Returns ``(accept_len, j_star, next_token)``, each (S,). Runs
+        inside the ``serve_spec_tree`` span."""
+        with monitor_spans.span("serve_spec_tree"):
+            return self._spec_tree_step_body(params, pool, tables, tokens,
+                                             lengths, parents, anc, depth,
+                                             generator)
+
+    @torch.no_grad()
+    def _spec_tree_step_body(self, params, pool: Pool, tables: torch.Tensor,
+                             tokens: torch.Tensor, lengths: torch.Tensor,
+                             parents: torch.Tensor, anc: torch.Tensor,
+                             depth: int,
+                             generator: Optional[torch.Generator]
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
         model, c = self.model, self.config
         B = self.block_size
         S, N1 = tokens.shape
@@ -600,7 +730,9 @@ class ServingEngine:
     def make_scheduler(self) -> Scheduler:
         """A fresh scheduler + allocator matching this engine's pool, with
         a :class:`~apex_tpu_torch.serving.kv_blocks.PrefixCache` over the
-        same allocator."""
+        same allocator and a default
+        :class:`~apex_tpu_torch.serving.scheduler.SLOPolicy`, which an
+        attached telemetry drives."""
         alloc = BlockAllocator(self.num_blocks)
         return Scheduler(
             num_slots=self.num_slots, block_size=self.block_size,
@@ -609,11 +741,43 @@ class ServingEngine:
             prefix_cache=PrefixCache(alloc, self.block_size),
             policy=SLOPolicy())
 
+    def _attach_telemetry(self, telemetry, sched: Scheduler):
+        """The serve's tracker (``engine.py:1346-1377``): ``False`` detaches
+        even a tracker the scheduler carries; ``None`` adopts the
+        scheduler's, else auto-attaches one while the monitor registry is
+        enabled — claiming OK only on the card, SKIP with the device named
+        elsewhere. An explicit OK tracker on a serve off the card is
+        refused: its windows would pass host-CPU rates off as the card's."""
+        tel = telemetry
+        if tel is False:
+            sched.telemetry = None
+            return None
+        if tel is None and sched.telemetry is not None:
+            tel = sched.telemetry
+        elif tel is None and monitor_registry.enabled():
+            tel = (ServeTelemetry(slots=self.num_slots)
+                   if self.device.type == "cuda" else ServeTelemetry(
+                       slots=self.num_slots, status="SKIP",
+                       reason=f"auto-attached serve telemetry on "
+                              f"{self.device}: serving windows are "
+                              f"measurements on the card"))
+        if tel is None:
+            return None
+        if tel.status == "OK" and self.device.type != "cuda":
+            raise ValueError(
+                f"ServeTelemetry(status='OK') claims measurements on the "
+                f"card, but this serve runs on {self.device} — pass "
+                f"status='SKIP' with a reason naming the device")
+        sched.telemetry = tel
+        # the pool-quantization knob the record names (absent on float)
+        tel.kv_dtype = self.kv_dtype
+        return tel
+
     def serve(self, params, requests: List[Request], *,
               generator: Optional[torch.Generator] = None,
               clock: Optional[Callable[[], float]] = None,
               scheduler: Optional[Scheduler] = None,
-              draft=None, adaptive=None) -> List[Request]:
+              telemetry=None, draft=None, adaptive=None) -> List[Request]:
         """Run ``requests`` to completion; returns them in completion
         order with tokens and latency stamps filled in.
 
@@ -624,6 +788,17 @@ class ServingEngine:
         ``generator`` (on the engine's device) draws the sampling noise and
         is required when ``temperature > 0``. ``scheduler`` injects a
         pre-built scheduler (tests script churn through it).
+
+        ``telemetry`` attaches a :class:`~apex_tpu_torch.serving.telemetry.
+        ServeTelemetry`: request lifecycle events, streaming latency
+        histograms, periodic ``serve_window`` records and the anomaly
+        layer, all host-side (the steps launch the same kernels with it on
+        or off); at each window edge the scheduler's policy folds in its
+        signals (:meth:`~apex_tpu_torch.serving.scheduler.SLOPolicy.
+        update`). While the monitor registry is enabled and no tracker is
+        passed or carried by ``scheduler``, one is attached; pass
+        ``telemetry=False`` to suppress even that. A pending
+        :meth:`request_swap` lands between dispatch steps.
 
         ``draft`` attaches a drafter: spec rounds replace plain decode
         steps whenever every decoding slot has the rows for them, and
@@ -683,12 +858,35 @@ class ServingEngine:
             draft.bind(sched, block_size=self.block_size)
             validate_drafter(draft, self.config, needed_rows=self.max_s,
                              block_size=self.block_size)
-        for r in requests:
-            sched.submit(r)
-        stats = ServeStats()
-        pool = self.init_pool()
-        self._serve_loop(params, generator, sched, stats, now, wall, pool,
-                         draft, adaptive)
+        try:
+            tel = self._attach_telemetry(telemetry, sched)
+            for r in requests:
+                if tel is not None:
+                    r.submit_s = now()
+                    tel.on_submit(r, r.submit_s)
+                sched.submit(r)
+            stats = ServeStats()
+            pool = self.init_pool()
+            # per-transition lifecycle records skip the per-line sink flush
+            # inside the loop (one flush at the end)
+            reg = monitor_registry.get_registry()
+            flush_scope = (reg.buffered()
+                           if reg is not None and tel is not None
+                           else contextlib.nullcontext())
+            if tel is not None:
+                # prime the first window's clock BEFORE any work
+                tel.maybe_window(now(), sched)
+            # the serve-CALL trace context: engine-level records with no
+            # per-request id (spans, windows, rid -1 events) share one
+            # ambient id; per-request events carry their own
+            with flush_scope, monitor_trace.trace_context(
+                    monitor_trace.new_trace_id("serve")):
+                self._serve_loop(params, generator, sched, tel, stats, now,
+                                 wall, pool, draft, adaptive)
+        finally:
+            # an unapplied swap does NOT survive into a later serve() call,
+            # on a clean return or a raise: stats.swaps == 0 is the tell
+            self._pending_swap = None
         self.last_stats = stats
         self.last_pool = pool
         return sched.completed
@@ -716,7 +914,7 @@ class ServingEngine:
                 stats.spec_degraded += 1
         return mode, shape
 
-    def _serve_loop(self, params, generator, sched: Scheduler,
+    def _serve_loop(self, params, generator, sched: Scheduler, tel,
                     stats: ServeStats, now, wall: bool, pool: Pool,
                     draft=None, adaptive=None) -> None:
         from apex_tpu_torch.spec.tree import is_tree_drafter
@@ -725,21 +923,32 @@ class ServingEngine:
         as_dev = lambda a: torch.tensor(a, device=dev)  # noqa: E731 (copies)
         tree_capable = draft is not None and is_tree_drafter(draft)
         K = draft.k if draft is not None else 0
+        policy = sched.policy
+        nstep = 0  # the dispatch counter: prefill chunks and decode steps
         ncompleted = len(sched.completed)
         while not sched.idle():
+            # a weight hot-swap lands HERE, between dispatch steps
+            params = self._maybe_swap(params, nstep, tel, stats, now())
             sched.admit(now())
             did_work = False
-            share = sched.policy.prefill_share if sched.policy else 1
+            share = policy.prefill_share if policy is not None else 1
             for _ in range(share):
                 work = sched.next_prefill(now())
                 if work is None:
                     break
+                sched.note_step(nstep)
+                t_dispatch = now()
                 t = time.perf_counter()
                 tok, _ = self.prefill_chunk(
                     params, pool, as_dev(sched.tables.row(work.slot)),
                     as_dev(work.tokens), work.start, work.live, generator)
                 tok = int(tok)  # waits for the chunk to finish
                 stats.prefill_s += time.perf_counter() - t
+                if tel is not None:
+                    tel.on_prefill_chunk(
+                        work.rid, work.slot, now() - t_dispatch,
+                        sched.blocks_held(work.slot), nstep, now())
+                nstep += 1
                 stats.prefill_chunks += 1
                 sched.note_prefill(work, tok, now())
                 did_work = True
@@ -764,17 +973,26 @@ class ServingEngine:
                     mode = "chain" if mode == "tree" else "plain"
                     stats.spec_degraded += 1
             if batch is not None and mode != "plain":
-                self._spec_round(params, pool, generator, sched, stats, now,
-                                 batch, mode, shape, draft, adaptive)
+                self._spec_round(params, pool, generator, sched, tel, stats,
+                                 now, nstep, batch, mode, shape, draft,
+                                 adaptive)
+                nstep += 1
                 did_work = True
             elif batch is not None:
                 toks, lens = batch
+                ndec = len(sched.decoding_slots())
+                sched.note_step(nstep)
+                t_dispatch = now()
                 t = time.perf_counter()
                 sampled, _ = self.decode_step(
                     params, pool, as_dev(sched.tables.asarray()),
                     as_dev(toks), as_dev(lens), generator)
                 sampled = sampled.cpu().numpy()  # waits for the step
                 stats.decode_s += time.perf_counter() - t
+                if tel is not None:
+                    tel.on_decode_step(now() - t_dispatch, ndec, nstep,
+                                       now())
+                nstep += 1
                 stats.decode_steps += 1
                 sched.note_decode(sampled, now())
                 did_work = True
@@ -787,15 +1005,21 @@ class ServingEngine:
                 ncompleted = len(sched.completed)
             stats.blocks_high_water = max(stats.blocks_high_water,
                                           sched.allocator.num_live)
+            if tel is not None and tel.maybe_window(now(), sched) \
+                    is not None and policy is not None:
+                # window edge: fold the fresh SLO/anomaly signals into the
+                # dispatch knobs (SLO-aware scheduling)
+                policy.update(tel)
             if not did_work and wall:
                 # nothing runnable: only future arrivals remain
                 time.sleep(1e-4)
 
     def _spec_round(self, params, pool: Pool, generator, sched: Scheduler,
-                    stats: ServeStats, now, batch, mode: str, shape,
-                    draft, adaptive) -> None:
-        """One chain or tree round over the slot array: the drafts from
-        the host drafter, the step, the commit and its accounting."""
+                    tel, stats: ServeStats, now, nstep: int, batch,
+                    mode: str, shape, draft, adaptive) -> None:
+        """One chain or tree round over the slot array (dispatch
+        ``nstep``): the drafts from the host drafter, the step, the commit
+        and its accounting."""
         from apex_tpu_torch.spec.tree import draft_tree
 
         dev = self.device
@@ -822,6 +1046,8 @@ class ServingEngine:
         tok_mat[:, 1:] = node_toks
         t_step = time.perf_counter()
         stats.draft_s += t_step - t
+        sched.note_step(nstep)
+        t_dispatch = now()
         tables = torch.tensor(sched.tables.asarray(), device=dev)
         tok_dev = torch.tensor(tok_mat, device=dev)
         lens_dev = torch.tensor(lens, device=dev)
@@ -837,6 +1063,9 @@ class ServingEngine:
                                       lens_dev, tok_dev[:, 1:], generator)
             acc, nxt = acc.cpu().numpy(), nxt.cpu().numpy()  # waits
         stats.decode_s += time.perf_counter() - t_step
+        round_dur = now() - t_dispatch
+        if tel is not None:
+            tel.on_decode_step(round_dur, len(live), nstep, now())
         stats.decode_steps += 1
         stats.spec_rounds += 1
         stats.tree_rounds += int(mode == "tree")
@@ -850,6 +1079,14 @@ class ServingEngine:
             if adaptive is not None:
                 # a degraded (chain) round still teaches the controller
                 adaptive.note_round(rids[i], a, drafted_rows)
+            if tel is not None:
+                # the round's full wall time for EVERY live slot (the
+                # concurrent wall time a per-request partition must bill)
+                tel.on_spec_round(
+                    rids[i], i, a, drafted_rows, nstep, now(),
+                    dur_ms=round_dur * 1e3,
+                    **(dict(nodes=tree.num_nodes, branching=branching)
+                       if mode == "tree" else {}))
             if mode == "tree":
                 emitted[i] = tree.path_tokens(node_toks[i], a, int(jst[i]),
                                               int(nxt[i]))

@@ -9,8 +9,11 @@ device side never sees traffic, only fixed-shape operand *contents*
 (tokens, lengths, block tables). The speculative rounds' methods are here
 (``decode_batch(lookahead=)``, :meth:`Scheduler.note_spec`,
 :meth:`Scheduler.note_spec_tokens`, the ``draft_owner`` whose drafter
-blocks free with their stream); the reference's telemetry hooks and
-``ReplanPolicy`` are later slices of the port.
+blocks free with their stream), and so are the telemetry seam
+(``Scheduler(telemetry=)``: every lifecycle hook site the reference
+calls, :meth:`Scheduler.note_step`) and :meth:`SLOPolicy.update`. The
+reference's ``ReplanPolicy`` is not ported yet (it prices plans with
+``apex_tpu.plan``, ROADMAP queue 1, item 8).
 
 Policies:
 
@@ -34,9 +37,12 @@ Policies:
   through prefill, the re-prefill's sampled token is DISCARDED, and
   decode resumes from exactly the pre-eviction state. The OLDEST request
   is never preempted for a younger one's benefit.
-* **SLO-aware dispatch.** :class:`SLOPolicy`'s knobs (shortest-prompt
-  admission, a wider prefill share) are driven by serving telemetry in
-  the reference; without telemetry they keep their defaults.
+* **SLO-aware dispatch.** :class:`SLOPolicy` consumes the live
+  telemetry signals (:class:`~apex_tpu_torch.serving.telemetry.
+  ServeTelemetry`'s window/anomaly layer, folded in at every window
+  edge): sustained TTFT burn flips admission to shortest-arrived-first,
+  queue buildup widens the prefill-chunk share of each engine iteration.
+  Without telemetry the knobs keep their defaults.
 * **Chunked prefill.** Prompts enter the cache ``prefill_chunk`` tokens
   at a time, interleaved with decode steps.
 * **Eviction = free + clear.** A finished request's references go back
@@ -80,8 +86,13 @@ class Request:
     prompt: np.ndarray
     max_new_tokens: int
     arrival_s: float = 0.0
+    # the request-scoped trace id: minted by the telemetry at submit (or
+    # stamped by the caller beforehand) and carried on this OBJECT, so one
+    # id survives evict → re-admit → resume
+    trace_id: Optional[str] = None
     tokens: List[int] = dataclasses.field(default_factory=list)
     token_s: List[float] = dataclasses.field(default_factory=list)
+    submit_s: Optional[float] = None
     admit_s: Optional[float] = None
     first_token_s: Optional[float] = None
     finish_s: Optional[float] = None
@@ -96,13 +107,46 @@ class Request:
 
 @dataclasses.dataclass
 class SLOPolicy:
-    """SLO-aware dispatch knobs: ``prefer_short_prompts`` flips admission
-    to shortest-arrived-prompt-first, ``prefill_share`` runs up to that
-    many prefill chunks per engine iteration. Both change only host-side
-    dispatch order and repetition."""
+    """SLO-aware dispatch knobs, driven by the live telemetry signals (the
+    engine calls :meth:`update` at every window edge of an attached
+    :class:`~apex_tpu_torch.serving.telemetry.ServeTelemetry`):
 
+    * **TTFT burn** (sustained first tokens over the SLO) →
+      ``prefer_short_prompts``: admission picks the shortest ARRIVED
+      prompt instead of the FCFS head — long prompts are deprioritized
+      (never dropped) until the burn clears.
+    * **Queue buildup** (monotone growth across windows) →
+      ``prefill_share`` widens (up to ``max_prefill_share`` chunks per
+      engine iteration, backing off one step per window without buildup).
+
+    Both knobs change only host-side dispatch order and repetition of the
+    same device steps. ``adjustments`` counts the window edges that
+    changed a knob.
+    """
+
+    max_prefill_share: int = 4
     prefill_share: int = 1
     prefer_short_prompts: bool = False
+    adjustments: int = 0
+
+    def update(self, tel) -> None:
+        # key off the LIVE signal only: the sticky record flag
+        # (`slo_burn`) never clears, and a policy keyed on it could never
+        # stand down after TTFT recovers
+        burning = bool(getattr(tel, "slo_burning", False))
+        buildup = bool(getattr(tel, "queue_buildup", False))
+        before = (self.prefer_short_prompts, self.prefill_share)
+        self.prefer_short_prompts = burning
+        if buildup:
+            self.prefill_share = min(self.max_prefill_share,
+                                     self.prefill_share + 1)
+        else:
+            # narrow on ANY window without queue buildup, not only on
+            # fully clean ones: a persistent benign anomaly must never pin
+            # the share at max
+            self.prefill_share = max(1, self.prefill_share - 1)
+        if (self.prefer_short_prompts, self.prefill_share) != before:
+            self.adjustments += 1
 
 
 @dataclasses.dataclass
@@ -161,7 +205,7 @@ class Scheduler:
 
     def __init__(self, *, num_slots: int, block_size: int,
                  max_blocks_per_slot: int, allocator: BlockAllocator,
-                 prefill_chunk: int,
+                 prefill_chunk: int, telemetry=None,
                  prefix_cache: Optional[PrefixCache] = None,
                  policy: Optional[SLOPolicy] = None):
         if prefill_chunk < block_size or prefill_chunk % block_size:
@@ -182,6 +226,10 @@ class Scheduler:
         self.allocator = allocator
         self.prefix_cache = prefix_cache
         self.policy = policy
+        # optional ServeTelemetry: lifecycle hooks fire from the host
+        # bookkeeping here (admit/evict/finish and admission-pressure
+        # accounting); None costs one is-None test
+        self.telemetry = telemetry
         self.tables = BlockTables(num_slots, max_blocks_per_slot)
         self._slots = [_Slot() for _ in range(self.num_slots)]
         self._waiting: Deque[Request] = deque()
@@ -195,6 +243,10 @@ class Scheduler:
         # (PagedModelDrafter.bind sets it): its evict_stream runs from
         # _finish and _preempt, so drafter blocks free with their stream
         self.draft_owner = None
+        # the engine step index of the dispatch currently noted; the
+        # telemetry stamps it on lifecycle records so they name the
+        # serve_prefill/serve_decode dispatch that produced them
+        self._step = 0
 
     # --- capacity accounting -------------------------------------------------
 
@@ -286,7 +338,11 @@ class Scheduler:
         reclaimable) must cover the request's FIRST prefill chunk beyond
         its shared prefix. Order is FCFS, or shortest-arrived-prompt-
         first under ``policy.prefer_short_prompts``. Returns the slots
-        admitted this call."""
+        admitted this call. The telemetry (when attached) gets one
+        ``admit`` lifecycle event per admission and an
+        admission-blocked-by {slots|blocks} count when an arrived request
+        is held back."""
+        tel = self.telemetry
         B, C = self.block_size, self.prefill_chunk
         admitted = []
         while self._waiting:
@@ -318,10 +374,16 @@ class Scheduler:
                 self.prefix_cache.reclaimable() - self_pinned
                 if self.prefix_cache is not None else 0)
             if need > headroom:
+                if tel is not None:
+                    tel.on_blocked("blocks")
                 break  # pool pressure: hold order, retry next step
             del self._waiting[k]
             admitted.append(self._admit_one(free_slots[0], req, ep, now,
                                             chain))
+        if (tel is not None and self._waiting
+                and not any(s.free for s in self._slots)
+                and any(r.arrival_s <= now for r in self._waiting)):
+            tel.on_blocked("slots")
         return admitted
 
     def _admit_one(self, i: int, req: Request, ep: np.ndarray,
@@ -361,6 +423,9 @@ class Scheduler:
         self._slots[i] = slot
         self._admit_order.append(i)
         req.admit_s = now
+        if self.telemetry is not None:
+            self.telemetry.on_admit(req, i, now, prefix_hit_blocks=shared,
+                                    resumed=slot.resumed)
         return i
 
     # --- chunked prefill -----------------------------------------------------
@@ -407,14 +472,21 @@ class Scheduler:
         if not work.is_last:
             return []
         req = slot.request
+        tel = self.telemetry
         if slot.resumed:
             slot.resumed = False  # back in steady decode
+            if tel is not None:
+                tel.on_resume(req, work.slot, slot.n_blocks, self._step,
+                              now)
             return []
         slot.last_token = int(sampled_token)
         slot.generated = 1
         req.tokens.append(int(sampled_token))
         req.token_s.append(now)
         req.first_token_s = now
+        if tel is not None:
+            tel.on_first_token(req, work.slot, slot.n_blocks, self._step,
+                               now)
         if slot.generated >= req.max_new_tokens:
             return [self._finish(work.slot, now)]
         return []
@@ -430,7 +502,7 @@ class Scheduler:
         for idx in range(slot.registered_blocks, full):
             slot.parent_eid = self.prefix_cache.insert(
                 slot.parent_eid, slot.eprompt[idx * B:(idx + 1) * B],
-                slot.block_ids[idx])
+                slot.block_ids[idx], trace_id=slot.request.trace_id)
             slot.registered_blocks = idx + 1
 
     # --- decode --------------------------------------------------------------
@@ -494,8 +566,10 @@ class Scheduler:
         in reverse allocation order (the allocator's LIFO free list is
         restored exactly; an all-rejected round leaves tables, lengths and
         free list as a plain decode step would) and their table entries
-        reset to the dead block. A round's tokens share one timestamp.
+        reset to the dead block. A round's tokens share one timestamp; the
+        inter-token latency is amortized over the round's emissions.
         Returns requests finished by the round."""
+        tel = self.telemetry
         finished = []
         B = self.block_size
         for i, emitted in emitted_by_slot.items():
@@ -503,6 +577,10 @@ class Scheduler:
             req = slot.request
             emitted = emitted[:req.max_new_tokens - slot.generated]
             m = len(emitted)
+            if tel is not None and req.token_s:
+                gap = max(now - req.token_s[-1], 0.0) / m
+                for _ in range(m):
+                    tel.observe_itl(gap)
             req.tokens.extend(emitted)
             req.token_s.extend([now] * m)
             slot.generated += m
@@ -521,6 +599,7 @@ class Scheduler:
     def note_decode(self, sampled: np.ndarray, now: float) -> List[Request]:
         """Record one decode step's samples; returns requests finished
         (and evicted) by it."""
+        tel = self.telemetry
         finished = []
         for i in self.decoding_slots():
             slot = self._slots[i]
@@ -528,6 +607,8 @@ class Scheduler:
             slot.last_token = int(sampled[i])
             slot.generated += 1
             req = slot.request
+            if tel is not None and req.token_s:
+                tel.observe_itl(now - req.token_s[-1])
             req.tokens.append(int(sampled[i]))
             req.token_s.append(now)
             if slot.generated >= req.max_new_tokens:
@@ -540,6 +621,8 @@ class Scheduler:
         slot = self._slots[i]
         req = slot.request
         req.finish_s = now
+        if self.telemetry is not None:  # blocks held captured BEFORE they free
+            self.telemetry.on_finish(req, i, slot.n_blocks, self._step, now)
         self.allocator.free(slot.block_ids)
         if self.draft_owner is not None:
             # the stream's drafter blocks free through the same path
@@ -551,15 +634,18 @@ class Scheduler:
         return req
 
     def _preempt(self, i: int, now: float) -> Request:
-        """Evict-and-recompute: release slot ``i``'s block references and
-        re-queue the request at the FRONT of the waiting line with its
-        generated tokens intact."""
+        """Evict-and-recompute: release slot ``i``'s block references,
+        emit the ``evict`` lifecycle event, and re-queue the request at the
+        FRONT of the waiting line with its generated tokens intact."""
         slot = self._slots[i]
         req = slot.request
         req.evictions += 1
         req._progress_at_evict = (slot.length if slot.prefill_done
                                   else slot.prefilled)
         self.preemptions += 1
+        if self.telemetry is not None:  # blocks captured BEFORE they free
+            self.telemetry.on_evict(req, i, slot.n_blocks, "pool_pressure",
+                                    0, self._step, now)
         self.allocator.free(slot.block_ids)
         if self.draft_owner is not None:
             # the drafter's frontier rebuilds by replay on re-admission
@@ -591,11 +677,29 @@ class Scheduler:
         req = self._slots[i].request
         return [int(t) for t in req.prompt] + list(req.tokens)
 
+    def note_step(self, step: int) -> None:
+        """Record the engine's dispatch counter so lifecycle events name
+        the prefill/decode step that produced them."""
+        self._step = int(step)
+
     # --- state queries -------------------------------------------------------
 
     @property
     def num_active(self) -> int:
         return sum(1 for s in self._slots if s.request is not None)
+
+    @property
+    def num_waiting(self) -> int:
+        return len(self._waiting)
+
+    def num_queued(self, now: float) -> int:
+        """Waiting requests that have ARRIVED by ``now``: the honest
+        queue depth (an arrival replay submits its whole trace up front
+        with future ``arrival_s``)."""
+        return sum(1 for r in self._waiting if r.arrival_s <= now)
+
+    def next_arrival(self) -> Optional[float]:
+        return self._waiting[0].arrival_s if self._waiting else None
 
     def idle(self) -> bool:
         """No request anywhere: waiting empty and every slot free."""

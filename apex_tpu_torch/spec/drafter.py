@@ -24,6 +24,8 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from apex_tpu_torch.monitor import spans as monitor_spans
+
 __all__ = ["Drafter", "NGramDrafter", "ModelDrafter", "validate_drafter",
            "MAX_DRAFT_K"]
 
@@ -209,16 +211,19 @@ class ModelDrafter(Drafter):
                 f"ModelDrafter cache ({self.cache_rows} rows) cannot "
                 f"hold context ({len(ctx)}) + k ({self.k}) draft rows — "
                 f"raise max_seq_len")
-        # teacher-force the unconsumed context rows (every token but the
-        # last writes its k/v; its greedy candidate is discarded)
-        for i in range(consumed, len(ctx) - 1):
-            self._step(cache, ctx[i], i)
-        # draft greedily from the frontier, one row further each step
-        out = []
-        tok = ctx[-1]
-        for j in range(self.k):
-            tok = int(self._step(cache, tok, len(ctx) - 1 + j)[0])
-            out.append(tok)
+        # one spec_draft span a round (the decode_step spans nest under
+        # it); no-op while monitoring is off
+        with monitor_spans.span("spec_draft", stream=int(stream)):
+            # teacher-force the unconsumed context rows (every token but
+            # the last writes its k/v; its greedy candidate is discarded)
+            for i in range(consumed, len(ctx) - 1):
+                self._step(cache, ctx[i], i)
+            # draft greedily from the frontier, one row further each step
+            out = []
+            tok = ctx[-1]
+            for j in range(self.k):
+                tok = int(self._step(cache, tok, len(ctx) - 1 + j)[0])
+                out.append(tok)
         st["cache"], st["consumed"] = cache, len(ctx)
         self._streams[stream] = st
         return np.asarray(out, np.int32)

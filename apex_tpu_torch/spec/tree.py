@@ -38,6 +38,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from apex_tpu_torch.monitor import spans as monitor_spans
 from apex_tpu_torch.spec.drafter import MAX_DRAFT_K, Drafter
 
 __all__ = ["DraftTree", "draft_tree", "NGramTreeDrafter", "PagedModelDrafter",
@@ -353,27 +354,29 @@ class PagedModelDrafter(Drafter):
         # stream's fresh blocks too
         self._streams[stream] = st
         self._ensure_rows(st, rows)
-        # teacher-force the unconsumed context rows
-        for i in range(st["consumed"], len(ctx) - 1):
-            self._step(st, ctx[i], i)
-        # the frontier row: its logits seed every branch, best first
-        # (ties to the lowest index, as a stable descending sort)
-        frontier = self._step(st, ctx[-1], len(ctx) - 1).float().clone()
-        seeds = []
-        for _ in range(min(branching, frontier.numel())):
-            j = int(torch.argmax(frontier))
-            seeds.append(j)
-            frontier[j] = -torch.inf
-        out = np.zeros((branching * depth,), np.int32)
-        for b in range(branching):
-            tok = seeds[min(b, len(seeds) - 1)]
-            out[b * depth] = tok
-            # continue the branch greedily; its rows overwrite the
-            # scratch rows the previous branch used
-            for lv in range(1, depth):
-                tok = int(torch.argmax(self._step(st, tok,
-                                                  len(ctx) - 1 + lv)))
-                out[b * depth + lv] = tok
+        with monitor_spans.span("spec_draft", stream=int(stream)):
+            # teacher-force the unconsumed context rows
+            for i in range(st["consumed"], len(ctx) - 1):
+                self._step(st, ctx[i], i)
+            # the frontier row: its logits seed every branch, best first
+            # (ties to the lowest index, as a stable descending sort)
+            frontier = self._step(st, ctx[-1],
+                                  len(ctx) - 1).float().clone()
+            seeds = []
+            for _ in range(min(branching, frontier.numel())):
+                j = int(torch.argmax(frontier))
+                seeds.append(j)
+                frontier[j] = -torch.inf
+            out = np.zeros((branching * depth,), np.int32)
+            for b in range(branching):
+                tok = seeds[min(b, len(seeds) - 1)]
+                out[b * depth] = tok
+                # continue the branch greedily; its rows overwrite the
+                # scratch rows the previous branch used
+                for lv in range(1, depth):
+                    tok = int(torch.argmax(self._step(st, tok,
+                                                      len(ctx) - 1 + lv)))
+                    out[b * depth + lv] = tok
         st["consumed"] = len(ctx)
         return out
 

@@ -5,13 +5,14 @@ dicts, lists and tuples of tensors (``GPTModel.init``'s tree), where the
 reference keeps JAX pytrees. This module holds the port's own copies of
 what :mod:`apex_tpu.amp` needs from ``apex_tpu/utils/pytree.py``:
 :func:`tree_cast` (``:22-36``) and :func:`tree_all_finite` (``:51-63``),
-over those containers, plus the map and leaf walks they are built on.
-Leaves that are not tensors (ints, bools, None) pass through every map.
+over those containers, plus the map and leaf walks they are built on, and
+:func:`tree_paths` (the serving hot-swap's leaf-naming check). Leaves that
+are not tensors (ints, bools, None) pass through every map.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Tuple
 
 import torch
 
@@ -44,6 +45,21 @@ def tree_leaves(tree: Tree) -> List[torch.Tensor]:
     if isinstance(tree, (list, tuple)):
         return [t for item in tree for t in tree_leaves(item)]
     return []
+
+
+def tree_paths(tree: Tree, prefix: str = "") -> List[Tuple[str, Any]]:
+    """``(path, leaf)`` for every leaf (tensor or not) in
+    :func:`tree_leaves`' order, the path written as the reference's
+    ``jax.tree_util.keystr`` writes it: ``['layers'][0]['qkv']['weight']``.
+    An empty container is a leaf of its own, so two trees with the same
+    paths have the same structure up to the containers' types."""
+    if isinstance(tree, dict) and tree:
+        return [pl for k in sorted(tree)
+                for pl in tree_paths(tree[k], f"{prefix}[{k!r}]")]
+    if isinstance(tree, (list, tuple)) and tree:
+        return [pl for i, item in enumerate(tree)
+                for pl in tree_paths(item, f"{prefix}[{i}]")]
+    return [(prefix, tree)]
 
 
 def tree_cast(tree: Tree, dtype) -> Tree:

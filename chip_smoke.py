@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """chip_smoke.py — drive apex_tpu_torch's serving path, its decode engine
-(with speculative decoding), its GPT-medium train step (also with GPT-2's
+(with speculative decoding), its serving telemetry and weight hot-swap,
+its GPT-medium train step (also with GPT-2's
 dropout 0.1, under each remat policy, under amp at fp16: O2 with fp32
 master weights and the dynamic loss scaler, and O1, and under the legacy
 ``FP16_Optimizer``), its T5-base train
@@ -9,8 +10,8 @@ step (with the bucketed and the materialised relative bias, and under
 BERT-large padded MLM train step (also under LAMB and mixed-precision
 LAMB), the three train steps again on the models' default softmax
 attention route, the fused-dense block and MLP train steps (also under
-LARC + SGD), and every optimizer's step at GPT-medium's size, on one
-CUDA card.
+LARC + SGD), every optimizer's step at GPT-medium's size, and BERT's
+encoder-serving entry, on one CUDA card.
 
 Run from the repository root on a machine with an NVIDIA H100 (no
 arguments, one card, no network):
@@ -398,7 +399,42 @@ without the final line):
       on CPU copies of four leaves by the CPU parity tests' tolerance, 2
       more, the median of 10 more beside the bytes bound; LAMB with its
       trust ratio left out (a patched copy of ``lamb_math``) refused;
-15. one ``{"kernels": [...]}`` line (all twenty-three kernels, the six
+15. serving telemetry, weight hot-swap and the encoder entry (no kernel
+    of their own; the legs' launches are the kernels' they drive):
+    * ``serve_telemetry`` (after ``rel_decode``): the serve cell, greedy,
+      four serves in ABBA turns with ``telemetry=False`` and with a
+      ``ServeTelemetry(slots=8, window_s=0.5)`` attached while the monitor
+      registry writes a JSONL file in a temporary directory: tokens and
+      the paged-decode, ``fused_sample`` and ``ln_fwd`` launches (12 a
+      decode step, 25 a forward) identical both ways; every request's
+      submit, admit, first_token and finish in order under one trace id;
+      at least one ``serve_window``; every record OK and finite; exact
+      accounting at drain; the same sampled (one generator seed) and
+      with the n-gram tree drafter (the spec records and the
+      ``serve_spec_tree`` spans, one tree-verify launch a round) both
+      ways; tokens/s both ways and the tracker's overhead as a share of
+      the wall time; the reference's per-step hook budget (one
+      ``on_decode_step``, one ``observe_itl`` a slot and one
+      ``maybe_window``, the min of 3 passes of 1000) under 1% of the
+      measured decode step; dispatches 1-40 of a telemetry serve under
+      ``torch.profiler``: host and device ms under each
+      ``serve_prefill``/``serve_decode`` range, their counts equal to the
+      traced dispatches, and their share of the window's wall time;
+    * ``serve_swap``: the serve cell with ``request_swap`` at dispatch 60:
+      a clone of the weights token-identical to no swap (``swaps == 1``),
+      seeded perturbed weights keeping every token made before the swap
+      and changing later ones, an unreached step leaving ``swaps == 0``,
+      the pool's tensors never moving; a hooked GPT-medium whose decode
+      bias table is a parameter, swapped to another table: the first
+      decode step after the swap replayed on the plain path agrees with
+      the new table (the rel_decode rule) and not the old;
+    * ``encoder`` (after ``bshd_rel_attention``): ``jit_encoder`` over
+      BERT-large bf16 at 32 x 512 with the cell's lengths and token types,
+      10 timed calls: 24 bshd flash forwards (all wgmma) and 49 ln_fwd a
+      call and no other kernel; hidden and pooled against the plain path
+      and an fp32 truth by the flash rule; sequences/s, valid tokens/s, ms
+      a call;
+16. one ``{"kernels": [...]}`` line (all twenty-three kernels, the six
     fp16 instances, ``<name>_f16``, and the seven instances of this
     slice: ``paged_decode_attn_int8``/``_fp8``/``_rel``,
     ``decode_attn_rel``, ``flash_fwd_bshd_rel``,
@@ -3368,6 +3404,673 @@ def phase_rel_decode(torch, model, params, dev):
     del s_eng, base
     torch.cuda.empty_cache()
     return info, launches
+
+
+# --- serving telemetry, weight hot-swap, the encoder entry -------------------
+
+# the serve cell's telemetry: the reference's window period, the slot count
+TEL_WINDOW_S = 0.5
+TEL_SPANS = ("serve_prefill", "serve_decode")
+# the reference's per-step hook budget (tests/test_serve_telemetry.py:
+# 324-366): passes of TEL_HOOK_ITERS iterations, the min of TEL_HOOK_PASSES
+TEL_HOOK_ITERS, TEL_HOOK_PASSES, TEL_BUDGET = 1000, 3, 0.01
+# the profiled window of the telemetry serve: dispatch 0 warms the
+# profiler, dispatches 1..TEL_PROFILE_DISPATCHES are traced
+TEL_PROFILE_DISPATCHES = 40
+# the dispatch (prefill chunk or decode step) a hot-swap waits for, and the
+# seeded perturbation of the swapped-in weights (std a leaf, times 0.02)
+SWAP_STEP, SWAP_SEED, SWAP_STD = 60, 13, 0.02
+ENCODER_CALLS = 10      # timed jit_encoder calls at BERT-large's 32 x 512
+
+
+def tel_serve_run(torch, model, params, dev, what, *, telemetry,
+                  gen_seed=None, on_dispatch=None):
+    """One serve of the trace (greedy, or sampled at SAMPLED from
+    ``gen_seed``) with ``telemetry``, the serve's kernel counters zeroed
+    just before and read just after: 12 paged-decode launches a decode
+    step, 25 ln_fwd a decode step or prefill chunk, one sampling launch
+    each when sampled (none greedy), no verify launch; exact accounting
+    at drain. ``on_dispatch(name)`` is called after each prefill chunk
+    and decode step. Returns (tokens by rid, info, launches, scheduler)."""
+    from apex_tpu_torch.serving.engine import ServingEngine
+
+    knobs = SAMPLED if gen_seed is not None else {}
+    eng = ServingEngine(model, device=dev, **ENGINE, **knobs)
+    if on_dispatch is not None:
+        for name in ("prefill_chunk", "decode_step"):
+            def hooked(*a, _real=getattr(eng, name), _name=name, **k):
+                out = _real(*a, **k)
+                on_dispatch(_name)
+                return out
+
+            setattr(eng, name, hooked)
+    sched = eng.make_scheduler()
+    reqs = build_trace()
+    gen = (None if gen_seed is None
+           else torch.Generator(device=dev).manual_seed(gen_seed))
+    counters = spec_serve_counters()
+    torch.cuda.synchronize()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    done = eng.serve(params, reqs, scheduler=sched, generator=gen,
+                     telemetry=telemetry)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    check(len(done) == len(reqs), f"{what}: the serve lost requests")
+    for r in done:
+        check(len(r.tokens) == r.max_new_tokens
+              and all(0 <= t < MODEL["vocab_size"] for t in r.tokens),
+              f"{what}: request {r.rid} bad tokens")
+    sched.allocator.check_accounting()
+    check(sched.allocator.num_live == sched.allocator.num_resident,
+          f"{what}: blocks live beyond the prefix cache's residents at "
+          f"drain")
+    st = eng.last_stats
+    L = MODEL["num_layers"]
+    forwards = st.decode_steps + st.prefill_chunks
+    want = {"paged_decode_attn": L * st.decode_steps,
+            "ln_fwd": (2 * L + 1) * forwards,
+            "fused_sample": forwards if gen_seed is not None else 0}
+    check(all(launches[k] == want.get(k, 0) for k in launches),
+          f"{what}: launches {launches}, want {want} ({st.decode_steps} "
+          f"decode steps, {st.prefill_chunks} prefill chunks)")
+    n_tok = sum(len(r.tokens) for r in done)
+    info = {"tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+            "decode_steps": st.decode_steps,
+            "prefill_chunks": st.prefill_chunks,
+            "decode_step_ms": 1e3 * st.decode_s / max(st.decode_steps, 1),
+            "prefill_chunk_ms": 1e3 * st.prefill_s / max(st.prefill_chunks,
+                                                         1),
+            "preemptions": sched.preemptions,
+            "launches_per_decode_step": {
+                k: launches[k] / max(st.decode_steps, 1)
+                for k in ("paged_decode_attn",)},
+            "launches": {k: v for k, v in launches.items() if v}}
+    return {r.rid: list(r.tokens) for r in done}, info, launches, sched
+
+
+def tel_spec_run(torch, model, params, dev, telemetry, path=None):
+    """One greedy serve of the trace drafted by NGramTreeDrafter(SPEC_K,
+    2) (tree rounds, chain rounds near the row cap) with ``telemetry``
+    (and the registry writing ``path`` when given), the counters zeroed
+    just before and read just after: one fused_verify_tree launch a tree
+    round, one fused_verify a chain round, exact accounting at drain.
+    Returns (tokens by rid, stats, launches, records)."""
+    from apex_tpu_torch import monitor
+    from apex_tpu_torch.serving.engine import ServingEngine
+    from apex_tpu_torch.spec import NGramTreeDrafter
+
+    eng = ServingEngine(model, device=dev, **ENGINE)
+    sched = eng.make_scheduler()
+    reqs = build_trace()
+    counters = spec_serve_counters()
+    torch.cuda.synchronize()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    if path is not None:
+        monitor.enable(path)
+    try:
+        done = eng.serve(params, reqs, scheduler=sched, telemetry=telemetry,
+                         draft=NGramTreeDrafter(depth=SPEC_K, branching=2))
+    finally:
+        monitor.disable()
+    torch.cuda.synchronize()
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    st = eng.last_stats
+    check(len(done) == len(reqs) and st.tree_rounds > 0
+          and launches["fused_verify_tree"] == st.tree_rounds
+          and launches["fused_verify"] == st.spec_rounds - st.tree_rounds,
+          f"spec serve with telemetry {telemetry is not False}: "
+          f"{st.tree_rounds} tree and {st.spec_rounds} rounds, launches "
+          f"{launches}")
+    sched.allocator.check_accounting()
+    records = []
+    if path is not None:
+        with open(path) as fh:
+            records = [json.loads(ln) for ln in fh]
+    return {r.rid: list(r.tokens) for r in done}, st, launches, records
+
+
+def finite_numbers(obj):
+    """Every number inside ``obj`` (dicts, lists) is finite."""
+    if isinstance(obj, dict):
+        return all(finite_numbers(v) for v in obj.values())
+    if isinstance(obj, list):
+        return all(finite_numbers(v) for v in obj)
+    if isinstance(obj, float):
+        return obj == obj and abs(obj) != float("inf")
+    return True
+
+
+def tel_stream_checks(records, n_req):
+    """The telemetry serve's JSONL stream: every request's submit → admit
+    → first_token → finish in order under one trace id, at least one
+    serve_window, every status-carrying record OK and finite."""
+    by_rid, ids = {}, {}
+    for r in records:
+        check(finite_numbers(r), f"telemetry record with a non-finite "
+              f"number: {r}")
+        if "status" in r:
+            check(r["status"] == "OK", f"telemetry record not OK: {r}")
+        if r.get("kind") == "serve_event" and r["rid"] >= 0:
+            by_rid.setdefault(r["rid"], []).append(r["phase"])
+            ids.setdefault(r["rid"], set()).add(r.get("trace_id"))
+    check(len(by_rid) == n_req, f"{len(by_rid)} requests in the stream "
+          f"of {n_req}")
+    for rid, phases in by_rid.items():
+        seen = [p for p in phases
+                if p in ("submit", "admit", "first_token", "finish")]
+        firsts = [seen.index(p) for p in ("submit", "admit", "first_token",
+                                          "finish")
+                  if p in seen]
+        check(len(firsts) == 4 and firsts == sorted(firsts)
+              and seen[-1] == "finish",
+              f"request {rid}: lifecycle {phases}")
+        check(len(ids[rid]) == 1 and None not in ids[rid],
+              f"request {rid}: trace ids {ids[rid]}")
+    check(len(set().union(*ids.values())) == n_req,
+          "two requests share a trace id")
+    windows = [r for r in records if r.get("kind") == "serve_window"]
+    check(len(windows) >= 1, "no serve_window record")
+    return {"records": len(records), "serve_windows": len(windows),
+            "phases": sorted({p for ph in by_rid.values() for p in ph}),
+            "spans": sorted({r["name"] for r in records
+                             if r.get("kind") == "span"})}
+
+
+def tel_hook_budget(torch, sched, step_ms):
+    """The reference's per-step hook budget: the min over passes of one
+    on_decode_step, one observe_itl a live slot and one maybe_window (no
+    sink), against the leg's measured decode step."""
+    from apex_tpu_torch.serving.telemetry import ServeTelemetry
+
+    tel = ServeTelemetry(slots=ENGINE["num_slots"], window_s=TEL_WINDOW_S)
+    slots = ENGINE["num_slots"]
+
+    def hook_pass(base):
+        t0 = time.perf_counter()
+        for i in range(base, base + TEL_HOOK_ITERS):
+            for _ in range(slots):
+                tel.observe_itl(0.001)
+            tel.on_decode_step(0.001, slots, i, i * 0.001)
+            tel.maybe_window(i * 0.001, sched)
+        return (time.perf_counter() - t0) / TEL_HOOK_ITERS
+
+    hook_pass(0)
+    per_step = min(hook_pass((p + 1) * TEL_HOOK_ITERS)
+                   for p in range(TEL_HOOK_PASSES))
+    share = per_step * 1e3 / step_ms
+    check(share < TEL_BUDGET, f"per-step telemetry {per_step * 1e6:.1f} us "
+          f"is {share:.4%} of a {step_ms:.3f} ms decode step (budget "
+          f"{TEL_BUDGET:.0%})")
+    return {"per_step_us": per_step * 1e6, "decode_step_ms": step_ms,
+            "share_of_decode_step": share, "budget": TEL_BUDGET}
+
+
+def tel_profile(torch, model, params, dev):
+    """One telemetry serve with the registry on, dispatches 1 to
+    TEL_PROFILE_DISPATCHES traced by torch.profiler (dispatch 0 warms it;
+    the device drains before the window closes): the host ms and the
+    device ms under each serve_* range (the range's kernels, through the
+    profiler's CPU-op tree; and the range's own device-side annotation
+    where the profiler records one), and the share of the window's wall
+    time each covers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from apex_tpu_torch import monitor
+    from apex_tpu_torch.serving.telemetry import ServeTelemetry
+
+    n = TEL_PROFILE_DISPATCHES
+    kinds, window = [], {}
+
+    def on_dispatch(name):
+        kinds.append(name)
+        if len(kinds) == 1:
+            window["t0"] = time.perf_counter()
+        elif len(kinds) == n + 1:
+            torch.cuda.synchronize()
+            window["t1"] = time.perf_counter()
+        prof.step()
+
+    monitor.enable()  # no sink: the spans need the registry, not a file
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=n,
+                                       repeat=1)) as prof:
+            tel_serve_run(torch, model, params, dev,
+                          "profiled telemetry serve",
+                          telemetry=ServeTelemetry(slots=ENGINE["num_slots"],
+                                                   window_s=TEL_WINDOW_S),
+                          on_dispatch=on_dispatch)
+    finally:
+        monitor.disable()
+    check(len(kinds) > n, f"profiled serve: {len(kinds)} dispatches, "
+          f"fewer than the window's {n + 1}")
+    traced = kinds[1:n + 1]
+    want = {"serve_prefill": traced.count("prefill_chunk"),
+            "serve_decode": traced.count("decode_step")}
+    wall_ms = (window["t1"] - window["t0"]) * 1e3
+    ranges = {r: {"count": 0, "host_ms": 0.0, "device_ms": 0.0}
+              for r in TEL_SPANS}
+    for e in prof.events():
+        if e.name in ranges and e.device_type == DeviceType.CPU:
+            r = ranges[e.name]
+            r["count"] += 1
+            r["host_ms"] += e.cpu_time_total / 1e3
+            r["device_ms"] += e.device_time_total / 1e3
+    kernels_ms = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.key in ranges:
+            ranges[e.key]["annotation_device_ms"] = \
+                e.device_time_total / 1e3
+        else:
+            kernels_ms += e.self_device_time_total / 1e3
+    for r in ranges.values():
+        r["host_share_of_wall"] = r["host_ms"] / wall_ms
+        r["device_share_of_wall"] = r["device_ms"] / wall_ms
+    check(all(want[r] > 0 and ranges[r]["count"] == want[r]
+              for r in TEL_SPANS),
+          f"profiled serve: ranges {ranges} for the traced dispatches "
+          f"{want}")
+    return {"dispatches": want, "wall_ms": wall_ms,
+            "device_kernels_ms": kernels_ms,
+            "device_busy_share": kernels_ms / wall_ms,
+            "ranges_device_share_of_kernels":
+                sum(r["device_ms"] for r in ranges.values())
+                / max(kernels_ms, 1e-9),
+            "ranges": ranges}
+
+
+def phase_serve_telemetry(torch, model, params, dev):
+    """The serve cell, greedy, in turns without telemetry
+    (``telemetry=False``, the registry off), with a
+    ``ServeTelemetry(slots=8, window_s=0.5)`` attached while the registry
+    writes a JSONL file, twice each in ABBA order: the same tokens and the
+    same launches both ways; the stream's lifecycle, trace ids, windows
+    and honesty; then sampled (one generator seed) both ways; the
+    reference's per-step hook budget; a window of one telemetry serve
+    profiled by range. Returns (info, launches of the telemetry runs)."""
+    import tempfile
+
+    from apex_tpu_torch import monitor
+    from apex_tpu_torch.serving.telemetry import ServeTelemetry
+
+    t_leg = time.perf_counter()
+    info = {"runs": []}
+    tokens, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # ABBA: a linear drift of the host's speed over the leg falls
+        # alike on each mode's mean
+        for turn, mode in enumerate(("off", "on", "on", "off")):
+            what = f"telemetry {mode} (turn {turn})"
+            on = mode == "on"
+            tel = (ServeTelemetry(slots=ENGINE["num_slots"],
+                                  window_s=TEL_WINDOW_S) if on else False)
+            path = os.path.join(tmp, f"serve{turn}.jsonl")
+            if on:
+                monitor.enable(path)
+            try:
+                toks, run, counts, sched = tel_serve_run(
+                    torch, model, params, dev, what, telemetry=tel)
+            finally:
+                monitor.disable()
+            run["telemetry"] = mode
+            if on:
+                with open(path) as fh:
+                    records = [json.loads(ln) for ln in fh]
+                run["stream"] = tel_stream_checks(records, len(toks))
+                run["overhead_s"] = tel.overhead_s
+                run["overhead_share_of_wall"] = tel.overhead_s / run["wall_s"]
+                run["windows"] = tel.windows_emitted
+                check(tel.finished == len(toks) and tel.leaked_blocks == 0,
+                      f"{what}: tracker finished {tel.finished}, leaked "
+                      f"{tel.leaked_blocks}")
+            info["runs"].append(run)
+            tokens[turn] = toks
+            launches[turn] = counts
+    check(all(tokens[t] == tokens[0] for t in tokens),
+          "serve_telemetry: tokens differ with telemetry on and off")
+    check(all(launches[t] == launches[0] for t in launches),
+          f"serve_telemetry: launches differ with telemetry on and off: "
+          f"{launches}")
+    sampled = {}
+    for on in (False, True):
+        tel = (ServeTelemetry(slots=ENGINE["num_slots"],
+                              window_s=TEL_WINDOW_S) if on else False)
+        sampled[on] = tel_serve_run(torch, model, params, dev,
+                                    f"sampled, telemetry {on}",
+                                    telemetry=tel, gen_seed=21)
+    check(sampled[True][0] == sampled[False][0]
+          and sampled[True][2] == sampled[False][2],
+          "serve_telemetry: the sampled serve's tokens or launches differ "
+          "with telemetry on and off")
+    info["sampled"] = {k: {"tokens_per_s": v[1]["tokens_per_s"],
+                           "launches": v[1]["launches"]}
+                       for k, v in (("off", sampled[False]),
+                                    ("on", sampled[True]))}
+    # speculative serving with telemetry: the spec lifecycle records and
+    # the serve_spec/serve_spec_tree spans, the verify launches unchanged
+    with tempfile.TemporaryDirectory() as tmp:
+        spec_off = tel_spec_run(torch, model, params, dev, False)
+        tel = ServeTelemetry(slots=ENGINE["num_slots"], window_s=TEL_WINDOW_S)
+        spec_on = tel_spec_run(torch, model, params, dev, tel,
+                               os.path.join(tmp, "spec.jsonl"))
+    check(spec_on[0] == spec_off[0] and spec_on[2] == spec_off[2],
+          "serve_telemetry: the spec serve's tokens or launches differ with "
+          "telemetry on and off")
+    st, records = spec_on[1], spec_on[3]
+    spec_events = [r for r in records if r.get("kind") == "serve_event"
+                   and r.get("phase") == "spec"]
+    spans = {r["name"] for r in records if r.get("kind") == "span"}
+    check(len(spec_events) == st.spec_slot_rounds == tel.spec_slot_rounds
+          and tel.spec_tree_rounds > 0 and "serve_spec_tree" in spans
+          and ("serve_spec" in spans) == (st.spec_rounds > st.tree_rounds)
+          and all(finite_numbers(r) and r.get("status", "OK") == "OK"
+                  for r in records),
+          f"serve_telemetry: spec stream {len(spec_events)} spec records "
+          f"for {st.spec_slot_rounds} slot-rounds, spans {spans}")
+    info["spec"] = {"spec_rounds": st.spec_rounds,
+                    "tree_rounds": st.tree_rounds,
+                    "spec_records": len(spec_events),
+                    "acceptance": st.spec_acceptance_rate,
+                    "spans": sorted(spans),
+                    "launches": {k: v for k, v in spec_on[2].items() if v}}
+    info["tokens_per_s"] = {
+        mode: [r["tokens_per_s"] for r in info["runs"]
+               if r["telemetry"] == mode] for mode in ("off", "on")}
+    info["decode_step_ms"] = {
+        mode: [r["decode_step_ms"] for r in info["runs"]
+               if r["telemetry"] == mode] for mode in ("off", "on")}
+    step_ms = statistics.median(info["decode_step_ms"]["off"])
+    info["hook_budget"] = tel_hook_budget(torch, sched, step_ms)
+    t0 = time.perf_counter()
+    info["profile"] = tel_profile(torch, model, params, dev)
+    info["profile"]["seconds"] = time.perf_counter() - t0
+    info["seconds"] = time.perf_counter() - t_leg
+    paths = {k: launches[1][k] + launches[2][k] + sampled[True][2][k]
+             + spec_on[2][k] for k in ("paged_decode_attn", "fused_sample",
+                                       "ln_fwd", "fused_verify",
+                                       "fused_verify_tree")}
+    return info, paths
+
+
+def swap_serve(torch, model, params, dev, what, swap=None, at_step=None,
+               telemetry=None):
+    """One greedy serve of the trace with ``swap`` requested at dispatch
+    ``at_step``: each token's birth (the dispatches completed when it
+    appeared), the pool tensors' addresses and the final norm's weight's
+    at every decode step. Returns (tokens, births, engine, seen)."""
+    from apex_tpu_torch.serving.engine import ServingEngine
+
+    eng = ServingEngine(model, device=dev, **ENGINE)
+    if swap is not None:
+        eng.request_swap(swap, at_step=at_step, source=what)
+    step, seen = [0], []
+    for name in ("prefill_chunk", "decode_step"):
+        real = getattr(eng, name)
+
+        def counted(p, pool, *a, _real=real, _name=name, **k):
+            if _name == "decode_step":
+                seen.append((pool["k"].data_ptr(), pool["v"].data_ptr(),
+                             p["lnf_w"].data_ptr()))
+            out = _real(p, pool, *a, **k)
+            step[0] += 1
+            return out
+
+        setattr(eng, name, counted)
+    reqs = build_trace()
+    born, lens = {}, {r.rid: 0 for r in reqs}
+
+    def clock():
+        for r in reqs:
+            while lens[r.rid] < len(r.tokens):
+                born[(r.rid, lens[r.rid])] = step[0]
+                lens[r.rid] += 1
+        return time.perf_counter()
+
+    sched = eng.make_scheduler()
+    done = eng.serve(params, reqs, clock=clock, scheduler=sched,
+                     telemetry=telemetry)
+    clock()
+    check(len(done) == len(reqs), f"{what}: the serve lost requests")
+    sched.allocator.check_accounting()
+    return {r.rid: list(r.tokens) for r in reqs}, born, eng, seen
+
+
+class _ParamRelBias:
+    """A decode_rel_bias hook whose table is a parameter
+    (``params["rel_table"]``), so a hot-swap changes it."""
+
+    def decode_rel_bias(self, params):
+        return causal_rel_bias(params["rel_table"])
+
+
+def phase_serve_swap(torch, model, params, dev):
+    """The serve cell with ``request_swap`` at dispatch SWAP_STEP: a clone
+    of the weights gives the no-swap tokens (``swaps == 1``); seeded
+    perturbed weights keep every token made before the swap and change
+    later ones; an unreached step leaves ``swaps == 0``; the pool's
+    tensors never move. Then a hooked GPT-medium whose decode-bias table
+    lives in the params, swapped to another table mid-serve: the first
+    decode step after the swap, replayed on the plain path with the old
+    and the new table, agrees with the new one by the rel_decode rule.
+    Returns (info, launches)."""
+    from apex_tpu_torch.models.gpt import GPTModel
+    from apex_tpu_torch.ops import decode_attention as D
+    from apex_tpu_torch.serving.engine import ServingEngine
+    from apex_tpu_torch.serving.telemetry import ServeTelemetry
+    from apex_tpu_torch.utils.pytree import tree_map
+
+    t_leg = time.perf_counter()
+    info = {"at_step": SWAP_STEP}
+    base, born, eng0, _ = swap_serve(torch, model, params, dev, "no swap")
+    clone = tree_map(lambda t: t.clone(), params)
+    same, born1, eng1, seen = swap_serve(torch, model, params, dev,
+                                         "equal weights", clone, SWAP_STEP)
+    check(same == base and born1 == born and eng1.last_stats.swaps == 1,
+          f"serve_swap: an equal-weights swap changed the tokens (swaps "
+          f"{eng1.last_stats.swaps})")
+    check(len({s[:2] for s in seen}) == 1, "serve_swap: the pool moved")
+    check({s[2] for s in seen} == {params["lnf_w"].data_ptr(),
+                                   clone["lnf_w"].data_ptr()},
+          "serve_swap: the steps did not rebind to the swapped tensors")
+    del clone
+    g = torch.Generator(device=dev).manual_seed(SWAP_SEED)
+    jolt = tree_map(lambda t: (t.float() + SWAP_STD * torch.randn(
+        t.shape, generator=g, device=dev)).to(t.dtype), params)
+    tel = ServeTelemetry(slots=ENGINE["num_slots"], window_s=0.0,
+                         collect_events=True)
+    moved, born2, eng2, _ = swap_serve(torch, model, params, dev,
+                                       "perturbed weights", jolt, SWAP_STEP,
+                                       telemetry=tel)
+    swap_ev = [e for e in tel.events if e.get("phase") == "swap"]
+    check(eng2.last_stats.swaps == 1 and len(swap_ev) == 1
+          and swap_ev[0]["step"] == SWAP_STEP,
+          f"serve_swap: the perturbed swap did not land at dispatch "
+          f"{SWAP_STEP}: {swap_ev}")
+    info["swap_pause_ms"] = swap_ev[0]["dur_ms"]
+    kept = changed = later = 0
+    for (rid, i), s in born2.items():
+        if s <= SWAP_STEP:
+            check(born.get((rid, i)) == s and moved[rid][i] == base[rid][i],
+                  f"serve_swap: request {rid}'s token {i}, made at dispatch "
+                  f"{s} before the swap, changed")
+            kept += 1
+        else:
+            later += 1
+            changed += (rid not in base or i >= len(base[rid])
+                        or moved[rid][i] != base[rid][i])
+    check(kept > 0 and changed > 0, f"serve_swap: {kept} tokens before the "
+          f"swap, {changed} of {later} after it changed")
+    _, _, eng3, _ = swap_serve(torch, model, params, dev, "unreached",
+                               jolt, 10 ** 9)
+    check(eng3.last_stats.swaps == 0 and eng3._pending_swap is None,
+          "serve_swap: an unreached swap landed or outlived the serve")
+    del jolt
+    info.update(tokens_before_swap=kept, tokens_after_swap=later,
+                tokens_changed_after_swap=changed,
+                swaps={"equal": eng1.last_stats.swaps,
+                       "perturbed": eng2.last_stats.swaps,
+                       "unreached": eng3.last_stats.swaps})
+
+    # the decode bias's table, swapped with the params
+    rmodel = type("ParamRelGPT", (_ParamRelBias, GPTModel), {})(
+        model.config)
+    h = model.config.num_heads
+    old = dict(params, rel_table=rel_table(torch, dev, h))
+    g = torch.Generator(device=dev).manual_seed(REL_SEED + 1)
+    new_table = torch.randn((REL_BUCKETS, h), generator=g, device=dev)
+    eng = ServingEngine(rmodel, device=dev, **ENGINE)
+    eng.request_swap(dict(params, rel_table=new_table), at_step=SWAP_STEP,
+                     source="rel_table")
+    captured = []
+    real = eng.decode_step
+
+    def spy(p, pool, tables, tokens, lengths, *a, **k):
+        if not captured and p["rel_table"] is new_table:
+            captured.append(({n: t.clone() for n, t in pool.items()},
+                             tables.clone(), tokens.clone(),
+                             lengths.clone()))
+            out = real(p, pool, tables, tokens, lengths, *a, **k)
+            captured.append(out[1].float())
+            return out
+        return real(p, pool, tables, tokens, lengths, *a, **k)
+
+    eng.decode_step = spy
+    p = D.paged_decode_attn_cuda
+    torch.cuda.synchronize()
+    p.launches = p.rel_launches = 0
+    eng.serve(old, build_trace())
+    torch.cuda.synchronize()
+    st = eng.last_stats
+    L = MODEL["num_layers"]
+    check(st.swaps == 1 and len(captured) == 2,
+          "serve_swap: the decode-bias swap did not land before a decode "
+          "step")
+    check(p.launches == p.rel_launches == L * st.decode_steps,
+          f"serve_swap: {p.launches} paged launches ({p.rel_launches} "
+          f"biased) for {st.decode_steps} steps x {L} layers")
+    launches = {"paged_decode_attn": p.launches,
+                "paged_decode_attn_rel": p.rel_launches}
+    (pool, tables, tokens, lengths), got = captured
+    gaps = {}
+    for what, table in (("new", new_table), ("old", old["rel_table"])):
+        pe = ServingEngine(rmodel, device=dev, impl="torch", **ENGINE)
+        _, lg = pe.decode_step(dict(params, rel_table=table),
+                               {n: t.clone() for n, t in pool.items()},
+                               tables, tokens, lengths)
+        live = lengths > 0
+        gaps[what] = (got[live] - lg.float()[live]).abs().max().item()
+    # the unbiased model's kernel-vs-plain gap at the same step: the rule's
+    # yardstick (phase_rel_decode's)
+    rows = []
+    for impl in ("auto", "torch"):
+        e = ServingEngine(model, device=dev, impl=impl, **ENGINE)
+        _, lg = e.decode_step(params, {n: t.clone() for n, t in pool.items()},
+                              tables, tokens, lengths)
+        rows.append(lg.float()[lengths > 0])
+    gaps["unbiased"] = (rows[0] - rows[1]).abs().max().item()
+    check(gaps["new"] <= 2 * gaps["unbiased"] + DECODE_TOL
+          and gaps["new"] < gaps["old"],
+          f"serve_swap: after the decode-bias swap the kernel's logits "
+          f"are not the new table's: gaps {gaps}")
+    info["rel_swap"] = {"decode_steps": st.decode_steps,
+                        "live_slots_at_capture": int((lengths > 0).sum()),
+                        "logit_gaps": gaps, "launches": launches}
+    info["seconds"] = time.perf_counter() - t_leg
+    del captured, pool, eng
+    torch.cuda.empty_cache()
+    return info, launches
+
+
+def phase_encoder(torch, dev):
+    """``inference.jit_encoder`` over BERT-large (BERT's widths, bf16, the
+    flash route) at 32 x 512 with the cell's seeded lengths and token
+    types, ``with_pooler=True``: per call 24 bshd flash forwards, all on
+    wgmma, and 2 x 24 + 1 ln_fwd, no other kernel; hidden and pooled
+    against the plain path on the card and an fp32 truth by the flash/norm
+    rule (max abs error at most twice the bf16 plain path's + FLASH_SLACK);
+    sequences/s, valid tokens/s and ms a call. Returns (info, launches)."""
+    from apex_tpu_torch.inference import jit_encoder
+
+    model, params = bert_model(torch, dev, torch.bfloat16)
+    # the BERT cell's batch (bert_train's seed): its lengths and types
+    (tokens, _, _, types, pad), lens = bert_batch(torch, dev, seed=1)
+    encode = jit_encoder(model, with_pooler=True, device=dev)
+    encode(params, tokens, types, pad)  # warm-up
+    L = BERT["num_layers"]
+    torch.cuda.synchronize()
+    zero_counters()
+    for fn in decode_counters().values():
+        fn.launches = 0
+    for fn, attr in spec_serve_counters().values():
+        setattr(fn, attr, 0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(ENCODER_CALLS):
+        hidden, pooled = encode(params, tokens, types, pad)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    others = {k: fn.launches for k, fn in decode_counters().items()
+              if k not in ("flash_fwd_bshd", "ln_fwd")}
+    others.update({k: getattr(fn, attr)
+                   for k, (fn, attr) in spec_serve_counters().items()
+                   if k != "ln_fwd"})
+    check_launches(launches, {"flash_fwd_bshd": L,
+                              "flash_fwd_bshd_wgmma": L,
+                              "ln_fwd": 2 * L + 1}, ENCODER_CALLS, "encoder")
+    check(not any(others.values()), f"encoder: other kernels launched: "
+          f"{others}")
+    check(hidden.shape == (BERT_BATCH, BERT_SEQ, BERT["hidden_size"])
+          and pooled.shape == (BERT_BATCH, BERT["hidden_size"])
+          and torch.isfinite(hidden).all().item()
+          and torch.isfinite(pooled).all().item(),
+          "encoder: bad hidden or pooled")
+    with torch.inference_mode():
+        plain_h = model.hidden_states(params, tokens, types, pad,
+                                      impl="torch")
+        plain_p = model.pooled(params, plain_h)
+    model32, params32 = bert_model(torch, dev, torch.float32)
+    upcast_copy(torch, params32, params)
+    with torch.inference_mode():
+        truth_h = model32.hidden_states(params32, tokens, types, pad,
+                                        impl="torch")
+        truth_p = model32.pooled(params32, truth_h)
+    del model32, params32
+    errs = {}
+    for what, got, plain, truth in (("hidden", hidden, plain_h, truth_h),
+                                    ("pooled", pooled, plain_p, truth_p)):
+        e_k = (got.float() - truth).abs().max().item()
+        e_p = (plain.float() - truth).abs().max().item()
+        errs[what] = {"kernel_vs_fp32": e_k, "plain_vs_fp32": e_p,
+                      "limit": 2 * e_p + FLASH_SLACK}
+        check(e_k <= 2 * e_p + FLASH_SLACK, f"encoder {what}: kernel error "
+              f"{e_k} vs the fp32 truth, limit 2 x {e_p} + {FLASH_SLACK}")
+    ms = start.elapsed_time(end) / ENCODER_CALLS
+    valid = int(lens.sum().item())
+    info = {"batch": BERT_BATCH, "seq": BERT_SEQ, "calls": ENCODER_CALLS,
+            "ms_per_call": ms, "host_wall_ms_per_call":
+                wall * 1e3 / ENCODER_CALLS,
+            "sequences_per_s": BERT_BATCH * 1e3 / ms,
+            "valid_tokens_per_s": valid * 1e3 / ms,
+            "valid_share": valid / (BERT_BATCH * BERT_SEQ),
+            "errors": errs,
+            "launches_per_call": {k: v / ENCODER_CALLS
+                                  for k, v in launches.items() if v}}
+    del model, params, hidden, pooled, plain_h, truth_h
+    torch.cuda.empty_cache()
+    return info, {k: v for k, v in launches.items() if v}
+
 
 
 def phase_bshd_rel_kernels(torch, dev):
@@ -8013,6 +8716,15 @@ def main(argv=None):
     rd_info, paths["rel_decode"] = phase_rel_decode(torch, model, params,
                                                     dev)
     emit("rel_decode", rd_info)
+    torch.cuda.empty_cache()
+
+    # --- serving telemetry and weight hot-swap --------------------------------
+    st_info, paths["serve_telemetry"] = phase_serve_telemetry(
+        torch, model, params, dev)
+    emit("serve_telemetry", st_info)
+    torch.cuda.empty_cache()
+    sw_info, paths["serve_swap"] = phase_serve_swap(torch, model, params, dev)
+    emit("serve_swap", sw_info)
     del model, params
     torch.cuda.empty_cache()
 
@@ -8118,6 +8830,11 @@ def main(argv=None):
     for k in br_kernels:
         emit("kernel", k)
     kernels += br_kernels
+    torch.cuda.empty_cache()
+    # the encoder-serving entry on BERT-large
+    en_info, paths["encoder"] = phase_encoder(torch, dev)
+    emit("encoder", en_info)
+    torch.cuda.empty_cache()
 
     # --- the array bias and the T5 materialized leg ---------------------------
     per_bias, dbias_kernel = phase_bias_kernels(torch, dev)

@@ -41,7 +41,7 @@ def test_no_jax_or_reference_import(path):
 def test_every_module_imports_with_jax_blocked():
     code = (
         "import sys, importlib, pkgutil\n"
-        "for name in ('jax', 'jaxlib', 'apex_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'apex_tpu', 'triton'):\n"
         "    sys.modules[name] = None\n"
         "import apex_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages("
@@ -58,10 +58,14 @@ def test_every_module_imports_with_jax_blocked():
         "'optimizers.fused_mixed_precision_lamb', 'optimizers.fused_sgd', "
         "'optimizers.fused_novograd', 'optimizers.fused_adagrad', "
         "'parallel.larc', 'fp16_utils.loss_scaler', 'fp16_utils.fp16util', "
-        "'fp16_utils.fp16_optimizer'):\n"
+        "'fp16_utils.fp16_optimizer', 'utils.logging', 'monitor', "
+        "'monitor.registry', 'monitor.trace', 'monitor.histogram', "
+        "'monitor.spans', 'serving.telemetry'):\n"
         "    assert 'apex_tpu_torch.' + want in mods, want\n"
-        "assert not any(k.split('.')[0] in ('jax', 'apex_tpu') and "
-        "sys.modules[k] is not None for k in list(sys.modules))\n"
+        "assert not any(k.split('.')[0] in ('jax', 'apex_tpu', 'triton') "
+        "and sys.modules[k] is not None for k in list(sys.modules))\n"
+        "from apex_tpu_torch.ops import _build\n"
+        "assert _build.library.cache_info().currsize == 0\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -100,3 +104,21 @@ def test_entry_points_default_to_the_card(monkeypatch):
         ModelDrafter(model, {}, k=2)
     eng = ServingEngine(model, num_slots=1, block_size=16, device="cpu")
     assert eng.init_pool()["k"].device.type == "cpu"
+
+
+def test_new_entry_points_export_the_reference_names():
+    from apex_tpu_torch import inference, monitor, serving
+
+    assert callable(inference.jit_encoder)
+    assert serving.ServeTelemetry.__module__ == "apex_tpu_torch.serving.telemetry"
+    for name in ("enable", "disable", "enabled", "get_registry",
+                 "enable_from_env", "MetricsRegistry", "SCHEMA_VERSION",
+                 "StreamingHistogram", "span", "span_path", "trace",
+                 "chrome_trace", "serve_attribution", "trace_context",
+                 "new_trace_id", "current_trace_id", "flight_dump",
+                 "check_record_honesty", "emit_serve_window"):
+        assert hasattr(monitor, name), name
+    # what the reference's monitor has and the port does not yet: absent,
+    # not stubbed
+    for name in ("hooks", "validate_jsonl", "aggregate", "collective_span"):
+        assert not hasattr(monitor, name), name
