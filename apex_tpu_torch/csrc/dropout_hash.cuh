@@ -58,7 +58,8 @@ enum DropFault : int {
   kDropKeyKvHead = 1,   // the key of the kv head's row, not the q head's
   kDropSwapRowCol = 2,  // the row and the column swapped in the hash
   kDropNoDkvDsMask = 3, // dK/dV: dS without the mask (dV keeps it)
-  kDropLFromDropped = 4 // forward: l summed from the dropped p
+  kDropLFromDropped = 4, // forward: l summed from the dropped p
+  kDropNoDbiasDpMask = 5 // dbias: dS from the unmasked dP
 };
 
 // keep of (row, col): from the row's key row_key, or (kSwap, the planted

@@ -105,7 +105,8 @@
 //   with zeros and their lse is not a row's). A fully masked tile is
 //   never loaded.
 // * Dropout (_bwd_dq_kernel :929, _bwd_dkv_kernel :996-1008): instances
-//   of their own (kDrop; not with the array bias), compiled in
+//   of their own (kDrop; with the bucketed bias, the array bias or
+//   neither), compiled in
 //   flash_attn_bwd_dropout.cu beside this file, so the dropout-free
 //   kernels are the code they were (a uniform runtime branch cost GPT's
 //   dQ 6%, PERF.md). Each score's keep bit from dropout_hash.cuh on (q-head row --
@@ -121,7 +122,9 @@
 //   1.98x), T5's encoder 0.8399 / 1.6862 (1.47x / 1.65x). The kDrop dK/dV
 //   instances spill (260 bytes at d 128, 860-928 at d 64: the stage's
 //   keep bits and the hash beside S^T, dP^T, dK and dV); the dQ ones do
-//   not.
+//   not. The kArr x kDrop instances (ptxas, 168 registers): dK/dV 196
+//   bytes of spill stores at d 128 and none at d 64 (its 64-row stage
+//   halves S^T and dP^T), dQ 4 bytes at d 64 and none at d 128.
 // * Determinism: dq, dk and dv use no atomics and are bit-identical from
 //   run to run; the table gradient keeps its fp32 atomics.
 //
@@ -235,7 +238,6 @@ __global__ void __launch_bounds__(kThreads, 1)
                         const __grid_constant__ CUtensorMap tm_do,
                         const __grid_constant__ CUtensorMap tm_bias,
                         const apex::FlashParamsT<T> p, int bias_tma) {
-  static_assert(!(kDrop && BIAS == kArr), "no dropout with the array bias");
   constexpr int f16_fault = kF16Fault;  // 0 in every bf16 instance
   using C = DkvCfg<D, BIAS>;
   constexpr int kBq = C::kBq, kS = C::kStages;
@@ -676,7 +678,6 @@ __global__ void __launch_bounds__(kThreads, 1)
                        const __grid_constant__ CUtensorMap tm_do,
                        const __grid_constant__ CUtensorMap tm_bias,
                        const apex::FlashParamsT<T> p, int bias_tma) {
-  static_assert(!(kDrop && BIAS == kArr), "no dropout with the array bias");
   constexpr int f16_fault = kF16Fault;  // 0 in every bf16 instance
   using C = DqCfg<D, BIAS>;
   constexpr int kBk = C::kBk, kS = C::kStages;
@@ -1010,9 +1011,7 @@ cudaError_t dispatch(const Maps& m, const apex::FlashParamsT<T>& p, int b,
         : launch_dq<D, K, DROP, T, F>(m, p, b, bias_tma, st))
   if constexpr (std::is_same<T, bf16>::value) {
     if (p.lut != nullptr) return APEX_LAUNCH(kRel, kDrop, 0);
-    if constexpr (!kDrop) {
-      if (p.bias != nullptr) return APEX_LAUNCH(kArr, false, 0);
-    }
+    if (p.bias != nullptr) return APEX_LAUNCH(kArr, kDrop, 0);
   } else {
     if (p.drop.fault == kF16Bf16P) return APEX_LAUNCH(kNone, kDrop, kF16Bf16P);
     if (p.drop.fault == kF16Satfinite)
@@ -1022,13 +1021,12 @@ cudaError_t dispatch(const Maps& m, const apex::FlashParamsT<T>& p, int b,
 #undef APEX_LAUNCH
 }
 
-// the checks both variants share; dropout only on variant 1 and without
-// the array bias
+// the checks both variants share; dropout only on variant 1
 template <typename T>
 bool bad_call(const apex::FlashParamsT<T>& p, int b, int d, bool dkv,
               int variant) {
   return (p.drop.thresh > 0 &&
-          (variant != 1 || p.bias != nullptr || p.drop.thresh > (1u << 24))) ||
+          (variant != 1 || p.drop.thresh > (1u << 24))) ||
          b < 1 || p.sq < 1 || p.sk < 1 || p.h < 1 || p.h_kv < 1 ||
          p.h % p.h_kv || (d != 64 && d != 128) ||
          (p.causal && p.sq > p.sk) ||
@@ -1196,8 +1194,8 @@ extern "C" int apex_flash_bwd_dkv_f16(
 // cp.async. A seq-major tensor is the head-stride-d case of these views,
 // with per-batch kv_lens (lens_b = 1, lens_h = 0); the packed buffer the
 // views of its sections. drop_seed, drop_thresh (0: no dropout),
-// drop_scale and drop_fault as the forward entries' (variant 1, no array
-// bias); both entries rebuild the forward's mask.
+// drop_scale and drop_fault as the forward entries' (variant 1); both
+// entries rebuild the forward's mask.
 extern "C" int apex_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* delta,

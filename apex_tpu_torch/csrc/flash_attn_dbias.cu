@@ -58,6 +58,14 @@
 //   and < the row's kv length, and (causal) column <= row + sk - sq; other
 //   entries add nothing (rows past sq included: TMA filled them with
 //   zeros). A tile no row reaches writes zeros; every element is written.
+// * Dropout (_bwd_dbias_kernel :1083; the kDrop instance): dS = P (M/(1-r)
+//   dP - delta), the mask M rebuilt from dropout_hash.cuh on (q-head row r
+//   = n * hb + th -- the flattened (batch, head) row bi * h + hi of the
+//   views, the row the forward hashed; the reference's r = n * hb + th,
+//   :1036-1037 -- query row, key column). A row's key is one fmix32, each
+//   thread's two query rows' keys one each, then one fmix32 a score. The
+//   groups and their fixed-order sums do not change, so dbias stays
+//   bit-identical from run to run.
 //
 // Measured (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W; the sm80 kernel
 // timed in turns in brackets, then SDPA's backward with the float mask's
@@ -105,7 +113,7 @@ struct DbiasCfg {
   static constexpr size_t bytes() { return 1024 + kBars + 64; }
 };
 
-template <int D>
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dbias_wgmma(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
@@ -252,6 +260,18 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (!skip) {
         const float l2[2] = {lse_s[r0], lse_s[r0 + 8]};
         const float dl[2] = {delta_s[r0], delta_s[r0 + 8]};
+        // dropout: the key of q-head row r (the planted kDropKeyKvHead: its
+        // kv head's row) and this thread's two query rows' keys
+        uint32_t dkey = 0, drk[2] = {0u, 0u};
+        if (kDrop) {
+          const int bi = r / h;
+          const int trow = p.drop.fault == apex::kDropKeyKvHead
+                               ? bi * p.h_kv + (r - bi * h) / group
+                               : r;
+          dkey = apex::drop_key(p.drop.seed, static_cast<uint32_t>(trow));
+          drk[0] = apex::drop_row_key(dkey, q0 + r0);
+          drk[1] = apex::drop_row_key(dkey, q0 + r0 + 8);
+        }
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
@@ -267,6 +287,30 @@ __global__ void __launch_bounds__(kThreads, 1)
         fence_operand(dp);
         const bool inside = wq0 + 64 <= sq && k0 + kBk <= kv_lim &&
                             (!causal || k0 + kBk - 1 <= wq0 + coff);
+        // dropout: dP *= 1/(1 - r) or 0 by the keep bit, before dS (the
+        // planted kDropNoDbiasDpMask leaves dP unmasked)
+        if (kDrop && p.drop.fault != apex::kDropNoDbiasDpMask) {
+          const uint32_t dthresh = p.drop.thresh;
+          const float dscale = p.drop.scale;
+          auto mask = [&](auto swap) {
+#pragma unroll
+            for (int i = 0; i < kBk / 8; ++i)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                const int hh = c >> 1;
+                const uint32_t kc = k0 + 8 * i + 2 * t + (c & 1);
+                dp[4 * i + c] *=
+                    apex::drop_keep_at<decltype(swap)::value>(
+                        dkey, drk[hh], q0 + r0 + 8 * hh, kc, dthresh)
+                        ? dscale
+                        : 0.f;
+              }
+          };
+          if (p.drop.fault == apex::kDropSwapRowCol)
+            mask(std::true_type{});
+          else
+            mask(std::false_type{});
+        }
         auto elem = [&](auto masked) {
 #pragma unroll
           for (int i = 0; i < kBk / 8; ++i) {
@@ -345,7 +389,7 @@ __global__ void flash_dbias_reduce(const float* __restrict__ ws,
   }
 }
 
-template <int D>
+template <int D, bool kDrop>
 cudaError_t launch(const FlashParams& p, int b, float* ws, int splits,
                    cudaStream_t st) {
   CUtensorMap tq, tk, tv, tdo;
@@ -354,7 +398,7 @@ cudaError_t launch(const FlashParams& p, int b, float* ws, int splits,
       !view_map(&tv, p.v, p.kv_v, D, p.sk, p.h_kv, b) ||
       !view_map(&tdo, p.dout, p.do_v, D, p.sq, p.h, b))
     return cudaErrorInvalidValue;
-  auto kernel = flash_bwd_dbias_wgmma<D>;
+  auto kernel = flash_bwd_dbias_wgmma<D, kDrop>;
   const size_t smem = DbiasCfg<D>::bytes();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -384,13 +428,18 @@ cudaError_t launch(const FlashParams& p, int b, float* ws, int splits,
 // kv_lens int32 at bi * lens_b + hi * lens_h, or null; bias (hb, sq, sk)
 // fp32, hb | b*h. Variant 1 sums the nb = b*h / hb sharing rows in
 // `splits` contiguous groups, each CTA's partial into ws (splits, hb, sq,
-// sk) fp32 when splits > 1, then adds them in group order.
+// sk) fp32 when splits > 1, then adds them in group order. drop_seed,
+// drop_thresh (0: no dropout), drop_scale and drop_fault as the flash
+// entries' (variant 1 only): dS from the dropped dP, the mask the forward
+// drew for q-head row bi * h + hi.
 extern "C" int apex_flash_bwd_dbias(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, const void* delta, const void* bias,
     void* dbias, void* ws, const void* kv_lens, const long long* strides,
     int b, int h, int h_kv, int sq, int sk, int d, int causal, float scale,
-    int hb, int lens_b, int lens_h, int splits, int variant, void* stream) {
+    int hb, int lens_b, int lens_h, int splits, int variant,
+    unsigned drop_seed, int drop_thresh, float drop_scale, int drop_fault,
+    void* stream) {
   for (int i = 0; i < 12; ++i)
     if (strides[i] < 0 || strides[i] % 8)
       return static_cast<int>(cudaErrorInvalidValue);
@@ -398,7 +447,9 @@ extern "C" int apex_flash_bwd_dbias(
   if (b < 1 || h < 1 || h_kv < 1 || h % h_kv || sq < 1 || sk < 1 ||
       (d != 64 && d != 128) || (causal && sq > sk) || hb < 1 || rows % hb ||
       rows > 0x7fffffffLL || bias == nullptr || dbias == nullptr ||
-      (variant != 0 && variant != 1))
+      (variant != 0 && variant != 1) ||
+      (drop_thresh != 0 &&
+       (variant != 1 || drop_thresh < 0 || drop_thresh > (1 << 24))))
     return static_cast<int>(cudaErrorInvalidValue);
   FlashParams p{};
   p.q = static_cast<const __nv_bfloat16*>(q);
@@ -425,6 +476,8 @@ extern "C" int apex_flash_bwd_dbias(
   p.lens_b = lens_b;
   p.lens_h = lens_h;
   p.nb = static_cast<int>(rows / hb);
+  p.drop = {drop_seed, static_cast<uint32_t>(drop_thresh), drop_scale,
+            drop_fault};
   if (variant == 0) return apex::flash_dbias_sm80::run(d, p, stream);
   const long long tiles = static_cast<long long>(hb) * ((sq + kBq - 1) / kBq) *
                           ((sk + kBk - 1) / kBk);
@@ -434,8 +487,11 @@ extern "C" int apex_flash_bwd_dbias(
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* wsp = static_cast<float*>(ws);
+  const bool drop = drop_thresh > 0;
   const cudaError_t err =
-      d == 128 ? launch<128>(p, b, wsp, splits, st)
-               : launch<64>(p, b, wsp, splits, st);
+      d == 128 ? (drop ? launch<128, true>(p, b, wsp, splits, st)
+                       : launch<128, false>(p, b, wsp, splits, st))
+               : (drop ? launch<64, true>(p, b, wsp, splits, st)
+                       : launch<64, false>(p, b, wsp, splits, st));
   return static_cast<int>(err);
 }

@@ -90,7 +90,9 @@
 //   ~2^-22) with log2 e folded into the scale. o is stored from registers
 //   (4-byte stores, a quad's 16 bytes a row), lse by the rows' lane 0.
 // * Dropout (_fwd_kernel :191-196, :269-272): instances of their own
-//   (kDrop; not with the array bias), compiled in flash_attn_fwd_dropout.cu
+//   (kDrop; with the bucketed bias, the array bias or neither: the kArr
+//   instance adds the staged bias to the scaled scores before the masks,
+//   as the dropout-free one), compiled in flash_attn_fwd_dropout.cu
 //   beside this file, so the dropout-free kernels are the code they were
 //   (a uniform runtime branch cost the GPT and T5 calls 2-5%, PERF.md).
 //   After the stage's p, each score's keep bit from dropout_hash.cuh on
@@ -113,11 +115,13 @@
 // softmax, then wait for P.V; short rows (T5's 114) are latency-bound;
 // the decoder's bias (rows of 456 bytes) is copied by cp.async.
 // Registers: 168 a thread at launch, no spill but 8-16 bytes at d 128
-// with a bias or the lookup. With dropout 0.1 (the kDrop instances, the
-// same registers and spills; chip_smoke.py's flash_dropout_times, NVIDIA
-// H100 80GB HBM3 at 700 W), ms: GPT 0.2203 (1.55x its dropout-free call),
-// BERT 0.1734 (1.63x), T5's encoder 0.7201 (1.76x); the hash is about 13
-// integer operations a score against the 4d = 512 of the two products.
+// with a bias or the lookup (the kArr x kDrop instances: 12 bytes of
+// spill stores at d 64, 8 at d 128). With dropout 0.1 (the kDrop
+// instances, the same registers and spills; chip_smoke.py's
+// flash_dropout_times, NVIDIA H100 80GB HBM3 at 700 W), ms: GPT 0.2203
+// (1.55x its dropout-free call), BERT 0.1734 (1.63x), T5's encoder 0.7201
+// (1.76x); the hash is about 13 integer operations a score against the
+// 4d = 512 of the two products.
 #include <cstdint>
 #include <type_traits>
 
@@ -184,7 +188,6 @@ __global__ void __launch_bounds__(kThreads, 1)
                     const __grid_constant__ CUtensorMap tm_v,
                     const __grid_constant__ CUtensorMap tm_bias,
                     const apex::FlashParamsT<T> p, int bias_tma) {
-  static_assert(!(kDrop && BIAS == kArr), "no dropout with the array bias");
   constexpr int f16_fault = kF16Fault;  // 0 in every bf16 instance
   using C = FwdCfg<D, BIAS>;
   constexpr int kBk = C::kBk, kS = C::kStages, kQB = C::kQBufs;
@@ -568,10 +571,8 @@ cudaError_t dispatch(const Maps& m, const apex::FlashParamsT<T>& p,
   if constexpr (std::is_same<T, bf16>::value) {
     if (p.lut != nullptr)
       return launch<D, kRel, kDrop, T>(m, p, ctas, bias_tma, st);
-    if constexpr (!kDrop) {
-      if (p.bias != nullptr)
-        return launch<D, kArr, false, T>(m, p, ctas, bias_tma, st);
-    }
+    if (p.bias != nullptr)
+      return launch<D, kArr, kDrop, T>(m, p, ctas, bias_tma, st);
   } else {
     if (p.drop.fault == kF16Bf16P)
       return launch<D, kNone, kDrop, T, kF16Bf16P>(m, p, ctas, bias_tma, st);
@@ -625,13 +626,11 @@ int run_wgmma(int d, const apex::FlashParamsT<T>& p, int b, int bias_tma,
 #if !defined(APEX_FLASH_DROPOUT_TU) && !defined(APEX_FLASH_F16_TU)
 // the argument rules both variants share; d picks the compiled head dim;
 // `strided`: the sm80 variant's instantiation for views with their own
-// strides (else the packed one's). Dropout: the wgmma kernel only, never
-// with the array bias
+// strides (else the packed one's). Dropout: the wgmma kernel only
 int run(int d, const FlashParams& p, int b, bool strided, int variant,
         int bias_tma, void* stream) {
   const bool drop = p.drop.thresh > 0;
-  if ((drop && (variant != 1 || p.bias != nullptr ||
-                p.drop.thresh > (1u << 24))) ||
+  if ((drop && (variant != 1 || p.drop.thresh > (1u << 24))) ||
       b < 1 || p.sq < 1 || p.sk < 1 || p.h < 1 || p.h_kv < 1 ||
       p.h % p.h_kv || (d != 64 && d != 128) || (p.causal && p.sq > p.sk) ||
       static_cast<long long>(b) * p.h > 0x7fffffffLL ||
@@ -697,7 +696,7 @@ extern "C" int apex_flash_fwd_f16(const void* qkv, void* out, void* lse,
 // Every entry's drop_seed (the int32 seed's bits), drop_thresh (the 24-bit
 // threshold; 0: no dropout), drop_scale (float32(1 / (1 - rate))) and
 // drop_fault (DropFault; 0 sound): the probabilities' dropout, on variant
-// 1 and without the array bias only.
+// 1 only (with the bucketed bias, the array bias or neither).
 //
 // The packed entry: qkv (b, s, (h + 2*h_kv)*d) bf16, features ordered
 // q-heads | k-heads | v-heads, read straight out of qkv (no slice, no

@@ -13,7 +13,9 @@ reference norm's ``init()`` dict into a :class:`~apex_tpu_torch.ops.
 layer_norm.FusedLayerNorm` or :class:`~apex_tpu_torch.ops.layer_norm.
 FusedRMSNorm`, and :func:`dense_from_jax`, :func:`dense_gelu_dense_from_jax`
 and :func:`mlp_from_jax` load ``FusedDense``'s, ``FusedDenseGeluDense``'s
-and ``MLP``'s into the port's modules of the same names;
+and ``MLP``'s into the port's modules of the same names, and
+:func:`self_mha_from_jax` and :func:`encdec_mha_from_jax` contrib's
+``SelfMultiheadAttn``'s and ``EncdecMultiheadAttn``'s;
 :func:`optimizer_state_from_jax` gives a reference optimizer's state as
 the port optimizer's, and :func:`serving_pool_from_jax` a reference
 serving engine's block pool (float, or int8/fp8 with its scale planes) as
@@ -30,6 +32,8 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
+from apex_tpu_torch.contrib.multihead_attn import (EncdecMultiheadAttn,
+                                                   SelfMultiheadAttn)
 from apex_tpu_torch.models.bert import BertConfig
 from apex_tpu_torch.models.gpt import GPTConfig
 from apex_tpu_torch.models.t5 import DEC_LAYER, ENC_LAYER, T5Config
@@ -331,6 +335,32 @@ def _load_module(tree: Dict, module: torch.nn.Module, want) -> torch.nn.Module:
             _expect(name, t, p.shape, type(module).__name__)
             p.copy_(t.to(p.dtype))
     return module
+
+
+def self_mha_from_jax(tree: Dict, module: SelfMultiheadAttn
+                      ) -> SelfMultiheadAttn:
+    """The reference's ``SelfMultiheadAttn.init()`` dict (numpy leaves:
+    ``qkv_weight`` or ``q_weight``/``k_weight``/``v_weight``,
+    ``out_weight``, their biases with ``bias``, ``ln_weight``/``ln_bias``
+    with ``include_norm_add``) copied into ``module``'s Parameters of the
+    same names, in place."""
+    return _load_module(tree, module, _mha_leaves(module))
+
+
+def encdec_mha_from_jax(tree: Dict, module: EncdecMultiheadAttn
+                        ) -> EncdecMultiheadAttn:
+    """The reference's ``EncdecMultiheadAttn.init()`` dict (``q_weight``,
+    ``kv_weight``, ``out_weight``, their biases, the norm's) copied into
+    ``module`` in place."""
+    return _load_module(tree, module, _mha_leaves(module))
+
+
+def _mha_leaves(module) -> set:
+    kinds = ("weight", "bias") if module.bias else ("weight",)
+    want = {f"{n}_{k}" for n in module.projections for k in kinds}
+    if module.include_norm_add:
+        want |= {"ln_weight", "ln_bias"}
+    return want
 
 
 def dense_from_jax(tree: Dict, module: FusedDense) -> FusedDense:

@@ -113,10 +113,10 @@ ENTRY_POINTS = {
                           _I, _I, _I, *_DROP, _P],
     # q, k, v, o, do, lse, delta, bias, dbias, ws, kv_lens, strides (q,
     # kv, o, do), b, h, h_kv, sq, sk, d, causal, scale, hb, lens_b, lens_h,
-    # splits, variant, stream
+    # splits, variant, the dropout arguments, stream
     "apex_flash_bwd_dbias": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _S,
                              _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
-                             _I, _P],
+                             _I, *_DROP, _P],
     # q, k, v, lengths (b,), out, dtype, b, h_kv, group, d, max_s, scale,
     # splits, tiles, smem, lut, maxd, stream
     "apex_decode_attn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,

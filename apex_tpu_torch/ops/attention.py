@@ -73,10 +73,11 @@ reference's counter hash, :func:`dropout_keep` (``pallas/attention.py:
 column): a pure function of the seed, rebuilt by the backward and by a
 recompute, never saved. The probabilities' normaliser stays un-dropped;
 the kept probabilities are scaled by float32(1/(1 - rate)). On a CUDA
-tensor the wgmma kernels evaluate it per score; the plain versions
-materialise it (:func:`_dropout_keep_dense`). It is refused with an array
-bias (the dbias kernel has no mask) and on the sm80 variant. The bucketed
-bias on the bshd layout is a later slice of the port.
+tensor the wgmma kernels evaluate it per score — the forward, dQ and
+dK/dV with or without either bias, and dbias, whose dS takes the dropped
+dP — and the plain versions materialise it (:func:`_dropout_keep_dense`).
+It is refused on the sm80 variant. :func:`seed_from_key` draws a seed from
+a ``torch.Generator`` (``apex_tpu/ops/attention.py:881``).
 
 fp16 (amp's strict-fp16 GPT step): the packed entries' wgmma kernels have
 fp16 instances (``apex_flash_fwd_f16``, ``apex_flash_bwd_dq_f16``,
@@ -415,6 +416,32 @@ def _check_dropout(dropout_rate: float, dropout_seed) -> Optional[int]:
     if dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed")
     return int(dropout_seed)
+
+
+def seed_from_key(key: torch.Generator) -> int:
+    """One int32 dropout seed drawn from a ``torch.Generator``, as a host
+    int (``apex_tpu/ops/attention.py:881``: 32 random bits of a PRNG key as
+    an int32). The one place every module of the port draws its
+    counter-hash seeds; torch cannot reproduce the reference's threefry
+    bits, so the CPU tests pass the reference's int instead."""
+    if not isinstance(key, torch.Generator):
+        raise TypeError(f"seed_from_key takes a torch.Generator; got "
+                        f"{type(key).__name__}")
+    return int(torch.randint(-2 ** 31, 2 ** 31, (), generator=key,
+                             device=key.device, dtype=torch.int64))
+
+
+def key_seed(key: Union[torch.Generator, int, torch.Tensor]) -> int:
+    """The dropout seed of a module's ``key=``: :func:`seed_from_key` of a
+    ``torch.Generator``, or an int32 seed as given (an int or a
+    one-element integer tensor; the CPU tests pass the int the reference's
+    ``seed_from_key`` returns)."""
+    if isinstance(key, torch.Generator):
+        return seed_from_key(key)
+    seed = int(key)
+    if not -2 ** 31 <= seed < 2 ** 31:
+        raise ValueError(f"a dropout seed is an int32; got {seed}")
+    return seed
 
 
 # --- plain version ------------------------------------------------------------
@@ -927,10 +954,10 @@ def flash_fwd_bshd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the bucketed bias (its heads dividing h: head t reads table column t %
     heads), or an array bias (hb, sq, sk) fp32 with hb | h, or neither.
     Returns o (b, sq, h, d) bf16 and lse (b, h, sq) fp32. Dropout as
-    :func:`flash_fwd_cuda`'s (q-head row t = b·h + head; not with an array
-    bias). Counts its launches in ``.launches``, by variant, those with an
-    array bias in ``.bias_launches``, with the bucketed bias in
-    ``.rel_launches`` and those with dropout in ``.dropout_launches``."""
+    :func:`flash_fwd_cuda`'s (q-head row t = b·h + head). Counts its
+    launches in ``.launches``, by variant, those with an array bias in
+    ``.bias_launches``, with the bucketed bias in ``.rel_launches`` and
+    those with dropout in ``.dropout_launches``."""
     name = "flash_fwd_bshd_cuda"
     _check_bshd(q, k, v, causal, name, kv_lens)
     b, sq, h, d = q.shape
@@ -945,8 +972,7 @@ def flash_fwd_bshd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lut is None:
         maxd = rel_off = 0
     plan = _bshd_fwd_plan(q, k, v, run_bias, variant)
-    drop = _drop_args(dropout_rate, dropout_seed, plan, planted_fault, name,
-                      bias)
+    drop = _drop_args(dropout_rate, dropout_seed, plan, planted_fault, name)
     rc = _build.library().apex_flash_fwd_bshd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), _ptr(kv_lens), _ptr(run_bias), q.stride(0),
@@ -1229,6 +1255,11 @@ PLANTED_FAULTS = ("drop_last_kv_tile", "drop_bias")
 #: dbias's: the last group of sharing rows left out of the sum (with one
 #: group, its last row), or the bias left out of p
 DBIAS_FAULTS = ("drop_last_group", "drop_bias")
+#: the dropout faults the dbias kernel plants on request, by the code it
+#: reads: the mask keyed by the kv head's row, the row and column swapped
+#: in the hash (both as :data:`DROPOUT_FAULTS`), dP left unmasked
+DBIAS_DROPOUT_FAULTS = {"key_kv_head": 1, "swap_row_col": 2,
+                        "no_dbias_dp_mask": 5}
 #: the dropout faults the wgmma kernels plant on request, by the code the
 #: kernels read: the mask keyed by the kv head's row instead of the q
 #: head's (every kernel; visible under GQA), the row and column swapped in
@@ -1243,12 +1274,9 @@ DROPOUT_FAULTS = {"key_kv_head": 1, "swap_row_col": 2, "no_dkv_ds_mask": 3,
 #: (a saturating conversion), which the overflow check refuses
 FP16_FAULTS = {"bf16_p": 16, "satfinite": 17}
 #: where dropout is refused: the sm80 kernels (deleted by ROADMAP's
-#: simplicity item) and the array bias (its dbias kernel has no mask)
+#: simplicity item)
 SM80_DROPOUT = ("the sm80 variant has no dropout (ROADMAP, Simplicity "
                 "items: the sm80 kernels' deletion); use the wgmma variant")
-BIAS_DROPOUT = ("dropout with an array bias is not ported: its gradient "
-                "kernel has no mask (ROADMAP queue 2: dropout in the "
-                "dbias kernel)")
 
 
 class TensorMap(NamedTuple):
@@ -1562,24 +1590,21 @@ def bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.float() * o.float()).sum(-1)
 
 
-def _drop_args(rate: float, seed: Optional[int], plan: FlashPlan,
-               fault: Optional[str], name: str,
-               bias: Optional[torch.Tensor] = None):
+def _drop_args(rate: float, seed: Optional[int], plan, fault: Optional[str],
+               name: str, faults: dict = DROPOUT_FAULTS):
     """(seed bits, 24-bit threshold, fp32 scale, fault code) for a flash
-    entry; (0, 0, 1.0, 0) without dropout. Raises on the sm80 variant and
-    with an array bias."""
+    entry (``faults``: the dropout faults it plants); (0, 0, 1.0, 0)
+    without dropout. Raises on the sm80 variant."""
     if rate == 0.0:
-        if fault in DROPOUT_FAULTS:
+        if fault in faults:
             raise ValueError(f"{name}: planted_fault {fault!r} needs "
                              f"dropout_rate > 0")
         return 0, 0, 1.0, 0
     seed = _check_dropout(rate, seed)
     if plan.variant == "sm80":
         raise ValueError(f"{name}: {SM80_DROPOUT}")
-    if bias is not None:
-        raise NotImplementedError(f"{name}: {BIAS_DROPOUT}")
     return (seed & _M32, dropout_threshold(rate), dropout_scale(rate),
-            DROPOUT_FAULTS.get(fault, 0))
+            faults.get(fault, 0))
 
 
 def _planted(fault: Optional[str], kv_lens, lens_strides, bias, lut,
@@ -1651,7 +1676,7 @@ def _launch_dq(name, q4, k4, v4, o4, do4, dq4, lse, *, scale, causal,
     kv_lens, lens_strides, bias, lut = _planted(
         planted_fault, kv_lens, lens_strides, bias, lut, b, h, sk, q4.device)
     plan = _bwd_plan(q4, k4, v4, do4, bias, variant)
-    drop = _drop_args(*dropout, plan, planted_fault, name, bias)
+    drop = _drop_args(*dropout, plan, planted_fault, name)
     delta = (torch.empty((b * h, sq), dtype=torch.float32, device=q4.device)
              if plan.variant == "wgmma" else None)
     rc = _build.library().apex_flash_bwd_dq(
@@ -1693,7 +1718,7 @@ def _launch_dkv(name, q4, k4, v4, o4, do4, dk4, dv4, lse, delta, *, scale,
     kv_lens, lens_strides, bias, lut = _planted(
         planted_fault, kv_lens, lens_strides, bias, lut, b, h, sk, q4.device)
     plan = _bwd_plan(q4, k4, v4, do4, bias, variant)
-    drop = _drop_args(*dropout, plan, planted_fault, name, bias)
+    drop = _drop_args(*dropout, plan, planted_fault, name)
     if plan.variant == "wgmma":
         _check_delta(name, delta, b, h, sq, q4)
     rc = _build.library().apex_flash_bwd_dkv(
@@ -1725,7 +1750,7 @@ def flash_fwd_flat_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (hb, sq, sk) fp32 with hb | bh, or neither. Returns o (q's shape; a 4D
     o is a (b, sq, h, d) buffer seen as (b, h, sq, d)) and lse (bh, sq)
     fp32. Dropout as :func:`flash_fwd_cuda`'s, q-head row t the flat row
-    (with the bucketed bias or none; not with an array bias). Counts its
+    (with either bias or none). Counts its
     launches in ``.launches``, by variant, those with an array bias in
     ``.bias_launches`` and those with dropout in ``.dropout_launches``."""
     name = "flash_fwd_flat_cuda"
@@ -1740,8 +1765,7 @@ def flash_fwd_flat_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lut is None:
         maxd = rel_off = 0
     plan = _fwd_plan(q4, k4, v4, run_bias, variant)
-    drop = _drop_args(dropout_rate, dropout_seed, plan, planted_fault, name,
-                      bias)
+    drop = _drop_args(dropout_rate, dropout_seed, plan, planted_fault, name)
     o4, out = _out_like(q4, q.ndim)
     lse = torch.empty((rows, sq), dtype=torch.float32, device=q.device)
     rc = _build.library().apex_flash_fwd_flat(
@@ -1871,8 +1895,9 @@ def _dbias_planted(fault: Optional[str], plan: DbiasPlan, hb: int,
     (:data:`DBIAS_FAULTS`) made from them, or as given: the do and delta
     rows of the plan's last group of sharing rows zeroed (with one group,
     of its last sharing row), so that p·(dP − delta) is 0 on those rows;
-    or a zero bias in p."""
-    if fault is None:
+    or a zero bias in p. The dropout faults
+    (:data:`DBIAS_DROPOUT_FAULTS`) are planted in the kernel."""
+    if fault is None or fault in DBIAS_DROPOUT_FAULTS:
         return do4, delta, bias
     if fault not in DBIAS_FAULTS:
         raise ValueError(f"planted_fault must be one of {DBIAS_FAULTS}; got "
@@ -1895,6 +1920,8 @@ def flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias: torch.Tensor, *,
                          kv_lens: Optional[torch.Tensor] = None,
                          layout: str = "bhsd",
                          delta: Optional[torch.Tensor] = None,
+                         dropout_rate: float = 0.0,
+                         dropout_seed: Optional[int] = None,
                          variant: Optional[str] = None,
                          planted_fault: Optional[str] = None) -> torch.Tensor:
     """Launch the dbias kernel: the array bias's gradient (hb, sq, sk)
@@ -1906,9 +1933,13 @@ def flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias: torch.Tensor, *,
     side output; without one it computes it here once by
     :func:`bwd_delta` (for direct callers and tests). It sums the sharing
     rows in the groups of :func:`_dbias_plan`, then the groups' partials in
-    order. ``variant`` and ``planted_fault`` (:data:`DBIAS_FAULTS`) are for
-    the A/B timing and the kernel checks. Counts launches in
-    ``.launches`` and by variant."""
+    order. With ``dropout_rate > 0`` dS takes the dropped dP, the mask
+    rebuilt from ``dropout_seed`` on the forward's q-head rows (the rows of
+    the flattened (batch, head) dims; ``_bwd_dbias_kernel``, ``:1083``).
+    ``variant`` and ``planted_fault`` (:data:`DBIAS_FAULTS`,
+    :data:`DBIAS_DROPOUT_FAULTS`) are for the A/B timing and the kernel
+    checks. Counts launches in ``.launches``, by variant and with dropout
+    in ``.dropout_launches``."""
     name = "flash_bwd_dbias_cuda"
     if layout == "bshd":
         _check_bshd_bwd(q, k, v, o, lse, do, causal, kv_lens, bias, name)
@@ -1926,6 +1957,8 @@ def flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias: torch.Tensor, *,
     hb = _check_bias(bias, rows, sq, sk, q, name)
     plan = _dbias_plan(q4, k4, v4, do4, hb, variant,
                        _sm_count(q.device.index or 0))
+    drop = _drop_args(dropout_rate, dropout_seed, plan, planted_fault, name,
+                      DBIAS_DROPOUT_FAULTS)
     ws = None
     if plan.variant == "wgmma":
         if delta is None:
@@ -1943,16 +1976,17 @@ def flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias: torch.Tensor, *,
         dbias.data_ptr(), _ptr(ws), _ptr(kv_lens),
         _stride_array(q4, k4, o4, do4), b, h, h_kv, sq, sk, d, int(causal),
         float(scale), hb, *lens_strides, plan.splits,
-        int(plan.variant == "wgmma"),
+        int(plan.variant == "wgmma"), *drop,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_bwd_dbias")
-    _count(flash_bwd_dbias_cuda, plan)
+    _count(flash_bwd_dbias_cuda, plan, dropout=dropout_rate)
     return dbias
 
 
 flash_bwd_dbias_cuda.launches = 0
 flash_bwd_dbias_cuda.wgmma_launches = 0
 flash_bwd_dbias_cuda.sm80_launches = 0
+flash_bwd_dbias_cuda.dropout_launches = 0
 
 
 # --- dispatch -----------------------------------------------------------------
@@ -2016,10 +2050,9 @@ def flash_fwd_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     heads dividing h, head t reading table column t % heads) or ``bias``
     (hb, sq, sk) with hb | h, head t reading bias row t % hb. Returns (o
     (b, sq, h, d), lse (b, h, sq)); dropout keyed by q-head row t = b·h +
-    head (not with an array bias)."""
+    head."""
     bias = _bias32(bias)
     seed = _check_dropout(dropout_rate, dropout_seed)
-    _refuse_bias_dropout(bias, dropout_rate)
     if _backend.use_kernel(q, impl):
         return flash_fwd_bshd_cuda(q, k, v, scale=scale, causal=causal,
                                    kv_lens=kv_lens, rel_bias=rel_bias,
@@ -2045,10 +2078,10 @@ def flash_bwd_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``rel_bias``, dbias (hb, sq, sk) with ``bias``, else None). On a CUDA
     tensor the dQ kernel runs (it writes delta), then the dK/dV kernel
     (which also sums the table gradient), and with an array bias the
-    dbias kernel (both read that delta)."""
+    dbias kernel (both read that delta; every kernel rebuilds the
+    forward's dropout mask)."""
     bias = _bias32(bias)
     seed = _check_dropout(dropout_rate, dropout_seed)
-    _refuse_bias_dropout(bias, dropout_rate)
     if _backend.use_kernel(q, impl):
         do = do if _seq_major_ok(do) else do.contiguous()
         kw = dict(scale=scale, causal=causal, kv_lens=kv_lens,
@@ -2060,7 +2093,8 @@ def flash_bwd_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dbias = (dtab[0] if dtab else None if bias is None
                  else flash_bwd_dbias_cuda(
                      q, k, v, o, lse, do, bias, scale=scale, causal=causal,
-                     kv_lens=kv_lens, layout="bshd", delta=delta))
+                     kv_lens=kv_lens, layout="bshd", delta=delta,
+                     dropout_rate=dropout_rate, dropout_seed=seed))
         return dq, dk, dv, dbias
     arr = (bias if rel_bias is None
            else rel_bias.materialize(q.shape[1], k.shape[1]))
@@ -2070,11 +2104,6 @@ def flash_bwd_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rel_bias is not None:
         dbias = _table_grad(rel_bias, dbias)
     return dq, dk, dv, dbias
-
-
-def _refuse_bias_dropout(bias, dropout_rate: float) -> None:
-    if bias is not None and dropout_rate > 0.0:
-        raise NotImplementedError(BIAS_DROPOUT)
 
 
 def _rows3(x: torch.Tensor) -> torch.Tensor:
@@ -2095,11 +2124,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     gives o = 0, lse = 0); ``rel_bias`` adds the bucketed bias, row r
     reading table column r % heads, or ``bias`` the array bias (hb, sq,
     sk), row r reading bias row r % hb. Returns (o in q's shape, lse (bh,
-    sq) fp32). Dropout keyed by the flat q row t (not with an array
-    bias)."""
+    sq) fp32). Dropout keyed by the flat q row t."""
     bias = _bias32(bias)
     seed = _check_dropout(dropout_rate, dropout_seed)
-    _refuse_bias_dropout(bias, dropout_rate)
     if _backend.use_kernel(q, impl):
         return flash_fwd_flat_cuda(q, k, v, scale=scale, causal=causal,
                                    kv_lens=kv_lens, rel_bias=rel_bias,
@@ -2126,10 +2153,10 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dbias (hb, sq, sk) with ``bias``, else None. On a CUDA tensor the dQ
     kernel (which writes delta) and then the dK/dV kernel (which also sums
     the table gradient) run, and with an array bias the dbias kernel, the
-    last two on the dQ kernel's delta."""
+    last two on the dQ kernel's delta; each rebuilds the forward's dropout
+    mask."""
     bias = _bias32(bias)
     seed = _check_dropout(dropout_rate, dropout_seed)
-    _refuse_bias_dropout(bias, dropout_rate)
     if _backend.use_kernel(q, impl):
         kw = dict(scale=scale, causal=causal, kv_lens=kv_lens,
                   rel_bias=rel_bias, bias=bias, dropout_rate=dropout_rate,
@@ -2140,7 +2167,9 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if bias is not None:
             dtab = flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias,
                                         scale=scale, causal=causal,
-                                        kv_lens=kv_lens, delta=delta)
+                                        kv_lens=kv_lens, delta=delta,
+                                        dropout_rate=dropout_rate,
+                                        dropout_seed=seed)
         return dq, dk, dv, dtab
     sq, sk = q.shape[-2], k.shape[-2]
     arr = bias if rel_bias is None else rel_bias.materialize(sq, sk)
@@ -2270,15 +2299,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the host) over (q-head row t, query row, key column), t the row of
     the flattened (batch·heads) leading dims; lse stays un-dropped and
     kept probabilities are scaled by float32(1/(1 - rate)). The backward
-    rebuilds the mask from the seed; none is saved. Dropout with an array
-    bias raises ``NotImplementedError`` (its gradient kernel has no mask).
+    rebuilds the mask from the seed; none is saved. With an array bias,
+    dbias sums dS of the dropped dP (``_bwd_dbias_kernel``, ``:1083``).
     HALF-class under an O1 policy (q, k and v cast)."""
     q, k, v = apply_op_rules("attention", q, k, v)
     if layout not in ("bhsd", "bshd"):
         raise ValueError(f"layout must be bhsd|bshd, got {layout!r}")
     drop = (float(dropout_rate), _check_dropout(dropout_rate, dropout_seed))
-    if torch.is_tensor(bias) and dropout_rate > 0.0:
-        raise NotImplementedError(BIAS_DROPOUT)
     if isinstance(bias, BucketedBias):
         _validate_bucketed(bias)
     elif bias is not None:

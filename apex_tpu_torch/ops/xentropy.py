@@ -8,16 +8,26 @@ tensor launches :func:`xent_stats_cuda`, the hand-written kernel
 ``apex_tpu_torch/csrc/xent_stats.cu``; a CPU tensor (or ``impl="torch"``)
 runs :func:`_torch_xent_stats` beside it.
 
-``softmax_cross_entropy_loss`` of the reference's ``ops/xentropy.py``
-joins this module in a later slice.
+The losses of ``apex_tpu/ops/xentropy.py`` (``:30-100``, the contrib
+surface ``apex.contrib.xentropy``): :func:`softmax_cross_entropy_loss`
+and :class:`SoftmaxCrossEntropyLoss` write their forward once over
+:func:`xent_stats`' four statistics — lse = m + log l, loss = (1 − ε)(lse
+− t) + ε(lse − s/V) — so a CUDA tensor runs the ``xent_stats`` kernel and a
+CPU tensor its plain version, the same formula either way. The backward
+recomputes exp(x − lse) − (1 − ε)·onehot − ε/V in plain PyTorch from the
+saved logits and lse (the reference's residuals: never the softmax), as
+the reference leaves it to XLA. :func:`binary_cross_entropy` is the
+reference's banned-under-O1 op.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
 
+from apex_tpu_torch.amp.lists import apply_op_rules
 from apex_tpu_torch.ops import _backend, _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -86,3 +96,99 @@ def xent_stats(logits2d: torch.Tensor, labels: torch.Tensor, *,
     if _backend.use_kernel(logits2d, impl):
         return xent_stats_cuda(logits2d, labels)
     return _torch_xent_stats(logits2d, labels)
+
+
+# --- the losses ---------------------------------------------------------------
+
+class _SoftmaxXent(torch.autograd.Function):
+    """``_xent_core`` (``apex_tpu/ops/xentropy.py:23-27``, ``:60-86``): the
+    forward over :func:`xent_stats`, the residuals the logits, the labels
+    and lse (V floats fewer than a saved softmax)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, smoothing, half_to_float, impl):
+        V = logits.shape[-1]
+        lab = labels.long()
+        # the reference's take_along_axis: a label in [-V, 0) wraps to V +
+        # label; one outside [-V, V) reads NaN
+        wrapped = torch.where(lab < 0, lab + V, lab)
+        live = (wrapped >= 0) & (wrapped < V)
+        m, l, t, s = (x.reshape(labels.shape) for x in xent_stats(  # noqa: E741
+            logits.reshape(-1, V), wrapped.reshape(-1), impl=impl))
+        lse = m + torch.log(l)
+        loss = lse - t
+        if smoothing:
+            loss = (1.0 - smoothing) * loss + smoothing * (lse - s / V)
+        loss = torch.where(live, loss, math.nan)
+        wide = half_to_float or logits.dtype == torch.float32
+        ctx.save_for_backward(logits, labels, lse)
+        ctx.smoothing = smoothing
+        return loss.to(torch.float32 if wide else logits.dtype)
+
+    @staticmethod
+    def backward(ctx, dloss):
+        logits, labels, lse = ctx.saved_tensors
+        eps = ctx.smoothing
+        V = logits.shape[-1]
+        # exp(x - lse) in place in ONE fp32 buffer; the one-hot of the
+        # labels as given: zero for a label outside [0, V) (the forward's
+        # wrapped negative labels included, as jax.nn.one_hot gives it)
+        g = logits.to(torch.float32, copy=True)
+        g.sub_(lse[..., None]).exp_()
+        lab = labels.long()[..., None]
+        inr = (lab >= 0) & (lab < V)
+        g.scatter_add_(-1, torch.where(inr, lab, 0),
+                       -(1.0 - eps) * inr.to(torch.float32))
+        if eps:
+            g.sub_(eps / V)
+        g.mul_(dloss[..., None].to(torch.float32))
+        return g.to(logits.dtype), None, None, None, None
+
+
+def softmax_cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                               smoothing: float = 0.0,
+                               half_to_float: bool = False, *,
+                               impl: str = "auto") -> torch.Tensor:
+    """Per-example loss over (..., V) logits and (...) integer labels
+    (``apex_tpu/ops/xentropy.py:30-49``): ``(1-ε)·NLL(target) +
+    ε·mean-NLL(all classes)`` with ε = ``smoothing``. The loss is fp32 with
+    ``half_to_float`` or fp32 logits, else the logits' dtype; the gradient
+    has the logits' dtype. A label in [-V, 0) wraps to V + label in the
+    forward and a label outside [-V, V) gives a NaN loss, while the
+    backward's one-hot is zero for both (the reference's behaviour, ROADMAP
+    queue 3). FLOAT-class under O1 (the logits cast to fp32). On a CUDA
+    tensor the forward launches the ``xent_stats`` kernel (V a multiple of
+    its 16-byte load); ``impl="torch"`` or a CPU tensor runs its plain
+    version."""
+    if logits.ndim < 1 or tuple(labels.shape) != tuple(logits.shape[:-1]):
+        raise ValueError(f"labels {tuple(labels.shape)} must match the "
+                         f"logits' leading dims {tuple(logits.shape[:-1])}")
+    if labels.is_floating_point() or labels.is_complex():
+        raise TypeError(f"labels must be integers, got {labels.dtype}")
+    logits, = apply_op_rules("cross_entropy", logits)
+    return _SoftmaxXent.apply(logits.contiguous(), labels.contiguous(),
+                              float(smoothing), bool(half_to_float), impl)
+
+
+def binary_cross_entropy(probs: torch.Tensor, targets: torch.Tensor, *,
+                         eps: float = 1e-12) -> torch.Tensor:
+    """Elementwise BCE on probabilities (``apex_tpu/ops/xentropy.py:
+    52-63``), clipped to [eps, 1 - eps]: the reference's canonical BANNED
+    op — under an O1 policy with a half input it raises (apex's
+    ``err_if_any_half``); legal in fp32 or outside O1."""
+    probs, targets = apply_op_rules("binary_cross_entropy", probs, targets)
+    p = probs.clamp(eps, 1.0 - eps)
+    return -(targets * torch.log(p) + (1.0 - targets) * torch.log1p(-p))
+
+
+class SoftmaxCrossEntropyLoss:
+    """``apex.contrib.xentropy.SoftmaxCrossEntropyLoss``'s call shape
+    (``apex_tpu/ops/xentropy.py:93-100``). ``padding_idx`` is accepted and
+    unused, as in the reference."""
+
+    @staticmethod
+    def apply(logits, labels, smoothing=0.0, padding_idx=0,
+              half_to_float=False, *, impl: str = "auto"):
+        del padding_idx  # the reference ignores it too
+        return softmax_cross_entropy_loss(logits, labels, smoothing,
+                                          half_to_float, impl=impl)

@@ -10,8 +10,10 @@ step (with the bucketed and the materialised relative bias, and under
 BERT-large padded MLM train step (also under LAMB and mixed-precision
 LAMB), the three train steps again on the models' default softmax
 attention route, the fused-dense block and MLP train steps (also under
-LARC + SGD), every optimizer's step at GPT-medium's size, and BERT's
-encoder-serving entry, on one CUDA card.
+LARC + SGD), every optimizer's step at GPT-medium's size, BERT's
+encoder-serving entry, and a Transformer-big step built from contrib's
+attention modules (key padding and dropout beside the array bias, the
+label-smoothed cross-entropy), on one CUDA card.
 
 Run from the repository root on a machine with an NVIDIA H100 (no
 arguments, one card, no network):
@@ -434,11 +436,49 @@ without the final line):
       call and no other kernel; hidden and pooled against the plain path
       and an fp32 truth by the flash rule; sequences/s, valid tokens/s, ms
       a call;
-16. one ``{"kernels": [...]}`` line (all twenty-three kernels, the six
-    fp16 instances, ``<name>_f16``, and the seven instances of this
-    slice: ``paged_decode_attn_int8``/``_fp8``/``_rel``,
+16. dropout beside the array bias, the loss ops and contrib's attention
+    (after the optimizer legs):
+    * the kArr x kDrop instances of the flash forward, dQ and dK/dV and
+      dbias's mask at the Transformer-big leg's key-padding call (the
+      (h, b, s, d) views of (b, s, h, d) tensors, b·h 512, 128 x 128, d
+      64, a (b, sq, sk) -1e9 bias) and at a bshd call with an (h, sq, sk)
+      attn_mask and BERT's lengths at BERT-large's widths (32 x 512, 16
+      heads of 64), dropout 0.1: o, dq, dk, dv by the flash rule, dbias
+      within 1e-3 relative norm of the fp32 truth, lse equal to the
+      dropout-free call's, every output bit-identical across two runs;
+      on each call's GQA variant every dropout fault the kernels plant
+      (the kv head's key, row and column swapped, dK/dV's dS unmasked, l
+      from the dropped p, dbias's dP unmasked) refused; each instance
+      timed in turns beside the call's bias-only and dropout-only
+      instances, the plain version, SDPA with the bias as a float mask
+      and dropout_p 0.1 and its bound (``bias_dropout_check``,
+      ``bias_dropout_times``; the kernels line's ``bias_dropout``);
+    * ``transformer_big_train``: Transformer-big (d_model 1024, d_ff
+      4096, 16 heads, 6 + 6 pre-norm layers of contrib's
+      ``SelfMultiheadAttn``/``EncdecMultiheadAttn`` with
+      ``include_norm_add`` and attention dropout 0.1, a shared tied
+      vocabulary of 37000, sinusoidal positions), 32 pairs padded to 128
+      a side, ``SoftmaxCrossEntropyLoss`` with smoothing 0.1, FusedAdam
+      (0.9, 0.98, 1e-9), bf16: one step against the plain path and an
+      fp32 truth, 2 warm-up and 3 timed steps with fresh seeds: per step
+      12 bh-flat forward, dQ, dK/dV and dbias launches with the bias and
+      dropout, 6 bshd forward, dQ and dK/dV with dropout, 32 ``ln_fwd``
+      and ``ln_bwd``, one ``xent_stats``, nothing else; step ms,
+      tokens/s, model TFLOP/s and MFU, peak memory, a profile;
+    * ``fmha_varlen`` at BERT-large's packed batch (the BERT cell's
+      lengths, dropout 0.1): one bshd forward, dQ and dK/dV; o and dqkv
+      by the flash rule; forward and backward ms;
+    * ``loss_ops``: ``softmax_cross_entropy_loss`` at (4096, 37000) bf16,
+      smoothing 0.1 (one ``xent_stats`` launch; within 1e-4 of its fp32
+      truth; ms against the bytes bound and ``F.cross_entropy``), and
+      ``focal_loss`` at RetinaNet's head (2 x 200,700 anchors x 80
+      classes, fp32; within 1e-5 of its fp64 truth; ms);
+17. one ``{"kernels": [...]}`` line (all twenty-three kernels, the six
+    fp16 instances, ``<name>_f16``, and the seven instances of
+    ``paged_decode_attn_int8``/``_fp8``/``_rel``,
     ``decode_attn_rel``, ``flash_fwd_bshd_rel``,
-    ``flash_bwd_bshd_dq_rel``/``_dkv_rel``, each with
+    ``flash_bwd_bshd_dq_rel``/``_dkv_rel``; the flash kernels' kArr x
+    kDrop instances under ``bias_dropout``), each with
     its launches by main path; matmul_bias_act and the flash kernels
     also by variant, every train leg's, the decode leg's and the T5
     materialized leg's flash forward and dbias launches asserted on
@@ -449,6 +489,7 @@ without the final line):
 
 import concurrent.futures
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -5129,6 +5170,7 @@ def path_counters():
     from apex_tpu_torch.ops import xentropy as X
 
     flash = (("flash_fwd", A.flash_fwd_cuda),
+             ("flash_bwd_dbias", A.flash_bwd_dbias_cuda),
              ("flash_fwd_bshd", A.flash_fwd_bshd_cuda),
              ("flash_fwd_flat", A.flash_fwd_flat_cuda),
              ("flash_bwd_dkv", A.flash_bwd_dkv_cuda),
@@ -8531,6 +8573,696 @@ def phase_optimizer_steps(torch, dev):
     return info, launches
 
 
+# --- dropout beside the array bias; the loss ops and contrib's attention ---
+
+# Transformer-big (Vaswani et al. 2017, Table 3 "big": d_model 1024, d_ff
+# 4096, 16 heads, 6 + 6 layers, attention dropout 0.1 as fairseq's
+# transformer_wmt_en_de_big_t2t trains it, pre-norm), the paper's shared
+# BPE vocabulary of about 37000 tied to the output, sinusoidal positions;
+# 32 sentence pairs padded to 128 a side, lengths uniform in [16, 128];
+# label smoothing 0.1; Adam betas (0.9, 0.98), eps 1e-9 (section 5.3)
+TBIG = dict(vocab=37000, d_model=1024, d_ff=4096, heads=16, enc_layers=6,
+            dec_layers=6, batch=32, seq=128, len_min=16, dropout=0.1,
+            smoothing=0.1, lr=5e-4, betas=(0.9, 0.98), eps=1e-9)
+TBIG_WARMUP, TBIG_STEPS = 2, 3
+# the new kernel instances' calls: the Transformer-big leg's key-padding
+# route (its (h, b, s, d) views of (b, s, h, d) tensors, b·h 512, 128 x
+# 128, d 64, the (b, sq, sk) -1e9 bias: hb 32), and bshd with an (h, sq,
+# sk) attn_mask and per-batch lengths at BERT-large's widths (the BERT
+# cell's 32 x 512, 16 heads of 64)
+BIAS_DROP_CALLS = ("tbig_keypad_flat", "bert_bshd_attn_mask")
+# each dropout fault where the kernels plant it; every one must fail its
+# rule at every call (on the call's shape with half the kv heads, where a
+# kv head's row is not a q head's)
+BIAS_DROP_FAULTS = {"key_kv_head": ("fwd", "dq", "dkv", "dbias"),
+                    "swap_row_col": ("fwd", "dq", "dkv", "dbias"),
+                    "no_dkv_ds_mask": ("dkv",),
+                    "l_from_dropped": ("fwd",),
+                    "no_dbias_dp_mask": ("dbias",)}
+# loss_ops: softmax_cross_entropy_loss at the leg's logits; focal_loss at
+# RetinaNet's head (Lin et al. 2017: 9 anchors a location over P3-P7 of an
+# 800 x 1333 input, 200,700 anchors an image, 80 classes), 2 images
+FOCAL = dict(images=2, anchors=200700, classes=80, alpha=0.25, gamma=2.0)
+LOSS_TOL = 1e-4      # the xentropy loss against its fp32 truth, relative
+FOCAL_TOL = 1e-5     # the focal loss against its fp64 truth, relative
+
+
+def bias_drop_case(torch, dev, name, gqa=False):
+    """(layout, q, k, v, do, kw) of one new-instance call (kw with the
+    bias, lengths, dropout 0.1 and a seed); ``gqa`` halves the kv heads."""
+    if name == "tbig_keypad_flat":
+        b, s, h, d = TBIG["batch"], TBIG["seq"], TBIG["heads"], 64
+        g = torch.Generator(device=dev).manual_seed(101)
+        q, k, v, do = (torch.randn((b, s, h, d), generator=g, device=dev)
+                       .bfloat16().permute(2, 0, 1, 3) for _ in range(4))
+        lens = seeded_lens(torch, dev, b, TBIG["len_min"], s, seed=102)
+        pad = torch.arange(s, device=dev)[None, :] >= lens[:, None]
+        bias = torch.where(pad[:, None, :], -1e9, 0.0).expand(
+            b, s, s).contiguous()
+        if gqa:
+            k, v = k[:, :b // 2], v[:, :b // 2]
+        return "bhsd", q, k, v, do, dict(
+            scale=d ** -0.5, causal=False, bias=bias,
+            dropout_rate=TBIG["dropout"], dropout_seed=-123457)
+    b, s, h, d = BERT_BATCH, BERT_SEQ, BERT["num_heads"], 64
+    q, k, v, do = packed_views(torch, dev, b, s, h, h, d, 103)
+    g = torch.Generator(device=dev).manual_seed(104)
+    bias = torch.randn((h, s, s), generator=g, device=dev) * 0.5
+    lens = seeded_lens(torch, dev, b, BERT_PAD_MIN, s, seed=105)
+    if gqa:
+        k, v = k[:, :, :h // 2], v[:, :, :h // 2]
+    return "bshd", q, k, v, do, dict(
+        scale=d ** -0.5, causal=False, bias=bias, kv_lens=lens,
+        dropout_rate=DROP_RATE, dropout_seed=2 ** 31 - 5)
+
+
+def bias_drop_run(torch, layout, q, k, v, o, lse, do, kw, fault=None):
+    """The four kernels of one call on the given o and lse, each planting
+    ``fault`` where BIAS_DROP_FAULTS says: (o, lse, dq, dk, dv, dbias)."""
+    from apex_tpu_torch.ops import attention as A
+
+    fwd, (dq_w, dkv_w) = fwd_wrapper(layout), bwd_wrappers(layout)
+    at = BIAS_DROP_FAULTS.get(fault, ())
+    f = lambda w: fault if w in at else None  # noqa: E731
+    o_k, lse_k = fwd(q, k, v, planted_fault=f("fwd"), **kw)
+    dq, delta = dq_w(q, k, v, o, lse, do, planted_fault=f("dq"), **kw)
+    dk, dv, *_ = dkv_w(q, k, v, o, lse, do, delta=delta,
+                       planted_fault=f("dkv"), **kw)
+    dkw = {n: kw[n] for n in ("scale", "causal", "dropout_rate",
+                              "dropout_seed")}
+    db = A.flash_bwd_dbias_cuda(q, k, v, o, lse, do, kw["bias"],
+                                kv_lens=kw.get("kv_lens"), layout=layout,
+                                delta=delta, planted_fault=f("dbias"), **dkw)
+    return o_k, lse_k, dq, dk, dv, db
+
+
+def bias_drop_checks(torch, name):
+    """One call of the new instances against the plain version by the
+    flash rules and the dbias rule, the outputs bit-identical across two
+    runs, lse equal to the dropout-free call's, and (on the call's GQA
+    variant) every planted dropout fault refused. Returns (max abs errors
+    by output, dbias rel norm error, the refusals)."""
+    from apex_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    layout, q, k, v, do, kw = bias_drop_case(torch, dev, name)
+    fwd, bwd = ((A.flash_fwd_bshd, A.flash_bwd_bshd) if layout == "bshd"
+                else (A.flash_fwd, A.flash_bwd))
+    shape = {"call": name, "layout": layout, "q": list(q.shape),
+             "bias": list(kw["bias"].shape), "rate": kw["dropout_rate"],
+             "kv_lens": kw.get("kv_lens") is not None}
+    tag = "bias_dropout_check"
+    up = [x.float() for x in (q, k, v)]
+    o_p, lse_p = fwd(q, k, v, impl="torch", **kw)
+    o_t, lse_t = fwd(*up, impl="torch", **kw)
+    first = bias_drop_run(torch, layout, q, k, v, o_p, lse_p, do, kw)
+    second = bias_drop_run(torch, layout, q, k, v, o_p, lse_p, do, kw)
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    check(same, f"{name}: an output of the bias x dropout instances "
+          f"differs between two runs")
+    nodrop = dict(kw, dropout_rate=0.0, dropout_seed=None)
+    _, lse0 = fwd_wrapper(layout)(q, k, v, **nodrop)
+    check(torch.equal(first[1], lse0), f"{name}: lse with dropout differs "
+          f"from the dropout-free call's")
+    errs = {"o": rule_check(f"{name} o", first[0], o_p, o_t, shape, tag),
+            "lse": rule_check(f"{name} lse", first[1], lse_p, lse_t, shape,
+                              tag)}
+    del o_t, lse_t
+    plain = bwd(q, k, v, o_p, lse_p, do, impl="torch", **kw)
+    truth = bwd(*up, o_p.float(), lse_p, do.float(), impl="torch", **kw)
+    for out, g_, p_, t_ in zip(("dq", "dk", "dv"), first[2:5], plain,
+                               truth):
+        check(torch.isfinite(g_.float()).all().item(),
+              f"{name} {out}: not finite")
+        errs[out] = rule_check(f"{name} {out}", g_, p_, t_, shape, tag)
+    db_rel = ((first[5] - truth[3]).norm() / truth[3].norm()).item()
+    emit(tag, {"output": f"{name} dbias", "shape": shape,
+               "rel_norm_err": db_rel, "tol": DBIAS_TOL})
+    check(db_rel <= DBIAS_TOL, f"{name} dbias: rel norm err {db_rel}")
+    errs["dbias"] = (first[5] - truth[3]).abs().max().item()
+    del first, second, plain, truth, up
+    torch.cuda.empty_cache()
+
+    # the faults, on the GQA variant of the call
+    layout, q, k, v, do, kw = bias_drop_case(torch, dev, name, gqa=True)
+    up = [x.float() for x in (q, k, v)]
+    o_p, lse_p = fwd(q, k, v, impl="torch", **kw)
+    o_t, _ = fwd(*up, impl="torch", **kw)
+    plain = bwd(q, k, v, o_p, lse_p, do, impl="torch", **kw)
+    truth = bwd(*up, o_p.float(), lse_p, do.float(), impl="torch", **kw)
+    _, lse0 = fwd_wrapper(layout)(q, k, v, **dict(
+        kw, dropout_rate=0.0, dropout_seed=None))
+    refused = {}
+    for fault in BIAS_DROP_FAULTS:
+        got = bias_drop_run(torch, layout, q, k, v, o_p, lse_p, do, kw,
+                            fault)
+        fails = [n for n, g_, p_, t_ in (("o", got[0], o_p, o_t),
+                                         ("dq", got[2], plain[0], truth[0]),
+                                         ("dk", got[3], plain[1], truth[1]),
+                                         ("dv", got[4], plain[2], truth[2]))
+                 if not rule_ok(g_, p_, t_)[0]]
+        if not torch.equal(got[1], lse0):
+            fails.append("lse")
+        if ((got[5] - truth[3]).norm() / truth[3].norm()).item() > DBIAS_TOL:
+            fails.append("dbias")
+        refused[fault] = fails
+        check(fails, f"{name}: the planted dropout fault {fault!r} passed "
+              f"every rule")
+    del plain, truth, up, o_p, o_t
+    torch.cuda.empty_cache()
+    return errs, db_rel, refused
+
+
+def sdpa_drop_times(torch, F, q4, k4, v4, do4, scale, fmask, rate):
+    """One PyTorch call for the same work but another mask: SDPA with the
+    bias as a float attn_mask and dropout_p, its forward, its autograd
+    backward, and the backward that also returns the mask's gradient.
+    Timed, used nowhere. Returns (fwd ms, bwd ms, bwd with the mask's
+    gradient ms)."""
+    leaves = [t.detach().requires_grad_() for t in (q4, k4, v4)]
+    mask = fmask.to(q4.dtype)
+
+    def call(m):
+        return F.scaled_dot_product_attention(*leaves, attn_mask=m,
+                                              dropout_p=rate, scale=scale)
+
+    fwd = time_ms(lambda: call(mask), [()])
+    out = call(mask)
+    bwd = time_ms(lambda: torch.autograd.grad(out, leaves, do4,
+                                              retain_graph=True), [()],
+                  reps=5)
+    mask = mask.detach().requires_grad_()
+    out = call(mask)
+    dbias = time_ms(lambda: torch.autograd.grad(out, [*leaves, mask], do4,
+                                                retain_graph=True), [()],
+                    reps=5)
+    del out, mask, leaves
+    return fwd, bwd, dbias
+
+
+def bias_drop_times(torch, name):
+    """Each new instance timed in turns (A B C C B A) beside the same
+    call's bias-only instance (B) and dropout-only instance (C; for dbias
+    the bias-only kernel alone), the plain version, SDPA with the bias as
+    a float mask and dropout_p 0.1 (the same work, another mask), and the
+    bounds (PERF.md §6's bytes rule)."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    layout, q, k, v, do, kw = bias_drop_case(torch, dev, name)
+    fwd_w, (dq_w, dkv_w) = fwd_wrapper(layout), bwd_wrappers(layout)
+    fwd, bwd = ((A.flash_fwd_bshd, A.flash_bwd_bshd) if layout == "bshd"
+                else (A.flash_fwd, A.flash_bwd))
+    o, lse = fwd(q, k, v, **kw)
+    cfgs = {"bias_dropout": kw,
+            "bias_only": dict(kw, dropout_rate=0.0, dropout_seed=None),
+            "dropout_only": dict(kw, bias=None)}
+    deltas = {c: dq_w(q, k, v, o, lse, do, **k_)[1] for c, k_ in
+              cfgs.items()}
+    dkw = lambda c: {n: cfgs[c][n] for n in (  # noqa: E731
+        "scale", "causal", "kv_lens", "dropout_rate", "dropout_seed")
+        if n in cfgs[c]}
+    ops = {"fwd": lambda c: fwd_w(q, k, v, **cfgs[c]),
+           "dq": lambda c: dq_w(q, k, v, o, lse, do, **cfgs[c]),
+           "dkv": lambda c: dkv_w(q, k, v, o, lse, do, delta=deltas[c],
+                                  **cfgs[c]),
+           "dbias": lambda c: A.flash_bwd_dbias_cuda(
+               q, k, v, o, lse, do, kw["bias"], layout=layout,
+               delta=deltas[c], **dkw(c))}
+    out = {}
+    for op, fn in ops.items():
+        order = (["bias_dropout", "bias_only"] if op == "dbias"
+                 else ["bias_dropout", "bias_only", "dropout_only"])
+        turns = [(c, time_ms(lambda c=c: fn(c), [()]))
+                 for c in order + order[::-1]]
+        out[op] = {c: statistics.mean(t for c_, t in turns if c_ == c)
+                   for c in order}
+        out[op]["turns_ms"] = [t for _, t in turns]
+    out["plain_fwd_ms"] = time_ms(lambda: fwd(q, k, v, impl="torch", **kw),
+                                  [()], reps=2, trials=3)
+    out["plain_bwd_ms"] = time_ms(lambda: bwd(q, k, v, o, lse, do,
+                                              impl="torch", **kw),
+                                  [()], reps=2, trials=3)
+    torch.cuda.empty_cache()
+    # SDPA on the kernels' (b, heads, s, d) views: the bias as a float
+    # mask broadcast over the views' rows (-inf past a row's length)
+    if layout == "bshd":
+        q4, k4, v4, do4 = (x.transpose(1, 2) for x in (q, k, v, do))
+        b, h, sq, _ = q4.shape
+        fmask = kw["bias"][None].expand(b, h, sq, sq)
+        live = (torch.arange(sq, device=dev)[None, :]
+                < kw["kv_lens"][:, None])[:, None, None, :]
+        fmask = fmask.masked_fill(~live, float("-inf"))
+        lens = kw["kv_lens"]
+        live_rows = h * float(lens.double().sum())
+        pairs = sq * live_rows
+    else:
+        q4, k4, v4, do4 = q, k, v, do
+        b, h, sq, _ = q4.shape
+        fmask = kw["bias"][None]
+        live_rows, pairs = b * h * sq, b * h * sq * sq
+    lib = sdpa_drop_times(torch, F, q4, k4, v4, do4, kw["scale"], fmask,
+                          kw["dropout_rate"])
+    out["library_ms"] = {"fwd": lib[0], "dq": lib[1], "dkv": lib[1],
+                         "dbias": lib[2]}
+    bd = flash_bounds(b, h, k4.shape[1], sq, k4.shape[2], q4.shape[3],
+                      pairs, live_rows, kw["bias"])
+    out["bounds"] = {op: bd[op] for op in ("fwd", "dq", "dkv", "dbias")}
+    out["score_pairs"] = pairs
+    del q, k, v, do, o, lse, deltas, q4, k4, v4, do4, fmask
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_bias_dropout_kernels(torch, dev):
+    """The new kArr x kDrop instances of the flash forward, dQ and dK/dV
+    and dbias's mask at the two BIAS_DROP_CALLS: checks (bias_drop_checks)
+    and times (bias_drop_times). Returns, by kernel name, the entry for
+    the kernels line's ``bias_dropout`` field, and the max abs error by
+    operation."""
+    names = {"bhsd": {"fwd": "flash_fwd_flat", "dq": "flash_bwd_flat_dq",
+                      "dkv": "flash_bwd_flat_dkv", "dbias": "flash_bwd_dbias"},
+             "bshd": {"fwd": "flash_fwd_bshd", "dq": "flash_bwd_bshd_dq",
+                      "dkv": "flash_bwd_bshd_dkv",
+                      "dbias": "flash_bwd_dbias"}}
+    by_kernel, errs = {}, {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "dbias": 0.0}
+    for call in BIAS_DROP_CALLS:
+        layout = "bshd" if "bshd" in call else "bhsd"
+        e, db_rel, refused = bias_drop_checks(torch, call)
+        t = bias_drop_times(torch, call)
+        emit("bias_dropout_times", dict(t, call=call))
+        for op, kname in names[layout].items():
+            err = (e["dbias"] if op == "dbias" else
+                   max(e["o"], e["lse"]) if op == "fwd" else
+                   e["dq"] if op == "dq" else max(e["dk"], e["dv"]))
+            errs[op] = max(errs[op], err)
+            by_kernel.setdefault(kname, {})[call] = {
+                "ms": t[op]["bias_dropout"],
+                "bias_only_ms": t[op]["bias_only"],
+                "dropout_only_ms": t[op].get("dropout_only"),
+                "turns_ms": t[op]["turns_ms"],
+                "plain_ms": t["plain_fwd_ms" if op == "fwd"
+                              else "plain_bwd_ms"],
+                "bound_ms": t["bounds"][op][0],
+                "bound_by": t["bounds"][op][1],
+                "library_ms": t["library_ms"][op],
+                "max_abs_err": err,
+                "dbias_rel_norm_err": db_rel if op == "dbias" else None,
+                "faults_refused_by": {f: r for f, r in refused.items()
+                                      if op in BIAS_DROP_FAULTS[f]}}
+    return by_kernel, errs
+
+
+def tbig_model(torch, dev, dtype):
+    """Transformer-big (TBIG) from contrib's modules, weights from seed 0:
+    pre-norm blocks of SelfMultiheadAttn(include_norm_add=True,
+    dropout=0.1) (+ EncdecMultiheadAttn in the decoder) and a
+    FusedLayerNorm-Linear-ReLU-Linear FFN with its residual, final norms,
+    the shared embedding (N(0, 1/d_model), scaled by sqrt(d_model)) tied
+    to the output, sinusoidal positions. Returns (model, every module
+    with an ``impl``)."""
+    from apex_tpu_torch.contrib.multihead_attn import (EncdecMultiheadAttn,
+                                                       SelfMultiheadAttn)
+    from apex_tpu_torch.ops.fused_dense import uniform_weight
+    from apex_tpu_torch.ops.layer_norm import FusedLayerNorm
+
+    nn = torch.nn
+    E, Fd, h = TBIG["d_model"], TBIG["d_ff"], TBIG["heads"]
+    g = torch.Generator(device=dev).manual_seed(0)
+    kw = dict(dropout=TBIG["dropout"], include_norm_add=True, generator=g,
+              device=dev, dtype=dtype)
+
+    def ffn():
+        m = nn.ModuleDict(dict(
+            ln=FusedLayerNorm(E, device=dev, dtype=dtype),
+            up=nn.Linear(E, Fd, device=dev, dtype=dtype),
+            down=nn.Linear(Fd, E, device=dev, dtype=dtype)))
+        with torch.no_grad():
+            for lin in (m["up"], m["down"]):
+                n = lin.in_features
+                lin.weight.copy_(uniform_weight(lin.weight.shape,
+                                                n ** -0.5, g, dev, dtype))
+                lin.bias.zero_()
+        return m
+
+    model = nn.ModuleDict(dict(
+        enc=nn.ModuleList(nn.ModuleDict(dict(
+            attn=SelfMultiheadAttn(E, h, **kw), ffn=ffn()))
+            for _ in range(TBIG["enc_layers"])),
+        dec=nn.ModuleList(nn.ModuleDict(dict(
+            attn=SelfMultiheadAttn(E, h, **kw),
+            cross=EncdecMultiheadAttn(E, h, **kw), ffn=ffn()))
+            for _ in range(TBIG["dec_layers"])),
+        enc_ln=FusedLayerNorm(E, device=dev, dtype=dtype),
+        dec_ln=FusedLayerNorm(E, device=dev, dtype=dtype)))
+    emb = torch.randn((TBIG["vocab"], E), generator=g, device=dev) * E ** -0.5
+    model.emb = nn.Parameter(emb.to(dtype))
+    pos = torch.arange(TBIG["seq"], device=dev, dtype=torch.float64)[:, None]
+    inv = torch.exp(-math.log(1e4) * torch.arange(
+        0, E, 2, device=dev, dtype=torch.float64) / E)
+    model.register_buffer("pos", torch.cat(
+        [torch.sin(pos * inv), torch.cos(pos * inv)], 1).to(dtype))
+    return model, [m for m in model.modules() if hasattr(m, "impl")]
+
+
+def tbig_ffn(m, x):
+    import torch.nn.functional as F
+
+    return x + m["down"](F.relu(m["up"](m["ln"](x))))
+
+
+def tbig_loss(model, batch, seeds, impl="auto"):
+    """One forward to the label-smoothed loss over the target tokens:
+    ``seeds`` one int32 dropout seed an attention call (18)."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.contrib.xentropy import SoftmaxCrossEntropyLoss
+
+    src, tgt_in, tgt_out, src_pad, tgt_mask = batch
+    E = TBIG["d_model"]
+    sd = iter(seeds)
+    x = F.embedding(src, model.emb) * E ** 0.5 + model.pos
+    for layer in model.enc:
+        x = layer["attn"](x, key_padding_mask=src_pad, key=next(sd))
+        x = tbig_ffn(layer["ffn"], x)
+    mem = model.enc_ln(x)
+    y = F.embedding(tgt_in, model.emb) * E ** 0.5 + model.pos
+    for layer in model.dec:
+        y = layer["attn"](y, causal=True, key=next(sd))
+        y = layer["cross"](y, mem, key_padding_mask=src_pad, key=next(sd))
+        y = tbig_ffn(layer["ffn"], y)
+    logits = F.linear(model.dec_ln(y), model.emb)
+    loss = SoftmaxCrossEntropyLoss.apply(
+        logits.reshape(-1, TBIG["vocab"]), tgt_out.reshape(-1),
+        TBIG["smoothing"], 0, True, impl=impl)
+    return (loss * tgt_mask.reshape(-1)).sum() / tgt_mask.sum()
+
+
+def tbig_batch(torch, dev, seed):
+    """32 pairs padded to 128 a side, source and target lengths uniform in
+    [16, 128]: (src, target input, target output, source pad mask, target
+    loss mask)."""
+    b, s, V = TBIG["batch"], TBIG["seq"], TBIG["vocab"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    src_len, tgt_len = (torch.randint(TBIG["len_min"], s + 1, (b,),
+                                      generator=g, device=dev)
+                        for _ in range(2))
+    cols = torch.arange(s, device=dev)[None, :]
+    src = torch.randint(4, V, (b, s), generator=g, device=dev)
+    tgt = torch.randint(4, V, (b, s), generator=g, device=dev)
+    src_pad = cols >= src_len[:, None]
+    tgt_live = cols < tgt_len[:, None]
+    src = torch.where(src_pad, 1, src)          # 1: the pad token
+    tgt = torch.where(tgt_live, tgt, 1)
+    tgt_in = torch.cat([torch.full((b, 1), 2, device=dev), tgt[:, :-1]], 1)
+    return (src, tgt_in, tgt, src_pad, tgt_live.float()), (src_len, tgt_len)
+
+
+TBIG_FLOPS_FORMULA = (
+    "6 x (t x Le x (4H^2 + 2HF) + t x Ld x (6H^2 + 2HF) + t x Ld x 2H^2 "
+    "+ t x V x H) + 12 x H x (t x Le x s + t x Ld x 2s), t = b x s padded "
+    "tokens a side")
+
+
+def tbig_flops_per_step():
+    """Model FLOPs of one step (forward + backward), t5_flops_per_step's
+    convention: 6 x the matmul parameters each token passes through
+    (encoder 4H^2 + 2HF a layer; decoder 6H^2 + 2HF plus the cross k/v
+    projection 2H^2 on every encoder token in every decoder layer; the
+    tied head VH per decoder token) plus 12 x H x keys per query token per
+    layer (all 128 padded keys: the kernels compute them), at the padded
+    4,096 tokens a side."""
+    H, Fd, V = TBIG["d_model"], TBIG["d_ff"], TBIG["vocab"]
+    Le, Ld, s = TBIG["enc_layers"], TBIG["dec_layers"], TBIG["seq"]
+    t = TBIG["batch"] * s
+    matmul = (t * Le * (4 * H * H + 2 * H * Fd)
+              + t * Ld * (6 * H * H + 2 * H * Fd)
+              + t * Ld * 2 * H * H + t * V * H)
+    return 6 * matmul + 12 * H * (t * Le * s + t * Ld * 2 * s)
+
+
+def tbig_counts():
+    """Per step: 12 key-padding attention calls (6 encoder, 6 cross) on
+    the bh-flat kArr x kDrop instances and dbias, 6 causal decoder calls
+    on the bshd kDrop instances, all wgmma; one xent_stats; 32 norms
+    (2 an encoder block, 3 a decoder block, the two final ones)."""
+    Le, Ld = TBIG["enc_layers"], TBIG["dec_layers"]
+    flat, bshd = Le + Ld, Ld
+    want = {"xent_stats": 1, "ln_fwd": 2 * Le + 3 * Ld + 2,
+            "ln_bwd": 2 * Le + 3 * Ld + 2}
+    for n in ("flash_fwd_flat", "flash_bwd_flat_dq", "flash_bwd_flat_dkv"):
+        for suffix in ("", "_wgmma", "_bias", "_dropout"):
+            want[f"{n}{suffix}"] = flat
+    for suffix in ("", "_wgmma", "_dropout"):
+        want[f"flash_bwd_dbias{suffix}"] = flat
+    for n in ("flash_fwd_bshd", "flash_bwd_bshd_dq", "flash_bwd_bshd_dkv"):
+        for suffix in ("", "_wgmma", "_dropout"):
+            want[f"{n}{suffix}"] = bshd
+    return want
+
+
+def phase_transformer_big_train(torch, dev):
+    """The slice's main path: Transformer-big's step (TBIG) from contrib's
+    modules, bf16, FusedAdam: one step at the initial params against the
+    plain path and an fp32 truth (the same seeds; compare_paths),
+    TBIG_WARMUP warm-up steps, then TBIG_STEPS timed ones with the
+    counters zeroed just before and read just after (tbig_counts, nothing
+    else), each step with fresh seeds from seed_from_key; 2 profiled
+    steps."""
+    from apex_tpu_torch.ops.attention import seed_from_key
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    model, mods = tbig_model(torch, dev, torch.bfloat16)
+    batch, (src_len, tgt_len) = tbig_batch(torch, dev, seed=7)
+    keys = torch.Generator().manual_seed(8)  # host seeds: no device read
+    n_attn = TBIG["enc_layers"] + 2 * TBIG["dec_layers"]
+
+    def seeds():
+        return [seed_from_key(keys) for _ in range(n_attn)]
+
+    model32, mods32 = tbig_model(torch, dev, torch.float32)
+    with torch.no_grad():
+        for a, c in zip(model32.parameters(), model.parameters()):
+            a.copy_(c.float())
+    params = {"m": dict(model.named_parameters())}
+    params32 = {"m": dict(model32.named_parameters())}
+    cmp_seeds = seeds()
+
+    def run(p, impl):
+        m, ms = (model32, mods32) if p is params32 else (model, mods)
+        set_impl(ms, impl)
+        try:
+            return tbig_loss(m, batch, cmp_seeds, impl)
+        finally:
+            set_impl(ms, "auto")
+
+    vs = compare_paths(torch, run, params, params32, "initial (seed 0)",
+                       True)
+    del model32, mods32, params32
+    torch.cuda.empty_cache()
+    opt = FusedAdam(list(model.parameters()), lr=TBIG["lr"],
+                    betas=TBIG["betas"], eps=TBIG["eps"])
+
+    def step():
+        loss = tbig_loss(model, batch, seeds())
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    for _ in range(TBIG_WARMUP - 1):  # timed_steps runs one more
+        step()
+    losses, wall, launches = timed_steps(torch, step, TBIG_STEPS,
+                                         "Transformer-big train path")
+    check_launches(launches, tbig_counts(), TBIG_STEPS,
+                   "Transformer-big train path")
+    step_s = wall / TBIG_STEPS
+    flops = tbig_flops_per_step()
+    tok = 2 * TBIG["batch"] * TBIG["seq"]
+    valid = float(src_len.sum() + tgt_len.sum())
+    info = {"config": {k: v for k, v in TBIG.items()}, "steps": TBIG_STEPS,
+            "warmup_steps": TBIG_WARMUP, "losses": losses, "wall_s": wall,
+            "step_ms": 1e3 * step_s, "tokens_per_s": tok / step_s,
+            "valid_tokens_per_s": valid / step_s,
+            "padding_share": 1 - valid / tok,
+            "model_flops_per_step": flops,
+            "flops_formula": TBIG_FLOPS_FORMULA,
+            "model_tflops_per_s": flops / step_s / 1e12,
+            "mfu": flops / step_s / BF16_OPS_PER_S,
+            "mfu_peak": "989 TFLOP/s dense bf16 (H100 SXM data sheet)",
+            "card": torch.cuda.get_device_name(0),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "vs_plain_path": vs,
+            "launches_per_step": {k: v / TBIG_STEPS
+                                  for k, v in launches.items() if v}}
+    info["profile"] = phase_train_profile(torch, step, step_s)
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    return info, launches
+
+
+def phase_fmha_varlen(torch, dev):
+    """contrib.fmha's fmha_varlen at BERT-large's packed batch (the BERT
+    cell's lengths, qkv (total, 3, 16, 64), max_s 512, dropout 0.1):
+    forward and backward once with the counters zeroed just before and
+    read just after (one bshd forward, dQ and dK/dV, all with dropout,
+    nothing else), o and dqkv against the plain version by the flash rule,
+    forward and backward ms."""
+    from apex_tpu_torch.contrib.fmha import fmha_varlen
+
+    b, s, h, d = BERT_BATCH, BERT_SEQ, BERT["num_heads"], 64
+    lens = seeded_lens(torch, dev, b, BERT_PAD_MIN, s, seed=1)
+    cu = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                    torch.cumsum(lens, 0).to(torch.int32)])
+    total = int(cu[-1])
+    g = torch.Generator(device=dev).manual_seed(111)
+    qkv = torch.randn((total, 3, h, d), generator=g, device=dev).bfloat16()
+    do = torch.randn((total, h, d), generator=g, device=dev).bfloat16()
+    kw = dict(p_dropout=DROP_RATE, key=424243)
+
+    def fwd_bwd(x, impl="auto"):
+        x = x.detach().requires_grad_()
+        o = fmha_varlen(x, cu, s, impl=impl, **kw)
+        o.backward(do.to(o.dtype))
+        return o.detach(), x.grad
+
+    fwd_bwd(qkv)
+    torch.cuda.synchronize()
+    zero_counters()
+    o, dqkv = fwd_bwd(qkv)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    want = {}
+    for n in ("flash_fwd_bshd", "flash_bwd_bshd_dq", "flash_bwd_bshd_dkv"):
+        for suffix in ("", "_wgmma", "_dropout"):
+            want[f"{n}{suffix}"] = 1
+    check_launches(launches, want, 1, "fmha_varlen")
+    o_p, g_p = fwd_bwd(qkv, "torch")
+    o_t, g_t = fwd_bwd(qkv.float(), "torch")
+    shape = {"total": total, "b": b, "max_s": s, "h": h, "d": d,
+             "rate": DROP_RATE}
+    errs = {"o": rule_check("fmha_varlen o", o, o_p, o_t, shape),
+            "dqkv": rule_check("fmha_varlen dqkv", dqkv, g_p, g_t, shape)}
+    del o_p, g_p, o_t, g_t
+    x = qkv.detach().requires_grad_()
+    fwd_ms = time_ms(lambda: fmha_varlen(qkv, cu, s, **kw), [()])
+    out = fmha_varlen(x, cu, s, **kw)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, x, do,
+                                                 retain_graph=True), [()],
+                     reps=5)
+    del out, x
+    torch.cuda.empty_cache()
+    return {"shape": shape, "valid_share": total / (b * s),
+            "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "max_abs_err": errs,
+            "launches": {k: v for k, v in launches.items() if v}}, launches
+
+
+def phase_loss_ops(torch, dev):
+    """softmax_cross_entropy_loss at the Transformer-big leg's (4096,
+    37000) bf16 logits with smoothing 0.1 and half_to_float (forward once
+    with the counters zeroed: one xent_stats launch, nothing else; the
+    loss against its fp32 truth within LOSS_TOL; forward and backward ms
+    against the bytes bound and F.cross_entropy(reduction="none",
+    label_smoothing=0.1), the same function), and focal_loss at
+    RetinaNet's head (FOCAL, fp32; against its fp64 truth within
+    FOCAL_TOL; ms against the bytes bound)."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import focal_loss as FL
+    from apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
+
+    n, V, eps = TBIG["batch"] * TBIG["seq"], TBIG["vocab"], TBIG["smoothing"]
+    g = torch.Generator(device=dev).manual_seed(121)
+    logits = (3 * torch.randn((n, V), generator=g, device=dev)).bfloat16()
+    labels = torch.randint(0, V, (n,), generator=g, device=dev)
+    dl = torch.randn((n,), generator=g, device=dev)
+    softmax_cross_entropy_loss(logits, labels, eps, True)
+    torch.cuda.synchronize()
+    zero_counters()
+    loss = softmax_cross_entropy_loss(logits, labels, eps, True)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    check_launches(launches, {"xent_stats": 1}, 1, "loss_ops")
+    truth = softmax_cross_entropy_loss(logits.float(), labels, eps, True,
+                                       impl="torch")
+    xent_err = ((loss - truth).norm() / truth.norm()).item()
+    check(loss.dtype == torch.float32 and xent_err <= LOSS_TOL,
+          f"softmax_cross_entropy_loss vs its fp32 truth: {xent_err}")
+    x = logits.detach().requires_grad_()
+    fwd_ms = time_ms(lambda: softmax_cross_entropy_loss(logits, labels, eps,
+                                                        True), [()])
+    out = softmax_cross_entropy_loss(x, labels, eps, True)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, x, dl,
+                                                 retain_graph=True), [()],
+                     reps=5)
+    lib_fwd = time_ms(lambda: F.cross_entropy(logits, labels,
+                                              reduction="none",
+                                              label_smoothing=eps), [()])
+    lib_out = F.cross_entropy(x, labels, reduction="none",
+                              label_smoothing=eps)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, x, dl.bfloat16(),
+                                                  retain_graph=True), [()],
+                      reps=5)
+    plain_ms = time_ms(lambda: softmax_cross_entropy_loss(
+        logits, labels, eps, True, impl="torch"), [()], reps=2, trials=3)
+    del out, lib_out, x
+    # bytes: the logits read once, the labels and the loss (fp32) once;
+    # backward: the logits, lse and dloss read, the gradient written
+    fb = bound(n * V * 2 + n * 8 + n * 4, 0, FP32_OPS_PER_S)
+    bb = bound(2 * n * V * 2 + n * 8 + 2 * n * 4, 0, FP32_OPS_PER_S)
+    xent = {"shape": {"n": n, "V": V, "dtype": "bf16", "smoothing": eps,
+                      "half_to_float": True},
+            "rel_norm_err_vs_fp32": xent_err, "tol": LOSS_TOL,
+            "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "plain_fwd_ms": plain_ms,
+            "fwd_bound_ms": fb[0], "bwd_bound_ms": bb[0],
+            "library_fwd_ms": lib_fwd, "library_bwd_ms": lib_bwd,
+            "library": "F.cross_entropy(reduction='none', "
+                       "label_smoothing=0.1)"}
+    del logits, labels, dl, truth, loss
+    torch.cuda.empty_cache()
+
+    A, C = FOCAL["images"] * FOCAL["anchors"], FOCAL["classes"]
+    g = torch.Generator(device=dev).manual_seed(122)
+    fl_x = torch.randn((FOCAL["images"], FOCAL["anchors"], C), generator=g,
+                       device=dev)
+    # ~1% of the anchors foreground, the rest background (class 0)
+    fg = torch.rand((FOCAL["images"], FOCAL["anchors"]), generator=g,
+                    device=dev) < 0.01
+    tg = torch.where(fg, torch.randint(1, C + 1, fg.shape, generator=g,
+                                       device=dev), 0)
+    fkw = dict(alpha=FOCAL["alpha"], gamma=FOCAL["gamma"])
+    xg = fl_x.detach().requires_grad_()
+    loss = FL.focal_loss(xg, tg, C, **fkw)
+    loss.backward()
+    with torch.no_grad():
+        truth = FL._fl_sum(fl_x.double(), tg, C, FOCAL["alpha"],
+                           FOCAL["gamma"], 0.0)
+    x64 = fl_x.double().requires_grad_()
+    FL._fl_sum(x64, tg, C, FOCAL["alpha"], FOCAL["gamma"], 0.0).backward()
+    fl_err = abs(loss.item() - truth.item()) / abs(truth.item())
+    g_err = ((xg.grad.double() - x64.grad).abs().max()
+             / x64.grad.abs().max()).item()
+    check(fl_err <= FOCAL_TOL and g_err <= FOCAL_TOL,
+          f"focal_loss vs its fp64 truth: loss {fl_err}, grad {g_err}")
+    del x64
+    ffwd = time_ms(lambda: FL.focal_loss(fl_x, tg, C, **fkw), [()], reps=5)
+    floss = FL.focal_loss(xg, tg, C, **fkw)
+    fbwd = time_ms(lambda: torch.autograd.grad(floss, xg,
+                                               retain_graph=True), [()],
+                   reps=5)
+    # bytes: the logits and targets read once, the partial gradient (the
+    # residual) written; backward: the residual read, the gradient written
+    focal = {"shape": dict(FOCAL, dtype="fp32"),
+             "rel_err_vs_fp64": fl_err, "grad_err_of_largest": g_err,
+             "tol": FOCAL_TOL, "fwd_ms": ffwd, "bwd_ms": fbwd,
+             "fwd_bound_ms": bound(A * C * 8 + A * 8, 0, FP32_OPS_PER_S)[0],
+             "bwd_bound_ms": bound(A * C * 8, 0, FP32_OPS_PER_S)[0],
+             "library_ms": None,
+             "library_note": "no one PyTorch call computes the focal loss"}
+    del fl_x, xg, floss, truth
+    torch.cuda.empty_cache()
+    return {"softmax_cross_entropy_loss": xent, "focal_loss": focal}, launches
+
+
 def main(argv=None):
     global PARENT, PARENT_ADAM, PTXAS, EMPTY
     import argparse
@@ -8903,6 +9635,26 @@ def main(argv=None):
     emit("mlp_larc_sgd", ml_info)
     os_info, paths["optimizer_steps"] = phase_optimizer_steps(torch, dev)
     emit("optimizer_steps", os_info)
+    torch.cuda.empty_cache()
+
+    # --- dropout beside the array bias; the loss ops, contrib's attention --
+    bd_by_kernel, bd_errs = phase_bias_dropout_kernels(torch, dev)
+    by_name = {k["name"]: k for k in kernels}
+    for kname, calls in bd_by_kernel.items():
+        by_name[kname]["bias_dropout"] = calls
+        op = ("fwd" if "fwd" in kname else "dbias" if "dbias" in kname
+              else "dq" if kname.endswith("_dq") else "dkv")
+        by_name[kname]["max_abs_err"] = max(by_name[kname]["max_abs_err"],
+                                            bd_errs[op])
+    torch.cuda.empty_cache()
+    tb_info, paths["transformer_big_train"] = phase_transformer_big_train(
+        torch, dev)
+    emit("transformer_big_train", tb_info)
+    fv_info, paths["fmha_varlen"] = phase_fmha_varlen(torch, dev)
+    emit("fmha_varlen", fv_info)
+    lo_info, paths["loss_ops"] = phase_loss_ops(torch, dev)
+    emit("loss_ops", lo_info)
+    torch.cuda.empty_cache()
 
     for k in kernels:
         by = {p_: n[k["name"]] for p_, n in paths.items()

@@ -230,23 +230,22 @@ def test_dropout_semantics_of_the_plain_versions():
 
 
 def test_dropout_refusals():
-    """Dropout with an array bias raises NotImplementedError naming the
-    ROADMAP item, on both layouts and in the wrappers; a rate needs a
-    seed; the sm80 variant refuses dropout (ROADMAP's simplicity item)."""
+    """Dropout with an array bias runs on both layouts and in the
+    wrappers (the dbias kernel takes the mask); a rate needs a seed; the
+    sm80 variant refuses dropout (ROADMAP's simplicity item)."""
     x = torch.zeros((1, 2, 128, 64))
     bias = torch.zeros((2, 128, 128))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        amod.flash_attention(x, x, x, bias=bias, dropout_rate=RATE,
-                             dropout_seed=1)
+    assert amod.flash_attention(x, x, x, bias=bias, dropout_rate=RATE,
+                                dropout_seed=1).shape == x.shape
     xs = x.transpose(1, 2)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        amod.flash_attention(xs, xs, xs, layout="bshd", bias=bias,
-                             dropout_rate=RATE, dropout_seed=1)
+    assert amod.flash_attention(xs, xs, xs, layout="bshd", bias=bias,
+                                dropout_rate=RATE,
+                                dropout_seed=1).shape == xs.shape
     for fn in (amod.flash_fwd, amod.flash_fwd_bshd):
         args = (x, x, x) if fn is amod.flash_fwd else (xs, xs, xs)
-        with pytest.raises(NotImplementedError, match="dbias"):
-            fn(*args, scale=1.0, causal=False, bias=bias, dropout_rate=RATE,
-               dropout_seed=1)
+        o, _ = fn(*args, scale=1.0, causal=False, bias=bias,
+                  dropout_rate=RATE, dropout_seed=1)
+        assert o.shape == args[0].shape
     with pytest.raises(ValueError, match="requires dropout_seed"):
         amod.flash_attention(x, x, x, dropout_rate=RATE)
     with pytest.raises(ValueError, match="dropout_rate"):

@@ -60,7 +60,9 @@ def test_every_module_imports_with_jax_blocked():
         "'parallel.larc', 'fp16_utils.loss_scaler', 'fp16_utils.fp16util', "
         "'fp16_utils.fp16_optimizer', 'utils.logging', 'monitor', "
         "'monitor.registry', 'monitor.trace', 'monitor.histogram', "
-        "'monitor.spans', 'serving.telemetry'):\n"
+        "'monitor.spans', 'serving.telemetry', 'ops.focal_loss', "
+        "'contrib', 'contrib.xentropy', 'contrib.focal_loss', "
+        "'contrib.fmha', 'contrib.multihead_attn'):\n"
         "    assert 'apex_tpu_torch.' + want in mods, want\n"
         "assert not any(k.split('.')[0] in ('jax', 'apex_tpu', 'triton') "
         "and sys.modules[k] is not None for k in list(sys.modules))\n"
@@ -108,6 +110,19 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 def test_new_entry_points_export_the_reference_names():
     from apex_tpu_torch import inference, monitor, serving
+    from apex_tpu_torch.contrib import fmha, focal_loss, multihead_attn
+    from apex_tpu_torch.contrib import xentropy
+    from apex_tpu_torch.ops import attention
+
+    for mod, names in ((xentropy, ("SoftmaxCrossEntropyLoss",
+                                   "softmax_cross_entropy_loss")),
+                       (focal_loss, ("focal_loss",)),
+                       (fmha, ("fmha_varlen", "FMHAFun", "fmha", "FMHA")),
+                       (multihead_attn, ("SelfMultiheadAttn",
+                                         "EncdecMultiheadAttn")),
+                       (attention, ("seed_from_key",))):
+        for name in names:
+            assert hasattr(mod, name), (mod.__name__, name)
 
     assert callable(inference.jit_encoder)
     assert serving.ServeTelemetry.__module__ == "apex_tpu_torch.serving.telemetry"

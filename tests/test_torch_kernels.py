@@ -2884,7 +2884,7 @@ def test_flash_dropout_planted_faults_are_refused(cuda, fault):
 @pytest.mark.gpu
 def test_flash_dropout_refusals_and_counts(cuda):
     """Dropout on the sm80 variant raises ValueError naming ROADMAP's
-    simplicity item, with an array bias NotImplementedError; a dropout
+    simplicity item (dbias's too), with an array bias it runs; a dropout
     launch counts in ``.dropout_launches``."""
     b, s, h, d = 1, 128, 2, 64
     qkv = torch.randn((b, s, 3 * h * d), device=cuda).bfloat16()
@@ -2893,12 +2893,162 @@ def test_flash_dropout_refusals_and_counts(cuda):
         amod.flash_fwd_cuda(qkv, h, h, d, variant="sm80", **kw)
     q = torch.randn((b, s, h, d), device=cuda).bfloat16()
     bias = torch.zeros((1, s, s), device=cuda)
-    with pytest.raises(NotImplementedError, match="dbias"):
-        amod.flash_fwd_bshd_cuda(q, q, q, bias=bias, **kw)
+    n = amod.flash_fwd_bshd_cuda.dropout_launches
+    o, lse = amod.flash_fwd_bshd_cuda(q, q, q, bias=bias, **kw)
+    assert amod.flash_fwd_bshd_cuda.dropout_launches == n + 1
+    with pytest.raises(ValueError, match="ROADMAP"):
+        amod.flash_bwd_dbias_cuda(q, q, q, o, lse, q, bias, layout="bshd",
+                                  variant="sm80", **kw)
     n = amod.flash_fwd_cuda.dropout_launches
     amod.flash_fwd_cuda(qkv, h, h, d, **kw)
     amod.flash_fwd_cuda(qkv, h, h, d, scale=0.125, causal=True)
     assert amod.flash_fwd_cuda.dropout_launches == n + 1
+
+
+# --- dropout beside the array bias: the kArr x kDrop instances, dbias's mask --
+
+def _bias_drop_case(kind, cuda):
+    """(layout, q, k, v, do, kw) with an array bias and dropout 0.1: the
+    bh-flat layout (hb 4 of 8 rows; d 128; GQA 4/2 causal), the
+    key-padding route's head-major (h, b, s, d) views of (b, s, h, d)
+    tensors with a (b, sq, sk) -1e9 bias (hb = b), and bshd with an (h,
+    sq, sk) mask and per-batch lengths."""
+    g = torch.Generator(device=cuda).manual_seed(len(kind) + 7)
+    rnd = lambda *s: torch.randn(s, generator=g,  # noqa: E731
+                                 device=cuda).bfloat16()
+    kw = dict(scale=0.125, causal=False, dropout_rate=DROP,
+              dropout_seed=-2 ** 31 + 9)
+    if kind == "keypad":
+        b, s, h, d = 3, 200, 4, 64
+        q, k, v, do = (rnd(b, s, h, d).permute(2, 0, 1, 3)
+                       for _ in range(4))
+        pad = torch.zeros((b, s), dtype=torch.bool, device=cuda)
+        pad[1, 150:] = True
+        pad[2, 7:] = True
+        bias = torch.where(pad[:, None, :], -1e9, 0.0).expand(
+            b, s, s).contiguous()
+        return "bhsd", q, k, v, do, dict(kw, bias=bias)
+    if kind == "bshd":
+        b, s, h, d = 2, 256, 4, 64
+        q, k, v, do = (rnd(b, s, h, d) for _ in range(4))
+        bias = torch.randn((h, s, s), generator=g, device=cuda) * 0.5
+        lens = torch.tensor([256, 100], dtype=torch.int32, device=cuda)
+        return "bshd", q, k, v, do, dict(kw, bias=bias, kv_lens=lens)
+    d = 128 if kind == "flat_d128" else 64
+    h_kv = 2 if kind == "flat_gqa" else 4
+    q, do = rnd(2, 4, 200, d), rnd(2, 4, 200, d)
+    k, v = rnd(2, h_kv, 200, d), rnd(2, h_kv, 200, d)
+    bias = torch.randn((4, 200, 200), generator=g, device=cuda) * 0.5
+    return "bhsd", q, k, v, do, dict(kw, bias=bias,
+                                     causal=kind == "flat_gqa")
+
+
+BIAS_DROP_KINDS = ["flat", "flat_d128", "flat_gqa", "keypad", "bshd"]
+
+
+def _bias_drop_fns(layout):
+    return ((amod.flash_fwd, amod.flash_bwd) if layout == "bhsd"
+            else (amod.flash_fwd_bshd, amod.flash_bwd_bshd))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", BIAS_DROP_KINDS)
+def test_flash_bias_dropout_kernels_match_plain(cuda, kind):
+    """The kArr x kDrop forward, dQ and dK/dV instances and dbias's mask
+    against their plain versions on the same seed: o, dq, dk, dv by the
+    bf16 rule, dbias within 1e-3 relative norm of the fp32 truth, lse
+    bit-identical to the dropout-free kernel call's, every output
+    bit-identical across two runs, one dropout launch a kernel."""
+    layout, q, k, v, do, kw = _bias_drop_case(kind, cuda)
+    fwd, bwd = _bias_drop_fns(layout)
+    up = [x.float() for x in (q, k, v)]
+    counters = [amod.flash_bwd_dbias_cuda] + (
+        [amod.flash_fwd_flat_cuda, amod.flash_bwd_flat_dq_cuda,
+         amod.flash_bwd_flat_dkv_cuda] if layout == "bhsd" else
+        [amod.flash_fwd_bshd_cuda, amod.flash_bwd_bshd_dq_cuda,
+         amod.flash_bwd_bshd_dkv_cuda])
+    before = [fn.dropout_launches for fn in counters]
+    o, lse = fwd(q, k, v, **kw)
+    got = bwd(q, k, v, o, lse, do, **kw)
+    assert [fn.dropout_launches - n for fn, n in zip(counters, before)] \
+        == [1, 1, 1, 1]
+    _, lse0 = fwd(q, k, v, **dict(kw, dropout_rate=0.0, dropout_seed=None))
+    o_p, lse_p = fwd(q, k, v, impl="torch", **kw)
+    o_t, _ = fwd(*up, impl="torch", **kw)
+    assert torch.equal(lse, lse0)
+    assert _within_rule(o, o_p, o_t)[0]
+    got = bwd(q, k, v, o_p, lse_p, do, **kw)
+    again = bwd(q, k, v, o_p, lse_p, do, **kw)
+    plain = bwd(q, k, v, o_p, lse_p, do, impl="torch", **kw)
+    truth = bwd(*up, o_p.float(), lse_p, do.float(), impl="torch", **kw)
+    for name, a, p, t in zip(("dq", "dk", "dv"), got, plain, truth):
+        ok, errs = _within_rule(a, p, t)
+        assert ok, f"{kind} {name}: kernel/plain errors {errs}"
+    _check_dbias(got[3], truth[3])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eps", [0.0, 0.1])
+def test_softmax_cross_entropy_loss_runs_xent_stats(cuda, eps):
+    """The loss's forward launches the xent_stats kernel once and equals
+    its plain version within 1e-5 relative (the kernel's sum-exp rule);
+    the backward (plain PyTorch, on either path's lse) within one bf16
+    ulp of the plain path's gradient's largest entry."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = (3 * torch.randn((96, 1000), generator=g, device=cuda)).bfloat16()
+    lab = torch.randint(-5, 1005, (96,), generator=g, device=cuda)
+    xk, xp = (x.clone().requires_grad_() for _ in range(2))
+    n = xmod.xent_stats_cuda.launches
+    got = xmod.softmax_cross_entropy_loss(xk, lab, eps, True)
+    assert xmod.xent_stats_cuda.launches == n + 1
+    want = xmod.softmax_cross_entropy_loss(xp, lab, eps, True, impl="torch")
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    torch.testing.assert_close(got[ok], want[ok], rtol=1e-5, atol=0)
+    dl = torch.randn((96,), generator=g, device=cuda)
+    got.backward(dl)
+    want.backward(dl)
+    ref = xp.grad.float()
+    torch.testing.assert_close(xk.grad.float(), ref, rtol=0,
+                               atol=2.0 ** -8 * ref.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", sorted(set(amod.DROPOUT_FAULTS)
+                                         | set(amod.DBIAS_DROPOUT_FAULTS)))
+def test_flash_bias_dropout_planted_faults_are_refused(cuda, fault):
+    """Each planted dropout fault in the kArr x kDrop instances (and in
+    dbias where it plants it), at the GQA case: an output it touches
+    fails its rule, or lse moves."""
+    layout, q, k, v, do, kw = _bias_drop_case("flat_gqa", cuda)
+    up = [x.float() for x in (q, k, v)]
+    o_p, lse_p = amod.flash_fwd(q, k, v, impl="torch", **kw)
+    o_t, _ = amod.flash_fwd(*up, impl="torch", **kw)
+    plain = amod.flash_bwd(q, k, v, o_p, lse_p, do, impl="torch", **kw)
+    truth = amod.flash_bwd(*up, o_p.float(), lse_p, do.float(),
+                           impl="torch", **kw)
+    at = {"l_from_dropped": ("fwd",), "no_dkv_ds_mask": ("dkv",),
+          "no_dbias_dp_mask": ("dbias",)}.get(
+        fault, ("fwd", "dq", "dkv", "dbias"))
+    f = lambda w: fault if w in at else None  # noqa: E731
+    o, lse = amod.flash_fwd_flat_cuda(q, k, v, planted_fault=f("fwd"), **kw)
+    _, lse0 = amod.flash_fwd_flat_cuda(
+        q, k, v, **dict(kw, dropout_rate=0.0, dropout_seed=None))
+    dq, delta = amod.flash_bwd_flat_dq_cuda(q, k, v, o_p, lse_p, do,
+                                            planted_fault=f("dq"), **kw)
+    dk, dv, _ = amod.flash_bwd_flat_dkv_cuda(q, k, v, o_p, lse_p, do,
+                                             delta=delta,
+                                             planted_fault=f("dkv"), **kw)
+    db = amod.flash_bwd_dbias_cuda(
+        q, k, v, o_p, lse_p, do, kw["bias"], scale=kw["scale"],
+        causal=kw["causal"], delta=delta, dropout_rate=DROP,
+        dropout_seed=kw["dropout_seed"], planted_fault=f("dbias"))
+    refused = [not _within_rule(a, p, t)[0] for a, p, t in (
+        (o, o_p, o_t), (dq, plain[0], truth[0]), (dk, plain[1], truth[1]),
+        (dv, plain[2], truth[2]))]
+    refused.append(_dbias_err(db, truth[3]) > DBIAS_TOL)
+    assert any(refused) or not torch.equal(lse, lse0)
 
 
 @pytest.mark.gpu
