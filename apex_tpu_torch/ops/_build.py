@@ -145,6 +145,14 @@ ENTRY_POINTS = {
                     _I, _P],
     # dtype, n, out (chunks a thread, warps a row, threads a CTA)
     "apex_ln_bwd_shape": [_I, _I, _IP],
+    # x, w, b, y, mean, rstd, dtype, w_dtype, affine, rms, rows, n, eps,
+    # warps, ranks, clusters, fault, stream
+    "apex_ln_fwd_wide": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                         _I, _I, _I, _I, _P],
+    # dy, x, mean, rstd, w, dx, part, dw, db, dtype, w_dtype, rms, rows, n,
+    # warps, ranks, parts, fault, stream
+    "apex_ln_bwd_wide": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _P],
     # x, y, mask, mask strides (b, h, q, k), heads, q_rows, dtype, mode,
     # rows, n, sq, scale, stream
     "apex_softmax_fwd": [_P, _P, _P, _S, _I, _I, _I, _I, _I, _I, _I, _F,

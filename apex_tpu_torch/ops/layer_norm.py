@@ -14,7 +14,12 @@ Dispatch follows :mod:`apex_tpu_torch.ops._backend`: on a CUDA tensor the
 forward launches :func:`ln_fwd_cuda` on :func:`_fwd_plan`'s shape and the
 backward :func:`ln_bwd_cuda`, the hand-written kernels of
 ``apex_tpu_torch/csrc/layer_norm.cu`` that replace the Pallas
-``ln_fwd``/``ln_bwd``; on a CPU tensor (or with
+``ln_fwd``/``ln_bwd``, for rows of at most :data:`ROW_MAX_HIDDEN`; wider
+rows (to :data:`KERNEL_MAX_HIDDEN`) launch :func:`ln_fwd_wide_cuda` and
+:func:`ln_bwd_wide_cuda` on :func:`_wide_fwd_plan`'s and
+:func:`_wide_bwd_plan`'s shapes, the kernels of
+``apex_tpu_torch/csrc/layer_norm_wide.cu`` (a row over a thread-block
+cluster); on a CPU tensor (or with
 ``impl="torch"``) the plain versions :func:`_torch_fwd` and
 :func:`_torch_bwd`, copies of the reference's ``_xla_fwd``/``_xla_bwd``.
 The reference's ``auto`` picks its XLA composition over the kernel from a
@@ -39,8 +44,29 @@ from apex_tpu_torch.ops.matmul import _sm_count
 #: the kernels' dtype codes, of x and of the parameters: fp16 x takes fp16
 #: or fp32 parameters, fp32 and bf16 x fp32 or bf16 ones
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-#: the widest row the kernels hold in registers (32 lanes x 128 elements)
-KERNEL_MAX_HIDDEN = 4096
+#: the widest row of ``layer_norm.cu``'s kernels, which hold a row in one
+#: warp group's registers (8 warps x 32 lanes x 16 elements)
+ROW_MAX_HIDDEN = 4096
+#: the widest row of any norm kernel: ``layer_norm_wide.cu`` spreads a row
+#: over a cluster of up to WIDE_MAX_RANKS CTAs (FastLayerNorm's range)
+KERNEL_MAX_HIDDEN = 65536
+#: the wide kernels' row shape: 16 elements a thread, at most 16 warps a
+#: CTA and 8 CTAs (the portable cluster size) a row
+WIDE_ELEMS = 16
+WIDE_CTA_WARPS = 16
+WIDE_MAX_RANKS = 8
+#: the wide backward's dgamma/dbeta partial rows: each sums at least this
+#: many rows, so the (parts, 2, hidden) fp32 buffer, written and read once,
+#: is at most 16 / (3 * 2 * 32) = 1/12 of a bf16 call's bytes
+WIDE_BWD_ROWS = 32
+#: the CTAs the wide kernels' row shape aims for, a constant (never the
+#: card's SM count), so a row's sums and dgamma/dbeta are added in an order
+#: set by the shapes alone
+WIDE_FILL = 128
+#: the wide kernels' planted faults (chip_smoke.py shows its checks refuse
+#: them): the row's last 16-byte chunk left out of the statistics; the last
+#: cluster rank's partial sums (with one rank, the last warp's) not merged
+WIDE_FAULTS = {"drop_tail": 1, "drop_rank": 2}
 #: the backward's partial-sum rows: at most this many CTAs, each owning a
 #: fixed set of rows, so dgamma/dbeta are summed in one fixed order
 BWD_MAX_CTAS = 256
@@ -114,7 +140,8 @@ def _torch_bwd(dy2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
 # --- the kernels --------------------------------------------------------------
 
 def _check_kernel_inputs(name: str, x2d: torch.Tensor,
-                         weight: Optional[torch.Tensor]) -> None:
+                         weight: Optional[torch.Tensor],
+                         max_hidden: int = ROW_MAX_HIDDEN) -> None:
     if x2d.device.type != "cuda":
         raise ValueError(f"{name} takes CUDA tensors")
     if x2d.ndim != 2 or not x2d.is_contiguous():
@@ -131,11 +158,16 @@ def _check_kernel_inputs(name: str, x2d: torch.Tensor,
                          f"of a 16-bit x's own dtype (bfloat16 also with "
                          f"float32 x); got {x2d.dtype}, {w_dt} — pass "
                          f"impl='torch' for the plain version")
-    if not 1 <= hidden <= KERNEL_MAX_HIDDEN:
-        raise ValueError(f"the layer-norm kernels hold a row of at most "
-                         f"{KERNEL_MAX_HIDDEN} in registers; got hidden "
-                         f"{hidden} — pass impl='torch' for the plain "
-                         f"version")
+    if hidden > KERNEL_MAX_HIDDEN:
+        raise ValueError(f"the layer-norm kernels take rows of at most "
+                         f"{KERNEL_MAX_HIDDEN}; got hidden {hidden} (wider "
+                         f"rows are ROADMAP queue 2, item 7's remainder) — "
+                         f"pass impl='torch' for the plain version")
+    if not 1 <= hidden <= max_hidden:
+        raise ValueError(f"{name} takes rows of 1 to {max_hidden}; got "
+                         f"hidden {hidden} (ln_fwd_cuda/ln_bwd_cuda hold "
+                         f"rows of at most {ROW_MAX_HIDDEN} in registers, "
+                         f"ln_fwd_wide_cuda/ln_bwd_wide_cuda the wider)")
     if weight is not None and (weight.shape != (hidden,)
                                or weight.device != x2d.device
                                or not weight.is_contiguous()):
@@ -304,6 +336,199 @@ ln_bwd_cuda.launches = 0
 ln_bwd_cuda.f16_launches = 0
 
 
+# --- the wide kernels (hidden ROW_MAX_HIDDEN + 1 to KERNEL_MAX_HIDDEN) ------
+
+class LnWidePlan(NamedTuple):
+    """One wide launch: a row over ``ranks`` CTAs (one thread-block
+    cluster) of ``warps`` warps, each thread ``chunks`` 16-byte chunks (16
+    elements); ``clusters`` clusters, each walking every clusters-th row
+    (the backward's: the dgamma/dbeta partial rows); ``smem`` bytes of
+    static shared memory a CTA (the warps' and the ranks' sums, by parity,
+    and the merge's mbarriers)."""
+    chunks: int
+    warps: int
+    ranks: int
+    clusters: int
+    smem: int
+
+
+#: a wide CTA's static shared memory: [2][16] float2 warp sums, [2][8]
+#: float2 rank sums, 2 mbarriers
+WIDE_SMEM = 2 * WIDE_CTA_WARPS * 8 + 2 * WIDE_MAX_RANKS * 8 + 2 * 8
+
+
+def _wide_row_shape(hidden: int, dtype: torch.dtype, units: int,
+                    fill: int) -> Tuple[int, int, int]:
+    """(chunks a thread, warps a CTA, ranks a row) for rows of ``hidden``:
+    the fewest ranks whose CTAs of at most WIDE_CTA_WARPS warps hold the
+    row at WIDE_ELEMS elements a thread, raised (to at most
+    WIDE_MAX_RANKS, and at most one rank a warp) while ``units`` clusters
+    of them would be fewer than ``fill`` CTAs; the warps then the fewest
+    that cover the row over those ranks."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"no wide norm kernel for {dtype}")
+    if not 1 <= hidden <= KERNEL_MAX_HIDDEN:
+        raise ValueError(f"the wide norm kernels take hidden 1 to "
+                         f"{KERNEL_MAX_HIDDEN}; got {hidden}")
+    chunks = WIDE_ELEMS // (16 // dtype.itemsize)
+    total = -(-hidden // (32 * WIDE_ELEMS))
+    ranks = -(-total // WIDE_CTA_WARPS)
+    while ranks < min(WIDE_MAX_RANKS, total) and units * ranks < fill:
+        ranks += 1
+    return chunks, -(-total // ranks), ranks
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_fwd_plan(rows: int, hidden: int, dtype: torch.dtype,
+                   sms: int) -> LnWidePlan:
+    """The wide forward's launch: the row shape from the shapes alone
+    (few rows, a decode step's 8-16, spread over more ranks so that many
+    SMs load a share at once; many rows, a train step's 2048, a row a CTA
+    where it fits), so a row's sums are the same bits on every card; then
+    as many clusters as the card's ``sms`` hold (16 warps an SM), each
+    walking its rows with the next row's chunks in flight."""
+    chunks, warps, ranks = _wide_row_shape(hidden, dtype, rows, WIDE_FILL)
+    resident = max(1, sms * max(1, WIDE_CTA_WARPS // warps) // ranks)
+    return LnWidePlan(chunks, warps, ranks, max(1, min(rows, resident)),
+                      WIDE_SMEM)
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_bwd_plan(rows: int, hidden: int, dtype: torch.dtype) -> LnWidePlan:
+    """The wide backward's launch from the shapes alone (never the card,
+    so dgamma/dbeta are summed in one order on every card): ``clusters``
+    partial rows P = rows // WIDE_BWD_ROWS (at least 1), at most
+    WIDE_FILL CTAs' worth, cluster p owning rows p, p + P, ...; the ranks
+    raised while P clusters would be fewer than WIDE_FILL CTAs."""
+    least_ranks = _wide_row_shape(hidden, dtype, 1, 0)[2]
+    parts = max(1, min(rows // WIDE_BWD_ROWS, WIDE_FILL // least_ranks))
+    chunks, warps, ranks = _wide_row_shape(hidden, dtype, parts, WIDE_FILL)
+    return LnWidePlan(chunks, warps, ranks, parts, WIDE_SMEM)
+
+
+def _wide_fault(fault: Optional[str]) -> int:
+    if fault is None:
+        return 0
+    if fault not in WIDE_FAULTS:
+        raise ValueError(f"planted_fault must be one of "
+                         f"{sorted(WIDE_FAULTS)}, got {fault!r}")
+    return WIDE_FAULTS[fault]
+
+
+def ln_fwd_wide_cuda(x2d: torch.Tensor, weight: Optional[torch.Tensor],
+                     bias: Optional[torch.Tensor], eps: float, rms: bool, *,
+                     planted_fault: Optional[str] = None) -> Stats:
+    """Launch the wide forward kernel on :func:`_wide_fwd_plan`'s shape:
+    (y, mean (rows, 1), rstd (rows, 1)), for any hidden up to
+    KERNEL_MAX_HIDDEN. Counts its launches in ``.launches`` (fp16 x also
+    in ``.f16_launches``)."""
+    if weight is None and bias is not None:
+        raise ValueError("bias without weight is not supported")
+    _check_kernel_inputs("ln_fwd_wide_cuda", x2d, weight, KERNEL_MAX_HIDDEN)
+    if bias is not None and (bias.dtype != weight.dtype
+                             or bias.shape != weight.shape
+                             or bias.device != x2d.device
+                             or not bias.is_contiguous()):
+        raise ValueError("ln_fwd_wide_cuda: bias must be a contiguous "
+                         "tensor of weight's shape and dtype on x's device")
+    fault = _wide_fault(planted_fault)
+    rows, hidden = x2d.shape
+    y = torch.empty_like(x2d)
+    mean = torch.empty((rows, 1), dtype=torch.float32, device=x2d.device)
+    rstd = torch.empty((rows, 1), dtype=torch.float32, device=x2d.device)
+    if rows == 0:
+        return y, mean, rstd
+    affine = 0 if weight is None else (1 if bias is None else 2)
+    index = x2d.device.index
+    plan = _wide_fwd_plan(rows, hidden, x2d.dtype, _sm_count(
+        torch.cuda.current_device() if index is None else index))
+    rc = _build.library().apex_ln_fwd_wide(
+        x2d.data_ptr(), None if weight is None else weight.data_ptr(),
+        None if bias is None else bias.data_ptr(), y.data_ptr(),
+        mean.data_ptr(), rstd.data_ptr(), _DTYPE_CODES[x2d.dtype],
+        0 if weight is None else _DTYPE_CODES[weight.dtype], affine,
+        int(rms), rows, hidden, float(eps), plan.warps, plan.ranks,
+        plan.clusters, fault,
+        torch.cuda.current_stream(x2d.device).cuda_stream)
+    _build.check(rc, "ln_fwd_wide")
+    ln_fwd_wide_cuda.launches += 1
+    ln_fwd_wide_cuda.f16_launches += x2d.dtype == torch.float16
+    return y, mean, rstd
+
+
+ln_fwd_wide_cuda.launches = 0
+ln_fwd_wide_cuda.f16_launches = 0
+
+
+def ln_bwd_wide_cuda(dy2d: torch.Tensor, x2d: torch.Tensor,
+                     mean: torch.Tensor, rstd: torch.Tensor,
+                     weight: Optional[torch.Tensor], rms: bool,
+                     want_db: bool = True, *,
+                     planted_fault: Optional[str] = None):
+    """Launch the wide backward (the row kernel on :func:`_wide_bwd_plan`'s
+    shape, then the fixed-order dgamma/dbeta reduction): (dx, dgamma,
+    dbeta) as :func:`ln_bwd_cuda` returns them. Counts one launch per call
+    in ``.launches`` (fp16 x also in ``.f16_launches``)."""
+    _check_kernel_inputs("ln_bwd_wide_cuda", x2d, weight, KERNEL_MAX_HIDDEN)
+    if dy2d.shape != x2d.shape or dy2d.dtype != x2d.dtype \
+            or not dy2d.is_contiguous() or dy2d.device != x2d.device:
+        raise ValueError("ln_bwd_wide_cuda: dy must be a contiguous tensor "
+                         "of x's shape and dtype on its device")
+    rows, hidden = x2d.shape
+    for t in (mean, rstd):
+        if t.dtype != torch.float32 or t.numel() != rows \
+                or not t.is_contiguous():
+            raise ValueError("ln_bwd_wide_cuda: mean and rstd must be "
+                             "contiguous fp32 with one entry per row")
+    fault = _wide_fault(planted_fault)
+    dx = torch.empty_like(x2d)
+    dw = db = part = None
+    if weight is not None:
+        dw = torch.empty_like(weight)
+        db = torch.empty_like(weight) if want_db else None
+    if rows == 0:
+        if dw is not None:
+            dw.zero_()
+            if db is not None:
+                db.zero_()
+        return dx, dw, db
+    plan = _wide_bwd_plan(rows, hidden, x2d.dtype)
+    if weight is not None:
+        part = torch.empty((plan.clusters, 2, hidden), dtype=torch.float32,
+                           device=x2d.device)
+    rc = _build.library().apex_ln_bwd_wide(
+        dy2d.data_ptr(), x2d.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+        None if weight is None else weight.data_ptr(), dx.data_ptr(),
+        None if part is None else part.data_ptr(),
+        None if dw is None else dw.data_ptr(),
+        None if db is None else db.data_ptr(), _DTYPE_CODES[x2d.dtype],
+        0 if weight is None else _DTYPE_CODES[weight.dtype], int(rms),
+        rows, hidden, plan.warps, plan.ranks, plan.clusters, fault,
+        torch.cuda.current_stream(x2d.device).cuda_stream)
+    _build.check(rc, "ln_bwd_wide")
+    ln_bwd_wide_cuda.launches += 1
+    ln_bwd_wide_cuda.f16_launches += x2d.dtype == torch.float16
+    return dx, dw, db
+
+
+ln_bwd_wide_cuda.launches = 0
+ln_bwd_wide_cuda.f16_launches = 0
+
+
+def _fwd_kernel(x2d, weight, bias, eps, rms) -> Stats:
+    """The forward kernel for the row's width."""
+    if x2d.shape[1] > ROW_MAX_HIDDEN:
+        return ln_fwd_wide_cuda(x2d, weight, bias, eps, rms)
+    return ln_fwd_cuda(x2d, weight, bias, eps, rms)
+
+
+def _bwd_kernel(dy2d, x2d, mean, rstd, weight, rms, want_db):
+    """The backward kernel for the row's width."""
+    if x2d.shape[1] > ROW_MAX_HIDDEN:
+        return ln_bwd_wide_cuda(dy2d, x2d, mean, rstd, weight, rms, want_db)
+    return ln_bwd_cuda(dy2d, x2d, mean, rstd, weight, rms, want_db)
+
+
 # --- the autograd core --------------------------------------------------------
 
 class _NormCore(torch.autograd.Function):
@@ -313,7 +538,7 @@ class _NormCore(torch.autograd.Function):
     def forward(ctx, x2d, weight, bias, eps, rms, use_kernel):
         x2d = x2d.contiguous()
         if use_kernel:
-            y, mean, rstd = ln_fwd_cuda(x2d, weight, bias, eps, rms)
+            y, mean, rstd = _fwd_kernel(x2d, weight, bias, eps, rms)
         else:
             y, mean, rstd = _torch_fwd(x2d, weight, bias, eps, rms)
         ctx.save_for_backward(x2d, weight, mean, rstd)
@@ -327,7 +552,7 @@ class _NormCore(torch.autograd.Function):
         x2d, weight, mean, rstd = ctx.saved_tensors
         dy = dy.contiguous()
         if ctx.use_kernel:
-            dx, dw, db = ln_bwd_cuda(dy, x2d, mean, rstd, weight, ctx.rms,
+            dx, dw, db = _bwd_kernel(dy, x2d, mean, rstd, weight, ctx.rms,
                                      ctx.has_bias)
         else:
             dx, dw, db = _torch_bwd(dy, x2d, mean, rstd, weight, ctx.rms)

@@ -1,10 +1,10 @@
 """The row-wise, decode, sampling, verify, flash, cross-entropy and GEMM
 kernels of another checkout, for timing in turns.
 
-Builds a second checkout's ``layer_norm.cu``, ``softmax.cu``,
-``paged_decode_attn.cu``, ``fused_sample.cu``, ``fused_verify.cu``, the
-flash forward and backward pair (``flash_attn_fwd.cu``,
-``flash_attn_bwd.cu``, the sm80 and dropout files their entries reach),
+Builds a second checkout's ``layer_norm.cu``, ``layer_norm_wide.cu``,
+``softmax.cu``, ``paged_decode_attn.cu``, ``fused_sample.cu``,
+``fused_verify.cu``, the flash forward and backward pair
+(``flash_attn_fwd.cu``, ``flash_attn_bwd.cu``, the sm80 and dropout files their entries reach),
 ``xent_stats.cu`` and ``matmul_bias_act.cu`` (with its own headers and
 ``errors.cu``) into a library of their own, loads it with ``ctypes``, and
 runs the port's wrappers through it inside :func:`using` — the wrappers
@@ -49,10 +49,10 @@ from typing import Dict, Tuple
 from apex_tpu_torch import nvcc_path
 from apex_tpu_torch.ops import _build
 
-SOURCES = ("layer_norm.cu", "softmax.cu", "paged_decode_attn.cu",
-           "fused_sample.cu", "fused_verify.cu", "flash_attn_fwd.cu",
-           "flash_attn_fwd_sm80.cu", "flash_attn_fwd_dropout.cu",
-           "flash_attn_bwd.cu", "flash_attn_bwd_sm80.cu",
+SOURCES = ("layer_norm.cu", "layer_norm_wide.cu", "softmax.cu",
+           "paged_decode_attn.cu", "fused_sample.cu", "fused_verify.cu",
+           "flash_attn_fwd.cu", "flash_attn_fwd_sm80.cu",
+           "flash_attn_fwd_dropout.cu", "flash_attn_bwd.cu", "flash_attn_bwd_sm80.cu",
            "flash_attn_bwd_dropout.cu", "xent_stats.cu",
            "matmul_bias_act.cu", "errors.cu")
 #: the parent commit's entries whose signatures this tree changed, by

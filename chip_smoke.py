@@ -11,9 +11,12 @@ BERT-large padded MLM train step (also under LAMB and mixed-precision
 LAMB), the three train steps again on the models' default softmax
 attention route, the fused-dense block and MLP train steps (also under
 LARC + SGD), every optimizer's step at GPT-medium's size, BERT's
-encoder-serving entry, and a Transformer-big step built from contrib's
+encoder-serving entry, a Transformer-big step built from contrib's
 attention modules (key padding and dropout beside the array bias, the
-label-smoothed cross-entropy), on one CUDA card.
+label-smoothed cross-entropy), the norms past hidden 4096 (contrib's
+FastLayerNorm) driven by a GPT step and generation at Megatron's 39.1B
+widths, contrib's RNN-T transducer and ASP 2:4 sparsity, on one CUDA
+card.
 
 Run from the repository root on a machine with an NVIDIA H100 (no
 arguments, one card, no network):
@@ -473,8 +476,53 @@ without the final line):
       truth; ms against the bytes bound and ``F.cross_entropy``), and
       ``focal_loss`` at RetinaNet's head (2 x 200,700 anchors x 80
       classes, fp32; within 1e-5 of its fp64 truth; ms);
-17. one ``{"kernels": [...]}`` line (all twenty-three kernels, the six
-    fp16 instances, ``<name>_f16``, and the seven instances of
+17. the norms past hidden 4096, FastLayerNorm, the RNN-T transducer and
+    ASP (after the loss ops):
+    * ``ln_wide``: ``csrc/layer_norm_wide.cu``'s forward and backward (a
+      row over a thread-block cluster) at hidden 4097, 5000, 5120, 6144,
+      8192, 12288, 16384, 25600, 32768, 49152 and 65536, 2048 and 8 rows,
+      bf16 LayerNorm (gamma, beta) and RMSNorm (gamma), fp32 and fp16 x at
+      8192 and 65536: y and dx by the bf16 rule (the fp16 rule; fp32
+      within 1e-5), mean and rstd within 1e-5, dgamma/dbeta within an ulp
+      of the largest entry, all bit-identical across two runs
+      (``ln_wide_check``); both planted faults (the row's last 16-byte
+      chunk left out of the statistics; the last rank's, or warp's,
+      partial not merged) refused at every width on fp32 rows with a large
+      tail (``ln_wide_faults``); each call timed beside its bytes bound,
+      the plain version and ``F.layer_norm`` (forward, and its autograd
+      backward; the forward also at 8 rows; ``ln_wide_times``); then the
+      path: ``contrib.layer_norm.FastLayerNorm`` and ``fused_rms_norm``
+      forward and backward at every width (fp32 and fp16 too at 8192 and
+      65536), every norm on the wide instances and none on
+      ``layer_norm.cu``'s;
+    * ``wide_gpt_train``: GPT at Megatron's 39.1B widths (Narayanan et al.
+      2021, Table 1: vocab 51200, seq 2048, hidden 8192, 64 heads of 128,
+      FFN 32768; flash, no remat) cut to 2 of 48 layers, bf16, batch 1 x
+      2048, FusedAdam: one step against the plain path and an fp32 truth,
+      2 warm-up and 5 timed steps on fresh data with 5 wide ``ln_fwd`` and
+      ``ln_bwd``, 2 packed flash forward, dQ and dK/dV (wgmma) and one
+      ``xent_stats`` a step and no other kernel; step ms, tokens/s, MFU,
+      peak memory, a profile;
+    * ``wide_decode``: ``DecodeEngine.generate`` on that model, batch 16,
+      prompt 512, 32 greedy tokens: two passes token-identical, 5 wide
+      ``ln_fwd`` a forward, 2 bshd flash forwards a prefill and 2
+      ``decode_attn`` a step; prefill ms and decode tokens/s;
+    * ``transducer_rnnt``: contrib's ``TransducerJoint`` (ReLU) and
+      ``TransducerLoss`` at the MLPerf RNN-T joint's widths (batch 16, T
+      in [140, 278], U in [20, 100], V 1024) on seeded encoder and
+      predictor outputs: the loss within 1e-5 and the logits' gradient
+      within 2e-4 of its largest entry of the fp64 truth; forward and
+      backward ms, the card's kernel launches, peak memory;
+    * ``asp_gpt``: ASP on GPT-medium: the permutation search on layer 0's
+      ``qkv`` and ``mlp_down`` weights (256 sweeps: seconds, retained
+      magnitude), the 2:4 masks applied, 2 warm-up and 5 timed steps under
+      ``wrap_optimizer(FusedAdam)`` with every pruned entry 0 and no group
+      over 2 of 4 after every step and the train leg's launches; step ms
+      beside the dense leg's;
+18. one ``{"kernels": [...]}`` line (all twenty-three kernels, the six
+    fp16 instances, ``<name>_f16``, the wide norm instances
+    ``ln_fwd_wide``/``ln_bwd_wide`` and their fp16 ``_f16``, and the
+    seven instances of
     ``paged_decode_attn_int8``/``_fp8``/``_rel``,
     ``decode_attn_rel``, ``flash_fwd_bshd_rel``,
     ``flash_bwd_bshd_dq_rel``/``_dkv_rel``; the flash kernels' kArr x
@@ -573,6 +621,21 @@ PTXAS = {}
 EMPTY = None
 
 
+#: main's sections' wall seconds (build excluded), emitted as
+#: ``section_seconds`` before the kernels line
+SECTION_SECONDS = {}
+_SECTION = [None, 0.0]
+
+
+def section(name):
+    """Close main's running section (its wall seconds into
+    SECTION_SECONDS) and start ``name`` (None: close only)."""
+    now = time.perf_counter()
+    if _SECTION[0] is not None:
+        SECTION_SECONDS[_SECTION[0]] = now - _SECTION[1]
+    _SECTION[:] = [name, now]
+
+
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
@@ -582,7 +645,12 @@ def emit(tag, obj):
     print(f"{tag} {json.dumps(obj)}", flush=True)
 
 
-def time_ms(fn, arg_sets, reps=20, trials=11):
+#: time_ms's trials: 5 (11 until the script's wall time passed 1000 s of
+#: its 1200 s limit on slower hosts)
+TRIALS = 5
+
+
+def time_ms(fn, arg_sets, reps=20, trials=TRIALS):
     """Device time of one call: the median over ``trials`` of the mean of
     ``reps`` back-to-back calls between two CUDA events, cycling through
     ``arg_sets`` (distinct copies keep the inputs out of the 50 MB L2,
@@ -5221,13 +5289,17 @@ def path_counters():
             "xent_stats": (X.xent_stats_cuda, "launches"),
             "ln_fwd": (LN.ln_fwd_cuda, "launches"),
             "ln_bwd": (LN.ln_bwd_cuda, "launches"),
+            "ln_fwd_wide": (LN.ln_fwd_wide_cuda, "launches"),
+            "ln_bwd_wide": (LN.ln_bwd_wide_cuda, "launches"),
             # the fp16 instances (amp's strict-fp16 step)
             **{f"{name}_f16": (fn, "f16_launches") for name, fn in (
                 ("flash_fwd", A.flash_fwd_cuda),
                 ("flash_bwd_dq", A.flash_bwd_dq_cuda),
                 ("flash_bwd_dkv", A.flash_bwd_dkv_cuda),
                 ("xent_stats", X.xent_stats_cuda),
-                ("ln_fwd", LN.ln_fwd_cuda), ("ln_bwd", LN.ln_bwd_cuda))},
+                ("ln_fwd", LN.ln_fwd_cuda), ("ln_bwd", LN.ln_bwd_cuda),
+                ("ln_fwd_wide", LN.ln_fwd_wide_cuda),
+                ("ln_bwd_wide", LN.ln_bwd_wide_cuda))},
             "softmax_fwd": (S.softmax_fwd_cuda, "launches"),
             "softmax_bwd": (S.softmax_bwd_cuda, "launches"),
             "matmul_bias_act": (MM.matmul_bias_act_cuda, "launches"),
@@ -5525,18 +5597,19 @@ SOFTMAX_CALLS = {"gpt_causal": ((TRAIN_BATCH, 8, TRAIN_SEQ, TRAIN_SEQ),
                  "t5_enc_self": ((T5_BATCH, 12, T5_ENC, T5_ENC), None)}
 
 
-def ln_case(torch, dev, rows, hidden, affine, seed, copies=1):
-    """``copies`` (x, dy) pairs in bf16 and bf16 (gamma, beta) per
-    ``affine`` ("wb", "w" or "")."""
+def ln_case(torch, dev, rows, hidden, affine, seed, copies=1, dtype=None):
+    """``copies`` (x, dy) pairs and (gamma, beta) per ``affine`` ("wb",
+    "w" or ""), all in ``dtype`` (default bf16)."""
+    dtype = dtype or torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(seed)
     sets = [((torch.randn((rows, hidden), generator=g, device=dev) * 2
-              + 0.5).bfloat16(),
-             torch.randn((rows, hidden), generator=g, device=dev).bfloat16())
+              + 0.5).to(dtype),
+             torch.randn((rows, hidden), generator=g, device=dev).to(dtype))
             for _ in range(copies)]
     w = (1 + 0.3 * torch.randn((hidden,), generator=g, device=dev))
     b = 0.2 * torch.randn((hidden,), generator=g, device=dev)
-    return (sets, w.bfloat16() if "w" in affine else None,
-            b.bfloat16() if "b" in affine else None)
+    return (sets, w.to(dtype) if "w" in affine else None,
+            b.to(dtype) if "b" in affine else None)
 
 
 def ln_check(torch, dev, rows, hidden, rms, affine, seed, what):
@@ -5583,7 +5656,8 @@ def ln_check(torch, dev, rows, hidden, rms, affine, seed, what):
     return errs
 
 
-def parent_turns(torch, fn, arg_sets, reps=20, trials=11, parent_fn=None):
+def parent_turns(torch, fn, arg_sets, reps=20, trials=TRIALS,
+                 parent_fn=None):
     """``fn``'s device time (time_ms) on this tree's kernels and, with
     ``--parent``, on the parent's, in turns (parent, this, this, parent):
     (ms, parent_ms), each the mean of its two turns; parent_ms is None
@@ -7324,7 +7398,8 @@ def overflow_contained(torch, got, plain, robust):
         "all_finite_kernel_plain": flags}
 
 
-def f16_turns(torch, fn16, fn_bf16, arg_sets=((),), reps=20, trials=11):
+def f16_turns(torch, fn16, fn_bf16, arg_sets=((),), reps=20,
+              trials=TRIALS):
     """Device times of the fp16 and the bf16 instance at one call, in
     turns (fp16, bf16, bf16, fp16): (fp16 ms, bf16 ms)."""
     a1 = time_ms(fn16, list(arg_sets), reps, trials)
@@ -9263,6 +9338,659 @@ def phase_loss_ops(torch, dev):
     return {"softmax_cross_entropy_loss": xent, "focal_loss": focal}, launches
 
 
+# --- the wide norms, FastLayerNorm, the RNN-T transducer and ASP ------------
+
+#: the ln_wide leg's hidden sizes (every one from 4097, with a ragged tail,
+#: to FastLayerNorm's 65536) and its row counts (a train step's and a
+#: decode step's)
+LN_WIDE_HIDDEN = (4097, 5000, 5120, 6144, 8192, 12288, 16384, 25600, 32768,
+                  49152, 65536)
+LN_WIDE_ROWS = (2048, 8)
+#: the widths also checked, timed and driven with fp32 and fp16 x
+LN_WIDE_DTYPE_HIDDEN = (8192, 65536)
+#: the kernels line's shape: the wide GPT's norm call (its 1 x 2048 tokens)
+LN_WIDE_TIMED = (2048, 8192)
+#: GPT at Megatron's 39.1B widths (Narayanan et al. 2021, Table 1: hidden
+#: 8192, 64 heads of 128, FFN 4 x 8192, 48 layers, sequence 2048, vocabulary
+#: 51200), cut to 2 of the 48 layers (with Adam's state the whole model
+#: needs ~625 GB; one card has 80)
+WIDE_GPT = dict(vocab_size=51200, max_seq_len=2048, hidden_size=8192,
+                num_layers=2, num_heads=64, attention_impl="flash",
+                remat=False)
+WIDE_BATCH, WIDE_SEQ = 1, 2048
+WIDE_WARMUP, WIDE_STEPS = 2, 5
+#: fresh targets drawn from the vocabulary's first WIDE_TARGETS ids, so the
+#: loss has a unigram to fall to within the leg's few steps
+WIDE_TARGETS = 4096
+WIDE_DECODE = dict(batch=16, prompt=512, new=32, cache=640)
+#: the MLPerf Training RNN-T reference's joint
+#: (rnn_speech_recognition/pytorch/configs/baseline_v3-1023sp.yaml):
+#: encoder output 1024 and predictor output 320 to a joint of 512, 1023
+#: sentencepieces and the blank (V 1024, the blank last), utterances of at
+#: most 16.7 s at 60 ms a joint frame (T <= 278)
+RNNT = dict(batch=16, t_min=140, t_max=278, u_min=20, u_max=100, enc=1024,
+            pred=320, joint=512, vocab=1024)
+RNNT_LOSS_TOL = 1e-5   # each element's loss against the fp64 truth, relative
+RNNT_GRAD_TOL = 2e-4   # the logits' gradient, of the truth's largest entry
+ASP_WARMUP, ASP_STEPS, ASP_SWEEPS = 2, 5, 256
+
+
+def ln_wide_check(torch, dev, rows, hidden, rms, dtype, seed):
+    """The wide kernels against their plain versions on one call: y and dx
+    by the bf16 rule (fp16: the fp16 rule; fp32: within 1e-5 of the
+    largest entry), mean and rstd within 1e-5 of the truth's largest
+    entry, dgamma/dbeta within one ulp of the parameters' dtype (fp32:
+    1e-5) of the largest; every output bit-identical across two runs. One
+    ``ln_wide_check`` line; returns the y and dx max abs errors."""
+    from apex_tpu_torch.ops import layer_norm as LN
+
+    sets, w, b = ln_case(torch, dev, rows, hidden, "w" if rms else "wb",
+                         seed, dtype=dtype)
+    x, dy = sets[0]
+    f32 = lambda t: None if t is None else t.float()  # noqa: E731
+    fwd = LN.ln_fwd_wide_cuda(x, w, b, LN_EPS, rms)
+    fwd_again = LN.ln_fwd_wide_cuda(x, w, b, LN_EPS, rms)
+    y, mean, rstd = fwd
+    bwd = LN.ln_bwd_wide_cuda(dy, x, mean, rstd, w, rms)
+    bwd_again = LN.ln_bwd_wide_cuda(dy, x, mean, rstd, w, rms)
+    dx, dw, db = bwd
+    yp, mp, rp = LN._torch_fwd(x, w, b, LN_EPS, rms)
+    dxp, _, _ = LN._torch_bwd(dy, x, mp, rp, w, rms)
+    yt, mt, rt = LN._torch_fwd(x.float(), f32(w), f32(b), LN_EPS, rms)
+    dxt, dwt, dbt = LN._torch_bwd(dy.float(), x.float(), mt, rt, f32(w),
+                                  rms)
+    torch.cuda.synchronize()
+    shape = {"rows": rows, "hidden": hidden, "rms": rms,
+             "dtype": str(dtype)[6:]}
+    out, errs = {}, {}
+    for name, got, plain, truth in (("y", y, yp, yt), ("dx", dx, dxp, dxt)):
+        if dtype == torch.bfloat16:
+            ok, err, tol = rule_ok(got, plain, truth)
+            out[name] = {"max_abs_err": err, "tol": tol}
+        elif dtype == torch.float16:
+            ok, out[name] = f16_rule(got, plain, truth)
+            err = out[name]["max_abs_err"]
+        else:
+            err = (got - truth).abs().max().item()
+            tol = 1e-5 * truth.abs().max().item()
+            ok = err <= tol
+            out[name] = {"max_abs_err": err, "tol": tol}
+        errs[name] = err
+        check(ok, f"ln_wide {name} at {shape}: {out[name]}")
+    ulp = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}.get(
+        dtype, 1e-5)
+    for name, got, want, rel in (("mean", mean, mt, 1e-5),
+                                 ("rstd", rstd, rt, 1e-5),
+                                 ("dgamma", dw, dwt, ulp),
+                                 ("dbeta", db, dbt, ulp)):
+        if got is None or (rms and name == "mean"):
+            continue
+        err = (got.float() - want).abs().max().item()
+        tol = rel * want.abs().max().item()
+        out[name] = {"max_abs_err": err, "tol": tol}
+        check(err <= tol, f"ln_wide {name} at {shape}: {err} > {tol}")
+    check(all(torch.equal(a, c) for a, c in zip(fwd + bwd,
+                                                fwd_again + bwd_again)
+              if a is not None),
+          f"the wide norm kernels not bit-reproducible at {shape}")
+    emit("ln_wide_check", {"shape": shape, "outputs": out,
+                           "bit_identical_across_runs": True})
+    return errs
+
+
+def ln_wide_faults(torch, dev, hidden):
+    """Both planted faults at ``hidden``, on fp32 rows whose last 16-byte
+    chunk is large: each must move rstd past 1e-5 of the truth's largest
+    entry and dx past 1e-5 relative norm error; the fault-free call passes
+    both (the kernel's own errors are ~1e-7)."""
+    from apex_tpu_torch.ops import layer_norm as LN
+
+    sets, _, _ = ln_case(torch, dev, 64, hidden, "", hidden,
+                         dtype=torch.float32)
+    x, dy = sets[0]
+    x[:, -4:] += 6
+    dy[:, -4:] += 6
+    _, mt, rt = LN._torch_fwd(x, None, None, LN_EPS, False)
+    dxt, _, _ = LN._torch_bwd(dy, x, mt, rt, None, False)
+    out = {}
+    for fault in (None, *sorted(LN.WIDE_FAULTS)):
+        _, _, r = LN.ln_fwd_wide_cuda(x, None, None, LN_EPS, False,
+                                      planted_fault=fault)
+        dx, _, _ = LN.ln_bwd_wide_cuda(dy, x, mt, rt, None, False,
+                                       planted_fault=fault)
+        r_err = (r - rt).abs().max().item() / rt.abs().max().item()
+        dx_err = ((dx - dxt).norm() / dxt.norm()).item()
+        passed = r_err <= 1e-5 and dx_err <= 1e-5
+        out[fault or "none"] = {"rstd_err_of_largest": r_err,
+                                "dx_rel_norm_err": dx_err,
+                                "refused": r_err > 1e-5 and dx_err > 1e-5}
+        if fault is None:
+            check(passed, f"ln_wide at {hidden}: the fault-free call fails "
+                  f"the fault rule: {out['none']}")
+        else:
+            check(out[fault]["refused"], f"ln_wide planted fault {fault} "
+                  f"at {hidden} passed: {out[fault]}")
+    return out
+
+
+def ln_wide_times(torch, dev, rows, hidden, dtype, backward=True):
+    """The wide kernels' device times at one call (LayerNorm, gamma and
+    beta in x's dtype) beside the bound, the plain version and the
+    library's F.layer_norm (the forward; its autograd backward for dx,
+    dgamma and dbeta); copies of x and dy cycle through more than the 50
+    MB L2. One ``ln_wide_times`` line."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import layer_norm as LN
+    from apex_tpu_torch.ops.matmul import _sm_count
+
+    es = torch.tensor([], dtype=dtype).element_size()
+    copies = min(6, max(2, -(-120_000_000 // (2 * rows * hidden * es))))
+    sets, w, b = ln_case(torch, dev, rows, hidden, "wb", 9, copies=copies,
+                         dtype=dtype)
+    n = rows * hidden
+    fb = bound(2 * n * es + 2 * hidden * es + 8 * rows, 8 * n,
+               FP32_OPS_PER_S)
+    out = {"rows": rows, "hidden": hidden, "dtype": str(dtype)[6:],
+           "fwd_plan": LN._wide_fwd_plan(
+               rows, hidden, dtype,
+               _sm_count(torch.cuda.current_device()))._asdict(),
+           "fwd_ms": time_ms(lambda x, _: LN.ln_fwd_wide_cuda(
+               x, w, b, LN_EPS, False), sets, reps=10, trials=5),
+           "library_fwd_ms": time_ms(lambda x, _: F.layer_norm(
+               x, (hidden,), w, b, LN_EPS), sets, reps=10, trials=5),
+           "plain_fwd_ms": time_ms(lambda x, _: LN._torch_fwd(
+               x, w, b, LN_EPS, False), sets[:2], reps=3, trials=3),
+           "fwd_bound_ms": fb[0], "fwd_bound_by": fb[1]}
+    if backward:
+        stats = [LN.ln_fwd_wide_cuda(x, w, b, LN_EPS, False)
+                 for x, _ in sets]
+        bwd_sets = [(dy, x, m, r) for (x, dy), (_, m, r)
+                    in zip(sets, stats)]
+        graphs = []
+        for x, dy in sets:
+            leaves = [t.detach().requires_grad_() for t in (x, w, b)]
+            graphs.append((F.layer_norm(leaves[0], (hidden,), leaves[1],
+                                        leaves[2], LN_EPS), leaves, dy))
+        bb = bound(3 * n * es + 8 * rows + 3 * hidden * es, 12 * n,
+                   FP32_OPS_PER_S)
+        out.update({
+            "bwd_plan": LN._wide_bwd_plan(rows, hidden, dtype)._asdict(),
+            "bwd_ms": time_ms(lambda dy, x, m, r: LN.ln_bwd_wide_cuda(
+                dy, x, m, r, w, False), bwd_sets, reps=10, trials=5),
+            "library_bwd_ms": time_ms(
+                lambda o, leaves, dy: torch.autograd.grad(
+                    o, leaves, dy, retain_graph=True), graphs, reps=10,
+                trials=5),
+            "plain_bwd_ms": time_ms(lambda dy, x, m, r: LN._torch_bwd(
+                dy, x, m, r, w, False), bwd_sets[:2], reps=3, trials=3),
+            "bwd_bound_ms": bb[0], "bwd_bound_by": bb[1]})
+        del stats, bwd_sets, graphs
+    emit("ln_wide_times", out)
+    del sets
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ln_wide(torch, dev):
+    """The norms past hidden 4096 (csrc/layer_norm_wide.cu): at every
+    LN_WIDE_HIDDEN the kernels against their plain versions at 2048 and 8
+    rows in bf16 (LayerNorm with gamma and beta, RMSNorm with gamma), fp32
+    and fp16 x at 8192 and 65536, both planted faults refused at every
+    width, and each call timed (the forward also at 8 rows); then the path:
+    contrib.layer_norm.FastLayerNorm and fused_rms_norm forward and
+    backward at every width (bf16, 2048 rows; fp32 and fp16 at 8192 and
+    65536), the counters zeroed just before and read just after: every
+    norm on the wide instances, none on the register kernels. Returns the
+    kernels line's wide entries and the path's launches."""
+    from apex_tpu_torch.contrib.layer_norm import FastLayerNorm
+    from apex_tpu_torch.ops import layer_norm as LN
+
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    errs = {bf16: {"y": 0.0, "dx": 0.0}, f16: {"y": 0.0, "dx": 0.0}}
+    faults, times = {}, {}
+    seed = 300
+    many, few = LN_WIDE_ROWS
+    for hidden in LN_WIDE_HIDDEN:
+        cases = [(rows, rms, bf16) for rows in LN_WIDE_ROWS
+                 for rms in (False, True)]
+        if hidden in LN_WIDE_DTYPE_HIDDEN:
+            cases += [(many, False, f32), (many, False, f16)]
+        for rows, rms, dtype in cases:
+            seed += 1
+            e = ln_wide_check(torch, dev, rows, hidden, rms, dtype, seed)
+            if dtype in errs:
+                errs[dtype] = {k: max(errs[dtype][k], e[k]) for k in e}
+        faults[hidden] = ln_wide_faults(torch, dev, hidden)
+        torch.cuda.empty_cache()
+        times[(many, hidden, bf16)] = ln_wide_times(torch, dev, many,
+                                                    hidden, bf16)
+        times[(few, hidden, bf16)] = ln_wide_times(torch, dev, few, hidden,
+                                                   bf16, backward=False)
+    times[(*LN_WIDE_TIMED, f16)] = ln_wide_times(torch, dev, *LN_WIDE_TIMED,
+                                                 f16)
+    emit("ln_wide_faults", faults)
+
+    # the path: the entries a user calls, every norm counted
+    def drive(mod_dtype, hidden, rows=many):
+        g = torch.Generator(device=dev).manual_seed(hidden)
+        x = (torch.randn((rows, hidden), generator=g, device=dev)
+             .to(mod_dtype).requires_grad_())
+        ln = FastLayerNorm(hidden, dtype=mod_dtype, device=dev)
+        ln(x).float().square().mean().backward()
+        w = torch.ones(hidden, dtype=mod_dtype, device=dev,
+                       requires_grad=True)
+        LN.fused_rms_norm(x, w).float().square().mean().backward()
+        check(all(torch.isfinite(t.grad.float()).all().item()
+                  for t in (x, ln.weight, ln.bias, w)),
+              f"FastLayerNorm/fused_rms_norm at {hidden}: gradients not "
+              f"finite")
+
+    drive(bf16, LN_WIDE_HIDDEN[0])  # warm-up, outside the count
+    torch.cuda.synchronize()
+    zero_counters()
+    for hidden in LN_WIDE_HIDDEN:
+        drive(bf16, hidden)
+    for hidden in LN_WIDE_DTYPE_HIDDEN:
+        drive(f32, hidden)
+        drive(f16, hidden)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    extra = 2 * len(LN_WIDE_DTYPE_HIDDEN)
+    calls = 2 * len(LN_WIDE_HIDDEN) + 2 * extra
+    check_launches(launches, {"ln_fwd_wide": calls, "ln_bwd_wide": calls,
+                              "ln_fwd_wide_f16": extra,
+                              "ln_bwd_wide_f16": extra},
+                   1, "ln_wide path (FastLayerNorm, fused_rms_norm)")
+    torch.cuda.empty_cache()
+
+    rows, hidden = LN_WIDE_TIMED
+
+    def entry(name, op, dtype, err):
+        t = times[(rows, hidden, dtype)]
+        return {"name": name, "route": "cuda",
+                "source": "apex_tpu_torch/csrc/layer_norm_wide.cu",
+                "replaces": ("apex_tpu/ops/pallas/layer_norm.py:102"
+                             if op == "fwd" else
+                             "apex_tpu/ops/pallas/layer_norm.py:186"),
+                "max_abs_err": err, "ms": t[f"{op}_ms"],
+                "plain_ms": t[f"plain_{op}_ms"],
+                "bound_ms": t[f"{op}_bound_ms"],
+                "bound_by": t[f"{op}_bound_by"],
+                "library_ms": t[f"library_{op}_ms"],
+                "library_note": ("F.layer_norm" if op == "fwd" else
+                                 "F.layer_norm's autograd backward (dx, "
+                                 "dgamma, dbeta)"),
+                "kernel_note": "a row over a cluster of CTAs, its sums "
+                               "merged in rank order through distributed "
+                               "shared memory",
+                "timed_shape": {"rows": rows, "hidden": hidden,
+                                "dtype": str(dtype)[6:],
+                                "affine": "gamma and beta"},
+                "per_shape": {f"{r}x{h}": {k: v for k, v in t_.items()
+                                           if op in k}
+                              for (r, h, d), t_ in times.items()
+                              if d == dtype and f"{op}_ms" in t_}}
+
+    return [entry("ln_fwd_wide", "fwd", bf16, errs[bf16]["y"]),
+            entry("ln_bwd_wide", "bwd", bf16, errs[bf16]["dx"]),
+            entry("ln_fwd_wide_f16", "fwd", f16, errs[f16]["y"]),
+            entry("ln_bwd_wide_f16", "bwd", f16, errs[f16]["dx"])], launches
+
+
+def wide_gpt_counts():
+    """Per wide GPT step (no remat): 2L + 1 norms forward and backward, all
+    wide, and the packed flash trio per layer, all on wgmma, and one
+    xent_stats."""
+    L = WIDE_GPT["num_layers"]
+    return {"ln_fwd_wide": 2 * L + 1, "ln_bwd_wide": 2 * L + 1,
+            "flash_fwd": L, "flash_fwd_wgmma": L, "flash_bwd_dq": L,
+            "flash_bwd_dq_wgmma": L, "flash_bwd_dkv": L,
+            "flash_bwd_dkv_wgmma": L, "xent_stats": 1}
+
+
+def phase_wide_gpt_train(torch, dev):
+    """GPT at Megatron's 39.1B widths cut to 2 layers (WIDE_GPT), bf16,
+    batch 1 x 2048: one step at the initial params against the plain path
+    and an fp32 truth (compare_paths), then WIDE_WARMUP warm-up and
+    WIDE_STEPS timed FusedAdam steps on fresh data, each with the launches
+    of wide_gpt_counts and no other kernel; 2 profiled steps. Returns the
+    info, the launches and (model, params) for the decode leg."""
+    from apex_tpu_torch.models.gpt import param_leaves
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    V, H = WIDE_GPT["vocab_size"], WIDE_GPT["hidden_size"]
+    model, params = gpt_model(torch, dev, WIDE_GPT, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def batch():
+        return (torch.randint(0, V, (WIDE_BATCH, WIDE_SEQ), generator=gen,
+                              device=dev),
+                torch.randint(0, WIDE_TARGETS, (WIDE_BATCH, WIDE_SEQ),
+                              generator=gen, device=dev))
+
+    tokens, targets = batch()
+    model32, params32 = gpt_model(torch, dev, WIDE_GPT, torch.float32)
+    upcast_copy(torch, params32, params)
+
+    def run(p, impl):
+        m = model32 if p is params32 else model
+        return m.loss_fn(p, tokens, targets, impl=impl)
+
+    def view(name, gr):  # the qkv bias's k window: exact gradient 0
+        return torch.cat([gr[:H], gr[2 * H:]]) if name.endswith(
+            "qkv.bias") else gr
+
+    vs = compare_paths(torch, run, params, params32, "initial (seed 0)",
+                       True, view)
+    del model32, params32
+    torch.cuda.empty_cache()
+    opt = FusedAdam(param_leaves(params), lr=1e-4)
+
+    def step():
+        return train_step(model, params, opt, *batch())
+
+    for _ in range(WIDE_WARMUP - 1):  # timed_steps runs the last warm-up
+        step()
+    losses, wall, launches = timed_steps(torch, step, WIDE_STEPS,
+                                         "wide GPT train")
+    check_launches(launches, wide_gpt_counts(), WIDE_STEPS,
+                   "wide GPT train")
+    tok = WIDE_BATCH * WIDE_SEQ * WIDE_STEPS
+    flops = model_flops_per_token(WIDE_GPT, WIDE_SEQ) * tok / wall
+    n_params = sum(t.numel() for t in param_leaves(params))
+    info = {"config": dict(WIDE_GPT, ffn=4 * H, head_dim=H //
+                           WIDE_GPT["num_heads"]),
+            "source": "Narayanan et al. 2021, Table 1 (39.1B: hidden 8192, "
+                      "64 heads, 48 layers, seq 2048, vocab 51200); 2 of "
+                      "48 layers",
+            "params": n_params, "batch": WIDE_BATCH, "seq": WIDE_SEQ,
+            "warmup": WIDE_WARMUP, "steps": WIDE_STEPS, "losses": losses,
+            "wall_s": wall, "step_ms": 1e3 * wall / WIDE_STEPS,
+            "tokens_per_s": tok / wall, "model_tflops_per_s": flops / 1e12,
+            "mfu": flops / BF16_OPS_PER_S,
+            "mfu_peak": "989 TFLOP/s dense bf16 (H100 SXM data sheet)",
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "vs_plain_path": vs,
+            "launches_per_step": {k: v / WIDE_STEPS
+                                  for k, v in launches.items() if v}}
+    info["profile"] = phase_train_profile(torch, step,
+                                          info["step_ms"] / 1e3)
+    del opt
+    for t in param_leaves(params):
+        t.grad = None
+    torch.cuda.empty_cache()
+    return info, launches, (model, params)
+
+
+def phase_wide_decode(torch, dev, model, params):
+    """DecodeEngine.generate on the wide GPT's trained params: batch 16,
+    prompt 512, 32 greedy tokens; a warm-up, then two counted passes that
+    must be token-identical, each forward's 5 norms on the wide forward
+    kernel (5 x 32 a pass), the prefill's 2 bshd flash forwards (wgmma) and
+    each decode step's 2 decode_attn launches, nothing else; the prefill
+    and a pass timed apart."""
+    from apex_tpu_torch.inference import DecodeEngine
+    from apex_tpu_torch.ops import decode_attention as D
+
+    c = WIDE_DECODE
+    L = WIDE_GPT["num_layers"]
+    eng = DecodeEngine(model, max_seq_len=c["cache"], device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    prompt = torch.randint(0, WIDE_GPT["vocab_size"], (c["batch"],
+                                                       c["prompt"]),
+                           generator=g, device=dev, dtype=torch.int32)
+    with torch.no_grad():
+        eng.generate(params, prompt, c["new"])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        D.decode_attn_cuda.launches = 0
+        runs, pass_s = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            runs.append(eng.generate(params, prompt, c["new"]))
+            torch.cuda.synchronize()
+            pass_s.append(time.perf_counter() - t0)
+        launches = read_counters()
+        launches["decode_attn"] = D.decode_attn_cuda.launches
+        cache = eng.init_cache(c["batch"])
+        pre_s = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.prefill(params, prompt, cache=cache)
+            torch.cuda.synchronize()
+            pre_s.append(time.perf_counter() - t0)
+    steps = c["new"] - 1
+    check_launches(launches, {"ln_fwd_wide": (2 * L + 1) * (1 + steps),
+                              "flash_fwd_bshd": L,
+                              "flash_fwd_bshd_wgmma": L,
+                              "decode_attn": L * steps}, 2, "wide decode")
+    check(torch.equal(runs[0], runs[1]),
+          "wide decode: the two greedy passes differ")
+    check(((runs[0] >= 0) & (runs[0] < WIDE_GPT["vocab_size"])).all()
+          .item(), "wide decode: a token outside the vocabulary")
+    decode_s = min(pass_s) - min(pre_s)
+    info = {"batch": c["batch"], "prompt": c["prompt"],
+            "new_tokens": c["new"], "token_identical_passes": True,
+            "prefill_ms": 1e3 * min(pre_s),
+            "pass_ms": [1e3 * t for t in pass_s],
+            "decode_tokens_per_s": c["batch"] * steps / decode_s,
+            "decode_step_ms": 1e3 * decode_s / steps,
+            "decode_note": "decode time: the fastest pass less the "
+                           "fastest prefill",
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches_per_pass": {k: v / 2 for k, v in launches.items()
+                                  if v}}
+    return info, launches
+
+
+def rnnt_inputs(torch, dev):
+    """Seeded encoder and predictor outputs, lengths and labels at RNNT's
+    widths, and the joint's three bf16 weights (U(+-1/sqrt(fan_in)))."""
+    c = RNNT
+    g = torch.Generator(device=dev).manual_seed(23)
+    B = c["batch"]
+    f_len = torch.randint(c["t_min"], c["t_max"] + 1, (B,), generator=g,
+                          device=dev)
+    y_len = torch.randint(c["u_min"], c["u_max"] + 1, (B,), generator=g,
+                          device=dev)
+    T, U = int(f_len.max()), int(y_len.max())
+    enc = torch.randn((B, T, c["enc"]), generator=g, device=dev).bfloat16()
+    pred = torch.randn((B, U + 1, c["pred"]), generator=g,
+                       device=dev).bfloat16()
+    labels = torch.randint(0, c["vocab"] - 1, (B, U), generator=g,
+                           device=dev)
+
+    def weight(out, fan_in):
+        w = torch.rand((out, fan_in), generator=g, device=dev) * 2 - 1
+        return (w / fan_in ** 0.5).bfloat16().requires_grad_()
+
+    ws = (weight(c["joint"], c["enc"]), weight(c["joint"], c["pred"]),
+          weight(c["vocab"], c["joint"]))
+    return enc, pred, f_len, y_len, labels, ws
+
+
+def phase_transducer_rnnt(torch, dev):
+    """contrib.transducer at the MLPerf RNN-T joint's widths (RNNT) on
+    seeded encoder and predictor outputs (the LSTMs are a later slice):
+    the bf16 joint (two projections to 512, TransducerJoint with ReLU and
+    the lengths' masking), F.linear to V, the loss in fp32
+    (TransducerLoss, the blank last); loss and the logits' gradient against
+    the fp64 truth on the same logits; forward and backward ms, the
+    card's kernel launches of each (no kernel of the port runs) and the
+    peak memory."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from apex_tpu_torch.contrib.transducer import (TransducerJoint,
+                                                   TransducerLoss)
+
+    enc, pred, f_len, y_len, labels, (w_enc, w_pred, w_out) = rnnt_inputs(
+        torch, dev)
+    joint, loss_fn = TransducerJoint(relu=True), TransducerLoss()
+    blank = RNNT["vocab"] - 1
+
+    def forward():
+        h = joint(F.linear(enc, w_enc), F.linear(pred, w_pred), f_len,
+                  y_len + 1)
+        x = F.linear(h, w_out).float()
+        x.retain_grad()
+        return x, loss_fn(x, labels, f_len, y_len, blank)
+
+    def backward(loss):
+        loss.sum().backward()
+        for w in (w_enc, w_pred, w_out):
+            w.grad = None
+
+    x, loss = forward()  # warm-up
+    backward(loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    fwd_s, bwd_s = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        x, loss = forward()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.sum().backward()
+        torch.cuda.synchronize()
+        fwd_s.append(t1 - t0)
+        bwd_s.append(time.perf_counter() - t1)
+        grad = x.grad
+        for w in (w_enc, w_pred, w_out):
+            w.grad = None
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_launches(launches, {}, 1, "transducer_rnnt")
+    x64 = x.detach().double().requires_grad_()
+    loss64 = loss_fn(x64, labels, f_len, y_len, blank)
+    loss64.sum().backward()
+    loss_err = ((loss.detach().double() - loss64.detach()).abs()
+                / loss64.detach().abs()).max().item()
+    grad_err = (grad.double() - x64.grad).abs().max().item()
+    grad_scale = x64.grad.abs().max().item()
+    del x64
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        x, loss = forward()
+        torch.cuda.synchronize()
+    with profile(activities=acts) as prof_b:
+        backward(loss)
+        torch.cuda.synchronize()
+    kernels = [sum(e.count for e in p.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+               for p in (prof, prof_b)]
+    B, T, U1, V = x.shape
+    info = {"config": dict(RNNT),
+            "source": "MLPerf Training RNN-T reference, rnn_speech_"
+                      "recognition/pytorch/configs/baseline_v3-1023sp.yaml",
+            "shape": {"B": B, "T": T, "U+1": U1, "V": V},
+            "f_len": f_len.tolist(), "y_len": y_len.tolist(),
+            "loss_mean": loss.mean().item(),
+            "loss_rel_err_vs_fp64": loss_err, "loss_tol": RNNT_LOSS_TOL,
+            "grad_max_abs_err_vs_fp64": grad_err,
+            "grad_tol": RNNT_GRAD_TOL * grad_scale,
+            "forward_ms": 1e3 * min(fwd_s), "backward_ms": 1e3 * min(bwd_s),
+            "lattice_steps": T + U1 - 1,
+            "cuda_kernels_forward": kernels[0],
+            "cuda_kernels_backward": kernels[1],
+            "peak_memory_gb": peak}
+    check(loss_err <= RNNT_LOSS_TOL, f"transducer loss vs fp64: {loss_err}")
+    check(grad_err <= RNNT_GRAD_TOL * grad_scale,
+          f"transducer gradient vs fp64: {grad_err} > "
+          f"{RNNT_GRAD_TOL} x {grad_scale}")
+    check(all(np.isfinite(v) for v in (info["loss_mean"], grad_err)),
+          "transducer loss or gradient not finite")
+    del x, loss, grad
+    torch.cuda.empty_cache()
+    return info, launches
+
+
+def phase_asp_gpt(torch, dev, dense):
+    """ASP on GPT-medium, the train leg's configuration and batch: the
+    permutation search on layer 0's dense qkv and mlp_down weights at
+    ASP_SWEEPS (seconds, retained magnitude before and after), then
+    compute_sparse_masks and apply_masks, and ASP_WARMUP warm-up and
+    ASP_STEPS timed steps of wrap_optimizer(FusedAdam): after every step
+    each pruned entry exactly 0 and no group of 4 with more than 2 nonzero
+    entries (flags kept on the card, read once), the train leg's own
+    launches, the loss finite and falling; step ms beside the dense
+    leg's."""
+    from apex_tpu_torch.contrib.sparsity import (ASP, apply_permutation,
+                                                 sum_after_2_to_4)
+    from apex_tpu_torch.models.gpt import param_leaves
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    model, params = gpt_model(torch, dev, TRAIN, torch.bfloat16)
+    asp = ASP()
+    search = {}
+    for name in ("qkv", "mlp_down"):
+        w = params["layers"][0][name]["weight"].detach()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        perm = asp.search_permutations({"w": w})["w"]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        before = float(sum_after_2_to_4(w.float()))
+        after = float(sum_after_2_to_4(apply_permutation(w.float(), perm)))
+        search[name] = {"shape": list(w.shape), "seconds": secs,
+                        "max_sweeps": ASP_SWEEPS,
+                        "retained_before": before, "retained_after": after,
+                        "gain_rel": (after - before) / before}
+        check(after >= before, f"ASP search on {name} lost magnitude")
+    with torch.no_grad():
+        masks = asp.compute_sparse_masks(params)
+        params = asp.apply_masks(params, masks)
+    leaves = param_leaves(params)
+    for t in leaves:
+        t.requires_grad_()
+    pairs = [(p, m) for p, m in zip(leaves, param_leaves(masks)) if m.ndim]
+    check(all((m.reshape(-1, 4).sum(-1) == 2).all().item()
+              for _, m in pairs), "ASP: a mask group without 2 of 4")
+    opt = asp.wrap_optimizer(FusedAdam(leaves, lr=1e-4), masks)
+    tokens, targets = gpt_batch(torch, dev)
+    bad = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def step():
+        loss = train_step(model, params, opt, tokens, targets)
+        with torch.no_grad():
+            for p, m in pairs:
+                nz = p != 0
+                bad.logical_or_((nz & ~m).any())
+                bad.logical_or_((nz.reshape(-1, 4).sum(-1) > 2).any())
+        return loss
+
+    for _ in range(ASP_WARMUP - 1):
+        step()
+    losses, wall, launches = timed_steps(torch, step, ASP_STEPS, "asp_gpt")
+    L = TRAIN["num_layers"]
+    check_launches(launches, {"flash_fwd": L, "flash_fwd_wgmma": L,
+                              "flash_bwd_dkv": L, "flash_bwd_dq": L,
+                              "flash_bwd_dkv_wgmma": L,
+                              "flash_bwd_dq_wgmma": L, "xent_stats": 1,
+                              "ln_fwd": 2 * L + 1, "ln_bwd": 2 * L + 1},
+                   ASP_STEPS, "asp_gpt")
+    check(not bad.item(), "ASP: a pruned entry nonzero, or a group with "
+          "more than 2 nonzero entries, after a step")
+    info = {"search": search, "masked_weights": len(pairs),
+            "pruned_share": sum(int((~m).sum()) for _, m in pairs)
+            / sum(m.numel() for _, m in pairs),
+            "steps": ASP_STEPS, "warmup": ASP_WARMUP, "losses": losses,
+            "step_ms": 1e3 * wall / ASP_STEPS,
+            "dense_train_step_ms": dense["step_ms"],
+            "step_note": "each step also reads every masked weight to "
+                         "flag a nonzero pruned entry (on the card)",
+            "pruned_entries_zero_after_every_step": True,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches_per_step": {k: v / ASP_STEPS
+                                  for k, v in launches.items() if v}}
+    del opt, params, model
+    torch.cuda.empty_cache()
+    return info, launches
+
+
 def main(argv=None):
     global PARENT, PARENT_ADAM, PTXAS, EMPTY
     import argparse
@@ -9277,6 +10005,7 @@ def main(argv=None):
                     "sampling and verify kernels, and whose FusedAdam, "
                     "are timed in turns with this tree's")
     args = ap.parse_args(argv)
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
               "runs on a CUDA card", file=sys.stderr)
@@ -9327,6 +10056,7 @@ def main(argv=None):
           f"kernels whose registers or spills differ from the parent's: "
           f"{changes}")
 
+    section("kernels")
     # --- each kernel against its plain version --------------------------------
     kernels = [phase_decode_kernel(torch, dev),
                phase_sample_kernel(torch, dev),
@@ -9338,6 +10068,7 @@ def main(argv=None):
         emit("kernel", k)
     torch.cuda.empty_cache()
 
+    section("serve")
     # --- the main path --------------------------------------------------------
     model = GPTModel(GPTConfig(**MODEL, dtype=torch.bfloat16))
     params = model.init(torch.Generator(device=dev).manual_seed(0),
@@ -9392,6 +10123,7 @@ def main(argv=None):
               f"{what} serve: {n} ln_fwd launches for {forwards} model "
               f"forwards x {2 * L + 1} norms")
 
+    section("serve_outside")
     # --- outside the counted window -------------------------------------------
     again, _ = serve(torch, model, params, dev)
     check(again == greedy, "greedy serve not reproducible on a fresh engine")
@@ -9406,6 +10138,7 @@ def main(argv=None):
     del warm
     torch.cuda.empty_cache()
 
+    section("decode_slice")
     # --- the decode-engine slice ----------------------------------------------
     d_kernels = [phase_bshd_kernel(torch, dev),
                  phase_contig_decode_kernel(torch, dev),
@@ -9434,6 +10167,7 @@ def main(argv=None):
         d_kernels, ss_info["verify_launches_by_mode"]))
     torch.cuda.empty_cache()
 
+    section("quant_and_rel")
     # --- quantized pools and the decode bias ---------------------------------
     q_kernels = (phase_quant_decode_kernel(torch, dev)
                  + phase_rel_decode_kernel(torch, dev))
@@ -9450,6 +10184,7 @@ def main(argv=None):
     emit("rel_decode", rd_info)
     torch.cuda.empty_cache()
 
+    section("telemetry_and_swap")
     # --- serving telemetry and weight hot-swap --------------------------------
     st_info, paths["serve_telemetry"] = phase_serve_telemetry(
         torch, model, params, dev)
@@ -9460,6 +10195,7 @@ def main(argv=None):
     del model, params
     torch.cuda.empty_cache()
 
+    section("gpt_train")
     # --- the train path -------------------------------------------------------
     state, t_info, paths["gpt_train"] = phase_train(torch, dev)
     emit("train", t_info)
@@ -9469,6 +10205,7 @@ def main(argv=None):
     del state
     torch.cuda.empty_cache()
 
+    section("dropout")
     # --- dropout: the flash kernels' masks, the elementwise kernel, GPT ------
     drop_kernel, drop_times_ = phase_dropout_kernels(torch, dev)
     emit("kernel", drop_kernel)
@@ -9483,6 +10220,7 @@ def main(argv=None):
     emit("gpt_remat_policies", rp_info)
     torch.cuda.empty_cache()
 
+    section("amp")
     # --- amp: the fp16 instances, the O2 and O1 fp16 legs, the overflow ----
     f16_kernels = phase_fp16_flash(torch, dev) + phase_fp16_rows(torch, dev)
     for k in f16_kernels:
@@ -9499,6 +10237,7 @@ def main(argv=None):
         phase_gpt_fp16_optimizer_train(torch, dev, a2_info)
     emit("gpt_fp16_optimizer_train", fo_info)
 
+    section("t5")
     # --- the T5 slice ---------------------------------------------------------
     t5_kernels = phase_t5_kernels(torch, dev)
     for k in t5_kernels:
@@ -9529,6 +10268,7 @@ def main(argv=None):
     emit("t5_encode_only", eo_info)
     torch.cuda.empty_cache()
 
+    section("bert")
     # --- the BERT slice -------------------------------------------------------
     fwd_bert, bert_kernels = phase_bert_kernels(torch, dev)
     by_name = {k["name"]: k for k in kernels}
@@ -9568,6 +10308,7 @@ def main(argv=None):
     emit("encoder", en_info)
     torch.cuda.empty_cache()
 
+    section("array_bias")
     # --- the array bias and the T5 materialized leg ---------------------------
     per_bias, dbias_kernel = phase_bias_kernels(torch, dev)
     flash_errs = dbias_kernel.pop("flash_max_abs_err")
@@ -9598,6 +10339,7 @@ def main(argv=None):
     emit("t5_materialized", m_info)
     torch.cuda.empty_cache()
 
+    section("softmax_routes")
     # --- the softmax routes: the models' default attention_impl -------------
     sm_info, paths["gpt_softmax_train"] = phase_gpt_softmax(torch, dev)
     emit("gpt_softmax_train", sm_info)
@@ -9617,6 +10359,7 @@ def main(argv=None):
     emit("softmax_bwd_gap", softmax_bwd_gap(
         by_name["softmax_bwd"]["per_shape"], paths))
 
+    section("dense_mlp")
     # --- the fused-dense and MLP slice: matmul_bias_act -----------------------
     mm_kernel = phase_matmul_kernel(torch, dev)
     emit("kernel", mm_kernel)
@@ -9630,6 +10373,7 @@ def main(argv=None):
     emit("mlp_train", m_info)
     torch.cuda.empty_cache()
 
+    section("optimizers")
     # --- the optimizers: LARC + SGD on the MLP leg, each optimizer's step --
     ml_info, paths["mlp_larc_sgd"] = phase_mlp_larc_sgd(torch, dev, m_info)
     emit("mlp_larc_sgd", ml_info)
@@ -9637,6 +10381,7 @@ def main(argv=None):
     emit("optimizer_steps", os_info)
     torch.cuda.empty_cache()
 
+    section("contrib_losses")
     # --- dropout beside the array bias; the loss ops, contrib's attention --
     bd_by_kernel, bd_errs = phase_bias_dropout_kernels(torch, dev)
     by_name = {k["name"]: k for k in kernels}
@@ -9656,6 +10401,28 @@ def main(argv=None):
     emit("loss_ops", lo_info)
     torch.cuda.empty_cache()
 
+    section("wide_norms_transducer_asp")
+    # --- the wide norms, FastLayerNorm, the RNN-T transducer, ASP ----------
+    lw_kernels, paths["ln_wide"] = phase_ln_wide(torch, dev)
+    for k in lw_kernels:
+        emit("kernel", k)
+    kernels += lw_kernels
+    torch.cuda.empty_cache()
+    wg_info, paths["wide_gpt_train"], wide = phase_wide_gpt_train(torch, dev)
+    emit("wide_gpt_train", wg_info)
+    wd_info, paths["wide_decode"] = phase_wide_decode(torch, dev, *wide)
+    emit("wide_decode", wd_info)
+    del wide
+    torch.cuda.empty_cache()
+    tr_info, paths["transducer_rnnt"] = phase_transducer_rnnt(torch, dev)
+    emit("transducer_rnnt", tr_info)
+    as_info, paths["asp_gpt"] = phase_asp_gpt(torch, dev, t_info)
+    emit("asp_gpt", as_info)
+    torch.cuda.empty_cache()
+
+    section(None)
+    emit("section_seconds", dict(SECTION_SECONDS, build=build_s,
+                                 total=time.perf_counter() - t_main))
     for k in kernels:
         by = {p_: n[k["name"]] for p_, n in paths.items()
               if n.get(k["name"])}

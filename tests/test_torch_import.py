@@ -62,7 +62,10 @@ def test_every_module_imports_with_jax_blocked():
         "'monitor.registry', 'monitor.trace', 'monitor.histogram', "
         "'monitor.spans', 'serving.telemetry', 'ops.focal_loss', "
         "'contrib', 'contrib.xentropy', 'contrib.focal_loss', "
-        "'contrib.fmha', 'contrib.multihead_attn'):\n"
+        "'contrib.fmha', 'contrib.multihead_attn', 'contrib.layer_norm', "
+        "'contrib.transducer', 'contrib.transducer.transducer', "
+        "'contrib.sparsity', 'contrib.sparsity.masklib', "
+        "'contrib.sparsity.permutation', 'contrib.sparsity.asp'):\n"
         "    assert 'apex_tpu_torch.' + want in mods, want\n"
         "assert not any(k.split('.')[0] in ('jax', 'apex_tpu', 'triton') "
         "and sys.modules[k] is not None for k in list(sys.modules))\n"
@@ -111,6 +114,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
 def test_new_entry_points_export_the_reference_names():
     from apex_tpu_torch import inference, monitor, serving
     from apex_tpu_torch.contrib import fmha, focal_loss, multihead_attn
+    from apex_tpu_torch.contrib import layer_norm, sparsity, transducer
     from apex_tpu_torch.contrib import xentropy
     from apex_tpu_torch.ops import attention
 
@@ -120,6 +124,14 @@ def test_new_entry_points_export_the_reference_names():
                        (fmha, ("fmha_varlen", "FMHAFun", "fmha", "FMHA")),
                        (multihead_attn, ("SelfMultiheadAttn",
                                          "EncdecMultiheadAttn")),
+                       (layer_norm, ("FastLayerNorm", "fast_layer_norm")),
+                       (transducer, ("TransducerJoint", "TransducerLoss",
+                                     "transducer_joint", "transducer_loss")),
+                       (sparsity, ("ASP", "create_mask", "mask_2to4_best",
+                                   "greedy_swap_search", "exhaustive_search",
+                                   "search_for_good_permutation",
+                                   "sum_after_2_to_4", "apply_permutation",
+                                   "invert_permutation")),
                        (attention, ("seed_from_key",))):
         for name in names:
             assert hasattr(mod, name), (mod.__name__, name)

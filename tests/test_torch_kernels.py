@@ -76,7 +76,12 @@ truth's largest entry; dgamma and dbeta within 1e-5 of the largest entry
 with fp32 parameters and within one bf16 ulp of it (2^-7) with bf16
 ones (fp32 sums in another order, then one rounding). In fp32 every
 output within 1e-5 of the plain version's largest entry. dgamma and dbeta
-bit-identical across two runs on the same input. The softmax backward,
+bit-identical across two runs on the same input. The wide norm kernels
+(hidden 4097 to 65536) by the same rules, fp16 x by the fp16 rule with
+dgamma and dbeta within 2^-10 of the largest entry, every output
+bit-identical across two runs, and two planted faults (the row's last
+16-byte chunk left out of the statistics, the last rank's partial not
+merged) moving rstd and dx past 1e-5 on fp32 rows with a large tail. The softmax backward,
 told the forward's mask, is also run with NaN in dy at the masked
 entries of rows with a live entry: its dx finite, 0 there, the same bits
 as on clean dy and across two runs; fully masked rows and a row whose
@@ -1889,43 +1894,49 @@ def test_layer_norm_kernels_match_plain(cuda, rows, hidden, dtype, wdtype,
     _check_ln(cuda, rows, hidden, dtype, wdtype, rms, affine)
 
 
-def _check_ln(cuda, rows, hidden, dtype, wdtype, rms, affine):
-    """Both kernels on one call against the plain version by the rules of
-    the module docstring, one launch each."""
+def _check_ln(cuda, rows, hidden, dtype, wdtype, rms, affine, wide=False):
+    """Both kernels (``layer_norm.cu``'s, or with ``wide``
+    ``layer_norm_wide.cu``'s) on one call against the plain version by the
+    rules of the module docstring (the fp16 rule for fp16 x), one launch
+    each and none of the other pair's."""
     x, dy, w, b = _ln_case(rows, hidden, dtype, wdtype, affine, cuda,
                            seed=rows + hidden)
     f32 = lambda t: None if t is None else t.float()  # noqa: E731
-    before = (lnmod.ln_fwd_cuda.launches, lnmod.ln_bwd_cuda.launches)
-    y, mean, rstd = lnmod.ln_fwd_cuda(x, w, b, 1e-5, rms)
-    dx, dw, db = lnmod.ln_bwd_cuda(dy, x, mean, rstd, w, rms)
+    pairs = [(lnmod.ln_fwd_cuda, lnmod.ln_bwd_cuda),
+             (lnmod.ln_fwd_wide_cuda, lnmod.ln_bwd_wide_cuda)]
+    fwd, bwd = pairs[wide]
+    before = [f.launches for pair in pairs for f in pair]
+    y, mean, rstd = fwd(x, w, b, 1e-5, rms)
+    dx, dw, db = bwd(dy, x, mean, rstd, w, rms)
     torch.cuda.synchronize()
-    assert (lnmod.ln_fwd_cuda.launches,
-            lnmod.ln_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
+    want = [0, 0, 1, 1] if wide else [1, 1, 0, 0]
+    assert [f.launches - n for f, n in zip(
+        [f for pair in pairs for f in pair], before)] == want
     yp, mp, rp = lnmod._torch_fwd(x, w, b, 1e-5, rms)
     dxp, dwp, dbp = lnmod._torch_bwd(dy, x, mp, rp, w, rms)
     yt, mt, rt = lnmod._torch_fwd(x.float(), f32(w), f32(b), 1e-5, rms)
     dxt, dwt, dbt = lnmod._torch_bwd(dy.float(), x.float(), mt, rt, f32(w),
                                      rms)
     assert y.dtype == dtype and dx.dtype == dtype
-    for name, got, want in (("mean", mean, mt), ("rstd", rstd, rt)):
-        ok, err = _close_to_largest(got, want, 1e-5)
+    for name, got, want_ in (("mean", mean, mt), ("rstd", rstd, rt)):
+        ok, err = _close_to_largest(got, want_, 1e-5)
         assert ok, f"{name}: {err}"
-    if dtype == torch.bfloat16:
-        for name, got, plain, truth in (("y", y, yp, yt),
-                                        ("dx", dx, dxp, dxt)):
-            ok, errs = _within_rule(got, plain, truth)
-            assert ok, f"{name}: kernel/plain errors {errs}"
-    else:
-        for name, got, want in (("y", y, yp), ("dx", dx, dxp)):
-            ok, err = _close_to_largest(got, want, 1e-5)
-            assert ok, f"{name}: {err}"
+    rule = {torch.bfloat16: _within_rule, torch.float16: _f16_rule}
+    for name, got, plain, truth in (("y", y, yp, yt),
+                                    ("dx", dx, dxp, dxt)):
+        if dtype in rule:
+            ok, errs = rule[dtype](got, plain, truth)
+        else:
+            ok, errs = _close_to_largest(got, plain, 1e-5)
+        assert ok, f"{name}: kernel/plain errors {errs}"
     if w is None:
         assert dw is None and db is None
         return
     assert dw.dtype == wdtype and db.dtype == wdtype
-    rel = 2.0 ** -7 if wdtype == torch.bfloat16 else 1e-5
-    for name, got, want in (("dgamma", dw, dwt), ("dbeta", db, dbt)):
-        ok, err = _close_to_largest(got, want, rel)
+    rel = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}.get(
+        wdtype, 1e-5)
+    for name, got, want_ in (("dgamma", dw, dwt), ("dbeta", db, dbt)):
+        ok, err = _close_to_largest(got, want_, rel)
         assert ok, f"{name}: {err}"
 
 
@@ -3351,3 +3362,87 @@ def test_fp16_xent_stats_matches_plain(cuda, n, V, label_dtype):
     for a, b in zip(xmod.xent_stats_cuda(x, lab),
                     xmod._torch_xent_stats(x, lab)):
         assert torch.equal(~torch.isfinite(a), ~torch.isfinite(b))
+
+
+# --- the wide layer-norm kernels (hidden 4097 to 65536) ------------------------
+
+_WIDE_HIDDEN = [4097, 5000, 8192, 12288, 25600, 49152, 65536]
+_WIDE_DTYPES = [(torch.bfloat16, torch.bfloat16),
+                (torch.bfloat16, torch.float32),
+                (torch.float32, torch.float32),
+                (torch.float16, torch.float16),
+                (torch.float16, torch.float32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden", _WIDE_HIDDEN)
+@pytest.mark.parametrize("dtype,wdtype", _WIDE_DTYPES,
+                         ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("rms,affine", [(False, "wb"), (False, ""),
+                                        (True, "w"), (True, "")])
+@pytest.mark.parametrize("rows", [1, 300])
+def test_layer_norm_wide_kernels_match_plain(cuda, rows, hidden, dtype,
+                                             wdtype, rms, affine):
+    _check_ln(cuda, rows, hidden, dtype, wdtype, rms, affine, wide=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,hidden", [(2048, 8192), (1000, 5000),
+                                         (64, 65536), (333, 12288)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_wide_is_bit_reproducible(cuda, rows, hidden, dtype):
+    """y, mean, rstd, dx, dgamma and dbeta the same bits across two runs."""
+    x, dy, w, b = _ln_case(rows, hidden, dtype, dtype, "wb", cuda, seed=5)
+    first = lnmod.ln_fwd_wide_cuda(x, w, b, 1e-5, False)
+    again = lnmod.ln_fwd_wide_cuda(x, w, b, 1e-5, False)
+    _, mean, rstd = first
+    bwd = [lnmod.ln_bwd_wide_cuda(dy, x, mean, rstd, w, False)
+           for _ in range(2)]
+    for a, c in zip(first + bwd[0], again + bwd[1]):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden", _WIDE_HIDDEN)
+@pytest.mark.parametrize("fault", sorted(lnmod.WIDE_FAULTS))
+def test_layer_norm_wide_planted_faults_are_refused(cuda, hidden, fault):
+    """fp32 rows whose last 16-byte chunk is large: the tail left out of
+    the statistics, or the last rank's (warp's) partial not merged, moves
+    rstd, and dx's relative norm error past 1e-5 (the kernel's own is
+    ~1e-7)."""
+    x, dy, _, _ = _ln_case(64, hidden, torch.float32, torch.float32, "",
+                           cuda, seed=hidden)
+    x[:, -4:] += 6
+    dy[:, -4:] += 6
+    yt, mt, rt = lnmod._torch_fwd(x, None, None, 1e-5, False)
+    dxt, _, _ = lnmod._torch_bwd(dy, x, mt, rt, None, False)
+    _, _, r = lnmod.ln_fwd_wide_cuda(x, None, None, 1e-5, False,
+                                     planted_fault=fault)
+    dx, _, _ = lnmod.ln_bwd_wide_cuda(dy, x, mt, rt, None, False,
+                                      planted_fault=fault)
+    assert not _close_to_largest(r, rt, 1e-5)[0]
+    assert ((dx - dxt).norm() / dxt.norm()).item() > 1e-5
+
+
+@pytest.mark.gpu
+def test_wide_norms_dispatch_past_4096(cuda):
+    """fused_layer_norm, fused_rms_norm and contrib's FastLayerNorm at
+    hidden 8192 launch the wide kernels (no ValueError, no register
+    kernel); 0 rows launch nothing; past 65536 the entry refuses."""
+    from apex_tpu_torch.contrib.layer_norm import FastLayerNorm
+
+    fns = (lnmod.ln_fwd_wide_cuda, lnmod.ln_bwd_wide_cuda,
+           lnmod.ln_fwd_cuda, lnmod.ln_bwd_cuda)
+    mod = FastLayerNorm(8192, dtype=torch.bfloat16)
+    x = torch.randn((2, 3, 8192), device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    w = torch.ones(8192, device=cuda, requires_grad=True)
+    before = [f.launches for f in fns]
+    mod(x).float().sum().backward()
+    lnmod.fused_rms_norm(x, w).float().sum().backward()
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(fns, before)] == [2, 2, 0, 0]
+    empty = torch.empty((0, 8192), device=cuda, dtype=torch.bfloat16)
+    assert mod(empty).shape == (0, 8192)
+    with pytest.raises(ValueError, match="queue 2, item 7"):
+        lnmod.fused_layer_norm(torch.zeros((1, 65540), device=cuda))
