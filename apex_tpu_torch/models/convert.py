@@ -19,10 +19,16 @@ and ``MLP``'s into the port's modules of the same names, and
 :func:`optimizer_state_from_jax` gives a reference optimizer's state as
 the port optimizer's, and :func:`serving_pool_from_jax` a reference
 serving engine's block pool (float, or int8/fp8 with its scale planes) as
-the port's.
-Weights keep their ``(out, in)`` layout, which is already PyTorch's. The
-tests feed both packages the same weights this way, and compare gradients
-and optimizer state leaf by leaf.
+the port's; :func:`resnet_params_from_jax` and :func:`resnet_params_to_jax`
+move ``ResNet50``'s tree, and :func:`bn_state_from_jax` its batch-norm
+states.
+Dense weights keep their ``(out, in)`` layout, which is already
+PyTorch's. The ResNet's are the one place where the layouts differ: a
+reference conv weight is HWIO, the port's PyTorch's (out, in, kh, kw), and
+the reference's ``fc_w`` is (in, classes), the port's (classes, in); the
+ResNet functions transpose them both ways. The tests feed both packages
+the same weights this way, and compare gradients and optimizer state leaf
+by leaf.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from apex_tpu_torch.contrib.multihead_attn import (EncdecMultiheadAttn,
                                                    SelfMultiheadAttn)
 from apex_tpu_torch.models.bert import BertConfig
 from apex_tpu_torch.models.gpt import GPTConfig
+from apex_tpu_torch.models.resnet import ResNet50, ResNetConfig
 from apex_tpu_torch.models.t5 import DEC_LAYER, ENC_LAYER, T5Config
 from apex_tpu_torch.ops import _backend
 from apex_tpu_torch.ops.fused_dense import FusedDense, FusedDenseGeluDense
@@ -46,6 +53,7 @@ from apex_tpu_torch.optimizers import (FusedAdagrad, FusedAdam, FusedLAMB,
                                        FusedSGD)
 from apex_tpu_torch.optimizers.multi_tensor import (make_layout,
                                                     unflatten_from_chunks)
+from apex_tpu_torch.parallel.sync_batchnorm import BatchNormState
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -517,3 +525,80 @@ def serving_pool_from_jax(pool: Dict, *,
             raise ValueError(f"{name} must be {want} float32; got "
                              f"{tuple(out[name].shape)} {out[name].dtype}")
     return out
+
+
+# --- ResNet-50 ----------------------------------------------------------------
+
+def _resnet_walk(tree, shapes, path, leaf_fn):
+    if isinstance(shapes, dict):
+        if not isinstance(tree, dict) or set(tree) != set(shapes):
+            raise ValueError(f"{path or 'params'}: expected keys "
+                             f"{sorted(shapes)} for this ResNetConfig, got "
+                             f"{sorted(tree) if isinstance(tree, dict) else type(tree)}")
+        return {k: _resnet_walk(tree[k], shapes[k], f"{path}.{k}".strip("."),
+                                leaf_fn) for k in shapes}
+    return leaf_fn(path, tree, shapes)
+
+
+def _resnet_perm(path: str):
+    """The axes that take a reference leaf to the port's layout (None: as
+    it is): HWIO → (out, in, kh, kw); fc_w (in, classes) → (classes, in)."""
+    name = path.rsplit(".", 1)[-1]
+    if name.startswith("conv"):
+        return (3, 2, 0, 1)
+    if name == "fc_w":
+        return (1, 0)
+    return None
+
+
+def resnet_params_from_jax(tree: Dict, config: ResNetConfig, *,
+                           device: Optional[Union[str, torch.device]] = None
+                           ) -> Dict[str, object]:
+    """``ResNet50.init``'s params (numpy leaves) → the port's tree on
+    ``device`` (default: the card), conv weights and ``fc_w`` transposed
+    to PyTorch's layout; every shape checked against ``config``."""
+    dev = _backend.resolve_device(device)
+
+    def leaf(path, a, shape):
+        perm = _resnet_perm(path)
+        arr = np.asarray(a)
+        if perm is not None:
+            arr = np.transpose(arr, perm)
+        t = _tensor(np.ascontiguousarray(arr), dev)
+        _expect(path, t, shape, "ResNetConfig")
+        return t
+
+    return _resnet_walk(tree, ResNet50(config).param_shapes(), "", leaf)
+
+
+def resnet_params_to_jax(params: Dict[str, object],
+                         config: ResNetConfig) -> Dict[str, object]:
+    """The port's ResNet params (or gradients, which share their layout)
+    → the reference's tree: numpy leaves, conv weights HWIO and ``fc_w``
+    (in, classes); bf16 leaves come back as float32 (exact)."""
+    def leaf(path, t, shape):
+        _expect(path, t, shape, "ResNetConfig")
+        perm = _resnet_perm(path)
+        arr = _array(t)
+        if perm is not None:
+            arr = np.ascontiguousarray(np.transpose(
+                arr, np.argsort(perm)))
+        return arr
+
+    return _resnet_walk(params, ResNet50(config).param_shapes(), "", leaf)
+
+
+def bn_state_from_jax(state, *,
+                      device: Optional[Union[str, torch.device]] = None):
+    """A reference tree of ``BatchNormState``s (numpy leaves; nested
+    dicts, as ``ResNet50.init``'s state, or one state) → the port's
+    :class:`~apex_tpu_torch.parallel.sync_batchnorm.BatchNormState`s on
+    ``device`` (default: the card)."""
+    dev = _backend.resolve_device(device)
+    if isinstance(state, dict):
+        return {k: bn_state_from_jax(v, device=dev) for k, v in state.items()}
+    return BatchNormState(
+        running_mean=_tensor(state.running_mean, dev),
+        running_var=_tensor(state.running_var, dev),
+        num_batches_tracked=_tensor(
+            np.asarray(state.num_batches_tracked).astype(np.int32), dev))

@@ -163,6 +163,14 @@ ENTRY_POINTS = {
                          _F, _P],
     # x, y, dtype, numel, n, seed, thresh, div, inv, fault, stream
     "apex_dropout": [_P, _P, _I, _L, _L, _U, _I, _F, _F, _I, _P],
+    # x, res, y, scale, bias, rmean, rvar, stats, part, dtype, out_dtype,
+    # w_dtype, M, C, train, relu, eps, vec, tx, ty, chunks, rows_per_chunk,
+    # apply_ctas, fault, stream
+    "apex_bn_fwd": [_P] * 9 + [_I] * 7 + [_F] + [_I] * 7 + [_P],
+    # dy, x, y, stats, dx, dres, dscale, dbias, part, dtype, out_dtype,
+    # w_dtype, M, C, train, relu, vec, tx, ty, chunks, rows_per_chunk,
+    # apply_ctas, fault, stream
+    "apex_bn_bwd": [_P] * 9 + [_I] * 14 + [_P],
     # a, b, bias, c, ws, dtype, variant, a_k, b_k, a_vec, b_vec, act,
     # bias_f32, out_f32, M, N, K, lda, ldb, ldc, split, kt_split, stream
     "apex_matmul_bias_act": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

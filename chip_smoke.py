@@ -15,7 +15,9 @@ encoder-serving entry, a Transformer-big step built from contrib's
 attention modules (key padding and dropout beside the array bias, the
 label-smoothed cross-entropy), the norms past hidden 4096 (contrib's
 FastLayerNorm) driven by a GPT step and generation at Megatron's 39.1B
-widths, contrib's RNN-T transducer and ASP 2:4 sparsity, on one CUDA
+widths, contrib's RNN-T transducer and ASP 2:4 sparsity, ResNet-50's O2
+step on the batch-norm kernel (with contrib's bottleneck and
+conv_bias_relu) and the whole RNN-T step on rnn/'s LSTMs, on one CUDA
 card.
 
 Run from the repository root on a machine with an NVIDIA H100 (no
@@ -519,14 +521,57 @@ without the final line):
       ``wrap_optimizer(FusedAdam)`` with every pruned entry 0 and no group
       over 2 of 4 after every step and the train leg's launches; step ms
       beside the dense leg's;
-18. one ``{"kernels": [...]}`` line (all twenty-three kernels, the six
+18. ResNet-50 and the whole RNN-T step (after ASP):
+    * ``bn_kernel``: ``csrc/batch_norm.cu``'s forward (fp32 Welford sums
+      over fixed row chunks, combined in a fixed order; the apply with the
+      residual and the ReLU) and backward (Σdy', Σdy'·x̂ the same way; dx
+      and dresidual) at each of the 16 distinct calls of ResNet-50's step
+      at batch 256 (bf16 x, y and parameters), and at one call in fp32
+      and in fp16: y, dx and dresidual by the norm rule against the fp32
+      plain version (the backward given the kernel's y for the ReLU's
+      mask), mean and rstd within 1e-5, dscale and dbias within 2^-7
+      (bf16) or 1e-5 (fp32) of the largest, all bit-identical across two
+      runs; two planted faults (the last row chunk left out of the
+      statistics; dx without its −x̂·Σdy'x̂/M term) refused at every call;
+      each call timed beside its bytes bound, the plain version and
+      ``F.batch_norm`` on the channels_last view + ``add_``/``relu_`` (and
+      its autograd backward), and the step's sums of each;
+    * ``resnet50_train``: the reference example's defaults
+      (``examples/imagenet/main_amp.py:34-54``: ResNet-50 v1.5, 224²,
+      1000 classes, batch 256, O2 with the dynamic scaler, FusedSGD lr
+      0.1, momentum 0.9, weight decay 1e-4, the xentropy loss with
+      ``half_to_float``) on its --deterministic data (a fresh seeded batch
+      a step, class colour templates): 2 warm-up and 48 timed steps with
+      53 batch-norm forward and 53 backward launches (16 with the
+      residual and ReLU, 33 with the ReLU, 4 with neither) and one
+      ``xent_stats`` a step, nothing else; losses finite and falling; step
+      ms, images/s, model TFLOP/s and MFU (3 × the convolutions' and fc's
+      FLOPs over 989 TFLOP/s), peak memory, a profile;
+    * ``resnet50_checks``: one O2 step at batch 32 against the plain path
+      and an fp32 truth (each leaf's error from the truth within twice the
+      plain path's + 1e-3; the loss's within twice the plain path's
+      spread over the images at four scales, which the network does not
+      see, + 1e-4), the same step in fp32 (loss kernel vs plain within
+      1e-4), an eval forward on the trained running statistics (53 eval
+      launches; logits within 1e-2 relative norm of the plain path's), a
+      stage-1 ``Bottleneck`` and the ``conv_bias_relu`` family (XLA's SAME
+      at stride 2) against their plain versions and fp32 truths;
+    * ``rnnt_train``: the MLPerf RNN-T step (``baseline_v3-1023sp.yaml``:
+      240 features, 2 + 3 LSTM layers of 1024 around a time stacking of 2,
+      an embedding and 2 LSTM layers of 320, the joint of 512 and V 1024),
+      batch 16 at ``transducer_rnnt``'s lengths, bf16 weights and the loss
+      in fp32: a warm-up and 3 FusedSGD steps on one batch, losses finite
+      and falling, no kernel of the port launched; forward and backward
+      ms, peak memory;
+19. one ``{"kernels": [...]}`` line (all twenty-three kernels, the six
     fp16 instances, ``<name>_f16``, the wide norm instances
     ``ln_fwd_wide``/``ln_bwd_wide`` and their fp16 ``_f16``, and the
     seven instances of
     ``paged_decode_attn_int8``/``_fp8``/``_rel``,
     ``decode_attn_rel``, ``flash_fwd_bshd_rel``,
     ``flash_bwd_bshd_dq_rel``/``_dkv_rel``; the flash kernels' kArr x
-    kDrop instances under ``bias_dropout``), each with
+    kDrop instances under ``bias_dropout``; the batch-norm kernels
+    ``bn_fwd``/``bn_bwd``), each with
     its launches by main path; matmul_bias_act and the flash kernels
     also by variant, every train leg's, the decode leg's and the T5
     materialized leg's flash forward and dbias launches asserted on
@@ -1545,6 +1590,8 @@ def kernel_category(name):
         return "layer-norm kernels"
     if "softmax_fwd" in name or "softmax_bwd" in name:
         return "softmax kernels"
+    if "namespace)::bn_" in name:
+        return "batch-norm kernels"
     if "nvjet" in name or "gemm" in name.lower() or "cutlass" in name:
         return "GEMMs (cuBLAS)"
     if "multi_tensor_apply" in name:
@@ -5231,6 +5278,7 @@ def path_counters():
     ``xent_stats``'s launches on their fp16 instances, ``<name>_f16``):
     the kernels a path must launch and those it must not."""
     from apex_tpu_torch.ops import attention as A
+    from apex_tpu_torch.ops import batch_norm as BN
     from apex_tpu_torch.ops import dropout as D
     from apex_tpu_torch.ops import layer_norm as LN
     from apex_tpu_torch.ops import matmul as MM
@@ -5310,7 +5358,13 @@ def path_counters():
             "matmul_bias_act_fp32": (MM.matmul_bias_act_cuda,
                                      "fp32_launches"),
             "matmul_bias_act_split": (MM.matmul_bias_act_cuda,
-                                      "split_launches")}
+                                      "split_launches"),
+            # the batch-norm kernels, by epilogue and in eval
+            **{f"bn_{d}{k and '_' + k}": (fn, f"{k}_launches" if k
+                                          else "launches")
+               for d, fn in (("fwd", BN.bn_fwd_cuda),
+                             ("bwd", BN.bn_bwd_cuda))
+               for k in ("", "res_relu", "relu", "res", "bare", "eval")}}
 
 
 def zero_counters():
@@ -5392,7 +5446,7 @@ def bert_train_counts():
 
 
 def compare_paths(torch, run, params, params32, what, bound_kernel_vs_plain,
-                  view=None):
+                  view=None, hold_loss=True):
     """One step's loss and gradients at ``params``: the kernel path against
     the plain path, and both against an fp32 plain-path truth at
     ``params32`` (the same params upcast). ``run(p, impl)`` returns the
@@ -5401,7 +5455,8 @@ def compare_paths(torch, run, params, params32, what, bound_kernel_vs_plain,
     to the step), the losses within TRAIN_LOSS_TOL; where
     ``bound_kernel_vs_plain``, each leaf's kernel-vs-plain error is also
     held to TRAIN_GRAD_TOL. ``view(name, grad)`` may narrow a leaf's
-    gradient; leaves without a gradient are skipped."""
+    gradient; leaves without a gradient are skipped. ``hold_loss=False``
+    reports the losses and leaves their rule to the caller."""
 
     def loss_and_grads(p, impl):
         loss = run(p, impl)
@@ -5430,6 +5485,7 @@ def compare_paths(torch, run, params, params32, what, bound_kernel_vs_plain,
             "loss_fp32_truth": loss_t,
             "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
             "loss_tol": TRAIN_LOSS_TOL,
+            "loss_rel_err_vs_truth": abs(loss_k - loss_t) / abs(loss_t),
             "grad_rel_norm_err_max": worst[0][1],
             "grad_worst_leaf": worst[0][0],
             "grad_tol": TRAIN_GRAD_TOL if bound_kernel_vs_plain else None,
@@ -5442,9 +5498,10 @@ def compare_paths(torch, run, params, params32, what, bound_kernel_vs_plain,
                 "worst_kernel": kt[worst_rule], "worst_plain": pt[worst_rule],
                 "top_kernel_vs_plain": {n: [e, kt[n], pt[n]]
                                         for n, e in worst[:5]}}}
-    check(info["loss_rel_diff"] <= TRAIN_LOSS_TOL,
-          f"loss at {what}, kernel vs plain: rel diff "
-          f"{info['loss_rel_diff']}")
+    if hold_loss:
+        check(info["loss_rel_diff"] <= TRAIN_LOSS_TOL,
+              f"loss at {what}, kernel vs plain: rel diff "
+              f"{info['loss_rel_diff']}")
     if bound_kernel_vs_plain:
         check(worst[0][1] <= TRAIN_GRAD_TOL,
               f"gradient {worst[0][0]} at {what}, kernel vs plain: rel "
@@ -9991,6 +10048,686 @@ def phase_asp_gpt(torch, dev, dense):
     return info, launches
 
 
+# --- ResNet-50 with the batch-norm kernel; the whole RNN-T step -------------
+
+#: the reference example's defaults (examples/imagenet/main_amp.py:34-54):
+#: ResNet-50 v1.5, 224², 1000 classes, global batch 256 on the one card,
+#: O2, SGD (lr 0.1, momentum 0.9, weight decay 1e-4), the dynamic loss
+#: scale; its --deterministic data (:114-127): a fresh seeded batch a step,
+#: each class's images shifted by the class's colour template (N(0, 2²))
+RESNET = dict(batch=256, image=224, classes=1000, lr=0.1, momentum=0.9,
+              weight_decay=1e-4)
+#: warm-up and timed steps: at lr 0.1 the loss climbs above ln 1000 over
+#: the first 5-10 steps and falls below it after about 30
+RESNET_WARMUP, RESNET_STEPS = 2, 48
+#: the batch of the kernel-vs-plain step (the plain path's fp32 copies of
+#: every activation would not fit at 256)
+RESNET_CHECK_BATCH = 32
+#: per step: 53 batch norms forward and backward (bn1 and 32 bn_a/bn_b
+#: with the ReLU, 16 bn_c with the residual and the ReLU, 4 bn_proj with
+#: neither) and the loss's xent_stats
+RESNET_LAUNCHES = {f"bn_{d}{k}": n for d in ("fwd", "bwd")
+                   for k, n in (("", 53), ("_res_relu", 16), ("_relu", 33),
+                                ("_bare", 4))}
+RESNET_LAUNCHES["xent_stats"] = 1
+RESNET_EVAL_TOL = 1e-2   # eval logits, kernel vs plain: relative norm
+#: the images' scales of the plain path's extra losses (the O2 step's loss
+#: rule): the two bf16 paths' batch norms round to bf16 after fp32 sums in
+#: other orders, and 53 of them grow those 1-ulp differences into ~5e-4 of
+#: the loss (the fp32 paths agree within 1e-6)
+RESNET_SCALES = (1 + 2 ** -6, 1 - 2 ** -6, 1 + 2 ** -5, 1 - 2 ** -5)
+BN_STAT_TOL = 1e-5       # mean and rstd, of the truth's largest entry
+BN_W_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7, "float16": 2 ** -10}
+#: the bn_kernel phase's extra dtypes (x, y, scale and bias) at one call
+BN_EXTRA = (("float32", "float32", "float32"),
+            ("float16", "float16", "float32"))
+#: the whole MLPerf RNN-T step (rnn_speech_recognition/pytorch/configs/
+#: baseline_v3-1023sp.yaml): 80 filterbanks stacked 3 (240 features), 2
+#: LSTM layers of 1024, time stacking x 2, 3 more; a predictor of 2 LSTM
+#: layers of 320 over a 320-wide embedding; RNNT's joint and loss; bf16
+#: weights, the loss in fp32; FusedSGD on one seeded batch
+RNNT_STEP = dict(features=240, pre_layers=2, stack=2, post_layers=3,
+                 embed=320, pred_layers=2, lr=1e-3, steps=3)
+
+
+def resnet50_flops(batch, image, classes):
+    """One forward's model FLOPs: 2·MACs of every convolution (from its
+    output's size and its weight's shape) and of the fc."""
+    from apex_tpu_torch.models.resnet import ResNet50, ResNetConfig
+
+    hw = image // 2
+    flops = 2 * batch * hw * hw * 64 * 3 * 49
+    hw //= 2
+    for _, stride, cin, ch, cout in ResNet50(ResNetConfig()).blocks():
+        flops += 2 * batch * hw * hw * cin * ch          # conv_a
+        out = hw // stride
+        flops += 2 * batch * out * out * ch * ch * 9     # conv_b
+        flops += 2 * batch * out * out * ch * cout       # conv_c
+        if cin != cout or stride != 1:
+            flops += 2 * batch * out * out * cin * cout  # conv_proj
+        hw = out
+    return flops + 2 * batch * 2048 * classes
+
+
+def bn_case(torch, dev, M, C, dtypes, residual, seed):
+    """Activations like a step's: per-channel offsets and scales and
+    per-image shifts (so a left-out chunk moves the statistics), dy
+    correlated with x̂ (so dx's x̂ term is large), running statistics."""
+    dt, ot, wt = (getattr(torch, n) for n in dtypes)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m = torch.rand(C, generator=g, device=dev) * 4 - 2
+    s = torch.rand(C, generator=g, device=dev) * 1.5 + 0.5
+    img = torch.arange(M, device=dev) * 32 // M
+    a = torch.randn((32, C), generator=g, device=dev) * 0.5
+    x = (m + s * (torch.randn((M, C), generator=g, device=dev)
+                  + a[img])).to(dt)
+    xh = (x.float() - m) / s
+    dy = (0.5 * torch.randn((M, C), generator=g, device=dev) + 0.5 * xh
+          + 0.25).to(ot)
+    del xh
+    res = (torch.randn((M, C), generator=g, device=dev).to(ot)
+           if residual else None)
+    sc = (torch.rand(C, generator=g, device=dev) + 0.5).to(wt)
+    bi = (torch.randn(C, generator=g, device=dev) * 0.2).to(wt)
+    return x, dy, res, sc, bi, (m + 0.1).float(), (s * s).float()
+
+
+def bn_run(B, case, relu, training=True, fwd_fault=None, bwd_fault=None):
+    x, dy, res, sc, bi, rm, rv = case
+    y, st = B.bn_fwd_cuda(x, sc, bi, training=training, eps=1e-5,
+                          running_mean=rm, running_var=rv, residual=res,
+                          relu=relu, out_dtype=dy.dtype,
+                          planted_fault=fwd_fault)
+    return y, st, B.bn_bwd_cuda(dy, x, y, st, training=training,
+                                residual=res is not None, relu=relu,
+                                w_dtype=sc.dtype, planted_fault=bwd_fault)
+
+
+def bn_plain_run(torch, B, case, relu, y_kernel, upcast, training=True):
+    """The plain version on the same inputs (fp32 on the upcast ones: the
+    truth); its backward given the kernel's y for the ReLU's mask."""
+    x, dy, res, sc, bi, rm, rv = case
+    f = (lambda t: None if t is None else t.float()) if upcast else (
+        lambda t: t)
+    y, mean, var = B.bn_plain(f(x), f(sc), f(bi), training=training,
+                              eps=1e-5, running_mean=rm, running_var=rv,
+                              residual=f(res), relu=relu,
+                              out_dtype=torch.float32 if upcast
+                              else dy.dtype)
+    grads = B.bn_backward_plain(f(dy), f(x), f(y_kernel), f(sc), f(bi),
+                                training=training, eps=1e-5,
+                                running_mean=rm, running_var=rv,
+                                residual=res is not None, relu=relu)
+    return y, mean, torch.rsqrt(var + 1e-5), grads
+
+
+def bn_checks(torch, got, plain, truth, dtypes):
+    """{output: [passes, error, limit]}: y, dx and dresidual by the norm
+    rule (bf16: 2× the plain version's max abs error + 1e-3; fp16: +
+    2^-13 × max(1, the largest); fp32: 1e-5 of the largest), mean and rstd
+    within BN_STAT_TOL, dscale and dbias within BN_W_TOL of the largest."""
+    dt, ot, wt = dtypes
+    y, st, (dx, dres, ds, db) = got
+    yp, _, _, (dxp, dresp, _, _) = plain
+    yt, mt, rt, (dxt, drest, dst, dbt) = truth
+
+    def rule(a, p, t, dtype):
+        err = (a.float() - t.float()).abs().max().item()
+        top = t.abs().max().item()
+        if dtype == "float32":
+            return [err <= 1e-5 * top, err, 1e-5 * top]
+        own = (p.float() - t.float()).abs().max().item()
+        lim = 2 * own + (1e-3 if dtype == "bfloat16"
+                         else 2 ** -13 * max(1.0, top))
+        return [err <= lim, err, lim]
+
+    out = {"y": rule(y, yp, yt, ot), "dx": rule(dx, dxp, dxt, dt)}
+    if dres is not None:
+        out["dres"] = rule(dres, dresp, drest, ot)
+    for name, a, b, tol in (("mean", st[0], mt, BN_STAT_TOL),
+                            ("rstd", st[2], rt, BN_STAT_TOL),
+                            ("dscale", ds, dst, BN_W_TOL[wt]),
+                            ("dbias", db, dbt, BN_W_TOL[wt])):
+        err = (a.float() - b.float()).abs().max().item()
+        lim = tol * b.float().abs().max().item()
+        out[name] = [err <= lim, err, lim]
+    return out
+
+
+def bn_call(torch, dev, M, C, residual, relu, hw, dtypes, seed):
+    """One call of the kernels against the plain version and the fp32
+    truth, twice (bit-identical), and with each planted fault (refused);
+    then timed beside the bytes bound, the plain version and F.batch_norm
+    on the channels_last view (+ add_, relu_) and its autograd backward."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import batch_norm as B
+
+    case = bn_case(torch, dev, M, C, dtypes, residual, seed)
+    got = bn_run(B, case, relu)
+    again = bn_run(B, case, relu)
+    flat = lambda r: [r[0], r[1], *[t for t in r[2] if t is not None]]  # noqa: E731
+    same = all(torch.equal(a, b) for a, b in zip(flat(got), flat(again)))
+    del again
+    plain = bn_plain_run(torch, B, case, relu, got[0], False)
+    truth = bn_plain_run(torch, B, case, relu, got[0], True)
+    checks = bn_checks(torch, got, plain, truth, dtypes)
+    faults = {}
+    for fwd, bwd in (("drop_last_chunk", None), (None, "drop_xhat_term")):
+        bad = bn_run(B, case, relu, fwd_fault=fwd, bwd_fault=bwd)
+        fc = bn_checks(torch, bad, plain, truth, dtypes)
+        faults[fwd or bwd] = sorted(k for k, v in fc.items() if not v[0])
+    del plain, truth, bad
+    what = f"bn {M}x{C} res {residual} relu {relu} {dtypes}"
+    check(all(v[0] for v in checks.values()),
+          f"{what}: the kernels fail the rules: {checks}")
+    check(same, f"{what}: the kernels are not bit-identical across runs")
+    check(all(faults.values()), f"{what}: a planted fault passed: {faults}")
+    x, dy, res, sc, bi, rm, rv = case
+    y, st = got[0], got[1]
+    del got
+    n_img = M // (hw * hw)
+    fwd = lambda: B.bn_fwd_cuda(x, sc, bi, training=True, residual=res,  # noqa: E731
+                                relu=relu, out_dtype=dy.dtype)
+    bwd = lambda: B.bn_bwd_cuda(dy, x, y, st, training=True,  # noqa: E731
+                                residual=residual, relu=relu,
+                                w_dtype=sc.dtype)
+    ms_f = time_ms(fwd, [()], reps=10, trials=3)
+    ms_b = time_ms(bwd, [()], reps=10, trials=3)
+    plain_f = time_ms(lambda: B.bn_plain(x, sc, bi, training=True, eps=1e-5,
+                                         residual=res, relu=relu),
+                      [()], reps=2, trials=3)
+    leaves = [t.detach().requires_grad_() for t in (x, sc, bi)]
+    yp, _, _ = B.bn_plain(*leaves, training=True, eps=1e-5)
+    gmask = dy * (y > 0) if relu else dy
+    plain_b = time_ms(lambda: torch.autograd.grad(yp, leaves, gmask,
+                                                  retain_graph=True),
+                      [()], reps=2, trials=3)
+    del yp, leaves
+    view = lambda t: t.view(n_img, hw, hw, C).permute(0, 3, 1, 2)  # noqa: E731
+    lib_in = [view(x).detach().requires_grad_(),
+              sc.float().requires_grad_(), bi.float().requires_grad_()]
+    if res is not None:
+        lib_in.append(view(res).detach().requires_grad_())
+    lrm, lrv = rm.clone(), rv.clone()
+
+    def lib_fwd():
+        out = F.batch_norm(lib_in[0], lrm, lrv, lib_in[1], lib_in[2],
+                           training=True, momentum=0.1, eps=1e-5)
+        if res is not None:
+            out = out.add_(lib_in[3])
+        return out.relu_() if relu else out
+
+    lib_f = time_ms(lib_fwd, [()], reps=10, trials=3)
+    yl = lib_fwd()
+    lib_b = time_ms(lambda: torch.autograd.grad(yl, lib_in, view(dy),
+                                                retain_graph=True), [()],
+                    reps=10, trials=3)
+    del yl, lib_in
+    es = {"float32": 4, "bfloat16": 2, "float16": 2}
+    xb, ob = es[dtypes[0]], es[dtypes[1]]
+    by_f = M * C * (xb + ob * (2 if residual else 1))
+    by_b = M * C * (ob + xb + (ob if relu else 0) + xb
+                    + (ob if residual else 0))
+    # about ten fp32 operations an element each way (Welford and the
+    # apply; the two sums and dx)
+    bound_f = bound(by_f, 10 * M * C, FP32_OPS_PER_S)
+    bound_b = bound(by_b, 10 * M * C, FP32_OPS_PER_S)
+    plan = B._bn_plan(M, C, getattr(torch, dtypes[0]))
+    return {"rows": M, "channels": C, "residual": residual, "relu": relu,
+            "dtypes": list(dtypes), "plan": plan._asdict(),
+            "checks": checks, "faults_refused_by": faults,
+            "bit_identical": same,
+            "fwd": {"ms": ms_f, "plain_ms": plain_f, "library_ms": lib_f,
+                    "bound_ms": bound_f[0], "bound_by": bound_f[1]},
+            "bwd": {"ms": ms_b, "plain_ms": plain_b, "library_ms": lib_b,
+                    "bound_ms": bound_b[0], "bound_by": bound_b[1]}}
+
+
+def phase_bn_kernel(torch, dev):
+    """``csrc/batch_norm.cu`` at each distinct call of ResNet-50's step at
+    batch 256 (bf16 x, y and parameters, as the O2 step), and at one call
+    in fp32 and in fp16 (fp32 parameters): see :func:`bn_call`. Returns
+    the kernels line's two entries and the per-call info."""
+    from apex_tpu_torch.models.resnet import ResNet50, ResNetConfig
+
+    c = RESNET
+    calls = ResNet50(ResNetConfig()).bn_calls(c["batch"], c["image"])
+    distinct = list(dict.fromkeys(calls))
+    per_call = {}
+    for i, (M, C, res, relu, hw) in enumerate(distinct):
+        key = f"{M}x{C}{' res' if res else ''}{' relu' if relu else ''}"
+        per_call[key] = bn_call(torch, dev, M, C, res, relu, hw,
+                                ("bfloat16",) * 3, seed=i)
+        per_call[key]["calls_a_step"] = calls.count((M, C, res, relu, hw))
+        torch.cuda.empty_cache()
+    M, C, res, relu, hw = distinct[2]  # stage 1's bn_c, 802816 x 256
+    for dtypes in BN_EXTRA:
+        per_call[f"{M}x{C} res relu {dtypes[0]}"] = bn_call(
+            torch, dev, M, C, res, relu, hw, dtypes, seed=99)
+        torch.cuda.empty_cache()
+    first = next(iter(per_call.values()))  # bn1: 3,211,264 x 64
+    entries = []
+    for op, out in (("fwd", "y"), ("bwd", "dx")):
+        t = first[op]
+        entries.append({
+            "name": f"bn_{op}", "route": "cuda",
+            "source": "apex_tpu_torch/csrc/batch_norm.cu",
+            "replaces": "apex_tpu/parallel/sync_batchnorm.py:52 "
+                        "(sync_batch_norm; XLA in the reference, no Pallas "
+                        "kernel)",
+            "max_abs_err": max(v["checks"][out][1]
+                               for v in per_call.values()),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library_note": "F.batch_norm on the channels_last view, + add_ "
+                            "and relu_" + (" (autograd backward)"
+                                           if op == "bwd" else ""),
+            "timed_shape": "ResNet-50 bn1 at batch 256: 3211264 x 64, ReLU, "
+                           "bf16",
+            "per_shape": {k: dict(v[op], calls_a_step=v.get("calls_a_step"))
+                          for k, v in per_call.items()}})
+    step_ms = {op: sum(v[op]["ms"] * v.get("calls_a_step", 0)
+                       for v in per_call.values()) for op in ("fwd", "bwd")}
+    info = {"calls": {k: {kk: v[kk] for kk in ("checks", "faults_refused_by",
+                                               "bit_identical", "plan")}
+                      for k, v in per_call.items()},
+            "step_kernel_ms": step_ms,
+            "step_bound_ms": {op: sum(v[op]["bound_ms"]
+                                      * v.get("calls_a_step", 0)
+                                      for v in per_call.values())
+                              for op in ("fwd", "bwd")},
+            "step_library_ms": {op: sum(v[op]["library_ms"]
+                                        * v.get("calls_a_step", 0)
+                                        for v in per_call.values())
+                                for op in ("fwd", "bwd")}}
+    return entries, info
+
+
+def resnet_data(torch, dev, classes, seed=1):
+    """The example's --deterministic batches: (templates, draw(b, image))."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    templates = torch.randn((classes, 1, 1, 3), generator=g,
+                            device=dev) * 2.0
+
+    def draw(b, image):
+        y = torch.randint(0, classes, (b,), generator=g, device=dev)
+        x = torch.randn((b, image, image, 3), generator=g,
+                        device=dev) + templates[y]
+        return x, y
+
+    return draw
+
+
+def phase_resnet50_train(torch, dev):
+    """The example's ResNet-50 O2 step at its defaults (RESNET): 2 warm-up
+    and 48 timed steps, each on a fresh batch, with every counter zeroed
+    just before and read just after; the launches a step asserted
+    (RESNET_LAUNCHES, nothing else); losses finite and falling; step ms,
+    images/s, model TFLOP/s and MFU, peak memory, a profile. Returns (info,
+    launches, (model, amp state, bn state, data))."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models.resnet import ResNet50, ResNetConfig
+    from apex_tpu_torch.optimizers import FusedSGD
+    from apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
+    from apex_tpu_torch.utils.pytree import tree_leaves
+
+    c = RESNET
+    model = ResNet50(ResNetConfig(num_classes=c["classes"]))
+    params, bn_state = model.init(torch.Generator(device=dev).manual_seed(0),
+                                  device=dev)
+    opt = FusedSGD([t for t in tree_leaves(params) if t.is_floating_point()],
+                   lr=c["lr"], momentum=c["momentum"],
+                   weight_decay=c["weight_decay"])
+    st = amp.initialize(params, opt, "O2")
+    draw = resnet_data(torch, dev, c["classes"])
+    live = {"bn": bn_state}
+
+    def loss_fn(mp, bs, x, y):
+        logits, nb = model.apply(mp, bs, x, training=True)
+        return softmax_cross_entropy_loss(logits, y, 0.0,
+                                          half_to_float=True).mean(), nb
+
+    grad = amp.scaled_value_and_grad(loss_fn, has_aux=True)
+
+    def step():
+        x, y = draw(c["batch"], c["image"])
+        x = x.to(st.policy.param_dtype)
+        with amp.with_policy(st.policy):
+            (loss, nb), (grads, finite, st.scaler) = grad(
+                st.scaler, st.params.model, live["bn"], x, y)
+        amp.apply_updates_with_master(st.params, st.optimizer, grads,
+                                      grads_finite=finite)
+        live["bn"] = nb
+        return loss.detach()
+
+    for _ in range(RESNET_WARMUP):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(RESNET_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(v) for v in losses]
+    check_launches(launches, RESNET_LAUNCHES, RESNET_STEPS, "resnet50_train")
+    check(all(np.isfinite(losses)), f"resnet50_train: losses not finite: "
+          f"{losses}")
+    check(losses[-1] < losses[0]
+          and np.mean(losses[-5:]) < np.mean(losses[:5]),
+          f"resnet50_train: loss did not fall: {losses}")
+    step_s = wall / RESNET_STEPS
+    flops = 3 * resnet50_flops(c["batch"], c["image"], c["classes"])
+    info = {"config": dict(RESNET), "source": "examples/imagenet/"
+            "main_amp.py:34-54 (defaults), its --deterministic data "
+            "(:114-127)", "reduced": [], "opt_level": "O2",
+            "warmup_steps": RESNET_WARMUP, "steps": RESNET_STEPS,
+            "losses": losses, "step_ms": 1e3 * step_s,
+            "images_per_s": c["batch"] / step_s,
+            "model_tflop_per_step": flops / 1e12,
+            "model_tflops": flops / step_s / 1e12,
+            "mfu": flops / step_s / BF16_OPS_PER_S,
+            "peak_memory_gb": peak,
+            "skipped_steps": int(st.scaler.skipped_steps),
+            "loss_scale": float(st.scaler.loss_scale),
+            "launches_per_step": {k: v / RESNET_STEPS
+                                  for k, v in launches.items() if v}}
+    info["profile"] = phase_train_profile(torch, step, step_s)
+    return info, launches, (model, st, live, draw)
+
+
+def phase_resnet50_checks(torch, dev, trained):
+    """Beside the train leg: one step at batch 32 against the plain path
+    and an fp32 truth (compare_paths' rules); an eval-mode forward at batch
+    256 on the trained running statistics (53 eval launches of the forward
+    kernel, none of the backward; logits within RESNET_EVAL_TOL relative
+    norm of the plain path's); a stage-1 Bottleneck (256 → 128 → 512,
+    stride 2, 56², batch 32) and the conv_bias_relu family at a stage-1
+    shape against their plain versions and fp32 truths. Returns (info,
+    eval launches)."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.contrib import conv_bias_relu as cbr
+    from apex_tpu_torch.contrib.bottleneck import Bottleneck
+    from apex_tpu_torch.models.resnet import ResNet50, ResNetConfig
+    from apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
+    from apex_tpu_torch.utils.pytree import tree_map
+
+    c = RESNET
+    info = {}
+    model = ResNet50(ResNetConfig(num_classes=c["classes"]))
+    p32, bn0 = model.init(torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    params = tree_map(lambda t: t.bfloat16().requires_grad_(), p32)
+    params32 = tree_map(lambda t: t.detach().float().requires_grad_(),
+                        params)
+    x, y = resnet_data(torch, dev, c["classes"], seed=7)(
+        RESNET_CHECK_BATCH, c["image"])
+
+    def run(p, impl, s=1.0):
+        xh = (x * s).bfloat16()  # the truth reads the same bf16 images
+        logits, _ = model.apply(p, bn0, xh if p is not params32
+                                else xh.float(), training=True, impl=impl)
+        return softmax_cross_entropy_loss(logits, y, 0.0, half_to_float=True,
+                                          impl=impl).mean()
+
+    cmp = compare_paths(torch, run, params, params32,
+                        f"initial (seed 0), batch {RESNET_CHECK_BATCH}",
+                        False, hold_loss=False)
+    # the loss: the network is invariant to the images' scale (bn1
+    # normalizes conv1's output), so the plain path's losses on the scaled
+    # images are other roundings of the same loss; the kernel path's error
+    # from the truth must lie within twice their spread + TRAIN_LOSS_TOL
+    loss_t = cmp["loss_fp32_truth"]
+    with torch.no_grad():
+        spread = max([abs(cmp["loss_plain"] - loss_t)]
+                     + [abs(run(params, "torch", s).item() - loss_t)
+                        for s in RESNET_SCALES])
+    lim = 2 * spread + TRAIN_LOSS_TOL * abs(loss_t)
+    cmp["loss_rule"] = {"kernel_err_vs_truth": abs(cmp["loss_kernel"]
+                                                   - loss_t),
+                        "plain_spread_vs_truth": spread, "limit": lim,
+                        "scales": list(RESNET_SCALES)}
+    info["vs_plain_path"] = cmp
+    check(abs(cmp["loss_kernel"] - loss_t) <= lim,
+          f"resnet50 O2 step: the kernel path's loss is further from the "
+          f"fp32 truth than the plain path's spread allows: "
+          f"{cmp['loss_rule']}")
+    del params, params32
+    # the same step in fp32 (the kernels' fp32 instances, TF32 off): the
+    # loss kernel vs plain within TRAIN_LOSS_TOL; the gradients are
+    # reported, not held (at the initial params a 1e-6 change of the
+    # images moves the plain path's own leaves by a median 1.8%: ReLU and
+    # max-pool near-ties)
+    losses, grads = [], []
+    for impl in ("auto", "torch"):
+        p = tree_map(lambda t: t.detach().clone().requires_grad_(), p32)
+        logits, _ = model.apply(p, bn0, x, training=True, impl=impl)
+        loss = softmax_cross_entropy_loss(logits, y, impl=impl).mean()
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({n: t.grad.float() for n, t in named_leaves(p)})
+    errs = [((grads[0][n] - grads[1][n]).norm()
+             / grads[1][n].norm().clamp_min(1e-30)).item() for n in grads[1]]
+    info["fp32_vs_plain_path"] = {
+        "loss_kernel": losses[0], "loss_plain": losses[1],
+        "loss_rel_diff": abs(losses[0] - losses[1]) / abs(losses[1]),
+        "loss_tol": TRAIN_LOSS_TOL,
+        "grad_rel_norm_err_median": statistics.median(errs),
+        "grad_rel_norm_err_max": max(errs)}
+    check(info["fp32_vs_plain_path"]["loss_rel_diff"] <= TRAIN_LOSS_TOL,
+          f"resnet50 fp32 step, kernel vs plain loss: "
+          f"{info['fp32_vs_plain_path']}")
+    del grads, p, p32, logits, loss
+    torch.cuda.empty_cache()
+    # eval on the trained running statistics
+    model, st, live, draw = trained
+    xe, ye = draw(c["batch"], c["image"])
+    xe = xe.bfloat16()
+    zero_counters()
+    with torch.no_grad():
+        logits = model.apply(st.params.model, live["bn"], xe,
+                             training=False)[0].float()
+        torch.cuda.synchronize()
+        ev_launches = read_counters()
+        plain = model.apply(st.params.model, live["bn"], xe, training=False,
+                            impl="torch")[0].float()
+    err = ((logits - plain).norm() / plain.norm()).item()
+    info["eval"] = {"rel_norm_err_vs_plain": err, "tol": RESNET_EVAL_TOL,
+                    "top1_on_a_fresh_batch": (logits.argmax(1) == ye)
+                    .float().mean().item(),
+                    "launches": {k: v for k, v in ev_launches.items() if v}}
+    check(torch.isfinite(logits).all().item() and err <= RESNET_EVAL_TOL,
+          f"resnet50 eval: kernel vs plain logits {err}")
+    check_launches(ev_launches, {"bn_fwd": 53, "bn_fwd_eval": 53,
+                                 "bn_fwd_res_relu": 16, "bn_fwd_relu": 33,
+                                 "bn_fwd_bare": 4}, 1, "resnet50_eval")
+    del logits, plain, xe
+    torch.cuda.empty_cache()
+    # a stage-1 bottleneck
+    blk = Bottleneck(256, 128, 512, stride=2)
+    bp, bs = blk.init(torch.Generator(device=dev).manual_seed(4), device=dev)
+    bparams = tree_map(lambda t: t.bfloat16().requires_grad_(), bp)
+    bparams32 = tree_map(lambda t: t.detach().float().requires_grad_(),
+                         bparams)
+    xb = torch.randn((RESNET_CHECK_BATCH, 56, 56, 256),
+                     generator=torch.Generator(device=dev).manual_seed(5),
+                     device=dev)
+    zero_counters()
+
+    def brun(p, impl):
+        half = p is bparams
+        h, _ = blk(p, bs, xb.bfloat16() if half else xb, impl=impl)
+        return (h.float() ** 2).mean()
+
+    info["bottleneck"] = compare_paths(torch, brun, bparams, bparams32,
+                                       "stage 1 block, batch 32", False)
+    del bparams, bparams32, xb
+    # the conv_bias_relu family, a stage-1 3x3 at stride 2 with XLA's SAME
+    g = torch.Generator(device=dev).manual_seed(6)
+    xc = torch.randn((RESNET_CHECK_BATCH, 56, 56, 128), generator=g,
+                     device=dev)
+    w = torch.randn((128, 128, 3, 3), generator=g, device=dev) / 34.0
+    b = torch.randn((128,), generator=g, device=dev)
+    mask = (torch.rand((RESNET_CHECK_BATCH, 28, 28, 128), generator=g,
+                       device=dev) > 0.3).float()
+    scale = torch.rand((128,), generator=g, device=dev) + 0.5
+
+    def plain_conv(xx, ww, op):
+        h = F.conv2d(F.pad(xx.permute(0, 3, 1, 2).contiguous(),
+                           (0, 1, 0, 1)), ww, stride=2).permute(0, 2, 3, 1)
+        if op == "conv_frozen_scale_bias_relu":
+            return torch.relu(h * scale.to(h.dtype) + b.to(h.dtype))
+        h = h + b.to(h.dtype)
+        if op == "conv_bias_mask_relu":
+            h = h * mask.to(h.dtype)
+        return h if op == "conv_bias" else torch.relu(h)
+
+    fam = {}
+    for op in ("conv_bias", "conv_bias_relu", "conv_bias_mask_relu",
+               "conv_frozen_scale_bias_relu"):
+        fn = getattr(cbr, op)
+        xh, wh, bh = xc.bfloat16(), w.bfloat16(), b.bfloat16()
+        if op == "conv_frozen_scale_bias_relu":
+            got = fn(xh, wh, scale.bfloat16(), bh, 2)
+        elif op == "conv_bias_mask_relu":
+            got = fn(xh, wh, bh, mask.bfloat16(), 2)
+        else:
+            got = fn(xh, wh, bh, 2)
+        truth = plain_conv(xc, w, op)
+        plain = plain_conv(xh, wh, op)
+        e = (got.float() - truth).abs().max().item()
+        own = (plain.float() - truth).abs().max().item()
+        lim = 2 * own + 1e-3 * truth.abs().max().item()
+        fam[op] = {"max_abs_err": e, "limit": lim}
+        check(e <= lim, f"contrib {op} at a stage-1 shape: {e} > {lim}")
+    info["conv_bias_relu"] = fam
+    info["contrib_launches"] = {k: v for k, v in read_counters().items() if v}
+    return info, ev_launches
+
+
+def rnnt_step_model(torch, dev):
+    """The RNN-T step's modules and bf16 weights (seeded): the encoder's
+    two LSTM stacks, the predictor's embedding and LSTM, the joint's three
+    projections."""
+    import apex_tpu_torch.rnn as trnn
+
+    c, j = RNNT_STEP, RNNT
+    g = torch.Generator(device=dev).manual_seed(24)
+    pre = trnn.LSTM(c["features"], j["enc"], num_layers=c["pre_layers"])
+    post = trnn.LSTM(j["enc"] * c["stack"], j["enc"],
+                     num_layers=c["post_layers"])
+    pred = trnn.LSTM(c["embed"], j["pred"], num_layers=c["pred_layers"])
+    bf = torch.bfloat16
+
+    def weight(out, fan_in):
+        w = torch.rand((out, fan_in), generator=g, device=dev) * 2 - 1
+        return (w / fan_in ** 0.5).to(bf)
+
+    params = {"pre": pre.init(g, bf, dev), "post": post.init(g, bf, dev),
+              "pred": pred.init(g, bf, dev),
+              "embed": torch.randn((j["vocab"], c["embed"]), generator=g,
+                                   device=dev).to(bf),
+              "w_enc": weight(j["joint"], j["enc"]),
+              "w_pred": weight(j["joint"], j["pred"]),
+              "w_out": weight(j["vocab"], j["joint"])}
+    return (pre, post, pred), params
+
+
+def phase_rnnt_train(torch, dev):
+    """The whole MLPerf RNN-T step on the port's ``rnn.LSTM`` (RNNT_STEP,
+    RNNT): seeded features of 2T frames (T and U as ``rnnt_inputs`` draws
+    them), the encoder (2 LSTM layers, the frames stacked in pairs, 3
+    more), the predictor (the blank as the start symbol, the embedding, 2
+    LSTM layers), contrib's joint (ReLU) and TransducerLoss in fp32, the
+    mean loss; a warm-up step, then 3 FusedSGD steps on the same batch:
+    losses finite and falling, no kernel of the port launched; forward and
+    backward ms, peak memory. (No profile: the step's ~77,000 launches
+    take the profiler some 40 s to tabulate.)"""
+    import torch.nn.functional as F
+    from apex_tpu_torch.contrib.transducer import (TransducerJoint,
+                                                   TransducerLoss)
+    from apex_tpu_torch.optimizers import FusedSGD
+    from apex_tpu_torch.utils.pytree import tree_leaves
+
+    c, j = RNNT_STEP, RNNT
+    _, _, f_len, y_len, labels, _ = rnnt_inputs(torch, dev)
+    B, T, U = j["batch"], int(f_len.max()), int(y_len.max())
+    g = torch.Generator(device=dev).manual_seed(25)
+    feats = torch.randn((B, c["stack"] * T, c["features"]), generator=g,
+                        device=dev).bfloat16()
+    (pre, post, pred), params = rnnt_step_model(torch, dev)
+    leaves = [t.requires_grad_() for t in tree_leaves(params)]
+    opt = FusedSGD(leaves, lr=c["lr"])
+    blank = j["vocab"] - 1
+    joint, loss_fn = TransducerJoint(relu=True), TransducerLoss()
+    start = torch.full((B, 1), blank, dtype=labels.dtype, device=dev)
+
+    def forward():
+        h, _ = pre(params["pre"], feats)
+        h = h.reshape(B, T, c["stack"] * j["enc"])
+        enc, _ = post(params["post"], h)
+        emb = F.embedding(torch.cat([start, labels], 1), params["embed"])
+        p, _ = pred(params["pred"], emb)
+        hj = joint(F.linear(enc, params["w_enc"]),
+                   F.linear(p, params["w_pred"]), f_len, y_len + 1)
+        x = F.linear(hj, params["w_out"]).float()
+        return loss_fn(x, labels, f_len, y_len, blank).mean()
+
+    loss = forward()  # warm-up
+    loss.backward()
+    opt.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    fwd_s, bwd_s, losses = [], [], []
+    for _ in range(c["steps"]):
+        t0 = time.perf_counter()
+        loss = forward()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        fwd_s.append(t1 - t0)
+        bwd_s.append(time.perf_counter() - t1)
+        losses.append(loss.item())
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_launches(launches, {}, 1, "rnnt_train")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"rnnt_train: losses not finite and falling: {losses}")
+    n_params = sum(t.numel() for t in leaves)
+    info = {"config": dict(RNNT_STEP, **{k: j[k] for k in (
+                "batch", "enc", "pred", "joint", "vocab")}),
+            "source": "MLPerf Training RNN-T reference, rnn_speech_"
+                      "recognition/pytorch/configs/baseline_v3-1023sp.yaml",
+            "assumed": {
+                "embedding": "vocab 1024 x 320, N(0, 1), the blank as the "
+                             "start symbol",
+                "time_stacking": "consecutive frame pairs concatenated "
+                                 "(2 x 1024 -> 2048)",
+                "dropout": "none in the LSTMs",
+                "weights": "U(+-1/sqrt(H)) LSTMs, U(+-1/sqrt(fan_in)) joint",
+                "optimizer": f"FusedSGD lr {c['lr']}, one seeded batch"},
+            "shape": {"B": B, "encoder_frames": c["stack"] * T, "T": T,
+                      "U+1": U + 1, "V": j["vocab"]},
+            "parameters": n_params, "losses": losses,
+            "forward_ms": 1e3 * min(fwd_s),
+            "backward_and_step_ms": 1e3 * min(bwd_s),
+            "lstm_time_steps_forward": (c["pre_layers"] * c["stack"] * T
+                                        + c["post_layers"] * T
+                                        + c["pred_layers"] * (U + 1)),
+            "port_launches": {k: v for k, v in launches.items() if v},
+            "peak_memory_gb": peak}
+    del loss, params, leaves, opt
+    torch.cuda.empty_cache()
+    return info, launches
+
+
 def main(argv=None):
     global PARENT, PARENT_ADAM, PTXAS, EMPTY
     import argparse
@@ -10419,6 +11156,26 @@ def main(argv=None):
     as_info, paths["asp_gpt"] = phase_asp_gpt(torch, dev, t_info)
     emit("asp_gpt", as_info)
     torch.cuda.empty_cache()
+
+    section("resnet_rnnt")
+    # --- ResNet-50 and its batch-norm kernel, contrib's conv blocks, the
+    # whole RNN-T step on rnn/'s LSTMs -----------------------------------
+    bn_entries, bn_info = phase_bn_kernel(torch, dev)
+    emit("bn_kernel_check", bn_info)
+    for k in bn_entries:
+        emit("kernel", k)
+    kernels += bn_entries
+    torch.cuda.empty_cache()
+    rn_info, paths["resnet50_train"], trained = phase_resnet50_train(torch,
+                                                                     dev)
+    emit("resnet50_train", rn_info)
+    rc_info, paths["resnet50_eval"] = phase_resnet50_checks(torch, dev,
+                                                            trained)
+    emit("resnet50_checks", rc_info)
+    del trained
+    torch.cuda.empty_cache()
+    rt_info, paths["rnnt_train"] = phase_rnnt_train(torch, dev)
+    emit("rnnt_train", rt_info)
 
     section(None)
     emit("section_seconds", dict(SECTION_SECONDS, build=build_s,

@@ -65,7 +65,11 @@ def test_every_module_imports_with_jax_blocked():
         "'contrib.fmha', 'contrib.multihead_attn', 'contrib.layer_norm', "
         "'contrib.transducer', 'contrib.transducer.transducer', "
         "'contrib.sparsity', 'contrib.sparsity.masklib', "
-        "'contrib.sparsity.permutation', 'contrib.sparsity.asp'):\n"
+        "'contrib.sparsity.permutation', 'contrib.sparsity.asp', "
+        "'ops.batch_norm', 'parallel.sync_batchnorm', 'models.resnet', "
+        "'contrib.conv_bias_relu', 'contrib.bottleneck', "
+        "'contrib.groupbn', 'rnn', 'rnn.cells', 'rnn.backend', "
+        "'reparameterization'):\n"
         "    assert 'apex_tpu_torch.' + want in mods, want\n"
         "assert not any(k.split('.')[0] in ('jax', 'apex_tpu', 'triton') "
         "and sys.modules[k] is not None for k in list(sys.modules))\n"
@@ -107,12 +111,25 @@ def test_entry_points_default_to_the_card(monkeypatch):
         DecodeEngine(model, max_seq_len=128)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ModelDrafter(model, {}, k=2)
+    from apex_tpu_torch.models.resnet import ResNet50, ResNetConfig
+    from apex_tpu_torch.parallel import BatchNormState, SyncBatchNorm
+    from apex_tpu_torch.rnn import LSTMCell
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ResNet50(ResNetConfig(layers=(1, 1, 1, 1))).init(torch.Generator())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchNormState.create(4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SyncBatchNorm(4).init()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LSTMCell(3, 4).init(torch.Generator())
     eng = ServingEngine(model, num_slots=1, block_size=16, device="cpu")
     assert eng.init_pool()["k"].device.type == "cpu"
 
 
 def test_new_entry_points_export_the_reference_names():
     from apex_tpu_torch import inference, monitor, serving
+    from apex_tpu_torch import models, parallel, reparameterization, rnn
+    from apex_tpu_torch.contrib import bottleneck, conv_bias_relu, groupbn
     from apex_tpu_torch.contrib import fmha, focal_loss, multihead_attn
     from apex_tpu_torch.contrib import layer_norm, sparsity, transducer
     from apex_tpu_torch.contrib import xentropy
@@ -132,7 +149,22 @@ def test_new_entry_points_export_the_reference_names():
                                    "search_for_good_permutation",
                                    "sum_after_2_to_4", "apply_permutation",
                                    "invert_permutation")),
-                       (attention, ("seed_from_key",))):
+                       (attention, ("seed_from_key",)),
+                       (conv_bias_relu, ("conv_bias", "conv_bias_relu",
+                                         "conv_bias_mask_relu",
+                                         "conv_frozen_scale_bias_relu")),
+                       (bottleneck, ("Bottleneck",)),
+                       (groupbn, ("BatchNorm2d_NHWC",)),
+                       (models, ("ResNet50", "ResNetConfig")),
+                       (parallel, ("SyncBatchNorm", "BatchNormState",
+                                   "sync_batch_norm", "LARC")),
+                       (rnn, ("RNN", "stacked_rnn", "bidirectional",
+                              "LSTMCell", "GRUCell", "RNNTanhCell",
+                              "RNNReLUCell", "mLSTMCell", "LSTM", "GRU",
+                              "ReLU", "Tanh", "mLSTM")),
+                       (reparameterization, (
+                           "weight_norm_decompose", "weight_norm_compose",
+                           "apply_weight_norm", "remove_weight_norm"))):
         for name in names:
             assert hasattr(mod, name), (mod.__name__, name)
 
@@ -149,3 +181,11 @@ def test_new_entry_points_export_the_reference_names():
     # not stubbed
     for name in ("hooks", "validate_jsonl", "aggregate", "collective_span"):
         assert not hasattr(monitor, name), name
+    # what needs a process group comes with the multi-GPU surface: absent,
+    # not stubbed
+    for mod, name in ((bottleneck, "SpatialBottleneck"),
+                      (bottleneck, "halo_exchange"),
+                      (bottleneck, "spatial_conv3x3"),
+                      (groupbn, "split_data_axis_for_bn"),
+                      (parallel, "create_syncbn_process_group")):
+        assert not hasattr(mod, name), name

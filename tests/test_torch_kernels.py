@@ -101,6 +101,17 @@ FFMA, no TF32) within 1e-5 of the plain version's largest entry. The
 fused-dense and MLP autograd paths: outputs and every gradient within
 2e-2 of the plain path's largest entry in bf16 (one rounding of each
 intermediate on either side).
+
+The batch-norm kernels (``csrc/batch_norm.cu``) against the plain
+version run in fp32 on the upcast inputs (the truth): y, dx and
+dresidual by the norm rule (bf16: twice the bf16 plain version's max abs
+error + 1e-3; fp16: twice the fp16 plain version's + 2^-13 × max(1, the
+largest); fp32: 1e-5 of the largest), the backward given the kernel's own
+y for the ReLU's mask; mean and rstd within 1e-5 of the largest; dscale and
+dbias within 2^-7 (bf16 parameters), 2^-10 (fp16) or 1e-5 (fp32) of the
+largest; y, the statistics and every gradient bit-identical across two
+runs; two planted faults (the last row chunk out of the statistics; dx
+without its x̂ term) refused.
 """
 
 import numpy as np
@@ -108,6 +119,7 @@ import pytest
 import torch
 
 from apex_tpu_torch.ops import attention as amod
+from apex_tpu_torch.ops import batch_norm as bnmod
 from apex_tpu_torch.ops import decode_attention as dmod
 from apex_tpu_torch.ops import fused_verify as vmod
 from apex_tpu_torch.ops import layer_norm as lnmod
@@ -3446,3 +3458,175 @@ def test_wide_norms_dispatch_past_4096(cuda):
     assert mod(empty).shape == (0, 8192)
     with pytest.raises(ValueError, match="queue 2, item 7"):
         lnmod.fused_layer_norm(torch.zeros((1, 65540), device=cuda))
+
+
+# --- batch norm (csrc/batch_norm.cu) ------------------------------------------
+
+#: ResNet-50's batch-norm calls at batch 32 (rows, channels, residual,
+#: ReLU), and a width that is no whole 16-byte vector
+_BN_CALLS = [(401408, 64, False, True), (100352, 256, True, True),
+             (100352, 256, False, False), (25088, 128, False, True),
+             (1568, 2048, True, True), (1001, 13, True, True)]
+_BN_DTYPES = [(torch.bfloat16, torch.bfloat16, torch.float32),
+              (torch.bfloat16, torch.bfloat16, torch.bfloat16),
+              (torch.float32, torch.float32, torch.float32),
+              (torch.float16, torch.float16, torch.float32),
+              (torch.float32, torch.bfloat16, torch.float32)]
+
+
+def _bn_case(M, C, dtype, out_dtype, wdtype, residual, dev, seed=0):
+    """Activations with per-channel offsets and scales and per-image
+    shifts (so a left-out chunk moves the statistics), dy correlated with
+    x̂ (so the x̂ term of dx is large), eval running statistics."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m = torch.rand(C, generator=g, device=dev) * 4 - 2
+    s = torch.rand(C, generator=g, device=dev) * 1.5 + 0.5
+    img = torch.arange(M, device=dev) * 32 // M
+    a = torch.randn((32, C), generator=g, device=dev) * 0.5
+    z = torch.randn((M, C), generator=g, device=dev)
+    x = (m + s * (z + a[img])).to(dtype)
+    xh = (x.float() - m) / s
+    dy = (0.5 * torch.randn((M, C), generator=g, device=dev) + 0.5 * xh
+          + 0.25).to(out_dtype)
+    res = (torch.randn((M, C), generator=g, device=dev).to(out_dtype)
+           if residual else None)
+    sc = (torch.rand(C, generator=g, device=dev) + 0.5).to(wdtype)
+    bi = (torch.randn(C, generator=g, device=dev) * 0.2).to(wdtype)
+    return x, dy, res, sc, bi, (m + 0.1).float(), (s * s).float()
+
+
+def _bn_run(x, dy, res, sc, bi, rm, rv, relu, training, fwd_fault=None,
+            bwd_fault=None):
+    y, st = bnmod.bn_fwd_cuda(x, sc, bi, training=training, eps=1e-5,
+                              running_mean=rm, running_var=rv, residual=res,
+                              relu=relu, out_dtype=dy.dtype,
+                              planted_fault=fwd_fault)
+    grads = bnmod.bn_bwd_cuda(dy, x, y, st, training=training,
+                              residual=res is not None, relu=relu,
+                              w_dtype=sc.dtype, planted_fault=bwd_fault)
+    return y, st, grads
+
+
+def _bn_plain(x, dy, res, sc, bi, rm, rv, relu, training, y_kernel,
+              upcast):
+    f = (lambda t: None if t is None else t.float()) if upcast else (
+        lambda t: t)
+    y, mean, var = bnmod.bn_plain(f(x), f(sc), f(bi), training=training,
+                                  eps=1e-5, running_mean=rm,
+                                  running_var=rv, residual=f(res),
+                                  relu=relu,
+                                  out_dtype=torch.float32 if upcast
+                                  else dy.dtype)
+    grads = bnmod.bn_backward_plain(
+        f(dy), f(x), f(y_kernel), f(sc), f(bi), training=training, eps=1e-5,
+        running_mean=rm, running_var=rv, residual=res is not None,
+        relu=relu)
+    return y, mean, torch.rsqrt(var + 1e-5), grads
+
+
+def _bn_rule(got, plain, truth, dtype):
+    err = (got.float() - truth.float()).abs().max().item()
+    if dtype == torch.float32:
+        return err <= 1e-5 * truth.abs().max().item(), err
+    own = (plain.float() - truth.float()).abs().max().item()
+    slack = (1e-3 if dtype == torch.bfloat16
+             else 2 ** -13 * max(1.0, truth.abs().max().item()))
+    return err <= 2 * own + slack, err
+
+
+def _bn_checks(got, plain, truth, dtypes):
+    """{output: (passes, error)} over y, mean, rstd, dx, dresidual, dscale
+    and dbias."""
+    dtype, out_dtype, wdtype = dtypes
+    y, st, (dx, dres, ds, db) = got
+    yp, _, _, (dxp, dresp, _, _) = plain
+    yt, mt, rt, (dxt, drest, dst, dbt) = truth
+    w_tol = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7,
+             torch.float16: 2 ** -10}[wdtype]
+    out = {"y": _bn_rule(y, yp, yt, out_dtype),
+           "dx": _bn_rule(dx, dxp, dxt, dtype)}
+    if dres is not None:
+        out["dres"] = _bn_rule(dres, dresp, drest, out_dtype)
+    for name, a, b, tol in (("mean", st[0], mt, 1e-5),
+                            ("rstd", st[2], rt, 1e-5),
+                            ("dscale", ds, dst, w_tol),
+                            ("dbias", db, dbt, w_tol)):
+        err = (a.float() - b.float()).abs().max().item()
+        out[name] = (err <= tol * b.float().abs().max().item(), err)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("training", [True, False], ids=["train", "eval"])
+@pytest.mark.parametrize("dtypes", _BN_DTYPES,
+                         ids=lambda d: "-".join(str(t).split(".")[-1]
+                                                for t in d))
+@pytest.mark.parametrize("M,C,residual,relu", _BN_CALLS)
+def test_batch_norm_kernels_match_plain(cuda, M, C, residual, relu, dtypes,
+                                        training):
+    case = _bn_case(M, C, *dtypes, residual, cuda)
+    got = _bn_run(*case, relu, training)
+    plain = _bn_plain(*case, relu, training, got[0], upcast=False)
+    truth = _bn_plain(*case, relu, training, got[0], upcast=True)
+    torch.cuda.synchronize()
+    checks = _bn_checks(got, plain, truth, dtypes)
+    assert all(ok for ok, _ in checks.values()), checks
+    assert got[0].dtype == dtypes[1] and got[2][0].dtype == dtypes[0]
+    assert got[2][2].dtype == dtypes[2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,C,residual,relu", _BN_CALLS)
+def test_batch_norm_is_bit_reproducible(cuda, M, C, residual, relu):
+    case = _bn_case(M, C, torch.bfloat16, torch.bfloat16, torch.float32,
+                    residual, cuda)
+    a, b = (_bn_run(*case, relu, True) for _ in range(2))
+    flat = lambda r: [r[0], r[1], *[t for t in r[2] if t is not None]]  # noqa: E731
+    assert all(torch.equal(u, v) for u, v in zip(flat(a), flat(b)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,C,residual,relu", _BN_CALLS)
+def test_batch_norm_planted_faults_are_refused(cuda, M, C, residual, relu):
+    dtypes = (torch.bfloat16, torch.bfloat16, torch.float32)
+    case = _bn_case(M, C, *dtypes, residual, cuda)
+    got = _bn_run(*case, relu, True)
+    truth = _bn_plain(*case, relu, True, got[0], upcast=True)
+    plain = _bn_plain(*case, relu, True, got[0], upcast=False)
+    for fwd, bwd in (("drop_last_chunk", None), (None, "drop_xhat_term")):
+        bad = _bn_run(*case, relu, True, fwd_fault=fwd, bwd_fault=bwd)
+        checks = _bn_checks(bad, plain, truth, dtypes)
+        assert not all(ok for ok, _ in checks.values()), (fwd, bwd, checks)
+
+
+@pytest.mark.gpu
+def test_sync_batch_norm_autograd_on_the_kernels(cuda):
+    """sync_batch_norm on a CUDA tensor runs the kernels (one forward and
+    one backward launch, counted by epilogue) and matches impl="torch"
+    (the plain path) under autograd; the running statistics too."""
+    from apex_tpu_torch.parallel import BatchNormState, sync_batch_norm
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((8, 14, 14, 256), generator=g, device=cuda).bfloat16()
+    r = torch.randn(x.shape, generator=g, device=cuda).bfloat16()
+    sc = torch.rand(256, generator=g, device=cuda) + 0.5
+    bi = torch.randn(256, generator=g, device=cuda)
+    dy = torch.randn(x.shape, generator=g, device=cuda).bfloat16()
+    outs = {}
+    for impl in ("auto", "torch"):
+        leaves = [t.clone().requires_grad_() for t in (x, sc, bi, r)]
+        st = BatchNormState.create(256, device=cuda)
+        before = (bnmod.bn_fwd_cuda.res_relu_launches,
+                  bnmod.bn_bwd_cuda.res_relu_launches)
+        y, new = sync_batch_norm(leaves[0], leaves[1], leaves[2], st,
+                                 fuse_relu=True, residual=leaves[3],
+                                 impl=impl)
+        (y.float() * dy.float()).sum().backward()
+        after = (bnmod.bn_fwd_cuda.res_relu_launches,
+                 bnmod.bn_bwd_cuda.res_relu_launches)
+        assert [b - a for a, b in zip(before, after)] == (
+            [1, 1] if impl == "auto" else [0, 0])
+        outs[impl] = (y.float(), new.running_var, *[t.grad.float()
+                                                    for t in leaves])
+    for a, b in zip(outs["auto"], outs["torch"]):
+        assert (a - b).abs().max().item() <= 2e-2 * b.abs().max().item()
